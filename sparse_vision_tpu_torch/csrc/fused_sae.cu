@@ -1,0 +1,488 @@
+// Fused ReLU-SAE training kernels for Hopper (sm_90a): forward and backward.
+//
+// Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_sae.py:
+//   sae_fwd_kernel  <- _fwd_kernel (:43), launched by pallas_call :321
+//   sae_bwd_kernel  <- _bwd_kernel (:96), launched by pallas_call :391
+//
+// What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
+// H = 16,384 latents) the forward is 4*T*C*H = 0.55 PFLOP and the backward
+// 8*T*C*H = 1.1 PFLOP, against ~50 MB of operands: both are bounded by
+// arithmetic, not by device memory, as long as the [T, H] latent matrix never
+// reaches device memory (it would be 2 GB in f32 per pass). Both kernels keep it
+// on chip: the forward holds one token tile's reconstruction in registers while
+// it sweeps every latent tile, and the backward recomputes pre/post per token
+// tile while it holds one latent tile's weight gradients in registers.
+//
+// This first version computes with plain FMA loops (f32 accumulation) from
+// shared memory, so it runs at the card's f32 SIMT rate, not its tensor-core
+// rate: it is the correct reference layout for the wgmma/TMA version to come.
+//
+// Numerics follow the Pallas kernels' cast points exactly. The operand type T
+// (float or bf16) is the compute dtype; x, W_enc, W_dec and the saved error
+// arrive already cast to T. Inside:
+//   x_cent = round_T(x - round_T(b_dec))              (a T-typed difference)
+//   pre    = x_cent @ W_enc (f32 sum) + b_enc          (b_enc added in f32)
+//   post   = max(pre, 0); the decode reads round_T(post)
+//   recon  = sum_j round_T(post_j) @ W_dec_j + b_dec   (b_dec added in f32)
+// Every cross-block sum leaves as a per-block partial that the caller reduces
+// (activity counts, the L1 sum, the centring term of db_dec): no float atomics,
+// so two runs on the same inputs give the same bits.
+//
+// Entry points use a plain C interface (pointers, sizes, stream) and return the
+// cudaError_t of the launch; the Python wrapper (ops/fused_sae.py) raises on a
+// non-zero value. Supported shapes: C in {64, 128, 256}, T a multiple of
+// kFwdTT and kBwdTT, H a multiple of kTH (ops/fused_sae.py can_fuse).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 threads: tx picks columns, ty rows
+constexpr int kFwdTT = 64;     // forward: tokens per block
+constexpr int kBwdTT = 32;     // backward: tokens per inner step
+constexpr int kTH = 64;        // latents per tile (both kernels)
+
+template <typename T>
+__device__ __forceinline__ float to_f(T v);
+template <>
+__device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// round a float to the compute dtype (round to nearest even), kept as float
+template <typename T>
+__device__ __forceinline__ float round_cd(float v);
+template <>
+__device__ __forceinline__ float round_cd<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_cd<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <int C>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * (kFwdTT * (C + 1)      // xc_s
+                          + C * kTH             // wenc_s
+                          + kTH * C             // wdec_s
+                          + kFwdTT * (kTH + 1)  // post_s
+                          + kTH                 // benc_s
+                          + kThreads / 32)      // red_s
+         + sizeof(int) * (kTH + kFwdTT);        // colcnt_s, rowcnt_s
+}
+
+// Forward. One block owns kFwdTT tokens and sweeps all H latents in kTH tiles.
+// Thread (ty, tx) holds recon rows ty*4 .. ty*4+3, columns tx + 16*j.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sae_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
+               const float* __restrict__ b_enc, const T* __restrict__ w_dec,
+               const float* __restrict__ b_dec, float* __restrict__ recon,
+               float* __restrict__ act_part, float* __restrict__ row_active,
+               float* __restrict__ l1_part, int H) {
+  constexpr int TT = kFwdTT, TH = kTH;
+  constexpr int XS = C + 1;   // padded row stride: rows 4 apart hit other banks
+  constexpr int PS = TH + 1;
+  constexpr int CJ = C / 16;  // recon columns per thread
+  extern __shared__ float smem[];
+  float* xc_s = smem;                 // [TT][XS]  centred input tile
+  float* wenc_s = xc_s + TT * XS;     // [C][TH]   W_enc[:, h0:h0+TH]
+  float* wdec_s = wenc_s + C * TH;    // [TH][C]   W_dec[h0:h0+TH, :]
+  float* post_s = wdec_s + TH * C;    // [TT][PS]  round_T(post) of this tile
+  float* benc_s = post_s + TT * PS;   // [TH]
+  float* red_s = benc_s + TH;         // [warps]
+  int* colcnt_s = reinterpret_cast<int*>(red_s + kThreads / 32);  // [TH]
+  int* rowcnt_s = colcnt_s + TH;                                  // [TT]
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long t0 = static_cast<long>(blockIdx.x) * TT;
+
+  for (int i = tid; i < TT * C; i += kThreads) {
+    const int r = i / C, k = i % C;
+    xc_s[r * XS + k] =
+        round_cd<T>(to_f(x[(t0 + r) * C + k]) - round_cd<T>(b_dec[k]));
+  }
+  for (int i = tid; i < TT; i += kThreads) rowcnt_s[i] = 0;
+
+  float acc[4][CJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+  int rowcnt[4] = {0, 0, 0, 0};
+  float l1 = 0.f;
+
+  for (int h0 = 0; h0 < H; h0 += TH) {
+    __syncthreads();  // the previous tile is done with wenc_s, wdec_s, post_s
+    for (int i = tid; i < C * TH; i += kThreads) {
+      const int k = i / TH, l = i % TH;
+      wenc_s[i] = to_f(w_enc[static_cast<long>(k) * H + h0 + l]);
+    }
+    for (int i = tid; i < TH * C; i += kThreads)
+      wdec_s[i] = to_f(w_dec[static_cast<long>(h0) * C + i]);
+    for (int i = tid; i < TH; i += kThreads) {
+      benc_s[i] = b_enc[h0 + i];
+      colcnt_s[i] = 0;
+    }
+    __syncthreads();
+
+    // encode: pre[TT, TH] = xc @ W_enc tile, rows ty*4+i, columns tx+16*j
+    float pre[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pre[i][j] = 0.f;
+    for (int k = 0; k < C; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = xc_s[(ty * 4 + i) * XS + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = wenc_s[k * TH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pre[i][j] = fmaf(a[i], b[j], pre[i][j]);
+    }
+    int colc[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = fmaxf(pre[i][j] + benc_s[tx + 16 * j], 0.f);
+        l1 += p;
+        const int on = p > 0.f;
+        colc[j] += on;
+        rowcnt[i] += on;
+        post_s[(ty * 4 + i) * PS + tx + 16 * j] = round_cd<T>(p);
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (colc[j]) atomicAdd(&colcnt_s[tx + 16 * j], colc[j]);  // integer: exact
+    __syncthreads();
+    for (int i = tid; i < TH; i += kThreads)
+      act_part[static_cast<long>(blockIdx.x) * H + h0 + i] =
+          static_cast<float>(colcnt_s[i]);
+
+    // decode: recon[TT, C] += round_T(post) @ W_dec tile
+    for (int l = 0; l < TH; ++l) {
+      float a[4], b[CJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = post_s[(ty * 4 + i) * PS + l];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) b[j] = wdec_s[l * C + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int col = tx + 16 * j;
+      recon[(t0 + ty * 4 + i) * C + col] = acc[i][j] + b_dec[col];
+    }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) atomicAdd(&rowcnt_s[ty * 4 + i], rowcnt[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) l1 += __shfl_down_sync(0xffffffffu, l1, off);
+  if (tid % 32 == 0) red_s[tid / 32] = l1;
+  __syncthreads();
+  for (int i = tid; i < TT; i += kThreads)
+    row_active[t0 + i] = static_cast<float>(rowcnt_s[i]);
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) s += red_s[w];  // fixed order
+    l1_part[blockIdx.x] = s;
+  }
+}
+
+template <int C>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (C * kTH            // wenc_s
+                          + C * kTH          // wdecT_s
+                          + kBwdTT * (C + 1) // xc_s
+                          + kBwdTT * (C + 1) // dr_s
+                          + kBwdTT * kTH     // post_s
+                          + kBwdTT * kTH     // dpre_s
+                          + 16 * kTH         // red_s
+                          + kTH              // benc_s
+                          + kTH);            // bcd_s
+}
+
+// Backward. One block owns kTH latents and sweeps all T tokens in kBwdTT steps,
+// recomputing pre/post for each step; dW_enc[:, tile] and dW_dec[tile, :] stay
+// in registers (64 + 64 floats a thread at C = 256).
+//   drecon = c_rec * err                (f32; the matmuls read round_T(drecon))
+//   dpost  = round_T(drecon) @ W_dec^T + c_l1
+//   dpre   = pre > 0 ? dpost : 0
+//   dW_enc += xc^T @ round_T(dpre)      db_enc += sum_rows dpre (f32)
+//   dW_dec += round_T(post)^T @ round_T(drecon)
+// db_dec leaves as one partial row per block: -round_T(db_enc tile) @ W_enc^T,
+// and block 0 adds the direct term sum_t drecon once.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+sae_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
+               const float* __restrict__ b_enc, const T* __restrict__ w_dec,
+               const float* __restrict__ b_dec, const T* __restrict__ err,
+               const float* __restrict__ coeffs, float* __restrict__ dw_enc,
+               float* __restrict__ db_enc, float* __restrict__ dw_dec,
+               float* __restrict__ db_dec_part, int n_tokens, int H) {
+  constexpr int TT = kBwdTT, TH = kTH;
+  constexpr int XS = C + 1;
+  constexpr int CI = C / 16;  // dW_enc rows (channels) per thread
+  constexpr int CJ = C / 16;  // dW_dec columns (channels) per thread
+  extern __shared__ float smem[];
+  float* wenc_s = smem;               // [C][TH]
+  float* wdecT_s = wenc_s + C * TH;   // [C][TH]  W_dec tile, transposed
+  float* xc_s = wdecT_s + C * TH;     // [TT][XS]
+  float* dr_s = xc_s + TT * XS;       // [TT][XS] round_T(drecon)
+  float* post_s = dr_s + TT * XS;     // [TT][TH] round_T(post)
+  float* dpre_s = post_s + TT * TH;   // [TT][TH] round_T(dpre)
+  float* red_s = dpre_s + TT * TH;    // [16][TH]
+  float* benc_s = red_s + 16 * TH;    // [TH]
+  float* bcd_s = benc_s + TH;         // [TH] round_T(db_enc)
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int h0 = blockIdx.x * TH;
+  const float c_rec = coeffs[0], c_l1 = coeffs[1];
+
+  for (int i = tid; i < C * TH; i += kThreads) {
+    const int k = i / TH, l = i % TH;
+    wenc_s[i] = to_f(w_enc[static_cast<long>(k) * H + h0 + l]);
+  }
+  for (int i = tid; i < TH * C; i += kThreads) {
+    const int l = i / C, k = i % C;
+    wdecT_s[k * TH + l] = to_f(w_dec[static_cast<long>(h0) * C + i]);
+  }
+  for (int i = tid; i < TH; i += kThreads) benc_s[i] = b_enc[h0 + i];
+
+  float gwe[CI][4], gwd[4][CJ], gbe[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < CI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) gwe[i][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) gwd[i][j] = 0.f;
+  float direct = 0.f;  // block 0, thread k < C: sum_t drecon[t, k]
+
+  for (int t0 = 0; t0 < n_tokens; t0 += TT) {
+    __syncthreads();  // the previous step is done with xc_s, dr_s, post_s, dpre_s
+    for (int i = tid; i < TT * C; i += kThreads) {
+      const int r = i / C, k = i % C;
+      const long g = static_cast<long>(t0 + r) * C + k;
+      xc_s[r * XS + k] = round_cd<T>(to_f(x[g]) - round_cd<T>(b_dec[k]));
+      dr_s[r * XS + k] = round_cd<T>(c_rec * to_f(err[g]));
+    }
+    if (blockIdx.x == 0 && tid < C)
+      for (int r = 0; r < TT; ++r)
+        direct += c_rec * to_f(err[static_cast<long>(t0 + r) * C + tid]);
+    __syncthreads();
+
+    // pre and dpost [TT, TH]: rows ty*2+i, columns tx+16*j
+    float pre[2][4], dpo[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pre[i][j] = dpo[i][j] = 0.f;
+    for (int k = 0; k < C; ++k) {
+      float a1[2], a2[2], b1[4], b2[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        a1[i] = xc_s[(ty * 2 + i) * XS + k];
+        a2[i] = dr_s[(ty * 2 + i) * XS + k];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b1[j] = wenc_s[k * TH + tx + 16 * j];
+        b2[j] = wdecT_s[k * TH + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pre[i][j] = fmaf(a1[i], b1[j], pre[i][j]);
+          dpo[i][j] = fmaf(a2[i], b2[j], dpo[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = ty * 2 + i, col = tx + 16 * j;
+        const float p = pre[i][j] + benc_s[col];
+        const float dp = p > 0.f ? dpo[i][j] + c_l1 : 0.f;
+        gbe[j] += dp;
+        post_s[row * TH + col] = round_cd<T>(fmaxf(p, 0.f));
+        dpre_s[row * TH + col] = round_cd<T>(dp);
+      }
+    __syncthreads();
+
+    // dW_enc[k, l] += sum_r xc[r, k] * dpre[r, l]: rows k = ty*CI+i, cols tx+16*j
+    for (int r = 0; r < TT; ++r) {
+      float a[CI], b[4];
+#pragma unroll
+      for (int i = 0; i < CI; ++i) a[i] = xc_s[r * XS + ty * CI + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = dpre_s[r * TH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < CI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gwe[i][j] = fmaf(a[i], b[j], gwe[i][j]);
+    }
+    // dW_dec[l, k] += sum_r post[r, l] * drecon[r, k]: rows l = ty*4+i, cols tx+16*j
+    for (int r = 0; r < TT; ++r) {
+      float a[4], b[CJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = post_s[r * TH + ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) b[j] = dr_s[r * XS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) gwd[i][j] = fmaf(a[i], b[j], gwd[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < CI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      dw_enc[static_cast<long>(ty * CI + i) * H + h0 + tx + 16 * j] = gwe[i][j];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j)
+      dw_dec[static_cast<long>(h0 + ty * 4 + i) * C + tx + 16 * j] = gwd[i][j];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red_s[ty * TH + tx + 16 * j] = gbe[j];
+  __syncthreads();
+  for (int l = tid; l < TH; l += kThreads) {
+    float s = 0.f;
+    for (int g = 0; g < 16; ++g) s += red_s[g * TH + l];  // fixed order
+    db_enc[h0 + l] = s;
+    bcd_s[l] = round_cd<T>(s);
+  }
+  __syncthreads();
+  for (int k = tid; k < C; k += kThreads) {
+    float s = 0.f;
+    for (int l = 0; l < TH; ++l) s = fmaf(bcd_s[l], wenc_s[k * TH + l], s);
+    float v = -s;
+    if (blockIdx.x == 0) v += direct;  // C <= kThreads: thread k summed column k
+    db_dec_part[static_cast<long>(blockIdx.x) * C + k] = v;
+  }
+}
+
+template <typename T, int C>
+cudaError_t launch_fwd(const void* x, const void* w_enc, const float* b_enc,
+                       const void* w_dec, const float* b_dec, float* recon,
+                       float* act_part, float* row_active, float* l1_part, int n_tokens,
+                       int H, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<C>();
+  auto kernel = sae_fwd_kernel<T, C>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<n_tokens / kFwdTT, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_enc), b_enc,
+      static_cast<const T*>(w_dec), b_dec, recon, act_part, row_active, l1_part, H);
+  return cudaGetLastError();
+}
+
+template <typename T, int C>
+cudaError_t launch_bwd(const void* x, const void* w_enc, const float* b_enc,
+                       const void* w_dec, const float* b_dec, const void* err,
+                       const float* coeffs, float* dw_enc, float* db_enc, float* dw_dec,
+                       float* db_dec_part, int n_tokens, int H, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<C>();
+  auto kernel = sae_bwd_kernel<T, C>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<H / kTH, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_enc), b_enc,
+      static_cast<const T*>(w_dec), b_dec, static_cast<const T*>(err), coeffs, dw_enc,
+      db_enc, dw_dec, db_dec_part, n_tokens, H);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_fwd(int C, const void* x, const void* w_enc, const float* b_enc,
+                         const void* w_dec, const float* b_dec, float* recon,
+                         float* act_part, float* row_active, float* l1_part,
+                         int n_tokens, int H, cudaStream_t s) {
+  switch (C) {
+    case 64:
+      return launch_fwd<T, 64>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
+                               row_active, l1_part, n_tokens, H, s);
+    case 128:
+      return launch_fwd<T, 128>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
+                                row_active, l1_part, n_tokens, H, s);
+    case 256:
+      return launch_fwd<T, 256>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
+                                row_active, l1_part, n_tokens, H, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(int C, const void* x, const void* w_enc, const float* b_enc,
+                         const void* w_dec, const float* b_dec, const void* err,
+                         const float* coeffs, float* dw_enc, float* db_enc,
+                         float* dw_dec, float* db_dec_part, int n_tokens, int H,
+                         cudaStream_t s) {
+  switch (C) {
+    case 64:
+      return launch_bwd<T, 64>(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc,
+                               db_enc, dw_dec, db_dec_part, n_tokens, H, s);
+    case 128:
+      return launch_bwd<T, 128>(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc,
+                                db_enc, dw_dec, db_dec_part, n_tokens, H, s);
+    case 256:
+      return launch_bwd<T, 256>(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc,
+                                db_enc, dw_dec, db_dec_part, n_tokens, H, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// act_part is [n_tokens / 64, H] (per-token-tile activity counts), l1_part is
+// [n_tokens / 64]; bf16 != 0 selects __nv_bfloat16 operands, else float.
+extern "C" int svt_sae_fwd(int bf16, const void* x, const void* w_enc,
+                           const float* b_enc, const void* w_dec, const float* b_dec,
+                           float* recon, float* act_part, float* row_active,
+                           float* l1_part, int n_tokens, int C, int H,
+                           cudaStream_t stream) {
+  if (n_tokens <= 0 || H <= 0 || n_tokens % kFwdTT || H % kTH)
+    return cudaErrorInvalidValue;
+  return bf16 ? dispatch_fwd<__nv_bfloat16>(C, x, w_enc, b_enc, w_dec, b_dec, recon,
+                                            act_part, row_active, l1_part, n_tokens,
+                                            H, stream)
+              : dispatch_fwd<float>(C, x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
+                                    row_active, l1_part, n_tokens, H, stream);
+}
+
+// coeffs is a 2-float device array (c_rec, c_l1); db_dec_part is [H / 64, C].
+extern "C" int svt_sae_bwd(int bf16, const void* x, const void* w_enc,
+                           const float* b_enc, const void* w_dec, const float* b_dec,
+                           const void* err, const float* coeffs, float* dw_enc,
+                           float* db_enc, float* dw_dec, float* db_dec_part,
+                           int n_tokens, int C, int H, cudaStream_t stream) {
+  if (n_tokens <= 0 || H <= 0 || n_tokens % kBwdTT || H % kTH)
+    return cudaErrorInvalidValue;
+  return bf16 ? dispatch_bwd<__nv_bfloat16>(C, x, w_enc, b_enc, w_dec, b_dec, err,
+                                            coeffs, dw_enc, db_enc, dw_dec,
+                                            db_dec_part, n_tokens, H, stream)
+              : dispatch_bwd<float>(C, x, w_enc, b_enc, w_dec, b_dec, err, coeffs,
+                                    dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, H,
+                                    stream);
+}

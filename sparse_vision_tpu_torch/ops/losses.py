@@ -1,0 +1,62 @@
+"""Loss functions (port of sparse_vision_tpu/ops/losses.py, the sae_mlp subset).
+
+Reference semantics: SparseLoss / compute_rmse_nrmse (losses/sparse_loss.py:4-61),
+total-loss assembly (utils.py:2467-2475), CustomCrossEntropyLoss (utils.py:99-125).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmse_nrmse(decoded: torch.Tensor, targets: torch.Tensor):
+    """Per-dimension RMSE over the batch axis, and range-normalized NRMSE.
+    Dimensions constant across the batch (range 0) are excluded from the NRMSE
+    mean, so the metric stays finite once units die."""
+    sq = torch.square(decoded - targets)
+    sample_mse = sq.mean(0)
+    sample_range = targets.amax(0) - targets.amin(0)  # in the targets' dtype
+    sample_rmse = torch.sqrt(sample_mse)
+    valid = sample_range > 0
+    one = torch.ones((), dtype=sample_range.dtype, device=sample_range.device)
+    ratio = sample_rmse / torch.where(valid, sample_range, one)
+    nrmse = torch.where(valid, ratio, torch.zeros_like(ratio)).sum() / valid.sum().clamp(min=1)
+    return sample_rmse.mean(), nrmse
+
+
+def sae_loss_terms(encoded: torch.Tensor, decoded: torch.Tensor,
+                   targets: torch.Tensor, lambda_sparse: float) -> dict:
+    """ReLU-SAE loss: MSE reconstruction + mean|encoded| L1, plus RMSE/NRMSE.
+    total = rec + lambda * l1 (reference utils.py:2467-2470)."""
+    rec = torch.square(decoded - targets).mean()
+    l1 = encoded.abs().mean()
+    rmse, nrmse = rmse_nrmse(decoded, targets)
+    return {
+        "loss": rec + lambda_sparse * l1,
+        "rec_loss": rec,
+        "l1_loss": l1,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": torch.zeros((), dtype=decoded.dtype, device=decoded.device),
+    }
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over integer labels (torch nn.CrossEntropyLoss)."""
+    return F.cross_entropy(logits, targets.long())
+
+
+def negative_log_likelihood(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """NLL over already-softmaxed outputs: -log(p[target] + 1e-40), averaged."""
+    p = probs.gather(-1, targets.long()[:, None])[:, 0]
+    return (-torch.log(p + 1e-40)).mean()
+
+
+def get_criterion(name: str):
+    """Criterion factory (reference utils.py:127-137)."""
+    if name == "cross_entropy":
+        return cross_entropy
+    if name == "negative_log_likelihood":
+        return negative_log_likelihood
+    raise ValueError(f"Unsupported criterion: {name}")

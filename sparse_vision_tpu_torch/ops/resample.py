@@ -1,0 +1,90 @@
+"""Dead-neuron resampling and its schedule (port of sparse_vision_tpu/ops/resample.py).
+
+Reference semantics (sae_mlp.py:79-184 reset_encoder_weights +
+model_pipeline.py:771-794): with n = dead_neurons_steps and i = the 1-based train
+step, resample at i = 2n+1, 4n+1, ...; reset the dead-neuron measurement without
+resampling at i = n, 3n, 5n, ... So the SAE alternates n measured steps ->
+resample -> n burn-in steps -> ...
+
+The step counter is a host integer here, so the schedule is plain Python. The
+Kaiming draws of a resample are arguments: the train step makes them with a
+torch.Generator on the device, and tests hand in the JAX package's draws.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sparse_vision_tpu_torch.models.sae import kaiming_uniform
+
+
+def should_resample(step: int, dead_neurons_steps: int) -> bool:
+    """1-based train step i: true at i = 2n+1, 4n+1, ... (model_pipeline.py:771-775)."""
+    i, n = step, dead_neurons_steps
+    return (i - 1) % n == 0 and ((i - 1) // n) % 2 == 0 and i - 1 != 0
+
+
+def should_reset_measurement(step: int, dead_neurons_steps: int) -> bool:
+    """True at i = n, 3n, 5n, ... (model_pipeline.py:786-788)."""
+    i, n = step, dead_neurons_steps
+    return i == n or (i > n and i % n == 0 and (i // n) % 2 == 1)
+
+
+def kaiming_draws(generator: torch.Generator, d: int, h: int, d_out: int):
+    """The two draws of one resample: encoder rows in torch layout [h, d] (fan_in d)
+    and decoder entries in torch layout [d_out, h] (fan_in h)."""
+    enc = kaiming_uniform(generator, (h, d), fan_in=d)
+    dec = kaiming_uniform(generator, (d_out, h), fan_in=h)
+    return enc, dec
+
+
+def resample_dead_neurons(params: dict, opt_state: dict, dead_mask: torch.Tensor,
+                          enc_draw: torch.Tensor, dec_draw: torch.Tensor):
+    """Re-initialize the dead latents of an sae_mlp and zero their Adam moments.
+
+    Faithful to reference sae_mlp.py:103-176, quirks included:
+    - new encoder rows: ``enc_draw`` [h, d], row-normalized to the mean L2 norm of
+      the LIVE encoder rows (torch rows [h, d] are our W_enc columns [d, h]);
+    - new decoder entries: ``dec_draw`` [d_out, h] with its rows normalized to the
+      mean over act dims of ``norm(W_dec[:, live], dim=1)`` (the reference norms
+      the act-axis rows ACROSS live latents, sae_mlp.py:118-120); dead columns are
+      spliced in and ALL directions renormalized to unit norm;
+    - b_enc[dead] = mean(|b_enc[live]|);
+    - Adam mu / nu slices of dead latents are zeroed for W_enc, b_enc, W_dec; the
+      step count is kept.
+    With no live latents the norms fall back to 1. Returns (params, opt_state),
+    both new dicts."""
+    w_enc, b_enc, w_dec = params["W_enc"], params["b_enc"], params["W_dec"]
+    live = ~dead_mask
+    any_live = live.any()  # stays on the device: no host sync
+    n_live = live.sum().clamp(min=1)
+    zero = torch.zeros((), dtype=w_enc.dtype, device=w_enc.device)
+    one = torch.ones((), dtype=w_enc.dtype, device=w_enc.device)
+
+    enc_norms = torch.linalg.vector_norm(w_enc, dim=0)  # [h]
+    avg_l2_enc = torch.where(any_live, torch.where(live, enc_norms, zero).sum() / n_live, one)
+    new_enc_t = enc_draw / torch.linalg.vector_norm(enc_draw, dim=1, keepdim=True) * avg_l2_enc
+    new_w_enc = torch.where(dead_mask[None, :], new_enc_t.T, w_enc)
+
+    avg_abs_b = torch.where(any_live, torch.where(live, b_enc.abs(), zero).sum() / n_live, zero)
+    new_b_enc = torch.where(dead_mask, avg_abs_b, b_enc)
+
+    dec_live = torch.where(live[:, None], w_dec, zero)  # [h, d_out]
+    quirk_norms = torch.linalg.vector_norm(dec_live, dim=0)  # [d_out]
+    avg_l2_dec = torch.where(any_live, quirk_norms.mean(), one)
+    new_dec_t = dec_draw / torch.linalg.vector_norm(dec_draw, dim=1, keepdim=True) * avg_l2_dec
+    new_w_dec = torch.where(dead_mask[:, None], new_dec_t.T, w_dec)
+    new_w_dec = new_w_dec / torch.linalg.vector_norm(new_w_dec, dim=1, keepdim=True)
+
+    new_params = dict(params)
+    new_params.update(W_enc=new_w_enc, b_enc=new_b_enc, W_dec=new_w_dec)
+
+    def zero_dead(m: dict) -> dict:
+        return {**m,
+                "W_enc": torch.where(dead_mask[None, :], zero, m["W_enc"]),
+                "b_enc": torch.where(dead_mask, zero, m["b_enc"]),
+                "W_dec": torch.where(dead_mask[:, None], zero, m["W_dec"])}
+
+    new_state = dict(opt_state)
+    new_state.update(mu=zero_dead(opt_state["mu"]), nu=zero_dead(opt_state["nu"]))
+    return new_params, new_state

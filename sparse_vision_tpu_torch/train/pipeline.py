@@ -1,0 +1,246 @@
+"""Run orchestration for the SAE training slice (port of the cached-training and
+modified-model-eval parts of sparse_vision_tpu/train/pipeline.py).
+
+``Pipeline(cfg).train_sae_cached()`` runs the north-star chain: frozen GoogLeNet
+-> tap ``sae_layer`` -> activation cache -> SAE training (the fused CUDA kernels
+on a GPU, their plain versions on the CPU) with dead-latent tracking and
+resampling -> eval by splicing the SAE back into the backbone, before and after
+each epoch. Figures, top-k files, the results CSV, checkpoints and weight export
+are not ported yet; a config that asks for anything outside the slice raises
+NotImplementedError naming the field.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sparse_vision_tpu_torch.config import RunConfig
+from sparse_vision_tpu_torch.data.datasets import load_data
+from sparse_vision_tpu_torch.device import resolve_device
+from sparse_vision_tpu_torch.models.backbone import (
+    get_sae_input_size,
+    init_backbone,
+    layer_dimensions,
+    make_backbone,
+)
+from sparse_vision_tpu_torch.models.sae import init_sae_mlp
+from sparse_vision_tpu_torch.ops import metrics, optim
+from sparse_vision_tpu_torch.ops.losses import get_criterion
+from sparse_vision_tpu_torch.train.steps import (
+    init_sae_train_state,
+    make_sae_eval_step,
+    make_sae_train_multi_step,
+    make_sae_train_step_from_acts,
+)
+
+# field -> (supported values, or None for "the JAX default only"), checked by
+# validate_slice; anything else is not ported yet
+_SLICE = {
+    "model_name": ("inceptionv1", "googlenet"),
+    "dataset_name": ("imagenet",),
+    "sae_model_name": ("sae_mlp",),
+    "sae_optimizer_name": ("constrained_adam", "adam"),
+    "cache_dtype": ("float32", "bfloat16", "int8"),
+    "compute_dtype": ("bfloat16", "float32"),
+    "model_criterion_name": ("cross_entropy", "negative_log_likelihood"),
+    "original_model": (False,),
+    "mis": ("0",),
+    "compute_ie": ("0",),
+    "sae_checkpoint_epoch": (0,),
+    "data_dir": ("",),
+    "mesh_shape": ((),),
+    "overlap_dump_train": (False,),
+    "sae_input_norm": ("none",),
+    "sae_e2e_finetune_epochs": (0,),
+    "sae_weights_path": ("",),
+    "wandb_status": (False,),
+    "imagenet_class_filter": ("",),
+    "transcoder_target_layer": ("",),
+    "crosscoder_layers": ("",),
+    "profile_dir": ("",),
+}
+
+
+def validate_slice(cfg: RunConfig) -> None:
+    """Raise NotImplementedError, naming the field, for a value the port does not
+    support yet."""
+    for field, ok in _SLICE.items():
+        value = getattr(cfg, field)
+        if value not in ok:
+            raise NotImplementedError(
+                f"RunConfig.{field}={value!r} is not ported yet (supported: {ok})")
+    if cfg.training and not cfg.use_activation_cache:
+        raise NotImplementedError(
+            "RunConfig.use_activation_cache=False: only cached SAE training is ported")
+
+
+class Pipeline:
+    # steps per stack of the cached path (the JAX package's lax.scan block); the
+    # cache shards are sized to a multiple of it so a stack is one shard slice
+    CACHE_SCAN_K = 8
+
+    def __init__(self, cfg: RunConfig, device=None, datasets=None,
+                 backbone: Optional[tuple] = None, sae_params: Optional[dict] = None):
+        """``device``: None means CUDA (raises without a GPU); "cpu" runs the plain
+        versions of the kernels. ``datasets`` optionally injects
+        ``(train_ds, val_ds, category_names, img_size)``. ``backbone`` =
+        (params, state) and ``sae_params`` optionally replace the random init,
+        e.g. with the JAX package's weights through convert.py."""
+        validate_slice(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.net = make_backbone(cfg.model_name, cfg.dataset_name)
+        if datasets is None:
+            datasets = load_data(cfg)
+        self.train_ds, self.val_ds, self.category_names, self.img_size = datasets
+        self.criterion = get_criterion(cfg.model_criterion_name)
+
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        if backbone is None:
+            backbone = init_backbone(self.net, gen, cfg.dataset_name)
+        self.frozen_params, self.net_state = _to_device(backbone, self.device)
+        self.sae_input_size = get_sae_input_size(self.net, cfg.dataset_name, cfg.sae_layer)
+        self.num_units = int(self.sae_input_size * cfg.sae_expansion_factor)
+        if sae_params is None:
+            sae_params = init_sae_mlp(gen, self.sae_input_size, cfg.sae_expansion_factor)
+        self.sae_params = _to_device(sae_params, self.device)
+        self.tx = optim.get_optimizer(cfg.sae_optimizer_name, cfg.sae_learning_rate)
+        self.ts = init_sae_train_state(self.sae_params, self.tx, self.num_units, seed=cfg.seed)
+        self.train_log: list = []  # (step, metrics of that step)
+        self.eval_log: list = []  # (epoch, means)
+        self.train_timing: list = []  # per epoch: steps, tokens, seconds
+
+    # ------------------------------------------------------------------
+    def _cache_dir(self, layer: str) -> str:
+        """Per-layer cache directory, shared by every run on this backbone (same
+        scheme as the JAX package's evaluation_results/activation_cache/<layer>)."""
+        cfg = self.cfg
+        return os.path.join(cfg.directory_path, cfg.model_name, cfg.dataset_name,
+                            f"evaluation_results_{cfg.sae_model_name}",
+                            "activation_cache", layer)
+
+    def _cache_dump_kwargs(self) -> dict:
+        cfg = self.cfg
+        block = self.CACHE_SCAN_K * cfg.cache_tokens_per_step
+        return dict(
+            batch_size=cfg.sae_batch_size,
+            dtype=cfg.cache_dtype,
+            # a multiple of the stack block, so stacks are zero-copy shard slices
+            shard_tokens=block * max(1, -(-(1 << 16) // block)),
+        )
+
+    def _log_train(self, step: int, m: dict) -> None:
+        self.train_log.append((step, m))
+        if step % self.cfg.log_every == 0:
+            print(f"[train step {step}] "
+                  + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(m.items())))
+
+    def train_sae_cached(self):
+        from sparse_vision_tpu_torch.data.activation_cache import (
+            ActivationCache,
+            dump_activations,
+        )
+        from sparse_vision_tpu_torch.ops.fused_sae import can_fuse
+
+        cfg = self.cfg
+        scan_k = self.CACHE_SCAN_K
+        tps = cfg.cache_tokens_per_step
+        cache_dir = self._cache_dir(cfg.sae_layer)
+        if not os.path.exists(os.path.join(cache_dir, "meta.json")):
+            print(f"Building activation cache at {cache_dir} ...")
+            dump_activations(self.net, self.frozen_params, self.net_state, self.train_ds,
+                             cfg.sae_layer, cache_dir, device=self.device,
+                             **self._cache_dump_kwargs())
+        cache = ActivationCache(cache_dir)
+
+        fused = cfg.use_pallas
+        if fused and self.device.type == "cuda" and not can_fuse(tps, self.num_units,
+                                                                  self.sae_input_size):
+            # no quiet fallback to the stock step on the card
+            raise ValueError(
+                f"the fused SAE kernels do not take T={tps}, H={self.num_units}, "
+                f"C={self.sae_input_size} (ops/fused_sae.can_fuse); set use_pallas=False "
+                "for the stock step")
+        step_fn = make_sae_train_step_from_acts(
+            cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
+            cfg.sae_expansion_factor, fused=fused,
+            fused_opts={"compute_dtype": cfg.compute_dtype})
+        multi_fn = make_sae_train_multi_step(step_fn)
+
+        last_eval = self.eval_modified(epoch=0)
+        for epoch in range(cfg.sae_epochs):
+            t0 = time.perf_counter()
+            steps0 = self.ts.step
+            for stack in cache.stacks(tps, scan_k, shuffle=True, seed=cfg.seed + epoch):
+                stack = stack.to(self.device, non_blocking=True)
+                step0 = self.ts.step
+                self.ts, ms = multi_fn(self.ts, stack)
+                for j in range(stack.shape[0]):
+                    self._log_train(step0 + j + 1, {k: v[j] for k, v in ms.items()})
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            steps = self.ts.step - steps0
+            self.train_timing.append({"epoch": epoch, "steps": steps, "tokens": steps * tps,
+                                      "seconds": time.perf_counter() - t0})
+            last_eval = self.eval_modified(epoch=epoch + 1)
+        return last_eval
+
+    # ------------------------------------------------------------------
+    @property
+    def _sae_eval_step_fn(self):
+        if not hasattr(self, "_sae_eval_step_cache"):
+            cfg = self.cfg
+            self._sae_eval_step_cache = make_sae_eval_step(
+                self.net, cfg.sae_layer, cfg.sae_model_name, cfg.sae_lambda_sparse,
+                cfg.sae_expansion_factor, self.criterion)
+        return self._sae_eval_step_cache
+
+    def eval_modified(self, epoch: int) -> dict:
+        """Means over the validation batches of every eval-step metric, plus exact
+        accuracy and perc_dead_units (units dead in every batch)."""
+        step_fn = self._sae_eval_step_fn
+        bs = self.cfg.eval_batch_size or self._auto_eval_batch_size()
+        sums, correct, dead_acc, num_batches = None, None, None, 0
+        for b in self.val_ds.batches(bs, shuffle=False):
+            images = torch.from_numpy(b.images).to(self.device, non_blocking=True)
+            labels = torch.from_numpy(b.labels).to(self.device, non_blocking=True)
+            m, arrays = step_fn(self.ts.params, self.frozen_params, self.net_state,
+                                images, labels)
+            num_batches += 1
+            sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
+            correct = arrays["correct"] if correct is None else correct + arrays["correct"]
+            dead_acc = metrics.update_dead_accumulator(dead_acc, arrays["dead"])
+        if num_batches == 0:
+            raise ValueError("Empty evaluation dataset")
+        means = {k: float(v) / num_batches for k, v in sums.items()}  # one readback
+        means["accuracy"] = int(correct) / (num_batches * bs)
+        means["perc_dead_units"] = float(dead_acc.float().mean())
+        self.eval_log.append((epoch, means))
+        print(f"[eval epoch {epoch}] "
+              + ", ".join(f"{k}={v:.5g}" for k, v in sorted(means.items())))
+        return means
+
+    def _auto_eval_batch_size(self) -> int:
+        """sae_batch_size, clamped so the stock eval step's [B*H*W, latents] f32
+        block stays under ~2 GB (256 images of 28x28 mixed3a tokens at 16k latents
+        would need ~13 GB for it)."""
+        bs = self.cfg.sae_batch_size
+        shape = layer_dimensions(self.net, self.cfg.dataset_name)[self.cfg.sae_layer]
+        tokens_per_image = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+        max_bs = max(1, (2 << 30) // max(tokens_per_image * self.num_units * 4, 1))
+        return int(min(bs, max_bs))
+
+
+def _to_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    raise TypeError(f"unexpected tree node {type(tree)}")

@@ -1,0 +1,170 @@
+"""SAE train and eval steps (port of the sae_mlp parts of
+sparse_vision_tpu/train/steps.py).
+
+The JAX package jits one pure step over an explicit train state; here a step is
+an eager function over the same state: gradients of ``rec + λ·l1`` by autograd
+(through the fused op's autograd.Function when ``fused``), the ConstrainedAdam
+or Adam update, the dead-latent accumulator, and the scheduled resample/reset.
+The step counter is a host integer, so the schedule needs no device sync.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from sparse_vision_tpu_torch.models.sae import sae_inference_and_loss
+from sparse_vision_tpu_torch.ops import metrics, optim
+from sparse_vision_tpu_torch.ops.resample import (
+    kaiming_draws,
+    resample_dead_neurons,
+    should_reset_measurement,
+    should_resample,
+)
+
+
+class SAETrainState(NamedTuple):
+    params: dict
+    opt_state: dict
+    step: int  # completed train batches (train_batch_idx)
+    dead_acc: torch.Tensor  # bool [h]: running AND across batches since the last reset
+    rng: torch.Generator  # draws of the resamples, on the parameters' device
+
+
+def init_sae_train_state(sae_params: dict, tx: optim.Optimizer, hidden: int,
+                         seed: int = 0) -> SAETrainState:
+    device = sae_params["W_enc"].device
+    return SAETrainState(
+        params=sae_params,
+        opt_state=tx.init(sae_params),
+        step=0,
+        dead_acc=torch.ones((hidden,), dtype=torch.bool, device=device),
+        rng=torch.Generator(device=device).manual_seed(seed),
+    )
+
+
+def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
+                                  tx: optim.Optimizer, dead_neurons_steps: int,
+                                  expansion_factor: int, fused: bool = False,
+                                  fused_opts: Optional[dict] = None):
+    """SAE train step over pre-extracted activations [T, C] (the activation-cache
+    training mode), sae_mlp only.
+
+    ``fused=True`` routes forward, loss and statistics through
+    ops/fused_sae.fused_sae_loss_terms: the CUDA kernels on a CUDA tensor, their
+    plain versions on a CPU tensor. ``fused_opts`` may set ``compute_dtype``.
+
+    The returned ``step_fn(ts, act, resample_draws=None) -> (ts, metrics)``
+    resamples with Kaiming draws from ``ts.rng`` unless ``resample_draws`` =
+    (enc [h, d], dec [d, h]) is given (tests inject the JAX package's draws).
+
+    Reproduced quirk: ``perc_dead`` is read AFTER the reset/resample branch, so at
+    a measurement boundary it reports the freshly reset all-True accumulator
+    (100% dead), exactly as the JAX step does (ROADMAP queue C)."""
+    if sae_model_name != "sae_mlp":
+        raise NotImplementedError(f"SAE {sae_model_name!r} is not ported (sae_mlp)")
+    if fused:
+        from sparse_vision_tpu_torch.ops.fused_sae import fused_sae_loss_terms
+
+        def loss_fn(params, act):
+            return fused_sae_loss_terms(params, act, lambda_sparse, expansion_factor,
+                                        **(fused_opts or {}))
+    else:
+        def loss_fn(params, act):
+            return sae_inference_and_loss(sae_model_name, params, act, lambda_sparse)
+
+    def step_fn(ts: SAETrainState, act: torch.Tensor, resample_draws=None):
+        keys = list(ts.params)
+        params = {k: v.detach().requires_grad_(True) for k, v in ts.params.items()}
+        out = loss_fn(params, act)
+        loss = out["loss"]
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        with torch.no_grad():
+            grads = dict(zip(keys, grads))
+            updates, opt_state = tx.update(grads, ts.opt_state, ts.params)
+            new_params = optim.apply_updates(ts.params, updates)
+            step = ts.step + 1
+            if fused:
+                dead, sparsity = out["dead"], out["sparsity"]
+            else:
+                dead, sparsity, _ = metrics.measure_inactive_units(
+                    out["encoded"], expansion_factor)
+            dead_acc = ts.dead_acc & dead
+            if should_resample(step, dead_neurons_steps):
+                if resample_draws is None:
+                    d, h = new_params["W_enc"].shape
+                    resample_draws = kaiming_draws(ts.rng, d, h, new_params["W_dec"].shape[1])
+                new_params, opt_state = resample_dead_neurons(
+                    new_params, opt_state, dead_acc, *resample_draws)
+                dead_acc = torch.ones_like(dead_acc)
+            elif should_reset_measurement(step, dead_neurons_steps):
+                dead_acc = torch.ones_like(dead_acc)
+            m = {
+                "sae_loss": loss.detach(),
+                "sae_rec_loss": out["rec_loss"].detach(),
+                "sae_l1_loss": out["l1_loss"].detach(),
+                "sparsity": sparsity,
+                "perc_dead": dead_acc.sum() / dead_acc.shape[0],
+            }
+        return SAETrainState(new_params, opt_state, step, dead_acc, ts.rng), m
+
+    return step_fn
+
+
+def make_sae_train_multi_step(step_fn):
+    """Run a ``(ts, act) -> (ts, metrics)`` step over a stacked [K, T, C]
+    microbatch sequence; metrics come back stacked [K]. A Python loop: the JAX
+    package's lax.scan dispatch, with CUDA graphs left for later."""
+
+    def multi(ts: SAETrainState, acts_stack: torch.Tensor):
+        ms = []
+        for act in acts_stack:
+            ts, m = step_fn(ts, act)
+            ms.append(m)
+        return ts, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return multi
+
+
+def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: float,
+                       expansion_factor: int, criterion):
+    """Eval step for the SAE-spliced model: the reference's eval-epoch quantities
+    for one batch (model_pipeline.py:661-714 + 806-878), in plain torch (the JAX
+    eval is stock XLA too). Returns (batch_metrics, arrays) with arrays 'dead',
+    'freq' and 'correct'."""
+    last = net.stage_names[-1]
+
+    @torch.no_grad()
+    def step_fn(sae_params, frozen_params, frozen_state, images, labels):
+        logits_orig, taps, _ = net.apply(frozen_params, images, state=frozen_state)
+        act = taps[sae_layer]
+        out = sae_inference_and_loss(sae_model_name, sae_params, act, lambda_sparse)
+        logits_mod = net.apply_segment(frozen_params, out["decoded"], after=sae_layer,
+                                       upto=last, state=frozen_state)
+        loss_mod = criterion(logits_mod, labels)
+        loss_orig = criterion(logits_orig, labels)
+        dead, sparsity, freq = metrics.measure_inactive_units(out["encoded"], expansion_factor)
+        batch_metrics = {
+            "model_loss": loss_mod,
+            "loss_diff": loss_mod - loss_orig,
+            "accuracy": metrics.accuracy(logits_mod, labels),
+            "kld": metrics.kld_original_vs_modified(logits_orig, logits_mod),
+            "perc_same": metrics.perc_same_classification(logits_orig, logits_mod),
+            "sae_loss": out["loss"],
+            "sae_rec_loss": out["rec_loss"],
+            "sae_l1_loss": out["l1_loss"],
+            "sae_nrmse_loss": out["nrmse_loss"],
+            "sae_rmse_loss": out["rmse_loss"],
+            "sae_aux_loss": out["aux_loss"],
+            "sparsity": sparsity,
+            "var_expl": metrics.variance_explained(act, out["decoded"]),
+        }
+        arrays = {
+            "dead": dead,
+            "freq": freq,
+            "correct": (logits_mod.argmax(1) == labels).sum(),
+        }
+        return batch_metrics, arrays
+
+    return step_fn

@@ -1,0 +1,197 @@
+"""The port's fused SAE op (plain versions of the CUDA kernels, the CPU path)
+against the JAX fused_sae_loss_terms run as tests/test_fused_sae.py runs it:
+Pallas interpret mode, small tiles.
+
+Tolerances:
+- f32 compute: forward values rtol 1e-5; dead, activity and sparsity exact;
+  gradients of rec + λ·l1 at rtol 1e-4, atol 1e-7 (tests/test_fused_sae.py).
+- bf16 compute: the cast points are the same on both sides, so the forward,
+  db_enc and dW_dec agree to f32 summation order (rtol 1e-4: a bf16 rounding of
+  an operand may flip when its f32 value moved by one ulp). Two outputs need
+  more room, for reasons on the JAX side:
+  * dW_enc: the interpret-mode Pallas kernel's transposed bf16 product
+    (x_centᵀ·dpre) differs from the same formula written in plain jnp by up to
+    0.2% of max|dW_enc|; the port equals that plain-jnp formula exactly
+    (test_bf16_backward_equals_jnp_replica). Tolerance: one bf16 ulp (2^-8) of
+    max|dW_enc|.
+  * db_dec: its centring term multiplies a bf16-rounded db_enc; the TPU kernel
+    rounds each token tile's partial sum, the port the whole batch's sum once,
+    so each term can differ by a bf16 half-ulp of db_enc: 1e-2 of max|db_dec|.
+"""
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from sparse_vision_tpu.models.sae import init_sae_mlp
+from sparse_vision_tpu.ops.fused_sae import fused_sae_loss_terms as jax_fused
+from sparse_vision_tpu_torch import convert
+from sparse_vision_tpu_torch.ops import fused_sae
+
+T, C, H_EXP = 128, 64, 4
+LAMBDA = 0.7
+JTILES = dict(tile_t=64, tile_h=128, interpret=True)
+CASES = {
+    # name: (compute dtype, x dtype)
+    "f32": ("float32", "float32"),
+    "bf16": ("bfloat16", "float32"),
+    "bf16_cache": ("bfloat16", "bfloat16"),  # x straight from a bf16 activation cache
+}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = init_sae_mlp(jax.random.key(0), C, H_EXP)
+    # 16 latents can never fire (dead), the rest fire on part of the tokens
+    b_enc = (params["b_enc"] - 0.1).at[:16].add(-100.0)
+    params = jax.device_get({**params, "b_enc": b_enc, "b_dec": params["b_dec"] + 0.05})
+    x = np.random.default_rng(1).normal(size=(T, C)).astype(np.float32)
+    return params, x
+
+
+def _inputs(setup, x_dtype):
+    params, x = setup
+    if x_dtype == "bfloat16":
+        xb = x.astype(ml_dtypes.bfloat16)
+        return params, jnp.asarray(xb), torch.from_numpy(xb.view(np.uint16)).view(torch.bfloat16)
+    return params, jnp.asarray(x), torch.from_numpy(x)
+
+
+def _run(setup, case):
+    cd, xd = CASES[case]
+    params, jx, tx = _inputs(setup, xd)
+    jout = jax_fused(params, jx, LAMBDA, H_EXP, compute_dtype=JDT[cd], **JTILES)
+    jgrad = jax.grad(lambda p: jax_fused(p, jx, LAMBDA, H_EXP, compute_dtype=JDT[cd],
+                                         **JTILES)["loss"])(params)
+    tp = {k: v.requires_grad_(True) for k, v in convert.sae_params_from_jax(params).items()}
+    tout = fused_sae.fused_sae_loss_terms(tp, tx, LAMBDA, H_EXP, compute_dtype=TDT[cd])
+    tgrad = dict(zip(tp, torch.autograd.grad(tout["loss"], list(tp.values()))))
+    return jout, jgrad, tout, tgrad
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_jax(setup, case):
+    jout, _, tout, _ = _run(setup, case)
+    rtol = 1e-5 if case == "f32" else 1e-4
+    for k in ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss", "aux_loss"):
+        np.testing.assert_allclose(float(tout[k].detach()), float(jout[k]), rtol=rtol, err_msg=k)
+    np.testing.assert_allclose(tout["decoded"].detach().numpy(), np.asarray(jout["decoded"]),
+                               rtol=rtol, atol=1e-6)
+    np.testing.assert_array_equal(tout["dead"].numpy(), np.asarray(jout["dead"]))
+    np.testing.assert_array_equal(tout["activity_freq"].numpy(),
+                                  np.asarray(jout["activity_freq"]))
+    np.testing.assert_allclose(float(tout["sparsity"]), float(jout["sparsity"]), rtol=1e-6)
+    assert bool(jout["dead"].any()) and not bool(jout["dead"].all())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradients_match_jax(setup, case):
+    _, jgrad, _, tgrad = _run(setup, case)
+    for k in ("W_enc", "b_enc", "W_dec", "b_dec"):
+        ref = np.asarray(jgrad[k])
+        if case == "f32":
+            rtol, atol = 1e-4, 1e-7
+        else:
+            rtol, atol = {"W_enc": (0, 2.0**-8 * np.abs(ref).max()),
+                          "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+
+
+def test_bf16_backward_equals_jnp_replica(setup):
+    """In bf16 the port's backward equals the Pallas backward body's formulas
+    (fused_sae.py:_bwd_kernel) written in plain jnp, on one token tile, to f32
+    rounding."""
+    params, x = setup
+    bf = jnp.bfloat16
+    tp = convert.sae_params_from_jax(params)
+    t, h = T, C * H_EXP
+    rng = np.random.default_rng(2)
+    err = (0.1 * rng.normal(size=(T, C))).astype(ml_dtypes.bfloat16)
+    c = np.array([2.0 / (t * C), LAMBDA / (t * h)], np.float32)
+    jx = jnp.asarray(x).astype(bf)
+    xc = (jx - jnp.asarray(params["b_dec"]).astype(bf)).astype(bf)
+    w_enc, w_dec = jnp.asarray(params["W_enc"]).astype(bf), jnp.asarray(params["W_dec"]).astype(bf)
+    pre = jnp.dot(xc, w_enc, preferred_element_type=jnp.float32) + params["b_enc"]
+    post = jnp.maximum(pre, 0.0)
+    drecon = c[0] * jnp.asarray(err).astype(jnp.float32)
+    dims_t = (((0,), (0,)), ((), ()))
+    dpost = jax.lax.dot_general(drecon.astype(bf), w_dec, (((1,), (1,)), ((), ())),
+                                preferred_element_type=jnp.float32) + c[1]
+    dpre = jnp.where(pre > 0, dpost, 0.0)
+    db_enc = jnp.sum(dpre, axis=0)
+    ref = (
+        jax.lax.dot_general(xc, dpre.astype(bf), dims_t, preferred_element_type=jnp.float32),
+        db_enc,
+        jax.lax.dot_general(post.astype(bf), drecon.astype(bf), dims_t,
+                            preferred_element_type=jnp.float32),
+        jnp.sum(drecon, axis=0) - jnp.dot(db_enc.astype(bf), w_enc.T,
+                                           preferred_element_type=jnp.float32),
+    )
+    got = fused_sae.fused_sae_backward_plain(
+        torch.from_numpy(x).to(torch.bfloat16), tp["W_enc"].to(torch.bfloat16), tp["b_enc"],
+        tp["W_dec"].to(torch.bfloat16), tp["b_dec"],
+        torch.from_numpy(err.view(np.uint16)).view(torch.bfloat16), torch.from_numpy(c))
+    for a, b, name in zip(got, ref, ("W_enc", "b_enc", "W_dec", "b_dec")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-8, err_msg=name)
+
+
+def test_plain_backward_matches_autograd_of_plain_forward(setup):
+    """The explicit backward equals autograd through the plain forward (f32)."""
+    params, x = setup
+    tp = convert.sae_params_from_jax(params)
+    xt = torch.from_numpy(x)
+    t, h = T, C * H_EXP
+    coeffs = torch.tensor([2.0 / (t * C), LAMBDA / (t * h)])
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    recon, _, _, l1 = fused_sae.fused_sae_forward_plain(
+        xt, leaves["W_enc"], leaves["b_enc"], leaves["W_dec"], leaves["b_dec"])
+    loss = (recon - xt).square().mean() + LAMBDA * l1 / (t * h)
+    auto = torch.autograd.grad(loss, [leaves[k] for k in ("W_enc", "b_enc", "W_dec", "b_dec")])
+    err = (recon - xt).detach()
+    mine = fused_sae.fused_sae_backward_plain(xt, tp["W_enc"], tp["b_enc"], tp["W_dec"],
+                                              tp["b_dec"], err, coeffs)
+    for a, b, name in zip(mine, auto, ("W_enc", "b_enc", "W_dec", "b_dec")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-7, err_msg=name)
+
+
+def test_non_cpu_tensor_never_takes_the_plain_path(setup):
+    """Only a CPU tensor runs the plain version; any other device must launch a
+    kernel or raise (here: a meta tensor raises)."""
+    params, x = setup
+    tp = {k: v.to("meta") for k, v in convert.sae_params_from_jax(params).items()}
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_sae.fused_sae_forward(torch.empty(T, C, device="meta"), tp["W_enc"],
+                                    tp["b_enc"], tp["W_dec"], tp["b_dec"])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_sae.fused_sae_backward(torch.empty(T, C, device="meta"), tp["W_enc"],
+                                     tp["b_enc"], tp["W_dec"], tp["b_dec"],
+                                     torch.empty(T, C, device="meta"),
+                                     torch.empty(2, device="meta"))
+
+
+@pytest.mark.parametrize("t,h,c,ok", [
+    (32768, 16384, 256, True), (512, 1024, 128, True), (64, 64, 64, True),
+    (100, 1024, 256, False), (512, 1000, 256, False), (512, 1024, 96, False),
+    (512, 1024, 512, False),
+])
+def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
+    assert fused_sae.can_fuse(t, h, c) is ok
+
+
+def test_kernel_wrapper_validates_before_launch(setup):
+    """Shape and dtype checks run before any library is loaded, so a bad call
+    fails the same way on every machine."""
+    params, x = setup
+    tp = convert.sae_params_from_jax(params)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_sae.fwd_kernel(torch.from_numpy(x[:100]), tp["W_enc"], tp["b_enc"],
+                             tp["W_dec"], tp["b_dec"])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_sae.fwd_kernel(torch.from_numpy(x), tp["W_enc"].to(torch.bfloat16),
+                             tp["b_enc"], tp["W_dec"], tp["b_dec"])
+    assert fused_sae.fwd_kernel.launches == 0 and fused_sae.bwd_kernel.launches == 0

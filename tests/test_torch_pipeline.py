@@ -1,0 +1,120 @@
+"""The slice as a whole: the JAX Pipeline and the port's Pipeline on the same
+small GoogLeNet-mixed3a config and the same weights (the JAX pipeline's own,
+carried over with convert.py), each dumping its own activation cache, training
+from it and evaluating by splicing the SAE back into the backbone.
+
+Small: 32 px images (mixed3a is 4 x 4 x 256), 64 train / 32 val images, 2x
+expansion (512 latents), 8 steps of 128 tokens, f32 cache and compute, and
+dead_neurons_steps large enough that no resample fires. Both pipelines run with
+CACHE_SCAN_K = 2, so the JAX logger sees every second step.
+
+Tolerances: the caches differ by the two frameworks' f32 convolution rounding
+(~1e-6 relative, test_torch_googlenet.py), which training carries forward: losses
+rtol 1e-4, eval means rtol 1e-4. Means that are differences of nearly equal
+numbers (loss_diff, kld: ~1e-6 here) get atol 1e-5; counting metrics
+(perc_same, perc_dead_units, accuracy) are compared exactly.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from sparse_vision_tpu.config import RunConfig as JConfig
+from sparse_vision_tpu.data.datasets import make_synthetic as j_synth
+from sparse_vision_tpu.train.pipeline import Pipeline as JPipeline
+from sparse_vision_tpu.utils.logging import RunLogger
+from sparse_vision_tpu_torch import convert
+from sparse_vision_tpu_torch.config import RunConfig as TConfig
+from sparse_vision_tpu_torch.data.datasets import make_synthetic as t_synth
+from sparse_vision_tpu_torch.train.pipeline import Pipeline as TPipeline
+
+SIZE = (32, 32, 3)
+CFG = dict(
+    model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
+    sae_model_name="sae_mlp", sae_expansion_factor=2, sae_lambda_sparse=1.0,
+    sae_optimizer_name="constrained_adam", sae_learning_rate=1e-3, sae_batch_size=16,
+    use_activation_cache=True, cache_tokens_per_step=128, cache_dtype="float32",
+    compute_dtype="float32", sae_epochs=1, dead_neurons_steps=1000, seed=3,
+)
+
+
+class _Recorder(RunLogger):
+    def __init__(self):
+        super().__init__("test", log_every=10**9)
+        self.train = {}
+
+    def log_train(self, step, metrics):
+        self.train[step] = {k: float(v) for k, v in metrics.items()}
+
+
+def _datasets(make):
+    tr = make(num_samples=64, img_size=SIZE, num_classes=1000, seed=3)
+    va = make(num_samples=32, img_size=SIZE, num_classes=1000, seed=4)
+    return tr, va, tr.category_names, SIZE
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    jcfg = JConfig(**CFG, directory_path=str(tmp_path_factory.mktemp("jax")))
+    jlog = _Recorder()
+    jpipe = JPipeline(jcfg, logger=jlog, datasets=_datasets(j_synth))
+    backbone = convert.backbone_from_jax(jax.device_get(jpipe.frozen_params),
+                                         jax.device_get(jpipe.net_state))
+    sae = convert.sae_params_from_jax(jax.device_get(jpipe.ts.params))
+    tcfg = TConfig(**CFG, directory_path=str(tmp_path_factory.mktemp("torch")))
+    tpipe = TPipeline(tcfg, device="cpu", datasets=_datasets(t_synth), backbone=backbone,
+                      sae_params=sae)
+    np.testing.assert_array_equal(tpipe.train_ds.images, jpipe.train_ds.images)
+    jpipe.CACHE_SCAN_K = tpipe.CACHE_SCAN_K = 2
+    jmeans = jpipe.train_sae_cached()
+    tmeans = tpipe.train_sae_cached()
+    return jpipe, jlog, jmeans, tpipe, tmeans
+
+
+def test_per_step_losses_match_jax(runs):
+    _, jlog, _, tpipe, _ = runs
+    tsteps = {s: {k: float(v) for k, v in m.items()} for s, m in tpipe.train_log}
+    assert sorted(tsteps) == list(range(1, 9))
+    assert sorted(jlog.train) == [2, 4, 6, 8]
+    for s, jm in jlog.train.items():
+        for k in ("sae_loss", "sae_rec_loss", "sae_l1_loss", "sparsity", "perc_dead"):
+            np.testing.assert_allclose(tsteps[s][k], jm[k], rtol=1e-4, err_msg=f"step {s} {k}")
+    assert tsteps[8]["sae_loss"] < tsteps[1]["sae_loss"]
+
+
+def test_final_params_match_jax(runs):
+    jpipe, _, _, tpipe, _ = runs
+    assert tpipe.ts.step == int(jpipe.ts.step) == 8
+    for k, v in jpipe.ts.params.items():
+        np.testing.assert_allclose(tpipe.ts.params[k].numpy(), np.asarray(v), rtol=2e-3,
+                                   atol=2e-5, err_msg=k)
+
+
+def test_eval_means_match_jax(runs):
+    _, _, jmeans, _, tmeans = runs
+    assert set(tmeans) == set(jmeans)
+    for k, jv in jmeans.items():
+        if k in ("perc_same", "perc_dead_units", "accuracy"):
+            assert tmeans[k] == pytest.approx(jv, abs=1e-6), k
+        elif k in ("loss_diff", "kld"):
+            np.testing.assert_allclose(tmeans[k], jv, atol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_allclose(tmeans[k], jv, rtol=1e-4, atol=1e-7, err_msg=k)
+
+
+def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
+    base = TConfig(**CFG, directory_path=str(tmp_path))
+    for field, value in [("sae_model_name", "gated_sae"), ("mesh_shape", (2,)),
+                         ("overlap_dump_train", True), ("data_dir", "/data")]:
+        with pytest.raises(NotImplementedError, match=field):
+            TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
+                      datasets=_datasets(t_synth))
+
+
+def test_default_device_raises_without_a_gpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TPipeline(TConfig(**CFG, directory_path=str(tmp_path)), datasets=_datasets(t_synth))

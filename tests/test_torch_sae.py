@@ -1,0 +1,159 @@
+"""The port's sae_mlp, losses and metrics against the JAX package on the same inputs.
+
+Inputs come from numpy.random.default_rng; JAX-initialized parameters reach the
+port through convert.py. Tolerance: rtol 1e-5 (f32 on both sides; the two
+frameworks sum in different orders), atol 1e-6 for elementwise arrays whose
+entries can be near zero.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparse_vision_tpu.models import sae as jsae
+from sparse_vision_tpu.ops import losses as jlosses
+from sparse_vision_tpu.ops import metrics as jmetrics
+from sparse_vision_tpu_torch import convert
+from sparse_vision_tpu_torch.models import sae as tsae
+from sparse_vision_tpu_torch.ops import losses as tlosses
+from sparse_vision_tpu_torch.ops import metrics as tmetrics
+
+RTOL, ATOL = 1e-5, 1e-6
+C, K, LAMBDA = 32, 4, 0.7
+
+
+def close(t, j, rtol=RTOL, atol=ATOL, msg=""):
+    t = t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    np.testing.assert_allclose(t, np.asarray(j), rtol=rtol, atol=atol, err_msg=msg)
+
+
+@pytest.fixture(scope="module")
+def params():
+    p = jsae.init_sae_mlp(jax.random.key(0), C, K)
+    p = {**p, "b_enc": p["b_enc"] - 0.05, "b_dec": p["b_dec"] + 0.01}
+    np_p = jax.device_get(p)
+    return np_p, convert.sae_params_from_jax(np_p)
+
+
+def test_init_sae_mlp_layout_and_bounds():
+    gen = torch.Generator().manual_seed(0)
+    p = tsae.init_sae_mlp(gen, C, K)
+    assert p["W_enc"].shape == (C, C * K) and p["W_dec"].shape == (C * K, C)
+    assert p["b_enc"].shape == (C * K,) and p["b_dec"].shape == (C,)
+    assert float(p["W_enc"].abs().max()) <= (6.0 / C) ** 0.5
+    np.testing.assert_allclose(torch.linalg.vector_norm(p["W_dec"], dim=1).numpy(), 1.0,
+                               rtol=1e-6)
+    assert float(p["b_enc"].abs().sum()) == 0.0
+
+
+def test_kaiming_uniform_bound_and_device():
+    gen = torch.Generator().manual_seed(3)
+    w = tsae.kaiming_uniform(gen, (64, 16), fan_in=16)
+    assert w.device.type == "cpu" and w.shape == (64, 16)
+    assert float(w.abs().max()) <= (6.0 / 16) ** 0.5
+
+
+def test_sae_mlp_apply_matches_jax(params):
+    np_p, tp = params
+    x = np.random.default_rng(1).normal(size=(200, C)).astype(np.float32)
+    j = jsae.sae_mlp_apply(np_p, jnp.asarray(x))
+    t = tsae.sae_mlp_apply(tp, torch.from_numpy(x))
+    for a, b, name in zip(t, j, ("encoded", "decoded", "pre")):
+        close(a, b, msg=name)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 5, C), (120, C)])
+def test_sae_inference_and_loss_matches_jax(params, shape):
+    np_p, tp = params
+    act = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    j = jsae.sae_inference_and_loss("sae_mlp", np_p, jnp.asarray(act), LAMBDA)
+    t = tsae.sae_inference_and_loss("sae_mlp", tp, torch.from_numpy(act), LAMBDA)
+    for k in ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss", "aux_loss"):
+        close(t[k], j[k], msg=k)
+    for k in ("encoded", "encoded_pre", "decoded"):
+        assert tuple(t[k].shape) == tuple(j[k].shape), k
+        close(t[k], j[k], msg=k)
+
+
+def test_tokens_keep_nhwc_order():
+    act = np.arange(2 * 3 * 4 * 5, dtype=np.float32).reshape(2, 3, 4, 5)
+    tok, transformed = tsae.tokens_from_act(torch.from_numpy(act))
+    jtok, _ = jsae.tokens_from_act(jnp.asarray(act))
+    assert transformed
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    back = tsae.act_from_tokens(tok, act.shape)
+    np.testing.assert_array_equal(back.numpy(), act)
+
+
+def test_sae_encode_decode_match_jax(params):
+    np_p, tp = params
+    tok = np.random.default_rng(3).normal(size=(50, C)).astype(np.float32)
+    enc_t = tsae.sae_encode("sae_mlp", tp, torch.from_numpy(tok))
+    enc_j = jsae.sae_encode("sae_mlp", np_p, jnp.asarray(tok))
+    close(enc_t, enc_j)
+    close(tsae.sae_decode("sae_mlp", tp, enc_t), jsae.sae_decode("sae_mlp", np_p, enc_j))
+
+
+def test_unported_sae_raises(params):
+    _, tp = params
+    with pytest.raises(NotImplementedError):
+        tsae.sae_inference_and_loss("gated_sae", tp, torch.zeros(4, C), LAMBDA)
+
+
+def test_rmse_nrmse_excludes_zero_range_dims():
+    rng = np.random.default_rng(4)
+    tgt = rng.normal(size=(64, 8)).astype(np.float32)
+    tgt[:, 3] = 1.5  # constant dim: excluded from NRMSE
+    dec = tgt + 0.1 * rng.normal(size=tgt.shape).astype(np.float32)
+    t = tlosses.rmse_nrmse(torch.from_numpy(dec), torch.from_numpy(tgt))
+    j = jlosses.rmse_nrmse(jnp.asarray(dec), jnp.asarray(tgt))
+    close(t[0], j[0])
+    close(t[1], j[1])
+    assert np.isfinite(float(t[1]))
+
+
+@pytest.mark.parametrize("name", ["cross_entropy", "negative_log_likelihood"])
+def test_criteria_match_jax(name):
+    rng = np.random.default_rng(5)
+    logits = rng.normal(size=(16, 10)).astype(np.float32)
+    labels = rng.integers(0, 10, size=16).astype(np.int32)
+    if name == "negative_log_likelihood":
+        logits = np.array(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    t = tlosses.get_criterion(name)(torch.from_numpy(logits), torch.from_numpy(labels))
+    j = jlosses.get_criterion(name)(jnp.asarray(logits), jnp.asarray(labels))
+    close(t, j)
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 4, 16), (3, 6, 16), (12, 16)])
+def test_measure_inactive_units_and_variance_match_jax(shape):
+    rng = np.random.default_rng(6)
+    x = np.maximum(rng.normal(size=shape) - 0.8, 0).astype(np.float32)
+    x[..., 2] = 0.0  # a dead unit
+    recon = (x + 0.05 * rng.normal(size=shape)).astype(np.float32)
+    dt, st, ft = tmetrics.measure_inactive_units(torch.from_numpy(x), 2)
+    dj, sj, fj = jmetrics.measure_inactive_units(jnp.asarray(x), 2)
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    close(st, sj)
+    close(ft, fj)
+    close(tmetrics.variance_explained(torch.from_numpy(x), torch.from_numpy(recon)),
+          jmetrics.variance_explained(jnp.asarray(x), jnp.asarray(recon)))
+    close(tmetrics.spatial_mean(torch.from_numpy(x)), jmetrics.spatial_mean(jnp.asarray(x)))
+
+
+def test_logit_metrics_match_jax():
+    rng = np.random.default_rng(7)
+    a = rng.normal(size=(32, 10)).astype(np.float32)
+    b = (a + 0.5 * rng.normal(size=a.shape)).astype(np.float32)
+    labels = rng.integers(0, 10, size=32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    close(tmetrics.kld_original_vs_modified(ta, tb), jmetrics.kld_original_vs_modified(ja, jb))
+    close(tmetrics.perc_same_classification(ta, tb), jmetrics.perc_same_classification(ja, jb))
+    close(tmetrics.accuracy(ta, torch.from_numpy(labels)), jmetrics.accuracy(ja, jnp.asarray(labels)))
+    dead = rng.random(20) < 0.3
+    close(tmetrics.perc_dead(torch.from_numpy(dead)), jmetrics.perc_dead(jnp.asarray(dead)))
+    acc = tmetrics.update_dead_accumulator(None, torch.from_numpy(dead))
+    acc = tmetrics.update_dead_accumulator(acc, torch.from_numpy(~dead))
+    assert not bool(acc.any())

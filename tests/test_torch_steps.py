@@ -1,0 +1,137 @@
+"""A training trajectory through the port's make_sae_train_step_from_acts against
+the JAX step on the same batches, crossing the measurement reset at step n and
+the resample at step 2n+1 with some latents dead; the JAX resample draws are
+injected into the port's step.
+
+The fused case runs the JAX Pallas op in interpret mode with f32 compute
+(tests/test_training_parity.py:103-105) against the port's plain fused op (the
+CPU path of the CUDA kernels). Tolerances (tests/test_training_parity.py:114-119):
+losses rtol 2e-4; final params rtol 2e-3, atol 2e-5 (Adam's first steps divide by
+sqrt(nu) and amplify f32 rounding of tiny gradients); dead accumulators equal.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparse_vision_tpu.models.sae import init_sae_mlp, kaiming_uniform
+from sparse_vision_tpu.ops import optim as joptim
+from sparse_vision_tpu.train.steps import init_sae_train_state as j_init
+from sparse_vision_tpu.train.steps import make_sae_train_step_from_acts as j_make
+from sparse_vision_tpu_torch import convert
+from sparse_vision_tpu_torch.ops import optim as toptim
+from sparse_vision_tpu_torch.train import steps as tsteps
+
+T, C, K, N, STEPS, LAMBDA, LR = 64, 64, 2, 3, 9, 0.5, 1e-3
+H = C * K
+
+
+def _setup():
+    params = init_sae_mlp(jax.random.key(0), C, K)
+    params = {**params, "b_enc": (params["b_enc"] - 0.05).at[:8].add(-100.0)}  # 8 dead
+    rng = np.random.default_rng(0)
+    batches = [rng.normal(size=(T, C)).astype(np.float32) for _ in range(STEPS)]
+    return jax.device_get(params), batches
+
+
+def _jax_resample_draws(step: int, seed: int = 0):
+    """The draws the JAX step makes at 1-based ``step``: it splits its rng once
+    per step and resample_dead_neurons splits the sub-key into (enc, dec)."""
+    key = jax.random.key(seed)
+    for _ in range(step):
+        key, sub = jax.random.split(key)
+    k_enc, k_dec = jax.random.split(sub)
+    enc = np.array(kaiming_uniform(k_enc, (H, C), fan_in=C))
+    dec = np.array(kaiming_uniform(k_dec, (C, H), fan_in=H))
+    return torch.from_numpy(enc), torch.from_numpy(dec)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_trajectory_matches_jax_across_reset_and_resample(fused):
+    params, batches = _setup()
+    jtx = joptim.get_optimizer("constrained_adam", LR)
+    jts = j_init(jax.tree.map(jnp.asarray, params), jtx, H, seed=0)
+    jopts = dict(tile_t=32, tile_h=128, compute_dtype=jnp.float32, interpret=True)
+    jstep = j_make("sae_mlp", LAMBDA, jtx, N, K, fused=fused,
+                   fused_opts=jopts if fused else None)
+
+    ttx = toptim.get_optimizer("constrained_adam", LR)
+    tts = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), ttx, H, seed=0)
+    tstep = tsteps.make_sae_train_step_from_acts(
+        "sae_mlp", LAMBDA, ttx, N, K, fused=fused, fused_opts={"compute_dtype": "float32"})
+
+    resample_at = 2 * N + 1
+    jl, tl = [], []
+    for i, x in enumerate(batches, start=1):
+        jts, jm = jstep(jts, jnp.asarray(x))
+        draws = _jax_resample_draws(i) if i == resample_at else None
+        tts, tm = tstep(tts, torch.from_numpy(x), resample_draws=draws)
+        jl.append(float(jm["sae_loss"]))
+        tl.append(float(tm["sae_loss"]))
+        np.testing.assert_array_equal(tts.dead_acc.numpy(), np.asarray(jts.dead_acc),
+                                      err_msg=f"dead_acc at step {i}")
+        np.testing.assert_allclose(float(tm["perc_dead"]), float(jm["perc_dead"]), rtol=1e-6)
+        np.testing.assert_allclose(float(tm["sparsity"]), float(jm["sparsity"]), rtol=1e-5)
+        if i in (N, resample_at):  # reset / resample: the quirk reads the fresh all-True acc
+            assert float(tm["perc_dead"]) == 1.0
+    assert tts.step == int(jts.step) == STEPS
+    np.testing.assert_allclose(tl, jl, rtol=2e-4)
+    for k in params:
+        np.testing.assert_allclose(tts.params[k].numpy(), np.asarray(jts.params[k]),
+                                   rtol=2e-3, atol=2e-5, err_msg=f"final {k}")
+    # the resample revived the never-firing latents: their biases left -100
+    assert float(tts.params["b_enc"][:8].min()) > -1.0
+
+
+def test_multi_step_equals_single_steps():
+    params, batches = _setup()
+    tx = toptim.get_optimizer("constrained_adam", LR)
+    step = tsteps.make_sae_train_step_from_acts("sae_mlp", LAMBDA, tx, 100, K, fused=True,
+                                                fused_opts={"compute_dtype": "float32"})
+    multi = tsteps.make_sae_train_multi_step(step)
+    ts_a = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), tx, H)
+    ts_b = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), tx, H)
+    stack = torch.from_numpy(np.stack(batches[:4]))
+    ts_a, ms = multi(ts_a, stack)
+    losses = []
+    for x in stack:
+        ts_b, m = step(ts_b, x)
+        losses.append(float(m["sae_loss"]))
+    np.testing.assert_array_equal(ms["sae_loss"].numpy(), np.array(losses, np.float32))
+    for k in params:
+        np.testing.assert_array_equal(ts_a.params[k].numpy(), ts_b.params[k].numpy())
+    assert ts_a.step == ts_b.step == 4
+
+
+def test_unported_variant_raises():
+    tx = toptim.get_optimizer("adam", LR)
+    with pytest.raises(NotImplementedError):
+        tsteps.make_sae_train_step_from_acts("topk_sae", LAMBDA, tx, 10, K)
+
+
+@pytest.mark.parametrize("opt_name", ["constrained_adam", "adam"])
+def test_state_converted_mid_run_continues_like_jax(opt_name):
+    """convert.train_state_from_jax carries params, Adam moments and count,
+    the step counter and the dead accumulator: after 4 JAX steps both packages
+    continue through the reset at step 2n = 6 to the same state."""
+    params, batches = _setup()
+    jtx = joptim.get_optimizer(opt_name, LR)
+    jts = j_init(jax.tree.map(jnp.asarray, params), jtx, H, seed=0)
+    jstep = j_make("sae_mlp", LAMBDA, jtx, 2 * N, K)
+    for x in batches[:4]:
+        jts, _ = jstep(jts, jnp.asarray(x))
+    tts = convert.train_state_from_jax(jax.device_get(jts))
+    assert tts.step == 4 and tts.opt_state["count"] == 4
+    np.testing.assert_array_equal(tts.dead_acc.numpy(), np.asarray(jts.dead_acc))
+    tstep = tsteps.make_sae_train_step_from_acts("sae_mlp", LAMBDA, toptim.get_optimizer(
+        opt_name, LR), 2 * N, K)
+    for x in batches[4:7]:
+        jts, jm = jstep(jts, jnp.asarray(x))
+        tts, tm = tstep(tts, torch.from_numpy(x))
+        np.testing.assert_allclose(float(tm["sae_loss"]), float(jm["sae_loss"]), rtol=2e-4)
+        np.testing.assert_array_equal(tts.dead_acc.numpy(), np.asarray(jts.dead_acc))
+    for k in params:
+        np.testing.assert_allclose(tts.params[k].numpy(), np.asarray(jts.params[k]),
+                                   rtol=2e-3, atol=2e-5, err_msg=k)
