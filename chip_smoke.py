@@ -1,21 +1,24 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --profile    # the same, with a torch.profiler table of the slice
+    python3 chip_smoke.py --profile    # the same, with a torch.profiler table of each slice run
 
 Phases, in order; a phase that fails raises and the script exits non-zero:
   1. device:  require CUDA; print the card's name and power limit (nvidia-smi).
-  2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc.
+  2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc, one
+              process per source, all started together.
   3. kernels: hold each kernel against its plain PyTorch version on the card at
               the training shape (T=32768 tokens, C=256, H=16384 latents), in
               f32 and bf16 operands; time kernel, plain version and the cuBLAS
               products of the stock path; compute each kernel's bound.
-  4. parity:  the fused op's loss and gradients against the stock autograd path
+  4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32.
   5. slice:   Pipeline.train_sae_cached on the north-star config (GoogLeNet
-              mixed3a, 16,384-latent sae_mlp, bf16 cache, 12 steps of 32,768
-              tokens, a measurement reset at step 4 and a resample at step 9),
-              with every kernel launch count reset just before and read after.
+              mixed3a, 16,384 latents, bf16 cache, 12 steps of 32,768 tokens)
+              for sae_mlp (measurement resets at steps 4 and 12, a resample at
+              step 9), then gated_sae and jumprelu_sae (the rolling dead window
+              restarts at steps 4, 8 and 12); every kernel launch count is reset
+              just before each run and read after it.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -34,25 +38,46 @@ from pathlib import Path
 import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
-from sparse_vision_tpu_torch.models.sae import init_sae_mlp, sae_inference_and_loss
-from sparse_vision_tpu_torch.ops import fused_sae, native
+from sparse_vision_tpu_torch.models.sae import (
+    init_gated_sae,
+    init_jumprelu_sae,
+    init_sae_mlp,
+    sae_inference_and_loss,
+)
+from sparse_vision_tpu_torch.ops import fused_gated_sae, fused_jumprelu_sae, fused_sae, native
 from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_smoke_work"  # listed in .gitignore; removed at the end
+DEVICE = "cuda"
 
 # H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them; HBM3 rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 T, C, H = 32768, 256, 16384
-LAMBDA = 5.0
+LAMBDA = 5.0  # sae_mlp and gated_sae
+# jumprelu_sae: λ, and the STE bandwidth of the kernel and parity phases, whose
+# inputs give pre-activations of std ~2
+LAMBDA_J, BANDWIDTH = 0.02, 1.0
 REPS = 5  # timed launches per measurement, after one warm-up
+
+MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
+           "jumprelu_sae": fused_jumprelu_sae}
+KERNELS = tuple(k for m in MODULES.values() for k in m.KERNELS)
+SOURCES = {
+    "sae_mlp": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
+    "gated_sae": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
+    "jumprelu_sae": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
+}
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
     "fused_sae_bwd": "sparse_vision_tpu/ops/fused_sae.py:96",
+    "fused_jumprelu_sae_fwd": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:30",
+    "fused_jumprelu_sae_bwd": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:80",
+    "fused_gated_sae_fwd": "sparse_vision_tpu/ops/fused_gated_sae.py:42",
+    "fused_gated_sae_bwd": "sparse_vision_tpu/ops/fused_gated_sae.py:98",
 }
-SOURCE = "sparse_vision_tpu_torch/csrc/fused_sae.cu"
 
 
 def log(msg: str) -> None:
@@ -100,6 +125,8 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Build every kernel and print ptxas's report; a kernel that spills
+    registers to local memory fails the phase."""
     t0 = time.perf_counter()
     built = native.build()
     for name, b in built.items():
@@ -108,17 +135,10 @@ def phase_build() -> None:
         log(f"[build] {name}: {b['seconds']:.1f} s -> {b['path']}")
         for ln in ptxas:
             log(f"[build]   {ln}")
+        spills = [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        if spills:
+            raise AssertionError(f"{name}: ptxas reports register spills: {spills}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
-
-
-def _inputs(cd, seed: int = 0):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_sae_mlp(gen, C, H // C)
-    params["b_enc"] = params["b_enc"] - 0.05
-    params["b_dec"] = 0.1 * torch.randn(C, device="cuda", generator=gen)
-    x = torch.relu(torch.randn(T, C, device="cuda", generator=gen)) * 2.0
-    return (x.to(cd).contiguous(), params["W_enc"].to(cd).contiguous(), params["b_enc"],
-            params["W_dec"].to(cd).contiguous(), params["b_dec"].contiguous())
 
 
 def _check(name: str, got, ref, rtol: float, atol_frac: float) -> float:
@@ -136,117 +156,319 @@ def _check(name: str, got, ref, rtol: float, atol_frac: float) -> float:
     return worst
 
 
-def phase_kernels() -> dict:
-    """Both kernels against their plain versions in f32 and bf16; returns the
-    bf16 (main path) rows."""
-    set_tf32(False)  # the plain versions' f32 products in full f32
-    rows = {}
-    for cd in (torch.float32, torch.bfloat16):
-        tag = "f32" if cd == torch.float32 else "bf16"
-        x, we, be, wd, bd = _inputs(cd)
-        with torch.no_grad():
-            out_k = fused_sae.fwd_kernel(x, we, be, wd, bd)
-            out_p = fused_sae.fused_sae_forward_plain(x, we, be, wd, bd)
-            torch.cuda.synchronize()
-            log(f"[kernels] fused_sae_fwd [{tag}] vs plain")
-            # the kernel and cuBLAS sum in other orders; a pre-activation within
-            # rounding of 0 may flip, so counts get a tolerance of a few tokens
-            errs = [_check("recon", out_k[0], out_p[0], 1e-4, 1e-5),
-                    _check("act_count", out_k[1], out_p[1], 0.0, 1e-3),
-                    _check("row_active", out_k[2], out_p[2], 0.0, 1e-3),
-                    _check("l1_sum", out_k[3], out_p[3], 1e-5, 0.0)]
-            fwd_err = errs[0]
-            ms = time_ms(lambda: fused_sae.fwd_kernel(x, we, be, wd, bd), REPS)
-            plain_ms = time_ms(lambda: fused_sae.fused_sae_forward_plain(x, we, be, wd, bd), REPS)
-            xc = (x - bd.to(cd))
-            post = torch.relu(xc @ we).to(cd)
-            lib_ms = time_ms(lambda: (xc @ we, post @ wd), REPS)
-            b_ms, b_by = bound(4.0 * T * C * H,
-                               nbytes(x, we, be, wd, bd) + nbytes(out_p[0], out_p[1], out_p[2])
-                               + 4, cd)
-            log(f"[kernels] fused_sae_fwd [{tag}] ms {ms:.3f} plain_ms {plain_ms:.3f} "
-                f"library_ms(2 matmuls) {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by})")
-            fwd_row = dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=lib_ms)
+def _measure(name: str, tag: str, cd, kernel, plain, library, flops: float, moved: int,
+             max_abs_err: float) -> dict:
+    """Times of kernel, plain version and the stock path's cuBLAS products, and
+    the bound; one row of the kernels line."""
+    ms = time_ms(kernel, REPS)
+    plain_ms = time_ms(plain, REPS)
+    lib_ms = time_ms(library, REPS)
+    b_ms, b_by = bound(flops, moved, cd)
+    log(f"[kernels] {name} [{tag}] ms {ms:.3f} plain_ms {plain_ms:.3f} "
+        f"library_ms {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by})")
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
-            err = (out_p[0] - x.float()).to(cd)  # the residual the backward reads
-            coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device="cuda")
-            g_k = fused_sae.bwd_kernel(x, we, be, wd, bd, err, coeffs)
-            g_p = fused_sae.fused_sae_backward_plain(x, we, be, wd, bd, err, coeffs)
-            torch.cuda.synchronize()
-            log(f"[kernels] fused_sae_bwd [{tag}] vs plain")
-            errs = [_check(n, a, b, 1e-3, 1e-4)
-                    for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p)]
-            bwd_err = max(errs)
-            ms = time_ms(lambda: fused_sae.bwd_kernel(x, we, be, wd, bd, err, coeffs), REPS)
-            plain_ms = time_ms(
-                lambda: fused_sae.fused_sae_backward_plain(x, we, be, wd, bd, err, coeffs), REPS)
-            dr = (coeffs[0] * err.float()).to(cd)
-            lib_ms = time_ms(lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), REPS)
-            b_ms, b_by = bound(8.0 * T * C * H,
-                               nbytes(x, we, be, wd, bd, err, coeffs) + nbytes(*g_p), cd)
-            log(f"[kernels] fused_sae_bwd [{tag}] ms {ms:.3f} plain_ms {plain_ms:.3f} "
-                f"library_ms(3 matmuls) {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by})")
-            bwd_row = dict(max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=lib_ms)
-        del x, we, be, wd, bd, out_k, out_p, g_k, g_p, err, xc, post, dr
-        torch.cuda.empty_cache()
-        if cd == torch.bfloat16:
-            rows = {"fused_sae_fwd": fwd_row, "fused_sae_bwd": bwd_row}
+
+def _dyadic(t: torch.Tensor, step: float) -> torch.Tensor:
+    """``t`` rounded to a multiple of the power of two ``step``."""
+    return torch.round(t / step) * step
+
+
+def _odd_grid(gen, n: int, half_range: int) -> torch.Tensor:
+    """Odd multiples of 2^-11 in about ±half_range·2^-10: as biases on top of a
+    product that is an exact multiple of 2^-10, the sum is never 0."""
+    k = torch.randint(-half_range, half_range, (n,), device=DEVICE, generator=gen)
+    return (2 * k + 1).float() * 2.0 ** -11
+
+
+def _exact_inputs(gen, n_tokens: int, w: torch.Tensor):
+    """Token input and encoder weights on a dyadic grid (x in quarters, W in
+    1/256ths, b_dec in quarters): every product and partial sum of x_cent @ W is
+    exact in f32, so the kernel and cuBLAS, which sum in other orders, give the
+    same pre-activations bit for bit. The gated and JumpReLU activations jump at
+    a threshold, so a pre-activation that differed by one rounding could switch a
+    latent on in one and off in the other; on this grid none can."""
+    x = _dyadic(torch.relu(torch.randn(n_tokens, w.shape[0], device=DEVICE, generator=gen))
+                * 2.0, 0.25)
+    b_dec = _dyadic(0.2 * torch.randn(w.shape[0], device=DEVICE, generator=gen), 0.25)
+    return x, _dyadic(w, 2.0 ** -8), b_dec
+
+
+# ---------------------------------------------------------------------------
+# kernels phase, one function per fused op; each returns {kernel name: row}
+# ---------------------------------------------------------------------------
+
+def kernels_relu(cd, tag: str) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_sae_mlp(gen, C, H // C)
+    be = params["b_enc"] - 0.05
+    bd = 0.1 * torch.randn(C, device=DEVICE, generator=gen)
+    x = (torch.relu(torch.randn(T, C, device=DEVICE, generator=gen)) * 2.0).to(cd)
+    we, wd = params["W_enc"].to(cd).contiguous(), params["W_dec"].to(cd).contiguous()
+    out_k = fused_sae.fwd_kernel(x, we, be, wd, bd)
+    out_p = fused_sae.fused_sae_forward_plain(x, we, be, wd, bd)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_sae_fwd [{tag}] vs plain")
+    # the kernel and cuBLAS sum in other orders; a pre-activation within
+    # rounding of 0 may flip, so counts get a tolerance of a few tokens
+    err = _check("recon", out_k[0], out_p[0], 1e-4, 1e-5)
+    _check("act_count", out_k[1], out_p[1], 0.0, 1e-3)
+    _check("row_active", out_k[2], out_p[2], 0.0, 1e-3)
+    _check("l1_sum", out_k[3], out_p[3], 1e-5, 0.0)
+    del out_k
+    xc = x - bd.to(cd)
+    post = torch.relu(xc @ we).to(cd)
+    rows = {"fused_sae_fwd": _measure(
+        "fused_sae_fwd", tag, cd, lambda: fused_sae.fwd_kernel(x, we, be, wd, bd),
+        lambda: fused_sae.fused_sae_forward_plain(x, we, be, wd, bd),
+        lambda: (xc @ we, post @ wd), 4.0 * T * C * H,
+        nbytes(x, we, be, wd, bd) + nbytes(out_p[0], out_p[1], out_p[2]) + 4, err)}
+
+    res = (out_p[0] - x.float()).to(cd)  # the residual the backward reads
+    del out_p
+    coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device=DEVICE)
+    g_k = fused_sae.bwd_kernel(x, we, be, wd, bd, res, coeffs)
+    g_p = fused_sae.fused_sae_backward_plain(x, we, be, wd, bd, res, coeffs)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_sae_bwd [{tag}] vs plain")
+    err = max(_check(n, a, b, 1e-3, 1e-4)
+              for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
+    moved = nbytes(x, we, be, wd, bd, res, coeffs) + nbytes(*g_p)
+    del g_k, g_p
+    dr = (coeffs[0] * res.float()).to(cd)
+    rows["fused_sae_bwd"] = _measure(
+        "fused_sae_bwd", tag, cd, lambda: fused_sae.bwd_kernel(x, we, be, wd, bd, res, coeffs),
+        lambda: fused_sae.fused_sae_backward_plain(x, we, be, wd, bd, res, coeffs),
+        lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
     return rows
 
 
-def phase_parity() -> None:
-    """The fused op (kernels + autograd.Function) against the stock autograd path
-    on the card: loss terms and parameter gradients, f32, small shape."""
-    set_tf32(False)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = init_sae_mlp(gen, C, 4)
-    params["b_enc"] = params["b_enc"] - 0.05
-    x = torch.randn(512, C, device="cuda", generator=gen)
+def kernels_gated(cd, tag: str) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_gated_sae(gen, C, H // C)
+    x, wg, bd = _exact_inputs(gen, T, params["W_gate"])
+    x, wg, wd = x.to(cd), wg.to(cd), params["W_dec"].to(cd).contiguous()
+    bg = _odd_grid(gen, H, 100)  # about ±0.05
+    bm = _odd_grid(gen, H, 60)
+    er = torch.exp(0.1 * torch.randn(H, device=DEVICE, generator=gen))
+    ops = (x, wg, bg, bm, er, wd, bd)
+    out_k = fused_gated_sae.fwd_kernel(*ops)
+    out_p = fused_gated_sae.fused_gated_forward_plain(*ops)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_gated_sae_fwd [{tag}] vs plain")
+    # pre-activations are exact on both sides (_exact_inputs), so the gate,
+    # the counts and relu(pi) agree exactly; the decodes sum in other orders
+    err = max(_check("recon", out_k[0], out_p[0], 1e-4, 1e-5),
+              _check("via_gate", out_k[1], out_p[1], 1e-4, 1e-5))
+    _check("act_count", out_k[2], out_p[2], 0.0, 0.0)
+    _check("row_active", out_k[3], out_p[3], 0.0, 0.0)
+    _check("l1_sum", out_k[4], out_p[4], 1e-5, 0.0)
+    del out_k
+    xc = x - bd.to(cd)
+    g = xc @ wg
+    enc = torch.relu(g).to(cd)  # a [T, H] operand of the stock path's shapes
+    rows = {"fused_gated_sae_fwd": _measure(
+        "fused_gated_sae_fwd", tag, cd, lambda: fused_gated_sae.fwd_kernel(*ops),
+        lambda: fused_gated_sae.fused_gated_forward_plain(*ops),
+        lambda: (xc @ wg, enc @ wd, enc @ wd), 6.0 * T * C * H,
+        nbytes(*ops) + nbytes(*out_p[:4]) + 4, err)}
 
+    err_rec = out_p[0] - x.float()  # the f32 residuals the backward reads
+    err_via = out_p[1] - x.float()
+    del out_p, g
+    coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H), 2.0 / (T * C)], device=DEVICE)
+    bops = ops + (err_rec, err_via, coeffs)
+    g_k = fused_gated_sae.bwd_kernel(*bops)
+    g_p = fused_gated_sae.fused_gated_backward_plain(*bops)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_gated_sae_bwd [{tag}] vs plain")
+    names = ("dW_gate", "db_gate", "db_mag", "dr_mag", "dW_dec", "db_dec")
+    err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(names, g_k, g_p))
+    moved = nbytes(*bops) + nbytes(*g_p)
+    del g_k, g_p
+    dr = (coeffs[0] * err_rec).to(cd)
+    dv = (coeffs[2] * err_via).to(cd)
+    rows["fused_gated_sae_bwd"] = _measure(
+        "fused_gated_sae_bwd", tag, cd, lambda: fused_gated_sae.bwd_kernel(*bops),
+        lambda: fused_gated_sae.fused_gated_backward_plain(*bops),
+        lambda: (dr @ wd.T, dv @ wd.T, xc.T @ enc, enc.T @ dr), 10.0 * T * C * H, moved, err)
+    return rows
+
+
+def kernels_jumprelu(cd, tag: str) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_jumprelu_sae(gen, C, H // C)
+    x, we, bd = _exact_inputs(gen, T, params["W_enc"])
+    x, we, wd = x.to(cd), we.to(cd), params["W_dec"].to(cd).contiguous()
+    be = _odd_grid(gen, H, 100)
+    thr = 0.5 + torch.rand(H, device=DEVICE, generator=gen)  # pre has std ~2 here
+    ops = (x, we, be, thr, wd, bd)
+    out_k = fused_jumprelu_sae.fwd_kernel(*ops)
+    out_p = fused_jumprelu_sae.fused_jumprelu_forward_plain(*ops)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_jumprelu_sae_fwd [{tag}] vs plain")
+    err = _check("recon", out_k[0], out_p[0], 1e-4, 1e-5)
+    _check("act_count", out_k[1], out_p[1], 0.0, 0.0)
+    _check("row_active", out_k[2], out_p[2], 0.0, 0.0)
+    _check("l1_sum", out_k[3], out_p[3], 1e-5, 0.0)
+    del out_k
+    xc = x - bd.to(cd)
+    post = torch.relu(xc @ we).to(cd)
+    rows = {"fused_jumprelu_sae_fwd": _measure(
+        "fused_jumprelu_sae_fwd", tag, cd, lambda: fused_jumprelu_sae.fwd_kernel(*ops),
+        lambda: fused_jumprelu_sae.fused_jumprelu_forward_plain(*ops),
+        lambda: (xc @ we, post @ wd), 4.0 * T * C * H,
+        nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
+
+    res = out_p[0] - x.float()
+    del out_p
+    coeffs = torch.tensor([2.0 / (T * C), LAMBDA_J / T], device=DEVICE)
+    bops = ops + (res, coeffs, BANDWIDTH)
+    g_k = fused_jumprelu_sae.bwd_kernel(*bops)
+    g_p = fused_jumprelu_sae.fused_jumprelu_backward_plain(*bops)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_jumprelu_sae_bwd [{tag}] vs plain")
+    names = ("dW_enc", "db_enc", "dtheta", "dW_dec", "db_dec")
+    err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(names, g_k, g_p))
+    n_win = int((g_p[2] != 0).sum())
+    log(f"[kernels]   dtheta non-zero for {n_win} of {H} latents")
+    if n_win == 0:
+        raise AssertionError("no pre-activation fell in the STE window")
+    moved = nbytes(*bops[:-1]) + nbytes(*g_p)
+    del g_k, g_p
+    dr = (coeffs[0] * res).to(cd)
+    rows["fused_jumprelu_sae_bwd"] = _measure(
+        "fused_jumprelu_sae_bwd", tag, cd, lambda: fused_jumprelu_sae.bwd_kernel(*bops),
+        lambda: fused_jumprelu_sae.fused_jumprelu_backward_plain(*bops),
+        lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
+    return rows
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version in f32 and bf16; returns the bf16
+    (main path) rows."""
+    set_tf32(False)  # the plain versions' f32 products in full f32
+    rows = {}
+    for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for fn in (kernels_relu, kernels_gated, kernels_jumprelu):
+            with torch.no_grad():
+                r = fn(cd, tag)
+            torch.cuda.empty_cache()  # the plain versions' [T, H] temporaries
+            if cd == torch.bfloat16:
+                rows.update(r)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# parity phase
+# ---------------------------------------------------------------------------
+
+def _parity(name: str, params: dict, fused_fn, stock_fn, keys: tuple) -> None:
     def grads(loss_fn):
         p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
         out = loss_fn(p)
         g = torch.autograd.grad(out["loss"], list(p.values()))
         return out, dict(zip(p, g))
 
-    out_f, g_f = grads(lambda p: fused_sae.fused_sae_loss_terms(
-        p, x, LAMBDA, 4, compute_dtype=torch.float32))
-    out_s, g_s = grads(lambda p: sae_inference_and_loss("sae_mlp", p, x, LAMBDA))
-    for k in ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss"):
+    out_f, g_f = grads(fused_fn)
+    out_s, g_s = grads(stock_fn)
+    for k in keys:
         a, b = float(out_f[k].detach()), float(out_s[k].detach())
         if not math.isclose(a, b, rel_tol=1e-4):
-            raise AssertionError(f"parity {k}: fused {a} vs stock {b}")
+            raise AssertionError(f"parity {name} {k}: fused {a} vs stock {b}")
     for k in params:
         err = (g_f[k] - g_s[k]).abs().max().item()
         scale = g_s[k].abs().max().item()
-        log(f"[parity] grad {k}: max_abs_err {err:.3e} (max|ref| {scale:.3e})")
-        if err > 1e-4 * scale + 1e-7:
-            raise AssertionError(f"parity grad {k}: max abs err {err:.3e}")
-    log("[parity] fused op == stock autograd path (f32): ok")
+        log(f"[parity] {name} grad {k}: max_abs_err {err:.3e} (max|ref| {scale:.3e})")
+        if err > 1e-4 * scale + 1e-7 or scale == 0.0:
+            raise AssertionError(f"parity {name} grad {k}: max abs err {err:.3e} "
+                                 f"(max|ref| {scale:.3e})")
+    log(f"[parity] {name}: fused op == stock autograd path (f32): ok")
 
 
-def phase_slice(profile: bool = False) -> dict:
-    """The north-star chain through the port's Pipeline; returns launches per kernel.
-    ``profile`` traces it with torch.profiler and prints device time by kernel."""
+def phase_parity() -> None:
+    """Each fused op (kernels + autograd.Function) against the stock autograd path
+    on the card: loss terms and every parameter gradient, f32, small shape. The
+    gated and JumpReLU inputs lie on _exact_inputs' grid, so both paths switch
+    the same latents on."""
+    set_tf32(False)
+    base = ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss")
+    f32 = torch.float32
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    params = init_sae_mlp(gen, C, 4)
+    params["b_enc"] = params["b_enc"] - 0.05
+    x = torch.randn(512, C, device=DEVICE, generator=gen)
+    _parity("sae_mlp", params,
+            lambda p: fused_sae.fused_sae_loss_terms(p, x, LAMBDA, 4, compute_dtype=f32),
+            lambda p: sae_inference_and_loss("sae_mlp", p, x, LAMBDA), base)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    params = init_gated_sae(gen, C, 4)  # r_mag = 0: both paths' magnitude products exact
+    x, params["W_gate"], params["b_dec"] = _exact_inputs(gen, 512, params["W_gate"])
+    params["b_gate"] = _odd_grid(gen, 4 * C, 100)
+    params["b_mag"] = _odd_grid(gen, 4 * C, 60)
+    _parity("gated_sae", params,
+            lambda p: fused_gated_sae.fused_gated_sae_loss_terms(p, x, LAMBDA, 4,
+                                                                 compute_dtype=f32),
+            lambda p: sae_inference_and_loss("gated_sae", p, x, LAMBDA), base + ("aux_loss",))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    params = init_jumprelu_sae(gen, C, 4, threshold_init=0.5)
+    x, params["W_enc"], params["b_dec"] = _exact_inputs(gen, 512, params["W_enc"])
+    params["b_enc"] = _odd_grid(gen, 4 * C, 100)
+    params["log_threshold"] = params["log_threshold"] + 0.5 * torch.rand(
+        4 * C, device=DEVICE, generator=gen)
+    _parity("jumprelu_sae", params,
+            lambda p: fused_jumprelu_sae.fused_jumprelu_sae_loss_terms(
+                p, x, LAMBDA_J, 4, compute_dtype=f32, bandwidth=BANDWIDTH),
+            lambda p: sae_inference_and_loss("jumprelu_sae", p, x, LAMBDA_J,
+                                             jumprelu_bandwidth=BANDWIDTH),
+            base + ("l0_loss",))
+
+
+# ---------------------------------------------------------------------------
+# slice phase
+# ---------------------------------------------------------------------------
+
+# sae_model_name -> (config fields beyond the shared ones, steps whose perc_dead
+# reads a freshly restarted accumulator). JumpReLU takes the "scaled" STE rule,
+# bandwidth ≈ the activations' std and θ0 = std/2 (docs/CONVERGENCE.md:39), at
+# the std of this run's stand-in activations, ~0.05 (random backbone, synthetic
+# images); θ0 = 0.5 would sit ~7 std above every pre-activation and no latent
+# would ever fire.
+SLICES = {
+    # resets at 4 and 12, the resample at 9
+    "sae_mlp": (dict(sae_lambda_sparse=LAMBDA), (4, 9, 12)),
+    "gated_sae": (dict(sae_lambda_sparse=LAMBDA), (4, 8, 12)),  # the rolling window
+    "jumprelu_sae": (dict(sae_lambda_sparse=LAMBDA_J, jumprelu_bandwidth=0.05,
+                          jumprelu_threshold_init=0.025), (4, 8, 12)),
+}
+
+
+def phase_slice(name: str, profile: bool = False) -> dict:
+    """One north-star-width run of ``name`` through the port's Pipeline; returns
+    launches per kernel. ``profile`` traces it with torch.profiler and prints
+    device time by kernel."""
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
     shutil.rmtree(WORK, ignore_errors=True)
+    fields, restarts = SLICES[name]
     cfg = RunConfig(
         model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
-        sae_model_name="sae_mlp", sae_expansion_factor=64, sae_lambda_sparse=5.0,
-        sae_optimizer_name="constrained_adam", sae_learning_rate=1e-3,
-        sae_batch_size=256, use_activation_cache=True, cache_tokens_per_step=32768,
-        cache_dtype="bfloat16", sae_epochs=1, dead_neurons_steps=4,
-        directory_path=str(WORK),
+        sae_model_name=name, sae_expansion_factor=64, sae_optimizer_name="constrained_adam",
+        sae_learning_rate=1e-3, sae_batch_size=256, use_activation_cache=True,
+        cache_tokens_per_step=32768, cache_dtype="bfloat16", sae_epochs=1,
+        dead_neurons_steps=4, directory_path=str(WORK), **fields,
     )
     t0 = time.perf_counter()
     pipe = Pipeline(cfg)
-    log(f"[slice] pipeline built in {time.perf_counter() - t0:.1f} s "
+    log(f"[slice {name}] pipeline built in {time.perf_counter() - t0:.1f} s "
         f"(train {len(pipe.train_ds)} / val {len(pipe.val_ds)} images, "
         f"{pipe.num_units} latents)")
-    for k in fused_sae.KERNELS:
+    before = {k: v.clone() for k, v in pipe.ts.params.items()}
+    for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     if profile:
@@ -259,54 +481,74 @@ def phase_slice(profile: bool = False) -> dict:
     else:
         pipe.train_sae_cached()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in fused_sae.KERNELS}
-    log(f"[slice] train_sae_cached (dump, 12 steps, 2 evals) in {wall:.1f} s; launches {launches}")
+    launches = {k.name: k.launches for k in KERNELS}
+    log(f"[slice {name}] train_sae_cached (dump, 12 steps, 2 evals) in {wall:.1f} s; "
+        f"launches {launches}")
 
     steps = [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]
     for s, m in steps:
-        log(f"[slice] step {s}: sae_loss {m['sae_loss']:.6g} rec {m['sae_rec_loss']:.6g} "
-            f"l1 {m['sae_l1_loss']:.6g} sparsity {m['sparsity']:.6g} "
-            f"perc_dead {m['perc_dead']:.6g}")
+        log(f"[slice {name}] step {s}: sae_loss {m['sae_loss']:.6g} rec "
+            f"{m['sae_rec_loss']:.6g} l1 {m['sae_l1_loss']:.6g} sparsity "
+            f"{m['sparsity']:.6g} perc_dead {m['perc_dead']:.6g}")
     if len(steps) != 12:
-        raise AssertionError(f"expected 12 train steps, ran {len(steps)}")
-    if not all(math.isfinite(m["sae_loss"]) for _, m in steps):
-        raise AssertionError("non-finite sae_loss")
+        raise AssertionError(f"{name}: expected 12 train steps, ran {len(steps)}")
+    if not all(math.isfinite(v) for _, m in steps for v in m.values()):
+        raise AssertionError(f"{name}: non-finite step metric")
     by_step = dict(steps)
-    # the reset at step 4 and the resample at step 9 both leave an all-True
-    # accumulator, which perc_dead reads (the JAX step's documented quirk)
-    for s in (4, 9):
+    # each restart leaves an all-True accumulator, which perc_dead reads (the
+    # JAX step's documented quirk)
+    for s in restarts:
         if by_step[s]["perc_dead"] != 1.0:
-            raise AssertionError(f"no reset/resample at step {s}: "
+            raise AssertionError(f"{name}: no restart of the dead accumulator at step {s}: "
                                  f"perc_dead {by_step[s]['perc_dead']}")
+    # and between restarts latents fire, so the restarts are what set it to 1
+    if not all(m["perc_dead"] < 1.0 and m["sparsity"] > 0.0
+               for s, m in steps if s not in restarts):
+        raise AssertionError(f"{name}: every latent dead between restarts")
     timing = pipe.train_timing[0]
-    log(f"[slice] training loop: {timing['steps']} steps, {timing['tokens']} tokens in "
-        f"{timing['seconds']:.3f} s = {timing['tokens'] / timing['seconds']:.0f} tokens/s "
+    log(f"[slice {name}] training loop: {timing['steps']} steps, {timing['tokens']} tokens "
+        f"in {timing['seconds']:.3f} s = {timing['tokens'] / timing['seconds']:.0f} tokens/s "
         "(host clock, ends in a synchronize)")
+    if len(pipe.eval_log) != 2:
+        raise AssertionError(f"{name}: expected evals before and after the epoch")
     for epoch, m in pipe.eval_log:
-        log(f"[slice] eval epoch {epoch}: " + json.dumps(m, sort_keys=True))
+        log(f"[slice {name}] eval epoch {epoch}: " + json.dumps(m, sort_keys=True))
         if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"non-finite eval metric at epoch {epoch}")
-    if not (launches["fused_sae_fwd"] == launches["fused_sae_bwd"] == 12):
-        raise AssertionError(f"expected 12 forward and 12 backward launches, got {launches}")
+            raise AssertionError(f"{name}: non-finite eval metric at epoch {epoch}")
+    for k in KERNELS:
+        want = 12 if k in MODULES[name].KERNELS else 0
+        if launches[k.name] != want:
+            raise AssertionError(f"{name}: expected {want} launches of {k.name}, got "
+                                 f"{launches[k.name]}")
+    for k, v in pipe.ts.params.items():
+        moved = int((v != before[k]).sum())
+        log(f"[slice {name}] {k}: {moved} of {v.numel()} entries moved")
+        if k == "log_threshold" and moved == 0:
+            raise AssertionError(f"{name}: no threshold moved: the STE path did not train")
+    del pipe
+    torch.cuda.empty_cache()
     shutil.rmtree(WORK, ignore_errors=True)
-    return launches
+    return {k: v for k, v in launches.items() if v}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="trace the slice with torch.profiler (slows it; times are then not clean)")
+                    help="trace the slices with torch.profiler (slows them; times are then "
+                         "not clean)")
     args = ap.parse_args()
 
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
     phase_parity()
-    launches = phase_slice(args.profile)
+    launches = {}
+    for name in SLICES:
+        launches.update(phase_slice(name, args.profile))
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], **rows[name]}
-        for name in ("fused_sae_fwd", "fused_sae_bwd")
+        {"name": k.name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[k.name], "launches": launches[k.name], **rows[k.name]}
+        for name, module in MODULES.items() for k in module.KERNELS
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

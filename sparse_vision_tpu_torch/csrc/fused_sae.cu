@@ -33,34 +33,17 @@
 // non-zero value. Supported shapes: C in {64, 128, 256}, T a multiple of
 // kFwdTT and kBwdTT, H a multiple of kTH (ops/fused_sae.py can_fuse).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sae_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads: tx picks columns, ty rows
-constexpr int kFwdTT = 64;     // forward: tokens per block
-constexpr int kBwdTT = 32;     // backward: tokens per inner step
-constexpr int kTH = 64;        // latents per tile (both kernels)
+using svt::kThreads;
+using svt::round_cd;
+using svt::to_f;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// round a float to the compute dtype (round to nearest even), kept as float
-template <typename T>
-__device__ __forceinline__ float round_cd(float v);
-template <>
-__device__ __forceinline__ float round_cd<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_cd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+constexpr int kFwdTT = 64;  // forward: tokens per block
+constexpr int kBwdTT = 32;  // backward: tokens per inner step
+constexpr int kTH = 64;     // latents per tile (both kernels)
 
 template <int C>
 constexpr size_t fwd_smem_bytes() {
@@ -379,80 +362,6 @@ sae_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
   }
 }
 
-template <typename T, int C>
-cudaError_t launch_fwd(const void* x, const void* w_enc, const float* b_enc,
-                       const void* w_dec, const float* b_dec, float* recon,
-                       float* act_part, float* row_active, float* l1_part, int n_tokens,
-                       int H, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<C>();
-  auto kernel = sae_fwd_kernel<T, C>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<n_tokens / kFwdTT, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_enc), b_enc,
-      static_cast<const T*>(w_dec), b_dec, recon, act_part, row_active, l1_part, H);
-  return cudaGetLastError();
-}
-
-template <typename T, int C>
-cudaError_t launch_bwd(const void* x, const void* w_enc, const float* b_enc,
-                       const void* w_dec, const float* b_dec, const void* err,
-                       const float* coeffs, float* dw_enc, float* db_enc, float* dw_dec,
-                       float* db_dec_part, int n_tokens, int H, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<C>();
-  auto kernel = sae_bwd_kernel<T, C>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<H / kTH, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_enc), b_enc,
-      static_cast<const T*>(w_dec), b_dec, static_cast<const T*>(err), coeffs, dw_enc,
-      db_enc, dw_dec, db_dec_part, n_tokens, H);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_fwd(int C, const void* x, const void* w_enc, const float* b_enc,
-                         const void* w_dec, const float* b_dec, float* recon,
-                         float* act_part, float* row_active, float* l1_part,
-                         int n_tokens, int H, cudaStream_t s) {
-  switch (C) {
-    case 64:
-      return launch_fwd<T, 64>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                               row_active, l1_part, n_tokens, H, s);
-    case 128:
-      return launch_fwd<T, 128>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                                row_active, l1_part, n_tokens, H, s);
-    case 256:
-      return launch_fwd<T, 256>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                                row_active, l1_part, n_tokens, H, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_bwd(int C, const void* x, const void* w_enc, const float* b_enc,
-                         const void* w_dec, const float* b_dec, const void* err,
-                         const float* coeffs, float* dw_enc, float* db_enc,
-                         float* dw_dec, float* db_dec_part, int n_tokens, int H,
-                         cudaStream_t s) {
-  switch (C) {
-    case 64:
-      return launch_bwd<T, 64>(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc,
-                               db_enc, dw_dec, db_dec_part, n_tokens, H, s);
-    case 128:
-      return launch_bwd<T, 128>(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc,
-                                db_enc, dw_dec, db_dec_part, n_tokens, H, s);
-    case 256:
-      return launch_bwd<T, 256>(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc,
-                                db_enc, dw_dec, db_dec_part, n_tokens, H, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // act_part is [n_tokens / 64, H] (per-token-tile activity counts), l1_part is
@@ -464,11 +373,14 @@ extern "C" int svt_sae_fwd(int bf16, const void* x, const void* w_enc,
                            cudaStream_t stream) {
   if (n_tokens <= 0 || H <= 0 || n_tokens % kFwdTT || H % kTH)
     return cudaErrorInvalidValue;
-  return bf16 ? dispatch_fwd<__nv_bfloat16>(C, x, w_enc, b_enc, w_dec, b_dec, recon,
-                                            act_part, row_active, l1_part, n_tokens,
-                                            H, stream)
-              : dispatch_fwd<float>(C, x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                                    row_active, l1_part, n_tokens, H, stream);
+  return svt::dispatch(bf16, C, [&](auto t, auto c) {
+    using T = decltype(t);
+    constexpr int CC = decltype(c)::value;
+    return svt::launch(sae_fwd_kernel<T, CC>, n_tokens / kFwdTT, fwd_smem_bytes<CC>(), stream,
+                       static_cast<const T*>(x), static_cast<const T*>(w_enc), b_enc,
+                       static_cast<const T*>(w_dec), b_dec, recon, act_part, row_active,
+                       l1_part, H);
+  });
 }
 
 // coeffs is a 2-float device array (c_rec, c_l1); db_dec_part is [H / 64, C].
@@ -479,10 +391,12 @@ extern "C" int svt_sae_bwd(int bf16, const void* x, const void* w_enc,
                            int n_tokens, int C, int H, cudaStream_t stream) {
   if (n_tokens <= 0 || H <= 0 || n_tokens % kBwdTT || H % kTH)
     return cudaErrorInvalidValue;
-  return bf16 ? dispatch_bwd<__nv_bfloat16>(C, x, w_enc, b_enc, w_dec, b_dec, err,
-                                            coeffs, dw_enc, db_enc, dw_dec,
-                                            db_dec_part, n_tokens, H, stream)
-              : dispatch_bwd<float>(C, x, w_enc, b_enc, w_dec, b_dec, err, coeffs,
-                                    dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, H,
-                                    stream);
+  return svt::dispatch(bf16, C, [&](auto t, auto c) {
+    using T = decltype(t);
+    constexpr int CC = decltype(c)::value;
+    return svt::launch(sae_bwd_kernel<T, CC>, H / kTH, bwd_smem_bytes<CC>(), stream,
+                       static_cast<const T*>(x), static_cast<const T*>(w_enc), b_enc,
+                       static_cast<const T*>(w_dec), b_dec, static_cast<const T*>(err),
+                       coeffs, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, H);
+  });
 }

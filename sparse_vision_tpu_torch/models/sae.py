@@ -1,10 +1,14 @@
-"""ReLU-MLP sparse autoencoder as functions over a parameter dict (port of the
-sae_mlp subset of sparse_vision_tpu/models/sae.py).
+"""Sparse autoencoders as functions over a parameter dict (port of the sae_mlp,
+gated_sae and jumprelu_sae parts of sparse_vision_tpu/models/sae.py).
 
 Parameter layout (math convention, not torch's transposed nn.Linear storage):
   W_enc [d, h]   encode: pre = (x - b_dec) @ W_enc + b_enc
   W_dec [h, d]   decode: recon = relu(pre) @ W_dec + b_dec; row j of W_dec is
                  latent j's direction, initialized and kept at unit norm.
+Gated SAE (Rajamanoharan et al.): W_gate [d, h] with b_gate, b_mag, r_mag [h];
+the magnitude path shares the gate weights, W_mag = W_gate * exp(r_mag).
+JumpReLU SAE (Rajamanoharan et al. 2024): the ReLU layout plus a per-latent
+log_threshold [h], trained through straight-through estimators.
 
 Token convention: NHWC feature maps [B, H, W, C] flatten to [B*H*W, C] tokens in
 (b, h, w) order, as in the JAX package.
@@ -15,6 +19,15 @@ from __future__ import annotations
 import torch
 
 from sparse_vision_tpu_torch.ops import losses
+
+# STE bandwidth ε, the paper's default: sized for normalized activations; raw
+# vision activations need it scaled to their spread (RunConfig.jumprelu_bandwidth)
+JUMPRELU_BANDWIDTH = 1e-3
+PORTED = ("sae_mlp", "gated_sae", "jumprelu_sae")
+
+
+def _not_ported(name: str) -> NotImplementedError:
+    return NotImplementedError(f"SAE {name!r} is not ported {PORTED}")
 
 
 def kaiming_uniform(generator: torch.Generator, shape: tuple, fan_in: int) -> torch.Tensor:
@@ -55,6 +68,146 @@ def sae_mlp_apply(params: dict, x: torch.Tensor):
     return post, recon, pre
 
 
+# ---------------------------------------------------------------------------
+# Gated SAE
+# ---------------------------------------------------------------------------
+
+def init_gated_sae(generator: torch.Generator, d: int, expansion_factor: int) -> dict:
+    """Kaiming W_gate, zero b_gate/b_mag/r_mag, unit-norm decoder rows
+    (reference gated_sae.py:8-30)."""
+    h = int(d * expansion_factor)
+    device = generator.device
+    w_gate = kaiming_uniform(generator, (h, d), fan_in=d).T.contiguous()
+    w_dec = _unit_rows(kaiming_uniform(generator, (d, h), fan_in=h).T.contiguous())
+    return {
+        "W_gate": w_gate,
+        "b_gate": torch.zeros((h,), device=device),
+        "b_mag": torch.zeros((h,), device=device),
+        "r_mag": torch.zeros((h,), device=device),
+        "W_dec": w_dec,
+        "b_dec": torch.zeros((d,), device=device),
+    }
+
+
+def heaviside_gate(pi_gate: torch.Tensor) -> torch.Tensor:
+    """1 / 0.5 / 0 where ``pi_gate`` is > 0 / == 0 / < 0 (reference
+    gated_sae.py:39), f32, without a gradient."""
+    return torch.where(pi_gate > 0, 1.0, torch.where(pi_gate == 0, 0.5, 0.0))
+
+
+def gated_sae_apply(params: dict, x: torch.Tensor):
+    """Returns (encoded, decoded, relu_pi_gate, via_gate) on token input [T, d]
+    (reference gated_sae.py:33-56). ``via_gate`` decodes relu(pi_gate) through a
+    detached W_dec and b_dec."""
+    x_cent = x - params["b_dec"]
+    pi_gate = x_cent @ params["W_gate"] + params["b_gate"]
+    f_gate = heaviside_gate(pi_gate).to(x.dtype)
+    w_mag = params["W_gate"] * torch.exp(params["r_mag"])[None, :]
+    f_mag = torch.relu(x_cent @ w_mag + params["b_mag"])
+    encoded = f_gate * f_mag
+    decoded = encoded @ params["W_dec"] + params["b_dec"]
+    relu_pi_gate = torch.relu(pi_gate)
+    via_gate = relu_pi_gate @ params["W_dec"].detach() + params["b_dec"].detach()
+    return encoded, decoded, relu_pi_gate, via_gate
+
+
+# ---------------------------------------------------------------------------
+# JumpReLU SAE
+# ---------------------------------------------------------------------------
+
+def _in_window(pre, threshold, bandwidth):
+    """The STE's rectangle kernel: 1[|pre - θ| <= ε/2], inclusive."""
+    return (torch.abs(pre - threshold) <= bandwidth / 2).to(pre.dtype)
+
+
+class JumpReLU(torch.autograd.Function):
+    """pre * 1[pre > θ]. Backward (paper eq. 11): d/dpre = 1[pre > θ] exactly;
+    d/dθ = -(θ/ε)·1[|pre-θ| <= ε/2], summed over tokens."""
+
+    @staticmethod
+    def forward(ctx, pre, threshold, bandwidth):
+        ctx.save_for_backward(pre, threshold)
+        ctx.bandwidth = bandwidth
+        return pre * (pre > threshold)
+
+    @staticmethod
+    def backward(ctx, ct):
+        pre, threshold = ctx.saved_tensors
+        eps = ctx.bandwidth
+        win = _in_window(pre, threshold, eps).to(ct.dtype)
+        d_pre = ct * (pre > threshold)
+        d_thr = (ct * (-threshold / eps) * win).sum(0)
+        return d_pre, d_thr, None
+
+
+class JumpReLUL0(torch.autograd.Function):
+    """Mean over tokens of the per-token count 1[pre > θ]. Backward (paper eq.
+    12): d/dθ = -Σ_t 1[|pre-θ| <= ε/2] / (ε·T); ``pre`` gets no gradient (the
+    L0 penalty moves only the thresholds)."""
+
+    @staticmethod
+    def forward(ctx, pre, threshold, bandwidth):
+        ctx.save_for_backward(pre, threshold)
+        ctx.bandwidth = bandwidth
+        return (pre > threshold).to(pre.dtype).sum(-1).mean()
+
+    @staticmethod
+    def backward(ctx, ct):
+        pre, threshold = ctx.saved_tensors
+        eps = ctx.bandwidth
+        win = _in_window(pre, threshold, eps)
+        d_thr = ct * (-win / eps).sum(0) / pre.shape[0]
+        return torch.zeros_like(pre), d_thr, None
+
+
+def jumprelu(pre, threshold, bandwidth: float = JUMPRELU_BANDWIDTH):
+    return JumpReLU.apply(pre, threshold, bandwidth)
+
+
+def jumprelu_l0(pre, threshold, bandwidth: float = JUMPRELU_BANDWIDTH):
+    return JumpReLUL0.apply(pre, threshold, bandwidth)
+
+
+def init_jumprelu_sae(generator: torch.Generator, d: int, expansion_factor: int,
+                      threshold_init: float = 1e-3) -> dict:
+    """The ReLU SAE's layout plus log_threshold = log(threshold_init) per latent
+    (the log taken in f32, as the JAX package does)."""
+    params = init_sae_mlp(generator, d, expansion_factor)
+    h = params["b_enc"].shape[0]
+    log_thr = torch.log(torch.tensor(threshold_init, dtype=torch.float32))
+    params["log_threshold"] = log_thr.expand(h).clone().to(generator.device)
+    return params
+
+
+def jumprelu_sae_apply(params: dict, x: torch.Tensor,
+                       bandwidth: float = JUMPRELU_BANDWIDTH):
+    """Returns (encoded, decoded, pre) on token input [T, d]; the thresholds are
+    exp(log_threshold) and train through the STE autograd Functions."""
+    x_cent = x - params["b_dec"]
+    pre = x_cent @ params["W_enc"] + params["b_enc"]
+    threshold = torch.exp(params["log_threshold"])
+    post = jumprelu(pre, threshold, bandwidth)
+    recon = post @ params["W_dec"] + params["b_dec"]
+    return post, recon, pre
+
+
+def init_sae(name: str, generator: torch.Generator, d: int, expansion_factor: int,
+             jumprelu_threshold_init: float = 1e-3) -> dict:
+    """Initial parameters of the SAE variant ``name``, f32 on the generator's device."""
+    if name == "sae_mlp":
+        return init_sae_mlp(generator, d, expansion_factor)
+    if name == "gated_sae":
+        return init_gated_sae(generator, d, expansion_factor)
+    if name == "jumprelu_sae":
+        return init_jumprelu_sae(generator, d, expansion_factor,
+                                 threshold_init=jumprelu_threshold_init)
+    raise _not_ported(name)
+
+
+# ---------------------------------------------------------------------------
+# token helpers and the splice entry points
+# ---------------------------------------------------------------------------
+
 def tokens_from_act(act: torch.Tensor):
     """[B, H, W, C] -> [B*H*W, C] tokens; 3-D [B, N, D] flattens the same way.
     Returns (tokens, transformed)."""
@@ -68,32 +221,49 @@ def act_from_tokens(tok: torch.Tensor, like_shape: tuple) -> torch.Tensor:
 
 
 def sae_inference_and_loss(sae_model_name: str, params: dict, act: torch.Tensor,
-                           lambda_sparse: float) -> dict:
+                           lambda_sparse: float,
+                           jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH) -> dict:
     """Reshape taps to tokens, run the SAE, compute every loss term, reshape the
-    outputs back. Returns the loss terms plus 'encoded', 'encoded_pre' and
-    'decoded' (NHWC when the input was 4-D)."""
-    if sae_model_name != "sae_mlp":
-        raise NotImplementedError(f"SAE {sae_model_name!r} is not ported (sae_mlp)")
+    outputs back. Returns the loss terms plus 'encoded', 'encoded_pre' (None for
+    gated_sae) and 'decoded' (NHWC when the input was 4-D)."""
     tok, transformed = tokens_from_act(act)
-    encoded, decoded, pre = sae_mlp_apply(params, tok)
-    terms = losses.sae_loss_terms(encoded, decoded, tok, lambda_sparse)
+    if sae_model_name == "sae_mlp":
+        encoded, decoded, pre = sae_mlp_apply(params, tok)
+        terms = losses.sae_loss_terms(encoded, decoded, tok, lambda_sparse)
+    elif sae_model_name == "jumprelu_sae":
+        encoded, decoded, pre = jumprelu_sae_apply(params, tok, jumprelu_bandwidth)
+        terms = losses.jumprelu_loss_terms(
+            encoded, decoded, tok, pre, params["log_threshold"], lambda_sparse,
+            bandwidth=jumprelu_bandwidth)
+    elif sae_model_name == "gated_sae":
+        encoded, decoded, relu_pi_gate, via_gate = gated_sae_apply(params, tok)
+        pre = None
+        terms = losses.gated_sae_loss_terms(relu_pi_gate, via_gate, decoded, tok,
+                                            lambda_sparse)
+    else:
+        raise _not_ported(sae_model_name)
     if transformed:
         encoded = act_from_tokens(encoded, act.shape)
         decoded = act_from_tokens(decoded, act.shape)
-        pre = act_from_tokens(pre, act.shape)
+        if pre is not None:
+            pre = act_from_tokens(pre, act.shape)
     terms.update(encoded=encoded, encoded_pre=pre, decoded=decoded)
     return terms
 
 
 def sae_encode(sae_model_name: str, params: dict, tok: torch.Tensor) -> torch.Tensor:
     """Post-activation encoder output on token input [T, d]."""
-    if sae_model_name != "sae_mlp":
-        raise NotImplementedError(f"SAE {sae_model_name!r} is not ported (sae_mlp)")
-    return sae_mlp_apply(params, tok)[0]
+    if sae_model_name == "sae_mlp":
+        return sae_mlp_apply(params, tok)[0]
+    if sae_model_name == "gated_sae":
+        return gated_sae_apply(params, tok)[0]
+    if sae_model_name == "jumprelu_sae":
+        return jumprelu_sae_apply(params, tok)[0]
+    raise _not_ported(sae_model_name)
 
 
 def sae_decode(sae_model_name: str, params: dict, encoded: torch.Tensor) -> torch.Tensor:
     """Decoder applied to a (possibly ablated) encoder output."""
-    if sae_model_name != "sae_mlp":
-        raise NotImplementedError(f"SAE {sae_model_name!r} is not ported (sae_mlp)")
+    if sae_model_name not in PORTED:
+        raise _not_ported(sae_model_name)
     return encoded @ params["W_dec"] + params["b_dec"]

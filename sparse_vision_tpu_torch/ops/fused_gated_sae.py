@@ -1,0 +1,310 @@
+"""Fused Gated-SAE training op: gate product + gate/magnitude paths + decode of
+the reconstruction and of via_gate + loss terms + dead-latent statistics in one
+forward kernel, and a recomputing backward kernel.
+
+Port of sparse_vision_tpu/ops/fused_gated_sae.py; the design and the memory
+argument are those of ops/fused_sae.py (no [T, H] matrix reaches device memory).
+
+Algebraic fusion, as in the JAX op: the weight-shared magnitude path
+``x_cent @ (W_gate ⊙ exp(r_mag))`` equals ``(x_cent @ W_gate) ⊙ exp(r_mag)``
+because exp(r_mag) rescales columns, so ONE gate product ``g`` feeds both paths
+(the stock path runs two). The two differ by f32 rounding only.
+
+Loss: total = rec + λ·l1 + aux with rec = mse(recon, x), l1 = mean(relu(π_gate)),
+aux = mse(via_gate, x), via_gate = relu(π_gate) @ stopgrad(W_dec) + stopgrad(b_dec).
+Gradient notes: the Heaviside gate (1 / 0.5 / 0 at π > / == / < 0) is detached;
+via_gate gives W_dec and b_dec no gradient; b_dec gets Σ drecon − Σ_rows(dg) @
+W_gateᵀ; dr_mag = Σ_t(d_premag · g) · exp(r_mag), g without b_gate.
+
+Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
+same formulas, the same cast points); a CUDA tensor launches the kernel or
+raises. There is no fallback from one to the other.
+
+Cast points (identical to the Pallas kernels): x, W_gate and W_dec are cast to
+the compute dtype before the kernels; ``x − b_dec`` is a difference in that
+dtype; ``exp(r_mag)`` is computed in f32 outside the kernels; b_gate, b_mag and
+the ``+ b_dec`` on recon and via are f32; both saved errors (``recon − x``,
+``via − x``) stay f32 and the backward rounds ``drecon``/``dvia`` to the compute
+dtype only before their products; every product accumulates in f32. One
+documented difference in bf16: the centring term of ``db_dec`` rounds the
+whole-batch row sum of ``dg`` to bf16 once, where the TPU kernel rounds each
+1024-token tile's partial sum, so bf16 ``db_dec`` agrees with the JAX op within
+a tolerance and exactly in f32.
+
+Differentiability contract: gradients flow through ``rec_loss``, ``l1_loss`` and
+``aux_loss`` only. ``recon`` and the statistics are marked non-differentiable,
+and ``x`` is data: its gradient is None.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sparse_vision_tpu_torch.models.sae import heaviside_gate
+from sparse_vision_tpu_torch.ops import losses, native
+from sparse_vision_tpu_torch.ops.fused_sae import (
+    _F32,
+    _BF16,
+    _expect,
+    _r,
+    _stream,
+    compute_dtype_of,
+    run_on_device,
+)
+
+# tile sizes of csrc/fused_gated_sae.cu (kFwdTT, kBwdTT, kTH) and its widths
+FWD_TILE_T = 32
+BWD_TILE_T = 16
+TILE_H = 64
+SUPPORTED_C = (64, 128, 256)
+
+
+def can_fuse(t: int, h: int, c: int = 256) -> bool:
+    """True when the CUDA kernels take this (tokens, latents, channels) shape.
+    The CPU plain versions take any shape."""
+    return (
+        c in SUPPORTED_C and t > 0 and h > 0
+        and t % FWD_TILE_T == 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path; the reference the kernels are held against)
+# ---------------------------------------------------------------------------
+
+def _gate_paths(x, w_gate, b_gate, b_mag, er, b_dec):
+    """x_cent (f32 copy of the compute-dtype values), g, pre_gate, pre_mag, gate."""
+    cd = x.dtype
+    xc = (x - b_dec.to(cd)).float()
+    g = xc @ w_gate.float()
+    pre_gate = g + b_gate
+    pre_mag = g * er + b_mag
+    return xc, g, pre_gate, pre_mag, heaviside_gate(pre_gate)
+
+
+def fused_gated_forward_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+    """Plain forward of csrc gated_fwd_kernel. ``x``, ``w_gate``, ``w_dec`` are in
+    the compute dtype, ``er`` = exp(r_mag) in f32. Returns (recon [T, C] f32,
+    via [T, C] f32, act_count [H], row_active [T], l1_sum scalar)."""
+    cd = x.dtype
+    _, _, pre_gate, pre_mag, gate = _gate_paths(x, w_gate, b_gate, b_mag, er, b_dec)
+    enc = gate * torch.relu(pre_mag)
+    relu_pi = torch.relu(pre_gate)
+    wd = w_dec.float()
+    recon = _r(enc, cd) @ wd + b_dec
+    via = _r(relu_pi, cd) @ wd + b_dec
+    active = enc != 0
+    return recon, via, active.sum(0).float(), active.sum(1).float(), relu_pi.sum()
+
+
+def fused_gated_backward_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec,
+                               err_via, coeffs):
+    """Plain backward of csrc gated_bwd_kernel. ``err_rec``/``err_via`` are the f32
+    residuals; ``coeffs`` = (c_rec, c_l1, c_aux) with c_rec = 2·g_rec/(T·C),
+    c_l1 = g_l1/(T·H), c_aux = 2·g_aux/(T·C). Returns f32 (dW_gate [C, H],
+    db_gate [H], db_mag [H], dr_mag [H], dW_dec [H, C], db_dec [C])."""
+    cd = x.dtype
+    c_rec, c_l1, c_aux = coeffs[0], coeffs[1], coeffs[2]
+    xc, g, pre_gate, pre_mag, gate = _gate_paths(x, w_gate, b_gate, b_mag, er, b_dec)
+    enc = gate * torch.relu(pre_mag)
+    drecon = c_rec * err_rec
+    dvia = c_aux * err_via
+    wdt = w_dec.float().T
+    denc = _r(drecon, cd) @ wdt
+    d_relu_pi = _r(dvia, cd) @ wdt + c_l1
+    zero = torch.zeros((), device=g.device)
+    d_premag = torch.where(pre_mag > 0, denc * gate, zero)
+    d_pregate = torch.where(pre_gate > 0, d_relu_pi, zero)
+    dg = d_premag * er + d_pregate
+    dw_gate = xc.T @ _r(dg, cd)
+    dw_dec = _r(enc, cd).T @ _r(drecon, cd)
+    db_dec = drecon.sum(0) - _r(dg.sum(0), cd) @ w_gate.float().T
+    return (dw_gate, d_pregate.sum(0), d_premag.sum(0), (d_premag * g).sum(0) * er,
+            dw_dec, db_dec)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = native.load("fused_gated_sae")
+    lib.svt_gated_fwd.restype = _I
+    lib.svt_gated_fwd.argtypes = [_I] + [_P] * 12 + [_I, _I, _I, _P]
+    lib.svt_gated_bwd.restype = _I
+    lib.svt_gated_bwd.argtypes = [_I] + [_P] * 16 + [_I, _I, _I, _P]
+    return lib
+
+
+def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+    t, c = x.shape
+    h = b_gate.shape[0]
+    if x.dtype not in (_F32, _BF16):
+        raise ValueError(f"fused gated kernel: compute dtype {x.dtype} not supported")
+    if not can_fuse(t, h, c):
+        raise ValueError(
+            f"fused gated kernel: shape T={t}, C={c}, H={h} not supported (C in "
+            f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
+        )
+    dev = x.device
+    _expect("x", x, (t, c), x.dtype, dev)
+    _expect("W_gate", w_gate, (c, h), x.dtype, dev)
+    for name, v in (("b_gate", b_gate), ("b_mag", b_mag), ("exp(r_mag)", er)):
+        _expect(name, v, (h,), _F32, dev)
+    _expect("W_dec", w_dec, (h, c), x.dtype, dev)
+    _expect("b_dec", b_dec, (c,), _F32, dev)
+    return t, c, h
+
+
+class _ForwardKernel:
+    """csrc gated_fwd_kernel; ``launches`` counts its launches."""
+
+    name = "fused_gated_sae_fwd"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+        t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
+        dev = x.device
+        recon = torch.empty((t, c), dtype=_F32, device=dev)
+        via = torch.empty((t, c), dtype=_F32, device=dev)
+        act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+        row_active = torch.empty((t,), dtype=_F32, device=dev)
+        l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
+        lib = _lib()
+        with torch.cuda.device(dev):
+            rc = lib.svt_gated_fwd(
+                int(x.dtype == _BF16), x.data_ptr(), w_gate.data_ptr(), b_gate.data_ptr(),
+                b_mag.data_ptr(), er.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(),
+                recon.data_ptr(), via.data_ptr(), act_part.data_ptr(),
+                row_active.data_ptr(), l1_part.data_ptr(), t, c, h, _stream(dev),
+            )
+        if rc != 0:
+            raise RuntimeError(f"svt_gated_fwd launch failed: cudaError_t {rc}")
+        self.launches += 1
+        return recon, via, act_part.sum(0), row_active, l1_part.sum()
+
+
+class _BackwardKernel:
+    """csrc gated_bwd_kernel; ``launches`` counts its launches."""
+
+    name = "fused_gated_sae_bwd"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs):
+        t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
+        dev = x.device
+        _expect("err_rec", err_rec, (t, c), _F32, dev)
+        _expect("err_via", err_via, (t, c), _F32, dev)
+        _expect("coeffs", coeffs, (3,), _F32, dev)
+        dw_gate = torch.empty((c, h), dtype=_F32, device=dev)
+        db_gate = torch.empty((h,), dtype=_F32, device=dev)
+        db_mag = torch.empty((h,), dtype=_F32, device=dev)
+        dr_mag = torch.empty((h,), dtype=_F32, device=dev)
+        dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
+        db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
+        lib = _lib()
+        with torch.cuda.device(dev):
+            rc = lib.svt_gated_bwd(
+                int(x.dtype == _BF16), x.data_ptr(), w_gate.data_ptr(), b_gate.data_ptr(),
+                b_mag.data_ptr(), er.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(),
+                err_rec.data_ptr(), err_via.data_ptr(), coeffs.data_ptr(),
+                dw_gate.data_ptr(), db_gate.data_ptr(), db_mag.data_ptr(), dr_mag.data_ptr(),
+                dw_dec.data_ptr(), db_dec_part.data_ptr(), t, c, h, _stream(dev),
+            )
+        if rc != 0:
+            raise RuntimeError(f"svt_gated_bwd launch failed: cudaError_t {rc}")
+        self.launches += 1
+        return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part.sum(0)
+
+
+fwd_kernel = _ForwardKernel()
+bwd_kernel = _BackwardKernel()
+KERNELS = (fwd_kernel, bwd_kernel)
+
+
+def fused_gated_forward(*args):
+    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(fwd_kernel, fused_gated_forward_plain, *args)
+
+
+def fused_gated_backward(*args):
+    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(bwd_kernel, fused_gated_backward_plain, *args)
+
+
+class FusedGatedSAEFunction(torch.autograd.Function):
+    """(x, W_gate, b_gate, b_mag, r_mag, W_dec, b_dec) -> (rec_loss, l1_loss,
+    aux_loss, recon, act_count, row_active), the counterpart of the JAX op's
+    custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, b_gate, b_mag, r_mag, w_dec, b_dec, compute_dtype):
+        cd = compute_dtype
+        xc, wg, wd = x.to(cd).contiguous(), w_gate.to(cd).contiguous(), w_dec.to(cd).contiguous()
+        b_gate, b_mag, b_dec = b_gate.contiguous(), b_mag.contiguous(), b_dec.contiguous()
+        er = torch.exp(r_mag).float().contiguous()
+        recon, via, act_count, row_active, l1_sum = fused_gated_forward(
+            xc, wg, b_gate, b_mag, er, wd, b_dec)
+        t, _ = x.shape
+        h = b_gate.shape[0]
+        err_rec = recon - x  # f32, against x in its own dtype
+        err_via = via - x
+        rec_loss = err_rec.square().mean()
+        l1_loss = l1_sum / (t * h)
+        aux_loss = err_via.square().mean()
+        ctx.save_for_backward(xc, wg, b_gate, b_mag, er, wd, b_dec, err_rec, err_via)
+        ctx.mark_non_differentiable(recon, act_count, row_active)
+        return rec_loss, l1_loss, aux_loss, recon, act_count, row_active
+
+    @staticmethod
+    def backward(ctx, g_rec, g_l1, g_aux, *_unused):
+        xc, wg, b_gate, b_mag, er, wd, b_dec, err_rec, err_via = ctx.saved_tensors
+        t, c = xc.shape
+        h = b_gate.shape[0]
+        zero = torch.zeros((), dtype=_F32, device=xc.device)
+        g_rec = zero if g_rec is None else g_rec.float()
+        g_l1 = zero if g_l1 is None else g_l1.float()
+        g_aux = zero if g_aux is None else g_aux.float()
+        # a device tensor, not host floats: the backward never syncs
+        coeffs = torch.stack([g_rec * 2.0 / (t * c), g_l1 / (t * h), g_aux * 2.0 / (t * c)])
+        dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec = fused_gated_backward(
+            xc, wg, b_gate, b_mag, er, wd, b_dec, err_rec, err_via, coeffs)
+        return None, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec, None
+
+
+def fused_gated_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: float,
+                               expansion_factor: int, *, compute_dtype=_BF16) -> dict:
+    """Fused equivalent of gated_sae_apply + gated_sae_loss_terms +
+    measure_inactive_units on 2-D token input (loss = rec + λ·l1 + aux).
+    RMSE/NRMSE come from the [T, C] reconstruction in plain torch."""
+    cd = compute_dtype_of(compute_dtype)
+    rec_loss, l1_loss, aux_loss, recon, act_count, row_active = FusedGatedSAEFunction.apply(
+        x, params["W_gate"], params["b_gate"], params["b_mag"], params["r_mag"],
+        params["W_dec"], params["b_dec"], cd)
+    t = x.shape[0]
+    h = params["b_gate"].shape[0]
+    rmse, nrmse = losses.rmse_nrmse(recon, x)
+    return {
+        "loss": rec_loss + lambda_sparse * l1_loss + aux_loss,
+        "rec_loss": rec_loss,
+        "l1_loss": l1_loss,
+        "aux_loss": aux_loss,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "decoded": recon,
+        "dead": act_count == 0,
+        "activity_freq": act_count / t,
+        "sparsity": torch.mean(row_active / (h / expansion_factor)),
+    }

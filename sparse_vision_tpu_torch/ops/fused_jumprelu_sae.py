@@ -1,0 +1,297 @@
+"""Fused JumpReLU-SAE training op: encode + JumpReLU + decode + loss terms +
+dead-latent statistics in one forward kernel, and a recomputing backward kernel
+that also computes the straight-through threshold gradient.
+
+Port of sparse_vision_tpu/ops/fused_jumprelu_sae.py; the design and the memory
+argument are those of ops/fused_sae.py (the [T, H] latents never reach device
+memory). Differences from the ReLU pair:
+  - activation: post = pre · 1[pre > θ] (strict) with θ = exp(log_θ) in f32,
+    computed outside the kernel;
+  - sparsity term: L0 = Σ act_count / T, from the activity counts the forward
+    already emits; ``l1_loss`` = Σ post / (T·H) is a metric only;
+  - backward: no sparsity term in dpre (the L0 moves only the thresholds); the
+    two STE paths fuse into one threshold gradient,
+      dθ = Σ_t win · (dpost · (−θ/ε) + c_l0 · (−1/ε)),  win = 1[|pre − θ| ≤ ε/2]
+    (inclusive), with c_l0 = g_l0 / T; d log_θ = dθ · θ is applied in torch.
+    The bandwidth ε reaches the kernel as a runtime float.
+
+Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
+same formulas, the same cast points); a CUDA tensor launches the kernel or
+raises. There is no fallback from one to the other.
+
+Cast points (identical to the Pallas kernels): x, W_enc and W_dec are cast to the
+compute dtype before the kernels; ``x − b_dec`` is a difference in that dtype;
+``b_enc`` and the ``+ b_dec`` on recon are f32; the saved error ``recon − x``
+stays f32 and the backward rounds ``drecon`` to the compute dtype only before
+its products; every product accumulates in f32. One documented difference in
+bf16: the centring term of ``db_dec`` rounds the whole-batch ``db_enc`` to bf16
+once, where the TPU kernel rounds each 2048-token tile's partial sum, so bf16
+``db_dec`` agrees with the JAX op within a tolerance and exactly in f32.
+
+Differentiability contract: gradients flow through ``rec_loss`` and ``l0_loss``
+only (loss = rec + λ·L0). ``l1_loss``, ``recon`` and the statistics are marked
+non-differentiable, and ``x`` is data: its gradient is None.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sparse_vision_tpu_torch.models.sae import JUMPRELU_BANDWIDTH
+from sparse_vision_tpu_torch.ops import losses, native
+from sparse_vision_tpu_torch.ops.fused_sae import (
+    _F32,
+    _BF16,
+    _expect,
+    _r,
+    _stream,
+    compute_dtype_of,
+    run_on_device,
+)
+
+# tile sizes of csrc/fused_jumprelu_sae.cu (kFwdTT, kBwdTT, kTH) and its widths
+FWD_TILE_T = 64
+BWD_TILE_T = 32
+TILE_H = 64
+SUPPORTED_C = (64, 128, 256)
+
+
+def can_fuse(t: int, h: int, c: int = 256) -> bool:
+    """True when the CUDA kernels take this (tokens, latents, channels) shape.
+    The CPU plain versions take any shape."""
+    return (
+        c in SUPPORTED_C and t > 0 and h > 0
+        and t % FWD_TILE_T == 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path; the reference the kernels are held against)
+# ---------------------------------------------------------------------------
+
+def fused_jumprelu_forward_plain(x, w_enc, b_enc, thr, w_dec, b_dec):
+    """Plain forward of csrc jumprelu_fwd_kernel. ``x``, ``w_enc``, ``w_dec`` are
+    in the compute dtype, ``thr`` = exp(log_threshold) in f32. Returns (recon
+    [T, C] f32, act_count [H], row_active [T], l1_sum scalar)."""
+    cd = x.dtype
+    xc = (x - b_dec.to(cd)).float()
+    pre = xc @ w_enc.float() + b_enc
+    post = torch.where(pre > thr, pre, torch.zeros((), device=pre.device))
+    recon = _r(post, cd) @ w_dec.float() + b_dec
+    active = post != 0
+    return recon, active.sum(0).float(), active.sum(1).float(), post.sum()
+
+
+def fused_jumprelu_backward_plain(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs,
+                                  bandwidth):
+    """Plain backward of csrc jumprelu_bwd_kernel. ``err`` is the f32 residual
+    ``recon − x``; ``coeffs`` = (c_rec, c_l0) with c_rec = 2·g_rec/(T·C),
+    c_l0 = g_l0/T. Returns f32 (dW_enc [C, H], db_enc [H], dθ [H], dW_dec [H, C],
+    db_dec [C])."""
+    cd = x.dtype
+    c_rec, c_l0 = coeffs[0], coeffs[1]
+    eps = bandwidth
+    xc = (x - b_dec.to(cd)).float()
+    we = w_enc.float()
+    pre = xc @ we + b_enc
+    mask = pre > thr
+    zero = torch.zeros((), device=pre.device)
+    post = torch.where(mask, pre, zero)
+    win = (torch.abs(pre - thr) <= eps / 2).float()
+    drecon = c_rec * err
+    dpost = _r(drecon, cd) @ w_dec.float().T
+    dpre = torch.where(mask, dpost, zero)
+    dw_enc = xc.T @ _r(dpre, cd)
+    db_enc = dpre.sum(0)
+    dthr = (win * (dpost * (-thr / eps) + c_l0 * (-1.0 / eps))).sum(0)
+    dw_dec = _r(post, cd).T @ _r(drecon, cd)
+    db_dec = drecon.sum(0) - _r(db_enc, cd) @ we.T
+    return dw_enc, db_enc, dthr, dw_dec, db_dec
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = native.load("fused_jumprelu_sae")
+    lib.svt_jumprelu_fwd.restype = _I
+    lib.svt_jumprelu_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P]
+    lib.svt_jumprelu_bwd.restype = _I
+    lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 5
+                                     + [_I, _I, _I, _P])
+    return lib
+
+
+def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec):
+    t, c = x.shape
+    h = b_enc.shape[0]
+    if x.dtype not in (_F32, _BF16):
+        raise ValueError(f"fused JumpReLU kernel: compute dtype {x.dtype} not supported")
+    if not can_fuse(t, h, c):
+        raise ValueError(
+            f"fused JumpReLU kernel: shape T={t}, C={c}, H={h} not supported (C in "
+            f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
+        )
+    dev = x.device
+    _expect("x", x, (t, c), x.dtype, dev)
+    _expect("W_enc", w_enc, (c, h), x.dtype, dev)
+    _expect("b_enc", b_enc, (h,), _F32, dev)
+    _expect("threshold", thr, (h,), _F32, dev)
+    _expect("W_dec", w_dec, (h, c), x.dtype, dev)
+    _expect("b_dec", b_dec, (c,), _F32, dev)
+    return t, c, h
+
+
+class _ForwardKernel:
+    """csrc jumprelu_fwd_kernel; ``launches`` counts its launches."""
+
+    name = "fused_jumprelu_sae_fwd"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec):
+        t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
+        dev = x.device
+        recon = torch.empty((t, c), dtype=_F32, device=dev)
+        act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+        row_active = torch.empty((t,), dtype=_F32, device=dev)
+        l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
+        lib = _lib()
+        with torch.cuda.device(dev):
+            rc = lib.svt_jumprelu_fwd(
+                int(x.dtype == _BF16), x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
+                thr.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(), recon.data_ptr(),
+                act_part.data_ptr(), row_active.data_ptr(), l1_part.data_ptr(), t, c, h,
+                _stream(dev),
+            )
+        if rc != 0:
+            raise RuntimeError(f"svt_jumprelu_fwd launch failed: cudaError_t {rc}")
+        self.launches += 1
+        return recon, act_part.sum(0), row_active, l1_part.sum()
+
+
+class _BackwardKernel:
+    """csrc jumprelu_bwd_kernel; ``launches`` counts its launches."""
+
+    name = "fused_jumprelu_sae_bwd"
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
+        t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
+        dev = x.device
+        _expect("err", err, (t, c), _F32, dev)
+        _expect("coeffs", coeffs, (2,), _F32, dev)
+        dw_enc = torch.empty((c, h), dtype=_F32, device=dev)
+        db_enc = torch.empty((h,), dtype=_F32, device=dev)
+        dthr = torch.empty((h,), dtype=_F32, device=dev)
+        dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
+        db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
+        eps = float(bandwidth)
+        lib = _lib()
+        with torch.cuda.device(dev):
+            rc = lib.svt_jumprelu_bwd(
+                int(x.dtype == _BF16), x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
+                thr.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(), err.data_ptr(),
+                coeffs.data_ptr(), eps, eps / 2, -1.0 / eps, dw_enc.data_ptr(),
+                db_enc.data_ptr(), dthr.data_ptr(), dw_dec.data_ptr(),
+                db_dec_part.data_ptr(), t, c, h, _stream(dev),
+            )
+        if rc != 0:
+            raise RuntimeError(f"svt_jumprelu_bwd launch failed: cudaError_t {rc}")
+        self.launches += 1
+        return dw_enc, db_enc, dthr, dw_dec, db_dec_part.sum(0)
+
+
+fwd_kernel = _ForwardKernel()
+bwd_kernel = _BackwardKernel()
+KERNELS = (fwd_kernel, bwd_kernel)
+
+
+def fused_jumprelu_forward(*args):
+    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(fwd_kernel, fused_jumprelu_forward_plain, *args)
+
+
+def fused_jumprelu_backward(*args):
+    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(bwd_kernel, fused_jumprelu_backward_plain, *args)
+
+
+class FusedJumpReLUSAEFunction(torch.autograd.Function):
+    """(x, W_enc, b_enc, log_threshold, W_dec, b_dec) -> (rec_loss, l0_loss,
+    l1_loss, recon, act_count, row_active), the counterpart of the JAX op's
+    custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, log_threshold, w_dec, b_dec, compute_dtype, bandwidth):
+        cd = compute_dtype
+        xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
+        b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
+        thr = torch.exp(log_threshold).float().contiguous()
+        recon, act_count, row_active, l1_sum = fused_jumprelu_forward(
+            xc, we, b_enc, thr, wd, b_dec)
+        t, _ = x.shape
+        h = b_enc.shape[0]
+        err = recon - x  # f32, against x in its own dtype
+        rec_loss = err.square().mean()
+        l0_loss = act_count.sum() / t
+        l1_loss = l1_sum / (t * h)
+        ctx.save_for_backward(xc, we, b_enc, thr, wd, b_dec, err)
+        ctx.bandwidth = bandwidth
+        ctx.mark_non_differentiable(l1_loss, recon, act_count, row_active)
+        return rec_loss, l0_loss, l1_loss, recon, act_count, row_active
+
+    @staticmethod
+    def backward(ctx, g_rec, g_l0, *_unused):
+        xc, we, b_enc, thr, wd, b_dec, err = ctx.saved_tensors
+        t, c = xc.shape
+        zero = torch.zeros((), dtype=_F32, device=xc.device)
+        g_rec = zero if g_rec is None else g_rec.float()
+        g_l0 = zero if g_l0 is None else g_l0.float()
+        # a device tensor, not host floats: the backward never syncs
+        coeffs = torch.stack([g_rec * 2.0 / (t * c), g_l0 / t])
+        dw_enc, db_enc, dthr, dw_dec, db_dec = fused_jumprelu_backward(
+            xc, we, b_enc, thr, wd, b_dec, err, coeffs, ctx.bandwidth)
+        # chain rule through θ = exp(log_θ)
+        return None, dw_enc, db_enc, dthr * thr, dw_dec, db_dec, None, None
+
+
+def fused_jumprelu_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: float,
+                                  expansion_factor: int, *, compute_dtype=_BF16,
+                                  bandwidth: float = JUMPRELU_BANDWIDTH) -> dict:
+    """Fused equivalent of jumprelu_sae_apply + jumprelu_loss_terms +
+    measure_inactive_units on 2-D token input (loss = rec + λ·L0; l1 is a
+    metric). RMSE/NRMSE come from the [T, C] reconstruction in plain torch."""
+    cd = compute_dtype_of(compute_dtype)
+    rec_loss, l0_loss, l1_loss, recon, act_count, row_active = FusedJumpReLUSAEFunction.apply(
+        x, params["W_enc"], params["b_enc"], params["log_threshold"], params["W_dec"],
+        params["b_dec"], cd, bandwidth)
+    t = x.shape[0]
+    h = params["b_enc"].shape[0]
+    rmse, nrmse = losses.rmse_nrmse(recon, x)
+    return {
+        "loss": rec_loss + lambda_sparse * l0_loss,
+        "rec_loss": rec_loss,
+        "l0_loss": l0_loss,
+        "l1_loss": l1_loss,
+        "aux_loss": torch.zeros((), dtype=_F32, device=x.device),
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "decoded": recon,
+        "dead": act_count == 0,
+        "activity_freq": act_count / t,
+        "sparsity": torch.mean(row_active / (h / expansion_factor)),
+    }

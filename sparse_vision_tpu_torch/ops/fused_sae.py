@@ -221,22 +221,25 @@ bwd_kernel = _BackwardKernel()
 KERNELS = (fwd_kernel, bwd_kernel)
 
 
-def fused_sae_forward(x, w_enc, b_enc, w_dec, b_dec):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def run_on_device(kernel, plain, x, *args):
+    """``kernel(x, *args)`` when ``x`` is a CUDA tensor, ``plain(x, *args)`` when
+    it is a CPU tensor; any other device raises. There is no fallback from one to
+    the other: a kernel that fails raises."""
     if x.device.type == "cuda":
-        return fwd_kernel(x, w_enc, b_enc, w_dec, b_dec)
+        return kernel(x, *args)
     if x.device.type == "cpu":
-        return fused_sae_forward_plain(x, w_enc, b_enc, w_dec, b_dec)
+        return plain(x, *args)
     raise ValueError(f"fused SAE op: no kernel for device {x.device}")
 
 
-def fused_sae_backward(x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
-    if x.device.type == "cuda":
-        return bwd_kernel(x, w_enc, b_enc, w_dec, b_dec, err, coeffs)
-    if x.device.type == "cpu":
-        return fused_sae_backward_plain(x, w_enc, b_enc, w_dec, b_dec, err, coeffs)
-    raise ValueError(f"fused SAE op: no kernel for device {x.device}")
+def fused_sae_forward(*args):
+    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(fwd_kernel, fused_sae_forward_plain, *args)
+
+
+def fused_sae_backward(*args):
+    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(bwd_kernel, fused_sae_backward_plain, *args)
 
 
 class FusedSAEFunction(torch.autograd.Function):

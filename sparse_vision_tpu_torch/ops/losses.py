@@ -1,4 +1,5 @@
-"""Loss functions (port of sparse_vision_tpu/ops/losses.py, the sae_mlp subset).
+"""Loss functions (port of sparse_vision_tpu/ops/losses.py: the sae_mlp, gated
+and JumpReLU terms).
 
 Reference semantics: SparseLoss / compute_rmse_nrmse (losses/sparse_loss.py:4-61),
 total-loss assembly (utils.py:2467-2475), CustomCrossEntropyLoss (utils.py:99-125).
@@ -36,6 +37,49 @@ def sae_loss_terms(encoded: torch.Tensor, decoded: torch.Tensor,
         "loss": rec + lambda_sparse * l1,
         "rec_loss": rec,
         "l1_loss": l1,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": torch.zeros((), dtype=decoded.dtype, device=decoded.device),
+    }
+
+
+def gated_sae_loss_terms(relu_pi_gate: torch.Tensor, via_gate: torch.Tensor,
+                         decoded: torch.Tensor, targets: torch.Tensor,
+                         lambda_sparse: float) -> dict:
+    """Gated-SAE loss (Rajamanoharan et al.): rec + λ·mean|relu(pi_gate)| + aux,
+    where aux is the MSE of ``via_gate`` (relu(pi_gate) through the frozen
+    decoder) against the targets (reference losses/sparse_loss.py:64-75)."""
+    rec = torch.square(decoded - targets).mean()
+    l1 = relu_pi_gate.abs().mean()
+    aux = torch.square(via_gate - targets).mean()
+    rmse, nrmse = rmse_nrmse(decoded, targets)
+    return {
+        "loss": rec + lambda_sparse * l1 + aux,
+        "rec_loss": rec,
+        "l1_loss": l1,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": aux,
+    }
+
+
+def jumprelu_loss_terms(encoded: torch.Tensor, decoded: torch.Tensor,
+                        targets: torch.Tensor, pre: torch.Tensor,
+                        log_threshold: torch.Tensor, lambda_sparse: float,
+                        bandwidth: float = 1e-3) -> dict:
+    """JumpReLU-SAE loss: MSE reconstruction + λ·L0, the L0 gradient reaching the
+    thresholds through the STE (models/sae.jumprelu_l0). ``l1_loss`` is a metric
+    for the shared results schema and does not enter the loss."""
+    from sparse_vision_tpu_torch.models.sae import jumprelu_l0
+
+    rec = torch.square(decoded - targets).mean()
+    l0 = jumprelu_l0(pre, torch.exp(log_threshold), bandwidth)
+    rmse, nrmse = rmse_nrmse(decoded, targets)
+    return {
+        "loss": rec + lambda_sparse * l0,
+        "rec_loss": rec,
+        "l0_loss": l0,
+        "l1_loss": encoded.abs().mean(),
         "nrmse_loss": nrmse,
         "rmse_loss": rmse,
         "aux_loss": torch.zeros((), dtype=decoded.dtype, device=decoded.device),

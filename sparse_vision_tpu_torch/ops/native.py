@@ -2,9 +2,10 @@
 
 Each source compiles on first use into a shared library with a plain C interface,
 under ``_build/`` next to the package sources (listed in .gitignore). The library
-name carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads at once. Nothing here runs at import time: the CPU test
-suite imports every module on a machine without nvcc.
+name carries a hash of the source, the shared headers (csrc/*.cuh) and the flags,
+so an edited source or header rebuilds and an unchanged one loads at once.
+Nothing here runs at import time: the CPU test suite imports every module on a
+machine without nvcc.
 """
 
 from __future__ import annotations
@@ -23,7 +24,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # library name -> source file in csrc/
-SOURCES = {"fused_sae": "fused_sae.cu"}
+SOURCES = {
+    "fused_sae": "fused_sae.cu",
+    "fused_gated_sae": "fused_gated_sae.cu",
+    "fused_jumprelu_sae": "fused_jumprelu_sae.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +49,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

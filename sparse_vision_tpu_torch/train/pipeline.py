@@ -2,12 +2,13 @@
 modified-model-eval parts of sparse_vision_tpu/train/pipeline.py).
 
 ``Pipeline(cfg).train_sae_cached()`` runs the north-star chain: frozen GoogLeNet
--> tap ``sae_layer`` -> activation cache -> SAE training (the fused CUDA kernels
-on a GPU, their plain versions on the CPU) with dead-latent tracking and
-resampling -> eval by splicing the SAE back into the backbone, before and after
-each epoch. Figures, top-k files, the results CSV, checkpoints and weight export
-are not ported yet; a config that asks for anything outside the slice raises
-NotImplementedError naming the field.
+-> tap ``sae_layer`` -> activation cache -> SAE training (``sae_mlp``,
+``gated_sae`` or ``jumprelu_sae``; the variant's fused CUDA kernels on a GPU,
+their plain versions on the CPU) with dead-latent tracking (resampling for
+sae_mlp, the rolling dead window for the others) -> eval by splicing the SAE
+back into the backbone, before and after each epoch. Figures, top-k files, the
+results CSV, checkpoints and weight export are not ported yet; a config that
+asks for anything outside the slice raises NotImplementedError naming the field.
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ from sparse_vision_tpu_torch.models.backbone import (
     layer_dimensions,
     make_backbone,
 )
-from sparse_vision_tpu_torch.models.sae import init_sae_mlp
+from sparse_vision_tpu_torch.models.sae import PORTED, init_sae
 from sparse_vision_tpu_torch.ops import metrics, optim
 from sparse_vision_tpu_torch.ops.losses import get_criterion
 from sparse_vision_tpu_torch.train.steps import (
+    fused_op,
     init_sae_train_state,
     make_sae_eval_step,
     make_sae_train_multi_step,
@@ -43,7 +45,7 @@ from sparse_vision_tpu_torch.train.steps import (
 _SLICE = {
     "model_name": ("inceptionv1", "googlenet"),
     "dataset_name": ("imagenet",),
-    "sae_model_name": ("sae_mlp",),
+    "sae_model_name": PORTED,
     "sae_optimizer_name": ("constrained_adam", "adam"),
     "cache_dtype": ("float32", "bfloat16", "int8"),
     "compute_dtype": ("bfloat16", "float32"),
@@ -107,7 +109,9 @@ class Pipeline:
         self.sae_input_size = get_sae_input_size(self.net, cfg.dataset_name, cfg.sae_layer)
         self.num_units = int(self.sae_input_size * cfg.sae_expansion_factor)
         if sae_params is None:
-            sae_params = init_sae_mlp(gen, self.sae_input_size, cfg.sae_expansion_factor)
+            sae_params = init_sae(cfg.sae_model_name, gen, self.sae_input_size,
+                                  cfg.sae_expansion_factor,
+                                  jumprelu_threshold_init=cfg.jumprelu_threshold_init)
         self.sae_params = _to_device(sae_params, self.device)
         self.tx = optim.get_optimizer(cfg.sae_optimizer_name, cfg.sae_learning_rate)
         self.ts = init_sae_train_state(self.sae_params, self.tx, self.num_units, seed=cfg.seed)
@@ -145,7 +149,6 @@ class Pipeline:
             ActivationCache,
             dump_activations,
         )
-        from sparse_vision_tpu_torch.ops.fused_sae import can_fuse
 
         cfg = self.cfg
         scan_k = self.CACHE_SCAN_K
@@ -159,17 +162,21 @@ class Pipeline:
         cache = ActivationCache(cache_dir)
 
         fused = cfg.use_pallas
-        if fused and self.device.type == "cuda" and not can_fuse(tps, self.num_units,
-                                                                  self.sae_input_size):
+        can_fuse, _ = fused_op(cfg.sae_model_name)
+        if fused and self.device.type == "cuda" and not can_fuse(
+                tps, self.num_units, self.sae_input_size):
             # no quiet fallback to the stock step on the card
             raise ValueError(
-                f"the fused SAE kernels do not take T={tps}, H={self.num_units}, "
-                f"C={self.sae_input_size} (ops/fused_sae.can_fuse); set use_pallas=False "
-                "for the stock step")
+                f"the fused {cfg.sae_model_name} kernels do not take T={tps}, "
+                f"H={self.num_units}, C={self.sae_input_size} (their can_fuse); set "
+                "use_pallas=False for the stock step")
+        fused_opts = {"compute_dtype": cfg.compute_dtype}
+        if cfg.sae_model_name == "jumprelu_sae":
+            fused_opts["bandwidth"] = cfg.jumprelu_bandwidth
         step_fn = make_sae_train_step_from_acts(
             cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
-            cfg.sae_expansion_factor, fused=fused,
-            fused_opts={"compute_dtype": cfg.compute_dtype})
+            cfg.sae_expansion_factor, fused=fused, fused_opts=fused_opts,
+            jumprelu_bandwidth=cfg.jumprelu_bandwidth)
         multi_fn = make_sae_train_multi_step(step_fn)
 
         last_eval = self.eval_modified(epoch=0)
@@ -197,7 +204,8 @@ class Pipeline:
             cfg = self.cfg
             self._sae_eval_step_cache = make_sae_eval_step(
                 self.net, cfg.sae_layer, cfg.sae_model_name, cfg.sae_lambda_sparse,
-                cfg.sae_expansion_factor, self.criterion)
+                cfg.sae_expansion_factor, self.criterion,
+                jumprelu_bandwidth=cfg.jumprelu_bandwidth)
         return self._sae_eval_step_cache
 
     def eval_modified(self, epoch: int) -> dict:
@@ -228,7 +236,8 @@ class Pipeline:
     def _auto_eval_batch_size(self) -> int:
         """sae_batch_size, clamped so the stock eval step's [B*H*W, latents] f32
         block stays under ~2 GB (256 images of 28x28 mixed3a tokens at 16k latents
-        would need ~13 GB for it)."""
+        would need ~13 GB for it). The gated eval holds about five such blocks at
+        once (~10 GB), which the card's 80 GB still takes."""
         bs = self.cfg.sae_batch_size
         shape = layer_dimensions(self.net, self.cfg.dataset_name)[self.cfg.sae_layer]
         tokens_per_image = int(np.prod(shape[:-1])) if len(shape) > 1 else 1

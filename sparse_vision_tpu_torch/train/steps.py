@@ -1,11 +1,13 @@
-"""SAE train and eval steps (port of the sae_mlp parts of
-sparse_vision_tpu/train/steps.py).
+"""SAE train and eval steps (port of the sae_mlp, gated_sae and jumprelu_sae
+parts of sparse_vision_tpu/train/steps.py).
 
 The JAX package jits one pure step over an explicit train state; here a step is
-an eager function over the same state: gradients of ``rec + λ·l1`` by autograd
-(through the fused op's autograd.Function when ``fused``), the ConstrainedAdam
-or Adam update, the dead-latent accumulator, and the scheduled resample/reset.
-The step counter is a host integer, so the schedule needs no device sync.
+an eager function over the same state: gradients of the variant's loss by
+autograd (through the fused op's autograd.Function when ``fused``), the
+ConstrainedAdam or Adam update, the dead-latent accumulator, and either the
+scheduled resample/reset (sae_mlp) or the rolling dead window (the variants
+that do not resample). The step counter is a host integer, so the schedule
+needs no device sync.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from sparse_vision_tpu_torch.models.sae import sae_inference_and_loss
+from sparse_vision_tpu_torch.models.sae import (
+    JUMPRELU_BANDWIDTH,
+    PORTED,
+    sae_inference_and_loss,
+)
 from sparse_vision_tpu_torch.ops import metrics, optim
 from sparse_vision_tpu_torch.ops.resample import (
     kaiming_draws,
@@ -34,7 +40,7 @@ class SAETrainState(NamedTuple):
 
 def init_sae_train_state(sae_params: dict, tx: optim.Optimizer, hidden: int,
                          seed: int = 0) -> SAETrainState:
-    device = sae_params["W_enc"].device
+    device = sae_params["W_dec"].device
     return SAETrainState(
         params=sae_params,
         opt_state=tx.init(sae_params),
@@ -44,35 +50,56 @@ def init_sae_train_state(sae_params: dict, tx: optim.Optimizer, hidden: int,
     )
 
 
+def fused_op(sae_model_name: str) -> tuple:
+    """(can_fuse, loss_terms) of the variant's fused op: ops/fused_sae.py,
+    ops/fused_gated_sae.py or ops/fused_jumprelu_sae.py."""
+    from sparse_vision_tpu_torch.ops import fused_gated_sae, fused_jumprelu_sae, fused_sae
+
+    return {
+        "sae_mlp": (fused_sae.can_fuse, fused_sae.fused_sae_loss_terms),
+        "gated_sae": (fused_gated_sae.can_fuse, fused_gated_sae.fused_gated_sae_loss_terms),
+        "jumprelu_sae": (fused_jumprelu_sae.can_fuse,
+                         fused_jumprelu_sae.fused_jumprelu_sae_loss_terms),
+    }[sae_model_name]
+
+
 def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                                   tx: optim.Optimizer, dead_neurons_steps: int,
                                   expansion_factor: int, fused: bool = False,
-                                  fused_opts: Optional[dict] = None):
+                                  fused_opts: Optional[dict] = None,
+                                  jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH):
     """SAE train step over pre-extracted activations [T, C] (the activation-cache
-    training mode), sae_mlp only.
+    training mode) for sae_mlp, gated_sae and jumprelu_sae.
 
-    ``fused=True`` routes forward, loss and statistics through
-    ops/fused_sae.fused_sae_loss_terms: the CUDA kernels on a CUDA tensor, their
-    plain versions on a CPU tensor. ``fused_opts`` may set ``compute_dtype``.
+    ``fused=True`` routes forward, loss and statistics through the variant's
+    fused op (``fused_op``): the CUDA kernels on a CUDA tensor, their plain
+    versions on a CPU tensor.
+    ``fused_opts`` may set ``compute_dtype``, and ``bandwidth`` for jumprelu_sae
+    (the stock path reads ``jumprelu_bandwidth``).
 
     The returned ``step_fn(ts, act, resample_draws=None) -> (ts, metrics)``
-    resamples with Kaiming draws from ``ts.rng`` unless ``resample_draws`` =
-    (enc [h, d], dec [d, h]) is given (tests inject the JAX package's draws).
+    resamples (sae_mlp only) with Kaiming draws from ``ts.rng`` unless
+    ``resample_draws`` = (enc [h, d], dec [d, h]) is given (tests inject the JAX
+    package's draws). The variants that do not resample use the rolling dead
+    window instead: the accumulator restarts all-True every
+    ``dead_neurons_steps`` steps.
 
     Reproduced quirk: ``perc_dead`` is read AFTER the reset/resample branch, so at
     a measurement boundary it reports the freshly reset all-True accumulator
     (100% dead), exactly as the JAX step does (ROADMAP queue C)."""
-    if sae_model_name != "sae_mlp":
-        raise NotImplementedError(f"SAE {sae_model_name!r} is not ported (sae_mlp)")
+    if sae_model_name not in PORTED:
+        raise NotImplementedError(f"SAE {sae_model_name!r} is not ported {PORTED}")
+    can_resample = sae_model_name == "sae_mlp"
     if fused:
-        from sparse_vision_tpu_torch.ops.fused_sae import fused_sae_loss_terms
+        _, fused_loss_terms = fused_op(sae_model_name)
 
         def loss_fn(params, act):
-            return fused_sae_loss_terms(params, act, lambda_sparse, expansion_factor,
-                                        **(fused_opts or {}))
+            return fused_loss_terms(params, act, lambda_sparse, expansion_factor,
+                                    **(fused_opts or {}))
     else:
         def loss_fn(params, act):
-            return sae_inference_and_loss(sae_model_name, params, act, lambda_sparse)
+            return sae_inference_and_loss(sae_model_name, params, act, lambda_sparse,
+                                          jumprelu_bandwidth=jumprelu_bandwidth)
 
     def step_fn(ts: SAETrainState, act: torch.Tensor, resample_draws=None):
         keys = list(ts.params)
@@ -91,7 +118,11 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                 dead, sparsity, _ = metrics.measure_inactive_units(
                     out["encoded"], expansion_factor)
             dead_acc = ts.dead_acc & dead
-            if should_resample(step, dead_neurons_steps):
+            if not can_resample:
+                # rolling dead window (the JAX step's non-resampling branch)
+                if step % dead_neurons_steps == 0:
+                    dead_acc = torch.ones_like(dead_acc)
+            elif should_resample(step, dead_neurons_steps):
                 if resample_draws is None:
                     d, h = new_params["W_enc"].shape
                     resample_draws = kaiming_draws(ts.rng, d, h, new_params["W_dec"].shape[1])
@@ -128,7 +159,8 @@ def make_sae_train_multi_step(step_fn):
 
 
 def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: float,
-                       expansion_factor: int, criterion):
+                       expansion_factor: int, criterion,
+                       jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH):
     """Eval step for the SAE-spliced model: the reference's eval-epoch quantities
     for one batch (model_pipeline.py:661-714 + 806-878), in plain torch (the JAX
     eval is stock XLA too). Returns (batch_metrics, arrays) with arrays 'dead',
@@ -139,7 +171,8 @@ def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: 
     def step_fn(sae_params, frozen_params, frozen_state, images, labels):
         logits_orig, taps, _ = net.apply(frozen_params, images, state=frozen_state)
         act = taps[sae_layer]
-        out = sae_inference_and_loss(sae_model_name, sae_params, act, lambda_sparse)
+        out = sae_inference_and_loss(sae_model_name, sae_params, act, lambda_sparse,
+                                     jumprelu_bandwidth=jumprelu_bandwidth)
         logits_mod = net.apply_segment(frozen_params, out["decoded"], after=sae_layer,
                                        upto=last, state=frozen_state)
         loss_mod = criterion(logits_mod, labels)

@@ -1,0 +1,228 @@
+"""The port's fused JumpReLU-SAE op (plain versions of the CUDA kernels, the CPU
+path) against the JAX fused_jumprelu_sae_loss_terms run as tests/test_jumprelu.py
+runs it: Pallas interpret mode, small tiles.
+
+Inputs lie on a dyadic grid (x in quarters, W_enc in 1/256ths, b_enc and b_dec
+in 1/2048ths), so every pre-activation is exact in f32 and in bf16-operand
+products on both sides: the strict mask ``pre > θ`` and the inclusive STE window
+``|pre − θ| ≤ ε/2`` then select the same entries in both packages, and the
+comparisons measure the arithmetic that follows, not a threshold flip. The
+bandwidth (0.5) and thresholds (0.3-0.7) put many pre-activations inside the
+window, so the threshold gradient is non-zero for most latents (checked).
+
+Tolerances:
+- f32 compute: forward values rtol 1e-5; dead, activity and sparsity exact;
+  gradients of rec + λ·L0 at rtol 1e-4, atol 1e-7 (tests/test_jumprelu.py:150).
+- bf16 compute: the cast points are the same on both sides, so the forward and
+  the per-latent gradients (db_enc, log_threshold, dW_dec) agree to f32
+  summation order: rtol 1e-4 (a bf16 rounding of a decoder-side operand may flip
+  when its f32 value moved by one ulp). Two outputs need more room, for reasons
+  on the JAX side:
+  * dW_enc: the interpret-mode Pallas kernel's transposed bf16 product
+    (x_centᵀ·dpre) differs from the same formula in plain jnp by up to a bf16
+    ulp of its largest entry (tests/test_torch_fused_sae.py, the ReLU op's
+    dW_enc). Tolerance: one bf16 ulp (2^-8) of max|dW_enc|.
+  * db_dec: its centring term multiplies a bf16-rounded db_enc; the TPU kernel
+    rounds each token tile's partial sum, the port the whole batch's sum once,
+    so each term can differ by a bf16 half-ulp: 1e-2 of max|db_dec|.
+- The port's fused op against the port's stock JumpReLU path (f32): the same
+  formulas through two routes (explicit backward vs autograd through the STE
+  Functions): values rtol 1e-5, gradients rtol 1e-4, atol 1e-7.
+"""
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from sparse_vision_tpu.models.sae import init_jumprelu_sae
+from sparse_vision_tpu.ops.fused_jumprelu_sae import fused_jumprelu_sae_loss_terms as jax_fused
+from sparse_vision_tpu_torch import convert
+from sparse_vision_tpu_torch.models.sae import sae_inference_and_loss
+from sparse_vision_tpu_torch.ops import fused_jumprelu_sae
+from sparse_vision_tpu_torch.ops.metrics import measure_inactive_units
+
+T, C, H_EXP = 128, 64, 4
+H = C * H_EXP
+LAMBDA, EPS = 0.05, 0.5
+JTILES = dict(tile_t=64, tile_h=128, interpret=True, bandwidth=EPS)
+CASES = {
+    # name: (compute dtype, x dtype)
+    "f32": ("float32", "float32"),
+    "bf16": ("bfloat16", "float32"),
+    "bf16_cache": ("bfloat16", "bfloat16"),  # x straight from a bf16 activation cache
+}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+KEYS = ("W_enc", "b_enc", "W_dec", "b_dec", "log_threshold")
+
+
+def _grid(a, step):
+    return (np.round(np.asarray(a) / step) * step).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = jax.device_get(init_jumprelu_sae(jax.random.key(0), C, H_EXP))
+    rng = np.random.default_rng(5)
+    b_enc = (2 * rng.integers(-40, 40, size=H) + 1) * 2.0 ** -11
+    b_enc[:16] = -50.0 - 2.0 ** -11  # 16 latents that never fire (dead)
+    params = {
+        **params,
+        "W_enc": _grid(params["W_enc"], 2.0 ** -8),
+        "b_enc": b_enc.astype(np.float32),
+        "b_dec": _grid(0.2 * rng.normal(size=C), 0.25),
+        "log_threshold": np.log(rng.uniform(0.3, 0.7, size=H)).astype(np.float32),
+    }
+    x = _grid(np.random.default_rng(1).normal(size=(T, C)), 0.25)
+    return params, x
+
+
+def _inputs(setup, x_dtype):
+    params, x = setup
+    if x_dtype == "bfloat16":
+        xb = x.astype(ml_dtypes.bfloat16)
+        return params, jnp.asarray(xb), torch.from_numpy(xb.view(np.uint16)).view(torch.bfloat16)
+    return params, jnp.asarray(x), torch.from_numpy(x)
+
+
+def _grads(loss_fn, params):
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    out = loss_fn(p)
+    return out, dict(zip(p, torch.autograd.grad(out["loss"], list(p.values()))))
+
+
+@pytest.fixture(scope="module")
+def runs(setup):
+    """Both ops' forward outputs and parameter gradients, per case."""
+    res = {}
+    for case, (cd, xd) in CASES.items():
+        params, jx, tx = _inputs(setup, xd)
+
+        def jloss(p):
+            return jax_fused(p, jx, LAMBDA, H_EXP, compute_dtype=JDT[cd], **JTILES)
+
+        jout = jloss(params)
+        jgrad = jax.grad(lambda p: jloss(p)["loss"])(params)
+        tout, tgrad = _grads(lambda p: fused_jumprelu_sae.fused_jumprelu_sae_loss_terms(
+            p, tx, LAMBDA, H_EXP, compute_dtype=TDT[cd], bandwidth=EPS),
+            convert.sae_params_from_jax(params))
+        res[case] = (jout, jgrad, tout, tgrad)
+    return res
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_jax(runs, case):
+    jout, _, tout, _ = runs[case]
+    rtol = 1e-5 if case == "f32" else 1e-4
+    for k in ("loss", "rec_loss", "l0_loss", "l1_loss", "aux_loss", "nrmse_loss", "rmse_loss"):
+        np.testing.assert_allclose(float(tout[k].detach()), float(jout[k]), rtol=rtol, err_msg=k)
+    np.testing.assert_allclose(tout["decoded"].detach().numpy(), np.asarray(jout["decoded"]),
+                               rtol=rtol, atol=1e-6)
+    np.testing.assert_array_equal(tout["dead"].numpy(), np.asarray(jout["dead"]))
+    np.testing.assert_array_equal(tout["activity_freq"].numpy(),
+                                  np.asarray(jout["activity_freq"]))
+    np.testing.assert_allclose(float(tout["sparsity"]), float(jout["sparsity"]), rtol=1e-6)
+    assert bool(jout["dead"][:16].all()) and not bool(jout["dead"].all())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradients_match_jax(runs, case):
+    _, jgrad, _, tgrad = runs[case]
+    for k in KEYS:
+        ref = np.asarray(jgrad[k])
+        if case == "f32":
+            rtol, atol = 1e-4, 1e-7
+        else:
+            rtol, atol = {"W_enc": (0, 2.0**-8 * np.abs(ref).max()),
+                          "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+        assert np.abs(ref).max() > 0, k
+    # the STE window caught pre-activations of most live latents
+    assert (np.asarray(jgrad["log_threshold"]) != 0).sum() > H // 2
+
+
+def test_fused_matches_the_ports_stock_path(setup):
+    """Fused op (f32) against autograd through the port's own jumprelu_sae_apply +
+    jumprelu_loss_terms (the STE autograd.Functions): loss terms, statistics and
+    every parameter gradient, log_threshold included."""
+    params, x = setup
+    tp = convert.sae_params_from_jax(params)
+    xt = torch.from_numpy(x)
+    fout, fgrad = _grads(lambda p: fused_jumprelu_sae.fused_jumprelu_sae_loss_terms(
+        p, xt, LAMBDA, H_EXP, compute_dtype=torch.float32, bandwidth=EPS), tp)
+    sout, sgrad = _grads(lambda p: sae_inference_and_loss(
+        "jumprelu_sae", p, xt, LAMBDA, jumprelu_bandwidth=EPS), tp)
+    for k in ("loss", "rec_loss", "l0_loss", "l1_loss", "nrmse_loss", "rmse_loss"):
+        np.testing.assert_allclose(float(fout[k].detach()), float(sout[k].detach()),
+                                   rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(fout["decoded"].detach().numpy(),
+                               sout["decoded"].detach().numpy(), rtol=1e-5, atol=1e-6)
+    dead, sparsity, freq = measure_inactive_units(sout["encoded"].detach(), H_EXP)
+    np.testing.assert_array_equal(fout["dead"].numpy(), dead.numpy())
+    np.testing.assert_allclose(fout["activity_freq"].numpy(), freq.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(float(fout["sparsity"]), float(sparsity), rtol=1e-6)
+    for k in KEYS:
+        np.testing.assert_allclose(fgrad[k].numpy(), sgrad[k].numpy(), rtol=1e-4, atol=1e-7,
+                                   err_msg=k)
+
+
+def test_only_rec_and_l0_carry_gradients(setup):
+    """The differentiability contract: l1_loss is a metric (no gradient path),
+    and the L0 term moves only the thresholds."""
+    params, x = setup
+    tp = convert.sae_params_from_jax(params)
+    p = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    out = fused_jumprelu_sae.fused_jumprelu_sae_loss_terms(
+        p, torch.from_numpy(x), LAMBDA, H_EXP, compute_dtype=torch.float32, bandwidth=EPS)
+    assert not out["l1_loss"].requires_grad and not out["decoded"].requires_grad
+    g = dict(zip(KEYS, torch.autograd.grad(out["l0_loss"], [p[k] for k in KEYS],
+                                           allow_unused=True)))
+    assert float(g["log_threshold"].abs().max()) > 0
+    for k in ("W_enc", "b_enc", "W_dec", "b_dec"):
+        assert g[k] is None or float(g[k].abs().max()) == 0.0, k
+
+
+def test_non_cpu_tensor_never_takes_the_plain_path(setup):
+    """Only a CPU tensor runs the plain version; any other device must launch a
+    kernel or raise (here: a meta tensor raises)."""
+    params, _ = setup
+    tp = {k: v.to("meta") for k, v in convert.sae_params_from_jax(params).items()}
+    ops = (tp["W_enc"], tp["b_enc"], tp["log_threshold"], tp["W_dec"], tp["b_dec"])
+    x = torch.empty(T, C, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_jumprelu_sae.fused_jumprelu_forward(x, *ops)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_jumprelu_sae.fused_jumprelu_backward(x, *ops, x, torch.empty(2, device="meta"),
+                                                   EPS)
+
+
+@pytest.mark.parametrize("t,h,c,ok", [
+    (32768, 16384, 256, True), (512, 1024, 128, True), (64, 64, 64, True),
+    (32, 64, 64, False), (100, 1024, 256, False), (512, 1000, 256, False),
+    (512, 1024, 96, False), (512, 1024, 512, False),
+])
+def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
+    assert fused_jumprelu_sae.can_fuse(t, h, c) is ok
+
+
+def test_kernel_wrapper_validates_before_launch(setup):
+    """Shape and dtype checks run before any library is loaded, so a bad call
+    fails the same way on every machine."""
+    params, x = setup
+    tp = convert.sae_params_from_jax(params)
+    thr = torch.exp(tp["log_threshold"])
+    ops = (tp["b_enc"], thr, tp["W_dec"], tp["b_dec"])
+    with pytest.raises(ValueError, match="not supported"):
+        fused_jumprelu_sae.fwd_kernel(torch.from_numpy(x[:96]), tp["W_enc"], *ops)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_jumprelu_sae.fwd_kernel(torch.from_numpy(x), tp["W_enc"].to(torch.bfloat16),
+                                      *ops)
+    err = torch.zeros(T, C, dtype=torch.bfloat16)  # the backward takes an f32 error only
+    with pytest.raises(ValueError, match="err"):
+        fused_jumprelu_sae.bwd_kernel(torch.from_numpy(x), tp["W_enc"], *ops, err,
+                                      torch.zeros(2), EPS)
+    assert fused_jumprelu_sae.fwd_kernel.launches == 0
+    assert fused_jumprelu_sae.bwd_kernel.launches == 0

@@ -195,3 +195,24 @@ def test_kernel_wrapper_validates_before_launch(setup):
         fused_sae.fwd_kernel(torch.from_numpy(x), tp["W_enc"].to(torch.bfloat16),
                              tp["b_enc"], tp["W_dec"], tp["b_dec"])
     assert fused_sae.fwd_kernel.launches == 0 and fused_sae.bwd_kernel.launches == 0
+
+
+def test_library_name_follows_source_and_shared_header(tmp_path, monkeypatch):
+    """ops/native names each built library by a hash of its source and of the
+    shared headers in csrc/, so an edit to either rebuilds."""
+    import shutil
+
+    from sparse_vision_tpu_torch.ops import native
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(native.CSRC_DIR, csrc)
+    monkeypatch.setattr(native, "CSRC_DIR", csrc)
+    names = {name: native.library_path(name) for name in native.SOURCES}
+    assert len(set(names.values())) == len(native.SOURCES)
+    with open(csrc / "sae_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(native.library_path(n) != p for n, p in names.items())
+    edited = native.library_path("fused_gated_sae")
+    with open(csrc / "fused_gated_sae.cu", "a") as f:
+        f.write("// edited\n")
+    assert native.library_path("fused_gated_sae") != edited

@@ -35,6 +35,8 @@ def test_no_jax_and_no_jax_package_imports(path):
 def test_the_walk_sees_every_module():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("chip_smoke.py", "sparse_vision_tpu_torch/ops/fused_sae.py",
+                 "sparse_vision_tpu_torch/ops/fused_gated_sae.py",
+                 "sparse_vision_tpu_torch/ops/fused_jumprelu_sae.py",
                  "sparse_vision_tpu_torch/train/pipeline.py"):
         assert must in names
 

@@ -6,7 +6,10 @@ from it and evaluating by splicing the SAE back into the backbone.
 Small: 32 px images (mixed3a is 4 x 4 x 256), 64 train / 32 val images, 2x
 expansion (512 latents), 8 steps of 128 tokens, f32 cache and compute, and
 dead_neurons_steps large enough that no resample fires. Both pipelines run with
-CACHE_SCAN_K = 2, so the JAX logger sees every second step.
+CACHE_SCAN_K = 2, so the JAX logger sees every second step. The comparisons run
+for each ported variant: sae_mlp, gated_sae and jumprelu_sae, the latter with
+its STE bandwidth and initial threshold scaled to these activations (std ~0.05,
+the "scaled" rule of docs/CONVERGENCE.md:39), so the thresholds train.
 
 Tolerances: the caches differ by the two frameworks' f32 convolution rounding
 (~1e-6 relative, test_torch_googlenet.py), which training carries forward: losses
@@ -41,6 +44,14 @@ CFG = dict(
 )
 
 
+# sae_model_name -> config fields beyond CFG
+VARIANTS = {
+    "sae_mlp": {},
+    "gated_sae": {},
+    "jumprelu_sae": {"jumprelu_bandwidth": 0.05, "jumprelu_threshold_init": 0.025},
+}
+
+
 class _Recorder(RunLogger):
     def __init__(self):
         super().__init__("test", log_every=10**9)
@@ -56,15 +67,16 @@ def _datasets(make):
     return tr, va, tr.category_names, SIZE
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    jcfg = JConfig(**CFG, directory_path=str(tmp_path_factory.mktemp("jax")))
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def runs(request, tmp_path_factory):
+    cfg = {**CFG, "sae_model_name": request.param, **VARIANTS[request.param]}
+    jcfg = JConfig(**cfg, directory_path=str(tmp_path_factory.mktemp("jax")))
     jlog = _Recorder()
     jpipe = JPipeline(jcfg, logger=jlog, datasets=_datasets(j_synth))
     backbone = convert.backbone_from_jax(jax.device_get(jpipe.frozen_params),
                                          jax.device_get(jpipe.net_state))
     sae = convert.sae_params_from_jax(jax.device_get(jpipe.ts.params))
-    tcfg = TConfig(**CFG, directory_path=str(tmp_path_factory.mktemp("torch")))
+    tcfg = TConfig(**cfg, directory_path=str(tmp_path_factory.mktemp("torch")))
     tpipe = TPipeline(tcfg, device="cpu", datasets=_datasets(t_synth), backbone=backbone,
                       sae_params=sae)
     np.testing.assert_array_equal(tpipe.train_ds.images, jpipe.train_ds.images)
@@ -107,7 +119,7 @@ def test_eval_means_match_jax(runs):
 
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
-    for field, value in [("sae_model_name", "gated_sae"), ("mesh_shape", (2,)),
+    for field, value in [("sae_model_name", "topk_sae"), ("mesh_shape", (2,)),
                          ("overlap_dump_train", True), ("data_dir", "/data")]:
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",

@@ -1,9 +1,11 @@
-"""The port's sae_mlp, losses and metrics against the JAX package on the same inputs.
+"""The port's SAE variants (sae_mlp, gated_sae, jumprelu_sae), losses and metrics
+against the JAX package on the same inputs.
 
 Inputs come from numpy.random.default_rng; JAX-initialized parameters reach the
 port through convert.py. Tolerance: rtol 1e-5 (f32 on both sides; the two
 frameworks sum in different orders), atol 1e-6 for elementwise arrays whose
-entries can be near zero.
+entries can be near zero. Gradients through the gated and JumpReLU paths:
+rtol 1e-4, atol 1e-7 (tests/test_fused_gated_sae.py:39-65).
 """
 
 import jax
@@ -99,7 +101,7 @@ def test_sae_encode_decode_match_jax(params):
 def test_unported_sae_raises(params):
     _, tp = params
     with pytest.raises(NotImplementedError):
-        tsae.sae_inference_and_loss("gated_sae", tp, torch.zeros(4, C), LAMBDA)
+        tsae.sae_inference_and_loss("topk_sae", tp, torch.zeros(4, C), LAMBDA)
 
 
 def test_rmse_nrmse_excludes_zero_range_dims():
@@ -157,3 +159,164 @@ def test_logit_metrics_match_jax():
     acc = tmetrics.update_dead_accumulator(None, torch.from_numpy(dead))
     acc = tmetrics.update_dead_accumulator(acc, torch.from_numpy(~dead))
     assert not bool(acc.any())
+
+
+# ---------------------------------------------------------------------------
+# gated_sae and jumprelu_sae
+# ---------------------------------------------------------------------------
+
+EPS = 0.5  # STE bandwidth: wide enough that the window catches pre-activations
+
+
+def _variant_params(name):
+    """JAX-initialized params moved away from zero (gate/magnitude asymmetry,
+    thresholds spread over the pre-activations' range); numpy and torch copies."""
+    rng = np.random.default_rng(11)
+    h = C * K
+    if name == "gated_sae":
+        p = jax.device_get(jsae.init_gated_sae(jax.random.key(0), C, K))
+        p = {**p, "b_gate": rng.normal(0.0, 0.1, h).astype(np.float32),
+             "b_mag": rng.normal(0.0, 0.1, h).astype(np.float32),
+             "r_mag": rng.normal(0.0, 0.2, h).astype(np.float32),
+             "b_dec": rng.normal(0.0, 0.05, C).astype(np.float32)}
+    else:
+        p = jax.device_get(jsae.init_jumprelu_sae(jax.random.key(0), C, K))
+        p = {**p, "log_threshold": np.log(rng.uniform(0.1, 0.6, h)).astype(np.float32),
+             "b_dec": rng.normal(0.0, 0.05, C).astype(np.float32)}
+    return p, convert.sae_params_from_jax(p)
+
+
+def _jax_and_torch_grads(name, np_p, tp, x, jax_loss, torch_loss):
+    jg = jax.grad(lambda p: jax_loss(p, jnp.asarray(x)))(jax.tree.map(jnp.asarray, np_p))
+    p = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    tg = torch.autograd.grad(torch_loss(p, torch.from_numpy(x)), list(p.values()))
+    return jg, dict(zip(p, tg))
+
+
+@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae"])
+def test_init_sae_layout_and_unit_decoder_rows(name):
+    gen = torch.Generator().manual_seed(0)
+    p = tsae.init_sae(name, gen, C, K, jumprelu_threshold_init=0.25)
+    jp = tsae.init_sae(name, torch.Generator().manual_seed(0), C, K)
+    j = jax.device_get(jsae.init_sae(name, jax.random.key(0), C, K,
+                                     jumprelu_threshold_init=0.25))
+    assert set(p) == set(j) == set(jp)
+    for k, v in p.items():
+        assert tuple(v.shape) == tuple(j[k].shape) and v.dtype == torch.float32, k
+    np.testing.assert_allclose(torch.linalg.vector_norm(p["W_dec"], dim=1).numpy(), 1.0,
+                               rtol=1e-6)
+    first = "W_gate" if name == "gated_sae" else "W_enc"
+    assert float(p[first].abs().max()) <= (6.0 / C) ** 0.5
+    zeros = [k for k in p if k.startswith("b_") or k == "r_mag"]
+    assert all(float(p[k].abs().sum()) == 0.0 for k in zeros)
+    if name == "jumprelu_sae":
+        close(p["log_threshold"], j["log_threshold"])  # log(0.25) in f32, as JAX takes it
+        close(jp["log_threshold"], np.full(C * K, np.log(np.float32(1e-3))))
+
+
+def test_init_sae_refuses_unported_names():
+    with pytest.raises(NotImplementedError):
+        tsae.init_sae("topk_sae", torch.Generator().manual_seed(0), C, K)
+
+
+def test_gated_sae_apply_matches_jax():
+    np_p, tp = _variant_params("gated_sae")
+    x = np.random.default_rng(1).normal(size=(200, C)).astype(np.float32)
+    j = jsae.gated_sae_apply(np_p, jnp.asarray(x))
+    t = tsae.gated_sae_apply(tp, torch.from_numpy(x))
+    for a, b, name in zip(t, j, ("encoded", "decoded", "relu_pi_gate", "via_gate")):
+        close(a, b, msg=name)
+
+
+def test_heaviside_gate_is_half_at_zero_and_detached():
+    pi = torch.tensor([-1.0, 0.0, 2.0], requires_grad=True)
+    g = tsae.heaviside_gate(pi)
+    assert g.tolist() == [0.0, 0.5, 1.0] and not g.requires_grad
+
+
+def test_jumprelu_sae_apply_matches_jax():
+    np_p, tp = _variant_params("jumprelu_sae")
+    x = np.random.default_rng(1).normal(size=(200, C)).astype(np.float32)
+    j = jsae.jumprelu_sae_apply(np_p, jnp.asarray(x), EPS)
+    t = tsae.jumprelu_sae_apply(tp, torch.from_numpy(x), EPS)
+    for a, b, name in zip(t, j, ("encoded", "decoded", "pre")):
+        close(a, b, msg=name)
+    post = t[0].detach()
+    assert bool(((post == 0) | (post > torch.exp(tp["log_threshold"]))).all())
+
+
+@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae"])
+@pytest.mark.parametrize("shape", [(2, 5, 5, C), (120, C)])
+def test_variant_inference_and_loss_match_jax(name, shape):
+    np_p, tp = _variant_params(name)
+    act = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    j = jsae.sae_inference_and_loss(name, np_p, jnp.asarray(act), LAMBDA,
+                                    jumprelu_bandwidth=EPS)
+    t = tsae.sae_inference_and_loss(name, tp, torch.from_numpy(act), LAMBDA,
+                                    jumprelu_bandwidth=EPS)
+    keys = ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss", "aux_loss")
+    for k in keys + (("l0_loss",) if name == "jumprelu_sae" else ()):
+        close(t[k], j[k], msg=k)
+    for k in ("encoded", "decoded"):
+        assert tuple(t[k].shape) == tuple(j[k].shape), k
+        close(t[k], j[k], msg=k)
+    if name == "gated_sae":
+        assert t["encoded_pre"] is None and j["encoded_pre"] is None
+    else:
+        close(t["encoded_pre"], j["encoded_pre"])
+    enc = np.random.default_rng(3).normal(size=(50, C)).astype(np.float32)
+    enc_t = tsae.sae_encode(name, tp, torch.from_numpy(enc))
+    close(enc_t, jsae.sae_encode(name, np_p, jnp.asarray(enc)))
+    close(tsae.sae_decode(name, tp, enc_t), jsae.sae_decode(name, np_p, jnp.asarray(enc_t)))
+
+
+@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae"])
+def test_variant_gradients_match_jax_grad(name):
+    """Autograd through the port's stock path (the detached gate and frozen
+    via_gate decoder; the STE autograd.Functions) against jax.grad of the JAX
+    apply + loss terms, for every parameter."""
+    np_p, tp = _variant_params(name)
+    x = np.random.default_rng(4).normal(size=(160, C)).astype(np.float32)
+
+    def jloss(p, xx):
+        return jsae.sae_inference_and_loss(name, p, xx, LAMBDA, jumprelu_bandwidth=EPS)["loss"]
+
+    def tloss(p, xx):
+        return tsae.sae_inference_and_loss(name, p, xx, LAMBDA, jumprelu_bandwidth=EPS)["loss"]
+
+    jg, tg = _jax_and_torch_grads(name, np_p, tp, x, jloss, tloss)
+    for k in np_p:
+        ref = np.asarray(jg[k])
+        close(tg[k], ref, rtol=1e-4, atol=1e-7, msg=k)
+        assert np.abs(ref).max() > 0, k
+
+
+def test_jumprelu_ste_functions_match_jax():
+    """The two STE autograd.Functions against the JAX custom VJPs on crafted
+    pre-activations: inside and outside the inclusive window, above and below
+    the strict threshold; jumprelu_l0 gives pre no gradient."""
+    eps = 1e-3
+    thr = np.array([0.5, 0.2], np.float32)
+    pre = np.array([[0.5 + 0.2 * eps, 0.2 - 10 * eps],
+                    [0.5 - 0.4 * eps, 0.2 + 0.1 * eps],
+                    [2.0, -1.0]], np.float32)
+    ct = np.random.default_rng(6).normal(size=pre.shape).astype(np.float32)
+    jp, jt = jnp.asarray(pre), jnp.asarray(thr)
+    tp = torch.from_numpy(pre).requires_grad_(True)
+    tt = torch.from_numpy(thr).requires_grad_(True)
+
+    out_t = tsae.jumprelu(tp, tt, eps)
+    close(out_t, jsae._jumprelu(jp, jt, eps))
+    jgp, jgt = jax.grad(lambda p, t: jnp.sum(jsae._jumprelu(p, t, eps) * ct),
+                        argnums=(0, 1))(jp, jt)
+    gp, gt = torch.autograd.grad((out_t * torch.from_numpy(ct)).sum(), [tp, tt])
+    close(gp, jgp, msg="d pre")
+    close(gt, jgt, msg="d threshold")
+    assert float(gt.abs().max()) > 0
+
+    l0_t = tsae.jumprelu_l0(tp, tt, eps)
+    close(l0_t, jsae.jumprelu_l0(jp, jt, eps))
+    jgp, jgt = jax.grad(lambda p, t: 3.0 * jsae.jumprelu_l0(p, t, eps), argnums=(0, 1))(jp, jt)
+    gp, gt = torch.autograd.grad(3.0 * l0_t, [tp, tt])
+    close(gt, jgt, msg="d threshold (L0)")
+    assert float(gp.abs().max()) == 0.0 and float(np.abs(np.asarray(jgp)).max()) == 0.0

@@ -8,6 +8,11 @@ The fused case runs the JAX Pallas op in interpret mode with f32 compute
 CPU path of the CUDA kernels). Tolerances (tests/test_training_parity.py:114-119):
 losses rtol 2e-4; final params rtol 2e-3, atol 2e-5 (Adam's first steps divide by
 sqrt(nu) and amplify f32 rounding of tiny gradients); dead accumulators equal.
+
+The gated and JumpReLU trajectories cross two restarts of the rolling dead
+window (dead_neurons_steps = 2: steps 2 and 4), stock and fused, with the same
+loss and dead-accumulator tolerances and params at rtol 2e-3, atol 1e-5
+(tests/test_fused_gated_sae.py:86-93).
 """
 
 import jax
@@ -16,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_vision_tpu.models.sae import init_sae_mlp, kaiming_uniform
+from sparse_vision_tpu.models.sae import init_sae, init_sae_mlp, kaiming_uniform
 from sparse_vision_tpu.ops import optim as joptim
 from sparse_vision_tpu.train.steps import init_sae_train_state as j_init
 from sparse_vision_tpu.train.steps import make_sae_train_step_from_acts as j_make
@@ -135,3 +140,113 @@ def test_state_converted_mid_run_continues_like_jax(opt_name):
     for k in params:
         np.testing.assert_allclose(tts.params[k].numpy(), np.asarray(jts.params[k]),
                                    rtol=2e-3, atol=2e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# gated_sae and jumprelu_sae: the rolling dead window
+# ---------------------------------------------------------------------------
+
+EPS = 0.5  # JumpReLU STE bandwidth: the window catches pre-activations of these inputs
+WINDOW = 2  # dead_neurons_steps: the accumulator restarts after steps 2 and 4
+
+
+def _variant_setup(name):
+    """JAX-initialized params with 8 latents that never fire, and 5 batches."""
+    rng = np.random.default_rng(7)
+    p = jax.device_get(init_sae(name, jax.random.key(0), C, K))
+    if name == "gated_sae":
+        p["b_gate"] = (rng.normal(0.0, 0.05, H) - np.where(np.arange(H) < 8, 100.0, 0.0))
+        p["b_mag"] = rng.normal(0.0, 0.05, H)
+        p["r_mag"] = rng.normal(0.0, 0.1, H)
+    else:
+        p["b_enc"] = np.where(np.arange(H) < 8, -100.0, 0.0) + rng.normal(0.0, 0.05, H)
+        p["log_threshold"] = np.log(rng.uniform(0.2, 0.6, H))
+    p = {k: np.asarray(v, np.float32) for k, v in p.items()}
+    batches = [rng.normal(size=(T, C)).astype(np.float32) for _ in range(5)]
+    return p, batches
+
+
+def _jax_step(name, tx, fused, window=WINDOW):
+    jopts = dict(tile_t=32, tile_h=128, compute_dtype=jnp.float32, interpret=True)
+    if name == "jumprelu_sae":
+        jopts["bandwidth"] = EPS
+    return j_make(name, LAMBDA, tx, window, K, fused=fused,
+                  fused_opts=jopts if fused else None, jumprelu_bandwidth=EPS)
+
+
+def _torch_step(name, tx, fused, window=WINDOW):
+    opts = {"compute_dtype": "float32"}
+    if name == "jumprelu_sae":
+        opts["bandwidth"] = EPS
+    return tsteps.make_sae_train_step_from_acts(name, LAMBDA, tx, window, K, fused=fused,
+                                                fused_opts=opts, jumprelu_bandwidth=EPS)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae"])
+def test_rolling_dead_window_trajectory_matches_jax(name, fused):
+    params, batches = _variant_setup(name)
+    jtx = joptim.get_optimizer("constrained_adam", LR)
+    jts = j_init(jax.tree.map(jnp.asarray, params), jtx, H, seed=0)
+    jstep = _jax_step(name, jtx, fused)
+    ttx = toptim.get_optimizer("constrained_adam", LR)
+    tts = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), ttx, H, seed=0)
+    tstep = _torch_step(name, ttx, fused)
+
+    jl, tl = [], []
+    for i, x in enumerate(batches, start=1):
+        jts, jm = jstep(jts, jnp.asarray(x))
+        tts, tm = tstep(tts, torch.from_numpy(x))
+        jl.append(float(jm["sae_loss"]))
+        tl.append(float(tm["sae_loss"]))
+        np.testing.assert_array_equal(tts.dead_acc.numpy(), np.asarray(jts.dead_acc),
+                                      err_msg=f"dead_acc at step {i}")
+        np.testing.assert_allclose(float(tm["perc_dead"]), float(jm["perc_dead"]), rtol=1e-6)
+        np.testing.assert_allclose(float(tm["sparsity"]), float(jm["sparsity"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tm["sae_l1_loss"]), float(jm["sae_l1_loss"]),
+                                   rtol=2e-4)
+        if i % WINDOW == 0:  # the restart: perc_dead reads the fresh all-True acc
+            assert float(tm["perc_dead"]) == 1.0
+        else:  # between restarts only the never-firing latents stay dead
+            assert 8 / H <= float(tm["perc_dead"]) < 0.5
+    assert tts.step == int(jts.step) == len(batches)
+    np.testing.assert_allclose(tl, jl, rtol=2e-4)
+    for k in params:
+        np.testing.assert_allclose(tts.params[k].numpy(), np.asarray(jts.params[k]),
+                                   rtol=2e-3, atol=1e-5, err_msg=f"final {k}")
+    if name == "jumprelu_sae":  # the STE moved the thresholds
+        assert bool((tts.params["log_threshold"] != torch.from_numpy(
+            params["log_threshold"])).any())
+
+
+@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae"])
+def test_variant_state_converted_mid_run_continues_like_jax(name):
+    """convert.train_state_from_jax carries the variant's own params (W_gate,
+    b_gate, b_mag, r_mag; log_threshold) with their Adam moments: after 3 JAX
+    steps both packages continue through the window restart at step 4 alike."""
+    params, batches = _variant_setup(name)
+    jtx = joptim.get_optimizer("constrained_adam", LR)
+    jts = j_init(jax.tree.map(jnp.asarray, params), jtx, H, seed=0)
+    jstep = _jax_step(name, jtx, fused=False)
+    for x in batches[:3]:
+        jts, _ = jstep(jts, jnp.asarray(x))
+    host = jax.device_get(jts)
+    tts = convert.train_state_from_jax(host)
+    assert tts.step == 3 and tts.opt_state["count"] == 3
+    assert set(tts.params) == set(params) == set(tts.opt_state["mu"]) == set(tts.opt_state["nu"])
+    for k in params:
+        np.testing.assert_array_equal(tts.params[k].numpy(), np.asarray(host.params[k]))
+        np.testing.assert_array_equal(tts.opt_state["mu"][k].numpy(),
+                                      np.asarray(host.opt_state.mu[k]))
+        np.testing.assert_array_equal(tts.opt_state["nu"][k].numpy(),
+                                      np.asarray(host.opt_state.nu[k]))
+    tstep = _torch_step(name, toptim.get_optimizer("constrained_adam", LR), fused=False)
+    for i, x in enumerate(batches[3:], start=4):
+        jts, jm = jstep(jts, jnp.asarray(x))
+        tts, tm = tstep(tts, torch.from_numpy(x))
+        np.testing.assert_allclose(float(tm["sae_loss"]), float(jm["sae_loss"]), rtol=2e-4)
+        np.testing.assert_array_equal(tts.dead_acc.numpy(), np.asarray(jts.dead_acc))
+        assert (float(tm["perc_dead"]) == 1.0) == (i == 4)
+    for k in params:
+        np.testing.assert_allclose(tts.params[k].numpy(), np.asarray(jts.params[k]),
+                                   rtol=2e-3, atol=1e-5, err_msg=k)
