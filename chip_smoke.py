@@ -8,17 +8,20 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
   2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc, one
               process per source, all started together.
   3. kernels: hold each kernel against its plain PyTorch version on the card at
-              the training shape (T=32768 tokens, C=256, H=16384 latents), in
-              f32 and bf16 operands; time kernel, plain version and the cuBLAS
-              products of the stock path; compute each kernel's bound.
+              the training shape (T=32768 tokens, C=256, H=16384 latents; the
+              Matryoshka prefixes end at 1024, 4096 and 16384), in f32 and bf16
+              operands; time kernel, plain version and the cuBLAS products of
+              the stock path; compute each kernel's bound.
   4. parity:  each fused op's loss and gradients against the stock autograd path
-              on the card at a small shape, in f32.
+              on the card at a small shape, in f32; with compute_dx=True, the
+              sae_mlp and Matryoshka ops' input gradients too (the only launches
+              of the two dx kernels: training treats activations as data).
   5. slice:   Pipeline.train_sae_cached on the north-star config (GoogLeNet
               mixed3a, 16,384 latents, bf16 cache, 12 steps of 32,768 tokens)
               for sae_mlp (measurement resets at steps 4 and 12, a resample at
-              step 9), then gated_sae and jumprelu_sae (the rolling dead window
-              restarts at steps 4, 8 and 12); every kernel launch count is reset
-              just before each run and read after it.
+              step 9), then gated_sae, jumprelu_sae and matryoshka_sae (the
+              rolling dead window restarts at steps 4, 8 and 12); every kernel
+              launch count is reset just before each run and read after it.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -39,12 +42,21 @@ import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
 from sparse_vision_tpu_torch.models.sae import (
+    DEFAULT_MATRYOSHKA_PREFIXES,
     init_gated_sae,
     init_jumprelu_sae,
     init_sae_mlp,
+    matryoshka_prefix_counts,
+    matryoshka_sae_apply,
     sae_inference_and_loss,
 )
-from sparse_vision_tpu_torch.ops import fused_gated_sae, fused_jumprelu_sae, fused_sae, native
+from sparse_vision_tpu_torch.ops import (
+    fused_gated_sae,
+    fused_jumprelu_sae,
+    fused_matryoshka_sae,
+    fused_sae,
+    native,
+)
 from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
 ROOT = Path(__file__).resolve().parent
@@ -63,16 +75,21 @@ LAMBDA_J, BANDWIDTH = 0.02, 1.0
 REPS = 5  # timed launches per measurement, after one warm-up
 
 MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
-           "jumprelu_sae": fused_jumprelu_sae}
+           "jumprelu_sae": fused_jumprelu_sae, "matryoshka_sae": fused_matryoshka_sae}
 KERNELS = tuple(k for m in MODULES.values() for k in m.KERNELS)
 SOURCES = {
     "sae_mlp": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
     "gated_sae": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
     "jumprelu_sae": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
+    "matryoshka_sae": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
     "fused_sae_bwd": "sparse_vision_tpu/ops/fused_sae.py:96",
+    "fused_sae_dx": "sparse_vision_tpu/ops/fused_sae.py:168",
+    "fused_matryoshka_sae_fwd": "sparse_vision_tpu/ops/fused_matryoshka_sae.py:99",
+    "fused_matryoshka_sae_bwd": "sparse_vision_tpu/ops/fused_matryoshka_sae.py:155",
+    "fused_matryoshka_sae_dx": "sparse_vision_tpu/ops/fused_matryoshka_sae.py:227",
     "fused_jumprelu_sae_fwd": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:30",
     "fused_jumprelu_sae_bwd": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:80",
     "fused_gated_sae_fwd": "sparse_vision_tpu/ops/fused_gated_sae.py:42",
@@ -345,13 +362,105 @@ def kernels_jumprelu(cd, tag: str) -> dict:
     return rows
 
 
+def _relu_exact_operands(cd):
+    """ReLU-layout operands at the training shape on _exact_inputs' grid, b_enc
+    odd multiples of 2^-11: the kernel and cuBLAS get the same pre-activations,
+    so the ReLU mask, which the dx kernels' sums over latents jump with, is the
+    same on both sides."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_sae_mlp(gen, C, H // C)
+    x, we, bd = _exact_inputs(gen, T, params["W_enc"])
+    be = _odd_grid(gen, H, 100)
+    return x.to(cd), we.to(cd), be, params["W_dec"].to(cd).contiguous(), bd
+
+
+def kernels_relu_dx(cd, tag: str) -> dict:
+    ops = _relu_exact_operands(cd)
+    x, we, _, wd, bd = ops
+    res = (fused_sae.fused_sae_forward_plain(*ops)[0] - x.float()).to(cd)
+    coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device=DEVICE)
+    dops = ops + (res, coeffs)
+    dx_k = fused_sae.dx_kernel(*dops)
+    dx_p = fused_sae.fused_sae_dx_plain(*dops)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_sae_dx [{tag}] vs plain")
+    err = _check("dx", dx_k, dx_p, 1e-3, 1e-4)
+    del dx_k
+    xc = x - bd.to(cd)
+    post = torch.relu(xc @ we).to(cd)  # a [T, H] operand of the stock path's shapes
+    dr = (coeffs[0] * res.float()).to(cd)
+    return {"fused_sae_dx": _measure(
+        "fused_sae_dx", tag, cd, lambda: fused_sae.dx_kernel(*dops),
+        lambda: fused_sae.fused_sae_dx_plain(*dops),
+        lambda: (xc @ we, dr @ wd.T, post @ we.T), 6.0 * T * C * H,
+        nbytes(*dops) + nbytes(dx_p), err)}
+
+
+def kernels_matryoshka(cd, tag: str) -> dict:
+    fm = fused_matryoshka_sae
+    ops = _relu_exact_operands(cd)
+    x, we, _, wd, bd = ops
+    bounds = matryoshka_prefix_counts(H, DEFAULT_MATRYOSHKA_PREFIXES)
+    out_k = fm.fwd_kernel(*ops, bounds)
+    out_p = fm.fused_matryoshka_forward_plain(*ops, bounds)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_matryoshka_sae_fwd [{tag}] vs plain, prefixes end at {bounds}")
+    err = _check("prefix_recon", out_k[0], out_p[0], 1e-4, 1e-5)
+    _check("act_count", out_k[1], out_p[1], 0.0, 0.0)
+    _check("row_active", out_k[2], out_p[2], 0.0, 0.0)
+    _check("l1_sum", out_k[3], out_p[3], 1e-5, 0.0)
+    del out_k
+    xc = x - bd.to(cd)
+    post = torch.relu(xc @ we).to(cd)
+    rows = {"fused_matryoshka_sae_fwd": _measure(
+        "fused_matryoshka_sae_fwd", tag, cd, lambda: fm.fwd_kernel(*ops, bounds),
+        lambda: fm.fused_matryoshka_forward_plain(*ops, bounds),
+        lambda: (xc @ we, *(post[:, :m] @ wd[:m] for m in bounds)), 4.0 * T * C * H,
+        nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
+
+    # the suffix-weighted error S of the prefix mean's cotangents, 1/P each
+    weighted = (2.0 / (len(bounds) * T * C)) * (out_p[0] - x.float()[None])
+    del out_p
+    s = weighted.flip(0).cumsum(0).flip(0).to(cd)
+    del weighted
+    coeffs = torch.tensor([1.0, LAMBDA / (T * H)], device=DEVICE)
+    bops = ops + (s, coeffs, bounds)
+    g_k = fm.bwd_kernel(*bops)
+    g_p = fm.fused_matryoshka_backward_plain(*bops)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_matryoshka_sae_bwd [{tag}] vs plain")
+    err = max(_check(n, a, b, 1e-3, 1e-4)
+              for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
+    moved = nbytes(*bops[:-1]) + nbytes(*g_p)
+    del g_k, g_p
+    dr = s[0]
+    rows["fused_matryoshka_sae_bwd"] = _measure(
+        "fused_matryoshka_sae_bwd", tag, cd, lambda: fm.bwd_kernel(*bops),
+        lambda: fm.fused_matryoshka_backward_plain(*bops),
+        lambda: (xc @ we, dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
+
+    dx_k = fm.dx_kernel(*bops)
+    dx_p = fm.fused_matryoshka_dx_plain(*bops)
+    torch.cuda.synchronize()
+    log(f"[kernels] fused_matryoshka_sae_dx [{tag}] vs plain")
+    err = _check("dx", dx_k, dx_p, 1e-3, 1e-4)
+    del dx_k
+    rows["fused_matryoshka_sae_dx"] = _measure(
+        "fused_matryoshka_sae_dx", tag, cd, lambda: fm.dx_kernel(*bops),
+        lambda: fm.fused_matryoshka_dx_plain(*bops),
+        lambda: (xc @ we, dr @ wd.T, post @ we.T), 6.0 * T * C * H,
+        nbytes(*bops[:-1]) + nbytes(dx_p), err)
+    return rows
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version in f32 and bf16; returns the bf16
     (main path) rows."""
     set_tf32(False)  # the plain versions' f32 products in full f32
     rows = {}
     for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        for fn in (kernels_relu, kernels_gated, kernels_jumprelu):
+        for fn in (kernels_relu, kernels_relu_dx, kernels_gated, kernels_jumprelu,
+                   kernels_matryoshka):
             with torch.no_grad():
                 r = fn(cd, tag)
             torch.cuda.empty_cache()  # the plain versions' [T, H] temporaries
@@ -387,11 +496,34 @@ def _parity(name: str, params: dict, fused_fn, stock_fn, keys: tuple) -> None:
     log(f"[parity] {name}: fused op == stock autograd path (f32): ok")
 
 
+def _parity_dx(name: str, kernel, x, fused_fn, stock_fn) -> None:
+    """The input gradient of a fused op with compute_dx=True (one launch of its
+    dx kernel) against the stock autograd path's."""
+    def xgrad(loss_fn):
+        xx = x.clone().requires_grad_(True)
+        return torch.autograd.grad(loss_fn(xx)["loss"], [xx])[0]
+
+    before = kernel.launches
+    g_f = xgrad(fused_fn)
+    if kernel.launches != before + 1:
+        raise AssertionError(f"parity {name} dx: {kernel.name} was not launched")
+    g_s = xgrad(stock_fn)
+    err = (g_f - g_s).abs().max().item()
+    scale = g_s.abs().max().item()
+    log(f"[parity] {name} grad x: max_abs_err {err:.3e} (max|ref| {scale:.3e})")
+    if err > 1e-4 * scale + 1e-7 or scale == 0.0:
+        raise AssertionError(f"parity {name} grad x: max abs err {err:.3e} "
+                             f"(max|ref| {scale:.3e})")
+    log(f"[parity] {name}: compute_dx=True x gradient == stock autograd path (f32): ok")
+
+
 def phase_parity() -> None:
     """Each fused op (kernels + autograd.Function) against the stock autograd path
-    on the card: loss terms and every parameter gradient, f32, small shape. The
-    gated and JumpReLU inputs lie on _exact_inputs' grid, so both paths switch
-    the same latents on."""
+    on the card: loss terms and every parameter gradient, f32, small shape; for
+    the sae_mlp and Matryoshka ops also the input gradient (compute_dx=True).
+    The gated, JumpReLU and Matryoshka inputs, and those of the input-gradient
+    checks, lie on _exact_inputs' grid, so both paths switch the same latents
+    on."""
     set_tf32(False)
     base = ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss")
     f32 = torch.float32
@@ -427,6 +559,33 @@ def phase_parity() -> None:
                                              jumprelu_bandwidth=BANDWIDTH),
             base + ("l0_loss",))
 
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    params = init_sae_mlp(gen, C, 4)
+    x, params["W_enc"], params["b_dec"] = _exact_inputs(gen, 512, params["W_enc"])
+    params["b_enc"] = _odd_grid(gen, 4 * C, 100)
+    bounds = matryoshka_prefix_counts(4 * C, DEFAULT_MATRYOSHKA_PREFIXES)
+    got = fused_matryoshka_sae.fused_matryoshka_sae(params, x, bounds,
+                                                    compute_dtype=f32)["prefix_losses"]
+    want = torch.stack([(r - x).square().mean()
+                        for r in matryoshka_sae_apply(params, x, bounds)[3]])
+    log(f"[parity] matryoshka_sae prefix_losses {got.tolist()} vs stock {want.tolist()}")
+    if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
+        raise AssertionError("parity matryoshka_sae prefix_losses")
+    _parity("matryoshka_sae", params,
+            lambda p: fused_matryoshka_sae.fused_matryoshka_sae_loss_terms(
+                p, x, LAMBDA, 4, compute_dtype=f32),
+            lambda p: sae_inference_and_loss("matryoshka_sae", p, x, LAMBDA),
+            base + ("aux_loss",))
+    _parity_dx("matryoshka_sae", fused_matryoshka_sae.dx_kernel, x,
+               lambda xx: fused_matryoshka_sae.fused_matryoshka_sae_loss_terms(
+                   params, xx, LAMBDA, 4, compute_dtype=f32, compute_dx=True),
+               lambda xx: sae_inference_and_loss("matryoshka_sae", params, xx, LAMBDA))
+    # the same params: sae_mlp has the Matryoshka SAE's layout
+    _parity_dx("sae_mlp", fused_sae.dx_kernel, x,
+               lambda xx: fused_sae.fused_sae_loss_terms(params, xx, LAMBDA, 4,
+                                                         compute_dtype=f32, compute_dx=True),
+               lambda xx: sae_inference_and_loss("sae_mlp", params, xx, LAMBDA))
+
 
 # ---------------------------------------------------------------------------
 # slice phase
@@ -444,6 +603,8 @@ SLICES = {
     "gated_sae": (dict(sae_lambda_sparse=LAMBDA), (4, 8, 12)),  # the rolling window
     "jumprelu_sae": (dict(sae_lambda_sparse=LAMBDA_J, jumprelu_bandwidth=0.05,
                           jumprelu_threshold_init=0.025), (4, 8, 12)),
+    # λ = 5 and the default prefixes 1/16, 1/4, 1 (docs/CONVERGENCE.md:66)
+    "matryoshka_sae": (dict(sae_lambda_sparse=LAMBDA), (4, 8, 12)),
 }
 
 
@@ -515,8 +676,9 @@ def phase_slice(name: str, profile: bool = False) -> dict:
         log(f"[slice {name}] eval epoch {epoch}: " + json.dumps(m, sort_keys=True))
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{name}: non-finite eval metric at epoch {epoch}")
+    trained = (MODULES[name].fwd_kernel, MODULES[name].bwd_kernel)  # not dx: x is data
     for k in KERNELS:
-        want = 12 if k in MODULES[name].KERNELS else 0
+        want = 12 if k in trained else 0
         if launches[k.name] != want:
             raise AssertionError(f"{name}: expected {want} launches of {k.name}, got "
                                  f"{launches[k.name]}")
@@ -547,7 +709,7 @@ def main() -> int:
         launches.update(phase_slice(name, args.profile))
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[k.name], "launches": launches[k.name], **rows[k.name]}
+         "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}
         for name, module in MODULES.items() for k in module.KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

@@ -73,6 +73,10 @@ class RunConfig:
     ie_top_features: int = 16
     ie_cotangent_chunk: int = 64
 
+    @property
+    def matryoshka_prefix_fractions(self) -> tuple:
+        return tuple(float(f) for f in self.sae_matryoshka_prefixes.split(",") if f)
+
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
         d["mesh_shape"] = list(self.mesh_shape)

@@ -1,5 +1,6 @@
 """Sparse autoencoders as functions over a parameter dict (port of the sae_mlp,
-gated_sae and jumprelu_sae parts of sparse_vision_tpu/models/sae.py).
+gated_sae, jumprelu_sae and matryoshka_sae parts of
+sparse_vision_tpu/models/sae.py).
 
 Parameter layout (math convention, not torch's transposed nn.Linear storage):
   W_enc [d, h]   encode: pre = (x - b_dec) @ W_enc + b_enc
@@ -9,6 +10,8 @@ Gated SAE (Rajamanoharan et al.): W_gate [d, h] with b_gate, b_mag, r_mag [h];
 the magnitude path shares the gate weights, W_mag = W_gate * exp(r_mag).
 JumpReLU SAE (Rajamanoharan et al. 2024): the ReLU layout plus a per-latent
 log_threshold [h], trained through straight-through estimators.
+Matryoshka SAE (Bussmann et al. 2024): the ReLU layout; the nesting lives in
+the loss, which averages the reconstruction error of nested latent prefixes.
 
 Token convention: NHWC feature maps [B, H, W, C] flatten to [B*H*W, C] tokens in
 (b, h, w) order, as in the JAX package.
@@ -23,7 +26,9 @@ from sparse_vision_tpu_torch.ops import losses
 # STE bandwidth ε, the paper's default: sized for normalized activations; raw
 # vision activations need it scaled to their spread (RunConfig.jumprelu_bandwidth)
 JUMPRELU_BANDWIDTH = 1e-3
-PORTED = ("sae_mlp", "gated_sae", "jumprelu_sae")
+# prefix fractions of the dictionary (RunConfig.sae_matryoshka_prefixes)
+DEFAULT_MATRYOSHKA_PREFIXES = (0.0625, 0.25, 1.0)
+PORTED = ("sae_mlp", "gated_sae", "jumprelu_sae", "matryoshka_sae")
 
 
 def _not_ported(name: str) -> NotImplementedError:
@@ -191,11 +196,47 @@ def jumprelu_sae_apply(params: dict, x: torch.Tensor,
     return post, recon, pre
 
 
+# ---------------------------------------------------------------------------
+# Matryoshka SAE
+# ---------------------------------------------------------------------------
+
+def matryoshka_prefix_counts(h: int, fractions: tuple) -> tuple:
+    """Latent-prefix sizes from fractions of the dictionary (strictly increasing;
+    the last prefix is always the full dictionary)."""
+    if not fractions:
+        raise ValueError("matryoshka needs at least one prefix fraction")
+    counts = []
+    for f in fractions:
+        if not 0.0 < f <= 1.0:
+            raise ValueError(f"prefix fraction {f} outside (0, 1]")
+        counts.append(max(1, round(f * h)))
+    counts[-1] = h
+    if sorted(set(counts)) != counts:
+        raise ValueError(f"prefix fractions {fractions} -> non-increasing counts {counts}")
+    return tuple(counts)
+
+
+def init_matryoshka_sae(generator: torch.Generator, d: int, expansion_factor: int) -> dict:
+    """The ReLU SAE's parameter layout and init."""
+    return init_sae_mlp(generator, d, expansion_factor)
+
+
+def matryoshka_sae_apply(params: dict, x: torch.Tensor, prefixes: tuple):
+    """Returns (encoded, decoded, pre, prefix_recons) on token input [T, d]: the
+    ReLU encoder, and one reconstruction per latent prefix m through the
+    matching decoder rows; ``decoded`` is the full-dictionary one."""
+    post, _, pre = sae_mlp_apply(params, x)
+    recons = [post[:, :m] @ params["W_dec"][:m] + params["b_dec"] for m in prefixes]
+    return post, recons[-1], pre, recons
+
+
 def init_sae(name: str, generator: torch.Generator, d: int, expansion_factor: int,
              jumprelu_threshold_init: float = 1e-3) -> dict:
     """Initial parameters of the SAE variant ``name``, f32 on the generator's device."""
     if name == "sae_mlp":
         return init_sae_mlp(generator, d, expansion_factor)
+    if name == "matryoshka_sae":
+        return init_matryoshka_sae(generator, d, expansion_factor)
     if name == "gated_sae":
         return init_gated_sae(generator, d, expansion_factor)
     if name == "jumprelu_sae":
@@ -222,7 +263,8 @@ def act_from_tokens(tok: torch.Tensor, like_shape: tuple) -> torch.Tensor:
 
 def sae_inference_and_loss(sae_model_name: str, params: dict, act: torch.Tensor,
                            lambda_sparse: float,
-                           jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH) -> dict:
+                           jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
+                           matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES) -> dict:
     """Reshape taps to tokens, run the SAE, compute every loss term, reshape the
     outputs back. Returns the loss terms plus 'encoded', 'encoded_pre' (None for
     gated_sae) and 'decoded' (NHWC when the input was 4-D)."""
@@ -235,6 +277,10 @@ def sae_inference_and_loss(sae_model_name: str, params: dict, act: torch.Tensor,
         terms = losses.jumprelu_loss_terms(
             encoded, decoded, tok, pre, params["log_threshold"], lambda_sparse,
             bandwidth=jumprelu_bandwidth)
+    elif sae_model_name == "matryoshka_sae":
+        counts = matryoshka_prefix_counts(params["b_enc"].shape[0], tuple(matryoshka_prefixes))
+        encoded, decoded, pre, recons = matryoshka_sae_apply(params, tok, counts)
+        terms = losses.matryoshka_loss_terms(encoded, recons, tok, lambda_sparse)
     elif sae_model_name == "gated_sae":
         encoded, decoded, relu_pi_gate, via_gate = gated_sae_apply(params, tok)
         pre = None
@@ -253,7 +299,7 @@ def sae_inference_and_loss(sae_model_name: str, params: dict, act: torch.Tensor,
 
 def sae_encode(sae_model_name: str, params: dict, tok: torch.Tensor) -> torch.Tensor:
     """Post-activation encoder output on token input [T, d]."""
-    if sae_model_name == "sae_mlp":
+    if sae_model_name in ("sae_mlp", "matryoshka_sae"):
         return sae_mlp_apply(params, tok)[0]
     if sae_model_name == "gated_sae":
         return gated_sae_apply(params, tok)[0]

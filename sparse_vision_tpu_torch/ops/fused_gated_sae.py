@@ -48,9 +48,10 @@ from sparse_vision_tpu_torch.ops import losses, native
 from sparse_vision_tpu_torch.ops.fused_sae import (
     _F32,
     _BF16,
+    Kernel,
     _expect,
+    _ptrs,
     _r,
-    _stream,
     compute_dtype_of,
     run_on_device,
 )
@@ -164,13 +165,10 @@ def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
     return t, c, h
 
 
-class _ForwardKernel:
-    """csrc gated_fwd_kernel; ``launches`` counts its launches."""
+class _ForwardKernel(Kernel):
+    """csrc gated_fwd_kernel."""
 
     name = "fused_gated_sae_fwd"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
         t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
@@ -180,27 +178,16 @@ class _ForwardKernel:
         act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
         row_active = torch.empty((t,), dtype=_F32, device=dev)
         l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.svt_gated_fwd(
-                int(x.dtype == _BF16), x.data_ptr(), w_gate.data_ptr(), b_gate.data_ptr(),
-                b_mag.data_ptr(), er.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(),
-                recon.data_ptr(), via.data_ptr(), act_part.data_ptr(),
-                row_active.data_ptr(), l1_part.data_ptr(), t, c, h, _stream(dev),
-            )
-        if rc != 0:
-            raise RuntimeError(f"svt_gated_fwd launch failed: cudaError_t {rc}")
-        self.launches += 1
+        self._launch(_lib().svt_gated_fwd, dev,
+                     *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via, act_part,
+                            row_active, l1_part), t, c, h)
         return recon, via, act_part.sum(0), row_active, l1_part.sum()
 
 
-class _BackwardKernel:
-    """csrc gated_bwd_kernel; ``launches`` counts its launches."""
+class _BackwardKernel(Kernel):
+    """csrc gated_bwd_kernel."""
 
     name = "fused_gated_sae_bwd"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs):
         t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
@@ -214,18 +201,10 @@ class _BackwardKernel:
         dr_mag = torch.empty((h,), dtype=_F32, device=dev)
         dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
         db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.svt_gated_bwd(
-                int(x.dtype == _BF16), x.data_ptr(), w_gate.data_ptr(), b_gate.data_ptr(),
-                b_mag.data_ptr(), er.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(),
-                err_rec.data_ptr(), err_via.data_ptr(), coeffs.data_ptr(),
-                dw_gate.data_ptr(), db_gate.data_ptr(), db_mag.data_ptr(), dr_mag.data_ptr(),
-                dw_dec.data_ptr(), db_dec_part.data_ptr(), t, c, h, _stream(dev),
-            )
-        if rc != 0:
-            raise RuntimeError(f"svt_gated_bwd launch failed: cudaError_t {rc}")
-        self.launches += 1
+        self._launch(_lib().svt_gated_bwd, dev,
+                     *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
+                            coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part),
+                     t, c, h)
         return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part.sum(0)
 
 

@@ -45,9 +45,10 @@ from sparse_vision_tpu_torch.ops import losses, native
 from sparse_vision_tpu_torch.ops.fused_sae import (
     _F32,
     _BF16,
+    Kernel,
     _expect,
+    _ptrs,
     _r,
-    _stream,
     compute_dtype_of,
     run_on_device,
 )
@@ -152,13 +153,10 @@ def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec):
     return t, c, h
 
 
-class _ForwardKernel:
-    """csrc jumprelu_fwd_kernel; ``launches`` counts its launches."""
+class _ForwardKernel(Kernel):
+    """csrc jumprelu_fwd_kernel."""
 
     name = "fused_jumprelu_sae_fwd"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec):
         t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
@@ -167,27 +165,16 @@ class _ForwardKernel:
         act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
         row_active = torch.empty((t,), dtype=_F32, device=dev)
         l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.svt_jumprelu_fwd(
-                int(x.dtype == _BF16), x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
-                thr.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(), recon.data_ptr(),
-                act_part.data_ptr(), row_active.data_ptr(), l1_part.data_ptr(), t, c, h,
-                _stream(dev),
-            )
-        if rc != 0:
-            raise RuntimeError(f"svt_jumprelu_fwd launch failed: cudaError_t {rc}")
-        self.launches += 1
+        self._launch(_lib().svt_jumprelu_fwd, dev,
+                     *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part, row_active,
+                            l1_part), t, c, h)
         return recon, act_part.sum(0), row_active, l1_part.sum()
 
 
-class _BackwardKernel:
-    """csrc jumprelu_bwd_kernel; ``launches`` counts its launches."""
+class _BackwardKernel(Kernel):
+    """csrc jumprelu_bwd_kernel."""
 
     name = "fused_jumprelu_sae_bwd"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
         t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
@@ -200,18 +187,11 @@ class _BackwardKernel:
         dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
         db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
         eps = float(bandwidth)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.svt_jumprelu_bwd(
-                int(x.dtype == _BF16), x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
-                thr.data_ptr(), w_dec.data_ptr(), b_dec.data_ptr(), err.data_ptr(),
-                coeffs.data_ptr(), eps, eps / 2, -1.0 / eps, dw_enc.data_ptr(),
-                db_enc.data_ptr(), dthr.data_ptr(), dw_dec.data_ptr(),
-                db_dec_part.data_ptr(), t, c, h, _stream(dev),
-            )
-        if rc != 0:
-            raise RuntimeError(f"svt_jumprelu_bwd launch failed: cudaError_t {rc}")
-        self.launches += 1
+        self._launch(_lib().svt_jumprelu_bwd, dev,
+                     *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
+                     eps, eps / 2, -1.0 / eps,
+                     *(v.data_ptr() for v in (dw_enc, db_enc, dthr, dw_dec, db_dec_part)),
+                     t, c, h)
         return dw_enc, db_enc, dthr, dw_dec, db_dec_part.sum(0)
 
 

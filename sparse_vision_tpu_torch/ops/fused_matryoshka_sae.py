@@ -1,0 +1,344 @@
+"""Fused Matryoshka-SAE training op (Bussmann et al. 2024): the ReLU-SAE kernels
+of csrc/fused_sae.cu, with the loss averaged over nested latent prefixes.
+
+Port of sparse_vision_tpu/ops/fused_matryoshka_sae.py. The objective is
+loss = mean_p MSE(x̂_p, x) + λ·L1, where x̂_p decodes only the first b_p latents
+(models/sae.matryoshka_sae_apply); run stock, that is P [T, H] latent
+materializations. Fused, it costs almost nothing over the ReLU op:
+  - forward: the ReLU forward kernel accumulates each token tile's
+    reconstruction over the latent tiles in order, so the accumulator passes
+    through every prefix reconstruction; the kernel writes a snapshot of it at
+    the end of each prefix into prefix_recon [P, T, C] (f32). The per-prefix
+    losses are assembled here from ``prefix_recon − x`` in full precision.
+  - backward: the cotangent of latent tile j's contribution sums the errors of
+    every prefix that contains it, the suffix-weighted error
+    S_q = Σ_{p≥q} c_p·err_p (c_p = g_p·2/(T·C)) with q = level(j). S [P, T, C]
+    is computed here from the saved errors, cast to the compute dtype, and the
+    ReLU backward and dx kernels read S[level(j)] with c_rec = 1 where they
+    read c_rec·err (so the kernel's rounding of 1·S is exact and the cast
+    points are the Pallas body's). The direct b_dec term is Σ_t S_0.
+
+Dispatch rule (ops/fused_sae.run_on_device): a CPU tensor runs the plain
+PyTorch version of each kernel; a CUDA tensor launches the kernel or raises.
+
+Kernel constraint: every prefix boundary is a multiple of the latent tile (64),
+so each prefix ends at a tile boundary (can_fuse_matryoshka).
+
+Differentiability contract: gradients flow through ``prefix_losses`` and
+``l1_loss`` only; the other outputs are metrics. ``x`` gets its gradient from
+the dx kernel, dx = Σ_j round(dpre_j)·W_enc_jᵀ − S_0, when ``compute_dx=True``,
+and None otherwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sparse_vision_tpu_torch.models.sae import (
+    DEFAULT_MATRYOSHKA_PREFIXES,
+    matryoshka_prefix_counts,
+)
+from sparse_vision_tpu_torch.ops import fused_sae, losses, native
+from sparse_vision_tpu_torch.ops.fused_sae import (
+    _F32,
+    _BF16,
+    Kernel,
+    _check_operands,
+    _expect,
+    _ptrs,
+    _r,
+    compute_dtype_of,
+    run_on_device,
+)
+
+TILE_H = fused_sae.TILE_H
+MAX_LEVELS = 16  # kMaxLevels of csrc/fused_sae.cu
+
+
+def can_fuse_matryoshka(t: int, h: int, boundaries: tuple, c: int = 256) -> bool:
+    """True when the CUDA kernels take this shape: the ReLU kernels' can_fuse, and
+    at most MAX_LEVELS prefix boundaries, strictly increasing, each a multiple of
+    the latent tile, the last equal to H. The CPU plain versions take any valid
+    boundaries."""
+    b = list(boundaries)
+    return (
+        0 < len(b) <= MAX_LEVELS and b[-1] == h and b[0] > 0
+        and all(lo < hi for lo, hi in zip(b, b[1:]))
+        and all(v % TILE_H == 0 for v in b)
+        and fused_sae.can_fuse(t, h, c)
+    )
+
+
+def _segments(boundaries):
+    """(level, first latent, end latent) of each prefix level."""
+    return zip(range(len(boundaries)), (0, *boundaries[:-1]), boundaries)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path; the reference the kernels are held against)
+# ---------------------------------------------------------------------------
+
+def fused_matryoshka_forward_plain(x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """Plain forward of csrc sae_fwd_kernel<.., true>. ``x``, ``w_enc``, ``w_dec``
+    are in the compute dtype. Returns (prefix_recon [P, T, C] f32, act_count [H],
+    row_active [T], l1_sum scalar); prefix p sums the decodes of levels 0..p."""
+    cd = x.dtype
+    xc = (x - b_dec.to(cd)).float()
+    pre = xc @ w_enc.float() + b_enc
+    post = torch.relu(pre)
+    postc, wd = _r(post, cd), w_dec.float()
+    parts = torch.stack([postc[:, lo:hi] @ wd[lo:hi] for _, lo, hi in _segments(boundaries)])
+    active = post > 0
+    return (parts.cumsum(0) + b_dec, active.sum(0).float(), active.sum(1).float(),
+            post.sum())
+
+
+def _levels_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+    """Per prefix level q: (lo, hi, xc, W_enc level block, post, drecon, dpre)
+    of the plain backward and dx, with drecon = c_rec·S_q."""
+    cd = x.dtype
+    c_rec, c_l1 = coeffs[0], coeffs[1]
+    xc = (x - b_dec.to(cd)).float()
+    for q, lo, hi in _segments(boundaries):
+        we = w_enc[:, lo:hi].float()
+        pre = xc @ we + b_enc[lo:hi]
+        drecon = c_rec * s[q].float()
+        dpost = _r(drecon, cd) @ w_dec[lo:hi].float().T + c_l1
+        dpre = torch.where(pre > 0, dpost, torch.zeros((), device=pre.device))
+        yield lo, hi, xc, we, torch.relu(pre), drecon, dpre
+
+
+def fused_matryoshka_backward_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+    """Plain backward of csrc sae_bwd_kernel over P levels. ``s`` is the
+    suffix-weighted error [P, T, C] in the compute dtype, ``coeffs`` = (c_rec,
+    c_l1) with c_rec = 1 on the main path. Returns f32 (dW_enc [C, H], db_enc
+    [H], dW_dec [H, C], db_dec [C])."""
+    cd = x.dtype
+    dw_enc, db_enc, dw_dec = [], [], []
+    db_dec = (coeffs[0] * s[0].float()).sum(0)  # the direct term, level 0 once
+    for _, _, xc, we, post, drecon, dpre in _levels_plain(
+            x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+        db = dpre.sum(0)
+        dw_enc.append(xc.T @ _r(dpre, cd))
+        db_enc.append(db)
+        dw_dec.append(_r(post, cd).T @ _r(drecon, cd))
+        db_dec = db_dec - _r(db, cd) @ we.T
+    return torch.cat(dw_enc, 1), torch.cat(db_enc), torch.cat(dw_dec), db_dec
+
+
+def fused_matryoshka_dx_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+    """Plain version of csrc sae_dx_kernel over P levels:
+    Σ_q round(dpre_q) @ W_enc_qᵀ − c_rec·S_0, [T, C] f32."""
+    cd = x.dtype
+    dx = -coeffs[0] * s[0].float()
+    for _, _, _, we, _, _, dpre in _levels_plain(
+            x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+        dx = dx + _r(dpre, cd) @ we.T
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (entry points of csrc/fused_sae.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = native.load("fused_sae")
+    lib.svt_matryoshka_fwd.restype = _I
+    lib.svt_matryoshka_fwd.argtypes = [_I] + [_P] * 9 + [_I, _I, _I, _P, _I, _P]
+    lib.svt_matryoshka_bwd.restype = _I
+    lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P, _I, _P]
+    lib.svt_matryoshka_dx.restype = _I
+    lib.svt_matryoshka_dx.argtypes = [_I] + [_P] * 8 + [_I, _I, _I, _P, _I, _P]
+    return lib
+
+
+def _check(x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """The ReLU kernels' operand checks and the prefix boundaries; returns
+    (t, c, h, bounds as a C int array)."""
+    t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
+    if not can_fuse_matryoshka(t, h, boundaries, c):
+        raise ValueError(
+            f"fused Matryoshka kernel: prefix boundaries {tuple(boundaries)} not supported "
+            f"for H={h} (at most {MAX_LEVELS}, strictly increasing multiples of "
+            f"{TILE_H}, the last = H)")
+    bounds = (ctypes.c_int * len(boundaries))(*boundaries)
+    return t, c, h, bounds
+
+
+def _check_s(x, s, coeffs, n_levels: int) -> None:
+    t, c = x.shape
+    _expect("S", s, (n_levels, t, c), x.dtype, x.device)
+    _expect("coeffs", coeffs, (2,), _F32, x.device)
+
+
+class _ForwardKernel(Kernel):
+    """csrc sae_fwd_kernel with the prefix snapshots."""
+
+    name = "fused_matryoshka_sae_fwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, boundaries):
+        t, c, h, bounds = _check(x, w_enc, b_enc, w_dec, b_dec, boundaries)
+        dev = x.device
+        prefix_recon = torch.empty((len(boundaries), t, c), dtype=_F32, device=dev)
+        act_part = torch.empty((t // fused_sae.FWD_TILE_T, h), dtype=_F32, device=dev)
+        row_active = torch.empty((t,), dtype=_F32, device=dev)
+        l1_part = torch.empty((t // fused_sae.FWD_TILE_T,), dtype=_F32, device=dev)
+        self._launch(_lib().svt_matryoshka_fwd, dev,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, prefix_recon, act_part,
+                            row_active, l1_part), t, c, h, bounds, len(boundaries))
+        return prefix_recon, act_part.sum(0), row_active, l1_part.sum()
+
+
+class _BackwardKernel(Kernel):
+    """csrc sae_bwd_kernel reading S[level(j)]."""
+
+    name = "fused_matryoshka_sae_bwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+        t, c, h, bounds = _check(x, w_enc, b_enc, w_dec, b_dec, boundaries)
+        _check_s(x, s, coeffs, len(boundaries))
+        dev = x.device
+        dw_enc = torch.empty((c, h), dtype=_F32, device=dev)
+        db_enc = torch.empty((h,), dtype=_F32, device=dev)
+        dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
+        db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
+        self._launch(_lib().svt_matryoshka_bwd, dev,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, dw_enc, db_enc,
+                            dw_dec, db_dec_part), t, c, h, bounds, len(boundaries))
+        return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
+
+
+class _DxKernel(Kernel):
+    """csrc sae_dx_kernel reading S[level(j)]."""
+
+    name = "fused_matryoshka_sae_dx"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+        t, c, h, bounds = _check(x, w_enc, b_enc, w_dec, b_dec, boundaries)
+        _check_s(x, s, coeffs, len(boundaries))
+        dx = torch.empty((t, c), dtype=_F32, device=x.device)
+        self._launch(_lib().svt_matryoshka_dx, x.device,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, dx), t, c, h,
+                     bounds, len(boundaries))
+        return dx
+
+
+fwd_kernel = _ForwardKernel()
+bwd_kernel = _BackwardKernel()
+dx_kernel = _DxKernel()
+KERNELS = (fwd_kernel, bwd_kernel, dx_kernel)
+
+
+def fused_matryoshka_forward(*args):
+    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(fwd_kernel, fused_matryoshka_forward_plain, *args)
+
+
+def fused_matryoshka_backward(*args):
+    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(bwd_kernel, fused_matryoshka_backward_plain, *args)
+
+
+def fused_matryoshka_dx(*args):
+    """The dx kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(dx_kernel, fused_matryoshka_dx_plain, *args)
+
+
+class FusedMatryoshkaSAEFunction(torch.autograd.Function):
+    """(x, W_enc, b_enc, W_dec, b_dec) -> (prefix_losses [P], l1_loss, recon,
+    act_count, row_active), the counterpart of the JAX op's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, boundaries, compute_dtype, compute_dx):
+        cd = compute_dtype
+        xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
+        b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
+        prefix_recon, act_count, row_active, l1_sum = fused_matryoshka_forward(
+            xc, we, b_enc, wd, b_dec, boundaries)
+        t, _ = x.shape
+        h = b_enc.shape[0]
+        # full-precision x here: the kernel saw its compute-dtype cast
+        errs = prefix_recon - x.float()[None]
+        prefix_losses = errs.square().mean((1, 2))
+        l1_loss = l1_sum / (t * h)
+        ctx.save_for_backward(xc, we, b_enc, wd, b_dec, errs)
+        ctx.boundaries, ctx.compute_dx = boundaries, compute_dx
+        recon = prefix_recon[-1]
+        ctx.mark_non_differentiable(recon, act_count, row_active)
+        return prefix_losses, l1_loss, recon, act_count, row_active
+
+    @staticmethod
+    def backward(ctx, g_prefix, g_l1, *_unused):
+        xc, we, b_enc, wd, b_dec, errs = ctx.saved_tensors
+        t, c = xc.shape
+        h = b_enc.shape[0]
+        zero = torch.zeros((), dtype=_F32, device=xc.device)
+        g_prefix = torch.zeros(errs.shape[0], dtype=_F32, device=xc.device) \
+            if g_prefix is None else g_prefix.float()
+        g_l1 = zero if g_l1 is None else g_l1.float()
+        weighted = (g_prefix * (2.0 / (t * c)))[:, None, None] * errs
+        # S_q = Σ_{p≥q} c_p·err_p: a reverse cumulative sum over the levels
+        s = weighted.flip(0).cumsum(0).flip(0).to(xc.dtype)
+        # a device tensor, not host floats: the backward never syncs
+        coeffs = torch.stack([torch.ones((), dtype=_F32, device=xc.device), g_l1 / (t * h)])
+        ops = (xc, we, b_enc, wd, b_dec, s, coeffs, ctx.boundaries)
+        dw_enc, db_enc, dw_dec, db_dec = fused_matryoshka_backward(*ops)
+        dx = None
+        if ctx.compute_dx and ctx.needs_input_grad[0]:
+            dx = fused_matryoshka_dx(*ops)
+        return dx, dw_enc, db_enc, dw_dec, db_dec, None, None, None
+
+
+def fused_matryoshka_sae(params: dict, x: torch.Tensor, boundaries: tuple, *,
+                         compute_dtype=_BF16, compute_dx: bool = False) -> dict:
+    """The op itself (the JAX make_fused_matryoshka_sae_op's output): prefix_losses
+    [P], l1_loss, recon, dead, activity_freq, row_active."""
+    cd = compute_dtype_of(compute_dtype)
+    prefix_losses, l1_loss, recon, act_count, row_active = FusedMatryoshkaSAEFunction.apply(
+        x, params["W_enc"], params["b_enc"], params["W_dec"], params["b_dec"],
+        tuple(boundaries), cd, compute_dx)
+    return {
+        "prefix_losses": prefix_losses,
+        "l1_loss": l1_loss,
+        "recon": recon,
+        "dead": act_count == 0,
+        "activity_freq": act_count / x.shape[0],
+        "row_active": row_active,
+    }
+
+
+def fused_matryoshka_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: float,
+                                    expansion_factor: int,
+                                    prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES, *,
+                                    compute_dtype=_BF16, compute_dx: bool = False) -> dict:
+    """Fused equivalent of sae_inference_and_loss("matryoshka_sae") +
+    measure_inactive_units on 2-D token input, with the decomposition of
+    ops/losses.matryoshka_loss_terms: loss = mean_p(prefix MSE) + λ·l1, rec_loss
+    = the full-dictionary MSE, aux_loss = the prefix surcharge (may be
+    negative)."""
+    h = params["b_enc"].shape[0]
+    out = fused_matryoshka_sae(params, x, matryoshka_prefix_counts(h, tuple(prefixes)),
+                               compute_dtype=compute_dtype, compute_dx=compute_dx)
+    prefix_mean = out["prefix_losses"].mean()
+    rec = out["prefix_losses"][-1]
+    rmse, nrmse = losses.rmse_nrmse(out["recon"], x)
+    return {
+        "loss": prefix_mean + lambda_sparse * out["l1_loss"],
+        "rec_loss": rec,
+        "l1_loss": out["l1_loss"],
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": prefix_mean - rec,
+        "decoded": out["recon"],
+        "dead": out["dead"],
+        "activity_freq": out["activity_freq"],
+        "sparsity": torch.mean(out["row_active"] / (h / expansion_factor)),
+    }

@@ -1,5 +1,6 @@
 """Fused ReLU-SAE training op: encode + ReLU + decode + loss terms + dead-latent
-statistics in one forward kernel, and a recomputing backward kernel.
+statistics in one forward kernel, a recomputing backward kernel, and a dx kernel
+for the gradient with respect to the input.
 
 Port of sparse_vision_tpu/ops/fused_sae.py. Why fuse: at the training shape
 (C = 256 channels, 16,384 latents, 32,768 tokens a step) the latent matrix
@@ -23,7 +24,9 @@ JAX op within a tolerance and exactly in f32.
 
 Differentiability contract: gradients flow through ``rec_loss`` and ``l1_loss``
 only (loss = rec + λ·l1). ``recon`` and the statistics are marked
-non-differentiable, and ``x`` is data: its gradient is None.
+non-differentiable. ``x`` is data unless ``compute_dx=True``: then its gradient
+comes from the dx kernel, dx = round(dpre)·W_encᵀ − c_rec·err; otherwise it is
+None (the JAX op's zero cotangent).
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ import torch
 
 from sparse_vision_tpu_torch.ops import losses, native
 
-# tile sizes of csrc/fused_sae.cu (kFwdTT, kBwdTT, kTH) and its supported widths
+# tile sizes of csrc/fused_sae.cu (kFwdTT, kBwdTT, kDxTT, kTH) and its supported widths
 FWD_TILE_T = 64
 BWD_TILE_T = 32
+DX_TILE_T = 32
 TILE_H = 64
 SUPPORTED_C = (64, 128, 256)
 
@@ -50,7 +54,8 @@ def can_fuse(t: int, h: int, c: int = 256) -> bool:
     The CPU plain versions take any shape."""
     return (
         c in SUPPORTED_C and t > 0 and h > 0
-        and t % FWD_TILE_T == 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
+        and t % FWD_TILE_T == 0 and t % BWD_TILE_T == 0 and t % DX_TILE_T == 0
+        and h % TILE_H == 0
     )
 
 
@@ -104,6 +109,21 @@ def fused_sae_backward_plain(x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
     return dw_enc, db_enc, dw_dec, db_dec
 
 
+def fused_sae_dx_plain(x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
+    """Plain version of csrc sae_dx_kernel: the gradient of c_rec/2·Σ err² +
+    c_l1·Σ post with respect to x, round(dpre) @ W_encᵀ − c_rec·err, [T, C] f32.
+    Arguments as for fused_sae_backward_plain."""
+    cd = x.dtype
+    c_rec, c_l1 = coeffs[0], coeffs[1]
+    xc = (x - b_dec.to(cd)).float()
+    we = w_enc.float()
+    pre = xc @ we + b_enc
+    drecon = c_rec * err.float()
+    dpost = _r(drecon, cd) @ w_dec.float().T + c_l1
+    dpre = torch.where(pre > 0, dpost, torch.zeros((), device=pre.device))
+    return _r(dpre, cd) @ we.T - drecon
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -120,6 +140,8 @@ def _lib() -> ctypes.CDLL:
     lib.svt_sae_bwd.restype = _I
     lib.svt_sae_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _P]
+    lib.svt_sae_dx.restype = _I
+    lib.svt_sae_dx.argtypes = [_I] + [_P] * 8 + [_I, _I, _I, _P]
     return lib
 
 
@@ -156,13 +178,33 @@ def _stream(dev: torch.device) -> _P:
     return _P(torch.cuda.current_stream(dev).cuda_stream)
 
 
-class _ForwardKernel:
-    """csrc sae_fwd_kernel; ``launches`` counts its launches."""
+class Kernel:
+    """Wrapper of one CUDA kernel; ``launches`` counts its launches."""
 
-    name = "fused_sae_fwd"
+    name = ""
 
     def __init__(self):
         self.launches = 0
+
+    def _launch(self, fn, dev: torch.device, *args) -> None:
+        """Call the C entry point ``fn`` with ``args`` and ``dev``'s current
+        stream; raise on a non-zero cudaError_t, else count the launch."""
+        with torch.cuda.device(dev):
+            rc = fn(*args, _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {rc}")
+        self.launches += 1
+
+
+def _ptrs(x, *tensors) -> tuple:
+    """(bf16 flag, data pointers) of the operands, as the C entry points take them."""
+    return (int(x.dtype == _BF16), x.data_ptr(), *(t.data_ptr() for t in tensors))
+
+
+class _ForwardKernel(Kernel):
+    """csrc sae_fwd_kernel."""
+
+    name = "fused_sae_fwd"
 
     def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
         t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
@@ -171,27 +213,17 @@ class _ForwardKernel:
         act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
         row_active = torch.empty((t,), dtype=_F32, device=dev)
         l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.svt_sae_fwd(
-                int(x.dtype == _BF16), x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
-                w_dec.data_ptr(), b_dec.data_ptr(), recon.data_ptr(), act_part.data_ptr(),
-                row_active.data_ptr(), l1_part.data_ptr(), t, c, h, _stream(dev),
-            )
-        if rc != 0:
-            raise RuntimeError(f"svt_sae_fwd launch failed: cudaError_t {rc}")
-        self.launches += 1
+        self._launch(_lib().svt_sae_fwd, dev,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, recon, act_part, row_active,
+                            l1_part), t, c, h)
         # per-token-tile partials reduced here, as the JAX op sums act_part
         return recon, act_part.sum(0), row_active, l1_part.sum()
 
 
-class _BackwardKernel:
-    """csrc sae_bwd_kernel; ``launches`` counts its launches."""
+class _BackwardKernel(Kernel):
+    """csrc sae_bwd_kernel."""
 
     name = "fused_sae_bwd"
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
         t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
@@ -202,23 +234,32 @@ class _BackwardKernel:
         db_enc = torch.empty((h,), dtype=_F32, device=dev)
         dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
         db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            rc = lib.svt_sae_bwd(
-                int(x.dtype == _BF16), x.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
-                w_dec.data_ptr(), b_dec.data_ptr(), err.data_ptr(), coeffs.data_ptr(),
-                dw_enc.data_ptr(), db_enc.data_ptr(), dw_dec.data_ptr(),
-                db_dec_part.data_ptr(), t, c, h, _stream(dev),
-            )
-        if rc != 0:
-            raise RuntimeError(f"svt_sae_bwd launch failed: cudaError_t {rc}")
-        self.launches += 1
+        self._launch(_lib().svt_sae_bwd, dev,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc, db_enc,
+                            dw_dec, db_dec_part), t, c, h)
         return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
+
+
+class _DxKernel(Kernel):
+    """csrc sae_dx_kernel (one level)."""
+
+    name = "fused_sae_dx"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
+        t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
+        dev = x.device
+        _expect("err", err, (t, c), x.dtype, dev)
+        _expect("coeffs", coeffs, (2,), _F32, dev)
+        dx = torch.empty((t, c), dtype=_F32, device=dev)
+        self._launch(_lib().svt_sae_dx, dev,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dx), t, c, h)
+        return dx
 
 
 fwd_kernel = _ForwardKernel()
 bwd_kernel = _BackwardKernel()
-KERNELS = (fwd_kernel, bwd_kernel)
+dx_kernel = _DxKernel()
+KERNELS = (fwd_kernel, bwd_kernel, dx_kernel)
 
 
 def run_on_device(kernel, plain, x, *args):
@@ -242,12 +283,17 @@ def fused_sae_backward(*args):
     return run_on_device(bwd_kernel, fused_sae_backward_plain, *args)
 
 
+def fused_sae_dx(*args):
+    """The dx kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(dx_kernel, fused_sae_dx_plain, *args)
+
+
 class FusedSAEFunction(torch.autograd.Function):
     """(x, W_enc, b_enc, W_dec, b_dec) -> (rec_loss, l1_loss, recon, act_count,
     row_active), the counterpart of the JAX op's custom_vjp."""
 
     @staticmethod
-    def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, compute_dtype):
+    def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, compute_dtype, compute_dx):
         cd = compute_dtype
         xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
         b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
@@ -258,6 +304,7 @@ class FusedSAEFunction(torch.autograd.Function):
         rec_loss = err.square().mean()
         l1_loss = l1_sum / (t * h)
         ctx.save_for_backward(xc, we, b_enc, wd, b_dec, err.to(cd))
+        ctx.compute_dx = compute_dx
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return rec_loss, l1_loss, recon, act_count, row_active
 
@@ -271,20 +318,26 @@ class FusedSAEFunction(torch.autograd.Function):
         g_l1 = zero if g_l1 is None else g_l1.float()
         # a device tensor, not host floats: the backward never syncs
         coeffs = torch.stack([g_rec * 2.0 / (t * c), g_l1 / (t * h)])
-        dw_enc, db_enc, dw_dec, db_dec = fused_sae_backward(
-            xc, we, b_enc, wd, b_dec, err, coeffs)
-        return None, dw_enc, db_enc, dw_dec, db_dec, None
+        ops = (xc, we, b_enc, wd, b_dec, err, coeffs)
+        dw_enc, db_enc, dw_dec, db_dec = fused_sae_backward(*ops)
+        dx = None
+        if ctx.compute_dx and ctx.needs_input_grad[0]:
+            dx = fused_sae_dx(*ops)
+        return dx, dw_enc, db_enc, dw_dec, db_dec, None, None
 
 
 def fused_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: float,
-                         expansion_factor: int, *, compute_dtype=_BF16) -> dict:
+                         expansion_factor: int, *, compute_dtype=_BF16,
+                         compute_dx: bool = False) -> dict:
     """Fused equivalent of sae_inference_and_loss + measure_inactive_units on 2-D
     token input: loss terms (loss = rec + λ·l1), recon, and dead/sparsity stats
     from the kernel. RMSE/NRMSE come from the [T, C] reconstruction in plain
-    torch."""
+    torch. ``compute_dx=True`` gives ``x`` its gradient (the dx kernel);
+    otherwise training treats the activations as data."""
     cd = compute_dtype_of(compute_dtype)
     rec_loss, l1_loss, recon, act_count, row_active = FusedSAEFunction.apply(
-        x, params["W_enc"], params["b_enc"], params["W_dec"], params["b_dec"], cd)
+        x, params["W_enc"], params["b_enc"], params["W_dec"], params["b_dec"], cd,
+        compute_dx)
     t = x.shape[0]
     h = params["b_enc"].shape[0]
     rmse, nrmse = losses.rmse_nrmse(recon, x)

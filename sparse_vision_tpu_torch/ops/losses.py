@@ -1,5 +1,5 @@
-"""Loss functions (port of sparse_vision_tpu/ops/losses.py: the sae_mlp, gated
-and JumpReLU terms).
+"""Loss functions (port of sparse_vision_tpu/ops/losses.py: the sae_mlp, gated,
+JumpReLU and Matryoshka terms).
 
 Reference semantics: SparseLoss / compute_rmse_nrmse (losses/sparse_loss.py:4-61),
 total-loss assembly (utils.py:2467-2475), CustomCrossEntropyLoss (utils.py:99-125).
@@ -40,6 +40,28 @@ def sae_loss_terms(encoded: torch.Tensor, decoded: torch.Tensor,
         "nrmse_loss": nrmse,
         "rmse_loss": rmse,
         "aux_loss": torch.zeros((), dtype=decoded.dtype, device=decoded.device),
+    }
+
+
+def matryoshka_loss_terms(encoded: torch.Tensor, prefix_recons: list,
+                          targets: torch.Tensor, lambda_sparse: float) -> dict:
+    """Matryoshka-SAE loss (Bussmann et al. 2024): the mean over the latent-prefix
+    reconstructions of their MSE + λ·mean|encoded|. ``rec_loss`` is the
+    full-dictionary MSE and ``aux_loss`` = prefix mean − rec (it may be
+    negative), so loss = rec + λ·l1 + aux still holds."""
+    full = prefix_recons[-1]
+    rec = torch.square(full - targets).mean()
+    prefix_mean = sum(torch.square(r - targets).mean() for r in prefix_recons) / len(
+        prefix_recons)
+    l1 = encoded.abs().mean()
+    rmse, nrmse = rmse_nrmse(full, targets)
+    return {
+        "loss": prefix_mean + lambda_sparse * l1,
+        "rec_loss": rec,
+        "l1_loss": l1,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": prefix_mean - rec,
     }
 
 

@@ -3,12 +3,13 @@ modified-model-eval parts of sparse_vision_tpu/train/pipeline.py).
 
 ``Pipeline(cfg).train_sae_cached()`` runs the north-star chain: frozen GoogLeNet
 -> tap ``sae_layer`` -> activation cache -> SAE training (``sae_mlp``,
-``gated_sae`` or ``jumprelu_sae``; the variant's fused CUDA kernels on a GPU,
-their plain versions on the CPU) with dead-latent tracking (resampling for
-sae_mlp, the rolling dead window for the others) -> eval by splicing the SAE
-back into the backbone, before and after each epoch. Figures, top-k files, the
-results CSV, checkpoints and weight export are not ported yet; a config that
-asks for anything outside the slice raises NotImplementedError naming the field.
+``gated_sae``, ``jumprelu_sae`` or ``matryoshka_sae``; the variant's fused CUDA
+kernels on a GPU, their plain versions on the CPU) with dead-latent tracking
+(resampling for sae_mlp, the rolling dead window for the others) -> eval by
+splicing the SAE back into the backbone, before and after each epoch. Figures,
+top-k files, the results CSV, checkpoints and weight export are not ported yet;
+a config that asks for anything outside the slice raises NotImplementedError
+naming the field.
 """
 
 from __future__ import annotations
@@ -162,7 +163,8 @@ class Pipeline:
         cache = ActivationCache(cache_dir)
 
         fused = cfg.use_pallas
-        can_fuse, _ = fused_op(cfg.sae_model_name)
+        prefixes = cfg.matryoshka_prefix_fractions
+        can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
         if fused and self.device.type == "cuda" and not can_fuse(
                 tps, self.num_units, self.sae_input_size):
             # no quiet fallback to the stock step on the card
@@ -176,7 +178,7 @@ class Pipeline:
         step_fn = make_sae_train_step_from_acts(
             cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
             cfg.sae_expansion_factor, fused=fused, fused_opts=fused_opts,
-            jumprelu_bandwidth=cfg.jumprelu_bandwidth)
+            jumprelu_bandwidth=cfg.jumprelu_bandwidth, matryoshka_prefixes=prefixes)
         multi_fn = make_sae_train_multi_step(step_fn)
 
         last_eval = self.eval_modified(epoch=0)
@@ -205,7 +207,8 @@ class Pipeline:
             self._sae_eval_step_cache = make_sae_eval_step(
                 self.net, cfg.sae_layer, cfg.sae_model_name, cfg.sae_lambda_sparse,
                 cfg.sae_expansion_factor, self.criterion,
-                jumprelu_bandwidth=cfg.jumprelu_bandwidth)
+                jumprelu_bandwidth=cfg.jumprelu_bandwidth,
+                matryoshka_prefixes=cfg.matryoshka_prefix_fractions)
         return self._sae_eval_step_cache
 
     def eval_modified(self, epoch: int) -> dict:

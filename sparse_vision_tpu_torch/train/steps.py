@@ -1,5 +1,5 @@
-"""SAE train and eval steps (port of the sae_mlp, gated_sae and jumprelu_sae
-parts of sparse_vision_tpu/train/steps.py).
+"""SAE train and eval steps (port of the sae_mlp, gated_sae, jumprelu_sae and
+matryoshka_sae parts of sparse_vision_tpu/train/steps.py).
 
 The JAX package jits one pure step over an explicit train state; here a step is
 an eager function over the same state: gradients of the variant's loss by
@@ -12,13 +12,16 @@ needs no device sync.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from sparse_vision_tpu_torch.models.sae import (
+    DEFAULT_MATRYOSHKA_PREFIXES,
     JUMPRELU_BANDWIDTH,
     PORTED,
+    matryoshka_prefix_counts,
     sae_inference_and_loss,
 )
 from sparse_vision_tpu_torch.ops import metrics, optim
@@ -50,11 +53,28 @@ def init_sae_train_state(sae_params: dict, tx: optim.Optimizer, hidden: int,
     )
 
 
-def fused_op(sae_model_name: str) -> tuple:
-    """(can_fuse, loss_terms) of the variant's fused op: ops/fused_sae.py,
-    ops/fused_gated_sae.py or ops/fused_jumprelu_sae.py."""
-    from sparse_vision_tpu_torch.ops import fused_gated_sae, fused_jumprelu_sae, fused_sae
+def fused_op(sae_model_name: str,
+             matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES) -> tuple:
+    """(can_fuse(t, h, c), loss_terms(params, x, λ, expansion_factor, **opts)) of
+    the variant's fused op: ops/fused_sae.py, ops/fused_gated_sae.py,
+    ops/fused_jumprelu_sae.py or ops/fused_matryoshka_sae.py (with the prefix
+    fractions bound)."""
+    from sparse_vision_tpu_torch.ops import (
+        fused_gated_sae,
+        fused_jumprelu_sae,
+        fused_matryoshka_sae,
+        fused_sae,
+    )
 
+    if sae_model_name == "matryoshka_sae":
+        prefixes = tuple(matryoshka_prefixes)
+
+        def can_fuse(t, h, c=256):
+            return fused_matryoshka_sae.can_fuse_matryoshka(
+                t, h, matryoshka_prefix_counts(h, prefixes), c)
+
+        return can_fuse, functools.partial(
+            fused_matryoshka_sae.fused_matryoshka_sae_loss_terms, prefixes=prefixes)
     return {
         "sae_mlp": (fused_sae.can_fuse, fused_sae.fused_sae_loss_terms),
         "gated_sae": (fused_gated_sae.can_fuse, fused_gated_sae.fused_gated_sae_loss_terms),
@@ -67,15 +87,17 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                                   tx: optim.Optimizer, dead_neurons_steps: int,
                                   expansion_factor: int, fused: bool = False,
                                   fused_opts: Optional[dict] = None,
-                                  jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH):
+                                  jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
+                                  matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES):
     """SAE train step over pre-extracted activations [T, C] (the activation-cache
-    training mode) for sae_mlp, gated_sae and jumprelu_sae.
+    training mode) for sae_mlp, gated_sae, jumprelu_sae and matryoshka_sae.
 
     ``fused=True`` routes forward, loss and statistics through the variant's
     fused op (``fused_op``): the CUDA kernels on a CUDA tensor, their plain
     versions on a CPU tensor.
     ``fused_opts`` may set ``compute_dtype``, and ``bandwidth`` for jumprelu_sae
-    (the stock path reads ``jumprelu_bandwidth``).
+    (the stock path reads ``jumprelu_bandwidth``). ``matryoshka_prefixes`` are
+    matryoshka_sae's prefix fractions, on both paths.
 
     The returned ``step_fn(ts, act, resample_draws=None) -> (ts, metrics)``
     resamples (sae_mlp only) with Kaiming draws from ``ts.rng`` unless
@@ -91,7 +113,7 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
         raise NotImplementedError(f"SAE {sae_model_name!r} is not ported {PORTED}")
     can_resample = sae_model_name == "sae_mlp"
     if fused:
-        _, fused_loss_terms = fused_op(sae_model_name)
+        _, fused_loss_terms = fused_op(sae_model_name, matryoshka_prefixes)
 
         def loss_fn(params, act):
             return fused_loss_terms(params, act, lambda_sparse, expansion_factor,
@@ -99,7 +121,8 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
     else:
         def loss_fn(params, act):
             return sae_inference_and_loss(sae_model_name, params, act, lambda_sparse,
-                                          jumprelu_bandwidth=jumprelu_bandwidth)
+                                          jumprelu_bandwidth=jumprelu_bandwidth,
+                                          matryoshka_prefixes=matryoshka_prefixes)
 
     def step_fn(ts: SAETrainState, act: torch.Tensor, resample_draws=None):
         keys = list(ts.params)
@@ -160,7 +183,8 @@ def make_sae_train_multi_step(step_fn):
 
 def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: float,
                        expansion_factor: int, criterion,
-                       jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH):
+                       jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
+                       matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES):
     """Eval step for the SAE-spliced model: the reference's eval-epoch quantities
     for one batch (model_pipeline.py:661-714 + 806-878), in plain torch (the JAX
     eval is stock XLA too). Returns (batch_metrics, arrays) with arrays 'dead',
@@ -172,7 +196,8 @@ def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: 
         logits_orig, taps, _ = net.apply(frozen_params, images, state=frozen_state)
         act = taps[sae_layer]
         out = sae_inference_and_loss(sae_model_name, sae_params, act, lambda_sparse,
-                                     jumprelu_bandwidth=jumprelu_bandwidth)
+                                     jumprelu_bandwidth=jumprelu_bandwidth,
+                                     matryoshka_prefixes=matryoshka_prefixes)
         logits_mod = net.apply_segment(frozen_params, out["decoded"], after=sae_layer,
                                        upto=last, state=frozen_state)
         loss_mod = criterion(logits_mod, labels)

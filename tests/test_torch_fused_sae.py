@@ -17,6 +17,9 @@ Tolerances:
   * db_dec: its centring term multiplies a bf16-rounded db_enc; the TPU kernel
     rounds each token tile's partial sum, the port the whole batch's sum once,
     so each term can differ by a bf16 half-ulp of db_enc: 1e-2 of max|db_dec|.
+- dx (compute_dx=True, the dx kernel's plain version): f32 rtol 1e-4, atol
+  1e-7 (tests/test_fused_sae.py:52); bf16 one bf16 ulp of max|dx|, since its
+  product round(dpre)·W_encᵀ is a transposed bf16 product in the Pallas kernel.
 """
 
 import jax
@@ -102,6 +105,28 @@ def test_gradients_match_jax(setup, case):
         np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
 
 
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+def test_dx_matches_jax(setup, case):
+    """With compute_dx=True both ops give x its gradient; without it the port's
+    is None (the JAX op's zero cotangent)."""
+    cd, _ = CASES[case]
+    params, x = setup
+    jgx = jax.grad(lambda xx: jax_fused(params, xx, LAMBDA, H_EXP, compute_dtype=JDT[cd],
+                                        compute_dx=True, **JTILES)["loss"])(jnp.asarray(x))
+    tp = convert.sae_params_from_jax(params)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tgx = {}
+    for compute_dx in (True, False):
+        out = fused_sae.fused_sae_loss_terms(tp, tx, LAMBDA, H_EXP, compute_dtype=TDT[cd],
+                                             compute_dx=compute_dx)
+        (tgx[compute_dx],) = torch.autograd.grad(out["loss"], [tx], allow_unused=True)
+    assert tgx[False] is None
+    ref = np.asarray(jgx)
+    rtol, atol = (1e-4, 1e-7) if case == "f32" else (0, 2.0**-8 * np.abs(ref).max())
+    np.testing.assert_allclose(tgx[True].numpy(), ref, rtol=rtol, atol=atol)
+    assert np.abs(ref).max() > 0
+
+
 def test_bf16_backward_equals_jnp_replica(setup):
     """In bf16 the port's backward equals the Pallas backward body's formulas
     (fused_sae.py:_bwd_kernel) written in plain jnp, on one token tile, to f32
@@ -141,21 +166,23 @@ def test_bf16_backward_equals_jnp_replica(setup):
 
 
 def test_plain_backward_matches_autograd_of_plain_forward(setup):
-    """The explicit backward equals autograd through the plain forward (f32)."""
+    """The explicit backward and dx equal autograd through the plain forward (f32)."""
     params, x = setup
     tp = convert.sae_params_from_jax(params)
     xt = torch.from_numpy(x)
     t, h = T, C * H_EXP
     coeffs = torch.tensor([2.0 / (t * C), LAMBDA / (t * h)])
     leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    xg = xt.clone().requires_grad_(True)
     recon, _, _, l1 = fused_sae.fused_sae_forward_plain(
-        xt, leaves["W_enc"], leaves["b_enc"], leaves["W_dec"], leaves["b_dec"])
-    loss = (recon - xt).square().mean() + LAMBDA * l1 / (t * h)
-    auto = torch.autograd.grad(loss, [leaves[k] for k in ("W_enc", "b_enc", "W_dec", "b_dec")])
+        xg, leaves["W_enc"], leaves["b_enc"], leaves["W_dec"], leaves["b_dec"])
+    loss = (recon - xg).square().mean() + LAMBDA * l1 / (t * h)
+    auto = torch.autograd.grad(
+        loss, [leaves[k] for k in ("W_enc", "b_enc", "W_dec", "b_dec")] + [xg])
     err = (recon - xt).detach()
-    mine = fused_sae.fused_sae_backward_plain(xt, tp["W_enc"], tp["b_enc"], tp["W_dec"],
-                                              tp["b_dec"], err, coeffs)
-    for a, b, name in zip(mine, auto, ("W_enc", "b_enc", "W_dec", "b_dec")):
+    ops = (xt, tp["W_enc"], tp["b_enc"], tp["W_dec"], tp["b_dec"], err, coeffs)
+    mine = fused_sae.fused_sae_backward_plain(*ops) + (fused_sae.fused_sae_dx_plain(*ops),)
+    for a, b, name in zip(mine, auto, ("W_enc", "b_enc", "W_dec", "b_dec", "x")):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-7, err_msg=name)
 
 
@@ -172,6 +199,10 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
                                      tp["b_enc"], tp["W_dec"], tp["b_dec"],
                                      torch.empty(T, C, device="meta"),
                                      torch.empty(2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_sae.fused_sae_dx(torch.empty(T, C, device="meta"), tp["W_enc"], tp["b_enc"],
+                               tp["W_dec"], tp["b_dec"], torch.empty(T, C, device="meta"),
+                               torch.empty(2, device="meta"))
 
 
 @pytest.mark.parametrize("t,h,c,ok", [
@@ -194,7 +225,10 @@ def test_kernel_wrapper_validates_before_launch(setup):
     with pytest.raises(ValueError, match="contiguous"):
         fused_sae.fwd_kernel(torch.from_numpy(x), tp["W_enc"].to(torch.bfloat16),
                              tp["b_enc"], tp["W_dec"], tp["b_dec"])
-    assert fused_sae.fwd_kernel.launches == 0 and fused_sae.bwd_kernel.launches == 0
+    with pytest.raises(ValueError, match="err must be"):
+        fused_sae.dx_kernel(torch.from_numpy(x), tp["W_enc"], tp["b_enc"], tp["W_dec"],
+                            tp["b_dec"], torch.zeros(T, C + 1), torch.zeros(2))
+    assert all(k.launches == 0 for k in fused_sae.KERNELS)
 
 
 def test_library_name_follows_source_and_shared_header(tmp_path, monkeypatch):

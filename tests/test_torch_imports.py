@@ -37,6 +37,7 @@ def test_the_walk_sees_every_module():
     for must in ("chip_smoke.py", "sparse_vision_tpu_torch/ops/fused_sae.py",
                  "sparse_vision_tpu_torch/ops/fused_gated_sae.py",
                  "sparse_vision_tpu_torch/ops/fused_jumprelu_sae.py",
+                 "sparse_vision_tpu_torch/ops/fused_matryoshka_sae.py",
                  "sparse_vision_tpu_torch/train/pipeline.py"):
         assert must in names
 

@@ -7,9 +7,12 @@ Small: 32 px images (mixed3a is 4 x 4 x 256), 64 train / 32 val images, 2x
 expansion (512 latents), 8 steps of 128 tokens, f32 cache and compute, and
 dead_neurons_steps large enough that no resample fires. Both pipelines run with
 CACHE_SCAN_K = 2, so the JAX logger sees every second step. The comparisons run
-for each ported variant: sae_mlp, gated_sae and jumprelu_sae, the latter with
-its STE bandwidth and initial threshold scaled to these activations (std ~0.05,
-the "scaled" rule of docs/CONVERGENCE.md:39), so the thresholds train.
+for each ported variant: sae_mlp, gated_sae, jumprelu_sae and matryoshka_sae;
+JumpReLU with its STE bandwidth and initial threshold scaled to these
+activations (std ~0.05, the "scaled" rule of docs/CONVERGENCE.md:39), so the
+thresholds train; Matryoshka with prefixes 1/4, 1/2, 1 (boundaries 128, 256,
+512 latents, which both packages' kernels take; the JAX pipeline runs its stock
+step on the CPU, the port its fused op's plain versions).
 
 Tolerances: the caches differ by the two frameworks' f32 convolution rounding
 (~1e-6 relative, test_torch_googlenet.py), which training carries forward: losses
@@ -49,6 +52,7 @@ VARIANTS = {
     "sae_mlp": {},
     "gated_sae": {},
     "jumprelu_sae": {"jumprelu_bandwidth": 0.05, "jumprelu_threshold_init": 0.025},
+    "matryoshka_sae": {"sae_matryoshka_prefixes": "0.25,0.5,1.0"},
 }
 
 

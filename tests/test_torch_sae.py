@@ -1,5 +1,5 @@
-"""The port's SAE variants (sae_mlp, gated_sae, jumprelu_sae), losses and metrics
-against the JAX package on the same inputs.
+"""The port's SAE variants (sae_mlp, gated_sae, jumprelu_sae, matryoshka_sae),
+losses and metrics against the JAX package on the same inputs.
 
 Inputs come from numpy.random.default_rng; JAX-initialized parameters reach the
 port through convert.py. Tolerance: rtol 1e-5 (f32 on both sides; the two
@@ -320,3 +320,109 @@ def test_jumprelu_ste_functions_match_jax():
     gp, gt = torch.autograd.grad(3.0 * l0_t, [tp, tt])
     close(gt, jgt, msg="d threshold (L0)")
     assert float(gp.abs().max()) == 0.0 and float(np.abs(np.asarray(jgp)).max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# matryoshka_sae
+# ---------------------------------------------------------------------------
+
+PREFIXES = (0.25, 0.5, 1.0)
+
+
+@pytest.mark.parametrize("h,fractions,counts", [
+    (128, (0.0625, 0.25, 1.0), (8, 32, 128)),  # tests/test_matryoshka.py:18-26
+    (10, (1.0,), (10,)),
+    (100, (0.5, 0.9), (50, 100)),  # the last prefix is forced to the whole dictionary
+    (16384, (0.0625, 0.25, 1.0), (1024, 4096, 16384)),
+])
+def test_matryoshka_prefix_counts_match_jax(h, fractions, counts):
+    assert tsae.matryoshka_prefix_counts(h, fractions) == counts
+    assert jsae.matryoshka_prefix_counts(h, fractions) == counts
+
+
+@pytest.mark.parametrize("fractions", [(0.5, 0.5, 1.0), (0.0, 1.0), (), (0.5, 1.5)])
+def test_matryoshka_prefix_counts_refuse_what_jax_refuses(fractions):
+    """Repeated counts, fractions outside (0, 1] and no fraction at all raise in
+    both packages."""
+    with pytest.raises(ValueError):
+        jsae.matryoshka_prefix_counts(100, fractions)
+    with pytest.raises(ValueError):
+        tsae.matryoshka_prefix_counts(100, fractions)
+
+
+def test_init_matryoshka_sae_is_the_relu_layout():
+    p = tsae.init_sae("matryoshka_sae", torch.Generator().manual_seed(0), C, K)
+    q = tsae.init_sae_mlp(torch.Generator().manual_seed(0), C, K)
+    assert set(p) == set(q) == set(jsae.init_sae("matryoshka_sae", jax.random.key(0), C, K))
+    for k in p:
+        torch.testing.assert_close(p[k], q[k], rtol=0, atol=0)
+
+
+def test_matryoshka_sae_apply_matches_jax(params):
+    np_p, tp = params
+    x = np.random.default_rng(1).normal(size=(200, C)).astype(np.float32)
+    counts = tsae.matryoshka_prefix_counts(C * K, PREFIXES)
+    j = jsae.matryoshka_sae_apply(np_p, jnp.asarray(x), counts)
+    t = tsae.matryoshka_sae_apply(tp, torch.from_numpy(x), counts)
+    for a, b, name in zip(t[:3], j[:3], ("encoded", "decoded", "pre")):
+        close(a, b, msg=name)
+    assert len(t[3]) == len(j[3]) == 3
+    for p, (a, b) in enumerate(zip(t[3], j[3])):
+        close(a, b, msg=f"prefix {p}")
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 5, C), (120, C)])
+def test_matryoshka_inference_and_loss_match_jax(params, shape):
+    np_p, tp = params
+    act = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    j = jsae.sae_inference_and_loss("matryoshka_sae", np_p, jnp.asarray(act), LAMBDA,
+                                    matryoshka_prefixes=PREFIXES)
+    t = tsae.sae_inference_and_loss("matryoshka_sae", tp, torch.from_numpy(act), LAMBDA,
+                                    matryoshka_prefixes=PREFIXES)
+    for k in ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss", "aux_loss"):
+        close(t[k], j[k], msg=k)
+    assert float(t["aux_loss"]) != 0.0  # the prefix surcharge
+    for k in ("encoded", "encoded_pre", "decoded"):
+        assert tuple(t[k].shape) == tuple(j[k].shape), k
+        close(t[k], j[k], msg=k)
+    tok = np.random.default_rng(3).normal(size=(50, C)).astype(np.float32)
+    enc_t = tsae.sae_encode("matryoshka_sae", tp, torch.from_numpy(tok))
+    close(enc_t, jsae.sae_encode("matryoshka_sae", np_p, jnp.asarray(tok)))
+    close(tsae.sae_decode("matryoshka_sae", tp, enc_t),
+          jsae.sae_decode("matryoshka_sae", np_p, jnp.asarray(enc_t.numpy())))
+
+
+def test_matryoshka_gradients_match_jax_grad(params):
+    """Autograd through the port's stock Matryoshka path against jax.grad, for
+    every parameter and the input."""
+    np_p, tp = params
+    x = np.random.default_rng(4).normal(size=(160, C)).astype(np.float32)
+
+    def jloss(p, xx):
+        return jsae.sae_inference_and_loss("matryoshka_sae", p, xx, LAMBDA,
+                                           matryoshka_prefixes=PREFIXES)["loss"]
+
+    jg, jgx = jax.grad(jloss, argnums=(0, 1))(jax.tree.map(jnp.asarray, np_p), jnp.asarray(x))
+    p = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    loss = tsae.sae_inference_and_loss("matryoshka_sae", p, tx, LAMBDA,
+                                       matryoshka_prefixes=PREFIXES)["loss"]
+    tg = torch.autograd.grad(loss, [*p.values(), tx])
+    for k, g in zip(p, tg):
+        close(g, jg[k], rtol=1e-4, atol=1e-7, msg=k)
+    close(tg[-1], jgx, rtol=1e-4, atol=1e-7, msg="x")
+
+
+def test_matryoshka_loss_terms_match_jax():
+    rng = np.random.default_rng(8)
+    tgt = rng.normal(size=(40, 8)).astype(np.float32)
+    enc = np.maximum(rng.normal(size=(40, 24)), 0).astype(np.float32)
+    recons = [(tgt + s * rng.normal(size=tgt.shape)).astype(np.float32) for s in (0.5, 0.2, 0.1)]
+    t = tlosses.matryoshka_loss_terms(torch.from_numpy(enc), [torch.from_numpy(r) for r in recons],
+                                      torch.from_numpy(tgt), LAMBDA)
+    j = jlosses.matryoshka_loss_terms(jnp.asarray(enc), [jnp.asarray(r) for r in recons],
+                                      jnp.asarray(tgt), LAMBDA)
+    assert set(t) == set(j)
+    for k in t:
+        close(t[k], j[k], msg=k)
+    assert float(t["aux_loss"]) > 0  # coarser prefixes reconstruct worse here

@@ -9,10 +9,12 @@ CPU path of the CUDA kernels). Tolerances (tests/test_training_parity.py:114-119
 losses rtol 2e-4; final params rtol 2e-3, atol 2e-5 (Adam's first steps divide by
 sqrt(nu) and amplify f32 rounding of tiny gradients); dead accumulators equal.
 
-The gated and JumpReLU trajectories cross two restarts of the rolling dead
-window (dead_neurons_steps = 2: steps 2 and 4), stock and fused, with the same
-loss and dead-accumulator tolerances and params at rtol 2e-3, atol 1e-5
-(tests/test_fused_gated_sae.py:86-93).
+The gated, JumpReLU and Matryoshka trajectories cross two restarts of the
+rolling dead window (dead_neurons_steps = 2: steps 2 and 4), stock and fused,
+with the same loss and dead-accumulator tolerances and params at rtol 2e-3,
+atol 1e-5 (tests/test_fused_gated_sae.py:86-93). Matryoshka runs at 8x
+expansion (512 latents) with prefixes 1/4, 1/2, 1, so that its boundaries (128,
+256, 512) are multiples of the JAX kernel's 128-latent tile.
 """
 
 import jax
@@ -143,24 +145,30 @@ def test_state_converted_mid_run_continues_like_jax(opt_name):
 
 
 # ---------------------------------------------------------------------------
-# gated_sae and jumprelu_sae: the rolling dead window
+# gated_sae, jumprelu_sae and matryoshka_sae: the rolling dead window
 # ---------------------------------------------------------------------------
 
 EPS = 0.5  # JumpReLU STE bandwidth: the window catches pre-activations of these inputs
 WINDOW = 2  # dead_neurons_steps: the accumulator restarts after steps 2 and 4
+EXPANSION = {"matryoshka_sae": 8}  # the others: K
+PREFIXES = (0.25, 0.5, 1.0)
 
 
 def _variant_setup(name):
     """JAX-initialized params with 8 latents that never fire, and 5 batches."""
     rng = np.random.default_rng(7)
-    p = jax.device_get(init_sae(name, jax.random.key(0), C, K))
-    if name == "gated_sae":
-        p["b_gate"] = (rng.normal(0.0, 0.05, H) - np.where(np.arange(H) < 8, 100.0, 0.0))
-        p["b_mag"] = rng.normal(0.0, 0.05, H)
-        p["r_mag"] = rng.normal(0.0, 0.1, H)
+    k = EXPANSION.get(name, K)
+    h = C * k
+    p = jax.device_get(init_sae(name, jax.random.key(0), C, k))
+    if name == "matryoshka_sae":
+        p["b_enc"] = np.where(np.arange(h) < 8, -100.0, 0.0) + rng.normal(0.0, 0.05, h)
+    elif name == "gated_sae":
+        p["b_gate"] = (rng.normal(0.0, 0.05, h) - np.where(np.arange(h) < 8, 100.0, 0.0))
+        p["b_mag"] = rng.normal(0.0, 0.05, h)
+        p["r_mag"] = rng.normal(0.0, 0.1, h)
     else:
-        p["b_enc"] = np.where(np.arange(H) < 8, -100.0, 0.0) + rng.normal(0.0, 0.05, H)
-        p["log_threshold"] = np.log(rng.uniform(0.2, 0.6, H))
+        p["b_enc"] = np.where(np.arange(h) < 8, -100.0, 0.0) + rng.normal(0.0, 0.05, h)
+        p["log_threshold"] = np.log(rng.uniform(0.2, 0.6, h))
     p = {k: np.asarray(v, np.float32) for k, v in p.items()}
     batches = [rng.normal(size=(T, C)).astype(np.float32) for _ in range(5)]
     return p, batches
@@ -170,27 +178,30 @@ def _jax_step(name, tx, fused, window=WINDOW):
     jopts = dict(tile_t=32, tile_h=128, compute_dtype=jnp.float32, interpret=True)
     if name == "jumprelu_sae":
         jopts["bandwidth"] = EPS
-    return j_make(name, LAMBDA, tx, window, K, fused=fused,
-                  fused_opts=jopts if fused else None, jumprelu_bandwidth=EPS)
+    return j_make(name, LAMBDA, tx, window, EXPANSION.get(name, K), fused=fused,
+                  fused_opts=jopts if fused else None, jumprelu_bandwidth=EPS,
+                  matryoshka_prefixes=PREFIXES)
 
 
 def _torch_step(name, tx, fused, window=WINDOW):
     opts = {"compute_dtype": "float32"}
     if name == "jumprelu_sae":
         opts["bandwidth"] = EPS
-    return tsteps.make_sae_train_step_from_acts(name, LAMBDA, tx, window, K, fused=fused,
-                                                fused_opts=opts, jumprelu_bandwidth=EPS)
+    return tsteps.make_sae_train_step_from_acts(
+        name, LAMBDA, tx, window, EXPANSION.get(name, K), fused=fused, fused_opts=opts,
+        jumprelu_bandwidth=EPS, matryoshka_prefixes=PREFIXES)
 
 
 @pytest.mark.parametrize("fused", [True, False])
-@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae"])
+@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae", "matryoshka_sae"])
 def test_rolling_dead_window_trajectory_matches_jax(name, fused):
     params, batches = _variant_setup(name)
+    h = C * EXPANSION.get(name, K)
     jtx = joptim.get_optimizer("constrained_adam", LR)
-    jts = j_init(jax.tree.map(jnp.asarray, params), jtx, H, seed=0)
+    jts = j_init(jax.tree.map(jnp.asarray, params), jtx, h, seed=0)
     jstep = _jax_step(name, jtx, fused)
     ttx = toptim.get_optimizer("constrained_adam", LR)
-    tts = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), ttx, H, seed=0)
+    tts = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), ttx, h, seed=0)
     tstep = _torch_step(name, ttx, fused)
 
     jl, tl = [], []
@@ -208,7 +219,7 @@ def test_rolling_dead_window_trajectory_matches_jax(name, fused):
         if i % WINDOW == 0:  # the restart: perc_dead reads the fresh all-True acc
             assert float(tm["perc_dead"]) == 1.0
         else:  # between restarts only the never-firing latents stay dead
-            assert 8 / H <= float(tm["perc_dead"]) < 0.5
+            assert 8 / h <= float(tm["perc_dead"]) < 0.5
     assert tts.step == int(jts.step) == len(batches)
     np.testing.assert_allclose(tl, jl, rtol=2e-4)
     for k in params:
@@ -250,3 +261,16 @@ def test_variant_state_converted_mid_run_continues_like_jax(name):
     for k in params:
         np.testing.assert_allclose(tts.params[k].numpy(), np.asarray(jts.params[k]),
                                    rtol=2e-3, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("name,prefixes,t,h,ok", [
+    ("matryoshka_sae", (0.0625, 0.25, 1.0), 32768, 16384, True),  # 1024/4096/16384
+    ("matryoshka_sae", (0.25, 0.5, 1.0), 128, 512, True),  # 128/256/512
+    ("matryoshka_sae", (0.0625, 0.25, 1.0), 128, 512, False),  # 32: inside a 64-latent tile
+    ("sae_mlp", (0.0625, 0.25, 1.0), 128, 512, True),  # the prefixes are Matryoshka's only
+])
+def test_fused_op_can_fuse_reads_the_prefix_boundaries(name, prefixes, t, h, ok):
+    """fused_op binds matryoshka_sae's prefix fractions into its can_fuse, which
+    the Pipeline asks before it trains on the card."""
+    can_fuse, _ = tsteps.fused_op(name, prefixes)
+    assert can_fuse(t, h, 256) is ok
