@@ -8,20 +8,24 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
   2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc, one
               process per source, all started together.
   3. kernels: hold each kernel against its plain PyTorch version on the card at
-              the training shape (T=32768 tokens, C=256, H=16384 latents; the
-              Matryoshka prefixes end at 1024, 4096 and 16384), in f32 and bf16
-              operands; time kernel, plain version and the cuBLAS products of
-              the stock path; compute each kernel's bound.
+              the training shape (SAEs: T=32768 tokens, C=256, H=16384 latents,
+              the Matryoshka prefixes ending at 1024, 4096 and 16384; the
+              transcoder: T=32768, C_in=256 -> C_out=480, H=16384; the
+              crosscoder: T=16384, dims 512/512/512/528/832 = 2896, H=8192), in
+              f32 and bf16 operands; time kernel, plain version and the cuBLAS
+              products of the stock path; compute each kernel's bound.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too (the only launches
               of the two dx kernels: training treats activations as data).
-  5. slice:   Pipeline.train_sae_cached on the north-star config (GoogLeNet
-              mixed3a, 16,384 latents, bf16 cache, 12 steps of 32,768 tokens)
-              for sae_mlp (measurement resets at steps 4 and 12, a resample at
-              step 9), then gated_sae, jumprelu_sae and matryoshka_sae (the
-              rolling dead window restarts at steps 4, 8 and 12); every kernel
-              launch count is reset just before each run and read after it.
+  5. slice:   Pipeline.train_sae on the north-star config (GoogLeNet mixed3a,
+              16,384 latents, bf16 cache, 12 steps of 32,768 tokens) for sae_mlp
+              (measurement resets at steps 4 and 12, a resample at step 9), then
+              gated_sae, jumprelu_sae and matryoshka_sae (the rolling dead window
+              restarts at steps 4, 8 and 12), the transcoder mixed3a -> mixed3b
+              and the crosscoder mixed4a..mixed4e (8,192 latents, 12 steps of
+              16,384 tokens), both resampling like sae_mlp; every kernel launch
+              count is reset just before each run and read after it.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -41,20 +45,29 @@ from pathlib import Path
 import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
+from sparse_vision_tpu_torch.data.datasets import make_synthetic
+from sparse_vision_tpu_torch.models.crosscoder import (
+    crosscoder_inference_and_loss,
+    init_crosscoder,
+)
 from sparse_vision_tpu_torch.models.sae import (
     DEFAULT_MATRYOSHKA_PREFIXES,
     init_gated_sae,
     init_jumprelu_sae,
     init_sae_mlp,
+    init_transcoder,
     matryoshka_prefix_counts,
     matryoshka_sae_apply,
     sae_inference_and_loss,
+    transcoder_inference_and_loss,
 )
 from sparse_vision_tpu_torch.ops import (
+    fused_crosscoder,
     fused_gated_sae,
     fused_jumprelu_sae,
     fused_matryoshka_sae,
     fused_sae,
+    fused_transcoder,
     native,
 )
 from sparse_vision_tpu_torch.train.pipeline import Pipeline
@@ -68,20 +81,26 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 T, C, H = 32768, 256, 16384
+TC_T, TC_CIN, TC_COUT, TC_H = 32768, 256, 480, 16384  # transcoder mixed3a -> mixed3b
+CC_T, CC_DIMS, CC_H = 16384, (512, 512, 512, 528, 832), 8192  # crosscoder mixed4a..4e
 LAMBDA = 5.0  # sae_mlp and gated_sae
 # jumprelu_sae: λ, and the STE bandwidth of the kernel and parity phases, whose
 # inputs give pre-activations of std ~2
 LAMBDA_J, BANDWIDTH = 0.02, 1.0
+LAMBDA_C = 0.01  # the crosscoder slice's λ (SLICES)
 REPS = 5  # timed launches per measurement, after one warm-up
 
 MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
-           "jumprelu_sae": fused_jumprelu_sae, "matryoshka_sae": fused_matryoshka_sae}
+           "jumprelu_sae": fused_jumprelu_sae, "matryoshka_sae": fused_matryoshka_sae,
+           "transcoder": fused_transcoder, "crosscoder": fused_crosscoder}
 KERNELS = tuple(k for m in MODULES.values() for k in m.KERNELS)
 SOURCES = {
     "sae_mlp": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
     "gated_sae": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
     "jumprelu_sae": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
     "matryoshka_sae": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
+    "transcoder": "sparse_vision_tpu_torch/csrc/fused_transcoder.cu",
+    "crosscoder": "sparse_vision_tpu_torch/csrc/fused_transcoder.cu",
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -94,6 +113,10 @@ REPLACES = {
     "fused_jumprelu_sae_bwd": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:80",
     "fused_gated_sae_fwd": "sparse_vision_tpu/ops/fused_gated_sae.py:42",
     "fused_gated_sae_bwd": "sparse_vision_tpu/ops/fused_gated_sae.py:98",
+    "fused_transcoder_fwd": "sparse_vision_tpu/ops/fused_transcoder.py:41",
+    "fused_transcoder_bwd": "sparse_vision_tpu/ops/fused_transcoder.py:91",
+    "fused_crosscoder_fwd": "sparse_vision_tpu/ops/fused_crosscoder.py:68",
+    "fused_crosscoder_bwd": "sparse_vision_tpu/ops/fused_crosscoder.py:109",
 }
 
 
@@ -453,6 +476,90 @@ def kernels_matryoshka(cd, tag: str) -> dict:
     return rows
 
 
+def _coder_operands(gen, t: int, c_in: int, c_out: int, h: int, cd):
+    """Operands of the transcoder/crosscoder kernels: x and W_enc on
+    _exact_inputs' grid (x in quarters, W_enc in 1/256ths, sums of at most a few
+    thousand products: exact in f32), b_enc odd multiples of 2^-11, so the
+    kernel and cuBLAS get the same pre-activations and switch the same latents
+    on; W_dec and b_dec plain random."""
+    x = _dyadic(torch.relu(torch.randn(t, c_in, device=DEVICE, generator=gen)) * 2.0, 0.25)
+    we = _dyadic(torch.randn(c_in, h, device=DEVICE, generator=gen) / c_in ** 0.5, 2.0 ** -8)
+    be = _odd_grid(gen, h, 100)
+    wd = torch.randn(h, c_out, device=DEVICE, generator=gen) / h ** 0.5
+    bd = 0.1 * torch.randn(c_out, device=DEVICE, generator=gen)
+    return x.to(cd), we.to(cd), be, wd.to(cd), bd
+
+
+def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
+                   bwd_extra) -> dict:
+    """The fused transcoder or crosscoder kernel pair (``mod``) against its plain
+    versions at [t, c_in] -> [t, c_out] with h latents. ``bwd_extra(gen)`` gives
+    the backward's coefficient arguments, c_rec first."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x, we, be, wd, _ = ops = _coder_operands(gen, t, c_in, c_out, h, cd)
+    if mod is fused_transcoder:
+        plain_fwd, plain_bwd = (mod.fused_transcoder_forward_plain,
+                                mod.fused_transcoder_backward_plain)
+    else:
+        plain_fwd, plain_bwd = (mod.fused_crosscoder_forward_plain,
+                                mod.fused_crosscoder_backward_plain)
+    name = mod.fwd_kernel.name
+    out_k = mod.fwd_kernel(*ops)
+    out_p = plain_fwd(*ops)
+    torch.cuda.synchronize()
+    log(f"[kernels] {name} [{tag}] vs plain, T={t} C_in={c_in} C_out={c_out} H={h}")
+    # pre-activations are exact on both sides, so the counts agree exactly; the
+    # decode and the sums of post run in other orders
+    err = _check("recon", out_k[0], out_p[0], 1e-4, 1e-5)
+    _check("act_count", out_k[1], out_p[1], 0.0, 0.0)
+    _check("row_active", out_k[2], out_p[2], 0.0, 0.0)
+    _check("zsum" if mod is fused_crosscoder else "l1_sum", out_k[3], out_p[3], 1e-5, 1e-7)
+    del out_k
+    post = torch.relu(x @ we).to(cd)  # a [T, H] operand of the stock path's shapes
+    rows = {name: _measure(
+        name, tag, cd, lambda: mod.fwd_kernel(*ops), lambda: plain_fwd(*ops),
+        lambda: (x @ we, post @ wd), 2.0 * t * h * (c_in + c_out),
+        nbytes(*ops) + nbytes(*out_p), err)}
+
+    y = torch.randn(t, c_out, device=DEVICE, generator=gen)
+    res = (out_p[0] - y).to(cd)  # the residual the backward reads
+    del out_p, y
+    bops = (x, we, be, wd, res) + bwd_extra(gen)
+    name = mod.bwd_kernel.name
+    g_k = mod.bwd_kernel(*bops)
+    g_p = plain_bwd(*bops)
+    torch.cuda.synchronize()
+    log(f"[kernels] {name} [{tag}] vs plain")
+    err = max(_check(n, a, b, 1e-3, 1e-4)
+              for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
+    moved = nbytes(*bops) + nbytes(*g_p)
+    del g_k, g_p
+    dr = (bops[5][0] * res.float()).to(cd)
+    rows[name] = _measure(
+        name, tag, cd, lambda: mod.bwd_kernel(*bops), lambda: plain_bwd(*bops),
+        lambda: (dr @ wd.T, x.T @ post, post.T @ dr), 4.0 * t * h * (c_in + c_out), moved, err)
+    return rows
+
+
+def kernels_transcoder(cd, tag: str) -> dict:
+    def coeffs(gen):
+        return (torch.tensor([2.0 / (TC_T * TC_COUT), LAMBDA / (TC_T * TC_H)], device=DEVICE),)
+
+    return _kernels_coder(fused_transcoder, tag, cd, TC_T, TC_CIN, TC_COUT, TC_H, coeffs)
+
+
+def kernels_crosscoder(cd, tag: str) -> dict:
+    csum = sum(CC_DIMS)
+
+    def coeffs(gen):
+        # the L1 cotangent n_j·λ/(T·H), with decoder-norm weights n_j around 1
+        n_j = 0.5 + torch.rand(CC_H, device=DEVICE, generator=gen)
+        return (torch.tensor([2.0 / (CC_T * csum)], device=DEVICE),
+                n_j * (LAMBDA / (CC_T * CC_H)))
+
+    return _kernels_coder(fused_crosscoder, tag, cd, CC_T, csum, csum, CC_H, coeffs)
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version in f32 and bf16; returns the bf16
     (main path) rows."""
@@ -460,7 +567,7 @@ def phase_kernels() -> dict:
     rows = {}
     for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for fn in (kernels_relu, kernels_relu_dx, kernels_gated, kernels_jumprelu,
-                   kernels_matryoshka):
+                   kernels_matryoshka, kernels_transcoder, kernels_crosscoder):
             with torch.no_grad():
                 r = fn(cd, tag)
             torch.cuda.empty_cache()  # the plain versions' [T, H] temporaries
@@ -586,25 +693,67 @@ def phase_parity() -> None:
                                                          compute_dtype=f32, compute_dx=True),
                lambda xx: sae_inference_and_loss("sae_mlp", params, xx, LAMBDA))
 
+    # the transcoder at its real widths, 1,024 latents; the target y is random
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    params = init_transcoder(gen, TC_CIN, 4, TC_COUT)
+    x, params["W_enc"], _ = _exact_inputs(gen, 512, params["W_enc"])
+    params["b_enc"] = _odd_grid(gen, 4 * TC_CIN, 100)
+    params["b_dec"] = 0.1 * torch.randn(TC_COUT, device=DEVICE, generator=gen)
+    y = torch.randn(512, TC_COUT, device=DEVICE, generator=gen)
+    _parity("transcoder", params,
+            lambda p: fused_transcoder.fused_transcoder_loss_terms(p, x, y, LAMBDA, 4,
+                                                                   compute_dtype=f32),
+            lambda p: transcoder_inference_and_loss(p, x, y, LAMBDA), base)
+
+    # the crosscoder with ΣC = 176, not a multiple of the kernels' 32- and
+    # 128-channel chunks, and 640 latents; the loss's decoder-norm weights n_j
+    # carry gradient into every W_dec_i
+    dims = (40, 64, 72)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    params = init_crosscoder(gen, dims, 16)
+    xs = []
+    for i, d in enumerate(dims):
+        xi, params[f"W_enc_{i}"], _ = _exact_inputs(gen, 512, params[f"W_enc_{i}"])
+        params[f"b_dec_{i}"] = 0.1 * torch.randn(d, device=DEVICE, generator=gen)
+        xs.append(xi)
+    params["b_enc"] = _odd_grid(gen, 16 * dims[0], 100)
+    xs = tuple(xs)
+    _parity("crosscoder", params,
+            lambda p: fused_crosscoder.fused_crosscoder_loss_terms(p, xs, LAMBDA, 16,
+                                                                   compute_dtype=f32),
+            lambda p: crosscoder_inference_and_loss(p, xs, LAMBDA), base)
+
 
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
 
 # sae_model_name -> (config fields beyond the shared ones, steps whose perc_dead
-# reads a freshly restarted accumulator). JumpReLU takes the "scaled" STE rule,
-# bandwidth ≈ the activations' std and θ0 = std/2 (docs/CONVERGENCE.md:39), at
-# the std of this run's stand-in activations, ~0.05 (random backbone, synthetic
-# images); θ0 = 0.5 would sit ~7 std above every pre-activation and no latent
-# would ever fire.
+# reads a freshly restarted accumulator, train images: None for the 512 of the
+# synthetic stand-in). JumpReLU takes the "scaled" STE rule, bandwidth ≈ the
+# activations' std and θ0 = std/2 (docs/CONVERGENCE.md:39), at the std of this
+# run's stand-in activations, ~0.05 (random backbone, synthetic images); θ0 = 0.5
+# would sit ~7 std above every pre-activation and no latent would ever fire.
 SLICES = {
     # resets at 4 and 12, the resample at 9
-    "sae_mlp": (dict(sae_lambda_sparse=LAMBDA), (4, 9, 12)),
-    "gated_sae": (dict(sae_lambda_sparse=LAMBDA), (4, 8, 12)),  # the rolling window
+    "sae_mlp": (dict(sae_lambda_sparse=LAMBDA), (4, 9, 12), None),
+    "gated_sae": (dict(sae_lambda_sparse=LAMBDA), (4, 8, 12), None),  # the rolling window
     "jumprelu_sae": (dict(sae_lambda_sparse=LAMBDA_J, jumprelu_bandwidth=0.05,
-                          jumprelu_threshold_init=0.025), (4, 8, 12)),
+                          jumprelu_threshold_init=0.025), (4, 8, 12), None),
     # λ = 5 and the default prefixes 1/16, 1/4, 1 (docs/CONVERGENCE.md:66)
-    "matryoshka_sae": (dict(sae_lambda_sparse=LAMBDA), (4, 8, 12)),
+    "matryoshka_sae": (dict(sae_lambda_sparse=LAMBDA), (4, 8, 12), None),
+    # bench_transcoder.py:3-5: mixed3a (256) -> mixed3b (480), 16,384 latents
+    "transcoder": (dict(sae_lambda_sparse=LAMBDA, transcoder_target_layer="mixed3b"),
+                   (4, 9, 12), None),
+    # bench_crosscoder.py:3-6: mixed4a..mixed4e (ΣC = 2,896), 8,192 latents, Adam,
+    # 16,384 tokens a step; 12 steps need 1,004 images of 196 tokens. λ scaled to
+    # the stand-in activations: their summed MSE at init is ~3.6e-5, so at λ = 5
+    # the L1 term is ~90x it, and at λ = 5 or 0.1 over 98% of the latents die
+    # within four steps (PERF.md §4)
+    "crosscoder": (dict(sae_lambda_sparse=LAMBDA_C, sae_layer="mixed4a",
+                        crosscoder_layers="mixed4b,mixed4c,mixed4d,mixed4e",
+                        sae_expansion_factor=16, sae_optimizer_name="adam",
+                        cache_tokens_per_step=16384), (4, 9, 12), 1024),
 }
 
 
@@ -615,16 +764,25 @@ def phase_slice(name: str, profile: bool = False) -> dict:
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
     shutil.rmtree(WORK, ignore_errors=True)
-    fields, restarts = SLICES[name]
-    cfg = RunConfig(
-        model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
-        sae_model_name=name, sae_expansion_factor=64, sae_optimizer_name="constrained_adam",
-        sae_learning_rate=1e-3, sae_batch_size=256, use_activation_cache=True,
-        cache_tokens_per_step=32768, cache_dtype="bfloat16", sae_epochs=1,
-        dead_neurons_steps=4, directory_path=str(WORK), **fields,
-    )
+    fields, restarts, n_train = SLICES[name]
+    cfg = RunConfig(**{
+        **dict(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
+               sae_model_name=name, sae_expansion_factor=64,
+               sae_optimizer_name="constrained_adam", sae_learning_rate=1e-3,
+               sae_batch_size=256, use_activation_cache=True, cache_tokens_per_step=32768,
+               cache_dtype="bfloat16", sae_epochs=1, dead_neurons_steps=4,
+               directory_path=str(WORK)),
+        **fields})
+    datasets = None
+    if n_train is not None:  # the synthetic stand-in of load_data, with more train images
+        size = (229, 229, 3)
+        train = make_synthetic(num_samples=n_train, seed=cfg.seed, img_size=size,
+                               num_classes=1000)
+        val = make_synthetic(num_samples=256, seed=cfg.seed + 1, img_size=size,
+                             num_classes=1000)
+        datasets = (train, val, train.category_names, size)
     t0 = time.perf_counter()
-    pipe = Pipeline(cfg)
+    pipe = Pipeline(cfg, datasets=datasets)
     log(f"[slice {name}] pipeline built in {time.perf_counter() - t0:.1f} s "
         f"(train {len(pipe.train_ds)} / val {len(pipe.val_ds)} images, "
         f"{pipe.num_units} latents)")
@@ -637,13 +795,13 @@ def phase_slice(name: str, profile: bool = False) -> dict:
         from torch.profiler import profile as trace
 
         with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pipe.train_sae_cached()
+            pipe.train_sae()
         log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     else:
-        pipe.train_sae_cached()
+        pipe.train_sae()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
-    log(f"[slice {name}] train_sae_cached (dump, 12 steps, 2 evals) in {wall:.1f} s; "
+    log(f"[slice {name}] train_sae (dump, 12 steps, 2 evals) in {wall:.1f} s; "
         f"launches {launches}")
 
     steps = [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]
@@ -687,6 +845,12 @@ def phase_slice(name: str, profile: bool = False) -> dict:
         log(f"[slice {name}] {k}: {moved} of {v.numel()} entries moved")
         if k == "log_threshold" and moved == 0:
             raise AssertionError(f"{name}: no threshold moved: the STE path did not train")
+    if name == "crosscoder":
+        with open(pipe.decoder_norms_path) as f:
+            rows = sum(1 for _ in f) - 1
+        log(f"[slice {name}] decoder-norm CSV {pipe.decoder_norms_path}: {rows} rows")
+        if rows != pipe.num_units:
+            raise AssertionError(f"{name}: decoder-norm CSV has {rows} rows, not one per latent")
     del pipe
     torch.cuda.empty_cache()
     shutil.rmtree(WORK, ignore_errors=True)

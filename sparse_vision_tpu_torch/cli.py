@@ -3,8 +3,8 @@
     python -m sparse_vision_tpu_torch.cli --run_pipeline --config '<RunConfig json>' [--device cpu]
 
 Without ``--device`` the run goes to CUDA and fails when no GPU is present. A
-training config runs ``Pipeline.train_sae_cached``; ``training: false`` runs one
-modified-model eval. The final eval means print as one JSON line.
+training config runs ``Pipeline.train_sae`` (an SAE variant, a transcoder or a
+crosscoder); ``training: false`` runs one modified-model eval. The final eval means print as one JSON line.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def main(argv=None) -> dict:
 
     cfg = RunConfig.from_json(args.config)
     pipe = Pipeline(cfg, device=args.device)
-    means = pipe.train_sae_cached() if cfg.training else pipe.eval_modified(epoch=0)
+    means = pipe.train_sae() if cfg.training else pipe.eval_modified(epoch=0)
     print(json.dumps(means, sort_keys=True))
     return means
 

@@ -77,6 +77,12 @@ class RunConfig:
     def matryoshka_prefix_fractions(self) -> tuple:
         return tuple(float(f) for f in self.sae_matryoshka_prefixes.split(",") if f)
 
+    @property
+    def crosscoder_layer_list(self) -> tuple:
+        """The additional crosscoder layers (sae_layer is the anchor and is not
+        repeated here)."""
+        return tuple(s.strip() for s in self.crosscoder_layers.split(",") if s.strip())
+
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
         d["mesh_shape"] = list(self.mesh_shape)

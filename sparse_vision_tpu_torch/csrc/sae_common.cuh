@@ -1,6 +1,7 @@
-// Helpers shared by the fused SAE kernels (fused_sae.cu, fused_gated_sae.cu,
-// fused_jumprelu_sae.cu): the operand-type conversions, the rounding to the
-// compute dtype, and the launch and type/width dispatch of the C entry points.
+// Helpers shared by the fused kernels (fused_sae.cu, fused_gated_sae.cu,
+// fused_jumprelu_sae.cu, fused_transcoder.cu): the operand-type conversions, the
+// rounding to the compute dtype, and the launch and type/width dispatch of the C
+// entry points.
 #pragma once
 
 #include <cuda_bf16.h>

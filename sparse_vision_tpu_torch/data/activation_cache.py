@@ -1,6 +1,7 @@
 """Activation cache: dump a frozen backbone's tapped activations once, then train
-SAEs from the cached token shards (port of sparse_vision_tpu/data/activation_cache.py,
-single-layer dump and the host-side reader).
+SAEs from the cached token shards (port of sparse_vision_tpu/data/activation_cache.py:
+the sequential one- and multi-layer dumps and the host-side reader; the
+overlapped dump is not ported).
 
 Format, byte-compatible with the JAX package in both directions: a directory of
 fixed-size token shards ``acts_00000.npy`` ([tokens, C]) + ``meta.json``. bfloat16
@@ -138,27 +139,49 @@ class _ShardWriter:
         return meta
 
 
-@torch.no_grad()
 def dump_activations(net, params: dict, state: Optional[dict], dataset, layer: str,
                      out_dir: str, batch_size: int = 64, shard_tokens: int = 1 << 16,
                      dtype: str = "float32", device=None) -> dict:
     """Run the frozen backbone over ``dataset`` on ``device`` (default CUDA), flatten
     the tapped layer to tokens ([B, H, W, C] -> [B*H*W, C]) and write fixed-size
     shards. ``dtype``: "float32", "bfloat16" (cast on the device) or "int8"
-    (bf16 to the host, quantized per shard at flush). Returns the meta dict."""
+    (bf16 to the host, quantized per shard at flush). Returns the meta dict: the
+    one-layer case of dump_activations_multi."""
+    return dump_activations_multi(net, params, state, dataset, [layer], {layer: out_dir},
+                                  batch_size=batch_size, shard_tokens=shard_tokens,
+                                  dtype=dtype, device=device)[layer]
+
+
+@torch.no_grad()
+def dump_activations_multi(net, params: dict, state: Optional[dict], dataset, layers: list,
+                           out_dirs: dict, batch_size: int = 64, shard_tokens: int = 1 << 16,
+                           dtype: str = "float32", device=None) -> dict:
+    """Write the caches of every layer in ``layers`` from ONE backbone pass: the
+    forward stops at the deepest requested stage and one shard writer per layer
+    shards its token stream. Each layer's shards and meta are byte-identical to a
+    dump_activations of that layer alone, so the caches are aligned: the same
+    shard geometry and token order (the paired caches of train/paired_caches.py).
+    Returns {layer: meta}."""
     from sparse_vision_tpu_torch.device import resolve_device
     from sparse_vision_tpu_torch.models.sae import tokens_from_act
 
     device = resolve_device(device)
     if dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"cache dtype must be float32, bfloat16 or int8, got {dtype!r}")
+    layers = list(dict.fromkeys(layers))
+    missing = [l for l in layers if l not in out_dirs]
+    if missing:
+        raise ValueError(f"out_dirs missing entries for layers {missing}")
+    stop = max(layers, key=net.index_of)  # one forward serves all layers
     acc_dtype = torch.float32 if dtype == "float32" else torch.bfloat16
-    writer = _ShardWriter(out_dir, shard_tokens, quantize=dtype == "int8")
+    writers = {l: _ShardWriter(out_dirs[l], shard_tokens, quantize=dtype == "int8")
+               for l in layers}
     for batch in dataset.batches(batch_size, shuffle=False):
         images = torch.from_numpy(batch.images).to(device)
-        _, taps, _ = net.apply(params, images, state=state, stop_at=layer)
-        writer.add(tokens_from_act(taps[layer])[0].to(acc_dtype).cpu())
-    return writer.finish(layer)
+        _, taps, _ = net.apply(params, images, state=state, stop_at=stop)
+        for l in layers:
+            writers[l].add(tokens_from_act(taps[l])[0].to(acc_dtype).cpu())
+    return {l: writers[l].finish(l) for l in layers}
 
 
 class ActivationCache:

@@ -1,5 +1,5 @@
 """Sparse autoencoders as functions over a parameter dict (port of the sae_mlp,
-gated_sae, jumprelu_sae and matryoshka_sae parts of
+gated_sae, jumprelu_sae, matryoshka_sae and transcoder parts of
 sparse_vision_tpu/models/sae.py).
 
 Parameter layout (math convention, not torch's transposed nn.Linear storage):
@@ -12,6 +12,8 @@ JumpReLU SAE (Rajamanoharan et al. 2024): the ReLU layout plus a per-latent
 log_threshold [h], trained through straight-through estimators.
 Matryoshka SAE (Bussmann et al. 2024): the ReLU layout; the nesting lives in
 the loss, which averages the reconstruction error of nested latent prefixes.
+Transcoder (Dunefsky et al. 2024): the ReLU layout with W_dec [h, d_out] into
+another layer's space and no input centring (b_dec is an output-space bias).
 
 Token convention: NHWC feature maps [B, H, W, C] flatten to [B*H*W, C] tokens in
 (b, h, w) order, as in the JAX package.
@@ -228,6 +230,55 @@ def matryoshka_sae_apply(params: dict, x: torch.Tensor, prefixes: tuple):
     post, _, pre = sae_mlp_apply(params, x)
     recons = [post[:, :m] @ params["W_dec"][:m] + params["b_dec"] for m in prefixes]
     return post, recons[-1], pre, recons
+
+
+# ---------------------------------------------------------------------------
+# Transcoder
+# ---------------------------------------------------------------------------
+
+def init_transcoder(generator: torch.Generator, d_in: int, expansion_factor: int,
+                    d_out: int) -> dict:
+    """sae_mlp's recipe with the decoder into ``d_out``: Kaiming encoder [d_in, h],
+    zero biases, unit-norm decoder rows [h, d_out]."""
+    h = int(d_in * expansion_factor)
+    device = generator.device
+    w_enc = kaiming_uniform(generator, (h, d_in), fan_in=d_in).T.contiguous()
+    w_dec = _unit_rows(kaiming_uniform(generator, (d_out, h), fan_in=h).T.contiguous())
+    return {
+        "W_enc": w_enc,
+        "b_enc": torch.zeros((h,), device=device),
+        "W_dec": w_dec,
+        "b_dec": torch.zeros((d_out,), device=device),
+    }
+
+
+def transcoder_apply(params: dict, x: torch.Tensor):
+    """Returns (encoded, predicted_target, pre_relu) on token input [T, d_in]."""
+    pre = x @ params["W_enc"] + params["b_enc"]
+    post = torch.relu(pre)
+    return post, post @ params["W_dec"] + params["b_dec"], pre
+
+
+def transcoder_inference_and_loss(params: dict, act_in: torch.Tensor, act_tgt: torch.Tensor,
+                                  lambda_sparse: float) -> dict:
+    """Encode the input layer's tokens, predict the target layer's, and compute
+    sae_mlp's loss terms with the target as the reference. Both taps must give
+    the same number of tokens (the same spatial dims)."""
+    tok_in, transformed = tokens_from_act(act_in)
+    tok_tgt, _ = tokens_from_act(act_tgt)
+    if tok_in.shape[0] != tok_tgt.shape[0]:
+        raise ValueError(
+            f"Transcoder taps disagree on token count: input {tuple(act_in.shape)} -> "
+            f"{tok_in.shape[0]} tokens, target {tuple(act_tgt.shape)} -> "
+            f"{tok_tgt.shape[0]} tokens (layers must share spatial dims)")
+    encoded, y_hat, pre = transcoder_apply(params, tok_in)
+    terms = losses.sae_loss_terms(encoded, y_hat, tok_tgt, lambda_sparse)
+    if transformed:
+        encoded = act_from_tokens(encoded, act_in.shape)
+        pre = act_from_tokens(pre, act_in.shape)
+        y_hat = act_from_tokens(y_hat, act_tgt.shape)
+    terms.update(encoded=encoded, encoded_pre=pre, decoded=y_hat)
+    return terms
 
 
 def init_sae(name: str, generator: torch.Generator, d: int, expansion_factor: int,

@@ -1,0 +1,175 @@
+"""Fused crosscoder training op: L-layer encode + ReLU + L-layer decode +
+per-layer MSE + decoder-norm-weighted L1 + dead-latent statistics, through the
+kernels of csrc/fused_transcoder.cu.
+
+Port of sparse_vision_tpu/ops/fused_crosscoder.py. The crosscoder reduces to one
+transcoder-shaped kernel pair by concatenation and per-column scaling:
+
+  x_cat [T, ΣC]  = concat_l x_l            W_enc_cat [ΣC, H] = concat rows
+  recon_cat      = z·W_dec_cat·s + b_dec_cat·s,  y = x_cat·s
+  s_c            = sqrt(ΣC / C_l)  for column c in layer l
+
+so the plain concatenated mean mean_{T,ΣC}((s·err)²) is exactly the summed
+per-layer MSE Σ_l mean_{T,C_l}(err²). The concat and the scale stay outside the
+kernels in plain torch, so autograd routes the cat-space gradients back to the
+flat per-layer parameters. ΣC need not be a multiple of anything: the kernels
+guard every channel chunk (2,896 = 16·181 for GoogLeNet mixed4a..mixed4e).
+
+Two differences from the transcoder op (ops/fused_transcoder.py), both in the
+L1 term:
+  1. the forward returns per-latent sums zsum [H] = Σ_T z_j (the kernel's
+     per-token-tile partials reduced here) as a differentiable output; the
+     decoder-norm-weighted L1, l1 = zsum·n_j/(T·H) with n_j = Σ_l ‖W_dec_l[j]‖,
+     is assembled outside, so the n_j → W_dec path is ordinary autograd;
+  2. the backward takes zsum's cotangent, a per-latent vector, where the
+     transcoder broadcasts its scalar c_l1.
+The TPU kernel also emits per-latent partials (per token tile); here they are
+per 64-token block, the same sums to f32 rounding.
+
+Dispatch rule (ops/fused_sae.run_on_device): a CPU tensor runs the plain PyTorch
+version of each kernel; a CUDA tensor launches the kernel or raises.
+
+Cast points as ops/fused_transcoder.py, with c_rec = 2·g_rec/(T·ΣC). JAX's type
+promotion is kept: a bf16 x_cat times the f32 scale gives an f32 target.
+
+Differentiability contract: gradients flow through ``rec_loss`` and ``zsum``
+into the parameters only; the inputs are data.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sparse_vision_tpu_torch.models.crosscoder import crosscoder_num_layers
+from sparse_vision_tpu_torch.ops import losses
+from sparse_vision_tpu_torch.ops.fused_sae import (
+    _F32,
+    _BF16,
+    Kernel,
+    _expect,
+    compute_dtype_of,
+    run_on_device,
+)
+from sparse_vision_tpu_torch.ops.fused_transcoder import (
+    can_fuse,  # the shared kernels' (T, H) constraints, for callers
+    coder_backward_launch,
+    coder_backward_plain,
+    coder_forward_launch,
+    coder_forward_plain,
+)
+
+__all__ = ["can_fuse", "fused_crosscoder_loss_terms", "FusedCrosscoderFunction"]
+
+
+def fused_crosscoder_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
+    """Plain forward in the cat space: (recon, act_count, row_active, zsum [H])."""
+    return coder_forward_plain(x, w_enc, b_enc, w_dec, b_dec)
+
+
+def fused_crosscoder_backward_plain(x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum):
+    """Plain backward in the cat space; ``coeffs`` = (c_rec,), ``ct_zsum`` [H] the
+    per-latent L1 cotangent."""
+    return coder_backward_plain(x, w_enc, b_enc, w_dec, err, coeffs[0], ct_zsum)
+
+
+class _ForwardKernel(Kernel):
+    """csrc coder_fwd_kernel for the crosscoder."""
+
+    name = "fused_crosscoder_fwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
+        return coder_forward_launch(self, x, w_enc, b_enc, w_dec, b_dec)
+
+
+class _BackwardKernel(Kernel):
+    """csrc coder_bwd_kernel for the crosscoder: the per-latent L1 cotangent."""
+
+    name = "fused_crosscoder_bwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum):
+        _expect("coeffs", coeffs, (1,), _F32, x.device)
+        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum)
+
+
+fwd_kernel = _ForwardKernel()
+bwd_kernel = _BackwardKernel()
+KERNELS = (fwd_kernel, bwd_kernel)
+
+
+def fused_crosscoder_forward(*args):
+    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(fwd_kernel, fused_crosscoder_forward_plain, *args)
+
+
+def fused_crosscoder_backward(*args):
+    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(bwd_kernel, fused_crosscoder_backward_plain, *args)
+
+
+class FusedCrosscoderFunction(torch.autograd.Function):
+    """Cat-space (x, W_enc, b_enc, W_dec, b_dec, y) -> (rec_loss, zsum, recon,
+    act_count, row_active), the counterpart of the JAX op's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, y, compute_dtype):
+        cd = compute_dtype
+        xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
+        b_enc = b_enc.contiguous()
+        recon, act_count, row_active, zsum = fused_crosscoder_forward(
+            xc, we, b_enc, wd, b_dec.contiguous())
+        err = recon - y
+        ctx.save_for_backward(xc, we, b_enc, wd, err.to(cd))
+        ctx.mark_non_differentiable(recon, act_count, row_active)
+        return err.square().mean(), zsum, recon, act_count, row_active
+
+    @staticmethod
+    def backward(ctx, g_rec, g_zsum, *_unused):
+        xc, we, b_enc, wd, err = ctx.saved_tensors
+        t, c = xc.shape
+        h = b_enc.shape[0]
+        g_rec = torch.zeros((), dtype=_F32, device=xc.device) if g_rec is None else g_rec.float()
+        ct_zsum = (torch.zeros((h,), dtype=_F32, device=xc.device) if g_zsum is None
+                   else g_zsum.float().contiguous())
+        coeffs = (g_rec * 2.0 / (t * c)).reshape(1)  # a device tensor: no host sync
+        dw_enc, db_enc, dw_dec, db_dec = fused_crosscoder_backward(
+            xc, we, b_enc, wd, err, coeffs, ct_zsum)
+        return None, dw_enc, db_enc, dw_dec, db_dec, None, None
+
+
+def fused_crosscoder_loss_terms(params: dict, xs: tuple, lambda_sparse: float,
+                                expansion_factor: int, *, compute_dtype=_BF16) -> dict:
+    """Fused equivalent of crosscoder_inference_and_loss + measure_inactive_units
+    on per-layer 2-D token inputs (the module docstring has the concat/scale
+    reduction). NRMSE/RMSE are reported on the anchor layer, unscaled."""
+    n_layers = crosscoder_num_layers(params)
+    if len(xs) != n_layers:
+        raise ValueError(f"crosscoder with {n_layers} layers got {len(xs)} inputs")
+    dims = tuple(int(x.shape[1]) for x in xs)
+    csum = sum(dims)
+    h = params["b_enc"].shape[0]
+    t = xs[0].shape[0]
+    dev = xs[0].device
+    s = torch.cat([torch.full((d,), (csum / d) ** 0.5, dtype=_F32, device=dev) for d in dims])
+    w_enc = torch.cat([params[f"W_enc_{i}"] for i in range(n_layers)], 0)
+    w_dec = torch.cat([params[f"W_dec_{i}"] for i in range(n_layers)], 1) * s[None, :]
+    b_dec = torch.cat([params[f"b_dec_{i}"] for i in range(n_layers)]) * s
+    x_cat = torch.cat(xs, 1)
+    rec_loss, zsum, recon, act_count, row_active = FusedCrosscoderFunction.apply(
+        x_cat, w_enc, params["b_enc"], w_dec, b_dec, x_cat * s[None, :],
+        compute_dtype_of(compute_dtype))
+    # the decoder-norm-weighted L1 from the differentiable per-latent sums: the
+    # zsum cotangent drives the kernel backward, n_j reaches W_dec by autograd
+    n_j = sum(torch.linalg.vector_norm(params[f"W_dec_{i}"], dim=1) for i in range(n_layers))
+    l1 = zsum @ n_j / (t * h)
+    rmse, nrmse = losses.rmse_nrmse(recon[:, : dims[0]] / s[0], xs[0])
+    return {
+        "loss": rec_loss + lambda_sparse * l1,
+        "rec_loss": rec_loss,
+        "l1_loss": l1,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": torch.zeros((), dtype=_F32, device=dev),
+        "dead": act_count == 0,
+        "activity_freq": act_count / t,
+        "sparsity": torch.mean(row_active / (h / expansion_factor)),
+    }

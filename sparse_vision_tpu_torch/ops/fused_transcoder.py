@@ -1,0 +1,276 @@
+"""Fused transcoder training op: encode + ReLU + decode into another layer's space
++ loss terms + dead-latent statistics in one forward kernel, and a recomputing
+backward kernel.
+
+Port of sparse_vision_tpu/ops/fused_transcoder.py. A transcoder maps x [T, C_in]
+to a prediction of y [T, C_out] (models/sae.transcoder_apply): no input centring
+(b_dec lives in the output space), a rectangular decoder W_dec [H, C_out], and
+err = recon − y, so b_dec's gradient is Σ_T drecon with no centring term. At the
+training shape (C_in 256 → C_out 480, 16,384 latents, 32,768 tokens a step) the
+latent matrix is 2 GB in f32 per pass; the kernels (csrc/fused_transcoder.cu)
+never write it: the backward recomputes pre/post from x and the saved error.
+
+The kernels are shared with the crosscoder (ops/fused_crosscoder.py): the
+forward emits per-latent sums of post (zsum) and the backward takes a
+per-latent L1 cotangent. This op's scalar Σpost is Σ_j zsum_j, and its c_l1 is
+broadcast to all latents. Summation order therefore differs from the TPU
+kernel's (which adds the whole tile's post into one scalar): per latent over a
+block's 64 tokens, then over blocks, then over latents; the same value to f32
+rounding.
+
+Dispatch rule (ops/fused_sae.run_on_device): a CPU tensor runs the plain PyTorch
+version of each kernel (the same formulas, the same cast points); a CUDA tensor
+launches the kernel or raises.
+
+Cast points (the Pallas kernels'): x, W_enc, W_dec and the saved error are cast
+to the compute dtype before the kernels; b_enc and the + b_dec on recon are
+f32; every product accumulates in f32; the saved error is recon − y in f32,
+cast to the compute dtype; c_rec = 2·g_rec/(T·C_out), c_l1 = g_l1/(T·H).
+
+Differentiability contract: gradients flow through ``rec_loss`` and ``l1_loss``
+into the four parameters only; x and y are data (their gradients are None).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sparse_vision_tpu_torch.ops import losses, native
+from sparse_vision_tpu_torch.ops.fused_sae import (
+    _F32,
+    _BF16,
+    Kernel,
+    _expect,
+    _ptrs,
+    _r,
+    compute_dtype_of,
+    run_on_device,
+)
+
+# tile sizes of csrc/fused_transcoder.cu (kFwdTT, kBwdTB, kFwdLG)
+FWD_TILE_T = 64
+BWD_TILE_T = 128
+GROUP_H = 128
+
+
+def can_fuse(t: int, h: int) -> bool:
+    """True when the CUDA kernels take T tokens and H latents (any widths). The
+    CPU plain versions take any shape."""
+    return t > 0 and h > 0 and t % BWD_TILE_T == 0 and h % GROUP_H == 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the shared kernels (CPU path; the reference the kernels are
+# held against)
+# ---------------------------------------------------------------------------
+
+def coder_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
+    """Plain version of csrc coder_fwd_kernel. ``x``, ``w_enc``, ``w_dec`` are in
+    the compute dtype. Returns (recon [T, C_out] f32, act_count [H], row_active
+    [T], zsum [H] = Σ_T post)."""
+    cd = x.dtype
+    pre = x.float() @ w_enc.float() + b_enc
+    post = torch.relu(pre)
+    recon = _r(post, cd) @ w_dec.float() + b_dec
+    active = post > 0
+    return recon, active.sum(0).float(), active.sum(1).float(), post.sum(0)
+
+
+def coder_backward_plain(x, w_enc, b_enc, w_dec, err, c_rec, ct):
+    """Plain version of csrc coder_bwd_kernel. ``err`` [T, C_out] is in the
+    compute dtype, ``c_rec`` a scalar, ``ct`` the per-latent L1 cotangent ([H] or
+    a scalar). Returns f32 (dW_enc [C_in, H], db_enc [H], dW_dec [H, C_out],
+    db_dec [C_out])."""
+    cd = x.dtype
+    xf = x.float()
+    pre = xf @ w_enc.float() + b_enc
+    post = torch.relu(pre)
+    drecon = c_rec * err.float()
+    dpost = _r(drecon, cd) @ w_dec.float().T + ct
+    dpre = torch.where(pre > 0, dpost, torch.zeros((), device=pre.device))
+    return xf.T @ _r(dpre, cd), dpre.sum(0), _r(post, cd).T @ _r(drecon, cd), drecon.sum(0)
+
+
+def fused_transcoder_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
+    """The transcoder's forward: (recon, act_count, row_active, l1_sum = Σ post)."""
+    recon, act_count, row_active, zsum = coder_forward_plain(x, w_enc, b_enc, w_dec, b_dec)
+    return recon, act_count, row_active, zsum.sum()
+
+
+def fused_transcoder_backward_plain(x, w_enc, b_enc, w_dec, err, coeffs):
+    """The transcoder's backward; ``coeffs`` = (c_rec, c_l1)."""
+    return coder_backward_plain(x, w_enc, b_enc, w_dec, err, coeffs[0], coeffs[1])
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (entry points of csrc/fused_transcoder.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = native.load("fused_transcoder")
+    lib.svt_coder_fwd.restype = _I
+    lib.svt_coder_fwd.argtypes = [_I] + [_P] * 9 + [_I] * 4 + [_P]
+    lib.svt_coder_bwd.restype = _I
+    lib.svt_coder_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+    return lib
+
+
+def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
+    """Device, dtype, shape and contiguity of the shared kernels' operands;
+    returns (t, c_in, c_out, h)."""
+    t, c_in = x.shape
+    h, c_out = w_dec.shape
+    if x.dtype not in (_F32, _BF16):
+        raise ValueError(f"fused transcoder kernel: compute dtype {x.dtype} not supported")
+    if not can_fuse(t, h):
+        raise ValueError(
+            f"fused transcoder kernel: shape T={t}, H={h} not supported (T a multiple "
+            f"of {BWD_TILE_T}, H of {GROUP_H})")
+    dev = x.device
+    _expect("x", x, (t, c_in), x.dtype, dev)
+    _expect("W_enc", w_enc, (c_in, h), x.dtype, dev)
+    _expect("b_enc", b_enc, (h,), _F32, dev)
+    _expect("W_dec", w_dec, (h, c_out), x.dtype, dev)
+    if b_dec is not None:
+        _expect("b_dec", b_dec, (c_out,), _F32, dev)
+    return t, c_in, c_out, h
+
+
+def coder_forward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, b_dec):
+    """Launch csrc coder_fwd_kernel, counted on ``kernel``; returns what
+    coder_forward_plain returns, the per-token-tile partials reduced here."""
+    t, c_in, c_out, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
+    dev = x.device
+    recon = torch.empty((t, c_out), dtype=_F32, device=dev)
+    act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+    row_active = torch.empty((t,), dtype=_F32, device=dev)
+    zsum_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+    kernel._launch(_lib().svt_coder_fwd, dev,
+                   *_ptrs(x, w_enc, b_enc, w_dec, b_dec, recon, act_part, row_active,
+                          zsum_part), t, c_in, c_out, h)
+    return recon, act_part.sum(0), row_active, zsum_part.sum(0)
+
+
+def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, ct):
+    """Launch csrc coder_bwd_kernel, counted on ``kernel``: ``coeffs[0]`` is c_rec
+    (a device tensor), ``ct`` the [H] L1 cotangent. Returns what
+    coder_backward_plain returns."""
+    t, c_in, c_out, h = _check_operands(x, w_enc, b_enc, w_dec)
+    dev = x.device
+    _expect("err", err, (t, c_out), x.dtype, dev)
+    _expect("ct", ct, (h,), _F32, dev)
+    if coeffs.dtype != _F32 or coeffs.device != dev or not coeffs.is_contiguous():
+        raise ValueError("fused transcoder kernel: coeffs must be a contiguous f32 tensor "
+                         f"on {dev}")
+    dw_enc = torch.empty((c_in, h), dtype=_F32, device=dev)
+    db_enc = torch.empty((h,), dtype=_F32, device=dev)
+    dw_dec = torch.empty((h, c_out), dtype=_F32, device=dev)
+    db_dec_part = torch.empty((2, c_out), dtype=_F32, device=dev)
+    kernel._launch(_lib().svt_coder_bwd, dev,
+                   *_ptrs(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
+                          db_dec_part), t, c_in, c_out, h)
+    return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
+
+
+class _ForwardKernel(Kernel):
+    """csrc coder_fwd_kernel for the transcoder."""
+
+    name = "fused_transcoder_fwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
+        recon, act_count, row_active, zsum = coder_forward_launch(
+            self, x, w_enc, b_enc, w_dec, b_dec)
+        return recon, act_count, row_active, zsum.sum()
+
+
+class _BackwardKernel(Kernel):
+    """csrc coder_bwd_kernel for the transcoder: c_l1 broadcast to every latent."""
+
+    name = "fused_transcoder_bwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs):
+        _expect("coeffs", coeffs, (2,), _F32, x.device)
+        ct = coeffs[1:].expand(w_dec.shape[0]).contiguous()
+        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct)
+
+
+fwd_kernel = _ForwardKernel()
+bwd_kernel = _BackwardKernel()
+KERNELS = (fwd_kernel, bwd_kernel)
+
+
+def fused_transcoder_forward(*args):
+    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(fwd_kernel, fused_transcoder_forward_plain, *args)
+
+
+def fused_transcoder_backward(*args):
+    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
+    return run_on_device(bwd_kernel, fused_transcoder_backward_plain, *args)
+
+
+class FusedTranscoderFunction(torch.autograd.Function):
+    """(x, W_enc, b_enc, W_dec, b_dec, y) -> (rec_loss, l1_loss, recon, act_count,
+    row_active), the counterpart of the JAX op's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, y, compute_dtype):
+        cd = compute_dtype
+        xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
+        b_enc = b_enc.contiguous()
+        recon, act_count, row_active, l1_sum = fused_transcoder_forward(
+            xc, we, b_enc, wd, b_dec.contiguous())
+        t = x.shape[0]
+        h = b_enc.shape[0]
+        err = recon - y  # f32: recon is f32, whatever y's dtype
+        ctx.save_for_backward(xc, we, b_enc, wd, err.to(cd))
+        ctx.mark_non_differentiable(recon, act_count, row_active)
+        return err.square().mean(), l1_sum / (t * h), recon, act_count, row_active
+
+    @staticmethod
+    def backward(ctx, g_rec, g_l1, *_unused):
+        xc, we, b_enc, wd, err = ctx.saved_tensors
+        t = xc.shape[0]
+        h, c_out = wd.shape
+        zero = torch.zeros((), dtype=_F32, device=xc.device)
+        g_rec = zero if g_rec is None else g_rec.float()
+        g_l1 = zero if g_l1 is None else g_l1.float()
+        # a device tensor, not host floats: the backward never syncs
+        coeffs = torch.stack([g_rec * 2.0 / (t * c_out), g_l1 / (t * h)])
+        dw_enc, db_enc, dw_dec, db_dec = fused_transcoder_backward(xc, we, b_enc, wd, err, coeffs)
+        return None, dw_enc, db_enc, dw_dec, db_dec, None, None
+
+
+def fused_transcoder_loss_terms(params: dict, x: torch.Tensor, y: torch.Tensor,
+                                lambda_sparse: float, expansion_factor: int, *,
+                                compute_dtype=_BF16) -> dict:
+    """Fused equivalent of transcoder_inference_and_loss + measure_inactive_units
+    on 2-D token input (x [T, C_in], y [T, C_out]): loss = rec + λ·l1, the
+    prediction, dead/sparsity statistics from the kernel, and RMSE/NRMSE of the
+    prediction against y in plain torch."""
+    cd = compute_dtype_of(compute_dtype)
+    rec_loss, l1_loss, recon, act_count, row_active = FusedTranscoderFunction.apply(
+        x, params["W_enc"], params["b_enc"], params["W_dec"], params["b_dec"], y, cd)
+    t = x.shape[0]
+    h = params["b_enc"].shape[0]
+    rmse, nrmse = losses.rmse_nrmse(recon, y)
+    return {
+        "loss": rec_loss + lambda_sparse * l1_loss,
+        "rec_loss": rec_loss,
+        "l1_loss": l1_loss,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": torch.zeros((), dtype=_F32, device=x.device),
+        "decoded": recon,
+        "dead": act_count == 0,
+        "activity_freq": act_count / t,
+        "sparsity": torch.mean(row_active / (h / expansion_factor)),
+    }

@@ -28,6 +28,7 @@ SOURCES = {
     "fused_sae": "fused_sae.cu",
     "fused_gated_sae": "fused_gated_sae.cu",
     "fused_jumprelu_sae": "fused_jumprelu_sae.cu",
+    "fused_transcoder": "fused_transcoder.cu",  # the transcoder and crosscoder kernels
 }
 
 NVCC_FLAGS = (

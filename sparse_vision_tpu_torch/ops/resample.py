@@ -1,4 +1,6 @@
-"""Dead-neuron resampling and its schedule (port of sparse_vision_tpu/ops/resample.py).
+"""Dead-neuron resampling and its schedule (port of the single-device parts of
+sparse_vision_tpu/ops/resample.py: the sae_mlp surgery, which the transcoder's
+rectangular decoder reuses, and the crosscoder's).
 
 Reference semantics (sae_mlp.py:79-184 reset_encoder_weights +
 model_pipeline.py:771-794): with n = dead_neurons_steps and i = the 1-based train
@@ -78,13 +80,62 @@ def resample_dead_neurons(params: dict, opt_state: dict, dead_mask: torch.Tensor
 
     new_params = dict(params)
     new_params.update(W_enc=new_w_enc, b_enc=new_b_enc, W_dec=new_w_dec)
+    return new_params, _zero_dead_moments(opt_state, dead_mask)
 
+
+def _zero_dead_moments(opt_state: dict, dead_mask: torch.Tensor) -> dict:
+    """Adam mu / nu of the dead latents zeroed in every encoder weight (``W_enc``,
+    ``W_enc_i``: columns), decoder weight (``W_dec``, ``W_dec_i``: rows) and
+    ``b_enc``; the step count is kept."""
     def zero_dead(m: dict) -> dict:
-        return {**m,
-                "W_enc": torch.where(dead_mask[None, :], zero, m["W_enc"]),
-                "b_enc": torch.where(dead_mask, zero, m["b_enc"]),
-                "W_dec": torch.where(dead_mask[:, None], zero, m["W_dec"])}
+        out = dict(m)
+        for k, v in m.items():
+            if k.startswith("W_enc"):
+                out[k] = torch.where(dead_mask[None, :], 0.0, v)
+            elif k.startswith("W_dec"):
+                out[k] = torch.where(dead_mask[:, None], 0.0, v)
+            elif k == "b_enc":
+                out[k] = torch.where(dead_mask, 0.0, v)
+        return out
 
-    new_state = dict(opt_state)
-    new_state.update(mu=zero_dead(opt_state["mu"]), nu=zero_dead(opt_state["nu"]))
-    return new_params, new_state
+    return {**opt_state, "mu": zero_dead(opt_state["mu"]), "nu": zero_dead(opt_state["nu"])}
+
+
+def crosscoder_kaiming_draws(generator: torch.Generator, dims: tuple, h: int) -> list:
+    """The draws of one crosscoder resample, per layer in order: encoder rows
+    [h, d_l] (fan_in d_l) and decoder columns [d_l, h] (fan_in h)."""
+    return [kaiming_draws(generator, d, h, d) for d in dims]
+
+
+def resample_dead_neurons_crosscoder(params: dict, opt_state: dict, dead_mask: torch.Tensor,
+                                     draws: list):
+    """Dead-latent surgery for the crosscoder's flat layout (models/crosscoder.py),
+    ``draws`` as crosscoder_kaiming_draws gives them. Per layer the sae_mlp
+    recipe applies to that layer's slices, with the JAX package's two
+    differences: dead decoder rows are drawn at the LIVE rows' mean norm of that
+    layer, and there is no final unit renormalization (decoder norms are free
+    parameters that carry the per-layer signal and weight the L1 term).
+    b_enc[dead] = mean(|b_enc[live]|); Adam moments of every dead slice are
+    zeroed. Returns (params, opt_state), both new dicts."""
+    live = ~dead_mask
+    any_live = live.any()  # stays on the device: no host sync
+    n_live = live.sum().clamp(min=1)
+    b_enc = params["b_enc"]
+    zero = torch.zeros((), dtype=b_enc.dtype, device=b_enc.device)
+    one = torch.ones((), dtype=b_enc.dtype, device=b_enc.device)
+
+    def live_mean(v):
+        return torch.where(live, v, zero).sum() / n_live
+
+    new_params = dict(params)
+    new_params["b_enc"] = torch.where(dead_mask, torch.where(any_live, live_mean(b_enc.abs()),
+                                                             zero), b_enc)
+    for i, (enc_draw, dec_draw) in enumerate(draws):
+        w_enc, w_dec = params[f"W_enc_{i}"], params[f"W_dec_{i}"]
+        avg_enc = torch.where(any_live, live_mean(torch.linalg.vector_norm(w_enc, dim=0)), one)
+        new_enc_t = enc_draw / torch.linalg.vector_norm(enc_draw, dim=1, keepdim=True) * avg_enc
+        new_params[f"W_enc_{i}"] = torch.where(dead_mask[None, :], new_enc_t.T, w_enc)
+        avg_dec = torch.where(any_live, live_mean(torch.linalg.vector_norm(w_dec, dim=1)), one)
+        new_dec_t = dec_draw / torch.linalg.vector_norm(dec_draw, dim=0, keepdim=True) * avg_dec
+        new_params[f"W_dec_{i}"] = torch.where(dead_mask[:, None], new_dec_t.T, w_dec)
+    return new_params, _zero_dead_moments(opt_state, dead_mask)

@@ -1,12 +1,16 @@
 """Run orchestration for the SAE training slice (port of the cached-training and
 modified-model-eval parts of sparse_vision_tpu/train/pipeline.py).
 
-``Pipeline(cfg).train_sae_cached()`` runs the north-star chain: frozen GoogLeNet
--> tap ``sae_layer`` -> activation cache -> SAE training (``sae_mlp``,
-``gated_sae``, ``jumprelu_sae`` or ``matryoshka_sae``; the variant's fused CUDA
-kernels on a GPU, their plain versions on the CPU) with dead-latent tracking
-(resampling for sae_mlp, the rolling dead window for the others) -> eval by
-splicing the SAE back into the backbone, before and after each epoch. Figures,
+``Pipeline(cfg).train_sae()`` runs the north-star chain: frozen GoogLeNet -> tap
+``sae_layer`` -> activation cache -> SAE training (``sae_mlp``, ``gated_sae``,
+``jumprelu_sae`` or ``matryoshka_sae``; the variant's fused CUDA kernels on a
+GPU, their plain versions on the CPU) with dead-latent tracking (resampling for
+sae_mlp, the rolling dead window for the others) -> eval by splicing the SAE
+back into the backbone, before and after each epoch. ``transcoder`` (from
+``sae_layer`` to ``transcoder_target_layer``) and ``crosscoder`` (``sae_layer``
+plus ``crosscoder_layers``) train the same way from aligned caches of every
+layer they read, dumped in one backbone pass (train/transcoder.py,
+train/crosscoder.py). Figures,
 top-k files, the results CSV, checkpoints and weight export are not ported yet;
 a config that asks for anything outside the slice raises NotImplementedError
 naming the field.
@@ -30,7 +34,8 @@ from sparse_vision_tpu_torch.models.backbone import (
     layer_dimensions,
     make_backbone,
 )
-from sparse_vision_tpu_torch.models.sae import PORTED, init_sae
+from sparse_vision_tpu_torch.models.crosscoder import init_crosscoder
+from sparse_vision_tpu_torch.models.sae import PORTED, init_sae, init_transcoder
 from sparse_vision_tpu_torch.ops import metrics, optim
 from sparse_vision_tpu_torch.ops.losses import get_criterion
 from sparse_vision_tpu_torch.train.steps import (
@@ -46,7 +51,7 @@ from sparse_vision_tpu_torch.train.steps import (
 _SLICE = {
     "model_name": ("inceptionv1", "googlenet"),
     "dataset_name": ("imagenet",),
-    "sae_model_name": PORTED,
+    "sae_model_name": PORTED + ("transcoder", "crosscoder"),
     "sae_optimizer_name": ("constrained_adam", "adam"),
     "cache_dtype": ("float32", "bfloat16", "int8"),
     "compute_dtype": ("bfloat16", "float32"),
@@ -63,8 +68,6 @@ _SLICE = {
     "sae_weights_path": ("",),
     "wandb_status": (False,),
     "imagenet_class_filter": ("",),
-    "transcoder_target_layer": ("",),
-    "crosscoder_layers": ("",),
     "profile_dir": ("",),
 }
 
@@ -80,6 +83,11 @@ def validate_slice(cfg: RunConfig) -> None:
     if cfg.training and not cfg.use_activation_cache:
         raise NotImplementedError(
             "RunConfig.use_activation_cache=False: only cached SAE training is ported")
+    for field, model in (("transcoder_target_layer", "transcoder"),
+                         ("crosscoder_layers", "crosscoder")):
+        if getattr(cfg, field) and cfg.sae_model_name != model:
+            raise NotImplementedError(
+                f"RunConfig.{field}={getattr(cfg, field)!r} needs sae_model_name={model!r}")
 
 
 class Pipeline:
@@ -109,11 +117,38 @@ class Pipeline:
         self.frozen_params, self.net_state = _to_device(backbone, self.device)
         self.sae_input_size = get_sae_input_size(self.net, cfg.dataset_name, cfg.sae_layer)
         self.num_units = int(self.sae_input_size * cfg.sae_expansion_factor)
-        if sae_params is None:
-            sae_params = init_sae(cfg.sae_model_name, gen, self.sae_input_size,
-                                  cfg.sae_expansion_factor,
-                                  jumprelu_threshold_init=cfg.jumprelu_threshold_init)
-        self.sae_params = _to_device(sae_params, self.device)
+        name = cfg.sae_model_name
+        if name == "transcoder":
+            if not cfg.transcoder_target_layer:
+                raise ValueError("sae_model_name='transcoder' needs transcoder_target_layer")
+            self.transcoder_out_size = get_sae_input_size(
+                self.net, cfg.dataset_name, cfg.transcoder_target_layer)
+
+            def init():
+                return init_transcoder(gen, self.sae_input_size, cfg.sae_expansion_factor,
+                                       self.transcoder_out_size)
+        elif name == "crosscoder":
+            if not cfg.crosscoder_layer_list:
+                raise ValueError("sae_model_name='crosscoder' needs crosscoder_layers "
+                                 "(additional layers beyond sae_layer)")
+            layers = (cfg.sae_layer, *cfg.crosscoder_layer_list)
+            order = [self.net.index_of(l) for l in layers]
+            if order != sorted(order) or len(set(layers)) != len(layers):
+                raise ValueError(
+                    f"crosscoder layers must be distinct and in network depth order with "
+                    f"sae_layer shallowest (got {layers}; stage order: "
+                    f"{self.net.stage_names})")
+            self.crosscoder_all_layers = layers
+            self.crosscoder_dims = tuple(
+                get_sae_input_size(self.net, cfg.dataset_name, l) for l in layers)
+
+            def init():
+                return init_crosscoder(gen, self.crosscoder_dims, cfg.sae_expansion_factor)
+        else:
+            def init():
+                return init_sae(name, gen, self.sae_input_size, cfg.sae_expansion_factor,
+                                jumprelu_threshold_init=cfg.jumprelu_threshold_init)
+        self.sae_params = _to_device(init() if sae_params is None else sae_params, self.device)
         self.tx = optim.get_optimizer(cfg.sae_optimizer_name, cfg.sae_learning_rate)
         self.ts = init_sae_train_state(self.sae_params, self.tx, self.num_units, seed=cfg.seed)
         self.train_log: list = []  # (step, metrics of that step)
@@ -145,6 +180,59 @@ class Pipeline:
             print(f"[train step {step}] "
                   + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(m.items())))
 
+    def train_sae(self):
+        """Train the configured dictionary from activation caches: the SAE
+        variants here, the transcoder and the crosscoder in their modules.
+        Returns the last eval's means."""
+        name = self.cfg.sae_model_name
+        if name == "transcoder":
+            from sparse_vision_tpu_torch.train.transcoder import train_transcoder_cached
+
+            return train_transcoder_cached(self)
+        if name == "crosscoder":
+            from sparse_vision_tpu_torch.train.crosscoder import train_crosscoder_cached
+
+            return train_crosscoder_cached(self)
+        return self.train_sae_cached()
+
+    def check_fusable(self, can_fuse) -> bool:
+        """Whether the step takes the fused op (``cfg.use_pallas``). On the card a
+        shape that the kernels' ``can_fuse(t, h)`` refuses raises: there is no
+        quiet fallback to the stock step."""
+        cfg = self.cfg
+        tps = cfg.cache_tokens_per_step
+        if cfg.use_pallas and self.device.type == "cuda" and not can_fuse(tps, self.num_units):
+            raise ValueError(
+                f"the fused {cfg.sae_model_name} kernels do not take T={tps}, "
+                f"H={self.num_units}, C={self.sae_input_size} (their can_fuse); set "
+                "use_pallas=False for the stock step")
+        return cfg.use_pallas
+
+    def run_epochs(self, multi_fn, epoch_stacks) -> dict:
+        """Eval, then per epoch: ``multi_fn(ts, *stacks)`` over every tuple of
+        [k, T, C] stacks that ``epoch_stacks(epoch)`` yields (one stack per cache),
+        then eval. Logs every step and the epoch's timing; returns the last
+        eval's means."""
+        cfg = self.cfg
+        last_eval = self.eval_modified(epoch=0)
+        for epoch in range(cfg.sae_epochs):
+            t0 = time.perf_counter()
+            steps0 = self.ts.step
+            for stacks in epoch_stacks(epoch):
+                stacks = tuple(s.to(self.device, non_blocking=True) for s in stacks)
+                step0 = self.ts.step
+                self.ts, ms = multi_fn(self.ts, *stacks)
+                for j in range(stacks[0].shape[0]):
+                    self._log_train(step0 + j + 1, {k: v[j] for k, v in ms.items()})
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            steps = self.ts.step - steps0
+            self.train_timing.append({"epoch": epoch, "steps": steps,
+                                      "tokens": steps * cfg.cache_tokens_per_step,
+                                      "seconds": time.perf_counter() - t0})
+            last_eval = self.eval_modified(epoch=epoch + 1)
+        return last_eval
+
     def train_sae_cached(self):
         from sparse_vision_tpu_torch.data.activation_cache import (
             ActivationCache,
@@ -152,8 +240,6 @@ class Pipeline:
         )
 
         cfg = self.cfg
-        scan_k = self.CACHE_SCAN_K
-        tps = cfg.cache_tokens_per_step
         cache_dir = self._cache_dir(cfg.sae_layer)
         if not os.path.exists(os.path.join(cache_dir, "meta.json")):
             print(f"Building activation cache at {cache_dir} ...")
@@ -162,16 +248,10 @@ class Pipeline:
                              **self._cache_dump_kwargs())
         cache = ActivationCache(cache_dir)
 
-        fused = cfg.use_pallas
         prefixes = cfg.matryoshka_prefix_fractions
         can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
-        if fused and self.device.type == "cuda" and not can_fuse(
-                tps, self.num_units, self.sae_input_size):
-            # no quiet fallback to the stock step on the card
-            raise ValueError(
-                f"the fused {cfg.sae_model_name} kernels do not take T={tps}, "
-                f"H={self.num_units}, C={self.sae_input_size} (their can_fuse); set "
-                "use_pallas=False for the stock step")
+        fused = self.check_fusable(
+            lambda t, h: can_fuse(t, h, self.sae_input_size))
         fused_opts = {"compute_dtype": cfg.compute_dtype}
         if cfg.sae_model_name == "jumprelu_sae":
             fused_opts["bandwidth"] = cfg.jumprelu_bandwidth
@@ -179,31 +259,31 @@ class Pipeline:
             cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
             cfg.sae_expansion_factor, fused=fused, fused_opts=fused_opts,
             jumprelu_bandwidth=cfg.jumprelu_bandwidth, matryoshka_prefixes=prefixes)
-        multi_fn = make_sae_train_multi_step(step_fn)
-
-        last_eval = self.eval_modified(epoch=0)
-        for epoch in range(cfg.sae_epochs):
-            t0 = time.perf_counter()
-            steps0 = self.ts.step
-            for stack in cache.stacks(tps, scan_k, shuffle=True, seed=cfg.seed + epoch):
-                stack = stack.to(self.device, non_blocking=True)
-                step0 = self.ts.step
-                self.ts, ms = multi_fn(self.ts, stack)
-                for j in range(stack.shape[0]):
-                    self._log_train(step0 + j + 1, {k: v[j] for k, v in ms.items()})
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            steps = self.ts.step - steps0
-            self.train_timing.append({"epoch": epoch, "steps": steps, "tokens": steps * tps,
-                                      "seconds": time.perf_counter() - t0})
-            last_eval = self.eval_modified(epoch=epoch + 1)
-        return last_eval
+        return self.run_epochs(
+            make_sae_train_multi_step(step_fn),
+            lambda epoch: ((s,) for s in cache.stacks(
+                cfg.cache_tokens_per_step, self.CACHE_SCAN_K, shuffle=True,
+                seed=cfg.seed + epoch)))
 
     # ------------------------------------------------------------------
     @property
     def _sae_eval_step_fn(self):
         if not hasattr(self, "_sae_eval_step_cache"):
             cfg = self.cfg
+            if cfg.sae_model_name == "transcoder":
+                from sparse_vision_tpu_torch.train.transcoder import make_transcoder_eval_step
+
+                self._sae_eval_step_cache = make_transcoder_eval_step(
+                    self.net, cfg.sae_layer, cfg.transcoder_target_layer,
+                    cfg.sae_lambda_sparse, cfg.sae_expansion_factor, self.criterion)
+                return self._sae_eval_step_cache
+            if cfg.sae_model_name == "crosscoder":
+                from sparse_vision_tpu_torch.train.crosscoder import make_crosscoder_eval_step
+
+                self._sae_eval_step_cache = make_crosscoder_eval_step(
+                    self.net, self.crosscoder_all_layers, cfg.sae_lambda_sparse,
+                    cfg.sae_expansion_factor, self.criterion)
+                return self._sae_eval_step_cache
             self._sae_eval_step_cache = make_sae_eval_step(
                 self.net, cfg.sae_layer, cfg.sae_model_name, cfg.sae_lambda_sparse,
                 cfg.sae_expansion_factor, self.criterion,

@@ -7,7 +7,9 @@ autograd (through the fused op's autograd.Function when ``fused``), the
 ConstrainedAdam or Adam update, the dead-latent accumulator, and either the
 scheduled resample/reset (sae_mlp) or the rolling dead window (the variants
 that do not resample). The step counter is a host integer, so the schedule
-needs no device sync.
+needs no device sync. The transcoder and crosscoder steps (train/transcoder.py,
+train/crosscoder.py) share this update skeleton (make_train_step) and the eval
+metrics (eval_metrics).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ class SAETrainState(NamedTuple):
 
 def init_sae_train_state(sae_params: dict, tx: optim.Optimizer, hidden: int,
                          seed: int = 0) -> SAETrainState:
-    device = sae_params["W_dec"].device
+    device = next(iter(sae_params.values())).device
     return SAETrainState(
         params=sae_params,
         opt_state=tx.init(sae_params),
@@ -100,18 +102,12 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
     matryoshka_sae's prefix fractions, on both paths.
 
     The returned ``step_fn(ts, act, resample_draws=None) -> (ts, metrics)``
-    resamples (sae_mlp only) with Kaiming draws from ``ts.rng`` unless
-    ``resample_draws`` = (enc [h, d], dec [d, h]) is given (tests inject the JAX
-    package's draws). The variants that do not resample use the rolling dead
-    window instead: the accumulator restarts all-True every
-    ``dead_neurons_steps`` steps.
-
-    Reproduced quirk: ``perc_dead`` is read AFTER the reset/resample branch, so at
-    a measurement boundary it reports the freshly reset all-True accumulator
-    (100% dead), exactly as the JAX step does (ROADMAP queue C)."""
+    (make_train_step) resamples (sae_mlp only) with Kaiming draws from ``ts.rng``
+    unless ``resample_draws`` = (enc [h, d], dec [d, h]) is given (tests inject
+    the JAX package's draws). The variants that do not resample use the rolling
+    dead window instead."""
     if sae_model_name not in PORTED:
         raise NotImplementedError(f"SAE {sae_model_name!r} is not ported {PORTED}")
-    can_resample = sae_model_name == "sae_mlp"
     if fused:
         _, fused_loss_terms = fused_op(sae_model_name, matryoshka_prefixes)
 
@@ -124,10 +120,41 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                                           jumprelu_bandwidth=jumprelu_bandwidth,
                                           matryoshka_prefixes=matryoshka_prefixes)
 
-    def step_fn(ts: SAETrainState, act: torch.Tensor, resample_draws=None):
+    return make_train_step(loss_fn, tx, dead_neurons_steps, expansion_factor, fused,
+                           resample_sae if sae_model_name == "sae_mlp" else None)
+
+
+def resample_sae(params: dict, opt_state: dict, dead: torch.Tensor, rng: torch.Generator,
+                 draws=None):
+    """resample_dead_neurons with Kaiming draws from ``rng`` unless ``draws`` =
+    (enc [h, d], dec [d_out, h]) is given; d_out is W_dec's width, so the
+    transcoder's rectangular decoder takes the same surgery."""
+    if draws is None:
+        d, h = params["W_enc"].shape
+        draws = kaiming_draws(rng, d, h, params["W_dec"].shape[1])
+    return resample_dead_neurons(params, opt_state, dead, *draws)
+
+
+def make_train_step(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
+                    expansion_factor: int, fused: bool, resample=None):
+    """The update skeleton shared by the SAE, transcoder and crosscoder steps:
+    ``step_fn(ts, *acts, resample_draws=None) -> (ts, metrics)`` takes the
+    gradient of ``loss_fn(params, *acts)["loss"]``, applies the optimizer and
+    updates the dead-latent accumulator (from the fused op's ``dead`` when
+    ``fused``, else from ``encoded``). ``resample(params, opt_state, dead_acc,
+    rng, draws)`` runs on the schedule of ops/resample.should_resample, with
+    measurement resets between; with ``resample=None`` the accumulator is the
+    rolling window instead, restarting all-True every ``dead_neurons_steps``
+    steps.
+
+    Reproduced quirk: ``perc_dead`` is read AFTER the reset/resample branch, so at
+    a measurement boundary it reports the freshly reset all-True accumulator
+    (100% dead), exactly as the JAX step does (ROADMAP queue C)."""
+
+    def step_fn(ts: SAETrainState, *acts, resample_draws=None):
         keys = list(ts.params)
         params = {k: v.detach().requires_grad_(True) for k, v in ts.params.items()}
-        out = loss_fn(params, act)
+        out = loss_fn(params, *acts)
         loss = out["loss"]
         grads = torch.autograd.grad(loss, [params[k] for k in keys])
         with torch.no_grad():
@@ -141,16 +168,13 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                 dead, sparsity, _ = metrics.measure_inactive_units(
                     out["encoded"], expansion_factor)
             dead_acc = ts.dead_acc & dead
-            if not can_resample:
+            if resample is None:
                 # rolling dead window (the JAX step's non-resampling branch)
                 if step % dead_neurons_steps == 0:
                     dead_acc = torch.ones_like(dead_acc)
             elif should_resample(step, dead_neurons_steps):
-                if resample_draws is None:
-                    d, h = new_params["W_enc"].shape
-                    resample_draws = kaiming_draws(ts.rng, d, h, new_params["W_dec"].shape[1])
-                new_params, opt_state = resample_dead_neurons(
-                    new_params, opt_state, dead_acc, *resample_draws)
+                new_params, opt_state = resample(new_params, opt_state, dead_acc, ts.rng,
+                                                 resample_draws)
                 dead_acc = torch.ones_like(dead_acc)
             elif should_reset_measurement(step, dead_neurons_steps):
                 dead_acc = torch.ones_like(dead_acc)
@@ -167,14 +191,15 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
 
 
 def make_sae_train_multi_step(step_fn):
-    """Run a ``(ts, act) -> (ts, metrics)`` step over a stacked [K, T, C]
-    microbatch sequence; metrics come back stacked [K]. A Python loop: the JAX
-    package's lax.scan dispatch, with CUDA graphs left for later."""
+    """Run a ``(ts, *acts) -> (ts, metrics)`` step over stacked [K, T, C]
+    microbatch sequences, one stack per step argument (the transcoder's step
+    takes two); metrics come back stacked [K]. A Python loop: the JAX package's
+    lax.scan dispatch, with CUDA graphs left for later."""
 
-    def multi(ts: SAETrainState, acts_stack: torch.Tensor):
+    def multi(ts: SAETrainState, *stacks: torch.Tensor):
         ms = []
-        for act in acts_stack:
-            ts, m = step_fn(ts, act)
+        for acts in zip(*stacks):
+            ts, m = step_fn(ts, *acts)
             ms.append(m)
         return ts, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
@@ -200,29 +225,38 @@ def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: 
                                      matryoshka_prefixes=matryoshka_prefixes)
         logits_mod = net.apply_segment(frozen_params, out["decoded"], after=sae_layer,
                                        upto=last, state=frozen_state)
-        loss_mod = criterion(logits_mod, labels)
-        loss_orig = criterion(logits_orig, labels)
-        dead, sparsity, freq = metrics.measure_inactive_units(out["encoded"], expansion_factor)
-        batch_metrics = {
-            "model_loss": loss_mod,
-            "loss_diff": loss_mod - loss_orig,
-            "accuracy": metrics.accuracy(logits_mod, labels),
-            "kld": metrics.kld_original_vs_modified(logits_orig, logits_mod),
-            "perc_same": metrics.perc_same_classification(logits_orig, logits_mod),
-            "sae_loss": out["loss"],
-            "sae_rec_loss": out["rec_loss"],
-            "sae_l1_loss": out["l1_loss"],
-            "sae_nrmse_loss": out["nrmse_loss"],
-            "sae_rmse_loss": out["rmse_loss"],
-            "sae_aux_loss": out["aux_loss"],
-            "sparsity": sparsity,
-            "var_expl": metrics.variance_explained(act, out["decoded"]),
-        }
-        arrays = {
-            "dead": dead,
-            "freq": freq,
-            "correct": (logits_mod.argmax(1) == labels).sum(),
-        }
-        return batch_metrics, arrays
+        return eval_metrics(out, act, out["decoded"], logits_orig, logits_mod, labels,
+                            criterion, expansion_factor)
 
     return step_fn
+
+
+def eval_metrics(out: dict, act: torch.Tensor, decoded: torch.Tensor, logits_orig,
+                 logits_mod, labels, criterion, expansion_factor: int):
+    """(batch_metrics, arrays) of one eval batch of a spliced dictionary, from its
+    loss terms ``out`` and the logits of the original and the modified model;
+    ``var_expl`` is that of the spliced activation ``act`` by ``decoded``."""
+    loss_mod = criterion(logits_mod, labels)
+    loss_orig = criterion(logits_orig, labels)
+    dead, sparsity, freq = metrics.measure_inactive_units(out["encoded"], expansion_factor)
+    batch_metrics = {
+        "model_loss": loss_mod,
+        "loss_diff": loss_mod - loss_orig,
+        "accuracy": metrics.accuracy(logits_mod, labels),
+        "kld": metrics.kld_original_vs_modified(logits_orig, logits_mod),
+        "perc_same": metrics.perc_same_classification(logits_orig, logits_mod),
+        "sae_loss": out["loss"],
+        "sae_rec_loss": out["rec_loss"],
+        "sae_l1_loss": out["l1_loss"],
+        "sae_nrmse_loss": out["nrmse_loss"],
+        "sae_rmse_loss": out["rmse_loss"],
+        "sae_aux_loss": out["aux_loss"],
+        "sparsity": sparsity,
+        "var_expl": metrics.variance_explained(act, decoded),
+    }
+    arrays = {
+        "dead": dead,
+        "freq": freq,
+        "correct": (logits_mod.argmax(1) == labels).sum(),
+    }
+    return batch_metrics, arrays

@@ -38,6 +38,12 @@ def test_the_walk_sees_every_module():
                  "sparse_vision_tpu_torch/ops/fused_gated_sae.py",
                  "sparse_vision_tpu_torch/ops/fused_jumprelu_sae.py",
                  "sparse_vision_tpu_torch/ops/fused_matryoshka_sae.py",
+                 "sparse_vision_tpu_torch/ops/fused_transcoder.py",
+                 "sparse_vision_tpu_torch/ops/fused_crosscoder.py",
+                 "sparse_vision_tpu_torch/models/crosscoder.py",
+                 "sparse_vision_tpu_torch/train/paired_caches.py",
+                 "sparse_vision_tpu_torch/train/transcoder.py",
+                 "sparse_vision_tpu_torch/train/crosscoder.py",
                  "sparse_vision_tpu_torch/train/pipeline.py"):
         assert must in names
 

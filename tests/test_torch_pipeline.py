@@ -12,7 +12,16 @@ JumpReLU with its STE bandwidth and initial threshold scaled to these
 activations (std ~0.05, the "scaled" rule of docs/CONVERGENCE.md:39), so the
 thresholds train; Matryoshka with prefixes 1/4, 1/2, 1 (boundaries 128, 256,
 512 latents, which both packages' kernels take; the JAX pipeline runs its stock
-step on the CPU, the port its fused op's plain versions).
+step on the CPU, the port its fused op's plain versions). The transcoder maps
+mixed3a (256) to mixed3b (480) and splices in front of mixed3b's successor; the
+crosscoder reads mixed4a..mixed4c (2 x 2 x 512 each at 32 px; 1,024 latents,
+Adam, 8 steps of 32 tokens; λ = 0.02, since at λ = 1 the L1 term is ~25x the
+summed MSE of these activations and nearly every latent dies), splices mixed4c, and writes its decoder-norm CSV
+under the JAX package's file name. Both train from caches of every layer they
+read, dumped in one backbone pass; the transcoder's caches are bf16 (the JAX
+stock step on the CPU computes in f32, so both compute in f32). The crosscoder's
+stay f32: under plain Adam a latent that one bf16 rounding of the caches
+switches on for one token moves its weights by ~lr.
 
 Tolerances: the caches differ by the two frameworks' f32 convolution rounding
 (~1e-6 relative, test_torch_googlenet.py), which training carries forward: losses
@@ -53,6 +62,10 @@ VARIANTS = {
     "gated_sae": {},
     "jumprelu_sae": {"jumprelu_bandwidth": 0.05, "jumprelu_threshold_init": 0.025},
     "matryoshka_sae": {"sae_matryoshka_prefixes": "0.25,0.5,1.0"},
+    "transcoder": {"transcoder_target_layer": "mixed3b", "cache_dtype": "bfloat16"},
+    "crosscoder": {"sae_layer": "mixed4a", "crosscoder_layers": "mixed4b,mixed4c",
+                   "sae_optimizer_name": "adam", "cache_tokens_per_step": 32,
+                   "sae_lambda_sparse": 0.02},
 }
 
 
@@ -85,8 +98,8 @@ def runs(request, tmp_path_factory):
                       sae_params=sae)
     np.testing.assert_array_equal(tpipe.train_ds.images, jpipe.train_ds.images)
     jpipe.CACHE_SCAN_K = tpipe.CACHE_SCAN_K = 2
-    jmeans = jpipe.train_sae_cached()
-    tmeans = tpipe.train_sae_cached()
+    jmeans = jpipe.train_sae()
+    tmeans = tpipe.train_sae()
     return jpipe, jlog, jmeans, tpipe, tmeans
 
 
@@ -121,6 +134,21 @@ def test_eval_means_match_jax(runs):
             np.testing.assert_allclose(tmeans[k], jv, rtol=1e-4, atol=1e-7, err_msg=k)
 
 
+def test_crosscoder_writes_the_decoder_norms_csv_the_jax_run_writes(runs):
+    jpipe, _, _, tpipe, _ = runs
+    if tpipe.cfg.sae_model_name != "crosscoder":
+        return
+    import os
+
+    import pandas as pd
+
+    name = os.path.basename(tpipe.decoder_norms_path)
+    jdf = pd.read_csv(os.path.join(jpipe.paths["sae_weights"], name))
+    tdf = pd.read_csv(tpipe.decoder_norms_path)
+    assert list(tdf.columns) == list(jdf.columns) and len(tdf) == tpipe.num_units
+    np.testing.assert_allclose(tdf.to_numpy(), jdf.to_numpy(), rtol=2e-3, atol=2e-5)
+
+
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
     for field, value in [("sae_model_name", "topk_sae"), ("mesh_shape", (2,)),
@@ -128,6 +156,20 @@ def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
                       datasets=_datasets(t_synth))
+    # a target layer or extra layers only with the model that reads them
+    for field, value in [("transcoder_target_layer", "mixed3b"),
+                         ("crosscoder_layers", "mixed4b")]:
+        with pytest.raises(NotImplementedError, match=field):
+            TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
+                      datasets=_datasets(t_synth))
+    # crosscoders train with plain Adam; their layers go in depth order
+    cc = dataclasses.replace(base, sae_model_name="crosscoder", sae_layer="mixed4a",
+                             crosscoder_layers="mixed4b")
+    with pytest.raises(ValueError, match="plain optimizer"):
+        TPipeline(cc, device="cpu", datasets=_datasets(t_synth)).train_sae()
+    with pytest.raises(ValueError, match="depth order"):
+        TPipeline(dataclasses.replace(cc, crosscoder_layers="mixed3b"), device="cpu",
+                  datasets=_datasets(t_synth))
 
 
 def test_default_device_raises_without_a_gpu(tmp_path, monkeypatch):
