@@ -13,7 +13,12 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               transcoder: T=32768, C_in=256 -> C_out=480, H=16384; the
               crosscoder: T=16384, dims 512/512/512/528/832 = 2896, H=8192), in
               f32 and bf16 operands; time kernel, plain version and the cuBLAS
-              products of the stock path; compute each kernel's bound.
+              products of the stock path; compute each kernel's bound and its
+              achieved TFLOP/s. The transcoder/crosscoder pair is also held to
+              its plain versions at ragged shapes (T=1152, C_in=264, H=640,
+              C_out=136 and 520: a partial token step, latent group and channel
+              chunk at every edge, for both bf16 forward bodies), and its bf16 kernels must give bitwise-equal outputs
+              on a repeat launch.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too (the only launches
@@ -198,16 +203,17 @@ def _check(name: str, got, ref, rtol: float, atol_frac: float) -> float:
 
 def _measure(name: str, tag: str, cd, kernel, plain, library, flops: float, moved: int,
              max_abs_err: float) -> dict:
-    """Times of kernel, plain version and the stock path's cuBLAS products, and
-    the bound; one row of the kernels line."""
+    """Times of kernel, plain version and the stock path's cuBLAS products, the
+    bound and the achieved rate; one row of the kernels line."""
     ms = time_ms(kernel, REPS)
     plain_ms = time_ms(plain, REPS)
     lib_ms = time_ms(library, REPS)
     b_ms, b_by = bound(flops, moved, cd)
+    tflops = flops / ms / 1e9
     log(f"[kernels] {name} [{tag}] ms {ms:.3f} plain_ms {plain_ms:.3f} "
-        f"library_ms {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by})")
+        f"library_ms {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by}) TFLOP/s {tflops:.1f}")
     return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, tflops=tflops)
 
 
 def _dyadic(t: torch.Tensor, step: float) -> torch.Tensor:
@@ -491,10 +497,11 @@ def _coder_operands(gen, t: int, c_in: int, c_out: int, h: int, cd):
 
 
 def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
-                   bwd_extra) -> dict:
+                   bwd_extra, timed: bool = True) -> dict:
     """The fused transcoder or crosscoder kernel pair (``mod``) against its plain
     versions at [t, c_in] -> [t, c_out] with h latents. ``bwd_extra(gen)`` gives
-    the backward's coefficient arguments, c_rec first."""
+    the backward's coefficient arguments, c_rec first. bf16 kernels launch twice
+    and must agree bitwise. ``timed`` false: checks only, no rows."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     x, we, be, wd, _ = ops = _coder_operands(gen, t, c_in, c_out, h, cd)
     if mod is fused_transcoder:
@@ -508,6 +515,8 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     out_p = plain_fwd(*ops)
     torch.cuda.synchronize()
     log(f"[kernels] {name} [{tag}] vs plain, T={t} C_in={c_in} C_out={c_out} H={h}")
+    if cd == torch.bfloat16:
+        _repeatable(name, out_k, mod.fwd_kernel(*ops))
     # pre-activations are exact on both sides, so the counts agree exactly; the
     # decode and the sums of post run in other orders
     err = _check("recon", out_k[0], out_p[0], 1e-4, 1e-5)
@@ -515,11 +524,11 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     _check("row_active", out_k[2], out_p[2], 0.0, 0.0)
     _check("zsum" if mod is fused_crosscoder else "l1_sum", out_k[3], out_p[3], 1e-5, 1e-7)
     del out_k
-    post = torch.relu(x @ we).to(cd)  # a [T, H] operand of the stock path's shapes
+    post = torch.relu(x @ we).to(cd) if timed else None  # a [T, H] operand of the stock path
     rows = {name: _measure(
         name, tag, cd, lambda: mod.fwd_kernel(*ops), lambda: plain_fwd(*ops),
         lambda: (x @ we, post @ wd), 2.0 * t * h * (c_in + c_out),
-        nbytes(*ops) + nbytes(*out_p), err)}
+        nbytes(*ops) + nbytes(*out_p), err)} if timed else {}
 
     y = torch.randn(t, c_out, device=DEVICE, generator=gen)
     res = (out_p[0] - y).to(cd)  # the residual the backward reads
@@ -530,10 +539,14 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     g_p = plain_bwd(*bops)
     torch.cuda.synchronize()
     log(f"[kernels] {name} [{tag}] vs plain")
+    if cd == torch.bfloat16:
+        _repeatable(name, g_k, mod.bwd_kernel(*bops))
     err = max(_check(n, a, b, 1e-3, 1e-4)
               for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
     moved = nbytes(*bops) + nbytes(*g_p)
     del g_k, g_p
+    if not timed:
+        return rows
     dr = (bops[5][0] * res.float()).to(cd)
     rows[name] = _measure(
         name, tag, cd, lambda: mod.bwd_kernel(*bops), lambda: plain_bwd(*bops),
@@ -541,11 +554,39 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     return rows
 
 
+def _repeatable(name: str, first, second) -> None:
+    """Two launches on the same inputs must give bitwise-equal outputs."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    log(f"[kernels]   {name}: a repeat launch is bitwise equal")
+
+
 def kernels_transcoder(cd, tag: str) -> dict:
     def coeffs(gen):
         return (torch.tensor([2.0 / (TC_T * TC_COUT), LAMBDA / (TC_T * TC_H)], device=DEVICE),)
 
     return _kernels_coder(fused_transcoder, tag, cd, TC_T, TC_CIN, TC_COUT, TC_H, coeffs)
+
+
+def kernels_coder_ragged(cd, tag: str) -> dict:
+    """Both coder ops at small shapes with a partial chunk at every edge of the
+    kernels' tiling (T = 2*512 + 128 tokens, H = 512 + 128 latents, C_in = 4*64 + 8
+    channels; C_out = 128 + 8, where the bf16 forward holds recon in registers,
+    and 4*128 + 8, where it updates recon in place), checked against the plain
+    versions; no rows."""
+    t, c_in, h = 1152, 264, 640
+    for c_out in (136, 520):
+        def tc_coeffs(gen):
+            return (torch.tensor([2.0 / (t * c_out), LAMBDA / (t * h)], device=DEVICE),)
+
+        def cc_coeffs(gen):
+            n_j = 0.5 + torch.rand(h, device=DEVICE, generator=gen)
+            return torch.tensor([2.0 / (t * c_out)], device=DEVICE), n_j * (LAMBDA / (t * h))
+
+        _kernels_coder(fused_transcoder, tag, cd, t, c_in, c_out, h, tc_coeffs, timed=False)
+        _kernels_coder(fused_crosscoder, tag, cd, t, c_in, c_out, h, cc_coeffs, timed=False)
+    return {}
 
 
 def kernels_crosscoder(cd, tag: str) -> dict:
@@ -567,7 +608,8 @@ def phase_kernels() -> dict:
     rows = {}
     for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for fn in (kernels_relu, kernels_relu_dx, kernels_gated, kernels_jumprelu,
-                   kernels_matryoshka, kernels_transcoder, kernels_crosscoder):
+                   kernels_matryoshka, kernels_coder_ragged, kernels_transcoder,
+                   kernels_crosscoder):
             with torch.no_grad():
                 r = fn(cd, tag)
             torch.cuda.empty_cache()  # the plain versions' [T, H] temporaries

@@ -12,8 +12,11 @@ transcoder-shaped kernel pair by concatenation and per-column scaling:
 so the plain concatenated mean mean_{T,ΣC}((s·err)²) is exactly the summed
 per-layer MSE Σ_l mean_{T,C_l}(err²). The concat and the scale stay outside the
 kernels in plain torch, so autograd routes the cat-space gradients back to the
-flat per-layer parameters. ΣC need not be a multiple of anything: the kernels
-guard every channel chunk (2,896 = 16·181 for GoogLeNet mixed4a..mixed4e).
+flat per-layer parameters. The f32 kernels take any ΣC; the bf16 kernels read
+rows by TMA, whose row strides are multiples of 16 bytes, so with bf16 operands
+ΣC must be a multiple of 8 (2,896 = 8·362 for GoogLeNet mixed4a..mixed4e; every
+GoogLeNet tap is), and TMA zero-fills the partial box at the edge, so no padding
+is needed.
 
 Two differences from the transcoder op (ops/fused_transcoder.py), both in the
 L1 term:

@@ -50,15 +50,21 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     run_on_device,
 )
 
-# tile sizes of csrc/fused_transcoder.cu (kFwdTT, kBwdTB, kFwdLG)
+# tile sizes of csrc/fused_transcoder.cu: tokens per activity/zsum partial row
+# (every body), the T and H multiples (kBwdTB, kFwdLG), the bf16 backward's
+# tokens per db_dec partial row (kTcBwdTS) and the bf16 width multiple (TMA's
+# 16-byte row strides)
 FWD_TILE_T = 64
 BWD_TILE_T = 128
 GROUP_H = 128
+BF16_STEP_T = 512
+BF16_WIDTH = 8
 
 
 def can_fuse(t: int, h: int) -> bool:
-    """True when the CUDA kernels take T tokens and H latents (any widths). The
-    CPU plain versions take any shape."""
+    """True when the CUDA kernels take T tokens and H latents. Widths are the
+    wrappers' check: any in f32, multiples of 8 in bf16. The CPU plain versions
+    take any shape."""
     return t > 0 and h > 0 and t % BWD_TILE_T == 0 and h % GROUP_H == 0
 
 
@@ -134,6 +140,10 @@ def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
         raise ValueError(
             f"fused transcoder kernel: shape T={t}, H={h} not supported (T a multiple "
             f"of {BWD_TILE_T}, H of {GROUP_H})")
+    if x.dtype == _BF16 and (c_in % BF16_WIDTH or c_out % BF16_WIDTH):
+        raise ValueError(
+            f"fused transcoder kernel: widths C_in={c_in}, C_out={c_out} not supported with "
+            f"bf16 operands (each a multiple of {BF16_WIDTH})")
     dev = x.device
     _expect("x", x, (t, c_in), x.dtype, dev)
     _expect("W_enc", w_enc, (c_in, h), x.dtype, dev)
@@ -173,7 +183,9 @@ def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, c
     dw_enc = torch.empty((c_in, h), dtype=_F32, device=dev)
     db_enc = torch.empty((h,), dtype=_F32, device=dev)
     dw_dec = torch.empty((h, c_out), dtype=_F32, device=dev)
-    db_dec_part = torch.empty((2, c_out), dtype=_F32, device=dev)
+    # partial rows of db_dec: two (f32 body) or one per 512-token step (bf16 body)
+    rows = -(-t // BF16_STEP_T) if x.dtype == _BF16 else 2
+    db_dec_part = torch.empty((rows, c_out), dtype=_F32, device=dev)
     kernel._launch(_lib().svt_coder_bwd, dev,
                    *_ptrs(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
                           db_dec_part), t, c_in, c_out, h)

@@ -24,7 +24,7 @@ from sparse_vision_tpu.models.sae import init_transcoder
 from sparse_vision_tpu.ops.fused_transcoder import fused_transcoder_loss_terms as jax_fused
 from sparse_vision_tpu_torch import convert
 from sparse_vision_tpu_torch.models.sae import transcoder_inference_and_loss
-from sparse_vision_tpu_torch.ops import fused_transcoder
+from sparse_vision_tpu_torch.ops import fused_crosscoder, fused_transcoder
 
 T, C_IN, EF, C_OUT = 64, 64, 4, 96
 H = C_IN * EF
@@ -184,3 +184,26 @@ def test_kernel_wrapper_validates_before_launch(setup):
         fused_transcoder.bwd_kernel(xt, tp["W_enc"], tp["b_enc"], tp["W_dec"],
                                     torch.zeros(128, C_OUT + 1), torch.zeros(2))
     assert all(k.launches == 0 for k in fused_transcoder.KERNELS)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(100, 96), (64, 100), (260, 2897)])
+def test_bf16_widths_must_be_multiples_of_8(c_in, c_out):
+    """The bf16 kernels copy rows in 16-byte chunks: a bf16 width that is not a
+    multiple of 8 raises before any library is loaded, through both ops'
+    wrappers; the f32 kernels take any width."""
+    t = h = 128
+    x, w_enc, b_enc = torch.zeros(t, c_in), torch.zeros(c_in, h), torch.zeros(h)
+    w_dec, b_dec = torch.zeros(h, c_out), torch.zeros(c_out)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_transcoder.fwd_kernel(x.to(bf), w_enc.to(bf), b_enc, w_dec.to(bf), b_dec)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_transcoder.bwd_kernel(x.to(bf), w_enc.to(bf), b_enc, w_dec.to(bf),
+                                    torch.zeros(t, c_out, dtype=bf), torch.zeros(2))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_crosscoder.bwd_kernel(x.to(bf), w_enc.to(bf), b_enc, w_dec.to(bf),
+                                    torch.zeros(t, c_out, dtype=bf), torch.zeros(1),
+                                    torch.zeros(h))
+    assert fused_transcoder._check_operands(x, w_enc, b_enc, w_dec, b_dec) == (t, c_in, c_out, h)
+    kernels = fused_transcoder.KERNELS + fused_crosscoder.KERNELS
+    assert all(k.launches == 0 for k in kernels)
