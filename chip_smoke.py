@@ -14,7 +14,13 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               crosscoder: T=16384, dims 512/512/512/528/832 = 2896, H=8192), in
               f32 and bf16 operands; time kernel, plain version and the cuBLAS
               products of the stock path; compute each kernel's bound and its
-              achieved TFLOP/s. The transcoder/crosscoder pair is also held to
+              achieved TFLOP/s. The ReLU and Matryoshka ops (the coder bodies
+              on the centred input) are also held to their plain versions at
+              C=480 and C=832 (T=8192, H=4096, prefixes 1024/2048/4096; a
+              Matryoshka backward whose levels' errors differ, prefixes
+              128/1024/4096), their bf16 launches must repeat bitwise, 20 at
+              C=832 (the in-place forward), and each is timed there. The
+              transcoder/crosscoder pair is also held to
               its plain versions at ragged shapes (T=1152, C_in=264, H=640,
               C_out=136 and 520: a partial token step, latent group and channel
               chunk at every edge, for both bf16 forward bodies), and its bf16 kernels must give bitwise-equal outputs
@@ -99,13 +105,20 @@ MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
            "jumprelu_sae": fused_jumprelu_sae, "matryoshka_sae": fused_matryoshka_sae,
            "transcoder": fused_transcoder, "crosscoder": fused_crosscoder}
 KERNELS = tuple(k for m in MODULES.values() for k in m.KERNELS)
+# the source of each kernel's body; the coder family's entry points are in
+# fused_sae.cu (the SAEs) and fused_transcoder.cu (the coders)
+CODER = "sparse_vision_tpu_torch/csrc/coder.cuh"
 SOURCES = {
-    "sae_mlp": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
-    "gated_sae": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
-    "jumprelu_sae": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
-    "matryoshka_sae": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
-    "transcoder": "sparse_vision_tpu_torch/csrc/fused_transcoder.cu",
-    "crosscoder": "sparse_vision_tpu_torch/csrc/fused_transcoder.cu",
+    "fused_sae_fwd": CODER, "fused_sae_bwd": CODER,
+    "fused_sae_dx": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
+    "fused_matryoshka_sae_fwd": CODER, "fused_matryoshka_sae_bwd": CODER,
+    "fused_matryoshka_sae_dx": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
+    "fused_jumprelu_sae_fwd": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
+    "fused_jumprelu_sae_bwd": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
+    "fused_gated_sae_fwd": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
+    "fused_gated_sae_bwd": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
+    "fused_transcoder_fwd": CODER, "fused_transcoder_bwd": CODER,
+    "fused_crosscoder_fwd": CODER, "fused_crosscoder_bwd": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -245,47 +258,81 @@ def _exact_inputs(gen, n_tokens: int, w: torch.Tensor):
 # kernels phase, one function per fused op; each returns {kernel name: row}
 # ---------------------------------------------------------------------------
 
-def kernels_relu(cd, tag: str) -> dict:
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    params = init_sae_mlp(gen, C, H // C)
-    be = params["b_enc"] - 0.05
-    bd = 0.1 * torch.randn(C, device=DEVICE, generator=gen)
-    x = (torch.relu(torch.randn(T, C, device=DEVICE, generator=gen)) * 2.0).to(cd)
-    we, wd = params["W_enc"].to(cd).contiguous(), params["W_dec"].to(cd).contiguous()
-    out_k = fused_sae.fwd_kernel(x, we, be, wd, bd)
-    out_p = fused_sae.fused_sae_forward_plain(x, we, be, wd, bd)
+def _sae_fwd_check(mod, tag: str, cd, ops, extra=(), exact: bool = False, label: str = ""):
+    """The SAE op ``mod``'s forward entry point (fused_sae or
+    fused_matryoshka_sae) on the card against its plain reference on the same
+    inputs; bf16 launches repeat bitwise. Returns (x_cent, the plain outputs,
+    max abs err of the reconstruction)."""
+    fwd = mod.fused_sae_forward if mod is fused_sae else mod.fused_matryoshka_forward
+    plain = (mod.fused_sae_forward_plain if mod is fused_sae
+             else mod.fused_matryoshka_forward_plain)
+    x, bd = ops[0], ops[4]
+    out_k = fwd(*ops, *extra)
+    out_p = plain(*ops, *extra)
     torch.cuda.synchronize()
-    log(f"[kernels] fused_sae_fwd [{tag}] vs plain")
-    # the kernel and cuBLAS sum in other orders; a pre-activation within
-    # rounding of 0 may flip, so counts get a tolerance of a few tokens
-    err = _check("recon", out_k[0], out_p[0], 1e-4, 1e-5)
-    _check("act_count", out_k[1], out_p[1], 0.0, 1e-3)
-    _check("row_active", out_k[2], out_p[2], 0.0, 1e-3)
-    _check("l1_sum", out_k[3], out_p[3], 1e-5, 0.0)
-    del out_k
+    log(f"[kernels] {mod.fwd_kernel.name} [{tag}{label}] vs plain")
+    if cd == torch.bfloat16:
+        _repeatable(mod.fwd_kernel.name, mod.fwd_kernel(*ops, *extra),
+                    mod.fwd_kernel(*ops, *extra))
+    if not torch.equal(out_k[0], x - bd.to(cd)):
+        raise AssertionError(f"{mod.fwd_kernel.name}: x_cent differs from x - round(b_dec)")
+    # on _exact_inputs' grid the pre-activations are exact on both sides, so the
+    # counts agree exactly; else a pre-activation within rounding of 0 may flip,
+    # so counts get a tolerance of a few tokens
+    count_tol = 0.0 if exact else 1e-3
+    err = _check("recon", out_k[1], out_p[0], 1e-4, 1e-5)
+    _check("act_count", out_k[2], out_p[1], 0.0, count_tol)
+    _check("row_active", out_k[3], out_p[2], 0.0, count_tol)
+    _check("l1_sum", out_k[4], out_p[3], 1e-5, 0.0)
+    return out_k[0], out_p, err
+
+
+def _sae_bwd_check(mod, tag: str, cd, ops, x_cent, err_in, coeffs, extra=(), label: str = ""):
+    """The SAE op's backward entry point on x_cent against its plain reference on
+    (x, b_dec); bf16 launches repeat bitwise. Returns (plain grads, max abs err)."""
+    if mod is fused_sae:
+        bwd, plain = mod.fused_sae_backward, mod.fused_sae_backward_plain
+    else:
+        bwd, plain = mod.fused_matryoshka_backward, mod.fused_matryoshka_backward_plain
+    x, we, be, wd, bd = ops
+    g_k = bwd(x_cent, we, be, wd, err_in, coeffs, *extra)
+    g_p = plain(*ops, err_in, coeffs, *extra)
+    torch.cuda.synchronize()
+    log(f"[kernels] {mod.bwd_kernel.name} [{tag}{label}] vs plain")
+    if cd == torch.bfloat16:
+        _repeatable(mod.bwd_kernel.name, mod.bwd_kernel(x_cent, we, be, wd, err_in, coeffs, *extra),
+                    mod.bwd_kernel(x_cent, we, be, wd, err_in, coeffs, *extra))
+    err = max(_check(n, a, b, 1e-3, 1e-4)
+              for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
+    return g_p, err
+
+
+def kernels_relu(cd, tag: str) -> dict:
+    # on _exact_inputs' grid: the tensor cores' sums of the encode run in another
+    # order and rounding than cuBLAS's, and off the grid a pre-activation that
+    # moved by a rounding flips round_bf16(post) by a bf16 ulp in the decode
+    ops = _relu_exact_operands(cd)
+    x, we, be, wd, bd = ops
+    x_cent, out_p, err = _sae_fwd_check(fused_sae, tag, cd, ops, exact=True)
     xc = x - bd.to(cd)
     post = torch.relu(xc @ we).to(cd)
     rows = {"fused_sae_fwd": _measure(
-        "fused_sae_fwd", tag, cd, lambda: fused_sae.fwd_kernel(x, we, be, wd, bd),
-        lambda: fused_sae.fused_sae_forward_plain(x, we, be, wd, bd),
+        "fused_sae_fwd", tag, cd, lambda: fused_sae.fused_sae_forward(*ops),
+        lambda: fused_sae.fused_sae_forward_plain(*ops),
         lambda: (xc @ we, post @ wd), 4.0 * T * C * H,
-        nbytes(x, we, be, wd, bd) + nbytes(out_p[0], out_p[1], out_p[2]) + 4, err)}
+        nbytes(*ops) + nbytes(out_p[0], out_p[1], out_p[2]) + 4, err)}
 
     res = (out_p[0] - x.float()).to(cd)  # the residual the backward reads
     del out_p
     coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device=DEVICE)
-    g_k = fused_sae.bwd_kernel(x, we, be, wd, bd, res, coeffs)
-    g_p = fused_sae.fused_sae_backward_plain(x, we, be, wd, bd, res, coeffs)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_sae_bwd [{tag}] vs plain")
-    err = max(_check(n, a, b, 1e-3, 1e-4)
-              for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
-    moved = nbytes(x, we, be, wd, bd, res, coeffs) + nbytes(*g_p)
-    del g_k, g_p
+    g_p, err = _sae_bwd_check(fused_sae, tag, cd, ops, x_cent, res, coeffs)
+    moved = nbytes(*ops, res, coeffs) + nbytes(*g_p)
+    del g_p
     dr = (coeffs[0] * res.float()).to(cd)
     rows["fused_sae_bwd"] = _measure(
-        "fused_sae_bwd", tag, cd, lambda: fused_sae.bwd_kernel(x, we, be, wd, bd, res, coeffs),
-        lambda: fused_sae.fused_sae_backward_plain(x, we, be, wd, bd, res, coeffs),
+        "fused_sae_bwd", tag, cd,
+        lambda: fused_sae.fused_sae_backward(x_cent, we, be, wd, res, coeffs),
+        lambda: fused_sae.fused_sae_backward_plain(*ops, res, coeffs),
         lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
     return rows
 
@@ -425,49 +472,42 @@ def kernels_relu_dx(cd, tag: str) -> dict:
         nbytes(*dops) + nbytes(dx_p), err)}
 
 
+def _suffix_error(prefix_recon, x, cd):
+    """The suffix-weighted error S of the prefix mean's cotangents, 1/P each."""
+    n, t, c = prefix_recon.shape
+    weighted = (2.0 / (n * t * c)) * (prefix_recon - x.float()[None])
+    return weighted.flip(0).cumsum(0).flip(0).to(cd)
+
+
 def kernels_matryoshka(cd, tag: str) -> dict:
     fm = fused_matryoshka_sae
     ops = _relu_exact_operands(cd)
     x, we, _, wd, bd = ops
     bounds = matryoshka_prefix_counts(H, DEFAULT_MATRYOSHKA_PREFIXES)
-    out_k = fm.fwd_kernel(*ops, bounds)
-    out_p = fm.fused_matryoshka_forward_plain(*ops, bounds)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_matryoshka_sae_fwd [{tag}] vs plain, prefixes end at {bounds}")
-    err = _check("prefix_recon", out_k[0], out_p[0], 1e-4, 1e-5)
-    _check("act_count", out_k[1], out_p[1], 0.0, 0.0)
-    _check("row_active", out_k[2], out_p[2], 0.0, 0.0)
-    _check("l1_sum", out_k[3], out_p[3], 1e-5, 0.0)
-    del out_k
+    x_cent, out_p, err = _sae_fwd_check(fm, tag, cd, ops, (bounds,), exact=True,
+                                        label=f", prefixes end at {bounds}")
     xc = x - bd.to(cd)
     post = torch.relu(xc @ we).to(cd)
     rows = {"fused_matryoshka_sae_fwd": _measure(
-        "fused_matryoshka_sae_fwd", tag, cd, lambda: fm.fwd_kernel(*ops, bounds),
+        "fused_matryoshka_sae_fwd", tag, cd, lambda: fm.fused_matryoshka_forward(*ops, bounds),
         lambda: fm.fused_matryoshka_forward_plain(*ops, bounds),
         lambda: (xc @ we, *(post[:, :m] @ wd[:m] for m in bounds)), 4.0 * T * C * H,
         nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
 
-    # the suffix-weighted error S of the prefix mean's cotangents, 1/P each
-    weighted = (2.0 / (len(bounds) * T * C)) * (out_p[0] - x.float()[None])
+    s = _suffix_error(out_p[0], x, cd)
     del out_p
-    s = weighted.flip(0).cumsum(0).flip(0).to(cd)
-    del weighted
     coeffs = torch.tensor([1.0, LAMBDA / (T * H)], device=DEVICE)
-    bops = ops + (s, coeffs, bounds)
-    g_k = fm.bwd_kernel(*bops)
-    g_p = fm.fused_matryoshka_backward_plain(*bops)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_matryoshka_sae_bwd [{tag}] vs plain")
-    err = max(_check(n, a, b, 1e-3, 1e-4)
-              for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
-    moved = nbytes(*bops[:-1]) + nbytes(*g_p)
-    del g_k, g_p
+    g_p, err = _sae_bwd_check(fm, tag, cd, ops, x_cent, s, coeffs, (bounds,))
+    moved = nbytes(*ops, s, coeffs) + nbytes(*g_p)
+    del g_p
     dr = s[0]
     rows["fused_matryoshka_sae_bwd"] = _measure(
-        "fused_matryoshka_sae_bwd", tag, cd, lambda: fm.bwd_kernel(*bops),
-        lambda: fm.fused_matryoshka_backward_plain(*bops),
+        "fused_matryoshka_sae_bwd", tag, cd,
+        lambda: fm.fused_matryoshka_backward(x_cent, we, *ops[2:4], s, coeffs, bounds),
+        lambda: fm.fused_matryoshka_backward_plain(*ops, s, coeffs, bounds),
         lambda: (xc @ we, dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
 
+    bops = ops + (s, coeffs, bounds)
     dx_k = fm.dx_kernel(*bops)
     dx_p = fm.fused_matryoshka_dx_plain(*bops)
     torch.cuda.synchronize()
@@ -480,6 +520,81 @@ def kernels_matryoshka(cd, tag: str) -> dict:
         lambda: (xc @ we, dr @ wd.T, post @ we.T), 6.0 * T * C * H,
         nbytes(*bops[:-1]) + nbytes(dx_p), err)
     return rows
+
+
+# the ReLU and Matryoshka ops at other widths: mixed3b's 480 (the register-held
+# bf16 forward) and mixed4e's 832 (the in-place one)
+W_T, W_H, W_WIDTHS, W_BOUNDS = 8192, 4096, (480, 832), (1024, 2048, 4096)
+REPEATS = 20  # bitwise-equal launches of the in-place bf16 forward at C = 832
+
+
+def kernels_sae_widths(cd, tag: str) -> dict:
+    """Both SAE ops at C = 480 and 832 (T = 8,192, H = 4,096, prefixes 1,024 /
+    2,048 / 4,096) on _exact_inputs' grid against their plain references, and a
+    Matryoshka backward whose levels' errors differ, with prefixes 128 / 1,024 /
+    4,096: two level-0 blocks must sum all 16 steps' direct db_dec rows from
+    S_0. In bf16, REPEATS launches of the C = 832 forward (coder_fwd_tc) must
+    agree bitwise, and each op is timed. No rows: the kernels line keeps the
+    main path's."""
+    fm = fused_matryoshka_sae
+    for c in W_WIDTHS:
+        gen = torch.Generator(device=DEVICE).manual_seed(c)
+        w = torch.randn(c, W_H, device=DEVICE, generator=gen) / c ** 0.5
+        x, we, bd = _exact_inputs(gen, W_T, w)
+        wd = _dyadic(torch.randn(W_H, c, device=DEVICE, generator=gen) / W_H ** 0.5, 2.0 ** -8)
+        ops = (x.to(cd), we.to(cd), _odd_grid(gen, W_H, 100), wd.to(cd), bd)
+        label = f", C={c} T={W_T} H={W_H}"
+        x_cent, out_p, _ = _sae_fwd_check(fused_sae, tag, cd, ops, exact=True, label=label)
+        res = (out_p[0] - ops[0].float()).to(cd)
+        coeffs = torch.tensor([2.0 / (W_T * c), LAMBDA / (W_T * W_H)], device=DEVICE)
+        _sae_bwd_check(fused_sae, tag, cd, ops, x_cent, res, coeffs, label=label)
+        if cd == torch.bfloat16 and c > 512:
+            first = fused_sae.fwd_kernel(*ops)
+            for _ in range(REPEATS - 1):
+                _repeatable(fused_sae.fwd_kernel.name, first, fused_sae.fwd_kernel(*ops))
+            log(f"[kernels]   {fused_sae.fwd_kernel.name}: {REPEATS} launches of the in-place "
+                f"forward at C={c} bitwise equal")
+
+        _, m_out, _ = _sae_fwd_check(fm, tag, cd, ops, (W_BOUNDS,), exact=True, label=label)
+        s = _suffix_error(m_out[0], ops[0], cd)
+        m_coeffs = torch.tensor([1.0, LAMBDA / (W_T * W_H)], device=DEVICE)
+        _sae_bwd_check(fm, tag, cd, ops, x_cent, s, m_coeffs, (W_BOUNDS,), label=label)
+        # levels whose errors differ by orders of magnitude, few level-0 blocks;
+        # S and W_dec on dyadic grids, so that dpost = S @ W_dec^T is exact on
+        # both sides and round_bf16(dpre) cannot flip
+        lv = (128, W_H // 4, W_H)
+        s_diff = torch.stack([
+            _dyadic(torch.randn(W_T, c, device=DEVICE, generator=gen) * 2.0 ** e, 2.0 ** (e - 4))
+            for e in (-13, -17, -20)]).to(cd)
+        _sae_bwd_check(fm, tag, cd, ops, x_cent, s_diff, m_coeffs, (lv,),
+                       label=f"{label}, levels {lv} with differing errors")
+        if cd == torch.bfloat16:
+            xc = x_cent
+            post = torch.relu(xc @ ops[1]).to(cd)
+            dr = (coeffs[0] * res.float()).to(cd)
+            fl = 4.0 * W_T * c * W_H
+            for name, kern, plain, lib, flops in (
+                    ("fused_sae_fwd", lambda: fused_sae.fused_sae_forward(*ops),
+                     lambda: fused_sae.fused_sae_forward_plain(*ops),
+                     lambda: (xc @ ops[1], post @ ops[3]), fl),
+                    ("fused_sae_bwd",
+                     lambda: fused_sae.fused_sae_backward(x_cent, *ops[1:4], res, coeffs),
+                     lambda: fused_sae.fused_sae_backward_plain(*ops, res, coeffs),
+                     lambda: (dr @ ops[3].T, xc.T @ post, post.T @ dr), 2 * fl),
+                    ("fused_matryoshka_sae_fwd",
+                     lambda: fm.fused_matryoshka_forward(*ops, W_BOUNDS),
+                     lambda: fm.fused_matryoshka_forward_plain(*ops, W_BOUNDS),
+                     lambda: (xc @ ops[1], *(post[:, :m] @ ops[3][:m] for m in W_BOUNDS)), fl),
+                    ("fused_matryoshka_sae_bwd",
+                     lambda: fm.fused_matryoshka_backward(x_cent, *ops[1:4], s, m_coeffs,
+                                                          W_BOUNDS),
+                     lambda: fm.fused_matryoshka_backward_plain(*ops, s, m_coeffs, W_BOUNDS),
+                     lambda: (xc @ ops[1], s[0] @ ops[3].T, xc.T @ post, post.T @ s[0]),
+                     2 * fl)):
+                _measure(name, f"{tag}, C={c} T={W_T} H={W_H}", cd, kern, plain, lib, flops,
+                         0, 0.0)
+        torch.cuda.empty_cache()
+    return {}
 
 
 def _coder_operands(gen, t: int, c_in: int, c_out: int, h: int, cd):
@@ -608,8 +723,8 @@ def phase_kernels() -> dict:
     rows = {}
     for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for fn in (kernels_relu, kernels_relu_dx, kernels_gated, kernels_jumprelu,
-                   kernels_matryoshka, kernels_coder_ragged, kernels_transcoder,
-                   kernels_crosscoder):
+                   kernels_matryoshka, kernels_sae_widths, kernels_coder_ragged,
+                   kernels_transcoder, kernels_crosscoder):
             with torch.no_grad():
                 r = fn(cd, tag)
             torch.cuda.empty_cache()  # the plain versions' [T, H] temporaries
@@ -708,11 +823,12 @@ def phase_parity() -> None:
                                              jumprelu_bandwidth=BANDWIDTH),
             base + ("l0_loss",))
 
+    # 2,048 latents: the default prefixes then end at multiples of 128
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    params = init_sae_mlp(gen, C, 4)
+    params = init_sae_mlp(gen, C, 8)
     x, params["W_enc"], params["b_dec"] = _exact_inputs(gen, 512, params["W_enc"])
-    params["b_enc"] = _odd_grid(gen, 4 * C, 100)
-    bounds = matryoshka_prefix_counts(4 * C, DEFAULT_MATRYOSHKA_PREFIXES)
+    params["b_enc"] = _odd_grid(gen, 8 * C, 100)
+    bounds = matryoshka_prefix_counts(8 * C, DEFAULT_MATRYOSHKA_PREFIXES)
     got = fused_matryoshka_sae.fused_matryoshka_sae(params, x, bounds,
                                                     compute_dtype=f32)["prefix_losses"]
     want = torch.stack([(r - x).square().mean()
@@ -722,16 +838,16 @@ def phase_parity() -> None:
         raise AssertionError("parity matryoshka_sae prefix_losses")
     _parity("matryoshka_sae", params,
             lambda p: fused_matryoshka_sae.fused_matryoshka_sae_loss_terms(
-                p, x, LAMBDA, 4, compute_dtype=f32),
+                p, x, LAMBDA, 8, compute_dtype=f32),
             lambda p: sae_inference_and_loss("matryoshka_sae", p, x, LAMBDA),
             base + ("aux_loss",))
     _parity_dx("matryoshka_sae", fused_matryoshka_sae.dx_kernel, x,
                lambda xx: fused_matryoshka_sae.fused_matryoshka_sae_loss_terms(
-                   params, xx, LAMBDA, 4, compute_dtype=f32, compute_dx=True),
+                   params, xx, LAMBDA, 8, compute_dtype=f32, compute_dx=True),
                lambda xx: sae_inference_and_loss("matryoshka_sae", params, xx, LAMBDA))
     # the same params: sae_mlp has the Matryoshka SAE's layout
     _parity_dx("sae_mlp", fused_sae.dx_kernel, x,
-               lambda xx: fused_sae.fused_sae_loss_terms(params, xx, LAMBDA, 4,
+               lambda xx: fused_sae.fused_sae_loss_terms(params, xx, LAMBDA, 8,
                                                          compute_dtype=f32, compute_dx=True),
                lambda xx: sae_inference_and_loss("sae_mlp", params, xx, LAMBDA))
 
@@ -914,9 +1030,9 @@ def main() -> int:
     for name in SLICES:
         launches.update(phase_slice(name, args.profile))
     kernels = [
-        {"name": k.name, "route": "cuda", "source": SOURCES[name],
+        {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}
-        for name, module in MODULES.items() for k in module.KERNELS
+        for k in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,1566 +1,32 @@
-// Fused transcoder and crosscoder kernels for Hopper (sm_90a): forward and
-// backward of a ReLU dictionary that reads one space and decodes into another.
-//
-// Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_transcoder.py
-// and sparse_vision_tpu/ops/fused_crosscoder.py:
-//   forward  <- fused_transcoder.py _fwd_kernel (:41), pallas_call :227
-//               fused_crosscoder.py _fwd_kernel (:68), pallas_call :238
-//   backward <- fused_transcoder.py _bwd_kernel (:91), pallas_call :264
-//               fused_crosscoder.py _bwd_kernel (:109), pallas_call :274
-// The two ops differ only in their L1 statistic, so one body pair serves both: the
-// forward always emits per-latent sums of post (zsum partials; the transcoder's
-// scalar sum of post is their total) and the backward always takes a per-latent
-// L1 cotangent ct [H] (the transcoder passes its scalar c_l1 broadcast). The
-// crosscoder runs in its concatenated, scaled space (ops/fused_crosscoder.py).
-//
-// Shapes: x [T, Cin], W_enc [Cin, H], W_dec [H, Cout], recon and err [T, Cout].
-// No input centring: b_dec lives in the output space.
-//
-// The bodies, chosen by the operand type:
-//   bf16 (the training path): coder_fwd_tc_hold (Cout <= 512: the transcoder),
-//     coder_fwd_tc (wider: the crosscoder) and coder_bwd_tc, 256 threads = two
-//     warpgroups. Every product runs on the tensor cores as
-//     wgmma.mma_async m64n64k16 (bf16 in, f32 accumulators in registers), B
-//     always and A mostly read straight from shared memory through wgmma
-//     descriptors; where an operand is round_bf16(c_rec * err), A comes from
-//     registers instead (ldmatrix, scaled and rounded there), so err streams
-//     as it is stored. Operands arrive by TMA (cp.async.bulk.tensor.2d, boxes
-//     of [64 or 32 rows][64 columns] in the 128-byte swizzle that wgmma reads)
-//     into a ring of 3 or 4 slots guarded by mbarriers: a full barrier per
-//     slot counts the TMA bytes, an empty barrier the eight warps that have
-//     finished with it. Thread 0 issues the stream kSt - 1 tiles ahead, each
-//     into the slot just released; the warps wait only on the tile they
-//     multiply, keep one tile's products in flight, and the block has no
-//     barrier per tile. The tensor maps are built per call in the C entry
-//     points (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so no
-//     -lcuda) and passed as __grid_constant__ parameters. TMA's zero fill past
-//     an edge takes the ragged widths (480 = 7*64 + 32, 2,896 = 45*64 + 16);
-//     its 16-byte row strides need bf16 widths that are multiples of 8.
-//     No separate producer warp: a block of 9 or 12 warps gets 168 registers a
-//     thread (each SM's four register banks hold 16,384 each), setmaxnreg did
-//     not raise the consumers' budget under nvcc 12.8, and the bodies spilled.
-//   f32 (the check path): coder_fwd_kernel<float> and coder_bwd_kernel<float>,
-//     the SIMT FMA bodies of the first port, unchanged (TF32 would miss the f32
-//     tolerances). Any positive width.
-//
-// What bounds them. At the transcoder's training shape (T = 32,768, H = 16,384,
-// 256 -> 480) the forward is 2*T*H*(Cin+Cout) = 0.79 TFLOP and the backward twice
-// that; at the crosscoder's (T = 16,384, H = 8,192, Cin = Cout = 2,896) 1.55 and
-// 3.1 TFLOP: 0.8-3.1 ms at the 989 TFLOP/s of bf16 tensor cores. Operands are
-// ~0.2 GB (0.06-0.13 ms at 3.35 TB/s): bounded by arithmetic as long as the
-// [T, H] latent matrix never reaches device memory.
-//
-// Tiling, and the device-memory traffic of outputs updated in place (from the
-// shapes; read-modify-write by their only owner, one thread of one block, in a
-// fixed order: bitwise repeatable, no atomics):
-//   coder_fwd_tc_hold: a block owns 64 tokens; recon [64, 512] f32 stays in
-//     registers (warpgroup g: columns 256g..256g+255, 128 a thread) for the
-//     whole latent sweep and is written once: no update traffic. Per group of
-//     128 latents: pre [64, 128] = x @ W_enc (warpgroup g: 64 latents), whose
-//     round_bf16(post) fills post_s [64, 128] with the statistics taken in the
-//     epilogue, then recon += post_s @ W_dec. Each block streams all of W_enc
-//     and W_dec (24 MB at the transcoder's shape) through L2.
-//   coder_fwd_tc: recon [128, 2,896] f32 (1.5 MB) does not fit. A block owns 128
-//     tokens (64 per warpgroup) and sweeps the latents in groups of up to 512:
-//     up to four encode sub-tiles pre [128, 128] fill post_s [128, 512], then
-//     for each 128 output columns acc = post_s @ W_dec is added into recon.
-//     Groups end at skew + 512k, skew = 128 * (block % 4), so that the blocks'
-//     updates do not all fall at once. recon is updated about H/512 times:
-//     ~(2H/512 + 1)*T*Cout*4 bytes, 6.2 GB (1.8 ms at 3.35 TB/s) for the
-//     crosscoder.
-//   coder_bwd_tc: dW_enc and dW_dec of a 64-latent block (1.5 MB for the
-//     crosscoder) do not fit. A block owns 64 latents and sweeps the tokens in
-//     steps of 512. Per step: A. for each 128 tokens (64 per warpgroup), pre and
-//     dpost [128, 64] (x @ W_enc tile, round_bf16(c_rec*err) @ W_dec tile^T),
-//     round_bf16(post) and round_bf16(dpre) into post_s and dpre_s [512, 64];
-//     B. for each 128 input channels (64 per warpgroup), x^T @ dpre_s over the
-//     512 tokens, added into dW_enc; C. for each 128 output columns (64 per
-//     warpgroup), (round_bf16(c_rec*err)^T @ post_s)^T, added into dW_dec. dW
-//     is updated T/512 times: (2T/512 - 1)*(Cin+Cout)*H*4 bytes = 6.1 GB
-//     (1.8 ms) for the transcoder, 12.0 GB (3.6 ms) for the crosscoder.
-// Blocks stream the same tiles in step, so each comes from device memory about
-// once a wave and from L2 after that.
-
-// Numerics follow the Pallas kernels' cast points. The operand type T (float
-// or bf16) is the compute dtype; x, W_enc, W_dec and err arrive already cast:
-//   pre    = x @ W_enc (f32 sum) + b_enc     post = max(pre, 0)
-//   recon  = sum_j round_T(post_j) @ W_dec_j + b_dec    (f32; b_dec in f32)
-//   drecon = c_rec * err (f32; the products read round_T(drecon))
-//   dpost  = round_T(drecon) @ W_dec^T + ct     dpre = pre > 0 ? dpost : 0
-//   dW_enc = x^T @ round_T(dpre)    db_enc = sum_t dpre
-//   dW_dec = round_T(post)^T @ round_T(drecon)    db_dec = sum_t drecon
-// Cross-block sums (activity counts, zsum) leave as per-64-token partials that
-// the caller reduces; db_dec, which does not depend on the latents, leaves as
-// partials too: two over alternate token rows from block 0 (f32), one per
-// 512-token step from the block that step's index selects (bf16).
-//
-// Entry points use a plain C interface (pointers, sizes, stream) and return the
-// cudaError_t of the launch; the Python wrappers (ops/fused_transcoder.py,
-// ops/fused_crosscoder.py) raise on a non-zero value. Supported shapes: T a
-// multiple of 128, H a multiple of 128 (can_fuse); with bf16 operands Cin and
-// Cout multiples of 8 and the bf16 operands 16-byte aligned.
-
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
-
-#include <cstdint>
-#include <cstring>
-
-#include "sae_common.cuh"
-
-namespace {
-
-using svt::kThreads;
-using svt::round_cd;
-using svt::to_f;
-
-constexpr int kKC = 32;      // channels per chunk of the encode and dpost contractions
-constexpr int kFwdTT = 64;   // forward: tokens per block
-constexpr int kFwdLG = 128;  // forward: latents per group (post held in shared memory)
-constexpr int kFwdNC = 128;  // forward: output columns per decode chunk
-constexpr int kFwdLS = 64;   // forward: latents per W_dec sub-tile of a decode chunk
-constexpr int kBwdTH = 64;   // backward: latents per block
-constexpr int kBwdTB = 128;  // backward: tokens per step (post and dpre held in shared memory)
-constexpr int kBwdKB = 128;  // backward: dW_enc rows per chunk
-constexpr int kBwdNC = 128;  // backward: dW_dec columns per chunk
-
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (kFwdTT * (kKC + 1)       // xs
-                          + kKC * kFwdLG           // ws
-                          + kFwdTT * (kFwdLG + 1)  // post_s
-                          + kFwdLS * kFwdNC        // wd_s
-                          + kFwdLG                 // benc_s
-                          + 16 * kFwdLG)           // zred_s
-         + sizeof(int) * (16 * kFwdLG + kFwdTT);   // ccnt_s, rcnt_s
-}
-
-// Forward. One block owns kFwdTT tokens and sweeps the latents in groups of
-// kFwdLG. Per group: pre [64, 128] by a K-loop over the input channels (rows
-// ty*4+i, columns tx+16*j), post into shared memory with the group's
-// statistics, then a sweep of the output columns in chunks of kFwdNC: acc
-// [64, 128] (rows ty*4+i, columns tx+16*j) over the group's latents, added
-// into recon in device memory by the thread that owns those elements.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
-                 const float* __restrict__ b_enc, const T* __restrict__ w_dec,
-                 const float* __restrict__ b_dec, float* __restrict__ recon,
-                 float* __restrict__ act_part, float* __restrict__ row_active,
-                 float* __restrict__ zsum_part, int Cin, int Cout, int H) {
-  constexpr int TT = kFwdTT, LG = kFwdLG, KC = kKC, NC = kFwdNC, LS = kFwdLS;
-  constexpr int XS = KC + 1;  // padded row strides: rows 4 apart hit other banks
-  constexpr int PS = LG + 1;
-  extern __shared__ float smem[];
-  float* xs = smem;                  // [TT][XS]  x[:, k0:k0+KC]
-  float* ws = xs + TT * XS;          // [KC][LG]  W_enc[k0:k0+KC, g0:g0+LG]
-  float* post_s = ws + KC * LG;      // [TT][PS]  round_T(post) of the group
-  float* wd_s = post_s + TT * PS;    // [LS][NC]  W_dec[g0+l0 : +LS, c0 : +NC]
-  float* benc_s = wd_s + LS * NC;    // [LG]
-  float* zred_s = benc_s + LG;       // [16][LG]  per-thread-row partials of zsum
-  int* ccnt_s = reinterpret_cast<int*>(zred_s + 16 * LG);  // [16][LG]
-  int* rcnt_s = ccnt_s + 16 * LG;                          // [TT]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long t0 = static_cast<long>(blockIdx.x) * TT;
-
-  for (int i = tid; i < TT; i += kThreads) rcnt_s[i] = 0;
-  int rowc[4] = {0, 0, 0, 0};
-
-  for (int g0 = 0; g0 < H; g0 += LG) {
-    // encode: pre[TT, LG] = x tile @ W_enc[:, g0:g0+LG]
-    float pre[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) pre[i][j] = 0.f;
-    for (int k0 = 0; k0 < Cin; k0 += KC) {
-      __syncthreads();  // the previous chunk (or group) is done with xs, ws, benc_s
-      for (int i = tid; i < TT * KC; i += kThreads) {
-        const int r = i / KC, k = k0 + i % KC;
-        xs[r * XS + i % KC] = k < Cin ? to_f(x[(t0 + r) * Cin + k]) : 0.f;
-      }
-      for (int i = tid; i < KC * LG; i += kThreads) {
-        const int k = k0 + i / LG, l = i % LG;
-        ws[i] = k < Cin ? to_f(w_enc[static_cast<long>(k) * H + g0 + l]) : 0.f;
-      }
-      if (k0 == 0)
-        for (int i = tid; i < LG; i += kThreads) benc_s[i] = b_enc[g0 + i];
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[(ty * 4 + i) * XS + kk];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = ws[kk * LG + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) pre[i][j] = fmaf(a[i], b[j], pre[i][j]);
-      }
-    }
-
-    // post, and the group's statistics: activity counts and zsum per latent
-    // (over this block's tokens), activity per token (over all latents)
-    int colc[8];
-    float zs[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      colc[j] = 0;
-      zs[j] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tx + 16 * j;
-        const float p = fmaxf(pre[i][j] + benc_s[col], 0.f);
-        const int on = p > 0.f;
-        colc[j] += on;
-        zs[j] += p;
-        rowc[i] += on;
-        post_s[(ty * 4 + i) * PS + col] = round_cd<T>(p);
-      }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      zred_s[ty * LG + tx + 16 * j] = zs[j];
-      ccnt_s[ty * LG + tx + 16 * j] = colc[j];
-    }
-    __syncthreads();
-    for (int l = tid; l < LG; l += kThreads) {
-      float z = 0.f;
-      int c = 0;
-      for (int g = 0; g < 16; ++g) {  // fixed order
-        z += zred_s[g * LG + l];
-        c += ccnt_s[g * LG + l];
-      }
-      const long o = static_cast<long>(blockIdx.x) * H + g0 + l;
-      act_part[o] = static_cast<float>(c);
-      zsum_part[o] = z;
-    }
-
-    // decode: recon[:, c0:c0+NC] += round_T(post) @ W_dec[g0:g0+LG, c0:c0+NC]
-    for (int c0 = 0; c0 < Cout; c0 += NC) {
-      float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int l0 = 0; l0 < LG; l0 += LS) {
-        __syncthreads();  // post_s is complete; the previous sub-tile is done with wd_s
-        for (int i = tid; i < LS * NC; i += kThreads) {
-          const int l = i / NC, col = c0 + i % NC;
-          wd_s[i] = col < Cout ? to_f(w_dec[static_cast<long>(g0 + l0 + l) * Cout + col]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int l = 0; l < LS; ++l) {
-          float a[4], b[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = post_s[(ty * 4 + i) * PS + l0 + l];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) b[j] = wd_s[l * NC + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = c0 + tx + 16 * j;
-          if (col < Cout) {
-            const long o = (t0 + ty * 4 + i) * Cout + col;
-            recon[o] = (g0 == 0 ? b_dec[col] : recon[o]) + acc[i][j];
-          }
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) atomicAdd(&rcnt_s[ty * 4 + i], rowc[i]);  // integer: exact
-  __syncthreads();
-  for (int i = tid; i < TT; i += kThreads) row_active[t0 + i] = static_cast<float>(rcnt_s[i]);
-}
-
-constexpr int kBufFloats = kBwdTB * (kBwdKB + 1);  // the larger of the three phases' buffers
-static_assert(kBufFloats >= kBwdTB * (kKC + 1) + kKC * (kBwdTH + 1), "phase A buffer");
-static_assert(kBufFloats >= kBwdTB * kBwdNC, "phase C buffer");
-static_assert(kThreads == 2 * kBwdNC, "phase C: two row parities per column");
-
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (2 * kBwdTB * kBwdTH  // post_s, dpre_s
-                          + kBufFloats         // buf
-                          + 2 * kBwdTH         // benc_s, ct_s
-                          + 16 * kBwdTH);      // red_s
-}
-
-// Backward. One block owns kBwdTH latents and sweeps all tokens in steps of
-// kBwdTB. Per step:
-//   A. pre and dpost [128, 64] (rows ty*8+i, columns tx+16*j) by K-loops over
-//      the input and the output channels; round_T(post) and round_T(dpre) into
-//      shared memory; db_enc accumulates in registers.
-//   B. for each chunk of kBwdKB input channels: g [128, 64] = x chunk^T @ dpre
-//      (rows ty*8+i, columns tx+16*j), added into dW_enc in device memory.
-//   C. for each chunk of kBwdNC output channels: g [64, 128] = post^T @
-//      round_T(drecon chunk) (rows ty*4+i, columns tx+16*j), added into dW_dec.
-// The first step writes the gradients, later steps add to them: each element
-// has one owning thread, which updates it in token order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
-                 const float* __restrict__ b_enc, const T* __restrict__ w_dec,
-                 const T* __restrict__ err, const float* __restrict__ coeffs,
-                 const float* __restrict__ ct, float* __restrict__ dw_enc,
-                 float* __restrict__ db_enc, float* __restrict__ dw_dec,
-                 float* __restrict__ db_dec_part, int n_tokens, int Cin, int Cout, int H) {
-  constexpr int TH = kBwdTH, TB = kBwdTB, KC = kKC, KB = kBwdKB, NC = kBwdNC;
-  constexpr int XS = KC + 1, WS = TH + 1, BS = KB + 1;
-  extern __shared__ float smem[];
-  float* post_s = smem;              // [TB][TH]  round_T(post)
-  float* dpre_s = post_s + TB * TH;  // [TB][TH]  round_T(dpre)
-  float* buf = dpre_s + TB * TH;     // per phase, below
-  float* as_ = buf;                  // A: [TB][XS] x or round_T(drecon) chunk
-  float* bs_ = buf + TB * XS;        // A: [KC][WS] W_enc chunk, or W_dec chunk transposed
-  float* xb = buf;                   // B: [TB][BS] x chunk
-  float* drb = buf;                  // C: [TB][NC] round_T(drecon) chunk
-  float* benc_s = buf + kBufFloats;  // [TH]
-  float* ct_s = benc_s + TH;         // [TH]
-  float* red_s = ct_s + TH;          // [16][TH]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int h0 = blockIdx.x * TH;
-  const float c_rec = coeffs[0];
-
-  for (int i = tid; i < TH; i += kThreads) {
-    benc_s[i] = b_enc[h0 + i];
-    ct_s[i] = ct[h0 + i];
-  }
-  float gbe[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int t0 = 0; t0 < n_tokens; t0 += TB) {
-    const bool first = t0 == 0;
-
-    // A. pre = x @ W_enc tile + b_enc, then dpost = round_T(drecon) @ W_dec tile^T
-    float pre[8][4], acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < Cin; k0 += KC) {
-      __syncthreads();  // the previous users of buf are done
-      for (int i = tid; i < TB * KC; i += kThreads) {
-        const int r = i / KC, k = k0 + i % KC;
-        as_[r * XS + i % KC] =
-            k < Cin ? to_f(x[static_cast<long>(t0 + r) * Cin + k]) : 0.f;
-      }
-      for (int i = tid; i < KC * TH; i += kThreads) {
-        const int kk = i / TH, l = i % TH, k = k0 + kk;
-        bs_[kk * WS + l] = k < Cin ? to_f(w_enc[static_cast<long>(k) * H + h0 + l]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[8], b[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = as_[(ty * 8 + i) * XS + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = bs_[kk * WS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pre[i][j] = acc[i][j] + benc_s[tx + 16 * j];
-        acc[i][j] = 0.f;
-      }
-    for (int k0 = 0; k0 < Cout; k0 += KC) {
-      __syncthreads();
-      for (int i = tid; i < TB * KC; i += kThreads) {
-        const int r = i / KC, k = k0 + i % KC;
-        as_[r * XS + i % KC] =
-            k < Cout ? round_cd<T>(c_rec * to_f(err[static_cast<long>(t0 + r) * Cout + k]))
-                     : 0.f;
-      }
-      for (int i = tid; i < TH * KC; i += kThreads) {
-        const int l = i / KC, kk = i % KC, k = k0 + kk;
-        bs_[kk * WS + l] =
-            k < Cout ? to_f(w_dec[static_cast<long>(h0 + l) * Cout + k]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[8], b[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = as_[(ty * 8 + i) * XS + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = bs_[kk * WS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = ty * 8 + i, col = tx + 16 * j;
-        const float p = pre[i][j];
-        const float dp = p > 0.f ? acc[i][j] + ct_s[col] : 0.f;
-        gbe[j] += dp;
-        post_s[row * TH + col] = round_cd<T>(fmaxf(p, 0.f));
-        dpre_s[row * TH + col] = round_cd<T>(dp);
-      }
-
-    // B. dW_enc[k0:k0+KB, tile] += x[:, k0:k0+KB]^T @ round_T(dpre)
-    for (int k0 = 0; k0 < Cin; k0 += KB) {
-      __syncthreads();  // post_s and dpre_s are complete; buf is free
-      for (int i = tid; i < TB * KB; i += kThreads) {
-        const int r = i / KB, k = k0 + i % KB;
-        xb[r * BS + i % KB] = k < Cin ? to_f(x[static_cast<long>(t0 + r) * Cin + k]) : 0.f;
-      }
-      __syncthreads();
-      float g[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) g[i][j] = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < TB; ++r) {
-        float a[8], b[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = xb[r * BS + ty * 8 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = dpre_s[r * TH + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) g[i][j] = fmaf(a[i], b[j], g[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = k0 + ty * 8 + i;
-        if (k < Cin) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const long o = static_cast<long>(k) * H + h0 + tx + 16 * j;
-            dw_enc[o] = first ? g[i][j] : dw_enc[o] + g[i][j];
-          }
-        }
-      }
-    }
-
-    // C. dW_dec[tile, c0:c0+NC] += round_T(post)^T @ round_T(drecon[:, c0:c0+NC])
-    for (int c0 = 0; c0 < Cout; c0 += NC) {
-      __syncthreads();  // the previous chunk is done with buf
-      {
-        // thread tid loads column c of every (kThreads / NC)-th row from r0;
-        // block 0 also sums those rows' f32 drecon into db_dec_part[r0, :]
-        const int c = tid % NC, r0 = tid / NC, k = c0 + c;
-        float s = 0.f;
-        for (int r = r0; r < TB; r += kThreads / NC) {
-          const float d =
-              k < Cout ? c_rec * to_f(err[static_cast<long>(t0 + r) * Cout + k]) : 0.f;
-          s += d;
-          drb[r * NC + c] = round_cd<T>(d);
-        }
-        if (blockIdx.x == 0 && k < Cout) {
-          const long o = static_cast<long>(r0) * Cout + k;
-          db_dec_part[o] = first ? s : db_dec_part[o] + s;
-        }
-      }
-      __syncthreads();
-      float g[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) g[i][j] = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < TB; ++r) {
-        float a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = post_s[r * TH + ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = drb[r * NC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) g[i][j] = fmaf(a[i], b[j], g[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int k = c0 + tx + 16 * j;
-          if (k < Cout) {
-            const long o = static_cast<long>(h0 + ty * 4 + i) * Cout + k;
-            dw_dec[o] = first ? g[i][j] : dw_dec[o] + g[i][j];
-          }
-        }
-    }
-  }
-
-  // db_enc: the per-thread column sums, reduced over the 16 thread rows in order
-#pragma unroll
-  for (int j = 0; j < 4; ++j) red_s[ty * TH + tx + 16 * j] = gbe[j];
-  __syncthreads();
-  for (int l = tid; l < TH; l += kThreads) {
-    float s = 0.f;
-    for (int g = 0; g < 16; ++g) s += red_s[g * TH + l];
-    db_enc[h0 + l] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 pair on the tensor cores (header note: "bf16 (the training path)")
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kSwRow = 128;            // bytes per row of a 128-byte-swizzled tile (64 bf16)
-constexpr int kBox = 64 * kSwRow;      // one TMA box [64 rows][64 columns] bf16: 8,192 bytes
-constexpr int kWarps = kThreads / 32;  // 8: two warpgroups, each releasing a ring slot warp by warp
-
-// forward, recon updated in place (any Cout)
-constexpr int kFSt = 3;                // ring depth
-constexpr int kTcFwdTT = 128;          // tokens per block
-constexpr int kTcFwdSub = 128;         // latents per encode sub-tile, columns per decode chunk
-constexpr int kTcFwdLG = 512;          // latents per group (round_bf16(post) held in shared memory)
-constexpr int kFSlot = 4 * kBox;       // x [128][64] and W_enc [64][128]; W_dec [64][128] uses half
-
-// forward, recon held in registers (Cout <= kHoldCout)
-constexpr int kHSt = 4;                // ring depth
-constexpr int kHoldTT = 64;            // tokens per block
-constexpr int kHoldLG = 128;           // latents per group
-constexpr int kHoldLD = 32;            // latents per W_dec tile
-constexpr int kHoldCout = 512;         // recon [64][512] f32: 128 registers a consumer thread
-constexpr int kHSlot = 4 * kBox;       // x [64][64] + W_enc [64][128], or W_dec [32][512]
-
-// backward
-constexpr int kBSt = 4;                // ring depth
-constexpr int kTcBwdTH = 64;           // latents per block
-constexpr int kTcBwdTU = 128;          // tokens per phase-A sub-step
-constexpr int kTcBwdTS = 512;          // tokens per step (post_s and dpre_s)
-constexpr int kTcBwdCC = 128;          // channels per phase-B / phase-C chunk
-constexpr int kBSlot = 3 * kBox;       // phase A: x or err [128][64] and a W tile [64][64]
-
-// the leading 1,024 bytes leave room to align the swizzled tiles; the mbarriers
-// (full and empty, one each per ring slot) come last
-constexpr size_t fwd_tc_smem_bytes() {
-  return 1024 + kFSt * kFSlot + 2 * kTcFwdLG * kTcFwdTT + sizeof(int) * kTcFwdTT + 16 * kFSt;
-}
-constexpr size_t hold_smem_bytes() {
-  return 1024 + kHSt * kHSlot + 2 * kHoldLG * kHoldTT + sizeof(int) * kHoldTT + 16 * kHSt;
-}
-constexpr size_t bwd_tc_smem_bytes() {
-  return 1024 + kBSt * kBSlot + 2 * kTcBwdTS * kSwRow + 2 * sizeof(float) * kTcBwdTH + 16 * kBSt;
-}
-static_assert(fwd_tc_smem_bytes() <= 232448 && hold_smem_bytes() <= 232448 &&
-                  bwd_tc_smem_bytes() <= 232448,
-              "shared memory");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + (1024 - smem_u32(p) % 1024) % 1024;
-}
-
-// mbarriers
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait until the barrier's phase ``parity`` has completed. A wait that lasts 10 s
-// traps: a fault in a ring then fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  uint64_t start = 0;
-  for (bool first = true;; first = false) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (first) start = now;
-    else if (now - start > 10000000000ull) __trap();
-  }
-}
-
-// TMA: box (col, row) of ``map`` (innermost coordinate first) into shared memory
-// at dst, its bytes counted on ``bar``; out-of-bounds elements arrive as zeros
-__device__ __forceinline__ void tma_box(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
-                                        int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
-      : "memory");
-}
-
-// The mbarriers of a ring of S slots: full[S] (one arrival, the issuing
-// thread's expect_tx, plus the TMA bytes) and empty[S] (one arrival per warp).
-template <int S>
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    mbar_init(&full[s], 1);
-    mbar_init(&empty[s], kWarps);
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// The issuing side, run by one thread: acquire() waits until every warp has
-// released the next slot, arms its full barrier for ``bytes`` and returns the
-// slot; the caller then issues the TMA boxes on ``bar``.
-template <int S>
-struct Producer {
-  unsigned char* ring;
-  int slot_bytes;
-  uint64_t* full;
-  uint64_t* empty;
-  int slot = 0;
-  uint32_t phase = 0;
-  uint64_t* bar = nullptr;
-
-  __device__ __forceinline__ unsigned char* acquire(uint32_t bytes) {
-    mbar_wait(&empty[slot], phase ^ 1);  // the first round passes: every slot starts free
-    bar = &full[slot];
-    mbar_expect_tx(bar, bytes);
-    unsigned char* p = ring + slot * slot_bytes;
-    if (++slot == S) slot = 0, phase ^= 1;
-    return p;
-  }
-};
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// generic-proxy accesses to shared memory (st.shared, ld.shared) ordered with
-// the async proxy's (wgmma reads, TMA writes)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The consuming side, run by every warp: next() waits for the next
-// tile; once its products are committed, issued() waits for the tile before
-// (keep_one: this tile's products stay in flight; else for all) and releases
-// that tile's slot. drain() waits for every product and releases the last
-// slot; hold() does the same but keeps the last slot as scratch until
-// release_held().
-template <int S>
-struct Consumer {
-  unsigned char* ring;
-  int slot_bytes;
-  uint64_t* full;
-  uint64_t* empty;
-  int lane;
-  int slot = 0;
-  uint32_t phase = 0;
-  int prev = -1;
-
-  __device__ __forceinline__ unsigned char* next() {
-    mbar_wait(&full[slot], phase);
-    return ring + slot * slot_bytes;
-  }
-  __device__ __forceinline__ void release(int s) {
-    if (s < 0) return;
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
-  template <bool kKeepOne>
-  __device__ __forceinline__ void issued() {
-    if constexpr (kKeepOne) wg_wait<1>();
-    else wg_wait<0>();
-    release(prev);
-    prev = slot;
-    if (++slot == S) slot = 0, phase ^= 1;
-  }
-  __device__ __forceinline__ void drain() {
-    wg_wait<0>();
-    release(prev);
-    prev = -1;
-  }
-  __device__ __forceinline__ unsigned char* hold() {
-    wg_wait<0>();
-    return ring + prev * slot_bytes;
-  }
-  __device__ __forceinline__ void release_held() {
-    fence_async_smem();  // this thread's scratch accesses before the slot's next TMA write
-    release(prev);
-    prev = -1;
-  }
-};
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// byte offset of 16-byte chunk c (0-7) of row r in a 128-byte-swizzled tile (rows
-// of 128 bytes, 8-row groups of 1,024 bytes on 1,024-byte boundaries): the
-// layout TMA's SWIZZLE_128B writes and wgmma's descriptors below read
-__device__ __forceinline__ uint32_t sw128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at smem address
-// addr. Both stride fields are the 1,024 bytes between 8-row groups: the operands
-// here are one 64-element swizzle row wide, so a K-major operand steps its 8-row
-// groups along M/N and an MN-major one along K by the same amount.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-#define SVT_WG_D                                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define SVT_WG_D_OPS(d)                                                                        \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),    \
-      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
-      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
-      "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
-      "+f"(d[7][2]), "+f"(d[7][3])
-
-// One warpgroup: d[64 rows][64 columns] = A[64, 16] @ B[16, 64] (+ d when
-// ``acc``), bf16 in, f32 accumulators; d[j][2h + e] is row 16*(warp in group) +
-// lane/4 + 8h, column 8j + 2*(lane%4) + e. A and B in shared memory
-// (descriptors); TA / TB 0 for a K-major operand, 1 for an MN-major one.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db, bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SVT_WG_D
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : SVT_WG_D_OPS(d)
-      : "l"(da), "l"(db), "r"(static_cast<int>(acc)), "n"(TA), "n"(TB));
-}
-
-// The same with A in registers: each warp's 16 rows as an mma.m16n8k16 A fragment.
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db,
-                                         bool acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SVT_WG_D
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : SVT_WG_D_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(static_cast<int>(acc)),
-        "n"(TB));
-}
-
-// round_bf16(c * v) of both halves of a bf16 pair: drecon from the stored err
-__device__ __forceinline__ uint32_t scale_pair(uint32_t v, float c) {
-  __nv_bfloat162 h;
-  memcpy(&h, &v, 4);
-  const float2 f = __bfloat1622float2(h);
-  h = __floats2bfloat162_rn(c * f.x, c * f.y);
-  memcpy(&v, &h, 4);
-  return v;
-}
-
-// Read-modify-write of a warp's accumulators, pair by pair: the pair of
-// acc[i][j][2h], acc[i][j][2h + 1] goes to at(i, h, j) (nullptr: past the width)
-// as init(i, j) + acc when ``first``, else as the stored pair + acc. Every read is
-// issued before the first write, so the reads overlap one another.
-template <int MT, int NT, typename At, typename Init>
-__device__ __forceinline__ void update_pairs(const float (&acc)[MT][NT][4], At at, Init init,
-                                             bool first) {
-  float2 prev[MT][2][NT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float2* o = at(i, h, j);
-        prev[i][h][j] = first || o == nullptr ? init(i, j) : *o;
-      }
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        if (float2* o = at(i, h, j))
-          *o = make_float2(prev[i][h][j].x + acc[i][j][2 * h],
-                           prev[i][h][j].y + acc[i][j][2 * h + 1]);
-}
-
-// Statistics of one 64-latent column block of encode accumulators (acc[j][2h +
-// e]: token ``tok0`` + 8h, latent column 8j + 2*(lane%4) + e, as wgmma_ss): post,
-// round_bf16(post) into the 128-byte-swizzled K-major block ``post_blk`` (row
-// ``tok0`` + 8h), per-token activity into rowc, and per-latent sums over the
-// warp's 16 tokens into red_z / red_c[col] (lanes 0-3 write; the caller reduces
-// over warps in a fixed order).
-__device__ __forceinline__ void post_epilogue(const float (&acc)[8][4], const float* b_enc,
-                                              unsigned char* post_blk, int tok0, int lane,
-                                              int (&rowc)[2], float* red_z, int* red_c) {
-  float zs[8][2];
-  int cc[8][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int l = j * 8 + 2 * (lane % 4);
-      float p[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[e] = fmaxf(acc[j][2 * h + e] + b_enc[l + e], 0.f);
-        const int on = p[e] > 0.f;
-        zs[j][e] = h == 0 ? p[e] : zs[j][e] + p[e];
-        cc[j][e] = h == 0 ? on : cc[j][e] + on;
-        rowc[h] += on;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(post_blk + sw128(tok0 + 8 * h, j) + (lane % 4) * 4) =
-          __floats2bfloat162_rn(p[0], p[1]);
-    }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off *= 2) {  // fixed order: the lanes of a column
-        zs[j][e] += __shfl_xor_sync(0xffffffffu, zs[j][e], off);
-        cc[j][e] += __shfl_xor_sync(0xffffffffu, cc[j][e], off);
-      }
-      if (lane < 4) {
-        red_z[j * 8 + 2 * lane + e] = zs[j][e];
-        red_c[j * 8 + 2 * lane + e] = cc[j][e];
-      }
-    }
-}
-
-// row_active of the block's tt tokens: each thread's counts for its two token
-// rows (tok0, tok0 + 8) summed over the four lanes that share them, then over
-// warps and warpgroups with integer atomics (exact, any order)
-__device__ __forceinline__ void write_row_active(const int (&rowc)[2], int* rcnt_s, int tok0,
-                                                 int lane, int tid, int tt, float* row_active) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    int c = rowc[h];
-    c += __shfl_xor_sync(0xffffffffu, c, 1);
-    c += __shfl_xor_sync(0xffffffffu, c, 2);
-    if (lane % 4 == 0) atomicAdd(&rcnt_s[tok0 + 8 * h], c);
-  }
-  __syncthreads();
-  if (tid < tt) row_active[tid] = static_cast<float>(rcnt_s[tid]);
-}
-
-// Forward, bf16, recon updated in place (Cout > kHoldCout: the crosscoder). One
-// block owns kTcFwdTT = 128 tokens; its two consumer warpgroups each compute 64
-// tokens' rows of every product with wgmma, 128 columns as two 64-wide halves;
-// thread 0 streams the tiles by TMA (issue()), every tile 64 deep, in the order
-// the warpgroups multiply them: per latent group [g0, group_end(g0)) (up to 512
-// latents),
-//   encode: per sub-tile s of 128 latents, per 64 channels: x [128][64] (K-major)
-//           and W_enc [64][128] (MN-major, two 64-wide boxes);
-//   decode: per 128-column chunk, per 64 latents: W_dec [64][128] (MN-major).
-// round_bf16(post) of the group is the decode's A operand: post_s [128][512] as
-// eight K-major [128][64] blocks.
-__global__ void __launch_bounds__(kThreads, 1)
-coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
-             const __grid_constant__ CUtensorMap m_wd, const float* __restrict__ b_enc,
-             const float* __restrict__ b_dec, float* __restrict__ recon,
-             float* __restrict__ act_part, float* __restrict__ row_active,
-             float* __restrict__ zsum_part, int Cin, int Cout, int H) {
-  constexpr int TT = kTcFwdTT, SUB = kTcFwdSub, LG = kTcFwdLG, KT = 64;
-  constexpr int kPostBlk = TT * kSwRow;  // a [128][64] block of post_s
-  extern __shared__ __align__(1024) unsigned char tc_smem_fwd[];
-  unsigned char* ring = align1024(tc_smem_fwd);
-  unsigned char* post_s = ring + kFSt * kFSlot;                 // [LG / 64][TT][64]
-  int* rcnt_s = reinterpret_cast<int*>(post_s + LG * TT * 2);  // [TT]
-  uint64_t* full = reinterpret_cast<uint64_t*>(rcnt_s + TT);
-  uint64_t* empty = full + kFSt;
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int t0 = blockIdx.x * TT;
-  const int nkc = (Cin + KT - 1) / KT, ncc = (Cout + SUB - 1) / SUB;
-  // Latent groups end at skew + 512k: blocks start a quarter group apart, so
-  // their in-place updates of recon do not all fall at the same moment.
-  const int skew = static_cast<int>(blockIdx.x % 4) * SUB;
-  auto group_end = [&](int g0) { return min(H, g0 < skew ? skew : g0 + LG); };
-  if (tid < TT) rcnt_s[tid] = 0;
-  if (tid == 0) init_ring<kFSt>(full, empty);
-  __syncthreads();
-
-  // The tile stream, issued by thread 0 one tile at a time: the next tile goes
-  // to the slot of the tile before the one just multiplied (kFSt - 1 tiles
-  // ahead), so the issuing thread waits only for the warps still on that tile.
-  const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd;  // param space
-  Producer<kFSt> prod{ring, kFSlot, full, empty};
-  int p_g0 = 0, p_dec = 0, p_a = 0, p_k = 0;
-  auto issue = [&]() {
-    if (tid != 0 || p_g0 >= H) return;
-    const int nsub = (group_end(p_g0) - p_g0) / SUB;
-    if (!p_dec) {
-      unsigned char* d = prod.acquire(4 * kBox);
-      tma_box(d, mx, prod.bar, p_k * KT, t0);
-      tma_box(d + kBox, mx, prod.bar, p_k * KT, t0 + 64);
-      tma_box(d + 2 * kBox, mwe, prod.bar, p_g0 + p_a * SUB, p_k * KT);
-      tma_box(d + 3 * kBox, mwe, prod.bar, p_g0 + p_a * SUB + 64, p_k * KT);
-      if (++p_k == nkc) {
-        p_k = 0;
-        if (++p_a == nsub) p_a = 0, p_dec = 1;
-      }
-    } else {
-      unsigned char* d = prod.acquire(2 * kBox);
-      tma_box(d, mwd, prod.bar, p_a * SUB, p_g0 + p_k * KT);
-      tma_box(d + kBox, mwd, prod.bar, p_a * SUB + 64, p_g0 + p_k * KT);
-      if (++p_k == nsub * SUB / KT) {
-        p_k = 0;
-        if (++p_a == ncc) p_a = 0, p_dec = 0, p_g0 = group_end(p_g0);
-      }
-    }
-  };
-  for (int i = 0; i < kFSt - 1; ++i) issue();
-  const int wg = warp / 4, w4 = warp % 4;  // warpgroup, warp in it
-  const int tok0 = wg * 64 + w4 * 16 + lane / 4;  // this thread's first token row
-  Consumer<kFSt> c{ring, kFSlot, full, empty, lane};
-  const uint32_t post_a = smem_u32(post_s);
-  float acc[2][8][4];  // [64-column half][n8 block][fragment]
-  int rowc[2] = {0, 0};
-  for (int g0 = 0; g0 < H; g0 = group_end(g0)) {
-    const int nsub = (group_end(g0) - g0) / SUB;
-    for (int s = 0; s < nsub; ++s) {
-      for (int k = 0; k < nkc; ++k) {
-        const uint32_t sa = smem_u32(c.next());
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int nb = 0; nb < 2; ++nb)
-            wgmma_ss<0, 1>(acc[nb], sw128_desc(sa + wg * kBox + kk * 32),
-                           sw128_desc(sa + (2 + nb) * kBox + kk * 16 * kSwRow), k + kk > 0);
-        wg_commit();
-        c.issued<true>();
-        issue();
-      }
-      // The last tile's slot stays held: after the barrier (both warpgroups'
-      // products done, the previous group's decode too) it holds the per-warp
-      // partial sums of the statistics; round_bf16(post) goes to post_s.
-      unsigned char* scratch = c.hold();
-      __syncthreads();
-      float* red_z = reinterpret_cast<float*>(scratch);  // [8 warps][SUB]
-      int* red_c = reinterpret_cast<int*>(red_z + kWarps * SUB);
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        const int lg = s * SUB + nb * 64;  // first latent of the half, within the group
-        post_epilogue(acc[nb], b_enc + g0 + lg, post_s + (lg / 64) * kPostBlk, tok0, lane, rowc,
-                      red_z + warp * SUB + nb * 64, red_c + warp * SUB + nb * 64);
-      }
-      __syncthreads();
-      {
-        const int g = tid / SUB, l = tid % SUB;  // warpgroup g's 64 tokens, latent l
-        float z = red_z[(4 * g) * SUB + l];
-        int n = red_c[(4 * g) * SUB + l];
-        for (int w = 1; w < 4; ++w) {  // fixed order
-          z += red_z[(4 * g + w) * SUB + l];
-          n += red_c[(4 * g + w) * SUB + l];
-        }
-        const long o = (static_cast<long>(blockIdx.x) * 2 + g) * H + g0 + s * SUB + l;
-        act_part[o] = static_cast<float>(n);
-        zsum_part[o] = z;
-      }
-      c.release_held();
-    }
-    fence_async_smem();  // post_s, written by this thread, before wgmma reads it
-    __syncthreads();
-
-    // decode: recon[:, chunk] += round_bf16(post) @ W_dec[g0 : g0 + nsub*128, chunk]
-    for (int a = 0; a < ncc; ++a) {
-      for (int k = 0; k < nsub * SUB / KT; ++k) {
-        const uint32_t sa = smem_u32(c.next());
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int nb = 0; nb < 2; ++nb)
-            wgmma_ss<0, 1>(acc[nb],
-                           sw128_desc(post_a + k * kPostBlk + wg * 64 * kSwRow + kk * 32),
-                           sw128_desc(sa + nb * kBox + kk * 16 * kSwRow), k + kk > 0);
-        wg_commit();
-        c.issued<true>();
-        issue();
-      }
-      c.drain();
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {  // one 64-column half at a time: fewer live registers
-        const int c0 = a * SUB + nb * 64 + 2 * (lane % 4);
-        update_pairs(
-            reinterpret_cast<const float(&)[1][8][4]>(acc[nb]),
-            [&](int, int h, int j) {
-              return c0 + j * 8 < Cout ? reinterpret_cast<float2*>(
-                                             recon + static_cast<long>(t0 + tok0 + 8 * h) * Cout +
-                                             c0 + j * 8)
-                                       : nullptr;
-            },
-            [&](int, int j) {
-              const int col = c0 + j * 8;
-              return col < Cout ? make_float2(b_dec[col], b_dec[col + 1])
-                                : make_float2(0.f, 0.f);
-            },
-            g0 == 0);
-      }
-    }
-  }
-  write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
-}
-
-// Forward, bf16, recon held in registers (Cout <= kHoldCout = 512: the
-// transcoder). One block owns kHoldTT = 64 tokens; its recon [64][512] f32
-// stays in registers for the whole latent sweep (warpgroup g
-// holds columns 256g .. 256g + 255 as four n64 accumulators) and is written
-// once. Per latent group of 128, thread 0 streams, every tile by TMA:
-//   encode: per 64 channels, x [64][64] (K-major) and W_enc [64][128] (MN-major;
-//           warpgroup g multiplies the 64 latents of box g);
-//   decode: per 32 latents, W_dec [32][512] (MN-major, eight [32][64] boxes;
-//           columns past Cout arrive as zeros).
-// round_bf16(post) of the group, post_s [64][128] as two K-major [64][64]
-// blocks (block g written by warpgroup g), is the decode's A operand.
-__global__ void __launch_bounds__(kThreads, 1)
-coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
-                  const __grid_constant__ CUtensorMap m_we,
-                  const __grid_constant__ CUtensorMap m_wd, const float* __restrict__ b_enc,
-                  const float* __restrict__ b_dec, float* __restrict__ recon,
-                  float* __restrict__ act_part, float* __restrict__ row_active,
-                  float* __restrict__ zsum_part, int Cin, int Cout, int H) {
-  constexpr int TT = kHoldTT, LG = kHoldLG, LD = kHoldLD, KT = 64;
-  constexpr int kPostBlk = TT * kSwRow;  // a [64][64] block of post_s
-  constexpr int kHalfBox = LD * kSwRow;  // a [32][64] box of W_dec
-  extern __shared__ __align__(1024) unsigned char tc_smem_hold[];
-  unsigned char* ring = align1024(tc_smem_hold);
-  unsigned char* post_s = ring + kHSt * kHSlot;                 // [2][TT][64]
-  int* rcnt_s = reinterpret_cast<int*>(post_s + LG * TT * 2);  // [TT]
-  uint64_t* full = reinterpret_cast<uint64_t*>(rcnt_s + TT);
-  uint64_t* empty = full + kHSt;
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int t0 = blockIdx.x * TT;
-  const int nkc = (Cin + KT - 1) / KT;
-  if (tid < TT) rcnt_s[tid] = 0;
-  if (tid == 0) init_ring<kHSt>(full, empty);
-  __syncthreads();
-
-  // the tile stream, issued by thread 0 as coder_fwd_tc's
-  const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd;  // param space
-  Producer<kHSt> prod{ring, kHSlot, full, empty};
-  int p_g0 = 0, p_dec = 0, p_k = 0;
-  auto issue = [&]() {
-    if (tid != 0 || p_g0 >= H) return;
-    if (!p_dec) {
-      unsigned char* d = prod.acquire(3 * kBox);
-      tma_box(d, mx, prod.bar, p_k * KT, t0);
-      tma_box(d + kBox, mwe, prod.bar, p_g0, p_k * KT);
-      tma_box(d + 2 * kBox, mwe, prod.bar, p_g0 + 64, p_k * KT);
-      if (++p_k == nkc) p_k = 0, p_dec = 1;
-    } else {
-      unsigned char* d = prod.acquire(8 * kHalfBox);
-#pragma unroll
-      for (int b = 0; b < 8; ++b)
-        tma_box(d + b * kHalfBox, mwd, prod.bar, b * 64, p_g0 + p_k * LD);
-      if (++p_k == LG / LD) p_k = 0, p_dec = 0, p_g0 += LG;
-    }
-  };
-  for (int i = 0; i < kHSt - 1; ++i) issue();
-  const int wg = warp / 4, w4 = warp % 4;
-  const int tok0 = w4 * 16 + lane / 4;
-  Consumer<kHSt> c{ring, kHSlot, full, empty, lane};
-  const uint32_t post_a = smem_u32(post_s);
-  float rec[4][8][4];  // recon rows tok0 (+8), columns 256*wg + 64*nb + ...
-  float acc[8][4];     // encode: the group's latents 64*wg .. 64*wg + 63
-  int rowc[2] = {0, 0};
-  for (int g0 = 0; g0 < H; g0 += LG) {
-    for (int k = 0; k < nkc; ++k) {
-      const uint32_t sa = smem_u32(c.next());
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss<0, 1>(acc, sw128_desc(sa + kk * 32),
-                       sw128_desc(sa + (1 + wg) * kBox + kk * 16 * kSwRow), k + kk > 0);
-      wg_commit();
-      c.issued<true>();
-      issue();
-    }
-    // as coder_fwd_tc: the held slot takes the partial sums, post_s the post
-    unsigned char* scratch = c.hold();
-    __syncthreads();
-    float* red_z = reinterpret_cast<float*>(scratch);  // [8 warps][64]
-    int* red_c = reinterpret_cast<int*>(red_z + kWarps * 64);
-    post_epilogue(acc, b_enc + g0 + wg * 64, post_s + wg * kPostBlk, tok0, lane, rowc,
-                  red_z + warp * 64, red_c + warp * 64);
-    fence_async_smem();  // post_s before wgmma reads it
-    __syncthreads();
-    if (tid < LG) {  // latent tid of the group: warpgroup tid / 64's four warps, in order
-      const int g = tid / 64, l = tid % 64;
-      float z = red_z[(4 * g) * 64 + l];
-      int n = red_c[(4 * g) * 64 + l];
-      for (int w = 1; w < 4; ++w) {
-        z += red_z[(4 * g + w) * 64 + l];
-        n += red_c[(4 * g + w) * 64 + l];
-      }
-      const long o = static_cast<long>(blockIdx.x) * H + g0 + tid;
-      act_part[o] = static_cast<float>(n);
-      zsum_part[o] = z;
-    }
-    c.release_held();
-
-    // decode: rec += round_bf16(post) @ W_dec[g0 : g0 + 128, 256*wg : 256*wg + 256]
-    for (int k = 0; k < LG / LD; ++k) {
-      const uint32_t sa = smem_u32(c.next());
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < LD / 16; ++kk) {
-        const int lk = k * LD + kk * 16;  // latent within the group
-#pragma unroll
-        for (int nb = 0; nb < 4; ++nb)
-          wgmma_ss<0, 1>(rec[nb],
-                         sw128_desc(post_a + (lk / 64) * kPostBlk + (lk % 64) * 2),
-                         sw128_desc(sa + (4 * wg + nb) * kHalfBox + kk * 16 * kSwRow),
-                         g0 + k + kk > 0);
-      }
-      wg_commit();
-      c.issued<true>();
-      issue();
-    }
-  }
-  c.drain();
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = wg * 256 + nb * 64 + j * 8 + 2 * (lane % 4);
-      if (col < Cout) {
-        const float2 b = make_float2(b_dec[col], b_dec[col + 1]);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(recon + static_cast<long>(t0 + tok0 + 8 * h) * Cout + col) =
-              make_float2(rec[nb][j][2 * h] + b.x, rec[nb][j][2 * h + 1] + b.y);
-      }
-    }
-  write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
-}
-
-// Backward, bf16. One block owns kTcBwdTH = 64 latents and sweeps the tokens in
-// steps of kTcBwdTS = 512; its two warpgroups each compute a 64 x 64 piece of
-// every product with wgmma, and thread 0 streams the tiles by TMA (issue()),
-// per step (every tile 64 deep):
-//   A. per 128 tokens: per 64 channels of Cin, x [128][64] and W_enc [64][64];
-//      then per 64 channels of Cout, err [128][64] and W_dec [64][64];
-//   B. per 128 input channels, per 64 tokens: x [64][128];
-//   C. per 128 output columns, per 64 tokens: err [64][128].
-// Phase A computes pre = x @ W_enc (both operands from shared memory) and dpost
-// = round_bf16(c_rec*err) @ W_dec^T (A from registers: ldmatrix, scaled and
-// rounded), per warpgroup 64 tokens; round_bf16(post) and round_bf16(dpre) go to
-// post_s and dpre_s [512][64] (swizzled, MN-major operands of B and C). Phase B:
-// dW_enc[chunk] = x^T @ dpre_s, per warpgroup 64 channels (x MN-major). Phase C:
-// dW_dec[:, chunk]^T = round_bf16(c_rec*err)^T @ post_s, per warpgroup 64
-// columns (A from registers, ldmatrix.trans). The first step writes dW_enc and
-// dW_dec, later steps add to them. Step si's db_dec partial (row si of
-// db_dec_part) is summed in phase C by block si % gridDim.x from the err tiles
-// it already holds.
-__global__ void __launch_bounds__(kThreads, 1)
-coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
-             const __grid_constant__ CUtensorMap m_wd, const __grid_constant__ CUtensorMap m_err,
-             const float* __restrict__ b_enc, const float* __restrict__ coeffs,
-             const float* __restrict__ ct, float* __restrict__ dw_enc,
-             float* __restrict__ db_enc, float* __restrict__ dw_dec,
-             float* __restrict__ db_dec_part, int n_tokens, int Cin, int Cout, int H) {
-  constexpr int TH = kTcBwdTH, TU = kTcBwdTU, TS = kTcBwdTS, CC = kTcBwdCC, KT = 64;
-  extern __shared__ __align__(1024) unsigned char tc_smem_bwd[];
-  unsigned char* ring = align1024(tc_smem_bwd);
-  unsigned char* post_s = ring + kBSt * kBSlot;  // [TS][64] round_bf16(post)
-  unsigned char* dpre_s = post_s + TS * kSwRow;  // [TS][64] round_bf16(dpre)
-  float* benc_s = reinterpret_cast<float*>(dpre_s + TS * kSwRow);  // [TH]
-  float* ct_s = benc_s + TH;                                        // [TH]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ct_s + TH);
-  uint64_t* empty = full + kBSt;
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int h0 = blockIdx.x * TH;
-  const int nki = (Cin + KT - 1) / KT, nko = (Cout + KT - 1) / KT;
-  const int nci = (Cin + CC - 1) / CC, nco = (Cout + CC - 1) / CC;
-  if (tid < TH) {
-    benc_s[tid] = b_enc[h0 + tid];
-    ct_s[tid] = ct[h0 + tid];
-  }
-  if (tid == 0) init_ring<kBSt>(full, empty);
-  __syncthreads();
-
-  // the tile stream, issued by thread 0 as coder_fwd_tc's
-  const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd, *merr = &m_err;  // param space
-  Producer<kBSt> prod{ring, kBSlot, full, empty};
-  int p_t = 0, p_ph = 0, p_a = 0, p_k = 0;
-  auto issue = [&]() {
-    if (tid != 0 || p_t >= n_tokens) return;
-    const int ntok = min(TS, n_tokens - p_t);
-    if (p_ph == 0) {  // A
-      const int r0 = p_t + p_a * TU;
-      unsigned char* d = prod.acquire(3 * kBox);
-      if (p_k < nki) {
-        tma_box(d, mx, prod.bar, p_k * KT, r0);
-        tma_box(d + kBox, mx, prod.bar, p_k * KT, r0 + 64);
-        tma_box(d + 2 * kBox, mwe, prod.bar, h0, p_k * KT);
-      } else {
-        const int k0 = (p_k - nki) * KT;
-        tma_box(d, merr, prod.bar, k0, r0);
-        tma_box(d + kBox, merr, prod.bar, k0, r0 + 64);
-        tma_box(d + 2 * kBox, mwd, prod.bar, k0, h0);
-      }
-      if (++p_k == nki + nko) {
-        p_k = 0;
-        if (++p_a == ntok / TU) p_a = 0, p_ph = 1;
-      }
-    } else {  // B (x) or C (err)
-      const bool b = p_ph == 1;
-      unsigned char* d = prod.acquire(2 * kBox);
-      const int r = p_t + p_k * KT;
-      if (b) {  // a branch, not a select of the two maps: nvcc 12.8's cicc crashes on that
-        tma_box(d, mx, prod.bar, p_a * CC, r);
-        tma_box(d + kBox, mx, prod.bar, p_a * CC + 64, r);
-      } else {
-        tma_box(d, merr, prod.bar, p_a * CC, r);
-        tma_box(d + kBox, merr, prod.bar, p_a * CC + 64, r);
-      }
-      if (++p_k == ntok / KT) {
-        p_k = 0;
-        if (++p_a == (b ? nci : nco)) {
-          p_a = 0;
-          if (++p_ph == 3) p_ph = 0, p_t += TS;
-        }
-      }
-    }
-  };
-  for (int i = 0; i < kBSt - 1; ++i) issue();
-  const int wg = warp / 4, w4 = warp % 4;  // warpgroup, warp in it
-  const int li = lane / 8, lr = lane % 8;  // ldmatrix: which 8x8 matrix, which row of it
-  const float c_rec = coeffs[0];
-  Consumer<kBSt> c{ring, kBSlot, full, empty, lane};
-
-  // A fragments of round_bf16(c_rec * err) from a swizzled err tile, 4 k16 steps:
-  // rows (A's M) along the tile's rows (tr false) or along its columns (tr true)
-  auto err_frags = [&](uint32_t (&af)[4][4], const unsigned char* tile, bool tr) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
-      if (tr)
-        ldsm_x4_t(af[kk], reinterpret_cast<const bf16*>(
-                              tile + sw128(kk * 16 + lr + (li / 2) * 8, w4 * 2 + li % 2)));
-      else
-        ldsm_x4(af[kk], reinterpret_cast<const bf16*>(
-                            tile + sw128(wg * 64 + w4 * 16 + lr + (li % 2) * 8, kk * 2 + li / 2)));
-#pragma unroll
-      for (int r = 0; r < 4; ++r) af[kk][r] = scale_pair(af[kk][r], c_rec);
-    }
-  };
-
-  const uint32_t post_a = smem_u32(post_s), dpre_a = smem_u32(dpre_s);
-  float gbe[8][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) gbe[j][0] = gbe[j][1] = 0.f;
-
-  for (int t = 0, si = 0; t < n_tokens; t += TS, ++si) {
-    const int ntok = min(TS, n_tokens - t);
-    const bool first = t == 0;
-
-    // A. pre = x @ W_enc tile + b_enc, dpost = round_bf16(c_rec*err) @ W_dec tile^T
-    for (int u = 0; u < ntok / TU; ++u) {
-      float pre[8][4], dp[8][4];
-      for (int k = 0; k < nki; ++k) {
-        const uint32_t s = smem_u32(c.next());
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<0, 1>(pre, sw128_desc(s + wg * kBox + kk * 32),
-                         sw128_desc(s + 2 * kBox + kk * 16 * kSwRow), k + kk > 0);
-        wg_commit();
-        c.issued<true>();
-        issue();
-      }
-      for (int k = 0; k < nko; ++k) {
-        const unsigned char* slot = c.next();
-        uint32_t af[4][4];
-        err_frags(af, slot, false);
-        const uint32_t s = smem_u32(slot);
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<0>(dp, af[kk], sw128_desc(s + 2 * kBox + kk * 32), k + kk > 0);
-        wg_commit();
-        c.issued<false>();  // af is rewritten by the next tile
-        issue();
-      }
-      c.drain();
-      __syncthreads();  // phases B and C of the last step are done with post_s, dpre_s
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int tok = u * TU + wg * 64 + w4 * 16 + lane / 4 + 8 * h, l = j * 8 + 2 * (lane % 4);
-          float p[2], d[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            p[e] = pre[j][2 * h + e] + benc_s[l + e];
-            d[e] = p[e] > 0.f ? dp[j][2 * h + e] + ct_s[l + e] : 0.f;
-            gbe[j][e] += d[e];
-          }
-          const uint32_t o = sw128(tok, j) + (lane % 4) * 4;
-          *reinterpret_cast<__nv_bfloat162*>(post_s + o) =
-              __floats2bfloat162_rn(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f));
-          *reinterpret_cast<__nv_bfloat162*>(dpre_s + o) = __floats2bfloat162_rn(d[0], d[1]);
-        }
-    }
-    fence_async_smem();  // post_s and dpre_s before wgmma reads them
-    __syncthreads();
-
-    // B. dW_enc[chunk, tile] += x[:, chunk]^T @ round_bf16(dpre) over the step's tokens
-    for (int ci = 0; ci < nci; ++ci) {
-      float g[8][4];
-      for (int k = 0; k < ntok / KT; ++k) {
-        const uint32_t s = smem_u32(c.next());
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<1, 1>(g, sw128_desc(s + wg * kBox + kk * 16 * kSwRow),
-                         sw128_desc(dpre_a + (k * KT + kk * 16) * kSwRow), k + kk > 0);
-        wg_commit();
-        c.issued<true>();
-        issue();
-      }
-      c.drain();
-      update_pairs(
-          reinterpret_cast<const float(&)[1][8][4]>(g),
-          [&](int, int h, int j) {
-            const int ch = ci * CC + wg * 64 + w4 * 16 + lane / 4 + 8 * h;
-            return ch < Cin ? reinterpret_cast<float2*>(dw_enc + static_cast<long>(ch) * H + h0 +
-                                                        j * 8 + 2 * (lane % 4))
-                            : nullptr;
-          },
-          [](int, int) { return make_float2(0.f, 0.f); }, first);
-    }
-
-    // C. dW_dec[tile, chunk] += round_bf16(post)^T @ round_bf16(c_rec*err[:, chunk]),
-    // computed transposed: round_bf16(c_rec*err[:, chunk])^T @ round_bf16(post)
-    const bool own_db = si % gridDim.x == blockIdx.x;
-    for (int ci = 0; ci < nco; ++ci) {
-      float g[8][4];
-      float dd = 0.f;  // own_db: column ci*CC + tid of db_dec over the step (tid < CC)
-      for (int k = 0; k < ntok / KT; ++k) {
-        const unsigned char* slot = c.next();
-        uint32_t af[4][4];
-        err_frags(af, slot + wg * kBox, true);
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<1>(g, af[kk], sw128_desc(post_a + (k * KT + kk * 16) * kSwRow), k + kk > 0);
-        wg_commit();
-        if (own_db && tid < CC) {
-          const unsigned char* col = slot + (tid / 64) * kBox + (tid % 8) * 2;
-          for (int r = 0; r < KT; ++r)
-            dd += c_rec * __bfloat162float(
-                              *reinterpret_cast<const bf16*>(col + sw128(r, (tid % 64) / 8)));
-        }
-        c.issued<false>();
-        issue();
-      }
-      c.drain();
-      // g[j][2h + e]: output column ci*CC + wg*64 + w4*16 + lane/4 + 8h, latent
-      // h0 + 8j + 2*(lane%4) + e; every read before the first write
-      const int col = ci * CC + wg * 64 + w4 * 16 + lane / 4;
-      float prev[8][2][2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const long o = static_cast<long>(h0 + j * 8 + 2 * (lane % 4) + e) * Cout + col + 8 * h;
-            prev[j][h][e] = first || col + 8 * h >= Cout ? 0.f : dw_dec[o];
-          }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const long o = static_cast<long>(h0 + j * 8 + 2 * (lane % 4) + e) * Cout + col + 8 * h;
-            if (col + 8 * h < Cout) dw_dec[o] = prev[j][h][e] + g[j][2 * h + e];
-          }
-      if (own_db && tid < CC && ci * CC + tid < Cout)
-        db_dec_part[static_cast<long>(si) * Cout + ci * CC + tid] = dd;
-    }
-  }
-
-  // db_enc: per-thread column sums, over the lanes of a column, then over the
-  // eight warps' row groups, in a fixed order; the ring is free once every
-  // consumer is past its last tile
-  __syncthreads();
-  float* red_s = reinterpret_cast<float*>(ring);  // [8][TH]
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = gbe[j][e];
-#pragma unroll
-      for (int off = 4; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane < 4) red_s[warp * TH + j * 8 + 2 * lane + e] = v;
-    }
-  __syncthreads();
-  if (tid < TH) {
-    float v = red_s[tid];
-    for (int w = 1; w < 8; ++w) v += red_s[w * TH + tid];
-    db_enc[h0 + tid] = v;
-  }
-}
-
-bool bad_shape(int n_tokens, int c_in, int c_out, int H) {
-  return n_tokens <= 0 || c_in <= 0 || c_out <= 0 || H <= 0 || n_tokens % kBwdTB ||
-         H % kFwdLG;
-}
-
-// the bf16 bodies read 16-byte-aligned rows of whole 16-byte chunks (TMA's
-// rule for global strides): widths multiples of 8, aligned operands
-bool bad_tc_operands(int c_in, int c_out, const void* x, const void* w_enc, const void* w_dec,
-                     const void* out) {
-  auto mis = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  return c_in % 8 || c_out % 8 || mis(x) || mis(w_enc) || mis(w_dec) || mis(out);
-}
-
-// cuTensorMapEncodeTiled is a driver function: reached through the runtime's
-// entry-point query, so the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                                  &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor map of the row-major bf16 matrix [rows][cols] at base, read in boxes of
-// [box_rows][64] into the 128-byte-swizzled layout; reads past an edge fill
-// zeros. Built per call: the pointers change.
-cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-}  // namespace
+// Fused transcoder and crosscoder kernels for Hopper (sm_90a): the C entry
+// points of the coder body family (coder.cuh, which holds the bodies, their
+// header note and what they replace: sparse_vision_tpu/ops/fused_transcoder.py
+// _fwd_kernel :41 / _bwd_kernel :91 and fused_crosscoder.py _fwd_kernel :68 /
+// _bwd_kernel :109). The bodies' SAE additions are off here (kPrefix, kSae
+// false). Entry points use a plain C interface (pointers, sizes, stream) and
+// return the cudaError_t of the launch; the Python wrappers
+// (ops/fused_transcoder.py, ops/fused_crosscoder.py) raise on a non-zero value.
+
+#include "coder.cuh"
 
 // act_part and zsum_part are [n_tokens / 64, H] (per-64-token partials), recon
-// [n_tokens, c_out] f32, row_active [n_tokens]. bf16 != 0 selects __nv_bfloat16
-// operands (coder_fwd_tc_hold for c_out <= 512, else coder_fwd_tc), else float
-// (coder_fwd_kernel).
+// [n_tokens, c_out] f32, row_active [n_tokens] (coder_fwd).
 extern "C" int svt_coder_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                              const void* w_dec, const float* b_dec, float* recon,
                              float* act_part, float* row_active, float* zsum_part,
                              int n_tokens, int c_in, int c_out, int H, cudaStream_t stream) {
-  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
-  if (bf16) {
-    if (bad_tc_operands(c_in, c_out, x, w_enc, w_dec, recon)) return cudaErrorInvalidValue;
-    const bool hold = c_out <= kHoldCout;
-    CUtensorMap mx, mwe, mwd;
-    cudaError_t e;
-    if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwd, w_dec, H, c_out, hold ? kHoldLD : 64)) != cudaSuccess)
-      return e;
-    if (hold)
-      return svt::launch(coder_fwd_tc_hold, n_tokens / kHoldTT, hold_smem_bytes(), stream, mx,
-                         mwe, mwd, b_enc, b_dec, recon, act_part, row_active, zsum_part, c_in,
-                         c_out, H);
-    return svt::launch(coder_fwd_tc, n_tokens / kTcFwdTT, fwd_tc_smem_bytes(), stream, mx, mwe,
-                       mwd, b_enc, b_dec, recon, act_part, row_active, zsum_part, c_in, c_out, H);
-  }
-  return svt::launch(coder_fwd_kernel<float>, n_tokens / kFwdTT, fwd_smem_bytes(), stream,
-                     static_cast<const float*>(x), static_cast<const float*>(w_enc), b_enc,
-                     static_cast<const float*>(w_dec), b_dec, recon, act_part, row_active,
-                     zsum_part, c_in, c_out, H);
+  return coder_fwd<false>(bf16, x, w_enc, b_enc, w_dec, b_dec, recon, act_part, row_active,
+                          zsum_part, n_tokens, c_in, c_out, H, svt::one_level(H), stream);
 }
 
 // err is [n_tokens, c_out] in the operand type; coeffs is a 1-float device array
-// (c_rec), ct the [H] per-latent L1 cotangent. Outputs f32: dw_enc [c_in, H],
-// db_enc [H], dw_dec [H, c_out], db_dec_part: float operands [2, c_out] (two
-// partial sums over alternate token rows), bf16 [ceil(n_tokens / 512), c_out]
-// (one per 512-token step); db_dec is the sum of its rows.
+// (c_rec), ct the [H] per-latent L1 cotangent; outputs as coder_bwd's.
 extern "C" int svt_coder_bwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                              const void* w_dec, const void* err, const float* coeffs,
                              const float* ct, float* dw_enc, float* db_enc, float* dw_dec,
                              float* db_dec_part, int n_tokens, int c_in, int c_out, int H,
                              cudaStream_t stream) {
-  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
-  if (bf16) {
-    if (bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err)) return cudaErrorInvalidValue;
-    CUtensorMap mx, mwe, mwd, merr;
-    cudaError_t e;
-    if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwd, w_dec, H, c_out, 64)) != cudaSuccess ||
-        (e = bf16_map(&merr, err, n_tokens, c_out, 64)) != cudaSuccess)
-      return e;
-    return svt::launch(coder_bwd_tc, H / kTcBwdTH, bwd_tc_smem_bytes(), stream, mx, mwe, mwd,
-                       merr, b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens,
-                       c_in, c_out, H);
-  }
-  return svt::launch(coder_bwd_kernel<float>, H / kBwdTH, bwd_smem_bytes(), stream,
-                     static_cast<const float*>(x), static_cast<const float*>(w_enc), b_enc,
-                     static_cast<const float*>(w_dec), static_cast<const float*>(err), coeffs,
-                     ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H);
+  return coder_bwd<false>(bf16, x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
+                          db_dec_part, n_tokens, c_in, c_out, H,
+                          SaeBwd{svt::one_level(H), nullptr, nullptr}, stream);
 }

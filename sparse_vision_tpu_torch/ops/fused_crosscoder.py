@@ -1,6 +1,6 @@
 """Fused crosscoder training op: L-layer encode + ReLU + L-layer decode +
 per-layer MSE + decoder-norm-weighted L1 + dead-latent statistics, through the
-kernels of csrc/fused_transcoder.cu.
+kernels of csrc/fused_transcoder.cu (the coder bodies of csrc/coder.cuh).
 
 Port of sparse_vision_tpu/ops/fused_crosscoder.py. The crosscoder reduces to one
 transcoder-shaped kernel pair by concatenation and per-column scaling:
@@ -54,7 +54,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     run_on_device,
 )
 from sparse_vision_tpu_torch.ops.fused_transcoder import (
-    can_fuse,  # the shared kernels' (T, H) constraints, for callers
+    can_fuse,  # the shared kernels' shape and width rule, for callers
     coder_backward_launch,
     coder_backward_plain,
     coder_forward_launch,
@@ -76,7 +76,7 @@ def fused_crosscoder_backward_plain(x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum
 
 
 class _ForwardKernel(Kernel):
-    """csrc coder_fwd_kernel for the crosscoder."""
+    """The coder forward (csrc/coder.cuh) for the crosscoder."""
 
     name = "fused_crosscoder_fwd"
 
@@ -85,7 +85,8 @@ class _ForwardKernel(Kernel):
 
 
 class _BackwardKernel(Kernel):
-    """csrc coder_bwd_kernel for the crosscoder: the per-latent L1 cotangent."""
+    """The coder backward (csrc/coder.cuh) for the crosscoder: the per-latent L1
+    cotangent."""
 
     name = "fused_crosscoder_bwd"
 

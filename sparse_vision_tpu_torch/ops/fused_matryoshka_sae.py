@@ -1,28 +1,35 @@
-"""Fused Matryoshka-SAE training op (Bussmann et al. 2024): the ReLU-SAE kernels
-of csrc/fused_sae.cu, with the loss averaged over nested latent prefixes.
+"""Fused Matryoshka-SAE training op (Bussmann et al. 2024): the ReLU-SAE entry
+points of csrc/fused_sae.cu (the coder bodies of csrc/coder.cuh on the centred
+input), with the loss averaged over nested latent prefixes.
 
 Port of sparse_vision_tpu/ops/fused_matryoshka_sae.py. The objective is
 loss = mean_p MSE(x̂_p, x) + λ·L1, where x̂_p decodes only the first b_p latents
 (models/sae.matryoshka_sae_apply); run stock, that is P [T, H] latent
 materializations. Fused, it costs almost nothing over the ReLU op:
-  - forward: the ReLU forward kernel accumulates each token tile's
-    reconstruction over the latent tiles in order, so the accumulator passes
-    through every prefix reconstruction; the kernel writes a snapshot of it at
-    the end of each prefix into prefix_recon [P, T, C] (f32). The per-prefix
-    losses are assembled here from ``prefix_recon − x`` in full precision.
+  - forward: the forward body accumulates each token tile's reconstruction
+    over the latent groups in order, so the accumulator passes through every
+    prefix reconstruction; the kernel writes a snapshot of it at the end of
+    each prefix into prefix_recon [P, T, C] (f32). The per-prefix losses are
+    assembled here from ``prefix_recon − x`` in full precision.
   - backward: the cotangent of latent tile j's contribution sums the errors of
     every prefix that contains it, the suffix-weighted error
     S_q = Σ_{p≥q} c_p·err_p (c_p = g_p·2/(T·C)) with q = level(j). S [P, T, C]
     is computed here from the saved errors, cast to the compute dtype, and the
-    ReLU backward and dx kernels read S[level(j)] with c_rec = 1 where they
+    backward body and dx kernel read S[level(j)] with c_rec = 1 where they
     read c_rec·err (so the kernel's rounding of 1·S is exact and the cast
-    points are the Pallas body's). The direct b_dec term is Σ_t S_0.
+    points are the Pallas body's). The direct b_dec term is Σ_t S_0, summed by
+    the blocks of level 0.
+As for the ReLU op (ops/fused_sae.py), the forward entry point centres x first
+and the backward runs on the saved x_cent; the glue around each entry point
+(partial reductions, the centring rows of db_dec) is shared by the CPU path,
+where the entry points' plain versions stand.
 
 Dispatch rule (ops/fused_sae.run_on_device): a CPU tensor runs the plain
 PyTorch version of each kernel; a CUDA tensor launches the kernel or raises.
 
-Kernel constraint: every prefix boundary is a multiple of the latent tile (64),
-so each prefix ends at a tile boundary (can_fuse_matryoshka).
+Kernel constraint: every prefix boundary is a multiple of the latent group
+(128, the JAX op's latent quantum), so each prefix ends at a group boundary
+(can_fuse_matryoshka).
 
 Differentiability contract: gradients flow through ``prefix_losses`` and
 ``l1_loss`` only; the other outputs are metrics. ``x`` gets its gradient from
@@ -50,26 +57,33 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _expect,
     _ptrs,
     _r,
+    backward_outputs,
+    centring_rows_plain,
+    check_dx_operands,
+    coder_backward_plain,
     compute_dtype_of,
+    forward_outputs,
     run_on_device,
 )
 
 TILE_H = fused_sae.TILE_H
-MAX_LEVELS = 16  # kMaxLevels of csrc/fused_sae.cu
+MAX_LEVELS = 16  # kMaxLevels of csrc/sae_common.cuh
 
 
-def can_fuse_matryoshka(t: int, h: int, boundaries: tuple, c: int = 256) -> bool:
-    """True when the CUDA kernels take this shape: the ReLU kernels' can_fuse, and
-    at most MAX_LEVELS prefix boundaries, strictly increasing, each a multiple of
-    the latent tile, the last equal to H. The CPU plain versions take any valid
-    boundaries."""
+def _levels_ok(h: int, boundaries: tuple, quantum: int) -> bool:
     b = list(boundaries)
-    return (
-        0 < len(b) <= MAX_LEVELS and b[-1] == h and b[0] > 0
-        and all(lo < hi for lo, hi in zip(b, b[1:]))
-        and all(v % TILE_H == 0 for v in b)
-        and fused_sae.can_fuse(t, h, c)
-    )
+    return (0 < len(b) <= MAX_LEVELS and b[-1] == h and b[0] > 0
+            and all(lo < hi for lo, hi in zip(b, b[1:]))
+            and all(v % quantum == 0 for v in b))
+
+
+def can_fuse_matryoshka(t: int, h: int, boundaries: tuple, c: int = 256,
+                        dtype=_BF16) -> bool:
+    """True when the CUDA forward and backward take this shape in ``dtype``: the
+    ReLU op's can_fuse, and at most MAX_LEVELS prefix boundaries, strictly
+    increasing, each a multiple of the latent group (128), the last equal to H.
+    The CPU plain versions take any valid boundaries."""
+    return _levels_ok(h, boundaries, TILE_H) and fused_sae.can_fuse(t, h, c, dtype)
 
 
 def _segments(boundaries):
@@ -81,19 +95,22 @@ def _segments(boundaries):
 # plain versions (CPU path; the reference the kernels are held against)
 # ---------------------------------------------------------------------------
 
-def fused_matryoshka_forward_plain(x, w_enc, b_enc, w_dec, b_dec, boundaries):
-    """Plain forward of csrc sae_fwd_kernel<.., true>. ``x``, ``w_enc``, ``w_dec``
-    are in the compute dtype. Returns (prefix_recon [P, T, C] f32, act_count [H],
-    row_active [T], l1_sum scalar); prefix p sums the decodes of levels 0..p."""
-    cd = x.dtype
-    xc = (x - b_dec.to(cd)).float()
-    pre = xc @ w_enc.float() + b_enc
-    post = torch.relu(pre)
-    postc, wd = _r(post, cd), w_dec.float()
+def _prefix_forward(x_cent, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """(prefix_recon [P, T, C] f32, post > 0, post) of the centred input; prefix
+    p sums the decodes of levels 0..p."""
+    post = torch.relu(x_cent.float() @ w_enc.float() + b_enc)
+    postc, wd = _r(post, x_cent.dtype), w_dec.float()
     parts = torch.stack([postc[:, lo:hi] @ wd[lo:hi] for _, lo, hi in _segments(boundaries)])
-    active = post > 0
-    return (parts.cumsum(0) + b_dec, active.sum(0).float(), active.sum(1).float(),
-            post.sum())
+    return parts.cumsum(0) + b_dec, post > 0, post
+
+
+def fused_matryoshka_forward_plain(x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """The op's forward in plain PyTorch, the reference the kernels are held to.
+    ``x``, ``w_enc``, ``w_dec`` are in the compute dtype. Returns (prefix_recon
+    [P, T, C] f32, act_count [H], row_active [T], l1_sum scalar)."""
+    prefix_recon, active, post = _prefix_forward(
+        fused_sae.center_plain(x, b_dec), w_enc, b_enc, w_dec, b_dec, boundaries)
+    return prefix_recon, active.sum(0).float(), active.sum(1).float(), post.sum()
 
 
 def _levels_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
@@ -112,10 +129,10 @@ def _levels_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
 
 
 def fused_matryoshka_backward_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
-    """Plain backward of csrc sae_bwd_kernel over P levels. ``s`` is the
-    suffix-weighted error [P, T, C] in the compute dtype, ``coeffs`` = (c_rec,
-    c_l1) with c_rec = 1 on the main path. Returns f32 (dW_enc [C, H], db_enc
-    [H], dW_dec [H, C], db_dec [C])."""
+    """The op's backward over P levels in plain PyTorch, the reference the kernels
+    are held to. ``s`` is the suffix-weighted error [P, T, C] in the compute
+    dtype, ``coeffs`` = (c_rec, c_l1) with c_rec = 1 on the main path. Returns
+    f32 (dW_enc [C, H], db_enc [H], dW_dec [H, C], db_dec [C])."""
     cd = x.dtype
     dw_enc, db_enc, dw_dec = [], [], []
     db_dec = (coeffs[0] * s[0].float()).sum(0)  # the direct term, level 0 once
@@ -140,6 +157,28 @@ def fused_matryoshka_dx_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundari
     return dx
 
 
+def matryoshka_fwd_plain(x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """Plain version of the forward entry point svt_matryoshka_fwd (fwd_kernel):
+    (x_cent, prefix_recon, act_part, row_active, zsum_part), the per-latent
+    partials as one row."""
+    x_cent = fused_sae.center_plain(x, b_dec)
+    prefix_recon, active, post = _prefix_forward(x_cent, w_enc, b_enc, w_dec, b_dec, boundaries)
+    return (x_cent, prefix_recon, active.sum(0).float()[None], active.sum(1).float(),
+            post.sum(0)[None])
+
+
+def matryoshka_bwd_plain(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    """Plain version of the backward entry point svt_matryoshka_bwd (bwd_kernel):
+    per level q, the coder backward of its latents on S_q; db_dec_part holds
+    Σ_t c_rec·S_0, then the centring row."""
+    parts = [coder_backward_plain(x_cent, w_enc[:, lo:hi], b_enc[lo:hi], w_dec[lo:hi], s[q],
+                                  coeffs[0], coeffs[1])
+             for q, lo, hi in _segments(boundaries)]
+    db_enc = torch.cat([p[1] for p in parts])
+    return (torch.cat([p[0] for p in parts], 1), db_enc, torch.cat([p[2] for p in parts]),
+            torch.cat([parts[0][3][None], centring_rows_plain(db_enc, w_enc)]))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (entry points of csrc/fused_sae.cu)
 # ---------------------------------------------------------------------------
@@ -152,7 +191,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_sae")
     lib.svt_matryoshka_fwd.restype = _I
-    lib.svt_matryoshka_fwd.argtypes = [_I] + [_P] * 9 + [_I, _I, _I, _P, _I, _P]
+    lib.svt_matryoshka_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _P]
     lib.svt_matryoshka_bwd.restype = _I
     lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P, _I, _P]
     lib.svt_matryoshka_dx.restype = _I
@@ -160,17 +199,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(x, w_enc, b_enc, w_dec, b_dec, boundaries):
-    """The ReLU kernels' operand checks and the prefix boundaries; returns
-    (t, c, h, bounds as a C int array)."""
-    t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
-    if not can_fuse_matryoshka(t, h, boundaries, c):
+def _bounds(h: int, boundaries, quantum: int):
+    """The prefix boundaries as a C int array, after checking them."""
+    if not _levels_ok(h, boundaries, quantum):
         raise ValueError(
             f"fused Matryoshka kernel: prefix boundaries {tuple(boundaries)} not supported "
             f"for H={h} (at most {MAX_LEVELS}, strictly increasing multiples of "
-            f"{TILE_H}, the last = H)")
-    bounds = (ctypes.c_int * len(boundaries))(*boundaries)
-    return t, c, h, bounds
+            f"{quantum}, the last = H)")
+    return (ctypes.c_int * len(boundaries))(*boundaries)
 
 
 def _check_s(x, s, coeffs, n_levels: int) -> None:
@@ -180,40 +216,37 @@ def _check_s(x, s, coeffs, n_levels: int) -> None:
 
 
 class _ForwardKernel(Kernel):
-    """csrc sae_fwd_kernel with the prefix snapshots."""
+    """csrc svt_matryoshka_fwd: center_kernel, then the coder forward body with
+    the prefix snapshots. Returns what matryoshka_fwd_plain returns."""
 
     name = "fused_matryoshka_sae_fwd"
 
     def __call__(self, x, w_enc, b_enc, w_dec, b_dec, boundaries):
-        t, c, h, bounds = _check(x, w_enc, b_enc, w_dec, b_dec, boundaries)
-        dev = x.device
-        prefix_recon = torch.empty((len(boundaries), t, c), dtype=_F32, device=dev)
-        act_part = torch.empty((t // fused_sae.FWD_TILE_T, h), dtype=_F32, device=dev)
-        row_active = torch.empty((t,), dtype=_F32, device=dev)
-        l1_part = torch.empty((t // fused_sae.FWD_TILE_T,), dtype=_F32, device=dev)
-        self._launch(_lib().svt_matryoshka_fwd, dev,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, prefix_recon, act_part,
-                            row_active, l1_part), t, c, h, bounds, len(boundaries))
-        return prefix_recon, act_part.sum(0), row_active, l1_part.sum()
+        t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
+        bounds = _bounds(h, boundaries, TILE_H)
+        outs = forward_outputs(x, h, (len(boundaries), t, c))
+        self._launch(_lib().svt_matryoshka_fwd, x.device,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, bounds,
+                     len(boundaries))
+        return outs
 
 
 class _BackwardKernel(Kernel):
-    """csrc sae_bwd_kernel reading S[level(j)]."""
+    """csrc svt_matryoshka_bwd: the coder backward body on x_cent, each latent
+    block reading S[level]. Returns what matryoshka_bwd_plain returns."""
 
     name = "fused_matryoshka_sae_bwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
-        t, c, h, bounds = _check(x, w_enc, b_enc, w_dec, b_dec, boundaries)
-        _check_s(x, s, coeffs, len(boundaries))
-        dev = x.device
-        dw_enc = torch.empty((c, h), dtype=_F32, device=dev)
-        db_enc = torch.empty((h,), dtype=_F32, device=dev)
-        dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
-        db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
-        self._launch(_lib().svt_matryoshka_bwd, dev,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, dw_enc, db_enc,
-                            dw_dec, db_dec_part), t, c, h, bounds, len(boundaries))
-        return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+        t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
+        bounds = _bounds(h, boundaries, TILE_H)
+        _check_s(x_cent, s, coeffs, len(boundaries))
+        ct = coeffs[1:].expand(h).contiguous()
+        outs = backward_outputs(x_cent, h)
+        self._launch(_lib().svt_matryoshka_bwd, x_cent.device,
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs), t, c, h,
+                     bounds, len(boundaries))
+        return outs
 
 
 class _DxKernel(Kernel):
@@ -222,7 +255,8 @@ class _DxKernel(Kernel):
     name = "fused_matryoshka_sae_dx"
 
     def __call__(self, x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
-        t, c, h, bounds = _check(x, w_enc, b_enc, w_dec, b_dec, boundaries)
+        t, c, h = check_dx_operands(x, w_enc, b_enc, w_dec, b_dec)
+        bounds = _bounds(h, boundaries, fused_sae.DX_TILE_H)
         _check_s(x, s, coeffs, len(boundaries))
         dx = torch.empty((t, c), dtype=_F32, device=x.device)
         self._launch(_lib().svt_matryoshka_dx, x.device,
@@ -237,14 +271,21 @@ dx_kernel = _DxKernel()
 KERNELS = (fwd_kernel, bwd_kernel, dx_kernel)
 
 
-def fused_matryoshka_forward(*args):
-    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(fwd_kernel, fused_matryoshka_forward_plain, *args)
+def fused_matryoshka_forward(x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """The forward entry point (the kernels on CUDA tensors, matryoshka_fwd_plain
+    on CPU tensors), its partials reduced here: (x_cent, prefix_recon,
+    act_count, row_active, l1_sum)."""
+    x_cent, prefix_recon, act_part, row_active, zsum_part = run_on_device(
+        fwd_kernel, matryoshka_fwd_plain, x, w_enc, b_enc, w_dec, b_dec, boundaries)
+    return x_cent, prefix_recon, act_part.sum(0), row_active, zsum_part.sum()
 
 
-def fused_matryoshka_backward(*args):
-    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(bwd_kernel, fused_matryoshka_backward_plain, *args)
+def fused_matryoshka_backward(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    """The backward entry point on the saved x_cent (the kernel on CUDA tensors,
+    matryoshka_bwd_plain on CPU tensors), db_dec's partial rows reduced here."""
+    dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
+        bwd_kernel, matryoshka_bwd_plain, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries)
+    return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
 def fused_matryoshka_dx(*args):
@@ -261,7 +302,7 @@ class FusedMatryoshkaSAEFunction(torch.autograd.Function):
         cd = compute_dtype
         xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
         b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
-        prefix_recon, act_count, row_active, l1_sum = fused_matryoshka_forward(
+        x_cent, prefix_recon, act_count, row_active, l1_sum = fused_matryoshka_forward(
             xc, we, b_enc, wd, b_dec, boundaries)
         t, _ = x.shape
         h = b_enc.shape[0]
@@ -269,7 +310,8 @@ class FusedMatryoshkaSAEFunction(torch.autograd.Function):
         errs = prefix_recon - x.float()[None]
         prefix_losses = errs.square().mean((1, 2))
         l1_loss = l1_sum / (t * h)
-        ctx.save_for_backward(xc, we, b_enc, wd, b_dec, errs)
+        # the backward runs on x_cent; dx reads the uncentred input
+        ctx.save_for_backward(x_cent, we, b_enc, wd, b_dec, errs, xc if compute_dx else None)
         ctx.boundaries, ctx.compute_dx = boundaries, compute_dx
         recon = prefix_recon[-1]
         ctx.mark_non_differentiable(recon, act_count, row_active)
@@ -277,23 +319,24 @@ class FusedMatryoshkaSAEFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_prefix, g_l1, *_unused):
-        xc, we, b_enc, wd, b_dec, errs = ctx.saved_tensors
-        t, c = xc.shape
+        x_cent, we, b_enc, wd, b_dec, errs, xc = ctx.saved_tensors
+        t, c = x_cent.shape
         h = b_enc.shape[0]
-        zero = torch.zeros((), dtype=_F32, device=xc.device)
-        g_prefix = torch.zeros(errs.shape[0], dtype=_F32, device=xc.device) \
+        dev = x_cent.device
+        zero = torch.zeros((), dtype=_F32, device=dev)
+        g_prefix = torch.zeros(errs.shape[0], dtype=_F32, device=dev) \
             if g_prefix is None else g_prefix.float()
         g_l1 = zero if g_l1 is None else g_l1.float()
         weighted = (g_prefix * (2.0 / (t * c)))[:, None, None] * errs
         # S_q = Σ_{p≥q} c_p·err_p: a reverse cumulative sum over the levels
-        s = weighted.flip(0).cumsum(0).flip(0).to(xc.dtype)
+        s = weighted.flip(0).cumsum(0).flip(0).to(x_cent.dtype)
         # a device tensor, not host floats: the backward never syncs
-        coeffs = torch.stack([torch.ones((), dtype=_F32, device=xc.device), g_l1 / (t * h)])
-        ops = (xc, we, b_enc, wd, b_dec, s, coeffs, ctx.boundaries)
-        dw_enc, db_enc, dw_dec, db_dec = fused_matryoshka_backward(*ops)
+        coeffs = torch.stack([torch.ones((), dtype=_F32, device=dev), g_l1 / (t * h)])
+        dw_enc, db_enc, dw_dec, db_dec = fused_matryoshka_backward(
+            x_cent, we, b_enc, wd, s, coeffs, ctx.boundaries)
         dx = None
         if ctx.compute_dx and ctx.needs_input_grad[0]:
-            dx = fused_matryoshka_dx(*ops)
+            dx = fused_matryoshka_dx(xc, we, b_enc, wd, b_dec, s, coeffs, ctx.boundaries)
         return dx, dw_enc, db_enc, dw_dec, db_dec, None, None, None
 
 

@@ -1,17 +1,26 @@
 """Fused ReLU-SAE training op: encode + ReLU + decode + loss terms + dead-latent
-statistics in one forward kernel, a recomputing backward kernel, and a dx kernel
+statistics in one forward entry point, a recomputing backward, and a dx kernel
 for the gradient with respect to the input.
 
 Port of sparse_vision_tpu/ops/fused_sae.py. Why fuse: at the training shape
 (C = 256 channels, 16,384 latents, 32,768 tokens a step) the latent matrix
 ``post`` is [T, H] = 2 GB in f32; the stock path writes it to device memory and
-reads it back in the backward. The kernels (csrc/fused_sae.cu) never write it:
-the forward keeps each token tile's reconstruction on chip while it sweeps the
-latents, and the backward recomputes pre/post per token tile from x and the
+reads it back in the backward. The kernels never write it: the forward keeps
+each token tile's reconstruction on chip while it sweeps the latents, and the
+backward recomputes pre/post per token step from the centred input and the
 saved [T, C] reconstruction error.
 
-Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
-same formulas, the same cast points); a CUDA tensor launches the kernel or
+The forward and backward run the coder body family (csrc/coder.cuh, shared with
+the transcoder and crosscoder ops; wgmma/TMA bodies in bf16, SIMT in f32, any
+width that bodies_take allows) through the entry points of csrc/fused_sae.cu:
+the forward's first centres x (x_cent = x − round(b_dec), saved for the
+backward), the backward adds db_dec's centring term as one partial row per 64
+latents. The glue around each entry point (the partial reductions, c_l1
+broadcast to every latent) is the same on both devices; only the entry points
+differ.
+
+Dispatch rule: a CPU tensor runs the plain PyTorch version of each entry point
+(the same formulas, the same cast points); a CUDA tensor launches the kernel or
 raises. There is no fallback from one to the other.
 
 Cast points (identical to the Pallas kernels): x, W_enc, W_dec and the saved
@@ -38,25 +47,49 @@ import torch
 
 from sparse_vision_tpu_torch.ops import losses, native
 
-# tile sizes of csrc/fused_sae.cu (kFwdTT, kBwdTT, kDxTT, kTH) and its supported widths
-FWD_TILE_T = 64
-BWD_TILE_T = 32
-DX_TILE_T = 32
-TILE_H = 64
-SUPPORTED_C = (64, 128, 256)
-
 _F32 = torch.float32
 _BF16 = torch.bfloat16
 
+# Tiling of the coder body family (csrc/coder.cuh), which runs this op's forward
+# and backward and the transcoder's and crosscoder's: the T and H multiples
+# (kBwdTB, kFwdLG; H's is also the Matryoshka prefix quantum), tokens per
+# activity/zsum partial row, the bf16 backward's tokens per direct db_dec row
+# (kTcBwdTS), the f32 backward's direct db_dec rows, latents per backward block
+# (one centring row of db_dec each), and the bf16 width multiple (TMA's 16-byte
+# row strides).
+TILE_T = 128
+TILE_H = 128
+PART_T = 64
+BF16_STEP_T = 512
+F32_DIRECT_ROWS = 2
+BLOCK_H = 64
+BF16_WIDTH = 8
+# the dx kernel (csrc/fused_sae.cu sae_dx_kernel): tokens per block, latents per
+# tile, and its widths
+DX_TILE_T = 32
+DX_TILE_H = 64
+DX_C = (64, 128, 256)
 
-def can_fuse(t: int, h: int, c: int = 256) -> bool:
-    """True when the CUDA kernels take this (tokens, latents, channels) shape.
-    The CPU plain versions take any shape."""
-    return (
-        c in SUPPORTED_C and t > 0 and h > 0
-        and t % FWD_TILE_T == 0 and t % BWD_TILE_T == 0 and t % DX_TILE_T == 0
-        and h % TILE_H == 0
-    )
+
+def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
+    """True when the coder bodies take T tokens, H latents and these widths with
+    operands of ``dtype``: T and H multiples of 128; any positive width in f32,
+    multiples of 8 in bf16."""
+    dt = compute_dtype_of(dtype)
+    return (t > 0 and h > 0 and c_in > 0 and c_out > 0 and t % TILE_T == 0
+            and h % TILE_H == 0
+            and (dt != _BF16 or (c_in % BF16_WIDTH == 0 and c_out % BF16_WIDTH == 0)))
+
+
+def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
+    """True when the CUDA forward and backward take this (tokens, latents,
+    channels) shape in ``dtype``. The CPU plain versions take any shape."""
+    return bodies_take(t, h, c, c, dtype)
+
+
+def direct_rows(t: int, dtype) -> int:
+    """Direct rows of db_dec (Σ_T drecon) that the coder backward leaves."""
+    return -(-t // BF16_STEP_T) if dtype == _BF16 else F32_DIRECT_ROWS
 
 
 def compute_dtype_of(name) -> torch.dtype:
@@ -77,9 +110,9 @@ def _r(a: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
 
 
 def fused_sae_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
-    """Plain forward of csrc sae_fwd_kernel. ``x``, ``w_enc``, ``w_dec`` are in the
-    compute dtype. Returns (recon [T, C] f32, act_count [H], row_active [T],
-    l1_sum scalar)."""
+    """The op's forward in plain PyTorch, the reference the kernels are held to.
+    ``x``, ``w_enc``, ``w_dec`` are in the compute dtype. Returns (recon [T, C]
+    f32, act_count [H], row_active [T], l1_sum scalar)."""
     cd = x.dtype
     xc = (x - b_dec.to(cd)).float()
     pre = xc @ w_enc.float() + b_enc
@@ -90,9 +123,9 @@ def fused_sae_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
 
 
 def fused_sae_backward_plain(x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
-    """Plain backward of csrc sae_bwd_kernel. ``coeffs`` = (c_rec, c_l1) with
-    c_rec = 2·g_rec/(T·C), c_l1 = g_l1/(T·H). Returns f32
-    (dW_enc [C, H], db_enc [H], dW_dec [H, C], db_dec [C])."""
+    """The op's backward in plain PyTorch, the reference the kernels are held to.
+    ``coeffs`` = (c_rec, c_l1) with c_rec = 2·g_rec/(T·C), c_l1 = g_l1/(T·H).
+    Returns f32 (dW_enc [C, H], db_enc [H], dW_dec [H, C], db_dec [C])."""
     cd = x.dtype
     c_rec, c_l1 = coeffs[0], coeffs[1]
     xc = (x - b_dec.to(cd)).float()
@@ -124,6 +157,65 @@ def fused_sae_dx_plain(x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
     return _r(dpre, cd) @ we.T - drecon
 
 
+# plain versions of the coder bodies (csrc/coder.cuh), shared with the
+# transcoder and crosscoder ops
+
+def coder_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
+    """Plain version of the coder forward body. ``x``, ``w_enc``, ``w_dec`` are in
+    the compute dtype. Returns (recon [T, C_out] f32, act_count [H], row_active
+    [T], zsum [H] = Σ_T post)."""
+    cd = x.dtype
+    pre = x.float() @ w_enc.float() + b_enc
+    post = torch.relu(pre)
+    recon = _r(post, cd) @ w_dec.float() + b_dec
+    active = post > 0
+    return recon, active.sum(0).float(), active.sum(1).float(), post.sum(0)
+
+
+def coder_backward_plain(x, w_enc, b_enc, w_dec, err, c_rec, ct):
+    """Plain version of the coder backward body. ``err`` [T, C_out] is in the
+    compute dtype, ``c_rec`` a scalar, ``ct`` the per-latent L1 cotangent ([H] or
+    a scalar). Returns f32 (dW_enc [C_in, H], db_enc [H], dW_dec [H, C_out],
+    db_dec [C_out])."""
+    cd = x.dtype
+    xf = x.float()
+    pre = xf @ w_enc.float() + b_enc
+    post = torch.relu(pre)
+    drecon = c_rec * err.float()
+    dpost = _r(drecon, cd) @ w_dec.float().T + ct
+    dpre = torch.where(pre > 0, dpost, torch.zeros((), device=pre.device))
+    return xf.T @ _r(dpre, cd), dpre.sum(0), _r(post, cd).T @ _r(drecon, cd), drecon.sum(0)
+
+
+def center_plain(x, b_dec):
+    """Plain version of csrc center_kernel: x − round(b_dec), in x's dtype."""
+    return x - b_dec.to(x.dtype)
+
+
+def centring_rows_plain(db_enc, w_enc):
+    """db_dec's centring term −round(db_enc)·W_encᵀ as one partial row [1, C]
+    (the backward kernel leaves one per 64-latent block)."""
+    return -(_r(db_enc, w_enc.dtype) @ w_enc.float().T)[None]
+
+
+def sae_fwd_plain(x, w_enc, b_enc, w_dec, b_dec):
+    """Plain version of the forward entry point svt_sae_fwd (fwd_kernel): x_cent,
+    then the coder forward on it. Returns (x_cent, recon, act_part, row_active,
+    zsum_part), the per-latent partials as one row."""
+    x_cent = center_plain(x, b_dec)
+    recon, act, row_active, zsum = coder_forward_plain(x_cent, w_enc, b_enc, w_dec, b_dec)
+    return x_cent, recon, act[None], row_active, zsum[None]
+
+
+def sae_bwd_plain(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    """Plain version of the backward entry point svt_sae_bwd (bwd_kernel): the
+    coder backward on x_cent with c_l1 for every latent. Returns (dW_enc,
+    db_enc, dW_dec, db_dec_part): the direct row, then the centring row."""
+    dw_enc, db_enc, dw_dec, direct = coder_backward_plain(x_cent, w_enc, b_enc, w_dec, err,
+                                                          coeffs[0], coeffs[1])
+    return dw_enc, db_enc, dw_dec, torch.cat([direct[None], centring_rows_plain(db_enc, w_enc)])
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -136,10 +228,9 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_sae")
     lib.svt_sae_fwd.restype = _I
-    lib.svt_sae_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.svt_sae_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P]
     lib.svt_sae_bwd.restype = _I
-    lib.svt_sae_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _P]
+    lib.svt_sae_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P]
     lib.svt_sae_dx.restype = _I
     lib.svt_sae_dx.argtypes = [_I] + [_P] * 8 + [_I, _I, _I, _P]
     return lib
@@ -155,22 +246,26 @@ def _expect(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
         )
 
 
-def _check_operands(x, w_enc, b_enc, w_dec, b_dec):
+def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
+    """Device, dtype, shape and contiguity of the forward's and backward's
+    operands (the backward has no b_dec); returns (t, c, h)."""
     t, c = x.shape
     h = b_enc.shape[0]
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused SAE kernel: compute dtype {x.dtype} not supported")
-    if not can_fuse(t, h, c):
+    if not can_fuse(t, h, c, x.dtype):
         raise ValueError(
-            f"fused SAE kernel: shape T={t}, C={c}, H={h} not supported (C in "
-            f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
+            f"fused SAE kernel: shape T={t}, C={c}, H={h} not supported with {x.dtype} "
+            f"operands (T a multiple of {TILE_T}, H of {TILE_H}; in bf16 C a multiple of "
+            f"{BF16_WIDTH})"
         )
     dev = x.device
     _expect("x", x, (t, c), x.dtype, dev)
     _expect("W_enc", w_enc, (c, h), x.dtype, dev)
     _expect("b_enc", b_enc, (h,), _F32, dev)
     _expect("W_dec", w_dec, (h, c), x.dtype, dev)
-    _expect("b_dec", b_dec, (c,), _F32, dev)
+    if b_dec is not None:
+        _expect("b_dec", b_dec, (c,), _F32, dev)
     return t, c, h
 
 
@@ -201,43 +296,58 @@ def _ptrs(x, *tensors) -> tuple:
     return (int(x.dtype == _BF16), x.data_ptr(), *(t.data_ptr() for t in tensors))
 
 
+def forward_outputs(x, h: int, recon_shape: tuple) -> tuple:
+    """Empty outputs of the SAE forward entry points: x_cent, recon (or
+    prefix_recon), act_part, row_active, zsum_part."""
+    t = x.shape[0]
+    dev = x.device
+    return (torch.empty_like(x), torch.empty(recon_shape, dtype=_F32, device=dev),
+            torch.empty((t // PART_T, h), dtype=_F32, device=dev),
+            torch.empty((t,), dtype=_F32, device=dev),
+            torch.empty((t // PART_T, h), dtype=_F32, device=dev))
+
+
+def backward_outputs(x_cent, h: int) -> tuple:
+    """Empty outputs of the SAE backward entry points: dW_enc, db_enc, dW_dec and
+    db_dec_part (the direct rows, then one centring row per 64 latents)."""
+    t, c = x_cent.shape
+    dev = x_cent.device
+    rows = direct_rows(t, x_cent.dtype) + h // BLOCK_H
+    return (torch.empty((c, h), dtype=_F32, device=dev), torch.empty((h,), dtype=_F32, device=dev),
+            torch.empty((h, c), dtype=_F32, device=dev),
+            torch.empty((rows, c), dtype=_F32, device=dev))
+
+
 class _ForwardKernel(Kernel):
-    """csrc sae_fwd_kernel."""
+    """csrc svt_sae_fwd: center_kernel, then the coder forward body on x_cent.
+    Returns what sae_fwd_plain returns (one partial row per 64 tokens)."""
 
     name = "fused_sae_fwd"
 
     def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
         t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
-        dev = x.device
-        recon = torch.empty((t, c), dtype=_F32, device=dev)
-        act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
-        row_active = torch.empty((t,), dtype=_F32, device=dev)
-        l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
-        self._launch(_lib().svt_sae_fwd, dev,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, recon, act_part, row_active,
-                            l1_part), t, c, h)
-        # per-token-tile partials reduced here, as the JAX op sums act_part
-        return recon, act_part.sum(0), row_active, l1_part.sum()
+        outs = forward_outputs(x, h, (t, c))
+        self._launch(_lib().svt_sae_fwd, x.device,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h)
+        return outs
 
 
 class _BackwardKernel(Kernel):
-    """csrc sae_bwd_kernel."""
+    """csrc svt_sae_bwd: the coder backward body on x_cent, c_l1 broadcast to
+    every latent. Returns what sae_bwd_plain returns (one centring row per 64
+    latents)."""
 
     name = "fused_sae_bwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
-        t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
-        dev = x.device
-        _expect("err", err, (t, c), x.dtype, dev)
-        _expect("coeffs", coeffs, (2,), _F32, dev)
-        dw_enc = torch.empty((c, h), dtype=_F32, device=dev)
-        db_enc = torch.empty((h,), dtype=_F32, device=dev)
-        dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
-        db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
-        self._launch(_lib().svt_sae_bwd, dev,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dw_enc, db_enc,
-                            dw_dec, db_dec_part), t, c, h)
-        return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs):
+        t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
+        _expect("err", err, (t, c), x_cent.dtype, x_cent.device)
+        _expect("coeffs", coeffs, (2,), _F32, x_cent.device)
+        ct = coeffs[1:].expand(h).contiguous()
+        outs = backward_outputs(x_cent, h)
+        self._launch(_lib().svt_sae_bwd, x_cent.device,
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs), t, c, h)
+        return outs
 
 
 class _DxKernel(Kernel):
@@ -246,7 +356,7 @@ class _DxKernel(Kernel):
     name = "fused_sae_dx"
 
     def __call__(self, x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
-        t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
+        t, c, h = check_dx_operands(x, w_enc, b_enc, w_dec, b_dec)
         dev = x.device
         _expect("err", err, (t, c), x.dtype, dev)
         _expect("coeffs", coeffs, (2,), _F32, dev)
@@ -254,6 +364,25 @@ class _DxKernel(Kernel):
         self._launch(_lib().svt_sae_dx, dev,
                      *_ptrs(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dx), t, c, h)
         return dx
+
+
+def check_dx_operands(x, w_enc, b_enc, w_dec, b_dec):
+    """The dx kernel's operand checks; returns (t, c, h)."""
+    t, c = x.shape
+    h = b_enc.shape[0]
+    if x.dtype not in (_F32, _BF16):
+        raise ValueError(f"fused SAE dx kernel: compute dtype {x.dtype} not supported")
+    if c not in DX_C or t <= 0 or h <= 0 or t % DX_TILE_T or h % DX_TILE_H:
+        raise ValueError(
+            f"fused SAE dx kernel: shape T={t}, C={c}, H={h} not supported (C in {DX_C}, "
+            f"T a multiple of {DX_TILE_T}, H of {DX_TILE_H})")
+    dev = x.device
+    _expect("x", x, (t, c), x.dtype, dev)
+    _expect("W_enc", w_enc, (c, h), x.dtype, dev)
+    _expect("b_enc", b_enc, (h,), _F32, dev)
+    _expect("W_dec", w_dec, (h, c), x.dtype, dev)
+    _expect("b_dec", b_dec, (c,), _F32, dev)
+    return t, c, h
 
 
 fwd_kernel = _ForwardKernel()
@@ -273,14 +402,22 @@ def run_on_device(kernel, plain, x, *args):
     raise ValueError(f"fused SAE op: no kernel for device {x.device}")
 
 
-def fused_sae_forward(*args):
-    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(fwd_kernel, fused_sae_forward_plain, *args)
+def fused_sae_forward(x, w_enc, b_enc, w_dec, b_dec):
+    """The forward entry point (the kernels on CUDA tensors, sae_fwd_plain on CPU
+    tensors), its partials reduced here: (x_cent, recon, act_count, row_active,
+    l1_sum)."""
+    x_cent, recon, act_part, row_active, zsum_part = run_on_device(
+        fwd_kernel, sae_fwd_plain, x, w_enc, b_enc, w_dec, b_dec)
+    return x_cent, recon, act_part.sum(0), row_active, zsum_part.sum()
 
 
-def fused_sae_backward(*args):
-    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(bwd_kernel, fused_sae_backward_plain, *args)
+def fused_sae_backward(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    """The backward entry point on the saved x_cent (the kernel on CUDA tensors,
+    sae_bwd_plain on CPU tensors), db_dec's partial rows reduced here: (dW_enc,
+    db_enc, dW_dec, db_dec)."""
+    dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
+        bwd_kernel, sae_bwd_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
+    return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
 def fused_sae_dx(*args):
@@ -297,32 +434,33 @@ class FusedSAEFunction(torch.autograd.Function):
         cd = compute_dtype
         xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
         b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
-        recon, act_count, row_active, l1_sum = fused_sae_forward(xc, we, b_enc, wd, b_dec)
+        x_cent, recon, act_count, row_active, l1_sum = fused_sae_forward(xc, we, b_enc, wd, b_dec)
         t, c = x.shape
         h = b_enc.shape[0]
         err = recon - x  # against x in its own dtype, before the compute cast
         rec_loss = err.square().mean()
         l1_loss = l1_sum / (t * h)
-        ctx.save_for_backward(xc, we, b_enc, wd, b_dec, err.to(cd))
+        # the backward runs on x_cent; dx reads the uncentred input
+        ctx.save_for_backward(x_cent, we, b_enc, wd, b_dec, err.to(cd),
+                              xc if compute_dx else None)
         ctx.compute_dx = compute_dx
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return rec_loss, l1_loss, recon, act_count, row_active
 
     @staticmethod
     def backward(ctx, g_rec, g_l1, *_unused):
-        xc, we, b_enc, wd, b_dec, err = ctx.saved_tensors
-        t, c = xc.shape
+        x_cent, we, b_enc, wd, b_dec, err, xc = ctx.saved_tensors
+        t, c = x_cent.shape
         h = b_enc.shape[0]
-        zero = torch.zeros((), dtype=_F32, device=xc.device)
+        zero = torch.zeros((), dtype=_F32, device=x_cent.device)
         g_rec = zero if g_rec is None else g_rec.float()
         g_l1 = zero if g_l1 is None else g_l1.float()
         # a device tensor, not host floats: the backward never syncs
         coeffs = torch.stack([g_rec * 2.0 / (t * c), g_l1 / (t * h)])
-        ops = (xc, we, b_enc, wd, b_dec, err, coeffs)
-        dw_enc, db_enc, dw_dec, db_dec = fused_sae_backward(*ops)
+        dw_enc, db_enc, dw_dec, db_dec = fused_sae_backward(x_cent, we, b_enc, wd, err, coeffs)
         dx = None
         if ctx.compute_dx and ctx.needs_input_grad[0]:
-            dx = fused_sae_dx(*ops)
+            dx = fused_sae_dx(xc, we, b_enc, wd, b_dec, err, coeffs)
         return dx, dw_enc, db_enc, dw_dec, db_dec, None, None
 
 

@@ -7,10 +7,12 @@ to a prediction of y [T, C_out] (models/sae.transcoder_apply): no input centring
 (b_dec lives in the output space), a rectangular decoder W_dec [H, C_out], and
 err = recon − y, so b_dec's gradient is Σ_T drecon with no centring term. At the
 training shape (C_in 256 → C_out 480, 16,384 latents, 32,768 tokens a step) the
-latent matrix is 2 GB in f32 per pass; the kernels (csrc/fused_transcoder.cu)
-never write it: the backward recomputes pre/post from x and the saved error.
+latent matrix is 2 GB in f32 per pass; the kernels (the coder bodies of
+csrc/coder.cuh, entry points in csrc/fused_transcoder.cu) never write it: the
+backward recomputes pre/post from x and the saved error.
 
-The kernels are shared with the crosscoder (ops/fused_crosscoder.py): the
+The kernels are shared with the crosscoder (ops/fused_crosscoder.py), and the
+bodies with the ReLU and Matryoshka SAE ops (ops/fused_sae.py): the
 forward emits per-latent sums of post (zsum) and the backward takes a
 per-latent L1 cotangent. This op's scalar Σpost is Σ_j zsum_j, and its c_l1 is
 broadcast to all latents. Summation order therefore differs from the TPU
@@ -42,63 +44,28 @@ from sparse_vision_tpu_torch.ops import losses, native
 from sparse_vision_tpu_torch.ops.fused_sae import (
     _F32,
     _BF16,
+    BF16_WIDTH,
+    PART_T,
+    TILE_H,
+    TILE_T,
     Kernel,
     _expect,
     _ptrs,
-    _r,
+    bodies_take,
+    coder_backward_plain,
+    coder_forward_plain,
     compute_dtype_of,
+    direct_rows,
     run_on_device,
 )
 
-# tile sizes of csrc/fused_transcoder.cu: tokens per activity/zsum partial row
-# (every body), the T and H multiples (kBwdTB, kFwdLG), the bf16 backward's
-# tokens per db_dec partial row (kTcBwdTS) and the bf16 width multiple (TMA's
-# 16-byte row strides)
-FWD_TILE_T = 64
-BWD_TILE_T = 128
-GROUP_H = 128
-BF16_STEP_T = 512
-BF16_WIDTH = 8
-
-
-def can_fuse(t: int, h: int) -> bool:
-    """True when the CUDA kernels take T tokens and H latents. Widths are the
-    wrappers' check: any in f32, multiples of 8 in bf16. The CPU plain versions
-    take any shape."""
-    return t > 0 and h > 0 and t % BWD_TILE_T == 0 and h % GROUP_H == 0
+# can_fuse(t, h, c_in, c_out, dtype): the coder bodies' shape and width rule
+can_fuse = bodies_take
 
 
 # ---------------------------------------------------------------------------
-# plain versions of the shared kernels (CPU path; the reference the kernels are
-# held against)
+# plain versions (CPU path; the reference the kernels are held against)
 # ---------------------------------------------------------------------------
-
-def coder_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
-    """Plain version of csrc coder_fwd_kernel. ``x``, ``w_enc``, ``w_dec`` are in
-    the compute dtype. Returns (recon [T, C_out] f32, act_count [H], row_active
-    [T], zsum [H] = Σ_T post)."""
-    cd = x.dtype
-    pre = x.float() @ w_enc.float() + b_enc
-    post = torch.relu(pre)
-    recon = _r(post, cd) @ w_dec.float() + b_dec
-    active = post > 0
-    return recon, active.sum(0).float(), active.sum(1).float(), post.sum(0)
-
-
-def coder_backward_plain(x, w_enc, b_enc, w_dec, err, c_rec, ct):
-    """Plain version of csrc coder_bwd_kernel. ``err`` [T, C_out] is in the
-    compute dtype, ``c_rec`` a scalar, ``ct`` the per-latent L1 cotangent ([H] or
-    a scalar). Returns f32 (dW_enc [C_in, H], db_enc [H], dW_dec [H, C_out],
-    db_dec [C_out])."""
-    cd = x.dtype
-    xf = x.float()
-    pre = xf @ w_enc.float() + b_enc
-    post = torch.relu(pre)
-    drecon = c_rec * err.float()
-    dpost = _r(drecon, cd) @ w_dec.float().T + ct
-    dpre = torch.where(pre > 0, dpost, torch.zeros((), device=pre.device))
-    return xf.T @ _r(dpre, cd), dpre.sum(0), _r(post, cd).T @ _r(drecon, cd), drecon.sum(0)
-
 
 def fused_transcoder_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
     """The transcoder's forward: (recon, act_count, row_active, l1_sum = Σ post)."""
@@ -136,14 +103,11 @@ def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
     h, c_out = w_dec.shape
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused transcoder kernel: compute dtype {x.dtype} not supported")
-    if not can_fuse(t, h):
+    if not can_fuse(t, h, c_in, c_out, x.dtype):
         raise ValueError(
-            f"fused transcoder kernel: shape T={t}, H={h} not supported (T a multiple "
-            f"of {BWD_TILE_T}, H of {GROUP_H})")
-    if x.dtype == _BF16 and (c_in % BF16_WIDTH or c_out % BF16_WIDTH):
-        raise ValueError(
-            f"fused transcoder kernel: widths C_in={c_in}, C_out={c_out} not supported with "
-            f"bf16 operands (each a multiple of {BF16_WIDTH})")
+            f"fused transcoder kernel: shape T={t}, H={h}, C_in={c_in}, C_out={c_out} not "
+            f"supported with {x.dtype} operands (T a multiple of {TILE_T}, H of {TILE_H}; in "
+            f"bf16 each width a multiple of {BF16_WIDTH})")
     dev = x.device
     _expect("x", x, (t, c_in), x.dtype, dev)
     _expect("W_enc", w_enc, (c_in, h), x.dtype, dev)
@@ -155,14 +119,14 @@ def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
 
 
 def coder_forward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, b_dec):
-    """Launch csrc coder_fwd_kernel, counted on ``kernel``; returns what
+    """Launch the coder forward (csrc/coder.cuh), counted on ``kernel``; returns what
     coder_forward_plain returns, the per-token-tile partials reduced here."""
     t, c_in, c_out, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
     dev = x.device
     recon = torch.empty((t, c_out), dtype=_F32, device=dev)
-    act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+    act_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
     row_active = torch.empty((t,), dtype=_F32, device=dev)
-    zsum_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+    zsum_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
     kernel._launch(_lib().svt_coder_fwd, dev,
                    *_ptrs(x, w_enc, b_enc, w_dec, b_dec, recon, act_part, row_active,
                           zsum_part), t, c_in, c_out, h)
@@ -170,7 +134,7 @@ def coder_forward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, b_dec):
 
 
 def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, ct):
-    """Launch csrc coder_bwd_kernel, counted on ``kernel``: ``coeffs[0]`` is c_rec
+    """Launch the coder backward (csrc/coder.cuh), counted on ``kernel``: ``coeffs[0]`` is c_rec
     (a device tensor), ``ct`` the [H] L1 cotangent. Returns what
     coder_backward_plain returns."""
     t, c_in, c_out, h = _check_operands(x, w_enc, b_enc, w_dec)
@@ -183,9 +147,7 @@ def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, c
     dw_enc = torch.empty((c_in, h), dtype=_F32, device=dev)
     db_enc = torch.empty((h,), dtype=_F32, device=dev)
     dw_dec = torch.empty((h, c_out), dtype=_F32, device=dev)
-    # partial rows of db_dec: two (f32 body) or one per 512-token step (bf16 body)
-    rows = -(-t // BF16_STEP_T) if x.dtype == _BF16 else 2
-    db_dec_part = torch.empty((rows, c_out), dtype=_F32, device=dev)
+    db_dec_part = torch.empty((direct_rows(t, x.dtype), c_out), dtype=_F32, device=dev)
     kernel._launch(_lib().svt_coder_bwd, dev,
                    *_ptrs(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
                           db_dec_part), t, c_in, c_out, h)
@@ -193,7 +155,7 @@ def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, c
 
 
 class _ForwardKernel(Kernel):
-    """csrc coder_fwd_kernel for the transcoder."""
+    """The coder forward (csrc/coder.cuh) for the transcoder."""
 
     name = "fused_transcoder_fwd"
 
@@ -204,7 +166,8 @@ class _ForwardKernel(Kernel):
 
 
 class _BackwardKernel(Kernel):
-    """csrc coder_bwd_kernel for the transcoder: c_l1 broadcast to every latent."""
+    """The coder backward (csrc/coder.cuh) for the transcoder: c_l1 broadcast to
+    every latent."""
 
     name = "fused_transcoder_bwd"
 

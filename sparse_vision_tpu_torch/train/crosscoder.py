@@ -139,7 +139,8 @@ def train_crosscoder_cached(pipe) -> dict:
             "crosscoders need a plain optimizer (sae_optimizer_name='adam'): "
             "ConstrainedAdam's unit-norm decoder invariant erases the per-layer "
             "decoder-norm signal the variant exists to measure (models/crosscoder.py)")
-    fused = pipe.check_fusable(can_fuse)
+    c_cat = sum(pipe.crosscoder_dims)  # the kernels run in the concatenated space
+    fused = pipe.check_fusable(can_fuse, c_cat, c_cat)
     layers = pipe.crosscoder_all_layers
     caches = prepare_caches(pipe, layers, {l: pipe._cache_dir(l) for l in layers})
     step_fn = make_crosscoder_train_step_from_acts(

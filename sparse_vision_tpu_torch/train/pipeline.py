@@ -195,17 +195,20 @@ class Pipeline:
             return train_crosscoder_cached(self)
         return self.train_sae_cached()
 
-    def check_fusable(self, can_fuse) -> bool:
+    def check_fusable(self, can_fuse, c_in: int, c_out: int) -> bool:
         """Whether the step takes the fused op (``cfg.use_pallas``). On the card a
-        shape that the kernels' ``can_fuse(t, h)`` refuses raises: there is no
-        quiet fallback to the stock step."""
+        shape that the kernels' ``can_fuse(t, h, c_in, c_out, compute_dtype)``
+        refuses raises, before any cache is dumped: there is no quiet fallback to
+        the stock step."""
         cfg = self.cfg
         tps = cfg.cache_tokens_per_step
-        if cfg.use_pallas and self.device.type == "cuda" and not can_fuse(tps, self.num_units):
+        if cfg.use_pallas and self.device.type == "cuda" and not can_fuse(
+                tps, self.num_units, c_in, c_out, cfg.compute_dtype):
             raise ValueError(
                 f"the fused {cfg.sae_model_name} kernels do not take T={tps}, "
-                f"H={self.num_units}, C={self.sae_input_size} (their can_fuse); set "
-                "use_pallas=False for the stock step")
+                f"H={self.num_units}, C_in={c_in}, C_out={c_out} with compute dtype "
+                f"{cfg.compute_dtype} (their can_fuse); set use_pallas=False for the "
+                "stock step")
         return cfg.use_pallas
 
     def run_epochs(self, multi_fn, epoch_stacks) -> dict:
@@ -240,6 +243,10 @@ class Pipeline:
         )
 
         cfg = self.cfg
+        prefixes = cfg.matryoshka_prefix_fractions
+        can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
+        c = self.sae_input_size
+        fused = self.check_fusable(lambda t, h, c_in, _, dtype: can_fuse(t, h, c_in, dtype), c, c)
         cache_dir = self._cache_dir(cfg.sae_layer)
         if not os.path.exists(os.path.join(cache_dir, "meta.json")):
             print(f"Building activation cache at {cache_dir} ...")
@@ -248,10 +255,6 @@ class Pipeline:
                              **self._cache_dump_kwargs())
         cache = ActivationCache(cache_dir)
 
-        prefixes = cfg.matryoshka_prefix_fractions
-        can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
-        fused = self.check_fusable(
-            lambda t, h: can_fuse(t, h, self.sae_input_size))
         fused_opts = {"compute_dtype": cfg.compute_dtype}
         if cfg.sae_model_name == "jumprelu_sae":
             fused_opts["bandwidth"] = cfg.jumprelu_bandwidth

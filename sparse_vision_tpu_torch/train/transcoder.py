@@ -86,7 +86,7 @@ def train_transcoder_cached(pipe) -> dict:
     tgt = cfg.transcoder_target_layer
     if not tgt:
         raise ValueError("transcoder runs need transcoder_target_layer set")
-    fused = pipe.check_fusable(can_fuse)
+    fused = pipe.check_fusable(can_fuse, pipe.sae_input_size, pipe.transcoder_out_size)
     layers = (cfg.sae_layer, tgt)
     caches = prepare_caches(pipe, layers, {l: pipe._cache_dir(l) for l in layers})
     step_fn = make_transcoder_train_step_from_acts(

@@ -3,8 +3,10 @@ path) against the JAX fused_matryoshka_sae_loss_terms run as
 tests/test_fused_matryoshka.py runs it: Pallas interpret mode, small tiles.
 
 T = 64 tokens, C = 32, H = 2,048 latents with the default prefixes 1/16, 1/4, 1
-(boundaries 128, 512, 2,048: multiples of the JAX kernel's 128-latent tile and
-of the port's 64); 16 latents never fire.
+(boundaries 128, 512, 2,048: multiples of the 128-latent quantum of both the JAX
+kernel and the port's); 16 latents never fire. Also C = 480 (a width the coder
+bodies take and the old SAE kernels did not) at T = 256, H = 512, prefixes 128 /
+512, with the same tolerances.
 
 Tolerances:
 - f32 compute: forward values rtol 1e-5, and the [T, C] reconstructions atol
@@ -19,6 +21,8 @@ Tolerances:
   rounds db_enc to bf16 per TPU tile in JAX, once per batch in the port). dx
   gets one bf16 ulp of max|dx|: its product round(dpre)·W_encᵀ is a transposed
   bf16 product in the Pallas kernel too.
+- C = 480, bf16: the reconstruction gets one bf16 ulp of max|recon| (sums of
+  480 products in other f32 orders can flip a bf16 rounding of post).
 """
 
 import functools
@@ -85,7 +89,7 @@ def _torch(case):
 
 def test_boundaries_are_the_prefix_counts():
     assert matryoshka_prefix_counts(H, PREFIXES) == BOUNDS
-    assert fm.can_fuse_matryoshka(T, H, BOUNDS, 64)
+    assert fm.can_fuse_matryoshka(2 * T, H, BOUNDS, C)
 
 
 @pytest.mark.parametrize("case", ["f32", "bf16"])
@@ -194,20 +198,26 @@ def test_one_level_is_the_relu_op():
 
 @pytest.mark.parametrize("t,h,bounds,c,ok", [
     (32768, 16384, (1024, 4096, 16384), 256, True),
-    (512, 1024, (64, 1024), 128, True),
+    (512, 1024, (128, 1024), 128, True),
+    (512, 1024, (64, 1024), 128, False),        # 64: not a multiple of 128 (as in JAX)
     (512, 1024, (1024,), 64, True),
-    (512, 1024, (32, 1024), 256, False),        # a boundary inside a 64-latent tile
+    (512, 1024, (32, 1024), 256, False),        # a boundary inside a 128-latent group
     (512, 1024, (256, 512), 256, False),        # the last boundary is not H
     (512, 1024, (512, 256, 1024), 256, False),  # not increasing
     (512, 1024, (512, 512, 1024), 256, False),  # repeated
     (512, 1024, (), 256, False),
-    (512, 1024, tuple(range(64, 1025, 64)), 256, True),   # 16 levels
-    (512, 2048, tuple(range(64, 1089, 64)) + (2048,), 256, False),  # 18 levels
-    (100, 1024, (512, 1024), 256, False),       # the ReLU kernels' constraints
-    (512, 1024, (512, 1024), 96, False),
+    (512, 2048, tuple(range(128, 2049, 128)), 256, True),   # 16 levels
+    (512, 4096, tuple(range(128, 2177, 128)) + (4096,), 256, False),  # 18 levels
+    (100, 1024, (512, 1024), 256, False),       # the ReLU op's constraints
+    (512, 1024, (512, 1024), 96, True),
+    (8192, 4096, (1024, 2048, 4096), 480, True),
+    (8192, 4096, (1024, 2048, 4096), 832, True),
+    (8192, 4096, (1024, 2048, 4096), 1024, True),
+    (8192, 4096, (1024, 2048, 4096), 484, False),  # bf16 widths multiples of 8
 ])
 def test_can_fuse_matryoshka_states_the_kernel_constraints(t, h, bounds, c, ok):
     assert fm.can_fuse_matryoshka(t, h, bounds, c) is ok
+    assert fm.can_fuse_matryoshka(t, h, bounds, c, torch.float32) is (ok or c == 484)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
@@ -221,7 +231,7 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     with pytest.raises(ValueError, match="no kernel for device"):
         fm.fused_matryoshka_forward(*ops, BOUNDS)
     with pytest.raises(ValueError, match="no kernel for device"):
-        fm.fused_matryoshka_backward(*ops, s, coeffs, BOUNDS)
+        fm.fused_matryoshka_backward(*ops[:4], s, coeffs, BOUNDS)
     with pytest.raises(ValueError, match="no kernel for device"):
         fm.fused_matryoshka_dx(*ops, s, coeffs, BOUNDS)
 
@@ -231,7 +241,7 @@ def test_kernel_wrapper_validates_before_launch():
     call fails the same way on every machine."""
     params, x = _setup()
     tp = convert.sae_params_from_jax(params)
-    xt = torch.from_numpy(np.concatenate([x] * 4, 1))  # C = 128, a kernel width
+    xt = torch.from_numpy(np.tile(x, (2, 4)))  # T = 128, C = 128: the kernels' shape
     w_enc = torch.randn(128, H)
     w_dec = torch.randn(H, 128)
     b_dec = torch.zeros(128)
@@ -240,9 +250,100 @@ def test_kernel_wrapper_validates_before_launch():
         fm.fwd_kernel(*ops, (100, H))
     with pytest.raises(ValueError, match="not supported"):
         fm.fwd_kernel(torch.from_numpy(x), tp["W_enc"], tp["b_enc"], tp["W_dec"],
-                      tp["b_dec"], BOUNDS)  # C = 32
+                      tp["b_dec"], BOUNDS)  # T = 64
     with pytest.raises(ValueError, match="S must be"):
-        fm.bwd_kernel(*ops, torch.zeros(2, T, 128), torch.zeros(2), BOUNDS)
+        fm.bwd_kernel(*ops[:4], torch.zeros(2, 2 * T, 128), torch.zeros(2), BOUNDS)
     with pytest.raises(ValueError, match="coeffs must be"):
-        fm.dx_kernel(*ops, torch.zeros(3, T, 128), torch.zeros(3), BOUNDS)
+        fm.dx_kernel(*ops, torch.zeros(3, 2 * T, 128), torch.zeros(3), BOUNDS)
     assert all(k.launches == 0 for k in fm.KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# any width: C = 480, T = 256, H = 512, prefixes 128 / 512
+# ---------------------------------------------------------------------------
+
+WT, WC, WH = 256, 480, 512
+WPREFIXES = (0.25, 1.0)
+WBOUNDS = (128, 512)
+
+
+@functools.cache
+def _wide():
+    rng = np.random.default_rng(4)
+    params = {
+        "W_enc": (rng.normal(size=(WC, WH)) / np.sqrt(WC)).astype(np.float32),
+        "b_enc": (-0.05 + 0.05 * rng.normal(size=WH)).astype(np.float32),
+        "W_dec": (rng.normal(size=(WH, WC)) / np.sqrt(WH)).astype(np.float32),
+        "b_dec": (0.1 * rng.normal(size=WC)).astype(np.float32),
+    }
+    params["b_enc"][:8] -= 100.0  # 8 latents never fire
+    return params, rng.normal(size=(WT, WC)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+def test_wide_matches_jax(case):
+    """The op at C = 480 against the JAX op in interpret mode: loss terms,
+    statistics and every parameter gradient."""
+    params, x = _wide()
+    assert matryoshka_prefix_counts(WH, WPREFIXES) == WBOUNDS
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+
+    def jloss(p):
+        return jax_loss_terms(p, jnp.asarray(x), LAMBDA, 1, WPREFIXES, compute_dtype=JDT[case],
+                              **JTILES)
+
+    jterms = jloss(jp)
+    jgrad = jax.grad(lambda p: jloss(p)["loss"])(jp)
+    tp = {k: v.requires_grad_(True) for k, v in convert.sae_params_from_jax(params).items()}
+    tterms = fm.fused_matryoshka_sae_loss_terms(tp, torch.from_numpy(x), LAMBDA, 1, WPREFIXES,
+                                                compute_dtype=TDT[case])
+    tgrad = dict(zip(tp, torch.autograd.grad(tterms["loss"], list(tp.values()))))
+    rtol = 1e-5 if case == "f32" else 1e-4
+    for k in KEYS:
+        np.testing.assert_allclose(float(tterms[k].detach()), float(jterms[k]), rtol=rtol,
+                                   atol=1e-7, err_msg=k)
+    # bf16: both sides sum 480 products per pre-activation in other f32 orders, so
+    # a bf16 rounding of post may flip; one flip moves recon by a bf16 ulp (2^-8)
+    # of post·W_dec, within a bf16 ulp of max|recon|
+    ref = np.asarray(jterms["decoded"])
+    atol = 2e-5 if case == "f32" else 2.0**-8 * np.abs(ref).max()
+    np.testing.assert_allclose(tterms["decoded"].detach().numpy(), ref, rtol=rtol, atol=atol)
+    np.testing.assert_array_equal(tterms["dead"].numpy(), np.asarray(jterms["dead"]))
+    assert bool(jterms["dead"].any()) and not bool(jterms["dead"].all())
+    for k in ("W_enc", "b_enc", "W_dec", "b_dec"):
+        ref = np.asarray(jgrad[k])
+        if case == "f32":
+            rtol, atol = 1e-4, 1e-7
+        else:
+            rtol, atol = {"W_enc": (0, 2.0**-8 * np.abs(ref).max()),
+                          "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+def test_entry_points_compose_to_the_reference(case):
+    """The op's glue around its entry points, run on the CPU with their plain
+    versions, equals the reference plain versions, with S's levels different
+    from each other (the direct db_dec term is Σ_t S_0 only, and each level's
+    latents read their own S_q)."""
+    params, x = _wide()
+    cd = TDT[case]
+    tp = convert.sae_params_from_jax(params)
+    ops = (torch.from_numpy(x).to(cd), tp["W_enc"].to(cd), tp["b_enc"], tp["W_dec"].to(cd),
+           tp["b_dec"])
+    x_cent, *fwd = fm.fused_matryoshka_forward(*ops, WBOUNDS)
+    torch.testing.assert_close(x_cent, ops[0] - tp["b_dec"].to(cd), rtol=0, atol=0)
+    for a, b in zip(fwd, fm.fused_matryoshka_forward_plain(*ops, WBOUNDS)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    g = torch.Generator().manual_seed(5)
+    s = torch.stack([1e-3 * torch.randn(WT, WC, generator=g),
+                     1e-2 * torch.randn(WT, WC, generator=g)]).to(cd)
+    coeffs = torch.tensor([1.0, LAMBDA / (WT * WH)])
+    got = fm.fused_matryoshka_backward(x_cent, ops[1], ops[2], ops[3], s, coeffs, WBOUNDS)
+    want = fm.fused_matryoshka_backward_plain(*ops, s, coeffs, WBOUNDS)
+    for a, b, name in zip(got, want, ("W_enc", "b_enc", "W_dec", "b_dec")):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()), msg=name)
+    # the levels' errors matter: S_1 in place of S_0 moves db_dec
+    other = fm.fused_matryoshka_backward(x_cent, ops[1], ops[2], ops[3], s.flip(0), coeffs,
+                                         WBOUNDS)
+    assert not torch.allclose(other[3], got[3], rtol=1e-2)

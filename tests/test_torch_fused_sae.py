@@ -20,7 +20,15 @@ Tolerances:
 - dx (compute_dx=True, the dx kernel's plain version): f32 rtol 1e-4, atol
   1e-7 (tests/test_fused_sae.py:52); bf16 one bf16 ulp of max|dx|, since its
   product round(dpre)·W_encᵀ is a transposed bf16 product in the Pallas kernel.
+- C = 480 (a width the coder bodies take and the old SAE kernels did not): the
+  same tolerances, with the [T, C] reconstructions atol 2e-5 besides (both
+  sides sum 512 latents' products in f32, in other orders).
+The CPU path is the one the card runs, with the entry points' plain versions
+where the CUDA calls stand: the centring, the partial rows and their
+reductions are the same glue (test_entry_points_compose_to_the_reference).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -196,7 +204,7 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
                                     tp["b_enc"], tp["W_dec"], tp["b_dec"])
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_sae.fused_sae_backward(torch.empty(T, C, device="meta"), tp["W_enc"],
-                                     tp["b_enc"], tp["W_dec"], tp["b_dec"],
+                                     tp["b_enc"], tp["W_dec"],
                                      torch.empty(T, C, device="meta"),
                                      torch.empty(2, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -205,13 +213,21 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
                                torch.empty(2, device="meta"))
 
 
-@pytest.mark.parametrize("t,h,c,ok", [
-    (32768, 16384, 256, True), (512, 1024, 128, True), (64, 64, 64, True),
-    (100, 1024, 256, False), (512, 1000, 256, False), (512, 1024, 96, False),
-    (512, 1024, 512, False),
+@pytest.mark.parametrize("t,h,c,dtype,ok", [
+    (32768, 16384, 256, torch.bfloat16, True), (512, 1024, 128, torch.bfloat16, True),
+    (128, 128, 64, torch.float32, True), (128, 128, 64, "bfloat16", True),
+    (64, 64, 64, torch.bfloat16, False),  # T and H multiples of 128
+    (100, 1024, 256, torch.bfloat16, False), (512, 1000, 256, torch.bfloat16, False),
+    (512, 1024, 96, torch.bfloat16, True), (512, 1024, 512, torch.bfloat16, True),
+    # every GoogLeNet tap: mixed3b 480, mixed4a-4c 512, mixed4d 528, 4e/5a 832, 5b 1024
+    (32768, 16384, 480, torch.bfloat16, True), (32768, 16384, 528, torch.bfloat16, True),
+    (32768, 16384, 832, torch.bfloat16, True), (32768, 16384, 1024, torch.bfloat16, True),
+    (32768, 16384, 484, torch.bfloat16, False),  # TMA: bf16 widths multiples of 8
+    (32768, 16384, 484, torch.float32, True), (32768, 16384, 33, "float32", True),
+    (512, 1024, 0, torch.float32, False),
 ])
-def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
-    assert fused_sae.can_fuse(t, h, c) is ok
+def test_can_fuse_states_the_kernel_constraints(t, h, c, dtype, ok):
+    assert fused_sae.can_fuse(t, h, c, dtype) is ok
 
 
 def test_kernel_wrapper_validates_before_launch(setup):
@@ -250,3 +266,117 @@ def test_library_name_follows_source_and_shared_header(tmp_path, monkeypatch):
     with open(csrc / "fused_gated_sae.cu", "a") as f:
         f.write("// edited\n")
     assert native.library_path("fused_gated_sae") != edited
+
+
+# ---------------------------------------------------------------------------
+# any width: C = 480, T = 256, H = 512 (mixed3b's width; not a template width)
+# ---------------------------------------------------------------------------
+
+WT, WC, WH = 256, 480, 512
+
+
+@pytest.fixture(scope="module")
+def wide():
+    rng = np.random.default_rng(3)
+    params = {
+        "W_enc": (rng.normal(size=(WC, WH)) / np.sqrt(WC)).astype(np.float32),
+        "b_enc": (-0.05 + 0.05 * rng.normal(size=WH)).astype(np.float32),
+        "W_dec": (rng.normal(size=(WH, WC)) / np.sqrt(WH)).astype(np.float32),
+        "b_dec": (0.1 * rng.normal(size=WC)).astype(np.float32),
+    }
+    params["b_enc"][:8] -= 100.0  # 8 latents never fire
+    x = rng.normal(size=(WT, WC)).astype(np.float32)
+    return params, x
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+def test_wide_matches_jax(wide, case):
+    """The op at C = 480 against the JAX op in interpret mode: forward values and
+    every gradient, with the tolerances of the module docstring."""
+    cd, _ = CASES[case]
+    params, x = wide
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jout = jax_fused(jp, jnp.asarray(x), LAMBDA, 1, compute_dtype=JDT[cd], **JTILES)
+    jgrad = jax.grad(lambda p: jax_fused(p, jnp.asarray(x), LAMBDA, 1, compute_dtype=JDT[cd],
+                                         **JTILES)["loss"])(jp)
+    tp = {k: v.requires_grad_(True) for k, v in convert.sae_params_from_jax(params).items()}
+    tout = fused_sae.fused_sae_loss_terms(tp, torch.from_numpy(x), LAMBDA, 1,
+                                          compute_dtype=TDT[cd])
+    tgrad = dict(zip(tp, torch.autograd.grad(tout["loss"], list(tp.values()))))
+    rtol = 1e-5 if case == "f32" else 1e-4
+    for k in ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss"):
+        np.testing.assert_allclose(float(tout[k].detach()), float(jout[k]), rtol=rtol, err_msg=k)
+    np.testing.assert_allclose(tout["decoded"].detach().numpy(), np.asarray(jout["decoded"]),
+                               rtol=rtol, atol=2e-5)
+    np.testing.assert_array_equal(tout["dead"].numpy(), np.asarray(jout["dead"]))
+    np.testing.assert_array_equal(tout["activity_freq"].numpy(),
+                                  np.asarray(jout["activity_freq"]))
+    assert bool(jout["dead"].any()) and not bool(jout["dead"].all())
+    for k in ("W_enc", "b_enc", "W_dec", "b_dec"):
+        ref = np.asarray(jgrad[k])
+        if case == "f32":
+            rtol, atol = 1e-4, 1e-7
+        else:
+            rtol, atol = {"W_enc": (0, 2.0**-8 * np.abs(ref).max()),
+                          "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+def test_entry_points_compose_to_the_reference(wide, case):
+    """The op's glue around its entry points (x_cent from the forward, the
+    partial rows of db_dec and their reduction), run on the CPU with the entry
+    points' plain versions, equals the reference plain versions the kernels are
+    held to on the card, to f32 summation order."""
+    params, x = wide
+    cd = TDT[CASES[case][0]]
+    tp = convert.sae_params_from_jax(params)
+    ops = (torch.from_numpy(x).to(cd), tp["W_enc"].to(cd), tp["b_enc"], tp["W_dec"].to(cd),
+           tp["b_dec"])
+    x_cent, *fwd = fused_sae.fused_sae_forward(*ops)
+    torch.testing.assert_close(x_cent, ops[0] - tp["b_dec"].to(cd), rtol=0, atol=0)
+    for a, b in zip(fwd, fused_sae.fused_sae_forward_plain(*ops)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    err = (fwd[0] - ops[0].float()).to(cd)
+    coeffs = torch.tensor([2.0 / (WT * WC), LAMBDA / (WT * WH)])
+    got = fused_sae.fused_sae_backward(x_cent, ops[1], ops[2], ops[3], err, coeffs)
+    want = fused_sae.fused_sae_backward_plain(*ops, err, coeffs)
+    for a, b, name in zip(got, want, ("W_enc", "b_enc", "W_dec", "b_dec")):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()), msg=name)
+    parts = fused_sae.sae_bwd_plain(x_cent, ops[1], ops[2], ops[3], err, coeffs)[3]
+    assert parts.shape == (2, WC)  # the direct row, then the centring row
+
+
+@pytest.mark.parametrize("op", ["sae_mlp", "transcoder", "crosscoder"])
+def test_check_fusable_refuses_a_bf16_width_before_any_dump(op, monkeypatch, tmp_path):
+    """A bf16 width the TMA bodies refuse (484: not a multiple of 8) is refused by
+    can_fuse and by Pipeline.check_fusable, which the SAE, transcoder and
+    crosscoder trainers call before they dump a cache; f32 takes it."""
+    import types
+
+    from sparse_vision_tpu_torch.config import RunConfig
+    from sparse_vision_tpu_torch.data import activation_cache
+    from sparse_vision_tpu_torch.ops import fused_transcoder
+    from sparse_vision_tpu_torch.train.pipeline import Pipeline
+
+    can_fuse = {"sae_mlp": lambda t, h, c_in, _, dt: fused_sae.can_fuse(t, h, c_in, dt),
+                "transcoder": fused_transcoder.can_fuse,
+                "crosscoder": fused_transcoder.can_fuse}[op]
+    assert not can_fuse(32768, 16384, 484, 484, torch.bfloat16)
+    assert can_fuse(32768, 16384, 484, 484, torch.float32)
+    cfg = RunConfig(sae_model_name="sae_mlp", use_pallas=True, compute_dtype="bfloat16",
+                    cache_tokens_per_step=32768)
+    pipe = types.SimpleNamespace(cfg=cfg, device=torch.device("cuda"), num_units=16384,
+                                 sae_input_size=484)
+    pipe.check_fusable = functools.partial(Pipeline.check_fusable, pipe)
+    with pytest.raises(ValueError, match="C_in=484"):
+        pipe.check_fusable(can_fuse, 484, 484)
+    assert pipe.check_fusable(can_fuse, 480, 480)
+    if op == "sae_mlp":  # train_sae_cached asks before its dump
+        def no_dump(*args, **kwargs):
+            raise AssertionError("the cache was dumped before the width check")
+
+        monkeypatch.setattr(activation_cache, "dump_activations", no_dump)
+        pipe._cache_dir = lambda layer: str(tmp_path / layer)
+        with pytest.raises(ValueError, match="C_in=484"):
+            Pipeline.train_sae_cached(pipe)
