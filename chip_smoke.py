@@ -19,7 +19,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               C=480 and C=832 (T=8192, H=4096, prefixes 1024/2048/4096; a
               Matryoshka backward whose levels' errors differ, prefixes
               128/1024/4096), their bf16 launches must repeat bitwise, 20 at
-              C=832 (the in-place forward), and each is timed there. The
+              C=832 (the in-place forward), and each is timed there; so are
+              the bf16 JumpReLU and gated backwards (the coder body's Act::Jump
+              and Act::Gated epilogues), 20 bitwise-equal launches each at
+              C=832. The ptxas report names each instantiation with its
+              registers and spill bytes. The
               transcoder/crosscoder pair is also held to
               its plain versions at ragged shapes (T=1152, C_in=264, H=640,
               C_out=136 and 520: a partial token step, latent group and channel
@@ -105,8 +109,10 @@ MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
            "jumprelu_sae": fused_jumprelu_sae, "matryoshka_sae": fused_matryoshka_sae,
            "transcoder": fused_transcoder, "crosscoder": fused_crosscoder}
 KERNELS = tuple(k for m in MODULES.values() for k in m.KERNELS)
-# the source of each kernel's body; the coder family's entry points are in
-# fused_sae.cu (the SAEs) and fused_transcoder.cu (the coders)
+# the source of each kernel's body (bf16, the main path's); the coder family's
+# entry points are in fused_sae.cu (the ReLU and Matryoshka SAEs),
+# fused_jumprelu_sae.cu and fused_gated_sae.cu (their backwards) and
+# fused_transcoder.cu (the coders)
 CODER = "sparse_vision_tpu_torch/csrc/coder.cuh"
 SOURCES = {
     "fused_sae_fwd": CODER, "fused_sae_bwd": CODER,
@@ -114,9 +120,9 @@ SOURCES = {
     "fused_matryoshka_sae_fwd": CODER, "fused_matryoshka_sae_bwd": CODER,
     "fused_matryoshka_sae_dx": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
     "fused_jumprelu_sae_fwd": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
-    "fused_jumprelu_sae_bwd": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
+    "fused_jumprelu_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Jump>
     "fused_gated_sae_fwd": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
-    "fused_gated_sae_bwd": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
+    "fused_gated_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Gated>
     "fused_transcoder_fwd": CODER, "fused_transcoder_bwd": CODER,
     "fused_crosscoder_fwd": CODER, "fused_crosscoder_bwd": CODER,
 }
@@ -193,10 +199,41 @@ def phase_build() -> None:
         log(f"[build] {name}: {b['seconds']:.1f} s -> {b['path']}")
         for ln in ptxas:
             log(f"[build]   {ln}")
+        for kernel, regs, spill in _ptxas_kernels(b["log"]):
+            log(f"[build]   {regs} registers, {spill} spill bytes: {kernel}")
         spills = [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
         if spills:
             raise AssertionError(f"{name}: ptxas reports register spills: {spills}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+
+
+def _ptxas_kernels(ptxas_log: str) -> list:
+    """(kernel, registers, spill bytes) of every entry function in a ptxas -v
+    report, the names demangled by c++filt where the toolkit's host has it."""
+    rows, name, spill = [], None, 0
+    for ln in ptxas_log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            name, spill = m.group(1), 0
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)) and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            rows.append([name, int(m.group(1)), spill])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows), text=True,
+                             capture_output=True, check=True).stdout.splitlines()
+        for r, n in zip(rows, out):
+            depth = 0  # cut the parameter list, the last balanced (...)
+            for i in range(len(n) - 1, -1, -1):
+                depth += {")": 1, "(": -1}.get(n[i], 0)
+                if depth == 0:
+                    n = n[:i]
+                    break
+            n = n.removeprefix("void ").replace("(anonymous namespace)::", "")
+            for k, act in enumerate(("Relu", "Jump", "Gated")):
+                n = n.replace(f"(Act){k}", f"Act::{act}")
+            r[0] = n
+    return rows
 
 
 def _check(name: str, got, ref, rtol: float, atol_frac: float) -> float:
@@ -367,26 +404,74 @@ def kernels_gated(cd, tag: str) -> dict:
         lambda: (xc @ wg, enc @ wd, enc @ wd), 6.0 * T * C * H,
         nbytes(*ops) + nbytes(*out_p[:4]) + 4, err)}
 
-    err_rec = out_p[0] - x.float()  # the f32 residuals the backward reads
-    err_via = out_p[1] - x.float()
-    del out_p, g
-    coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H), 2.0 / (T * C)], device=DEVICE)
-    bops = ops + (err_rec, err_via, coeffs)
-    g_k = fused_gated_sae.bwd_kernel(*bops)
-    g_p = fused_gated_sae.fused_gated_backward_plain(*bops)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_gated_sae_bwd [{tag}] vs plain")
-    names = ("dW_gate", "db_gate", "db_mag", "dr_mag", "dW_dec", "db_dec")
-    err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(names, g_k, g_p))
+    del out_p, g, enc
+    bops = _gated_bwd_operands(ops, T, C, H)
+    g_p, err = _act_bwd_check(fused_gated_sae, tag, cd, bops, GATED_GRADS)
     moved = nbytes(*bops) + nbytes(*g_p)
-    del g_k, g_p
-    dr = (coeffs[0] * err_rec).to(cd)
-    dv = (coeffs[2] * err_via).to(cd)
+    del g_p
     rows["fused_gated_sae_bwd"] = _measure(
         "fused_gated_sae_bwd", tag, cd, lambda: fused_gated_sae.bwd_kernel(*bops),
-        lambda: fused_gated_sae.fused_gated_backward_plain(*bops),
-        lambda: (dr @ wd.T, dv @ wd.T, xc.T @ enc, enc.T @ dr), 10.0 * T * C * H, moved, err)
+        lambda: fused_gated_sae.backward_plain(*bops), _gated_bwd_library(bops),
+        10.0 * T * C * H, moved, err)
     return rows
+
+
+GATED_GRADS = ("dW_gate", "db_gate", "db_mag", "dr_mag", "dW_dec", "db_dec")
+JUMPRELU_GRADS = ("dW_enc", "db_enc", "dtheta", "dW_dec", "db_dec")
+
+
+def _act_bwd_check(mod, tag: str, cd, bops, names, repeats: int = 2, label: str = ""):
+    """The backward of the JumpReLU or gated op ``mod`` against the plain
+    version of its route (backward_plain: in bf16 centre, pre-pass and the coder
+    body's epilogue); in bf16 ``repeats`` launches must agree bitwise. Returns
+    (plain grads, max abs err)."""
+    name = mod.bwd_kernel.name
+    g_k = mod.bwd_kernel(*bops)
+    g_p = mod.backward_plain(*bops)
+    torch.cuda.synchronize()
+    log(f"[kernels] {name} [{tag}{label}] vs plain")
+    if cd == torch.bfloat16:
+        for _ in range(repeats - 1):
+            _repeatable(name, g_k, mod.bwd_kernel(*bops))
+        if repeats > 2:
+            log(f"[kernels]   {name}: {repeats} launches bitwise equal")
+    err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(names, g_k, g_p))
+    if mod is fused_jumprelu_sae:
+        n_win = int((g_p[2] != 0).sum())
+        log(f"[kernels]   dtheta non-zero for {n_win} of {g_p[2].numel()} latents")
+        if n_win == 0:
+            raise AssertionError("no pre-activation fell in the STE window")
+    return g_p, err
+
+
+def _gated_bwd_operands(ops, t: int, c: int, h: int):
+    """The gated backward's operands after its forward's plain version: the f32
+    residuals of recon and via_gate, and (c_rec, c_l1, c_aux)."""
+    x = ops[0]
+    recon, via = fused_gated_sae.fused_gated_forward_plain(*ops)[:2]
+    coeffs = torch.tensor([2.0 / (t * c), LAMBDA / (t * h), 2.0 / (t * c)], device=DEVICE)
+    return ops + (recon - x.float(), via - x.float(), coeffs)
+
+
+def _gated_bwd_library(bops):
+    """The stock path's four cuBLAS products of the gated backward, as one call."""
+    x, wg, _, _, _, wd, bd, err_rec, err_via, coeffs = bops
+    cd = x.dtype
+    xc = x - bd.to(cd)
+    enc = torch.relu(xc @ wg).to(cd)  # a [T, H] operand of the stock path's shapes
+    dr = (coeffs[0] * err_rec).to(cd)
+    dv = (coeffs[2] * err_via).to(cd)
+    return lambda: (dr @ wd.T, dv @ wd.T, xc.T @ enc, enc.T @ dr)
+
+
+def _jumprelu_bwd_library(bops):
+    """The stock path's three cuBLAS products of the JumpReLU backward."""
+    x, we, _, _, wd, bd, res, coeffs, _ = bops
+    cd = x.dtype
+    xc = x - bd.to(cd)
+    post = torch.relu(xc @ we).to(cd)
+    dr = (coeffs[0] * res).to(cd)
+    return lambda: (dr @ wd.T, xc.T @ post, post.T @ dr)
 
 
 def kernels_jumprelu(cd, tag: str) -> dict:
@@ -414,28 +499,23 @@ def kernels_jumprelu(cd, tag: str) -> dict:
         lambda: (xc @ we, post @ wd), 4.0 * T * C * H,
         nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
 
-    res = out_p[0] - x.float()
-    del out_p
-    coeffs = torch.tensor([2.0 / (T * C), LAMBDA_J / T], device=DEVICE)
-    bops = ops + (res, coeffs, BANDWIDTH)
-    g_k = fused_jumprelu_sae.bwd_kernel(*bops)
-    g_p = fused_jumprelu_sae.fused_jumprelu_backward_plain(*bops)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_jumprelu_sae_bwd [{tag}] vs plain")
-    names = ("dW_enc", "db_enc", "dtheta", "dW_dec", "db_dec")
-    err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(names, g_k, g_p))
-    n_win = int((g_p[2] != 0).sum())
-    log(f"[kernels]   dtheta non-zero for {n_win} of {H} latents")
-    if n_win == 0:
-        raise AssertionError("no pre-activation fell in the STE window")
+    del out_p, post
+    bops = _jumprelu_bwd_operands(ops, T, C)
+    g_p, err = _act_bwd_check(fused_jumprelu_sae, tag, cd, bops, JUMPRELU_GRADS)
     moved = nbytes(*bops[:-1]) + nbytes(*g_p)
-    del g_k, g_p
-    dr = (coeffs[0] * res).to(cd)
+    del g_p
     rows["fused_jumprelu_sae_bwd"] = _measure(
         "fused_jumprelu_sae_bwd", tag, cd, lambda: fused_jumprelu_sae.bwd_kernel(*bops),
-        lambda: fused_jumprelu_sae.fused_jumprelu_backward_plain(*bops),
-        lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
+        lambda: fused_jumprelu_sae.backward_plain(*bops), _jumprelu_bwd_library(bops),
+        8.0 * T * C * H, moved, err)
     return rows
+
+
+def _jumprelu_bwd_operands(ops, t: int, c: int):
+    """The JumpReLU backward's operands after its forward's plain version: the
+    f32 residual, (c_rec, c_l0) and the STE bandwidth."""
+    res = fused_jumprelu_sae.fused_jumprelu_forward_plain(*ops)[0] - ops[0].float()
+    return ops + (res, torch.tensor([2.0 / (t * c), LAMBDA_J / t], device=DEVICE), BANDWIDTH)
 
 
 def _relu_exact_operands(cd):
@@ -597,6 +677,44 @@ def kernels_sae_widths(cd, tag: str) -> dict:
     return {}
 
 
+def kernels_act_widths(cd, tag: str) -> dict:
+    """The JumpReLU and gated backwards (bf16 only: in f32 the SIMT bodies take
+    C in {64, 128, 256}) on _exact_inputs' grid against the plain versions of
+    their route, the errors from their forwards' plain versions: first at a
+    ragged shape (T = 2*512 + 128, H = 640, C = 2*64 + 8: a partial token step
+    and channel chunk), then at C = 480 and 832 (T = 8,192, H = 4,096), where
+    each is timed; REPEATS launches of each at C = 832 must agree bitwise. No
+    rows: the kernels line keeps the main path's."""
+    if cd != torch.bfloat16:
+        return {}
+    for t, h, c in ((1152, 640, 136),) + tuple((W_T, W_H, c) for c in W_WIDTHS):
+        gen = torch.Generator(device=DEVICE).manual_seed(c)
+        w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
+        x, we, bd = _exact_inputs(gen, t, w)
+        x, we = x.to(cd), we.to(cd)
+        wd = (torch.randn(h, c, device=DEVICE, generator=gen) / h ** 0.5).to(cd)
+        label = f", C={c} T={t} H={h}"
+        repeats = REPEATS if c > 512 else 2
+        thr = 0.5 + torch.rand(h, device=DEVICE, generator=gen)  # pre has std ~2 here
+        jops = _jumprelu_bwd_operands((x, we, _odd_grid(gen, h, 100), thr, wd, bd), t, c)
+        _act_bwd_check(fused_jumprelu_sae, tag, cd, jops, JUMPRELU_GRADS, repeats, label)
+        er = torch.exp(0.1 * torch.randn(h, device=DEVICE, generator=gen))
+        gops = _gated_bwd_operands(
+            (x, we, _odd_grid(gen, h, 100), _odd_grid(gen, h, 60), er, wd, bd), t, c, h)
+        _act_bwd_check(fused_gated_sae, tag, cd, gops, GATED_GRADS, repeats, label)
+        if t == W_T:
+            fl = 2.0 * t * c * h
+            for mod, bops, lib, flops in (
+                    (fused_jumprelu_sae, jops, _jumprelu_bwd_library(jops), 4 * fl),
+                    (fused_gated_sae, gops, _gated_bwd_library(gops), 5 * fl)):
+                _measure(mod.bwd_kernel.name, f"{tag}{label}", cd,
+                         lambda: mod.bwd_kernel(*bops), lambda: mod.backward_plain(*bops), lib,
+                         flops, 0, 0.0)
+        del jops, gops
+        torch.cuda.empty_cache()
+    return {}
+
+
 def _coder_operands(gen, t: int, c_in: int, c_out: int, h: int, cd):
     """Operands of the transcoder/crosscoder kernels: x and W_enc on
     _exact_inputs' grid (x in quarters, W_enc in 1/256ths, sums of at most a few
@@ -723,8 +841,8 @@ def phase_kernels() -> dict:
     rows = {}
     for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for fn in (kernels_relu, kernels_relu_dx, kernels_gated, kernels_jumprelu,
-                   kernels_matryoshka, kernels_sae_widths, kernels_coder_ragged,
-                   kernels_transcoder, kernels_crosscoder):
+                   kernels_matryoshka, kernels_sae_widths, kernels_act_widths,
+                   kernels_coder_ragged, kernels_transcoder, kernels_crosscoder):
             with torch.no_grad():
                 r = fn(cd, tag)
             torch.cuda.empty_cache()  # the plain versions' [T, H] temporaries

@@ -2,7 +2,8 @@
 // dictionary that encodes x [T, Cin] and decodes into [T, Cout]. Included by
 // fused_transcoder.cu (the transcoder and crosscoder ops) and fused_sae.cu (the
 // ReLU and Matryoshka SAE ops), whose C entry points call coder_fwd / coder_bwd
-// at the end of this file.
+// at the end of this file, and by fused_jumprelu_sae.cu and fused_gated_sae.cu,
+// whose bf16 backwards call bwd_tc with a variant epilogue (kAct, below).
 //
 // Replaces these Pallas TPU kernels (sparse_vision_tpu/ops/):
 //   forward  <- fused_transcoder.py _fwd_kernel (:41), pallas_call :227
@@ -13,6 +14,8 @@
 //               fused_crosscoder.py _bwd_kernel (:109), pallas_call :274
 //               fused_sae.py _bwd_kernel (:96), pallas_call :391
 //               fused_matryoshka_sae.py _bwd_kernel (:155), pallas_call :371
+//               fused_jumprelu_sae.py _bwd_kernel (:80), pallas_call :248 (bf16)
+//               fused_gated_sae.py _bwd_kernel (:98), pallas_call :292 (bf16)
 // The ops differ in their L1 statistic, so one body pair serves all: the forward
 // always emits per-latent sums of post (zsum partials; a scalar sum of post is
 // their total) and the backward always takes a per-latent L1 cotangent ct [H]
@@ -21,7 +24,7 @@
 //
 // Shapes: x [T, Cin], W_enc [Cin, H], W_dec [H, Cout], recon and err [T, Cout].
 // The bodies do not centre x: the SAE entry points write x_cent = round_T(x -
-// round_T(b_dec)) first (center_kernel, fused_sae.cu) and pass it with Cin =
+// round_T(b_dec)) first (center_kernel, below) and pass it with Cin =
 // Cout = C. The SAEs' other differences are template flags, so the coder
 // instantiations (both false) compile as they did before the SAEs joined:
 //   kPrefix (forward; the Matryoshka SAE): recon is prefix_recon [P, T, Cout].
@@ -34,6 +37,12 @@
 //     which read S_0; and each block writes one row of db_dec's centring term,
 //     -round_T(db_enc tile) @ W_enc tile^T, in its epilogue (SaeBwd::db_cent
 //     [H / 64, Cin], reduced by the caller; no float atomics).
+//   kAct (coder_bwd_tc only; with kSae): Act::Relu is the body above;
+//     Act::Jump and Act::Gated are the JumpReLU and gated SAEs' epilogues
+//     (coder_bwd_tc's note), which read err already scaled and rounded by
+//     scale_err_kernel (their ops save f32 errors and the Pallas kernels round
+//     c * err once, before the product) and take their per-latent operands
+//     from SaeBwd::act.
 //
 // The bodies, chosen by the operand type:
 //   bf16 (the training path): coder_fwd_tc_hold (Cout <= 512; recon held in
@@ -128,8 +137,10 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include "sae_common.cuh"
 
@@ -334,11 +345,27 @@ constexpr size_t bwd_smem_bytes() {
                           + 16 * kBwdTH);      // red_s
 }
 
+// The epilogue of the bf16 backward (coder_bwd_tc's kAct; header note): the
+// ReLU of the coder family, the JumpReLU SAE's or the gated SAE's.
+enum class Act { Relu, Jump, Gated };
+
+// The JumpReLU and gated SAEs' per-latent operands and outputs (kAct).
+struct ActBwd {
+  const float* theta;  // Jump: exp(log_threshold) [H]
+  float* dtheta;       // Jump: [H]
+  float eps, half_eps, neg_inv_eps;  // Jump: the STE bandwidth, eps / 2, -1 / eps
+  const float* b_mag;  // Gated: [H]
+  const float* er;     // Gated: exp(r_mag) [H]
+  float* db_mag;       // Gated: [H]
+  float* dr_mag;       // Gated: [H]
+};
+
 // The SAEs' additions to the backward (kSae; header note).
 struct SaeBwd {
   svt::Levels lv;      // prefix levels: a block of level q reads err rows q*T..
   const void* w_enc;   // W_enc [Cin, H] in the operand type, for the centring term
   float* db_cent;      // [H / 64, Cin]: -round_T(db_enc tile) @ W_enc tile^T per block
+  ActBwd act;          // kAct != Act::Relu only
 };
 
 // Backward. One block owns kBwdTH latents and sweeps all tokens in steps of
@@ -619,11 +646,13 @@ constexpr size_t fwd_tc_smem_bytes() {
 constexpr size_t hold_smem_bytes() {
   return 1024 + kHSt * kHSlot + 2 * kHoldLG * kHoldTT + sizeof(int) * kHoldTT + 16 * kHSt;
 }
-constexpr size_t bwd_tc_smem_bytes() {
-  return 1024 + kBSt * kBSlot + 2 * kTcBwdTS * kSwRow + 2 * sizeof(float) * kTcBwdTH + 16 * kBSt;
+// nv per-latent f32 vectors of the block's latents: 2 (b_enc, ct) for Act::Relu,
+// 3 for the JumpReLU and gated epilogues
+constexpr size_t bwd_tc_smem_bytes(int nv = 2) {
+  return 1024 + kBSt * kBSlot + 2 * kTcBwdTS * kSwRow + nv * sizeof(float) * kTcBwdTH + 16 * kBSt;
 }
 static_assert(fwd_tc_smem_bytes() <= 232448 && hold_smem_bytes() <= 232448 &&
-                  bwd_tc_smem_bytes() <= 232448,
+                  bwd_tc_smem_bytes(3) <= 232448,
               "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1265,6 +1294,32 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
   write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
 }
 
+// Column sums of a warp's rows, scattered over its lanes: v[j][e] is this
+// thread's part of column 8j + 2*(lane%4) + e (the accumulator layout of
+// wgmma_ss), and the eight lanes that share lane % 4 add theirs by recursive
+// halving (14 shuffles, in a fixed order), each lane keeping the half its
+// lane bits pick, so lane ends with the warp's sums of columns 2*lane + e
+// (8*(lane/4) + 2*(lane%4) + e), which it adds into acc[e].
+__device__ __forceinline__ void warp_col_sums(float (&acc)[2], const float (&v)[8][2], int lane) {
+  const bool k4 = lane & 16, k2 = lane & 8, k1 = lane & 4;  // keep the upper half
+  float a[4][2], b[2][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      a[i][e] = (k4 ? v[i + 4][e] : v[i][e]) +
+                __shfl_xor_sync(0xffffffffu, k4 ? v[i][e] : v[i + 4][e], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      b[i][e] = (k2 ? a[i + 2][e] : a[i][e]) +
+                __shfl_xor_sync(0xffffffffu, k2 ? a[i][e] : a[i + 2][e], 8);
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    acc[e] += (k1 ? b[1][e] : b[0][e]) + __shfl_xor_sync(0xffffffffu, k1 ? b[0][e] : b[1][e], 4);
+}
+
 // Backward, bf16. One block owns kTcBwdTH = 64 latents and sweeps the tokens in
 // steps of kTcBwdTS = 512; its two warpgroups each compute a 64 x 64 piece of
 // every product with wgmma, and thread 0 streams the tiles by TMA (issue()),
@@ -1285,7 +1340,22 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
 // already holds: n_own = gridDim.x, or with kSae the blocks of level 0, whose
 // err tiles are S_0's (m_err then maps [P*T, Cout], a block of level q reading
 // rows q*T on).
-template <bool kSae>
+//
+// kAct Jump and Gated (kSae, one level, Cin = Cout = C): err arrives already
+// scaled, round_bf16(c * err) from scale_err_kernel, so the body reads it as it
+// is (a unit scale) and sums no direct db_dec rows (the pre-pass wrote them).
+//   Jump: round_bf16(post) with post = pre > theta ? pre : 0, dpre = pre >
+//     theta ? dpost : 0 (no L1 cotangent), and per latent dtheta = sum_t win *
+//     (dpost * (-theta/eps) + c_l0 * (-1/eps)), win = |pre - theta| <= eps/2.
+//   Gated: phase A runs three products per 128 tokens, g = x_cent @ W_gate
+//     tile, denc = drecon @ W_dec tile^T, then (m_err rows T on, the scaled
+//     via error) dvia @ W_dec tile^T + c_l1 = d_relu_pi, with the epilogue
+//     split around the third: post_s takes round_bf16(enc), dpre_s
+//     round_bf16(dg); phase B gives dW_gate, phase C dW_dec from enc.
+// Their per-latent sums (db_enc / db_gate, dtheta; db_mag, sum d_premag * g,
+// sum dg) leave each 128-token sub-step's registers at once (warp_col_sums),
+// two floats a thread each, and meet over the warps after the last step.
+template <bool kSae, Act kAct = Act::Relu>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
              const __grid_constant__ CUtensorMap m_wd, const __grid_constant__ CUtensorMap m_err,
@@ -1295,13 +1365,18 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
              float* __restrict__ db_dec_part, int n_tokens, int Cin, int Cout, int H,
              const SaeBwd sae) {
   constexpr int TH = kTcBwdTH, TU = kTcBwdTU, TS = kTcBwdTS, CC = kTcBwdCC, KT = 64;
+  constexpr bool kVar = kAct != Act::Relu;  // err pre-scaled; per-latent sums per sub-step
+  static_assert(kSae || !kVar, "the JumpReLU and gated epilogues are the SAEs'");
+  constexpr int kNV = kVar ? 3 : 2;  // per-latent vectors in shared memory
+  constexpr int kErrPasses = kAct == Act::Gated ? 2 : 1;  // error products in phase A
   extern __shared__ __align__(1024) unsigned char tc_smem_bwd[];
   unsigned char* ring = align1024(tc_smem_bwd);
   unsigned char* post_s = ring + kBSt * kBSlot;  // [TS][64] round_bf16(post)
   unsigned char* dpre_s = post_s + TS * kSwRow;  // [TS][64] round_bf16(dpre)
-  float* benc_s = reinterpret_cast<float*>(dpre_s + TS * kSwRow);  // [TH]
-  float* ct_s = benc_s + TH;                                        // [TH]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ct_s + TH);
+  float* benc_s = reinterpret_cast<float*>(dpre_s + TS * kSwRow);  // [TH] b_enc; Gated: b_gate
+  float* ct_s = benc_s + TH;  // [TH] ct; Jump: theta; Gated: b_mag
+  float* v2_s = ct_s + TH;    // [TH] kVar: Jump -theta/eps, Gated exp(r_mag)
+  uint64_t* full = reinterpret_cast<uint64_t*>(benc_s + kNV * TH);
   uint64_t* empty = full + kBSt;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -1312,7 +1387,16 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const int n_own = kSae ? sae.lv.end[0] / TH : 0;  // kSae: the level-0 blocks
   if (tid < TH) {
     benc_s[tid] = b_enc[h0 + tid];
-    ct_s[tid] = ct[h0 + tid];
+    if constexpr (kAct == Act::Relu) {
+      ct_s[tid] = ct[h0 + tid];
+    } else if constexpr (kAct == Act::Jump) {
+      const float th = sae.act.theta[h0 + tid];
+      ct_s[tid] = th;
+      v2_s[tid] = __fdiv_rn(-th, sae.act.eps);
+    } else {
+      ct_s[tid] = sae.act.b_mag[h0 + tid];
+      v2_s[tid] = sae.act.er[h0 + tid];
+    }
   }
   if (tid == 0) init_ring<kBSt>(full, empty);
   __syncthreads();
@@ -1332,12 +1416,14 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
         tma_box(d + kBox, mx, prod.bar, p_k * KT, r0 + 64);
         tma_box(d + 2 * kBox, mwe, prod.bar, h0, p_k * KT);
       } else {
-        const int k0 = (p_k - nki) * KT;
-        tma_box(d, merr, prod.bar, k0, qrow + r0);
-        tma_box(d + kBox, merr, prod.bar, k0, qrow + r0 + 64);
+        int k0 = (p_k - nki) * KT, row = qrow + r0;
+        if constexpr (kAct == Act::Gated)
+          if (p_k >= nki + nko) k0 -= nko * KT, row += n_tokens;  // the via error's pass
+        tma_box(d, merr, prod.bar, k0, row);
+        tma_box(d + kBox, merr, prod.bar, k0, row + 64);
         tma_box(d + 2 * kBox, mwd, prod.bar, k0, h0);
       }
-      if (++p_k == nki + nko) {
+      if (++p_k == nki + kErrPasses * nko) {
         p_k = 0;
         if (++p_a == ntok / TU) p_a = 0, p_ph = 1;
       }
@@ -1380,14 +1466,42 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
         ldsm_x4(af[kk], reinterpret_cast<const bf16*>(
                             tile + sw128(wg * 64 + w4 * 16 + lr + (li % 2) * 8, kk * 2 + li / 2)));
 #pragma unroll
-      for (int r = 0; r < 4; ++r) af[kk][r] = scale_pair(af[kk][r], c_rec);
+      for (int r = 0; r < 4; ++r)
+        if constexpr (!kVar) af[kk][r] = scale_pair(af[kk][r], c_rec);
     }
+  };
+  // d = (the next nko err tiles, A from registers) @ W_dec tile^T
+  auto err_product = [&](float (&d)[8][4]) {
+    for (int k = 0; k < nko; ++k) {
+      const unsigned char* slot = c.next();
+      uint32_t af[4][4];
+      err_frags(af, slot, false);
+      const uint32_t s = smem_u32(slot);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<0>(d, af[kk], sw128_desc(s + 2 * kBox + kk * 32), k + kk > 0);
+      wg_commit();
+      c.issued<false>();  // af is rewritten by the next tile
+      issue();
+    }
+    c.drain();
   };
 
   const uint32_t post_a = smem_u32(post_s), dpre_a = smem_u32(dpre_s);
   float gbe[8][2];
 #pragma unroll
   for (int j = 0; j < 8; ++j) gbe[j][0] = gbe[j][1] = 0.f;
+  // kVar: the per-latent sums (Jump: dpre, dtheta terms; Gated: d_pregate,
+  // d_premag, d_premag * g, dg) of columns 8*(lane/4) + 2*(lane%4) + e over the
+  // warp's rows (warp_col_sums)
+  constexpr int kNS = kAct == Act::Gated ? 4 : 2;
+  float vs[kNS][2];
+#pragma unroll
+  for (int q = 0; q < kNS; ++q) vs[q][0] = vs[q][1] = 0.f;
+  // Jump: c_l0 * (-1/eps); Gated: c_l1
+  const float c_1 = kAct == Act::Jump ? __fmul_rn(coeffs[1], sae.act.neg_inv_eps)
+                                      : kVar ? coeffs[1] : 0.f;
 
   for (int t = 0, si = 0; t < n_tokens; t += TS, ++si) {
     const int ntok = min(TS, n_tokens - t);
@@ -1407,38 +1521,108 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
         c.issued<true>();
         issue();
       }
-      for (int k = 0; k < nko; ++k) {
-        const unsigned char* slot = c.next();
-        uint32_t af[4][4];
-        err_frags(af, slot, false);
-        const uint32_t s = smem_u32(slot);
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs<0>(dp, af[kk], sw128_desc(s + 2 * kBox + kk * 32), k + kk > 0);
-        wg_commit();
-        c.issued<false>();  // af is rewritten by the next tile
-        issue();
-      }
-      c.drain();
+      err_product(dp);
       __syncthreads();  // phases B and C of the last step are done with post_s, dpre_s
+      const int tok0 = u * TU + wg * 64 + w4 * 16 + lane / 4;  // this thread's first row
+      if constexpr (kAct == Act::Relu) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int tok = u * TU + wg * 64 + w4 * 16 + lane / 4 + 8 * h, l = j * 8 + 2 * (lane % 4);
-          float p[2], d[2];
+          for (int h = 0; h < 2; ++h) {
+            const int l = j * 8 + 2 * (lane % 4);
+            float p[2], d[2];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            p[e] = pre[j][2 * h + e] + benc_s[l + e];
-            d[e] = p[e] > 0.f ? dp[j][2 * h + e] + ct_s[l + e] : 0.f;
-            gbe[j][e] += d[e];
+            for (int e = 0; e < 2; ++e) {
+              p[e] = pre[j][2 * h + e] + benc_s[l + e];
+              d[e] = p[e] > 0.f ? dp[j][2 * h + e] + ct_s[l + e] : 0.f;
+              gbe[j][e] += d[e];
+            }
+            const uint32_t o = sw128(tok0 + 8 * h, j) + (lane % 4) * 4;
+            *reinterpret_cast<__nv_bfloat162*>(post_s + o) =
+                __floats2bfloat162_rn(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f));
+            *reinterpret_cast<__nv_bfloat162*>(dpre_s + o) = __floats2bfloat162_rn(d[0], d[1]);
           }
-          const uint32_t o = sw128(tok, j) + (lane % 4) * 4;
-          *reinterpret_cast<__nv_bfloat162*>(post_s + o) =
-              __floats2bfloat162_rn(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f));
-          *reinterpret_cast<__nv_bfloat162*>(dpre_s + o) = __floats2bfloat162_rn(d[0], d[1]);
-        }
+      } else if constexpr (kAct == Act::Jump) {
+        float sb[8][2], st[8][2];  // this thread's two rows' dpre and dtheta terms
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int l = j * 8 + 2 * (lane % 4);
+            float p[2], d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = pre[j][2 * h + e] + benc_s[l + e], th = ct_s[l + e];
+              const float dpost = dp[j][2 * h + e];
+              const bool on = v > th;
+              const float w = fabsf(v - th) <= sae.act.half_eps
+                                  ? __fadd_rn(__fmul_rn(dpost, v2_s[l + e]), c_1)
+                                  : 0.f;
+              p[e] = on ? v : 0.f;
+              d[e] = on ? dpost : 0.f;
+              sb[j][e] = h ? sb[j][e] + d[e] : d[e];
+              st[j][e] = h ? st[j][e] + w : w;
+            }
+            const uint32_t o = sw128(tok0 + 8 * h, j) + (lane % 4) * 4;
+            *reinterpret_cast<__nv_bfloat162*>(post_s + o) = __floats2bfloat162_rn(p[0], p[1]);
+            *reinterpret_cast<__nv_bfloat162*>(dpre_s + o) = __floats2bfloat162_rn(d[0], d[1]);
+          }
+        warp_col_sums(vs[0], sb, lane);
+        warp_col_sums(vs[1], st, lane);
+      } else {
+        // pre holds g, dp denc. First enc into post_s, d_premag's sums, and
+        // d_premag * er (dg's first term) in place of denc; g's mask bits
+        // pre_gate > 0 stay for the second part.
+        uint32_t pos = 0;  // bit 4j + 2h + e
+        float sm[8][2], smg[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int l = j * 8 + 2 * (lane % 4);
+            float en[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 2 * h + e;
+              const float g = pre[j][i], er = v2_s[l + e];
+              const float pg = g + benc_s[l + e];
+              const float pm = __fadd_rn(__fmul_rn(g, er), ct_s[l + e]);  // as the plain version
+              const float gate = pg > 0.f ? 1.f : (pg == 0.f ? 0.5f : 0.f);
+              const float dm = pm > 0.f ? __fmul_rn(dp[j][i], gate) : 0.f;
+              const float dmg = __fmul_rn(dm, g);
+              en[e] = gate * fmaxf(pm, 0.f);
+              sm[j][e] = h ? sm[j][e] + dm : dm;
+              smg[j][e] = h ? smg[j][e] + dmg : dmg;
+              dp[j][i] = __fmul_rn(dm, er);
+              pos |= static_cast<uint32_t>(pg > 0.f) << (4 * j + i);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(post_s + sw128(tok0 + 8 * h, j) + (lane % 4) * 4) =
+                __floats2bfloat162_rn(en[0], en[1]);
+          }
+        warp_col_sums(vs[1], sm, lane);
+        warp_col_sums(vs[2], smg, lane);
+        // then d_relu_pi = dvia @ W_dec tile^T + c_l1 into pre, d_pregate, dg
+        err_product(pre);
+        float sg[8][2], sdg[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float d[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 2 * h + e;
+              const float dpg = (pos >> (4 * j + i)) & 1u ? pre[j][i] + c_1 : 0.f;
+              d[e] = __fadd_rn(dp[j][i], dpg);
+              sg[j][e] = h ? sg[j][e] + dpg : dpg;
+              sdg[j][e] = h ? sdg[j][e] + d[e] : d[e];
+            }
+            *reinterpret_cast<__nv_bfloat162*>(dpre_s + sw128(tok0 + 8 * h, j) + (lane % 4) * 4) =
+                __floats2bfloat162_rn(d[0], d[1]);
+          }
+        warp_col_sums(vs[0], sg, lane);
+        warp_col_sums(vs[3], sdg, lane);
+      }
     }
     fence_async_smem();  // post_s and dpre_s before wgmma reads them
     __syncthreads();
@@ -1471,8 +1655,8 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 
     // C. dW_dec[tile, chunk] += round_bf16(post)^T @ round_bf16(c_rec*err[:, chunk]),
     // computed transposed: round_bf16(c_rec*err[:, chunk])^T @ round_bf16(post)
-    const bool own_db = kSae ? si % n_own == static_cast<int>(blockIdx.x)
-                             : si % gridDim.x == blockIdx.x;
+    const bool own_db = !kVar && (kSae ? si % n_own == static_cast<int>(blockIdx.x)
+                                       : si % gridDim.x == blockIdx.x);
     for (int ci = 0; ci < nco; ++ci) {
       float g[8][4];
       float dd = 0.f;  // own_db: column ci*CC + tid of db_dec over the step (tid < CC)
@@ -1526,23 +1710,49 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   // eight warps' row groups, in a fixed order; the ring is free once every
   // consumer is past its last tile
   __syncthreads();
-  float* red_s = reinterpret_cast<float*>(ring);  // [8][TH]
+  float* red_s = reinterpret_cast<float*>(ring);  // [8][TH]; kVar: [kNS][8][TH]
+  // kSae: [TH] round_bf16(db_enc); Gated: round_bf16(sum dg)
+  float* bcd_s = red_s + (kVar ? kNS : 1) * 8 * TH;
+  if constexpr (!kVar) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = gbe[j][e];
+      for (int e = 0; e < 2; ++e) {
+        float v = gbe[j][e];
 #pragma unroll
-      for (int off = 4; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane < 4) red_s[warp * TH + j * 8 + 2 * lane + e] = v;
+        for (int off = 4; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane < 4) red_s[warp * TH + j * 8 + 2 * lane + e] = v;
+      }
+    __syncthreads();
+    if (tid < TH) {
+      float v = red_s[tid];
+      for (int w = 1; w < 8; ++w) v += red_s[w * TH + tid];
+      db_enc[h0 + tid] = v;
+      if constexpr (kSae) bcd_s[tid] = __bfloat162float(__float2bfloat16(v));
     }
-  __syncthreads();
-  float* bcd_s = red_s + 8 * TH;  // kSae: [TH] round_bf16(db_enc)
-  if (tid < TH) {
-    float v = red_s[tid];
-    for (int w = 1; w < 8; ++w) v += red_s[w * TH + tid];
-    db_enc[h0 + tid] = v;
-    if constexpr (kSae) bcd_s[tid] = __bfloat162float(__float2bfloat16(v));
+  } else {
+#pragma unroll
+    for (int q = 0; q < kNS; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red_s[(q * 8 + warp) * TH + 2 * lane + e] = vs[q][e];
+    __syncthreads();
+    if (tid < TH) {
+      float s[kNS];
+#pragma unroll
+      for (int q = 0; q < kNS; ++q) {
+        s[q] = red_s[q * 8 * TH + tid];
+        for (int w = 1; w < 8; ++w) s[q] += red_s[(q * 8 + w) * TH + tid];  // fixed order
+      }
+      db_enc[h0 + tid] = s[0];  // Gated: db_gate
+      if constexpr (kAct == Act::Jump) {
+        sae.act.dtheta[h0 + tid] = s[1];
+        bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
+      } else {
+        sae.act.db_mag[h0 + tid] = s[1];
+        sae.act.dr_mag[h0 + tid] = __fmul_rn(s[2], v2_s[tid]);
+        bcd_s[tid] = __bfloat162float(__float2bfloat16(s[kNS - 1]));
+      }
+    }
   }
   if constexpr (kSae) {  // this block's row of db_dec's centring term
     __syncthreads();
@@ -1578,6 +1788,91 @@ bool bad_tc_operands(int c_in, int c_out, const void* x, const void* w_enc, cons
                      const void* out) {
   auto mis = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
   return c_in % 8 || c_out % 8 || mis(x) || mis(w_enc) || mis(w_dec) || mis(out);
+}
+
+// ---------------------------------------------------------------------------
+// The SAEs' pre-passes: centring (every SAE entry point) and the scaled error
+// (the JumpReLU and gated backwards)
+// ---------------------------------------------------------------------------
+
+// x_cent = round_T(x - round_T(b_dec)) over x [n / C, C]; with bf16 a thread
+// takes 8 elements (16 bytes; C is a multiple of 8), with float one.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+center_kernel(const T* __restrict__ x, const float* __restrict__ b_dec, T* __restrict__ out,
+              long n, int C) {
+  constexpr int V = std::is_same_v<T, float> ? 1 : 8;
+  struct alignas(sizeof(T) * V) Pack {
+    T v[V];
+  };
+  const long stride = static_cast<long>(gridDim.x) * kThreads * V;
+  for (long i = (static_cast<long>(blockIdx.x) * kThreads + threadIdx.x) * V; i < n; i += stride) {
+    const int c = static_cast<int>(i % C);
+    const Pack a = *reinterpret_cast<const Pack*>(x + i);
+    Pack r;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float d = to_f(a.v[e]) - round_cd<T>(b_dec[c + e]);
+      if constexpr (std::is_same_v<T, float>) r.v[e] = d;
+      else r.v[e] = __float2bfloat16(d);
+    }
+    *reinterpret_cast<Pack*>(out + i) = r;
+  }
+}
+
+cudaError_t launch_center(int bf16, const void* x, const float* b_dec, void* x_cent,
+                          int n_tokens, int C, cudaStream_t stream) {
+  const long n = static_cast<long>(n_tokens) * C;
+  const int per_block = kThreads * (bf16 ? 8 : 1);
+  const int blocks = static_cast<int>(std::min<long>((n + per_block - 1) / per_block, 132 * 16));
+  if (bf16)
+    return svt::launch(center_kernel<__nv_bfloat16>, blocks, 0, stream,
+                       static_cast<const __nv_bfloat16*>(x), b_dec,
+                       static_cast<__nv_bfloat16*>(x_cent), n, C);
+  return svt::launch(center_kernel<float>, blocks, 0, stream, static_cast<const float*>(x),
+                     b_dec, static_cast<float*>(x_cent), n, C);
+}
+
+// The JumpReLU and gated ops save their errors in f32 and round c * err once,
+// just before the products; coder_bwd_tc reads a bf16 err, so this pre-pass
+// writes drecon = round_bf16(c * err) [T, C] (c the device coefficient *coef)
+// and, where part is not null, the f32 column sums of the unrounded c * err
+// over each kTcBwdTS-token step, part [ceil(T / kTcBwdTS), C] in step order:
+// the direct rows of db_dec. A block takes 64 columns of one step; thread (cx,
+// ry) sums rows ry, ry + 4, .., then the four row groups are added in order.
+// Bound by bytes: 6 bytes a token and channel (32 MB + 16 MB at T = 32,768, C =
+// 256: ~0.015 ms at 3.35 TB/s).
+__global__ void __launch_bounds__(kThreads)
+scale_err_kernel(const float* __restrict__ err, const float* __restrict__ coef,
+                 bf16* __restrict__ out, float* __restrict__ part, int n_tokens, int C) {
+  __shared__ float red[kThreads];
+  const int cx = threadIdx.x % 64, ry = threadIdx.x / 64, col = blockIdx.x * 64 + cx;
+  const int t1 = min(n_tokens, static_cast<int>(blockIdx.y + 1) * kTcBwdTS);
+  const float c = *coef;
+  float s = 0.f;
+  if (col < C) {
+#pragma unroll 4
+    for (int t = blockIdx.y * kTcBwdTS + ry; t < t1; t += 4) {
+      const long o = static_cast<long>(t) * C + col;
+      const float d = __fmul_rn(c, err[o]);
+      out[o] = __float2bfloat16(d);
+      s += d;
+    }
+  }
+  if (part == nullptr) return;  // the same for every thread of the block
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if (ry == 0 && col < C)
+    part[static_cast<long>(blockIdx.y) * C + col] =
+        ((red[cx] + red[64 + cx]) + red[128 + cx]) + red[192 + cx];
+}
+
+cudaError_t launch_scale_err(const float* err, const float* coef, void* out, float* part,
+                             int n_tokens, int C, cudaStream_t stream) {
+  const dim3 grid((C + 63) / 64, (n_tokens + kTcBwdTS - 1) / kTcBwdTS);
+  scale_err_kernel<<<grid, kThreads, 0, stream>>>(err, coef, static_cast<bf16*>(out), part,
+                                                  n_tokens, C);
+  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled is a driver function: reached through the runtime's
@@ -1666,6 +1961,29 @@ cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b
 // c_out] (two partial sums over alternate token rows), bf16 [ceil(n_tokens /
 // 512), c_out] (one per 512-token step); db_dec is the sum of its rows (and,
 // with kSae, of sae.db_cent's).
+// The bf16 backward body coder_bwd_tc<kSae, kAct> on x [n_tokens, c_in] and
+// err [err_rows, c_out] (bf16 operands).
+template <bool kSae, Act kAct>
+cudaError_t bwd_tc(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
+                   const void* err, int err_rows, const float* coeffs, const float* ct,
+                   float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
+                   int n_tokens, int c_in, int c_out, int H, const SaeBwd& sae,
+                   cudaStream_t stream) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err))
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mwe, mwd, merr;
+  cudaError_t e;
+  if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
+      (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
+      (e = bf16_map(&mwd, w_dec, H, c_out, 64)) != cudaSuccess ||
+      (e = bf16_map(&merr, err, err_rows, c_out, 64)) != cudaSuccess)
+    return e;
+  return svt::launch(coder_bwd_tc<kSae, kAct>, H / kTcBwdTH,
+                     bwd_tc_smem_bytes(kAct == Act::Relu ? 2 : 3), stream, mx, mwe, mwd, merr,
+                     b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in,
+                     c_out, H, sae);
+}
+
 template <bool kSae>
 cudaError_t coder_bwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const void* err, const float* coeffs, const float* ct,
@@ -1673,19 +1991,10 @@ cudaError_t coder_bwd(int bf16, const void* x, const void* w_enc, const float* b
                       int n_tokens, int c_in, int c_out, int H, const SaeBwd& sae,
                       cudaStream_t stream) {
   if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
-  if (bf16) {
-    if (bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err)) return cudaErrorInvalidValue;
-    CUtensorMap mx, mwe, mwd, merr;
-    cudaError_t e;
-    if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwd, w_dec, H, c_out, 64)) != cudaSuccess ||
-        (e = bf16_map(&merr, err, sae.lv.n * n_tokens, c_out, 64)) != cudaSuccess)
-      return e;
-    return svt::launch(coder_bwd_tc<kSae>, H / kTcBwdTH, bwd_tc_smem_bytes(), stream, mx, mwe,
-                       mwd, merr, b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part,
-                       n_tokens, c_in, c_out, H, sae);
-  }
+  if (bf16)
+    return bwd_tc<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, sae.lv.n * n_tokens, coeffs, ct,
+                                   dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H,
+                                   sae, stream);
   return svt::launch(coder_bwd_kernel<float, kSae>, H / kBwdTH, bwd_smem_bytes(), stream,
                      static_cast<const float*>(x), static_cast<const float*>(w_enc), b_enc,
                      static_cast<const float*>(w_dec), static_cast<const float*>(err), coeffs,

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_gated_sae.py:
 //   gated_fwd_kernel <- _fwd_kernel (:42), launched by pallas_call :234
-//   gated_bwd_kernel <- _bwd_kernel (:98), launched by pallas_call :292
+//   svt_gated_bwd    <- _bwd_kernel (:98), launched by pallas_call :292
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
 // H = 16,384 latents) the forward is 6*T*C*H = 0.82 PFLOP (one gate product
@@ -10,11 +10,21 @@
 // backward 10*T*C*H = 1.4 PFLOP (the gate product again, two products with
 // W_dec^T, dW_gate and dW_dec), against ~130 MB of operands: bounded by
 // arithmetic as long as no [T, H] matrix (2 GB in f32) reaches device memory.
-// The design is that of csrc/fused_sae.cu: the forward holds a token tile's
-// recon AND via_gate in registers while it sweeps every latent tile; the
-// backward holds a latent tile's weight gradients in registers while it sweeps
-// every token, recomputing the gate product per token step. Plain FMA loops from
-// shared memory (the f32 SIMT rate); wgmma/TMA is later work.
+//
+// The backward in bf16 (the training path) runs the coder body family's
+// tensor-core backward (coder.cuh, coder_bwd_tc<true, Act::Gated>: wgmma/TMA,
+// any width, T and H multiples of 128, C of 8) after three pre-passes:
+// center_kernel (x_cent from the saved x) and scale_err_kernel twice
+// (round_bf16(c_rec * err_rec) with the direct db_dec rows, and
+// round_bf16(c_aux * err_via), which gives b_dec no gradient), into one
+// [2, T, C] workspace whose second half the body's third phase-A product reads.
+//
+// The forward, and the backward in f32 (the check path), run the SIMT bodies
+// below (namespace simt). The forward holds a token tile's recon AND via_gate
+// in registers while it sweeps every latent tile; the f32 backward holds a
+// latent tile's weight gradients in registers while it sweeps every token,
+// recomputing the gate product per token step. Plain FMA loops from shared
+// memory (the f32 SIMT rate).
 //
 // Tiles. Two [tokens, C] accumulators a thread would need 128 registers at 64
 // tokens, so the forward takes 32 tokens a block (64 accumulator floats a
@@ -46,16 +56,14 @@
 //
 // Entry points have a plain C interface (pointers, sizes, stream) and return the
 // cudaError_t of the launch; ops/fused_gated_sae.py raises on a non-zero value.
-// Supported shapes: C in {64, 128, 256}, T a multiple of kFwdTT and kBwdTT, H a
-// multiple of kTH (ops/fused_gated_sae.py can_fuse).
+// Supported shapes (ops/fused_gated_sae.py can_fuse, bwd_takes): the SIMT
+// bodies C in {64, 128, 256}, T a multiple of kFwdTT and kBwdTT, H of kTH; the
+// bf16 backward coder.cuh's rule.
 
-#include "sae_common.cuh"
+#include "coder.cuh"
 
 namespace {
-
-using svt::kThreads;
-using svt::round_cd;
-using svt::to_f;
+namespace simt {  // the SIMT bodies: the forward, and the backward in f32
 
 constexpr int kFwdTT = 32;  // forward: tokens per block
 constexpr int kBwdTT = 16;  // backward: tokens per inner step
@@ -409,6 +417,7 @@ gated_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_gate,
   }
 }
 
+}  // namespace simt
 }  // namespace
 
 // er is exp(r_mag) [H] in f32; act_part is [n_tokens / 32, H] (per-token-tile
@@ -419,34 +428,63 @@ extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
                              const void* w_dec, const float* b_dec, float* recon, float* via,
                              float* act_part, float* row_active, float* l1_part,
                              int n_tokens, int C, int H, cudaStream_t stream) {
-  if (n_tokens <= 0 || H <= 0 || n_tokens % kFwdTT || H % kTH) return cudaErrorInvalidValue;
+  if (n_tokens <= 0 || H <= 0 || n_tokens % simt::kFwdTT || H % simt::kTH)
+    return cudaErrorInvalidValue;
   return svt::dispatch(bf16, C, [&](auto t, auto c) {
     using T = decltype(t);
     constexpr int CC = decltype(c)::value;
-    return svt::launch(gated_fwd_kernel<T, CC>, n_tokens / kFwdTT, fwd_smem_bytes<CC>(),
-                       stream, static_cast<const T*>(x), static_cast<const T*>(w_gate),
-                       b_gate, b_mag, er, static_cast<const T*>(w_dec), b_dec, recon, via,
-                       act_part, row_active, l1_part, H);
+    return svt::launch(simt::gated_fwd_kernel<T, CC>, n_tokens / simt::kFwdTT,
+                       simt::fwd_smem_bytes<CC>(), stream, static_cast<const T*>(x),
+                       static_cast<const T*>(w_gate), b_gate, b_mag, er,
+                       static_cast<const T*>(w_dec), b_dec, recon, via, act_part, row_active,
+                       l1_part, H);
   });
 }
 
 // err_rec and err_via are the f32 residuals recon - x and via - x [n_tokens, C];
-// coeffs is a 3-float device array (c_rec, c_l1, c_aux); db_dec_part is [H / 64, C].
+// coeffs is a 3-float device array (c_rec, c_l1, c_aux). bf16: x_cent [n_tokens,
+// C] and err_s [2, n_tokens, C] are bf16 workspaces (center_kernel's output;
+// scale_err_kernel's round_bf16(c_rec * err_rec), then round_bf16(c_aux *
+// err_via)) and db_dec_part is [ceil(n_tokens / 512) + H / 64, C], the
+// pre-pass's direct rows, then coder_bwd_tc<true, Act::Gated>'s centring rows
+// (T and H multiples of 128, C of 8). float: gated_bwd_kernel, the workspaces
+// unused, db_dec_part [H / 64, C].
 extern "C" int svt_gated_bwd(int bf16, const void* x, const void* w_gate,
                              const float* b_gate, const float* b_mag, const float* er,
                              const void* w_dec, const float* b_dec, const float* err_rec,
                              const float* err_via, const float* coeffs, float* dw_gate,
                              float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
-                             float* db_dec_part, int n_tokens, int C, int H,
-                             cudaStream_t stream) {
-  if (n_tokens <= 0 || H <= 0 || n_tokens % kBwdTT || H % kTH) return cudaErrorInvalidValue;
-  return svt::dispatch(bf16, C, [&](auto t, auto c) {
-    using T = decltype(t);
+                             float* db_dec_part, void* x_cent, void* err_s, int n_tokens, int C,
+                             int H, cudaStream_t stream) {
+  if (bf16) {
+    if (bad_shape(n_tokens, C, C, H) || bad_tc_operands(C, C, x, x_cent, w_gate, w_dec))
+      return cudaErrorInvalidValue;
+    const long direct = (n_tokens + kTcBwdTS - 1) / kTcBwdTS;
+    __nv_bfloat16* via_s = static_cast<__nv_bfloat16*>(err_s) + static_cast<long>(n_tokens) * C;
+    cudaError_t e;
+    if ((e = launch_center(1, x, b_dec, x_cent, n_tokens, C, stream)) != cudaSuccess ||
+        (e = launch_scale_err(err_rec, coeffs, err_s, db_dec_part, n_tokens, C, stream)) !=
+            cudaSuccess ||
+        (e = launch_scale_err(err_via, coeffs + 2, via_s, nullptr, n_tokens, C, stream)) !=
+            cudaSuccess)
+      return e;
+    SaeBwd sae{svt::one_level(H), w_gate, db_dec_part + direct * C};
+    sae.act.b_mag = b_mag;
+    sae.act.er = er;
+    sae.act.db_mag = db_mag;
+    sae.act.dr_mag = dr_mag;
+    return bwd_tc<true, Act::Gated>(x_cent, w_gate, b_gate, w_dec, err_s, 2 * n_tokens, coeffs,
+                                    nullptr, dw_gate, db_gate, dw_dec, nullptr, n_tokens, C, C,
+                                    H, sae, stream);
+  }
+  if (n_tokens <= 0 || H <= 0 || n_tokens % simt::kBwdTT || H % simt::kTH)
+    return cudaErrorInvalidValue;
+  return svt::dispatch_width(C, [&](auto c) {
     constexpr int CC = decltype(c)::value;
-    return svt::launch(gated_bwd_kernel<T, CC>, H / kTH, bwd_smem_bytes<CC>(), stream,
-                       static_cast<const T*>(x), static_cast<const T*>(w_gate), b_gate,
-                       b_mag, er, static_cast<const T*>(w_dec), b_dec, err_rec, err_via,
-                       coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part,
-                       n_tokens, H);
+    return svt::launch(simt::gated_bwd_kernel<float, CC>, H / simt::kTH,
+                       simt::bwd_smem_bytes<CC>(), stream, static_cast<const float*>(x),
+                       static_cast<const float*>(w_gate), b_gate, b_mag, er,
+                       static_cast<const float*>(w_dec), b_dec, err_rec, err_via, coeffs,
+                       dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part, n_tokens, H);
   });
 }

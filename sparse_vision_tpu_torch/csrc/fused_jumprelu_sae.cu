@@ -2,17 +2,28 @@
 //
 // Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_jumprelu_sae.py:
 //   jumprelu_fwd_kernel <- _fwd_kernel (:30), launched by pallas_call :192
-//   jumprelu_bwd_kernel <- _bwd_kernel (:80), launched by pallas_call :248
+//   svt_jumprelu_bwd    <- _bwd_kernel (:80), launched by pallas_call :248
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
 // H = 16,384 latents) the forward is 4*T*C*H = 0.55 PFLOP and the backward
 // 8*T*C*H = 1.1 PFLOP against ~100 MB of operands: both are bounded by
 // arithmetic as long as the [T, H] latent matrix (2 GB in f32) never reaches
-// device memory. The design is that of csrc/fused_sae.cu: the forward holds a
+// device memory.
+//
+// The backward in bf16 (the training path) runs the coder body family's
+// tensor-core backward (coder.cuh, coder_bwd_tc<true, Act::Jump>: wgmma/TMA,
+// any width, T and H multiples of 128, C of 8) after two pre-passes:
+// center_kernel (x_cent, recomputed from the saved x: ~0.01 ms) and
+// scale_err_kernel (round_bf16(c_rec * err) from the saved f32 err, the Pallas
+// cast point, and the direct db_dec rows). The Jump epilogue replaces the
+// ReLU's: the strict mask, no L1 cotangent, and the STE window's dtheta.
+//
+// The forward, and the backward in f32 (the check path: TF32 would miss its
+// tolerances), run the SIMT bodies below (namespace simt): the forward holds a
 // token tile's reconstruction in registers while it sweeps every latent tile;
 // the backward holds a latent tile's weight gradients in registers while it
 // sweeps every token, recomputing pre-activations per token step. Plain FMA
-// loops from shared memory (the f32 SIMT rate); wgmma/TMA is later work.
+// loops from shared memory (the f32 SIMT rate).
 //
 // Numerics follow the Pallas kernels' cast points. The operand type T (float or
 // bf16) is the compute dtype; x, W_enc and W_dec arrive already cast to T,
@@ -30,16 +41,14 @@
 //
 // Entry points have a plain C interface (pointers, sizes, stream) and return the
 // cudaError_t of the launch; ops/fused_jumprelu_sae.py raises on a non-zero
-// value. Supported shapes: C in {64, 128, 256}, T a multiple of kFwdTT and
-// kBwdTT, H a multiple of kTH (ops/fused_jumprelu_sae.py can_fuse).
+// value. Supported shapes (ops/fused_jumprelu_sae.py can_fuse, bwd_takes): the
+// SIMT bodies C in {64, 128, 256}, T a multiple of kFwdTT and kBwdTT, H of kTH;
+// the bf16 backward coder.cuh's rule.
 
-#include "sae_common.cuh"
+#include "coder.cuh"
 
 namespace {
-
-using svt::kThreads;
-using svt::round_cd;
-using svt::to_f;
+namespace simt {  // the SIMT bodies: the forward, and the backward in f32
 
 constexpr int kFwdTT = 64;  // forward: tokens per block
 constexpr int kBwdTT = 32;  // backward: tokens per inner step
@@ -381,6 +390,7 @@ jumprelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
   }
 }
 
+}  // namespace simt
 }  // namespace
 
 // act_part is [n_tokens / 64, H] (per-token-tile activity counts), l1_part is
@@ -391,35 +401,59 @@ extern "C" int svt_jumprelu_fwd(int bf16, const void* x, const void* w_enc,
                                 const float* b_dec, float* recon, float* act_part,
                                 float* row_active, float* l1_part, int n_tokens, int C,
                                 int H, cudaStream_t stream) {
-  if (n_tokens <= 0 || H <= 0 || n_tokens % kFwdTT || H % kTH) return cudaErrorInvalidValue;
+  if (n_tokens <= 0 || H <= 0 || n_tokens % simt::kFwdTT || H % simt::kTH)
+    return cudaErrorInvalidValue;
   return svt::dispatch(bf16, C, [&](auto t, auto c) {
     using T = decltype(t);
     constexpr int CC = decltype(c)::value;
-    return svt::launch(jumprelu_fwd_kernel<T, CC>, n_tokens / kFwdTT, fwd_smem_bytes<CC>(),
-                       stream, static_cast<const T*>(x), static_cast<const T*>(w_enc),
-                       b_enc, thr, static_cast<const T*>(w_dec), b_dec, recon, act_part,
-                       row_active, l1_part, H);
+    return svt::launch(simt::jumprelu_fwd_kernel<T, CC>, n_tokens / simt::kFwdTT,
+                       simt::fwd_smem_bytes<CC>(), stream, static_cast<const T*>(x),
+                       static_cast<const T*>(w_enc), b_enc, thr, static_cast<const T*>(w_dec),
+                       b_dec, recon, act_part, row_active, l1_part, H);
   });
 }
 
 // err is the f32 residual recon - x [n_tokens, C]; coeffs is a 2-float device
-// array (c_rec, c_l0); eps, eps/2 and -1/eps come from the host in f32;
-// db_dec_part is [H / 64, C].
+// array (c_rec, c_l0); eps, eps/2 and -1/eps come from the host in f32.
+// bf16: x_cent and err_s are [n_tokens, C] bf16 workspaces (center_kernel's
+// and scale_err_kernel's outputs) and db_dec_part is [ceil(n_tokens / 512) +
+// H / 64, C], the pre-pass's direct rows, then coder_bwd_tc<true, Act::Jump>'s
+// centring rows (T and H multiples of 128, C of 8). float: jumprelu_bwd_kernel,
+// the workspaces unused, db_dec_part [H / 64, C].
 extern "C" int svt_jumprelu_bwd(int bf16, const void* x, const void* w_enc,
                                 const float* b_enc, const float* thr, const void* w_dec,
                                 const float* b_dec, const float* err, const float* coeffs,
                                 float eps, float half_eps, float neg_inv_eps,
                                 float* dw_enc, float* db_enc, float* dthr, float* dw_dec,
-                                float* db_dec_part, int n_tokens, int C, int H,
-                                cudaStream_t stream) {
-  if (n_tokens <= 0 || H <= 0 || n_tokens % kBwdTT || H % kTH) return cudaErrorInvalidValue;
-  return svt::dispatch(bf16, C, [&](auto t, auto c) {
-    using T = decltype(t);
+                                float* db_dec_part, void* x_cent, void* err_s, int n_tokens,
+                                int C, int H, cudaStream_t stream) {
+  if (bf16) {
+    if (bad_shape(n_tokens, C, C, H) || bad_tc_operands(C, C, x, x_cent, w_enc, w_dec))
+      return cudaErrorInvalidValue;
+    const long direct = (n_tokens + kTcBwdTS - 1) / kTcBwdTS;
+    cudaError_t e;
+    if ((e = launch_center(1, x, b_dec, x_cent, n_tokens, C, stream)) != cudaSuccess ||
+        (e = launch_scale_err(err, coeffs, err_s, db_dec_part, n_tokens, C, stream)) !=
+            cudaSuccess)
+      return e;
+    SaeBwd sae{svt::one_level(H), w_enc, db_dec_part + direct * C};
+    sae.act.theta = thr;
+    sae.act.dtheta = dthr;
+    sae.act.eps = eps;
+    sae.act.half_eps = half_eps;
+    sae.act.neg_inv_eps = neg_inv_eps;
+    return bwd_tc<true, Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, n_tokens, coeffs,
+                                   nullptr, dw_enc, db_enc, dw_dec, nullptr, n_tokens, C, C, H,
+                                   sae, stream);
+  }
+  if (n_tokens <= 0 || H <= 0 || n_tokens % simt::kBwdTT || H % simt::kTH)
+    return cudaErrorInvalidValue;
+  return svt::dispatch_width(C, [&](auto c) {
     constexpr int CC = decltype(c)::value;
-    return svt::launch(jumprelu_bwd_kernel<T, CC>, H / kTH, bwd_smem_bytes<CC>(), stream,
-                       static_cast<const T*>(x), static_cast<const T*>(w_enc), b_enc, thr,
-                       static_cast<const T*>(w_dec), b_dec, err, coeffs, eps, half_eps,
-                       neg_inv_eps, dw_enc, db_enc, dthr, dw_dec, db_dec_part, n_tokens,
-                       H);
+    return svt::launch(simt::jumprelu_bwd_kernel<float, CC>, H / simt::kTH,
+                       simt::bwd_smem_bytes<CC>(), stream, static_cast<const float*>(x),
+                       static_cast<const float*>(w_enc), b_enc, thr,
+                       static_cast<const float*>(w_dec), b_dec, err, coeffs, eps, half_eps,
+                       neg_inv_eps, dw_enc, db_enc, dthr, dw_dec, db_dec_part, n_tokens, H);
   });
 }

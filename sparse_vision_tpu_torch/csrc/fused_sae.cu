@@ -14,7 +14,7 @@
 // The forward and backward run the coder body family (coder.cuh: wgmma/TMA
 // bodies in bf16, SIMT bodies in f32, any width) with Cin = Cout = C. The SAE
 // is that dictionary on the centred input: the forward entry points first
-// launch center_kernel, x_cent = round_T(x - round_T(b_dec)), which the
+// launch center_kernel (coder.cuh), x_cent = round_T(x - round_T(b_dec)), which the
 // autograd function saves for the backward, so the backward entry points take
 // x_cent and never centre again. The rest of the SAE's differences are the
 // bodies' template flags (coder.cuh header note): the scalar c_l1 arrives as
@@ -56,53 +56,12 @@
 // multiples of 8); dx C in {64, 128, 256}, T a multiple of kDxTT, H of kTH; at
 // most kMaxLevels prefixes (can_fuse, can_fuse_matryoshka).
 
-#include <algorithm>
-#include <type_traits>
-
 #include "coder.cuh"
 
 namespace {
 
 constexpr int kDxTT = 32;  // dx: tokens per block
 constexpr int kTH = 64;    // dx: latents per tile
-
-// x_cent = round_T(x - round_T(b_dec)) over x [n / C, C]; with bf16 a thread
-// takes 8 elements (16 bytes; C is a multiple of 8), with float one.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-center_kernel(const T* __restrict__ x, const float* __restrict__ b_dec, T* __restrict__ out,
-              long n, int C) {
-  constexpr int V = std::is_same_v<T, float> ? 1 : 8;
-  struct alignas(sizeof(T) * V) Pack {
-    T v[V];
-  };
-  const long stride = static_cast<long>(gridDim.x) * kThreads * V;
-  for (long i = (static_cast<long>(blockIdx.x) * kThreads + threadIdx.x) * V; i < n; i += stride) {
-    const int c = static_cast<int>(i % C);
-    const Pack a = *reinterpret_cast<const Pack*>(x + i);
-    Pack r;
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float d = to_f(a.v[e]) - round_cd<T>(b_dec[c + e]);
-      if constexpr (std::is_same_v<T, float>) r.v[e] = d;
-      else r.v[e] = __float2bfloat16(d);
-    }
-    *reinterpret_cast<Pack*>(out + i) = r;
-  }
-}
-
-cudaError_t launch_center(int bf16, const void* x, const float* b_dec, void* x_cent,
-                          int n_tokens, int C, cudaStream_t stream) {
-  const long n = static_cast<long>(n_tokens) * C;
-  const int per_block = kThreads * (bf16 ? 8 : 1);
-  const int blocks = static_cast<int>(std::min<long>((n + per_block - 1) / per_block, 132 * 16));
-  if (bf16)
-    return svt::launch(center_kernel<__nv_bfloat16>, blocks, 0, stream,
-                       static_cast<const __nv_bfloat16*>(x), b_dec,
-                       static_cast<__nv_bfloat16*>(x_cent), n, C);
-  return svt::launch(center_kernel<float>, blocks, 0, stream, static_cast<const float*>(x),
-                     b_dec, static_cast<float*>(x_cent), n, C);
-}
 
 // The forward: center_kernel into x_cent, then the coder forward on x_cent.
 template <bool kPrefix>

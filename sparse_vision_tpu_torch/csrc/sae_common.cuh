@@ -38,19 +38,24 @@ cudaError_t launch(void (*kernel)(KArgs...), int blocks, size_t smem, cudaStream
   return cudaGetLastError();
 }
 
+// Call f(std::integral_constant<int, C>{}) for the channel width C in {64, 128,
+// 256}.
+template <typename F>
+cudaError_t dispatch_width(int C, F&& f) {
+  switch (C) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Call f(T{}, std::integral_constant<int, C>{}) for the operand type (bf16 != 0
 // selects __nv_bfloat16, else float) and the channel width C in {64, 128, 256}.
 template <typename F>
 cudaError_t dispatch(int bf16, int C, F&& f) {
-  auto by_width = [&](auto t) -> cudaError_t {
-    switch (C) {
-      case 64: return f(t, std::integral_constant<int, 64>{});
-      case 128: return f(t, std::integral_constant<int, 128>{});
-      case 256: return f(t, std::integral_constant<int, 256>{});
-      default: return cudaErrorInvalidValue;
-    }
-  };
-  return bf16 ? by_width(__nv_bfloat16{}) : by_width(float{});
+  if (bf16) return dispatch_width(C, [&](auto c) { return f(__nv_bfloat16{}, c); });
+  return dispatch_width(C, [&](auto c) { return f(float{}, c); });
 }
 
 constexpr int kMaxLevels = 16;

@@ -16,6 +16,14 @@ Gradient notes: the Heaviside gate (1 / 0.5 / 0 at π > / == / < 0) is detached;
 via_gate gives W_dec and b_dec no gradient; b_dec gets Σ drecon − Σ_rows(dg) @
 W_gateᵀ; dr_mag = Σ_t(d_premag · g) · exp(r_mag), g without b_gate.
 
+Kernels: the forward, and the backward in f32 (the check path), run the SIMT
+bodies of csrc/fused_gated_sae.cu, C in SUPPORTED_C. The backward in bf16 (the
+training path) runs the coder body family's tensor-core backward
+(csrc/coder.cuh, the gated epilogue of coder_bwd_tc: three products per token
+tile, the second error's W_dec tiles streamed again) at any width that
+bwd_takes allows, after center_kernel and scale_err_kernel on both errors.
+can_fuse asks both rules.
+
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
 same formulas, the same cast points); a CUDA tensor launches the kernel or
 raises. There is no fallback from one to the other.
@@ -48,28 +56,47 @@ from sparse_vision_tpu_torch.ops import losses, native
 from sparse_vision_tpu_torch.ops.fused_sae import (
     _F32,
     _BF16,
+    BLOCK_H,
     Kernel,
     _expect,
     _ptrs,
     _r,
+    bodies_take,
+    center_plain,
     compute_dtype_of,
+    direct_rows,
     run_on_device,
+    scale_err_plain,
 )
 
-# tile sizes of csrc/fused_gated_sae.cu (kFwdTT, kBwdTT, kTH) and its widths
+# tile sizes of csrc/fused_gated_sae.cu's SIMT bodies (kFwdTT, kBwdTT, kTH) and
+# their widths
 FWD_TILE_T = 32
 BWD_TILE_T = 16
 TILE_H = 64
 SUPPORTED_C = (64, 128, 256)
 
 
-def can_fuse(t: int, h: int, c: int = 256) -> bool:
-    """True when the CUDA kernels take this (tokens, latents, channels) shape.
-    The CPU plain versions take any shape."""
-    return (
-        c in SUPPORTED_C and t > 0 and h > 0
-        and t % FWD_TILE_T == 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
-    )
+def fwd_takes(t: int, h: int, c: int = 256) -> bool:
+    """True when the CUDA forward (a SIMT body) takes this shape."""
+    return c in SUPPORTED_C and t > 0 and h > 0 and t % FWD_TILE_T == 0 and h % TILE_H == 0
+
+
+def bwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
+    """True when the CUDA backward takes this shape with ``dtype`` operands: in
+    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
+    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
+    BWD_TILE_T, H of TILE_H)."""
+    if compute_dtype_of(dtype) == _BF16:
+        return bodies_take(t, h, c, c, _BF16)
+    return c in SUPPORTED_C and t > 0 and h > 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
+
+
+def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
+    """True when the CUDA forward and backward take this (tokens, latents,
+    channels) shape with ``dtype`` operands. The CPU plain versions take any
+    shape."""
+    return fwd_takes(t, h, c) and bwd_takes(t, h, c, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +154,41 @@ def fused_gated_backward_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_r
             dw_dec, db_dec)
 
 
+def gated_bwd_tc_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs):
+    """Plain version of svt_gated_bwd's tensor-core route (the bf16 training
+    path): center_kernel, scale_err_kernel on both errors, then
+    coder_bwd_tc<true, Act::Gated> on x_cent, round(c_rec·err_rec) and
+    round(c_aux·err_via). Arguments and results as for
+    fused_gated_backward_plain; db_dec is the sum of the pre-pass's direct rows
+    and the centring term."""
+    cd = x.dtype
+    x_cent = center_plain(x, b_dec).float()
+    dr, direct = scale_err_plain(err_rec, coeffs[0], cd)
+    dv, _ = scale_err_plain(err_via, coeffs[2], cd)
+    dr = dr.float()
+    g = x_cent @ w_gate.float()
+    pre_gate = g + b_gate
+    pre_mag = g * er + b_mag
+    gate = heaviside_gate(pre_gate)
+    wdt = w_dec.float().T
+    zero = torch.zeros((), device=g.device)
+    d_premag = torch.where(pre_mag > 0, (dr @ wdt) * gate, zero)
+    d_pregate = torch.where(pre_gate > 0, dv.float() @ wdt + coeffs[1], zero)
+    dg = d_premag * er + d_pregate
+    cent = -(_r(dg.sum(0), cd) @ w_gate.float().T)
+    return (x_cent.T @ _r(dg, cd), d_pregate.sum(0), d_premag.sum(0),
+            (d_premag * g).sum(0) * er, _r(gate * torch.relu(pre_mag), cd).T @ dr,
+            torch.cat([direct, cent[None]]).sum(0))
+
+
+def backward_plain(x, *args):
+    """The plain version of the route the card's backward takes for ``x``'s
+    dtype: gated_bwd_tc_plain in bf16, fused_gated_backward_plain (the SIMT
+    body's) in f32."""
+    plain = gated_bwd_tc_plain if x.dtype == _BF16 else fused_gated_backward_plain
+    return plain(x, *args)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -141,16 +203,22 @@ def _lib() -> ctypes.CDLL:
     lib.svt_gated_fwd.restype = _I
     lib.svt_gated_fwd.argtypes = [_I] + [_P] * 12 + [_I, _I, _I, _P]
     lib.svt_gated_bwd.restype = _I
-    lib.svt_gated_bwd.argtypes = [_I] + [_P] * 16 + [_I, _I, _I, _P]
+    lib.svt_gated_bwd.argtypes = [_I] + [_P] * 18 + [_I, _I, _I, _P]
     return lib
 
 
-def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward: bool = False):
     t, c = x.shape
     h = b_gate.shape[0]
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused gated kernel: compute dtype {x.dtype} not supported")
-    if not can_fuse(t, h, c):
+    if backward and not bwd_takes(t, h, c, x.dtype):
+        raise ValueError(
+            f"fused gated backward: shape T={t}, C={c}, H={h} not supported with "
+            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
+            f"{SUPPORTED_C}, T a multiple of {BWD_TILE_T}, H of {TILE_H})"
+        )
+    if not backward and not fwd_takes(t, h, c):
         raise ValueError(
             f"fused gated kernel: shape T={t}, C={c}, H={h} not supported (C in "
             f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
@@ -185,26 +253,36 @@ class _ForwardKernel(Kernel):
 
 
 class _BackwardKernel(Kernel):
-    """csrc gated_bwd_kernel."""
+    """csrc svt_gated_bwd: in bf16 center_kernel, scale_err_kernel (twice) and
+    coder_bwd_tc<true, Act::Gated> (gated_bwd_tc_plain), in f32
+    gated_bwd_kernel (fused_gated_backward_plain). db_dec's partial rows are
+    reduced here."""
 
     name = "fused_gated_sae_bwd"
 
     def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs):
-        t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
+        t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward=True)
         dev = x.device
         _expect("err_rec", err_rec, (t, c), _F32, dev)
         _expect("err_via", err_via, (t, c), _F32, dev)
         _expect("coeffs", coeffs, (3,), _F32, dev)
+        bf16 = x.dtype == _BF16
         dw_gate = torch.empty((c, h), dtype=_F32, device=dev)
         db_gate = torch.empty((h,), dtype=_F32, device=dev)
         db_mag = torch.empty((h,), dtype=_F32, device=dev)
         dr_mag = torch.empty((h,), dtype=_F32, device=dev)
         dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
-        db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
+        # bf16: the pre-pass's direct rows, then one centring row per 64 latents
+        rows = (direct_rows(t, _BF16) if bf16 else 0) + h // BLOCK_H
+        db_dec_part = torch.empty((rows, c), dtype=_F32, device=dev)
+        # bf16 workspaces: x_cent, and round(c_rec·err_rec) then round(c_aux·err_via);
+        # f32 passes null pointers
+        work = [torch.empty(s, dtype=_BF16, device=dev)
+                for s in ([(t, c), (2, t, c)] if bf16 else [])]
         self._launch(_lib().svt_gated_bwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
                             coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part),
-                     t, c, h)
+                     *([w.data_ptr() for w in work] or [None, None]), t, c, h)
         return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part.sum(0)
 
 
@@ -219,8 +297,9 @@ def fused_gated_forward(*args):
 
 
 def fused_gated_backward(*args):
-    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(bwd_kernel, fused_gated_backward_plain, *args)
+    """The backward kernel on CUDA tensors, the plain version of its route for
+    the operands' dtype (backward_plain) on CPU tensors."""
+    return run_on_device(bwd_kernel, backward_plain, *args)
 
 
 class FusedGatedSAEFunction(torch.autograd.Function):

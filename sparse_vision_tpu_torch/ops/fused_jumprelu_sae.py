@@ -15,6 +15,14 @@ memory). Differences from the ReLU pair:
     (inclusive), with c_l0 = g_l0 / T; d log_θ = dθ · θ is applied in torch.
     The bandwidth ε reaches the kernel as a runtime float.
 
+Kernels: the forward, and the backward in f32 (the check path), run the SIMT
+bodies of csrc/fused_jumprelu_sae.cu, C in SUPPORTED_C. The backward in bf16
+(the training path) runs the coder body family's tensor-core backward
+(csrc/coder.cuh, the JumpReLU epilogue of coder_bwd_tc) at any width that
+bwd_takes allows, after two pre-passes: center_kernel (x_cent, recomputed from
+the saved x) and scale_err_kernel (round(c_rec·err) from the saved f32 error,
+and the direct rows of db_dec). can_fuse asks both rules.
+
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
 same formulas, the same cast points); a CUDA tensor launches the kernel or
 raises. There is no fallback from one to the other.
@@ -45,28 +53,48 @@ from sparse_vision_tpu_torch.ops import losses, native
 from sparse_vision_tpu_torch.ops.fused_sae import (
     _F32,
     _BF16,
+    BLOCK_H,
     Kernel,
     _expect,
     _ptrs,
     _r,
+    bodies_take,
+    center_plain,
+    centring_rows_plain,
     compute_dtype_of,
+    direct_rows,
     run_on_device,
+    scale_err_plain,
 )
 
-# tile sizes of csrc/fused_jumprelu_sae.cu (kFwdTT, kBwdTT, kTH) and its widths
+# tile sizes of csrc/fused_jumprelu_sae.cu's SIMT bodies (kFwdTT, kBwdTT, kTH)
+# and their widths
 FWD_TILE_T = 64
 BWD_TILE_T = 32
 TILE_H = 64
 SUPPORTED_C = (64, 128, 256)
 
 
-def can_fuse(t: int, h: int, c: int = 256) -> bool:
-    """True when the CUDA kernels take this (tokens, latents, channels) shape.
-    The CPU plain versions take any shape."""
-    return (
-        c in SUPPORTED_C and t > 0 and h > 0
-        and t % FWD_TILE_T == 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
-    )
+def fwd_takes(t: int, h: int, c: int = 256) -> bool:
+    """True when the CUDA forward (a SIMT body) takes this shape."""
+    return c in SUPPORTED_C and t > 0 and h > 0 and t % FWD_TILE_T == 0 and h % TILE_H == 0
+
+
+def bwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
+    """True when the CUDA backward takes this shape with ``dtype`` operands: in
+    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
+    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
+    BWD_TILE_T, H of TILE_H)."""
+    if compute_dtype_of(dtype) == _BF16:
+        return bodies_take(t, h, c, c, _BF16)
+    return c in SUPPORTED_C and t > 0 and h > 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
+
+
+def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
+    """True when the CUDA forward and backward take this (tokens, latents,
+    channels) shape with ``dtype`` operands. The CPU plain versions take any
+    shape."""
+    return fwd_takes(t, h, c) and bwd_takes(t, h, c, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +141,38 @@ def fused_jumprelu_backward_plain(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeff
     return dw_enc, db_enc, dthr, dw_dec, db_dec
 
 
+def jumprelu_bwd_tc_plain(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
+    """Plain version of svt_jumprelu_bwd's tensor-core route (the bf16 training
+    path): center_kernel, scale_err_kernel, then coder_bwd_tc<true, Act::Jump>
+    on x_cent and round(c_rec·err). Arguments and results as for
+    fused_jumprelu_backward_plain; db_dec is the sum of the pre-pass's direct
+    rows and the centring term."""
+    cd = x.dtype
+    c_l0, eps = coeffs[1], bandwidth
+    x_cent = center_plain(x, b_dec).float()
+    dr, direct = scale_err_plain(err, coeffs[0], cd)
+    dr = dr.float()
+    pre = x_cent @ w_enc.float() + b_enc
+    mask = pre > thr
+    zero = torch.zeros((), device=pre.device)
+    dpost = dr @ w_dec.float().T
+    dpre = torch.where(mask, dpost, zero)
+    win = torch.abs(pre - thr) <= eps / 2
+    dthr = torch.where(win, dpost * (-thr / eps) + c_l0 * (-1.0 / eps), zero).sum(0)
+    db_enc = dpre.sum(0)
+    db_dec = torch.cat([direct, centring_rows_plain(db_enc, w_enc)]).sum(0)
+    return (x_cent.T @ _r(dpre, cd), db_enc, dthr,
+            _r(torch.where(mask, pre, zero), cd).T @ dr, db_dec)
+
+
+def backward_plain(x, *args):
+    """The plain version of the route the card's backward takes for ``x``'s
+    dtype: jumprelu_bwd_tc_plain in bf16, fused_jumprelu_backward_plain (the
+    SIMT body's) in f32."""
+    plain = jumprelu_bwd_tc_plain if x.dtype == _BF16 else fused_jumprelu_backward_plain
+    return plain(x, *args)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -128,17 +188,23 @@ def _lib() -> ctypes.CDLL:
     lib.svt_jumprelu_fwd.restype = _I
     lib.svt_jumprelu_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P]
     lib.svt_jumprelu_bwd.restype = _I
-    lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 5
+    lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 7
                                      + [_I, _I, _I, _P])
     return lib
 
 
-def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec):
+def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward: bool = False):
     t, c = x.shape
     h = b_enc.shape[0]
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused JumpReLU kernel: compute dtype {x.dtype} not supported")
-    if not can_fuse(t, h, c):
+    if backward and not bwd_takes(t, h, c, x.dtype):
+        raise ValueError(
+            f"fused JumpReLU backward: shape T={t}, C={c}, H={h} not supported with "
+            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
+            f"{SUPPORTED_C}, T a multiple of {BWD_TILE_T}, H of {TILE_H})"
+        )
+    if not backward and not fwd_takes(t, h, c):
         raise ValueError(
             f"fused JumpReLU kernel: shape T={t}, C={c}, H={h} not supported (C in "
             f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
@@ -172,26 +238,34 @@ class _ForwardKernel(Kernel):
 
 
 class _BackwardKernel(Kernel):
-    """csrc jumprelu_bwd_kernel."""
+    """csrc svt_jumprelu_bwd: in bf16 center_kernel, scale_err_kernel and
+    coder_bwd_tc<true, Act::Jump> (jumprelu_bwd_tc_plain), in f32
+    jumprelu_bwd_kernel (fused_jumprelu_backward_plain). db_dec's partial rows
+    are reduced here."""
 
     name = "fused_jumprelu_sae_bwd"
 
     def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
-        t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
+        t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward=True)
         dev = x.device
         _expect("err", err, (t, c), _F32, dev)
         _expect("coeffs", coeffs, (2,), _F32, dev)
+        bf16 = x.dtype == _BF16
         dw_enc = torch.empty((c, h), dtype=_F32, device=dev)
         db_enc = torch.empty((h,), dtype=_F32, device=dev)
         dthr = torch.empty((h,), dtype=_F32, device=dev)
         dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
-        db_dec_part = torch.empty((h // TILE_H, c), dtype=_F32, device=dev)
+        # bf16: the pre-pass's direct rows, then one centring row per 64 latents
+        rows = (direct_rows(t, _BF16) if bf16 else 0) + h // BLOCK_H
+        db_dec_part = torch.empty((rows, c), dtype=_F32, device=dev)
+        # bf16 workspaces: x_cent and round(c_rec·err); f32 passes null pointers
+        work = [torch.empty((t, c), dtype=_BF16, device=dev) for _ in range(2 if bf16 else 0)]
         eps = float(bandwidth)
         self._launch(_lib().svt_jumprelu_bwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
                      eps, eps / 2, -1.0 / eps,
                      *(v.data_ptr() for v in (dw_enc, db_enc, dthr, dw_dec, db_dec_part)),
-                     t, c, h)
+                     *([w.data_ptr() for w in work] or [None, None]), t, c, h)
         return dw_enc, db_enc, dthr, dw_dec, db_dec_part.sum(0)
 
 
@@ -206,8 +280,9 @@ def fused_jumprelu_forward(*args):
 
 
 def fused_jumprelu_backward(*args):
-    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(bwd_kernel, fused_jumprelu_backward_plain, *args)
+    """The backward kernel on CUDA tensors, the plain version of its route for
+    the operands' dtype (backward_plain) on CPU tensors."""
+    return run_on_device(bwd_kernel, backward_plain, *args)
 
 
 class FusedJumpReLUSAEFunction(torch.autograd.Function):

@@ -192,6 +192,14 @@ def center_plain(x, b_dec):
     return x - b_dec.to(x.dtype)
 
 
+def scale_err_plain(err, c, cd):
+    """Plain version of csrc scale_err_kernel, the JumpReLU and gated backwards'
+    pre-pass: (round(c·err) [T, C] in ``cd``, the f32 column sums of the
+    unrounded c·err over each BF16_STEP_T-token step [ceil(T / 512), C])."""
+    d = c * err
+    return d.to(cd), torch.stack([s.sum(0) for s in d.split(BF16_STEP_T)])
+
+
 def centring_rows_plain(db_enc, w_enc):
     """db_dec's centring term −round(db_enc)·W_encᵀ as one partial row [1, C]
     (the backward kernel leaves one per 64-latent block)."""

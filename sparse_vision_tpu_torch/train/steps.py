@@ -60,8 +60,7 @@ def fused_op(sae_model_name: str,
     """(can_fuse(t, h, c, dtype), loss_terms(params, x, λ, expansion_factor,
     **opts)) of the variant's fused op: ops/fused_sae.py, ops/fused_gated_sae.py,
     ops/fused_jumprelu_sae.py or ops/fused_matryoshka_sae.py (with the prefix
-    fractions bound). The gated and JumpReLU kernels take both compute dtypes
-    at their widths, so their can_fuse ignores it."""
+    fractions bound)."""
     from sparse_vision_tpu_torch.ops import (
         fused_gated_sae,
         fused_jumprelu_sae,
@@ -79,14 +78,10 @@ def fused_op(sae_model_name: str,
         return can_fuse, functools.partial(
             fused_matryoshka_sae.fused_matryoshka_sae_loss_terms, prefixes=prefixes)
 
-    def any_dtype(can_fuse):
-        return lambda t, h, c=256, dtype=None: can_fuse(t, h, c)
-
     return {
         "sae_mlp": (fused_sae.can_fuse, fused_sae.fused_sae_loss_terms),
-        "gated_sae": (any_dtype(fused_gated_sae.can_fuse),
-                      fused_gated_sae.fused_gated_sae_loss_terms),
-        "jumprelu_sae": (any_dtype(fused_jumprelu_sae.can_fuse),
+        "gated_sae": (fused_gated_sae.can_fuse, fused_gated_sae.fused_gated_sae_loss_terms),
+        "jumprelu_sae": (fused_jumprelu_sae.can_fuse,
                          fused_jumprelu_sae.fused_jumprelu_sae_loss_terms),
     }[sae_model_name]
 

@@ -52,20 +52,24 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 KEYS = ("W_gate", "b_gate", "b_mag", "r_mag", "W_dec", "b_dec")
 
 
-@pytest.fixture(scope="module")
-def setup():
-    params = init_gated_sae(jax.random.key(0), C, H_EXP)
+def _make_setup(c, h_exp):
+    params = init_gated_sae(jax.random.key(0), c, h_exp)
     # gate/magnitude asymmetry away from zero; 16 gates that never open (dead)
     rng = np.random.default_rng(5)
     params = jax.device_get({
         **params,
         "b_gate": (params["b_gate"] - 0.05).at[:16].add(-100.0),
         "b_mag": params["b_mag"] + 0.03,
-        "r_mag": params["r_mag"] + 0.1 * rng.normal(size=H).astype(np.float32),
+        "r_mag": params["r_mag"] + 0.1 * rng.normal(size=c * h_exp).astype(np.float32),
         "b_dec": params["b_dec"] + 0.05,
     })
-    x = np.random.default_rng(1).normal(size=(T, C)).astype(np.float32)
+    x = np.random.default_rng(1).normal(size=(T, c)).astype(np.float32)
     return params, x
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup(C, H_EXP)
 
 
 def _inputs(setup, x_dtype):
@@ -200,7 +204,103 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
     (512, 1024, 96, False), (512, 1024, 512, False),
 ])
 def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
-    assert fused_gated_sae.can_fuse(t, h, c) is ok
+    """The SIMT bodies' rule: the forward, and the backward with f32 operands."""
+    assert fused_gated_sae.can_fuse(t, h, c, torch.float32) is ok
+
+
+@pytest.mark.parametrize("t,h,c,fuse,bwd", [
+    (32768, 16384, 256, True, True), (512, 1024, 128, True, True),
+    (128, 128, 64, True, True), (32, 64, 64, False, False),  # T, H multiples of 128
+    (8192, 4096, 832, False, True), (1152, 640, 136, False, True),  # any width of 8
+    (512, 1024, 132, False, False), (512, 1088, 256, False, False),
+])
+def test_bf16_backward_takes_the_coder_bodies_widths(t, h, c, fuse, bwd):
+    """In bf16 the backward runs the coder body (T and H multiples of 128, C of
+    8); can_fuse still asks the forward's SIMT widths too."""
+    assert fused_gated_sae.bwd_takes(t, h, c, torch.bfloat16) is bwd
+    assert fused_gated_sae.can_fuse(t, h, c, torch.bfloat16) is fuse
+    assert fused_gated_sae.can_fuse(t, h, c, "bfloat16") is fuse
+
+
+WIDE_C, WIDE_H_EXP = 72, 16  # a width outside the SIMT bodies' {64, 128, 256}; H = 1,152
+
+
+def _grid(a, step):
+    return (np.round(np.asarray(a) / step) * step).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """Inputs on a dyadic grid (x and b_dec in quarters, W_gate and W_dec in
+    1/256ths, b_gate and b_mag odd multiples of 2^-11, r_mag 0): the gate
+    product, both decodes and so the residuals are exact in f32 in both
+    packages, and a bf16 rounding of c·err, which at this width's 1,152
+    latents a summation order could otherwise flip, rounds the same value."""
+    h = WIDE_C * WIDE_H_EXP
+    params = jax.device_get(init_gated_sae(jax.random.key(0), WIDE_C, WIDE_H_EXP))
+    rng = np.random.default_rng(5)
+
+    def odd(n):
+        return ((2 * rng.integers(-40, 40, size=n) + 1) * 2.0 ** -11).astype(np.float32)
+
+    b_gate = odd(h)
+    b_gate[:16] = -50.0 - 2.0 ** -11  # 16 gates that never open (dead)
+    params = {
+        **params,
+        "W_gate": _grid(params["W_gate"], 2.0 ** -8),
+        "W_dec": _grid(params["W_dec"], 2.0 ** -8),
+        "b_gate": b_gate,
+        "b_mag": odd(h),
+        "r_mag": np.zeros(h, np.float32),
+        "b_dec": _grid(0.2 * rng.normal(size=WIDE_C), 0.25),
+    }
+    return params, _grid(np.random.default_rng(1).normal(size=(T, WIDE_C)), 0.25)
+
+
+def _route_grads(params, tx, cd):
+    """Parameter gradients of rec + λ·l1 + aux through the forward's plain
+    version and the bf16 backward route's (gated_bwd_tc_plain: centre,
+    pre-pass on both errors, coder_bwd_tc's gated epilogue), fed as the op's
+    autograd function feeds its backward."""
+    f = fused_gated_sae
+    tp = convert.sae_params_from_jax(params)
+    xc, wg, wd = tx.to(cd), tp["W_gate"].to(cd), tp["W_dec"].to(cd)
+    er = torch.exp(tp["r_mag"]).float()
+    ops = (xc, wg, tp["b_gate"], tp["b_mag"], er, wd, tp["b_dec"])
+    recon, via = f.fused_gated_forward_plain(*ops)[:2]
+    t, c = tx.shape
+    h = er.shape[0]
+    g = torch.tensor([1.0, LAMBDA, 1.0])  # the cotangents of rec_loss, l1_loss, aux_loss
+    coeffs = torch.stack([g[0] * 2.0 / (t * c), g[1] / (t * h), g[2] * 2.0 / (t * c)])
+    grads = f.gated_bwd_tc_plain(*ops, recon - tx, via - tx, coeffs)
+    return dict(zip(KEYS, grads))
+
+
+@pytest.mark.parametrize("width", ["C64", "C72"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_route_plain_matches_jax(runs, setup, wide, case, width):
+    """The plain version of the tensor-core backward route (centre → pre-pass →
+    gated epilogue) against the JAX op's gradients in interpret mode, in f32
+    and bf16, with test_gradients_match_jax's tolerances; also at C = 72, a
+    width only the coder bodies take."""
+    cd, xd = CASES[case]
+    if width == "C64":
+        jgrad = runs[case][1]
+        params, _, tx = _inputs(setup, xd)
+    else:
+        params, jx, tx = _inputs(wide, xd)
+        jgrad = jax.grad(lambda p: jax_fused(p, jx, LAMBDA, WIDE_H_EXP, compute_dtype=JDT[cd],
+                                             **JTILES)["loss"])(params)
+    tgrad = _route_grads(params, tx, TDT[cd])
+    for k in KEYS:
+        ref = np.asarray(jgrad[k])
+        if case == "f32":
+            rtol, atol = 1e-4, 1e-7
+        else:
+            rtol, atol = {"W_gate": (0, 2.0**-8 * np.abs(ref).max()),
+                          "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+        assert np.abs(ref).max() > 0, k
 
 
 def test_kernel_wrapper_validates_before_launch(setup):

@@ -41,7 +41,7 @@ from sparse_vision_tpu.models.sae import init_jumprelu_sae
 from sparse_vision_tpu.ops.fused_jumprelu_sae import fused_jumprelu_sae_loss_terms as jax_fused
 from sparse_vision_tpu_torch import convert
 from sparse_vision_tpu_torch.models.sae import sae_inference_and_loss
-from sparse_vision_tpu_torch.ops import fused_jumprelu_sae
+from sparse_vision_tpu_torch.ops import fused_jumprelu_sae, fused_sae
 from sparse_vision_tpu_torch.ops.metrics import measure_inactive_units
 
 T, C, H_EXP = 128, 64, 4
@@ -63,21 +63,26 @@ def _grid(a, step):
     return (np.round(np.asarray(a) / step) * step).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    params = jax.device_get(init_jumprelu_sae(jax.random.key(0), C, H_EXP))
+def _make_setup(c, h_exp):
+    h = c * h_exp
+    params = jax.device_get(init_jumprelu_sae(jax.random.key(0), c, h_exp))
     rng = np.random.default_rng(5)
-    b_enc = (2 * rng.integers(-40, 40, size=H) + 1) * 2.0 ** -11
+    b_enc = (2 * rng.integers(-40, 40, size=h) + 1) * 2.0 ** -11
     b_enc[:16] = -50.0 - 2.0 ** -11  # 16 latents that never fire (dead)
     params = {
         **params,
         "W_enc": _grid(params["W_enc"], 2.0 ** -8),
         "b_enc": b_enc.astype(np.float32),
-        "b_dec": _grid(0.2 * rng.normal(size=C), 0.25),
-        "log_threshold": np.log(rng.uniform(0.3, 0.7, size=H)).astype(np.float32),
+        "b_dec": _grid(0.2 * rng.normal(size=c), 0.25),
+        "log_threshold": np.log(rng.uniform(0.3, 0.7, size=h)).astype(np.float32),
     }
-    x = _grid(np.random.default_rng(1).normal(size=(T, C)), 0.25)
+    x = _grid(np.random.default_rng(1).normal(size=(T, c)), 0.25)
     return params, x
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup(C, H_EXP)
 
 
 def _inputs(setup, x_dtype):
@@ -205,7 +210,95 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
     (512, 1024, 96, False), (512, 1024, 512, False),
 ])
 def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
-    assert fused_jumprelu_sae.can_fuse(t, h, c) is ok
+    """The SIMT bodies' rule: the forward, and the backward with f32 operands."""
+    assert fused_jumprelu_sae.can_fuse(t, h, c, torch.float32) is ok
+
+
+@pytest.mark.parametrize("t,h,c,fuse,bwd", [
+    (32768, 16384, 256, True, True), (512, 1024, 128, True, True),
+    (128, 128, 64, True, True), (64, 64, 64, False, False),  # T, H multiples of 128
+    (8192, 4096, 832, False, True), (1152, 640, 72, False, True),  # any width of 8
+    (512, 1024, 76, False, False), (512, 1088, 256, False, False),
+])
+def test_bf16_backward_takes_the_coder_bodies_widths(t, h, c, fuse, bwd):
+    """In bf16 the backward runs the coder body (T and H multiples of 128, C of
+    8); can_fuse still asks the forward's SIMT widths too."""
+    assert fused_jumprelu_sae.bwd_takes(t, h, c, torch.bfloat16) is bwd
+    assert fused_jumprelu_sae.can_fuse(t, h, c, torch.bfloat16) is fuse
+    assert fused_jumprelu_sae.can_fuse(t, h, c, "bfloat16") is fuse
+
+
+@pytest.mark.parametrize("t", [128, 1152])
+def test_scale_err_plain_rounds_once_and_sums_each_step(t):
+    """The pre-pass's plain version: round(c·err) exactly, and one f32 column
+    sum of the unrounded c·err per 512-token step (a partial last step at
+    1,152 tokens)."""
+    rng = np.random.default_rng(t)
+    err = torch.from_numpy(rng.normal(size=(t, 72)).astype(np.float32))
+    c = torch.tensor(3.0e-3)
+    dr, part = fused_sae.scale_err_plain(err, c, torch.bfloat16)
+    assert dr.dtype == torch.bfloat16 and torch.equal(dr, (c * err).to(torch.bfloat16))
+    steps = [(c * err)[i:i + 512] for i in range(0, t, 512)]
+    assert part.shape == (len(steps), 72)
+    ref = np.stack([s.double().sum(0).numpy() for s in steps])
+    np.testing.assert_allclose(part.numpy(), ref, rtol=1e-5, atol=1e-7)
+    dr32, _ = fused_sae.scale_err_plain(err, c, torch.float32)
+    assert torch.equal(dr32, c * err)
+
+
+WIDE_C, WIDE_H_EXP = 72, 16  # a width outside the SIMT bodies' {64, 128, 256}; H = 1,152
+
+
+@pytest.fixture(scope="module")
+def wide():
+    return _make_setup(WIDE_C, WIDE_H_EXP)
+
+
+def _route_grads(params, tx, cd):
+    """Parameter gradients of rec + λ·L0 through the forward's plain version and
+    the bf16 backward route's (jumprelu_bwd_tc_plain: centre, pre-pass,
+    coder_bwd_tc's JumpReLU epilogue), fed as the op's autograd function feeds
+    its backward."""
+    f = fused_jumprelu_sae
+    tp = convert.sae_params_from_jax(params)
+    xc, we, wd = tx.to(cd), tp["W_enc"].to(cd), tp["W_dec"].to(cd)
+    thr = torch.exp(tp["log_threshold"]).float()
+    ops = (xc, we, tp["b_enc"], thr, wd, tp["b_dec"])
+    err = f.fused_jumprelu_forward_plain(*ops)[0] - tx
+    t, c = tx.shape
+    g = torch.tensor([1.0, LAMBDA])  # the cotangents of rec_loss and l0_loss
+    coeffs = torch.stack([g[0] * 2.0 / (t * c), g[1] / t])
+    dw_enc, db_enc, dthr, dw_dec, db_dec = f.jumprelu_bwd_tc_plain(*ops, err, coeffs, EPS)
+    return {"W_enc": dw_enc, "b_enc": db_enc, "W_dec": dw_dec, "b_dec": db_dec,
+            "log_threshold": dthr * thr}
+
+
+@pytest.mark.parametrize("width", ["C64", "C72"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_route_plain_matches_jax(runs, setup, wide, case, width):
+    """The plain version of the tensor-core backward route (centre → pre-pass →
+    JumpReLU epilogue) against the JAX op's gradients in interpret mode, in f32
+    and bf16, with test_gradients_match_jax's tolerances; also at C = 72, a
+    width only the coder bodies take."""
+    cd, xd = CASES[case]
+    if width == "C64":
+        jgrad = runs[case][1]
+        params, _, tx = _inputs(setup, xd)
+    else:
+        params, jx, tx = _inputs(wide, xd)
+        jgrad = jax.grad(lambda p: jax_fused(p, jx, LAMBDA, WIDE_H_EXP, compute_dtype=JDT[cd],
+                                             **JTILES)["loss"])(params)
+    tgrad = _route_grads(params, tx, TDT[cd])
+    for k in KEYS:
+        ref = np.asarray(jgrad[k])
+        if case == "f32":
+            rtol, atol = 1e-4, 1e-7
+        else:
+            rtol, atol = {"W_enc": (0, 2.0**-8 * np.abs(ref).max()),
+                          "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+        assert np.abs(ref).max() > 0, k
+    assert (np.asarray(jgrad["log_threshold"]) != 0).sum() > tgrad["b_enc"].numel() // 2
 
 
 def test_kernel_wrapper_validates_before_launch(setup):
