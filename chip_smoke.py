@@ -20,10 +20,12 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               Matryoshka backward whose levels' errors differ, prefixes
               128/1024/4096), their bf16 launches must repeat bitwise, 20 at
               C=832 (the in-place forward), and each is timed there; so are
-              the bf16 JumpReLU and gated backwards (the coder body's Act::Jump
-              and Act::Gated epilogues), 20 bitwise-equal launches each at
-              C=832. The ptxas report names each instantiation with its
-              registers and spill bytes. The
+              the bf16 JumpReLU and gated forwards and backwards (the coder
+              bodies' Act::Jump and Act::Gated epilogues; the gated forward's
+              two launches, Act::GatedEnc and Act::GatedPi, above C=256), also
+              at a ragged shape (T=1152, H=640, C=136), 20 bitwise-equal
+              launches each at C=832. The ptxas report names each
+              instantiation with its registers and spill bytes. The
               transcoder/crosscoder pair is also held to
               its plain versions at ragged shapes (T=1152, C_in=264, H=640,
               C_out=136 and 520: a partial token step, latent group and channel
@@ -111,7 +113,7 @@ MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
 KERNELS = tuple(k for m in MODULES.values() for k in m.KERNELS)
 # the source of each kernel's body (bf16, the main path's); the coder family's
 # entry points are in fused_sae.cu (the ReLU and Matryoshka SAEs),
-# fused_jumprelu_sae.cu and fused_gated_sae.cu (their backwards) and
+# fused_jumprelu_sae.cu and fused_gated_sae.cu (the JumpReLU and gated SAEs) and
 # fused_transcoder.cu (the coders)
 CODER = "sparse_vision_tpu_torch/csrc/coder.cuh"
 SOURCES = {
@@ -119,9 +121,9 @@ SOURCES = {
     "fused_sae_dx": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
     "fused_matryoshka_sae_fwd": CODER, "fused_matryoshka_sae_bwd": CODER,
     "fused_matryoshka_sae_dx": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
-    "fused_jumprelu_sae_fwd": "sparse_vision_tpu_torch/csrc/fused_jumprelu_sae.cu",
+    "fused_jumprelu_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Jump>
     "fused_jumprelu_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Jump>
-    "fused_gated_sae_fwd": "sparse_vision_tpu_torch/csrc/fused_gated_sae.cu",
+    "fused_gated_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Gated>
     "fused_gated_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Gated>
     "fused_transcoder_fwd": CODER, "fused_transcoder_bwd": CODER,
     "fused_crosscoder_fwd": CODER, "fused_crosscoder_bwd": CODER,
@@ -230,7 +232,7 @@ def _ptxas_kernels(ptxas_log: str) -> list:
                     n = n[:i]
                     break
             n = n.removeprefix("void ").replace("(anonymous namespace)::", "")
-            for k, act in enumerate(("Relu", "Jump", "Gated")):
+            for k, act in enumerate(("Relu", "Jump", "Gated", "GatedEnc", "GatedPi")):
                 n = n.replace(f"(Act){k}", f"Act::{act}")
             r[0] = n
     return rows
@@ -383,28 +385,14 @@ def kernels_gated(cd, tag: str) -> dict:
     bm = _odd_grid(gen, H, 60)
     er = torch.exp(0.1 * torch.randn(H, device=DEVICE, generator=gen))
     ops = (x, wg, bg, bm, er, wd, bd)
-    out_k = fused_gated_sae.fwd_kernel(*ops)
-    out_p = fused_gated_sae.fused_gated_forward_plain(*ops)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_gated_sae_fwd [{tag}] vs plain")
-    # pre-activations are exact on both sides (_exact_inputs), so the gate,
-    # the counts and relu(pi) agree exactly; the decodes sum in other orders
-    err = max(_check("recon", out_k[0], out_p[0], 1e-4, 1e-5),
-              _check("via_gate", out_k[1], out_p[1], 1e-4, 1e-5))
-    _check("act_count", out_k[2], out_p[2], 0.0, 0.0)
-    _check("row_active", out_k[3], out_p[3], 0.0, 0.0)
-    _check("l1_sum", out_k[4], out_p[4], 1e-5, 0.0)
-    del out_k
-    xc = x - bd.to(cd)
-    g = xc @ wg
-    enc = torch.relu(g).to(cd)  # a [T, H] operand of the stock path's shapes
+    out_p, err = _act_fwd_check(fused_gated_sae, tag, cd, ops)
     rows = {"fused_gated_sae_fwd": _measure(
         "fused_gated_sae_fwd", tag, cd, lambda: fused_gated_sae.fwd_kernel(*ops),
         lambda: fused_gated_sae.fused_gated_forward_plain(*ops),
-        lambda: (xc @ wg, enc @ wd, enc @ wd), 6.0 * T * C * H,
+        _act_fwd_library(fused_gated_sae, ops), 6.0 * T * C * H,
         nbytes(*ops) + nbytes(*out_p[:4]) + 4, err)}
 
-    del out_p, g, enc
+    del out_p
     bops = _gated_bwd_operands(ops, T, C, H)
     g_p, err = _act_bwd_check(fused_gated_sae, tag, cd, bops, GATED_GRADS)
     moved = nbytes(*bops) + nbytes(*g_p)
@@ -418,6 +406,49 @@ def kernels_gated(cd, tag: str) -> dict:
 
 GATED_GRADS = ("dW_gate", "db_gate", "db_mag", "dr_mag", "dW_dec", "db_dec")
 JUMPRELU_GRADS = ("dW_enc", "db_enc", "dtheta", "dW_dec", "db_dec")
+
+
+def _act_fwd_check(mod, tag: str, cd, ops, repeats: int = 2, label: str = ""):
+    """The forward of the JumpReLU or gated op ``mod`` against its plain version
+    on the same inputs; in bf16 ``repeats`` launches must agree bitwise. The
+    inputs lie on _exact_inputs' grid, so the pre-activations, and with them the
+    mask or gate, the counts and relu(pi), agree exactly; the decodes (recon,
+    and the gated op's via_gate) and the L1 sum add in other orders. Returns
+    (plain outputs, max abs err of the decodes)."""
+    name = mod.fwd_kernel.name
+    out_k = mod.fwd_kernel(*ops)
+    out_p = _act_fwd_plain(mod)(*ops)
+    torch.cuda.synchronize()
+    log(f"[kernels] {name} [{tag}{label}] vs plain")
+    if cd == torch.bfloat16:
+        for _ in range(repeats - 1):
+            _repeatable(name, out_k, mod.fwd_kernel(*ops))
+        if repeats > 2:
+            log(f"[kernels]   {name}: {repeats} launches bitwise equal")
+    n = len(out_p) - 3  # the decodes come first
+    err = max(_check(k, a, b, 1e-4, 1e-5)
+              for k, a, b in zip(("recon", "via_gate")[:n], out_k, out_p))
+    _check("act_count", out_k[n], out_p[n], 0.0, 0.0)
+    _check("row_active", out_k[n + 1], out_p[n + 1], 0.0, 0.0)
+    _check("l1_sum", out_k[n + 2], out_p[n + 2], 1e-5, 0.0)
+    return out_p, err
+
+
+def _act_fwd_plain(mod):
+    """The forward's plain version of the JumpReLU or gated op ``mod``."""
+    return (mod.fused_gated_forward_plain if mod is fused_gated_sae
+            else mod.fused_jumprelu_forward_plain)
+
+
+def _act_fwd_library(mod, ops):
+    """The stock path's cuBLAS products of the JumpReLU forward (encode and
+    decode) or the gated one (encode and two decodes), as one call."""
+    x, w, wd, bd = ops[0], ops[1], ops[-2], ops[-1]
+    xc = x - bd.to(x.dtype)
+    post = torch.relu(xc @ w).to(x.dtype)  # a [T, H] operand of the stock path's shapes
+    if mod is fused_gated_sae:
+        return lambda: (xc @ w, post @ wd, post @ wd)
+    return lambda: (xc @ w, post @ wd)
 
 
 def _act_bwd_check(mod, tag: str, cd, bops, names, repeats: int = 2, label: str = ""):
@@ -482,24 +513,14 @@ def kernels_jumprelu(cd, tag: str) -> dict:
     be = _odd_grid(gen, H, 100)
     thr = 0.5 + torch.rand(H, device=DEVICE, generator=gen)  # pre has std ~2 here
     ops = (x, we, be, thr, wd, bd)
-    out_k = fused_jumprelu_sae.fwd_kernel(*ops)
-    out_p = fused_jumprelu_sae.fused_jumprelu_forward_plain(*ops)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_jumprelu_sae_fwd [{tag}] vs plain")
-    err = _check("recon", out_k[0], out_p[0], 1e-4, 1e-5)
-    _check("act_count", out_k[1], out_p[1], 0.0, 0.0)
-    _check("row_active", out_k[2], out_p[2], 0.0, 0.0)
-    _check("l1_sum", out_k[3], out_p[3], 1e-5, 0.0)
-    del out_k
-    xc = x - bd.to(cd)
-    post = torch.relu(xc @ we).to(cd)
+    out_p, err = _act_fwd_check(fused_jumprelu_sae, tag, cd, ops)
     rows = {"fused_jumprelu_sae_fwd": _measure(
         "fused_jumprelu_sae_fwd", tag, cd, lambda: fused_jumprelu_sae.fwd_kernel(*ops),
         lambda: fused_jumprelu_sae.fused_jumprelu_forward_plain(*ops),
-        lambda: (xc @ we, post @ wd), 4.0 * T * C * H,
+        _act_fwd_library(fused_jumprelu_sae, ops), 4.0 * T * C * H,
         nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
 
-    del out_p, post
+    del out_p
     bops = _jumprelu_bwd_operands(ops, T, C)
     g_p, err = _act_bwd_check(fused_jumprelu_sae, tag, cd, bops, JUMPRELU_GRADS)
     moved = nbytes(*bops[:-1]) + nbytes(*g_p)
@@ -606,6 +627,8 @@ def kernels_matryoshka(cd, tag: str) -> dict:
 # bf16 forward) and mixed4e's 832 (the in-place one)
 W_T, W_H, W_WIDTHS, W_BOUNDS = 8192, 4096, (480, 832), (1024, 2048, 4096)
 REPEATS = 20  # bitwise-equal launches of the in-place bf16 forward at C = 832
+# the JumpReLU and gated ops' ragged shape: T = 2*512 + 128, H = 640, C = 2*64 + 8
+RAGGED_T, RAGGED_H, RAGGED_C = 1152, 640, 136
 
 
 def kernels_sae_widths(cd, tag: str) -> dict:
@@ -678,16 +701,19 @@ def kernels_sae_widths(cd, tag: str) -> dict:
 
 
 def kernels_act_widths(cd, tag: str) -> dict:
-    """The JumpReLU and gated backwards (bf16 only: in f32 the SIMT bodies take
-    C in {64, 128, 256}) on _exact_inputs' grid against the plain versions of
-    their route, the errors from their forwards' plain versions: first at a
-    ragged shape (T = 2*512 + 128, H = 640, C = 2*64 + 8: a partial token step
-    and channel chunk), then at C = 480 and 832 (T = 8,192, H = 4,096), where
-    each is timed; REPEATS launches of each at C = 832 must agree bitwise. No
-    rows: the kernels line keeps the main path's."""
+    """The JumpReLU and gated forwards and backwards in bf16 (in f32 the SIMT
+    bodies take C in {64, 128, 256}) on _exact_inputs' grid against the plain
+    versions of their routes, the backwards' errors from the forwards' plain
+    versions: first at the ragged shape (RAGGED_*: a partial token step and
+    channel chunk; the forwards' register-held bodies,
+    the gated one with recon and via_gate held together), then at C = 480 (the
+    held 512-column bodies; the gated forward's two launches) and 832 (the
+    in-place bodies) with T = 8,192, H = 4,096, where each is timed; REPEATS
+    launches of each at C = 832 must agree bitwise. No rows: the kernels line
+    keeps the main path's."""
     if cd != torch.bfloat16:
         return {}
-    for t, h, c in ((1152, 640, 136),) + tuple((W_T, W_H, c) for c in W_WIDTHS):
+    for t, h, c in ((RAGGED_T, RAGGED_H, RAGGED_C),) + tuple((W_T, W_H, c) for c in W_WIDTHS):
         gen = torch.Generator(device=DEVICE).manual_seed(c)
         w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
         x, we, bd = _exact_inputs(gen, t, w)
@@ -696,21 +722,30 @@ def kernels_act_widths(cd, tag: str) -> dict:
         label = f", C={c} T={t} H={h}"
         repeats = REPEATS if c > 512 else 2
         thr = 0.5 + torch.rand(h, device=DEVICE, generator=gen)  # pre has std ~2 here
-        jops = _jumprelu_bwd_operands((x, we, _odd_grid(gen, h, 100), thr, wd, bd), t, c)
+        jf = (x, we, _odd_grid(gen, h, 100), thr, wd, bd)
+        jp, _ = _act_fwd_check(fused_jumprelu_sae, tag, cd, jf, repeats, label)
+        jops = _jumprelu_bwd_operands(jf, t, c)
         _act_bwd_check(fused_jumprelu_sae, tag, cd, jops, JUMPRELU_GRADS, repeats, label)
         er = torch.exp(0.1 * torch.randn(h, device=DEVICE, generator=gen))
-        gops = _gated_bwd_operands(
-            (x, we, _odd_grid(gen, h, 100), _odd_grid(gen, h, 60), er, wd, bd), t, c, h)
+        gf = (x, we, _odd_grid(gen, h, 100), _odd_grid(gen, h, 60), er, wd, bd)
+        gp, _ = _act_fwd_check(fused_gated_sae, tag, cd, gf, repeats, label)
+        gops = _gated_bwd_operands(gf, t, c, h)
         _act_bwd_check(fused_gated_sae, tag, cd, gops, GATED_GRADS, repeats, label)
         if t == W_T:
             fl = 2.0 * t * c * h
+            for mod, fops, out_p, flops in ((fused_jumprelu_sae, jf, jp, 2 * fl),
+                                            (fused_gated_sae, gf, gp, 3 * fl)):
+                _measure(mod.fwd_kernel.name, f"{tag}{label}", cd,
+                         lambda: mod.fwd_kernel(*fops), lambda: _act_fwd_plain(mod)(*fops),
+                         _act_fwd_library(mod, fops), flops,
+                         nbytes(*fops) + nbytes(*out_p[:-1]) + 4, 0.0)
             for mod, bops, lib, flops in (
                     (fused_jumprelu_sae, jops, _jumprelu_bwd_library(jops), 4 * fl),
                     (fused_gated_sae, gops, _gated_bwd_library(gops), 5 * fl)):
                 _measure(mod.bwd_kernel.name, f"{tag}{label}", cd,
                          lambda: mod.bwd_kernel(*bops), lambda: mod.backward_plain(*bops), lib,
                          flops, 0, 0.0)
-        del jops, gops
+        del jp, gp, jops, gops
         torch.cuda.empty_cache()
     return {}
 

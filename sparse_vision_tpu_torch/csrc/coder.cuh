@@ -3,13 +3,16 @@
 // fused_transcoder.cu (the transcoder and crosscoder ops) and fused_sae.cu (the
 // ReLU and Matryoshka SAE ops), whose C entry points call coder_fwd / coder_bwd
 // at the end of this file, and by fused_jumprelu_sae.cu and fused_gated_sae.cu,
-// whose bf16 backwards call bwd_tc with a variant epilogue (kAct, below).
+// whose bf16 forwards and backwards call fwd_tc / bwd_tc with variant
+// epilogues (kAct, below).
 //
 // Replaces these Pallas TPU kernels (sparse_vision_tpu/ops/):
 //   forward  <- fused_transcoder.py _fwd_kernel (:41), pallas_call :227
 //               fused_crosscoder.py _fwd_kernel (:68), pallas_call :238
 //               fused_sae.py _fwd_kernel (:43), pallas_call :321
 //               fused_matryoshka_sae.py _fwd_kernel (:99), pallas_call :292
+//               fused_jumprelu_sae.py _fwd_kernel (:30), pallas_call :192 (bf16)
+//               fused_gated_sae.py _fwd_kernel (:42), pallas_call :234 (bf16)
 //   backward <- fused_transcoder.py _bwd_kernel (:91), pallas_call :264
 //               fused_crosscoder.py _bwd_kernel (:109), pallas_call :274
 //               fused_sae.py _bwd_kernel (:96), pallas_call :391
@@ -37,18 +40,36 @@
 //     which read S_0; and each block writes one row of db_dec's centring term,
 //     -round_T(db_enc tile) @ W_enc tile^T, in its epilogue (SaeBwd::db_cent
 //     [H / 64, Cin], reduced by the caller; no float atomics).
-//   kAct (coder_bwd_tc only; with kSae): Act::Relu is the body above;
-//     Act::Jump and Act::Gated are the JumpReLU and gated SAEs' epilogues
-//     (coder_bwd_tc's note), which read err already scaled and rounded by
-//     scale_err_kernel (their ops save f32 errors and the Pallas kernels round
-//     c * err once, before the product) and take their per-latent operands
-//     from SaeBwd::act.
+//   kAct (the bf16 bodies; no kPrefix in the forward, kSae in the backward):
+//     Act::Relu is the body above; the others are the JumpReLU and gated SAEs'
+//     epilogues, with their per-latent operands from ActFwd (forward) or
+//     SaeBwd::act (backward).
+//     Forward (post_epilogue): Jump keeps pre where pre > theta; Gated reads
+//     one encode product g as pre_gate = g + b_gate and pre_mag = g*er + b_mag,
+//     enc = gate * relu(pre_mag) is post (counted) and relu_pi = relu(pre_gate)
+//     fills a second post block (summed: the L1 statistic); both decode from
+//     the same W_dec tiles, so W_dec streams once (6*T*C*H FLOP). Gated runs
+//     only in coder_fwd_tc_hold<256> (Cout <= 256): recon and via [64][256]
+//     held together are 128 accumulator floats a consumer thread, the budget
+//     of hold<512>, and the second block is 16 KB more shared memory (165,184
+//     bytes). Wider, two held outputs would need 256 floats a thread and
+//     spill, and coder_fwd_tc's [128][512] post buffer cannot double, so the
+//     gated forward is two launches of the ordinary width route: GatedEnc
+//     (enc; recon and the counts) and GatedPi (relu_pi as post; via and the
+//     sums). The encode runs twice (8*T*C*H), but no body needs a new
+//     structure; one launch with 256-latent groups and both outputs updated in
+//     place was not taken: more code for the wide taps only.
+//     Backward (coder_bwd_tc's note): Jump and Gated read err already scaled
+//     and rounded by scale_err_kernel (their ops save f32 errors and the Pallas
+//     kernels round c * err once, before the product).
 //
 // The bodies, chosen by the operand type:
 //   bf16 (the training path): coder_fwd_tc_hold (Cout <= 512; recon held in
-//     registers, 256 or 512 columns by a template width), coder_fwd_tc (wider:
-//     the crosscoder, SAEs at C 528-1,024) and coder_bwd_tc, 256 threads = two
-//     warpgroups. Every product runs on the tensor cores as
+//     registers, 256 or 512 columns by a template width; 148,800 bytes of
+//     shared memory), coder_fwd_tc (wider: the crosscoder, SAEs at C 528-1,024;
+//     230,960 bytes) and coder_bwd_tc, 256 threads = two warpgroups, up to 255
+//     registers a thread and no spills (chip_smoke.py's build phase checks).
+//     Every product runs on the tensor cores as
 //     wgmma.mma_async m64n64k16 (bf16 in, f32 accumulators in registers), B
 //     always and A mostly read straight from shared memory through wgmma
 //     descriptors; where an operand is round_bf16(c_rec * err), A comes from
@@ -75,8 +96,9 @@
 // What bounds them. At the transcoder's training shape (T = 32,768, H = 16,384,
 // 256 -> 480) the forward is 2*T*H*(Cin+Cout) = 0.79 TFLOP and the backward twice
 // that; at the crosscoder's (T = 16,384, H = 8,192, Cin = Cout = 2,896) 1.55 and
-// 3.1 TFLOP; at the SAEs' (T = 32,768, C = 256, H = 16,384) 0.55 and 1.1 TFLOP:
-// 0.6-3.1 ms at the 989 TFLOP/s of bf16 tensor cores. Operands are ~0.05-0.2 GB
+// 3.1 TFLOP; at the SAEs' (T = 32,768, C = 256, H = 16,384) 0.55 and 1.1 TFLOP
+// (the gated SAE's 0.82 and 1.4): 0.6-3.1 ms at the 989 TFLOP/s of bf16 tensor
+// cores. Operands are ~0.05-0.2 GB
 // (0.02-0.13 ms at 3.35 TB/s; ~0.15 GB more with the Matryoshka prefix
 // reconstructions): bounded by arithmetic as long as the [T, H] latent matrix
 // never reaches device memory.
@@ -92,7 +114,8 @@
 //     whose round_bf16(post) fills post_s [64, 128] with the statistics taken
 //     in the epilogue, then recon += post_s @ W_dec. Each block streams all of
 //     W_enc and W_dec (24 MB at the transcoder's shape, 16 MB at the SAE's)
-//     through L2.
+//     through L2. Act::Gated holds via [64, 256] beside recon and fills pi_s
+//     [64, 128] beside post_s; each W_dec tile feeds both decodes.
 //   coder_fwd_tc: recon [128, 2,896] f32 (1.5 MB) does not fit. A block owns 128
 //     tokens (64 per warpgroup) and sweeps the latents in groups of up to 512:
 //     up to four encode sub-tiles pre [128, 128] fill post_s [128, 512], then
@@ -345,9 +368,19 @@ constexpr size_t bwd_smem_bytes() {
                           + 16 * kBwdTH);      // red_s
 }
 
-// The epilogue of the bf16 backward (coder_bwd_tc's kAct; header note): the
-// ReLU of the coder family, the JumpReLU SAE's or the gated SAE's.
-enum class Act { Relu, Jump, Gated };
+// The epilogue of the bf16 bodies (kAct; header note): the ReLU of the coder
+// family, the JumpReLU SAE's or the gated SAE's; GatedEnc and GatedPi are the
+// two halves of the gated forward's wide route (forward only).
+enum class Act { Relu, Jump, Gated, GatedEnc, GatedPi };
+
+// The JumpReLU and gated SAEs' per-latent operands of the bf16 forward (kAct),
+// and the gated two-output body's second output.
+struct ActFwd {
+  const float* theta;  // Jump: exp(log_threshold) [H]
+  const float* b_mag;  // Gated*: [H]
+  const float* er;     // Gated*: exp(r_mag) [H]
+  float* via;          // Gated: via_gate [T, Cout] f32
+};
 
 // The JumpReLU and gated SAEs' per-latent operands and outputs (kAct).
 struct ActBwd {
@@ -643,15 +676,16 @@ constexpr int kBSlot = 3 * kBox;       // phase A: x or err [128][64] and a W ti
 constexpr size_t fwd_tc_smem_bytes() {
   return 1024 + kFSt * kFSlot + 2 * kTcFwdLG * kTcFwdTT + sizeof(int) * kTcFwdTT + 16 * kFSt;
 }
-constexpr size_t hold_smem_bytes() {
-  return 1024 + kHSt * kHSlot + 2 * kHoldLG * kHoldTT + sizeof(int) * kHoldTT + 16 * kHSt;
+// posts: the [64][128] bf16 post blocks (2 for the gated two-output body)
+constexpr size_t hold_smem_bytes(int posts = 1) {
+  return 1024 + kHSt * kHSlot + posts * 2 * kHoldLG * kHoldTT + sizeof(int) * kHoldTT + 16 * kHSt;
 }
 // nv per-latent f32 vectors of the block's latents: 2 (b_enc, ct) for Act::Relu,
 // 3 for the JumpReLU and gated epilogues
 constexpr size_t bwd_tc_smem_bytes(int nv = 2) {
   return 1024 + kBSt * kBSlot + 2 * kTcBwdTS * kSwRow + nv * sizeof(float) * kTcBwdTH + 16 * kBSt;
 }
-static_assert(fwd_tc_smem_bytes() <= 232448 && hold_smem_bytes() <= 232448 &&
+static_assert(fwd_tc_smem_bytes() <= 232448 && hold_smem_bytes(2) <= 232448 &&
                   bwd_tc_smem_bytes(3) <= 232448,
               "shared memory");
 
@@ -920,10 +954,25 @@ __device__ __forceinline__ void update_pairs(const float (&acc)[MT][NT][4], At a
 // round_bf16(post) into the 128-byte-swizzled K-major block ``post_blk`` (row
 // ``tok0`` + 8h), per-token activity into rowc, and per-latent sums over the
 // warp's 16 tokens into red_z / red_c[col] (lanes 0-3 write; the caller reduces
-// over warps in a fixed order).
+// over warps in a fixed order). kAct picks post (per-latent operands from af at
+// latent lat + column):
+//   Relu: post = max(pre, 0), counted where > 0, summed;
+//   Jump: post = pre > theta ? pre : 0 (strict), counted where != 0, summed;
+//   Gated: acc holds g = x_cent @ W_gate and b_enc is b_gate: pre_gate = g +
+//     b_gate, pre_mag = g*er + b_mag (rounded apart, as the plain version),
+//     gate 1 / 0.5 / 0 where pre_gate > / == / < 0; post = enc = gate *
+//     relu(pre_mag), counted where != 0; relu_pi = relu(pre_gate) goes to
+//     pi_blk as well and is what the per-latent sums add;
+//   GatedEnc: enc and its counts only (no sums: red_z untouched);
+//   GatedPi: relu_pi as post and its sums only (no counts: red_c, rowc untouched).
+template <Act kAct>
 __device__ __forceinline__ void post_epilogue(const float (&acc)[8][4], const float* b_enc,
                                               unsigned char* post_blk, int tok0, int lane,
-                                              int (&rowc)[2], float* red_z, int* red_c) {
+                                              int (&rowc)[2], float* red_z, int* red_c,
+                                              const ActFwd& af, int lat,
+                                              unsigned char* pi_blk = nullptr) {
+  constexpr bool kGate = kAct == Act::Gated || kAct == Act::GatedEnc || kAct == Act::GatedPi;
+  constexpr bool kCount = kAct != Act::GatedPi, kSum = kAct != Act::GatedEnc;
   float zs[8][2];
   int cc[8][2];
 #pragma unroll
@@ -931,17 +980,40 @@ __device__ __forceinline__ void post_epilogue(const float (&acc)[8][4], const fl
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int l = j * 8 + 2 * (lane % 4);
-      float p[2];
+      float p[2], q[2];  // post, and (Gated) relu_pi
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        p[e] = fmaxf(acc[j][2 * h + e] + b_enc[l + e], 0.f);
-        const int on = p[e] > 0.f;
-        zs[j][e] = h == 0 ? p[e] : zs[j][e] + p[e];
-        cc[j][e] = h == 0 ? on : cc[j][e] + on;
-        rowc[h] += on;
+        int on;
+        if constexpr (kAct == Act::Relu) {
+          p[e] = fmaxf(acc[j][2 * h + e] + b_enc[l + e], 0.f);
+          on = p[e] > 0.f;
+          q[e] = p[e];
+        } else if constexpr (kAct == Act::Jump) {
+          const float v = acc[j][2 * h + e] + b_enc[l + e];
+          p[e] = v > af.theta[lat + l + e] ? v : 0.f;
+          on = p[e] != 0.f;
+          q[e] = p[e];
+        } else {
+          static_assert(kGate, "an epilogue of the forward");
+          const float g = acc[j][2 * h + e], pg = g + b_enc[l + e];
+          const float pm = __fadd_rn(__fmul_rn(g, af.er[lat + l + e]), af.b_mag[lat + l + e]);
+          const float gate = pg > 0.f ? 1.f : (pg == 0.f ? 0.5f : 0.f);
+          const float enc = __fmul_rn(gate, fmaxf(pm, 0.f));
+          q[e] = fmaxf(pg, 0.f);
+          p[e] = kAct == Act::GatedPi ? q[e] : enc;
+          on = enc != 0.f;
+        }
+        if constexpr (kSum) zs[j][e] = h == 0 ? q[e] : zs[j][e] + q[e];
+        if constexpr (kCount) {
+          cc[j][e] = h == 0 ? on : cc[j][e] + on;
+          rowc[h] += on;
+        }
       }
       *reinterpret_cast<__nv_bfloat162*>(post_blk + sw128(tok0 + 8 * h, j) + (lane % 4) * 4) =
           __floats2bfloat162_rn(p[0], p[1]);
+      if constexpr (kAct == Act::Gated)
+        *reinterpret_cast<__nv_bfloat162*>(pi_blk + sw128(tok0 + 8 * h, j) + (lane % 4) * 4) =
+            __floats2bfloat162_rn(q[0], q[1]);
     }
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -949,12 +1021,12 @@ __device__ __forceinline__ void post_epilogue(const float (&acc)[8][4], const fl
     for (int e = 0; e < 2; ++e) {
 #pragma unroll
       for (int off = 4; off < 32; off *= 2) {  // fixed order: the lanes of a column
-        zs[j][e] += __shfl_xor_sync(0xffffffffu, zs[j][e], off);
-        cc[j][e] += __shfl_xor_sync(0xffffffffu, cc[j][e], off);
+        if constexpr (kSum) zs[j][e] += __shfl_xor_sync(0xffffffffu, zs[j][e], off);
+        if constexpr (kCount) cc[j][e] += __shfl_xor_sync(0xffffffffu, cc[j][e], off);
       }
       if (lane < 4) {
-        red_z[j * 8 + 2 * lane + e] = zs[j][e];
-        red_c[j * 8 + 2 * lane + e] = cc[j][e];
+        if constexpr (kSum) red_z[j * 8 + 2 * lane + e] = zs[j][e];
+        if constexpr (kCount) red_c[j * 8 + 2 * lane + e] = cc[j][e];
       }
     }
 }
@@ -988,14 +1060,18 @@ __device__ __forceinline__ void write_row_active(const int (&rowc)[2], int* rcnt
 // eight K-major [128][64] blocks. kPrefix: groups also end at every prefix
 // boundary, and the decode of a group that ends one copies its updates of
 // recon's last slice into that prefix's slice.
-template <bool kPrefix>
+template <bool kPrefix, Act kAct = Act::Relu>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
              const __grid_constant__ CUtensorMap m_wd, const float* __restrict__ b_enc,
              const float* __restrict__ b_dec, float* __restrict__ recon,
              float* __restrict__ act_part, float* __restrict__ row_active,
-             float* __restrict__ zsum_part, int Cin, int Cout, int H, const svt::Levels lv) {
+             float* __restrict__ zsum_part, int Cin, int Cout, int H, const svt::Levels lv,
+             const ActFwd af) {
   constexpr int TT = kTcFwdTT, SUB = kTcFwdSub, LG = kTcFwdLG, KT = 64;
+  constexpr bool kCount = kAct != Act::GatedPi, kSum = kAct != Act::GatedEnc;
+  static_assert(kAct != Act::Gated && (kAct == Act::Relu || !kPrefix),
+                "one output: the gated forward's wide route is two launches");
   constexpr int kPostBlk = TT * kSwRow;  // a [128][64] block of post_s
   extern __shared__ __align__(1024) unsigned char tc_smem_fwd[];
   unsigned char* ring = align1024(tc_smem_fwd);
@@ -1082,8 +1158,9 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
         const int lg = s * SUB + nb * 64;  // first latent of the half, within the group
-        post_epilogue(acc[nb], b_enc + g0 + lg, post_s + (lg / 64) * kPostBlk, tok0, lane, rowc,
-                      red_z + warp * SUB + nb * 64, red_c + warp * SUB + nb * 64);
+        post_epilogue<kAct>(acc[nb], b_enc + g0 + lg, post_s + (lg / 64) * kPostBlk, tok0, lane,
+                            rowc, red_z + warp * SUB + nb * 64, red_c + warp * SUB + nb * 64, af,
+                            g0 + lg);
       }
       __syncthreads();
       {
@@ -1095,8 +1172,8 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
           n += red_c[(4 * g + w) * SUB + l];
         }
         const long o = (static_cast<long>(blockIdx.x) * 2 + g) * H + g0 + s * SUB + l;
-        act_part[o] = static_cast<float>(n);
-        zsum_part[o] = z;
+        if constexpr (kCount) act_part[o] = static_cast<float>(n);
+        if constexpr (kSum) zsum_part[o] = z;
       }
       c.release_held();
     }
@@ -1144,7 +1221,7 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
       }
     }
   }
-  write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
+  if constexpr (kCount) write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
 }
 
 // Forward, bf16, recon held in registers (Cout <= W: the transcoder, the SAEs
@@ -1159,7 +1236,7 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 //           W/64 [LD][64] boxes; columns past Cout arrive as zeros).
 // round_bf16(post) of the group, post_s [64][128] as two K-major [64][64]
 // blocks (block g written by warpgroup g), is the decode's A operand.
-template <int W, bool kPrefix>
+template <int W, bool kPrefix, Act kAct = Act::Relu>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
                   const __grid_constant__ CUtensorMap m_we,
@@ -1167,16 +1244,21 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
                   const float* __restrict__ b_dec, float* __restrict__ recon,
                   float* __restrict__ act_part, float* __restrict__ row_active,
                   float* __restrict__ zsum_part, int Cin, int Cout, int H,
-                  const svt::Levels lv) {
+                  const svt::Levels lv, const ActFwd af) {
   constexpr int TT = kHoldTT, LG = kHoldLG, LD = hold_ld(W), KT = 64;
   constexpr int NB = W / 128;            // n64 accumulators a warpgroup
   constexpr int kPostBlk = TT * kSwRow;  // a [64][64] block of post_s
   constexpr int kDecBox = LD * kSwRow;   // a [LD][64] box of W_dec
+  constexpr bool kTwo = kAct == Act::Gated;  // recon and via held together
+  constexpr bool kCount = kAct != Act::GatedPi, kSum = kAct != Act::GatedEnc;
   static_assert(2 * NB * kDecBox <= kHSlot, "W_dec tile");
+  static_assert(!kTwo || W == 256, "two held outputs of 256 columns: hold<512>'s registers");
+  static_assert(kAct == Act::Relu || !kPrefix, "the variants have no prefixes");
   extern __shared__ __align__(1024) unsigned char tc_smem_hold[];
   unsigned char* ring = align1024(tc_smem_hold);
-  unsigned char* post_s = ring + kHSt * kHSlot;                 // [2][TT][64]
-  int* rcnt_s = reinterpret_cast<int*>(post_s + LG * TT * 2);  // [TT]
+  unsigned char* post_s = ring + kHSt * kHSlot;  // [2][TT][64]
+  unsigned char* pi_s = post_s + LG * TT * 2;    // kTwo: [2][TT][64] round_bf16(relu_pi)
+  int* rcnt_s = reinterpret_cast<int*>(pi_s + (kTwo ? LG * TT * 2 : 0));  // [TT]
   uint64_t* full = reinterpret_cast<uint64_t*>(rcnt_s + TT);
   uint64_t* empty = full + kHSt;
 
@@ -1211,11 +1293,12 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
   const int wg = warp / 4, w4 = warp % 4;
   const int tok0 = w4 * 16 + lane / 4;
   Consumer<kHSt> c{ring, kHSlot, full, empty, lane};
-  const uint32_t post_a = smem_u32(post_s);
+  const uint32_t post_a = smem_u32(post_s), pi_a = smem_u32(pi_s);
   float rec[NB][8][4];  // recon rows tok0 (+8), columns (W/2)*wg + 64*nb + ...
+  [[maybe_unused]] float vi[kTwo ? NB : 1][8][4];  // kTwo: via_gate, as rec
   float acc[8][4];      // encode: the group's latents 64*wg .. 64*wg + 63
   int rowc[2] = {0, 0};
-  // rec + b_dec into ``out`` [T, Cout], once every product is done
+  // rec (kTwo: and vi) + b_dec into ``out`` (af.via) [T, Cout], once every product is done
   auto store = [&](float* out) {
     c.drain();
 #pragma unroll
@@ -1226,9 +1309,14 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
         if (col < Cout) {
           const float2 b = make_float2(b_dec[col], b_dec[col + 1]);
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h) {
             *reinterpret_cast<float2*>(out + static_cast<long>(t0 + tok0 + 8 * h) * Cout + col) =
                 make_float2(rec[nb][j][2 * h] + b.x, rec[nb][j][2 * h + 1] + b.y);
+            if constexpr (kTwo)
+              *reinterpret_cast<float2*>(af.via + static_cast<long>(t0 + tok0 + 8 * h) * Cout +
+                                         col) =
+                  make_float2(vi[nb][j][2 * h] + b.x, vi[nb][j][2 * h + 1] + b.y);
+          }
         }
       }
   };
@@ -1250,9 +1338,10 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
     __syncthreads();
     float* red_z = reinterpret_cast<float*>(scratch);  // [8 warps][64]
     int* red_c = reinterpret_cast<int*>(red_z + kWarps * 64);
-    post_epilogue(acc, b_enc + g0 + wg * 64, post_s + wg * kPostBlk, tok0, lane, rowc,
-                  red_z + warp * 64, red_c + warp * 64);
-    fence_async_smem();  // post_s before wgmma reads it
+    post_epilogue<kAct>(acc, b_enc + g0 + wg * 64, post_s + wg * kPostBlk, tok0, lane, rowc,
+                        red_z + warp * 64, red_c + warp * 64, af, g0 + wg * 64,
+                        pi_s + wg * kPostBlk);
+    fence_async_smem();  // post_s (and pi_s) before wgmma reads it
     __syncthreads();
     if (tid < LG) {  // latent tid of the group: warpgroup tid / 64's four warps, in order
       const int g = tid / 64, l = tid % 64;
@@ -1263,12 +1352,13 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
         n += red_c[(4 * g + w) * 64 + l];
       }
       const long o = static_cast<long>(blockIdx.x) * H + g0 + tid;
-      act_part[o] = static_cast<float>(n);
-      zsum_part[o] = z;
+      if constexpr (kCount) act_part[o] = static_cast<float>(n);
+      if constexpr (kSum) zsum_part[o] = z;
     }
     c.release_held();
 
-    // decode: rec += round_bf16(post) @ W_dec[g0 : g0 + 128, (W/2)*wg : (W/2)*(wg + 1)]
+    // decode: rec += round_bf16(post) @ W_dec[g0 : g0 + 128, (W/2)*wg : (W/2)*(wg + 1)];
+    // kTwo: vi += round_bf16(relu_pi) @ the same W_dec tile
     for (int k = 0; k < LG / LD; ++k) {
       const uint32_t sa = smem_u32(c.next());
       wg_fence();
@@ -1276,11 +1366,16 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
       for (int kk = 0; kk < LD / 16; ++kk) {
         const int lk = k * LD + kk * 16;  // latent within the group
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
+        for (int nb = 0; nb < NB; ++nb) {
           wgmma_ss<0, 1>(rec[nb],
                          sw128_desc(post_a + (lk / 64) * kPostBlk + (lk % 64) * 2),
                          sw128_desc(sa + (NB * wg + nb) * kDecBox + kk * 16 * kSwRow),
                          g0 + k + kk > 0);
+          if constexpr (kTwo)
+            wgmma_ss<0, 1>(vi[nb], sw128_desc(pi_a + (lk / 64) * kPostBlk + (lk % 64) * 2),
+                           sw128_desc(sa + (NB * wg + nb) * kDecBox + kk * 16 * kSwRow),
+                           g0 + k + kk > 0);
+        }
       }
       wg_commit();
       c.issued<true>();
@@ -1291,7 +1386,7 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
         store(recon + svt::level_of(lv, g0) * slice);
   }
   store(kPrefix ? recon + (lv.n - 1) * slice : recon);
-  write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
+  if constexpr (kCount) write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
 }
 
 // Column sums of a warp's rows, scattered over its lanes: v[j][e] is this
@@ -1916,38 +2011,62 @@ cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Launch the forward. act_part and zsum_part are [n_tokens / 64, H] (per-64-token
-// partials), row_active [n_tokens], recon [n_tokens, c_out] f32 (kPrefix:
-// prefix_recon [lv.n, n_tokens, c_out]). bf16 != 0 selects __nv_bfloat16
-// operands (coder_fwd_tc_hold<256> for c_out <= 256, <512> for c_out <= 512,
-// else coder_fwd_tc), else float (coder_fwd_kernel).
+// The bf16 forward on x [n_tokens, c_in] (bf16 operands), the body chosen by
+// the width: coder_fwd_tc_hold<256> for c_out <= 256, <512> for c_out <= 512,
+// else coder_fwd_tc. kAct Gated (recon and via held together) takes c_out <=
+// 256 only; GatedEnc and GatedPi, the two launches of the gated forward's wide
+// route, c_out > 256 only. act_part and zsum_part are [n_tokens / 64, H]
+// (per-64-token partials; GatedEnc writes no zsum_part, GatedPi neither act_part
+// nor row_active), row_active [n_tokens], recon [n_tokens, c_out] f32 (kPrefix:
+// prefix_recon [lv.n, n_tokens, c_out]; Gated: af.via too).
+template <bool kPrefix, Act kAct>
+cudaError_t fwd_tc(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
+                   const float* b_dec, float* recon, float* act_part, float* row_active,
+                   float* zsum_part, int n_tokens, int c_in, int c_out, int H,
+                   const svt::Levels& lv, const ActFwd& af, cudaStream_t stream) {
+  constexpr bool kSplit = kAct == Act::GatedEnc || kAct == Act::GatedPi;
+  if (bad_shape(n_tokens, c_in, c_out, H) || bad_tc_operands(c_in, c_out, x, w_enc, w_dec, recon))
+    return cudaErrorInvalidValue;
+  const int hold = c_out <= 256 ? 256 : c_out <= kHoldCout ? kHoldCout : 0;  // held width
+  if ((kAct == Act::Gated && hold != 256) || (kSplit && hold == 256)) return cudaErrorInvalidValue;
+  CUtensorMap mx, mwe, mwd;
+  cudaError_t e;
+  if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
+      (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
+      (e = bf16_map(&mwd, w_dec, H, c_out, hold ? hold_ld(hold) : 64)) != cudaSuccess)
+    return e;
+  if constexpr (kAct == Act::Gated) {
+    return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>, n_tokens / kHoldTT,
+                       hold_smem_bytes(2), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
+                       row_active, zsum_part, c_in, c_out, H, lv, af);
+  } else {
+    if constexpr (!kSplit)
+      if (hold == 256)
+        return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>, n_tokens / kHoldTT,
+                           hold_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon,
+                           act_part, row_active, zsum_part, c_in, c_out, H, lv, af);
+    if (hold)
+      return svt::launch(coder_fwd_tc_hold<kHoldCout, kPrefix, kAct>, n_tokens / kHoldTT,
+                         hold_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
+                         row_active, zsum_part, c_in, c_out, H, lv, af);
+    return svt::launch(coder_fwd_tc<kPrefix, kAct>, n_tokens / kTcFwdTT, fwd_tc_smem_bytes(),
+                       stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part, row_active,
+                       zsum_part, c_in, c_out, H, lv, af);
+  }
+}
+
+// Launch the forward: bf16 != 0 selects __nv_bfloat16 operands (fwd_tc's
+// route), else float (coder_fwd_kernel). Outputs as fwd_tc's.
 template <bool kPrefix>
 cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const float* b_dec, float* recon, float* act_part,
                       float* row_active, float* zsum_part, int n_tokens, int c_in, int c_out,
                       int H, const svt::Levels& lv, cudaStream_t stream) {
   if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
-  if (bf16) {
-    if (bad_tc_operands(c_in, c_out, x, w_enc, w_dec, recon)) return cudaErrorInvalidValue;
-    const int hold = c_out <= 256 ? 256 : c_out <= kHoldCout ? kHoldCout : 0;  // held width
-    CUtensorMap mx, mwe, mwd;
-    cudaError_t e;
-    if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
-        (e = bf16_map(&mwd, w_dec, H, c_out, hold ? hold_ld(hold) : 64)) != cudaSuccess)
-      return e;
-    if (hold == 256)
-      return svt::launch(coder_fwd_tc_hold<256, kPrefix>, n_tokens / kHoldTT, hold_smem_bytes(),
-                         stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part, row_active,
-                         zsum_part, c_in, c_out, H, lv);
-    if (hold)
-      return svt::launch(coder_fwd_tc_hold<kHoldCout, kPrefix>, n_tokens / kHoldTT,
-                         hold_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
-                         row_active, zsum_part, c_in, c_out, H, lv);
-    return svt::launch(coder_fwd_tc<kPrefix>, n_tokens / kTcFwdTT, fwd_tc_smem_bytes(), stream,
-                       mx, mwe, mwd, b_enc, b_dec, recon, act_part, row_active, zsum_part, c_in,
-                       c_out, H, lv);
-  }
+  if (bf16)
+    return fwd_tc<kPrefix, Act::Relu>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
+                                      row_active, zsum_part, n_tokens, c_in, c_out, H, lv,
+                                      ActFwd{}, stream);
   return svt::launch(coder_fwd_kernel<float, kPrefix>, n_tokens / kFwdTT, fwd_smem_bytes(),
                      stream, static_cast<const float*>(x), static_cast<const float*>(w_enc),
                      b_enc, static_cast<const float*>(w_dec), b_dec, recon, act_part,

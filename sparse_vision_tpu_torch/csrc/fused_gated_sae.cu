@@ -1,8 +1,8 @@
 // Fused Gated-SAE training kernels for Hopper (sm_90a): forward and backward.
 //
 // Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_gated_sae.py:
-//   gated_fwd_kernel <- _fwd_kernel (:42), launched by pallas_call :234
-//   svt_gated_bwd    <- _bwd_kernel (:98), launched by pallas_call :292
+//   svt_gated_fwd <- _fwd_kernel (:42), launched by pallas_call :234
+//   svt_gated_bwd <- _bwd_kernel (:98), launched by pallas_call :292
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
 // H = 16,384 latents) the forward is 6*T*C*H = 0.82 PFLOP (one gate product
@@ -11,23 +11,35 @@
 // W_dec^T, dW_gate and dW_dec), against ~130 MB of operands: bounded by
 // arithmetic as long as no [T, H] matrix (2 GB in f32) reaches device memory.
 //
-// The backward in bf16 (the training path) runs the coder body family's
-// tensor-core backward (coder.cuh, coder_bwd_tc<true, Act::Gated>: wgmma/TMA,
-// any width, T and H multiples of 128, C of 8) after three pre-passes:
-// center_kernel (x_cent from the saved x) and scale_err_kernel twice
-// (round_bf16(c_rec * err_rec) with the direct db_dec rows, and
-// round_bf16(c_aux * err_via), which gives b_dec no gradient), into one
-// [2, T, C] workspace whose second half the body's third phase-A product reads.
+// In bf16 (the training path) both run the coder body family's tensor-core
+// bodies (coder.cuh: wgmma/TMA, any width, T and H multiples of 128, C of 8)
+// with the gated epilogues, after center_kernel (x_cent; the backward
+// recomputes it from the saved x):
+//   forward, C <= 256: coder_fwd_tc_hold<256, false, Act::Gated>. One gate
+//     product g feeds both paths; the epilogue writes round_bf16(enc) and
+//     round_bf16(relu_pi) into two post blocks, counts enc != 0 and sums
+//     relu_pi (the L1 statistic), and every W_dec tile feeds both decodes,
+//     recon and via held in registers together (6*T*C*H FLOP);
+//   forward, C > 256: two held outputs would need 256 accumulator floats a
+//     thread, and coder_fwd_tc's post buffer cannot double in shared memory,
+//     so the route is two launches of the ReLU forward's width route
+//     (fwd_tc): Act::GatedEnc writes recon and the counts, Act::GatedPi via
+//     and the zsum partials. The gate product runs twice (8*T*C*H);
+//   backward: coder_bwd_tc<true, Act::Gated> after scale_err_kernel twice
+//     (round_bf16(c_rec * err_rec) with the direct db_dec rows, and
+//     round_bf16(c_aux * err_via), which gives b_dec no gradient), into one
+//     [2, T, C] workspace whose second half the body's third phase-A product
+//     reads.
 //
-// The forward, and the backward in f32 (the check path), run the SIMT bodies
-// below (namespace simt). The forward holds a token tile's recon AND via_gate
-// in registers while it sweeps every latent tile; the f32 backward holds a
-// latent tile's weight gradients in registers while it sweeps every token,
-// recomputing the gate product per token step. Plain FMA loops from shared
-// memory (the f32 SIMT rate).
+// In f32 (the check path) both run the SIMT bodies below (namespace simt,
+// instantiated for float only), C in {64, 128, 256}. The forward holds a token
+// tile's recon AND via_gate in registers while it sweeps every latent tile;
+// the backward holds a latent tile's weight gradients in registers while it
+// sweeps every token, recomputing the gate product per token step. Plain FMA
+// loops from shared memory (the f32 SIMT rate).
 //
-// Tiles. Two [tokens, C] accumulators a thread would need 128 registers at 64
-// tokens, so the forward takes 32 tokens a block (64 accumulator floats a
+// SIMT tiles. Two [tokens, C] accumulators a thread would need 128 registers at
+// 64 tokens, so the forward takes 32 tokens a block (64 accumulator floats a
 // thread, as in the ReLU forward). The backward keeps three [tokens, C] operand
 // tiles (x_cent, drecon, dvia) beside the two weight tiles, which fits shared
 // memory at 16 tokens a step; its per-latent sums (db_gate, db_mag,
@@ -56,14 +68,14 @@
 //
 // Entry points have a plain C interface (pointers, sizes, stream) and return the
 // cudaError_t of the launch; ops/fused_gated_sae.py raises on a non-zero value.
-// Supported shapes (ops/fused_gated_sae.py can_fuse, bwd_takes): the SIMT
-// bodies C in {64, 128, 256}, T a multiple of kFwdTT and kBwdTT, H of kTH; the
-// bf16 backward coder.cuh's rule.
+// Supported shapes (ops/fused_gated_sae.py fwd_takes, bwd_takes): in bf16
+// coder.cuh's rule; in f32 the SIMT bodies' C in {64, 128, 256}, T a multiple
+// of kFwdTT and kBwdTT, H of kTH.
 
 #include "coder.cuh"
 
 namespace {
-namespace simt {  // the SIMT bodies: the forward, and the backward in f32
+namespace simt {  // the SIMT bodies: the f32 forward and backward (the check path)
 
 constexpr int kFwdTT = 32;  // forward: tokens per block
 constexpr int kBwdTT = 16;  // backward: tokens per inner step
@@ -420,23 +432,45 @@ gated_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_gate,
 }  // namespace simt
 }  // namespace
 
-// er is exp(r_mag) [H] in f32; act_part is [n_tokens / 32, H] (per-token-tile
-// activity counts), l1_part is [n_tokens / 32]; bf16 != 0 selects __nv_bfloat16
-// operands, else float.
+// er is exp(r_mag) [H] in f32. bf16 != 0: __nv_bfloat16 operands, x_cent an
+// [n_tokens, C] bf16 workspace (center_kernel's output), act_part and l1_part
+// (the zsum partials of relu_pi) [n_tokens / 64, H] (T and H multiples of 128,
+// C of 8). float: gated_fwd_kernel, x_cent unused, act_part [n_tokens / 32, H],
+// l1_part [n_tokens / 32]. The L1 sum is the total of l1_part either way.
 extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
                              const float* b_gate, const float* b_mag, const float* er,
                              const void* w_dec, const float* b_dec, float* recon, float* via,
-                             float* act_part, float* row_active, float* l1_part,
+                             float* act_part, float* row_active, float* l1_part, void* x_cent,
                              int n_tokens, int C, int H, cudaStream_t stream) {
+  if (bf16) {
+    if (bad_shape(n_tokens, C, C, H) || bad_tc_operands(C, C, x, x_cent, w_gate, w_dec))
+      return cudaErrorInvalidValue;
+    cudaError_t e = launch_center(1, x, b_dec, x_cent, n_tokens, C, stream);
+    if (e != cudaSuccess) return e;
+    const svt::Levels lv = svt::one_level(H);
+    ActFwd af{};
+    af.b_mag = b_mag;
+    af.er = er;
+    if (C <= 256) {  // recon and via held together
+      af.via = via;
+      return fwd_tc<false, Act::Gated>(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part,
+                                       row_active, l1_part, n_tokens, C, C, H, lv, af, stream);
+    }
+    if ((e = fwd_tc<false, Act::GatedEnc>(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part,
+                                          row_active, nullptr, n_tokens, C, C, H, lv, af,
+                                          stream)) != cudaSuccess)
+      return e;
+    return fwd_tc<false, Act::GatedPi>(x_cent, w_gate, b_gate, w_dec, b_dec, via, nullptr,
+                                       nullptr, l1_part, n_tokens, C, C, H, lv, af, stream);
+  }
   if (n_tokens <= 0 || H <= 0 || n_tokens % simt::kFwdTT || H % simt::kTH)
     return cudaErrorInvalidValue;
-  return svt::dispatch(bf16, C, [&](auto t, auto c) {
-    using T = decltype(t);
+  return svt::dispatch_width(C, [&](auto c) {
     constexpr int CC = decltype(c)::value;
-    return svt::launch(simt::gated_fwd_kernel<T, CC>, n_tokens / simt::kFwdTT,
-                       simt::fwd_smem_bytes<CC>(), stream, static_cast<const T*>(x),
-                       static_cast<const T*>(w_gate), b_gate, b_mag, er,
-                       static_cast<const T*>(w_dec), b_dec, recon, via, act_part, row_active,
+    return svt::launch(simt::gated_fwd_kernel<float, CC>, n_tokens / simt::kFwdTT,
+                       simt::fwd_smem_bytes<CC>(), stream, static_cast<const float*>(x),
+                       static_cast<const float*>(w_gate), b_gate, b_mag, er,
+                       static_cast<const float*>(w_dec), b_dec, recon, via, act_part, row_active,
                        l1_part, H);
   });
 }

@@ -1,8 +1,8 @@
 // Fused JumpReLU-SAE training kernels for Hopper (sm_90a): forward and backward.
 //
 // Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_jumprelu_sae.py:
-//   jumprelu_fwd_kernel <- _fwd_kernel (:30), launched by pallas_call :192
-//   svt_jumprelu_bwd    <- _bwd_kernel (:80), launched by pallas_call :248
+//   svt_jumprelu_fwd <- _fwd_kernel (:30), launched by pallas_call :192
+//   svt_jumprelu_bwd <- _bwd_kernel (:80), launched by pallas_call :248
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
 // H = 16,384 latents) the forward is 4*T*C*H = 0.55 PFLOP and the backward
@@ -10,20 +10,26 @@
 // arithmetic as long as the [T, H] latent matrix (2 GB in f32) never reaches
 // device memory.
 //
-// The backward in bf16 (the training path) runs the coder body family's
-// tensor-core backward (coder.cuh, coder_bwd_tc<true, Act::Jump>: wgmma/TMA,
-// any width, T and H multiples of 128, C of 8) after two pre-passes:
-// center_kernel (x_cent, recomputed from the saved x: ~0.01 ms) and
-// scale_err_kernel (round_bf16(c_rec * err) from the saved f32 err, the Pallas
-// cast point, and the direct db_dec rows). The Jump epilogue replaces the
-// ReLU's: the strict mask, no L1 cotangent, and the STE window's dtheta.
+// In bf16 (the training path) both run the coder body family's tensor-core
+// bodies (coder.cuh: wgmma/TMA, any width, T and H multiples of 128, C of 8)
+// with the JumpReLU epilogues (Act::Jump), after center_kernel (x_cent; the
+// backward recomputes it from the saved x: ~0.01 ms):
+//   forward:  fwd_tc<false, Act::Jump>, the ReLU forward's width route
+//             (coder_fwd_tc_hold<256> for C <= 256, <512> to 512, coder_fwd_tc
+//             above) with post = pre > theta ? pre : 0, activity counted where
+//             post != 0 and the per-latent sums of post as zsum partials (the
+//             L1 sum is their total: post >= 0 since theta > 0);
+//   backward: coder_bwd_tc<true, Act::Jump> after scale_err_kernel
+//             (round_bf16(c_rec * err) from the saved f32 err, the Pallas cast
+//             point, and the direct db_dec rows): the strict mask, no L1
+//             cotangent, and the STE window's dtheta.
 //
-// The forward, and the backward in f32 (the check path: TF32 would miss its
-// tolerances), run the SIMT bodies below (namespace simt): the forward holds a
-// token tile's reconstruction in registers while it sweeps every latent tile;
-// the backward holds a latent tile's weight gradients in registers while it
-// sweeps every token, recomputing pre-activations per token step. Plain FMA
-// loops from shared memory (the f32 SIMT rate).
+// In f32 (the check path: TF32 would miss its tolerances) both run the SIMT
+// bodies below (namespace simt, instantiated for float only), C in {64, 128,
+// 256}: the forward holds a token tile's reconstruction in registers while it
+// sweeps every latent tile; the backward holds a latent tile's weight gradients
+// in registers while it sweeps every token, recomputing pre-activations per
+// token step. Plain FMA loops from shared memory (the f32 SIMT rate).
 //
 // Numerics follow the Pallas kernels' cast points. The operand type T (float or
 // bf16) is the compute dtype; x, W_enc and W_dec arrive already cast to T,
@@ -41,14 +47,14 @@
 //
 // Entry points have a plain C interface (pointers, sizes, stream) and return the
 // cudaError_t of the launch; ops/fused_jumprelu_sae.py raises on a non-zero
-// value. Supported shapes (ops/fused_jumprelu_sae.py can_fuse, bwd_takes): the
-// SIMT bodies C in {64, 128, 256}, T a multiple of kFwdTT and kBwdTT, H of kTH;
-// the bf16 backward coder.cuh's rule.
+// value. Supported shapes (ops/fused_jumprelu_sae.py fwd_takes, bwd_takes): in
+// bf16 coder.cuh's rule; in f32 the SIMT bodies' C in {64, 128, 256}, T a
+// multiple of kFwdTT and kBwdTT, H of kTH.
 
 #include "coder.cuh"
 
 namespace {
-namespace simt {  // the SIMT bodies: the forward, and the backward in f32
+namespace simt {  // the SIMT bodies: the f32 forward and backward (the check path)
 
 constexpr int kFwdTT = 64;  // forward: tokens per block
 constexpr int kBwdTT = 32;  // backward: tokens per inner step
@@ -393,23 +399,37 @@ jumprelu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
 }  // namespace simt
 }  // namespace
 
-// act_part is [n_tokens / 64, H] (per-token-tile activity counts), l1_part is
-// [n_tokens / 64]; thr is exp(log_threshold) [H] in f32; bf16 != 0 selects
-// __nv_bfloat16 operands, else float.
+// thr is exp(log_threshold) [H] in f32; act_part is [n_tokens / 64, H]
+// (per-64-token activity counts). bf16 != 0: __nv_bfloat16 operands, x_cent an
+// [n_tokens, C] bf16 workspace (center_kernel's output) and l1_part the zsum
+// partials [n_tokens / 64, H] (T and H multiples of 128, C of 8). float:
+// jumprelu_fwd_kernel, x_cent unused, l1_part [n_tokens / 64]. The L1 sum is
+// the total of l1_part either way.
 extern "C" int svt_jumprelu_fwd(int bf16, const void* x, const void* w_enc,
                                 const float* b_enc, const float* thr, const void* w_dec,
                                 const float* b_dec, float* recon, float* act_part,
-                                float* row_active, float* l1_part, int n_tokens, int C,
-                                int H, cudaStream_t stream) {
+                                float* row_active, float* l1_part, void* x_cent, int n_tokens,
+                                int C, int H, cudaStream_t stream) {
+  if (bf16) {
+    if (bad_shape(n_tokens, C, C, H) || bad_tc_operands(C, C, x, x_cent, w_enc, w_dec))
+      return cudaErrorInvalidValue;
+    const cudaError_t e = launch_center(1, x, b_dec, x_cent, n_tokens, C, stream);
+    if (e != cudaSuccess) return e;
+    ActFwd af{};
+    af.theta = thr;
+    return fwd_tc<false, Act::Jump>(x_cent, w_enc, b_enc, w_dec, b_dec, recon, act_part,
+                                    row_active, l1_part, n_tokens, C, C, H, svt::one_level(H),
+                                    af, stream);
+  }
   if (n_tokens <= 0 || H <= 0 || n_tokens % simt::kFwdTT || H % simt::kTH)
     return cudaErrorInvalidValue;
-  return svt::dispatch(bf16, C, [&](auto t, auto c) {
-    using T = decltype(t);
+  return svt::dispatch_width(C, [&](auto c) {
     constexpr int CC = decltype(c)::value;
-    return svt::launch(simt::jumprelu_fwd_kernel<T, CC>, n_tokens / simt::kFwdTT,
-                       simt::fwd_smem_bytes<CC>(), stream, static_cast<const T*>(x),
-                       static_cast<const T*>(w_enc), b_enc, thr, static_cast<const T*>(w_dec),
-                       b_dec, recon, act_part, row_active, l1_part, H);
+    return svt::launch(simt::jumprelu_fwd_kernel<float, CC>, n_tokens / simt::kFwdTT,
+                       simt::fwd_smem_bytes<CC>(), stream, static_cast<const float*>(x),
+                       static_cast<const float*>(w_enc), b_enc, thr,
+                       static_cast<const float*>(w_dec), b_dec, recon, act_part, row_active,
+                       l1_part, H);
   });
 }
 

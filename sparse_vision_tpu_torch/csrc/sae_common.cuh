@@ -39,7 +39,9 @@ cudaError_t launch(void (*kernel)(KArgs...), int blocks, size_t smem, cudaStream
 }
 
 // Call f(std::integral_constant<int, C>{}) for the channel width C in {64, 128,
-// 256}.
+// 256}: the widths of the SIMT bodies, which run only in f32 for the JumpReLU
+// and gated ops (their bf16 routes are coder.cuh's, at any width) and in both
+// types for the dx kernel (dispatch, below).
 template <typename F>
 cudaError_t dispatch_width(int C, F&& f) {
   switch (C) {

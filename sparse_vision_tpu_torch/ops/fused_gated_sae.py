@@ -16,13 +16,19 @@ Gradient notes: the Heaviside gate (1 / 0.5 / 0 at π > / == / < 0) is detached;
 via_gate gives W_dec and b_dec no gradient; b_dec gets Σ drecon − Σ_rows(dg) @
 W_gateᵀ; dr_mag = Σ_t(d_premag · g) · exp(r_mag), g without b_gate.
 
-Kernels: the forward, and the backward in f32 (the check path), run the SIMT
-bodies of csrc/fused_gated_sae.cu, C in SUPPORTED_C. The backward in bf16 (the
-training path) runs the coder body family's tensor-core backward
-(csrc/coder.cuh, the gated epilogue of coder_bwd_tc: three products per token
-tile, the second error's W_dec tiles streamed again) at any width that
-bwd_takes allows, after center_kernel and scale_err_kernel on both errors.
-can_fuse asks both rules.
+Kernels: in bf16 (the training path) the forward and the backward run the
+coder body family's tensor-core bodies (csrc/coder.cuh, their gated epilogues)
+at any width that fwd_takes and bwd_takes allow (T and H multiples of 128, C of
+8), each after center_kernel (x_cent; the backward recomputes it from the saved
+x). The forward at C ≤ 256 holds recon and via_gate in registers together, one
+gate product and one W_dec stream feeding both decodes (Act::Gated); wider, it
+is two launches of the ReLU forward's width route, recon with the counts
+(Act::GatedEnc), then via_gate with the sums of relu(π_gate) (Act::GatedPi).
+It leaves per-64-token partials of the counts and of Σ relu(π_gate), whose
+total is the L1 sum. The backward (coder_bwd_tc's gated epilogue: three
+products per token tile, the second error's W_dec tiles streamed again) first
+runs scale_err_kernel on both errors. In f32 (the check path) both run the SIMT
+bodies of csrc/fused_gated_sae.cu, C in SUPPORTED_C. can_fuse asks both rules.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
 same formulas, the same cast points); a CUDA tensor launches the kernel or
@@ -57,6 +63,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _F32,
     _BF16,
     BLOCK_H,
+    PART_T,
     Kernel,
     _expect,
     _ptrs,
@@ -77,8 +84,13 @@ TILE_H = 64
 SUPPORTED_C = (64, 128, 256)
 
 
-def fwd_takes(t: int, h: int, c: int = 256) -> bool:
-    """True when the CUDA forward (a SIMT body) takes this shape."""
+def fwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
+    """True when the CUDA forward takes this shape with ``dtype`` operands: in
+    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
+    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
+    FWD_TILE_T, H of TILE_H)."""
+    if compute_dtype_of(dtype) == _BF16:
+        return bodies_take(t, h, c, c, _BF16)
     return c in SUPPORTED_C and t > 0 and h > 0 and t % FWD_TILE_T == 0 and h % TILE_H == 0
 
 
@@ -96,7 +108,7 @@ def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
     """True when the CUDA forward and backward take this (tokens, latents,
     channels) shape with ``dtype`` operands. The CPU plain versions take any
     shape."""
-    return fwd_takes(t, h, c) and bwd_takes(t, h, c, dtype)
+    return fwd_takes(t, h, c, dtype) and bwd_takes(t, h, c, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +213,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_gated_sae")
     lib.svt_gated_fwd.restype = _I
-    lib.svt_gated_fwd.argtypes = [_I] + [_P] * 12 + [_I, _I, _I, _P]
+    lib.svt_gated_fwd.argtypes = [_I] + [_P] * 13 + [_I, _I, _I, _P]
     lib.svt_gated_bwd.restype = _I
     lib.svt_gated_bwd.argtypes = [_I] + [_P] * 18 + [_I, _I, _I, _P]
     return lib
@@ -218,9 +230,10 @@ def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward: bool =
             f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
             f"{SUPPORTED_C}, T a multiple of {BWD_TILE_T}, H of {TILE_H})"
         )
-    if not backward and not fwd_takes(t, h, c):
+    if not backward and not fwd_takes(t, h, c, x.dtype):
         raise ValueError(
-            f"fused gated kernel: shape T={t}, C={c}, H={h} not supported (C in "
+            f"fused gated kernel: shape T={t}, C={c}, H={h} not supported with "
+            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
             f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
         )
     dev = x.device
@@ -234,21 +247,29 @@ def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward: bool =
 
 
 class _ForwardKernel(Kernel):
-    """csrc gated_fwd_kernel."""
+    """csrc svt_gated_fwd: in bf16 center_kernel and the coder forward with the
+    gated epilogue (one launch at C ≤ 256, two wider), in f32
+    gated_fwd_kernel. The partials are reduced here."""
 
     name = "fused_gated_sae_fwd"
 
     def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
         t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
         dev = x.device
+        bf16 = x.dtype == _BF16
+        n_part = t // (PART_T if bf16 else FWD_TILE_T)  # partial rows of the counts
         recon = torch.empty((t, c), dtype=_F32, device=dev)
         via = torch.empty((t, c), dtype=_F32, device=dev)
-        act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+        act_part = torch.empty((n_part, h), dtype=_F32, device=dev)
         row_active = torch.empty((t,), dtype=_F32, device=dev)
-        l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
+        # bf16: the zsum partials [T / 64, H] and an x_cent workspace; f32: one
+        # L1 partial per token tile, and a null pointer
+        l1_part = torch.empty((n_part, h) if bf16 else (n_part,), dtype=_F32, device=dev)
+        x_cent = torch.empty_like(x) if bf16 else None
         self._launch(_lib().svt_gated_fwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via, act_part,
-                            row_active, l1_part), t, c, h)
+                            row_active, l1_part), None if x_cent is None else x_cent.data_ptr(),
+                     t, c, h)
         return recon, via, act_part.sum(0), row_active, l1_part.sum()
 
 

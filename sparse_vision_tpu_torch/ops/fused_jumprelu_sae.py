@@ -15,13 +15,17 @@ memory). Differences from the ReLU pair:
     (inclusive), with c_l0 = g_l0 / T; d log_θ = dθ · θ is applied in torch.
     The bandwidth ε reaches the kernel as a runtime float.
 
-Kernels: the forward, and the backward in f32 (the check path), run the SIMT
-bodies of csrc/fused_jumprelu_sae.cu, C in SUPPORTED_C. The backward in bf16
-(the training path) runs the coder body family's tensor-core backward
-(csrc/coder.cuh, the JumpReLU epilogue of coder_bwd_tc) at any width that
-bwd_takes allows, after two pre-passes: center_kernel (x_cent, recomputed from
-the saved x) and scale_err_kernel (round(c_rec·err) from the saved f32 error,
-and the direct rows of db_dec). can_fuse asks both rules.
+Kernels: in bf16 (the training path) the forward and the backward run the
+coder body family's tensor-core bodies (csrc/coder.cuh, their JumpReLU
+epilogues, Act::Jump) at any width that fwd_takes and bwd_takes allow (T and H
+multiples of 128, C of 8), each after center_kernel (x_cent; the backward
+recomputes it from the saved x). The forward is the ReLU forward's width route
+(register-held recon to C = 512, updated in place above) with the strict
+threshold; it leaves per-64-token partials of the activity counts and of Σ post,
+whose total is the L1 sum. The backward first runs scale_err_kernel
+(round(c_rec·err) from the saved f32 error, and the direct rows of db_dec). In
+f32 (the check path) both run the SIMT bodies of csrc/fused_jumprelu_sae.cu, C
+in SUPPORTED_C. can_fuse asks both rules.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
 same formulas, the same cast points); a CUDA tensor launches the kernel or
@@ -54,6 +58,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _F32,
     _BF16,
     BLOCK_H,
+    PART_T,
     Kernel,
     _expect,
     _ptrs,
@@ -67,16 +72,21 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     scale_err_plain,
 )
 
-# tile sizes of csrc/fused_jumprelu_sae.cu's SIMT bodies (kFwdTT, kBwdTT, kTH)
-# and their widths
+# tile sizes of csrc/fused_jumprelu_sae.cu's SIMT bodies (kFwdTT, kBwdTT, kTH;
+# kFwdTT equals the coder bodies' PART_T) and their widths
 FWD_TILE_T = 64
 BWD_TILE_T = 32
 TILE_H = 64
 SUPPORTED_C = (64, 128, 256)
 
 
-def fwd_takes(t: int, h: int, c: int = 256) -> bool:
-    """True when the CUDA forward (a SIMT body) takes this shape."""
+def fwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
+    """True when the CUDA forward takes this shape with ``dtype`` operands: in
+    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
+    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
+    FWD_TILE_T, H of TILE_H)."""
+    if compute_dtype_of(dtype) == _BF16:
+        return bodies_take(t, h, c, c, _BF16)
     return c in SUPPORTED_C and t > 0 and h > 0 and t % FWD_TILE_T == 0 and h % TILE_H == 0
 
 
@@ -94,7 +104,7 @@ def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
     """True when the CUDA forward and backward take this (tokens, latents,
     channels) shape with ``dtype`` operands. The CPU plain versions take any
     shape."""
-    return fwd_takes(t, h, c) and bwd_takes(t, h, c, dtype)
+    return fwd_takes(t, h, c, dtype) and bwd_takes(t, h, c, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +196,7 @@ _F = ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_jumprelu_sae")
     lib.svt_jumprelu_fwd.restype = _I
-    lib.svt_jumprelu_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P]
+    lib.svt_jumprelu_fwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P]
     lib.svt_jumprelu_bwd.restype = _I
     lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 7
                                      + [_I, _I, _I, _P])
@@ -204,9 +214,10 @@ def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward: bool = False):
             f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
             f"{SUPPORTED_C}, T a multiple of {BWD_TILE_T}, H of {TILE_H})"
         )
-    if not backward and not fwd_takes(t, h, c):
+    if not backward and not fwd_takes(t, h, c, x.dtype):
         raise ValueError(
-            f"fused JumpReLU kernel: shape T={t}, C={c}, H={h} not supported (C in "
+            f"fused JumpReLU kernel: shape T={t}, C={c}, H={h} not supported with "
+            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
             f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
         )
     dev = x.device
@@ -220,20 +231,27 @@ def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward: bool = False):
 
 
 class _ForwardKernel(Kernel):
-    """csrc jumprelu_fwd_kernel."""
+    """csrc svt_jumprelu_fwd: in bf16 center_kernel and the coder forward
+    route with the JumpReLU epilogue, in f32 jumprelu_fwd_kernel. The
+    partials are reduced here."""
 
     name = "fused_jumprelu_sae_fwd"
 
     def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec):
         t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
         dev = x.device
+        bf16 = x.dtype == _BF16
+        n_part = t // (PART_T if bf16 else FWD_TILE_T)  # partial rows of the counts
         recon = torch.empty((t, c), dtype=_F32, device=dev)
-        act_part = torch.empty((t // FWD_TILE_T, h), dtype=_F32, device=dev)
+        act_part = torch.empty((n_part, h), dtype=_F32, device=dev)
         row_active = torch.empty((t,), dtype=_F32, device=dev)
-        l1_part = torch.empty((t // FWD_TILE_T,), dtype=_F32, device=dev)
+        # bf16: the zsum partials [T / 64, H] and an x_cent workspace; f32: one
+        # L1 partial per token tile, and a null pointer
+        l1_part = torch.empty((n_part, h) if bf16 else (n_part,), dtype=_F32, device=dev)
+        x_cent = torch.empty_like(x) if bf16 else None
         self._launch(_lib().svt_jumprelu_fwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part, row_active,
-                            l1_part), t, c, h)
+                            l1_part), None if x_cent is None else x_cent.data_ptr(), t, c, h)
         return recon, act_part.sum(0), row_active, l1_part.sum()
 
 

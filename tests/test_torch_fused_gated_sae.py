@@ -104,9 +104,7 @@ def runs(setup):
     return res
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_forward_matches_jax(runs, case):
-    jout, _, tout, _ = runs[case]
+def _assert_forward_matches(jout, tout, case):
     rtol = 1e-5 if case == "f32" else 1e-4
     for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "nrmse_loss", "rmse_loss"):
         np.testing.assert_allclose(float(tout[k].detach()), float(jout[k]), rtol=rtol, err_msg=k)
@@ -117,6 +115,12 @@ def test_forward_matches_jax(runs, case):
                                   np.asarray(jout["activity_freq"]))
     np.testing.assert_allclose(float(tout["sparsity"]), float(jout["sparsity"]), rtol=1e-6)
     assert bool(jout["dead"].any()) and not bool(jout["dead"].all())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_jax(runs, case):
+    jout, _, tout, _ = runs[case]
+    _assert_forward_matches(jout, tout, case)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -211,15 +215,34 @@ def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
 @pytest.mark.parametrize("t,h,c,fuse,bwd", [
     (32768, 16384, 256, True, True), (512, 1024, 128, True, True),
     (128, 128, 64, True, True), (32, 64, 64, False, False),  # T, H multiples of 128
-    (8192, 4096, 832, False, True), (1152, 640, 136, False, True),  # any width of 8
+    (8192, 4096, 832, True, True), (1152, 640, 136, True, True),  # any width of 8
     (512, 1024, 132, False, False), (512, 1088, 256, False, False),
 ])
 def test_bf16_backward_takes_the_coder_bodies_widths(t, h, c, fuse, bwd):
     """In bf16 the backward runs the coder body (T and H multiples of 128, C of
-    8); can_fuse still asks the forward's SIMT widths too."""
+    8), and so does the forward: can_fuse asks both rules, the same in bf16."""
     assert fused_gated_sae.bwd_takes(t, h, c, torch.bfloat16) is bwd
     assert fused_gated_sae.can_fuse(t, h, c, torch.bfloat16) is fuse
     assert fused_gated_sae.can_fuse(t, h, c, "bfloat16") is fuse
+
+
+@pytest.mark.parametrize("dtype,t,h,c,ok", [
+    # bf16: the coder bodies' rule, T and H multiples of 128, C of 8 (one launch
+    # to C = 256, two wider)
+    ("bfloat16", 32768, 16384, 256, True), ("bfloat16", 8192, 4096, 832, True),
+    ("bfloat16", 32768, 16384, 1024, True), ("bfloat16", 1152, 640, 136, True),
+    ("bfloat16", 512, 1024, 132, False), ("bfloat16", 32, 64, 64, False),
+    ("bfloat16", 512, 1088, 256, False),
+    # f32: the SIMT body's, C in SUPPORTED_C, T a multiple of 32, H of 64
+    ("float32", 32768, 16384, 256, True), ("float32", 32, 64, 64, True),
+    ("float32", 8192, 4096, 832, False), ("float32", 512, 1024, 72, False),
+    ("float32", 16, 64, 64, False), ("float32", 512, 1000, 256, False),
+])
+def test_fwd_takes_states_each_routes_rule(dtype, t, h, c, ok):
+    """The forward takes the coder bodies' widths in bf16 and the SIMT body's
+    in f32; the dtype is a torch dtype or RunConfig's name."""
+    assert fused_gated_sae.fwd_takes(t, h, c, dtype) is ok
+    assert fused_gated_sae.fwd_takes(t, h, c, TDT[dtype]) is ok
 
 
 WIDE_C, WIDE_H_EXP = 72, 16  # a width outside the SIMT bodies' {64, 128, 256}; H = 1,152
@@ -257,6 +280,31 @@ def wide():
     return params, _grid(np.random.default_rng(1).normal(size=(T, WIDE_C)), 0.25)
 
 
+@pytest.fixture(scope="module")
+def wide_runs(wide):
+    """The JAX op's forward outputs and gradients and the port's forward
+    outputs at C = 72, per case."""
+    res = {}
+    for case, (cd, xd) in CASES.items():
+        params, jx, tx = _inputs(wide, xd)
+
+        def jloss(p):
+            return jax_fused(p, jx, LAMBDA, WIDE_H_EXP, compute_dtype=JDT[cd], **JTILES)
+
+        tout = fused_gated_sae.fused_gated_sae_loss_terms(
+            convert.sae_params_from_jax(params), tx, LAMBDA, WIDE_H_EXP, compute_dtype=TDT[cd])
+        res[case] = (jloss(params), jax.grad(lambda p: jloss(p)["loss"])(params), tout)
+    return res
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_jax_at_a_coder_width(wide_runs, case):
+    """test_forward_matches_jax at C = 72, a width only the coder bodies take
+    (the bf16 forward's route on the card: recon and via_gate held together)."""
+    jout, _, tout = wide_runs[case]
+    _assert_forward_matches(jout, tout, case)
+
+
 def _route_grads(params, tx, cd):
     """Parameter gradients of rec + λ·l1 + aux through the forward's plain
     version and the bf16 backward route's (gated_bwd_tc_plain: centre,
@@ -278,7 +326,7 @@ def _route_grads(params, tx, cd):
 
 @pytest.mark.parametrize("width", ["C64", "C72"])
 @pytest.mark.parametrize("case", list(CASES))
-def test_bf16_route_plain_matches_jax(runs, setup, wide, case, width):
+def test_bf16_route_plain_matches_jax(runs, setup, wide, wide_runs, case, width):
     """The plain version of the tensor-core backward route (centre → pre-pass →
     gated epilogue) against the JAX op's gradients in interpret mode, in f32
     and bf16, with test_gradients_match_jax's tolerances; also at C = 72, a
@@ -288,9 +336,8 @@ def test_bf16_route_plain_matches_jax(runs, setup, wide, case, width):
         jgrad = runs[case][1]
         params, _, tx = _inputs(setup, xd)
     else:
-        params, jx, tx = _inputs(wide, xd)
-        jgrad = jax.grad(lambda p: jax_fused(p, jx, LAMBDA, WIDE_H_EXP, compute_dtype=JDT[cd],
-                                             **JTILES)["loss"])(params)
+        jgrad = wide_runs[case][1]
+        params, _, tx = _inputs(wide, xd)
     tgrad = _route_grads(params, tx, TDT[cd])
     for k in KEYS:
         ref = np.asarray(jgrad[k])

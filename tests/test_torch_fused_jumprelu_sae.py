@@ -118,9 +118,7 @@ def runs(setup):
     return res
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_forward_matches_jax(runs, case):
-    jout, _, tout, _ = runs[case]
+def _assert_forward_matches(jout, tout, case):
     rtol = 1e-5 if case == "f32" else 1e-4
     for k in ("loss", "rec_loss", "l0_loss", "l1_loss", "aux_loss", "nrmse_loss", "rmse_loss"):
         np.testing.assert_allclose(float(tout[k].detach()), float(jout[k]), rtol=rtol, err_msg=k)
@@ -131,6 +129,12 @@ def test_forward_matches_jax(runs, case):
                                   np.asarray(jout["activity_freq"]))
     np.testing.assert_allclose(float(tout["sparsity"]), float(jout["sparsity"]), rtol=1e-6)
     assert bool(jout["dead"][:16].all()) and not bool(jout["dead"].all())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_jax(runs, case):
+    jout, _, tout, _ = runs[case]
+    _assert_forward_matches(jout, tout, case)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -217,15 +221,33 @@ def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
 @pytest.mark.parametrize("t,h,c,fuse,bwd", [
     (32768, 16384, 256, True, True), (512, 1024, 128, True, True),
     (128, 128, 64, True, True), (64, 64, 64, False, False),  # T, H multiples of 128
-    (8192, 4096, 832, False, True), (1152, 640, 72, False, True),  # any width of 8
+    (8192, 4096, 832, True, True), (1152, 640, 72, True, True),  # any width of 8
     (512, 1024, 76, False, False), (512, 1088, 256, False, False),
 ])
 def test_bf16_backward_takes_the_coder_bodies_widths(t, h, c, fuse, bwd):
     """In bf16 the backward runs the coder body (T and H multiples of 128, C of
-    8); can_fuse still asks the forward's SIMT widths too."""
+    8), and so does the forward: can_fuse asks both rules, the same in bf16."""
     assert fused_jumprelu_sae.bwd_takes(t, h, c, torch.bfloat16) is bwd
     assert fused_jumprelu_sae.can_fuse(t, h, c, torch.bfloat16) is fuse
     assert fused_jumprelu_sae.can_fuse(t, h, c, "bfloat16") is fuse
+
+
+@pytest.mark.parametrize("dtype,t,h,c,ok", [
+    # bf16: the coder bodies' rule, T and H multiples of 128, C of 8
+    ("bfloat16", 32768, 16384, 256, True), ("bfloat16", 8192, 4096, 832, True),
+    ("bfloat16", 32768, 16384, 1024, True), ("bfloat16", 1152, 640, 72, True),
+    ("bfloat16", 512, 1024, 76, False), ("bfloat16", 64, 64, 64, False),
+    ("bfloat16", 512, 1088, 256, False),
+    # f32: the SIMT body's, C in SUPPORTED_C, T a multiple of 64, H of 64
+    ("float32", 32768, 16384, 256, True), ("float32", 64, 64, 64, True),
+    ("float32", 8192, 4096, 832, False), ("float32", 512, 1024, 72, False),
+    ("float32", 32, 64, 64, False), ("float32", 512, 1000, 256, False),
+])
+def test_fwd_takes_states_each_routes_rule(dtype, t, h, c, ok):
+    """The forward takes the coder bodies' widths in bf16 and the SIMT body's
+    in f32; the dtype is a torch dtype or RunConfig's name."""
+    assert fused_jumprelu_sae.fwd_takes(t, h, c, dtype) is ok
+    assert fused_jumprelu_sae.fwd_takes(t, h, c, TDT[dtype]) is ok
 
 
 @pytest.mark.parametrize("t", [128, 1152])
@@ -252,6 +274,34 @@ WIDE_C, WIDE_H_EXP = 72, 16  # a width outside the SIMT bodies' {64, 128, 256}; 
 @pytest.fixture(scope="module")
 def wide():
     return _make_setup(WIDE_C, WIDE_H_EXP)
+
+
+@pytest.fixture(scope="module")
+def wide_forwards(wide):
+    """The JAX op's and the port's forward outputs at C = 72, per case, with
+    W_dec on the 1/256 grid as well: the f32 decode over 1,152 latents is then
+    exact in both packages, whose sums run in other orders (at random W_dec
+    they differ by ~2e-6 on entries near 0, past test_forward_matches_jax's
+    atol of 1e-6)."""
+    params, x = wide
+    params = {**params, "W_dec": _grid(params["W_dec"], 2.0 ** -8)}
+    res = {}
+    for case, (cd, xd) in CASES.items():
+        _, jx, tx = _inputs((params, x), xd)
+        jout = jax_fused(params, jx, LAMBDA, WIDE_H_EXP, compute_dtype=JDT[cd], **JTILES)
+        tout = fused_jumprelu_sae.fused_jumprelu_sae_loss_terms(
+            convert.sae_params_from_jax(params), tx, LAMBDA, WIDE_H_EXP, compute_dtype=TDT[cd],
+            bandwidth=EPS)
+        res[case] = (jout, tout)
+    return res
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_jax_at_a_coder_width(wide_forwards, case):
+    """test_forward_matches_jax at C = 72, a width only the coder bodies take
+    (the bf16 forward's route on the card)."""
+    jout, tout = wide_forwards[case]
+    _assert_forward_matches(jout, tout, case)
 
 
 def _route_grads(params, tx, cd):
