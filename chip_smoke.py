@@ -6,7 +6,9 @@
 Phases, in order; a phase that fails raises and the script exits non-zero:
   1. device:  require CUDA; print the card's name and power limit (nvidia-smi).
   2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc, one
-              process per source, all started together.
+              process per source, all started together; print each
+              instantiation's registers (the forwards' beside their count
+              before the dx route joined them) and fail on any spill.
   3. kernels: hold each kernel against its plain PyTorch version on the card at
               the training shape (SAEs: T=32768 tokens, C=256, H=16384 latents,
               the Matryoshka prefixes ending at 1024, 4096 and 16384; the
@@ -19,7 +21,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               C=480 and C=832 (T=8192, H=4096, prefixes 1024/2048/4096; a
               Matryoshka backward whose levels' errors differ, prefixes
               128/1024/4096), their bf16 launches must repeat bitwise, 20 at
-              C=832 (the in-place forward), and each is timed there; so are
+              C=832 (the in-place forward), and each is timed there, the two
+              dx entry points too (above C=256 the dx route of the in-place
+              body; 20 bitwise-equal ReLU dx launches at 832); so are
               the bf16 JumpReLU and gated forwards and backwards (the coder
               bodies' Act::Jump and Act::Gated epilogues; the gated forward's
               two launches, Act::GatedEnc and Act::GatedPi, above C=256), also
@@ -33,9 +37,12 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               on a repeat launch.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
-              sae_mlp and Matryoshka ops' input gradients too (the only launches
-              of the two dx kernels: training treats activations as data).
-  5. slice:   Pipeline.train_sae on the north-star config (GoogLeNet mixed3a,
+              sae_mlp and Matryoshka ops' input gradients too.
+  5. dx:      the dx kernels' path (training treats activations as data): the
+              sae_mlp and Matryoshka ops with compute_dx=True at the training
+              shape in bf16 through torch.autograd, one launch each of forward,
+              backward and dx, x's gradient held to the plain dx.
+  6. slice:   Pipeline.train_sae on the north-star config (GoogLeNet mixed3a,
               16,384 latents, bf16 cache, 12 steps of 32,768 tokens) for sae_mlp
               (measurement resets at steps 4 and 12, a resample at step 9), then
               gated_sae, jumprelu_sae and matryoshka_sae (the rolling dead window
@@ -118,9 +125,9 @@ KERNELS = tuple(k for m in MODULES.values() for k in m.KERNELS)
 CODER = "sparse_vision_tpu_torch/csrc/coder.cuh"
 SOURCES = {
     "fused_sae_fwd": CODER, "fused_sae_bwd": CODER,
-    "fused_sae_dx": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
+    "fused_sae_dx": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Relu, true> (kDx)
     "fused_matryoshka_sae_fwd": CODER, "fused_matryoshka_sae_bwd": CODER,
-    "fused_matryoshka_sae_dx": "sparse_vision_tpu_torch/csrc/fused_sae.cu",
+    "fused_matryoshka_sae_dx": CODER,
     "fused_jumprelu_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Jump>
     "fused_jumprelu_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Jump>
     "fused_gated_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Gated>
@@ -202,11 +209,37 @@ def phase_build() -> None:
         for ln in ptxas:
             log(f"[build]   {ln}")
         for kernel, regs, spill in _ptxas_kernels(b["log"]):
-            log(f"[build]   {regs} registers, {spill} spill bytes: {kernel}")
+            before = REGISTERS_BEFORE_DX.get(re.sub(r"^(coder_fwd\w*<.*), false>$", r"\1>", kernel))
+            note = "" if before is None else (
+                f" (before the dx route: {before}{'' if before == regs else ', moved'})")
+            log(f"[build]   {regs} registers, {spill} spill bytes: {kernel}{note}")
         spills = [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
         if spills:
             raise AssertionError(f"{name}: ptxas reports register spills: {spills}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+
+
+# ptxas registers of the coder family's instantiations before the dx route
+# (kDx) joined the forward bodies (nvcc 12.8, sm_90a; this script's build phase
+# on an H100 host). The build phase prints each kDx = false instantiation
+# beside its count here: the dx route leaves them as they were.
+REGISTERS_BEFORE_DX = {
+    "coder_fwd_kernel<float, true>": 122, "coder_fwd_kernel<float, false>": 181,
+    "coder_fwd_tc<true, Act::Relu>": 255, "coder_fwd_tc<false, Act::Relu>": 247,
+    "coder_fwd_tc_hold<512, true, Act::Relu>": 255,
+    "coder_fwd_tc_hold<512, false, Act::Relu>": 254,
+    "coder_fwd_tc_hold<256, true, Act::Relu>": 225,
+    "coder_fwd_tc_hold<256, false, Act::Relu>": 218,
+    "coder_fwd_tc<false, Act::Jump>": 251, "coder_fwd_tc_hold<512, false, Act::Jump>": 255,
+    "coder_fwd_tc_hold<256, false, Act::Jump>": 226,
+    "coder_fwd_tc<false, Act::GatedEnc>": 246,
+    "coder_fwd_tc_hold<512, false, Act::GatedEnc>": 254,
+    "coder_fwd_tc<false, Act::GatedPi>": 192, "coder_fwd_tc_hold<512, false, Act::GatedPi>": 248,
+    "coder_fwd_tc_hold<256, false, Act::Gated>": 255,
+    "coder_bwd_kernel<float, true>": 197, "coder_bwd_kernel<float, false>": 189,
+    "coder_bwd_tc<true, Act::Relu>": 251, "coder_bwd_tc<false, Act::Relu>": 254,
+    "coder_bwd_tc<true, Act::Jump>": 248, "coder_bwd_tc<true, Act::Gated>": 254,
+}
 
 
 def _ptxas_kernels(ptxas_log: str) -> list:
@@ -551,26 +584,46 @@ def _relu_exact_operands(cd):
     return x.to(cd), we.to(cd), be, params["W_dec"].to(cd).contiguous(), bd
 
 
+def _dx_check(mod, tag: str, cd, dops, repeats: int = 2, label: str = ""):
+    """The dx entry point of the SAE op ``mod`` (fused_sae or
+    fused_matryoshka_sae) on (x_cent, W_enc, b_enc, W_dec, err or S, coeffs[,
+    boundaries]) against its plain version; in bf16 ``repeats`` launches must
+    agree bitwise. Returns (plain dx, max abs err)."""
+    kern = mod.dx_kernel
+    plain = mod.fused_sae_dx_plain if mod is fused_sae else mod.fused_matryoshka_dx_plain
+    dx_k = kern(*dops)
+    dx_p = plain(*dops)
+    torch.cuda.synchronize()
+    log(f"[kernels] {kern.name} [{tag}{label}] vs plain")
+    if cd == torch.bfloat16:
+        for _ in range(repeats - 1):
+            _repeatable(kern.name, (dx_k,), (kern(*dops),))
+        if repeats > 2:
+            log(f"[kernels]   {kern.name}: {repeats} launches bitwise equal")
+    if not bool(torch.isfinite(dx_k).all()):
+        raise AssertionError(f"{kern.name}: non-finite dx")
+    return dx_p, _check("dx", dx_k, dx_p, 1e-3, 1e-4)
+
+
+def _dx_library(x_cent, we, wd, dr):
+    """The stock path's three cuBLAS products of dx (encode, dpost, the product
+    with W_enc^T), as one call; dr is the rounded cotangent of level 0."""
+    post = torch.relu(x_cent @ we)  # a [T, H] operand of the stock path's shapes
+    return lambda: (x_cent @ we, dr @ wd.T, post @ we.T)
+
+
 def kernels_relu_dx(cd, tag: str) -> dict:
     ops = _relu_exact_operands(cd)
-    x, we, _, wd, bd = ops
+    x, we, be, wd, bd = ops
     res = (fused_sae.fused_sae_forward_plain(*ops)[0] - x.float()).to(cd)
     coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device=DEVICE)
-    dops = ops + (res, coeffs)
-    dx_k = fused_sae.dx_kernel(*dops)
-    dx_p = fused_sae.fused_sae_dx_plain(*dops)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_sae_dx [{tag}] vs plain")
-    err = _check("dx", dx_k, dx_p, 1e-3, 1e-4)
-    del dx_k
-    xc = x - bd.to(cd)
-    post = torch.relu(xc @ we).to(cd)  # a [T, H] operand of the stock path's shapes
+    dops = (x - bd.to(cd), we, be, wd, res, coeffs)  # x_cent, as the forward saves it
+    dx_p, err = _dx_check(fused_sae, tag, cd, dops)
     dr = (coeffs[0] * res.float()).to(cd)
     return {"fused_sae_dx": _measure(
         "fused_sae_dx", tag, cd, lambda: fused_sae.dx_kernel(*dops),
-        lambda: fused_sae.fused_sae_dx_plain(*dops),
-        lambda: (xc @ we, dr @ wd.T, post @ we.T), 6.0 * T * C * H,
-        nbytes(*dops) + nbytes(dx_p), err)}
+        lambda: fused_sae.fused_sae_dx_plain(*dops), _dx_library(dops[0], we, wd, dr),
+        6.0 * T * C * H, nbytes(*dops) + nbytes(dx_p), err)}
 
 
 def _suffix_error(prefix_recon, x, cd):
@@ -608,18 +661,12 @@ def kernels_matryoshka(cd, tag: str) -> dict:
         lambda: fm.fused_matryoshka_backward_plain(*ops, s, coeffs, bounds),
         lambda: (xc @ we, dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
 
-    bops = ops + (s, coeffs, bounds)
-    dx_k = fm.dx_kernel(*bops)
-    dx_p = fm.fused_matryoshka_dx_plain(*bops)
-    torch.cuda.synchronize()
-    log(f"[kernels] fused_matryoshka_sae_dx [{tag}] vs plain")
-    err = _check("dx", dx_k, dx_p, 1e-3, 1e-4)
-    del dx_k
+    bops = (x_cent, we, ops[2], wd, s, coeffs, bounds)
+    dx_p, err = _dx_check(fm, tag, cd, bops)
     rows["fused_matryoshka_sae_dx"] = _measure(
         "fused_matryoshka_sae_dx", tag, cd, lambda: fm.dx_kernel(*bops),
-        lambda: fm.fused_matryoshka_dx_plain(*bops),
-        lambda: (xc @ we, dr @ wd.T, post @ we.T), 6.0 * T * C * H,
-        nbytes(*bops[:-1]) + nbytes(dx_p), err)
+        lambda: fm.fused_matryoshka_dx_plain(*bops), _dx_library(x_cent, we, wd, dr),
+        6.0 * T * C * H, nbytes(*bops[:-1]) + nbytes(dx_p), err)
     return rows
 
 
@@ -636,9 +683,11 @@ def kernels_sae_widths(cd, tag: str) -> dict:
     2,048 / 4,096) on _exact_inputs' grid against their plain references, and a
     Matryoshka backward whose levels' errors differ, with prefixes 128 / 1,024 /
     4,096: two level-0 blocks must sum all 16 steps' direct db_dec rows from
-    S_0. In bf16, REPEATS launches of the C = 832 forward (coder_fwd_tc) must
-    agree bitwise, and each op is timed. No rows: the kernels line keeps the
-    main path's."""
+    S_0; the dx entry points of both (above C = 256 the dx route of the
+    in-place coder_fwd_tc), the Matryoshka one on both sets of levels. In bf16,
+    REPEATS launches of the C = 832 forward (coder_fwd_tc) and of the ReLU dx
+    there must agree bitwise, and each op is timed. No rows: the kernels line
+    keeps the main path's."""
     fm = fused_matryoshka_sae
     for c in W_WIDTHS:
         gen = torch.Generator(device=DEVICE).manual_seed(c)
@@ -671,6 +720,12 @@ def kernels_sae_widths(cd, tag: str) -> dict:
             for e in (-13, -17, -20)]).to(cd)
         _sae_bwd_check(fm, tag, cd, ops, x_cent, s_diff, m_coeffs, (lv,),
                        label=f"{label}, levels {lv} with differing errors")
+        dops = (x_cent, *ops[1:4], res, coeffs)
+        _dx_check(fused_sae, tag, cd, dops, REPEATS if c > 512 else 2, label)
+        mops = (x_cent, *ops[1:4], s, m_coeffs, W_BOUNDS)
+        _dx_check(fm, tag, cd, mops, label=label)
+        _dx_check(fm, tag, cd, (x_cent, *ops[1:4], s_diff, m_coeffs, lv),
+                  label=f"{label}, levels {lv} with differing errors")
         if cd == torch.bfloat16:
             xc = x_cent
             post = torch.relu(xc @ ops[1]).to(cd)
@@ -693,7 +748,13 @@ def kernels_sae_widths(cd, tag: str) -> dict:
                                                           W_BOUNDS),
                      lambda: fm.fused_matryoshka_backward_plain(*ops, s, m_coeffs, W_BOUNDS),
                      lambda: (xc @ ops[1], s[0] @ ops[3].T, xc.T @ post, post.T @ s[0]),
-                     2 * fl)):
+                     2 * fl),
+                    ("fused_sae_dx", lambda: fused_sae.dx_kernel(*dops),
+                     lambda: fused_sae.fused_sae_dx_plain(*dops),
+                     _dx_library(xc, ops[1], ops[3], dr), 1.5 * fl),
+                    ("fused_matryoshka_sae_dx", lambda: fm.dx_kernel(*mops),
+                     lambda: fm.fused_matryoshka_dx_plain(*mops),
+                     _dx_library(xc, ops[1], ops[3], s[0]), 1.5 * fl)):
                 _measure(name, f"{tag}, C={c} T={W_T} H={W_H}", cd, kern, plain, lib, flops,
                          0, 0.0)
         torch.cuda.empty_cache()
@@ -1036,6 +1097,67 @@ def phase_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+# dx phase
+# ---------------------------------------------------------------------------
+
+def phase_dx() -> dict:
+    """The dx kernels' path: the input gradient that attribution through a
+    spliced SAE takes, fused_sae_loss_terms and the Matryoshka op with
+    compute_dx=True at the training shape in bf16, through torch.autograd, on
+    _relu_exact_operands' grid. Every count is set to 0 just before each op and
+    read just after: the op must launch its forward, backward and dx kernels
+    once each and no other kernel, and x's gradient must be finite and within
+    the dx check's tolerance of the dx entry point's plain version on the
+    operands the op saved. Returns the dx kernels' launches."""
+    set_tf32(False)
+    bf, fm = torch.bfloat16, fused_matryoshka_sae
+    x, we, be, wd, bd = _relu_exact_operands(torch.float32)
+    params = {"W_enc": we, "b_enc": be, "W_dec": wd, "b_dec": bd}
+    saved = (x.to(bf) - bd.to(bf), we.to(bf), be, wd.to(bf))  # x_cent and the cast weights
+    bounds = matryoshka_prefix_counts(H, DEFAULT_MATRYOSHKA_PREFIXES)
+    launches = {}
+    for mod in (fused_sae, fm):
+        for k in KERNELS:
+            k.launches = 0
+        xx = x.clone().requires_grad_(True)
+        if mod is fused_sae:
+            out = fused_sae.fused_sae_loss_terms(params, xx, LAMBDA, H // C, compute_dtype=bf,
+                                                 compute_dx=True)
+        else:
+            out = fm.fused_matryoshka_sae_loss_terms(params, xx, LAMBDA, H // C,
+                                                     compute_dtype=bf, compute_dx=True)
+        (gx,) = torch.autograd.grad(out["loss"], [xx])
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in KERNELS}
+        log(f"[dx] {mod.dx_kernel.name}: compute_dx=True at T={T} C={C} H={H} (bf16); "
+            f"launches {got}")
+        want = {k.name: int(k in mod.KERNELS) for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"dx phase: expected launches {want}, got {got}")
+        if not bool(torch.isfinite(gx).all()):
+            raise AssertionError(f"dx phase: non-finite x gradient ({mod.dx_kernel.name})")
+        launches[mod.dx_kernel.name] = got[mod.dx_kernel.name]
+        # the plain dx on what the op saved: its error in bf16 and (c_rec, c_l1)
+        # from the loss's cotangents, 1 for the reconstruction term (1/P per
+        # prefix) and λ for l1
+        if mod is fused_sae:
+            err = (out["decoded"] - x).to(bf)
+            coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device=DEVICE)
+            ref = fused_sae.fused_sae_dx_plain(*saved, err, coeffs)
+        else:
+            prefix_recon = fm.fused_matryoshka_forward(x.to(bf), saved[1], be, saved[3], bd,
+                                                       bounds)[1]
+            g = torch.full((len(bounds),), 1.0 / len(bounds), device=DEVICE) * (2.0 / (T * C))
+            s = (g[:, None, None] * (prefix_recon - x[None])).flip(0).cumsum(0).flip(0).to(bf)
+            coeffs = torch.tensor([1.0, LAMBDA / (T * H)], device=DEVICE)
+            ref = fm.fused_matryoshka_dx_plain(*saved, s, coeffs, bounds)
+        _check("x.grad vs plain dx", gx, ref, 1e-3, 1e-4)
+        del out, gx, ref
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
 
@@ -1179,7 +1301,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_parity()
-    launches = {}
+    launches = phase_dx()
     for name in SLICES:
         launches.update(phase_slice(name, args.profile))
     kernels = [

@@ -1,10 +1,11 @@
 // The coder body family for Hopper (sm_90a): forward and backward of a ReLU
-// dictionary that encodes x [T, Cin] and decodes into [T, Cout]. Included by
+// dictionary that encodes x [T, Cin] and decodes into [T, Cout], and the SAEs'
+// input gradient (dx) as a route of the forward bodies. Included by
 // fused_transcoder.cu (the transcoder and crosscoder ops) and fused_sae.cu (the
 // ReLU and Matryoshka SAE ops), whose C entry points call coder_fwd / coder_bwd
-// at the end of this file, and by fused_jumprelu_sae.cu and fused_gated_sae.cu,
-// whose bf16 forwards and backwards call fwd_tc / bwd_tc with variant
-// epilogues (kAct, below).
+// at the end of this file (and fused_sae.cu's sae_dx launches the dx route),
+// and by fused_jumprelu_sae.cu and fused_gated_sae.cu, whose bf16 forwards and
+// backwards call fwd_tc / bwd_tc with variant epilogues (kAct, below).
 //
 // Replaces these Pallas TPU kernels (sparse_vision_tpu/ops/):
 //   forward  <- fused_transcoder.py _fwd_kernel (:41), pallas_call :227
@@ -19,6 +20,8 @@
 //               fused_matryoshka_sae.py _bwd_kernel (:155), pallas_call :371
 //               fused_jumprelu_sae.py _bwd_kernel (:80), pallas_call :248 (bf16)
 //               fused_gated_sae.py _bwd_kernel (:98), pallas_call :292 (bf16)
+//   dx       <- fused_sae.py _dx_kernel (:168), pallas_call :422
+//               fused_matryoshka_sae.py _dx_kernel (:227), pallas_call :404
 // The ops differ in their L1 statistic, so one body pair serves all: the forward
 // always emits per-latent sums of post (zsum partials; a scalar sum of post is
 // their total) and the backward always takes a per-latent L1 cotangent ct [H]
@@ -62,10 +65,24 @@
 //     Backward (coder_bwd_tc's note): Jump and Gated read err already scaled
 //     and rounded by scale_err_kernel (their ops save f32 errors and the Pallas
 //     kernels round c * err once, before the product).
+//   kDx (the forward bodies, Act::Relu, no kPrefix; both SAEs): recon is dx
+//     [T, C] and err is S [P, T, C], one level for the ReLU SAE (operands in
+//     DxFwd; TcFwd for coder_fwd_tc). A dx block is a forward block with
+//     three changes: its encode is followed by a second product, dpost =
+//     round_T(c_rec * err) @ W_dec tile^T (err rows of the group's level;
+//     groups end at every level boundary), pre having been reduced to its
+//     mask bits (pre_mask); its epilogue writes round_T(dpre) where the forward
+//     writes round_T(post) (dpre_epilogue); and its decode reads W_enc tiles as
+//     the K-major B of round_T(dpre) @ W_enc tile^T where the forward reads
+//     W_dec. No statistics; the first group (coder_fwd_tc, coder_fwd_kernel)
+//     or the final store (coder_fwd_tc_hold) adds -c_rec * err_0 in f32. In
+//     the bf16 bodies dpost has accumulators of its own: written into the
+//     encode's, whose results were read just before, the products raced on the
+//     card (wrong rows, bits that differed between launches).
 //
 // The bodies, chosen by the operand type:
-//   bf16 (the training path): coder_fwd_tc_hold (Cout <= 512; recon held in
-//     registers, 256 or 512 columns by a template width; 148,800 bytes of
+//   bf16 (the training path): coder_fwd_tc_hold (Cout <= 512; recon or dx held
+//     in registers, 256 or 512 columns by a template width; 148,800 bytes of
 //     shared memory), coder_fwd_tc (wider: the crosscoder, SAEs at C 528-1,024;
 //     230,960 bytes) and coder_bwd_tc, 256 threads = two warpgroups, up to 255
 //     registers a thread and no spills (chip_smoke.py's build phase checks).
@@ -73,9 +90,10 @@
 //     wgmma.mma_async m64n64k16 (bf16 in, f32 accumulators in registers), B
 //     always and A mostly read straight from shared memory through wgmma
 //     descriptors; where an operand is round_bf16(c_rec * err), A comes from
-//     registers instead (ldmatrix, scaled and rounded there), so err streams
-//     as it is stored. Operands arrive by TMA (cp.async.bulk.tensor.2d, boxes
-//     of [64 or 32 rows][64 columns] in the 128-byte swizzle that wgmma reads)
+//     registers instead (ldmatrix, scaled and rounded there: scaled_frags and
+//     coder_bwd_tc's err_frags), so err streams as it is stored. Operands
+//     arrive by TMA (cp.async.bulk.tensor.2d, boxes of [64 or 32 rows][64
+//     columns] in the 128-byte swizzle that wgmma reads)
 //     into a ring of 3 or 4 slots guarded by mbarriers: a full barrier per
 //     slot counts the TMA bytes, an empty barrier the eight warps that have
 //     finished with it. Thread 0 issues the stream kSt - 1 tiles ahead, each
@@ -89,16 +107,16 @@
 //     No separate producer warp: a block of 9 or 12 warps gets 168 registers a
 //     thread (each SM's four register banks hold 16,384 each), setmaxnreg did
 //     not raise the consumers' budget under nvcc 12.8, and the bodies spilled.
-//   f32 (the check path): coder_fwd_kernel<float> and coder_bwd_kernel<float>,
-//     the SIMT FMA bodies of the first port (TF32 would miss the f32
-//     tolerances). Any positive width.
+//   f32 (the check path): coder_fwd_kernel<float> (with the dx route) and
+//     coder_bwd_kernel<float>, the SIMT FMA bodies of the first port (TF32
+//     would miss the f32 tolerances). Any positive width.
 //
 // What bounds them. At the transcoder's training shape (T = 32,768, H = 16,384,
 // 256 -> 480) the forward is 2*T*H*(Cin+Cout) = 0.79 TFLOP and the backward twice
 // that; at the crosscoder's (T = 16,384, H = 8,192, Cin = Cout = 2,896) 1.55 and
 // 3.1 TFLOP; at the SAEs' (T = 32,768, C = 256, H = 16,384) 0.55 and 1.1 TFLOP
-// (the gated SAE's 0.82 and 1.4): 0.6-3.1 ms at the 989 TFLOP/s of bf16 tensor
-// cores. Operands are ~0.05-0.2 GB
+// (the gated SAE's 0.82 and 1.4, the SAEs' dx 6*T*C*H = 0.82): 0.6-3.1 ms at
+// the 989 TFLOP/s of bf16 tensor cores. Operands are ~0.05-0.2 GB
 // (0.02-0.13 ms at 3.35 TB/s; ~0.15 GB more with the Matryoshka prefix
 // reconstructions): bounded by arithmetic as long as the [T, H] latent matrix
 // never reaches device memory.
@@ -115,7 +133,15 @@
 //     in the epilogue, then recon += post_s @ W_dec. Each block streams all of
 //     W_enc and W_dec (24 MB at the transcoder's shape, 16 MB at the SAE's)
 //     through L2. Act::Gated holds via [64, 256] beside recon and fills pi_s
-//     [64, 128] beside post_s; each W_dec tile feeds both decodes.
+//     [64, 128] beside post_s; each W_dec tile feeds both decodes. kDx (C <=
+//     256: W = 256 only) holds dx [64, 256] as recon and writes it once
+//     (T*C*4 bytes, 32 MB at the SAE's shape); per group the stream adds err
+//     [64, C] and W_dec [128, C] (dpost, A from registers), and the decode's
+//     tiles are W_enc [256, 128] (each warpgroup's 128 columns, 64 at a time):
+//     each block streams W_enc twice and W_dec once, 24 MB at the SAE's shape,
+//     through L2. dx's 64 floats a thread, dpost's accumulators (32) and its A
+//     fragments (16) are live together, pre only as 32 mask bits; at W = 512
+//     (128 floats of dx) that spilled, so 256 < C <= 512 takes coder_fwd_tc.
 //   coder_fwd_tc: recon [128, 2,896] f32 (1.5 MB) does not fit. A block owns 128
 //     tokens (64 per warpgroup) and sweeps the latents in groups of up to 512:
 //     up to four encode sub-tiles pre [128, 128] fill post_s [128, 512], then
@@ -123,7 +149,12 @@
 //     Groups end at skew + 512k, skew = 128 * (block % 4), so that the blocks'
 //     updates do not all fall at once. recon is updated about H/512 times:
 //     ~(2H/512 + 1)*T*Cout*4 bytes, 6.2 GB (1.8 ms at 3.35 TB/s) for the
-//     crosscoder.
+//     crosscoder. kDx updates dx [128, C] in place the same way (groups also
+//     end at level boundaries): per 128-latent sub-tile the stream adds err
+//     [128, 64] and W_dec [128, 64] per 64 channels after the encode's tiles,
+//     round_bf16(dpre) fills post_s, and the decode reads W_enc [128, 64]
+//     tiles (K-major); ~(2H/512 + 1)*T*C*4 bytes of updates, 7.1 GB (2.1 ms) at
+//     C 832, T 32,768, H 16,384 against 2.7 TFLOP (2.7 ms) of products.
 //   coder_bwd_tc: dW_enc and dW_dec of a 64-latent block (1.5 MB for the
 //     crosscoder) do not fit. A block owns 64 latents and sweeps the tokens in
 //     steps of 512. Per step: A. for each 128 tokens (64 per warpgroup), pre and
@@ -145,6 +176,7 @@
 //   dpost  = round_T(drecon) @ W_dec^T + ct     dpre = pre > 0 ? dpost : 0
 //   dW_enc = x^T @ round_T(dpre)    db_enc = sum_t dpre
 //   dW_dec = round_T(post)^T @ round_T(drecon)    db_dec = sum_t drecon
+//   dx     = sum_j round_T(dpre_j) @ W_enc_j^T - drecon_0    (kDx; f32)
 // Cross-block sums (activity counts, zsum) leave as per-64-token partials that
 // the caller reduces; db_dec, which does not depend on the latents, leaves as
 // partials too: two over alternate token rows from block 0 (f32), one per
@@ -193,6 +225,40 @@ constexpr size_t fwd_smem_bytes() {
          + sizeof(int) * (16 * kFwdLG + kFwdTT);   // ccnt_s, rcnt_s
 }
 
+// The dx route's operands (kDx; header note), an empty struct in the forward:
+// the trailing parameter of coder_fwd_tc_hold and coder_fwd_kernel. m_err maps
+// err for the bf16 body's TMA.
+template <bool kDx>
+struct DxFwd {};
+template <>
+struct DxFwd<true> {
+  CUtensorMap m_err;    // err [P * T, Cout] bf16, boxes [64][64]
+  const float* coeffs;  // (c_rec, c_l1) on the device
+  const void* err;      // err in the operand type: level q's rows from q * T
+};
+
+// The JumpReLU and gated SAEs' per-latent operands of the bf16 forward (kAct),
+// and the gated two-output body's second output.
+struct ActFwd {
+  const float* theta;  // Jump: exp(log_threshold) [H]
+  const float* b_mag;  // Gated*: [H]
+  const float* er;     // Gated*: exp(r_mag) [H]
+  float* via;          // Gated: via_gate [T, Cout] f32
+};
+
+// coder_fwd_tc's operands beyond the coder's: ActFwd, and the dx route's
+// (kDx; DxFwd's fields), in one grid-constant parameter. The register-held and
+// SIMT bodies take ActFwd and a trailing DxFwd instead. These are the layouts
+// that leave every other instantiation's registers as they were: a trailing
+// parameter on coder_fwd_tc moved coder_fwd_tc<false, Act::Jump>'s, and the
+// dx fields in the held body's ActFwd made the gated one spill.
+struct TcFwd {
+  CUtensorMap m_err;    // kDx: as DxFwd's
+  ActFwd act;
+  const float* coeffs;  // kDx
+  const void* err;      // kDx
+};
+
 // Forward. One block owns kFwdTT tokens and sweeps the latents in groups of
 // kFwdLG. Per group: pre [64, 128] by a K-loop over the input channels (rows
 // ty*4+i, columns tx+16*j), post into shared memory with the group's
@@ -201,14 +267,18 @@ constexpr size_t fwd_smem_bytes() {
 // into recon in device memory by the thread that owns those elements (kPrefix:
 // recon's last slice, copied into the slice of a prefix that ends with the
 // group).
-template <typename T, bool kPrefix>
+// kDx (recon is dx [T, C]): pre's mask stays as bits, a second K-loop over
+// the err channels (of the group's level) gives dpost in pre's registers,
+// round_T(dpre) takes post's place, and the decode reads W_enc^T; the first
+// group writes -c_rec * err_0 + acc, no statistics.
+template <typename T, bool kPrefix, bool kDx = false>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
                  const float* __restrict__ b_enc, const T* __restrict__ w_dec,
                  const float* __restrict__ b_dec, float* __restrict__ recon,
                  float* __restrict__ act_part, float* __restrict__ row_active,
                  float* __restrict__ zsum_part, int Cin, int Cout, int H,
-                 const svt::Levels lv) {
+                 const svt::Levels lv, const DxFwd<kDx> dxf) {
   constexpr int TT = kFwdTT, LG = kFwdLG, KC = kKC, NC = kFwdNC, LS = kFwdLS;
   constexpr int XS = KC + 1;  // padded row strides: rows 4 apart hit other banks
   constexpr int PS = LG + 1;
@@ -264,46 +334,93 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
       }
     }
 
-    // post, and the group's statistics: activity counts and zsum per latent
-    // (over this block's tokens), activity per token (over all latents)
-    int colc[8];
-    float zs[8];
+    if constexpr (kDx) {
+      // pre > 0 as bits; then dpost = round_T(c_rec * err) @ W_dec tile^T in
+      // pre's registers and round_T(dpre) into post_s
+      const float c_rec = dxf.coeffs[0], c_l1 = dxf.coeffs[1];
+      const T* e = static_cast<const T*>(dxf.err) +
+                   svt::level_of(lv, g0) * (static_cast<long>(gridDim.x) * TT * Cout);
+      uint32_t on = 0;  // bit 8i + j
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      colc[j] = 0;
-      zs[j] = 0.f;
-    }
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 8; ++j) {
+          on |= static_cast<uint32_t>(pre[i][j] + benc_s[tx + 16 * j] > 0.f) << (8 * i + j);
+          pre[i][j] = 0.f;
+        }
+      for (int k0 = 0; k0 < Cout; k0 += KC) {
+        __syncthreads();  // the previous chunk is done with xs, ws
+        for (int i = tid; i < TT * KC; i += kThreads) {
+          const int r = i / KC, k = k0 + i % KC;
+          xs[r * XS + i % KC] = k < Cout ? round_cd<T>(c_rec * to_f(e[(t0 + r) * Cout + k])) : 0.f;
+        }
+        for (int i = tid; i < KC * LG; i += kThreads) {  // W_dec rows, read along the channels
+          const int l = i / KC, kk = i % KC, k = k0 + kk;
+          ws[kk * LG + l] = k < Cout ? to_f(w_dec[static_cast<long>(g0 + l) * Cout + k]) : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int kk = 0; kk < KC; ++kk) {
+          float a[4], b[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = xs[(ty * 4 + i) * XS + kk];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) b[j] = ws[kk * LG + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) pre[i][j] = fmaf(a[i], b[j], pre[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          post_s[(ty * 4 + i) * PS + tx + 16 * j] =
+              round_cd<T>((on >> (8 * i + j)) & 1u ? pre[i][j] + c_l1 : 0.f);
+    } else {
+      // post, and the group's statistics: activity counts and zsum per latent
+      // (over this block's tokens), activity per token (over all latents)
+      int colc[8];
+      float zs[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int col = tx + 16 * j;
-        const float p = fmaxf(pre[i][j] + benc_s[col], 0.f);
-        const int on = p > 0.f;
-        colc[j] += on;
-        zs[j] += p;
-        rowc[i] += on;
-        post_s[(ty * 4 + i) * PS + col] = round_cd<T>(p);
+        colc[j] = 0;
+        zs[j] = 0.f;
       }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      zred_s[ty * LG + tx + 16 * j] = zs[j];
-      ccnt_s[ty * LG + tx + 16 * j] = colc[j];
-    }
-    __syncthreads();
-    for (int l = tid; l < LG; l += kThreads) {
-      float z = 0.f;
-      int c = 0;
-      for (int g = 0; g < 16; ++g) {  // fixed order
-        z += zred_s[g * LG + l];
-        c += ccnt_s[g * LG + l];
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = tx + 16 * j;
+          const float p = fmaxf(pre[i][j] + benc_s[col], 0.f);
+          const int on = p > 0.f;
+          colc[j] += on;
+          zs[j] += p;
+          rowc[i] += on;
+          post_s[(ty * 4 + i) * PS + col] = round_cd<T>(p);
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        zred_s[ty * LG + tx + 16 * j] = zs[j];
+        ccnt_s[ty * LG + tx + 16 * j] = colc[j];
       }
-      const long o = static_cast<long>(blockIdx.x) * H + g0 + l;
-      act_part[o] = static_cast<float>(c);
-      zsum_part[o] = z;
+      __syncthreads();
+      for (int l = tid; l < LG; l += kThreads) {
+        float z = 0.f;
+        int c = 0;
+        for (int g = 0; g < 16; ++g) {  // fixed order
+          z += zred_s[g * LG + l];
+          c += ccnt_s[g * LG + l];
+        }
+        const long o = static_cast<long>(blockIdx.x) * H + g0 + l;
+        act_part[o] = static_cast<float>(c);
+        zsum_part[o] = z;
+      }
     }
 
     // decode: recon[:, c0:c0+NC] += round_T(post) @ W_dec[g0:g0+LG, c0:c0+NC]
+    // (kDx: dx[:, c0:c0+NC] += round_T(dpre) @ W_enc[c0:c0+NC, g0:g0+LG]^T)
     float* snap = nullptr;  // kPrefix: the slice of a prefix that ends with this group
     if constexpr (kPrefix)
       if (g0 + LG < H && svt::ends_level(lv, g0 + LG))
@@ -316,9 +433,17 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       for (int l0 = 0; l0 < LG; l0 += LS) {
         __syncthreads();  // post_s is complete; the previous sub-tile is done with wd_s
-        for (int i = tid; i < LS * NC; i += kThreads) {
-          const int l = i / NC, col = c0 + i % NC;
-          wd_s[i] = col < Cout ? to_f(w_dec[static_cast<long>(g0 + l0 + l) * Cout + col]) : 0.f;
+        if constexpr (kDx) {
+          for (int i = tid; i < LS * NC; i += kThreads) {  // W_enc rows, read along the latents
+            const int col = c0 + i / LS, l = i % LS;
+            wd_s[l * NC + i / LS] =
+                col < Cout ? to_f(w_enc[static_cast<long>(col) * H + g0 + l0 + l]) : 0.f;
+          }
+        } else {
+          for (int i = tid; i < LS * NC; i += kThreads) {
+            const int l = i / NC, col = c0 + i % NC;
+            wd_s[i] = col < Cout ? to_f(w_dec[static_cast<long>(g0 + l0 + l) * Cout + col]) : 0.f;
+          }
         }
         __syncthreads();
 #pragma unroll 4
@@ -341,7 +466,14 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
           const int col = c0 + tx + 16 * j;
           if (col < Cout) {
             const long o = (t0 + ty * 4 + i) * Cout + col;
-            const float v = (g0 == 0 ? b_dec[col] : out[o]) + acc[i][j];
+            float init;
+            if constexpr (kDx)  // -c_rec * err_0 (f32, not rounded)
+              init = g0 == 0 ? -__fmul_rn(dxf.coeffs[0],
+                                          to_f(static_cast<const T*>(dxf.err)[o]))
+                             : out[o];
+            else
+              init = g0 == 0 ? b_dec[col] : out[o];
+            const float v = init + acc[i][j];
             out[o] = v;
             if constexpr (kPrefix)
               if (snap) snap[o] = v;
@@ -350,10 +482,12 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
     }
   }
 
+  if constexpr (!kDx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) atomicAdd(&rcnt_s[ty * 4 + i], rowc[i]);  // integer: exact
-  __syncthreads();
-  for (int i = tid; i < TT; i += kThreads) row_active[t0 + i] = static_cast<float>(rcnt_s[i]);
+    for (int i = 0; i < 4; ++i) atomicAdd(&rcnt_s[ty * 4 + i], rowc[i]);  // integer: exact
+    __syncthreads();
+    for (int i = tid; i < TT; i += kThreads) row_active[t0 + i] = static_cast<float>(rcnt_s[i]);
+  }
 }
 
 constexpr int kBufFloats = kBwdTB * (kBwdKB + 1);  // the larger of the three phases' buffers
@@ -372,15 +506,6 @@ constexpr size_t bwd_smem_bytes() {
 // family, the JumpReLU SAE's or the gated SAE's; GatedEnc and GatedPi are the
 // two halves of the gated forward's wide route (forward only).
 enum class Act { Relu, Jump, Gated, GatedEnc, GatedPi };
-
-// The JumpReLU and gated SAEs' per-latent operands of the bf16 forward (kAct),
-// and the gated two-output body's second output.
-struct ActFwd {
-  const float* theta;  // Jump: exp(log_threshold) [H]
-  const float* b_mag;  // Gated*: [H]
-  const float* er;     // Gated*: exp(r_mag) [H]
-  float* via;          // Gated: via_gate [T, Cout] f32
-};
 
 // The JumpReLU and gated SAEs' per-latent operands and outputs (kAct).
 struct ActBwd {
@@ -919,7 +1044,7 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t v, float c) {
 
 // Read-modify-write of a warp's accumulators, pair by pair: the pair of
 // acc[i][j][2h], acc[i][j][2h + 1] goes to at(i, h, j) (nullptr: past the width)
-// as init(i, j) + acc when ``first``, else as the stored pair + acc. Every read is
+// as init(i, h, j) + acc when ``first``, else as the stored pair + acc. Every read is
 // issued before the first write, so the reads overlap one another. A non-zero
 // ``copy`` (floats) also writes each new pair that far from its place.
 template <int MT, int NT, typename At, typename Init>
@@ -933,7 +1058,7 @@ __device__ __forceinline__ void update_pairs(const float (&acc)[MT][NT][4], At a
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const float2* o = at(i, h, j);
-        prev[i][h][j] = first || o == nullptr ? init(i, j) : *o;
+        prev[i][h][j] = first || o == nullptr ? init(i, h, j) : *o;
       }
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -1047,6 +1172,54 @@ __device__ __forceinline__ void write_row_active(const int (&rowc)[2], int* rcnt
   if (tid < tt) row_active[tid] = static_cast<float>(rcnt_s[tid]);
 }
 
+// The dx route's pieces (kDx). pre > 0 of one 64-latent column block of encode
+// accumulators (laid out as post_epilogue's; b_enc from the block's first
+// latent), as bit 4j + 2h + e of acc[j][2h + e].
+__device__ __forceinline__ uint32_t pre_mask(const float (&acc)[8][4], const float* b_enc,
+                                             int lane) {
+  uint32_t on = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      on |= static_cast<uint32_t>(acc[j][i] + b_enc[j * 8 + 2 * (lane % 4) + i % 2] > 0.f)
+            << (4 * j + i);
+  return on;
+}
+
+// dpre = pre > 0 ? dpost + c_l1 : 0 of the same block (acc: dpost; on:
+// pre_mask's bits), round_bf16(dpre) into the K-major block ``blk`` at row tok0
+// + 8h, where post_epilogue writes round_bf16(post)
+__device__ __forceinline__ void dpre_epilogue(const float (&acc)[8][4], uint32_t on, float c_l1,
+                                              unsigned char* blk, int tok0, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        d[e] = (on >> (4 * j + 2 * h + e)) & 1u ? acc[j][2 * h + e] + c_l1 : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(blk + sw128(tok0 + 8 * h, j) + (lane % 4) * 4) =
+          __floats2bfloat162_rn(d[0], d[1]);
+    }
+}
+
+// A fragments of round_bf16(c * err) for 4 k16 steps from a swizzled err tile,
+// the warp's 16 rows from row0 (coder_bwd_tc's err_frags, untransposed)
+__device__ __forceinline__ void scaled_frags(uint32_t (&a)[4][4], const unsigned char* tile,
+                                             int row0, int lane, float c) {
+  const int li = lane / 8, lr = lane % 8;  // ldmatrix: which 8x8 matrix, which row of it
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+    ldsm_x4(a[kk], reinterpret_cast<const bf16*>(
+                       tile + sw128(row0 + lr + (li % 2) * 8, kk * 2 + li / 2)));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = scale_pair(a[kk][r], c);
+  }
+}
+
 // Forward, bf16, recon updated in place (Cout > kHoldCout: the crosscoder). One
 // block owns kTcFwdTT = 128 tokens; its two consumer warpgroups each compute 64
 // tokens' rows of every product with wgmma, 128 columns as two 64-wide halves;
@@ -1060,18 +1233,26 @@ __device__ __forceinline__ void write_row_active(const int (&rowc)[2], int* rcnt
 // eight K-major [128][64] blocks. kPrefix: groups also end at every prefix
 // boundary, and the decode of a group that ends one copies its updates of
 // recon's last slice into that prefix's slice.
-template <bool kPrefix, Act kAct = Act::Relu>
+// kDx (recon is dx [T, C], updated in place as recon is; header note): groups
+// end at every level boundary; after each encode sub-tile the stream adds, per
+// 64 channels, err [128][64] (K-major, rows of the group's level) and W_dec
+// [128][64] (K-major: dpost's B), and round_bf16(dpre) fills post_s; the
+// decode's tiles become W_enc [128][64] (columns of the chunk, 64 latents;
+// K-major B of dx += round_bf16(dpre) @ W_enc tile^T). The first group writes
+// -c_rec * err_0 + acc.
+template <bool kPrefix, Act kAct = Act::Relu, bool kDx = false>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
              const __grid_constant__ CUtensorMap m_wd, const float* __restrict__ b_enc,
              const float* __restrict__ b_dec, float* __restrict__ recon,
              float* __restrict__ act_part, float* __restrict__ row_active,
              float* __restrict__ zsum_part, int Cin, int Cout, int H, const svt::Levels lv,
-             const ActFwd af) {
+             const __grid_constant__ TcFwd af) {
   constexpr int TT = kTcFwdTT, SUB = kTcFwdSub, LG = kTcFwdLG, KT = 64;
   constexpr bool kCount = kAct != Act::GatedPi, kSum = kAct != Act::GatedEnc;
   static_assert(kAct != Act::Gated && (kAct == Act::Relu || !kPrefix),
                 "one output: the gated forward's wide route is two launches");
+  static_assert(!kDx || (kAct == Act::Relu && !kPrefix), "dx: its levels come in lv");
   constexpr int kPostBlk = TT * kSwRow;  // a [128][64] block of post_s
   extern __shared__ __align__(1024) unsigned char tc_smem_fwd[];
   unsigned char* ring = align1024(tc_smem_fwd);
@@ -1090,7 +1271,7 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const int skew = static_cast<int>(blockIdx.x % 4) * SUB;
   auto group_end = [&](int g0) {
     const int e = min(H, g0 < skew ? skew : g0 + LG);
-    return kPrefix ? min(e, svt::level_end(lv, g0)) : e;
+    return kPrefix || kDx ? min(e, svt::level_end(lv, g0)) : e;
   };
   if (tid < TT) rcnt_s[tid] = 0;
   if (tid == 0) init_ring<kFSt>(full, empty);
@@ -1100,11 +1281,27 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   // to the slot of the tile before the one just multiplied (kFSt - 1 tiles
   // ahead), so the issuing thread waits only for the warps still on that tile.
   const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd;  // param space
+  [[maybe_unused]] const int n_tok = gridDim.x * TT;  // kDx: the rows of one level of err
   Producer<kFSt> prod{ring, kFSlot, full, empty};
-  int p_g0 = 0, p_dec = 0, p_a = 0, p_k = 0;
+  int p_g0 = 0, p_dec = 0, p_a = 0, p_k = 0;  // kDx: p_dec 2 is a sub-tile's dpost
   auto issue = [&]() {
     if (tid != 0 || p_g0 >= H) return;
     const int nsub = (group_end(p_g0) - p_g0) / SUB;
+    if constexpr (kDx) {
+      if (p_dec == 2) {
+        unsigned char* d = prod.acquire(4 * kBox);
+        const int row = svt::level_of(lv, p_g0) * n_tok + t0;
+        tma_box(d, &af.m_err, prod.bar, p_k * KT, row);
+        tma_box(d + kBox, &af.m_err, prod.bar, p_k * KT, row + 64);
+        tma_box(d + 2 * kBox, mwd, prod.bar, p_k * KT, p_g0 + p_a * SUB);
+        tma_box(d + 3 * kBox, mwd, prod.bar, p_k * KT, p_g0 + p_a * SUB + 64);
+        if (++p_k == nkc) {
+          p_k = 0, p_dec = 0;
+          if (++p_a == nsub) p_a = 0, p_dec = 1;
+        }
+        return;
+      }
+    }
     if (!p_dec) {
       unsigned char* d = prod.acquire(4 * kBox);
       tma_box(d, mx, prod.bar, p_k * KT, t0);
@@ -1113,12 +1310,18 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
       tma_box(d + 3 * kBox, mwe, prod.bar, p_g0 + p_a * SUB + 64, p_k * KT);
       if (++p_k == nkc) {
         p_k = 0;
-        if (++p_a == nsub) p_a = 0, p_dec = 1;
+        if constexpr (kDx) p_dec = 2;
+        else if (++p_a == nsub) p_a = 0, p_dec = 1;
       }
     } else {
       unsigned char* d = prod.acquire(2 * kBox);
-      tma_box(d, mwd, prod.bar, p_a * SUB, p_g0 + p_k * KT);
-      tma_box(d + kBox, mwd, prod.bar, p_a * SUB + 64, p_g0 + p_k * KT);
+      if constexpr (kDx) {  // W_enc [128 columns][64 latents]
+        tma_box(d, mwe, prod.bar, p_g0 + p_k * KT, p_a * SUB);
+        tma_box(d + kBox, mwe, prod.bar, p_g0 + p_k * KT, p_a * SUB + 64);
+      } else {
+        tma_box(d, mwd, prod.bar, p_a * SUB, p_g0 + p_k * KT);
+        tma_box(d + kBox, mwd, prod.bar, p_a * SUB + 64, p_g0 + p_k * KT);
+      }
       if (++p_k == nsub * SUB / KT) {
         p_k = 0;
         if (++p_a == ncc) p_a = 0, p_dec = 0, p_g0 = group_end(p_g0);
@@ -1132,6 +1335,8 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const uint32_t post_a = smem_u32(post_s);
   float acc[2][8][4];  // [64-column half][n8 block][fragment]
   int rowc[2] = {0, 0};
+  [[maybe_unused]] float c_rec = 0.f, c_l1 = 0.f;  // kDx
+  if constexpr (kDx) c_rec = af.coeffs[0], c_l1 = af.coeffs[1];
   for (int g0 = 0; g0 < H; g0 = group_end(g0)) {
     const int nsub = (group_end(g0) - g0) / SUB;
     for (int s = 0; s < nsub; ++s) {
@@ -1148,6 +1353,39 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
         c.issued<true>();
         issue();
       }
+      if constexpr (kDx) {
+        c.drain();
+        uint32_t on[2];
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+          on[nb] = pre_mask(acc[nb], b_enc + g0 + s * SUB + nb * 64, lane);
+        // dpost = round_bf16(c_rec * err) @ W_dec sub-tile^T, A from registers,
+        // in accumulators of its own (header note, kDx)
+        float dp[2][8][4];
+        for (int k = 0; k < nkc; ++k) {
+          const unsigned char* slot = c.next();
+          uint32_t a[4][4];
+          scaled_frags(a, slot, wg * 64 + w4 * 16, lane, c_rec);
+          const uint32_t sa = smem_u32(slot);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb)
+              wgmma_rs<0>(dp[nb], a[kk], sw128_desc(sa + (2 + nb) * kBox + kk * 32), k + kk > 0);
+          wg_commit();
+          c.issued<false>();  // a is rewritten by the next tile
+          issue();
+        }
+        // the warpgroup's own rows of post_s: its last reads of them are done
+        c.drain();
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const int lg = s * SUB + nb * 64;
+          dpre_epilogue(dp[nb], on[nb], c_l1, post_s + (lg / 64) * kPostBlk, tok0, lane);
+        }
+        continue;
+      }
       // The last tile's slot stays held: after the barrier (both warpgroups'
       // products done, the previous group's decode too) it holds the per-warp
       // partial sums of the statistics; round_bf16(post) goes to post_s.
@@ -1159,8 +1397,8 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
       for (int nb = 0; nb < 2; ++nb) {
         const int lg = s * SUB + nb * 64;  // first latent of the half, within the group
         post_epilogue<kAct>(acc[nb], b_enc + g0 + lg, post_s + (lg / 64) * kPostBlk, tok0, lane,
-                            rowc, red_z + warp * SUB + nb * 64, red_c + warp * SUB + nb * 64, af,
-                            g0 + lg);
+                            rowc, red_z + warp * SUB + nb * 64, red_c + warp * SUB + nb * 64,
+                            af.act, g0 + lg);
       }
       __syncthreads();
       {
@@ -1181,6 +1419,7 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
     __syncthreads();
 
     // decode: recon[:, chunk] += round_bf16(post) @ W_dec[g0 : g0 + nsub*128, chunk]
+    // (kDx: dx[:, chunk] += round_bf16(dpre) @ W_enc[chunk, g0 : g0 + nsub*128]^T)
     long snap = 0;  // kPrefix: floats from recon's last slice to the ending prefix's
     if constexpr (kPrefix)
       if (g0 + nsub * SUB < H && svt::ends_level(lv, g0 + nsub * SUB))
@@ -1193,9 +1432,9 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
           for (int nb = 0; nb < 2; ++nb)
-            wgmma_ss<0, 1>(acc[nb],
-                           sw128_desc(post_a + k * kPostBlk + wg * 64 * kSwRow + kk * 32),
-                           sw128_desc(sa + nb * kBox + kk * 16 * kSwRow), k + kk > 0);
+            wgmma_ss<0, kDx ? 0 : 1>(
+                acc[nb], sw128_desc(post_a + k * kPostBlk + wg * 64 * kSwRow + kk * 32),
+                sw128_desc(sa + nb * kBox + kk * (kDx ? 32 : 16 * kSwRow)), k + kk > 0);
         wg_commit();
         c.issued<true>();
         issue();
@@ -1212,16 +1451,25 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
                                              c0 + j * 8)
                                        : nullptr;
             },
-            [&](int, int j) {
+            [&](int, int h, int j) {
               const int col = c0 + j * 8;
-              return col < Cout ? make_float2(b_dec[col], b_dec[col + 1])
-                                : make_float2(0.f, 0.f);
+              if constexpr (kDx) {  // -c_rec * err_0 (f32, not rounded)
+                if (col >= Cout) return make_float2(0.f, 0.f);
+                const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                    static_cast<const bf16*>(af.err) +
+                    static_cast<long>(t0 + tok0 + 8 * h) * Cout + col));
+                return make_float2(-__fmul_rn(c_rec, v.x), -__fmul_rn(c_rec, v.y));
+              } else {
+                return col < Cout ? make_float2(b_dec[col], b_dec[col + 1])
+                                  : make_float2(0.f, 0.f);
+              }
             },
             g0 == 0, snap);
       }
     }
   }
-  if constexpr (kCount) write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
+  if constexpr (kCount && !kDx)
+    write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
 }
 
 // Forward, bf16, recon held in registers (Cout <= W: the transcoder, the SAEs
@@ -1236,7 +1484,13 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 //           W/64 [LD][64] boxes; columns past Cout arrive as zeros).
 // round_bf16(post) of the group, post_s [64][128] as two K-major [64][64]
 // blocks (block g written by warpgroup g), is the decode's A operand.
-template <int W, bool kPrefix, Act kAct = Act::Relu>
+// kDx (recon is dx [T, C], held as recon is; header note): per group the
+// stream adds, after the encode, per 64 channels err [64][64] (K-major, rows of
+// the group's level) and W_dec [128][64] (K-major: dpost's B); the decode's
+// tiles become, per 64-column block nb of each warpgroup's half, W_enc [64][128]
+// (K-major B of dx += round_bf16(dpre) @ W_enc tile^T; boxes 2g, 2g + 1 for
+// warpgroup g).
+template <int W, bool kPrefix, Act kAct = Act::Relu, bool kDx = false>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
                   const __grid_constant__ CUtensorMap m_we,
@@ -1244,7 +1498,8 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
                   const float* __restrict__ b_dec, float* __restrict__ recon,
                   float* __restrict__ act_part, float* __restrict__ row_active,
                   float* __restrict__ zsum_part, int Cin, int Cout, int H,
-                  const svt::Levels lv, const ActFwd af) {
+                  const svt::Levels lv, const ActFwd af,
+                  const __grid_constant__ DxFwd<kDx> dxf) {
   constexpr int TT = kHoldTT, LG = kHoldLG, LD = hold_ld(W), KT = 64;
   constexpr int NB = W / 128;            // n64 accumulators a warpgroup
   constexpr int kPostBlk = TT * kSwRow;  // a [64][64] block of post_s
@@ -1254,6 +1509,8 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
   static_assert(2 * NB * kDecBox <= kHSlot, "W_dec tile");
   static_assert(!kTwo || W == 256, "two held outputs of 256 columns: hold<512>'s registers");
   static_assert(kAct == Act::Relu || !kPrefix, "the variants have no prefixes");
+  static_assert(!kDx || (kAct == Act::Relu && !kPrefix), "dx: its levels come in lv");
+  static_assert(!kDx || W == 256, "dx: 512 held columns beside dpost's accumulators spill");
   extern __shared__ __align__(1024) unsigned char tc_smem_hold[];
   unsigned char* ring = align1024(tc_smem_hold);
   unsigned char* post_s = ring + kHSt * kHSlot;  // [2][TT][64]
@@ -1271,11 +1528,32 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
 
   // the tile stream, issued by thread 0 as coder_fwd_tc's
   const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd;  // param space
+  [[maybe_unused]] const int n_tok = gridDim.x * TT;  // kDx: the rows of one level of err
   Producer<kHSt> prod{ring, kHSlot, full, empty};
   int p_g0 = 0, p_dec = 0, p_k = 0;
   auto issue = [&]() {
     if (tid != 0 || p_g0 >= H) return;
-    if (!p_dec) {
+    if constexpr (kDx) {  // p_dec: 0 encode, 1 dpost, 2 the dx product
+      if (p_dec == 2) {
+        unsigned char* d = prod.acquire(4 * kBox);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)  // warpgroup b / 2's channels, latents 64 * (b % 2) on
+          tma_box(d + b * kBox, mwe, prod.bar, p_g0 + 64 * (b % 2), (b / 2) * (W / 2) + p_k * 64);
+        if (++p_k == NB) p_k = 0, p_dec = 0, p_g0 += LG;
+        return;
+      }
+      unsigned char* d = prod.acquire(3 * kBox);
+      if (p_dec == 0) {
+        tma_box(d, mx, prod.bar, p_k * KT, t0);
+        tma_box(d + kBox, mwe, prod.bar, p_g0, p_k * KT);
+        tma_box(d + 2 * kBox, mwe, prod.bar, p_g0 + 64, p_k * KT);
+      } else {
+        tma_box(d, &dxf.m_err, prod.bar, p_k * KT, svt::level_of(lv, p_g0) * n_tok + t0);
+        tma_box(d + kBox, mwd, prod.bar, p_k * KT, p_g0);
+        tma_box(d + 2 * kBox, mwd, prod.bar, p_k * KT, p_g0 + 64);
+      }
+      if (++p_k == nkc) p_k = 0, ++p_dec;
+    } else if (!p_dec) {
       unsigned char* d = prod.acquire(3 * kBox);
       tma_box(d, mx, prod.bar, p_k * KT, t0);
       tma_box(d + kBox, mwe, prod.bar, p_g0, p_k * KT);
@@ -1298,6 +1576,8 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
   [[maybe_unused]] float vi[kTwo ? NB : 1][8][4];  // kTwo: via_gate, as rec
   float acc[8][4];      // encode: the group's latents 64*wg .. 64*wg + 63
   int rowc[2] = {0, 0};
+  [[maybe_unused]] float c_rec = 0.f, c_l1 = 0.f;  // kDx
+  if constexpr (kDx) c_rec = dxf.coeffs[0], c_l1 = dxf.coeffs[1];
   // rec (kTwo: and vi) + b_dec into ``out`` (af.via) [T, Cout], once every product is done
   auto store = [&](float* out) {
     c.drain();
@@ -1332,6 +1612,46 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
       wg_commit();
       c.issued<true>();
       issue();
+    }
+    if constexpr (kDx) {
+      c.drain();
+      const uint32_t on = pre_mask(acc, b_enc + g0 + wg * 64, lane);
+      // dpost = round_bf16(c_rec * err) @ W_dec tile^T, A from registers, in
+      // accumulators of its own (header note, kDx)
+      float dp[8][4];
+      for (int k = 0; k < nkc; ++k) {
+        const unsigned char* slot = c.next();
+        uint32_t a[4][4];
+        scaled_frags(a, slot, w4 * 16, lane, c_rec);
+        const uint32_t s = smem_u32(slot);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<0>(dp, a[kk], sw128_desc(s + (1 + wg) * kBox + kk * 32), k + kk > 0);
+        wg_commit();
+        c.issued<false>();  // a is rewritten by the next tile
+        issue();
+      }
+      c.drain();
+      __syncthreads();  // both warpgroups' products of the last group are done with post_s
+      dpre_epilogue(dp, on, c_l1, post_s + wg * kPostBlk, tok0, lane);
+      fence_async_smem();  // post_s before wgmma reads it
+      __syncthreads();
+      // dx += round_bf16(dpre) @ W_enc[columns, g0 : g0 + 128]^T, per 64-column block
+      // (unrolled: rec stays in registers)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const uint32_t sa = smem_u32(c.next());
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < LG / 16; ++kk)
+          wgmma_ss<0, 0>(rec[nb], sw128_desc(post_a + (kk / 4) * kPostBlk + (kk % 4) * 32),
+                         sw128_desc(sa + (2 * wg + kk / 4) * kBox + (kk % 4) * 32), g0 + kk > 0);
+        wg_commit();
+        c.issued<true>();
+        issue();
+      }
+      continue;
     }
     // as coder_fwd_tc: the held slot takes the partial sums, post_s the post
     unsigned char* scratch = c.hold();
@@ -1385,8 +1705,29 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
       if (g0 + LG < H && svt::ends_level(lv, g0 + LG))
         store(recon + svt::level_of(lv, g0) * slice);
   }
-  store(kPrefix ? recon + (lv.n - 1) * slice : recon);
-  if constexpr (kCount) write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
+  if constexpr (kDx) {  // dx - c_rec * err_0 (f32, not rounded) into recon, the dx output
+    c.drain();
+    const bf16* e = static_cast<const bf16*>(dxf.err);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = wg * (W / 2) + nb * 64 + j * 8 + 2 * (lane % 4);
+        if (col < Cout) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long o = static_cast<long>(t0 + tok0 + 8 * h) * Cout + col;
+            const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(e + o));
+            *reinterpret_cast<float2*>(recon + o) =
+                make_float2(rec[nb][j][2 * h] - __fmul_rn(c_rec, v.x),
+                            rec[nb][j][2 * h + 1] - __fmul_rn(c_rec, v.y));
+          }
+        }
+      }
+  } else {
+    store(kPrefix ? recon + (lv.n - 1) * slice : recon);
+    if constexpr (kCount) write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
+  }
 }
 
 // Column sums of a warp's rows, scattered over its lanes: v[j][e] is this
@@ -1745,7 +2086,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
                                                         j * 8 + 2 * (lane % 4))
                             : nullptr;
           },
-          [](int, int) { return make_float2(0.f, 0.f); }, first);
+          [](int, int, int) { return make_float2(0.f, 0.f); }, first);
     }
 
     // C. dW_dec[tile, chunk] += round_bf16(post)^T @ round_bf16(c_rec*err[:, chunk]),
@@ -2038,20 +2379,23 @@ cudaError_t fwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
   if constexpr (kAct == Act::Gated) {
     return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>, n_tokens / kHoldTT,
                        hold_smem_bytes(2), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
-                       row_active, zsum_part, c_in, c_out, H, lv, af);
+                       row_active, zsum_part, c_in, c_out, H, lv, af, DxFwd<false>{});
   } else {
     if constexpr (!kSplit)
       if (hold == 256)
         return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>, n_tokens / kHoldTT,
                            hold_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon,
-                           act_part, row_active, zsum_part, c_in, c_out, H, lv, af);
+                           act_part, row_active, zsum_part, c_in, c_out, H, lv, af,
+                           DxFwd<false>{});
     if (hold)
       return svt::launch(coder_fwd_tc_hold<kHoldCout, kPrefix, kAct>, n_tokens / kHoldTT,
                          hold_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
-                         row_active, zsum_part, c_in, c_out, H, lv, af);
+                         row_active, zsum_part, c_in, c_out, H, lv, af, DxFwd<false>{});
+    TcFwd t{};
+    t.act = af;
     return svt::launch(coder_fwd_tc<kPrefix, kAct>, n_tokens / kTcFwdTT, fwd_tc_smem_bytes(),
                        stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part, row_active,
-                       zsum_part, c_in, c_out, H, lv, af);
+                       zsum_part, c_in, c_out, H, lv, t);
   }
 }
 
@@ -2070,7 +2414,7 @@ cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b
   return svt::launch(coder_fwd_kernel<float, kPrefix>, n_tokens / kFwdTT, fwd_smem_bytes(),
                      stream, static_cast<const float*>(x), static_cast<const float*>(w_enc),
                      b_enc, static_cast<const float*>(w_dec), b_dec, recon, act_part,
-                     row_active, zsum_part, c_in, c_out, H, lv);
+                     row_active, zsum_part, c_in, c_out, H, lv, DxFwd<false>{});
 }
 
 // Launch the backward. err is [sae.lv.n * n_tokens, c_out] in the operand type

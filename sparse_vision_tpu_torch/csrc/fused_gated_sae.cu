@@ -5,9 +5,9 @@
 //   svt_gated_bwd <- _bwd_kernel (:98), launched by pallas_call :292
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
-// H = 16,384 latents) the forward is 6*T*C*H = 0.82 PFLOP (one gate product
+// H = 16,384 latents) the forward is 6*T*C*H = 0.82 TFLOP (one gate product
 // feeding gate and magnitude, then two decodes: recon and via_gate) and the
-// backward 10*T*C*H = 1.4 PFLOP (the gate product again, two products with
+// backward 10*T*C*H = 1.4 TFLOP (the gate product again, two products with
 // W_dec^T, dW_gate and dW_dec), against ~130 MB of operands: bounded by
 // arithmetic as long as no [T, H] matrix (2 GB in f32) reaches device memory.
 //

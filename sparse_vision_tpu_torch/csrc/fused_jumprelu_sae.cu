@@ -5,8 +5,8 @@
 //   svt_jumprelu_bwd <- _bwd_kernel (:80), launched by pallas_call :248
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
-// H = 16,384 latents) the forward is 4*T*C*H = 0.55 PFLOP and the backward
-// 8*T*C*H = 1.1 PFLOP against ~100 MB of operands: both are bounded by
+// H = 16,384 latents) the forward is 4*T*C*H = 0.55 TFLOP and the backward
+// 8*T*C*H = 1.1 TFLOP against ~100 MB of operands: both are bounded by
 // arithmetic as long as the [T, H] latent matrix (2 GB in f32) never reaches
 // device memory.
 //

@@ -1,6 +1,6 @@
 // Helpers shared by the fused kernels (fused_sae.cu, fused_gated_sae.cu,
 // fused_jumprelu_sae.cu, fused_transcoder.cu, coder.cuh): the operand-type
-// conversions, the rounding to the compute dtype, the launch and type/width
+// conversions, the rounding to the compute dtype, the launch and width
 // dispatch of the C entry points, and the Matryoshka prefix levels.
 #pragma once
 
@@ -40,8 +40,7 @@ cudaError_t launch(void (*kernel)(KArgs...), int blocks, size_t smem, cudaStream
 
 // Call f(std::integral_constant<int, C>{}) for the channel width C in {64, 128,
 // 256}: the widths of the SIMT bodies, which run only in f32 for the JumpReLU
-// and gated ops (their bf16 routes are coder.cuh's, at any width) and in both
-// types for the dx kernel (dispatch, below).
+// and gated ops (their bf16 routes are coder.cuh's, at any width).
 template <typename F>
 cudaError_t dispatch_width(int C, F&& f) {
   switch (C) {
@@ -50,14 +49,6 @@ cudaError_t dispatch_width(int C, F&& f) {
     case 256: return f(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
-}
-
-// Call f(T{}, std::integral_constant<int, C>{}) for the operand type (bf16 != 0
-// selects __nv_bfloat16, else float) and the channel width C in {64, 128, 256}.
-template <typename F>
-cudaError_t dispatch(int bf16, int C, F&& f) {
-  if (bf16) return dispatch_width(C, [&](auto c) { return f(__nv_bfloat16{}, c); });
-  return dispatch_width(C, [&](auto c) { return f(float{}, c); });
 }
 
 constexpr int kMaxLevels = 16;

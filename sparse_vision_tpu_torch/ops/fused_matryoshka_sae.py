@@ -15,12 +15,12 @@ materializations. Fused, it costs almost nothing over the ReLU op:
     every prefix that contains it, the suffix-weighted error
     S_q = Σ_{p≥q} c_p·err_p (c_p = g_p·2/(T·C)) with q = level(j). S [P, T, C]
     is computed here from the saved errors, cast to the compute dtype, and the
-    backward body and dx kernel read S[level(j)] with c_rec = 1 where they
+    backward body and the dx route read S[level(j)] with c_rec = 1 where they
     read c_rec·err (so the kernel's rounding of 1·S is exact and the cast
     points are the Pallas body's). The direct b_dec term is Σ_t S_0, summed by
     the blocks of level 0.
 As for the ReLU op (ops/fused_sae.py), the forward entry point centres x first
-and the backward runs on the saved x_cent; the glue around each entry point
+and the backward and dx run on the saved x_cent; the glue around each entry point
 (partial reductions, the centring rows of db_dec) is shared by the CPU path,
 where the entry points' plain versions stand.
 
@@ -33,8 +33,8 @@ Kernel constraint: every prefix boundary is a multiple of the latent group
 
 Differentiability contract: gradients flow through ``prefix_losses`` and
 ``l1_loss`` only; the other outputs are metrics. ``x`` gets its gradient from
-the dx kernel, dx = Σ_j round(dpre_j)·W_enc_jᵀ − S_0, when ``compute_dx=True``,
-and None otherwise.
+the dx entry point, dx = Σ_j round(dpre_j)·W_enc_jᵀ − S_0, when
+``compute_dx=True``, and None otherwise.
 """
 
 from __future__ import annotations
@@ -59,7 +59,6 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _r,
     backward_outputs,
     centring_rows_plain,
-    check_dx_operands,
     coder_backward_plain,
     compute_dtype_of,
     forward_outputs,
@@ -113,12 +112,12 @@ def fused_matryoshka_forward_plain(x, w_enc, b_enc, w_dec, b_dec, boundaries):
     return prefix_recon, active.sum(0).float(), active.sum(1).float(), post.sum()
 
 
-def _levels_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+def _levels_plain(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
     """Per prefix level q: (lo, hi, xc, W_enc level block, post, drecon, dpre)
     of the plain backward and dx, with drecon = c_rec·S_q."""
-    cd = x.dtype
+    cd = x_cent.dtype
     c_rec, c_l1 = coeffs[0], coeffs[1]
-    xc = (x - b_dec.to(cd)).float()
+    xc = x_cent.float()
     for q, lo, hi in _segments(boundaries):
         we = w_enc[:, lo:hi].float()
         pre = xc @ we + b_enc[lo:hi]
@@ -137,7 +136,7 @@ def fused_matryoshka_backward_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, bo
     dw_enc, db_enc, dw_dec = [], [], []
     db_dec = (coeffs[0] * s[0].float()).sum(0)  # the direct term, level 0 once
     for _, _, xc, we, post, drecon, dpre in _levels_plain(
-            x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+            fused_sae.center_plain(x, b_dec), w_enc, b_enc, w_dec, s, coeffs, boundaries):
         db = dpre.sum(0)
         dw_enc.append(xc.T @ _r(dpre, cd))
         db_enc.append(db)
@@ -146,13 +145,14 @@ def fused_matryoshka_backward_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, bo
     return torch.cat(dw_enc, 1), torch.cat(db_enc), torch.cat(dw_dec), db_dec
 
 
-def fused_matryoshka_dx_plain(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
-    """Plain version of csrc sae_dx_kernel over P levels:
-    Σ_q round(dpre_q) @ W_enc_qᵀ − c_rec·S_0, [T, C] f32."""
-    cd = x.dtype
+def fused_matryoshka_dx_plain(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    """Plain version of the dx entry point svt_matryoshka_dx (dx_kernel) over P
+    levels, on the forward's x_cent: Σ_q round(dpre_q) @ W_enc_qᵀ − c_rec·S_0,
+    [T, C] f32."""
+    cd = x_cent.dtype
     dx = -coeffs[0] * s[0].float()
     for _, _, _, we, _, _, dpre in _levels_plain(
-            x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
+            x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
         dx = dx + _r(dpre, cd) @ we.T
     return dx
 
@@ -195,7 +195,7 @@ def _lib() -> ctypes.CDLL:
     lib.svt_matryoshka_bwd.restype = _I
     lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P, _I, _P]
     lib.svt_matryoshka_dx.restype = _I
-    lib.svt_matryoshka_dx.argtypes = [_I] + [_P] * 8 + [_I, _I, _I, _P, _I, _P]
+    lib.svt_matryoshka_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P, _I, _P]
     return lib
 
 
@@ -250,17 +250,19 @@ class _BackwardKernel(Kernel):
 
 
 class _DxKernel(Kernel):
-    """csrc sae_dx_kernel reading S[level(j)]."""
+    """csrc svt_matryoshka_dx: the coder forward bodies' dx route on x_cent, each
+    latent group reading S[level]. Returns what fused_matryoshka_dx_plain
+    returns."""
 
     name = "fused_matryoshka_sae_dx"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, s, coeffs, boundaries):
-        t, c, h = check_dx_operands(x, w_enc, b_enc, w_dec, b_dec)
-        bounds = _bounds(h, boundaries, fused_sae.DX_TILE_H)
-        _check_s(x, s, coeffs, len(boundaries))
-        dx = torch.empty((t, c), dtype=_F32, device=x.device)
-        self._launch(_lib().svt_matryoshka_dx, x.device,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, s, coeffs, dx), t, c, h,
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+        t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
+        bounds = _bounds(h, boundaries, TILE_H)
+        _check_s(x_cent, s, coeffs, len(boundaries))
+        dx = torch.empty((t, c), dtype=_F32, device=x_cent.device)
+        self._launch(_lib().svt_matryoshka_dx, x_cent.device,
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, dx), t, c, h,
                      bounds, len(boundaries))
         return dx
 
@@ -288,9 +290,11 @@ def fused_matryoshka_backward(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
-def fused_matryoshka_dx(*args):
-    """The dx kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(dx_kernel, fused_matryoshka_dx_plain, *args)
+def fused_matryoshka_dx(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    """The dx entry point on the saved x_cent (the kernel on CUDA tensors,
+    fused_matryoshka_dx_plain on CPU tensors): dx [T, C] f32."""
+    return run_on_device(dx_kernel, fused_matryoshka_dx_plain, x_cent, w_enc, b_enc, w_dec, s,
+                         coeffs, boundaries)
 
 
 class FusedMatryoshkaSAEFunction(torch.autograd.Function):
@@ -310,8 +314,8 @@ class FusedMatryoshkaSAEFunction(torch.autograd.Function):
         errs = prefix_recon - x.float()[None]
         prefix_losses = errs.square().mean((1, 2))
         l1_loss = l1_sum / (t * h)
-        # the backward runs on x_cent; dx reads the uncentred input
-        ctx.save_for_backward(x_cent, we, b_enc, wd, b_dec, errs, xc if compute_dx else None)
+        # the backward and dx run on x_cent
+        ctx.save_for_backward(x_cent, we, b_enc, wd, errs)
         ctx.boundaries, ctx.compute_dx = boundaries, compute_dx
         recon = prefix_recon[-1]
         ctx.mark_non_differentiable(recon, act_count, row_active)
@@ -319,7 +323,7 @@ class FusedMatryoshkaSAEFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_prefix, g_l1, *_unused):
-        x_cent, we, b_enc, wd, b_dec, errs, xc = ctx.saved_tensors
+        x_cent, we, b_enc, wd, errs = ctx.saved_tensors
         t, c = x_cent.shape
         h = b_enc.shape[0]
         dev = x_cent.device
@@ -336,7 +340,7 @@ class FusedMatryoshkaSAEFunction(torch.autograd.Function):
             x_cent, we, b_enc, wd, s, coeffs, ctx.boundaries)
         dx = None
         if ctx.compute_dx and ctx.needs_input_grad[0]:
-            dx = fused_matryoshka_dx(xc, we, b_enc, wd, b_dec, s, coeffs, ctx.boundaries)
+            dx = fused_matryoshka_dx(x_cent, we, b_enc, wd, s, coeffs, ctx.boundaries)
         return dx, dw_enc, db_enc, dw_dec, db_dec, None, None, None
 
 

@@ -1,6 +1,6 @@
 """Fused ReLU-SAE training op: encode + ReLU + decode + loss terms + dead-latent
-statistics in one forward entry point, a recomputing backward, and a dx kernel
-for the gradient with respect to the input.
+statistics in one forward entry point, a recomputing backward, and a dx entry
+point for the gradient with respect to the input.
 
 Port of sparse_vision_tpu/ops/fused_sae.py. Why fuse: at the training shape
 (C = 256 channels, 16,384 latents, 32,768 tokens a step) the latent matrix
@@ -10,14 +10,14 @@ each token tile's reconstruction on chip while it sweeps the latents, and the
 backward recomputes pre/post per token step from the centred input and the
 saved [T, C] reconstruction error.
 
-The forward and backward run the coder body family (csrc/coder.cuh, shared with
-the transcoder and crosscoder ops; wgmma/TMA bodies in bf16, SIMT in f32, any
-width that bodies_take allows) through the entry points of csrc/fused_sae.cu:
-the forward's first centres x (x_cent = x − round(b_dec), saved for the
-backward), the backward adds db_dec's centring term as one partial row per 64
-latents. The glue around each entry point (the partial reductions, c_l1
-broadcast to every latent) is the same on both devices; only the entry points
-differ.
+The forward, backward and dx run the coder body family (csrc/coder.cuh, shared
+with the transcoder and crosscoder ops; wgmma/TMA bodies in bf16, SIMT in f32,
+any width that bodies_take allows) through the entry points of
+csrc/fused_sae.cu: the forward's first centres x (x_cent = x − round(b_dec),
+saved for the backward and dx), the backward adds db_dec's centring term as one
+partial row per 64 latents, and dx is the forward bodies' dx route (kDx). The
+glue around each entry point (the partial reductions, c_l1 broadcast to every
+latent) is the same on both devices; only the entry points differ.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each entry point
 (the same formulas, the same cast points); a CUDA tensor launches the kernel or
@@ -34,8 +34,8 @@ JAX op within a tolerance and exactly in f32.
 Differentiability contract: gradients flow through ``rec_loss`` and ``l1_loss``
 only (loss = rec + λ·l1). ``recon`` and the statistics are marked
 non-differentiable. ``x`` is data unless ``compute_dx=True``: then its gradient
-comes from the dx kernel, dx = round(dpre)·W_encᵀ − c_rec·err; otherwise it is
-None (the JAX op's zero cotangent).
+comes from the dx entry point, dx = round(dpre)·W_encᵀ − c_rec·err, on the saved
+x_cent and error; otherwise it is None (the JAX op's zero cotangent).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ _BF16 = torch.bfloat16
 # activity/zsum partial row, the bf16 backward's tokens per direct db_dec row
 # (kTcBwdTS), the f32 backward's direct db_dec rows, latents per backward block
 # (one centring row of db_dec each), and the bf16 width multiple (TMA's 16-byte
-# row strides).
+# row strides). The dx route (kDx) runs the forward bodies: the same rule.
 TILE_T = 128
 TILE_H = 128
 PART_T = 64
@@ -64,11 +64,6 @@ BF16_STEP_T = 512
 F32_DIRECT_ROWS = 2
 BLOCK_H = 64
 BF16_WIDTH = 8
-# the dx kernel (csrc/fused_sae.cu sae_dx_kernel): tokens per block, latents per
-# tile, and its widths
-DX_TILE_T = 32
-DX_TILE_H = 64
-DX_C = (64, 128, 256)
 
 
 def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
@@ -142,15 +137,15 @@ def fused_sae_backward_plain(x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
     return dw_enc, db_enc, dw_dec, db_dec
 
 
-def fused_sae_dx_plain(x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
-    """Plain version of csrc sae_dx_kernel: the gradient of c_rec/2·Σ err² +
-    c_l1·Σ post with respect to x, round(dpre) @ W_encᵀ − c_rec·err, [T, C] f32.
-    Arguments as for fused_sae_backward_plain."""
-    cd = x.dtype
+def fused_sae_dx_plain(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    """Plain version of the dx entry point svt_sae_dx (dx_kernel): the gradient of
+    c_rec/2·Σ err² + c_l1·Σ post with respect to x, round(dpre) @ W_encᵀ −
+    c_rec·err, [T, C] f32, on the forward's x_cent. Arguments as for
+    sae_bwd_plain."""
+    cd = x_cent.dtype
     c_rec, c_l1 = coeffs[0], coeffs[1]
-    xc = (x - b_dec.to(cd)).float()
     we = w_enc.float()
-    pre = xc @ we + b_enc
+    pre = x_cent.float() @ we + b_enc
     drecon = c_rec * err.float()
     dpost = _r(drecon, cd) @ w_dec.float().T + c_l1
     dpre = torch.where(pre > 0, dpost, torch.zeros((), device=pre.device))
@@ -240,7 +235,7 @@ def _lib() -> ctypes.CDLL:
     lib.svt_sae_bwd.restype = _I
     lib.svt_sae_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P]
     lib.svt_sae_dx.restype = _I
-    lib.svt_sae_dx.argtypes = [_I] + [_P] * 8 + [_I, _I, _I, _P]
+    lib.svt_sae_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P]
     return lib
 
 
@@ -255,8 +250,9 @@ def _expect(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
 
 
 def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
-    """Device, dtype, shape and contiguity of the forward's and backward's
-    operands (the backward has no b_dec); returns (t, c, h)."""
+    """Device, dtype, shape and contiguity of the forward's, backward's and dx's
+    operands (the backward and dx have no b_dec), and the coder bodies' width
+    rule (bodies_take); returns (t, c, h)."""
     t, c = x.shape
     h = b_enc.shape[0]
     if x.dtype not in (_F32, _BF16):
@@ -359,38 +355,20 @@ class _BackwardKernel(Kernel):
 
 
 class _DxKernel(Kernel):
-    """csrc sae_dx_kernel (one level)."""
+    """csrc svt_sae_dx: the coder forward bodies' dx route on x_cent (one level).
+    Returns dx [T, C] f32, what fused_sae_dx_plain returns."""
 
     name = "fused_sae_dx"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, err, coeffs):
-        t, c, h = check_dx_operands(x, w_enc, b_enc, w_dec, b_dec)
-        dev = x.device
-        _expect("err", err, (t, c), x.dtype, dev)
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs):
+        t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
+        dev = x_cent.device
+        _expect("err", err, (t, c), x_cent.dtype, dev)
         _expect("coeffs", coeffs, (2,), _F32, dev)
         dx = torch.empty((t, c), dtype=_F32, device=dev)
         self._launch(_lib().svt_sae_dx, dev,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, err, coeffs, dx), t, c, h)
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, dx), t, c, h)
         return dx
-
-
-def check_dx_operands(x, w_enc, b_enc, w_dec, b_dec):
-    """The dx kernel's operand checks; returns (t, c, h)."""
-    t, c = x.shape
-    h = b_enc.shape[0]
-    if x.dtype not in (_F32, _BF16):
-        raise ValueError(f"fused SAE dx kernel: compute dtype {x.dtype} not supported")
-    if c not in DX_C or t <= 0 or h <= 0 or t % DX_TILE_T or h % DX_TILE_H:
-        raise ValueError(
-            f"fused SAE dx kernel: shape T={t}, C={c}, H={h} not supported (C in {DX_C}, "
-            f"T a multiple of {DX_TILE_T}, H of {DX_TILE_H})")
-    dev = x.device
-    _expect("x", x, (t, c), x.dtype, dev)
-    _expect("W_enc", w_enc, (c, h), x.dtype, dev)
-    _expect("b_enc", b_enc, (h,), _F32, dev)
-    _expect("W_dec", w_dec, (h, c), x.dtype, dev)
-    _expect("b_dec", b_dec, (c,), _F32, dev)
-    return t, c, h
 
 
 fwd_kernel = _ForwardKernel()
@@ -428,9 +406,10 @@ def fused_sae_backward(x_cent, w_enc, b_enc, w_dec, err, coeffs):
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
-def fused_sae_dx(*args):
-    """The dx kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(dx_kernel, fused_sae_dx_plain, *args)
+def fused_sae_dx(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    """The dx entry point on the saved x_cent and error (the kernel on CUDA
+    tensors, fused_sae_dx_plain on CPU tensors): dx [T, C] f32."""
+    return run_on_device(dx_kernel, fused_sae_dx_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
 
 
 class FusedSAEFunction(torch.autograd.Function):
@@ -448,16 +427,15 @@ class FusedSAEFunction(torch.autograd.Function):
         err = recon - x  # against x in its own dtype, before the compute cast
         rec_loss = err.square().mean()
         l1_loss = l1_sum / (t * h)
-        # the backward runs on x_cent; dx reads the uncentred input
-        ctx.save_for_backward(x_cent, we, b_enc, wd, b_dec, err.to(cd),
-                              xc if compute_dx else None)
+        # the backward and dx run on x_cent
+        ctx.save_for_backward(x_cent, we, b_enc, wd, err.to(cd))
         ctx.compute_dx = compute_dx
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return rec_loss, l1_loss, recon, act_count, row_active
 
     @staticmethod
     def backward(ctx, g_rec, g_l1, *_unused):
-        x_cent, we, b_enc, wd, b_dec, err, xc = ctx.saved_tensors
+        x_cent, we, b_enc, wd, err = ctx.saved_tensors
         t, c = x_cent.shape
         h = b_enc.shape[0]
         zero = torch.zeros((), dtype=_F32, device=x_cent.device)
@@ -468,7 +446,7 @@ class FusedSAEFunction(torch.autograd.Function):
         dw_enc, db_enc, dw_dec, db_dec = fused_sae_backward(x_cent, we, b_enc, wd, err, coeffs)
         dx = None
         if ctx.compute_dx and ctx.needs_input_grad[0]:
-            dx = fused_sae_dx(xc, we, b_enc, wd, b_dec, err, coeffs)
+            dx = fused_sae_dx(x_cent, we, b_enc, wd, err, coeffs)
         return dx, dw_enc, db_enc, dw_dec, db_dec, None, None
 
 
@@ -478,7 +456,7 @@ def fused_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: float,
     """Fused equivalent of sae_inference_and_loss + measure_inactive_units on 2-D
     token input: loss terms (loss = rec + λ·l1), recon, and dead/sparsity stats
     from the kernel. RMSE/NRMSE come from the [T, C] reconstruction in plain
-    torch. ``compute_dx=True`` gives ``x`` its gradient (the dx kernel);
+    torch. ``compute_dx=True`` gives ``x`` its gradient (the dx entry point);
     otherwise training treats the activations as data."""
     cd = compute_dtype_of(compute_dtype)
     rec_loss, l1_loss, recon, act_count, row_active = FusedSAEFunction.apply(

@@ -20,7 +20,8 @@ Tolerances:
   transposed bf16 product), and db_dec 1e-2 of max|db_dec| (its centring term
   rounds db_enc to bf16 per TPU tile in JAX, once per batch in the port). dx
   gets one bf16 ulp of max|dx|: its product round(dpre)·W_encᵀ is a transposed
-  bf16 product in the Pallas kernel too.
+  bf16 product in the Pallas kernel too; with a bf16 x (bf16_cache) autograd
+  rounds the port's dx to bf16, which the same ulp covers.
 - C = 480, bf16: the reconstruction gets one bf16 ulp of max|recon| (sums of
   480 products in other f32 orders can flip a bf16 rounding of post).
 """
@@ -41,6 +42,7 @@ from sparse_vision_tpu.ops.fused_matryoshka_sae import make_fused_matryoshka_sae
 from sparse_vision_tpu_torch import convert
 from sparse_vision_tpu_torch.models.sae import matryoshka_prefix_counts
 from sparse_vision_tpu_torch.ops import fused_matryoshka_sae as fm
+from sparse_vision_tpu_torch.ops import fused_sae
 
 T, C, H_EXP = 64, 32, 64
 H = C * H_EXP
@@ -166,7 +168,9 @@ def test_plain_backward_and_dx_match_autograd_of_plain_forward():
     coeffs = torch.tensor([1.0, LAMBDA / (T * H)])
     ops = (torch.from_numpy(x), tp["W_enc"], tp["b_enc"], tp["W_dec"], tp["b_dec"], s, coeffs,
            BOUNDS)
-    mine = fm.fused_matryoshka_backward_plain(*ops) + (fm.fused_matryoshka_dx_plain(*ops),)
+    x_cent = fused_sae.center_plain(ops[0], tp["b_dec"])
+    mine = fm.fused_matryoshka_backward_plain(*ops) + (
+        fm.fused_matryoshka_dx_plain(x_cent, *ops[1:4], *ops[5:]),)
     for a, b, name in zip(mine, auto, names + ("x",)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-7, err_msg=name)
 
@@ -174,8 +178,6 @@ def test_plain_backward_and_dx_match_autograd_of_plain_forward():
 def test_one_level_is_the_relu_op():
     """With one prefix (the whole dictionary) the plain Matryoshka kernels are the
     ReLU kernels' plain versions: the same cast points, exact in bf16."""
-    from sparse_vision_tpu_torch.ops import fused_sae
-
     params, x = _setup()
     tp = convert.sae_params_from_jax(params)
     bf = torch.bfloat16
@@ -191,9 +193,10 @@ def test_one_level_is_the_relu_op():
     for a, b in zip(fm.fused_matryoshka_backward_plain(*ops, err[None], coeffs, (H,)),
                     fused_sae.fused_sae_backward_plain(*ops, err, coeffs)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
-    torch.testing.assert_close(fm.fused_matryoshka_dx_plain(*ops, err[None], coeffs, (H,)),
-                               fused_sae.fused_sae_dx_plain(*ops, err, coeffs),
-                               rtol=1e-6, atol=1e-9)
+    x_cent = fused_sae.center_plain(ops[0], tp["b_dec"])
+    torch.testing.assert_close(
+        fm.fused_matryoshka_dx_plain(x_cent, *ops[1:4], err[None], coeffs, (H,)),
+        fused_sae.fused_sae_dx_plain(x_cent, *ops[1:4], err, coeffs), rtol=1e-6, atol=1e-9)
 
 
 @pytest.mark.parametrize("t,h,bounds,c,ok", [
@@ -233,7 +236,7 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     with pytest.raises(ValueError, match="no kernel for device"):
         fm.fused_matryoshka_backward(*ops[:4], s, coeffs, BOUNDS)
     with pytest.raises(ValueError, match="no kernel for device"):
-        fm.fused_matryoshka_dx(*ops, s, coeffs, BOUNDS)
+        fm.fused_matryoshka_dx(*ops[:4], s, coeffs, BOUNDS)
 
 
 def test_kernel_wrapper_validates_before_launch():
@@ -254,7 +257,7 @@ def test_kernel_wrapper_validates_before_launch():
     with pytest.raises(ValueError, match="S must be"):
         fm.bwd_kernel(*ops[:4], torch.zeros(2, 2 * T, 128), torch.zeros(2), BOUNDS)
     with pytest.raises(ValueError, match="coeffs must be"):
-        fm.dx_kernel(*ops, torch.zeros(3, 2 * T, 128), torch.zeros(3), BOUNDS)
+        fm.dx_kernel(*ops[:4], torch.zeros(3, 2 * T, 128), torch.zeros(3), BOUNDS)
     assert all(k.launches == 0 for k in fm.KERNELS)
 
 
@@ -347,3 +350,77 @@ def test_entry_points_compose_to_the_reference(case):
     other = fm.fused_matryoshka_backward(x_cent, ops[1], ops[2], ops[3], s.flip(0), coeffs,
                                          WBOUNDS)
     assert not torch.allclose(other[3], got[3], rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# dx at bf16 widths the first port's SIMT dx kernels refused: C = 72 and 136,
+# T = 256, H = 256, prefixes 128 / 256
+# ---------------------------------------------------------------------------
+
+DX_WIDTHS = (72, 136)
+DX_T, DX_H = 256, 256
+DX_PREFIXES = (0.5, 1.0)
+DX_BOUNDS = (128, 256)
+
+
+@functools.cache
+def _dx_setup(c):
+    rng = np.random.default_rng(c)
+    params = {
+        "W_enc": (rng.normal(size=(c, DX_H)) / np.sqrt(c)).astype(np.float32),
+        "b_enc": (-0.05 + 0.05 * rng.normal(size=DX_H)).astype(np.float32),
+        "W_dec": (rng.normal(size=(DX_H, c)) / np.sqrt(DX_H)).astype(np.float32),
+        "b_dec": (0.1 * rng.normal(size=c)).astype(np.float32),
+    }
+    params["b_enc"][:8] -= 100.0  # 8 latents never fire
+    return params, rng.normal(size=(DX_T, c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "bf16_cache"])
+@pytest.mark.parametrize("c", DX_WIDTHS)
+def test_dx_matches_jax_at_a_coder_width(c, case):
+    """compute_dx=True at widths the dx route takes and the first port's dx
+    kernels did not, against the JAX op in interpret mode, with the module
+    docstring's dx tolerances; bf16_cache feeds x in bf16 to both."""
+    import ml_dtypes
+
+    params, x = _dx_setup(c)
+    assert matryoshka_prefix_counts(DX_H, DX_PREFIXES) == DX_BOUNDS
+    cd = "f32" if case == "f32" else "bf16"
+    if case == "bf16_cache":
+        xb = x.astype(ml_dtypes.bfloat16)
+        jx, tx = jnp.asarray(xb), torch.from_numpy(xb.view(np.uint16)).view(torch.bfloat16)
+    else:
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jgx = jax.grad(lambda xx: jax_loss_terms(jp, xx, LAMBDA, 1, DX_PREFIXES,
+                                             compute_dtype=JDT[cd], compute_dx=True,
+                                             **JTILES)["loss"])(jx)
+    tx = tx.requires_grad_(True)
+    terms = fm.fused_matryoshka_sae_loss_terms(convert.sae_params_from_jax(params), tx, LAMBDA,
+                                               1, DX_PREFIXES, compute_dtype=TDT[cd],
+                                               compute_dx=True)
+    (tgx,) = torch.autograd.grad(terms["loss"], [tx])
+    ref = np.asarray(jgx, dtype=np.float32)
+    rtol, atol = (1e-4, 1e-7) if cd == "f32" else (0, 2.0**-8 * np.abs(ref).max())
+    np.testing.assert_allclose(tgx.float().numpy(), ref, rtol=rtol, atol=atol)
+    assert np.abs(ref).max() > 0
+
+
+@pytest.mark.parametrize("c,bounds,dtype", [
+    (484, DX_BOUNDS, torch.bfloat16),  # TMA: bf16 widths multiples of 8
+    (72, (64, 256), torch.bfloat16),   # a boundary inside a 128-latent group
+    (72, (64, 256), torch.float32),
+])
+def test_dx_wrapper_refuses_before_launch(c, bounds, dtype):
+    """The dx wrapper takes the forward's rule (the coder bodies' widths, prefix
+    boundaries multiples of 128) and raises ValueError before any library is
+    loaded (meta tensors here)."""
+    ops = (torch.empty(DX_T, c, dtype=dtype, device="meta"),
+           torch.empty(c, DX_H, dtype=dtype, device="meta"), torch.empty(DX_H, device="meta"),
+           torch.empty(DX_H, c, dtype=dtype, device="meta"),
+           torch.empty(len(bounds), DX_T, c, dtype=dtype, device="meta"),
+           torch.empty(2, device="meta"))
+    with pytest.raises(ValueError, match="not supported"):
+        fm.dx_kernel(*ops, bounds)
+    assert fm.dx_kernel.launches == 0

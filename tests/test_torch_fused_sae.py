@@ -17,9 +17,11 @@ Tolerances:
   * db_dec: its centring term multiplies a bf16-rounded db_enc; the TPU kernel
     rounds each token tile's partial sum, the port the whole batch's sum once,
     so each term can differ by a bf16 half-ulp of db_enc: 1e-2 of max|db_dec|.
-- dx (compute_dx=True, the dx kernel's plain version): f32 rtol 1e-4, atol
+- dx (compute_dx=True, the dx entry point's plain version): f32 rtol 1e-4, atol
   1e-7 (tests/test_fused_sae.py:52); bf16 one bf16 ulp of max|dx|, since its
-  product round(dpre)·W_encᵀ is a transposed bf16 product in the Pallas kernel.
+  product round(dpre)·W_encᵀ is a transposed bf16 product in the Pallas kernel;
+  with a bf16 x (bf16_cache) autograd rounds the port's dx to bf16, which the
+  same ulp covers (the JAX op returns it in f32).
 - C = 480 (a width the coder bodies take and the old SAE kernels did not): the
   same tolerances, with the [T, C] reconstructions atol 2e-5 besides (both
   sides sum 512 latents' products in f32, in other orders).
@@ -135,6 +137,70 @@ def test_dx_matches_jax(setup, case):
     assert np.abs(ref).max() > 0
 
 
+# bf16 widths of the dx route that the first port's SIMT dx kernels refused
+DX_WIDTHS = (72, 136)
+DX_T, DX_H = 256, 256
+
+
+@functools.cache
+def _dx_setup(c):
+    rng = np.random.default_rng(c)
+    params = {
+        "W_enc": (rng.normal(size=(c, DX_H)) / np.sqrt(c)).astype(np.float32),
+        "b_enc": (-0.05 + 0.05 * rng.normal(size=DX_H)).astype(np.float32),
+        "W_dec": (rng.normal(size=(DX_H, c)) / np.sqrt(DX_H)).astype(np.float32),
+        "b_dec": (0.1 * rng.normal(size=c)).astype(np.float32),
+    }
+    params["b_enc"][:8] -= 100.0  # 8 latents never fire
+    return params, rng.normal(size=(DX_T, c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("c", DX_WIDTHS)
+def test_dx_matches_jax_at_a_coder_width(c, case):
+    """compute_dx=True at widths the dx route takes (the coder bodies' rule) and
+    the first port's dx kernels did not, against the JAX op in interpret mode,
+    with the module docstring's dx tolerances."""
+    cd, xd = CASES[case]
+    params, jx, tx = _inputs(_dx_setup(c), xd)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jgx = jax.grad(lambda xx: jax_fused(jp, xx, LAMBDA, 1, compute_dtype=JDT[cd],
+                                        compute_dx=True, **JTILES)["loss"])(jx)
+    tx = tx.requires_grad_(True)
+    out = fused_sae.fused_sae_loss_terms(convert.sae_params_from_jax(params), tx, LAMBDA, 1,
+                                         compute_dtype=TDT[cd], compute_dx=True)
+    (tgx,) = torch.autograd.grad(out["loss"], [tx])
+    ref = np.asarray(jgx, dtype=np.float32)
+    rtol, atol = (1e-4, 1e-7) if cd == "float32" else (0, 2.0**-8 * np.abs(ref).max())
+    np.testing.assert_allclose(tgx.float().numpy(), ref, rtol=rtol, atol=atol)
+    assert np.abs(ref).max() > 0
+
+
+@pytest.mark.parametrize("t,h,c,dtype,ok", [
+    # every GoogLeNet width above 256 in bf16: mixed3b 480, 4d 528, 4e/5a 832, 5b 1024
+    (8192, 4096, 480, torch.bfloat16, True), (8192, 4096, 528, torch.bfloat16, True),
+    (8192, 4096, 832, torch.bfloat16, True), (8192, 4096, 1024, torch.bfloat16, True),
+    (8192, 4096, 484, torch.bfloat16, False),  # TMA: bf16 widths multiples of 8
+    (256, 256, 33, torch.float32, True),  # f32: any width
+    (200, 256, 64, torch.float32, False), (256, 200, 64, torch.bfloat16, False),  # T, H
+])
+def test_dx_takes_the_coder_bodies_widths(t, h, c, dtype, ok):
+    """The dx wrapper checks its operands by the coder bodies' rule (can_fuse)
+    before any library is loaded, so a shape it refuses raises ValueError on
+    every machine (meta tensors here)."""
+    ops = (torch.empty(t, c, dtype=dtype, device="meta"),
+           torch.empty(c, h, dtype=dtype, device="meta"), torch.empty(h, device="meta"),
+           torch.empty(h, c, dtype=dtype, device="meta"))
+    assert fused_sae.can_fuse(t, h, c, dtype) is ok
+    if ok:
+        assert fused_sae._check_operands(*ops) == (t, c, h)
+    else:
+        with pytest.raises(ValueError, match="not supported"):
+            fused_sae.dx_kernel(*ops, torch.empty(t, c, dtype=dtype, device="meta"),
+                                torch.empty(2, device="meta"))
+    assert fused_sae.dx_kernel.launches == 0
+
+
 def test_bf16_backward_equals_jnp_replica(setup):
     """In bf16 the port's backward equals the Pallas backward body's formulas
     (fused_sae.py:_bwd_kernel) written in plain jnp, on one token tile, to f32
@@ -189,7 +255,9 @@ def test_plain_backward_matches_autograd_of_plain_forward(setup):
         loss, [leaves[k] for k in ("W_enc", "b_enc", "W_dec", "b_dec")] + [xg])
     err = (recon - xt).detach()
     ops = (xt, tp["W_enc"], tp["b_enc"], tp["W_dec"], tp["b_dec"], err, coeffs)
-    mine = fused_sae.fused_sae_backward_plain(*ops) + (fused_sae.fused_sae_dx_plain(*ops),)
+    x_cent = fused_sae.center_plain(xt, tp["b_dec"])
+    mine = fused_sae.fused_sae_backward_plain(*ops) + (
+        fused_sae.fused_sae_dx_plain(x_cent, tp["W_enc"], tp["b_enc"], tp["W_dec"], err, coeffs),)
     for a, b, name in zip(mine, auto, ("W_enc", "b_enc", "W_dec", "b_dec", "x")):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-7, err_msg=name)
 
@@ -209,7 +277,7 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
                                      torch.empty(2, device="meta"))
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_sae.fused_sae_dx(torch.empty(T, C, device="meta"), tp["W_enc"], tp["b_enc"],
-                               tp["W_dec"], tp["b_dec"], torch.empty(T, C, device="meta"),
+                               tp["W_dec"], torch.empty(T, C, device="meta"),
                                torch.empty(2, device="meta"))
 
 
@@ -243,7 +311,7 @@ def test_kernel_wrapper_validates_before_launch(setup):
                              tp["b_enc"], tp["W_dec"], tp["b_dec"])
     with pytest.raises(ValueError, match="err must be"):
         fused_sae.dx_kernel(torch.from_numpy(x), tp["W_enc"], tp["b_enc"], tp["W_dec"],
-                            tp["b_dec"], torch.zeros(T, C + 1), torch.zeros(2))
+                            torch.zeros(T, C + 1), torch.zeros(2))
     assert all(k.launches == 0 for k in fused_sae.KERNELS)
 
 
