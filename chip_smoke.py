@@ -7,8 +7,8 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
   1. device:  require CUDA; print the card's name and power limit (nvidia-smi).
   2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc, one
               process per source, all started together; print each
-              instantiation's registers (the forwards' beside their count
-              before the dx route joined them) and fail on any spill.
+              instantiation's registers (beside REGISTERS_BEFORE's count
+              where it has one) and fail on any spill.
   3. kernels: hold each kernel against its plain PyTorch version on the card at
               the training shape (SAEs: T=32768 tokens, C=256, H=16384 latents,
               the Matryoshka prefixes ending at 1024, 4096 and 16384; the
@@ -24,12 +24,13 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               C=832 (the in-place forward), and each is timed there, the two
               dx entry points too (above C=256 the dx route of the in-place
               body; 20 bitwise-equal ReLU dx launches at 832); so are
-              the bf16 JumpReLU and gated forwards and backwards (the coder
-              bodies' Act::Jump and Act::Gated epilogues; the gated forward's
-              two launches, Act::GatedEnc and Act::GatedPi, above C=256), also
-              at a ragged shape (T=1152, H=640, C=136), 20 bitwise-equal
-              launches each at C=832. The ptxas report names each
-              instantiation with its registers and spill bytes. The
+              the JumpReLU and gated forwards and backwards in both dtypes (the
+              coder bodies' Act::Jump and Act::Gated epilogues; the gated
+              forward's two launches, Act::GatedEnc and Act::GatedPi, above
+              C=256 in bf16 and always in f32), also at a ragged shape (T=1152,
+              H=640, C=136), 20 bitwise-equal bf16 launches each at C=832.
+              The ptxas report names each instantiation with its registers
+              and spill bytes. The
               transcoder/crosscoder pair is also held to
               its plain versions at ragged shapes (T=1152, C_in=264, H=640,
               C_out=136 and 520: a partial token step, latent group and channel
@@ -48,8 +49,15 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               gated_sae, jumprelu_sae and matryoshka_sae (the rolling dead window
               restarts at steps 4, 8 and 12), the transcoder mixed3a -> mixed3b
               and the crosscoder mixed4a..mixed4e (8,192 latents, 12 steps of
-              16,384 tokens), both resampling like sae_mlp; every kernel launch
-              count is reset just before each run and read after it.
+              16,384 tokens; sae_input_norm="rms" at λ 5), both resampling
+              like sae_mlp; every kernel launch count is reset just before each
+              run and read after it.
+  7. cache:   the host side of the cached path at the sae_mlp slice's shape:
+              an overlap_dump_train run (12 + 12 launches) whose shards are
+              byte-equal to a sequential dump's; every stack that prefetch
+              stages onto the card bitwise equal to a synchronous copy, read
+              behind fused launches; an int8-cache run through the
+              device-dequant steps within 5% of the bf16 run's last eval.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -57,8 +65,10 @@ Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -111,7 +121,6 @@ LAMBDA = 5.0  # sae_mlp and gated_sae
 # jumprelu_sae: λ, and the STE bandwidth of the kernel and parity phases, whose
 # inputs give pre-activations of std ~2
 LAMBDA_J, BANDWIDTH = 0.02, 1.0
-LAMBDA_C = 0.01  # the crosscoder slice's λ (SLICES)
 REPS = 5  # timed launches per measurement, after one warm-up
 
 MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
@@ -209,9 +218,9 @@ def phase_build() -> None:
         for ln in ptxas:
             log(f"[build]   {ln}")
         for kernel, regs, spill in _ptxas_kernels(b["log"]):
-            before = REGISTERS_BEFORE_DX.get(re.sub(r"^(coder_fwd\w*<.*), false>$", r"\1>", kernel))
+            before = REGISTERS_BEFORE.get(re.sub(r"^(coder_fwd_tc\w*<.*), false>$", r"\1>", kernel))
             note = "" if before is None else (
-                f" (before the dx route: {before}{'' if before == regs else ', moved'})")
+                f" (before: {before}{'' if before == regs else ', moved'})")
             log(f"[build]   {regs} registers, {spill} spill bytes: {kernel}{note}")
         spills = [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
         if spills:
@@ -219,12 +228,16 @@ def phase_build() -> None:
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
 
 
-# ptxas registers of the coder family's instantiations before the dx route
-# (kDx) joined the forward bodies (nvcc 12.8, sm_90a; this script's build phase
-# on an H100 host). The build phase prints each kDx = false instantiation
-# beside its count here: the dx route leaves them as they were.
-REGISTERS_BEFORE_DX = {
-    "coder_fwd_kernel<float, true>": 122, "coder_fwd_kernel<float, false>": 181,
+# ptxas registers of the coder family's instantiations (nvcc 12.8, sm_90a; this
+# script's build phase on an H100 host): the bf16 bodies' before the dx route
+# (kDx) joined the forward bodies, the SIMT bodies' Act::Relu instantiations
+# before the kAct epilogues joined them (the parent's sources built beside).
+# The build phase prints each instantiation here beside its count: neither
+# change moves them.
+REGISTERS_BEFORE = {
+    "coder_fwd_kernel<float, true, false, Act::Relu>": 122,
+    "coder_fwd_kernel<float, false, false, Act::Relu>": 181,
+    "coder_fwd_kernel<float, false, true, Act::Relu>": 216,
     "coder_fwd_tc<true, Act::Relu>": 255, "coder_fwd_tc<false, Act::Relu>": 247,
     "coder_fwd_tc_hold<512, true, Act::Relu>": 255,
     "coder_fwd_tc_hold<512, false, Act::Relu>": 254,
@@ -236,7 +249,8 @@ REGISTERS_BEFORE_DX = {
     "coder_fwd_tc_hold<512, false, Act::GatedEnc>": 254,
     "coder_fwd_tc<false, Act::GatedPi>": 192, "coder_fwd_tc_hold<512, false, Act::GatedPi>": 248,
     "coder_fwd_tc_hold<256, false, Act::Gated>": 255,
-    "coder_bwd_kernel<float, true>": 197, "coder_bwd_kernel<float, false>": 189,
+    "coder_bwd_kernel<float, true, Act::Relu>": 197,
+    "coder_bwd_kernel<float, false, Act::Relu>": 189,
     "coder_bwd_tc<true, Act::Relu>": 251, "coder_bwd_tc<false, Act::Relu>": 254,
     "coder_bwd_tc<true, Act::Jump>": 248, "coder_bwd_tc<true, Act::Gated>": 254,
 }
@@ -762,18 +776,16 @@ def kernels_sae_widths(cd, tag: str) -> dict:
 
 
 def kernels_act_widths(cd, tag: str) -> dict:
-    """The JumpReLU and gated forwards and backwards in bf16 (in f32 the SIMT
-    bodies take C in {64, 128, 256}) on _exact_inputs' grid against the plain
-    versions of their routes, the backwards' errors from the forwards' plain
-    versions: first at the ragged shape (RAGGED_*: a partial token step and
-    channel chunk; the forwards' register-held bodies,
-    the gated one with recon and via_gate held together), then at C = 480 (the
-    held 512-column bodies; the gated forward's two launches) and 832 (the
-    in-place bodies) with T = 8,192, H = 4,096, where each is timed; REPEATS
-    launches of each at C = 832 must agree bitwise. No rows: the kernels line
-    keeps the main path's."""
-    if cd != torch.bfloat16:
-        return {}
+    """The JumpReLU and gated forwards and backwards on _exact_inputs' grid
+    against the plain versions of their routes, the backwards' errors from the
+    forwards' plain versions: first at the ragged shape (RAGGED_*: a partial
+    token step and channel chunk; in bf16 the forwards' register-held bodies,
+    the gated one with recon and via_gate held together), then at C = 480 (bf16:
+    the held 512-column bodies, the gated forward's two launches) and 832 (bf16:
+    the in-place bodies) with T = 8,192, H = 4,096, where each is timed. In f32
+    every shape runs the SIMT bodies (the gated forward in two launches). In
+    bf16 REPEATS launches of each at C = 832 must agree bitwise. No rows: the
+    kernels line keeps the main path's."""
     for t, h, c in ((RAGGED_T, RAGGED_H, RAGGED_C),) + tuple((W_T, W_H, c) for c in W_WIDTHS):
         gen = torch.Generator(device=DEVICE).manual_seed(c)
         w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
@@ -1179,25 +1191,46 @@ SLICES = {
     "transcoder": (dict(sae_lambda_sparse=LAMBDA, transcoder_target_layer="mixed3b"),
                    (4, 9, 12), None),
     # bench_crosscoder.py:3-6: mixed4a..mixed4e (ΣC = 2,896), 8,192 latents, Adam,
-    # 16,384 tokens a step; 12 steps need 1,004 images of 196 tokens. λ scaled to
-    # the stand-in activations: their summed MSE at init is ~3.6e-5, so at λ = 5
-    # the L1 term is ~90x it, and at λ = 5 or 0.1 over 98% of the latents die
-    # within four steps (PERF.md §4)
-    "crosscoder": (dict(sae_lambda_sparse=LAMBDA_C, sae_layer="mixed4a",
+    # λ 5, 16,384 tokens a step; 12 steps need 1,004 images of 196 tokens. Each
+    # layer trains divided by its cache's token RMS (sae_input_norm="rms"): on the
+    # raw stand-in activations (summed MSE ~3.6e-5 at init) λ 5 killed 98% of
+    # the latents within four steps (PERF.md §4)
+    "crosscoder": (dict(sae_lambda_sparse=LAMBDA, sae_input_norm="rms", sae_layer="mixed4a",
                         crosscoder_layers="mixed4b,mixed4c,mixed4d,mixed4e",
                         sae_expansion_factor=16, sae_optimizer_name="adam",
                         cache_tokens_per_step=16384), (4, 9, 12), 1024),
 }
 
 
-def phase_slice(name: str, profile: bool = False) -> dict:
-    """One north-star-width run of ``name`` through the port's Pipeline; returns
-    launches per kernel. ``profile`` traces it with torch.profiler and prints
-    device time by kernel."""
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
-    shutil.rmtree(WORK, ignore_errors=True)
-    fields, restarts, n_train = SLICES[name]
+# device work of a traced run, by the start of its name in torch.profiler's
+# averages: the host-device copies, the port's kernels (csrc/), and the rest
+# (backbone, optimizer, losses, evals)
+PORT_KERNELS = ("coder_", "center_kernel", "scale_err_kernel")
+
+
+def _device_split(averages) -> str:
+    """One line: the traced run's device time by kind, from torch.profiler's
+    key_averages (self device time, microseconds)."""
+    parts = {"HtoD": 0.0, "DtoH": 0.0, "DtoD": 0.0, "port kernels": 0.0, "other": 0.0}
+    for e in averages:  # device events only, as the table's total counts them
+        if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False):
+            continue
+        if e.key.startswith("Memcpy"):
+            kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in e.key), "DtoD")
+        elif any(k in e.key for k in PORT_KERNELS):
+            kind = "port kernels"
+        else:
+            kind = "other"
+        parts[kind] += e.self_device_time_total
+    total = sum(parts.values())
+    return (f"device time {total / 1e3:.1f} ms: " + ", ".join(
+        f"{k} {v / 1e3:.1f} ms ({v / max(total, 1e-9):.1%})" for k, v in parts.items()))
+
+
+def _slice_config(name: str, extra: dict | None = None) -> tuple:
+    """(RunConfig, datasets or None) of the slice ``name`` with the fields
+    ``extra`` beyond SLICES'."""
+    fields, _, n_train = SLICES[name]
     cfg = RunConfig(**{
         **dict(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
                sae_model_name=name, sae_expansion_factor=64,
@@ -1205,7 +1238,7 @@ def phase_slice(name: str, profile: bool = False) -> dict:
                sae_batch_size=256, use_activation_cache=True, cache_tokens_per_step=32768,
                cache_dtype="bfloat16", sae_epochs=1, dead_neurons_steps=4,
                directory_path=str(WORK)),
-        **fields})
+        **fields, **(extra or {})})
     datasets = None
     if n_train is not None:  # the synthetic stand-in of load_data, with more train images
         size = (229, 229, 3)
@@ -1214,9 +1247,25 @@ def phase_slice(name: str, profile: bool = False) -> dict:
         val = make_synthetic(num_samples=256, seed=cfg.seed + 1, img_size=size,
                              num_classes=1000)
         datasets = (train, val, train.category_names, size)
+    return cfg, datasets
+
+
+def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
+                label: str = "", keep: bool = False) -> tuple:
+    """One north-star-width run of ``name`` through the port's Pipeline, with
+    the config fields ``extra`` beyond SLICES' (``label`` names the run in the
+    log); returns (launches per kernel, the last eval's means, the cache
+    directory of its sae_layer, which ``keep`` leaves on disk). ``profile``
+    traces the run with torch.profiler and prints device time by kernel."""
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
+    shutil.rmtree(WORK, ignore_errors=True)
+    restarts = SLICES[name][1]
+    name_log = f"{name}{label}"
+    cfg, datasets = _slice_config(name, extra)
     t0 = time.perf_counter()
     pipe = Pipeline(cfg, datasets=datasets)
-    log(f"[slice {name}] pipeline built in {time.perf_counter() - t0:.1f} s "
+    log(f"[slice {name_log}] pipeline built in {time.perf_counter() - t0:.1f} s "
         f"(train {len(pipe.train_ds)} / val {len(pipe.val_ds)} images, "
         f"{pipe.num_units} latents)")
     before = {k: v.clone() for k, v in pipe.ts.params.items()}
@@ -1229,65 +1278,178 @@ def phase_slice(name: str, profile: bool = False) -> dict:
 
         with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             pipe.train_sae()
-        log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+        averages = prof.key_averages()
+        log(averages.table(sort_by="self_device_time_total", row_limit=25))
+        log(f"[slice {name_log}] {_device_split(averages)}")
     else:
         pipe.train_sae()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS}
-    log(f"[slice {name}] train_sae (dump, 12 steps, 2 evals) in {wall:.1f} s; "
+    log(f"[slice {name_log}] train_sae (dump, 12 steps, 2 evals) in {wall:.1f} s; "
         f"launches {launches}")
 
     steps = [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]
     for s, m in steps:
-        log(f"[slice {name}] step {s}: sae_loss {m['sae_loss']:.6g} rec "
+        log(f"[slice {name_log}] step {s}: sae_loss {m['sae_loss']:.6g} rec "
             f"{m['sae_rec_loss']:.6g} l1 {m['sae_l1_loss']:.6g} sparsity "
             f"{m['sparsity']:.6g} perc_dead {m['perc_dead']:.6g}")
     if len(steps) != 12:
-        raise AssertionError(f"{name}: expected 12 train steps, ran {len(steps)}")
+        raise AssertionError(f"{name_log}: expected 12 train steps, ran {len(steps)}")
     if not all(math.isfinite(v) for _, m in steps for v in m.values()):
-        raise AssertionError(f"{name}: non-finite step metric")
+        raise AssertionError(f"{name_log}: non-finite step metric")
     by_step = dict(steps)
     # each restart leaves an all-True accumulator, which perc_dead reads (the
     # JAX step's documented quirk)
     for s in restarts:
         if by_step[s]["perc_dead"] != 1.0:
-            raise AssertionError(f"{name}: no restart of the dead accumulator at step {s}: "
+            raise AssertionError(f"{name_log}: no restart of the dead accumulator at step {s}: "
                                  f"perc_dead {by_step[s]['perc_dead']}")
     # and between restarts latents fire, so the restarts are what set it to 1
     if not all(m["perc_dead"] < 1.0 and m["sparsity"] > 0.0
                for s, m in steps if s not in restarts):
-        raise AssertionError(f"{name}: every latent dead between restarts")
+        raise AssertionError(f"{name_log}: every latent dead between restarts")
     timing = pipe.train_timing[0]
-    log(f"[slice {name}] training loop: {timing['steps']} steps, {timing['tokens']} tokens "
+    log(f"[slice {name_log}] training loop: {timing['steps']} steps, {timing['tokens']} tokens "
         f"in {timing['seconds']:.3f} s = {timing['tokens'] / timing['seconds']:.0f} tokens/s "
         "(host clock, ends in a synchronize)")
     if len(pipe.eval_log) != 2:
-        raise AssertionError(f"{name}: expected evals before and after the epoch")
+        raise AssertionError(f"{name_log}: expected evals before and after the epoch")
     for epoch, m in pipe.eval_log:
-        log(f"[slice {name}] eval epoch {epoch}: " + json.dumps(m, sort_keys=True))
+        log(f"[slice {name_log}] eval epoch {epoch}: " + json.dumps(m, sort_keys=True))
         if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"{name}: non-finite eval metric at epoch {epoch}")
+            raise AssertionError(f"{name_log}: non-finite eval metric at epoch {epoch}")
     trained = (MODULES[name].fwd_kernel, MODULES[name].bwd_kernel)  # not dx: x is data
     for k in KERNELS:
         want = 12 if k in trained else 0
         if launches[k.name] != want:
-            raise AssertionError(f"{name}: expected {want} launches of {k.name}, got "
+            raise AssertionError(f"{name_log}: expected {want} launches of {k.name}, got "
                                  f"{launches[k.name]}")
     for k, v in pipe.ts.params.items():
         moved = int((v != before[k]).sum())
-        log(f"[slice {name}] {k}: {moved} of {v.numel()} entries moved")
+        log(f"[slice {name_log}] {k}: {moved} of {v.numel()} entries moved")
         if k == "log_threshold" and moved == 0:
-            raise AssertionError(f"{name}: no threshold moved: the STE path did not train")
+            raise AssertionError(f"{name_log}: no threshold moved: the STE path did not train")
     if name == "crosscoder":
         with open(pipe.decoder_norms_path) as f:
             rows = sum(1 for _ in f) - 1
-        log(f"[slice {name}] decoder-norm CSV {pipe.decoder_norms_path}: {rows} rows")
+        log(f"[slice {name_log}] decoder-norm CSV {pipe.decoder_norms_path}: {rows} rows")
         if rows != pipe.num_units:
-            raise AssertionError(f"{name}: decoder-norm CSV has {rows} rows, not one per latent")
+            raise AssertionError(f"{name_log}: decoder-norm CSV has {rows} rows, not one per "
+                                 "latent")
+    last_eval, cache_dir = pipe.eval_log[-1][1], pipe._cache_dir(cfg.sae_layer)
     del pipe
     torch.cuda.empty_cache()
+    if not keep:
+        shutil.rmtree(WORK, ignore_errors=True)
+    return {k: v for k, v in launches.items() if v}, last_eval, cache_dir
+
+
+# ---------------------------------------------------------------------------
+# cache phase
+# ---------------------------------------------------------------------------
+
+STAGE_ROUNDS = 8  # passes over the cache's stacks: each pinned buffer size is reused
+INT8_BOUND = 0.05  # relative: the int8 run's last sae_rec_loss and sparsity vs bf16's
+
+
+def _staged_copies_equal(cache_dir: str) -> None:
+    """(a) Every stack that prefetch stages onto the card (pinned buffers, a
+    side stream, an event each) is bitwise equal to a synchronous copy of the
+    same host stack, read after two fused forward launches queued on the compute
+    stream; over STAGE_ROUNDS passes each pinned buffer is reused, so a buffer
+    refilled before its copy had landed would show."""
+    from sparse_vision_tpu_torch.data.activation_cache import ActivationCache
+    from sparse_vision_tpu_torch.data.prefetch import prefetch
+
+    host = list(ActivationCache(cache_dir).stacks(T, Pipeline.CACHE_SCAN_K, shuffle=True))
+    items = host * STAGE_ROUNDS
+    ops = _relu_exact_operands(torch.bfloat16)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i, staged in enumerate(prefetch(iter(items), DEVICE)):
+            for _ in range(2):  # the compute stream is busy when the stack is read
+                fused_sae.fused_sae_forward(*ops)
+            if not torch.equal(staged, items[i].to(DEVICE)):
+                raise AssertionError(f"cache: staged stack {i} differs from a synchronous copy")
+    torch.cuda.synchronize()
+    log(f"[cache] (a) {len(items)} staged stacks ({[tuple(h.shape) for h in host]}, "
+        f"{STAGE_ROUNDS} passes) bitwise equal to synchronous copies, read behind fused "
+        f"launches, in {time.perf_counter() - t0:.1f} s")
+
+
+def _same_bytes(a: str, b: str) -> int:
+    """Fail unless directories ``a`` and ``b`` hold the same files with the same
+    bytes; returns the file count."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)) or any(".tmp" in n for n in names):
+        raise AssertionError(f"cache: files differ: {names} vs {sorted(os.listdir(b))}")
+    for n in names:
+        if Path(a, n).read_bytes() != Path(b, n).read_bytes():
+            raise AssertionError(f"cache: {n} differs between {a} and {b}")
+    return len(names)
+
+
+def phase_cache(bf16_eval: dict) -> None:
+    """The host side of the cached path at the sae_mlp slice's shape (mixed3a,
+    bf16 cache, T 32,768, K 8): (b) an overlap_dump_train run (the dump on a
+    thread of its own stream, the epoch streamed from its shards) makes 12
+    finite steps with 12 + 12 launches, and its shards are byte-equal to a
+    sequential dump's; (a) the staged copies of that cache are bitwise equal to
+    synchronous ones (_staged_copies_equal); (c) a cache_dtype="int8" run makes
+    its 12 steps through the device-dequantizing steps, and its last eval's
+    sae_rec_loss and sparsity are within INT8_BOUND of the bf16 slice's
+    (``bf16_eval``; tests/test_int8_cache.py:100-110's bound)."""
+    import sparse_vision_tpu_torch.train.pipeline as pipeline_mod
+    from sparse_vision_tpu_torch.data.activation_cache import dump_activations
+
+    _, _, over_dir = phase_slice("sae_mlp", extra=dict(overlap_dump_train=True),
+                                 label=" (overlap_dump_train)", keep=True)
+    cfg, _ = _slice_config("sae_mlp")
+    pipe = Pipeline(dataclasses.replace(cfg, directory_path=str(WORK / "sequential")))
+    seq_dir = pipe._cache_dir(cfg.sae_layer)
+    t0 = time.perf_counter()
+    dump_activations(pipe.net, pipe.frozen_params, pipe.net_state, pipe.train_ds,
+                     cfg.sae_layer, seq_dir, device=pipe.device, **pipe._cache_dump_kwargs())
+    del pipe
+    n = _same_bytes(over_dir, seq_dir)
+    log(f"[cache] (b) the overlapped dump's {n} files are byte-equal to a sequential dump's "
+        f"(sequential dump {time.perf_counter() - t0:.1f} s)")
+    _staged_copies_equal(seq_dir)
     shutil.rmtree(WORK, ignore_errors=True)
-    return {k: v for k, v in launches.items() if v}
+
+    quant = {"multi": 0, "single": 0}
+
+    def counted(make, key):
+        def wrapped(step_fn):
+            inner = make(step_fn)
+
+            def run(ts, q, *rest):
+                if q.dtype != torch.int8 or q.device.type != torch.device(DEVICE).type:
+                    raise AssertionError(f"cache: the quant step got {q.dtype} on {q.device}")
+                quant[key] += 1
+                return inner(ts, q, *rest)
+            return run
+        return wrapped
+
+    saved = (pipeline_mod.make_sae_train_multi_step_quant, pipeline_mod.make_dequant_step_fn)
+    pipeline_mod.make_sae_train_multi_step_quant = counted(saved[0], "multi")
+    pipeline_mod.make_dequant_step_fn = counted(saved[1], "single")
+    try:
+        _, int8_eval, _ = phase_slice("sae_mlp", extra=dict(cache_dtype="int8"),
+                                      label=" (int8 cache)")
+    finally:
+        pipeline_mod.make_sae_train_multi_step_quant, pipeline_mod.make_dequant_step_fn = saved
+    steps = Pipeline.CACHE_SCAN_K * quant["multi"] + quant["single"]
+    if steps != 12:
+        raise AssertionError(f"cache: {steps} of 12 steps took the device-dequant steps")
+    for key in ("sae_rec_loss", "sparsity"):
+        rel = abs(int8_eval[key] - bf16_eval[key]) / abs(bf16_eval[key])
+        log(f"[cache] (c) int8 {key} {int8_eval[key]:.6g} vs bf16 {bf16_eval[key]:.6g}: "
+            f"{rel:.4%} apart (bound {INT8_BOUND:.0%})")
+        if not rel <= INT8_BOUND:
+            raise AssertionError(f"cache: int8 {key} is {rel:.2%} from bf16's")
+    log(f"[cache] (c) {quant['multi']} multi-step and {quant['single']} single dispatches "
+        "dequantized int8 stacks on the card")
 
 
 def main() -> int:
@@ -1302,8 +1464,11 @@ def main() -> int:
     rows = phase_kernels()
     phase_parity()
     launches = phase_dx()
+    evals = {}
     for name in SLICES:
-        launches.update(phase_slice(name, args.profile))
+        got, evals[name], _ = phase_slice(name, args.profile)
+        launches.update(got)
+    phase_cache(evals["sae_mlp"])
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

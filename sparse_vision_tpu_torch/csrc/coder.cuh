@@ -5,21 +5,22 @@
 // ReLU and Matryoshka SAE ops), whose C entry points call coder_fwd / coder_bwd
 // at the end of this file (and fused_sae.cu's sae_dx launches the dx route),
 // and by fused_jumprelu_sae.cu and fused_gated_sae.cu, whose bf16 forwards and
-// backwards call fwd_tc / bwd_tc with variant epilogues (kAct, below).
+// backwards call fwd_tc / bwd_tc, and f32 ones fwd_simt / bwd_simt, with
+// variant epilogues (kAct, below).
 //
 // Replaces these Pallas TPU kernels (sparse_vision_tpu/ops/):
 //   forward  <- fused_transcoder.py _fwd_kernel (:41), pallas_call :227
 //               fused_crosscoder.py _fwd_kernel (:68), pallas_call :238
 //               fused_sae.py _fwd_kernel (:43), pallas_call :321
 //               fused_matryoshka_sae.py _fwd_kernel (:99), pallas_call :292
-//               fused_jumprelu_sae.py _fwd_kernel (:30), pallas_call :192 (bf16)
-//               fused_gated_sae.py _fwd_kernel (:42), pallas_call :234 (bf16)
+//               fused_jumprelu_sae.py _fwd_kernel (:30), pallas_call :192
+//               fused_gated_sae.py _fwd_kernel (:42), pallas_call :234
 //   backward <- fused_transcoder.py _bwd_kernel (:91), pallas_call :264
 //               fused_crosscoder.py _bwd_kernel (:109), pallas_call :274
 //               fused_sae.py _bwd_kernel (:96), pallas_call :391
 //               fused_matryoshka_sae.py _bwd_kernel (:155), pallas_call :371
-//               fused_jumprelu_sae.py _bwd_kernel (:80), pallas_call :248 (bf16)
-//               fused_gated_sae.py _bwd_kernel (:98), pallas_call :292 (bf16)
+//               fused_jumprelu_sae.py _bwd_kernel (:80), pallas_call :248
+//               fused_gated_sae.py _bwd_kernel (:98), pallas_call :292
 //   dx       <- fused_sae.py _dx_kernel (:168), pallas_call :422
 //               fused_matryoshka_sae.py _dx_kernel (:227), pallas_call :404
 // The ops differ in their L1 statistic, so one body pair serves all: the forward
@@ -43,10 +44,13 @@
 //     which read S_0; and each block writes one row of db_dec's centring term,
 //     -round_T(db_enc tile) @ W_enc tile^T, in its epilogue (SaeBwd::db_cent
 //     [H / 64, Cin], reduced by the caller; no float atomics).
-//   kAct (the bf16 bodies; no kPrefix in the forward, kSae in the backward):
-//     Act::Relu is the body above; the others are the JumpReLU and gated SAEs'
-//     epilogues, with their per-latent operands from ActFwd (forward) or
-//     SaeBwd::act (backward).
+//   kAct (every body; no kPrefix or kDx in the forward, kSae in the
+//     backward): Act::Relu is the body above; the others are the JumpReLU and
+//     gated SAEs' epilogues, with their per-latent operands from ActFwd
+//     (forward) or SaeBwd::act (backward). The SIMT bodies (f32) compute the
+//     same formulas; their gated forward is always the two launches below
+//     (GatedEnc, GatedPi), and their backward reads the errors as the ops saved
+//     them, in f32, applying c_rec (and the gated op's c_aux) itself.
 //     Forward (post_epilogue): Jump keeps pre where pre > theta; Gated reads
 //     one encode product g as pre_gate = g + b_gate and pre_mag = g*er + b_mag,
 //     enc = gate * relu(pre_mag) is post (counted) and relu_pi = relu(pre_gate)
@@ -107,9 +111,10 @@
 //     No separate producer warp: a block of 9 or 12 warps gets 168 registers a
 //     thread (each SM's four register banks hold 16,384 each), setmaxnreg did
 //     not raise the consumers' budget under nvcc 12.8, and the bodies spilled.
-//   f32 (the check path): coder_fwd_kernel<float> (with the dx route) and
-//     coder_bwd_kernel<float>, the SIMT FMA bodies of the first port (TF32
-//     would miss the f32 tolerances). Any positive width.
+//   f32 (the check path): coder_fwd_kernel<float> (with the dx route and the
+//     kAct epilogues) and coder_bwd_kernel<float> (kAct too), the SIMT FMA
+//     bodies of the first port (TF32 would miss the f32 tolerances). Any
+//     positive width.
 //
 // What bounds them. At the transcoder's training shape (T = 32,768, H = 16,384,
 // 256 -> 480) the forward is 2*T*H*(Cin+Cout) = 0.79 TFLOP and the backward twice
@@ -225,6 +230,11 @@ constexpr size_t fwd_smem_bytes() {
          + sizeof(int) * (16 * kFwdLG + kFwdTT);   // ccnt_s, rcnt_s
 }
 
+// The epilogue of the bodies (kAct; header note): the ReLU of the coder family,
+// the JumpReLU SAE's or the gated SAE's; GatedEnc and GatedPi are the two
+// halves of the gated forward's two-launch route (forward only).
+enum class Act { Relu, Jump, Gated, GatedEnc, GatedPi };
+
 // The dx route's operands (kDx; header note), an empty struct in the forward:
 // the trailing parameter of coder_fwd_tc_hold and coder_fwd_kernel. m_err maps
 // err for the bf16 body's TMA.
@@ -271,14 +281,24 @@ struct TcFwd {
 // the err channels (of the group's level) gives dpost in pre's registers,
 // round_T(dpre) takes post's place, and the decode reads W_enc^T; the first
 // group writes -c_rec * err_0 + acc, no statistics.
-template <typename T, bool kPrefix, bool kDx = false>
+// kAct (no kPrefix, no kDx; the f32 JumpReLU and gated SAEs): post_epilogue's
+// formulas with af's per-latent operands read from device memory. Jump: post
+// = pre > theta ? pre : 0, counted where != 0, summed. GatedEnc / GatedPi, the
+// gated forward's two launches (recon is updated in place, so one body cannot
+// hold recon and via): pre is the gate product g, b_enc is b_gate; GatedEnc
+// decodes enc into recon with the counts (no zsum_part), GatedPi relu(pre_gate)
+// into via (passed as recon) with its sums (no act_part, no row_active).
+template <typename T, bool kPrefix, bool kDx = false, Act kAct = Act::Relu>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
                  const float* __restrict__ b_enc, const T* __restrict__ w_dec,
                  const float* __restrict__ b_dec, float* __restrict__ recon,
                  float* __restrict__ act_part, float* __restrict__ row_active,
                  float* __restrict__ zsum_part, int Cin, int Cout, int H,
-                 const svt::Levels lv, const DxFwd<kDx> dxf) {
+                 const svt::Levels lv, const DxFwd<kDx> dxf, const ActFwd af) {
+  static_assert(kAct != Act::Gated, "the SIMT gated forward is GatedEnc, then GatedPi");
+  static_assert(kAct == Act::Relu || !(kPrefix || kDx), "kAct epilogues: no kPrefix, no kDx");
+  constexpr bool kCount = kAct != Act::GatedPi, kSum = kAct != Act::GatedEnc;
   constexpr int TT = kFwdTT, LG = kFwdLG, KC = kKC, NC = kFwdNC, LS = kFwdLS;
   constexpr int XS = KC + 1;  // padded row strides: rows 4 apart hit other banks
   constexpr int PS = LG + 1;
@@ -393,12 +413,37 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = tx + 16 * j;
-          const float p = fmaxf(pre[i][j] + benc_s[col], 0.f);
-          const int on = p > 0.f;
-          colc[j] += on;
-          zs[j] += p;
-          rowc[i] += on;
-          post_s[(ty * 4 + i) * PS + col] = round_cd<T>(p);
+          if constexpr (kAct == Act::Relu) {
+            const float p = fmaxf(pre[i][j] + benc_s[col], 0.f);
+            const int on = p > 0.f;
+            colc[j] += on;
+            zs[j] += p;
+            rowc[i] += on;
+            post_s[(ty * 4 + i) * PS + col] = round_cd<T>(p);
+          } else {
+            float p, q;  // post, and the summed value
+            int on;
+            if constexpr (kAct == Act::Jump) {
+              const float v = pre[i][j] + benc_s[col];
+              p = v > af.theta[g0 + col] ? v : 0.f;
+              on = p != 0.f;
+              q = p;
+            } else {  // as post_epilogue's, rounded apart as the plain version
+              const float g = pre[i][j], pg = g + benc_s[col];
+              const float pm = __fadd_rn(__fmul_rn(g, af.er[g0 + col]), af.b_mag[g0 + col]);
+              const float gate = pg > 0.f ? 1.f : (pg == 0.f ? 0.5f : 0.f);
+              const float enc = __fmul_rn(gate, fmaxf(pm, 0.f));
+              q = fmaxf(pg, 0.f);
+              p = kAct == Act::GatedPi ? q : enc;
+              on = enc != 0.f;
+            }
+            if constexpr (kCount) {
+              colc[j] += on;
+              rowc[i] += on;
+            }
+            if constexpr (kSum) zs[j] += q;
+            post_s[(ty * 4 + i) * PS + col] = round_cd<T>(p);
+          }
         }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -414,8 +459,8 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
           c += ccnt_s[g * LG + l];
         }
         const long o = static_cast<long>(blockIdx.x) * H + g0 + l;
-        act_part[o] = static_cast<float>(c);
-        zsum_part[o] = z;
+        if constexpr (kCount) act_part[o] = static_cast<float>(c);
+        if constexpr (kSum) zsum_part[o] = z;
       }
     }
 
@@ -482,7 +527,7 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
     }
   }
 
-  if constexpr (!kDx) {
+  if constexpr (!kDx && kCount) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) atomicAdd(&rcnt_s[ty * 4 + i], rowc[i]);  // integer: exact
     __syncthreads();
@@ -501,11 +546,6 @@ constexpr size_t bwd_smem_bytes() {
                           + 2 * kBwdTH         // benc_s, ct_s
                           + 16 * kBwdTH);      // red_s
 }
-
-// The epilogue of the bf16 bodies (kAct; header note): the ReLU of the coder
-// family, the JumpReLU SAE's or the gated SAE's; GatedEnc and GatedPi are the
-// two halves of the gated forward's wide route (forward only).
-enum class Act { Relu, Jump, Gated, GatedEnc, GatedPi };
 
 // The JumpReLU and gated SAEs' per-latent operands and outputs (kAct).
 struct ActBwd {
@@ -538,7 +578,18 @@ struct SaeBwd {
 // The first step writes the gradients, later steps add to them: each element
 // has one owning thread, which updates it in token order. kSae: err is the
 // block's level's slice; block 0 (level 0) sums the direct db_dec rows.
-template <typename T, bool kSae>
+// kAct (with kSae; the f32 JumpReLU and gated SAEs): the epilogue of phase A
+// is coder_bwd_tc's, on err as the op saved it (c_rec and round_T applied
+// here, as for the ReLU); ct is not read.
+//   Jump (coeffs c_rec, c_l0): the strict mask pre > theta, no L1 cotangent,
+//     and the STE window's dtheta = sum_t [|pre - theta| <= eps/2] * (dpost *
+//     (-theta/eps) + c_l0 * (-1/eps)) into sae.act.dtheta.
+//   Gated (coeffs c_rec, c_l1, c_aux; err [2, T, Cout]: err_rec, then
+//     err_via): pre holds g, a third product d_relu_pi = round_T(c_aux *
+//     err_via) @ W_dec tile^T, post_s gets round_T(enc), dpre_s round_T(dg);
+//     db_enc is db_gate, sae.act.db_mag and dr_mag = (sum d_premag * g) * er
+//     the other sums, and db_dec's centring row reads round_T(sum dg).
+template <typename T, bool kSae, Act kAct = Act::Relu>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
                  const float* __restrict__ b_enc, const T* __restrict__ w_dec,
@@ -547,6 +598,9 @@ coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
                  float* __restrict__ db_enc, float* __restrict__ dw_dec,
                  float* __restrict__ db_dec_part, int n_tokens, int Cin, int Cout, int H,
                  const SaeBwd sae) {
+  static_assert(kAct == Act::Relu || kAct == Act::Jump || kAct == Act::Gated,
+                "an epilogue of the backward");
+  static_assert(kAct == Act::Relu || kSae, "the JumpReLU and gated backwards are SAEs'");
   constexpr int TH = kBwdTH, TB = kBwdTB, KC = kKC, KB = kBwdKB, NC = kBwdNC;
   constexpr int XS = KC + 1, WS = TH + 1, BS = KB + 1;
   extern __shared__ float smem[];
@@ -568,9 +622,27 @@ coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
 
   for (int i = tid; i < TH; i += kThreads) {
     benc_s[i] = b_enc[h0 + i];
-    ct_s[i] = ct[h0 + i];
+    if constexpr (kAct == Act::Relu) ct_s[i] = ct[h0 + i];
+    else if constexpr (kAct == Act::Jump) ct_s[i] = sae.act.theta[h0 + i];
+    else ct_s[i] = sae.act.b_mag[h0 + i];
   }
   float gbe[4] = {0.f, 0.f, 0.f, 0.f};
+  // kAct: the sums beyond db_enc's (Jump: dtheta; Gated: d_premag, d_premag *
+  // g, dg) of this thread's columns, and one per-column operand (Jump:
+  // -theta/eps; Gated: er); c_1 is c_l0 * (-1/eps) (Jump) or c_l1 (Gated)
+  constexpr int kNS = kAct == Act::Gated ? 3 : 1;
+  float vs[kNS][4], v2[4], c_1 = 0.f;
+  if constexpr (kAct != Act::Relu) {
+    __syncthreads();  // ct_s is complete
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = tx + 16 * j;
+#pragma unroll
+      for (int q = 0; q < kNS; ++q) vs[q][j] = 0.f;
+      v2[j] = kAct == Act::Jump ? __fdiv_rn(-ct_s[col], sae.act.eps) : sae.act.er[h0 + col];
+    }
+    c_1 = kAct == Act::Jump ? __fmul_rn(coeffs[1], sae.act.neg_inv_eps) : coeffs[1];
+  }
 
   for (int t0 = 0; t0 < n_tokens; t0 += TB) {
     const bool first = t0 == 0;
@@ -610,7 +682,10 @@ coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        pre[i][j] = acc[i][j] + benc_s[tx + 16 * j];
+        if constexpr (kAct == Act::Gated)
+          pre[i][j] = acc[i][j];  // g: b_gate is added in the epilogue
+        else
+          pre[i][j] = acc[i][j] + benc_s[tx + 16 * j];
         acc[i][j] = 0.f;
       }
     for (int k0 = 0; k0 < Cout; k0 += KC) {
@@ -640,17 +715,90 @@ coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
           for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
     }
+    if constexpr (kAct == Act::Relu) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = ty * 8 + i, col = tx + 16 * j;
-        const float p = pre[i][j];
-        const float dp = p > 0.f ? acc[i][j] + ct_s[col] : 0.f;
-        gbe[j] += dp;
-        post_s[row * TH + col] = round_cd<T>(fmaxf(p, 0.f));
-        dpre_s[row * TH + col] = round_cd<T>(dp);
+        for (int j = 0; j < 4; ++j) {
+          const int row = ty * 8 + i, col = tx + 16 * j;
+          const float p = pre[i][j];
+          const float dp = p > 0.f ? acc[i][j] + ct_s[col] : 0.f;
+          gbe[j] += dp;
+          post_s[row * TH + col] = round_cd<T>(fmaxf(p, 0.f));
+          dpre_s[row * TH + col] = round_cd<T>(dp);
+        }
+    } else if constexpr (kAct == Act::Jump) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = ty * 8 + i, col = tx + 16 * j;
+          const float v = pre[i][j], th = ct_s[col], dpost = acc[i][j];
+          const bool on = v > th;
+          const float dp = on ? dpost : 0.f;
+          gbe[j] += dp;
+          if (fabsf(v - th) <= sae.act.half_eps)
+            vs[0][j] += __fadd_rn(__fmul_rn(dpost, v2[j]), c_1);
+          post_s[row * TH + col] = round_cd<T>(on ? v : 0.f);
+          dpre_s[row * TH + col] = round_cd<T>(dp);
+        }
+    } else {
+      // d_relu_pi = round_T(c_aux * err_via) @ W_dec tile^T, the products above
+      // on the second error (its chunks staged as the first's)
+      const float c_aux = coeffs[2];
+      const T* ev = err + static_cast<long>(n_tokens) * Cout;
+      float drp[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) drp[i][j] = 0.f;
+      for (int k0 = 0; k0 < Cout; k0 += KC) {
+        __syncthreads();
+        for (int i = tid; i < TB * KC; i += kThreads) {
+          const int r = i / KC, k = k0 + i % KC;
+          as_[r * XS + i % KC] =
+              k < Cout ? round_cd<T>(c_aux * to_f(ev[static_cast<long>(t0 + r) * Cout + k]))
+                       : 0.f;
+        }
+        for (int i = tid; i < TH * KC; i += kThreads) {
+          const int l = i / KC, kk = i % KC, k = k0 + kk;
+          bs_[kk * WS + l] =
+              k < Cout ? to_f(w_dec[static_cast<long>(h0 + l) * Cout + k]) : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int kk = 0; kk < KC; ++kk) {
+          float a[8], b[4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = as_[(ty * 8 + i) * XS + kk];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = bs_[kk * WS + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) drp[i][j] = fmaf(a[i], b[j], drp[i][j]);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = ty * 8 + i, col = tx + 16 * j;
+          const float g = pre[i][j], e = v2[j];
+          const float pg = g + benc_s[col];
+          const float pm = __fadd_rn(__fmul_rn(g, e), ct_s[col]);  // as the plain version
+          const float gate = pg > 0.f ? 1.f : (pg == 0.f ? 0.5f : 0.f);
+          const float dm = pm > 0.f ? __fmul_rn(acc[i][j], gate) : 0.f;
+          const float dpg = pg > 0.f ? drp[i][j] + c_1 : 0.f;
+          const float dg = __fadd_rn(__fmul_rn(dm, e), dpg);
+          gbe[j] += dpg;
+          vs[0][j] += dm;
+          vs[1][j] += __fmul_rn(dm, g);
+          vs[2][j] += dg;
+          post_s[row * TH + col] = round_cd<T>(gate * fmaxf(pm, 0.f));
+          dpre_s[row * TH + col] = round_cd<T>(dg);
+        }
+    }
 
     // B. dW_enc[k0:k0+KB, tile] += x[:, k0:k0+KB]^T @ round_T(dpre)
     for (int k0 = 0; k0 < Cin; k0 += KB) {
@@ -749,6 +897,23 @@ coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
     for (int g = 0; g < 16; ++g) s += red_s[g * TH + l];
     db_enc[h0 + l] = s;
     if constexpr (kSae) benc_s[l] = round_cd<T>(s);  // benc_s is free after the last step
+  }
+  if constexpr (kAct != Act::Relu) {  // the other per-latent sums, one at a time
+#pragma unroll
+    for (int q = 0; q < kNS; ++q) {
+      __syncthreads();  // the previous sum is done with red_s
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red_s[ty * TH + tx + 16 * j] = vs[q][j];
+      __syncthreads();
+      for (int l = tid; l < TH; l += kThreads) {
+        float s = 0.f;
+        for (int g = 0; g < 16; ++g) s += red_s[g * TH + l];  // fixed order
+        if constexpr (kAct == Act::Jump) sae.act.dtheta[h0 + l] = s;
+        else if (q == 0) sae.act.db_mag[h0 + l] = s;
+        else if (q == 1) sae.act.dr_mag[h0 + l] = __fmul_rn(s, sae.act.er[h0 + l]);
+        else benc_s[l] = round_cd<T>(s);  // Gated: the centring row reads round_T(sum dg)
+      }
+    }
   }
   if constexpr (kSae) {  // this block's row of db_dec's centring term
     __syncthreads();
@@ -2399,8 +2564,24 @@ cudaError_t fwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
   }
 }
 
+// The f32 forward on x [n_tokens, c_in] (float operands, any width): the SIMT
+// body coder_fwd_kernel<float, kPrefix, false, kAct>. Outputs as fwd_tc's; the
+// gated forward is two launches here at every width, GatedEnc then GatedPi.
+template <bool kPrefix, Act kAct>
+cudaError_t fwd_simt(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
+                     const float* b_dec, float* recon, float* act_part, float* row_active,
+                     float* zsum_part, int n_tokens, int c_in, int c_out, int H,
+                     const svt::Levels& lv, const ActFwd& af, cudaStream_t stream) {
+  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
+  return svt::launch(coder_fwd_kernel<float, kPrefix, false, kAct>, n_tokens / kFwdTT,
+                     fwd_smem_bytes(), stream, static_cast<const float*>(x),
+                     static_cast<const float*>(w_enc), b_enc, static_cast<const float*>(w_dec),
+                     b_dec, recon, act_part, row_active, zsum_part, c_in, c_out, H, lv,
+                     DxFwd<false>{}, af);
+}
+
 // Launch the forward: bf16 != 0 selects __nv_bfloat16 operands (fwd_tc's
-// route), else float (coder_fwd_kernel). Outputs as fwd_tc's.
+// route), else float (fwd_simt). Outputs as fwd_tc's.
 template <bool kPrefix>
 cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const float* b_dec, float* recon, float* act_part,
@@ -2411,10 +2592,9 @@ cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b
     return fwd_tc<kPrefix, Act::Relu>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
                                       row_active, zsum_part, n_tokens, c_in, c_out, H, lv,
                                       ActFwd{}, stream);
-  return svt::launch(coder_fwd_kernel<float, kPrefix>, n_tokens / kFwdTT, fwd_smem_bytes(),
-                     stream, static_cast<const float*>(x), static_cast<const float*>(w_enc),
-                     b_enc, static_cast<const float*>(w_dec), b_dec, recon, act_part,
-                     row_active, zsum_part, c_in, c_out, H, lv, DxFwd<false>{});
+  return fwd_simt<kPrefix, Act::Relu>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
+                                      row_active, zsum_part, n_tokens, c_in, c_out, H, lv,
+                                      ActFwd{}, stream);
 }
 
 // Launch the backward. err is [sae.lv.n * n_tokens, c_out] in the operand type
@@ -2447,6 +2627,22 @@ cudaError_t bwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
                      c_out, H, sae);
 }
 
+// The f32 backward (float operands, any width): the SIMT body
+// coder_bwd_kernel<float, kSae, kAct> on err as saved (kAct Gated: [2 *
+// n_tokens, c_out], err_rec then err_via). Outputs as coder_bwd's, float
+// operands.
+template <bool kSae, Act kAct>
+cudaError_t bwd_simt(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
+                     const void* err, const float* coeffs, const float* ct, float* dw_enc,
+                     float* db_enc, float* dw_dec, float* db_dec_part, int n_tokens, int c_in,
+                     int c_out, int H, const SaeBwd& sae, cudaStream_t stream) {
+  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
+  return svt::launch(coder_bwd_kernel<float, kSae, kAct>, H / kBwdTH, bwd_smem_bytes(), stream,
+                     static_cast<const float*>(x), static_cast<const float*>(w_enc), b_enc,
+                     static_cast<const float*>(w_dec), static_cast<const float*>(err), coeffs,
+                     ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H, sae);
+}
+
 template <bool kSae>
 cudaError_t coder_bwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const void* err, const float* coeffs, const float* ct,
@@ -2458,10 +2654,8 @@ cudaError_t coder_bwd(int bf16, const void* x, const void* w_enc, const float* b
     return bwd_tc<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, sae.lv.n * n_tokens, coeffs, ct,
                                    dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H,
                                    sae, stream);
-  return svt::launch(coder_bwd_kernel<float, kSae>, H / kBwdTH, bwd_smem_bytes(), stream,
-                     static_cast<const float*>(x), static_cast<const float*>(w_enc), b_enc,
-                     static_cast<const float*>(w_dec), static_cast<const float*>(err), coeffs,
-                     ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H, sae);
+  return bwd_simt<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
+                                   dw_dec, db_dec_part, n_tokens, c_in, c_out, H, sae, stream);
 }
 
 }  // namespace

@@ -108,7 +108,7 @@ cudaError_t sae_dx(int bf16, const void* x, const void* w_enc, const float* b_en
     return svt::launch(coder_fwd_kernel<float, false, true>, n_tokens / kFwdTT, fwd_smem_bytes(),
                        stream, static_cast<const float*>(x), static_cast<const float*>(w_enc),
                        b_enc, static_cast<const float*>(w_dec), nullptr, dx, nullptr, nullptr,
-                       nullptr, C, C, H, lv, d);
+                       nullptr, C, C, H, lv, d, ActFwd{});
   if (bad_tc_operands(C, C, x, w_enc, w_dec, err)) return cudaErrorInvalidValue;
   CUtensorMap mx, mwe, mwd;
   cudaError_t e;

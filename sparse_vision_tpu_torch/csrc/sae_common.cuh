@@ -1,7 +1,7 @@
 // Helpers shared by the fused kernels (fused_sae.cu, fused_gated_sae.cu,
 // fused_jumprelu_sae.cu, fused_transcoder.cu, coder.cuh): the operand-type
-// conversions, the rounding to the compute dtype, the launch and width
-// dispatch of the C entry points, and the Matryoshka prefix levels.
+// conversions, the rounding to the compute dtype, the launch helper of the C
+// entry points, and the Matryoshka prefix levels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,19 +36,6 @@ cudaError_t launch(void (*kernel)(KArgs...), int blocks, size_t smem, cudaStream
   if (e != cudaSuccess) return e;
   kernel<<<blocks, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-// Call f(std::integral_constant<int, C>{}) for the channel width C in {64, 128,
-// 256}: the widths of the SIMT bodies, which run only in f32 for the JumpReLU
-// and gated ops (their bf16 routes are coder.cuh's, at any width).
-template <typename F>
-cudaError_t dispatch_width(int C, F&& f) {
-  switch (C) {
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    case 256: return f(std::integral_constant<int, 256>{});
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 constexpr int kMaxLevels = 16;

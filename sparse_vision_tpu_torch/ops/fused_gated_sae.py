@@ -27,8 +27,12 @@ is two launches of the ReLU forward's width route, recon with the counts
 It leaves per-64-token partials of the counts and of Σ relu(π_gate), whose
 total is the L1 sum. The backward (coder_bwd_tc's gated epilogue: three
 products per token tile, the second error's W_dec tiles streamed again) first
-runs scale_err_kernel on both errors. In f32 (the check path) both run the SIMT
-bodies of csrc/fused_gated_sae.cu, C in SUPPORTED_C. can_fuse asks both rules.
+runs scale_err_kernel on both errors. In f32 (the check path) both run the
+coder family's SIMT bodies with the same epilogues, at any width (T and H
+multiples of 128), after center_kernel: the forward as two launches at every
+width (GatedEnc, GatedPi), the backward on copies of both saved f32 errors in
+one [2, T, C] workspace. can_fuse asks the coder bodies' rule
+(fused_sae.bodies_take) with the dtype.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
 same formulas, the same cast points); a CUDA tensor launches the kernel or
@@ -76,32 +80,17 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     scale_err_plain,
 )
 
-# tile sizes of csrc/fused_gated_sae.cu's SIMT bodies (kFwdTT, kBwdTT, kTH) and
-# their widths
-FWD_TILE_T = 32
-BWD_TILE_T = 16
-TILE_H = 64
-SUPPORTED_C = (64, 128, 256)
-
-
 def fwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
-    """True when the CUDA forward takes this shape with ``dtype`` operands: in
-    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
-    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
-    FWD_TILE_T, H of TILE_H)."""
-    if compute_dtype_of(dtype) == _BF16:
-        return bodies_take(t, h, c, c, _BF16)
-    return c in SUPPORTED_C and t > 0 and h > 0 and t % FWD_TILE_T == 0 and h % TILE_H == 0
+    """True when the CUDA forward takes this shape with ``dtype`` operands: the
+    coder bodies' rule (fused_sae.bodies_take: T and H multiples of 128; in
+    bf16 C a multiple of 8, in f32 any C)."""
+    return bodies_take(t, h, c, c, dtype)
 
 
 def bwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
-    """True when the CUDA backward takes this shape with ``dtype`` operands: in
-    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
-    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
-    BWD_TILE_T, H of TILE_H)."""
-    if compute_dtype_of(dtype) == _BF16:
-        return bodies_take(t, h, c, c, _BF16)
-    return c in SUPPORTED_C and t > 0 and h > 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
+    """True when the CUDA backward takes this shape with ``dtype`` operands:
+    the forward's rule, fwd_takes."""
+    return fwd_takes(t, h, c, dtype)
 
 
 def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
@@ -126,7 +115,7 @@ def _gate_paths(x, w_gate, b_gate, b_mag, er, b_dec):
 
 
 def fused_gated_forward_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
-    """Plain forward of csrc gated_fwd_kernel. ``x``, ``w_gate``, ``w_dec`` are in
+    """Plain forward of csrc svt_gated_fwd (either route). ``x``, ``w_gate``, ``w_dec`` are in
     the compute dtype, ``er`` = exp(r_mag) in f32. Returns (recon [T, C] f32,
     via [T, C] f32, act_count [H], row_active [T], l1_sum scalar)."""
     cd = x.dtype
@@ -142,7 +131,8 @@ def fused_gated_forward_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
 
 def fused_gated_backward_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec,
                                err_via, coeffs):
-    """Plain backward of csrc gated_bwd_kernel. ``err_rec``/``err_via`` are the f32
+    """Plain backward of csrc svt_gated_bwd's f32 route (center_kernel, then
+    coder_bwd_kernel<float, true, Act::Gated>). ``err_rec``/``err_via`` are the f32
     residuals; ``coeffs`` = (c_rec, c_l1, c_aux) with c_rec = 2·g_rec/(T·C),
     c_l1 = g_l1/(T·H), c_aux = 2·g_aux/(T·C). Returns f32 (dW_gate [C, H],
     db_gate [H], db_mag [H], dr_mag [H], dW_dec [H, C], db_dec [C])."""
@@ -196,7 +186,7 @@ def gated_bwd_tc_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_
 def backward_plain(x, *args):
     """The plain version of the route the card's backward takes for ``x``'s
     dtype: gated_bwd_tc_plain in bf16, fused_gated_backward_plain (the SIMT
-    body's) in f32."""
+    body's route) in f32."""
     plain = gated_bwd_tc_plain if x.dtype == _BF16 else fused_gated_backward_plain
     return plain(x, *args)
 
@@ -224,17 +214,11 @@ def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward: bool =
     h = b_gate.shape[0]
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused gated kernel: compute dtype {x.dtype} not supported")
-    if backward and not bwd_takes(t, h, c, x.dtype):
+    if not fwd_takes(t, h, c, x.dtype):
         raise ValueError(
-            f"fused gated backward: shape T={t}, C={c}, H={h} not supported with "
-            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
-            f"{SUPPORTED_C}, T a multiple of {BWD_TILE_T}, H of {TILE_H})"
-        )
-    if not backward and not fwd_takes(t, h, c, x.dtype):
-        raise ValueError(
-            f"fused gated kernel: shape T={t}, C={c}, H={h} not supported with "
-            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
-            f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
+            f"fused gated {'backward' if backward else 'kernel'}: shape T={t}, C={c}, "
+            f"H={h} not supported with {x.dtype} operands (T and H multiples of 128; "
+            "bf16: C a multiple of 8)"
         )
     dev = x.device
     _expect("x", x, (t, c), x.dtype, dev)
@@ -247,37 +231,33 @@ def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward: bool =
 
 
 class _ForwardKernel(Kernel):
-    """csrc svt_gated_fwd: in bf16 center_kernel and the coder forward with the
-    gated epilogue (one launch at C ≤ 256, two wider), in f32
-    gated_fwd_kernel. The partials are reduced here."""
+    """csrc svt_gated_fwd: center_kernel and the coder forward with the gated
+    epilogue (bf16: one launch at C ≤ 256, two wider; f32: two launches of the
+    SIMT body). The partials are reduced here."""
 
     name = "fused_gated_sae_fwd"
 
     def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
         t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
         dev = x.device
-        bf16 = x.dtype == _BF16
-        n_part = t // (PART_T if bf16 else FWD_TILE_T)  # partial rows of the counts
         recon = torch.empty((t, c), dtype=_F32, device=dev)
         via = torch.empty((t, c), dtype=_F32, device=dev)
-        act_part = torch.empty((n_part, h), dtype=_F32, device=dev)
+        # per-64-token partials of the counts and of Σ relu(π_gate) (the L1 sum)
+        act_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
+        l1_part = torch.empty_like(act_part)
         row_active = torch.empty((t,), dtype=_F32, device=dev)
-        # bf16: the zsum partials [T / 64, H] and an x_cent workspace; f32: one
-        # L1 partial per token tile, and a null pointer
-        l1_part = torch.empty((n_part, h) if bf16 else (n_part,), dtype=_F32, device=dev)
-        x_cent = torch.empty_like(x) if bf16 else None
+        x_cent = torch.empty_like(x)  # center_kernel's output
         self._launch(_lib().svt_gated_fwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via, act_part,
-                            row_active, l1_part), None if x_cent is None else x_cent.data_ptr(),
-                     t, c, h)
+                            row_active, l1_part, x_cent), t, c, h)
         return recon, via, act_part.sum(0), row_active, l1_part.sum()
 
 
 class _BackwardKernel(Kernel):
     """csrc svt_gated_bwd: in bf16 center_kernel, scale_err_kernel (twice) and
-    coder_bwd_tc<true, Act::Gated> (gated_bwd_tc_plain), in f32
-    gated_bwd_kernel (fused_gated_backward_plain). db_dec's partial rows are
-    reduced here."""
+    coder_bwd_tc<true, Act::Gated> (gated_bwd_tc_plain), in f32 center_kernel,
+    copies of both errors and coder_bwd_kernel<float, true, Act::Gated>
+    (fused_gated_backward_plain). db_dec's partial rows are reduced here."""
 
     name = "fused_gated_sae_bwd"
 
@@ -287,23 +267,22 @@ class _BackwardKernel(Kernel):
         _expect("err_rec", err_rec, (t, c), _F32, dev)
         _expect("err_via", err_via, (t, c), _F32, dev)
         _expect("coeffs", coeffs, (3,), _F32, dev)
-        bf16 = x.dtype == _BF16
         dw_gate = torch.empty((c, h), dtype=_F32, device=dev)
         db_gate = torch.empty((h,), dtype=_F32, device=dev)
         db_mag = torch.empty((h,), dtype=_F32, device=dev)
         dr_mag = torch.empty((h,), dtype=_F32, device=dev)
         dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
-        # bf16: the pre-pass's direct rows, then one centring row per 64 latents
-        rows = (direct_rows(t, _BF16) if bf16 else 0) + h // BLOCK_H
+        # the direct rows, then one centring row per 64 latents
+        rows = direct_rows(t, x.dtype) + h // BLOCK_H
         db_dec_part = torch.empty((rows, c), dtype=_F32, device=dev)
-        # bf16 workspaces: x_cent, and round(c_rec·err_rec) then round(c_aux·err_via);
-        # f32 passes null pointers
-        work = [torch.empty(s, dtype=_BF16, device=dev)
-                for s in ([(t, c), (2, t, c)] if bf16 else [])]
+        # workspaces in the operand type: x_cent, and both errors (bf16:
+        # round(c_rec·err_rec) then round(c_aux·err_via); f32: their copies)
+        x_cent = torch.empty_like(x)
+        err_s = torch.empty((2, t, c), dtype=x.dtype, device=dev)
         self._launch(_lib().svt_gated_bwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
-                            coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part),
-                     *([w.data_ptr() for w in work] or [None, None]), t, c, h)
+                            coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part,
+                            x_cent, err_s), t, c, h)
         return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part.sum(0)
 
 

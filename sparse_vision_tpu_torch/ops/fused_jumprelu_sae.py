@@ -24,8 +24,10 @@ recomputes it from the saved x). The forward is the ReLU forward's width route
 threshold; it leaves per-64-token partials of the activity counts and of Σ post,
 whose total is the L1 sum. The backward first runs scale_err_kernel
 (round(c_rec·err) from the saved f32 error, and the direct rows of db_dec). In
-f32 (the check path) both run the SIMT bodies of csrc/fused_jumprelu_sae.cu, C
-in SUPPORTED_C. can_fuse asks both rules.
+f32 (the check path) both run the coder family's SIMT bodies with the same
+epilogues, at any width (T and H multiples of 128), after center_kernel; the
+backward reads the saved f32 error itself. can_fuse asks the coder bodies'
+rule (fused_sae.bodies_take) with the dtype.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
 same formulas, the same cast points); a CUDA tensor launches the kernel or
@@ -72,32 +74,17 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     scale_err_plain,
 )
 
-# tile sizes of csrc/fused_jumprelu_sae.cu's SIMT bodies (kFwdTT, kBwdTT, kTH;
-# kFwdTT equals the coder bodies' PART_T) and their widths
-FWD_TILE_T = 64
-BWD_TILE_T = 32
-TILE_H = 64
-SUPPORTED_C = (64, 128, 256)
-
-
 def fwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
-    """True when the CUDA forward takes this shape with ``dtype`` operands: in
-    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
-    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
-    FWD_TILE_T, H of TILE_H)."""
-    if compute_dtype_of(dtype) == _BF16:
-        return bodies_take(t, h, c, c, _BF16)
-    return c in SUPPORTED_C and t > 0 and h > 0 and t % FWD_TILE_T == 0 and h % TILE_H == 0
+    """True when the CUDA forward takes this shape with ``dtype`` operands: the
+    coder bodies' rule (fused_sae.bodies_take: T and H multiples of 128; in
+    bf16 C a multiple of 8, in f32 any C)."""
+    return bodies_take(t, h, c, c, dtype)
 
 
 def bwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
-    """True when the CUDA backward takes this shape with ``dtype`` operands: in
-    bf16 the coder body's rule (fused_sae.bodies_take: T and H multiples of 128,
-    C of 8), in f32 the SIMT body's (C in SUPPORTED_C, T a multiple of
-    BWD_TILE_T, H of TILE_H)."""
-    if compute_dtype_of(dtype) == _BF16:
-        return bodies_take(t, h, c, c, _BF16)
-    return c in SUPPORTED_C and t > 0 and h > 0 and t % BWD_TILE_T == 0 and h % TILE_H == 0
+    """True when the CUDA backward takes this shape with ``dtype`` operands:
+    the forward's rule, fwd_takes."""
+    return fwd_takes(t, h, c, dtype)
 
 
 def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
@@ -112,7 +99,7 @@ def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
 # ---------------------------------------------------------------------------
 
 def fused_jumprelu_forward_plain(x, w_enc, b_enc, thr, w_dec, b_dec):
-    """Plain forward of csrc jumprelu_fwd_kernel. ``x``, ``w_enc``, ``w_dec`` are
+    """Plain forward of csrc svt_jumprelu_fwd (either route). ``x``, ``w_enc``, ``w_dec`` are
     in the compute dtype, ``thr`` = exp(log_threshold) in f32. Returns (recon
     [T, C] f32, act_count [H], row_active [T], l1_sum scalar)."""
     cd = x.dtype
@@ -126,7 +113,8 @@ def fused_jumprelu_forward_plain(x, w_enc, b_enc, thr, w_dec, b_dec):
 
 def fused_jumprelu_backward_plain(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs,
                                   bandwidth):
-    """Plain backward of csrc jumprelu_bwd_kernel. ``err`` is the f32 residual
+    """Plain backward of csrc svt_jumprelu_bwd's f32 route (center_kernel, then
+    coder_bwd_kernel<float, true, Act::Jump>). ``err`` is the f32 residual
     ``recon − x``; ``coeffs`` = (c_rec, c_l0) with c_rec = 2·g_rec/(T·C),
     c_l0 = g_l0/T. Returns f32 (dW_enc [C, H], db_enc [H], dθ [H], dW_dec [H, C],
     db_dec [C])."""
@@ -178,7 +166,7 @@ def jumprelu_bwd_tc_plain(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandw
 def backward_plain(x, *args):
     """The plain version of the route the card's backward takes for ``x``'s
     dtype: jumprelu_bwd_tc_plain in bf16, fused_jumprelu_backward_plain (the
-    SIMT body's) in f32."""
+    SIMT body's route) in f32."""
     plain = jumprelu_bwd_tc_plain if x.dtype == _BF16 else fused_jumprelu_backward_plain
     return plain(x, *args)
 
@@ -208,17 +196,11 @@ def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward: bool = False):
     h = b_enc.shape[0]
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused JumpReLU kernel: compute dtype {x.dtype} not supported")
-    if backward and not bwd_takes(t, h, c, x.dtype):
+    if not fwd_takes(t, h, c, x.dtype):
         raise ValueError(
-            f"fused JumpReLU backward: shape T={t}, C={c}, H={h} not supported with "
-            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
-            f"{SUPPORTED_C}, T a multiple of {BWD_TILE_T}, H of {TILE_H})"
-        )
-    if not backward and not fwd_takes(t, h, c, x.dtype):
-        raise ValueError(
-            f"fused JumpReLU kernel: shape T={t}, C={c}, H={h} not supported with "
-            f"{x.dtype} operands (bf16: T and H multiples of 128, C of 8; f32: C in "
-            f"{SUPPORTED_C}, T a multiple of {FWD_TILE_T}, H of {TILE_H})"
+            f"fused JumpReLU {'backward' if backward else 'kernel'}: shape T={t}, C={c}, "
+            f"H={h} not supported with {x.dtype} operands (T and H multiples of 128; "
+            "bf16: C a multiple of 8)"
         )
     dev = x.device
     _expect("x", x, (t, c), x.dtype, dev)
@@ -231,8 +213,8 @@ def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward: bool = False):
 
 
 class _ForwardKernel(Kernel):
-    """csrc svt_jumprelu_fwd: in bf16 center_kernel and the coder forward
-    route with the JumpReLU epilogue, in f32 jumprelu_fwd_kernel. The
+    """csrc svt_jumprelu_fwd: center_kernel and the coder forward route with
+    the JumpReLU epilogue (bf16: tensor cores; f32: the SIMT body). The
     partials are reduced here."""
 
     name = "fused_jumprelu_sae_fwd"
@@ -240,26 +222,23 @@ class _ForwardKernel(Kernel):
     def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec):
         t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
         dev = x.device
-        bf16 = x.dtype == _BF16
-        n_part = t // (PART_T if bf16 else FWD_TILE_T)  # partial rows of the counts
         recon = torch.empty((t, c), dtype=_F32, device=dev)
-        act_part = torch.empty((n_part, h), dtype=_F32, device=dev)
+        # per-64-token partials of the counts and of Σ post (the L1 sum)
+        act_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
+        l1_part = torch.empty_like(act_part)
         row_active = torch.empty((t,), dtype=_F32, device=dev)
-        # bf16: the zsum partials [T / 64, H] and an x_cent workspace; f32: one
-        # L1 partial per token tile, and a null pointer
-        l1_part = torch.empty((n_part, h) if bf16 else (n_part,), dtype=_F32, device=dev)
-        x_cent = torch.empty_like(x) if bf16 else None
+        x_cent = torch.empty_like(x)  # center_kernel's output
         self._launch(_lib().svt_jumprelu_fwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part, row_active,
-                            l1_part), None if x_cent is None else x_cent.data_ptr(), t, c, h)
+                            l1_part, x_cent), t, c, h)
         return recon, act_part.sum(0), row_active, l1_part.sum()
 
 
 class _BackwardKernel(Kernel):
     """csrc svt_jumprelu_bwd: in bf16 center_kernel, scale_err_kernel and
     coder_bwd_tc<true, Act::Jump> (jumprelu_bwd_tc_plain), in f32
-    jumprelu_bwd_kernel (fused_jumprelu_backward_plain). db_dec's partial rows
-    are reduced here."""
+    center_kernel and coder_bwd_kernel<float, true, Act::Jump>
+    (fused_jumprelu_backward_plain). db_dec's partial rows are reduced here."""
 
     name = "fused_jumprelu_sae_bwd"
 
@@ -273,17 +252,18 @@ class _BackwardKernel(Kernel):
         db_enc = torch.empty((h,), dtype=_F32, device=dev)
         dthr = torch.empty((h,), dtype=_F32, device=dev)
         dw_dec = torch.empty((h, c), dtype=_F32, device=dev)
-        # bf16: the pre-pass's direct rows, then one centring row per 64 latents
-        rows = (direct_rows(t, _BF16) if bf16 else 0) + h // BLOCK_H
+        # the direct rows, then one centring row per 64 latents
+        rows = direct_rows(t, x.dtype) + h // BLOCK_H
         db_dec_part = torch.empty((rows, c), dtype=_F32, device=dev)
-        # bf16 workspaces: x_cent and round(c_rec·err); f32 passes null pointers
-        work = [torch.empty((t, c), dtype=_BF16, device=dev) for _ in range(2 if bf16 else 0)]
+        x_cent = torch.empty_like(x)  # center_kernel's output
+        # bf16: round(c_rec·err), scale_err_kernel's output; f32 reads err itself
+        err_s = torch.empty((t, c), dtype=_BF16, device=dev) if bf16 else None
         eps = float(bandwidth)
         self._launch(_lib().svt_jumprelu_bwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
                      eps, eps / 2, -1.0 / eps,
-                     *(v.data_ptr() for v in (dw_enc, db_enc, dthr, dw_dec, db_dec_part)),
-                     *([w.data_ptr() for w in work] or [None, None]), t, c, h)
+                     *(v.data_ptr() for v in (dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent)),
+                     None if err_s is None else err_s.data_ptr(), t, c, h)
         return dw_enc, db_enc, dthr, dw_dec, db_dec_part.sum(0)
 
 

@@ -75,21 +75,29 @@ def make_crosscoder_multi_step(step_fn):
 
 
 def make_crosscoder_eval_step(net, layers: tuple, lambda_sparse: float,
-                              expansion_factor: int, criterion):
+                              expansion_factor: int, criterion,
+                              input_scales: Optional[tuple] = None):
     """Eval step for the crosscoder-spliced model, shaped like
     train/steps.make_sae_eval_step's. The code is computed from the original
     activations of all layers, and the deepest layer's activation is replaced by
     its reconstruction: logits_mod = apply_segment(after=layers[-1]) of
     decoded[-1]. ``layers`` are in network depth order; ``var_expl`` is that of
-    the deepest layer."""
+    the deepest layer. ``input_scales`` (sae_input_norm="rms"): each layer's
+    token RMS in ``layers`` order; the crosscoder reads every activation divided
+    by its layer's, and the splice rescales the deepest reconstruction back."""
     last = net.stage_names[-1]
+    invs = None if input_scales is None else tuple(float(1.0 / s) for s in input_scales)
 
     @torch.no_grad()
     def step_fn(params, frozen_params, frozen_state, images, labels):
         logits_orig, taps, _ = net.apply(frozen_params, images, state=frozen_state)
         acts = tuple(taps[l] for l in layers)
+        if invs is not None:
+            acts = tuple(a * inv for a, inv in zip(acts, invs))
         out = crosscoder_inference_and_loss(params, acts, lambda_sparse)
-        logits_mod = net.apply_segment(frozen_params, out["decoded"][-1], after=layers[-1],
+        deep = (out["decoded"][-1] if invs is None
+                else out["decoded"][-1] * float(input_scales[-1]))
+        logits_mod = net.apply_segment(frozen_params, deep, after=layers[-1],
                                        upto=last, state=frozen_state)
         return eval_metrics(out, acts[-1], out["decoded"][-1], logits_orig, logits_mod,
                             labels, criterion, expansion_factor)
@@ -126,8 +134,11 @@ def run_name(cfg) -> str:
 
 def train_crosscoder_cached(pipe) -> dict:
     """Cached crosscoder training through a Pipeline: dump all L layers' caches in
-    one backbone pass, train on zipped token stacks, evaluate before and after
-    each epoch, and write the decoder-norm diffing CSV under
+    one backbone pass (overlapped with the first epoch under
+    overlap_dump_train), train on zipped token stacks (each layer on its ``/
+    rms`` basis under sae_input_norm="rms", which crosscoders over layers of
+    unlike scales need), evaluate before and after each epoch, and write the
+    decoder-norm diffing CSV under
     ``<directory_path>/<model>/<dataset>/sae_weights_crosscoder/``. Returns the
     last eval's means."""
     from sparse_vision_tpu_torch.ops.fused_crosscoder import can_fuse
@@ -142,13 +153,22 @@ def train_crosscoder_cached(pipe) -> dict:
     c_cat = sum(pipe.crosscoder_dims)  # the kernels run in the concatenated space
     fused = pipe.check_fusable(can_fuse, c_cat, c_cat)
     layers = pipe.crosscoder_all_layers
-    caches = prepare_caches(pipe, layers, {l: pipe._cache_dir(l) for l in layers})
+    dirs = {l: pipe._cache_dir(l) for l in layers}
+    stream_qs, dump_thread, caches = prepare_caches(pipe, layers, dirs)
     step_fn = make_crosscoder_train_step_from_acts(
         cfg.sae_lambda_sparse, pipe.tx, cfg.dead_neurons_steps, cfg.sae_expansion_factor,
         fused=fused, fused_opts={"compute_dtype": cfg.compute_dtype})
-    multi = make_crosscoder_multi_step(step_fn)
-    last_eval = pipe.run_epochs(lambda ts, *stacks: multi(ts, stacks),
-                                lambda epoch: epoch_stacks(pipe, caches, epoch))
+    opened = [caches]
+
+    def epoch_items(epoch):
+        it, opened[0] = epoch_stacks(pipe, layers, dirs, epoch, 0, stream_qs, dump_thread,
+                                     opened[0])
+        return ((stacks, None) for stacks in it)
+
+    last_eval = pipe.run_epochs(
+        pipe.normalized_step(lambda ts, *xs: step_fn(ts, xs), layers), epoch_items)
+    if dump_thread is not None:
+        dump_thread.join()
     folder = os.path.join(cfg.directory_path, cfg.model_name, cfg.dataset_name,
                           f"sae_weights_{cfg.sae_model_name}")
     path = save_decoder_norms(pipe.ts.params, layers, folder, run_name(cfg))

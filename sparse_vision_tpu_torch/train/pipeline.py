@@ -10,10 +10,14 @@ back into the backbone, before and after each epoch. ``transcoder`` (from
 ``sae_layer`` to ``transcoder_target_layer``) and ``crosscoder`` (``sae_layer``
 plus ``crosscoder_layers``) train the same way from aligned caches of every
 layer they read, dumped in one backbone pass (train/transcoder.py,
-train/crosscoder.py). Figures,
-top-k files, the results CSV, checkpoints and weight export are not ported yet;
-a config that asks for anything outside the slice raises NotImplementedError
-naming the field.
+train/crosscoder.py). With ``overlap_dump_train`` the first epoch trains on
+each shard as the dump publishes it (a dump thread; data/activation_cache.py),
+and every batch and stack reaches the device through data/prefetch.py; an int8
+cache is dequantized on the device. ``sae_input_norm="rms"`` trains on each
+layer's activations divided by its cache's token RMS. Figures, top-k files,
+the results CSV, checkpoints and weight export are not ported yet; a config
+that asks for anything outside the slice raises NotImplementedError naming the
+field.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
 from sparse_vision_tpu_torch.data.datasets import load_data
+from sparse_vision_tpu_torch.data.prefetch import prefetch
 from sparse_vision_tpu_torch.device import resolve_device
 from sparse_vision_tpu_torch.models.backbone import (
     get_sae_input_size,
@@ -41,8 +46,10 @@ from sparse_vision_tpu_torch.ops.losses import get_criterion
 from sparse_vision_tpu_torch.train.steps import (
     fused_op,
     init_sae_train_state,
+    make_dequant_step_fn,
     make_sae_eval_step,
     make_sae_train_multi_step,
+    make_sae_train_multi_step_quant,
     make_sae_train_step_from_acts,
 )
 
@@ -62,8 +69,8 @@ _SLICE = {
     "sae_checkpoint_epoch": (0,),
     "data_dir": ("",),
     "mesh_shape": ((),),
-    "overlap_dump_train": (False,),
-    "sae_input_norm": ("none",),
+    "overlap_dump_train": (False, True),
+    "sae_input_norm": ("none", "rms"),
     "sae_e2e_finetune_epochs": (0,),
     "sae_weights_path": ("",),
     "wandb_status": (False,),
@@ -102,6 +109,7 @@ class Pipeline:
         ``(train_ds, val_ds, category_names, img_size)``. ``backbone`` =
         (params, state) and ``sae_params`` optionally replace the random init,
         e.g. with the JAX package's weights through convert.py."""
+        self.validate_input_norm(cfg)  # before any dump thread can start
         validate_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -211,22 +219,93 @@ class Pipeline:
                 "stock step")
         return cfg.use_pallas
 
-    def run_epochs(self, multi_fn, epoch_stacks) -> dict:
-        """Eval, then per epoch: ``multi_fn(ts, *stacks)`` over every tuple of
-        [k, T, C] stacks that ``epoch_stacks(epoch)`` yields (one stack per cache),
-        then eval. Logs every step and the epoch's timing; returns the last
-        eval's means."""
+    @staticmethod
+    def validate_input_norm(cfg: RunConfig) -> None:
+        """The config's part of the sae_input_norm contract, checked in __init__
+        so that a misconfiguration fails before any dump thread starts."""
+        if cfg.sae_input_norm == "none":
+            return
+        if cfg.sae_input_norm != "rms":
+            raise ValueError(f"sae_input_norm must be 'none' or 'rms', got "
+                             f"{cfg.sae_input_norm!r}")
+        if not cfg.use_activation_cache:
+            raise ValueError("sae_input_norm='rms' requires use_activation_cache=True (the "
+                             "scale is a cache statistic)")
+        if cfg.overlap_dump_train:
+            raise ValueError("sae_input_norm='rms' is incompatible with overlap_dump_train "
+                             "(the scale is only known once the dump finishes)")
+        if cfg.sae_e2e_finetune_epochs > 0:
+            raise ValueError("sae_input_norm='rms' does not support the e2e KL finetune yet "
+                             "(its splice step is scale-unaware); run the finetune on a "
+                             "sae_input_norm='none' run")
+
+    def input_scale_for(self, layer: str) -> Optional[float]:
+        """The layer's input scale, or None when sae_input_norm is "none". With
+        "rms" the dictionary trains on ``x / token_rms`` of the layer's cache and
+        the eval splice rescales the reconstruction back: tap scales span orders
+        of magnitude across layers, so λ and lr transfer only on a normalized
+        basis. The scale is a statistic of the cache, fixed by the dump."""
+        if self.cfg.sae_input_norm == "none":
+            return None
+        self.validate_input_norm(self.cfg)
+        if not hasattr(self, "_input_scales"):
+            self._input_scales = {}
+        if layer not in self._input_scales:
+            from sparse_vision_tpu_torch.data.activation_cache import ActivationCache
+
+            cache_dir = self._cache_dir(layer)
+            if not os.path.exists(os.path.join(cache_dir, "meta.json")):
+                raise ValueError(f"sae_input_norm='rms' needs the {layer} activation cache at "
+                                 f"{cache_dir} (train first, or dump the cache)")
+            self._input_scales[layer] = ActivationCache(cache_dir).token_rms
+        return self._input_scales[layer]
+
+    def normalized_step(self, step_fn, layers: tuple):
+        """``step_fn(ts, *acts)`` on each activation cast to f32 and multiplied by
+        1 / token_rms of its layer (``layers`` in argument order), ahead of the
+        fused op's own casts; ``step_fn`` itself when sae_input_norm is "none".
+        The int8 wrappers dequantize before this multiply."""
+        if self.cfg.sae_input_norm == "none":
+            return step_fn
+        invs = tuple(float(1.0 / self.input_scale_for(l)) for l in layers)
+
+        def step(ts, *acts):
+            return step_fn(ts, *(a.float() * inv for a, inv in zip(acts, invs)))
+
+        return step
+
+    def run_epochs(self, step_fn, epoch_items) -> dict:
+        """Eval, then per epoch every dispatch that ``epoch_items(epoch)`` yields,
+        then eval. A dispatch is ``(stacks, scale)``: a tuple of [k, T, C_l]
+        stacks (one per cache) and None, or, from an int8 cache read with
+        dequantize="device", a tuple of one int8 stack and its scale [C]. Each is
+        staged onto the device through data/prefetch.py. A stack of
+        CACHE_SCAN_K steps runs as one multi-step dispatch, a shorter tail step
+        by step through ``step_fn(ts, *acts)`` (with a scale, both through the
+        dequantizing wrappers of train/steps.py), as the JAX package runs them.
+        Logs every step and the epoch's timing; returns the last eval's means."""
         cfg = self.cfg
+        k_full = self.CACHE_SCAN_K
+        runs = {False: (make_sae_train_multi_step(step_fn), step_fn),
+                True: (make_sae_train_multi_step_quant(step_fn), make_dequant_step_fn(step_fn))}
         last_eval = self.eval_modified(epoch=0)
         for epoch in range(cfg.sae_epochs):
             t0 = time.perf_counter()
             steps0 = self.ts.step
-            for stacks in epoch_stacks(epoch):
-                stacks = tuple(s.to(self.device, non_blocking=True) for s in stacks)
-                step0 = self.ts.step
-                self.ts, ms = multi_fn(self.ts, *stacks)
-                for j in range(stacks[0].shape[0]):
-                    self._log_train(step0 + j + 1, {k: v[j] for k, v in ms.items()})
+            for stacks, scale in prefetch(epoch_items(epoch), self.device):
+                multi, single = runs[scale is not None]
+                extra = () if scale is None else (scale,)
+                step0, k = self.ts.step, stacks[0].shape[0]
+                if k == k_full:
+                    self.ts, ms = multi(self.ts, *stacks, *extra)
+                    ms = [{n: v[j] for n, v in ms.items()} for j in range(k)]
+                else:  # a tail of fewer steps
+                    ms = []
+                    for j in range(k):
+                        self.ts, m = single(self.ts, *(s[j] for s in stacks), *extra)
+                        ms.append(m)
+                for j, m in enumerate(ms):
+                    self._log_train(step0 + j + 1, m)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             steps = self.ts.step - steps0
@@ -237,9 +316,15 @@ class Pipeline:
         return last_eval
 
     def train_sae_cached(self):
+        """Dump the layer's cache (on a thread, streamed into the first epoch,
+        with overlap_dump_train), then train and evaluate. Later epochs read the
+        cache shuffled, an int8 one as (int8 stack, scale) pairs dequantized on
+        the device where its shards are aligned to the stacks."""
         from sparse_vision_tpu_torch.data.activation_cache import (
             ActivationCache,
             dump_activations,
+            overlapped_multi_dump,
+            stream_stacks,
         )
 
         cfg = self.cfg
@@ -247,13 +332,22 @@ class Pipeline:
         can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
         c = self.sae_input_size
         fused = self.check_fusable(lambda t, h, c_in, _, dtype: can_fuse(t, h, c_in, dtype), c, c)
+        tps, k = cfg.cache_tokens_per_step, self.CACHE_SCAN_K
         cache_dir = self._cache_dir(cfg.sae_layer)
+        stream_q = dump_thread = None
         if not os.path.exists(os.path.join(cache_dir, "meta.json")):
-            print(f"Building activation cache at {cache_dir} ...")
-            dump_activations(self.net, self.frozen_params, self.net_state, self.train_ds,
-                             cfg.sae_layer, cache_dir, device=self.device,
-                             **self._cache_dump_kwargs())
-        cache = ActivationCache(cache_dir)
+            if cfg.overlap_dump_train and cfg.sae_epochs > cfg.sae_checkpoint_epoch:
+                print(f"Building activation cache at {cache_dir} (overlapped) ...")
+                qs, dump_thread = overlapped_multi_dump(
+                    self.net, self.frozen_params, self.net_state, self.train_ds,
+                    [cfg.sae_layer], {cfg.sae_layer: cache_dir}, device=self.device,
+                    **self._cache_dump_kwargs())
+                stream_q = qs[cfg.sae_layer]
+            else:
+                print(f"Building activation cache at {cache_dir} ...")
+                dump_activations(self.net, self.frozen_params, self.net_state, self.train_ds,
+                                 cfg.sae_layer, cache_dir, device=self.device,
+                                 **self._cache_dump_kwargs())
 
         fused_opts = {"compute_dtype": cfg.compute_dtype}
         if cfg.sae_model_name == "jumprelu_sae":
@@ -262,49 +356,71 @@ class Pipeline:
             cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
             cfg.sae_expansion_factor, fused=fused, fused_opts=fused_opts,
             jumprelu_bandwidth=cfg.jumprelu_bandwidth, matryoshka_prefixes=prefixes)
-        return self.run_epochs(
-            make_sae_train_multi_step(step_fn),
-            lambda epoch: ((s,) for s in cache.stacks(
-                cfg.cache_tokens_per_step, self.CACHE_SCAN_K, shuffle=True,
-                seed=cfg.seed + epoch)))
+        step_fn = self.normalized_step(step_fn, (cfg.sae_layer,))
+        opened: list = []  # the cache, once its dump has finished
+
+        def epoch_items(epoch):
+            if stream_q is not None and epoch == 0:  # the shards as the dump publishes them
+                return (((s,), None) for s in stream_stacks(
+                    stream_q, tps, k, logical_dtype=cfg.cache_dtype))
+            if not opened:
+                if dump_thread is not None:
+                    dump_thread.join()
+                opened.append(ActivationCache(cache_dir))
+            cache = opened[0]
+            # device dequantization needs stacks within one shard (one scale each)
+            aligned = int(cache.meta["shard_tokens"]) % (k * tps) == 0
+            return ((item[:1], item[1]) if isinstance(item, tuple) else ((item,), None)
+                    for item in cache.stacks(tps, k, shuffle=True, seed=cfg.seed + epoch,
+                                             dequantize="device" if aligned else "host"))
+
+        last_eval = self.run_epochs(step_fn, epoch_items)
+        if dump_thread is not None:
+            dump_thread.join()
+        return last_eval
 
     # ------------------------------------------------------------------
     @property
     def _sae_eval_step_fn(self):
         if not hasattr(self, "_sae_eval_step_cache"):
             cfg = self.cfg
+            rms = cfg.sae_input_norm != "none"
             if cfg.sae_model_name == "transcoder":
                 from sparse_vision_tpu_torch.train.transcoder import make_transcoder_eval_step
 
+                layers = (cfg.sae_layer, cfg.transcoder_target_layer)
                 self._sae_eval_step_cache = make_transcoder_eval_step(
-                    self.net, cfg.sae_layer, cfg.transcoder_target_layer,
-                    cfg.sae_lambda_sparse, cfg.sae_expansion_factor, self.criterion)
+                    self.net, *layers, cfg.sae_lambda_sparse, cfg.sae_expansion_factor,
+                    self.criterion,
+                    input_scales=tuple(map(self.input_scale_for, layers)) if rms else None)
                 return self._sae_eval_step_cache
             if cfg.sae_model_name == "crosscoder":
                 from sparse_vision_tpu_torch.train.crosscoder import make_crosscoder_eval_step
 
+                layers = self.crosscoder_all_layers
                 self._sae_eval_step_cache = make_crosscoder_eval_step(
-                    self.net, self.crosscoder_all_layers, cfg.sae_lambda_sparse,
-                    cfg.sae_expansion_factor, self.criterion)
+                    self.net, layers, cfg.sae_lambda_sparse, cfg.sae_expansion_factor,
+                    self.criterion,
+                    input_scales=tuple(map(self.input_scale_for, layers)) if rms else None)
                 return self._sae_eval_step_cache
             self._sae_eval_step_cache = make_sae_eval_step(
                 self.net, cfg.sae_layer, cfg.sae_model_name, cfg.sae_lambda_sparse,
                 cfg.sae_expansion_factor, self.criterion,
                 jumprelu_bandwidth=cfg.jumprelu_bandwidth,
-                matryoshka_prefixes=cfg.matryoshka_prefix_fractions)
+                matryoshka_prefixes=cfg.matryoshka_prefix_fractions,
+                input_scale=self.input_scale_for(cfg.sae_layer))
         return self._sae_eval_step_cache
 
     def eval_modified(self, epoch: int) -> dict:
         """Means over the validation batches of every eval-step metric, plus exact
-        accuracy and perc_dead_units (units dead in every batch)."""
+        accuracy and perc_dead_units (units dead in every batch). The batches
+        reach the device through data/prefetch.py."""
         step_fn = self._sae_eval_step_fn
         bs = self.cfg.eval_batch_size or self._auto_eval_batch_size()
         sums, correct, dead_acc, num_batches = None, None, None, 0
-        for b in self.val_ds.batches(bs, shuffle=False):
-            images = torch.from_numpy(b.images).to(self.device, non_blocking=True)
-            labels = torch.from_numpy(b.labels).to(self.device, non_blocking=True)
+        for b in prefetch(self.val_ds.batches(bs, shuffle=False), self.device):
             m, arrays = step_fn(self.ts.params, self.frozen_params, self.net_state,
-                                images, labels)
+                                b.images, b.labels)
             num_batches += 1
             sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
             correct = arrays["correct"] if correct is None else correct + arrays["correct"]

@@ -9,7 +9,8 @@ scheduled resample/reset (sae_mlp) or the rolling dead window (the variants
 that do not resample). The step counter is a host integer, so the schedule
 needs no device sync. The transcoder and crosscoder steps (train/transcoder.py,
 train/crosscoder.py) share this update skeleton (make_train_step) and the eval
-metrics (eval_metrics).
+metrics (eval_metrics). An int8 cache's activations are dequantized on the
+device by the wrappers make_dequant_step_fn and make_sae_train_multi_step_quant.
 """
 
 from __future__ import annotations
@@ -207,24 +208,59 @@ def make_sae_train_multi_step(step_fn):
     return multi
 
 
+def make_dequant_step_fn(step_fn, compute_dtype=torch.float32):
+    """``step_q(ts, q [T, C] int8, scale [C]) -> (ts, metrics)``: ``step_fn`` on
+    int8-quantized activations, dequantized on the device, ``q.to(dtype) *
+    scale`` (data/activation_cache.quantize_int8 wrote the shards; an int8 cache
+    moves one byte an element to the device)."""
+
+    def step_q(ts: SAETrainState, q: torch.Tensor, scale: torch.Tensor):
+        return step_fn(ts, q.to(compute_dtype) * scale.to(compute_dtype))
+
+    return step_q
+
+
+def make_sae_train_multi_step_quant(step_fn, compute_dtype=torch.float32):
+    """The quantized twin of make_sae_train_multi_step: ``multi(ts, q_stack [K,
+    T, C] int8, scale [C])``, each step dequantized on the device as
+    make_dequant_step_fn does (a stack never spans shards, so one scale serves
+    it); metrics stacked [K]."""
+    step_q = make_dequant_step_fn(step_fn, compute_dtype)
+
+    def multi(ts: SAETrainState, q_stack: torch.Tensor, scale: torch.Tensor):
+        return make_sae_train_multi_step(lambda ts, q: step_q(ts, q, scale))(ts, q_stack)
+
+    return multi
+
+
 def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: float,
                        expansion_factor: int, criterion,
                        jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
-                       matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES):
+                       matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES,
+                       input_scale: Optional[float] = None):
     """Eval step for the SAE-spliced model: the reference's eval-epoch quantities
     for one batch (model_pipeline.py:661-714 + 806-878), in plain torch (the JAX
     eval is stock XLA too). Returns (batch_metrics, arrays) with arrays 'dead',
-    'freq' and 'correct'."""
+    'freq' and 'correct'.
+
+    ``input_scale`` (sae_input_norm="rms"): the SAE reads ``act / scale`` and
+    the splice rescales the reconstruction back, so KLD, %same and loss_diff
+    are those of the raw model, while rec, l1 and rmse report on the normalized
+    basis the dictionary trained on."""
     last = net.stage_names[-1]
+    inv = None if input_scale is None else float(1.0 / input_scale)
 
     @torch.no_grad()
     def step_fn(sae_params, frozen_params, frozen_state, images, labels):
         logits_orig, taps, _ = net.apply(frozen_params, images, state=frozen_state)
         act = taps[sae_layer]
+        if inv is not None:
+            act = act * inv
         out = sae_inference_and_loss(sae_model_name, sae_params, act, lambda_sparse,
                                      jumprelu_bandwidth=jumprelu_bandwidth,
                                      matryoshka_prefixes=matryoshka_prefixes)
-        logits_mod = net.apply_segment(frozen_params, out["decoded"], after=sae_layer,
+        decoded = out["decoded"] if inv is None else out["decoded"] * float(input_scale)
+        logits_mod = net.apply_segment(frozen_params, decoded, after=sae_layer,
                                        upto=last, state=frozen_state)
         return eval_metrics(out, act, out["decoded"], logits_orig, logits_mod, labels,
                             criterion, expansion_factor)

@@ -55,19 +55,30 @@ def make_transcoder_multi_step(step_fn):
 
 
 def make_transcoder_eval_step(net, in_layer: str, tgt_layer: str, lambda_sparse: float,
-                              expansion_factor: int, criterion):
+                              expansion_factor: int, criterion,
+                              input_scales: Optional[tuple] = None):
     """Eval step for the transcoder-spliced model, shaped like
     train/steps.make_sae_eval_step's. The modified model skips the segment
     (in_layer, tgt_layer]: logits_mod = backbone to in_layer -> transcoder ->
-    apply_segment(after=tgt_layer). ``var_expl`` is that of the target layer."""
+    apply_segment(after=tgt_layer). ``var_expl`` is that of the target layer.
+    ``input_scales`` (sae_input_norm="rms"): (rms_in, rms_tgt); the transcoder
+    reads ``act_in / rms_in``, predicts on the ``/ rms_tgt`` basis, and the
+    splice rescales its prediction back."""
     last = net.stage_names[-1]
+    inv_in = inv_tgt = None
+    if input_scales is not None:
+        inv_in, inv_tgt = (float(1.0 / s) for s in input_scales)
 
     @torch.no_grad()
     def step_fn(params, frozen_params, frozen_state, images, labels):
         logits_orig, taps, _ = net.apply(frozen_params, images, state=frozen_state)
-        act_tgt = taps[tgt_layer]
-        out = transcoder_inference_and_loss(params, taps[in_layer], act_tgt, lambda_sparse)
-        logits_mod = net.apply_segment(frozen_params, out["decoded"], after=tgt_layer,
+        act_in, act_tgt = taps[in_layer], taps[tgt_layer]
+        if inv_in is not None:
+            act_in, act_tgt = act_in * inv_in, act_tgt * inv_tgt
+        out = transcoder_inference_and_loss(params, act_in, act_tgt, lambda_sparse)
+        decoded = (out["decoded"] if inv_tgt is None
+                   else out["decoded"] * float(input_scales[1]))
+        logits_mod = net.apply_segment(frozen_params, decoded, after=tgt_layer,
                                        upto=last, state=frozen_state)
         return eval_metrics(out, act_tgt, out["decoded"], logits_orig, logits_mod, labels,
                             criterion, expansion_factor)
@@ -77,8 +88,10 @@ def make_transcoder_eval_step(net, in_layer: str, tgt_layer: str, lambda_sparse:
 
 def train_transcoder_cached(pipe) -> dict:
     """Cached transcoder training through a Pipeline: dump both layers' caches in
-    one backbone pass, train on zipped token stacks, evaluate before and after
-    each epoch. Returns the last eval's means."""
+    one backbone pass (overlapped with the first epoch under
+    overlap_dump_train), train on zipped token stacks (on the ``/ rms`` basis of
+    each layer under sae_input_norm="rms"), evaluate before and after each
+    epoch. Returns the last eval's means."""
     from sparse_vision_tpu_torch.ops.fused_transcoder import can_fuse
     from sparse_vision_tpu_torch.train.paired_caches import epoch_stacks, prepare_caches
 
@@ -88,9 +101,19 @@ def train_transcoder_cached(pipe) -> dict:
         raise ValueError("transcoder runs need transcoder_target_layer set")
     fused = pipe.check_fusable(can_fuse, pipe.sae_input_size, pipe.transcoder_out_size)
     layers = (cfg.sae_layer, tgt)
-    caches = prepare_caches(pipe, layers, {l: pipe._cache_dir(l) for l in layers})
+    dirs = {l: pipe._cache_dir(l) for l in layers}
+    stream_qs, dump_thread, caches = prepare_caches(pipe, layers, dirs)
     step_fn = make_transcoder_train_step_from_acts(
         cfg.sae_lambda_sparse, pipe.tx, cfg.dead_neurons_steps, cfg.sae_expansion_factor,
         fused=fused, fused_opts={"compute_dtype": cfg.compute_dtype})
-    return pipe.run_epochs(make_transcoder_multi_step(step_fn),
-                           lambda epoch: epoch_stacks(pipe, caches, epoch))
+    opened = [caches]
+
+    def epoch_items(epoch):
+        it, opened[0] = epoch_stacks(pipe, layers, dirs, epoch, 0, stream_qs, dump_thread,
+                                     opened[0])
+        return ((stacks, None) for stacks in it)
+
+    last_eval = pipe.run_epochs(pipe.normalized_step(step_fn, layers), epoch_items)
+    if dump_thread is not None:
+        dump_thread.join()
+    return last_eval

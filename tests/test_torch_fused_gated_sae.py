@@ -203,12 +203,13 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
 
 
 @pytest.mark.parametrize("t,h,c,ok", [
-    (32768, 16384, 256, True), (512, 1024, 128, True), (32, 64, 64, True),
+    (32768, 16384, 256, True), (512, 1024, 128, True), (32, 64, 64, False),
     (16, 64, 64, False), (100, 1024, 256, False), (512, 1000, 256, False),
-    (512, 1024, 96, False), (512, 1024, 512, False),
+    (512, 1024, 96, True), (512, 1024, 512, True),  # any width: C 96, 512
 ])
 def test_can_fuse_states_the_kernel_constraints(t, h, c, ok):
-    """The SIMT bodies' rule: the forward, and the backward with f32 operands."""
+    """The coder SIMT bodies' rule (T and H multiples of 128, any C): the
+    forward, and the backward with f32 operands."""
     assert fused_gated_sae.can_fuse(t, h, c, torch.float32) is ok
 
 
@@ -233,19 +234,19 @@ def test_bf16_backward_takes_the_coder_bodies_widths(t, h, c, fuse, bwd):
     ("bfloat16", 32768, 16384, 1024, True), ("bfloat16", 1152, 640, 136, True),
     ("bfloat16", 512, 1024, 132, False), ("bfloat16", 32, 64, 64, False),
     ("bfloat16", 512, 1088, 256, False),
-    # f32: the SIMT body's, C in SUPPORTED_C, T a multiple of 32, H of 64
-    ("float32", 32768, 16384, 256, True), ("float32", 32, 64, 64, True),
-    ("float32", 8192, 4096, 832, False), ("float32", 512, 1024, 72, False),
+    # f32: the coder SIMT bodies', T and H multiples of 128, any C
+    ("float32", 32768, 16384, 256, True), ("float32", 32, 64, 64, False),
+    ("float32", 8192, 4096, 832, True), ("float32", 512, 1024, 72, True),
     ("float32", 16, 64, 64, False), ("float32", 512, 1000, 256, False),
 ])
 def test_fwd_takes_states_each_routes_rule(dtype, t, h, c, ok):
-    """The forward takes the coder bodies' widths in bf16 and the SIMT body's
-    in f32; the dtype is a torch dtype or RunConfig's name."""
+    """The forward takes the coder bodies' widths, in bf16 multiples of 8 and in
+    f32 any; the dtype is a torch dtype or RunConfig's name."""
     assert fused_gated_sae.fwd_takes(t, h, c, dtype) is ok
     assert fused_gated_sae.fwd_takes(t, h, c, TDT[dtype]) is ok
 
 
-WIDE_C, WIDE_H_EXP = 72, 16  # a width outside the SIMT bodies' {64, 128, 256}; H = 1,152
+WIDE_C, WIDE_H_EXP = 72, 16  # a width the first port's SIMT bodies refused; H = 1,152
 
 
 def _grid(a, step):

@@ -274,3 +274,41 @@ def test_fused_op_can_fuse_reads_the_prefix_boundaries(name, prefixes, t, h, ok)
     the Pipeline asks before it trains on the card."""
     can_fuse, _ = tsteps.fused_op(name, prefixes)
     assert can_fuse(t, h, 256) is ok
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_dequant_steps_match_jax_on_an_int8_stack(fused):
+    """make_dequant_step_fn and make_sae_train_multi_step_quant on one int8 stack
+    and its per-channel scale (data/activation_cache.quantize_int8) against the
+    JAX wrappers: the f32 dequantization q·scale is exact on both sides, so the
+    tolerances are the trajectory's (losses rtol 2e-4; params rtol 2e-3, atol
+    2e-5); the port's two wrappers agree with each other bitwise."""
+    from sparse_vision_tpu.data.activation_cache import quantize_int8
+    from sparse_vision_tpu.train.steps import make_sae_train_multi_step_quant as j_multi_q
+
+    params, batches = _setup()
+    q, scale = quantize_int8(np.concatenate(batches[:4]) * 3.0)
+    q = q.reshape(4, T, C)
+    jtx = joptim.get_optimizer("constrained_adam", LR)
+    jts = j_init(jax.tree.map(jnp.asarray, params), jtx, H, seed=0)
+    jopts = dict(tile_t=32, tile_h=128, compute_dtype=jnp.float32, interpret=True)
+    jstep = j_make("sae_mlp", LAMBDA, jtx, 100, K, fused=fused,
+                   fused_opts=jopts if fused else None)
+    jts, jms = j_multi_q(jstep)(jts, jnp.asarray(q), jnp.asarray(scale))
+
+    ttx = toptim.get_optimizer("constrained_adam", LR)
+    tstep = tsteps.make_sae_train_step_from_acts(
+        "sae_mlp", LAMBDA, ttx, 100, K, fused=fused, fused_opts={"compute_dtype": "float32"})
+    tq, tscale = torch.from_numpy(q), torch.from_numpy(scale)
+    ts_a = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), ttx, H)
+    ts_a, ms = tsteps.make_sae_train_multi_step_quant(tstep)(ts_a, tq, tscale)
+    ts_b = tsteps.init_sae_train_state(convert.sae_params_from_jax(params), ttx, H)
+    step_q = tsteps.make_dequant_step_fn(tstep)
+    for x in tq:
+        ts_b, _ = step_q(ts_b, x, tscale)
+    np.testing.assert_allclose(ms["sae_loss"].numpy(), np.asarray(jms["sae_loss"]), rtol=2e-4)
+    for k in params:
+        np.testing.assert_allclose(ts_a.params[k].numpy(), np.asarray(jts.params[k]),
+                                   rtol=2e-3, atol=2e-5, err_msg=k)
+        np.testing.assert_array_equal(ts_a.params[k].numpy(), ts_b.params[k].numpy())
+    assert ts_a.step == ts_b.step == int(jts.step) == 4
