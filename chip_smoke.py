@@ -58,6 +58,17 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               stages onto the card bitwise equal to a synchronous copy, read
               behind fused launches; an int8-cache run through the
               device-dequant steps within 5% of the bf16 run's last eval.
+  8. artifacts: a trained dictionary as an artifact, on the gated_sae slice
+              (two epochs, 12 steps each, through Pipeline.run): (a) an
+              uninterrupted run (24 + 24 launches); (b) one epoch, then a
+              fresh Pipeline resumed from its checkpoint (12 + 12 launches
+              each), bitwise equal to (a) in params, Adam state, step and
+              dead accumulator; (c) a standalone eval of (a)'s epoch-2
+              checkpoint that reproduces (a)'s last eval; (d) the .npz, .pth
+              and SAELens exports read back bitwise; (e) the results CSV's
+              rows of epochs 1 and 2 and the epoch-2 top-k file. Times one
+              checkpoint's snapshot, write and restore, the export, and an
+              eval with and without its top-k updates.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -104,6 +115,7 @@ from sparse_vision_tpu_torch.ops import (
     fused_transcoder,
     native,
 )
+from sparse_vision_tpu_torch.train import checkpoint as ckpt
 from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
 ROOT = Path(__file__).resolve().parent
@@ -1452,6 +1464,254 @@ def phase_cache(bf16_eval: dict) -> None:
         "dequantized int8 stacks on the card")
 
 
+# ---------------------------------------------------------------------------
+# artifacts phase
+# ---------------------------------------------------------------------------
+
+COUNTING = ("perc_same", "perc_dead_units", "accuracy")
+EVAL_RTOL = 1e-6  # the standalone eval's means against the last training eval's
+
+
+def _same_state(name: str, a, b) -> None:
+    """Fail unless two train states are bitwise equal: params, Adam moments and
+    count, step and dead accumulator."""
+    for k in a.params:
+        for what, x, y in (("param", a.params[k], b.params[k]),
+                           ("mu", a.opt_state["mu"][k], b.opt_state["mu"][k]),
+                           ("nu", a.opt_state["nu"][k], b.opt_state["nu"][k])):
+            if not torch.equal(x, y):
+                n = int((x != y).sum())
+                raise AssertionError(f"artifacts: {name}: {what} {k} differs in {n} entries")
+    if (a.step, a.opt_state["count"]) != (b.step, b.opt_state["count"]):
+        raise AssertionError(f"artifacts: {name}: step/count {a.step}/{a.opt_state['count']} "
+                             f"vs {b.step}/{b.opt_state['count']}")
+    if not torch.equal(a.dead_acc, b.dead_acc):
+        raise AssertionError(f"artifacts: {name}: the dead accumulators differ")
+
+
+def _artifact_run(label: str, want: int, **extra) -> tuple:
+    """The gated_sae slice with ``extra`` through Pipeline.run(); fails unless
+    rows 6-7 launched ``want`` times each and nothing else launched. Returns
+    (pipe, result of run, seconds)."""
+    cfg, datasets = _slice_config("gated_sae", extra)
+    pipe = Pipeline(cfg, datasets=datasets)
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    trained = (fused_gated_sae.fwd_kernel, fused_gated_sae.bwd_kernel)
+    for k in KERNELS:
+        if launches[k.name] != (want if k in trained else 0):
+            raise AssertionError(f"artifacts: {label}: expected {want if k in trained else 0} "
+                                 f"launches of {k.name}, got {launches[k.name]}")
+    log(f"[artifacts] {label}: Pipeline.run in {wall:.1f} s, step {pipe.ts.step}, "
+        f"{want} + {want} launches of {trained[0].name} / {trained[1].name}")
+    return pipe, out, wall
+
+
+def _check_exports(pipe) -> None:
+    """(d) The .npz and .pth that training exported and a SAELens folder, each
+    read back through import_any, bitwise equal to the trained params; the
+    SAELens file's header parses and names every tensor."""
+    from sparse_vision_tpu_torch.train import sae_io
+    from sparse_vision_tpu_torch.utils.paths import sae_run_name
+
+    params = pipe.ts.params
+    folder = pipe.paths["sae_weights"]
+    stem = os.path.join(folder, f"{sae_run_name(pipe.cfg)}_model_weights")
+    t0 = time.perf_counter()
+    pipe._export_sae_weights()
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saelens = sae_io.save_sae_saelens(params, "gated_sae", os.path.join(folder, "saelens"))
+    saelens_s = time.perf_counter() - t0
+    for path in (stem + ".npz", stem + ".pth", saelens):
+        got = sae_io.import_any(path, "gated_sae", like=params)
+        for k, v in params.items():
+            if not torch.equal(got[k], v.cpu()):
+                raise AssertionError(f"artifacts: {path}: {k} does not read back bitwise")
+    wpath = os.path.join(saelens, sae_io.SAELENS_WEIGHTS_FILE)
+    raw = Path(wpath).read_bytes()
+    n = int.from_bytes(raw[:8], "little")
+    header = json.loads(raw[8:8 + n])
+    want = {"W_enc": params["W_gate"], "b_gate": params["b_gate"], "b_mag": params["b_mag"],
+            "r_mag": params["r_mag"], "W_dec": params["W_dec"], "b_dec": params["b_dec"]}
+    for k, v in want.items():
+        e = header[k]
+        if e["dtype"] != "F32" or e["shape"] != list(v.shape):
+            raise AssertionError(f"artifacts: SAELens header entry {k}: {e}")
+    if max(e["data_offsets"][1] for k, e in header.items() if k != "__metadata__") != \
+            len(raw) - 8 - n:
+        raise AssertionError("artifacts: the SAELens header's offsets do not end the file")
+    log(f"[artifacts] (d) .npz, .pth and SAELens exports read back bitwise equal; export "
+        f"(.npz + .pth, {os.path.getsize(stem + '.npz') + os.path.getsize(stem + '.pth')} "
+        f"bytes) {export_s:.3f} s, SAELens {saelens_s:.3f} s; header of {len(header)} "
+        "entries parsed")
+
+
+def _check_results(pipe, last: dict) -> dict:
+    """(e) The results CSV's rows of epochs 1 and 2, the second with the last
+    eval's values; the epoch-2 top-k file: [25, H] indices of samples in
+    [0, 256), unique per unit, and H finite activity frequencies in [0, 1]."""
+    import numpy as np
+
+    from sparse_vision_tpu_torch.eval_tools.results import read_results
+
+    folder = pipe.paths["evaluation_results"]
+    rows = read_results(os.path.join(folder, "sae_eval_results.csv"))
+    if [r["epochs"] for r in rows] != [1.0, 2.0]:
+        raise AssertionError(f"artifacts: results rows {[r['epochs'] for r in rows]}")
+    names = {"rec_loss": "sae_rec_loss", "l1_loss": "sae_l1_loss",
+             "nrmse_loss": "sae_nrmse_loss", "rmse_loss": "sae_rmse_loss",
+             "aux_loss": "sae_aux_loss", "rel_sparsity": "sparsity", "var_expl": "var_expl",
+             "perc_dead_units": "perc_dead_units", "loss_diff": "loss_diff"}
+    for col, key in names.items():
+        if rows[1][col] != last[key]:
+            raise AssertionError(f"artifacts: results row 2 {col} {rows[1][col]} != {last[key]}")
+    n_val = len(pipe.val_ds)
+    with np.load(os.path.join(folder, "filename_indices",
+                              f"{pipe.run_id}_epoch_2.npz")) as z:
+        f = {k: z[k] for k in z.files}
+    h = pipe.num_units
+    for k in ("max_filename_indices", "min_filename_indices"):
+        idx = f[k]
+        if idx.shape != (25, h) or idx.min() < 0 or idx.max() >= n_val:
+            raise AssertionError(f"artifacts: {k} shape {idx.shape}, range "
+                                 f"[{idx.min()}, {idx.max()}]")
+        srt = np.sort(idx, axis=0)
+        if (srt[1:] == srt[:-1]).any():
+            raise AssertionError(f"artifacts: {k} repeats a sample within a unit")
+    freq = f["activity_freq"]
+    if freq.shape != (h,) or not np.isfinite(freq).all() or freq.min() < 0 or freq.max() > 1:
+        raise AssertionError(f"artifacts: activity_freq shape {freq.shape}, range "
+                             f"[{freq.min()}, {freq.max()}]")
+    log(f"[artifacts] (e) results rows of epochs 1 and 2 (row 2 = the last eval); top-k "
+        f"file [25, {h}] indices in [0, {n_val}), unique per unit; activity_freq in "
+        f"[{freq.min():.4g}, {freq.max():.4g}], {int(f['dead_units'].sum())} dead units")
+    return f
+
+
+def _check_topk_values(pipe, f: dict) -> None:
+    """The top-k file's samples rank first by value: the values at its indices,
+    from a fresh pass of the eval step over the validation images, equal the
+    largest and smallest 25 of each unit (values, not order, so the check does
+    not depend on how equal values are ordered)."""
+    import numpy as np
+
+    bs = pipe.cfg.eval_batch_size or pipe._auto_eval_batch_size()
+    with torch.no_grad():
+        acts = torch.cat([pipe._sae_eval_step_fn(
+            pipe.ts.params, pipe.frozen_params, pipe.net_state,
+            torch.from_numpy(b.images).to(DEVICE), torch.from_numpy(b.labels).to(DEVICE)
+        )[1]["topk_acts"] for b in pipe.val_ds.batches(bs, shuffle=False)])
+    scale = float(acts.abs().max())
+    for k, largest in (("max_filename_indices", True), ("min_filename_indices", False)):
+        idx = torch.from_numpy(f[k].astype(np.int64)).to(DEVICE)
+        got = acts.gather(0, idx)
+        want = torch.topk(acts, 25, dim=0, largest=largest).values
+        err = float((got - want).abs().max())
+        if not err <= 1e-6 * scale:
+            raise AssertionError(f"artifacts: {k}: values at the file's indices {err:.3g} "
+                                 f"from the top 25 (scale {scale:.3g})")
+    log(f"[artifacts] (e) the top-k file's samples hold the 25 largest and smallest values "
+        f"of each unit (fresh eval pass, {acts.shape[0]} samples)")
+
+
+def phase_artifacts() -> None:
+    """A trained dictionary as an artifact (gated_sae slice, two epochs; its
+    rolling window never resamples, so the generator, which is not
+    checkpointed, plays no part)."""
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True
+    shutil.rmtree(WORK, ignore_errors=True)
+    split, whole = str(WORK / "resumed"), str(WORK / "uninterrupted")
+    # (b) one epoch, then a fresh Pipeline resumed from its checkpoint
+    _, _, _ = _artifact_run("(b) epoch 1", 12, sae_epochs=1, directory_path=split)
+    resumed, _, _ = _artifact_run("(b) resumed to epoch 2", 12, sae_epochs=2,
+                                  sae_checkpoint_epoch=1, directory_path=split)
+    # (a) the uninterrupted run, from a copy of the same cache bytes
+    cache = os.path.join(resumed.paths["evaluation_results"], "activation_cache")
+    cfg, _ = _slice_config("gated_sae", dict(sae_epochs=2, directory_path=whole))
+    from sparse_vision_tpu_torch.utils.paths import folder_paths
+
+    shutil.copytree(cache, os.path.join(folder_paths(cfg)["evaluation_results"],
+                                        "activation_cache"))
+    pipe, last, _ = _artifact_run("(a) uninterrupted", 24, sae_epochs=2, directory_path=whole)
+    _same_state("(b) against (a)", resumed.ts, pipe.ts)
+    log("[artifacts] (b) the resumed run is bitwise equal to the uninterrupted one: params, "
+        "Adam moments and count, step, dead accumulator")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # one checkpoint's snapshot, write and restore
+    tree, ck_dir = pipe._ckpt_tree(), str(WORK / "ckpt_timing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(ck_dir, 1, tree, blocking=False)
+    t1 = time.perf_counter()
+    ckpt.wait_for_saves()
+    t2 = time.perf_counter()
+    back = ckpt.load_checkpoint(ck_dir, 1, like=tree)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    on_card = back["dead_acc"].device.type == torch.device(DEVICE).type
+    if not on_card or back["opt_state"]["count"] != 24:
+        raise AssertionError("artifacts: the restored checkpoint is off the card or miscounted")
+    _same_state("checkpoint round trip", pipe.ts, pipe.ts._replace(
+        params=back["params"], opt_state=back["opt_state"], step=back["step"],
+        dead_acc=back["dead_acc"]))
+    log(f"[artifacts] checkpoint of {os.path.getsize(path)} bytes: snapshot (blocking) "
+        f"{(t1 - t0) * 1e3:.1f} ms, write {(t2 - t1) * 1e3:.1f} ms, restore to the card "
+        f"{(t3 - t2) * 1e3:.1f} ms; round trip bitwise")
+
+    _check_exports(pipe)
+    f = _check_results(pipe, last)
+
+    # (c) the standalone eval of the epoch-2 checkpoint
+    import sparse_vision_tpu_torch.train.pipeline as pipeline_mod
+
+    evaluated, means, eval_s = _artifact_run("(c) standalone eval", 0, training=False,
+                                             sae_epochs=2, sae_checkpoint_epoch=2,
+                                             directory_path=whole)
+    _same_state("(c) restored against (a)", evaluated.ts, pipe.ts)
+    for k, v in last.items():
+        if (means[k] != v) if k in COUNTING else not abs(means[k] - v) <= EVAL_RTOL * abs(v):
+            raise AssertionError(f"artifacts: standalone eval {k} {means[k]!r} vs last "
+                                 f"training eval {v!r}")
+    exact = sum(means[k] == v for k, v in last.items())
+    log(f"[artifacts] (c) standalone eval of the epoch-2 checkpoint reproduces the last "
+        f"eval (counts exactly, the rest within {EVAL_RTOL:g} relative; {exact} of "
+        f"{len(last)} means bitwise): {json.dumps(means)}")
+    del evaluated
+    _check_topk_values(pipe, f)
+
+    # an eval with and without its top-k updates, on the same pipeline
+    times, bs = {}, pipe.cfg.eval_batch_size or pipe._auto_eval_batch_size()
+    saved = pipeline_mod.update_topk
+    for label in ("with top-k", "without top-k", "with top-k"):
+        if label == "without top-k":
+            pipeline_mod.update_topk = lambda state, *_: state
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.eval_modified(epoch=99, store=False)
+            torch.cuda.synchronize()
+            times.setdefault(label, []).append(time.perf_counter() - t0)
+        finally:
+            pipeline_mod.update_topk = saved
+    log(f"[artifacts] eval of {len(pipe.val_ds)} val images in batches of {bs} (drop_last): "
+        f"with its top-k updates "
+        f"{times['with top-k']} s, without {times['without top-k']} s (the standalone "
+        f"Pipeline.run eval, build not counted: {eval_s:.2f} s)")
+    del pipe
+    torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1469,6 +1729,7 @@ def main() -> int:
         got, evals[name], _ = phase_slice(name, args.profile)
         launches.update(got)
     phase_cache(evals["sae_mlp"])
+    phase_artifacts()
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

@@ -2,9 +2,13 @@
 
     python -m sparse_vision_tpu_torch.cli --run_pipeline --config '<RunConfig json>' [--device cpu]
 
-Without ``--device`` the run goes to CUDA and fails when no GPU is present. A
-training config runs ``Pipeline.train_sae`` (an SAE variant, a transcoder or a
-crosscoder); ``training: false`` runs one modified-model eval. The final eval means print as one JSON line.
+Without ``--device`` the run goes to CUDA and fails when no GPU is present. The
+config runs through ``Pipeline.run``: a training config trains an SAE variant, a
+transcoder or a crosscoder (resuming from the checkpoint of
+``sae_checkpoint_epoch`` when it is above 0, starting from the weights of
+``sae_weights_path`` when it is set) and exports its weights; ``training:
+false`` runs one modified-model eval of that dictionary. The last eval's means
+print as one JSON line.
 """
 
 from __future__ import annotations
@@ -27,8 +31,7 @@ def main(argv=None) -> dict:
     from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
     cfg = RunConfig.from_json(args.config)
-    pipe = Pipeline(cfg, device=args.device)
-    means = pipe.train_sae() if cfg.training else pipe.eval_modified(epoch=0)
+    means = Pipeline(cfg, device=args.device).run()
     print(json.dumps(means, sort_keys=True))
     return means
 

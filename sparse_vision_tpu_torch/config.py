@@ -74,6 +74,10 @@ class RunConfig:
     ie_cotangent_chunk: int = 64
 
     @property
+    def use_sae(self) -> bool:
+        return not self.original_model
+
+    @property
     def matryoshka_prefix_fractions(self) -> tuple:
         return tuple(float(f) for f in self.sae_matryoshka_prefixes.split(",") if f)
 

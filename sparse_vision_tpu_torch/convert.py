@@ -2,7 +2,10 @@
 arrays (``jax.device_get`` of them), into the port's tensors, on the CPU.
 
 - SAE params keep the math layout (W_enc [d, h], W_dec [h, d]): a copy each.
-- Train state: params, Adam ``mu``/``nu``/``count``, ``step`` and ``dead_acc``.
+- Train state: params, Adam ``mu``/``nu``/``count``, ``step`` and ``dead_acc``;
+  a JAX checkpoint tree (Orbax's restore of it) becomes the port's checkpoint
+  tree (train/checkpoint.py), so the port can resume a run the JAX package
+  started.
 - GoogLeNet: conv ``HWIO`` -> ``OIHW``; BatchNorm ``scale``/``bias``/``mean``/
   ``var`` as they are; fc ``w [in, out]`` -> ``[out, in]``.
 """
@@ -43,6 +46,22 @@ def train_state_from_jax(ts, seed: int = 0):
         dead_acc=torch.from_numpy(np.array(ts.dead_acc, dtype=bool)),
         rng=torch.Generator().manual_seed(seed),
     )
+
+
+def checkpoint_from_jax(tree: dict) -> dict:
+    """The port's checkpoint tree from a JAX SAE checkpoint as Orbax restores it
+    without a template: numpy leaves; ``opt_state`` the Adam state's fields as a
+    dict (constrained_adam), or a list whose first entry is that dict (adam's
+    chain)."""
+    opt = tree["opt_state"]
+    adam = opt if isinstance(opt, dict) else next(
+        s for s in opt if isinstance(s, dict) and "mu" in s)
+    return {
+        "params": sae_params_from_jax(tree["params"]),
+        "opt_state": adam_state_from_jax(adam["mu"], adam["nu"], adam["count"]),
+        "step": int(np.asarray(tree["step"])),
+        "dead_acc": torch.from_numpy(np.array(tree["dead_acc"], dtype=bool)),
+    }
 
 
 def _convert_leaf(path: tuple, a) -> torch.Tensor:

@@ -18,6 +18,7 @@ from sparse_vision_tpu_torch.config import NUM_CLASSES, RunConfig, get_img_size
 class Batch:
     images: np.ndarray  # [B, H, W, C] float32
     labels: np.ndarray  # [B] int32
+    indices: np.ndarray  # [B] int32: the samples' indices in the dataset (top-k files)
 
 
 class ArrayDataset:
@@ -40,7 +41,7 @@ class ArrayDataset:
         ).astype(np.int32)
         for b in range(n // batch_size):  # drop_last=True
             idx = order[b * batch_size : (b + 1) * batch_size]
-            yield Batch(self.images[idx], self.labels[idx])
+            yield Batch(self.images[idx], self.labels[idx], idx)
 
 
 def make_synthetic(num_samples: int = 512, img_size: tuple = (28, 28, 1),

@@ -29,6 +29,7 @@ from sparse_vision_tpu_torch.train.steps import (
     make_sae_train_multi_step,
     make_train_step,
 )
+from sparse_vision_tpu_torch.utils.paths import sae_run_name
 
 
 def _resample(params, opt_state, dead, rng, draws=None):
@@ -122,24 +123,14 @@ def save_decoder_norms(params: dict, layers: tuple, folder: str, name: str) -> s
     return path
 
 
-def run_name(cfg) -> str:
-    """The JAX package's run name of a crosscoder (utils/paths.sae_params_no_epochs
-    joined behind the anchor layer)."""
-    extra = "+".join(s.strip() for s in cfg.crosscoder_layers.split(",") if s.strip())
-    values = (f"{cfg.sae_model_name}-x-{extra}", cfg.sae_learning_rate, cfg.sae_batch_size,
-              cfg.sae_optimizer_name, cfg.sae_expansion_factor, cfg.sae_lambda_sparse,
-              cfg.dead_neurons_steps)
-    return f"{cfg.sae_layer}_" + "_".join(str(v) for v in values)
-
-
 def train_crosscoder_cached(pipe) -> dict:
     """Cached crosscoder training through a Pipeline: dump all L layers' caches in
-    one backbone pass (overlapped with the first epoch under
+    one backbone pass (overlapped with the first epoch run under
     overlap_dump_train), train on zipped token stacks (each layer on its ``/
     rms`` basis under sae_input_norm="rms", which crosscoders over layers of
-    unlike scales need), evaluate before and after each epoch, and write the
-    decoder-norm diffing CSV under
-    ``<directory_path>/<model>/<dataset>/sae_weights_crosscoder/``. Returns the
+    unlike scales need) from ``sae_checkpoint_epoch`` on, with the Pipeline's
+    evals, checkpoints and export (Pipeline.run_epochs), then write the
+    decoder-norm diffing CSV into the run's sae_weights folder. Returns the
     last eval's means."""
     from sparse_vision_tpu_torch.ops.fused_crosscoder import can_fuse
     from sparse_vision_tpu_torch.train.paired_caches import epoch_stacks, prepare_caches
@@ -161,17 +152,16 @@ def train_crosscoder_cached(pipe) -> dict:
     opened = [caches]
 
     def epoch_items(epoch):
-        it, opened[0] = epoch_stacks(pipe, layers, dirs, epoch, 0, stream_qs, dump_thread,
-                                     opened[0])
+        it, opened[0] = epoch_stacks(pipe, layers, dirs, epoch, cfg.sae_checkpoint_epoch,
+                                     stream_qs, dump_thread, opened[0])
         return ((stacks, None) for stacks in it)
 
     last_eval = pipe.run_epochs(
         pipe.normalized_step(lambda ts, *xs: step_fn(ts, xs), layers), epoch_items)
     if dump_thread is not None:
         dump_thread.join()
-    folder = os.path.join(cfg.directory_path, cfg.model_name, cfg.dataset_name,
-                          f"sae_weights_{cfg.sae_model_name}")
-    path = save_decoder_norms(pipe.ts.params, layers, folder, run_name(cfg))
+    path = save_decoder_norms(pipe.ts.params, layers, pipe.paths["sae_weights"],
+                              sae_run_name(cfg))
     print(f"Saved crosscoder decoder-norm diffing CSV to {path}")
     pipe.decoder_norms_path = path
     return last_eval

@@ -1,12 +1,15 @@
 """Run orchestration for the SAE training slice (port of the cached-training and
 modified-model-eval parts of sparse_vision_tpu/train/pipeline.py).
 
-``Pipeline(cfg).train_sae()`` runs the north-star chain: frozen GoogLeNet -> tap
-``sae_layer`` -> activation cache -> SAE training (``sae_mlp``, ``gated_sae``,
+``Pipeline(cfg).run()`` trains (``training``) or runs one standalone eval of a
+restored checkpoint. Training, ``train_sae``, runs the north-star chain: frozen
+GoogLeNet -> tap ``sae_layer`` -> activation cache -> SAE training (``sae_mlp``, ``gated_sae``,
 ``jumprelu_sae`` or ``matryoshka_sae``; the variant's fused CUDA kernels on a
 GPU, their plain versions on the CPU) with dead-latent tracking (resampling for
 sae_mlp, the rolling dead window for the others) -> eval by splicing the SAE
-back into the backbone, before and after each epoch. ``transcoder`` (from
+back into the backbone, before and after each epoch; a checkpoint after each
+epoch (train/checkpoint.py), resumable with ``sae_checkpoint_epoch``; the
+weights exported at the end (train/sae_io.py). ``transcoder`` (from
 ``sae_layer`` to ``transcoder_target_layer``) and ``crosscoder`` (``sae_layer``
 plus ``crosscoder_layers``) train the same way from aligned caches of every
 layer they read, dumped in one backbone pass (train/transcoder.py,
@@ -14,10 +17,11 @@ train/crosscoder.py). With ``overlap_dump_train`` the first epoch trains on
 each shard as the dump publishes it (a dump thread; data/activation_cache.py),
 and every batch and stack reaches the device through data/prefetch.py; an int8
 cache is dequantized on the device. ``sae_input_norm="rms"`` trains on each
-layer's activations divided by its cache's token RMS. Figures, top-k files,
-the results CSV, checkpoints and weight export are not ported yet; a config
-that asks for anything outside the slice raises NotImplementedError naming the
-field.
+layer's activations divided by its cache's token RMS. Each eval writes the
+per-unit top-k file and activity frequencies, and each eval after an epoch its
+row of the results CSV (eval_tools/results.py), under the JAX package's file
+names (utils/paths.py). The eval figures are not ported; a config that asks for
+anything outside the slice raises NotImplementedError naming the field.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from sparse_vision_tpu_torch.config import RunConfig
 from sparse_vision_tpu_torch.data.datasets import load_data
 from sparse_vision_tpu_torch.data.prefetch import prefetch
 from sparse_vision_tpu_torch.device import resolve_device
+from sparse_vision_tpu_torch.eval_tools import results as results_store
 from sparse_vision_tpu_torch.models.backbone import (
     get_sae_input_size,
     init_backbone,
@@ -43,7 +48,10 @@ from sparse_vision_tpu_torch.models.crosscoder import init_crosscoder
 from sparse_vision_tpu_torch.models.sae import PORTED, init_sae, init_transcoder
 from sparse_vision_tpu_torch.ops import metrics, optim
 from sparse_vision_tpu_torch.ops.losses import get_criterion
+from sparse_vision_tpu_torch.ops.topk import init_topk, update_topk
+from sparse_vision_tpu_torch.train import checkpoint as ckpt
 from sparse_vision_tpu_torch.train.steps import (
+    SAETrainState,
     fused_op,
     init_sae_train_state,
     make_dequant_step_fn,
@@ -52,6 +60,8 @@ from sparse_vision_tpu_torch.train.steps import (
     make_sae_train_multi_step_quant,
     make_sae_train_step_from_acts,
 )
+from sparse_vision_tpu_torch.utils.logging import RunLogger
+from sparse_vision_tpu_torch.utils.paths import folder_paths, run_id, sae_run_name
 
 # field -> (supported values, or None for "the JAX default only"), checked by
 # validate_slice; anything else is not ported yet
@@ -66,13 +76,11 @@ _SLICE = {
     "original_model": (False,),
     "mis": ("0",),
     "compute_ie": ("0",),
-    "sae_checkpoint_epoch": (0,),
     "data_dir": ("",),
     "mesh_shape": ((),),
     "overlap_dump_train": (False, True),
     "sae_input_norm": ("none", "rms"),
     "sae_e2e_finetune_epochs": (0,),
-    "sae_weights_path": ("",),
     "wandb_status": (False,),
     "imagenet_class_filter": ("",),
     "profile_dir": ("",),
@@ -108,10 +116,15 @@ class Pipeline:
         versions of the kernels. ``datasets`` optionally injects
         ``(train_ds, val_ds, category_names, img_size)``. ``backbone`` =
         (params, state) and ``sae_params`` optionally replace the random init,
-        e.g. with the JAX package's weights through convert.py."""
+        e.g. with the JAX package's weights through convert.py;
+        ``cfg.sae_weights_path`` then still imports over them, and
+        ``cfg.sae_checkpoint_epoch`` restores the train state."""
         self.validate_input_norm(cfg)  # before any dump thread can start
         validate_slice(cfg)
         self.cfg = cfg
+        self.paths = folder_paths(cfg)
+        self.run_id = run_id(cfg)
+        self.logger = RunLogger(log_every=cfg.log_every)
         self.device = resolve_device(device)
         self.net = make_backbone(cfg.model_name, cfg.dataset_name)
         if datasets is None:
@@ -157,8 +170,19 @@ class Pipeline:
                 return init_sae(name, gen, self.sae_input_size, cfg.sae_expansion_factor,
                                 jumprelu_threshold_init=cfg.jumprelu_threshold_init)
         self.sae_params = _to_device(init() if sae_params is None else sae_params, self.device)
+        if cfg.sae_weights_path:  # weights only: a native .npz, a .pth or SAELens
+            from sparse_vision_tpu_torch.train.sae_io import import_any
+
+            like = self.sae_params
+            imported = import_any(cfg.sae_weights_path, name, like=like)
+            # an export under sae_input_norm="rms" also holds input_scale, a
+            # statistic of the cache that is no parameter
+            self.sae_params = {k: imported[k].to(like[k]) for k in like}
+            print(f"Initialized SAE weights from {cfg.sae_weights_path}.")
         self.tx = optim.get_optimizer(cfg.sae_optimizer_name, cfg.sae_learning_rate)
         self.ts = init_sae_train_state(self.sae_params, self.tx, self.num_units, seed=cfg.seed)
+        if cfg.sae_checkpoint_epoch > 0:
+            self._restore_sae(cfg.sae_checkpoint_epoch)
         self.train_log: list = []  # (step, metrics of that step)
         self.eval_log: list = []  # (epoch, means)
         self.train_timing: list = []  # per epoch: steps, tokens, seconds
@@ -182,11 +206,32 @@ class Pipeline:
             shard_tokens=block * max(1, -(-(1 << 16) // block)),
         )
 
-    def _log_train(self, step: int, m: dict) -> None:
-        self.train_log.append((step, m))
-        if step % self.cfg.log_every == 0:
-            print(f"[train step {step}] "
-                  + ", ".join(f"{k}={float(v):.5g}" for k, v in sorted(m.items())))
+    def _sae_ckpt_dir(self) -> str:
+        return os.path.join(self.paths["checkpoints"], sae_run_name(self.cfg))
+
+    def _ckpt_tree(self) -> dict:
+        ts = self.ts
+        return {"params": ts.params, "opt_state": ts.opt_state, "step": ts.step,
+                "dead_acc": ts.dead_acc}
+
+    def _restore_sae(self, epoch: int) -> None:
+        """The train state of the checkpoint of ``epoch``, on this device. The
+        generator is not checkpointed: the run goes on with one seeded from
+        ``cfg.seed``, as the JAX package resumes with a fresh key(seed), so a
+        resample after the restart draws other directions than an
+        uninterrupted run would."""
+        r = ckpt.load_checkpoint(self._sae_ckpt_dir(), epoch, like=self._ckpt_tree())
+        self.ts = SAETrainState(params=r["params"], opt_state=r["opt_state"], step=r["step"],
+                                dead_acc=r["dead_acc"], rng=self.ts.rng.manual_seed(self.cfg.seed))
+        print(f"Resumed SAE from checkpoint epoch {epoch} (train step {self.ts.step}).")
+
+    def run(self):
+        """The configured mode: training, or a standalone eval of the dictionary
+        as it is (a restored checkpoint's, with ``sae_checkpoint_epoch``), which
+        is its own last epoch. The other modes are refused by validate_slice."""
+        if self.cfg.training:
+            return self.train_sae()
+        return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, final=True)
 
     def train_sae(self):
         """Train the configured dictionary from activation caches: the SAE
@@ -274,22 +319,29 @@ class Pipeline:
 
         return step
 
-    def run_epochs(self, step_fn, epoch_items) -> dict:
-        """Eval, then per epoch every dispatch that ``epoch_items(epoch)`` yields,
-        then eval. A dispatch is ``(stacks, scale)``: a tuple of [k, T, C_l]
+    def run_epochs(self, step_fn, epoch_items) -> Optional[dict]:
+        """Eval (stored nowhere), then for each epoch from
+        ``cfg.sae_checkpoint_epoch`` on: every dispatch that
+        ``epoch_items(epoch)`` yields, an asynchronous checkpoint, an eval. Then
+        wait for the checkpoints and export the weights. A dispatch is
+        ``(stacks, scale)``: a tuple of [k, T, C_l]
         stacks (one per cache) and None, or, from an int8 cache read with
         dequantize="device", a tuple of one int8 stack and its scale [C]. Each is
         staged onto the device through data/prefetch.py. A stack of
         CACHE_SCAN_K steps runs as one multi-step dispatch, a shorter tail step
         by step through ``step_fn(ts, *acts)`` (with a scale, both through the
         dequantizing wrappers of train/steps.py), as the JAX package runs them.
-        Logs every step and the epoch's timing; returns the last eval's means."""
+        Keeps every step in ``train_log`` and hands the logger the last step of
+        each dispatch, as the JAX package does; records the epoch's timing.
+        Returns the last eval's means (None when no epoch is left to run)."""
         cfg = self.cfg
         k_full = self.CACHE_SCAN_K
         runs = {False: (make_sae_train_multi_step(step_fn), step_fn),
                 True: (make_sae_train_multi_step_quant(step_fn), make_dequant_step_fn(step_fn))}
-        last_eval = self.eval_modified(epoch=0)
-        for epoch in range(cfg.sae_epochs):
+        start = cfg.sae_checkpoint_epoch
+        last_eval = None
+        self.eval_modified(epoch=start, store=False)
+        for epoch in range(start, cfg.sae_epochs):
             t0 = time.perf_counter()
             steps0 = self.ts.step
             for stacks, scale in prefetch(epoch_items(epoch), self.device):
@@ -299,21 +351,56 @@ class Pipeline:
                 if k == k_full:
                     self.ts, ms = multi(self.ts, *stacks, *extra)
                     ms = [{n: v[j] for n, v in ms.items()} for j in range(k)]
+                    self.logger.log_train(self.ts.step, ms[-1])
                 else:  # a tail of fewer steps
                     ms = []
                     for j in range(k):
                         self.ts, m = single(self.ts, *(s[j] for s in stacks), *extra)
                         ms.append(m)
-                for j, m in enumerate(ms):
-                    self._log_train(step0 + j + 1, m)
+                        self.logger.log_train(self.ts.step, m)
+                self.train_log.extend((step0 + j + 1, m) for j, m in enumerate(ms))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             steps = self.ts.step - steps0
             self.train_timing.append({"epoch": epoch, "steps": steps,
                                       "tokens": steps * cfg.cache_tokens_per_step,
                                       "seconds": time.perf_counter() - t0})
-            last_eval = self.eval_modified(epoch=epoch + 1)
+            # the host snapshot blocks; the write overlaps the next epoch
+            ckpt.save_checkpoint(self._sae_ckpt_dir(), epoch + 1, self._ckpt_tree(),
+                                 blocking=False)
+            last_eval = self.eval_modified(epoch=epoch + 1,
+                                           final=epoch + 1 == cfg.sae_epochs)
+        ckpt.wait_for_saves()
+        self._export_sae_weights()
         return last_eval
+
+    def _export_sae_weights(self) -> None:
+        """Weight-only export to the run's sae_weights folder: the native .npz
+        and a .pth in the reference's nn.Linear key layout. Under
+        sae_input_norm="rms" the .npz also holds ``input_scale``, the token RMS
+        of each layer the dictionary reads (the crosscoder's layers in order;
+        the transcoder's input, then target), so that any reader can reproduce
+        the splice."""
+        from sparse_vision_tpu_torch.train.sae_io import save_sae_weights, to_torch_state_dict
+
+        cfg = self.cfg
+        name = sae_run_name(cfg)
+        folder = self.paths["sae_weights"]
+        params = self.ts.params
+        if cfg.sae_input_norm != "none":
+            if cfg.sae_model_name == "crosscoder":
+                layers = self.crosscoder_all_layers
+            elif cfg.sae_model_name == "transcoder":
+                layers = (cfg.sae_layer, cfg.transcoder_target_layer)
+            else:
+                layers = (cfg.sae_layer,)
+            params = {**params, "input_scale": torch.tensor(
+                [self.input_scale_for(l) for l in layers], dtype=torch.float32)}
+        path = save_sae_weights(params, folder, file_name=f"{name}_model_weights")
+        pth = os.path.join(folder, f"{name}_model_weights.pth")
+        torch.save(to_torch_state_dict(self.ts.params, cfg.sae_model_name), pth + ".tmp")
+        os.replace(pth + ".tmp", pth)
+        print(f"Saved SAE weights to {path}")
 
     def train_sae_cached(self):
         """Dump the layer's cache (on a thread, streamed into the first epoch,
@@ -360,7 +447,8 @@ class Pipeline:
         opened: list = []  # the cache, once its dump has finished
 
         def epoch_items(epoch):
-            if stream_q is not None and epoch == 0:  # the shards as the dump publishes them
+            # the first epoch run takes the shards as the dump publishes them
+            if stream_q is not None and epoch == cfg.sae_checkpoint_epoch:
                 return (((s,), None) for s in stream_stacks(
                     stream_q, tps, k, logical_dtype=cfg.cache_dtype))
             if not opened:
@@ -411,28 +499,82 @@ class Pipeline:
                 input_scale=self.input_scale_for(cfg.sae_layer))
         return self._sae_eval_step_cache
 
-    def eval_modified(self, epoch: int) -> dict:
-        """Means over the validation batches of every eval-step metric, plus exact
-        accuracy and perc_dead_units (units dead in every batch). The batches
-        reach the device through data/prefetch.py."""
+    def eval_modified(self, epoch: int, store: bool = True, on_train_data: bool = False,
+                      k: int = 25, final: bool = False) -> dict:
+        """Means over the eval batches (validation, or train with
+        ``on_train_data``) of every eval-step metric, plus exact accuracy and
+        perc_dead_units (units dead in every batch). Writes
+        ``<evaluation_results>/filename_indices/<run_id>_epoch_<epoch>.npz``:
+        per unit the filename indices of the ``k`` samples with the largest and
+        the smallest channel-averaged activation (the pre-activation where the
+        variant has one), the dead units and the batch-mean activity frequency.
+        With ``store``, writes the epoch's results row and merges the CSV. The
+        batches reach the device through data/prefetch.py; the sums and the
+        top-k states stay there until one readback after the loop. ``final``
+        (the run's last eval) would draw the eval figures, which are not
+        ported."""
+        cfg = self.cfg
         step_fn = self._sae_eval_step_fn
-        bs = self.cfg.eval_batch_size or self._auto_eval_batch_size()
-        sums, correct, dead_acc, num_batches = None, None, None, 0
-        for b in prefetch(self.val_ds.batches(bs, shuffle=False), self.device):
+        ds = self.train_ds if on_train_data else self.val_ds
+        bs = cfg.eval_batch_size or self._auto_eval_batch_size()
+        sums = freq_sum = correct = dead_acc = None
+        top = init_topk(k, self.num_units, largest=True, device=self.device)
+        small = init_topk(k, self.num_units, largest=False, device=self.device)
+        num_batches = 0
+        for b in prefetch(ds.batches(bs, shuffle=False), self.device):
             m, arrays = step_fn(self.ts.params, self.frozen_params, self.net_state,
                                 b.images, b.labels)
             num_batches += 1
-            sums = m if sums is None else {k: sums[k] + v for k, v in m.items()}
+            sums = m if sums is None else {key: sums[key] + v for key, v in m.items()}
+            freq_sum = arrays["freq"] if freq_sum is None else freq_sum + arrays["freq"]
             correct = arrays["correct"] if correct is None else correct + arrays["correct"]
             dead_acc = metrics.update_dead_accumulator(dead_acc, arrays["dead"])
+            start_idx = (num_batches - 1) * bs
+            top = update_topk(top, arrays["topk_acts"], start_idx, b.indices)
+            small = update_topk(small, arrays["topk_acts"], start_idx, b.indices)
         if num_batches == 0:
             raise ValueError("Empty evaluation dataset")
-        means = {k: float(v) / num_batches for k, v in sums.items()}  # one readback
-        means["accuracy"] = int(correct) / (num_batches * bs)
-        means["perc_dead_units"] = float(dead_acc.float().mean())
+        names = sorted(sums)
+        host = {key: v.cpu().numpy() for key, v in (
+            ("sums", torch.stack([sums[n].float() for n in names])), ("freq", freq_sum),
+            ("correct", correct), ("dead", dead_acc), ("top", top.filename_indices),
+            ("small", small.filename_indices))}
+        means = {n: float(v) / num_batches for n, v in zip(names, host["sums"])}
+        means["accuracy"] = int(host["correct"]) / (num_batches * bs)
+        means["perc_dead_units"] = float(host["dead"].mean())
         self.eval_log.append((epoch, means))
-        print(f"[eval epoch {epoch}] "
-              + ", ".join(f"{k}={v:.5g}" for k, v in sorted(means.items())))
+        self.logger.log_eval(epoch, means)
+
+        # batch-mean activity frequency per unit
+        freq = host["freq"].astype(np.float64) / num_batches
+        fn_dir = os.path.join(self.paths["evaluation_results"], "filename_indices")
+        os.makedirs(fn_dir, exist_ok=True)
+        np.savez(os.path.join(fn_dir, f"{self.run_id}_epoch_{epoch}.npz"),
+                 max_filename_indices=host["top"], min_filename_indices=host["small"],
+                 dead_units=host["dead"], activity_freq=freq.astype(np.float32))
+
+        if store:
+            row = {
+                "lambda_sparse": cfg.sae_lambda_sparse,
+                "expansion_factor": cfg.sae_expansion_factor,
+                "batch_size": cfg.sae_batch_size,
+                "optimizer_name": cfg.sae_optimizer_name,
+                "learning_rate": cfg.sae_learning_rate,
+                "rec_loss": means.get("sae_rec_loss"),
+                "l1_loss": means.get("sae_l1_loss"),
+                "nrmse_loss": means.get("sae_nrmse_loss"),
+                "rmse_loss": means.get("sae_rmse_loss"),
+                "aux_loss": means.get("sae_aux_loss"),
+                "rel_sparsity": means.get("sparsity"),
+                "var_expl": means.get("var_expl"),
+                "perc_dead_units": means.get("perc_dead_units"),
+                "loss_diff": means.get("loss_diff"),
+                "median_mis": None,
+                "epochs": epoch,
+            }
+            folder = self.paths["evaluation_results"]
+            results_store.store_run_result(folder, f"{self.run_id}_epoch_{epoch}", row)
+            results_store.merge_results(folder)
         return means
 
     def _auto_eval_batch_size(self) -> int:

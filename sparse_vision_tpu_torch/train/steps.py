@@ -240,8 +240,8 @@ def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: 
                        input_scale: Optional[float] = None):
     """Eval step for the SAE-spliced model: the reference's eval-epoch quantities
     for one batch (model_pipeline.py:661-714 + 806-878), in plain torch (the JAX
-    eval is stock XLA too). Returns (batch_metrics, arrays) with arrays 'dead',
-    'freq' and 'correct'.
+    eval is stock XLA too). Returns (batch_metrics, arrays) with arrays as
+    eval_metrics gives them.
 
     ``input_scale`` (sae_input_norm="rms"): the SAE reads ``act / scale`` and
     the splice rescales the reconstruction back, so KLD, %same and loss_diff
@@ -272,7 +272,10 @@ def eval_metrics(out: dict, act: torch.Tensor, decoded: torch.Tensor, logits_ori
                  logits_mod, labels, criterion, expansion_factor: int):
     """(batch_metrics, arrays) of one eval batch of a spliced dictionary, from its
     loss terms ``out`` and the logits of the original and the modified model;
-    ``var_expl`` is that of the spliced activation ``act`` by ``decoded``."""
+    ``var_expl`` is that of the spliced activation ``act`` by ``decoded``.
+    ``arrays`` holds 'dead' and 'freq' [U], 'correct', and 'topk_acts' [B, U]:
+    the channel-averaged pre-activation (the code itself for gated_sae, which
+    has none), which the eval's top-k states rank."""
     loss_mod = criterion(logits_mod, labels)
     loss_orig = criterion(logits_orig, labels)
     dead, sparsity, freq = metrics.measure_inactive_units(out["encoded"], expansion_factor)
@@ -291,9 +294,11 @@ def eval_metrics(out: dict, act: torch.Tensor, decoded: torch.Tensor, logits_ori
         "sparsity": sparsity,
         "var_expl": metrics.variance_explained(act, decoded),
     }
+    pre = out["encoded_pre"]
     arrays = {
         "dead": dead,
         "freq": freq,
+        "topk_acts": metrics.spatial_mean(out["encoded"] if pre is None else pre),
         "correct": (logits_mod.argmax(1) == labels).sum(),
     }
     return batch_metrics, arrays

@@ -88,10 +88,11 @@ def make_transcoder_eval_step(net, in_layer: str, tgt_layer: str, lambda_sparse:
 
 def train_transcoder_cached(pipe) -> dict:
     """Cached transcoder training through a Pipeline: dump both layers' caches in
-    one backbone pass (overlapped with the first epoch under
+    one backbone pass (overlapped with the first epoch run under
     overlap_dump_train), train on zipped token stacks (on the ``/ rms`` basis of
-    each layer under sae_input_norm="rms"), evaluate before and after each
-    epoch. Returns the last eval's means."""
+    each layer under sae_input_norm="rms") from ``sae_checkpoint_epoch`` on,
+    with the Pipeline's evals, checkpoints and export (Pipeline.run_epochs).
+    Returns the last eval's means."""
     from sparse_vision_tpu_torch.ops.fused_transcoder import can_fuse
     from sparse_vision_tpu_torch.train.paired_caches import epoch_stacks, prepare_caches
 
@@ -109,8 +110,8 @@ def train_transcoder_cached(pipe) -> dict:
     opened = [caches]
 
     def epoch_items(epoch):
-        it, opened[0] = epoch_stacks(pipe, layers, dirs, epoch, 0, stream_qs, dump_thread,
-                                     opened[0])
+        it, opened[0] = epoch_stacks(pipe, layers, dirs, epoch, cfg.sae_checkpoint_epoch,
+                                     stream_qs, dump_thread, opened[0])
         return ((stacks, None) for stacks in it)
 
     last_eval = pipe.run_epochs(pipe.normalized_step(step_fn, layers), epoch_items)

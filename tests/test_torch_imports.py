@@ -1,5 +1,6 @@
 """The port stands alone: no file of sparse_vision_tpu_torch/ and not chip_smoke.py
-imports jax, optax, orbax, ml_dtypes or the JAX package (sparse_vision_tpu).
+imports jax, optax, orbax, ml_dtypes or the JAX package (sparse_vision_tpu), nor
+safetensors, matplotlib, pandas or wandb, which the GPU machine does not have.
 Without a GPU, the default entry points raise instead of running on the CPU."""
 
 import ast
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "ml_dtypes", "sparse_vision_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "orbax", "ml_dtypes", "sparse_vision_tpu",
+             "safetensors", "matplotlib", "pandas", "wandb"}
 FILES = sorted((ROOT / "sparse_vision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -29,12 +29,16 @@ shards in dump order), sae_mlp with an int8 cache (dequantized on the device:
 the (int8 stack, scale) pairs through the quant steps), and the crosscoder with
 sae_input_norm="rms" at λ = 0.5 (tests/test_input_norm.py's crosscoder λ: on the
 normalized basis the code stays alive, which it checks). The rms run is held to
-the JAX run on its per-step losses, eval means and decoder-norm CSV, not on its
-final weights: on the unit-scale basis under plain Adam the f32 rounding of the
-two frameworks' products switches a latent for a token now and then and moves
-one or two of 1.6 million weights by ~3e-5 (measured even when both train from
-the same cache bytes), past the params tolerance, while the losses and means
-agree.
+the JAX run on its per-step losses, eval means and decoder-norm CSV, and on its
+final weights at a bound of its own (RMS_PARAMS_ATOL, RMS_PARAMS_OFF). Run step
+by step from the same cache bytes, the two frameworks' pre-activations agree
+bitwise on the same weights and no latent switches in the 8 steps; the weights
+part at the first update. On the unit-scale basis some gradient entries cancel
+to ~1e-9, below Adam's eps (1e-8), where its step lr·g/(|g| + eps) moves by up
+to lr/(4·eps) = 2.5e4 per unit of g: the ~1e-10 by which the two frameworks'
+f32 sums of the same gradient differ (2e-9 of the largest entry) then moves a
+weight by up to ~1e-5 a step. After 8 steps a few of the 3.1 million weights
+are off by up to ~8e-5, past the params tolerance below; the rest hold it.
 
 Tolerances: the caches differ by the two frameworks' f32 convolution rounding
 (~1e-6 relative, test_torch_googlenet.py), which training carries forward: losses
@@ -84,13 +88,20 @@ VARIANTS = {
     "transcoder_overlap": {"sae_model_name": "transcoder", "transcoder_target_layer": "mixed3b",
                            "cache_dtype": "bfloat16", "overlap_dump_train": True},
 }
-# the same, for the runs held on losses, means and the CSV only (docstring)
+# the same, for the runs held on the final weights at the bound below (docstring)
 RMS_VARIANTS = {
     "crosscoder_rms": {"sae_model_name": "crosscoder", "sae_layer": "mixed4a",
                        "crosscoder_layers": "mixed4b,mixed4c", "sae_optimizer_name": "adam",
                        "cache_tokens_per_step": 32, "sae_lambda_sparse": 0.5,
                        "sae_input_norm": "rms"},
 }
+
+
+# every weight of the rms run within a quarter of one Adam step (lr 1e-3); at
+# most RMS_PARAMS_OFF of its 3.1 million weights past the params tolerance of
+# the other runs (4 were, measured)
+RMS_PARAMS_ATOL = 2.5e-4
+RMS_PARAMS_OFF = 16
 
 
 class _Recorder(RunLogger):
@@ -206,10 +217,21 @@ def test_rms_run_matches_jax_and_keeps_its_code_alive(rms_runs):
     assert all(s > 0 for s in scales) and max(scales) / min(scales) > 2  # unlike scales
 
 
+def test_rms_run_final_params_match_jax_within_the_adam_eps_bound(rms_runs):
+    jpipe, _, _, tpipe, _ = rms_runs
+    assert tpipe.ts.step == int(jpipe.ts.step) == 8
+    off = 0
+    for k, v in jpipe.ts.params.items():
+        want, got = np.asarray(v), tpipe.ts.params[k].numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=RMS_PARAMS_ATOL, err_msg=k)
+        off += int((np.abs(got - want) > 2e-5 + 2e-3 * np.abs(want)).sum())
+    assert off <= RMS_PARAMS_OFF, f"{off} weights past rtol 2e-3 / atol 2e-5"
+
+
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
     for field, value in [("sae_model_name", "topk_sae"), ("mesh_shape", (2,)),
-                         ("sae_checkpoint_epoch", 1), ("data_dir", "/data")]:
+                         ("compute_ie", "2"), ("data_dir", "/data")]:
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
                       datasets=_datasets(t_synth))
