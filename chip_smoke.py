@@ -69,6 +69,22 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               rows of epochs 1 and 2 and the epoch-2 top-k file. Times one
               checkpoint's snapshot, write and restore, the export, and an
               eval with and without its top-k updates.
+  9. circuit: circuit discovery through Pipeline.run on GoogLeNet at 229 px
+              (random, conv weights x sqrt(6); each image labelled with the
+              class its logits raise most) with the eight registry-shaped
+              sae_mlp SAEs (mixed3a 256 -> 2,048 ... mixed5b 1,024 -> 4,096
+              latents) written as checkpoints and loaded through the registry:
+              (a) the C5 case (seed 0's stand-in holds class 543) raises a
+              ValueError naming the class; (b) compute_ie 1 and 2 over 128
+              images at batch 32, 3 at batch 8 (64 top features a layer,
+              cotangent chunks of 16, every pair and the loss node), 40; every
+              artifact finite at the JAX package's shapes; (c) one batch's node
+              IE on the card equal to the CPU's; (d) one pair's edges in chunks
+              of 16 equal to one chunk; (e) faithfulness 1 at threshold -1, to
+              a tolerance that tells errors kept from errors ablated, and
+              exactly 0 at 1e9, for the SAE and the model variant. Fails on a vmap
+              fallback warning or a kernel launch; prints each mode's seconds
+              and images/s and the edge pass's peak memory.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -76,7 +92,10 @@ Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import csv
 import dataclasses
+import io
 import json
 import math
 import os
@@ -1712,6 +1731,416 @@ def phase_artifacts() -> None:
     shutil.rmtree(WORK, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# circuit phase
+# ---------------------------------------------------------------------------
+
+# bench_ie.py:1-15, 60-110: GoogLeNet at 229 px, the eight CIRCUIT_LAYERS with
+# registry-shaped sae_mlp SAEs; modes 1, 2 and 4 at batch 32, mode 3 at batch 8
+# with 64 top features a layer and cotangent chunks of 16 over the whole chain
+CIRCUIT_SIZE = (229, 229, 3)
+CIRCUIT_IMAGES = 128
+CIRCUIT_BATCH, EDGE_BATCH = 32, 8
+TOP_FEATURES, COTANGENT_CHUNK = 64, 16
+# the synthetic stand-in of seed 0 holds class 543 (image 17), the C5 case; the
+# circuit runs on seed 2's images, relabelled (_image_dependent_labels), none
+# of class 543
+C5_SEED, CIRCUIT_SEED = 0, 2
+# the backbone's conv weights times sqrt(6) (Kaiming's ReLU gain over torch's
+# default U(+-1/sqrt(fan_in))): at the default init the signal shrinks ~6x per
+# conv layer, every image gets the same logits, and faithfulness's denominator
+# m(M) - m(empty) is 0
+CONV_GAIN = math.sqrt(6.0)
+# the circuit layers' taps at 229 px (H, W, C), as the JAX package has them
+CIRCUIT_DIMS = {"mixed3a": (28, 28, 256), "mixed3b": (28, 28, 480), "mixed4b": (14, 14, 512),
+                "mixed4c": (14, 14, 512), "mixed4d": (14, 14, 528), "mixed4e": (14, 14, 832),
+                "mixed5a": (7, 7, 832), "mixed5b": (7, 7, 1024)}
+NODE_CPU_IMAGES = 4  # the batch whose node IE the card and the CPU both compute
+# the card's f32 node IE against the CPU's f64, within NODE_TOL of each
+# array's largest magnitude. Its f32 gradient comes out of cancelling terms:
+# on an H100 machine, with the seed's own labels, the worst array of the card
+# was 6.59e-4 of its scale from f64 and of the machine's CPU f32 1.5e-3; with
+# the image-dependent labels below, 1.24e-3 and 7.83e-4
+NODE_TOL = 3e-3
+CHUNK_RTOL, CHUNK_ATOL_FRAC = 1e-4, 1e-6  # chunks of 16 against one chunk
+# faithfulness at threshold -1: each loss within LOSS_RTOL (16 f32 ulps),
+# carried through (m_C - m_empty) / (m_M - m_empty); the phase fails unless
+# that tolerance is below FAITH_RESOLVE and leaves out the circuit with its
+# SAE errors zero- or mean-ablated
+LOSS_RTOL = 16 * torch.finfo(torch.float32).eps
+FAITH_RESOLVE = 1e-2
+
+
+def _sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _circuit_config(seed: int, flag: str, batch: int) -> RunConfig:
+    return RunConfig(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
+                     sae_model_name="sae_mlp", training=False, compute_ie=flag,
+                     sae_batch_size=batch, ie_top_features=TOP_FEATURES,
+                     ie_cotangent_chunk=COTANGENT_CHUNK, seed=seed,
+                     directory_path=str(WORK / f"circuit_seed{seed}"))
+
+
+_LABELS: dict = {}  # seed -> _image_dependent_labels of its stand-in
+
+
+def _image_dependent_labels(net, params, state, images) -> np.ndarray:
+    """Each image's ImageNet class: of the classes whose GoogLeNet label lies
+    in the head (so never 543, C5), the one whose logit the image raises most
+    above the set's mean logits. With the seed's own labels the loss of the
+    random net barely depends on the image (m_M - m_empty was 3.0e-4 of a 9.41
+    loss on the card), which leaves the faithfulness ratio unresolved."""
+    import numpy as np
+
+    from sparse_vision_tpu_torch.data.labels import torch_to_tf_label_table
+
+    with torch.no_grad():
+        logits = torch.cat([net.apply(params, torch.from_numpy(images[i:i + CIRCUIT_BATCH])
+                                      .to(DEVICE), state=state)[0].double().cpu()
+                            for i in range(0, len(images), CIRCUIT_BATCH)])
+    table = torch_to_tf_label_table().long()
+    inside = table < logits.shape[1]
+    inverse = torch.full((logits.shape[1],), -1, dtype=torch.long)
+    inverse[table[inside]] = torch.arange(len(table))[inside]
+    rise = (logits - logits.mean(0)).masked_fill(inverse < 0, -math.inf)
+    return inverse[rise.argmax(1)].numpy().astype(np.int32)
+
+
+def _circuit_pipeline(seed: int, flag: str, batch: int | None = None, relabel: bool = True):
+    """A Pipeline of the circuit config: the synthetic stand-in of ``seed``
+    (CIRCUIT_IMAGES; with ``relabel`` its labels from _image_dependent_labels),
+    GoogLeNet drawn from ``seed`` with its conv weights scaled by CONV_GAIN."""
+    from sparse_vision_tpu_torch.models.backbone import init_backbone, make_backbone
+
+    train = make_synthetic(num_samples=CIRCUIT_IMAGES, seed=seed, img_size=CIRCUIT_SIZE,
+                           num_classes=1000)
+    net = make_backbone("inceptionv1", "imagenet")
+    params, state = init_backbone(net, torch.Generator(device=DEVICE).manual_seed(seed),
+                                  "imagenet")
+
+    def scale(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                scale(v)
+            elif k == "w" and v.ndim == 4:
+                v.mul_(CONV_GAIN)
+
+    scale(params)
+    if relabel:
+        if seed not in _LABELS:
+            _LABELS[seed] = _image_dependent_labels(net, params, state, train.images)
+        train.labels = _LABELS[seed]
+    return Pipeline(_circuit_config(seed, flag, batch or CIRCUIT_BATCH), device=DEVICE,
+                    datasets=(train, train, train.category_names, CIRCUIT_SIZE),
+                    backbone=(params, state))
+
+
+def _write_registry_checkpoints(pipe) -> dict:
+    """Each circuit layer's registry-shaped sae_mlp, drawn from the seed with
+    non-zero b_enc / b_dec, saved at its registry epoch where the registry
+    looks (layer_ckpt_dir). Returns the params by layer."""
+    from sparse_vision_tpu_torch.interp.registry import (
+        CIRCUIT_LAYERS,
+        LAYER_SAE_CONFIGS,
+        layer_ckpt_dir,
+    )
+    from sparse_vision_tpu_torch.models.backbone import layer_dimensions
+
+    dims = layer_dimensions(pipe.net, "imagenet")
+    gen = torch.Generator(device=DEVICE).manual_seed(pipe.cfg.seed)
+    saes = {}
+    for name in CIRCUIT_LAYERS:
+        reg = LAYER_SAE_CONFIGS[name]
+        p = init_sae_mlp(gen, dims[name][-1], reg.expansion_factor)
+        p["b_enc"].normal_(0.0, 0.1, generator=gen)
+        p["b_dec"].normal_(0.0, 0.1, generator=gen)
+        h = p["b_enc"].shape[0]
+        ckpt.save_checkpoint(layer_ckpt_dir(pipe.paths["checkpoints"], name),
+                             reg.checkpoint_epoch,
+                             {"params": p, "opt_state": {}, "step": 0,
+                              "dead_acc": torch.ones(h, dtype=torch.bool, device=DEVICE)})
+        saes[name] = p
+    return saes
+
+
+def _run_mode(seed: int, flag: str, batch: int, images: int, label: str = "") -> tuple:
+    """Pipeline.run of ``flag``, its printed output captured (it must not warn
+    of random SAEs) and echoed; returns (pipe, result, seconds)."""
+    pipe = _circuit_pipeline(seed, flag, batch)
+    out = io.StringIO()
+    _sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = pipe.run()
+    _sync()
+    seconds = time.perf_counter() - t0
+    for ln in out.getvalue().splitlines():
+        log(f"[circuit]   {ln}")
+    if "RANDOMLY-INITIALIZED" in out.getvalue():
+        raise AssertionError(f"circuit: mode {flag} ran on random SAEs")
+    log(f"[circuit] mode {flag}{label}: Pipeline.run in {seconds:.3f} s over {images} images in "
+        f"batches of {batch} = {images / seconds:.1f} images/s")
+    return pipe, result, seconds
+
+
+def _check_npz(path: str, shapes: dict) -> dict:
+    """Every array of ``path`` finite (dead masks boolean) at ``shapes``."""
+    import numpy as np
+
+    with np.load(path) as z:
+        got = {k: z[k] for k in z.files}
+    if set(got) != set(shapes):
+        raise AssertionError(f"circuit: {path} keys {sorted(got)} != {sorted(shapes)}")
+    for k, a in got.items():
+        if a.shape != shapes[k]:
+            raise AssertionError(f"circuit: {path} {k} shape {a.shape} != {shapes[k]}")
+        if a.dtype != np.bool_ and not np.isfinite(a).all():
+            raise AssertionError(f"circuit: {path} {k} is not finite")
+    return got
+
+
+def _close(name: str, got, want, rtol: float, atol_frac: float) -> float:
+    """max |got - want| / max |want|; fails past rtol / atol_frac of the
+    largest |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if not bool((err <= rtol * want.abs() + atol_frac * scale).all()):
+        raise AssertionError(f"circuit: {name}: max error {float(err.max()):.3g} (scale "
+                             f"{scale:.3g}) past rtol {rtol:g} / atol {atol_frac:g} of the scale")
+    return float(err.max()) / max(scale, 1e-30)
+
+
+def _cpu_engine(eng, dtype):
+    """The engine's weights on the CPU in ``dtype``."""
+    from sparse_vision_tpu_torch.interp.circuit import CircuitEngine, FrozenSAE
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.to("cpu", dtype) for k, v in tree.items()}
+
+    return CircuitEngine(eng.net, cpu(eng.params), {
+        l: FrozenSAE(s.model_name, cpu(s.params), s.expansion_factor)
+        for l, s in eng.saes.items()}, eng.criterion, state=cpu(eng.state))
+
+
+def _faith_tol(r: dict) -> float:
+    """LOSS_RTOL of the losses carried through the ratio at faithfulness 1."""
+    denom = abs(r["m_M"] - r["m_empty"])
+    m = max(abs(r["m_C"]), abs(r["m_M"]), abs(r["m_empty"]))
+    return LOSS_RTOL * m * 4 / denom
+
+
+def phase_circuit(smi: str) -> None:
+    """Circuit discovery (interp/) through Pipeline.run at the flagship config:
+    (a) the C5 case: seed 0's stand-in holds class 543, and mode 1 raises a
+    ValueError naming it before any pass; (b) on seed 2's images, the eight
+    registry SAEs written as checkpoints and loaded through the registry, modes
+    1 and 2 at batch 32, 3 at batch 8 (64 top features a layer, cotangent chunks
+    of 16, every consecutive pair and the loss node) and 40, each artifact
+    finite at the JAX package's shapes; (c) one batch's node IE on the card
+    equal to the CPU's (TF32 off); (d) one pair's edges in chunks of 16 equal
+    to one chunk of 65; (e) the faithfulness anchors, for the SAE and the model
+    variant: 1 at threshold -1, within a tolerance below FAITH_RESOLVE that the
+    circuit with its SAE errors zero- or mean-ablated falls outside, and at
+    1e9 exactly 0 (m_C is m_empty's own computation). No vmap fallback warning, and
+    no kernel of the port launched: no TPU kernel is on this path."""
+    import warnings
+
+    import numpy as np
+
+    from sparse_vision_tpu_torch.data.labels import remap_torch_to_tf_labels
+    from sparse_vision_tpu_torch.interp import ie
+    from sparse_vision_tpu_torch.interp.registry import CIRCUIT_LAYERS, LAYER_SAE_CONFIGS
+    from sparse_vision_tpu_torch.models.backbone import layer_dimensions
+
+    set_tf32(False)  # the passes in f32; the card-against-CPU check needs it
+    shutil.rmtree(WORK, ignore_errors=True)
+    for k in KERNELS:
+        k.launches = 0
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        # (a) C5
+        c5 = _circuit_pipeline(C5_SEED, "1", relabel=False)
+        cls = int(c5.train_ds.labels[17])
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):  # its random-SAE warning
+                c5.run()
+        except ValueError as e:
+            log(f"[circuit] (a) C5: seed {C5_SEED}'s image 17 is of class {cls}: {e}")
+            if f"class {cls}" not in str(e) or cls != 543:
+                raise
+        else:
+            raise AssertionError("circuit: the C5 batch ran")
+        del c5
+
+        # (b) the four modes
+        first = _circuit_pipeline(CIRCUIT_SEED, "1")
+        labels = first.train_ds.labels
+        if (labels == 543).any():
+            raise AssertionError(f"circuit: seed {CIRCUIT_SEED}'s images hold class 543")
+        log(f"[circuit] (b) seed {CIRCUIT_SEED}'s {len(labels)} images relabelled into "
+            f"{len(set(labels.tolist()))} classes")
+        saes = _write_registry_checkpoints(first)
+        dims = layer_dimensions(first.net, "imagenet")
+        if {l: dims[l] for l in CIRCUIT_LAYERS} != CIRCUIT_DIMS:
+            raise AssertionError(f"circuit: the taps are at {dims}")
+        ie_dir = first.paths["ie_related_quantities"]
+        del first
+        n = CIRCUIT_IMAGES
+        _, avgs, s1 = _run_mode(CIRCUIT_SEED, "1", CIRCUIT_BATCH, n)
+        ck = {l: dims[l][-1] * LAYER_SAE_CONFIGS[l].expansion_factor for l in CIRCUIT_LAYERS}
+        shapes = {}
+        for l in CIRCUIT_LAYERS:
+            shapes.update({f"enc:{l}": (*dims[l][:-1], ck[l]), f"err:{l}": dims[l],
+                           f"out:{l}": dims[l], f"dead:{l}": (ck[l],), f"sparsity:{l}": ()})
+        a = _check_npz(os.path.join(ie_dir, "averages.npz"), shapes)
+        for f in ("perc_dead_units.csv", "sparsity.csv"):
+            with open(os.path.join(ie_dir, f)) as fh:
+                rows = list(csv.reader(fh))
+            if [r[0] for r in rows[1:]] != list(CIRCUIT_LAYERS) or not all(
+                    math.isfinite(float(r[1])) for r in rows[1:]):
+                raise AssertionError(f"circuit: {f}: {rows}")
+        log("[circuit] (b) averages.npz finite at the JAX shapes (enc:mixed3a "
+            f"{shapes['enc:mixed3a']}); dead latents per layer "
+            + ", ".join(f"{l} {int(a[f'dead:{l}'].sum())}/{ck[l]}" for l in CIRCUIT_LAYERS)
+            + "; sparsity " + ", ".join(f"{float(a[f'sparsity:{l}']):.4g}"
+                                        for l in CIRCUIT_LAYERS))
+
+        # twice: the first run pays a one-time cost of ~7 s (not split yet)
+        _, _, s2_cold = _run_mode(CIRCUIT_SEED, "2", CIRCUIT_BATCH, n, " (first)")
+        node_pipe, node, s2 = _run_mode(CIRCUIT_SEED, "2", CIRCUIT_BATCH, n, " (again)")
+        shapes = {}
+        for l in CIRCUIT_LAYERS:
+            shapes.update({f"features:{l}": (ck[l],), f"error:{l}": (),
+                           f"model_neurons:{l}": (dims[l][-1],)})
+        _check_npz(os.path.join(ie_dir, "node_ie.npz"), shapes)
+        log("[circuit] (b) node_ie.npz finite at the JAX shapes; max |IE| of a feature per "
+            "layer " + ", ".join(f"{float(node.features[l].abs().max()):.3g}"
+                                 for l in CIRCUIT_LAYERS))
+
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _, edges, s3 = _run_mode(CIRCUIT_SEED, "3", EDGE_BATCH, n)
+        peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+        k1 = TOP_FEATURES + 1
+        shapes = {l: (k1, k1) for l in CIRCUIT_LAYERS[:-1]}
+        shapes.update({CIRCUIT_LAYERS[-1]: (k1, 1)})
+        shapes.update({f"idx:{l}": (TOP_FEATURES,) for l in CIRCUIT_LAYERS})
+        _check_npz(os.path.join(ie_dir, "edge_ie.npz"), shapes)
+        log(f"[circuit] (b) edge_ie.npz finite at the JAX shapes ([{k1}, {k1}] per pair, "
+            f"[{k1}, 1] to the loss); edge pass peak memory {peak / 2**30:.2f} GiB "
+            "(max_memory_allocated)")
+
+        _, rows, s4 = _run_mode(CIRCUIT_SEED, "40", CIRCUIT_BATCH, n)
+        with open(os.path.join(ie_dir, "faithfulness.csv")) as fh:
+            csv_rows = list(csv.reader(fh))
+        if len(csv_rows) != 3 or not all(math.isfinite(float(v)) for r in csv_rows[1:]
+                                         for v in r[1:] if v != ""):
+            raise AssertionError(f"circuit: faithfulness.csv: {csv_rows}")
+        log("[circuit] (b) faithfulness.csv: " + "; ".join(
+            f"{r['variant']} F {r['faithfulness']:.4g} (m_C {r['m_C']:.6g}, m_empty "
+            f"{r['m_empty']:.6g}, m_M {r['m_M']:.6g})" for r in rows))
+
+        # (c) one batch's node IE: the card's f32 and the CPU's f32 against the
+        # CPU's f64, on the same weights and images
+        eng = ie.build_engine(node_pipe)
+        avg_dev = ie.load_averages(os.path.join(ie_dir, "averages.npz"), DEVICE)
+        b = next(node_pipe.train_ds.batches(NODE_CPU_IMAGES, shuffle=False))
+        x = torch.from_numpy(b.images)
+        y = remap_torch_to_tf_labels(torch.from_numpy(b.labels))
+        on_card = eng.compute_node_ie([(x.to(DEVICE), y.to(DEVICE))], avg_dev)
+        avg_cpu = ie.load_averages(os.path.join(ie_dir, "averages.npz"), "cpu")
+        t0 = time.perf_counter()
+        on_cpu = {dt: _cpu_engine(eng, dt).compute_node_ie(
+            [(x.to(dt), y)], avg_cpu._replace(**{f: {l: v.to(dt) for l, v in
+                                                     getattr(avg_cpu, f).items()}
+                                                  for f in ("enc", "err", "out")}))
+            for dt in (torch.float32, torch.float64)}
+        cpu_s = time.perf_counter() - t0
+        worst = {"card": 0.0, "cpu": 0.0}
+        for f in ("features", "error", "model_neurons"):
+            for l in CIRCUIT_LAYERS:
+                ref = getattr(on_cpu[torch.float64], f)[l]
+                for who, got in (("card", getattr(on_card, f)[l]),
+                                 ("cpu", getattr(on_cpu[torch.float32], f)[l])):
+                    worst[who] = max(worst[who], _close(f"node IE {f}:{l} ({who} f32)", got,
+                                                        ref, 0.0, NODE_TOL))
+        log(f"[circuit] (c) node IE of {NODE_CPU_IMAGES} images against the CPU's f64 (TF32 "
+            f"off): the card's f32 within {worst['card']:.3g} of each array's scale, the "
+            f"CPU's f32 within {worst['cpu']:.3g} (bound {NODE_TOL:g}); the CPU took "
+            f"{cpu_s:.1f} s for both")
+        del on_cpu
+
+        # (d) one pair's edges: chunks of 16 against one chunk of 65
+        idx = {l: [int(i) for i in np.argsort(-np.abs(node.features[l].cpu().numpy()))
+                   [:TOP_FEATURES]] for l in CIRCUIT_LAYERS}
+        eb = next(node_pipe.train_ds.batches(EDGE_BATCH, shuffle=False))
+        batch = [(torch.from_numpy(eb.images).to(DEVICE),
+                  remap_torch_to_tf_labels(torch.from_numpy(eb.labels)).to(DEVICE))]
+        pair = list(CIRCUIT_LAYERS[:2])
+        chunked = eng.compute_edge_ie(batch, avg_dev, idx, custom_layers=pair,
+                                      cotangent_chunk=COTANGENT_CHUNK)
+        whole = eng.compute_edge_ie(batch, avg_dev, idx, custom_layers=pair,
+                                    cotangent_chunk=TOP_FEATURES + 1)
+        worst = max(_close(f"edges {l}", chunked[l], whole[l], CHUNK_RTOL, CHUNK_ATOL_FRAC)
+                    for l in pair)
+        log(f"[circuit] (d) {pair[0]} -> {pair[1]} edges ([{TOP_FEATURES + 1}, "
+            f"{TOP_FEATURES + 1}]) in chunks of {COTANGENT_CHUNK} equal one chunk of "
+            f"{TOP_FEATURES + 1}: max error {worst:.3g} of the scale")
+
+        # (e) the faithfulness anchors
+        data = [(torch.from_numpy(bb.images).to(DEVICE),
+                 remap_torch_to_tf_labels(torch.from_numpy(bb.labels)).to(DEVICE))
+                for bb in node_pipe.train_ds.batches(CIRCUIT_BATCH, shuffle=False)]
+        ablated = ("faithfulness_sae_errors_zero_ablated",
+                   "faithfulness_sae_errors_mean_ablated")
+        for variant in ("sae", "model"):
+            keep, drop = (eng.compute_faithfulness(data, node, thr, model_or_sae=variant,
+                                                   averages=avg_dev) for thr in (-1.0, 1e9))
+            tol = _faith_tol(keep)
+            others = {k: keep[k] for k in ablated if k in keep}
+            log(f"[circuit] (e) {variant} faithfulness at threshold -1: "
+                f"{keep['faithfulness']!r} (want 1 within {tol:.3g}; m_C {keep['m_C']!r}, "
+                f"m_empty {keep['m_empty']!r}, m_M {keep['m_M']!r}; m_M - m_empty "
+                f"{keep['m_M'] - keep['m_empty']:.6g}"
+                + "".join(f"; {k} {v!r}" for k, v in others.items())
+                + f"); at 1e9: {drop['faithfulness']!r} (want exactly 0; m_C "
+                f"{drop['m_C']!r}, m_empty {drop['m_empty']!r})")
+            if not tol < FAITH_RESOLVE:
+                raise AssertionError(f"circuit: {variant} faithfulness is resolved to "
+                                     f"{tol:.3g} only")
+            if not abs(keep["faithfulness"] - 1.0) <= tol:
+                raise AssertionError(f"circuit: {variant} faithfulness at -1 is "
+                                     f"{keep['faithfulness']}, not 1")
+            for k, v in others.items():
+                if abs(v - 1.0) <= tol:
+                    raise AssertionError(f"circuit: at -1, {k} {v} is within {tol:.3g} of 1: "
+                                         "the anchor cannot tell kept errors from ablated")
+            if drop["m_C"] != drop["m_empty"] or drop["faithfulness"] != 0.0:
+                raise AssertionError(f"circuit: {variant} faithfulness at 1e9 is "
+                                     f"{drop['faithfulness']}, not exactly 0")
+        del eng, node_pipe, data
+    fallbacks = [str(w.message) for w in caught
+                 if "batching rule" in str(w.message) or "performance drop" in str(w.message)]
+    if fallbacks:
+        raise AssertionError(f"circuit: vmap fell back to a loop: {fallbacks[:3]}")
+    launched = {k.name: k.launches for k in KERNELS if k.launches}
+    if launched:
+        raise AssertionError(f"circuit: kernels of the port launched: {launched}")
+    log(f"[circuit] {smi}: modes 1 / 2 / 3 / 40 in {s1:.2f} / {s2:.2f} / {s3:.2f} / {s4:.2f} s "
+        f"= {n / s1:.1f} / {n / s2:.1f} / {n / s3:.1f} / {n / s4:.1f} images/s (node IE, "
+        f"mode 2, is the compute_ie images/s; its first run {s2_cold:.2f} s); edge pass "
+        f"peak {peak / 2**30:.2f} GiB; no vmap fallback; no kernel launched")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1730,6 +2159,7 @@ def main() -> int:
         launches.update(got)
     phase_cache(evals["sae_mlp"])
     phase_artifacts()
+    phase_circuit(smi)
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

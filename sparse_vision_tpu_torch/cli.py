@@ -9,12 +9,20 @@ transcoder or a crosscoder (resuming from the checkpoint of
 ``sae_weights_path`` when it is set) and exports its weights; ``training:
 false`` runs one modified-model eval of that dictionary. The last eval's means
 print as one JSON line.
+
+Circuit discovery on GoogLeNet (``training: false``, the eight registry SAEs
+loaded from their checkpoints): ``compute_ie`` "1" dataset averages, "2" node
+IE, "3" edge IE (``ie_top_features``, ``ie_cotangent_chunk``), "4<i>"
+faithfulness at threshold i of ``interp.circuit.FAITHFULNESS_THRESHOLDS`` (the
+CSV only; the port draws no figure). A mode prints one JSON line naming the
+files it wrote.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from sparse_vision_tpu_torch.config import RunConfig
 
@@ -31,9 +39,16 @@ def main(argv=None) -> dict:
     from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
     cfg = RunConfig.from_json(args.config)
-    means = Pipeline(cfg, device=args.device).run()
-    print(json.dumps(means, sort_keys=True))
-    return means
+    pipe = Pipeline(cfg, device=args.device)
+    out = pipe.run()
+    if cfg.compute_ie != "0":
+        from sparse_vision_tpu_torch.interp.ie import MODE_FILES
+
+        folder = pipe.paths["ie_related_quantities"]
+        out = {"compute_ie": cfg.compute_ie,
+               "wrote": [os.path.join(folder, f) for f in MODE_FILES[cfg.compute_ie[0]]]}
+    print(json.dumps(out, sort_keys=True))
+    return out
 
 
 if __name__ == "__main__":

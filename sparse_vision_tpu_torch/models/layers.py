@@ -1,5 +1,6 @@
 """Stage-based sequential backbone with explicit taps and splices (port of
-sparse_vision_tpu/models/layers.py, the stages GoogLeNet needs).
+sparse_vision_tpu/models/layers.py: the stages GoogLeNet needs, and relu,
+flatten and conv).
 
 A backbone is a sequence of named stages; ``apply`` returns ``(output, taps,
 state)`` where ``taps[name]`` is every stage's output, and a splice
@@ -57,6 +58,42 @@ def linear(name: str, out_features: int) -> Stage:
         return F.linear(x, params["w"], params["b"])
 
     return Stage(name, init, apply, lambda s: (out_features,))
+
+
+def relu(name: str) -> Stage:
+    return Stage(name, lambda gen, s: (None, None),
+                 lambda params, state, x: torch.relu(x), lambda s: s)
+
+
+def flatten(name: str) -> Stage:
+    """[B, ...] -> [B, prod(...)], flattening a 4-D activation in NHWC order as
+    the JAX stage does, so a following linear layer reads the same features."""
+    return Stage(name, lambda gen, s: (None, None),
+                 lambda params, state, x: _to_public(x).reshape(x.shape[0], -1),
+                 lambda s: (math.prod(s),))
+
+
+def conv(name: str, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
+         use_bias: bool = True) -> Stage:
+    """A square convolution; weight [out, in, k, k] (OIHW), optional bias."""
+
+    def init(gen, in_shape):
+        fan_in = in_shape[-1] * kernel * kernel
+        bound = 1.0 / math.sqrt(fan_in)
+        params = {"w": uniform(gen, (out_ch, in_shape[-1], kernel, kernel), bound)}
+        if use_bias:
+            params["b"] = uniform(gen, (out_ch,), bound)
+        return params, None
+
+    def apply(params, state, x):
+        return F.conv2d(x, params["w"], params.get("b"), stride, padding)
+
+    def out_shape(s):
+        h, w, _ = s
+        return ((h + 2 * padding - kernel) // stride + 1,
+                (w + 2 * padding - kernel) // stride + 1, out_ch)
+
+    return Stage(name, init, apply, out_shape)
 
 
 def pool_out_dim(n: int, window: int, stride: int, padding: int, ceil_mode: bool) -> int:

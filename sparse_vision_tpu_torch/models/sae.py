@@ -127,14 +127,23 @@ def _in_window(pre, threshold, bandwidth):
     return (torch.abs(pre - threshold) <= bandwidth / 2).to(pre.dtype)
 
 
+def _save_pre_threshold(ctx, inputs, output):
+    pre, threshold, bandwidth = inputs
+    ctx.save_for_backward(pre, threshold)
+    ctx.bandwidth = bandwidth
+
+
 class JumpReLU(torch.autograd.Function):
     """pre * 1[pre > θ]. Backward (paper eq. 11): d/dpre = 1[pre > θ] exactly;
-    d/dθ = -(θ/ε)·1[|pre-θ| <= ε/2], summed over tokens."""
+    d/dθ = -(θ/ε)·1[|pre-θ| <= ε/2], summed over tokens. Written with
+    ``setup_context`` and a generated vmap rule, so ``torch.func`` transforms it
+    (the circuit passes differentiate through the encoder)."""
+
+    generate_vmap_rule = True
+    setup_context = staticmethod(_save_pre_threshold)
 
     @staticmethod
-    def forward(ctx, pre, threshold, bandwidth):
-        ctx.save_for_backward(pre, threshold)
-        ctx.bandwidth = bandwidth
+    def forward(pre, threshold, bandwidth):
         return pre * (pre > threshold)
 
     @staticmethod
@@ -152,10 +161,11 @@ class JumpReLUL0(torch.autograd.Function):
     12): d/dθ = -Σ_t 1[|pre-θ| <= ε/2] / (ε·T); ``pre`` gets no gradient (the
     L0 penalty moves only the thresholds)."""
 
+    generate_vmap_rule = True
+    setup_context = staticmethod(_save_pre_threshold)
+
     @staticmethod
-    def forward(ctx, pre, threshold, bandwidth):
-        ctx.save_for_backward(pre, threshold)
-        ctx.bandwidth = bandwidth
+    def forward(pre, threshold, bandwidth):
         return (pre > threshold).to(pre.dtype).sum(-1).mean()
 
     @staticmethod

@@ -1,8 +1,9 @@
-"""Run orchestration for the SAE training slice (port of the cached-training and
-modified-model-eval parts of sparse_vision_tpu/train/pipeline.py).
+"""Run orchestration for the SAE training slice (port of the cached-training,
+modified-model-eval and circuit parts of sparse_vision_tpu/train/pipeline.py).
 
-``Pipeline(cfg).run()`` trains (``training``) or runs one standalone eval of a
-restored checkpoint. Training, ``train_sae``, runs the north-star chain: frozen
+``Pipeline(cfg).run()`` runs a circuit-discovery mode (``compute_ie``, with
+``training=False``: interp/ie.py), trains (``training``) or runs one standalone
+eval of a restored checkpoint. Training, ``train_sae``, runs the north-star chain: frozen
 GoogLeNet -> tap ``sae_layer`` -> activation cache -> SAE training (``sae_mlp``, ``gated_sae``,
 ``jumprelu_sae`` or ``matryoshka_sae``; the variant's fused CUDA kernels on a
 GPU, their plain versions on the CPU) with dead-latent tracking (resampling for
@@ -75,7 +76,8 @@ _SLICE = {
     "model_criterion_name": ("cross_entropy", "negative_log_likelihood"),
     "original_model": (False,),
     "mis": ("0",),
-    "compute_ie": ("0",),
+    # 0: off; 1 averages, 2 node IE, 3 edge IE, 4<i> faithfulness (interp/ie.py)
+    "compute_ie": ("0", "1", "2", "3") + tuple(f"4{i}" for i in range(20)),
     "data_dir": ("",),
     "mesh_shape": ((),),
     "overlap_dump_train": (False, True),
@@ -95,6 +97,9 @@ def validate_slice(cfg: RunConfig) -> None:
         if value not in ok:
             raise NotImplementedError(
                 f"RunConfig.{field}={value!r} is not ported yet (supported: {ok})")
+    if cfg.compute_ie != "0" and cfg.training:
+        raise ValueError("IE is computed on a frozen SAE, not during training "
+                         "(set training=False).")
     if cfg.training and not cfg.use_activation_cache:
         raise NotImplementedError(
             "RunConfig.use_activation_cache=False: only cached SAE training is ported")
@@ -226,9 +231,14 @@ class Pipeline:
         print(f"Resumed SAE from checkpoint epoch {epoch} (train step {self.ts.step}).")
 
     def run(self):
-        """The configured mode: training, or a standalone eval of the dictionary
-        as it is (a restored checkpoint's, with ``sae_checkpoint_epoch``), which
-        is its own last epoch. The other modes are refused by validate_slice."""
+        """The configured mode: a circuit-discovery mode (``compute_ie``,
+        interp/ie.py), training, or a standalone eval of the dictionary as it is
+        (a restored checkpoint's, with ``sae_checkpoint_epoch``), which is its
+        own last epoch. The other modes are refused by validate_slice."""
+        if self.cfg.compute_ie != "0":
+            from sparse_vision_tpu_torch.interp.ie import run_ie
+
+            return run_ie(self, self.cfg.compute_ie)
         if self.cfg.training:
             return self.train_sae()
         return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, final=True)

@@ -46,7 +46,13 @@ def test_the_walk_sees_every_module():
                  "sparse_vision_tpu_torch/train/paired_caches.py",
                  "sparse_vision_tpu_torch/train/transcoder.py",
                  "sparse_vision_tpu_torch/train/crosscoder.py",
-                 "sparse_vision_tpu_torch/train/pipeline.py"):
+                 "sparse_vision_tpu_torch/train/pipeline.py",
+                 "sparse_vision_tpu_torch/data/labels.py",
+                 "sparse_vision_tpu_torch/interp/ie_math.py",
+                 "sparse_vision_tpu_torch/interp/patching.py",
+                 "sparse_vision_tpu_torch/interp/circuit.py",
+                 "sparse_vision_tpu_torch/interp/registry.py",
+                 "sparse_vision_tpu_torch/interp/ie.py"):
         assert must in names
 
 

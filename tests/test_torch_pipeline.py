@@ -231,10 +231,14 @@ def test_rms_run_final_params_match_jax_within_the_adam_eps_bound(rms_runs):
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
     for field, value in [("sae_model_name", "topk_sae"), ("mesh_shape", (2,)),
-                         ("compute_ie", "2"), ("data_dir", "/data")]:
+                         ("compute_ie", "5"), ("data_dir", "/data")]:
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
                       datasets=_datasets(t_synth))
+    # circuit discovery runs on frozen SAEs only
+    with pytest.raises(ValueError, match="not during training"):
+        TPipeline(dataclasses.replace(base, compute_ie="2"), device="cpu",
+                  datasets=_datasets(t_synth))
     # a target layer or extra layers only with the model that reads them
     for field, value in [("transcoder_target_layer", "mixed3b"),
                          ("crosscoder_layers", "mixed4b")]:
