@@ -85,6 +85,29 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               exactly 0 at 1e9, for the SAE and the model variant. Fails on a vmap
               fallback warning or a kernel launch; prints each mode's seconds
               and images/s and the edge pass's peak memory.
+ 10. multilayer: ROADMAP A8's second half on the same scaled GoogLeNet (seed
+              2, 512 train / 64 val images at 229 px, relabelled as in phase
+              9; bf16 cache and compute, 3,072 tokens a step): (a) the sae_mlp
+              op at C 528 / H 2,112 (padded to 2,176 inside the op) and C
+              1,024 / H 4,096, the transcoder op at 528 -> 832 / H 2,112
+              (padded), T 8,192, against the plain versions at the true H in
+              f32 and bf16, a bf16 repeat bitwise equal, every padded latent
+              exactly zero at the entry points; (b) train_saes_multilayer over
+              the eight CIRCUIT_LAYERS at their registry hyperparameters:
+              one dump of all eight, each layer's fused kernels launched once
+              a train step (counts set to 0 just before each run and read just
+              after; mixed4d through the padded op), tokens/s per layer; (c)
+              train_transcoders_multilayer over the five same-geometry pairs
+              the same way; (d) load_pair_params, the edges of the chain
+              mixed4b -> 4c -> 4d -> 4e over 128 images at batch 32
+              (transcoder_circuit_edges_images_per_sec), 4 images' edges
+              against the formula in f64 on the CPU, chain_faithfulness's
+              anchors (exact transcoders of a small MLP: 1 and exactly 0; the
+              chain with no latent kept: exactly 0), finite loss-node edges;
+              (e) mis "1" and "2" on the trained mixed3a: one CSV row per
+              unit, a finite median, the seconds of each; (f) the eight SAEs
+              read back from their exports through the CircuitEngine: finite
+              node IE, faithfulness 1 at threshold -1. TF32 off throughout.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -105,6 +128,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -1809,14 +1833,11 @@ def _image_dependent_labels(net, params, state, images) -> np.ndarray:
     return inverse[rise.argmax(1)].numpy().astype(np.int32)
 
 
-def _circuit_pipeline(seed: int, flag: str, batch: int | None = None, relabel: bool = True):
-    """A Pipeline of the circuit config: the synthetic stand-in of ``seed``
-    (CIRCUIT_IMAGES; with ``relabel`` its labels from _image_dependent_labels),
-    GoogLeNet drawn from ``seed`` with its conv weights scaled by CONV_GAIN."""
+def _scaled_googlenet(seed: int):
+    """(net, params, state): GoogLeNet drawn from ``seed`` with its conv weights
+    scaled by CONV_GAIN."""
     from sparse_vision_tpu_torch.models.backbone import init_backbone, make_backbone
 
-    train = make_synthetic(num_samples=CIRCUIT_IMAGES, seed=seed, img_size=CIRCUIT_SIZE,
-                           num_classes=1000)
     net = make_backbone("inceptionv1", "imagenet")
     params, state = init_backbone(net, torch.Generator(device=DEVICE).manual_seed(seed),
                                   "imagenet")
@@ -1829,6 +1850,16 @@ def _circuit_pipeline(seed: int, flag: str, batch: int | None = None, relabel: b
                 v.mul_(CONV_GAIN)
 
     scale(params)
+    return net, params, state
+
+
+def _circuit_pipeline(seed: int, flag: str, batch: int | None = None, relabel: bool = True):
+    """A Pipeline of the circuit config: the synthetic stand-in of ``seed``
+    (CIRCUIT_IMAGES; with ``relabel`` its labels from _image_dependent_labels),
+    GoogLeNet drawn from ``seed`` with its conv weights scaled by CONV_GAIN."""
+    train = make_synthetic(num_samples=CIRCUIT_IMAGES, seed=seed, img_size=CIRCUIT_SIZE,
+                           num_classes=1000)
+    net, params, state = _scaled_googlenet(seed)
     if relabel:
         if seed not in _LABELS:
             _LABELS[seed] = _image_dependent_labels(net, params, state, train.images)
@@ -2141,6 +2172,444 @@ def phase_circuit(smi: str) -> None:
     shutil.rmtree(WORK, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multilayer training, transcoder circuits, MIS
+# ---------------------------------------------------------------------------
+
+# the padded ops at the registry's widths that are no multiple of 128 (mixed4d's
+# SAE and the mixed4d -> mixed4e transcoder, 2,112 latents) and at mixed5b's
+# 4,096 (no padding), T = PAD_T tokens: (C, H) and (C_in, C_out, H)
+PAD_T = 8192
+PAD_SAE = ((528, 2112), (1024, 4096))
+PAD_TC = ((528, 832, 2112),)
+ML_SIZE = (229, 229, 3)
+# 512 train images (two dump batches of the registry's 256) and T = 3,072
+# tokens a step: mixed5a/5b's 49 tokens an image give 25,088 tokens, one full
+# stack of CACHE_SCAN_K = 8 steps (and a 512-token tail that makes no step);
+# mixed4b-4e 32 steps, mixed3a/3b 130
+ML_IMAGES, ML_VAL, ML_T = 512, 64, 3072
+ML_SEED = CIRCUIT_SEED
+TC_CHAIN = (("mixed4b", "mixed4c"), ("mixed4c", "mixed4d"), ("mixed4d", "mixed4e"))
+TC_EDGE_IMAGES, TC_EDGE_BATCH = 128, 32
+TC_CHECK_IMAGES = 4  # the images whose edges the CPU's f64 formula checks
+TC_EDGE_TOL = (1e-4, 1e-5)  # rtol, atol of the matrix's largest entry (card f32 vs f64)
+TC_MAX_FLIPS = 16  # downstream gates that f32 and f64 may set apart, left out of the check
+MLP_ANCHOR_TOL = 1e-5  # faithfulness 1 of exact transcoders on the tiny MLP
+
+
+def _padded_op_check(cd, tag: str, kind: str, dims: tuple) -> None:
+    """The sae_mlp or transcoder op (``kind``) at ``dims`` on _exact_inputs'
+    grid: loss terms, statistics and gradients of the op (padded to a multiple
+    of 128 latents inside its autograd function) against the plain versions at
+    the true H on the same card tensors; in bf16 a second call bitwise equal;
+    and the entry points at H_pad leave every padded latent's activity, Σpost
+    and gradients exactly zero."""
+    gen = torch.Generator(device=DEVICE).manual_seed(sum(dims))
+    if kind == "sae":
+        c, h = dims
+        c_out = c
+        w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
+        x, we, bd = _exact_inputs(gen, PAD_T, w)
+        wd = _dyadic(torch.randn(h, c, device=DEVICE, generator=gen) / h ** 0.5, 2.0 ** -8)
+        be, y, mod = _odd_grid(gen, h, 100), x, fused_sae
+    else:
+        c, c_out, h = dims
+        x, we, be, wd, bd = _coder_operands(gen, PAD_T, c, c_out, h, torch.float32)
+        y, mod = torch.randn(PAD_T, c_out, device=DEVICE, generator=gen), fused_transcoder
+    params = {"W_enc": we, "b_enc": be, "W_dec": wd, "b_dec": bd}
+    hp = fused_sae.padded_h(h)
+    label = f"{kind} op, T={PAD_T} C={c}{'' if kind == 'sae' else f'->{c_out}'} H={h}" + (
+        f" (padded to {hp})" if hp != h else "")
+
+    def op():
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        if kind == "sae":
+            out = fused_sae.fused_sae_loss_terms(p, x, LAMBDA, 4, compute_dtype=cd)
+        else:
+            out = fused_transcoder.fused_transcoder_loss_terms(p, x, y, LAMBDA, 4,
+                                                               compute_dtype=cd)
+        return out, torch.autograd.grad(out["loss"], list(p.values()))
+
+    before = {k.name: k.launches for k in mod.KERNELS}
+    out, grads = op()
+    torch.cuda.synchronize()
+    if {k.name: k.launches - before[k.name] for k in mod.KERNELS[:2]} != {
+            k.name: 1 for k in mod.KERNELS[:2]}:
+        raise AssertionError(f"multilayer: the {label} did not launch its two kernels once each")
+    log(f"[multilayer] (a) {label} [{tag}] vs the plain versions at the true H")
+    xc, wec, wdc = x.to(cd), we.to(cd), wd.to(cd)
+    if kind == "sae":
+        recon, act, _, l1 = fused_sae.fused_sae_forward_plain(xc, wec, be, wdc, bd)
+        c_rec = 2.0 / (PAD_T * c)
+    else:
+        recon, act, _, l1 = fused_transcoder.fused_transcoder_forward_plain(xc, wec, be, wdc, bd)
+        c_rec = 2.0 / (PAD_T * c_out)
+    _check("recon", out["decoded"], recon, 1e-4, 1e-5)
+    # the exact grid: the same latents switch on, so the counts agree exactly
+    _check("act_count", out["activity_freq"] * PAD_T, act, 0.0, 0.0)
+    _check("l1_loss", out["l1_loss"], l1 / (PAD_T * h), 1e-5, 0.0)
+    # the backward on the op's own saved error
+    err = (out["decoded"] - y).to(cd)
+    coeffs = torch.tensor([c_rec, LAMBDA / (PAD_T * h)], device=DEVICE)
+    if kind == "sae":
+        g_p = fused_sae.fused_sae_backward_plain(xc, wec, be, wdc, bd, err, coeffs)
+    else:
+        g_p = fused_transcoder.fused_transcoder_backward_plain(xc, wec, be, wdc, err, coeffs)
+    for n, g, ref, p in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), grads, g_p,
+                            params.values()):
+        if g.shape != p.shape:
+            raise AssertionError(f"multilayer: {label}: {n} is {tuple(g.shape)}, not "
+                                 f"{tuple(p.shape)}")
+        _check(n, g, ref, 1e-3, 1e-4)
+    if cd == torch.bfloat16:
+        out2, grads2 = op()
+        _repeatable(f"{label} op", [out["decoded"], out["activity_freq"], *grads],
+                    [out2["decoded"], out2["activity_freq"], *grads2])
+    wep, bep, wdp = fused_sae.padded_operands(we, be, wd, cd)
+    if kind == "sae":
+        x_cent, _, act_part, _, zsum_part = fused_sae.fwd_kernel(xc, wep, bep, wdp, bd)
+        pad = [act_part[:, h:], zsum_part[:, h:]]
+        g_pad = fused_sae.bwd_kernel(x_cent, wep, bep, wdp, err, coeffs)
+    else:
+        _, act_p, _, zsum_p = fused_transcoder.coder_forward_launch(
+            fused_transcoder.fwd_kernel, xc, wep, bep, wdp, bd)
+        pad = [act_p[h:], zsum_p[h:]]
+        g_pad = fused_transcoder.bwd_kernel(xc, wep, bep, wdp, err, coeffs)
+    pad += [g_pad[0][:, h:], g_pad[1][h:], g_pad[2][h:]]
+    if any(bool(t.any()) for t in pad):
+        raise AssertionError(f"multilayer: {label}: a padded latent is not exactly zero")
+    log(f"[multilayer]   {label}: the {hp - h} padded latents' activity, Σpost and "
+        "gradients exactly zero at the entry points")
+
+
+@contextlib.contextmanager
+def _counted_runs():
+    """Every Pipeline.run inside: the launch counts set to 0 just before it and
+    read just after, with its steps and training timing; yields the records."""
+    records = []
+    run = Pipeline.run
+
+    def counted(self):
+        for k in KERNELS:
+            k.launches = 0
+        out = run(self)
+        records.append({"cfg": self.cfg, "out": out, "steps": self.ts.step,
+                        "timing": list(self.train_timing),
+                        "launches": {k.name: k.launches for k in KERNELS if k.launches}})
+        return out
+
+    Pipeline.run = counted
+    try:
+        yield records
+    finally:
+        Pipeline.run = run
+
+
+@contextlib.contextmanager
+def _counted_dumps():
+    """The layer lists of every dump_activations_multi call inside; a
+    single-layer dump_activations raises."""
+    from sparse_vision_tpu_torch.data import activation_cache
+
+    calls = []
+    multi, single = activation_cache.dump_activations_multi, activation_cache.dump_activations
+
+    def counted(net, params, state, dataset, layers, *args, **kwargs):
+        calls.append(list(layers))
+        return multi(net, params, state, dataset, layers, *args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("multilayer: a layer cache was dumped on its own")
+
+    activation_cache.dump_activations_multi, activation_cache.dump_activations = counted, refused
+    try:
+        yield calls
+    finally:
+        activation_cache.dump_activations_multi, activation_cache.dump_activations = multi, single
+
+
+def _check_trained(what: str, records: list, dumps: list, layers: list, mod) -> None:
+    """One dump of every layer; each run's two ``mod`` kernels launched once a
+    train step and nothing else launched; finite eval means; prints tokens/s."""
+    if dumps != [layers]:
+        raise AssertionError(f"multilayer: {what}: dumps {dumps}, not one of {layers}")
+    want = {k.name for k in mod.KERNELS[:2]}
+    for r in records:
+        cfg, steps = r["cfg"], r["steps"]
+        name = cfg.sae_layer + (f"->{cfg.transcoder_target_layer}"
+                                if cfg.transcoder_target_layer else "")
+        if steps <= 0 or r["launches"] != {k: steps for k in want}:
+            raise AssertionError(f"multilayer: {what} {name}: launches {r['launches']} for "
+                                 f"{steps} steps")
+        if not all(math.isfinite(v) for v in r["out"].values()):
+            raise AssertionError(f"multilayer: {what} {name}: eval means {r['out']}")
+        tm = r["timing"][0]
+        log(f"[multilayer] {what} {name}: expansion {r['cfg'].sae_expansion_factor}, {steps} "
+            f"steps, {tm['tokens']} tokens in {tm['seconds']:.3f} s = "
+            f"{tm['tokens'] / tm['seconds']:.0f} tokens/s; launches {r['launches']}; "
+            f"sae_rec_loss {r['out']['sae_rec_loss']:.5g}, var_expl {r['out']['var_expl']:.4g}, "
+            f"perc_dead_units {r['out']['perc_dead_units']:.4g}")
+
+
+def _mlp_anchor() -> None:
+    """chain_faithfulness's anchors on the card: on a small MLP, transcoders
+    that are its own segments (W_enc = I keeps the ReLU, W_dec = the next
+    linear layer) give faithfulness 1 with every latent kept and exactly 0
+    with none."""
+    from sparse_vision_tpu_torch.interp.transcoder_circuit import chain_faithfulness
+    from sparse_vision_tpu_torch.models import layers as tl
+    from sparse_vision_tpu_torch.ops.losses import cross_entropy
+
+    net = tl.SeqNet([tl.linear("fc1", 10), tl.relu("relu1"), tl.linear("fc2", 8),
+                     tl.relu("relu2"), tl.linear("fc3", 6), tl.relu("relu3"),
+                     tl.linear("fc4", 4)])
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    params, state = net.init(gen, (12,))
+    tcs = [{"W_enc": torch.eye(n, device=DEVICE), "b_enc": torch.zeros(n, device=DEVICE),
+            "W_dec": params[nxt]["w"].T.contiguous(), "b_dec": params[nxt]["b"]}
+           for n, nxt in ((10, "fc2"), (8, "fc3"))]
+    batches = [SimpleNamespace(images=torch.randn(8, 12, device=DEVICE, generator=gen),
+                               labels=torch.randint(0, 4, (8,), device=DEVICE, generator=gen))
+               for _ in range(2)]
+    chain = [("fc1", "fc2"), ("fc2", "fc3")]
+    full = chain_faithfulness(net, params, state, chain, tcs, [torch.ones(10), torch.ones(8)],
+                              batches, cross_entropy)
+    empty = chain_faithfulness(net, params, state, chain, tcs,
+                               [torch.zeros(10), torch.zeros(8)], batches, cross_entropy)
+    log(f"[multilayer] (d) MLP anchors: faithfulness {full['faithfulness']!r} with every "
+        f"latent kept (want 1 within {MLP_ANCHOR_TOL:g}), {empty['faithfulness']!r} with "
+        "none (want exactly 0)")
+    if not abs(full["faithfulness"] - 1.0) <= MLP_ANCHOR_TOL or empty["faithfulness"] != 0.0:
+        raise AssertionError("multilayer: the chain_faithfulness anchors do not hold")
+
+
+def _edges_f64(net, params, state, params_list, images):
+    """The chain's edge formula in float64 on the CPU, from the card's taps:
+    (edges, downstream gates of each pair but the first)."""
+    with torch.no_grad():
+        _, taps, _ = net.apply(params, images, state=state, stop_at=TC_CHAIN[-1][0])
+    zs = []
+    for (a, _), p in zip(TC_CHAIN, params_list):
+        tok = taps[a].double().cpu().reshape(-1, p["W_enc"].shape[0])
+        zs.append(torch.relu(tok @ p["W_enc"].double().cpu() + p["b_enc"].double().cpu()))
+    edges = []
+    for k in range(len(TC_CHAIN) - 1):
+        conn = params_list[k]["W_dec"].double().cpu() @ params_list[k + 1]["W_enc"].double().cpu()
+        edges.append(conn * (zs[k].T @ (zs[k + 1] > 0).double()) / zs[0].shape[0])
+    return edges, [z > 0 for z in zs[1:]]
+
+
+def phase_multilayer(smi: str) -> dict:
+    """ROADMAP A8's second half on the card. (a) The padded fused ops (kernels
+    at a multiple of 128 latents, parameters at the registry's H) against the
+    plain versions at the true H, f32 and bf16, bf16 bitwise repeatable; (b)
+    train_saes_multilayer over the eight CIRCUIT_LAYERS at their registry
+    hyperparameters from one dump, each layer's two fused kernels launched
+    once a step (mixed4d through the padded op), tokens/s per layer; (c)
+    train_transcoders_multilayer over the five same-geometry pairs the same
+    way; (d) load_pair_params, the longest chain's edges at batch 32
+    (transcoder_circuit_edges_images_per_sec), held on a few images against
+    the f64 formula, the chain_faithfulness anchors and finite loss-node
+    edges; (e) mis "1" and "2" on the trained mixed3a; (f) the eight SAEs from
+    their exports through the CircuitEngine: finite node IE, faithfulness 1
+    at threshold -1. Returns the launches of each kernel in (b) and (c)."""
+    import numpy as np
+
+    from sparse_vision_tpu_torch.data.labels import remap_torch_to_tf_labels
+    from sparse_vision_tpu_torch.interp import transcoder_circuit as tc
+    from sparse_vision_tpu_torch.interp.circuit import CircuitEngine, FrozenSAE
+    from sparse_vision_tpu_torch.interp.registry import CIRCUIT_LAYERS
+    from sparse_vision_tpu_torch.ops.losses import cross_entropy
+    from sparse_vision_tpu_torch.train import multilayer
+    from sparse_vision_tpu_torch.train.sae_io import load_sae_weights
+    from sparse_vision_tpu_torch.utils.paths import folder_paths, sae_run_name
+
+    set_tf32(False)
+    shutil.rmtree(WORK, ignore_errors=True)
+    t_phase = time.perf_counter()
+    for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for dims in PAD_SAE:
+            _padded_op_check(cd, tag, "sae", dims)
+        for dims in PAD_TC:
+            _padded_op_check(cd, tag, "transcoder", dims)
+        torch.cuda.empty_cache()
+
+    net, params, state = _scaled_googlenet(ML_SEED)
+    train = make_synthetic(num_samples=ML_IMAGES, seed=ML_SEED, img_size=ML_SIZE,
+                           num_classes=1000)
+    val = make_synthetic(num_samples=ML_VAL, seed=ML_SEED + 1, img_size=ML_SIZE,
+                         num_classes=1000)
+    train.labels = _image_dependent_labels(net, params, state, train.images)
+    val.labels = _image_dependent_labels(net, params, state, val.images)
+    kwargs = dict(device=DEVICE, datasets=(train, val, train.category_names, ML_SIZE),
+                  backbone=(params, state))
+    base = RunConfig(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
+                     sae_epochs=1, use_activation_cache=True, cache_tokens_per_step=ML_T,
+                     cache_dtype="bfloat16", compute_dtype="bfloat16", eval_batch_size=32,
+                     seed=ML_SEED, directory_path=str(WORK / "multilayer"))
+    layers = list(CIRCUIT_LAYERS)
+    launches: dict = {}
+
+    # (b) eight SAEs from one backbone pass
+    _sync()
+    t0 = time.perf_counter()
+    with _counted_runs() as runs, _counted_dumps() as dumps:
+        sae_means = multilayer.train_saes_multilayer(base, **kwargs)
+    _sync()
+    sae_s = time.perf_counter() - t0
+    if list(sae_means) != layers:
+        raise AssertionError(f"multilayer: trained {list(sae_means)}")
+    _check_trained("(b) SAE", runs, dumps, layers, fused_sae)
+    for r in runs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[multilayer] (b) {len(layers)} SAEs from one dump of {ML_IMAGES} images at "
+        f"{ML_SIZE[0]} px in {sae_s:.2f} s (dump, {2 * len(layers)} evals, training)")
+
+    # (c) five transcoders from one backbone pass
+    pairs = multilayer.transcoder_pairs(net, "imagenet")
+    t0 = time.perf_counter()
+    with _counted_runs() as runs, _counted_dumps() as dumps:
+        tc_means = multilayer.train_transcoders_multilayer(base, **kwargs)
+    _sync()
+    tc_s = time.perf_counter() - t0
+    if list(tc_means) != pairs or len(pairs) != 5:
+        raise AssertionError(f"multilayer: transcoders {list(tc_means)}, pairs {pairs}")
+    _check_trained("(c) transcoder", runs, dumps, list(dict.fromkeys(
+        l for p in pairs for l in p)), fused_transcoder)
+    for r in runs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[multilayer] (c) {len(pairs)} transcoders from one dump in {tc_s:.2f} s")
+    for k in KERNELS:
+        k.launches = 0
+
+    # (d) transcoder circuits on the longest chain
+    params_list = tc.load_pair_params(base, list(TC_CHAIN), **kwargs)
+    n = TC_EDGE_IMAGES
+    batches = [torch.from_numpy(train.images[i:i + TC_EDGE_BATCH]).to(DEVICE)
+               for i in range(0, n, TC_EDGE_BATCH)]
+    seconds = []
+    for _ in range(2):  # the first run pays the pass's one-time costs
+        _sync()
+        t0 = time.perf_counter()
+        edges = tc.compute_transcoder_edges(net, params, state, list(TC_CHAIN), params_list,
+                                            batches)
+        seconds.append(time.perf_counter() - t0)
+    shapes = [e.shape for e in edges]
+    if shapes != [(2048, 2048), (2048, 2112)] or not all(np.isfinite(e).all() for e in edges):
+        raise AssertionError(f"multilayer: chain edges {shapes}")
+    rate = n / seconds[1]
+    log(f"[multilayer] (d) chain {' -> '.join([TC_CHAIN[0][0]] + [b for _, b in TC_CHAIN])}: "
+        f"edges {shapes} over {n} images at batch {TC_EDGE_BATCH} in {seconds[1]:.3f} s "
+        f"(first run {seconds[0]:.3f} s): transcoder_circuit_edges_images_per_sec "
+        f"{rate:.1f}")
+    few = torch.from_numpy(train.images[:TC_CHECK_IMAGES]).to(DEVICE)
+    got = tc.compute_transcoder_edges(net, params, state, list(TC_CHAIN), params_list, [few])
+    want, gates = _edges_f64(net, params, state, params_list, few)
+    with torch.no_grad():
+        _, taps, _ = net.apply(params, few, state=state, stop_at=TC_CHAIN[-1][0])
+    flips = 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        a, p = TC_CHAIN[k + 1][0], params_list[k + 1]
+        tok = taps[a].reshape(-1, p["W_enc"].shape[0])
+        f32_gate = (torch.relu(tok @ p["W_enc"] + p["b_enc"]) > 0).cpu()
+        flipped = (f32_gate != gates[k]).any(0)
+        flips += int(flipped.sum())
+        keep = ~flipped
+        worst = _close(f"chain edges {k}", torch.from_numpy(g)[:, keep], w[:, keep],
+                       *TC_EDGE_TOL)
+        log(f"[multilayer] (d) edges {k} on {TC_CHECK_IMAGES} images: the card's f32 within "
+            f"{worst:.3g} of the f64 formula's scale; {int(flipped.sum())} gate column(s) "
+            "set apart by f32 and f64 left out")
+    if flips > TC_MAX_FLIPS:
+        raise AssertionError(f"multilayer: {flips} downstream gates differ between f32 and f64")
+    _mlp_anchor()
+    data = [SimpleNamespace(images=torch.from_numpy(train.images[i:i + TC_EDGE_BATCH]).to(DEVICE),
+                            labels=remap_torch_to_tf_labels(torch.from_numpy(
+                                train.labels[i:i + TC_EDGE_BATCH])).to(DEVICE))
+            for i in range(0, 2 * TC_EDGE_BATCH, TC_EDGE_BATCH)]
+    node = tc.loss_node_edges(net, params, state, TC_CHAIN[-1], params_list[-1], data,
+                              cross_entropy)
+    hs = [p["W_enc"].shape[1] for p in params_list]
+    empty = tc.chain_faithfulness(net, params, state, list(TC_CHAIN), params_list,
+                                  [torch.zeros(h) for h in hs], data, cross_entropy)
+    full = tc.chain_faithfulness(net, params, state, list(TC_CHAIN), params_list,
+                                 [torch.ones(h) for h in hs], data, cross_entropy)
+    if not np.isfinite(node).all() or node.shape != (hs[-1],):
+        raise AssertionError(f"multilayer: loss-node edges {node.shape} not finite")
+    if empty["m_C"] != empty["m_empty"] or empty["faithfulness"] != 0.0 \
+            or not math.isfinite(full["faithfulness"]):
+        raise AssertionError(f"multilayer: chain faithfulness {empty}, {full}")
+    log(f"[multilayer] (d) loss-node edges of {TC_CHAIN[-1]} [{hs[-1]}] finite (max |e| "
+        f"{float(np.abs(node).max()):.4g}); chain faithfulness with every latent kept "
+        f"{full['faithfulness']!r} (m_C {full['m_C']:.6g}, m_empty {full['m_empty']:.6g}, "
+        f"m_M {full['m_M']:.6g}), with none exactly 0")
+    if any(k.launches for k in KERNELS):
+        raise AssertionError("multilayer: the circuit passes launched a kernel of the port")
+
+    # (e) MIS on the trained mixed3a
+    mis_seconds = {}
+    for mode in ("1", "2"):
+        cfg = dataclasses.replace(multilayer.layer_config(base, "mixed3a"), training=False,
+                                  mis=mode, sae_checkpoint_epoch=1)
+        pipe = Pipeline(cfg, **kwargs)
+        _sync()
+        t0 = time.perf_counter()
+        out = pipe.run()
+        _sync()
+        mis_seconds[mode] = time.perf_counter() - t0
+    mis_csv = os.path.join(pipe.paths["evaluation_results"], "MIS",
+                           f"{pipe.run_id}_mis_epoch_1.csv")
+    with open(mis_csv) as f:
+        rows = list(csv.DictReader(f))
+    h3a = pipe.num_units
+    if len(rows) != h3a or [int(r["unit_idx"]) for r in rows] != list(range(h3a)) \
+            or not math.isfinite(out["median_mis"]):
+        raise AssertionError(f"multilayer: MIS CSV of {len(rows)} rows, median "
+                             f"{out['median_mis']}")
+    log(f"[multilayer] (e) MIS on mixed3a ({h3a} units, {ML_IMAGES} train images): mis 1 "
+        f"(the 200-sample collection epoch) {mis_seconds['1']:.2f} s, mis 2 (embed + score) "
+        f"{mis_seconds['2']:.2f} s; median_mis {out['median_mis']:.4g}, average "
+        f"{out['average_mis']:.4g}; {len(rows)} CSV rows")
+
+    # (f) the eight trained SAEs, from their exports, through the CircuitEngine
+    saes = {}
+    for layer in layers:
+        cfg = multilayer.layer_config(base, layer)
+        path = os.path.join(folder_paths(cfg)["sae_weights"],
+                            f"{sae_run_name(cfg)}_model_weights.npz")
+        p = {k: v.to(DEVICE) for k, v in load_sae_weights(path, "sae_mlp").items()}
+        saes[layer] = FrozenSAE("sae_mlp", p, cfg.sae_expansion_factor)
+    eng = CircuitEngine(net, params, saes, cross_entropy, state=state)
+    pairs_data = [(b.images, b.labels) for b in data]
+    _sync()
+    t0 = time.perf_counter()
+    avgs = eng.compute_averages(pairs_data)
+    node_ie = eng.compute_node_ie(pairs_data, avgs)
+    keep = eng.compute_faithfulness(pairs_data, node_ie, -1.0, averages=avgs)
+    _sync()
+    eng_s = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(v).all()) for f in (node_ie.features, node_ie.error)
+               for v in f.values()):
+        raise AssertionError("multilayer: node IE of the trained SAEs is not finite")
+    tol = _faith_tol(keep)
+    log(f"[multilayer] (f) trained SAEs from their exports: node IE finite; faithfulness at "
+        f"threshold -1 {keep['faithfulness']!r} (want 1 within "
+        f"{tol:.3g}; m_M - m_empty {keep['m_M'] - keep['m_empty']:.6g}); "
+        f"{2 * TC_EDGE_BATCH} images in {eng_s:.2f} s")
+    if not tol < FAITH_RESOLVE or not abs(keep["faithfulness"] - 1.0) <= tol:
+        raise AssertionError(f"multilayer: faithfulness at -1 is {keep['faithfulness']} "
+                             f"(tolerance {tol:.3g})")
+    log(f"[multilayer] {smi}: phase {time.perf_counter() - t_phase:.1f} s; SAEs {sae_s:.2f} s, "
+        f"transcoders {tc_s:.2f} s, edges {rate:.1f} images/s, MIS {mis_seconds['1']:.2f} + "
+        f"{mis_seconds['2']:.2f} s")
+    del eng, saes, params_list
+    torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -2160,6 +2629,9 @@ def main() -> int:
     phase_cache(evals["sae_mlp"])
     phase_artifacts()
     phase_circuit(smi)
+    ml_launches = phase_multilayer(smi)
+    log("[multilayer] launches in (b) and (c): " + ", ".join(
+        f"{k} {v}" for k, v in sorted(ml_launches.items())))
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

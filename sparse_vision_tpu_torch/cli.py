@@ -15,7 +15,17 @@ loaded from their checkpoints): ``compute_ie`` "1" dataset averages, "2" node
 IE, "3" edge IE (``ie_top_features``, ``ie_cotangent_chunk``), "4<i>"
 faithfulness at threshold i of ``interp.circuit.FAITHFULNESS_THRESHOLDS`` (the
 CSV only; the port draws no figure). A mode prints one JSON line naming the
-files it wrote.
+files it wrote. ``mis`` "1" (with ``training: false`` and the checkpoint's
+``sae_checkpoint_epoch``) collects each unit's extreme train samples and prints
+the eval means; "2" scores them and prints the median and mean MIS confidence
+and the per-unit CSV it wrote.
+
+``--multilayer LAYERS`` trains one registry SAE per layer from one backbone
+pass (train/multilayer.py): ``circuit`` (the backbone's circuit layers) or a
+comma list; ``transcoders`` trains one transcoder per same-geometry
+consecutive circuit pair, ``transcoders:l1,l2,...`` pairs up that chain. It
+prints one JSON line with each layer's (or pair's, as "in->out") last eval
+means.
 """
 
 from __future__ import annotations
@@ -32,6 +42,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--run_pipeline", action="store_true", help="run one config")
     ap.add_argument("--config", required=True, help="RunConfig as a JSON object")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--multilayer", default=None, metavar="LAYERS",
+                    help="train the SAEs of 'circuit' or a comma list of layers, or "
+                         "'transcoders[:l1,l2,...]', from one backbone pass "
+                         "(train/multilayer.py), at the registry's hyperparameters")
     args = ap.parse_args(argv)
     if not args.run_pipeline:
         ap.error("nothing to do: pass --run_pipeline")
@@ -39,6 +53,10 @@ def main(argv=None) -> dict:
     from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
     cfg = RunConfig.from_json(args.config)
+    if args.multilayer is not None:
+        out = _multilayer(cfg, args.multilayer, args.device)
+        print(json.dumps(out, sort_keys=True))
+        return out
     pipe = Pipeline(cfg, device=args.device)
     out = pipe.run()
     if cfg.compute_ie != "0":
@@ -47,8 +65,37 @@ def main(argv=None) -> dict:
         folder = pipe.paths["ie_related_quantities"]
         out = {"compute_ie": cfg.compute_ie,
                "wrote": [os.path.join(folder, f) for f in MODE_FILES[cfg.compute_ie[0]]]}
+    elif cfg.mis == "2":
+        folder = os.path.join(pipe.paths["evaluation_results"], "MIS")
+        out = {"mis": "2", "median_mis": out["median_mis"], "average_mis": out["average_mis"],
+               "wrote": [os.path.join(folder, f"{pipe.run_id}_mis_epoch_"
+                                              f"{cfg.sae_checkpoint_epoch}.csv")]}
     print(json.dumps(out, sort_keys=True))
     return out
+
+
+def _multilayer(cfg: RunConfig, spec: str, device) -> dict:
+    """``--multilayer``: {"multilayer": spec, "results": {layer or "in->out":
+    last eval means}}."""
+    from sparse_vision_tpu_torch.train import multilayer
+
+    if spec.startswith("transcoders"):
+        from sparse_vision_tpu_torch.models.backbone import make_backbone
+
+        _, _, layer_list = spec.partition(":")
+        pairs = None
+        if layer_list:  # 'transcoders:l1,l2,l3' pairs up that chain
+            pairs = multilayer.transcoder_pairs(
+                make_backbone(cfg.model_name, cfg.dataset_name), cfg.dataset_name,
+                [l for l in layer_list.split(",") if l])
+            if not pairs:
+                raise ValueError(f"--multilayer {spec}: no same-geometry consecutive pair")
+        results = multilayer.train_transcoders_multilayer(cfg, pairs=pairs, device=device)
+        results = {f"{a}->{b}": means for (a, b), means in results.items()}
+    else:
+        layers = None if spec == "circuit" else [l for l in spec.split(",") if l]
+        results = multilayer.train_saes_multilayer(cfg, layers=layers, device=device)
+    return {"multilayer": spec, "results": results}
 
 
 if __name__ == "__main__":

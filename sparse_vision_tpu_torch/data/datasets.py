@@ -1,7 +1,8 @@
 """Host-side numpy batching (port of the in-memory and synthetic parts of
 sparse_vision_tpu/data/datasets.py). Batches are NHWC float32 numpy arrays;
 drop_last everywhere; train shuffled, eval not. Loaders for real datasets are
-not ported yet: ``load_data`` raises for a non-empty ``data_dir``.
+not ported yet: ``load_data`` raises for a non-empty ``data_dir``, and
+``fetch_images_batches`` takes in-memory datasets only.
 """
 
 from __future__ import annotations
@@ -42,6 +43,23 @@ class ArrayDataset:
         for b in range(n // batch_size):  # drop_last=True
             idx = order[b * batch_size : (b + 1) * batch_size]
             yield Batch(self.images[idx], self.labels[idx], idx)
+
+
+def fetch_images_batches(dataset, indices, batch_size: int) -> Iterator[tuple]:
+    """Chunked random-access fetch of ``indices`` (the MIS embedding pass):
+    yields ``(chunk_indices [b] int64, images [b, H, W, C])``; the last chunk
+    may be shorter. In-memory datasets (``.images``) only, which have no decode
+    cost to hide; the decode-worker branch for image files (the JAX function's
+    ``workers``) comes with the real-dataset loaders (ROADMAP A9)."""
+    if not hasattr(dataset, "images"):
+        raise NotImplementedError(
+            "fetch_images_batches: only in-memory datasets (.images) are ported; "
+            "the decode-worker fetch of image files waits for the real-dataset "
+            "loaders (ROADMAP A9)")
+    idx = [int(i) for i in indices]
+    for s in range(0, len(idx), batch_size):
+        a = np.asarray(idx[s : s + batch_size], np.int64)
+        yield a, dataset.images[a]
 
 
 def make_synthetic(num_samples: int = 512, img_size: tuple = (28, 28, 1),

@@ -53,8 +53,8 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     compute_dtype_of,
     run_on_device,
 )
+from sparse_vision_tpu_torch.ops.fused_sae import bodies_take as can_fuse  # no latent padding
 from sparse_vision_tpu_torch.ops.fused_transcoder import (
-    can_fuse,  # the shared kernels' shape and width rule, for callers
     coder_backward_launch,
     coder_backward_plain,
     coder_forward_launch,

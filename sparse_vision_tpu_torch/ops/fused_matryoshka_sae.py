@@ -79,10 +79,11 @@ def _levels_ok(h: int, boundaries: tuple, quantum: int) -> bool:
 def can_fuse_matryoshka(t: int, h: int, boundaries: tuple, c: int = 256,
                         dtype=_BF16) -> bool:
     """True when the CUDA forward and backward take this shape in ``dtype``: the
-    ReLU op's can_fuse, and at most MAX_LEVELS prefix boundaries, strictly
-    increasing, each a multiple of the latent group (128), the last equal to H.
-    The CPU plain versions take any valid boundaries."""
-    return _levels_ok(h, boundaries, TILE_H) and fused_sae.can_fuse(t, h, c, dtype)
+    coder bodies' rule (fused_sae.bodies_take; this op pads no latent), and at
+    most MAX_LEVELS prefix boundaries, strictly increasing, each a multiple of
+    the latent group (128), the last equal to H. The CPU plain versions take
+    any valid boundaries."""
+    return _levels_ok(h, boundaries, TILE_H) and fused_sae.bodies_take(t, h, c, c, dtype)
 
 
 def _segments(boundaries):

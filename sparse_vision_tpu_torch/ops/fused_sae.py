@@ -31,6 +31,15 @@ of ``db_dec`` rounds the whole-batch ``db_enc`` to bf16 once, where the TPU kern
 rounds each 2048-token tile's partial sum, so bf16 ``db_dec`` agrees with the
 JAX op within a tolerance and exactly in f32.
 
+Latent padding: the kernels take H in multiples of TILE_H (128). At any other
+H (the registry's mixed4d SAE: 528 × 4 = 2,112 latents) FusedSAEFunction pads
+W_enc's columns, b_enc and W_dec's rows with zeros to padded_h(H) after the
+compute cast, runs the entry points at that width on both devices, and slices
+act_count and the gradients back to H; the normalisers (c_l1, the L1 mean) use
+the true H. A padded latent's pre-activation is exactly 0, so it never fires
+and every output and gradient it touches is exactly what the unpadded op gives
+up to summation order. Nothing outside the op holds the padded width.
+
 Differentiability contract: gradients flow through ``rec_loss`` and ``l1_loss``
 only (loss = rec + λ·l1). ``recon`` and the statistics are marked
 non-differentiable. ``x`` is data unless ``compute_dx=True``: then its gradient
@@ -76,10 +85,40 @@ def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) 
             and (dt != _BF16 or (c_in % BF16_WIDTH == 0 and c_out % BF16_WIDTH == 0)))
 
 
+def padded_h(h: int) -> int:
+    """H rounded up to a multiple of TILE_H: the latent count the kernels run at."""
+    return -(-h // TILE_H) * TILE_H
+
+
 def can_fuse(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
-    """True when the CUDA forward and backward take this (tokens, latents,
-    channels) shape in ``dtype``. The CPU plain versions take any shape."""
-    return bodies_take(t, h, c, c, dtype)
+    """True when the op takes this (tokens, latents, channels) shape in
+    ``dtype`` on the card: any H > 0, since FusedSAEFunction pads the latent axis
+    to padded_h(H); T and the widths by bodies_take. The CPU plain versions take
+    any shape."""
+    return h > 0 and bodies_take(t, padded_h(h), c, c, dtype)
+
+
+def cast_padded(w: torch.Tensor, cd: torch.dtype, shape: tuple) -> torch.Tensor:
+    """``w`` cast to ``cd``, contiguous, zero-padded at the end of each dim to
+    ``shape`` (one copy at most)."""
+    if tuple(w.shape) == tuple(shape):
+        return w.to(cd).contiguous()
+    out = w.new_zeros(shape, dtype=cd)
+    out[tuple(slice(0, n) for n in w.shape)] = w
+    return out
+
+
+def padded_operands(w_enc, b_enc, w_dec, cd):
+    """The compute casts of W_enc [C_in, H] and W_dec [H, C_out] and the f32
+    b_enc [H], each zero-padded on the latent axis to padded_h(H). A padded
+    latent has a zero W_enc column and b_enc, so its pre-activation is exactly 0
+    and it never fires: it adds nothing to recon, Σpost, the activity counts or
+    row_active, and its gradients are exactly zero (sliced away by the
+    callers)."""
+    h = b_enc.shape[0]
+    hp = padded_h(h)
+    return (cast_padded(w_enc, cd, (w_enc.shape[0], hp)), cast_padded(b_enc, _F32, (hp,)),
+            cast_padded(w_dec, cd, (hp, w_dec.shape[1])))
 
 
 def direct_rows(t: int, dtype) -> int:
@@ -257,7 +296,7 @@ def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
     h = b_enc.shape[0]
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused SAE kernel: compute dtype {x.dtype} not supported")
-    if not can_fuse(t, h, c, x.dtype):
+    if not bodies_take(t, h, c, c, x.dtype):
         raise ValueError(
             f"fused SAE kernel: shape T={t}, C={c}, H={h} not supported with {x.dtype} "
             f"operands (T a multiple of {TILE_T}, H of {TILE_H}; in bf16 C a multiple of "
@@ -419,17 +458,20 @@ class FusedSAEFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, compute_dtype, compute_dx):
         cd = compute_dtype
-        xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
-        b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
-        x_cent, recon, act_count, row_active, l1_sum = fused_sae_forward(xc, we, b_enc, wd, b_dec)
         t, c = x.shape
-        h = b_enc.shape[0]
+        h = b_enc.shape[0]  # the true H; the kernels run at padded_h(H)
+        xc = x.to(cd).contiguous()
+        we, b_enc, wd = padded_operands(w_enc, b_enc, w_dec, cd)
+        x_cent, recon, act_count, row_active, l1_sum = fused_sae_forward(
+            xc, we, b_enc, wd, b_dec.contiguous())
         err = recon - x  # against x in its own dtype, before the compute cast
         rec_loss = err.square().mean()
         l1_loss = l1_sum / (t * h)
         # the backward and dx run on x_cent
         ctx.save_for_backward(x_cent, we, b_enc, wd, err.to(cd))
         ctx.compute_dx = compute_dx
+        ctx.h = h
+        act_count = act_count[:h]
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return rec_loss, l1_loss, recon, act_count, row_active
 
@@ -437,7 +479,7 @@ class FusedSAEFunction(torch.autograd.Function):
     def backward(ctx, g_rec, g_l1, *_unused):
         x_cent, we, b_enc, wd, err = ctx.saved_tensors
         t, c = x_cent.shape
-        h = b_enc.shape[0]
+        h = ctx.h
         zero = torch.zeros((), dtype=_F32, device=x_cent.device)
         g_rec = zero if g_rec is None else g_rec.float()
         g_l1 = zero if g_l1 is None else g_l1.float()
@@ -447,6 +489,8 @@ class FusedSAEFunction(torch.autograd.Function):
         dx = None
         if ctx.compute_dx and ctx.needs_input_grad[0]:
             dx = fused_sae_dx(x_cent, we, b_enc, wd, err, coeffs)
+        if b_enc.shape[0] != h:  # the padded latents' gradients are exactly zero
+            dw_enc, db_enc, dw_dec = dw_enc[:, :h].contiguous(), db_enc[:h], dw_dec[:h]
         return dx, dw_enc, db_enc, dw_dec, db_dec, None, None
 
 

@@ -29,6 +29,11 @@ to the compute dtype before the kernels; b_enc and the + b_dec on recon are
 f32; every product accumulates in f32; the saved error is recon − y in f32,
 cast to the compute dtype; c_rec = 2·g_rec/(T·C_out), c_l1 = g_l1/(T·H).
 
+Latent padding (ops/fused_sae.py's rule): at an H that is no multiple of 128
+(the mixed4d -> mixed4e transcoder: 2,112 latents) FusedTranscoderFunction
+pads the latent axis with zeros to padded_h(H) after the compute cast and
+slices act_count and the gradients back; c_l1 and the L1 mean use the true H.
+
 Differentiability contract: gradients flow through ``rec_loss`` and ``l1_loss``
 into the four parameters only; x and y are data (their gradients are None).
 """
@@ -56,11 +61,16 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     coder_forward_plain,
     compute_dtype_of,
     direct_rows,
+    padded_h,
+    padded_operands,
     run_on_device,
 )
 
-# can_fuse(t, h, c_in, c_out, dtype): the coder bodies' shape and width rule
-can_fuse = bodies_take
+def can_fuse(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
+    """True when the op takes this shape in ``dtype`` on the card: any H > 0,
+    since FusedTranscoderFunction pads the latent axis to padded_h(H); T and the
+    widths by the coder bodies' rule (bodies_take)."""
+    return h > 0 and bodies_take(t, padded_h(h), c_in, c_out, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +113,7 @@ def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
     h, c_out = w_dec.shape
     if x.dtype not in (_F32, _BF16):
         raise ValueError(f"fused transcoder kernel: compute dtype {x.dtype} not supported")
-    if not can_fuse(t, h, c_in, c_out, x.dtype):
+    if not bodies_take(t, h, c_in, c_out, x.dtype):
         raise ValueError(
             f"fused transcoder kernel: shape T={t}, H={h}, C_in={c_in}, C_out={c_out} not "
             f"supported with {x.dtype} operands (T a multiple of {TILE_T}, H of {TILE_H}; in "
@@ -199,14 +209,16 @@ class FusedTranscoderFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, y, compute_dtype):
         cd = compute_dtype
-        xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
-        b_enc = b_enc.contiguous()
+        t = x.shape[0]
+        h = b_enc.shape[0]  # the true H; the kernels run at padded_h(H)
+        xc = x.to(cd).contiguous()
+        we, b_enc, wd = padded_operands(w_enc, b_enc, w_dec, cd)
         recon, act_count, row_active, l1_sum = fused_transcoder_forward(
             xc, we, b_enc, wd, b_dec.contiguous())
-        t = x.shape[0]
-        h = b_enc.shape[0]
         err = recon - y  # f32: recon is f32, whatever y's dtype
         ctx.save_for_backward(xc, we, b_enc, wd, err.to(cd))
+        ctx.h = h
+        act_count = act_count[:h]
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return err.square().mean(), l1_sum / (t * h), recon, act_count, row_active
 
@@ -214,13 +226,15 @@ class FusedTranscoderFunction(torch.autograd.Function):
     def backward(ctx, g_rec, g_l1, *_unused):
         xc, we, b_enc, wd, err = ctx.saved_tensors
         t = xc.shape[0]
-        h, c_out = wd.shape
+        h, c_out = ctx.h, wd.shape[1]
         zero = torch.zeros((), dtype=_F32, device=xc.device)
         g_rec = zero if g_rec is None else g_rec.float()
         g_l1 = zero if g_l1 is None else g_l1.float()
         # a device tensor, not host floats: the backward never syncs
         coeffs = torch.stack([g_rec * 2.0 / (t * c_out), g_l1 / (t * h)])
         dw_enc, db_enc, dw_dec, db_dec = fused_transcoder_backward(xc, we, b_enc, wd, err, coeffs)
+        if b_enc.shape[0] != h:  # the padded latents' gradients are exactly zero
+            dw_enc, db_enc, dw_dec = dw_enc[:, :h].contiguous(), db_enc[:h], dw_dec[:h]
         return None, dw_enc, db_enc, dw_dec, db_dec, None, None
 
 

@@ -2,8 +2,10 @@
 modified-model-eval and circuit parts of sparse_vision_tpu/train/pipeline.py).
 
 ``Pipeline(cfg).run()`` runs a circuit-discovery mode (``compute_ie``, with
-``training=False``: interp/ie.py), trains (``training``) or runs one standalone
-eval of a restored checkpoint. Training, ``train_sae``, runs the north-star chain: frozen
+``training=False``: interp/ie.py), an MIS mode (``mis`` "1" collects each
+unit's 200 extreme train samples, ``mis_epoch``; "2" scores them,
+interp/mis.py), trains (``training``) or runs one standalone eval of a
+restored checkpoint. Training, ``train_sae``, runs the north-star chain: frozen
 GoogLeNet -> tap ``sae_layer`` -> activation cache -> SAE training (``sae_mlp``, ``gated_sae``,
 ``jumprelu_sae`` or ``matryoshka_sae``; the variant's fused CUDA kernels on a
 GPU, their plain versions on the CPU) with dead-latent tracking (resampling for
@@ -75,7 +77,8 @@ _SLICE = {
     "compute_dtype": ("bfloat16", "float32"),
     "model_criterion_name": ("cross_entropy", "negative_log_likelihood"),
     "original_model": (False,),
-    "mis": ("0",),
+    # 1: the collection epoch (mis_epoch), 2: scoring (interp/mis.py)
+    "mis": ("0", "1", "2"),
     # 0: off; 1 averages, 2 node IE, 3 edge IE, 4<i> faithfulness (interp/ie.py)
     "compute_ie": ("0", "1", "2", "3") + tuple(f"4{i}" for i in range(20)),
     "data_dir": ("",),
@@ -99,6 +102,9 @@ def validate_slice(cfg: RunConfig) -> None:
                 f"RunConfig.{field}={value!r} is not ported yet (supported: {ok})")
     if cfg.compute_ie != "0" and cfg.training:
         raise ValueError("IE is computed on a frozen SAE, not during training "
+                         "(set training=False).")
+    if cfg.mis != "0" and cfg.training:
+        raise ValueError("MIS is computed on a frozen SAE, not during training "
                          "(set training=False).")
     if cfg.training and not cfg.use_activation_cache:
         raise NotImplementedError(
@@ -232,13 +238,21 @@ class Pipeline:
 
     def run(self):
         """The configured mode: a circuit-discovery mode (``compute_ie``,
-        interp/ie.py), training, or a standalone eval of the dictionary as it is
-        (a restored checkpoint's, with ``sae_checkpoint_epoch``), which is its
-        own last epoch. The other modes are refused by validate_slice."""
+        interp/ie.py), an MIS mode (``mis``), training, or a standalone eval of
+        the dictionary as it is (a restored checkpoint's, with
+        ``sae_checkpoint_epoch``), which is its own last epoch. The other modes,
+        original-model MIS among them (``original_model`` is pinned to False),
+        are refused by validate_slice."""
         if self.cfg.compute_ie != "0":
             from sparse_vision_tpu_torch.interp.ie import run_ie
 
             return run_ie(self, self.cfg.compute_ie)
+        if self.cfg.mis == "1":
+            return self.mis_epoch()
+        if self.cfg.mis == "2":
+            from sparse_vision_tpu_torch.interp.mis import compute_mis_for_run
+
+            return compute_mis_for_run(self)
         if self.cfg.training:
             return self.train_sae()
         return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, final=True)
@@ -586,6 +600,14 @@ class Pipeline:
             results_store.store_run_result(folder, f"{self.run_id}_epoch_{epoch}", row)
             results_store.merge_results(folder)
         return means
+
+    def mis_epoch(self, n_mis: int = 20, k_mis: int = 9) -> dict:
+        """Mode ``mis="1"``: an eval epoch on the train data that keeps each
+        unit's n_mis·(k_mis + 1) = 200 most and least activating samples in the
+        top-k file of ``sae_checkpoint_epoch``, which ``mis="2"`` scores; no
+        results row."""
+        return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, store=False,
+                                  on_train_data=True, k=n_mis * (k_mis + 1))
 
     def _auto_eval_batch_size(self) -> int:
         """sae_batch_size, clamped so the stock eval step's [B*H*W, latents] f32

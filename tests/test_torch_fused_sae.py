@@ -185,13 +185,14 @@ def test_dx_matches_jax_at_a_coder_width(c, case):
     (200, 256, 64, torch.float32, False), (256, 200, 64, torch.bfloat16, False),  # T, H
 ])
 def test_dx_takes_the_coder_bodies_widths(t, h, c, dtype, ok):
-    """The dx wrapper checks its operands by the coder bodies' rule (can_fuse)
-    before any library is loaded, so a shape it refuses raises ValueError on
-    every machine (meta tensors here)."""
+    """The dx wrapper checks its operands by the coder bodies' rule (bodies_take;
+    the op pads H before it reaches the wrapper) before any library is loaded,
+    so a shape it refuses raises ValueError on every machine (meta tensors
+    here)."""
     ops = (torch.empty(t, c, dtype=dtype, device="meta"),
            torch.empty(c, h, dtype=dtype, device="meta"), torch.empty(h, device="meta"),
            torch.empty(h, c, dtype=dtype, device="meta"))
-    assert fused_sae.can_fuse(t, h, c, dtype) is ok
+    assert fused_sae.bodies_take(t, h, c, c, dtype) is ok
     if ok:
         assert fused_sae._check_operands(*ops) == (t, c, h)
     else:
@@ -284,8 +285,11 @@ def test_non_cpu_tensor_never_takes_the_plain_path(setup):
 @pytest.mark.parametrize("t,h,c,dtype,ok", [
     (32768, 16384, 256, torch.bfloat16, True), (512, 1024, 128, torch.bfloat16, True),
     (128, 128, 64, torch.float32, True), (128, 128, 64, "bfloat16", True),
-    (64, 64, 64, torch.bfloat16, False),  # T and H multiples of 128
-    (100, 1024, 256, torch.bfloat16, False), (512, 1000, 256, torch.bfloat16, False),
+    (64, 64, 64, torch.bfloat16, False),  # T a multiple of 128
+    (100, 1024, 256, torch.bfloat16, False),
+    # any H > 0: the op pads the latent axis to a multiple of 128 (mixed4d: 2,112)
+    (512, 1000, 256, torch.bfloat16, True), (512, 2112, 528, torch.bfloat16, True),
+    (512, 0, 256, torch.float32, False),
     (512, 1024, 96, torch.bfloat16, True), (512, 1024, 512, torch.bfloat16, True),
     # every GoogLeNet tap: mixed3b 480, mixed4a-4c 512, mixed4d 528, 4e/5a 832, 5b 1024
     (32768, 16384, 480, torch.bfloat16, True), (32768, 16384, 528, torch.bfloat16, True),
@@ -448,3 +452,151 @@ def test_check_fusable_refuses_a_bf16_width_before_any_dump(op, monkeypatch, tmp
         pipe._cache_dir = lambda layer: str(tmp_path / layer)
         with pytest.raises(ValueError, match="C_in=484"):
             Pipeline.train_sae_cached(pipe)
+
+
+# ---------------------------------------------------------------------------
+# latent padding: H = 2,112 (the registry's mixed4d SAE, 528 x 4) and H = 200
+# ---------------------------------------------------------------------------
+
+PADDED = {2112: (128, 528), 200: (128, 56)}  # H: (T, C)
+# the padded op against the unpadded plain math: the same cast points, products
+# over H_pad that may sum in another order, so within PAD_RTOL / PAD_ATOL of
+# each array's largest magnitude in f32. In bf16 an f32 ulp of the
+# reconstruction can flip the bf16 rounding of the saved error (measured on
+# the transcoder at H 2,112: 4.8e-7 moved one error entry by 2^-8, dW_enc by
+# 8.8e-4 of its largest entry), so bf16 arrays are held to one bf16 ulp
+# (PAD_ATOL_BF16) of their largest magnitude
+PAD_RTOL, PAD_ATOL, PAD_ATOL_BF16 = 1e-5, 1e-6, 2.0**-8
+# against the JAX op in bf16 the [T, C] reconstruction sums 2,112 rounded
+# latents: a pre-activation that the frameworks sum in another order can round
+# post to the neighbouring bf16 value, ~2^-9 of it times a W_dec entry (~0.02)
+# per flip (measured: 2.3e-4 at most, on 0.5% of the entries; the unpadded
+# plain math above holds it to PAD_ATOL); the flips reach dW_dec through the
+# rounded error, which is then held to one bf16 ulp of its largest entry, as
+# dW_enc is
+PAD_BF16_RECON_ATOL = 1e-3
+
+
+@functools.cache
+def _padded_setup(h):
+    t, c = PADDED[h]
+    rng = np.random.default_rng(h)
+    params = {
+        "W_enc": (rng.normal(size=(c, h)) / np.sqrt(c)).astype(np.float32),
+        "b_enc": (-0.05 + 0.05 * rng.normal(size=h)).astype(np.float32),
+        "W_dec": (rng.normal(size=(h, c)) / np.sqrt(h)).astype(np.float32),
+        "b_dec": (0.1 * rng.normal(size=c)).astype(np.float32),
+    }
+    params["b_enc"][:8] -= 100.0  # 8 latents never fire
+    return params, rng.normal(size=(t, c)).astype(np.float32)
+
+
+def _plain_reference(params, x, cd):
+    """Loss terms and gradients of the unpadded plain math at the true H."""
+    tp = convert.sae_params_from_jax(params)
+    t, c = x.shape
+    h = tp["b_enc"].shape[0]
+    xc, we, wd = torch.from_numpy(x).to(cd), tp["W_enc"].to(cd), tp["W_dec"].to(cd)
+    recon, act, _, l1_sum = fused_sae.fused_sae_forward_plain(xc, we, tp["b_enc"], wd,
+                                                              tp["b_dec"])
+    err = recon - torch.from_numpy(x)
+    coeffs = torch.tensor([2.0 / (t * c), LAMBDA / (t * h)])
+    grads = fused_sae.fused_sae_backward_plain(xc, we, tp["b_enc"], wd, tp["b_dec"],
+                                               err.to(cd), coeffs)
+    return ({"rec_loss": err.square().mean(), "l1_loss": l1_sum / (t * h), "decoded": recon,
+             "act": act}, dict(zip(("W_enc", "b_enc", "W_dec", "b_dec"), grads)))
+
+
+def _padded_op(params, x, cd):
+    tp = {k: v.requires_grad_(True) for k, v in convert.sae_params_from_jax(params).items()}
+    out = fused_sae.fused_sae_loss_terms(tp, torch.from_numpy(x), LAMBDA, 4, compute_dtype=cd)
+    return tp, out, dict(zip(tp, torch.autograd.grad(out["loss"], list(tp.values()))))
+
+
+def _close(got, want, name, cd=torch.float32):
+    atol = (PAD_ATOL if cd == torch.float32 else PAD_ATOL_BF16) * float(want.abs().max())
+    torch.testing.assert_close(got.detach().float(), want.float(), rtol=PAD_RTOL, atol=atol,
+                               msg=name)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+@pytest.mark.parametrize("h", list(PADDED))
+def test_padded_op_matches_the_unpadded_plain_math(h, case):
+    """At an H the kernels do not tile, the op pads the latent axis to 128k and
+    slices back: its loss terms, statistics and gradients equal the plain math
+    at the true H (the normalisers use the true H), and nothing it returns has
+    the padded width."""
+    cd = TDT[CASES[case][0]]
+    params, x = _padded_setup(h)
+    tp, out, grads = _padded_op(params, x, cd)
+    ref, ref_grads = _plain_reference(params, x, cd)
+    t, c = x.shape
+    for k in ("rec_loss", "l1_loss", "decoded"):
+        _close(out[k], ref[k], k, cd)
+    torch.testing.assert_close(out["activity_freq"], ref["act"] / t, rtol=0, atol=0)
+    assert out["dead"].shape == (h,) and bool(out["dead"].any())
+    for k, g in grads.items():
+        assert g.shape == tp[k].shape, k
+        _close(g, ref_grads[k], k, cd)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+@pytest.mark.parametrize("h", list(PADDED))
+def test_padded_latents_are_exactly_zero(h, case):
+    """The entry points at H_pad on the padded operands: every padded latent's
+    activity, Σpost and gradients are exactly zero, so slicing loses nothing,
+    and its zero rows leave db_dec's centring term as the unpadded one."""
+    cd = TDT[CASES[case][0]]
+    params, x = _padded_setup(h)
+    tp = convert.sae_params_from_jax(params)
+    t, c = x.shape
+    hp = fused_sae.padded_h(h)
+    assert hp % fused_sae.TILE_H == 0 and hp - h < fused_sae.TILE_H
+    we, b_enc, wd = fused_sae.padded_operands(tp["W_enc"], tp["b_enc"], tp["W_dec"], cd)
+    assert we.shape == (c, hp) and b_enc.shape == (hp,) and wd.shape == (hp, c)
+    xc = torch.from_numpy(x).to(cd)
+    x_cent, recon, act_part, _, zsum_part = fused_sae.sae_fwd_plain(xc, we, b_enc, wd,
+                                                                    tp["b_dec"])
+    assert not act_part[:, h:].any() and not zsum_part[:, h:].any()
+    err = (recon - torch.from_numpy(x)).to(cd)
+    coeffs = torch.tensor([2.0 / (t * c), LAMBDA / (t * h)])
+    dw_enc, db_enc, dw_dec, parts = fused_sae.sae_bwd_plain(x_cent, we, b_enc, wd, err, coeffs)
+    assert not dw_enc[:, h:].any() and not db_enc[h:].any() and not dw_dec[h:].any()
+    unpadded = fused_sae.centring_rows_plain(db_enc[:h], we[:, :h])
+    _close(parts[1:], unpadded, "centring row", cd)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16"])
+@pytest.mark.parametrize("h", list(PADDED))
+def test_padded_op_matches_jax(h, case):
+    """The padded op against the JAX op in interpret mode (one latent tile of
+    the whole H, which Pallas takes at any H), with the module docstring's
+    tolerances; the bf16 reconstruction within PAD_BF16_RECON_ATOL."""
+    cd = CASES[case][0]
+    params, x = _padded_setup(h)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tiles = dict(tile_t=64, tile_h=4096, interpret=True)
+
+    def jloss(p):
+        return jax_fused(p, jnp.asarray(x), LAMBDA, 4, compute_dtype=JDT[cd], **tiles)
+
+    jout, jgrad = jloss(jp), jax.grad(lambda p: jloss(p)["loss"])(jp)
+    _, tout, tgrad = _padded_op(params, x, TDT[cd])
+    rtol = 1e-5 if case == "f32" else 1e-4
+    for k in ("loss", "rec_loss", "l1_loss", "nrmse_loss", "rmse_loss"):
+        np.testing.assert_allclose(float(tout[k].detach()), float(jout[k]), rtol=rtol, err_msg=k)
+    np.testing.assert_allclose(tout["decoded"].detach().numpy(), np.asarray(jout["decoded"]),
+                               rtol=rtol, atol=2e-5 if case == "f32" else PAD_BF16_RECON_ATOL)
+    np.testing.assert_array_equal(tout["activity_freq"].numpy(),
+                                  np.asarray(jout["activity_freq"]))
+    np.testing.assert_allclose(float(tout["sparsity"]), float(jout["sparsity"]), rtol=1e-6)
+    for k in ("W_enc", "b_enc", "W_dec", "b_dec"):
+        ref = np.asarray(jgrad[k])
+        if case == "f32":
+            rtol, atol = 1e-4, 1e-7
+        else:
+            # dW_dec = round(post)ᵀ·round(drecon): the flipped roundings above
+            rtol, atol = {"W_enc": (0, 2.0**-8 * np.abs(ref).max()),
+                          "W_dec": (0, 2.0**-8 * np.abs(ref).max()),
+                          "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)

@@ -52,8 +52,35 @@ def test_the_walk_sees_every_module():
                  "sparse_vision_tpu_torch/interp/patching.py",
                  "sparse_vision_tpu_torch/interp/circuit.py",
                  "sparse_vision_tpu_torch/interp/registry.py",
-                 "sparse_vision_tpu_torch/interp/ie.py"):
+                 "sparse_vision_tpu_torch/interp/ie.py",
+                 "sparse_vision_tpu_torch/interp/transcoder_circuit.py",
+                 "sparse_vision_tpu_torch/interp/mis.py",
+                 "sparse_vision_tpu_torch/train/multilayer.py"):
         assert must in names
+
+
+@pytest.mark.parametrize("spec", ["mixed4c,mixed4d", "circuit", "transcoders",
+                                  "transcoders:mixed4c,mixed4d"])
+def test_multilayer_entry_points_default_to_cuda(spec, monkeypatch):
+    """train/multilayer.py's functions, load_pair_params and the CLI's
+    --multilayer build their Pipelines on CUDA unless given device="cpu"."""
+    from sparse_vision_tpu_torch import cli
+    from sparse_vision_tpu_torch.config import RunConfig
+    from sparse_vision_tpu_torch.interp.transcoder_circuit import load_pair_params
+    from sparse_vision_tpu_torch.train import multilayer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RunConfig(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed4c",
+                    use_activation_cache=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--run_pipeline", "--config", cfg.to_json(), "--multilayer", spec])
+    if spec == "circuit":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            multilayer.train_saes_multilayer(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            multilayer.train_transcoders_multilayer(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_pair_params(cfg, [("mixed4c", "mixed4d")])
 
 
 def test_resolve_device_raises_without_a_gpu(monkeypatch):
