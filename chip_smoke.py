@@ -108,6 +108,37 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               unit, a finite median, the seconds of each; (f) the eight SAEs
               read back from their exports through the CircuitEngine: finite
               node IE, faithfulness 1 at threshold -1. TF32 off throughout.
+ 11. topk:    the TopK family and training without a cache, no kernel of the
+              JSON line among them (the JAX package's TopK paths are stock
+              XLA, not Pallas): (a) f32, TF32 off, T 8,192, C 256, H 4,096, k
+              32: topk_sae's gather decode and batch_topk_sae's index selection
+              against the stock math of models/sae.py, each with AuxK (k_aux
+              512, weight 1/32, a quarter of the latents dead): loss terms,
+              AuxK and every gradient within 1e-5 of the largest entry, both
+              timed; GatherDecode's dW_dec at that shape with every index in
+              64 latents, bitwise equal over three runs; kth_largest over
+              32,768 x 16,384 values (n = 32,768 x 32) bitwise the n-th value
+              of a sort, timed beside the sort and torch.topk on the floats;
+              (b) topk_sae and batch_topk_sae through Pipeline.train_sae at
+              phase 6's north-star config (mixed3a at 229 px, 16,384 latents,
+              bf16 cache, 12 steps of 32,768 tokens) with k 32, sae_aux_k 512
+              and the 4-step dead window: finite losses, a
+              non-zero AuxK at a mature step with dead latents, topk's eval code
+              at most 32 latents a token, batch_topk's threshold positive from
+              step 1, its EMA and calibrated values printed, the last eval and
+              the checkpoint at the calibrated one, and a second batch_topk run
+              from the same cache bitwise equal (params, Adam state, threshold,
+              dead accumulator); tokens/s; (c) Pipeline.run with
+              use_activation_cache=False on 256 images at 229 px, batch 32, one
+              epoch, on phase 9's GoogLeNet (conv weights scaled by CONV_GAIN,
+              so that logits depend on the image): sae_mlp at expansion 64 and
+              sae_conv at expansion 4 (1,024 channels; UNCACHED says why): 14
+              finite metrics every step with kld > 0; the first step's
+              model_loss, kld, perc_same and var_expl against a plain f64
+              recomputation from its images, the SAE's parameters before the
+              step and the splice (UNCACHED_TOL); the evals before and after
+              the epoch, its checkpoint and the export; images/s. (b) and (c)
+              fail on any fused kernel launch.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -147,6 +178,7 @@ from sparse_vision_tpu_torch.models.sae import (
     matryoshka_prefix_counts,
     matryoshka_sae_apply,
     sae_inference_and_loss,
+    topk_aux_loss,
     transcoder_inference_and_loss,
 )
 from sparse_vision_tpu_torch.ops import (
@@ -158,8 +190,15 @@ from sparse_vision_tpu_torch.ops import (
     fused_transcoder,
     native,
 )
+from sparse_vision_tpu_torch.ops.fast_batch_topk import (
+    fast_batch_topk_sae_loss_terms,
+    kth_largest,
+)
+from sparse_vision_tpu_torch.ops.fast_topk_sae import GatherDecode, fast_topk_sae_loss_terms
 from sparse_vision_tpu_torch.train import checkpoint as ckpt
+from sparse_vision_tpu_torch.train import steps as tsteps
 from sparse_vision_tpu_torch.train.pipeline import Pipeline
+from sparse_vision_tpu_torch.utils.paths import sae_run_name
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_smoke_work"  # listed in .gitignore; removed at the end
@@ -1284,8 +1323,8 @@ def _device_split(averages) -> str:
 
 def _slice_config(name: str, extra: dict | None = None) -> tuple:
     """(RunConfig, datasets or None) of the slice ``name`` with the fields
-    ``extra`` beyond SLICES'."""
-    fields, _, n_train = SLICES[name]
+    ``extra`` beyond SLICES' (a name SLICES lacks: the shared fields only)."""
+    fields, _, n_train = SLICES.get(name, ({}, (), None))
     cfg = RunConfig(**{
         **dict(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
                sae_model_name=name, sae_expansion_factor=64,
@@ -1561,7 +1600,6 @@ def _check_exports(pipe) -> None:
     read back through import_any, bitwise equal to the trained params; the
     SAELens file's header parses and names every tensor."""
     from sparse_vision_tpu_torch.train import sae_io
-    from sparse_vision_tpu_torch.utils.paths import sae_run_name
 
     params = pipe.ts.params
     folder = pipe.paths["sae_weights"]
@@ -2422,7 +2460,7 @@ def phase_multilayer(smi: str) -> dict:
     from sparse_vision_tpu_torch.ops.losses import cross_entropy
     from sparse_vision_tpu_torch.train import multilayer
     from sparse_vision_tpu_torch.train.sae_io import load_sae_weights
-    from sparse_vision_tpu_torch.utils.paths import folder_paths, sae_run_name
+    from sparse_vision_tpu_torch.utils.paths import folder_paths
 
     set_tf32(False)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2610,6 +2648,379 @@ def phase_multilayer(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# topk phase: the TopK family's fast paths and slices, the uncached path
+# ---------------------------------------------------------------------------
+
+TK_T, TK_H, TK_K = 8192, 4096, 32  # (a): the fast paths against the stock math, at C
+TK_AUX_K, TK_ALPHA = 512, 1 / 32  # AuxK's k_aux and weight (the paper's 1/32)
+# (a) f32, TF32 off: the fast and stock paths sum in other orders (a gather and
+# a dense product); values and gradients within this share of their largest entry
+TK_TOL = 1e-5
+KTH_T, KTH_H = 32768, 16384  # kth_largest at the north-star batch: n = T * 32
+# (b) phase 6's north-star slice with the TopK family's fields: 12 steps
+TOPK_FIELDS = dict(sae_topk=TK_K, sae_aux_k=TK_AUX_K, sae_lambda_sparse=0.0)
+TK_STEPS = 12
+UNCACHED_IMAGES, UNCACHED_VAL, UNCACHED_BATCH = 256, 64, 32
+# (c) sae_conv's expansion: 4 (1,024 channels). At phase 6's 64 its two 3x3
+# convolutions would be 256 -> 16,384 -> 256 channels, ~45 TFLOP a step of 32
+# images: a heavy run for a smoke phase, where 4 drives the same code
+UNCACHED = {"sae_mlp": 64, "sae_conv": 4}
+UNCACHED_SEED = 3
+# (c) the step's f32 full metrics against their f64 recomputation: within
+# UNCACHED_TOL of max(1, |value|), and perc_same within one image of the batch
+UNCACHED_TOL = 1e-4
+GATHER_REPEATS, GATHER_LATENTS = 3, 64  # (a) GatherDecode's dW_dec, heavy duplicates
+
+
+def _topk_operands(gen, t: int, h: int):
+    """A topk_sae / batch_topk_sae parameter set at C, h latents (biases drawn
+    away from 0) and t normal tokens, f32 on the card."""
+    p = init_sae_mlp(gen, C, h // C)
+    p["b_enc"] = 0.1 * torch.randn(h, device=DEVICE, generator=gen)
+    p["b_dec"] = 0.1 * torch.randn(C, device=DEVICE, generator=gen)
+    p["threshold"] = torch.zeros((), device=DEVICE)
+    return p, torch.randn(t, C, device=DEVICE, generator=gen)
+
+
+def _loss_and_grads(fn, params: dict, x, dead):
+    """(terms, grads) of ``fn(params, x)`` with AuxK at weight TK_ALPHA on the
+    given dead mask, as the train step forms them."""
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    out = fn(p, x)
+    out["aux_loss"] = topk_aux_loss(p, x, x - out["decoded"], dead, TK_AUX_K)
+    total = out["loss"] + TK_ALPHA * out["aux_loss"]
+    grads = torch.autograd.grad(total, list(p.values()), allow_unused=True)
+    return out, {k: g for k, g in zip(p, grads) if g is not None}
+
+
+def _fast_vs_stock(name: str, fast_fn, stock_fn, params, x, dead) -> dict:
+    fast, fg = _loss_and_grads(fast_fn, params, x, dead)
+    stock, sg = _loss_and_grads(stock_fn, params, x, dead)
+    errs = {}
+    for key in ("loss", "rec_loss", "l1_loss", "aux_loss", "decoded"):
+        errs[key] = _close_frac(f"topk (a) {name} {key}", fast[key], stock[key])
+    if set(fg) != set(sg):
+        raise AssertionError(f"topk (a) {name}: gradients of {sorted(fg)} vs {sorted(sg)}")
+    for key in fg:
+        errs[f"d{key}"] = _close_frac(f"topk (a) {name} d{key}", fg[key], sg[key])
+    if not float(fast["aux_loss"].detach()) > 0:
+        raise AssertionError(f"topk (a) {name}: AuxK is 0 with dead latents")
+    ms = {label: time_ms(lambda f=f: _loss_and_grads(f, params, x, dead), 3)
+          for label, f in (("fast", fast_fn), ("stock", stock_fn))}
+    log(f"[topk] (a) {name} fast path vs stock at T {x.shape[0]}, C {C}, H "
+        f"{params['b_enc'].shape[0]}, k {TK_K}, AuxK {TK_AUX_K}: largest error / largest "
+        f"entry {max(errs.values()):.3g} (tolerance {TK_TOL}); loss + AuxK and gradients "
+        f"{ms['fast']:.2f} ms vs {ms['stock']:.2f} ms")
+    return errs
+
+
+def _close_frac(what: str, got, want) -> float:
+    err = float((got.detach() - want.detach()).abs().max())
+    scale = float(want.detach().abs().max())
+    frac = err / max(scale, 1e-30)
+    if not frac <= TK_TOL:
+        raise AssertionError(f"{what}: error {err:.3g} is {frac:.3g} of the largest entry "
+                             f"{scale:.3g} (tolerance {TK_TOL})")
+    return frac
+
+
+def _topk_fast_paths() -> dict:
+    """(a) The fast paths with AuxK against the stock math, f32 with TF32 off,
+    and kth_largest at the north-star batch against a sort."""
+    set_tf32(False)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    params, x = _topk_operands(gen, TK_T, TK_H)
+    dead = torch.zeros(TK_H, dtype=torch.bool, device=DEVICE)
+    dead[: TK_H // 4] = True
+    errs = {}
+    topk = {k: v for k, v in params.items() if k != "threshold"}
+    errs["topk_sae"] = _fast_vs_stock(
+        "topk_sae", lambda p, t: fast_topk_sae_loss_terms(p, t, 0.0, TK_H // C, TK_K),
+        lambda p, t: sae_inference_and_loss("topk_sae", p, t, 0.0, topk=TK_K), topk, x, dead)
+    errs["batch_topk_sae"] = _fast_vs_stock(
+        "batch_topk_sae",
+        lambda p, t: fast_batch_topk_sae_loss_terms(p, t, 0.0, TK_H // C, TK_K),
+        lambda p, t: sae_inference_and_loss("batch_topk_sae", p, t, 0.0, topk=TK_K),
+        params, x, dead)
+    del params, x
+    _gather_decode_repeats(gen)
+    flat = torch.randn(KTH_T * KTH_H, device=DEVICE, generator=gen)
+    n = KTH_T * TK_K
+    got = kth_largest(flat, n)
+    want = torch.sort(flat, descending=True).values[n - 1]
+    if int(got.view(torch.int32)) != int(want.view(torch.int32)):
+        raise AssertionError(f"topk (a): kth_largest {float(got)!r} is not the sort's "
+                             f"{n}-th value {float(want)!r}")
+    kth_ms = time_ms(lambda: kth_largest(flat, n), 3)
+    sort_ms = time_ms(lambda: torch.sort(flat, descending=True), 1)
+    topk_ms = time_ms(lambda: torch.topk(flat, n, sorted=False), 3)
+    log(f"[topk] (a) kth_largest over {KTH_T} x {KTH_H} = {flat.numel()} values, n {n}: "
+        f"bitwise the sort's value {float(got)!r}; {kth_ms:.2f} ms (bytes bound of one "
+        f"read {nbytes(flat) / PEAK_BYTES_PER_S * 1e3:.2f} ms) vs sort {sort_ms:.2f} ms, "
+        f"torch.topk on the floats {topk_ms:.2f} ms")
+    del flat
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _gather_decode_repeats(gen) -> None:
+    """GatherDecode's backward at (a)'s shape with every index in
+    GATHER_LATENTS latents (4,096 rows a latent to sum): dW_dec and d_act
+    bitwise equal over GATHER_REPEATS runs."""
+    act = torch.relu(torch.randn(TK_T, TK_K, device=DEVICE, generator=gen))
+    idx = torch.randint(0, GATHER_LATENTS, (TK_T, TK_K), device=DEVICE, generator=gen)
+    w = torch.randn(TK_H, C, device=DEVICE, generator=gen)
+    g = torch.randn(TK_T, C, device=DEVICE, generator=gen)
+
+    def grads():
+        a, ww = act.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        return torch.autograd.grad(GatherDecode.apply(a, idx, ww), (a, ww), g)
+
+    first = grads()
+    for _ in range(GATHER_REPEATS - 1):
+        again = grads()
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError("topk (a): GatherDecode's backward does not repeat bitwise")
+    log(f"[topk] (a) GatherDecode backward at T {TK_T}, k {TK_K}, H {TK_H}, C {C}, every "
+        f"index in {GATHER_LATENTS} latents: d_act and dW_dec bitwise equal over "
+        f"{GATHER_REPEATS} runs")
+
+
+def _launched() -> dict:
+    return {k.name: k.launches for k in KERNELS if k.launches}
+
+
+def _topk_slice(name: str, label: str = "", keep: bool = False) -> tuple:
+    """(b) One run of ``name`` at phase 6's north-star config with
+    TOPK_FIELDS; returns (pipe, EMA thresholds per step (batch_topk), the
+    threshold each eval ran at, the cache directory)."""
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
+    name_log = f"{name}{label}"
+    cfg, datasets = _slice_config(name, TOPK_FIELDS)
+    pipe = Pipeline(cfg, datasets=datasets)
+    emas, eval_thr = [], []
+    finish = tsteps._threshold_ema
+
+    def record(old, new, out):
+        new = finish(old, new, out)
+        emas.append(new["threshold"].detach().clone())
+        return new
+
+    evaluate = pipe.eval_modified
+
+    def eval_and_record(*a, **kw):
+        if "threshold" in pipe.ts.params:
+            eval_thr.append(float(pipe.ts.params["threshold"]))
+        return evaluate(*a, **kw)
+
+    pipe.eval_modified = eval_and_record
+    tsteps._threshold_ema = record
+    for k in KERNELS:
+        k.launches = 0
+    try:
+        t0 = time.perf_counter()
+        pipe.train_sae()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tsteps._threshold_ema = finish
+    if _launched():
+        raise AssertionError(f"topk (b) {name_log}: fused kernels launched: {_launched()}")
+    steps = [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]
+    if len(steps) != TK_STEPS or not all(math.isfinite(v) for _, m in steps for v in m.values()):
+        raise AssertionError(f"topk (b) {name_log}: expected {TK_STEPS} finite steps, got "
+                             f"{steps}")
+    by_step = dict(steps)
+    for s, m in steps:
+        log(f"[topk] (b) {name_log} step {s}: sae_loss {m['sae_loss']:.6g} rec "
+            f"{m['sae_rec_loss']:.6g} aux {m['sae_aux_loss']:.6g} sparsity "
+            f"{m['sparsity']:.6g} perc_dead {m['perc_dead']:.6g}")
+    # AuxK weighs in at steps whose start is in a window's mature half (step % 4 in
+    # 3, 0), where the accumulator the step reads holds dead latents
+    mature = [s for s in by_step if (s - 1) % 4 >= 2 and 0 < by_step[s - 1]["perc_dead"] < 1]
+    if not mature or not all(by_step[s]["sae_aux_loss"] > 0 for s in mature):
+        raise AssertionError(f"topk (b) {name_log}: no non-zero AuxK at a mature step "
+                             f"with dead latents ({mature})")
+    timing = pipe.train_timing[0]
+    log(f"[topk] (b) {name_log}: train_sae (dump, {TK_STEPS} steps, 2 evals) {wall:.1f} s; "
+        f"training loop {timing['tokens']} tokens in {timing['seconds']:.3f} s = "
+        f"{timing['tokens'] / timing['seconds']:.0f} tokens/s; no fused launch")
+    if len(pipe.eval_log) != 2 or not all(
+            math.isfinite(v) for _, m in pipe.eval_log for v in m.values()):
+        raise AssertionError(f"topk (b) {name_log}: expected 2 finite evals")
+    log(f"[topk] (b) {name_log} last eval: " + json.dumps(pipe.eval_log[-1][1], sort_keys=True))
+    return pipe, emas, eval_thr, pipe._cache_dir(cfg.sae_layer)
+
+
+def _topk_codes(pipe) -> int:
+    """The most latents any token of 8 validation images keeps in the code the
+    eval reads (training=False)."""
+    images = torch.from_numpy(pipe.val_ds.images[:8]).to(DEVICE)
+    with torch.no_grad():
+        _, taps, _ = pipe.net.apply(pipe.frozen_params, images, state=pipe.net_state)
+        out = sae_inference_and_loss(pipe.cfg.sae_model_name, pipe.ts.params,
+                                     taps[pipe.cfg.sae_layer], 0.0, topk=TK_K, training=False)
+    return int((out["encoded"] != 0).sum(-1).max())
+
+
+def _recording_step(make, first: dict):
+    """``make`` (train/steps.make_sae_train_step) whose step keeps, at its first
+    call, the SAE's parameters before the update, the batch and the metrics."""
+
+    def make_recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def step_fn(ts, frozen_params, frozen_state, images, labels, resample_draws=None):
+            keep = not first
+            if keep:
+                first.update(params={k: v.detach().clone() for k, v in ts.params.items()},
+                             images=images.clone(), labels=labels.clone())
+            ts, m = step(ts, frozen_params, frozen_state, images, labels, resample_draws)
+            if keep:
+                first["metrics"] = {k: float(v) for k, v in m.items()}
+            return ts, m
+
+        return step_fn
+
+    return make_recording
+
+
+def _check_splice(pipe, first: dict) -> dict:
+    """The first step's model_loss, kld, perc_same and var_expl recomputed in
+    f64 from its images, the SAE's parameters before the update and the
+    splice; raises beyond UNCACHED_TOL. Returns the recomputed values."""
+    layer, net = pipe.cfg.sae_layer, pipe.net
+    with torch.no_grad():
+        logits, taps, _ = net.apply(pipe.frozen_params, first["images"], state=pipe.net_state)
+        act = taps[layer]
+        decoded = sae_inference_and_loss(pipe.cfg.sae_model_name, first["params"], act,
+                                         LAMBDA)["decoded"]
+        mod = net.apply_segment(pipe.frozen_params, decoded, after=layer,
+                                upto=net.stage_names[-1], state=pipe.net_state)
+    logits, mod, act, decoded = logits.double(), mod.double(), act.double(), decoded.double()
+    logp, logq = torch.log_softmax(logits, 1), torch.log_softmax(mod, 1)
+    dims = tuple(range(1, act.ndim - 1)) if act.ndim == 4 else (1,)
+    ce = torch.nn.functional.cross_entropy(mod, first["labels"].long())
+    want = {"model_loss": float(ce),
+            "kld": float((logq.exp() * (logq - logp)).sum(1).mean()),
+            "perc_same": float((logits.argmax(1) == mod.argmax(1)).double().mean()),
+            "var_expl": float(1 - decoded.var(dims).mean() / act.var(dims).mean())}
+    got = first["metrics"]
+    for key in ("model_loss", "kld", "var_expl"):
+        if not abs(got[key] - want[key]) <= UNCACHED_TOL * max(1.0, abs(want[key])):
+            raise AssertionError(f"topk (c) {pipe.cfg.sae_model_name}: step 1 {key} "
+                                 f"{got[key]!r}, recomputed {want[key]!r}")
+    if not abs(got["perc_same"] - want["perc_same"]) <= 1 / len(first["labels"]):
+        raise AssertionError(f"topk (c) {pipe.cfg.sae_model_name}: step 1 perc_same "
+                             f"{got['perc_same']!r}, recomputed {want['perc_same']!r}")
+    return want
+
+
+def _uncached_run(name: str, expansion: int) -> None:
+    """(c) Pipeline.run without a cache, on the scaled GoogLeNet: the stock SAE
+    math at every step, and step 1's spliced metrics held to a plain
+    recomputation."""
+    import sparse_vision_tpu_torch.train.pipeline as pipeline_mod
+
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True
+    size = (229, 229, 3)
+    train = make_synthetic(num_samples=UNCACHED_IMAGES, seed=0, img_size=size, num_classes=1000)
+    val = make_synthetic(num_samples=UNCACHED_VAL, seed=1, img_size=size, num_classes=1000)
+    cfg = RunConfig(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
+                    sae_model_name=name, sae_expansion_factor=expansion, sae_lambda_sparse=LAMBDA,
+                    sae_optimizer_name="constrained_adam", sae_learning_rate=1e-3,
+                    sae_batch_size=UNCACHED_BATCH, use_activation_cache=False, sae_epochs=1,
+                    dead_neurons_steps=4, directory_path=str(WORK))
+    _, params, state = _scaled_googlenet(UNCACHED_SEED)
+    pipe = Pipeline(cfg, device=DEVICE, datasets=(train, val, train.category_names, size),
+                    backbone=(params, state))
+    del params, state
+    first = {}
+    make = pipeline_mod.make_sae_train_step
+    pipeline_mod.make_sae_train_step = _recording_step(make, first)
+    for k in KERNELS:
+        k.launches = 0
+    try:
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline_mod.make_sae_train_step = make
+    if _launched():
+        raise AssertionError(f"topk (c) {name}: fused kernels launched: {_launched()}")
+    steps = [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]
+    want = UNCACHED_IMAGES // UNCACHED_BATCH
+    if len(steps) != want or any(len(m) != 14 for _, m in steps) or not all(
+            math.isfinite(v) for _, m in steps for v in m.values()):
+        raise AssertionError(f"topk (c) {name}: expected {want} steps of 14 finite metrics")
+    for s, m in steps:
+        log(f"[topk] (c) {name} step {s}: " + json.dumps(m, sort_keys=True))
+    if not all(m["kld"] > 0 for _, m in steps):
+        raise AssertionError(f"topk (c) {name}: a step's kld is not positive")
+    plain = _check_splice(pipe, first)
+    log(f"[topk] (c) {name} step 1 against the f64 recomputation (tolerance {UNCACHED_TOL}): "
+        + ", ".join(f"{k} {first['metrics'][k]!r} vs {v!r}" for k, v in plain.items()))
+    ckpt_dir = pipe._sae_ckpt_dir()
+    export = os.path.join(pipe.paths["sae_weights"], f"{sae_run_name(cfg)}_model_weights.npz")
+    if len(pipe.eval_log) != 2 or ckpt.latest_epoch(ckpt_dir) != 1 or not os.path.exists(export):
+        raise AssertionError(f"topk (c) {name}: expected the evals before and after the "
+                             f"epoch, the epoch-1 checkpoint and the export")
+    last = pipe.eval_log[-1][1]
+    if not all(math.isfinite(v) for v in last.values()):
+        raise AssertionError(f"topk (c) {name}: non-finite eval {last}")
+    timing = pipe.train_timing[0]
+    log(f"[topk] (c) {name} at expansion {expansion} ({pipe.num_units} latents): Pipeline.run "
+        f"{wall:.1f} s; training loop {timing['images']} images in {timing['seconds']:.3f} s = "
+        f"{timing['images'] / timing['seconds']:.1f} images/s ({timing['tokens']} tokens); "
+        f"last eval var_expl {last['var_expl']:.4g}, kld {last['kld']:.4g}; no fused launch")
+    del pipe
+    torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+
+
+def phase_topk(smi: str) -> None:
+    """Phase 11 (the module docstring)."""
+    t_phase = time.perf_counter()
+    _topk_fast_paths()
+    shutil.rmtree(WORK, ignore_errors=True)
+    pipe, _, _, _ = _topk_slice("topk_sae")
+    most = _topk_codes(pipe)
+    if most > TK_K:
+        raise AssertionError(f"topk (b): a token keeps {most} latents in topk_sae's eval code")
+    log(f"[topk] (b) topk_sae eval code: at most {most} latents a token (k {TK_K})")
+    del pipe
+    shutil.rmtree(WORK, ignore_errors=True)
+    pipe, emas, eval_thr, cache_dir = _topk_slice("batch_topk_sae")
+    emas = [float(t) for t in emas]
+    thr = float(pipe.ts.params["threshold"])
+    log(f"[topk] (b) batch_topk_sae threshold EMA by step: {emas}; calibrated {thr!r}; the "
+        f"evals ran at {eval_thr}")
+    if not emas or not emas[0] > 0 or not thr > 0 or eval_thr[-1] != thr or thr == emas[-1]:
+        raise AssertionError(f"topk (b): threshold EMA {emas}, calibrated {thr}, evals at "
+                             f"{eval_thr}")
+    tree = ckpt.load_checkpoint(pipe._sae_ckpt_dir(), 1, like=pipe._ckpt_tree())
+    if float(tree["params"]["threshold"]) != thr:
+        raise AssertionError("topk (b): the checkpoint does not carry the calibrated threshold")
+    first = pipe.ts
+    del pipe
+    again, _, _, cache_again = _topk_slice("batch_topk_sae", label=" (again)")
+    if cache_again != cache_dir:
+        raise AssertionError("topk (b): the second run did not read the first run's cache")
+    _same_state("topk (b) repeat", first, again.ts)
+    log("[topk] (b) batch_topk_sae from the same cache again: params, Adam state, threshold "
+        "and dead accumulator bitwise equal")
+    del again, first
+    torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+    for name, expansion in UNCACHED.items():
+        _uncached_run(name, expansion)
+    log(f"[topk] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -2632,6 +3043,7 @@ def main() -> int:
     ml_launches = phase_multilayer(smi)
     log("[multilayer] launches in (b) and (c): " + ", ".join(
         f"{k} {v}" for k, v in sorted(ml_launches.items())))
+    phase_topk(smi)
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

@@ -1,6 +1,5 @@
-"""Sparse autoencoders as functions over a parameter dict (port of the sae_mlp,
-gated_sae, jumprelu_sae, matryoshka_sae and transcoder parts of
-sparse_vision_tpu/models/sae.py).
+"""Sparse autoencoders as functions over a parameter dict (port of
+sparse_vision_tpu/models/sae.py: every SAE variant and the transcoder).
 
 Parameter layout (math convention, not torch's transposed nn.Linear storage):
   W_enc [d, h]   encode: pre = (x - b_dec) @ W_enc + b_enc
@@ -12,6 +11,13 @@ JumpReLU SAE (Rajamanoharan et al. 2024): the ReLU layout plus a per-latent
 log_threshold [h], trained through straight-through estimators.
 Matryoshka SAE (Bussmann et al. 2024): the ReLU layout; the nesting lives in
 the loss, which averages the reconstruction error of nested latent prefixes.
+TopK SAE (Gao et al. 2024): the ReLU layout; each token keeps its k largest
+pre-activations (through ReLU). BatchTopK SAE (Bussmann et al. 2024): the ReLU
+layout plus a scalar inference ``threshold``; training keeps the T·k largest
+pre-activations of the whole batch, inference gates relu(pre) at the threshold.
+Both train without an L1 term and may add the AuxK loss (topk_aux_loss).
+Conv SAE: 3x3 SAME convolutions in NHWC, W_enc [3, 3, c, c·k] and W_dec [3, 3,
+c·k, c] (HWIO), ReLU after both.
 Transcoder (Dunefsky et al. 2024): the ReLU layout with W_dec [h, d_out] into
 another layer's space and no input centring (b_dec is an output-space bias).
 
@@ -22,6 +28,7 @@ Token convention: NHWC feature maps [B, H, W, C] flatten to [B*H*W, C] tokens in
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from sparse_vision_tpu_torch.ops import losses
 
@@ -30,11 +37,15 @@ from sparse_vision_tpu_torch.ops import losses
 JUMPRELU_BANDWIDTH = 1e-3
 # prefix fractions of the dictionary (RunConfig.sae_matryoshka_prefixes)
 DEFAULT_MATRYOSHKA_PREFIXES = (0.0625, 0.25, 1.0)
-PORTED = ("sae_mlp", "gated_sae", "jumprelu_sae", "matryoshka_sae")
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"SAE {name!r} is not ported {PORTED}")
+SAE_VARIANTS = ("sae_mlp", "gated_sae", "jumprelu_sae", "matryoshka_sae", "topk_sae",
+                "batch_topk_sae", "sae_conv")
+# sparsity from the selection, not from an L1 term; AuxK applies to these
+TOPK_FAMILY = ("topk_sae", "batch_topk_sae")
+# the variants whose code decodes token by token (every one but sae_conv)
+TOKEN_DECODERS = tuple(v for v in SAE_VARIANTS if v != "sae_conv")
+# EMA decay of batch_topk's inference-threshold estimate (each batch's minimum
+# positive selected activation, seeded by the first observation)
+BATCH_TOPK_THRESHOLD_EMA = 0.99
 
 
 def kaiming_uniform(generator: torch.Generator, shape: tuple, fan_in: int) -> torch.Tensor:
@@ -243,6 +254,164 @@ def matryoshka_sae_apply(params: dict, x: torch.Tensor, prefixes: tuple):
 
 
 # ---------------------------------------------------------------------------
+# Conv SAE (NHWC)
+# ---------------------------------------------------------------------------
+
+def init_sae_conv(generator: torch.Generator, c: int, expansion_factor: int) -> dict:
+    """3x3 conv encoder c -> c·k and decoder c·k -> c, weights HWIO; torch's
+    Conv2d init: weights and biases U(±1/sqrt(fan_in)), fan_in = 9·c_in."""
+    ck = c * expansion_factor
+
+    def conv_init(cin, cout):
+        bound = 1.0 / (cin * 9) ** 0.5
+        w = torch.empty((3, 3, cin, cout), device=generator.device).uniform_(
+            -bound, bound, generator=generator)
+        b = torch.empty((cout,), device=generator.device).uniform_(
+            -bound, bound, generator=generator)
+        return w, b
+
+    w_enc, b_enc = conv_init(c, ck)
+    w_dec, b_dec = conv_init(ck, c)
+    return {"W_enc": w_enc, "b_enc": b_enc, "W_dec": w_dec, "b_dec": b_dec}
+
+
+def _conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 convolution of NHWC ``x`` by HWIO ``w``, then ``+ b``; the
+    operands promoted to a common dtype first, as the JAX package does."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w.to(dt).permute(3, 2, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1) + b
+
+
+def sae_conv_apply(params: dict, x: torch.Tensor):
+    """Returns (encoded, decoded) on NHWC input, with a ReLU after both convs
+    (reference sae_conv.py:37-42)."""
+    encoded = torch.relu(_conv3x3(x, params["W_enc"], params["b_enc"]))
+    decoded = torch.relu(_conv3x3(encoded, params["W_dec"], params["b_dec"]))
+    return encoded, decoded
+
+
+# ---------------------------------------------------------------------------
+# TopK and BatchTopK SAEs
+# ---------------------------------------------------------------------------
+
+def _check_k(k: int, h: int) -> None:
+    if k > h:
+        raise ValueError(f"sae_topk={k} exceeds the latent count {h}")
+
+
+def init_topk_sae(generator: torch.Generator, d: int, expansion_factor: int) -> dict:
+    """The ReLU SAE's layout and init: the sparsity comes from the activation."""
+    return init_sae_mlp(generator, d, expansion_factor)
+
+
+def topk_sae_apply(params: dict, x: torch.Tensor, k: int, approx: bool = False):
+    """Returns (encoded, decoded, pre) on token input [T, d]: each token keeps
+    its k largest pre-activations through ReLU. The selected INDICES are
+    scattered, so L0 <= k holds exactly under ties (a value threshold would
+    keep every latent tied at the k-th value); which of several tied latents is
+    kept may differ from the JAX package's lax.top_k. ``approx`` (the JAX
+    package's lax.approx_max_k, exact off the TPU) selects exactly here too."""
+    del approx
+    _check_k(k, params["b_enc"].shape[0])
+    pre = (x - params["b_dec"]) @ params["W_enc"] + params["b_enc"]
+    vals, idx = torch.topk(pre, k, dim=-1)
+    post = torch.zeros_like(pre).scatter(1, idx, torch.relu(vals))
+    return post, post @ params["W_dec"] + params["b_dec"], pre
+
+
+def init_batch_topk_sae(generator: torch.Generator, d: int, expansion_factor: int) -> dict:
+    """The ReLU SAE's layout plus a scalar inference ``threshold`` (0), which the
+    train step overwrites with its EMA estimate instead of a gradient step."""
+    params = init_sae_mlp(generator, d, expansion_factor)
+    params["threshold"] = torch.zeros((), device=generator.device)
+    return params
+
+
+def _min_positive(kept: torch.Tensor) -> torch.Tensor:
+    """The smallest positive entry of ``kept``, 0 when there is none."""
+    m = torch.where(kept > 0, kept, torch.full_like(kept, float("inf"))).min()
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
+def batch_topk_sae_apply(params: dict, x: torch.Tensor, k: int, training: bool = True):
+    """Returns (encoded, decoded, pre, batch_min_pos) on token input [T, d].
+    Training keeps the T·k largest pre-activations of the whole flattened batch
+    (through ReLU), so a token may use more or fewer than k latents;
+    ``batch_min_pos`` is the smallest positive kept value (0 if none), the
+    threshold EMA's observation. Inference (``training=False``) is the
+    deployment form ``relu(pre) * (relu(pre) > threshold)``, and
+    ``batch_min_pos`` is None."""
+    h = params["b_enc"].shape[0]
+    pre = (x - params["b_dec"]) @ params["W_enc"] + params["b_enc"]
+    relu = torch.relu(pre)
+    if training:
+        _check_k(k, h)
+        flat = pre.reshape(-1)
+        vals, idx = torch.topk(flat, pre.shape[0] * k)
+        kept = torch.relu(vals)
+        post = torch.zeros_like(flat).scatter(0, idx, kept).reshape(pre.shape)
+        batch_min_pos = _min_positive(kept)
+    else:
+        post = relu * (relu > params["threshold"])
+        batch_min_pos = None
+    return post, post @ params["W_dec"] + params["b_dec"], pre, batch_min_pos
+
+
+def batch_topk_threshold_update(threshold: torch.Tensor, batch_min_pos: torch.Tensor,
+                                ema: float = BATCH_TOPK_THRESHOLD_EMA) -> torch.Tensor:
+    """One step of the threshold EMA: the first positive observation seeds it,
+    later ones average in; a batch with no positive selected keeps it."""
+    seeded = torch.where(threshold == 0, batch_min_pos,
+                         ema * threshold + (1.0 - ema) * batch_min_pos)
+    return torch.where(batch_min_pos > 0, seeded, threshold).to(threshold.dtype)
+
+
+def calibrate_batch_topk_threshold(params: dict, tok: torch.Tensor, k: int) -> torch.Tensor:
+    """The inference threshold at the given parameters from one token block:
+    the T·k-th largest pre-activation (ops/fast_batch_topk.kth_largest),
+    clamped at 0 (the paper's BatchTopK -> JumpReLU conversion). The EMA
+    averages cutoffs from across training and lags a cutoff that drifts."""
+    from sparse_vision_tpu_torch.ops.fast_batch_topk import kth_largest
+
+    pre = (tok - params["b_dec"]) @ params["W_enc"] + params["b_enc"]
+    cutoff = kth_largest(pre.reshape(-1).float(), tok.shape[0] * k)
+    return torch.clamp(cutoff, min=0.0).to(params["threshold"].dtype)
+
+
+def topk_aux_loss(params: dict, act: torch.Tensor, residual: torch.Tensor,
+                  dead_mask: torch.Tensor, k_aux: int, approx: bool = False) -> torch.Tensor:
+    """AuxK (Gao et al. 2024 §A.2): reconstruct the main reconstruction's
+    residual ``x - x_hat`` (gradient stopped) with the top-``k_aux`` dead
+    latents of each token, post-ReLU and without b_dec, normalized by the
+    residual's variance; 0 when no latent is dead. ``act`` and ``residual``
+    may be token matrices or maps; ``dead_mask`` [h] is the train state's
+    dead accumulator. ``approx`` selects exactly, as topk_sae_apply's."""
+    del approx
+    tok, _ = tokens_from_act(act)
+    res_tok, _ = tokens_from_act(residual)
+    h = params["b_enc"].shape[0]
+    pre = (tok - params["b_dec"]) @ params["W_enc"] + params["b_enc"]
+    neg = torch.finfo(pre.dtype).min
+    masked = torch.where(dead_mask[None, :], pre, torch.full_like(pre, neg))
+    vals, idx = torch.topk(masked, min(k_aux, h), dim=-1)
+    kept = torch.where(vals > neg / 2, torch.relu(vals), torch.zeros_like(vals))
+    aux_recon = torch.zeros_like(pre).scatter(1, idx, kept) @ params["W_dec"]
+    e = res_tok.detach()
+    num = torch.square(e - aux_recon).sum()
+    den = torch.clamp(torch.square(e - e.mean(0, keepdim=True)).sum(), min=1e-9)
+    return torch.where(dead_mask.any(), num / den, torch.zeros_like(num))
+
+
+def intervene_on_decoder_weights(params: dict, unit_index: int, value) -> dict:
+    """``params`` with latent ``unit_index``'s decoder direction set to
+    ``value`` (reference sae_mlp.py:187-199); the input dict is not changed."""
+    w = params["W_dec"].clone()
+    w[unit_index, :] = torch.as_tensor(value, dtype=w.dtype, device=w.device)
+    return {**params, "W_dec": w}
+
+
+# ---------------------------------------------------------------------------
 # Transcoder
 # ---------------------------------------------------------------------------
 
@@ -293,17 +462,24 @@ def transcoder_inference_and_loss(params: dict, act_in: torch.Tensor, act_tgt: t
 
 def init_sae(name: str, generator: torch.Generator, d: int, expansion_factor: int,
              jumprelu_threshold_init: float = 1e-3) -> dict:
-    """Initial parameters of the SAE variant ``name``, f32 on the generator's device."""
+    """Initial parameters of the SAE variant ``name``, f32 on the generator's
+    device (``d`` is the channel count of sae_conv)."""
     if name == "sae_mlp":
         return init_sae_mlp(generator, d, expansion_factor)
-    if name == "matryoshka_sae":
-        return init_matryoshka_sae(generator, d, expansion_factor)
     if name == "gated_sae":
         return init_gated_sae(generator, d, expansion_factor)
+    if name == "sae_conv":
+        return init_sae_conv(generator, d, expansion_factor)
     if name == "jumprelu_sae":
         return init_jumprelu_sae(generator, d, expansion_factor,
                                  threshold_init=jumprelu_threshold_init)
-    raise _not_ported(name)
+    if name == "topk_sae":
+        return init_topk_sae(generator, d, expansion_factor)
+    if name == "batch_topk_sae":
+        return init_batch_topk_sae(generator, d, expansion_factor)
+    if name == "matryoshka_sae":
+        return init_matryoshka_sae(generator, d, expansion_factor)
+    raise ValueError(f"Unknown SAE model name {name}.")
 
 
 # ---------------------------------------------------------------------------
@@ -323,16 +499,36 @@ def act_from_tokens(tok: torch.Tensor, like_shape: tuple) -> torch.Tensor:
 
 
 def sae_inference_and_loss(sae_model_name: str, params: dict, act: torch.Tensor,
-                           lambda_sparse: float,
+                           lambda_sparse: float, topk: int = 32, topk_approx: bool = False,
                            jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
-                           matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES) -> dict:
+                           matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES,
+                           training: bool = True) -> dict:
     """Reshape taps to tokens, run the SAE, compute every loss term, reshape the
     outputs back. Returns the loss terms plus 'encoded', 'encoded_pre' (None for
-    gated_sae) and 'decoded' (NHWC when the input was 4-D)."""
+    gated_sae and sae_conv) and 'decoded' (NHWC when the input was 4-D). The
+    TopK family trains without L1 (the term is reported, not added); batch_topk
+    also returns 'batch_topk_min_pos' when ``training``, and runs its
+    deployment form (the scalar threshold) when not. sae_conv runs on the map
+    itself and compares it flattened per image."""
+    if sae_model_name == "sae_conv":
+        encoded, decoded = sae_conv_apply(params, act)
+        terms = losses.sae_loss_terms(encoded, decoded.reshape(decoded.shape[0], -1),
+                                      act.reshape(act.shape[0], -1), lambda_sparse)
+        terms.update(encoded=encoded, encoded_pre=None, decoded=decoded)
+        return terms
     tok, transformed = tokens_from_act(act)
     if sae_model_name == "sae_mlp":
         encoded, decoded, pre = sae_mlp_apply(params, tok)
         terms = losses.sae_loss_terms(encoded, decoded, tok, lambda_sparse)
+    elif sae_model_name == "topk_sae":
+        encoded, decoded, pre = topk_sae_apply(params, tok, topk, approx=topk_approx)
+        terms = losses.sae_loss_terms(encoded, decoded, tok, 0.0)
+    elif sae_model_name == "batch_topk_sae":
+        encoded, decoded, pre, min_pos = batch_topk_sae_apply(params, tok, topk,
+                                                              training=training)
+        terms = losses.sae_loss_terms(encoded, decoded, tok, 0.0)
+        if min_pos is not None:
+            terms["batch_topk_min_pos"] = min_pos.detach()
     elif sae_model_name == "jumprelu_sae":
         encoded, decoded, pre = jumprelu_sae_apply(params, tok, jumprelu_bandwidth)
         terms = losses.jumprelu_loss_terms(
@@ -348,7 +544,7 @@ def sae_inference_and_loss(sae_model_name: str, params: dict, act: torch.Tensor,
         terms = losses.gated_sae_loss_terms(relu_pi_gate, via_gate, decoded, tok,
                                             lambda_sparse)
     else:
-        raise _not_ported(sae_model_name)
+        raise ValueError(f"Unknown SAE model name {sae_model_name}.")
     if transformed:
         encoded = act_from_tokens(encoded, act.shape)
         decoded = act_from_tokens(decoded, act.shape)
@@ -359,18 +555,22 @@ def sae_inference_and_loss(sae_model_name: str, params: dict, act: torch.Tensor,
 
 
 def sae_encode(sae_model_name: str, params: dict, tok: torch.Tensor) -> torch.Tensor:
-    """Post-activation encoder output on token input [T, d]."""
+    """Post-activation encoder output on token input [T, d]; batch_topk_sae's is
+    its deployment form (the scalar threshold). topk_sae and sae_conv have
+    none, as in the JAX package."""
     if sae_model_name in ("sae_mlp", "matryoshka_sae"):
         return sae_mlp_apply(params, tok)[0]
     if sae_model_name == "gated_sae":
         return gated_sae_apply(params, tok)[0]
     if sae_model_name == "jumprelu_sae":
         return jumprelu_sae_apply(params, tok)[0]
-    raise _not_ported(sae_model_name)
+    if sae_model_name == "batch_topk_sae":
+        return batch_topk_sae_apply(params, tok, k=1, training=False)[0]
+    raise ValueError(f"SAE {sae_model_name!r} has no token encoder.")
 
 
 def sae_decode(sae_model_name: str, params: dict, encoded: torch.Tensor) -> torch.Tensor:
     """Decoder applied to a (possibly ablated) encoder output."""
-    if sae_model_name not in PORTED:
-        raise _not_ported(sae_model_name)
+    if sae_model_name not in TOKEN_DECODERS:
+        raise ValueError(f"SAE {sae_model_name!r} has no token decoder.")
     return encoded @ params["W_dec"] + params["b_dec"]

@@ -61,7 +61,7 @@ def make_crosscoder_train_step_from_acts(lambda_sparse: float, tx: optim.Optimiz
             return crosscoder_inference_and_loss(params, xs, lambda_sparse)
 
     return make_train_step(loss_fn, tx, dead_neurons_steps, expansion_factor, fused,
-                           _resample)
+                           resample=_resample)
 
 
 def make_crosscoder_multi_step(step_fn):

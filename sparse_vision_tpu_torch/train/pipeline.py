@@ -1,18 +1,27 @@
-"""Run orchestration for the SAE training slice (port of the cached-training,
-modified-model-eval and circuit parts of sparse_vision_tpu/train/pipeline.py).
+"""Run orchestration (port of the SAE-training, modified-model-eval and circuit
+parts of sparse_vision_tpu/train/pipeline.py).
 
 ``Pipeline(cfg).run()`` runs a circuit-discovery mode (``compute_ie``, with
 ``training=False``: interp/ie.py), an MIS mode (``mis`` "1" collects each
 unit's 200 extreme train samples, ``mis_epoch``; "2" scores them,
 interp/mis.py), trains (``training``) or runs one standalone eval of a
-restored checkpoint. Training, ``train_sae``, runs the north-star chain: frozen
-GoogLeNet -> tap ``sae_layer`` -> activation cache -> SAE training (``sae_mlp``, ``gated_sae``,
-``jumprelu_sae`` or ``matryoshka_sae``; the variant's fused CUDA kernels on a
-GPU, their plain versions on the CPU) with dead-latent tracking (resampling for
-sae_mlp, the rolling dead window for the others) -> eval by splicing the SAE
-back into the backbone, before and after each epoch; a checkpoint after each
-epoch (train/checkpoint.py), resumable with ``sae_checkpoint_epoch``; the
-weights exported at the end (train/sae_io.py). ``transcoder`` (from
+restored checkpoint. Training, ``train_sae``, trains any SAE variant
+(``sae_mlp``, ``gated_sae``, ``jumprelu_sae``, ``matryoshka_sae``,
+``topk_sae``, ``batch_topk_sae``, ``sae_conv``) in one of the JAX package's
+two modes. With ``use_activation_cache`` (the north-star chain): frozen
+GoogLeNet -> tap ``sae_layer`` -> activation cache -> training on the
+variant's fused CUDA kernels on a GPU (their plain versions on the CPU), or on
+the TopK family's fast paths (plain torch ops, any shape); sae_conv has no
+cached mode. Without it (the JAX default): each step runs the frozen backbone
+to the tap, updates the SAE on its stock math and splices the reconstruction
+back for the full metrics (train/steps.make_sae_train_step). Both track dead
+latents (resampling for sae_mlp, the rolling dead window for the others, the
+TopK family's optional AuxK term; batch_topk's threshold by its EMA, then
+calibrated at the final parameters on the cached path) and evaluate by
+splicing the SAE back into the backbone, before and after each epoch; a
+checkpoint after each epoch (train/checkpoint.py), resumable with
+``sae_checkpoint_epoch``; the weights exported at the end (train/sae_io.py).
+``transcoder`` (from
 ``sae_layer`` to ``transcoder_target_layer``) and ``crosscoder`` (``sae_layer``
 plus ``crosscoder_layers``) train the same way from aligned caches of every
 layer they read, dumped in one backbone pass (train/transcoder.py,
@@ -48,7 +57,13 @@ from sparse_vision_tpu_torch.models.backbone import (
     make_backbone,
 )
 from sparse_vision_tpu_torch.models.crosscoder import init_crosscoder
-from sparse_vision_tpu_torch.models.sae import PORTED, init_sae, init_transcoder
+from sparse_vision_tpu_torch.models.sae import (
+    SAE_VARIANTS,
+    TOPK_FAMILY,
+    calibrate_batch_topk_threshold,
+    init_sae,
+    init_transcoder,
+)
 from sparse_vision_tpu_torch.ops import metrics, optim
 from sparse_vision_tpu_torch.ops.losses import get_criterion
 from sparse_vision_tpu_torch.ops.topk import init_topk, update_topk
@@ -61,6 +76,7 @@ from sparse_vision_tpu_torch.train.steps import (
     make_sae_eval_step,
     make_sae_train_multi_step,
     make_sae_train_multi_step_quant,
+    make_sae_train_step,
     make_sae_train_step_from_acts,
 )
 from sparse_vision_tpu_torch.utils.logging import RunLogger
@@ -71,7 +87,7 @@ from sparse_vision_tpu_torch.utils.paths import folder_paths, run_id, sae_run_na
 _SLICE = {
     "model_name": ("inceptionv1", "googlenet"),
     "dataset_name": ("imagenet",),
-    "sae_model_name": PORTED + ("transcoder", "crosscoder"),
+    "sae_model_name": SAE_VARIANTS + ("transcoder", "crosscoder"),
     "sae_optimizer_name": ("constrained_adam", "adam"),
     "cache_dtype": ("float32", "bfloat16", "int8"),
     "compute_dtype": ("bfloat16", "float32"),
@@ -106,9 +122,9 @@ def validate_slice(cfg: RunConfig) -> None:
     if cfg.mis != "0" and cfg.training:
         raise ValueError("MIS is computed on a frozen SAE, not during training "
                          "(set training=False).")
-    if cfg.training and not cfg.use_activation_cache:
-        raise NotImplementedError(
-            "RunConfig.use_activation_cache=False: only cached SAE training is ported")
+    if cfg.training and cfg.use_activation_cache and cfg.sae_model_name == "sae_conv":
+        raise ValueError("RunConfig.use_activation_cache=True: sae_conv trains on feature "
+                         "maps, and the cache holds tokens; set use_activation_cache=False")
     for field, model in (("transcoder_target_layer", "transcoder"),
                          ("crosscoder_layers", "crosscoder")):
         if getattr(cfg, field) and cfg.sae_model_name != model:
@@ -258,8 +274,10 @@ class Pipeline:
         return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, final=True)
 
     def train_sae(self):
-        """Train the configured dictionary from activation caches: the SAE
-        variants here, the transcoder and the crosscoder in their modules.
+        """Train the configured dictionary: an SAE variant from its activation
+        cache (``use_activation_cache``) or through the frozen backbone at every
+        step, the transcoder and the crosscoder from their caches in their
+        modules (as the JAX package, whatever ``use_activation_cache`` says).
         Returns the last eval's means."""
         name = self.cfg.sae_model_name
         if name == "transcoder":
@@ -270,7 +288,39 @@ class Pipeline:
             from sparse_vision_tpu_torch.train.crosscoder import train_crosscoder_cached
 
             return train_crosscoder_cached(self)
-        return self.train_sae_cached()
+        if self.cfg.use_activation_cache:
+            return self.train_sae_cached()
+        return self.train_sae_uncached()
+
+    def train_sae_uncached(self):
+        """The JAX package's default mode: each step runs the frozen backbone on
+        a batch of images, updates the SAE on the tap with the stock SAE math
+        (no fused op, on either device) and splices the reconstruction back for
+        the full metrics (train/steps.make_sae_train_step); the epochs' evals,
+        checkpoints and export as run_epochs. Batches reach the device through
+        data/prefetch.py."""
+        cfg = self.cfg
+        step_fn = make_sae_train_step(
+            self.net, cfg.sae_layer, cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx,
+            cfg.dead_neurons_steps, cfg.sae_expansion_factor, self.criterion,
+            topk=cfg.sae_topk, topk_approx=cfg.sae_topk_approx,
+            jumprelu_bandwidth=cfg.jumprelu_bandwidth,
+            matryoshka_prefixes=cfg.matryoshka_prefix_fractions,
+            aux_k=cfg.sae_aux_k, aux_alpha=cfg.sae_aux_alpha)
+        bs = cfg.sae_batch_size
+        shape = self.net.shapes(tuple(self.img_size))[cfg.sae_layer]
+        units = {"images": bs, "tokens": bs * int(np.prod(shape[:-1]))}
+
+        def run_epoch(epoch):
+            batches = self.train_ds.batches(bs, shuffle=True, seed=cfg.seed + epoch)
+            for b in prefetch(batches, self.device):
+                self.ts, m = step_fn(self.ts, self.frozen_params, self.net_state, b.images,
+                                     b.labels)
+                self.logger.log_train(self.ts.step, m)
+                self.train_log.append((self.ts.step, m))
+            return units
+
+        return self._epochs(run_epoch)
 
     def check_fusable(self, can_fuse, c_in: int, c_out: int) -> bool:
         """Whether the step takes the fused op (``cfg.use_pallas``). On the card a
@@ -343,31 +393,24 @@ class Pipeline:
 
         return step
 
-    def run_epochs(self, step_fn, epoch_items) -> Optional[dict]:
-        """Eval (stored nowhere), then for each epoch from
-        ``cfg.sae_checkpoint_epoch`` on: every dispatch that
-        ``epoch_items(epoch)`` yields, an asynchronous checkpoint, an eval. Then
-        wait for the checkpoints and export the weights. A dispatch is
-        ``(stacks, scale)``: a tuple of [k, T, C_l]
-        stacks (one per cache) and None, or, from an int8 cache read with
-        dequantize="device", a tuple of one int8 stack and its scale [C]. Each is
-        staged onto the device through data/prefetch.py. A stack of
-        CACHE_SCAN_K steps runs as one multi-step dispatch, a shorter tail step
-        by step through ``step_fn(ts, *acts)`` (with a scale, both through the
-        dequantizing wrappers of train/steps.py), as the JAX package runs them.
-        Keeps every step in ``train_log`` and hands the logger the last step of
-        each dispatch, as the JAX package does; records the epoch's timing.
-        Returns the last eval's means (None when no epoch is left to run)."""
+    def run_epochs(self, step_fn, epoch_items, before_checkpoint=None) -> Optional[dict]:
+        """Train from caches: the epochs of ``_epochs``, each running every
+        dispatch that ``epoch_items(epoch)`` yields. A dispatch is
+        ``(stacks, scale)``: a tuple of [k, T, C_l] stacks (one per cache) and
+        None, or, from an int8 cache read with dequantize="device", a tuple of
+        one int8 stack and its scale [C]. Each is staged onto the device
+        through data/prefetch.py. A stack of CACHE_SCAN_K steps runs as one
+        multi-step dispatch, a shorter tail step by step through
+        ``step_fn(ts, *acts)`` (with a scale, both through the dequantizing
+        wrappers of train/steps.py), as the JAX package runs them. Keeps every
+        step in ``train_log`` and hands the logger the last step of each
+        dispatch, as the JAX package does."""
         cfg = self.cfg
         k_full = self.CACHE_SCAN_K
         runs = {False: (make_sae_train_multi_step(step_fn), step_fn),
                 True: (make_sae_train_multi_step_quant(step_fn), make_dequant_step_fn(step_fn))}
-        start = cfg.sae_checkpoint_epoch
-        last_eval = None
-        self.eval_modified(epoch=start, store=False)
-        for epoch in range(start, cfg.sae_epochs):
-            t0 = time.perf_counter()
-            steps0 = self.ts.step
+
+        def run_epoch(epoch):
             for stacks, scale in prefetch(epoch_items(epoch), self.device):
                 multi, single = runs[scale is not None]
                 extra = () if scale is None else (scale,)
@@ -383,12 +426,33 @@ class Pipeline:
                         ms.append(m)
                         self.logger.log_train(self.ts.step, m)
                 self.train_log.extend((step0 + j + 1, m) for j, m in enumerate(ms))
+            return {"tokens": cfg.cache_tokens_per_step}
+
+        return self._epochs(run_epoch, before_checkpoint)
+
+    def _epochs(self, run_epoch, before_checkpoint=None) -> Optional[dict]:
+        """Eval (stored nowhere), then for each epoch from
+        ``cfg.sae_checkpoint_epoch`` on: ``run_epoch(epoch)`` (its steps; it
+        returns the tokens, and images, of one step), the epoch's timing,
+        ``before_checkpoint(epoch)``, an asynchronous checkpoint, an eval. Then
+        wait for the checkpoints and export the weights. Returns the last
+        eval's means (None when no epoch is left to run)."""
+        cfg = self.cfg
+        start = cfg.sae_checkpoint_epoch
+        last_eval = None
+        self.eval_modified(epoch=start, store=False)
+        for epoch in range(start, cfg.sae_epochs):
+            t0 = time.perf_counter()
+            steps0 = self.ts.step
+            per_step = run_epoch(epoch)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             steps = self.ts.step - steps0
             self.train_timing.append({"epoch": epoch, "steps": steps,
-                                      "tokens": steps * cfg.cache_tokens_per_step,
+                                      **{k: steps * v for k, v in per_step.items()},
                                       "seconds": time.perf_counter() - t0})
+            if before_checkpoint is not None:
+                before_checkpoint(epoch)
             # the host snapshot blocks; the write overlaps the next epoch
             ckpt.save_checkpoint(self._sae_ckpt_dir(), epoch + 1, self._ckpt_tree(),
                                  blocking=False)
@@ -430,7 +494,10 @@ class Pipeline:
         """Dump the layer's cache (on a thread, streamed into the first epoch,
         with overlap_dump_train), then train and evaluate. Later epochs read the
         cache shuffled, an int8 one as (int8 stack, scale) pairs dequantized on
-        the device where its shards are aligned to the stacks."""
+        the device where its shards are aligned to the stacks. The TopK family's
+        fast paths take any shape, so only the fused kernels' shapes are
+        checked. batch_topk's threshold is calibrated after the last epoch,
+        before its checkpoint and eval (_recalibrate_batch_topk)."""
         from sparse_vision_tpu_torch.data.activation_cache import (
             ActivationCache,
             dump_activations,
@@ -440,9 +507,13 @@ class Pipeline:
 
         cfg = self.cfg
         prefixes = cfg.matryoshka_prefix_fractions
-        can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
-        c = self.sae_input_size
-        fused = self.check_fusable(lambda t, h, c_in, _, dtype: can_fuse(t, h, c_in, dtype), c, c)
+        if cfg.sae_model_name in TOPK_FAMILY:
+            fused = cfg.use_pallas
+        else:
+            can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
+            c = self.sae_input_size
+            fused = self.check_fusable(
+                lambda t, h, c_in, _, dtype: can_fuse(t, h, c_in, dtype), c, c)
         tps, k = cfg.cache_tokens_per_step, self.CACHE_SCAN_K
         cache_dir = self._cache_dir(cfg.sae_layer)
         stream_q = dump_thread = None
@@ -465,31 +536,57 @@ class Pipeline:
             fused_opts["bandwidth"] = cfg.jumprelu_bandwidth
         step_fn = make_sae_train_step_from_acts(
             cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
-            cfg.sae_expansion_factor, fused=fused, fused_opts=fused_opts,
-            jumprelu_bandwidth=cfg.jumprelu_bandwidth, matryoshka_prefixes=prefixes)
+            cfg.sae_expansion_factor, fused=fused, fused_opts=fused_opts, topk=cfg.sae_topk,
+            topk_approx=cfg.sae_topk_approx, jumprelu_bandwidth=cfg.jumprelu_bandwidth,
+            matryoshka_prefixes=prefixes, aux_k=cfg.sae_aux_k, aux_alpha=cfg.sae_aux_alpha)
         step_fn = self.normalized_step(step_fn, (cfg.sae_layer,))
         opened: list = []  # the cache, once its dump has finished
+
+        def open_cache():
+            if not opened:
+                if dump_thread is not None:
+                    dump_thread.join()
+                opened.append(ActivationCache(cache_dir))
+            return opened[0]
 
         def epoch_items(epoch):
             # the first epoch run takes the shards as the dump publishes them
             if stream_q is not None and epoch == cfg.sae_checkpoint_epoch:
                 return (((s,), None) for s in stream_stacks(
                     stream_q, tps, k, logical_dtype=cfg.cache_dtype))
-            if not opened:
-                if dump_thread is not None:
-                    dump_thread.join()
-                opened.append(ActivationCache(cache_dir))
-            cache = opened[0]
+            cache = open_cache()
             # device dequantization needs stacks within one shard (one scale each)
             aligned = int(cache.meta["shard_tokens"]) % (k * tps) == 0
             return ((item[:1], item[1]) if isinstance(item, tuple) else ((item,), None)
                     for item in cache.stacks(tps, k, shuffle=True, seed=cfg.seed + epoch,
                                              dequantize="device" if aligned else "host"))
 
-        last_eval = self.run_epochs(step_fn, epoch_items)
+        def before_checkpoint(epoch):
+            if cfg.sae_model_name == "batch_topk_sae" and epoch + 1 == cfg.sae_epochs:
+                self._recalibrate_batch_topk(open_cache(), tps)
+
+        last_eval = self.run_epochs(step_fn, epoch_items, before_checkpoint)
         if dump_thread is not None:
             dump_thread.join()
         return last_eval
+
+    def _recalibrate_batch_topk(self, cache, tps: int) -> None:
+        """Replace batch_topk's EMA threshold by its calibration at the final
+        parameters (models/sae.calibrate_batch_topk_threshold) on one shuffled
+        cached block of ``tps`` tokens, the JAX package's block; under
+        sae_input_norm="rms" in the normalized space the threshold lives in."""
+        tok = next(iter(cache.batches(tps, shuffle=True, seed=self.cfg.seed + 7919,
+                                      prefetch=False)))
+        tok = tok.float()  # an int8 cache's block comes dequantized on the host
+        scale = self.input_scale_for(self.cfg.sae_layer)
+        if scale is not None:
+            tok = tok / torch.tensor(scale, dtype=torch.float32)
+        params = self.ts.params
+        thr = calibrate_batch_topk_threshold(params, tok.to(self.device), self.cfg.sae_topk)
+        old = float(params["threshold"])
+        self.ts = self.ts._replace(params={**params, "threshold": thr})
+        print(f"[batch_topk] inference threshold calibrated: {old:.5g} (EMA) -> "
+              f"{float(thr):.5g}")
 
     # ------------------------------------------------------------------
     @property
@@ -517,8 +614,8 @@ class Pipeline:
                 return self._sae_eval_step_cache
             self._sae_eval_step_cache = make_sae_eval_step(
                 self.net, cfg.sae_layer, cfg.sae_model_name, cfg.sae_lambda_sparse,
-                cfg.sae_expansion_factor, self.criterion,
-                jumprelu_bandwidth=cfg.jumprelu_bandwidth,
+                cfg.sae_expansion_factor, self.criterion, topk=cfg.sae_topk,
+                topk_approx=cfg.sae_topk_approx, jumprelu_bandwidth=cfg.jumprelu_bandwidth,
                 matryoshka_prefixes=cfg.matryoshka_prefix_fractions,
                 input_scale=self.input_scale_for(cfg.sae_layer))
         return self._sae_eval_step_cache

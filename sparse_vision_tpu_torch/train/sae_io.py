@@ -10,6 +10,8 @@ sparse_vision_tpu/train/sae_io.py).
 - SAELens: a folder of ``cfg.json`` and ``sae_weights.safetensors``. SAELens
   keeps W_enc [d_in, d_sae] and W_dec [d_sae, d_in], the math layout; the gated
   SAE's gate weight is its ``W_enc`` and JumpReLU's threshold is stored linear.
+  A BatchTopK SAE publishes as a JumpReLU SAE (its deployment form) with its
+  scalar threshold on every latent; sae_conv has no SAELens form.
   The safetensors file is written and read here (an 8-byte little-endian header
   length, a JSON header of ``dtype``, ``shape`` and ``data_offsets`` per tensor,
   then the raw little-endian bytes), so no safetensors package is needed.
@@ -26,13 +28,17 @@ import struct
 import numpy as np
 import torch
 
-# native parameter keys per ported SAE variant (models/sae.py init_* functions)
+# native parameter keys per SAE variant (models/sae.py init_* functions)
 _NATIVE_KEYS = {
     "sae_mlp": ("W_enc", "b_enc", "W_dec", "b_dec"),
     "gated_sae": ("W_gate", "b_gate", "b_mag", "r_mag", "W_dec", "b_dec"),
     "jumprelu_sae": ("W_enc", "b_enc", "W_dec", "b_dec", "log_threshold"),
+    "topk_sae": ("W_enc", "b_enc", "W_dec", "b_dec"),
+    "batch_topk_sae": ("W_enc", "b_enc", "W_dec", "b_dec", "threshold"),
     "matryoshka_sae": ("W_enc", "b_enc", "W_dec", "b_dec"),
 }
+# the optional keys of an import: ReLU weights may load into these variants
+_THRESHOLDS = {"jumprelu_sae": "log_threshold", "batch_topk_sae": "threshold"}
 
 
 def _np(v) -> np.ndarray:
@@ -90,8 +96,9 @@ def to_torch_state_dict(params: dict, sae_model_name: str) -> dict:
             "decoder.weight": p["W_dec"].T,
             "decoder.bias": p["b_dec"],
         }
-        if sae_model_name == "jumprelu_sae" and "log_threshold" in p:
-            out["log_threshold"] = p["log_threshold"]
+        thr = _THRESHOLDS.get(sae_model_name)
+        if thr in p:
+            out[thr] = p[thr]
     return {k: torch.from_numpy(_c(v)) for k, v in out.items()}
 
 
@@ -119,8 +126,9 @@ def _normalize_state_dict(sd: dict, sae_model_name: str) -> dict:
         else:  # legacy W_enc convention: stored [d, h], native already
             out["W_enc"] = sd["W_enc"]
             out["b_enc"] = sd["b_enc"]
-        if sae_model_name == "jumprelu_sae" and "log_threshold" in sd:
-            out["log_threshold"] = sd["log_threshold"]
+        thr = _THRESHOLDS.get(sae_model_name)
+        if thr in sd:
+            out[thr] = sd[thr]
     if "decoder.weight" in sd:
         out["W_dec"] = sd["decoder.weight"].T
         out["b_dec"] = sd["decoder.bias"]
@@ -198,14 +206,18 @@ def load_safetensors(path: str) -> dict:
 # SAELens
 # ---------------------------------------------------------------------------
 
-# ported variant names <-> SAELens cfg.json "architecture" values
+# variant names <-> SAELens cfg.json "architecture" values
 _SAELENS_ARCH = {
     "sae_mlp": "standard",
     "gated_sae": "gated",
     "jumprelu_sae": "jumprelu",
+    "topk_sae": "topk",
+    # the BatchTopK -> JumpReLU conversion: its exact inference form
+    "batch_topk_sae": "jumprelu",
     "matryoshka_sae": "standard",  # the nesting lives in the loss
 }
-_ARCH_TO_NATIVE = {"standard": "sae_mlp", "gated": "gated_sae", "jumprelu": "jumprelu_sae"}
+_ARCH_TO_NATIVE = {"standard": "sae_mlp", "gated": "gated_sae",
+                   "jumprelu": "jumprelu_sae", "topk": "topk_sae"}
 SAELENS_WEIGHTS_FILE = "sae_weights.safetensors"
 SAELENS_CFG_FILE = "cfg.json"
 
@@ -220,6 +232,9 @@ def _to_saelens_tensors(params: dict, sae_model_name: str) -> dict:
            "W_dec": p["W_dec"], "b_dec": p["b_dec"]}
     if sae_model_name == "jumprelu_sae":
         out["threshold"] = np.exp(p["log_threshold"])
+    if sae_model_name == "batch_topk_sae":
+        h = p["b_enc"].shape[0]
+        out["threshold"] = np.full((h,), p["threshold"], p["threshold"].dtype)
     return out
 
 
@@ -237,6 +252,13 @@ def _from_saelens_tensors(tensors: dict, sae_model_name: str) -> dict:
             raise ValueError("SAELens jumprelu threshold must be positive to "
                              "map into log_threshold")
         out["log_threshold"] = np.log(thr)
+    if sae_model_name == "batch_topk_sae" and "threshold" in t:
+        thr = t["threshold"]
+        # a published JumpReLU threshold is per latent; batch_topk's is one scalar
+        if thr.ndim and not np.all(thr == thr.flat[0]):
+            raise ValueError("per-latent SAELens thresholds differ; load as jumprelu_sae "
+                             "instead of batch_topk_sae")
+        out["threshold"] = np.asarray(thr.flat[0] if thr.ndim else thr)
     return out
 
 
@@ -280,8 +302,7 @@ def load_sae_saelens(path: str, sae_model_name: str | None = None) -> tuple:
     if sae_model_name is None:
         arch = cfg.get("architecture", "standard")
         if arch not in _ARCH_TO_NATIVE:
-            raise ValueError(f"SAELens architecture {arch!r} is not ported "
-                             f"(supported: {sorted(_ARCH_TO_NATIVE)})")
+            raise ValueError(f"unknown SAELens architecture {arch!r}")
         sae_model_name = _ARCH_TO_NATIVE[arch]
     return _tensors(_from_saelens_tensors(load_safetensors(path), sae_model_name)), cfg
 
@@ -296,9 +317,9 @@ def load_sae_weights(path: str, sae_model_name: str = "sae_mlp") -> dict:
     if path.endswith(".npz"):
         with np.load(path) as z:
             raw = {k: z[k] for k in z.files}
-        missing = set(_NATIVE_KEYS.get(sae_model_name, ())) - set(raw)
-        # the threshold is optional when importing ReLU weights into JumpReLU
-        missing -= {"log_threshold"}
+        # the threshold is optional when importing ReLU weights
+        missing = set(_NATIVE_KEYS.get(sae_model_name, ())) - set(raw) - set(
+            _THRESHOLDS.values())
         if missing:
             raise KeyError(f"{path} missing native keys {sorted(missing)}")
         return _tensors(raw)
@@ -320,8 +341,9 @@ def import_any(path: str, sae_model_name: str, like: dict) -> dict:
     """Load and validate against a freshly initialized parameter dict (the
     Pipeline's ``sae_weights_path``)."""
     params = load_sae_weights(path, sae_model_name)
-    # ReLU weights imported into JumpReLU keep the initial thresholds
-    if sae_model_name == "jumprelu_sae" and "log_threshold" not in params:
-        params["log_threshold"] = like["log_threshold"].detach().cpu().clone()
+    # ReLU weights imported into JumpReLU or BatchTopK keep the initial thresholds
+    thr = _THRESHOLDS.get(sae_model_name)
+    if thr is not None and thr not in params:
+        params[thr] = like[thr].detach().cpu().clone()
     validate_shapes(params, like, path)
     return params

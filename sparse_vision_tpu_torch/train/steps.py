@@ -1,15 +1,21 @@
-"""SAE train and eval steps (port of the sae_mlp, gated_sae, jumprelu_sae and
-matryoshka_sae parts of sparse_vision_tpu/train/steps.py).
+"""SAE train and eval steps (port of the SAE steps of
+sparse_vision_tpu/train/steps.py) for every variant: sae_mlp, gated_sae,
+jumprelu_sae, matryoshka_sae, topk_sae, batch_topk_sae and sae_conv.
 
-The JAX package jits one pure step over an explicit train state; here a step is
-an eager function over the same state: gradients of the variant's loss by
-autograd (through the fused op's autograd.Function when ``fused``), the
-ConstrainedAdam or Adam update, the dead-latent accumulator, and either the
-scheduled resample/reset (sae_mlp) or the rolling dead window (the variants
-that do not resample). The step counter is a host integer, so the schedule
-needs no device sync. The transcoder and crosscoder steps (train/transcoder.py,
-train/crosscoder.py) share this update skeleton (make_train_step) and the eval
-metrics (eval_metrics). An int8 cache's activations are dequantized on the
+Two training modes, as in the JAX package: from cached activations
+(make_sae_train_step_from_acts, on the fused ops or the TopK fast paths) and
+without a cache (make_sae_train_step: the frozen backbone, the tap, the update
+on the stock SAE math, the splice's full metrics). The JAX package jits one
+pure step over an explicit train state; here a step is an eager function over
+the same state: gradients of the variant's loss by autograd (through the fused
+op's autograd.Function when ``fused``), the ConstrainedAdam or Adam update, the
+dead-latent accumulator, and either the scheduled resample/reset (sae_mlp) or
+the rolling dead window (the variants that do not resample); the TopK family's
+AuxK term and batch_topk's threshold EMA ride on the same update. The step
+counter is a host integer, so the schedule needs no device sync. The
+transcoder and crosscoder steps (train/transcoder.py, train/crosscoder.py)
+share this update skeleton (make_update) and the eval metrics
+(eval_metrics). An int8 cache's activations are dequantized on the
 device by the wrappers make_dequant_step_fn and make_sae_train_multi_step_quant.
 """
 
@@ -23,11 +29,16 @@ import torch
 from sparse_vision_tpu_torch.models.sae import (
     DEFAULT_MATRYOSHKA_PREFIXES,
     JUMPRELU_BANDWIDTH,
-    PORTED,
+    SAE_VARIANTS,
+    TOPK_FAMILY,
+    batch_topk_threshold_update,
     matryoshka_prefix_counts,
     sae_inference_and_loss,
+    topk_aux_loss,
 )
 from sparse_vision_tpu_torch.ops import metrics, optim
+from sparse_vision_tpu_torch.ops.fast_batch_topk import fast_batch_topk_sae_loss_terms
+from sparse_vision_tpu_torch.ops.fast_topk_sae import fast_topk_sae_loss_terms
 from sparse_vision_tpu_torch.ops.resample import (
     kaiming_draws,
     resample_dead_neurons,
@@ -90,27 +101,46 @@ def fused_op(sae_model_name: str,
 def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                                   tx: optim.Optimizer, dead_neurons_steps: int,
                                   expansion_factor: int, fused: bool = False,
-                                  fused_opts: Optional[dict] = None,
+                                  fused_opts: Optional[dict] = None, topk: int = 32,
+                                  topk_approx: bool = False,
                                   jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
-                                  matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES):
+                                  matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES,
+                                  aux_k: int = 0, aux_alpha: float = 0.03125):
     """SAE train step over pre-extracted activations [T, C] (the activation-cache
-    training mode) for sae_mlp, gated_sae, jumprelu_sae and matryoshka_sae.
+    training mode) for every token variant (not sae_conv, which reads maps).
 
     ``fused=True`` routes forward, loss and statistics through the variant's
     fused op (``fused_op``): the CUDA kernels on a CUDA tensor, their plain
-    versions on a CPU tensor.
+    versions on a CPU tensor. For the TopK family it routes through the fast
+    paths, which are plain torch ops on every device and take any shape:
+    topk_sae's gather decode (ops/fast_topk_sae.py) and batch_topk_sae's
+    statistics from its selected entries (ops/fast_batch_topk.py).
     ``fused_opts`` may set ``compute_dtype``, and ``bandwidth`` for jumprelu_sae
     (the stock path reads ``jumprelu_bandwidth``). ``matryoshka_prefixes`` are
-    matryoshka_sae's prefix fractions, on both paths.
+    matryoshka_sae's prefix fractions, on both paths; ``topk`` is the TopK
+    family's k (batch_topk's per-token budget), ``topk_approx`` selects exactly
+    as models/sae.topk_sae_apply says. ``aux_k > 0`` adds the TopK family's
+    AuxK loss (make_update) and its ``sae_aux_loss`` metric.
 
     The returned ``step_fn(ts, act, resample_draws=None) -> (ts, metrics)``
     (make_train_step) resamples (sae_mlp only) with Kaiming draws from ``ts.rng``
     unless ``resample_draws`` = (enc [h, d], dec [d, h]) is given (tests inject
     the JAX package's draws). The variants that do not resample use the rolling
-    dead window instead."""
-    if sae_model_name not in PORTED:
-        raise NotImplementedError(f"SAE {sae_model_name!r} is not ported {PORTED}")
-    if fused:
+    dead window instead. batch_topk's threshold follows its EMA."""
+    if sae_model_name not in SAE_VARIANTS:
+        raise ValueError(f"Unknown SAE model name {sae_model_name}.")
+    if sae_model_name == "sae_conv":
+        raise ValueError("sae_conv reads feature maps, not cached tokens: train it with "
+                         "make_sae_train_step")
+    if fused and sae_model_name == "topk_sae":
+        def loss_fn(params, act):
+            return fast_topk_sae_loss_terms(params, act, lambda_sparse, expansion_factor,
+                                            topk, approx=topk_approx)
+    elif fused and sae_model_name == "batch_topk_sae":
+        def loss_fn(params, act):
+            return fast_batch_topk_sae_loss_terms(params, act, lambda_sparse,
+                                                  expansion_factor, topk)
+    elif fused:
         _, fused_loss_terms = fused_op(sae_model_name, matryoshka_prefixes)
 
         def loss_fn(params, act):
@@ -119,11 +149,37 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
     else:
         def loss_fn(params, act):
             return sae_inference_and_loss(sae_model_name, params, act, lambda_sparse,
+                                          topk=topk, topk_approx=topk_approx,
                                           jumprelu_bandwidth=jumprelu_bandwidth,
                                           matryoshka_prefixes=matryoshka_prefixes)
 
     return make_train_step(loss_fn, tx, dead_neurons_steps, expansion_factor, fused,
-                           resample_sae if sae_model_name == "sae_mlp" else None)
+                           **_variant_hooks(sae_model_name, aux_k, aux_alpha, topk_approx))
+
+
+def _variant_hooks(sae_model_name: str, aux_k: int, aux_alpha: float,
+                   topk_approx: bool) -> dict:
+    """make_train_step's per-variant arguments: sae_mlp's resample, the TopK
+    family's AuxK term, batch_topk's threshold EMA."""
+    hooks = {"resample": resample_sae if sae_model_name == "sae_mlp" else None}
+    if aux_k > 0 and sae_model_name in TOPK_FAMILY:
+        hooks["aux"] = functools.partial(_aux_term, k_aux=aux_k, approx=topk_approx)
+        hooks["aux_alpha"] = aux_alpha
+    if sae_model_name == "batch_topk_sae":
+        hooks["finish"] = _threshold_ema
+    return hooks
+
+
+def _aux_term(params, act, out, dead_acc, k_aux, approx):
+    return topk_aux_loss(params, act, act - out["decoded"], dead_acc, k_aux, approx=approx)
+
+
+def _threshold_ema(old_params: dict, new_params: dict, out: dict) -> dict:
+    """batch_topk's inference threshold is estimated, not trained: the EMA of
+    the batches' minimum positive selected value overwrites whatever the
+    optimizer left (a zero gradient gives a zero Adam step)."""
+    return {**new_params, "threshold": batch_topk_threshold_update(
+        old_params["threshold"], out["batch_topk_min_pos"])}
 
 
 def resample_sae(params: dict, opt_state: dict, dead: torch.Tensor, rng: torch.Generator,
@@ -137,32 +193,53 @@ def resample_sae(params: dict, opt_state: dict, dead: torch.Tensor, rng: torch.G
     return resample_dead_neurons(params, opt_state, dead, *draws)
 
 
-def make_train_step(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
-                    expansion_factor: int, fused: bool, resample=None):
+def make_update(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
+                expansion_factor: int, fused: bool, resample=None, aux=None,
+                aux_alpha: float = 0.0, finish=None):
     """The update skeleton shared by the SAE, transcoder and crosscoder steps:
-    ``step_fn(ts, *acts, resample_draws=None) -> (ts, metrics)`` takes the
-    gradient of ``loss_fn(params, *acts)["loss"]``, applies the optimizer and
-    updates the dead-latent accumulator (from the fused op's ``dead`` when
-    ``fused``, else from ``encoded``). ``resample(params, opt_state, dead_acc,
-    rng, draws)`` runs on the schedule of ops/resample.should_resample, with
-    measurement resets between; with ``resample=None`` the accumulator is the
-    rolling window instead, restarting all-True every ``dead_neurons_steps``
-    steps.
+    ``update(ts, *acts, resample_draws=None) -> (ts, metrics, out, loss)``
+    takes the gradient of ``loss_fn(params, *acts)["loss"]``, applies the
+    optimizer and updates the dead-latent accumulator (from the fused op's
+    ``dead`` when ``fused``, else from ``encoded``). ``resample(params,
+    opt_state, dead_acc, rng, draws)`` runs on the schedule of
+    ops/resample.should_resample, with measurement resets between; with
+    ``resample=None`` the accumulator is the rolling window instead, restarting
+    all-True every ``dead_neurons_steps`` steps.
 
-    Reproduced quirk: ``perc_dead`` is read AFTER the reset/resample branch, so at
-    a measurement boundary it reports the freshly reset all-True accumulator
-    (100% dead), exactly as the JAX step does (ROADMAP queue C)."""
+    ``aux(params, act, out, dead_acc)`` is the TopK family's AuxK term: reported
+    as ``out["aux_loss"]`` every step and added to the loss as ``aux_alpha *
+    aux`` only in the mature half of each dead window (step % window >=
+    window // 2), so a freshly restarted all-True accumulator never drives it;
+    in the other half it runs without a gradient, which leaves the loss and
+    the update what the JAX step's zero weight gives. ``finish(old_params,
+    new_params, out)`` edits the updated parameters (batch_topk's threshold).
 
-    def step_fn(ts: SAETrainState, *acts, resample_draws=None):
+    Parameters that the loss does not read (batch_topk's threshold in
+    training) get a zero gradient. Reproduced quirk: ``perc_dead`` is read
+    AFTER the reset/resample branch, so at a measurement boundary it reports
+    the freshly reset all-True accumulator (100% dead), exactly as the JAX
+    step does (ROADMAP queue C)."""
+
+    def update(ts: SAETrainState, *acts, resample_draws=None):
         keys = list(ts.params)
         params = {k: v.detach().requires_grad_(True) for k, v in ts.params.items()}
         out = loss_fn(params, *acts)
         loss = out["loss"]
-        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        if aux is not None:
+            if ts.step % dead_neurons_steps >= dead_neurons_steps // 2:
+                out["aux_loss"] = aux(params, acts[0], out, ts.dead_acc)
+                loss = loss + aux_alpha * out["aux_loss"]
+            else:
+                with torch.no_grad():
+                    out["aux_loss"] = aux(params, acts[0], out, ts.dead_acc)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
         with torch.no_grad():
-            grads = dict(zip(keys, grads))
+            grads = {k: torch.zeros_like(params[k]) if g is None else g
+                     for k, g in zip(keys, grads)}
             updates, opt_state = tx.update(grads, ts.opt_state, ts.params)
             new_params = optim.apply_updates(ts.params, updates)
+            if finish is not None:
+                new_params = finish(ts.params, new_params, out)
             step = ts.step + 1
             if fused:
                 dead, sparsity = out["dead"], out["sparsity"]
@@ -187,7 +264,81 @@ def make_train_step(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
                 "sparsity": sparsity,
                 "perc_dead": dead_acc.sum() / dead_acc.shape[0],
             }
-        return SAETrainState(new_params, opt_state, step, dead_acc, ts.rng), m
+            if aux is not None:
+                m["sae_aux_loss"] = out["aux_loss"].detach()
+        return SAETrainState(new_params, opt_state, step, dead_acc, ts.rng), m, out, loss
+
+    return update
+
+
+def make_train_step(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
+                    expansion_factor: int, fused: bool, **hooks):
+    """``step_fn(ts, *acts, resample_draws=None) -> (ts, metrics)``: one
+    make_update step (``hooks``: its resample, aux, aux_alpha, finish)."""
+    update = make_update(loss_fn, tx, dead_neurons_steps, expansion_factor, fused, **hooks)
+
+    def step_fn(ts: SAETrainState, *acts, resample_draws=None):
+        return update(ts, *acts, resample_draws=resample_draws)[:2]
+
+    return step_fn
+
+
+def make_sae_train_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: float,
+                        tx: optim.Optimizer, dead_neurons_steps: int, expansion_factor: int,
+                        criterion, full_metrics: bool = True, last_stage: Optional[str] = None,
+                        topk: int = 32, topk_approx: bool = False,
+                        jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
+                        matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES,
+                        aux_k: int = 0, aux_alpha: float = 0.03125):
+    """The SAE train step without a cache, the JAX package's default mode:
+    ``step_fn(ts, frozen_params, frozen_state, images, labels,
+    resample_draws=None) -> (ts, metrics)`` runs the frozen backbone (to
+    ``sae_layer`` only when not ``full_metrics``), takes the tap, updates the
+    SAE (make_update, with the variant's resample, AuxK and threshold EMA) and,
+    with ``full_metrics``, splices the reconstruction back for ``model_loss``,
+    ``loss_diff``, ``kld``, ``perc_same``, ``accuracy`` and ``var_expl``.
+
+    Every variant, sae_conv included (on the map itself), runs the stock SAE
+    math of models/sae.py on both devices, as the JAX step does: no fused op
+    and no fast path, so no kernel launches. The metrics are those of the JAX
+    step: the loss terms with ``sae_aux_loss`` (the variant's aux term, or
+    AuxK's), ``sparsity`` and ``perc_dead``."""
+    last = last_stage or net.stage_names[-1]
+
+    def loss_fn(params, act):
+        return sae_inference_and_loss(sae_model_name, params, act, lambda_sparse, topk=topk,
+                                      topk_approx=topk_approx,
+                                      jumprelu_bandwidth=jumprelu_bandwidth,
+                                      matryoshka_prefixes=matryoshka_prefixes)
+
+    update = make_update(loss_fn, tx, dead_neurons_steps, expansion_factor, False,
+                         **_variant_hooks(sae_model_name, aux_k, aux_alpha, topk_approx))
+
+    def step_fn(ts: SAETrainState, frozen_params, frozen_state, images, labels,
+                resample_draws=None):
+        with torch.no_grad():
+            logits_orig, taps, _ = net.apply(frozen_params, images, state=frozen_state,
+                                             stop_at=None if full_metrics else sae_layer)
+        act = taps[sae_layer]
+        ts, m, out, _ = update(ts, act, resample_draws=resample_draws)
+        with torch.no_grad():
+            m = {"sae_loss": m["sae_loss"], "sae_rec_loss": m["sae_rec_loss"],
+                 "sae_l1_loss": m["sae_l1_loss"],
+                 "sae_nrmse_loss": out["nrmse_loss"].detach(),
+                 "sae_rmse_loss": out["rmse_loss"].detach(),
+                 "sae_aux_loss": out["aux_loss"].detach(),
+                 "sparsity": m["sparsity"], "perc_dead": m["perc_dead"]}
+            if full_metrics:
+                decoded = out["decoded"].detach()
+                logits_mod = net.apply_segment(frozen_params, decoded, after=sae_layer,
+                                               upto=last, state=frozen_state)
+                loss_mod = criterion(logits_mod, labels)
+                m.update(model_loss=loss_mod, loss_diff=loss_mod - criterion(logits_orig, labels),
+                         kld=metrics.kld_original_vs_modified(logits_orig, logits_mod),
+                         perc_same=metrics.perc_same_classification(logits_orig, logits_mod),
+                         accuracy=metrics.accuracy(logits_mod, labels),
+                         var_expl=metrics.variance_explained(act, decoded))
+        return ts, m
 
     return step_fn
 
@@ -234,14 +385,16 @@ def make_sae_train_multi_step_quant(step_fn, compute_dtype=torch.float32):
 
 
 def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: float,
-                       expansion_factor: int, criterion,
+                       expansion_factor: int, criterion, topk: int = 32,
+                       topk_approx: bool = False,
                        jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
                        matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES,
                        input_scale: Optional[float] = None):
     """Eval step for the SAE-spliced model: the reference's eval-epoch quantities
     for one batch (model_pipeline.py:661-714 + 806-878), in plain torch (the JAX
     eval is stock XLA too). Returns (batch_metrics, arrays) with arrays as
-    eval_metrics gives them.
+    eval_metrics gives them. The SAE runs its deployment form
+    (``training=False``: batch_topk gates at its scalar threshold).
 
     ``input_scale`` (sae_input_norm="rms"): the SAE reads ``act / scale`` and
     the splice rescales the reconstruction back, so KLD, %same and loss_diff
@@ -257,8 +410,9 @@ def make_sae_eval_step(net, sae_layer: str, sae_model_name: str, lambda_sparse: 
         if inv is not None:
             act = act * inv
         out = sae_inference_and_loss(sae_model_name, sae_params, act, lambda_sparse,
+                                     topk=topk, topk_approx=topk_approx,
                                      jumprelu_bandwidth=jumprelu_bandwidth,
-                                     matryoshka_prefixes=matryoshka_prefixes)
+                                     matryoshka_prefixes=matryoshka_prefixes, training=False)
         decoded = out["decoded"] if inv is None else out["decoded"] * float(input_scale)
         logits_mod = net.apply_segment(frozen_params, decoded, after=sae_layer,
                                        upto=last, state=frozen_state)

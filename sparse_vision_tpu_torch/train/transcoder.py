@@ -45,7 +45,7 @@ def make_transcoder_train_step_from_acts(lambda_sparse: float, tx: optim.Optimiz
             return transcoder_inference_and_loss(params, x_in, y_tgt, lambda_sparse)
 
     return make_train_step(loss_fn, tx, dead_neurons_steps, expansion_factor, fused,
-                           resample_sae)
+                           resample=resample_sae)
 
 
 def make_transcoder_multi_step(step_fn):

@@ -3,11 +3,13 @@ JAX package's on the same weights (the JAX nets' and SAEs', carried over with
 convert.py) and the same batches (numpy, from a seed): dataset averages, node
 IE, edge IE (one cotangent chunk, and chunks of 2) and faithfulness (the zero /
 mean / circuit SAE variants and the model-neuron variant, at threshold -1,
-at a threshold inside the IE values and at 1e9), for sae_mlp, gated_sae and
-jumprelu_sae SAEs (the last through the STE functions under torch.func) on
-the tiny conv net of tests/test_circuit.py, and for jumprelu_sae on a 2-D net.
+at a threshold inside the IE values and at 1e9), for sae_mlp, gated_sae,
+jumprelu_sae (through the STE functions under torch.func) and batch_topk_sae
+(its deployment form, gated at the scalar threshold) SAEs on the tiny conv net
+of tests/test_circuit.py, and for jumprelu_sae on a 2-D net.
 
-The SAEs get non-zero biases (and JumpReLU thresholds that switch latents off),
+The SAEs get non-zero biases (and JumpReLU and BatchTopK thresholds that switch
+latents off),
 so codes, errors and the dead masks are not trivial. Tolerances (f32, tiny
 nets, sums in another order): averages rtol 1e-5 / atol 1e-6; IE values
 rtol 1e-4 / atol 1e-7; the dead masks and the faithfulness node counts
@@ -48,7 +50,7 @@ NETS = {
                                   m.relu("a2"), m.linear("l3", 4)]),
               (6,), {"a1": 8, "a2": 6}),
 }
-VARIANTS = ("sae_mlp", "gated_sae", "jumprelu_sae")
+VARIANTS = ("sae_mlp", "gated_sae", "jumprelu_sae", "batch_topk_sae")
 # biases (and JumpReLU log-thresholds) drawn away from their zero init
 PERTURBED = {"b_enc": 0.1, "b_dec": 0.1, "b_gate": 0.1, "b_mag": 0.1, "r_mag": 0.1}
 
@@ -73,6 +75,8 @@ def _sae(name: str, c: int, seed: int) -> dict:
     if "log_threshold" in p:
         p["log_threshold"] = np.log(rng.uniform(0.02, 0.3, p["log_threshold"].shape)
                                     ).astype(np.float32)
+    if "threshold" in p:  # batch_topk's deployment gate, which switches latents off
+        p["threshold"] = np.full((), 0.05, np.float32)
     return p
 
 

@@ -77,6 +77,7 @@ from sparse_vision_tpu_torch.interp import registry as t_reg
 from sparse_vision_tpu_torch.train import checkpoint as t_ckpt
 from sparse_vision_tpu_torch.train.pipeline import Pipeline as TPipeline
 from sparse_vision_tpu_torch.utils.paths import folder_paths
+from test_torch_pipeline import quick_jax_pipeline
 
 SIZE = (32, 32, 3)
 MODES = ("1", "2", "3", "40")
@@ -145,7 +146,8 @@ def _write_checkpoints(saes: dict, jroot: str, troots: tuple) -> None:
 
 
 def _jpipe(cfg: JConfig, backbone):
-    p = JPipeline(cfg, datasets=_datasets(j_synth, cfg.seed))
+    with quick_jax_pipeline():
+        p = JPipeline(cfg, datasets=_datasets(j_synth, cfg.seed))
     if backbone is not None:
         p.frozen_params = backbone
     return p

@@ -55,7 +55,9 @@ def test_the_walk_sees_every_module():
                  "sparse_vision_tpu_torch/interp/ie.py",
                  "sparse_vision_tpu_torch/interp/transcoder_circuit.py",
                  "sparse_vision_tpu_torch/interp/mis.py",
-                 "sparse_vision_tpu_torch/train/multilayer.py"):
+                 "sparse_vision_tpu_torch/train/multilayer.py",
+                 "sparse_vision_tpu_torch/ops/fast_topk_sae.py",
+                 "sparse_vision_tpu_torch/ops/fast_batch_topk.py"):
         assert must in names
 
 
@@ -100,6 +102,24 @@ def test_cli_without_device_raises_without_a_gpu(monkeypatch):
            '"sae_layer": "mixed3a", "use_activation_cache": true}')
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--run_pipeline", "--config", cfg])
+
+
+@pytest.mark.parametrize("name", ["sae_mlp", "sae_conv", "topk_sae", "batch_topk_sae"])
+def test_uncached_training_defaults_to_cuda(name, monkeypatch):
+    """A training run without an activation cache (the JAX package's default)
+    builds its Pipeline on CUDA unless given device="cpu", through the CLI
+    and through Pipeline itself."""
+    from sparse_vision_tpu_torch import cli
+    from sparse_vision_tpu_torch.config import RunConfig
+    from sparse_vision_tpu_torch.train.pipeline import Pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RunConfig(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
+                    sae_model_name=name, use_activation_cache=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--run_pipeline", "--config", cfg.to_json()])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pipeline(cfg, datasets=((), (), [], (32, 32, 3)))
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(monkeypatch, capsys):

@@ -49,6 +49,7 @@ from sparse_vision_tpu_torch.interp import mis as tmis
 from sparse_vision_tpu_torch.train import checkpoint as t_ckpt
 from sparse_vision_tpu_torch.train import pipeline as t_pipeline
 from sparse_vision_tpu_torch.train.pipeline import Pipeline as TPipeline
+from test_torch_pipeline import quick_jax_pipeline
 
 SIZE = (32, 32, 3)
 MAX_TASK_FLIPS = 2  # of the synthetic case's 1,280 tasks
@@ -166,13 +167,14 @@ def _datasets(make):
 @pytest.fixture(scope="module")
 def mis_runs(tmp_path_factory):
     jdir, tdir = str(tmp_path_factory.mktemp("jax")), str(tmp_path_factory.mktemp("torch"))
-    jtrain = JPipeline(JConfig(**CFG, directory_path=jdir), datasets=_datasets(j_synth))
-    backbone = convert.backbone_from_jax(jax.device_get(jtrain.frozen_params),
-                                         jax.device_get(jtrain.net_state))
+    with quick_jax_pipeline():
+        jtrain = JPipeline(JConfig(**CFG, directory_path=jdir), datasets=_datasets(j_synth))
+        backbone = convert.backbone_from_jax(jax.device_get(jtrain.frozen_params),
+                                             jax.device_get(jtrain.net_state))
+        sae = convert.sae_params_from_jax(jax.device_get(jtrain.ts.params))
+        jtrain.run()
     ttrain = TPipeline(TConfig(**CFG, directory_path=tdir), device="cpu",
-                       datasets=_datasets(t_synth), backbone=backbone,
-                       sae_params=convert.sae_params_from_jax(jax.device_get(jtrain.ts.params)))
-    jtrain.run()
+                       datasets=_datasets(t_synth), backbone=backbone, sae_params=sae)
     ttrain.run()
     # one trained layer for both: JAX's epoch-1 checkpoint in the port's folder
     t_ckpt.save_checkpoint(ttrain._sae_ckpt_dir(), 1, convert.checkpoint_from_jax(
@@ -180,10 +182,12 @@ def mis_runs(tmp_path_factory):
     out = {"backbone": backbone, "tdir": tdir, "jdir": jdir}
     for mode in ("1", "2"):
         mcfg = dict(CFG, training=False, mis=mode, sae_checkpoint_epoch=1)
-        jp = JPipeline(JConfig(**mcfg, directory_path=jdir), datasets=_datasets(j_synth))
+        with quick_jax_pipeline():
+            jp = JPipeline(JConfig(**mcfg, directory_path=jdir), datasets=_datasets(j_synth))
+            out[f"j{mode}"] = jp.run()
         tp = TPipeline(TConfig(**mcfg, directory_path=tdir), device="cpu",
                        datasets=_datasets(t_synth), backbone=backbone)
-        out[f"j{mode}"], out[f"t{mode}"] = jp.run(), tp.run()
+        out[f"t{mode}"] = tp.run()
         out[f"jpipe{mode}"], out[f"tpipe{mode}"] = jp, tp
     return out
 

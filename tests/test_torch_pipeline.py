@@ -45,8 +45,17 @@ Tolerances: the caches differ by the two frameworks' f32 convolution rounding
 rtol 1e-4, eval means rtol 1e-4. Means that are differences of nearly equal
 numbers (loss_diff, kld: ~1e-6 here) get atol 1e-5; counting metrics
 (perc_same, perc_dead_units, accuracy) are compared exactly.
+
+The JAX Pipelines here (and in the test files that import quick_jax_pipeline)
+run faster than as shipped, in what no comparison reads: their GoogLeNet
+weights come from a jitted init_backbone and their shape walk from the
+stages' inits traced, not run (the eager inits compile op by op, ~20 s a
+process on a CPU), and they skip the eval figures, which the port does not
+draw (matplotlib, and an extra inference pass in the last epoch; ~7 s a run).
+The port's runs take the JAX Pipeline's weights, whichever init drew them.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -56,6 +65,8 @@ import torch
 
 from sparse_vision_tpu.config import RunConfig as JConfig
 from sparse_vision_tpu.data.datasets import make_synthetic as j_synth
+from sparse_vision_tpu.models import backbone as j_backbone
+from sparse_vision_tpu.train import pipeline as j_pipeline
 from sparse_vision_tpu.train.pipeline import Pipeline as JPipeline
 from sparse_vision_tpu.utils.logging import RunLogger
 from sparse_vision_tpu_torch import convert
@@ -104,6 +115,59 @@ RMS_PARAMS_ATOL = 2.5e-4
 RMS_PARAMS_OFF = 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small passes: one intra-op thread is as fast alone and much faster when
+    the test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+_INITS: dict = {}
+
+
+def _jitted_init_backbone(net, key, dataset_name):
+    """init_backbone through jax.jit, once per (key, dataset, stages): the same
+    arrays as the eager init, without its per-op compiles."""
+    tag = (tuple(np.asarray(jax.random.key_data(key)).ravel()), dataset_name,
+           tuple(net.stage_names))
+    if tag not in _INITS:
+        _INITS[tag] = jax.jit(lambda k: j_backbone.init_backbone(net, k, dataset_name))(key)
+    return _INITS[tag]
+
+
+def _traced_layer_dimensions(net, dataset_name):
+    """layer_dimensions with each stage's init traced (jax.eval_shape) instead
+    of run: the same shape walk, without drawing the weights."""
+    shapes, s = {}, j_backbone._input_size(net, dataset_name)
+    for st in net.stages:
+        out = {}
+
+        def init(k, st=st, s=s):
+            params, state, out["shape"] = st.init(k, s)
+            return params, state
+
+        jax.eval_shape(init, jax.random.key(0))
+        s = shapes[st.name] = tuple(out["shape"])
+    return shapes
+
+
+@contextlib.contextmanager
+def quick_jax_pipeline():
+    """The JAX Pipeline sped up (module docstring) while the block runs."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(j_pipeline, "init_backbone", _jitted_init_backbone)
+    mp.setattr(j_backbone, "layer_dimensions", _traced_layer_dimensions)
+    mp.setattr(JPipeline, "_channel_frequency_figure", lambda *a, **kw: None)
+    mp.setattr(JPipeline, "_final_eval_figures", lambda *a, **kw: None)
+    try:
+        yield
+    finally:
+        mp.undo()
+
+
 class _Recorder(RunLogger):
     def __init__(self):
         super().__init__("test", log_every=10**9)
@@ -124,16 +188,17 @@ def _run_both(cfg: dict, tmp_path_factory):
     tmeans)."""
     jcfg = JConfig(**cfg, directory_path=str(tmp_path_factory.mktemp("jax")))
     jlog = _Recorder()
-    jpipe = JPipeline(jcfg, logger=jlog, datasets=_datasets(j_synth))
-    backbone = convert.backbone_from_jax(jax.device_get(jpipe.frozen_params),
-                                         jax.device_get(jpipe.net_state))
-    sae = convert.sae_params_from_jax(jax.device_get(jpipe.ts.params))
-    tcfg = TConfig(**cfg, directory_path=str(tmp_path_factory.mktemp("torch")))
-    tpipe = TPipeline(tcfg, device="cpu", datasets=_datasets(t_synth), backbone=backbone,
-                      sae_params=sae)
-    np.testing.assert_array_equal(tpipe.train_ds.images, jpipe.train_ds.images)
-    jpipe.CACHE_SCAN_K = tpipe.CACHE_SCAN_K = 2
-    jmeans = jpipe.train_sae()
+    with quick_jax_pipeline():
+        jpipe = JPipeline(jcfg, logger=jlog, datasets=_datasets(j_synth))
+        backbone = convert.backbone_from_jax(jax.device_get(jpipe.frozen_params),
+                                             jax.device_get(jpipe.net_state))
+        sae = convert.sae_params_from_jax(jax.device_get(jpipe.ts.params))
+        tcfg = TConfig(**cfg, directory_path=str(tmp_path_factory.mktemp("torch")))
+        tpipe = TPipeline(tcfg, device="cpu", datasets=_datasets(t_synth), backbone=backbone,
+                          sae_params=sae)
+        np.testing.assert_array_equal(tpipe.train_ds.images, jpipe.train_ds.images)
+        jpipe.CACHE_SCAN_K = tpipe.CACHE_SCAN_K = 2
+        jmeans = jpipe.train_sae()
     tmeans = tpipe.train_sae()
     return jpipe, jlog, jmeans, tpipe, tmeans
 
@@ -230,7 +295,7 @@ def test_rms_run_final_params_match_jax_within_the_adam_eps_bound(rms_runs):
 
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
-    for field, value in [("sae_model_name", "topk_sae"), ("mesh_shape", (2,)),
+    for field, value in [("original_model", True), ("mesh_shape", (2,)),
                          ("compute_ie", "5"), ("data_dir", "/data")]:
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",

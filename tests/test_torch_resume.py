@@ -37,7 +37,16 @@ from sparse_vision_tpu_torch.eval_tools import results as tres
 from sparse_vision_tpu_torch.train import checkpoint as tckpt
 from sparse_vision_tpu_torch.train.pipeline import Pipeline as TPipeline
 from sparse_vision_tpu_torch.utils.paths import folder_paths, sae_run_name
-from test_torch_pipeline import CFG, VARIANTS, _check_means, _datasets, _Recorder, _run_both
+from test_torch_pipeline import (
+    CFG,
+    VARIANTS,
+    _check_means,
+    _datasets,
+    _Recorder,
+    _run_both,
+    one_torch_thread,  # noqa: F401 (the autouse fixture, for this module too)
+    quick_jax_pipeline,
+)
 
 RESUMED = ("sae_mlp", "gated_sae", "transcoder", "crosscoder")
 
@@ -69,11 +78,12 @@ def resumed(request, tmp_path_factory):
     two = {**cfg, "sae_epochs": 2}
     resume = {**two, "sae_checkpoint_epoch": 1}
 
-    j2 = JPipeline(JConfig(**resume, directory_path=j1.cfg.directory_path),
-                   logger=_Recorder(), datasets=_datasets(j_synth))
-    j2.CACHE_SCAN_K = 2
-    assert int(j2.ts.step) == 8
-    runs = {"j1": j1, "t1": t1, "j2": j2, "j2_means": j2.train_sae()}
+    with quick_jax_pipeline():
+        j2 = JPipeline(JConfig(**resume, directory_path=j1.cfg.directory_path),
+                       logger=_Recorder(), datasets=_datasets(j_synth))
+        j2.CACHE_SCAN_K = 2
+        assert int(j2.ts.step) == 8
+        runs = {"j1": j1, "t1": t1, "j2": j2, "j2_means": j2.train_sae()}
 
     t2 = _port(resume, t1.cfg.directory_path, backbone)
     assert t2.ts.step == 8

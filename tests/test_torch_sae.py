@@ -1,4 +1,6 @@
-"""The port's SAE variants (sae_mlp, gated_sae, jumprelu_sae, matryoshka_sae),
+"""The port's SAE variants (sae_mlp, gated_sae, jumprelu_sae, matryoshka_sae;
+the TopK family's and sae_conv's layouts and the refusals: their math is held in
+test_torch_topk_sae.py, test_torch_batch_topk.py and test_torch_uncached.py),
 losses and metrics against the JAX package on the same inputs.
 
 Inputs come from numpy.random.default_rng; JAX-initialized parameters reach the
@@ -99,9 +101,20 @@ def test_sae_encode_decode_match_jax(params):
 
 
 def test_unported_sae_raises(params):
-    _, tp = params
-    with pytest.raises(NotImplementedError):
-        tsae.sae_inference_and_loss("topk_sae", tp, torch.zeros(4, C), LAMBDA)
+    """An unknown variant name raises the JAX package's ValueError; topk_sae and
+    sae_conv have no token encoder, and sae_conv no token decoder, in either."""
+    np_p, tp = params
+    msg = "Unknown SAE model name no_such_sae"
+    with pytest.raises(ValueError, match=msg):
+        tsae.sae_inference_and_loss("no_such_sae", tp, torch.zeros(4, C), LAMBDA)
+    with pytest.raises(ValueError, match=msg):
+        jsae.sae_inference_and_loss("no_such_sae", np_p, jnp.zeros((4, C)), LAMBDA)
+    for name in ("topk_sae", "sae_conv"):
+        for pkg, x in ((tsae, torch.zeros(4, C)), (jsae, jnp.zeros((4, C)))):
+            with pytest.raises(ValueError, match="has no token encoder"):
+                pkg.sae_encode(name, tp if pkg is tsae else np_p, x)
+    with pytest.raises(ValueError, match="has no token decoder"):
+        tsae.sae_decode("sae_conv", tp, torch.zeros(4, C * K))
 
 
 def test_rmse_nrmse_excludes_zero_range_dims():
@@ -215,8 +228,47 @@ def test_init_sae_layout_and_unit_decoder_rows(name):
 
 
 def test_init_sae_refuses_unported_names():
-    with pytest.raises(NotImplementedError):
-        tsae.init_sae("topk_sae", torch.Generator().manual_seed(0), C, K)
+    """init_sae raises the JAX package's ValueError for an unknown name."""
+    with pytest.raises(ValueError, match="Unknown SAE model name no_such_sae"):
+        tsae.init_sae("no_such_sae", torch.Generator().manual_seed(0), C, K)
+    with pytest.raises(ValueError, match="Unknown SAE model name no_such_sae"):
+        jsae.init_sae("no_such_sae", jax.random.key(0), C, K)
+
+
+@pytest.mark.parametrize("name,shapes", [
+    ("topk_sae", {"W_enc": (C, C * K), "b_enc": (C * K,), "W_dec": (C * K, C), "b_dec": (C,)}),
+    ("batch_topk_sae", {"W_enc": (C, C * K), "b_enc": (C * K,), "W_dec": (C * K, C),
+                        "b_dec": (C,), "threshold": ()}),
+    ("sae_conv", {"W_enc": (3, 3, C, C * K), "b_enc": (C * K,), "W_dec": (3, 3, C * K, C),
+                  "b_dec": (C,)}),
+])
+def test_init_sae_new_variants_have_the_jax_layout(name, shapes):
+    """The TopK family's and sae_conv's parameter shapes and init bounds are the
+    JAX package's (the draws differ: a torch generator, not a JAX key)."""
+    tp = tsae.init_sae(name, torch.Generator().manual_seed(0), C, K)
+    jp = jsae.init_sae(name, jax.random.key(0), C, K)
+    assert {k: tuple(v.shape) for k, v in tp.items()} == shapes
+    assert {k: tuple(v.shape) for k, v in jp.items()} == shapes
+    for k, v in tp.items():
+        bound = float(np.abs(np.asarray(jp[k])).max())
+        if name == "sae_conv":  # U(±1/sqrt(9·c_in)) for weights and biases
+            bound = 1.0 / np.sqrt(9 * (C if k in ("W_enc", "b_enc") else C * K))
+            assert float(v.abs().max()) <= bound and float(v.abs().max()) > 0.9 * bound, k
+        elif k == "W_dec":
+            close(torch.linalg.vector_norm(v, dim=-1), np.ones(C * K))
+        elif k in ("b_enc", "b_dec", "threshold"):
+            assert float(v.abs().max()) == bound == 0.0, k
+
+
+def test_intervene_on_decoder_weights_matches_jax(params):
+    np_p, tp = params
+    value = np.linspace(-1.0, 1.0, C).astype(np.float32)
+    got = tsae.intervene_on_decoder_weights(tp, 5, torch.from_numpy(value))
+    want = jsae.intervene_on_decoder_weights({k: jnp.asarray(v) for k, v in np_p.items()}, 5,
+                                             jnp.asarray(value))
+    for k in want:
+        close(got[k], want[k], rtol=0, atol=0, msg=k)
+    assert not torch.equal(tp["W_dec"][5], got["W_dec"][5])  # the input is not changed
 
 
 def test_gated_sae_apply_matches_jax():

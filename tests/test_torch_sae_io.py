@@ -24,12 +24,17 @@ SHAPES = {
                      "log_threshold": (H,)},
     "gated_sae": {"W_gate": (D, H), "b_gate": (H,), "b_mag": (H,), "r_mag": (H,),
                   "W_dec": (H, D), "b_dec": (D,)},
+    "topk_sae": {"W_enc": (D, H), "b_enc": (H,), "W_dec": (H, D), "b_dec": (D,)},
+    "batch_topk_sae": {"W_enc": (D, H), "b_enc": (H,), "W_dec": (H, D), "b_dec": (D,),
+                       "threshold": ()},
+    "sae_conv": {"W_enc": (3, 3, D, 4), "b_enc": (4,), "W_dec": (3, 3, 4, D), "b_dec": (D,)},
     "transcoder": {"W_enc": (D, H), "b_enc": (H,), "W_dec": (H, D_OUT), "b_dec": (D_OUT,)},
     "crosscoder": {"b_enc": (H,), **{f"{w}_{i}": s for i, d in enumerate((D, D_OUT, 8))
                                       for w, s in (("W_enc", (d, H)), ("W_dec", (H, d)),
                                                    ("b_dec", (d,)))}},
 }
-SAELENS = ("sae_mlp", "matryoshka_sae", "jumprelu_sae", "gated_sae")
+SAELENS = ("sae_mlp", "matryoshka_sae", "jumprelu_sae", "gated_sae", "topk_sae",
+           "batch_topk_sae")
 
 
 def _weights(name, seed=0):
@@ -198,14 +203,44 @@ def test_import_refuses_missing_keys_and_other_shapes(tmp_path):
 
 
 def test_a_saelens_folder_of_a_variant_not_ported_is_refused(tmp_path):
+    """Both packages refuse a SAELens architecture they do not map (here
+    "batchtopk": a BatchTopK SAE publishes as "jumprelu") and a SAELens export
+    of sae_conv, which has no SAELens form."""
     w = _weights("sae_mlp")
     folder = tio.save_sae_saelens(_torch(w), "sae_mlp", str(tmp_path / "s"))
     cpath = os.path.join(folder, tio.SAELENS_CFG_FILE)
     with open(cpath) as f:
         cfg = json.load(f)
     with open(cpath, "w") as f:
-        json.dump({**cfg, "architecture": "topk"}, f)
-    with pytest.raises(ValueError, match="'topk' is not ported"):
-        tio.load_sae_saelens(folder)
+        json.dump({**cfg, "architecture": "batchtopk"}, f)
+    for load in (tio.load_sae_saelens, jio.load_sae_saelens):
+        with pytest.raises(ValueError, match="unknown SAELens architecture 'batchtopk'"):
+            load(folder)
+    conv = _weights("sae_conv")
     with pytest.raises(ValueError, match="no SAELens mapping"):
-        tio.save_sae_saelens(_torch(w), "topk_sae", str(tmp_path / "t"))
+        tio.save_sae_saelens(_torch(conv), "sae_conv", str(tmp_path / "t"))
+    with pytest.raises(ValueError, match="no SAELens mapping"):
+        jio.save_sae_saelens(conv, "sae_conv", str(tmp_path / "j"))
+
+
+def test_batch_topk_publishes_as_jumprelu_with_its_threshold_on_every_latent(tmp_path):
+    """The BatchTopK -> JumpReLU conversion of both packages: the folder says
+    "jumprelu", the threshold is the scalar on every latent, and it reads back
+    as batch_topk's scalar or as JumpReLU's log-threshold; per-latent
+    thresholds that differ refuse to load as batch_topk_sae."""
+    w = _weights("batch_topk_sae")
+    w["threshold"] = np.full((), 0.25, np.float32)
+    folder = tio.save_sae_saelens(_torch(w), "batch_topk_sae", str(tmp_path / "b"))
+    params, cfg = tio.load_sae_saelens(folder)
+    assert cfg["architecture"] == "jumprelu" and set(params) == set(SHAPES["jumprelu_sae"])
+    np.testing.assert_allclose(params["log_threshold"].numpy(), np.log(np.full(H, 0.25)),
+                               rtol=1e-6)
+    jparams, _ = jio.load_sae_saelens(folder)
+    _assert_same({k: v.numpy() for k, v in params.items()},
+                 {k: np.asarray(v) for k, v in jparams.items()})
+    _assert_same(tio.load_sae_saelens(folder, "batch_topk_sae")[0], w)
+    jw = _weights("jumprelu_sae")
+    jfolder = tio.save_sae_saelens(_torch(jw), "jumprelu_sae", str(tmp_path / "j"))
+    for load in (tio.load_sae_saelens, jio.load_sae_saelens):
+        with pytest.raises(ValueError, match="per-latent SAELens thresholds differ"):
+            load(jfolder, "batch_topk_sae")

@@ -9,8 +9,10 @@ CPU path of the CUDA kernels). Tolerances (tests/test_training_parity.py:114-119
 losses rtol 2e-4; final params rtol 2e-3, atol 2e-5 (Adam's first steps divide by
 sqrt(nu) and amplify f32 rounding of tiny gradients); dead accumulators equal.
 
-The gated, JumpReLU and Matryoshka trajectories cross two restarts of the
-rolling dead window (dead_neurons_steps = 2: steps 2 and 4), stock and fused,
+The gated, JumpReLU, Matryoshka, TopK and BatchTopK trajectories cross two
+restarts of the rolling dead window (dead_neurons_steps = 2: steps 2 and 4),
+stock and fused (the TopK family's fused step is its fast path; both run AuxK
+with k_aux 32, weighted at steps 2 and 4, the mature halves of the windows),
 with the same loss and dead-accumulator tolerances and params at rtol 2e-3,
 atol 1e-5 (tests/test_fused_gated_sae.py:86-93). Matryoshka runs at 8x
 expansion (512 latents) with prefixes 1/4, 1/2, 1, so that its boundaries (128,
@@ -113,9 +115,19 @@ def test_multi_step_equals_single_steps():
 
 
 def test_unported_variant_raises():
+    """An unknown name raises the JAX package's ValueError (the port's when
+    the step is built, the JAX one's when it first runs); sae_conv reads maps
+    and has no cached-token step."""
     tx = toptim.get_optimizer("adam", LR)
-    with pytest.raises(NotImplementedError):
-        tsteps.make_sae_train_step_from_acts("topk_sae", LAMBDA, tx, 10, K)
+    with pytest.raises(ValueError, match="Unknown SAE model name no_such_sae"):
+        tsteps.make_sae_train_step_from_acts("no_such_sae", LAMBDA, tx, 10, K)
+    params, batches = _setup()
+    jtx = joptim.get_optimizer("adam", LR)
+    jstep = j_make("no_such_sae", LAMBDA, jtx, 10, K)
+    with pytest.raises(ValueError, match="Unknown SAE model name no_such_sae"):
+        jstep(j_init(jax.tree.map(jnp.asarray, params), jtx, H), jnp.asarray(batches[0]))
+    with pytest.raises(ValueError, match="sae_conv reads feature maps"):
+        tsteps.make_sae_train_step_from_acts("sae_conv", LAMBDA, tx, 10, K)
 
 
 @pytest.mark.parametrize("opt_name", ["constrained_adam", "adam"])
@@ -152,6 +164,7 @@ EPS = 0.5  # JumpReLU STE bandwidth: the window catches pre-activations of these
 WINDOW = 2  # dead_neurons_steps: the accumulator restarts after steps 2 and 4
 EXPANSION = {"matryoshka_sae": 8}  # the others: K
 PREFIXES = (0.25, 0.5, 1.0)
+TOPK, AUX_K = 16, 32  # the TopK family's k and AuxK's k_aux
 
 
 def _variant_setup(name):
@@ -160,7 +173,7 @@ def _variant_setup(name):
     k = EXPANSION.get(name, K)
     h = C * k
     p = jax.device_get(init_sae(name, jax.random.key(0), C, k))
-    if name == "matryoshka_sae":
+    if name in ("matryoshka_sae", "topk_sae", "batch_topk_sae"):
         p["b_enc"] = np.where(np.arange(h) < 8, -100.0, 0.0) + rng.normal(0.0, 0.05, h)
     elif name == "gated_sae":
         p["b_gate"] = (rng.normal(0.0, 0.05, h) - np.where(np.arange(h) < 8, 100.0, 0.0))
@@ -180,7 +193,7 @@ def _jax_step(name, tx, fused, window=WINDOW):
         jopts["bandwidth"] = EPS
     return j_make(name, LAMBDA, tx, window, EXPANSION.get(name, K), fused=fused,
                   fused_opts=jopts if fused else None, jumprelu_bandwidth=EPS,
-                  matryoshka_prefixes=PREFIXES)
+                  matryoshka_prefixes=PREFIXES, topk=TOPK, aux_k=AUX_K)
 
 
 def _torch_step(name, tx, fused, window=WINDOW):
@@ -189,11 +202,12 @@ def _torch_step(name, tx, fused, window=WINDOW):
         opts["bandwidth"] = EPS
     return tsteps.make_sae_train_step_from_acts(
         name, LAMBDA, tx, window, EXPANSION.get(name, K), fused=fused, fused_opts=opts,
-        jumprelu_bandwidth=EPS, matryoshka_prefixes=PREFIXES)
+        jumprelu_bandwidth=EPS, matryoshka_prefixes=PREFIXES, topk=TOPK, aux_k=AUX_K)
 
 
 @pytest.mark.parametrize("fused", [True, False])
-@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae", "matryoshka_sae"])
+@pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae", "matryoshka_sae", "topk_sae",
+                                  "batch_topk_sae"])
 def test_rolling_dead_window_trajectory_matches_jax(name, fused):
     params, batches = _variant_setup(name)
     h = C * EXPANSION.get(name, K)
@@ -220,6 +234,10 @@ def test_rolling_dead_window_trajectory_matches_jax(name, fused):
             assert float(tm["perc_dead"]) == 1.0
         else:  # between restarts only the never-firing latents stay dead
             assert 8 / h <= float(tm["perc_dead"]) < 0.5
+        if "sae_aux_loss" in jm:  # AuxK: reported every step, weighted when mature
+            np.testing.assert_allclose(float(tm["sae_aux_loss"]), float(jm["sae_aux_loss"]),
+                                       rtol=2e-4)
+            assert float(tm["sae_aux_loss"]) > 0
     assert tts.step == int(jts.step) == len(batches)
     np.testing.assert_allclose(tl, jl, rtol=2e-4)
     for k in params:
@@ -228,6 +246,8 @@ def test_rolling_dead_window_trajectory_matches_jax(name, fused):
     if name == "jumprelu_sae":  # the STE moved the thresholds
         assert bool((tts.params["log_threshold"] != torch.from_numpy(
             params["log_threshold"])).any())
+    if name == "batch_topk_sae":  # the EMA, not the optimizer, moved the threshold
+        assert float(tts.params["threshold"]) > 0
 
 
 @pytest.mark.parametrize("name", ["gated_sae", "jumprelu_sae"])
