@@ -139,6 +139,31 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               step and the splice (UNCACHED_TOL); the evals before and after
               the epoch, its checkpoint and the export; images/s. (b) and (c)
               fail on any fused kernel launch.
+ 12. backbones: the families beyond GoogLeNet (models/backbone.py): (a) 4
+              images through clip_vit_b16, clip_vit_b16_split and vit_base at
+              224 px, resnet18 (64 px), resnet18_1 and resnet50 (224 px),
+              custom_cnn_1, custom_mlp_2, custom_mlp_9_sae_fc1 and GoogLeNet's
+              aux heads on the card in f32 (TF32 off), logits and every tap
+              within FWD_TOL of the same net on the CPU in f64; the split CLIP
+              tower on the fused one's parameters against it. Then the ReLU
+              SAE op at C 768 / H 6,144 and C 512 / H 4,096 and the transcoder
+              op at 768 -> 768 / H 6,144 (coder_fwd_tc), T 32,768, against
+              their plain versions in f32 and bf16, bf16 repeats bitwise
+              equal, each timed beside its bound and the cuBLAS products.
+              Through Pipeline.train_sae at those widths (bf16 cache, 12 steps
+              of 32,768 tokens, phase 6's checks and launch counts; the dump's
+              seconds): (b) sae_mlp on clip_vit_b16 block6 (bench_clip_sae.py's
+              shape, 2,048 224 px images); (c) the clip_vit_b16_split
+              transcoder block5_attn -> block5_mlp; (d) sae_mlp on resnet18
+              layer4.1 (6,144 64 px images, 200 classes). (e) compute_ie 1
+              and 2 through Pipeline.run on (b)'s trained SAE (interp/ie.py's
+              one-layer engine), no kernel launched; bench_vit_circuit.py's
+              shape: CircuitEngine over clip_vit_b16_split with four random
+              sae_mlp SAEs (6,144 latents) at block2/5/8/11_attn, 64
+              relabelled images at batch 16: averages and node IE, one
+              batch's node IE against the CPU's f64, block2_attn ->
+              block5_attn edges at 64 features a side (peak memory), phase
+              9's faithfulness anchors; no vmap fallback.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -487,33 +512,36 @@ def _sae_bwd_check(mod, tag: str, cd, ops, x_cent, err_in, coeffs, extra=(), lab
     return g_p, err
 
 
-def kernels_relu(cd, tag: str) -> dict:
+def kernels_relu(cd, tag: str, t: int = T, c: int = C, h: int = H) -> dict:
+    """The ReLU SAE op's forward and backward at [t, c] with h latents (the
+    training shape by default) against their plain versions; timed."""
     # on _exact_inputs' grid: the tensor cores' sums of the encode run in another
     # order and rounding than cuBLAS's, and off the grid a pre-activation that
     # moved by a rounding flips round_bf16(post) by a bf16 ulp in the decode
-    ops = _relu_exact_operands(cd)
+    ops = _relu_exact_operands(cd, t, c, h)
     x, we, be, wd, bd = ops
-    x_cent, out_p, err = _sae_fwd_check(fused_sae, tag, cd, ops, exact=True)
+    label = "" if (t, c, h) == (T, C, H) else f", C={c} T={t} H={h}"
+    x_cent, out_p, err = _sae_fwd_check(fused_sae, tag, cd, ops, exact=True, label=label)
     xc = x - bd.to(cd)
     post = torch.relu(xc @ we).to(cd)
     rows = {"fused_sae_fwd": _measure(
-        "fused_sae_fwd", tag, cd, lambda: fused_sae.fused_sae_forward(*ops),
+        "fused_sae_fwd", f"{tag}{label}", cd, lambda: fused_sae.fused_sae_forward(*ops),
         lambda: fused_sae.fused_sae_forward_plain(*ops),
-        lambda: (xc @ we, post @ wd), 4.0 * T * C * H,
+        lambda: (xc @ we, post @ wd), 4.0 * t * c * h,
         nbytes(*ops) + nbytes(out_p[0], out_p[1], out_p[2]) + 4, err)}
 
     res = (out_p[0] - x.float()).to(cd)  # the residual the backward reads
     del out_p
-    coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device=DEVICE)
-    g_p, err = _sae_bwd_check(fused_sae, tag, cd, ops, x_cent, res, coeffs)
+    coeffs = torch.tensor([2.0 / (t * c), LAMBDA / (t * h)], device=DEVICE)
+    g_p, err = _sae_bwd_check(fused_sae, tag, cd, ops, x_cent, res, coeffs, label=label)
     moved = nbytes(*ops, res, coeffs) + nbytes(*g_p)
     del g_p
     dr = (coeffs[0] * res.float()).to(cd)
     rows["fused_sae_bwd"] = _measure(
-        "fused_sae_bwd", tag, cd,
+        "fused_sae_bwd", f"{tag}{label}", cd,
         lambda: fused_sae.fused_sae_backward(x_cent, we, be, wd, res, coeffs),
         lambda: fused_sae.fused_sae_backward_plain(*ops, res, coeffs),
-        lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
+        lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * t * c * h, moved, err)
     return rows
 
 
@@ -680,15 +708,15 @@ def _jumprelu_bwd_operands(ops, t: int, c: int):
     return ops + (res, torch.tensor([2.0 / (t * c), LAMBDA_J / t], device=DEVICE), BANDWIDTH)
 
 
-def _relu_exact_operands(cd):
-    """ReLU-layout operands at the training shape on _exact_inputs' grid, b_enc
-    odd multiples of 2^-11: the kernel and cuBLAS get the same pre-activations,
-    so the ReLU mask, which the dx kernels' sums over latents jump with, is the
-    same on both sides."""
+def _relu_exact_operands(cd, t: int = T, c: int = C, h: int = H):
+    """ReLU-layout operands ([t, c], h latents; the training shape by default)
+    on _exact_inputs' grid, b_enc odd multiples of 2^-11: the kernel and cuBLAS
+    get the same pre-activations, so the ReLU mask, which the dx kernels' sums
+    over latents jump with, is the same on both sides."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    params = init_sae_mlp(gen, C, H // C)
-    x, we, bd = _exact_inputs(gen, T, params["W_enc"])
-    be = _odd_grid(gen, H, 100)
+    params = init_sae_mlp(gen, c, h // c)
+    x, we, bd = _exact_inputs(gen, t, params["W_enc"])
+    be = _odd_grid(gen, h, 100)
     return x.to(cd), we.to(cd), be, params["W_dec"].to(cd).contiguous(), bd
 
 
@@ -1321,9 +1349,10 @@ def _device_split(averages) -> str:
         f"{k} {v / 1e3:.1f} ms ({v / max(total, 1e-9):.1%})" for k, v in parts.items()))
 
 
-def _slice_config(name: str, extra: dict | None = None) -> tuple:
+def _slice_config(name: str, extra: dict | None = None, datasets=None) -> tuple:
     """(RunConfig, datasets or None) of the slice ``name`` with the fields
-    ``extra`` beyond SLICES' (a name SLICES lacks: the shared fields only)."""
+    ``extra`` beyond SLICES' (a name SLICES lacks: the shared fields only);
+    ``datasets`` given replace the synthetic stand-in of load_data."""
     fields, _, n_train = SLICES.get(name, ({}, (), None))
     cfg = RunConfig(**{
         **dict(model_name="inceptionv1", dataset_name="imagenet", sae_layer="mixed3a",
@@ -1333,8 +1362,7 @@ def _slice_config(name: str, extra: dict | None = None) -> tuple:
                cache_dtype="bfloat16", sae_epochs=1, dead_neurons_steps=4,
                directory_path=str(WORK)),
         **fields, **(extra or {})})
-    datasets = None
-    if n_train is not None:  # the synthetic stand-in of load_data, with more train images
+    if datasets is None and n_train is not None:  # load_data's stand-in, more train images
         size = (229, 229, 3)
         train = make_synthetic(num_samples=n_train, seed=cfg.seed, img_size=size,
                                num_classes=1000)
@@ -1345,10 +1373,10 @@ def _slice_config(name: str, extra: dict | None = None) -> tuple:
 
 
 def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
-                label: str = "", keep: bool = False) -> tuple:
+                label: str = "", keep: bool = False, datasets=None) -> tuple:
     """One north-star-width run of ``name`` through the port's Pipeline, with
     the config fields ``extra`` beyond SLICES' (``label`` names the run in the
-    log); returns (launches per kernel, the last eval's means, the cache
+    log) and ``datasets`` in place of the stand-in (_slice_config); returns (launches per kernel, the last eval's means, the cache
     directory of its sae_layer, which ``keep`` leaves on disk). ``profile``
     traces the run with torch.profiler and prints device time by kernel."""
     set_tf32(False)
@@ -1356,7 +1384,7 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     shutil.rmtree(WORK, ignore_errors=True)
     restarts = SLICES[name][1]
     name_log = f"{name}{label}"
-    cfg, datasets = _slice_config(name, extra)
+    cfg, datasets = _slice_config(name, extra, datasets)
     t0 = time.perf_counter()
     pipe = Pipeline(cfg, datasets=datasets)
     log(f"[slice {name_log}] pipeline built in {time.perf_counter() - t0:.1f} s "
@@ -1978,7 +2006,7 @@ def _close(name: str, got, want, rtol: float, atol_frac: float) -> float:
     scale = float(want.abs().max())
     err = (got - want).abs()
     if not bool((err <= rtol * want.abs() + atol_frac * scale).all()):
-        raise AssertionError(f"circuit: {name}: max error {float(err.max()):.3g} (scale "
+        raise AssertionError(f"{name}: max error {float(err.max()):.3g} (scale "
                              f"{scale:.3g}) past rtol {rtol:g} / atol {atol_frac:g} of the scale")
     return float(err.max()) / max(scale, 1e-30)
 
@@ -1987,12 +2015,14 @@ def _cpu_engine(eng, dtype):
     """The engine's weights on the CPU in ``dtype``."""
     from sparse_vision_tpu_torch.interp.circuit import CircuitEngine, FrozenSAE
 
-    def cpu(tree):
-        return {k: cpu(v) if isinstance(v, dict) else v.to("cpu", dtype) for k, v in tree.items()}
+    return CircuitEngine(eng.net, _tree_to(eng.params, "cpu", dtype), {
+        l: FrozenSAE(s.model_name, _tree_to(s.params, "cpu", dtype), s.expansion_factor)
+        for l, s in eng.saes.items()}, eng.criterion, state=_tree_to(eng.state, "cpu", dtype))
 
-    return CircuitEngine(eng.net, cpu(eng.params), {
-        l: FrozenSAE(s.model_name, cpu(s.params), s.expansion_factor)
-        for l, s in eng.saes.items()}, eng.criterion, state=cpu(eng.state))
+
+def _tree_to(tree, device, dtype):
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict) else v.to(device, dtype)
+            for k, v in tree.items()}
 
 
 def _faith_tol(r: dict) -> float:
@@ -2000,6 +2030,39 @@ def _faith_tol(r: dict) -> float:
     denom = abs(r["m_M"] - r["m_empty"])
     m = max(abs(r["m_C"]), abs(r["m_M"]), abs(r["m_empty"]))
     return LOSS_RTOL * m * 4 / denom
+
+
+def _check_anchors(phase: str, part: str, eng, data, node, averages) -> None:
+    """Faithfulness over ``data`` for the SAE and the model variant: 1 at
+    threshold -1, within a tolerance below FAITH_RESOLVE that the circuit with
+    its SAE errors zero- or mean-ablated falls outside, and at 1e9 exactly 0
+    (m_C is m_empty's own computation)."""
+    ablated = ("faithfulness_sae_errors_zero_ablated", "faithfulness_sae_errors_mean_ablated")
+    for variant in ("sae", "model"):
+        keep, drop = (eng.compute_faithfulness(data, node, thr, model_or_sae=variant,
+                                               averages=averages) for thr in (-1.0, 1e9))
+        tol = _faith_tol(keep)
+        others = {k: keep[k] for k in ablated if k in keep}
+        log(f"[{phase}] {part} {variant} faithfulness at threshold -1: "
+            f"{keep['faithfulness']!r} (want 1 within {tol:.3g}; m_C {keep['m_C']!r}, "
+            f"m_empty {keep['m_empty']!r}, m_M {keep['m_M']!r}; m_M - m_empty "
+            f"{keep['m_M'] - keep['m_empty']:.6g}"
+            + "".join(f"; {k} {v!r}" for k, v in others.items())
+            + f"); at 1e9: {drop['faithfulness']!r} (want exactly 0; m_C "
+            f"{drop['m_C']!r}, m_empty {drop['m_empty']!r})")
+        if not tol < FAITH_RESOLVE:
+            raise AssertionError(f"{phase}: {variant} faithfulness is resolved to "
+                                 f"{tol:.3g} only")
+        if not abs(keep["faithfulness"] - 1.0) <= tol:
+            raise AssertionError(f"{phase}: {variant} faithfulness at -1 is "
+                                 f"{keep['faithfulness']}, not 1")
+        for k, v in others.items():
+            if abs(v - 1.0) <= tol:
+                raise AssertionError(f"{phase}: at -1, {k} {v} is within {tol:.3g} of 1: "
+                                     "the anchor cannot tell kept errors from ablated")
+        if drop["m_C"] != drop["m_empty"] or drop["faithfulness"] != 0.0:
+            raise AssertionError(f"{phase}: {variant} faithfulness at 1e9 is "
+                                 f"{drop['faithfulness']}, not exactly 0")
 
 
 def phase_circuit(smi: str) -> None:
@@ -2137,7 +2200,7 @@ def phase_circuit(smi: str) -> None:
                 ref = getattr(on_cpu[torch.float64], f)[l]
                 for who, got in (("card", getattr(on_card, f)[l]),
                                  ("cpu", getattr(on_cpu[torch.float32], f)[l])):
-                    worst[who] = max(worst[who], _close(f"node IE {f}:{l} ({who} f32)", got,
+                    worst[who] = max(worst[who], _close(f"circuit: node IE {f}:{l} ({who} f32)", got,
                                                         ref, 0.0, NODE_TOL))
         log(f"[circuit] (c) node IE of {NODE_CPU_IMAGES} images against the CPU's f64 (TF32 "
             f"off): the card's f32 within {worst['card']:.3g} of each array's scale, the "
@@ -2156,7 +2219,8 @@ def phase_circuit(smi: str) -> None:
                                       cotangent_chunk=COTANGENT_CHUNK)
         whole = eng.compute_edge_ie(batch, avg_dev, idx, custom_layers=pair,
                                     cotangent_chunk=TOP_FEATURES + 1)
-        worst = max(_close(f"edges {l}", chunked[l], whole[l], CHUNK_RTOL, CHUNK_ATOL_FRAC)
+        worst = max(_close(f"circuit: edges {l}", chunked[l], whole[l], CHUNK_RTOL,
+                           CHUNK_ATOL_FRAC)
                     for l in pair)
         log(f"[circuit] (d) {pair[0]} -> {pair[1]} edges ([{TOP_FEATURES + 1}, "
             f"{TOP_FEATURES + 1}]) in chunks of {COTANGENT_CHUNK} equal one chunk of "
@@ -2166,33 +2230,7 @@ def phase_circuit(smi: str) -> None:
         data = [(torch.from_numpy(bb.images).to(DEVICE),
                  remap_torch_to_tf_labels(torch.from_numpy(bb.labels)).to(DEVICE))
                 for bb in node_pipe.train_ds.batches(CIRCUIT_BATCH, shuffle=False)]
-        ablated = ("faithfulness_sae_errors_zero_ablated",
-                   "faithfulness_sae_errors_mean_ablated")
-        for variant in ("sae", "model"):
-            keep, drop = (eng.compute_faithfulness(data, node, thr, model_or_sae=variant,
-                                                   averages=avg_dev) for thr in (-1.0, 1e9))
-            tol = _faith_tol(keep)
-            others = {k: keep[k] for k in ablated if k in keep}
-            log(f"[circuit] (e) {variant} faithfulness at threshold -1: "
-                f"{keep['faithfulness']!r} (want 1 within {tol:.3g}; m_C {keep['m_C']!r}, "
-                f"m_empty {keep['m_empty']!r}, m_M {keep['m_M']!r}; m_M - m_empty "
-                f"{keep['m_M'] - keep['m_empty']:.6g}"
-                + "".join(f"; {k} {v!r}" for k, v in others.items())
-                + f"); at 1e9: {drop['faithfulness']!r} (want exactly 0; m_C "
-                f"{drop['m_C']!r}, m_empty {drop['m_empty']!r})")
-            if not tol < FAITH_RESOLVE:
-                raise AssertionError(f"circuit: {variant} faithfulness is resolved to "
-                                     f"{tol:.3g} only")
-            if not abs(keep["faithfulness"] - 1.0) <= tol:
-                raise AssertionError(f"circuit: {variant} faithfulness at -1 is "
-                                     f"{keep['faithfulness']}, not 1")
-            for k, v in others.items():
-                if abs(v - 1.0) <= tol:
-                    raise AssertionError(f"circuit: at -1, {k} {v} is within {tol:.3g} of 1: "
-                                         "the anchor cannot tell kept errors from ablated")
-            if drop["m_C"] != drop["m_empty"] or drop["faithfulness"] != 0.0:
-                raise AssertionError(f"circuit: {variant} faithfulness at 1e9 is "
-                                     f"{drop['faithfulness']}, not exactly 0")
+        _check_anchors("circuit", "(e)", eng, data, node, avg_dev)
         del eng, node_pipe, data
     fallbacks = [str(w.message) for w in caught
                  if "batching rule" in str(w.message) or "performance drop" in str(w.message)]
@@ -2555,7 +2593,7 @@ def phase_multilayer(smi: str) -> dict:
         flipped = (f32_gate != gates[k]).any(0)
         flips += int(flipped.sum())
         keep = ~flipped
-        worst = _close(f"chain edges {k}", torch.from_numpy(g)[:, keep], w[:, keep],
+        worst = _close(f"multilayer: chain edges {k}", torch.from_numpy(g)[:, keep], w[:, keep],
                        *TC_EDGE_TOL)
         log(f"[multilayer] (d) edges {k} on {TC_CHECK_IMAGES} images: the card's f32 within "
             f"{worst:.3g} of the f64 formula's scale; {int(flipped.sum())} gate column(s) "
@@ -3021,6 +3059,352 @@ def phase_topk(smi: str) -> None:
     log(f"[topk] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the backbone families beyond GoogLeNet
+# ---------------------------------------------------------------------------
+
+BB_IMAGES = 4  # (a)'s batch
+# (a): model name, dataset (its classes), input size where not the dataset's
+BB_FORWARD = (("clip_vit_b16", "imagenet", None), ("clip_vit_b16_split", "imagenet", None),
+              ("vit_base", "imagenet", None), ("resnet18", "tiny_imagenet", None),
+              ("resnet18_1", "tiny_imagenet", (224, 224, 3)),
+              ("resnet50", "imagenet", (224, 224, 3)), ("custom_cnn_1", "cifar_10", None),
+              ("custom_mlp_2", "mnist", None), ("custom_mlp_9_sae_fc1", "mnist", None))
+# the card's f32 (TF32 off) against the CPU's f64: every tap within FWD_TOL of
+# its largest magnitude
+FWD_TOL = 1e-4
+# rows 1-2 at CLIP ViT-B/16's C 768 (8x: 6,144 latents) and ResNet-18 layer4.1's
+# C 512 (8x: 4,096), rows 11-12 at 768 -> 768 (block5_attn -> block5_mlp), T 32,768
+BB_SAE = ((32768, 768, 6144), (32768, 512, 4096))
+BB_TC = (32768, 768, 768, 6144)
+# bench_clip_sae.py's tower (224 px: 197 tokens an image, width 768) and
+# bench_vit_circuit.py's split one, SAEs and transcoder at expansion 8
+CLIP, CLIP_SPLIT, CLIP_DEPTH = "clip_vit_b16", "clip_vit_b16_split", 12
+CLIP_SIZE, CLIP_TOKENS, CLIP_DIM, EXPANSION = (224, 224, 3), 197, 768, 8
+CLIP_TRAIN, CLIP_IE_IMAGES = 2048, 512  # 8 batches of 256 x 197 tokens: 12 steps of 32,768
+RESNET_SIZE, RESNET_TRAIN = (64, 64, 3), 6144  # layer4.1: 8 x 8 = 64 tokens an image
+CLIP_SAE_LAYER, CLIP_TC_LAYERS = "block6", ("block5_attn", "block5_mlp")
+CLIP_LAYERS = ("block2_attn", "block5_attn", "block8_attn", "block11_attn")
+CLIP_BATCH, CLIP_IMAGES, CLIP_EDGE_FEATURES = 16, 64, 64
+
+
+def _bb_forward() -> None:
+    """(a) Each family on the card in f32 (TF32 off) against the same net on the
+    CPU in f64, logits and every tap; the split CLIP tower against the fused
+    one on the same parameters; GoogLeNet's aux heads."""
+    import numpy as np
+
+    from sparse_vision_tpu_torch.models import googlenet
+    from sparse_vision_tpu_torch.models.backbone import make_backbone
+    from sparse_vision_tpu_torch.models.vit import split_converted_blocks
+
+    set_tf32(False)  # the patch and residual convolutions too (cuDNN's default is TF32)
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    rng = np.random.default_rng(12)
+    f64 = torch.float64
+
+    def both(net, params, state, x):
+        with torch.no_grad():
+            card = net.apply(params, x.to(DEVICE), state=state)
+            cpu = net.apply(_tree_to(params, "cpu", f64), x.double(),
+                            state=_tree_to(state, "cpu", f64))
+        return card, cpu
+
+    clip = None
+    for name, ds, size in BB_FORWARD:
+        net = make_backbone(name, ds)
+        size = size or tuple(net.input_size)
+        params, state = net.init(gen, size)
+        x = torch.from_numpy(rng.standard_normal((BB_IMAGES, *size)).astype(np.float32))
+        t0 = time.perf_counter()
+        (out, taps, _), (ref, ref_taps, _) = both(net, params, state, x)
+        worst = max(_close(f"backbones: (a) {name} {k}", taps[k], ref_taps[k], 0.0, FWD_TOL)
+                    for k in ref_taps)
+        worst = max(worst, _close(f"backbones: (a) {name} logits", out, ref, 0.0, FWD_TOL))
+        log(f"[backbones] (a) {name} at {size[0]} px, {BB_IMAGES} images: logits "
+            f"{tuple(out.shape)} and {len(taps)} taps within {worst:.3g} of the CPU's f64 "
+            f"(bound {FWD_TOL:g}; {time.perf_counter() - t0:.1f} s)")
+        if name == CLIP:
+            clip = (params, x, out, taps)
+        if name == CLIP_SPLIT:
+            c_params, c_x, c_out, c_taps = clip
+            with torch.no_grad():
+                s_out, s_taps, _ = net.apply(split_converted_blocks(c_params, CLIP_DEPTH),
+                                             c_x.to(DEVICE))
+            blocks = range(CLIP_DEPTH)
+            worst = max(_close(f"backbones: (a) split block{i}", s_taps[f"block{i}_mlp"],
+                               c_taps[f"block{i}"], 0.0, 1e-6) for i in blocks)
+            worst = max(worst, _close("backbones: (a) split logits", s_out, c_out, 0.0, 1e-6))
+            same = torch.equal(s_out, c_out) and all(
+                torch.equal(s_taps[f"block{i}_mlp"], c_taps[f"block{i}"]) for i in blocks)
+            log(f"[backbones] (a) {CLIP_SPLIT} on the fused tower's parameters: logits "
+                f"and block{{i}}_mlp taps within {worst:.3g} of the fused block{{i}} (bitwise "
+                f"equal: {same})")
+            clip = None
+        del params, state
+        torch.cuda.empty_cache()
+
+    net = make_backbone("googlenet", "imagenet")
+    size = (224, 224, 3)
+    params, state = net.init(gen, size)
+    aux_p, aux_s = googlenet.init_googlenet_aux(gen, 1000)
+    x = torch.from_numpy(rng.standard_normal((BB_IMAGES, *size)).astype(np.float32))
+    (_, taps, _), (_, ref_taps, _) = both(net, params, state, x)
+    with torch.no_grad():
+        aux = googlenet.apply_googlenet_aux(aux_p, aux_s, taps)
+        ref = googlenet.apply_googlenet_aux(_tree_to(aux_p, "cpu", f64),
+                                            _tree_to(aux_s, "cpu", f64), ref_taps)
+    worst = max(_close(f"backbones: (a) googlenet {k}", aux[k], ref[k], 0.0, FWD_TOL)
+                for k in ref)
+    log(f"[backbones] (a) GoogLeNet's aux heads at 224 px: {sorted(aux)} "
+        f"{tuple(aux['aux1'].shape)} within {worst:.3g} of the CPU's f64")
+
+
+def _bb_kernels() -> dict:
+    """Rows 1-2 at BB_SAE's widths and rows 11-12 at BB_TC against their plain
+    versions in f32 and bf16 (TF32 off), bf16 repeats bitwise equal, each timed
+    beside its bound and the cuBLAS products; returns the rows by label."""
+    set_tf32(False)
+    t, c_in, c_out, h = BB_TC
+
+    def tc_coeffs(gen):
+        return (torch.tensor([2.0 / (t * c_out), LAMBDA / (t * h)], device=DEVICE),)
+
+    rows = {}
+    for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        with torch.no_grad():
+            for shape in BB_SAE:
+                r = kernels_relu(cd, tag, *shape)
+                rows.update({f"{k} {tag} T={shape[0]} C={shape[1]} H={shape[2]}": v
+                             for k, v in r.items()})
+                torch.cuda.empty_cache()
+            r = _kernels_coder(fused_transcoder, f"{tag}, {c_in} -> {c_out}", cd, t, c_in,
+                               c_out, h, tc_coeffs)
+            rows.update({f"{k} {tag} T={t} C={c_in}->{c_out} H={h}": v for k, v in r.items()})
+        torch.cuda.empty_cache()
+    log("[backbones] kernels at the backbones' widths: " + json.dumps(rows, sort_keys=True))
+    return rows
+
+
+@contextlib.contextmanager
+def _timed_dumps():
+    """The seconds of every activation-cache dump inside (the outermost call
+    where one dump function calls the other)."""
+    from sparse_vision_tpu_torch.data import activation_cache
+    from sparse_vision_tpu_torch.train import paired_caches
+
+    seconds, depth = [], [0]
+    names = ("dump_activations", "dump_activations_multi")
+    saved = [(m, n, getattr(m, n)) for m in (activation_cache, paired_caches) for n in names
+             if hasattr(m, n)]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                _sync()
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                seconds.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for m, n, fn in saved:
+        setattr(m, n, timed(fn))
+    try:
+        yield seconds
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _bb_slice(label: str, name: str, extra: dict, datasets, keep: bool = False) -> None:
+    """One phase_slice run on a backbone of this phase: its launches checked
+    there (its two kernels once a step, nothing else), the dump's seconds."""
+    with _timed_dumps() as dumps:
+        phase_slice(name, extra=extra, label=f" {label}", keep=keep, datasets=datasets)
+    if len(dumps) != 1:
+        raise AssertionError(f"backbones: {label}: {len(dumps)} dumps")
+    n = len(datasets[0])
+    log(f"[backbones] {label}: the dump of {n} images took {dumps[0]:.2f} s = "
+        f"{n / dumps[0]:.0f} images/s (host clock, ends in a synchronize)")
+
+
+def _clip_circuits(smi: str) -> None:
+    """(e) CircuitEngine over clip_vit_b16_split with four frozen sae_mlp SAEs
+    at CLIP_LAYERS: averages and node IE over CLIP_IMAGES, one batch's node IE
+    against the CPU's f64, one pair's edge IE at CLIP_EDGE_FEATURES a side, the
+    faithfulness anchors; no vmap fallback."""
+    import warnings
+
+    import numpy as np
+
+    from sparse_vision_tpu_torch.interp.circuit import CircuitEngine, FrozenSAE
+    from sparse_vision_tpu_torch.models.backbone import init_backbone, make_backbone
+    from sparse_vision_tpu_torch.ops.losses import cross_entropy
+
+    set_tf32(False)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    net = make_backbone(CLIP_SPLIT, "imagenet")
+    params, state = init_backbone(net, gen, "imagenet")
+    saes = {l: FrozenSAE("sae_mlp", init_sae_mlp(gen, CLIP_DIM, EXPANSION), EXPANSION)
+            for l in CLIP_LAYERS}
+    h = CLIP_DIM * EXPANSION
+    eng = CircuitEngine(net, params, saes, cross_entropy, state=state)
+    ds = make_synthetic(num_samples=CLIP_IMAGES, img_size=CLIP_SIZE, num_classes=1000, seed=13)
+    images = torch.from_numpy(ds.images)
+    with torch.no_grad():  # each image's class: the one its logits raise most
+        logits = torch.cat([net.apply(params, images[i:i + CLIP_BATCH].to(DEVICE))[0]
+                            for i in range(0, CLIP_IMAGES, CLIP_BATCH)])
+    labels = (logits - logits.mean(0)).argmax(1)
+    data = [(images[i:i + CLIP_BATCH].to(DEVICE), labels[i:i + CLIP_BATCH])
+            for i in range(0, CLIP_IMAGES, CLIP_BATCH)]
+    log(f"[backbones] (e) {CLIP_IMAGES} images in {len(set(labels.tolist()))} classes")
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _sync()
+        t0 = time.perf_counter()
+        avgs = eng.compute_averages(data)
+        _sync()
+        s1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node = eng.compute_node_ie(data, avgs)
+        _sync()
+        s2 = time.perf_counter() - t0
+        for l in CLIP_LAYERS:
+            if tuple(avgs.enc[l].shape) != (CLIP_TOKENS, h) or tuple(node.features[l].shape) != (h,):
+                raise AssertionError(f"backbones: (e) {l}: averages {tuple(avgs.enc[l].shape)}, "
+                                     f"node IE {tuple(node.features[l].shape)}")
+            if not all(bool(torch.isfinite(v).all()) for v in (
+                    avgs.enc[l], avgs.err[l], node.features[l], node.error[l],
+                    node.model_neurons[l])):
+                raise AssertionError(f"backbones: (e) {l}: non-finite averages or node IE")
+        log(f"[backbones] (e) averages / node IE at {len(CLIP_LAYERS)} taps over {CLIP_IMAGES} "
+            f"images in {s1:.2f} / {s2:.2f} s = {CLIP_IMAGES / s1:.1f} / "
+            f"{CLIP_IMAGES / s2:.1f} images/s; max |IE| of a feature "
+            + ", ".join(f"{l} {float(node.features[l].abs().max()):.3g}" for l in CLIP_LAYERS))
+
+        # one batch's node IE: the card's f32 against the CPU's f64
+        x, y = data[0][0][:NODE_CPU_IMAGES], data[0][1][:NODE_CPU_IMAGES]
+        on_card = eng.compute_node_ie([(x, y)], avgs)
+        avg64 = avgs._replace(**{f: {l: v.to("cpu", torch.float64) for l, v in
+                                      getattr(avgs, f).items()} for f in ("enc", "err", "out")},
+                              dead={l: v.cpu() for l, v in avgs.dead.items()})
+        t0 = time.perf_counter()
+        on_cpu = _cpu_engine(eng, torch.float64).compute_node_ie(
+            [(x.to("cpu", torch.float64), y.cpu())], avg64)
+        cpu_s = time.perf_counter() - t0
+        worst = max(_close(f"backbones: (e) node IE {f}:{l}", getattr(on_card, f)[l],
+                           getattr(on_cpu, f)[l], 0.0, NODE_TOL)
+                    for f in ("features", "error", "model_neurons") for l in CLIP_LAYERS)
+        log(f"[backbones] (e) node IE of {NODE_CPU_IMAGES} images: the card's f32 within "
+            f"{worst:.3g} of each array's scale from the CPU's f64 (bound {NODE_TOL:g}; the "
+            f"CPU took {cpu_s:.1f} s)")
+
+        # one pair's edges at CLIP_EDGE_FEATURES a side
+        pair = list(CLIP_LAYERS[:2])
+        idx = {l: [int(i) for i in np.argsort(-np.abs(node.features[l].cpu().numpy()))
+                   [:CLIP_EDGE_FEATURES]] for l in pair}
+        torch.cuda.reset_peak_memory_stats()
+        _sync()
+        t0 = time.perf_counter()
+        edges = eng.compute_edge_ie(data[:1], avgs, idx, custom_layers=pair,
+                                    cotangent_chunk=COTANGENT_CHUNK)
+        _sync()
+        s3 = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        k1 = CLIP_EDGE_FEATURES + 1
+        if tuple(edges[pair[0]].shape) != (k1, k1) or tuple(edges[pair[1]].shape) != (k1, 1) \
+                or not all(bool(torch.isfinite(m).all()) for m in edges.values()):
+            raise AssertionError(f"backbones: (e) edges {[tuple(m.shape) for m in edges.values()]}")
+        log(f"[backbones] (e) {pair[0]} -> {pair[1]} edges [{k1}, {k1}] and to the loss "
+            f"[{k1}, 1] over {CLIP_BATCH} images (chunks of {COTANGENT_CHUNK}) in {s3:.2f} s = "
+            f"{CLIP_BATCH / s3:.2f} images/s; peak memory {peak / 2**30:.2f} GiB "
+            f"(max_memory_allocated); max |edge| {float(edges[pair[0]].abs().max()):.3g}")
+
+        _check_anchors("backbones", "(e)", eng, data, node, avgs)
+    fallbacks = [str(w.message) for w in caught
+                 if "batching rule" in str(w.message) or "performance drop" in str(w.message)]
+    if fallbacks:
+        raise AssertionError(f"backbones: (e) vmap fell back to a loop: {fallbacks[:3]}")
+    log(f"[backbones] (e) {smi}: no vmap fallback")
+    del eng, params, saes, data
+    torch.cuda.empty_cache()
+
+
+def _clip_ie_modes(extra: dict, datasets) -> None:
+    """(e) compute_ie "1" then "2" through Pipeline.run on (b)'s trained SAE
+    (its epoch-1 checkpoint): interp/ie.py's one-layer engine at CLIP_SAE_LAYER."""
+    from sparse_vision_tpu_torch.interp import ie
+
+    cfg, _ = _slice_config("sae_mlp", extra)
+    for flag in ("1", "2"):
+        for k in KERNELS:
+            k.launches = 0
+        pipe = Pipeline(dataclasses.replace(cfg, training=False, compute_ie=flag,
+                                            sae_checkpoint_epoch=1), datasets=datasets)
+        _sync()
+        t0 = time.perf_counter()
+        out = pipe.run()
+        _sync()
+        sec = time.perf_counter() - t0
+        arrays = out.enc if flag == "1" else out.features
+        if list(arrays) != [CLIP_SAE_LAYER] or not all(
+                bool(torch.isfinite(v).all()) for v in arrays.values()):
+            raise AssertionError(f"backbones: compute_ie {flag}: {list(arrays)}")
+        h = CLIP_DIM * EXPANSION
+        shape = tuple(arrays[CLIP_SAE_LAYER].shape)
+        if shape != ((CLIP_TOKENS, h) if flag == "1" else (h,)):
+            raise AssertionError(f"backbones: compute_ie {flag}: block6 at {shape}")
+        launched = {k.name: k.launches for k in KERNELS if k.launches}
+        if launched:
+            raise AssertionError(f"backbones: compute_ie {flag} launched {launched}")
+        files = ie.MODE_FILES[flag]
+        log(f"[backbones] (e) Pipeline.run compute_ie {flag} on the trained {CLIP_SAE_LAYER} "
+            f"SAE over {len(pipe.train_ds)} images in {sec:.2f} s = "
+            f"{len(pipe.train_ds) / sec:.1f} images/s; wrote {files}; {shape}")
+        del pipe, out
+        torch.cuda.empty_cache()
+
+
+def phase_backbones(smi: str) -> dict:
+    """Phase 12 (the module docstring); returns the kernels' rows at its widths."""
+    t_phase = time.perf_counter()
+    _bb_forward()
+    rows = _bb_kernels()
+    clip_train = make_synthetic(num_samples=CLIP_TRAIN, seed=0, img_size=CLIP_SIZE,
+                                num_classes=1000)
+    clip_val = make_synthetic(num_samples=256, seed=1, img_size=CLIP_SIZE, num_classes=1000)
+    clip = (clip_train, clip_val, clip_train.category_names, CLIP_SIZE)
+    sae = dict(model_name=CLIP, sae_layer=CLIP_SAE_LAYER, sae_expansion_factor=EXPANSION)
+    _bb_slice(f"{CLIP} {CLIP_SAE_LAYER} sae_mlp", "sae_mlp", sae, clip, keep=True)
+    ie_train = make_synthetic(num_samples=CLIP_IE_IMAGES, seed=2, img_size=CLIP_SIZE,
+                              num_classes=1000)
+    _clip_ie_modes(sae, (ie_train, clip_val, ie_train.category_names, CLIP_SIZE))
+    shutil.rmtree(WORK, ignore_errors=True)
+    src, tgt = CLIP_TC_LAYERS
+    _bb_slice(f"{CLIP_SPLIT} {src} -> {tgt}", "transcoder",
+              dict(model_name=CLIP_SPLIT, sae_layer=src, transcoder_target_layer=tgt,
+                   sae_expansion_factor=EXPANSION), clip)
+    del clip, clip_train, ie_train
+    res_train = make_synthetic(num_samples=RESNET_TRAIN, seed=0, img_size=RESNET_SIZE,
+                               num_classes=200)
+    res_val = make_synthetic(num_samples=256, seed=1, img_size=RESNET_SIZE, num_classes=200)
+    _bb_slice("resnet18 layer4.1 sae_mlp", "sae_mlp",
+              dict(model_name="resnet18", dataset_name="tiny_imagenet", sae_layer="layer4.1",
+                   sae_expansion_factor=EXPANSION),
+              (res_train, res_val, res_train.category_names, RESNET_SIZE))
+    del res_train, res_val
+    _clip_circuits(smi)
+    shutil.rmtree(WORK, ignore_errors=True)
+    log(f"[backbones] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -3044,6 +3428,7 @@ def main() -> int:
     log("[multilayer] launches in (b) and (c): " + ", ".join(
         f"{k} {v}" for k, v in sorted(ml_launches.items())))
     phase_topk(smi)
+    phase_backbones(smi)
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

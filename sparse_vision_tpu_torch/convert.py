@@ -6,8 +6,12 @@ arrays (``jax.device_get`` of them), into the port's tensors, on the CPU.
   a JAX checkpoint tree (Orbax's restore of it) becomes the port's checkpoint
   tree (train/checkpoint.py), so the port can resume a run the JAX package
   started.
-- GoogLeNet: conv ``HWIO`` -> ``OIHW``; BatchNorm ``scale``/``bias``/``mean``/
-  ``var`` as they are; fc ``w [in, out]`` -> ``[out, in]``.
+- Backbones (every family of models/backbone.py): a weight named ``w`` or
+  ``*_w`` goes from the JAX layout to torch's, a conv ``HWIO`` -> ``OIHW`` and
+  a linear ``[in, out]`` -> ``[out, in]``; everything else (BatchNorm
+  ``scale``/``bias``/``mean``/``var``, LayerNorm scales, biases, the ViT class
+  token and position embeddings, the SAE block's ``W_enc``/``W_dec``, which
+  keep the math layout) as it is.
 """
 
 from __future__ import annotations
@@ -66,9 +70,10 @@ def checkpoint_from_jax(tree: dict) -> dict:
 
 def _convert_leaf(path: tuple, a) -> torch.Tensor:
     a = np.asarray(a, dtype=np.float32)
-    if path[-1] == "w" and a.ndim == 4:  # conv HWIO -> OIHW
+    weight = path[-1] == "w" or path[-1].endswith("_w")
+    if weight and a.ndim == 4:  # conv HWIO -> OIHW
         return torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
-    if path[-1] == "w" and a.ndim == 2:  # linear [in, out] -> [out, in]
+    if weight and a.ndim == 2:  # linear [in, out] -> [out, in]
         return torch.from_numpy(np.ascontiguousarray(a.T))
     return _t(a)
 
@@ -79,5 +84,5 @@ def _walk(tree: dict, path: tuple = ()) -> dict:
 
 
 def backbone_from_jax(params: dict, state: dict) -> tuple:
-    """(params, state) of a JAX SeqNet (GoogLeNet) -> the port's SeqNet trees."""
+    """(params, state) of a JAX SeqNet -> the port's SeqNet trees."""
     return _walk(params), _walk(state)

@@ -13,8 +13,9 @@ file written by one package drives the other):
         draws the faithfulness curve with matplotlib; the port writes the CSV
         and draws nothing.
 
-The circuit spans GoogLeNet's eight CIRCUIT_LAYERS, each with its frozen SAE
-from the registry. Other backbones are not ported.
+On GoogLeNet the circuit spans the eight CIRCUIT_LAYERS, each with its frozen
+SAE from the registry; on any other backbone it is the one layer
+``cfg.sae_layer`` with the pipeline's own SAE.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from sparse_vision_tpu_torch.interp.circuit import (
     FAITHFULNESS_THRESHOLDS,
     Averages,
     CircuitEngine,
+    FrozenSAE,
     NodeIE,
 )
 from sparse_vision_tpu_torch.interp.registry import (
@@ -54,14 +56,17 @@ def _ie_dir(pipeline) -> str:
 
 
 def build_engine(pipeline) -> CircuitEngine:
-    """The engine over the pipeline's frozen backbone and the registry's eight
-    SAEs, each restored from the checkpoint directory where the pipeline saves a
-    run with the registry's hyperparameters (a random SAE where none is)."""
+    """The engine over the pipeline's frozen backbone. On GoogLeNet: the
+    registry's eight SAEs, each restored from the checkpoint directory where
+    the pipeline saves a run with the registry's hyperparameters (a random SAE
+    where none is). Elsewhere: one SAE at ``cfg.sae_layer``, the pipeline's own
+    parameters (a restored checkpoint's with ``sae_checkpoint_epoch``)."""
     cfg = pipeline.cfg
     if cfg.model_name not in GOOGLENET:
-        raise NotImplementedError(
-            f"model_name={cfg.model_name!r}: circuit discovery is ported for GoogLeNet only; "
-            "the other backbones are not ported (ROADMAP A9)")
+        params = {k: v.detach() for k, v in pipeline.ts.params.items()}
+        saes = {cfg.sae_layer: FrozenSAE(cfg.sae_model_name, params, cfg.sae_expansion_factor)}
+        return CircuitEngine(pipeline.net, pipeline.frozen_params, saes, pipeline.criterion,
+                             state=pipeline.net_state)
     dims = layer_dimensions(pipeline.net, cfg.dataset_name)
     saes, missing = {}, []
     for name in CIRCUIT_LAYERS:

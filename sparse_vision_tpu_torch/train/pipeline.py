@@ -8,8 +8,9 @@ interp/mis.py), trains (``training``) or runs one standalone eval of a
 restored checkpoint. Training, ``train_sae``, trains any SAE variant
 (``sae_mlp``, ``gated_sae``, ``jumprelu_sae``, ``matryoshka_sae``,
 ``topk_sae``, ``batch_topk_sae``, ``sae_conv``) in one of the JAX package's
-two modes. With ``use_activation_cache`` (the north-star chain): frozen
-GoogLeNet -> tap ``sae_layer`` -> activation cache -> training on the
+two modes, on any backbone of models/backbone.py (GoogLeNet, ResNet-18/50,
+the MLPs and the CNN, the ViT and CLIP towers). With ``use_activation_cache``
+(the north-star chain): frozen backbone -> tap ``sae_layer`` -> activation cache -> training on the
 variant's fused CUDA kernels on a GPU (their plain versions on the CPU), or on
 the TopK family's fast paths (plain torch ops, any shape); sae_conv has no
 cached mode. Without it (the JAX default): each step runs the frozen backbone
@@ -45,12 +46,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sparse_vision_tpu_torch.config import RunConfig
+from sparse_vision_tpu_torch.config import IMG_SIZES, RunConfig
 from sparse_vision_tpu_torch.data.datasets import load_data
 from sparse_vision_tpu_torch.data.prefetch import prefetch
 from sparse_vision_tpu_torch.device import resolve_device
 from sparse_vision_tpu_torch.eval_tools import results as results_store
 from sparse_vision_tpu_torch.models.backbone import (
+    BACKBONES,
     get_sae_input_size,
     init_backbone,
     layer_dimensions,
@@ -85,8 +87,8 @@ from sparse_vision_tpu_torch.utils.paths import folder_paths, run_id, sae_run_na
 # field -> (supported values, or None for "the JAX default only"), checked by
 # validate_slice; anything else is not ported yet
 _SLICE = {
-    "model_name": ("inceptionv1", "googlenet"),
-    "dataset_name": ("imagenet",),
+    "model_name": BACKBONES,
+    "dataset_name": tuple(IMG_SIZES),
     "sae_model_name": SAE_VARIANTS + ("transcoder", "crosscoder"),
     "sae_optimizer_name": ("constrained_adam", "adam"),
     "cache_dtype": ("float32", "bfloat16", "int8"),

@@ -113,5 +113,7 @@ def test_maxpool_ceil_rule_matches_torch(window, stride):
 
 
 def test_unported_backbone_raises():
-    with pytest.raises(NotImplementedError):
-        tbackbone.make_backbone("resnet50", "imagenet")
+    # every name the JAX factory builds is ported (test_torch_backbones.py);
+    # one that it refuses, the port refuses as it does
+    with pytest.raises(ValueError, match="Unsupported model"):
+        tbackbone.make_backbone("alexnet", "imagenet")
