@@ -164,6 +164,38 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               batch's node IE against the CPU's f64, block2_attn ->
               block5_attn edges at 64 features a side (peak memory), phase
               9's faithfulness anchors; no vmap fallback.
+ 13. original: the original model's training and eval, and the dataset
+              loaders (no TPU kernel lies on the training path; JAX trains it
+              with plain value_and_grad): (a) Pipeline.run trains ResNet-18
+              (Tiny-ImageNet stem, 64 px, 200 classes; sgd_w_scheduler, batch
+              256) two epochs on 10,240 / 1,024 stand-in images, a fresh
+              Pipeline resumes it from model_weights/epoch_2 to three, and an
+              uninterrupted three-epoch run trains a second folder, cuDNN
+              deterministic: the train loss falls each epoch, val accuracy
+              rises, every running statistic moves, EpochLRState.epoch counts
+              the epochs, both folders' epochs 1-2 are bitwise equal; the
+              resumed third epoch's distance from the uninterrupted one is
+              printed (the resume restarts the optimizer, as the JAX package);
+              images/s; (b) one train step of the trained model on 32 images
+              on the card in f32, TF32 off, against the CPU's f64: the loss
+              and running statistics within ORIG_TOL, the parameters within
+              ORIG_TOL or F32_NOISE times the CPU's own f32 step; (c) a cached
+              sae_mlp run at layer4.1 (8x, bf16, 12 steps of 32,768 tokens) in
+              that folder prints "Loaded original-model weights from epoch 3.",
+              runs on the trained backbone bitwise and launches rows 1-2 once
+              a step (phase 6's checks); (d) mis "1" then "2" over layer4.1's
+              512 channels: one CSV row a channel, a finite median, seconds;
+              (e) MNIST idx files (60,000 / 10,000, the train images also
+              gzipped) and CIFAR-10 pickles (50,000 / 10,000) written from a
+              seed, read back through load_data bitwise equal to the formula
+              on the written bytes, custom_mlp_9 and custom_cnn_1 trained an
+              epoch on them (batch 64) to above-chance accuracy, images/s; (f)
+              "pil: <version>" or "pil: absent"; with PIL a tiny-imagenet-200
+              folder through eval_original of (a)'s model, two ImageNet tar
+              shards of 300 x 400 JPEGs decoded at 229 px (inceptionv1) and
+              224 px (clip_vit_b16), the pool bitwise the synchronous decode,
+              the index file reused, decode images/s; without PIL the first
+              decode's ImportError naming it. TF32 is off for (b) only.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -189,7 +221,7 @@ from types import SimpleNamespace
 import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
-from sparse_vision_tpu_torch.data.datasets import make_synthetic
+from sparse_vision_tpu_torch.data.datasets import ArrayDataset, make_synthetic
 from sparse_vision_tpu_torch.models.crosscoder import (
     crosscoder_inference_and_loss,
     init_crosscoder,
@@ -214,6 +246,7 @@ from sparse_vision_tpu_torch.ops import (
     fused_sae,
     fused_transcoder,
     native,
+    optim,
 )
 from sparse_vision_tpu_torch.ops.fast_batch_topk import (
     fast_batch_topk_sae_loss_terms,
@@ -1373,12 +1406,15 @@ def _slice_config(name: str, extra: dict | None = None, datasets=None) -> tuple:
 
 
 def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
-                label: str = "", keep: bool = False, datasets=None) -> tuple:
+                label: str = "", keep: bool = False, datasets=None,
+                on_pipeline=None) -> tuple:
     """One north-star-width run of ``name`` through the port's Pipeline, with
     the config fields ``extra`` beyond SLICES' (``label`` names the run in the
-    log) and ``datasets`` in place of the stand-in (_slice_config); returns (launches per kernel, the last eval's means, the cache
-    directory of its sae_layer, which ``keep`` leaves on disk). ``profile``
-    traces the run with torch.profiler and prints device time by kernel."""
+    log) and ``datasets`` in place of the stand-in (_slice_config); returns
+    (launches per kernel, the last eval's means, the cache directory of its
+    sae_layer, which ``keep`` leaves on disk). ``profile`` traces the run with
+    torch.profiler and prints device time by kernel. ``on_pipeline(pipe)``
+    checks the Pipeline once it is built."""
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1390,6 +1426,8 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     log(f"[slice {name_log}] pipeline built in {time.perf_counter() - t0:.1f} s "
         f"(train {len(pipe.train_ds)} / val {len(pipe.val_ds)} images, "
         f"{pipe.num_units} latents)")
+    if on_pipeline is not None:
+        on_pipeline(pipe)
     before = {k: v.clone() for k, v in pipe.ts.params.items()}
     for k in KERNELS:
         k.launches = 0
@@ -3405,6 +3443,484 @@ def phase_backbones(smi: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the original model's training and eval, the dataset loaders
+# ---------------------------------------------------------------------------
+
+ORIG_WORK = ROOT / "_smoke_original"  # listed in .gitignore; removed at the end
+# (a): the reference's own trained backbone, ResNet-18 with the Tiny-ImageNet stem
+ORIG = dict(model_name="resnet18", dataset_name="tiny_imagenet", sae_model_name="None",
+            sae_layer="layer4.1", original_model=True, model_optimizer_name="sgd_w_scheduler",
+            model_learning_rate=0.01, batch_size=256, log_every=10**9)
+ORIG_TRAIN, ORIG_VAL, ORIG_SIZE, ORIG_CLASSES = 10240, 1024, (64, 64, 3), 200
+ORIG_EPOCHS = 3
+# (b): the card's f32 step (TF32 off) against the CPU's f64 on ORIG_STEP_IMAGES
+# images: the loss and the running statistics within ORIG_TOL of each array's
+# scale; a parameter array within ORIG_TOL, or within F32_NOISE times the
+# distance of the CPU's own f32 step from f64 (at a random init this model's
+# f32 gradients lie up to a few percent of an update from f64 on any device,
+# PERF.md §6)
+ORIG_STEP_IMAGES, ORIG_TOL, F32_NOISE = 32, 1e-4, 4.0
+SAE_IMAGES = 6144  # (c): 12 steps of 32,768 layer4.1 tokens, 64 an image
+MNIST_N, CIFAR_N, LOADER_BATCH = (60000, 10000), (50000, 10000), 64
+TAR_IMAGES, TAR_SHARD, TAR_WH = 256, 128, (400, 300)  # (f): 2 train shards of 300 x 400 JPEGs
+TINY_PER_CLASS, TINY_BATCH = 8, 100
+
+
+class _Tee(io.TextIOBase):
+    """Writes to stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _orig_cfg(folder, **kw) -> RunConfig:
+    return RunConfig(**{**ORIG, "directory_path": str(folder), **kw})
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree_diff(a, b) -> float:
+    """The largest |a - b| of any leaf over that leaf's largest |b|."""
+    def host(t):
+        return t.detach().to("cpu", torch.float64)
+
+    return max(float((host(x) - host(_get(b, p))).abs().max()
+                     / host(_get(b, p)).abs().max().clamp_min(1e-30))
+               for p, x in _leaves(a))
+
+
+def _tree_equal(a, b) -> bool:
+    return all(torch.equal(x, _get(b, p).to(x.device)) for p, x in _leaves(a))
+
+
+def _epoch_losses(pipe, steps_per_epoch: int) -> list:
+    losses = [float(m["model_loss"]) for _, m in pipe.train_log]
+    return [sum(losses[i:i + steps_per_epoch]) / steps_per_epoch
+            for i in range(0, len(losses), steps_per_epoch)]
+
+
+def _orig_train(data, smi: str):
+    """(a) Pipeline.run trains ResNet-18 two epochs, a fresh Pipeline resumes
+    it to three, and an uninterrupted run trains three in a second folder;
+    cuDNN deterministic. Returns the uninterrupted Pipeline."""
+    dir_a, dir_c = ORIG_WORK / "a", ORIG_WORK / "c"
+    steps = ORIG_TRAIN // ORIG["batch_size"]
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        a = Pipeline(_orig_cfg(dir_a, model_epochs=2), datasets=data)
+        a.run()
+        b = Pipeline(_orig_cfg(dir_a, model_epochs=ORIG_EPOCHS), datasets=data)
+        if b._model_ckpt_epoch != 2 or not _tree_equal(b.frozen_params, a.mts.params) \
+                or not _tree_equal(b.net_state, a.mts.net_state):
+            raise AssertionError("original: (a) the resumed Pipeline did not start from "
+                                 "model_weights/epoch_2")
+        b.run()
+        c = Pipeline(_orig_cfg(dir_c, model_epochs=ORIG_EPOCHS), datasets=data)
+        init_state = [(path, t.clone()) for path, t in _leaves(c.net_state)]
+        c.run()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    epochs = _epoch_losses(c, steps)
+    log(f"[original] (a) {smi}: mean train loss per epoch {[round(v, 5) for v in epochs]}; "
+        "evals " + ", ".join(f"{e}: loss {m['model_loss']:.5f} acc {m['accuracy']:.4f}"
+                             for e, m in c.eval_log))
+    if len(epochs) != ORIG_EPOCHS or not all(x > y for x, y in zip(epochs, epochs[1:])):
+        raise AssertionError(f"original: (a) the train loss did not fall each epoch: {epochs}")
+    if not c.eval_log[-1][1]["accuracy"] > c.eval_log[0][1]["accuracy"]:
+        raise AssertionError("original: (a) val accuracy did not rise")
+    moved = sum(not torch.equal(_get(c.net_state, path), t) for path, t in init_state)
+    if moved != len(init_state):
+        raise AssertionError(f"original: (a) {moved} running statistics moved, not all")
+    counts = (a.mts.opt_state.epoch, b.mts.opt_state.epoch, c.mts.opt_state.epoch)
+    if counts != (2, ORIG_EPOCHS, ORIG_EPOCHS):
+        raise AssertionError(f"original: (a) EpochLRState.epoch {counts}")
+    for e in (1, 2):  # both folders ran the same two epochs
+        ta = ckpt.load_checkpoint(a.paths["model_weights"], e)
+        tc = ckpt.load_checkpoint(c.paths["model_weights"], e)
+        if set(ta) != {"params", "net_state"}:
+            raise AssertionError(f"original: (a) checkpoint keys {sorted(ta)}")
+        if not _tree_equal(ta, tc):
+            raise AssertionError(f"original: (a) epoch {e} differs between two runs of one "
+                                 f"seed: {_tree_diff(ta, tc):.3g} of an array's scale")
+    final = ckpt.load_checkpoint(c.paths["model_weights"], ORIG_EPOCHS)
+    if not _tree_equal(final["params"], c.frozen_params):
+        raise AssertionError("original: (a) the trained weights are not the frozen backbone")
+    log(f"[original] (a) checkpoints epoch_1 and epoch_2 of the two folders bitwise equal "
+        f"(cuDNN deterministic); EpochLRState.epoch {counts}; every running statistic "
+        f"moved; the resumed epoch 3 against the uninterrupted one: params "
+        f"{_tree_diff(b.mts.params, c.mts.params):.3g} of an array's scale apart (the resume "
+        "restarts the momentum, as the JAX package: model_weights holds params and net_state)")
+    for e, t in enumerate(c.train_timing):
+        log(f"[original] (a) {smi}: epoch {e + 1}: {t['steps']} steps of {ORIG['batch_size']} "
+            f"images in {t['seconds']:.3f} s = {t['images'] / t['seconds']:.0f} images/s "
+            "(host clock, ends in a synchronize; cuDNN deterministic)")
+    return c
+
+
+def _orig_step_vs_cpu(pipe, data) -> None:
+    """(b) One train step of (a)'s model on the card in f32, TF32 off, against
+    the same step on the CPU in f64 (and in f32, the noise floor)."""
+    import numpy as np
+
+    set_tf32(False)
+    x = torch.from_numpy(np.ascontiguousarray(data[0].images[:ORIG_STEP_IMAGES]))
+    y = torch.from_numpy(data[0].labels[:ORIG_STEP_IMAGES])
+    runs = {}
+    for tag, device, dtype in (("card", DEVICE, torch.float32), ("cpu64", "cpu", torch.float64),
+                               ("cpu32", "cpu", torch.float32)):
+        params = _tree_to(pipe.frozen_params, device, dtype)
+        state = _tree_to(pipe.net_state, device, dtype)
+        tx = optim.get_optimizer(ORIG["model_optimizer_name"], ORIG["model_learning_rate"])
+        step = tsteps.make_model_train_step(pipe.net, tx, pipe.criterion)
+        t0 = time.perf_counter()
+        ts, m = step(tsteps.ModelTrainState(params, state, tx.init(params), 0),
+                     x.to(device, dtype), y.to(device))
+        _sync()
+        runs[tag] = (ts, float(m["model_loss"]), time.perf_counter() - t0)
+    (card, loss, _), (ref, ref_loss, cpu_s), (cpu32, _, _) = (runs[k] for k in (
+        "card", "cpu64", "cpu32"))
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    state_err = _tree_diff(card.net_state, ref.net_state)
+    worst, floor = 0.0, 0.0
+    for path, want in _leaves(ref.params):
+        scale = float(want.abs().max().clamp_min(1e-30))
+        err = float((_get(card.params, path).double().cpu() - want).abs().max()) / scale
+        noise = float((_get(cpu32.params, path).double() - want).abs().max()) / scale
+        if err > max(ORIG_TOL, F32_NOISE * noise):
+            raise AssertionError(f"original: (b) {'/'.join(path)}: the card's step {err:.3g} of "
+                                 f"the array's scale from the CPU's f64; the CPU's f32 {noise:.3g}")
+        worst, floor = max(worst, err), max(floor, noise)
+    if loss_err > ORIG_TOL or state_err > ORIG_TOL:
+        raise AssertionError(f"original: (b) loss {loss_err:.3g}, running statistics "
+                             f"{state_err:.3g} from the CPU's f64 (bound {ORIG_TOL:g})")
+    log(f"[original] (b) one step of {ORIG_STEP_IMAGES} images, TF32 off: the card's f32 loss "
+        f"{loss_err:.3g} and running statistics {state_err:.3g} of their scale from the CPU's "
+        f"f64 (bound {ORIG_TOL:g}); params {worst:.3g} (the CPU's own f32 step {floor:.3g}; "
+        f"bound max({ORIG_TOL:g}, {F32_NOISE:g}x the CPU's f32 per array)); the CPU's f64 "
+        f"step took {cpu_s:.1f} s")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _orig_chain(trained, data) -> None:
+    """(c) A cached sae_mlp run in (a)'s folder at layer4.1 (expansion 8):
+    the trained backbone loaded from model_weights, rows 1-2 once a step."""
+    train, val, names, size = data
+    sae_data = (ArrayDataset(train.images[:SAE_IMAGES], train.labels[:SAE_IMAGES], names),
+                ArrayDataset(val.images[:256], val.labels[:256], names), names, size)
+    tee = _Tee(sys.stdout)
+
+    def check(pipe):
+        if pipe._model_ckpt_epoch != ORIG_EPOCHS or not _tree_equal(
+                pipe.frozen_params, trained.frozen_params) or not _tree_equal(
+                pipe.net_state, trained.net_state):
+            raise AssertionError("original: (c) the SAE run's backbone is not the trained one")
+
+    with contextlib.redirect_stdout(tee):
+        launches, _, _ = phase_slice(
+            "sae_mlp", extra=dict(model_name="resnet18", dataset_name="tiny_imagenet",
+                                  sae_layer="layer4.1", sae_expansion_factor=EXPANSION,
+                                  directory_path=str(ORIG_WORK / "c")),
+            label=" resnet18 layer4.1 on the trained backbone", datasets=sae_data,
+            on_pipeline=check)
+    line = f"Loaded original-model weights from epoch {ORIG_EPOCHS}."
+    if line not in tee.buf.getvalue():
+        raise AssertionError(f"original: (c) the SAE run did not print {line!r}")
+    log(f"[original] (c) the SAE Pipeline printed {line!r}; its frozen_params and net_state "
+        f"are bitwise the trained ones; launches {launches}")
+
+
+def _orig_mis(data) -> None:
+    """(d) Original-model MIS over layer4.1's 512 channels of the trained model."""
+    for flag in ("1", "2"):
+        pipe = Pipeline(_orig_cfg(ORIG_WORK / "c", training=False, mis=flag), datasets=data)
+        _sync()
+        t0 = time.perf_counter()
+        out = pipe.run()
+        _sync()
+        sec = time.perf_counter() - t0
+        if flag == "1":
+            log(f"[original] (d) mis 1: the 200 extreme train samples of {pipe.num_units} "
+                f"channels over {len(pipe.train_ds)} images in {sec:.2f} s")
+            continue
+        with open(os.path.join(pipe.paths["evaluation_results"], "MIS",
+                               f"{pipe.run_id}_mis_epoch_0.csv")) as f:
+            rows = sum(1 for _ in f) - 1
+        if rows != 512 or len(out["per_unit"]) != 512 or not math.isfinite(out["median_mis"]):
+            raise AssertionError(f"original: (d) {rows} CSV rows, median {out['median_mis']}")
+        log(f"[original] (d) mis 2: 512 CSV rows, median MIS {out['median_mis']:.4f} in "
+            f"{sec:.2f} s")
+
+
+def _blobs(rng, centers, n: int, chunk: int = 10000):
+    """n images of the classes of ``centers`` (make_synthetic's recipe, noise
+    0.3) quantized to uint8, and their labels."""
+    import numpy as np
+
+    labels = rng.integers(0, centers.shape[0], size=n)
+    out = np.empty((n,) + centers.shape[1:], np.uint8)
+    for s in range(0, n, chunk):
+        x = centers[labels[s:s + chunk]] + 0.3 * rng.standard_normal(
+            (min(chunk, n - s),) + centers.shape[1:], dtype=np.float32)
+        out[s:s + chunk] = np.clip(np.rint(128 + 48 * x), 0, 255).astype(np.uint8)
+    return out, labels
+
+
+def _write_idx(path: str, arr, opener=open) -> None:
+    import struct
+
+    with opener(path, "wb") as f:
+        f.write(struct.pack(">I", 0x800 | arr.ndim))
+        f.write(struct.pack(f">{arr.ndim}I", *arr.shape))
+        f.write(arr.tobytes())
+
+
+def _orig_loaders(smi: str) -> None:
+    """(e) MNIST's idx files (the train images also gzipped) and CIFAR-10's
+    pickles at full size, read back through load_data equal to the formula on
+    the written bytes; custom_mlp_9 and custom_cnn_1 trained an epoch on them."""
+    import gzip
+    import pickle
+
+    import numpy as np
+
+    from sparse_vision_tpu_torch.data.datasets import load_data
+
+    rng = np.random.default_rng(16)
+    root, gz_root = ORIG_WORK / "data", ORIG_WORK / "data_gz"
+    t0 = time.perf_counter()
+    mnist = {}
+    centers = np.random.default_rng(1234).standard_normal((10, 28, 28), dtype=np.float32)
+    for prefix, n in zip(("train", "t10k"), MNIST_N):
+        mnist[prefix] = _blobs(rng, centers, n)
+        for base in (root, gz_root):
+            os.makedirs(base / "mnist", exist_ok=True)
+            _write_idx(str(base / "mnist" / f"{prefix}-labels-idx1-ubyte"),
+                       mnist[prefix][1].astype(np.uint8))
+            if base is root or prefix != "train":
+                _write_idx(str(base / "mnist" / f"{prefix}-images-idx3-ubyte"), mnist[prefix][0])
+    _write_idx(str(gz_root / "mnist" / "train-images-idx3-ubyte.gz"), mnist["train"][0],
+               lambda p, m: gzip.open(p, m, compresslevel=1))
+    cifar_dir = root / "cifar-10" / "cifar-10-batches-py"
+    os.makedirs(cifar_dir)
+    centers = np.random.default_rng(1235).standard_normal((10, 3, 32, 32), dtype=np.float32)
+    cifar = {"train": [], "test": []}
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for name in names:
+        n = CIFAR_N[1] if name == "test_batch" else CIFAR_N[0] // 5
+        x, y = _blobs(rng, centers, n)
+        cifar["test" if name == "test_batch" else "train"].append((x, y))
+        with open(cifar_dir / name, "wb") as f:
+            pickle.dump({b"data": x.reshape(n, 3072), b"labels": y.tolist()}, f)
+    log(f"[original] (e) wrote MNIST ({MNIST_N[0]:,} / {MNIST_N[1]:,}, the train images also "
+        f"as .gz) and CIFAR-10 ({CIFAR_N[0]:,} / {CIFAR_N[1]:,}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def mnist_formula(u8):
+        return (u8.astype(np.float32)[..., None] / 255.0 - 0.1307) / 0.3081
+
+    def cifar_formula(parts):
+        x = np.concatenate([p for p, _ in parts]).transpose(0, 2, 3, 1).astype(np.float32)
+        return (x / 255.0 - 0.1307) / 0.3081
+
+    for base, tag in ((root, "idx"), (gz_root, "idx.gz")):
+        t0 = time.perf_counter()
+        tr, va, _, size = load_data(RunConfig(model_name="custom_mlp_9", dataset_name="mnist",
+                                              data_dir=str(base)))
+        sec = time.perf_counter() - t0
+        if tuple(size) != (28, 28, 1) or not (
+                np.array_equal(tr.images, mnist_formula(mnist["train"][0]))
+                and np.array_equal(va.images, mnist_formula(mnist["t10k"][0]))
+                and np.array_equal(tr.labels, mnist["train"][1])):
+            raise AssertionError(f"original: (e) MNIST ({tag}) differs from the written bytes")
+        log(f"[original] (e) MNIST from {tag} read in {sec:.2f} s, bitwise the formula")
+    t0 = time.perf_counter()
+    tr, va, _, size = load_data(RunConfig(model_name="custom_cnn_1", dataset_name="cifar_10",
+                                          data_dir=str(root)))
+    sec = time.perf_counter() - t0
+    if tuple(size) != (32, 32, 3) or not (
+            np.array_equal(tr.images, cifar_formula(cifar["train"]))
+            and np.array_equal(va.images, cifar_formula(cifar["test"]))
+            and np.array_equal(tr.labels, np.concatenate([y for _, y in cifar["train"]]))):
+        raise AssertionError("original: (e) CIFAR-10 differs from the written bytes")
+    log(f"[original] (e) CIFAR-10 read in {sec:.2f} s, bitwise the formula")
+    for model, dataset, layer in (("custom_mlp_9", "mnist", "fc1"),
+                                  ("custom_cnn_1", "cifar_10", "conv2")):
+        cfg = RunConfig(model_name=model, dataset_name=dataset, data_dir=str(root),
+                        sae_model_name="None", sae_layer=layer, original_model=True,
+                        batch_size=LOADER_BATCH, model_epochs=1, log_every=10**9,
+                        directory_path=str(ORIG_WORK / "loaders"))
+        pipe = Pipeline(cfg)
+        pipe.run()
+        t, acc = pipe.train_timing[0], pipe.eval_log[-1][1]["accuracy"]
+        log(f"[original] (e) {smi}: {model} on the {dataset} files, one epoch: "
+            f"{t['steps']} steps of {LOADER_BATCH} in {t['seconds']:.2f} s = "
+            f"{t['images'] / t['seconds']:.0f} images/s; val accuracy "
+            f"{pipe.eval_log[0][1]['accuracy']:.4f} -> {acc:.4f}")
+        if not acc > 0.5:
+            raise AssertionError(f"original: (e) {model} ended at accuracy {acc}")
+
+
+def _decode_pass(ds, batch: int, workers: int) -> tuple:
+    t0 = time.perf_counter()
+    batches = list(ds.batches(batch, shuffle=False, workers=workers))
+    return batches, time.perf_counter() - t0
+
+
+def _same(a: list, b: list) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(x.images, y.images) and np.array_equal(x.indices, y.indices)
+        for x, y in zip(a, b))
+
+
+def _orig_pil(smi: str) -> None:
+    """(f) With PIL: the Tiny-ImageNet folders through eval_original of (a)'s
+    model, ImageNet tar shards decoded at 229 px (inceptionv1) and 224 px
+    (clip_vit_b16), the pool against the synchronous decode, the index file
+    reused. Without PIL: the ImportError that names it."""
+    import numpy as np
+
+    from sparse_vision_tpu_torch.data.datasets import TarShardDataset, load_data, write_tar_shards
+
+    try:
+        import PIL
+        from PIL import Image
+    except ImportError:
+        log("pil: absent")
+        shard = ORIG_WORK / "nopil"
+        os.makedirs(shard)
+        (shard / "x.jpg").write_bytes(b"\xff\xd8 an image")
+        ds = TarShardDataset(write_tar_shards([str(shard / "x.jpg")], [0], str(shard)), ["x"])
+        try:
+            ds.get_image(0)
+        except ImportError as e:
+            if "PIL" not in str(e):
+                raise AssertionError(f"original: (f) the ImportError does not name PIL: {e}")
+            log(f"[original] (f) without PIL the first decode raises: {e!r}; not run: the "
+                "Tiny-ImageNet eval, the tar-shard decodes at 229 and 224 px, the index "
+                "reuse, workers=0 against the pool and the decode rates")
+            return
+        raise AssertionError("original: (f) a decode without PIL did not raise")
+    log(f"pil: {PIL.__version__}")
+    rng = np.random.default_rng(17)
+    tiny = ORIG_WORK / "tiny" / "tiny-imagenet-200"
+    wnids = [f"n{i:08d}" for i in range(ORIG_CLASSES)]
+    centers = np.random.default_rng(1236).standard_normal((ORIG_CLASSES, 64, 64, 3),
+                                                          dtype=np.float32)
+    t0 = time.perf_counter()
+    os.makedirs(tiny / "val" / "images")
+    (tiny / "wnids.txt").write_text("\n".join(wnids) + "\n")
+    imgs, labels = _blobs(rng, centers, ORIG_CLASSES * (TINY_PER_CLASS + 1))
+    with open(tiny / "val" / "val_annotations.txt", "w") as f:
+        for i, (img, lab) in enumerate(zip(imgs, labels)):
+            if i < ORIG_CLASSES:  # val
+                Image.fromarray(img).save(tiny / "val" / "images" / f"val_{i}.png")
+                f.write(f"val_{i}.png\t{wnids[lab]}\t0\t0\t64\t64\n")
+                continue
+            d = tiny / "train" / wnids[lab] / "images"
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(img).save(d / f"{i}.png")
+    for w in wnids:
+        os.makedirs(tiny / "train" / w / "images", exist_ok=True)
+    log(f"[original] (f) wrote a tiny-imagenet-200 folder ({len(imgs) - ORIG_CLASSES} train / "
+        f"{ORIG_CLASSES} val PNGs) in {time.perf_counter() - t0:.1f} s")
+    cfg = _orig_cfg(ORIG_WORK / "c", training=False, data_dir=str(tiny.parent),
+                    batch_size=TINY_BATCH)
+    pipe = Pipeline(cfg)
+    means = pipe.run()
+    if pipe._model_ckpt_epoch != ORIG_EPOCHS or not all(map(math.isfinite, means.values())):
+        raise AssertionError(f"original: (f) eval_original on the folder: {means}")
+    sync, s0 = _decode_pass(pipe.train_ds, TINY_BATCH, 0)
+    pool, s1 = _decode_pass(pipe.train_ds, TINY_BATCH, -1)
+    if not _same(sync, pool):
+        raise AssertionError("original: (f) the Tiny-ImageNet pool differs from workers=0")
+    n = len(sync) * TINY_BATCH
+    log(f"[original] (f) eval_original of (a)'s ResNet-18 over the folder's val: "
+        f"{json.dumps(means, sort_keys=True)}; {smi}: decode of {n} PNGs {n / s0:.0f} images/s "
+        f"with workers=0, {n / s1:.0f} with the pool, bitwise equal")
+
+    src = ORIG_WORK / "jpegs"
+    os.makedirs(src)
+    paths = []
+    for i in range(TAR_IMAGES):
+        small = rng.integers(0, 256, (TAR_WH[1] // 10, TAR_WH[0] // 10, 3), dtype=np.uint8)
+        p = str(src / f"{i:05d}.jpg")
+        Image.fromarray(small).resize(TAR_WH, Image.BICUBIC).save(p, quality=90)
+        paths.append(p)
+    base = ORIG_WORK / "inet" / "imagenet"
+    write_tar_shards(paths, [i % 1000 for i in range(TAR_IMAGES)], str(base),
+                     shard_size=TAR_SHARD, prefix="train")
+    write_tar_shards(paths[:TAR_SHARD], list(range(TAR_SHARD)), str(base),
+                     shard_size=TAR_SHARD, prefix="val")
+    index = None
+    for model, side in (("inceptionv1", 229), ("clip_vit_b16", 224)):
+        train, _, _, size = load_data(RunConfig(model_name=model, dataset_name="imagenet",
+                                                data_dir=str(base.parent)))
+        caches = sorted(base.glob("_svt_index_*.json"))
+        stamps = [os.stat(c).st_mtime_ns for c in caches]
+        if index is not None and stamps != index:
+            raise AssertionError("original: (f) the tar index was rewritten on a second open")
+        index = stamps
+        if not isinstance(train, TarShardDataset) or tuple(size) != (side, side, 3) \
+                or len(train) != TAR_IMAGES or len(caches) != 2:
+            raise AssertionError(f"original: (f) {model}: {type(train).__name__} {size} "
+                                 f"{len(train)} images, {len(caches)} index files")
+        sync, s0 = _decode_pass(train, 32, 0)
+        pool, s1 = _decode_pass(train, 32, -1)
+        if not _same(sync, pool) or sync[0].images.shape[1:] != (side, side, 3):
+            raise AssertionError(f"original: (f) {model}: the pool differs from workers=0")
+        log(f"[original] (f) {smi}: {TAR_IMAGES} JPEGs of {TAR_WH[1]} x {TAR_WH[0]} from "
+            f"{len(train.tar_paths)} tar shards at {side} px ({model}): {TAR_IMAGES / s0:.0f} "
+            f"images/s with workers=0, {TAR_IMAGES / s1:.0f} with the pool "
+            f"({os.cpu_count()} CPUs), bitwise equal")
+    log("[original] (f) the _svt_index files were reused by the second open")
+
+
+def phase_original(smi: str) -> None:
+    """Phase 13 (the module docstring)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(ORIG_WORK, ignore_errors=True)
+    torch.backends.cudnn.allow_tf32 = True  # a user's run: PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train = make_synthetic(num_samples=ORIG_TRAIN, img_size=ORIG_SIZE,
+                           num_classes=ORIG_CLASSES, seed=0)
+    val = make_synthetic(num_samples=ORIG_VAL, img_size=ORIG_SIZE, num_classes=ORIG_CLASSES,
+                         seed=1)
+    data = (train, val, train.category_names, ORIG_SIZE)
+    trained = _orig_train(data, smi)
+    _orig_step_vs_cpu(trained, data)
+    _orig_chain(trained, data)
+    _orig_mis(data)
+    del trained
+    torch.cuda.empty_cache()
+    _orig_loaders(smi)
+    _orig_pil(smi)
+    shutil.rmtree(ORIG_WORK, ignore_errors=True)
+    log(f"[original] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -3429,6 +3945,7 @@ def main() -> int:
         f"{k} {v}" for k, v in sorted(ml_launches.items())))
     phase_topk(smi)
     phase_backbones(smi)
+    phase_original(smi)
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

@@ -8,7 +8,9 @@ transcoder or a crosscoder (resuming from the checkpoint of
 ``sae_checkpoint_epoch`` when it is above 0, starting from the weights of
 ``sae_weights_path`` when it is set) and exports its weights; ``training:
 false`` runs one modified-model eval of that dictionary. The last eval's means
-print as one JSON line.
+print as one JSON line. With ``original_model: true`` the model is the backbone
+itself: training (``train_original``) prints the epoch reached, the last
+eval's means and the ``model_weights`` folder; ``training: false`` evaluates it.
 
 Circuit discovery on GoogLeNet (``training: false``, the eight registry SAEs
 loaded from their checkpoints): ``compute_ie`` "1" dataset averages, "2" node
@@ -65,6 +67,11 @@ def main(argv=None) -> dict:
         folder = pipe.paths["ie_related_quantities"]
         out = {"compute_ie": cfg.compute_ie,
                "wrote": [os.path.join(folder, f) for f in MODE_FILES[cfg.compute_ie[0]]]}
+    elif cfg.original_model and cfg.training and cfg.mis == "0":
+        out = {"original_model": "trained",
+               "epoch": max(cfg.model_epochs, pipe._model_ckpt_epoch),
+               "last_eval": pipe.eval_log[-1][1] if pipe.eval_log else None,
+               "model_weights": pipe.paths["model_weights"]}
     elif cfg.mis == "2":
         folder = os.path.join(pipe.paths["evaluation_results"], "MIS")
         out = {"mis": "2", "median_mis": out["median_mis"], "average_mis": out["average_mis"],

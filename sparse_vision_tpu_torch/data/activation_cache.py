@@ -161,17 +161,19 @@ class _ShardWriter:
 def dump_activations(net, params: dict, state: Optional[dict], dataset, layer: str,
                      out_dir: str, batch_size: int = 64, shard_tokens: int = 1 << 16,
                      dtype: str = "float32", device=None,
-                     shard_queue: Optional[queue.Queue] = None) -> dict:
+                     shard_queue: Optional[queue.Queue] = None,
+                     workers: Optional[int] = None) -> dict:
     """Run the frozen backbone over ``dataset`` on ``device`` (default CUDA), flatten
     the tapped layer to tokens ([B, H, W, C] -> [B*H*W, C]) and write fixed-size
     shards. ``dtype``: "float32", "bfloat16" (cast on the device) or "int8"
     (bf16 to the host, quantized per shard at flush). ``shard_queue`` receives
     each shard's path once its atomic write completes (the dump/train overlap;
-    the bytes are the same as without it). Returns the meta dict: the one-layer
+    the bytes are the same as without it). ``workers``: the dataset's decode
+    threads (datasets._auto_workers). Returns the meta dict: the one-layer
     case of dump_activations_multi."""
     return dump_activations_multi(net, params, state, dataset, [layer], {layer: out_dir},
                                   batch_size=batch_size, shard_tokens=shard_tokens,
-                                  dtype=dtype, device=device,
+                                  dtype=dtype, device=device, workers=workers,
                                   shard_queues=None if shard_queue is None
                                   else {layer: shard_queue})[layer]
 
@@ -180,14 +182,17 @@ def dump_activations(net, params: dict, state: Optional[dict], dataset, layer: s
 def dump_activations_multi(net, params: dict, state: Optional[dict], dataset, layers: list,
                            out_dirs: dict, batch_size: int = 64, shard_tokens: int = 1 << 16,
                            dtype: str = "float32", device=None,
-                           shard_queues: Optional[dict] = None) -> dict:
+                           shard_queues: Optional[dict] = None,
+                           workers: Optional[int] = None) -> dict:
     """Write the caches of every layer in ``layers`` from ONE backbone pass: the
     forward stops at the deepest requested stage and one shard writer per layer
     shards its token stream. Each layer's shards and meta are byte-identical to a
     dump_activations of that layer alone, so the caches are aligned: the same
     shard geometry and token order (the paired caches of train/paired_caches.py).
 
-    Image batches are staged onto the device one step ahead (data/prefetch.py).
+    Image batches are decoded by ``workers`` threads (a file-backed dataset's;
+    datasets._auto_workers) and staged onto the device one step ahead
+    (data/prefetch.py).
     Each batch's tokens leave the device one batch behind: their copies into
     pinned host buffers are queued with the batch (``non_blocking``, one event),
     and the batch is drained into the writers only after the next batch's
@@ -232,7 +237,7 @@ def dump_activations_multi(net, params: dict, state: Optional[dict], dataset, la
             writers[l].add(host[l])
 
     pending = None
-    for batch in prefetch(dataset.batches(batch_size, shuffle=False), device):
+    for batch in prefetch(dataset.batches(batch_size, shuffle=False, workers=workers), device):
         _, taps, _ = net.apply(params, batch.images, state=state, stop_at=stop)
         toks = to_host({l: tokens_from_act(taps[l])[0].to(acc_dtype) for l in layers})
         if pending is not None:

@@ -100,7 +100,8 @@ def check_labels(classes: np.ndarray, translated: torch.Tensor, num_classes: int
 
 
 def _batches(pipeline):
-    """The train dataset in ``sae_batch_size`` batches, in order, labels
+    """The train dataset in ``sae_batch_size`` batches, in order (decoded by
+    ``cfg.data_workers`` threads where it is file-backed), labels
     translated to GoogLeNet's old-convention ids on ImageNet and checked on the
     host before the batch is staged onto the device through data/prefetch.py."""
     cfg = pipeline.cfg
@@ -108,7 +109,8 @@ def _batches(pipeline):
     head = layer_dimensions(pipeline.net, cfg.dataset_name)[pipeline.net.stage_names[-1]][-1]
 
     def host():
-        for b in pipeline.train_ds.batches(cfg.sae_batch_size, shuffle=False):
+        for b in pipeline.train_ds.batches(cfg.sae_batch_size, shuffle=False,
+                                           workers=cfg.data_workers):
             labels = torch.from_numpy(b.labels)
             if translate:
                 labels = remap_torch_to_tf_labels(labels)

@@ -180,7 +180,8 @@ def _embed_fn(pipeline):
 
 def compute_mis_for_run(pipeline, n_mis: int = 20, k_mis: int = 9, embed_fn=None) -> dict:
     """Mode ``mis="2"``: read the per-unit max/min sample indices that the
-    ``mis="1"`` epoch saved, embed every sample they name (in chunks of 64,
+    ``mis="1"`` epoch saved, embed every sample they name (in chunks of 64, decoded by
+    ``cfg.data_workers`` threads where the dataset is file-backed and
     staged through data/prefetch.py; the embeddings stay on the device until
     one readback), score every unit, write the per-unit CSV under
     ``evaluation_results/MIS/`` and record the layer's median in the run's
@@ -212,7 +213,8 @@ def compute_mis_for_run(pipeline, n_mis: int = 20, k_mis: int = 9, embed_fn=None
     embed = embed_fn or _embed_fn(pipeline)
 
     def chunks():
-        for chunk_idx, imgs in fetch_images_batches(pipeline.train_ds, needed, 64):
+        for chunk_idx, imgs in fetch_images_batches(pipeline.train_ds, needed, 64,
+                                                    workers=cfg.data_workers):
             yield Batch(imgs, chunk_idx, chunk_idx.astype(np.int32))
 
     embs = torch.cat([embed(b.images) for b in prefetch(chunks(), pipeline.device)])

@@ -163,12 +163,12 @@ def _bn_channels_first(p, s, x, train, eps, momentum):
     if not train:
         return F.batch_norm(x, s["mean"], s["var"], p["scale"], p["bias"], training=False,
                             eps=eps), s
-    dims = [d for d in range(x.ndim) if d != 1]
-    var, mean = torch.var_mean(x, dim=dims, correction=0)
-    n = x.numel() // x.shape[1]
-    new_s = {"mean": (1 - momentum) * s["mean"] + momentum * mean,
-             "var": (1 - momentum) * s["var"] + momentum * var * (n / max(n - 1, 1))}
-    return F.batch_norm(x, mean, var, p["scale"], p["bias"], training=False, eps=eps), new_s
+    # differentiable through the batch statistics; the running ones move in
+    # copies of the state, which torch updates in place
+    new_s = {"mean": s["mean"].clone(), "var": s["var"].clone()}
+    y = F.batch_norm(x, new_s["mean"], new_s["var"], p["scale"], p["bias"], training=True,
+                     momentum=momentum, eps=eps)
+    return y, new_s
 
 
 def batchnorm(name: str, eps: float = 1e-5, momentum: float = 0.1) -> Stage:

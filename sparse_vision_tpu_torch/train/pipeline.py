@@ -1,11 +1,16 @@
-"""Run orchestration (port of the SAE-training, modified-model-eval and circuit
-parts of sparse_vision_tpu/train/pipeline.py).
+"""Run orchestration (port of sparse_vision_tpu/train/pipeline.py).
 
 ``Pipeline(cfg).run()`` runs a circuit-discovery mode (``compute_ie``, with
 ``training=False``: interp/ie.py), an MIS mode (``mis`` "1" collects each
 unit's 200 extreme train samples, ``mis_epoch``; "2" scores them,
 interp/mis.py), trains (``training``) or runs one standalone eval of a
-restored checkpoint. Training, ``train_sae``, trains any SAE variant
+restored checkpoint. With ``original_model`` the model is the backbone itself:
+``train_original`` trains it (the reference's first step) and writes
+``model_weights/epoch_<e>``, ``eval_original`` evaluates it, and MIS scores
+the channels of the backbone layer that ``sae_layer`` names. Every Pipeline
+loads the latest ``model_weights`` checkpoint into its backbone, so the
+dictionaries of a directory train on the backbone trained there. Training a
+dictionary, ``train_sae``, trains any SAE variant
 (``sae_mlp``, ``gated_sae``, ``jumprelu_sae``, ``matryoshka_sae``,
 ``topk_sae``, ``batch_topk_sae``, ``sae_conv``) in one of the JAX package's
 two modes, on any backbone of models/backbone.py (GoogLeNet, ResNet-18/50,
@@ -33,8 +38,11 @@ cache is dequantized on the device. ``sae_input_norm="rms"`` trains on each
 layer's activations divided by its cache's token RMS. Each eval writes the
 per-unit top-k file and activity frequencies, and each eval after an epoch its
 row of the results CSV (eval_tools/results.py), under the JAX package's file
-names (utils/paths.py). The eval figures are not ported; a config that asks for
-anything outside the slice raises NotImplementedError naming the field.
+names (utils/paths.py). Datasets come from ``data_dir`` (data/datasets.py) or
+the synthetic stand-in, each file-backed read decoded by ``cfg.data_workers``
+threads. The eval figures are not ported: the last eval prints the figures
+it does not draw. A config that asks for anything outside the port raises
+NotImplementedError naming the field.
 """
 
 from __future__ import annotations
@@ -71,10 +79,13 @@ from sparse_vision_tpu_torch.ops.losses import get_criterion
 from sparse_vision_tpu_torch.ops.topk import init_topk, update_topk
 from sparse_vision_tpu_torch.train import checkpoint as ckpt
 from sparse_vision_tpu_torch.train.steps import (
+    ModelTrainState,
     SAETrainState,
     fused_op,
     init_sae_train_state,
     make_dequant_step_fn,
+    make_model_eval_step,
+    make_model_train_step,
     make_sae_eval_step,
     make_sae_train_multi_step,
     make_sae_train_multi_step_quant,
@@ -84,36 +95,38 @@ from sparse_vision_tpu_torch.train.steps import (
 from sparse_vision_tpu_torch.utils.logging import RunLogger
 from sparse_vision_tpu_torch.utils.paths import folder_paths, run_id, sae_run_name
 
-# field -> (supported values, or None for "the JAX default only"), checked by
-# validate_slice; anything else is not ported yet
+# field -> the values the port supports, checked by validate_slice; anything
+# else is not ported yet
 _SLICE = {
     "model_name": BACKBONES,
     "dataset_name": tuple(IMG_SIZES),
     "sae_model_name": SAE_VARIANTS + ("transcoder", "crosscoder"),
     "sae_optimizer_name": ("constrained_adam", "adam"),
+    "model_optimizer_name": ("adam", "sgd", "sgd_w_scheduler"),
     "cache_dtype": ("float32", "bfloat16", "int8"),
     "compute_dtype": ("bfloat16", "float32"),
     "model_criterion_name": ("cross_entropy", "negative_log_likelihood"),
-    "original_model": (False,),
     # 1: the collection epoch (mis_epoch), 2: scoring (interp/mis.py)
     "mis": ("0", "1", "2"),
     # 0: off; 1 averages, 2 node IE, 3 edge IE, 4<i> faithfulness (interp/ie.py)
     "compute_ie": ("0", "1", "2", "3") + tuple(f"4{i}" for i in range(20)),
-    "data_dir": ("",),
     "mesh_shape": ((),),
     "overlap_dump_train": (False, True),
     "sae_input_norm": ("none", "rms"),
     "sae_e2e_finetune_epochs": (0,),
     "wandb_status": (False,),
-    "imagenet_class_filter": ("",),
     "profile_dir": ("",),
 }
+# the dictionary's fields, which an original-model run does not read
+_SAE_FIELDS = ("sae_model_name", "sae_optimizer_name")
 
 
 def validate_slice(cfg: RunConfig) -> None:
     """Raise NotImplementedError, naming the field, for a value the port does not
     support yet."""
     for field, ok in _SLICE.items():
+        if cfg.original_model and field in _SAE_FIELDS:
+            continue
         value = getattr(cfg, field)
         if value not in ok:
             raise NotImplementedError(
@@ -143,10 +156,17 @@ class Pipeline:
                  backbone: Optional[tuple] = None, sae_params: Optional[dict] = None):
         """``device``: None means CUDA (raises without a GPU); "cpu" runs the plain
         versions of the kernels. ``datasets`` optionally injects
-        ``(train_ds, val_ds, category_names, img_size)``. ``backbone`` =
-        (params, state) and ``sae_params`` optionally replace the random init,
-        e.g. with the JAX package's weights through convert.py;
-        ``cfg.sae_weights_path`` then still imports over them, and
+        ``(train_ds, val_ds, category_names, img_size)``; without it load_data
+        reads ``cfg.data_dir`` (ImageNet filtered to ``cfg.imagenet_class_filter``)
+        or draws the stand-in. The backbone is drawn from ``cfg.seed``, then
+        the latest checkpoint of the run folder's ``model_weights/`` (an
+        original model trained there) replaces it, as in the JAX package; a
+        checkpoint the JAX package wrote there (an Orbax directory) raises.
+        ``backbone`` = (params, state) and ``sae_params`` optionally replace
+        both the draw and ``model_weights/`` (e.g. with the JAX package's
+        weights through convert.py): an explicit backbone wins over the
+        directory, and an original-model run then trains from epoch 0.
+        ``cfg.sae_weights_path`` still imports over the dictionary's, and
         ``cfg.sae_checkpoint_epoch`` restores the train state."""
         self.validate_input_norm(cfg)  # before any dump thread can start
         validate_slice(cfg)
@@ -157,14 +177,58 @@ class Pipeline:
         self.device = resolve_device(device)
         self.net = make_backbone(cfg.model_name, cfg.dataset_name)
         if datasets is None:
-            datasets = load_data(cfg)
+            datasets = load_data(cfg, class_filter=cfg.imagenet_class_filter or None)
         self.train_ds, self.val_ds, self.category_names, self.img_size = datasets
         self.criterion = get_criterion(cfg.model_criterion_name)
 
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._model_ckpt_epoch = 0
         if backbone is None:
-            backbone = init_backbone(self.net, gen, cfg.dataset_name)
+            backbone = self._restore_model(init_backbone(self.net, gen, cfg.dataset_name))
         self.frozen_params, self.net_state = _to_device(backbone, self.device)
+        if cfg.use_sae:
+            self._init_dictionary(gen, sae_params)
+        else:
+            self.tx = optim.get_optimizer(cfg.model_optimizer_name, cfg.model_learning_rate)
+            self.mts = ModelTrainState(self.frozen_params, self.net_state,
+                                       self.tx.init(self.frozen_params), 0)
+            # the channels of the backbone layer that sae_layer names (top-k and
+            # MIS of the original model); 0 where it names none (e.g. "None")
+            try:
+                self.num_units = get_sae_input_size(self.net, cfg.dataset_name, cfg.sae_layer)
+            except ValueError:
+                self.num_units = 0
+        self.train_log: list = []  # (step, metrics of that step)
+        self.eval_log: list = []  # (epoch, means)
+        self.train_timing: list = []  # per epoch: steps, tokens or images, seconds
+
+    def _restore_model(self, backbone: tuple) -> tuple:
+        """``backbone`` (params, state), or the latest original-model checkpoint
+        of ``model_weights/`` in its place (the JAX package's restore,
+        sparse_vision_tpu/train/pipeline.py:92-104), with its epoch in
+        ``_model_ckpt_epoch``."""
+        folder = self.paths["model_weights"]
+        last = ckpt.latest_epoch(folder)
+        if last is None:
+            return backbone
+        if os.path.isdir(os.path.join(folder, f"epoch_{last}")):
+            raise ValueError(
+                f"{folder}/epoch_{last} is a checkpoint of the JAX package (an Orbax "
+                "directory), which the port does not read: restore it with the JAX "
+                "package, bring its params and net_state over with "
+                "convert.backbone_from_jax (or an SAE checkpoint with "
+                "convert.checkpoint_from_jax) and save them with "
+                "train/checkpoint.save_checkpoint, or pass them as backbone=")
+        params, state = backbone
+        restored = ckpt.load_checkpoint(folder, last, like={"params": params, "net_state": state})
+        self._model_ckpt_epoch = last
+        print(f"Loaded original-model weights from epoch {last}.")
+        return restored["params"], restored["net_state"]
+
+    def _init_dictionary(self, gen: torch.Generator, sae_params: Optional[dict]) -> None:
+        """The dictionary's parameters (drawn from ``gen`` unless given), its
+        optimizer and train state, restored from ``cfg.sae_checkpoint_epoch``."""
+        cfg = self.cfg
         self.sae_input_size = get_sae_input_size(self.net, cfg.dataset_name, cfg.sae_layer)
         self.num_units = int(self.sae_input_size * cfg.sae_expansion_factor)
         name = cfg.sae_model_name
@@ -212,9 +276,6 @@ class Pipeline:
         self.ts = init_sae_train_state(self.sae_params, self.tx, self.num_units, seed=cfg.seed)
         if cfg.sae_checkpoint_epoch > 0:
             self._restore_sae(cfg.sae_checkpoint_epoch)
-        self.train_log: list = []  # (step, metrics of that step)
-        self.eval_log: list = []  # (epoch, means)
-        self.train_timing: list = []  # per epoch: steps, tokens, seconds
 
     # ------------------------------------------------------------------
     def _cache_dir(self, layer: str) -> str:
@@ -230,6 +291,7 @@ class Pipeline:
         block = self.CACHE_SCAN_K * cfg.cache_tokens_per_step
         return dict(
             batch_size=cfg.sae_batch_size,
+            workers=cfg.data_workers,
             dtype=cfg.cache_dtype,
             # a multiple of the stack block, so stacks are zero-copy shard slices
             shard_tokens=block * max(1, -(-(1 << 16) // block)),
@@ -256,11 +318,20 @@ class Pipeline:
 
     def run(self):
         """The configured mode: a circuit-discovery mode (``compute_ie``,
-        interp/ie.py), an MIS mode (``mis``), training, or a standalone eval of
-        the dictionary as it is (a restored checkpoint's, with
-        ``sae_checkpoint_epoch``), which is its own last epoch. The other modes,
-        original-model MIS among them (``original_model`` is pinned to False),
-        are refused by validate_slice."""
+        interp/ie.py; the dictionary's only), an MIS mode (``mis``; with
+        ``original_model`` over the channels of the layer ``sae_layer``
+        names), training (the dictionary, or with ``original_model`` the
+        backbone), or a standalone eval of the model as it is (a restored
+        checkpoint's, with ``sae_checkpoint_epoch``), which is its own last
+        epoch."""
+        cfg = self.cfg
+        if cfg.original_model and cfg.compute_ie != "0":
+            raise ValueError("IE can only be computed for the SAE model, not the original "
+                             "model (original_model=False).")
+        if cfg.original_model and cfg.mis != "0" and self.num_units == 0:
+            raise ValueError(
+                f"Original-model MIS needs sae_layer to name a backbone layer (got "
+                f"{cfg.sae_layer!r}; available: {self.net.stage_names}).")
         if self.cfg.compute_ie != "0":
             from sparse_vision_tpu_torch.interp.ie import run_ie
 
@@ -271,9 +342,16 @@ class Pipeline:
             from sparse_vision_tpu_torch.interp.mis import compute_mis_for_run
 
             return compute_mis_for_run(self)
-        if self.cfg.training:
+        if cfg.use_sae and cfg.training:
             return self.train_sae()
-        return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, final=True)
+        if cfg.use_sae:
+            return self.eval_modified(epoch=cfg.sae_checkpoint_epoch, final=True)
+        if cfg.training:
+            return self.train_original()
+        # a layer named: its own last epoch, with the top-k collection over the
+        # layer's channels
+        collect = self.num_units > 0 and cfg.sae_layer not in ("", "None")
+        return self.eval_original(collect_topk=collect, final=collect)
 
     def train_sae(self):
         """Train the configured dictionary: an SAE variant from its activation
@@ -314,8 +392,7 @@ class Pipeline:
         units = {"images": bs, "tokens": bs * int(np.prod(shape[:-1]))}
 
         def run_epoch(epoch):
-            batches = self.train_ds.batches(bs, shuffle=True, seed=cfg.seed + epoch)
-            for b in prefetch(batches, self.device):
+            for b in self._batches(self.train_ds, bs, shuffle=True, seed=cfg.seed + epoch):
                 self.ts, m = step_fn(self.ts, self.frozen_params, self.net_state, b.images,
                                      b.labels)
                 self.logger.log_train(self.ts.step, m)
@@ -634,8 +711,7 @@ class Pipeline:
         With ``store``, writes the epoch's results row and merges the CSV. The
         batches reach the device through data/prefetch.py; the sums and the
         top-k states stay there until one readback after the loop. ``final``
-        (the run's last eval) would draw the eval figures, which are not
-        ported."""
+        (the run's last eval) prints the eval figures it does not draw."""
         cfg = self.cfg
         step_fn = self._sae_eval_step_fn
         ds = self.train_ds if on_train_data else self.val_ds
@@ -644,7 +720,7 @@ class Pipeline:
         top = init_topk(k, self.num_units, largest=True, device=self.device)
         small = init_topk(k, self.num_units, largest=False, device=self.device)
         num_batches = 0
-        for b in prefetch(ds.batches(bs, shuffle=False), self.device):
+        for b in self._batches(ds, bs, shuffle=False):
             m, arrays = step_fn(self.ts.params, self.frozen_params, self.net_state,
                                 b.images, b.labels)
             num_batches += 1
@@ -667,6 +743,8 @@ class Pipeline:
         means["perc_dead_units"] = float(host["dead"].mean())
         self.eval_log.append((epoch, means))
         self.logger.log_eval(epoch, means)
+        if final:
+            _figures_not_drawn()
 
         # batch-mean activity frequency per unit
         freq = host["freq"].astype(np.float64) / num_batches
@@ -704,9 +782,122 @@ class Pipeline:
         """Mode ``mis="1"``: an eval epoch on the train data that keeps each
         unit's n_mis·(k_mis + 1) = 200 most and least activating samples in the
         top-k file of ``sae_checkpoint_epoch``, which ``mis="2"`` scores; no
-        results row."""
-        return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, store=False,
-                                  on_train_data=True, k=n_mis * (k_mis + 1))
+        results row. With ``original_model`` the units are the channels of the
+        backbone layer that ``sae_layer`` names (eval_original)."""
+        k = n_mis * (k_mis + 1)
+        if self.cfg.use_sae:
+            return self.eval_modified(epoch=self.cfg.sae_checkpoint_epoch, store=False,
+                                      on_train_data=True, k=k)
+        return self.eval_original(epoch=self.cfg.sae_checkpoint_epoch, on_train_data=True,
+                                  k=k, collect_topk=True)
+
+    def _batches(self, ds, batch_size: int, shuffle: bool, seed: int = 0):
+        """``ds`` in batches, decoded by ``cfg.data_workers`` threads where it is
+        file-backed, staged onto the device through data/prefetch.py."""
+        return prefetch(ds.batches(batch_size, shuffle=shuffle, seed=seed,
+                                   workers=self.cfg.data_workers), self.device)
+
+    # ------------------------------------------------------------------
+    # the original model: training and eval
+    # ------------------------------------------------------------------
+    def train_original(self):
+        """Train the backbone itself (the reference's first step): an eval
+        before the first epoch, then per epoch one step per batch of
+        ``batch_size`` (shuffled by ``seed + epoch``), the StepLR epoch
+        advanced, a checkpoint ``{"params", "net_state"}`` to
+        ``model_weights/epoch_<e+1>`` and an eval. A directory that holds a
+        checkpoint resumes after its epoch (the weights only: the optimizer
+        starts anew, as in the JAX package, with the schedule advanced to the
+        resume point), and returns at once when that reaches
+        ``model_epochs``. The trained weights become the frozen backbone.
+        Returns the train state."""
+        cfg = self.cfg
+        step_fn = make_model_train_step(self.net, self.tx, self.criterion)
+        start = self._model_ckpt_epoch
+        if start >= cfg.model_epochs:
+            print(f"Original model already trained to epoch {start}; nothing to do.")
+            return self.mts._replace(params=self.frozen_params, net_state=self.net_state)
+        for _ in range(start):
+            self.mts = self.mts._replace(opt_state=optim.advance_epoch(self.mts.opt_state))
+        for epoch in range(start, cfg.model_epochs):
+            if epoch == 0:
+                self.eval_original(0)
+            t0, steps0 = time.perf_counter(), self.mts.step
+            for b in self._batches(self.train_ds, cfg.batch_size, shuffle=True,
+                                   seed=cfg.seed + epoch):
+                self.mts, m = step_fn(self.mts, b.images, b.labels)
+                self.logger.log_train(self.mts.step, m)
+                self.train_log.append((self.mts.step, m))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            steps = self.mts.step - steps0
+            self.train_timing.append({"epoch": epoch, "steps": steps,
+                                      "images": steps * cfg.batch_size,
+                                      "seconds": time.perf_counter() - t0})
+            # the per-epoch StepLR step (model_pipeline.py:963-965)
+            self.mts = self.mts._replace(opt_state=optim.advance_epoch(self.mts.opt_state))
+            ckpt.save_checkpoint(self.paths["model_weights"], epoch + 1,
+                                 {"params": self.mts.params, "net_state": self.mts.net_state})
+            self.eval_original(epoch + 1)
+        self.frozen_params, self.net_state = self.mts.params, self.mts.net_state
+        return self.mts
+
+    def eval_original(self, epoch: int = 0, on_train_data: bool = False, k: int = 25,
+                      collect_topk: bool = False, final: bool = False) -> dict:
+        """The original model's eval epoch over the validation data (the train
+        data with ``on_train_data``) in ``batch_size`` batches: the means of
+        ``model_loss`` and ``accuracy``, logged; no results row. With
+        ``collect_topk``, over the channel means of the layer ``sae_layer``
+        names: the activity frequency, the dead channels and each channel's
+        ``k`` most and least activating samples, written to
+        ``filename_indices/<run_id>_epoch_<epoch>.npz`` under the JAX
+        package's four names, which interp/mis.compute_mis_for_run scores.
+        ``final`` prints the eval figures it does not draw."""
+        cfg = self.cfg
+        if collect_topk and self.num_units == 0:
+            raise ValueError(
+                f"Top-k collection needs sae_layer to name a backbone layer (got "
+                f"{cfg.sae_layer!r}; available: {self.net.stage_names}).")
+        step_fn = make_model_eval_step(self.net, self.criterion,
+                                       topk_layer=cfg.sae_layer if collect_topk else None)
+        mts = getattr(self, "mts", None)
+        params, net_state = (self.frozen_params, self.net_state) if mts is None else (
+            mts.params, mts.net_state)
+        ds = self.train_ds if on_train_data else self.val_ds
+        sums = freq_sum = dead_acc = None
+        if collect_topk:
+            top = init_topk(k, self.num_units, largest=True, device=self.device)
+            small = init_topk(k, self.num_units, largest=False, device=self.device)
+        num_batches = 0
+        for b in self._batches(ds, cfg.batch_size, shuffle=False):
+            m, arrays, _ = step_fn(params, net_state, b.images, b.labels)
+            num_batches += 1
+            sums = m if sums is None else {key: sums[key] + v for key, v in m.items()}
+            if collect_topk:
+                freq_sum = arrays["freq"] if freq_sum is None else freq_sum + arrays["freq"]
+                dead_acc = metrics.update_dead_accumulator(dead_acc, arrays["dead"])
+                start_idx = (num_batches - 1) * cfg.batch_size
+                top = update_topk(top, arrays["topk_acts"], start_idx, b.indices)
+                small = update_topk(small, arrays["topk_acts"], start_idx, b.indices)
+        if num_batches == 0:
+            raise ValueError("Empty evaluation dataset")
+        names = sorted(sums)
+        totals = torch.stack([sums[n].float() for n in names]).cpu().numpy()
+        means = {n: float(v) / num_batches for n, v in zip(names, totals)}
+        self.eval_log.append((epoch, means))
+        self.logger.log_eval(epoch, means)
+        if final:
+            _figures_not_drawn()
+        if collect_topk:
+            freq = freq_sum.cpu().numpy().astype(np.float64) / num_batches
+            fn_dir = os.path.join(self.paths["evaluation_results"], "filename_indices")
+            os.makedirs(fn_dir, exist_ok=True)
+            np.savez(os.path.join(fn_dir, f"{self.run_id}_epoch_{epoch}.npz"),
+                     max_filename_indices=top.filename_indices.cpu().numpy(),
+                     min_filename_indices=small.filename_indices.cpu().numpy(),
+                     dead_units=dead_acc.cpu().numpy(),
+                     activity_freq=freq.astype(np.float32))
+        return means
 
     def _auto_eval_batch_size(self) -> int:
         """sae_batch_size, clamped so the stock eval step's [B*H*W, latents] f32
@@ -718,6 +909,11 @@ class Pipeline:
         tokens_per_image = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
         max_bs = max(1, (2 << 30) // max(tokens_per_image * self.num_units * 4, 1))
         return int(min(bs, max_bs))
+
+
+def _figures_not_drawn() -> None:
+    print("[eval] figures not drawn (not ported): the channel-frequency histogram, the "
+          "top-k grids and the activation histograms")
 
 
 def _to_device(tree, device):

@@ -1,6 +1,7 @@
-"""SAE train and eval steps (port of the SAE steps of
-sparse_vision_tpu/train/steps.py) for every variant: sae_mlp, gated_sae,
-jumprelu_sae, matryoshka_sae, topk_sae, batch_topk_sae and sae_conv.
+"""Train and eval steps (port of sparse_vision_tpu/train/steps.py): the SAE
+steps for every variant (sae_mlp, gated_sae, jumprelu_sae, matryoshka_sae,
+topk_sae, batch_topk_sae and sae_conv), and the original model's own
+(make_model_train_step, make_model_eval_step).
 
 Two training modes, as in the JAX package: from cached activations
 (make_sae_train_step_from_acts, on the fused ops or the TopK fast paths) and
@@ -53,6 +54,13 @@ class SAETrainState(NamedTuple):
     step: int  # completed train batches (train_batch_idx)
     dead_acc: torch.Tensor  # bool [h]: running AND across batches since the last reset
     rng: torch.Generator  # draws of the resamples, on the parameters' device
+
+
+class ModelTrainState(NamedTuple):
+    params: dict  # the backbone's, nested by stage
+    net_state: dict  # batch-norm running statistics
+    opt_state: object  # the model optimizer's (ops/optim.py)
+    step: int  # completed train batches
 
 
 def init_sae_train_state(sae_params: dict, tx: optim.Optimizer, hidden: int,
@@ -456,3 +464,56 @@ def eval_metrics(out: dict, act: torch.Tensor, decoded: torch.Tensor, logits_ori
         "correct": (logits_mod.argmax(1) == labels).sum(),
     }
     return batch_metrics, arrays
+
+
+def make_model_train_step(net, tx: optim.Optimizer, criterion):
+    """The original model's train step (the reference's original_model=True,
+    training=True; model_pipeline.py:653-660): ``step_fn(ts, images, labels) ->
+    (ts, {"model_loss", "accuracy"})``. The criterion on ``net.apply(...,
+    train=True)`` (batch norm on the batch's statistics), its gradient over the
+    nested parameters by autograd, the optimizer's update, and the new
+    running statistics."""
+
+    def step_fn(ts: ModelTrainState, images: torch.Tensor, labels: torch.Tensor):
+        params = optim.tree_map(lambda p: p.detach().requires_grad_(), ts.params)
+        leaves: list = []
+        optim.tree_map(leaves.append, params)
+        logits, _, new_state = net.apply(params, images, state=ts.net_state, train=True)
+        loss = criterion(logits, labels)
+        flat = iter(torch.autograd.grad(loss, leaves))
+        grads = optim.tree_map(lambda _: next(flat), params)
+        with torch.no_grad():
+            updates, opt_state = tx.update(grads, ts.opt_state, ts.params)
+            new_params = optim.apply_updates(ts.params, updates)
+            m = {"model_loss": loss.detach(), "accuracy": metrics.accuracy(logits, labels)}
+        new_state = optim.tree_map(torch.Tensor.detach, new_state)
+        return ModelTrainState(new_params, new_state, opt_state, ts.step + 1), m
+
+    return step_fn
+
+
+def make_model_eval_step(net, criterion, topk_layer: Optional[str] = None):
+    """The original model's eval step: ``step_fn(params, net_state, images,
+    labels) -> (metrics, arrays, taps)``, the metrics ``model_loss`` and
+    ``accuracy``, ``arrays`` the batch's count of ``correct`` predictions.
+    ``topk_layer`` names the backbone layer whose channels the original-model
+    top-k and MIS collect (the reference reuses sae_layer for it,
+    specify_parameters.py:245-247): ``arrays`` then also holds its channel
+    means ``topk_acts`` [B, C] and its ``freq`` and ``dead`` [C] (expansion
+    factor 1), and the taps are dropped (an empty dict), as the JAX step drops
+    them."""
+
+    @torch.no_grad()
+    def step_fn(params: dict, net_state: dict, images: torch.Tensor, labels: torch.Tensor):
+        logits, taps, _ = net.apply(params, images, state=net_state)
+        m = {"model_loss": criterion(logits, labels),
+             "accuracy": metrics.accuracy(logits, labels)}
+        arrays = {"correct": (logits.argmax(1) == labels).sum()}
+        if topk_layer is None:
+            return m, arrays, taps
+        act = taps[topk_layer]
+        dead, _, freq = metrics.measure_inactive_units(act, 1)
+        arrays.update(topk_acts=metrics.spatial_mean(act), freq=freq, dead=dead)
+        return m, arrays, {}
+
+    return step_fn

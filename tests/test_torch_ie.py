@@ -308,7 +308,8 @@ def test_cli_runs_a_mode_and_names_its_files(runs, tmp_path, capsys, monkeypatch
     for f in ("averages.npz", "node_ie.npz"):
         shutil.copy(os.path.join(runs["tdir"], f), folder)
     # the CLI's Pipeline loads the synthetic data: the 32 px stand-in here
-    monkeypatch.setattr(pipeline_mod, "load_data", lambda c: _datasets(t_synth, c.seed))
+    monkeypatch.setattr(pipeline_mod, "load_data",
+                        lambda c, class_filter=None: _datasets(t_synth, c.seed))
     out = cli.main(["--run_pipeline", "--config", cfg.to_json(), "--device", "cpu"])
     assert out == {"compute_ie": "41", "wrote": [os.path.join(folder, "faithfulness.csv")]}
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out

@@ -138,12 +138,14 @@ def test_reference_stats_and_distribution_check_equal_jax():
 
 
 def test_fetch_images_batches_takes_in_memory_datasets_only():
+    """The in-memory branch (tests/test_torch_datasets.py holds the file and tar
+    branches); an object that is no dataset of any kind raises."""
     ds = t_synth(num_samples=10, img_size=(4, 4, 3), num_classes=10, seed=0)
     got = list(fetch_images_batches(ds, [7, 2, 9, 0, 5], 2))
     assert [c.tolist() for c, _ in got] == [[7, 2], [9, 0], [5]]
     np.testing.assert_array_equal(got[1][1], ds.images[[9, 0]])
-    with pytest.raises(NotImplementedError, match="A9"):
-        next(fetch_images_batches(object(), [0], 2))
+    with pytest.raises(AttributeError, match="decode_fn"):
+        next(fetch_images_batches(object(), [0], 2, workers=0))
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +258,7 @@ def test_mis_modes_refuse_training_and_run_from_the_cli(mis_runs, monkeypatch, c
     with pytest.raises(ValueError, match="MIS is computed on a frozen SAE"):
         TPipeline(TConfig(**CFG, mis="1", directory_path=mis_runs["tdir"]), device="cpu",
                   datasets=_datasets(t_synth))
-    monkeypatch.setattr(t_pipeline, "load_data", lambda cfg: _datasets(t_synth))
+    monkeypatch.setattr(t_pipeline, "load_data", lambda cfg, class_filter=None: _datasets(t_synth))
     monkeypatch.setattr(t_pipeline, "init_backbone", lambda *a: mis_runs["backbone"])
     cfg = dict(CFG, training=False, mis="2", sae_checkpoint_epoch=1,
                directory_path=mis_runs["tdir"])

@@ -242,7 +242,8 @@ def test_the_cli_reruns_the_layers_to_the_same_means(runs, monkeypatch, capsys):
     folder: no dump (every cache is there), and one JSON line whose per-layer
     means equal the port's first run exactly (same caches, same weights)."""
     _, tdump, kwargs = _patch(monkeypatch)
-    monkeypatch.setattr(t_pipeline, "load_data", lambda cfg: kwargs["datasets"])
+    monkeypatch.setattr(t_pipeline, "load_data",
+                        lambda cfg, class_filter=None: kwargs["datasets"])
     monkeypatch.setattr(t_pipeline, "init_backbone", lambda net, gen, name: kwargs["backbone"])
     cfg = json.loads(runs["tbase"].to_json())
     capsys.readouterr()

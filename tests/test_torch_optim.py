@@ -76,5 +76,5 @@ def test_projection_removes_the_parallel_component():
 def test_constrained_mask_and_unported_optimizer():
     assert toptim.sae_constrained_mask({"W_enc": 0, "W_dec": 0, "b_dec": 0}) == {
         "W_enc": False, "W_dec": True, "b_dec": False}
-    with pytest.raises(NotImplementedError):
-        toptim.get_optimizer("sgd_w_scheduler", 1e-3)
+    with pytest.raises(ValueError, match="Unsupported optimizer"):
+        toptim.get_optimizer("rmsprop", 1e-3)

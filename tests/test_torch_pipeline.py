@@ -295,8 +295,8 @@ def test_rms_run_final_params_match_jax_within_the_adam_eps_bound(rms_runs):
 
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
-    for field, value in [("original_model", True), ("mesh_shape", (2,)),
-                         ("compute_ie", "5"), ("data_dir", "/data")]:
+    for field, value in [("mesh_shape", (2,)), ("compute_ie", "5"),
+                         ("sae_e2e_finetune_epochs", 1), ("profile_dir", "/trace")]:
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
                       datasets=_datasets(t_synth))
