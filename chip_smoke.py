@@ -3,6 +3,10 @@
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --profile    # the same, with a torch.profiler table of each slice run
 
+Every run through the port's Pipeline below also draws the eval figures with
+PIL (eval_tools/draw.py): the channel-frequency histogram at each eval, the
+top-k grids and activation histograms at the last.
+
 Phases, in order; a phase that fails raises and the script exits non-zero:
   1. device:  require CUDA; print the card's name and power limit (nvidia-smi).
   2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc, one
@@ -82,9 +86,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               IE on the card equal to the CPU's; (d) one pair's edges in chunks
               of 16 equal to one chunk; (e) faithfulness 1 at threshold -1, to
               a tolerance that tells errors kept from errors ablated, and
-              exactly 0 at 1e9, for the SAE and the model variant. Fails on a vmap
-              fallback warning or a kernel launch; prints each mode's seconds
-              and images/s and the edge pass's peak memory.
+              exactly 0 at 1e9, for the SAE and the model variant;
+              faithfulness.png after mode 40 at the JAX figure's size. Fails on
+              a vmap fallback warning or a kernel launch; prints each mode's
+              seconds and images/s and the edge pass's peak memory.
  10. multilayer: ROADMAP A8's second half on the same scaled GoogLeNet (seed
               2, 512 train / 64 val images at 229 px, relabelled as in phase
               9; bf16 cache and compute, 3,072 tokens a step): (a) the sae_mlp
@@ -191,11 +196,43 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               on the written bytes, custom_mlp_9 and custom_cnn_1 trained an
               epoch on them (batch 64) to above-chance accuracy, images/s; (f)
               "pil: <version>" or "pil: absent"; with PIL a tiny-imagenet-200
-              folder through eval_original of (a)'s model, two ImageNet tar
+              folder through eval_original of (a)'s model (its figures over
+              layer4.1's channels, model key "original", each PNG at the JAX
+              figure's size), two ImageNet tar
               shards of 300 x 400 JPEGs decoded at 229 px (inceptionv1) and
               224 px (clip_vit_b16), the pool bitwise the synchronous decode,
               the index file reused, decode images/s; without PIL the first
               decode's ImportError naming it. TF32 is off for (b) only.
+ 14. finish:  the eval figures, the feature report, the e2e KL finetune and
+              profile_dir (no TPU kernel on these paths: JAX's finetune,
+              figures and report are stock XLA, numpy and matplotlib): (a)
+              Pipeline.run of sae_mlp at phase 6's north-star shape (mixed3a
+              at 229 px, 16,384 latents, bf16 cache, 12 steps of 32,768 tokens)
+              on phase 9's GoogLeNet (conv weights x CONV_GAIN, so that the
+              logits depend on the image and the KLD is no f32 noise; so (e)),
+              with profile_dir set and one finetune epoch at sae_batch_size 32
+              (FIN_BATCH): rows 1-2 launched once a training step and never in
+              the finetune; KLD, perc_same and var_expl before and after the
+              finetune, its images/s and its steps' peak memory; (b) one
+              finetune step of 4 images on the card in f32, TF32 off, against
+              the CPU's f64 (and f32, the noise floor) from (a)'s trained
+              state: the loss and each updated parameter array within FIN_TOL
+              (or F32_NOISE times the CPU's f32); (c) one Chrome trace per
+              trained epoch, loaded with json: the fused kernels by name with
+              12 launches each, one step's device time split into the fused
+              forward and backward, the loss terms, the optimizer, the dead
+              units, the copies and the rest (the profiler ranges of
+              train/steps.make_update), and the device's idle share of the
+              traced window; (d) every PNG the JAX package's run writes, and
+              no other, decoded at the JAX figures' sizes (FIG_SIZES), the
+              last top-k grids' tiles read back bitwise as the gathered
+              images upscaled, the last activation histogram's counts bitwise
+              the CPU's plain update of the same activations; (e) one finetune
+              epoch each of the transcoder (mixed3a -> mixed3b) and the
+              crosscoder (mixed4a..4e, sae_input_norm "none": rms refuses the
+              finetune) at their phase 6 shapes, the crosscoder's decoder-norm
+              CSV equal to its finetuned parameters' norms; (f)
+              write_feature_report on (a)'s folder, embedding (d)'s PNGs.
 Then one JSON line naming each kernel, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -206,6 +243,7 @@ import argparse
 import contextlib
 import csv
 import dataclasses
+import glob
 import io
 import json
 import math
@@ -2059,8 +2097,13 @@ def _cpu_engine(eng, dtype):
 
 
 def _tree_to(tree, device, dtype):
-    return {k: _tree_to(v, device, dtype) if isinstance(v, dict) else v.to(device, dtype)
-            for k, v in tree.items()}
+    """A tree of tensors on ``device``, the floating ones cast to ``dtype``
+    (integer tensors keep theirs; other leaves pass as they are)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, dtype) if tree.is_floating_point() else tree.to(device)
+    return tree
 
 
 def _faith_tol(r: dict) -> float:
@@ -2212,9 +2255,14 @@ def phase_circuit(smi: str) -> None:
         if len(csv_rows) != 3 or not all(math.isfinite(float(v)) for r in csv_rows[1:]
                                          for v in r[1:] if v != ""):
             raise AssertionError(f"circuit: faithfulness.csv: {csv_rows}")
+        png = os.path.join(ie_dir, "faithfulness.png")
+        if _png_size(png) != FIG_SIZES["faithfulness"]:
+            raise AssertionError(f"circuit: faithfulness.png is {_png_size(png)}, JAX's is "
+                                 f"{FIG_SIZES['faithfulness']}")
         log("[circuit] (b) faithfulness.csv: " + "; ".join(
             f"{r['variant']} F {r['faithfulness']:.4g} (m_C {r['m_C']:.6g}, m_empty "
-            f"{r['m_empty']:.6g}, m_M {r['m_M']:.6g})" for r in rows))
+            f"{r['m_empty']:.6g}, m_M {r['m_M']:.6g})" for r in rows) +
+        f"; faithfulness.png decoded at the JAX figure's size {FIG_SIZES['faithfulness']}")
 
         # (c) one batch's node IE: the card's f32 and the CPU's f32 against the
         # CPU's f64, on the same weights and images
@@ -3852,6 +3900,8 @@ def _orig_pil(smi: str) -> None:
     means = pipe.run()
     if pipe._model_ckpt_epoch != ORIG_EPOCHS or not all(map(math.isfinite, means.values())):
         raise AssertionError(f"original: (f) eval_original on the folder: {means}")
+    # its last eval's figures over layer4.1's channels (model key "original")
+    _check_figures("original (f)", pipe, (0,), (0,))
     sync, s0 = _decode_pass(pipe.train_ds, TINY_BATCH, 0)
     pool, s1 = _decode_pass(pipe.train_ds, TINY_BATCH, -1)
     if not _same(sync, pool):
@@ -3921,6 +3971,407 @@ def phase_original(smi: str) -> None:
     log(f"[original] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: finish (the eval figures, the report, the e2e finetune, the trace)
+# ---------------------------------------------------------------------------
+
+# the JAX figures' pixel sizes (figsize x dpi): the channel-frequency
+# histogram 8 x 4 in at 120 dpi, the activation histograms 18 x 12 at 150, a
+# top-k grid of 10 units x 5 images (2 x 5) x (2.2 x 10) at 150, faithfulness
+# 20 x 5 at 150
+FIG_SIZES = {"channel_frequency_histograms": (960, 480), "top_k_samples": (1500, 3300),
+             "activation_histograms": (2700, 1800), "faithfulness": (3000, 750)}
+FIN_WORK = ROOT / "_smoke_finish"  # listed in .gitignore; removed at the end
+FIN_BATCH = 32  # the finetune's sae_batch_size: its stock step holds [B·784, 16,384] f32
+FIN_STEP_IMAGES = 4  # (b): the card's f32 step against the CPU's f64
+# (b): the loss within FIN_TOL of the CPU's f64; each parameter array's update
+# within FIN_TOL of the update's largest entry, or within F32_NOISE times the
+# distance of the CPU's own f32 step from f64
+FIN_TOL = 1e-4
+# (c): a trace event's device time by the profiler range its launch lies in
+# (train/steps.make_update); the fused kernels by name
+RANGE_KIND = {"sae_step.loss": "loss terms", "sae_step.backward": "loss terms",
+              "sae_step.optimizer": "optimizer", "sae_step.dead_units": "dead units"}
+FUSED_KIND = (("coder_fwd", "fused forward"), ("center_kernel", "fused forward"),
+              ("coder_bwd", "fused backward"), ("scale_err_kernel", "fused backward"))
+
+
+def _png_size(path: str) -> tuple:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im.load()  # decodes the whole file
+        return im.size
+
+
+def _check_figures(label: str, pipe, freq_epochs, final_epochs) -> dict:
+    """Every PNG that the JAX package's run writes under the run's
+    evaluation_results, and no other of its run ID: the channel-frequency
+    histogram of each of ``freq_epochs``, the top / small grids and the
+    activation histograms of each of ``final_epochs``; each decodes at the
+    JAX figure's size. Returns {relative path: path}."""
+    ev, rid = pipe.paths["evaluation_results"], pipe.run_id
+    want = [("channel_frequency_histograms", f"{rid}_epoch_{e}.png") for e in freq_epochs]
+    for e in final_epochs:
+        want += [("top_k_samples", f"{rid}_top_k_samples_epoch_{e}.png"),
+                 ("top_k_samples", f"{rid}_small_k_samples_epoch_{e}.png"),
+                 ("activation_histograms", f"{rid}_epoch_{e}.png")]
+    have = sorted(os.path.relpath(os.path.join(r, f), ev) for r, _, fs in os.walk(ev)
+                  for f in fs if f.startswith(f"{rid}_") and f.endswith(".png"))
+    if have != sorted(os.path.join(sub, name) for sub, name in want):
+        raise AssertionError(f"{label}: figure files {have}, expected {want}")
+    for sub, name in want:
+        size = _png_size(os.path.join(ev, sub, name))
+        if size != FIG_SIZES[sub]:
+            raise AssertionError(f"{label}: {sub}/{name} is {size}, JAX's is {FIG_SIZES[sub]}")
+    log(f"[{label}] figures: {len(want)} PNGs, each decoded at the JAX figure's size: " +
+        ", ".join(f"{sub} {FIG_SIZES[sub][0]}x{FIG_SIZES[sub][1]}" for sub in
+                  sorted({s for s, _ in want})))
+    return {os.path.join(sub, name): os.path.join(ev, sub, name) for sub, name in want}
+
+
+@contextlib.contextmanager
+def _recording_figures(record: dict):
+    """Record what the eval hands show_top_k_samples (the images and values,
+    by file name) and every histogram update (the state before it and the
+    activations), and still draw."""
+    from sparse_vision_tpu_torch.eval_tools import viz
+    from sparse_vision_tpu_torch.ops import histograms
+
+    show, update = viz.show_top_k_samples, histograms.update_histogram
+
+    def show_rec(images, values, path, title=""):
+        record.setdefault("topk", {})[os.path.basename(path)] = (images, values)
+        return show(images, values, path, title=title)
+
+    def update_rec(state, acts):
+        record.setdefault("hist", []).append((state, acts.detach().clone()))
+        new = update(state, acts)
+        record["hist_last"] = new
+        return new
+
+    viz.show_top_k_samples, histograms.update_histogram = show_rec, update_rec
+    try:
+        yield
+    finally:
+        viz.show_top_k_samples, histograms.update_histogram = show, update
+
+
+def _check_tiles(label: str, path: str, images: dict, values: dict) -> int:
+    """The grid's tiles read back bitwise equal to the gathered images,
+    upscaled (eval_tools/draw.tile_pixels)."""
+    import numpy as np
+    from PIL import Image
+
+    from sparse_vision_tpu_torch.eval_tools import draw, viz
+
+    with Image.open(path) as im:
+        px = np.asarray(im.convert("RGB"))
+    boxes = viz.topk_tile_boxes(images, values)
+    for (u, c), (x, y, scale, stride) in boxes.items():
+        want = draw.tile_pixels(images[u][c][::stride, ::stride], scale)
+        if not np.array_equal(px[y:y + want.shape[0], x:x + want.shape[1]], want):
+            raise AssertionError(f"{label}: tile ({u}, {c}) of {os.path.basename(path)} does not "
+                                 "read back as the gathered image")
+    return len(boxes)
+
+
+def _check_histogram_counts(label: str, record: dict) -> None:
+    """The last histogram pass's counts on the card against the port's plain
+    update of the same activations on the CPU, bitwise."""
+    from sparse_vision_tpu_torch.ops import histograms
+
+    last = record["hist_last"]  # the last pass's updates share its ranges
+    passes = [(s, a) for s, a in record["hist"] if s.mins is last.mins]
+    state = passes[0][0]
+    cpu = histograms.init_histogram(state.counts.shape[0], state.mins.cpu(), state.maxs.cpu())
+    for _, acts in passes:
+        cpu = histograms.update_histogram(cpu, acts.cpu())
+    card = last.counts.cpu()
+    if not torch.equal(card, cpu.counts):
+        raise AssertionError(f"{label}: the card's histogram counts differ from the CPU's plain "
+                             f"update: {int((card != cpu.counts).sum())} of {card.numel()} bins")
+    log(f"[{label}] activation histogram: {len(passes)} batches, {int(card.sum())} "
+        f"counts in {card.shape[0]} bins x {card.shape[1]} units, bitwise the CPU's plain "
+        "update of the same activations")
+
+
+def _trace_split(path: str, steps: int) -> tuple:
+    """(launches of each fused kernel by name, one step's device ms by kind,
+    the device's idle share of the traced window) from one Chrome trace of
+    utils/profiling.maybe_profile. A kernel or copy counts for the kind of the
+    profiler range its launch lies in (RANGE_KIND), the fused kernels by name,
+    the host-device copies as "copies"."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], RANGE_KIND[e["name"]]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"] in RANGE_KIND)
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    fused: dict = {}
+    split: dict = {}
+    for e in device:
+        name = e.get("name", "")
+        kind = next((k for key, k in FUSED_KIND if key in name), None)
+        if kind is not None and e["cat"] == "kernel":
+            base = re.search(r"(coder_\w+|center_kernel|scale_err_kernel)", name).group(1)
+            fused[base] = fused.get(base, 0) + 1
+        elif e["cat"] != "kernel":
+            kind = "copies"
+        else:
+            ts = launch_ts.get(e.get("args", {}).get("correlation"))
+            kind = next((k for a, b, k in ranges if ts is not None and a <= ts <= b), "other")
+        split[kind] = split.get(kind, 0.0) + e["dur"] / 1e3 / steps
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:  # the union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return fused, split, 1.0 - busy / window
+
+
+def _fin_step_vs_cpu(pipe) -> None:
+    """(b) One finetune step of (a)'s trained SAE on FIN_STEP_IMAGES images:
+    the card's f32 (TF32 off) against the CPU's f64 (and the CPU's f32, the
+    noise floor), from the same parameters and Adam state."""
+    from sparse_vision_tpu_torch.train.e2e_finetune import finetune_step_for
+
+    set_tf32(False)
+    b = next(pipe.train_ds.batches(FIN_STEP_IMAGES, shuffle=False))
+    x, y = torch.from_numpy(b.images), torch.from_numpy(b.labels)
+    step = finetune_step_for(pipe)
+    runs = {}
+    for tag, device, dtype in (("card", DEVICE, torch.float32), ("cpu64", "cpu", torch.float64),
+                               ("cpu32", "cpu", torch.float32)):
+        ts = tsteps.SAETrainState(_tree_to(pipe.ts.params, device, dtype),
+                                  _tree_to(pipe.ts.opt_state, device, dtype), pipe.ts.step,
+                                  pipe.ts.dead_acc.to(device), pipe.ts.rng)
+        t0 = time.perf_counter()
+        new, m = step(ts, _tree_to(pipe.frozen_params, device, dtype),
+                      _tree_to(pipe.net_state, device, dtype), x.to(device, dtype),
+                      y.to(device))
+        _sync()
+        runs[tag] = (new.params, {k: float(v) for k, v in m.items()}, time.perf_counter() - t0)
+    (card, cm, _), (ref, rm, cpu_s), (cpu32, _, _) = (runs[k] for k in ("card", "cpu64",
+                                                                         "cpu32"))
+    loss_err = abs(cm["e2e_loss"] - rm["e2e_loss"]) / abs(rm["e2e_loss"])
+    worst = floor = 0.0
+    for k, want in ref.items():
+        scale = float((want - pipe.ts.params[k].double().cpu()).abs().max().clamp_min(1e-30))
+        err = float((card[k].double().cpu() - want).abs().max()) / scale
+        noise = float((cpu32[k].double() - want).abs().max()) / scale
+        if err > max(FIN_TOL, F32_NOISE * noise):
+            raise AssertionError(f"finish: (b) {k}: the card's step {err:.3g} of the update's "
+                                 f"scale from the CPU's f64; the CPU's f32 {noise:.3g}")
+        worst, floor = max(worst, err), max(floor, noise)
+    if loss_err > FIN_TOL:
+        raise AssertionError(f"finish: (b) e2e_loss {loss_err:.3g} from the CPU's f64")
+    log(f"[finish] (b) one finetune step of {FIN_STEP_IMAGES} images, TF32 off: the card's f32 "
+        f"e2e_loss {cm['e2e_loss']:.8g} (f64 {rm['e2e_loss']:.8g}; {loss_err:.3g} apart, bound "
+        f"{FIN_TOL:g}), kld {cm['kld']:.6g} (f64 {rm['kld']:.6g}); the updated parameters "
+        f"{worst:.3g} of each update's largest entry from f64 (the CPU's own f32 step "
+        f"{floor:.3g}; bound max({FIN_TOL:g}, {F32_NOISE:g}x the CPU's f32)); the CPU's f64 "
+        f"step took {cpu_s:.1f} s")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _fin_north_star(smi: str):
+    """(a), (c), (d): sae_mlp at phase 6's north-star shape through
+    Pipeline.run with profile_dir and one finetune epoch. Returns the
+    Pipeline."""
+    from sparse_vision_tpu_torch.train import e2e_finetune
+
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True  # a user's run: PyTorch's default for the convs
+    traces = FIN_WORK / "traces"
+    cfg, datasets = _slice_config("sae_mlp", dict(
+        directory_path=str(FIN_WORK / "a"), profile_dir=str(traces),
+        sae_e2e_finetune_epochs=1, sae_batch_size=FIN_BATCH))
+    pipe = Pipeline(cfg, datasets=datasets, backbone=_scaled_googlenet(cfg.seed)[1:])
+    record, peak = {}, {}
+    run_ft, make_step = e2e_finetune.e2e_finetune, e2e_finetune.finetune_step_for
+
+    def measured_step(p):  # the finetune steps' peak memory, before its eval
+        step = make_step(p)
+
+        def run(*args):
+            out = step(*args)
+            peak["bytes"] = torch.cuda.max_memory_allocated()
+            return out
+
+        return run
+
+    def measured_finetune(p, epochs=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return run_ft(p, epochs)
+
+    e2e_finetune.e2e_finetune, e2e_finetune.finetune_step_for = (measured_finetune,
+                                                                measured_step)
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with _recording_figures(record):
+            pipe.run()
+    finally:
+        e2e_finetune.e2e_finetune, e2e_finetune.finetune_step_for = run_ft, make_step
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    steps = len(pipe.train_log)
+    ft_steps = len(pipe.finetune_log)
+    log(f"[finish] (a) Pipeline.run (dump, {steps} training steps profiled, {ft_steps} finetune "
+        f"steps, 3 evals, figures) in {wall:.1f} s; launches {launches}")
+    if steps != 12 or ft_steps != -(-len(pipe.train_ds) // FIN_BATCH):
+        raise AssertionError(f"finish: (a) {steps} training and {ft_steps} finetune steps")
+    for k in KERNELS:  # once a training step; the finetune's stock step launches none
+        want = steps if k in (fused_sae.fwd_kernel, fused_sae.bwd_kernel) else 0
+        if launches[k.name] != want:
+            raise AssertionError(f"finish: (a) {launches[k.name]} launches of {k.name}, "
+                                 f"expected {want}")
+    if [e for e, _ in pipe.eval_log] != [0, 1, 2]:
+        raise AssertionError(f"finish: (a) evals {[e for e, _ in pipe.eval_log]}")
+    for s, m in pipe.finetune_log:
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            raise AssertionError(f"finish: (a) finetune step {s}: {m}")
+    (_, before), (_, after) = pipe.eval_log[1], pipe.eval_log[2]
+    for e, m in ((1, before), (2, after)):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"finish: (a) eval {e} not finite: {m}")
+    ft = pipe.finetune_timing[0]
+    log(f"[finish] (a) {smi}: before the finetune (epoch 1) kld {before['kld']:.6g}, perc_same "
+        f"{before['perc_same']:.4f}, var_expl {before['var_expl']:.6g}; after it (epoch 2) kld "
+        f"{after['kld']:.6g}, perc_same {after['perc_same']:.4f}, var_expl "
+        f"{after['var_expl']:.6g}")
+    log(f"[finish] (a) {smi}: finetune {ft['steps']} steps of {FIN_BATCH} images in "
+        f"{ft['seconds']:.3f} s = {ft['images'] / ft['seconds']:.1f} images/s (host clock, ends "
+        f"in a synchronize; not profiled); peak memory of its steps "
+        f"{peak['bytes'] / 2**30:.2f} GiB (max_memory_allocated); first / last step e2e_loss "
+        f"{float(pipe.finetune_log[0][1]['e2e_loss']):.6g} / "
+        f"{float(pipe.finetune_log[-1][1]['e2e_loss']):.6g}")
+    if pipe.train_timing[0]["profiled"] is not True:
+        raise AssertionError("finish: (a) the training epoch was not marked as profiled")
+    log("[finish] (a) the training epoch ran under the profiler: its time is not a throughput "
+        f"({pipe.train_timing[0]['seconds']:.3f} s for 12 steps, traced)")
+
+    # (c) the trace
+    paths = sorted(glob.glob(str(traces / "*.json")))
+    if len(paths) != 1:
+        raise AssertionError(f"finish: (c) {len(paths)} traces for one trained epoch: {paths}")
+    fused, split, idle = _trace_split(paths[0], steps)
+    if set(fused.values()) != {steps} or not any("coder_fwd" in k for k in fused) \
+            or not any("coder_bwd" in k for k in fused):
+        raise AssertionError(f"finish: (c) fused kernels in the trace: {fused}")
+    total = sum(split.values())
+    log(f"[finish] (c) {smi}: trace {os.path.basename(paths[0])} "
+        f"({os.path.getsize(paths[0]) / 2**20:.1f} MiB) names the fused kernels "
+        f"{json.dumps(fused, sort_keys=True)}")
+    log(f"[finish] (c) {smi}: one step's device time {total:.3f} ms: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in sorted(split.items(),
+                                                                key=lambda kv: -kv[1])) +
+        f"; device idle {idle:.1%} of the traced window")
+
+    # (d) the figures
+    files = _check_figures("finish", pipe, (0, 1, 2), (1, 2))
+    tiles = sum(_check_tiles("finish", files[os.path.join("top_k_samples", name)], *iv)
+                for name, iv in record["topk"].items() if name.endswith("epoch_2.png"))
+    log(f"[finish] (d) {tiles} top-k tiles of epoch 2 read back bitwise as the gathered "
+        "images, upscaled")
+    _check_histogram_counts("finish", record)
+    return pipe, files
+
+
+def _fin_other(name: str, extra: dict, smi: str) -> None:
+    """(e) One finetune epoch of ``name`` at its phase 6 shape through
+    Pipeline.run: its kernels once a training step and never in the
+    finetune, finite metrics, the crosscoder's CSV on the finetuned
+    parameters."""
+    cfg, datasets = _slice_config(name, {"directory_path": str(FIN_WORK / name),
+                                         "sae_e2e_finetune_epochs": 1,
+                                         "sae_batch_size": FIN_BATCH, **extra})
+    pipe = Pipeline(cfg, datasets=datasets, backbone=_scaled_googlenet(cfg.seed)[1:])
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    pipe.run()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    if len(pipe.train_log) != 12:
+        raise AssertionError(f"finish: (e) {name}: {len(pipe.train_log)} training steps")
+    trained = (MODULES[name].fwd_kernel, MODULES[name].bwd_kernel)
+    for k in KERNELS:
+        want = 12 if k in trained else 0
+        if launches[k.name] != want:
+            raise AssertionError(f"finish: (e) {name}: {launches[k.name]} launches of {k.name}, "
+                                 f"expected {want}")
+    last = pipe.eval_log[-1]
+    if last[0] != 2 or not all(math.isfinite(v) for v in last[1].values()) or not all(
+            math.isfinite(float(v)) for _, m in pipe.finetune_log for v in m.values()):
+        raise AssertionError(f"finish: (e) {name}: last eval {last}")
+    ft = pipe.finetune_timing[0]
+    note = ""
+    if name == "crosscoder":
+        from sparse_vision_tpu_torch.models.crosscoder import crosscoder_decoder_norms
+
+        with open(pipe.decoder_norms_path) as f:
+            rows = list(csv.reader(f))[1:]
+        norms = crosscoder_decoder_norms(pipe.ts.params).float().cpu()
+        got = torch.tensor([[float(v) for v in r[1:1 + norms.shape[0]]] for r in rows]).T
+        if got.shape != norms.shape or not torch.equal(got, norms):
+            raise AssertionError("finish: (e) crosscoder: the decoder-norm CSV is not the "
+                                 "finetuned parameters'")
+        note = f"; decoder-norm CSV: {len(rows)} rows, the finetuned parameters' norms"
+    _check_figures(f"finish {name}", pipe, (0, 1, 2), (1, 2))
+    log(f"[finish] (e) {name} {smi}: Pipeline.run in {wall:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; finetune {ft['steps']} steps of "
+        f"{FIN_BATCH} images, {ft['images'] / ft['seconds']:.1f} images/s, no fused launch; "
+        f"eval before / after the finetune: kld {pipe.eval_log[1][1]['kld']:.6g} / "
+        f"{last[1]['kld']:.6g}, perc_same {pipe.eval_log[1][1]['perc_same']:.4f} / "
+        f"{last[1]['perc_same']:.4f}{note}")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def _fin_report(pipe, files: dict) -> None:
+    """(f) write_feature_report on (a)'s folder: the HTML embeds (d)'s PNGs of
+    the last epoch."""
+    import base64
+
+    from sparse_vision_tpu_torch.eval_tools.report import write_feature_report
+
+    out = write_feature_report(pipe.paths["evaluation_results"], pipe.run_id,
+                               str(FIN_WORK / "report.html"),
+                               ie_dir=pipe.paths["ie_related_quantities"])
+    with open(out) as f:
+        page = f.read()
+    embedded = [rel for rel, p in files.items() if rel.endswith("epoch_2.png")]
+    for rel in embedded:
+        with open(files[rel], "rb") as f:
+            if base64.b64encode(f.read()).decode() not in page:
+                raise AssertionError(f"finish: (f) the report does not embed {rel}")
+    log(f"[finish] (f) feature report {os.path.getsize(out) / 2**20:.1f} MiB, embedding "
+        f"{len(embedded)} PNGs of epoch 2 and {pipe.num_units} unit rows")
+
+
+def phase_finish(smi: str) -> None:
+    """Phase 14 (the module docstring)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(FIN_WORK, ignore_errors=True)
+    pipe, files = _fin_north_star(smi)
+    _fin_step_vs_cpu(pipe)
+    _fin_report(pipe, files)
+    del pipe
+    torch.cuda.empty_cache()
+    _fin_other("transcoder", {}, smi)
+    _fin_other("crosscoder", {"sae_input_norm": "none"}, smi)
+    shutil.rmtree(FIN_WORK, ignore_errors=True)
+    log(f"[finish] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -3946,6 +4397,7 @@ def main() -> int:
     phase_topk(smi)
     phase_backbones(smi)
     phase_original(smi)
+    phase_finish(smi)
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

@@ -1,6 +1,7 @@
 """Command line of the port.
 
     python -m sparse_vision_tpu_torch.cli --run_pipeline --config '<RunConfig json>' [--device cpu]
+    python -m sparse_vision_tpu_torch.cli [--run_pipeline] --feature_report OUT.html --config '<json>'
 
 Without ``--device`` the run goes to CUDA and fails when no GPU is present. The
 config runs through ``Pipeline.run``: a training config trains an SAE variant, a
@@ -16,8 +17,8 @@ Circuit discovery on GoogLeNet (``training: false``, the eight registry SAEs
 loaded from their checkpoints): ``compute_ie`` "1" dataset averages, "2" node
 IE, "3" edge IE (``ie_top_features``, ``ie_cotangent_chunk``), "4<i>"
 faithfulness at threshold i of ``interp.circuit.FAITHFULNESS_THRESHOLDS`` (the
-CSV only; the port draws no figure). A mode prints one JSON line naming the
-files it wrote. ``mis`` "1" (with ``training: false`` and the checkpoint's
+CSV and faithfulness.png). A mode prints one JSON line naming the files it
+wrote. ``mis`` "1" (with ``training: false`` and the checkpoint's
 ``sae_checkpoint_epoch``) collects each unit's extreme train samples and prints
 the eval means; "2" scores them and prints the median and mean MIS confidence
 and the per-unit CSV it wrote.
@@ -28,6 +29,12 @@ comma list; ``transcoders`` trains one transcoder per same-geometry
 consecutive circuit pair, ``transcoders:l1,l2,...`` pairs up that chain. It
 prints one JSON line with each layer's (or pair's, as "in->out") last eval
 means.
+
+``--feature_report OUT.html`` writes the HTML feature report of the config's
+run at its latest evaluated epoch (eval_tools/report.py, with the circuit
+section from its ie_related_quantities folder), after the run when
+``--run_pipeline`` is also given; the JSON line then names it under
+"feature_report".
 """
 
 from __future__ import annotations
@@ -43,18 +50,26 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="sparse_vision_tpu_torch.cli")
     ap.add_argument("--run_pipeline", action="store_true", help="run one config")
     ap.add_argument("--config", required=True, help="RunConfig as a JSON object")
+    ap.add_argument("--feature_report", default=None, metavar="OUT",
+                    help="write the HTML feature report of the config's run at its latest "
+                         "evaluated epoch (after the run with --run_pipeline)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--multilayer", default=None, metavar="LAYERS",
                     help="train the SAEs of 'circuit' or a comma list of layers, or "
                          "'transcoders[:l1,l2,...]', from one backbone pass "
                          "(train/multilayer.py), at the registry's hyperparameters")
     args = ap.parse_args(argv)
+    if not args.run_pipeline and not args.feature_report:
+        ap.error("nothing to do: pass --run_pipeline or --feature_report")
+
+    cfg = RunConfig.from_json(args.config)
     if not args.run_pipeline:
-        ap.error("nothing to do: pass --run_pipeline")
+        out = {"feature_report": _feature_report(cfg, args.feature_report)}
+        print(json.dumps(out, sort_keys=True))
+        return out
 
     from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
-    cfg = RunConfig.from_json(args.config)
     if args.multilayer is not None:
         out = _multilayer(cfg, args.multilayer, args.device)
         print(json.dumps(out, sort_keys=True))
@@ -77,7 +92,21 @@ def main(argv=None) -> dict:
         out = {"mis": "2", "median_mis": out["median_mis"], "average_mis": out["average_mis"],
                "wrote": [os.path.join(folder, f"{pipe.run_id}_mis_epoch_"
                                               f"{cfg.sae_checkpoint_epoch}.csv")]}
+    if args.feature_report:
+        out = {"run": out, "feature_report": _feature_report(cfg, args.feature_report)}
     print(json.dumps(out, sort_keys=True))
+    return out
+
+
+def _feature_report(cfg: RunConfig, out_html: str) -> str:
+    """eval_tools/report.py's report of ``cfg``'s run, with its IE folder."""
+    from sparse_vision_tpu_torch.eval_tools.report import write_feature_report
+    from sparse_vision_tpu_torch.utils.paths import folder_paths, run_id
+
+    paths = folder_paths(cfg)
+    out = write_feature_report(paths["evaluation_results"], run_id(cfg), out_html,
+                               ie_dir=paths["ie_related_quantities"])
+    print(f"Wrote feature report -> {out}")
     return out
 
 

@@ -9,9 +9,9 @@ file written by one package drives the other):
   "2"   node IE                    -> node_ie.npz (needs averages)
   "3"   edge IE                    -> edge_ie.npz (needs averages and node IE)
   "4i"  faithfulness at FAITHFULNESS_THRESHOLDS[i] -> faithfulness.csv rows for
-        the SAE-circuit and the model-neuron variants. The JAX package also
-        draws the faithfulness curve with matplotlib; the port writes the CSV
-        and draws nothing.
+        the SAE-circuit and the model-neuron variants, and faithfulness.png,
+        the SAE variant's curves over every threshold in the CSV (drawn with
+        PIL, eval_tools/draw.py, where the JAX package uses matplotlib).
 
 On GoogLeNet the circuit spans the eight CIRCUIT_LAYERS, each with its frozen
 SAE from the registry; on any other backbone it is the one layer
@@ -46,7 +46,8 @@ from sparse_vision_tpu_torch.ops.metrics import perc_dead
 GOOGLENET = ("inceptionv1", "googlenet")
 # the files each mode writes, in the run's ie_related_quantities folder
 MODE_FILES = {"1": ("averages.npz", "perc_dead_units.csv", "sparsity.csv"),
-              "2": ("node_ie.npz",), "3": ("edge_ie.npz",), "4": ("faithfulness.csv",)}
+              "2": ("node_ie.npz",), "3": ("edge_ie.npz",),
+              "4": ("faithfulness.csv", "faithfulness.png")}
 
 
 def _ie_dir(pipeline) -> str:
@@ -190,7 +191,7 @@ def run_ie(pipeline, flag: str):
     d = _ie_dir(pipeline)
     paths = {m: [os.path.join(d, f) for f in files] for m, files in MODE_FILES.items()}
     avg_path, dead_path, sparsity_path = paths["1"]
-    (node_path,), (edge_path,), (faith_path,) = paths["2"], paths["3"], paths["4"]
+    (node_path,), (edge_path,), (faith_path, faith_png) = paths["2"], paths["3"], paths["4"]
 
     if flag == "1":
         avgs = eng.compute_averages(_batches(pipeline))
@@ -239,6 +240,7 @@ def run_ie(pipeline, flag: str):
             r["variant"] = variant
             rows.append(r)
         store_faithfulness(faith_path, rows)
+        plot_faithfulness(faith_path, faith_png)
         return rows
 
     raise ValueError(f"Unknown compute_ie flag: {flag!r}")
@@ -268,3 +270,32 @@ def store_faithfulness(path: str, rows: list) -> None:
         w.writeheader()
         for key in sorted(existing):
             w.writerow(existing[key])
+
+
+FAITHFULNESS_CURVES = ("faithfulness_sae_errors_zero_ablated",
+                       "faithfulness_sae_errors_mean_ablated", "faithfulness")
+
+
+def plot_faithfulness(csv_path: str, out_path: str) -> str:
+    """The SAE variant's faithfulness against the feature-node threshold, one
+    panel per column of FAITHFULNESS_CURVES (20 x 5 in at 150 dpi, as the
+    JAX figure). A row whose cell is empty is left out of that panel, its
+    (threshold, value) pair together."""
+    from sparse_vision_tpu_torch.eval_tools.draw import Figure
+
+    with open(csv_path) as f:
+        rows = [r for r in csv.DictReader(f) if r["variant"] == "sae"]
+    rows.sort(key=lambda r: float(r["feature_node_threshold"]))
+    fig = Figure((20, 5), dpi=150)
+    for ax, col in zip(fig.grid(1, 3), FAITHFULNESS_CURVES):
+        pairs = [(float(r["feature_node_threshold"]), float(r[col]))
+                 for r in rows if r[col] != ""]
+        xs, ys = (np.asarray([p[i] for p in pairs], np.float64) for i in (0, 1))
+        ok = np.isfinite(xs) & np.isfinite(ys)
+        xs, ys = xs[ok], ys[ok]
+        ax.axes(col, "Feature node threshold", "Faithfulness",
+                (xs.min(), xs.max()) if len(xs) else (0.0, 1.0),
+                (ys.min(), ys.max()) if len(ys) else (0.0, 1.0))
+        ax.line(xs, ys)
+        ax.legend([(col, "#1f77b4")])
+    return fig.save(out_path)

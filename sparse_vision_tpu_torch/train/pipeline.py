@@ -38,10 +38,16 @@ cache is dequantized on the device. ``sae_input_norm="rms"`` trains on each
 layer's activations divided by its cache's token RMS. Each eval writes the
 per-unit top-k file and activity frequencies, and each eval after an epoch its
 row of the results CSV (eval_tools/results.py), under the JAX package's file
-names (utils/paths.py). Datasets come from ``data_dir`` (data/datasets.py) or
-the synthetic stand-in, each file-backed read decoded by ``cfg.data_workers``
-threads. The eval figures are not ported: the last eval prints the figures
-it does not draw. A config that asks for anything outside the port raises
+names (utils/paths.py). Every eval draws the channel-frequency histogram, and
+the run's last eval the top-k sample grids and the per-unit activation
+histograms (an extra inference pass), with PIL (eval_tools/draw.py) at the JAX
+figures' pixel sizes; a figure that fails prints that it was skipped and never
+fails the run. ``sae_e2e_finetune_epochs`` finetunes the trained dictionary on
+the downstream KL (train/e2e_finetune.py), and ``profile_dir`` traces each
+training epoch's steps with torch.profiler (utils/profiling.py). Datasets come
+from ``data_dir`` (data/datasets.py) or the synthetic stand-in, each
+file-backed read decoded by ``cfg.data_workers`` threads. A config that asks
+for anything outside the port (``mesh_shape``, ``wandb_status``) raises
 NotImplementedError naming the field.
 """
 
@@ -94,6 +100,7 @@ from sparse_vision_tpu_torch.train.steps import (
 )
 from sparse_vision_tpu_torch.utils.logging import RunLogger
 from sparse_vision_tpu_torch.utils.paths import folder_paths, run_id, sae_run_name
+from sparse_vision_tpu_torch.utils.profiling import maybe_profile
 
 # field -> the values the port supports, checked by validate_slice; anything
 # else is not ported yet
@@ -113,9 +120,7 @@ _SLICE = {
     "mesh_shape": ((),),
     "overlap_dump_train": (False, True),
     "sae_input_norm": ("none", "rms"),
-    "sae_e2e_finetune_epochs": (0,),
     "wandb_status": (False,),
-    "profile_dir": ("",),
 }
 # the dictionary's fields, which an original-model run does not read
 _SAE_FIELDS = ("sae_model_name", "sae_optimizer_name")
@@ -200,7 +205,10 @@ class Pipeline:
                 self.num_units = 0
         self.train_log: list = []  # (step, metrics of that step)
         self.eval_log: list = []  # (epoch, means)
-        self.train_timing: list = []  # per epoch: steps, tokens or images, seconds
+        # per epoch: steps, tokens or images, seconds, whether it was profiled
+        self.train_timing: list = []
+        self.finetune_log: list = []  # (step, metrics) of the e2e finetune
+        self.finetune_timing: list = []  # per finetune epoch: steps, images, seconds
 
     def _restore_model(self, backbone: tuple) -> tuple:
         """``backbone`` (params, state), or the latest original-model checkpoint
@@ -512,24 +520,28 @@ class Pipeline:
     def _epochs(self, run_epoch, before_checkpoint=None) -> Optional[dict]:
         """Eval (stored nowhere), then for each epoch from
         ``cfg.sae_checkpoint_epoch`` on: ``run_epoch(epoch)`` (its steps; it
-        returns the tokens, and images, of one step), the epoch's timing,
-        ``before_checkpoint(epoch)``, an asynchronous checkpoint, an eval. Then
-        wait for the checkpoints and export the weights. Returns the last
-        eval's means (None when no epoch is left to run)."""
+        returns the tokens, and images, of one step; traced under
+        ``cfg.profile_dir``), the epoch's timing, ``before_checkpoint(epoch)``,
+        an asynchronous checkpoint, an eval. Then wait for the checkpoints,
+        export the weights and run the e2e finetune
+        (``cfg.sae_e2e_finetune_epochs``). Returns the last eval's means (None
+        when no epoch is left to run)."""
         cfg = self.cfg
         start = cfg.sae_checkpoint_epoch
         last_eval = None
         self.eval_modified(epoch=start, store=False)
         for epoch in range(start, cfg.sae_epochs):
-            t0 = time.perf_counter()
-            steps0 = self.ts.step
-            per_step = run_epoch(epoch)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            steps = self.ts.step - steps0
-            self.train_timing.append({"epoch": epoch, "steps": steps,
-                                      **{k: steps * v for k, v in per_step.items()},
-                                      "seconds": time.perf_counter() - t0})
+            with maybe_profile(cfg.profile_dir, self.device, f"{self.run_id}_epoch_{epoch}"):
+                t0 = time.perf_counter()
+                steps0 = self.ts.step
+                per_step = run_epoch(epoch)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                steps = self.ts.step - steps0
+                self.train_timing.append({"epoch": epoch, "steps": steps,
+                                          **{k: steps * v for k, v in per_step.items()},
+                                          "seconds": time.perf_counter() - t0,
+                                          "profiled": bool(cfg.profile_dir)})
             if before_checkpoint is not None:
                 before_checkpoint(epoch)
             # the host snapshot blocks; the write overlaps the next epoch
@@ -539,6 +551,10 @@ class Pipeline:
                                            final=epoch + 1 == cfg.sae_epochs)
         ckpt.wait_for_saves()
         self._export_sae_weights()
+        if cfg.sae_e2e_finetune_epochs > 0:
+            from sparse_vision_tpu_torch.train.e2e_finetune import e2e_finetune
+
+            last_eval = e2e_finetune(self) or last_eval
         return last_eval
 
     def _export_sae_weights(self) -> None:
@@ -710,8 +726,9 @@ class Pipeline:
         variant has one), the dead units and the batch-mean activity frequency.
         With ``store``, writes the epoch's results row and merges the CSV. The
         batches reach the device through data/prefetch.py; the sums and the
-        top-k states stay there until one readback after the loop. ``final``
-        (the run's last eval) prints the eval figures it does not draw."""
+        top-k states stay there until one readback after the loop. Draws the
+        channel-frequency histogram, and with ``final`` (the run's last eval)
+        the top-k grids and the activation histograms."""
         cfg = self.cfg
         step_fn = self._sae_eval_step_fn
         ds = self.train_ds if on_train_data else self.val_ds
@@ -743,11 +760,12 @@ class Pipeline:
         means["perc_dead_units"] = float(host["dead"].mean())
         self.eval_log.append((epoch, means))
         self.logger.log_eval(epoch, means)
-        if final:
-            _figures_not_drawn()
 
         # batch-mean activity frequency per unit
         freq = host["freq"].astype(np.float64) / num_batches
+        self._channel_frequency_figure(freq, epoch)
+        if final:
+            self._final_eval_figures(ds, top, small, host["dead"], epoch)
         fn_dir = os.path.join(self.paths["evaluation_results"], "filename_indices")
         os.makedirs(fn_dir, exist_ok=True)
         np.savez(os.path.join(fn_dir, f"{self.run_id}_epoch_{epoch}.npz"),
@@ -822,18 +840,20 @@ class Pipeline:
         for epoch in range(start, cfg.model_epochs):
             if epoch == 0:
                 self.eval_original(0)
-            t0, steps0 = time.perf_counter(), self.mts.step
-            for b in self._batches(self.train_ds, cfg.batch_size, shuffle=True,
-                                   seed=cfg.seed + epoch):
-                self.mts, m = step_fn(self.mts, b.images, b.labels)
-                self.logger.log_train(self.mts.step, m)
-                self.train_log.append((self.mts.step, m))
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            steps = self.mts.step - steps0
-            self.train_timing.append({"epoch": epoch, "steps": steps,
-                                      "images": steps * cfg.batch_size,
-                                      "seconds": time.perf_counter() - t0})
+            with maybe_profile(cfg.profile_dir, self.device, f"{self.run_id}_epoch_{epoch}"):
+                t0, steps0 = time.perf_counter(), self.mts.step
+                for b in self._batches(self.train_ds, cfg.batch_size, shuffle=True,
+                                       seed=cfg.seed + epoch):
+                    self.mts, m = step_fn(self.mts, b.images, b.labels)
+                    self.logger.log_train(self.mts.step, m)
+                    self.train_log.append((self.mts.step, m))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                steps = self.mts.step - steps0
+                self.train_timing.append({"epoch": epoch, "steps": steps,
+                                          "images": steps * cfg.batch_size,
+                                          "seconds": time.perf_counter() - t0,
+                                          "profiled": bool(cfg.profile_dir)})
             # the per-epoch StepLR step (model_pipeline.py:963-965)
             self.mts = self.mts._replace(opt_state=optim.advance_epoch(self.mts.opt_state))
             ckpt.save_checkpoint(self.paths["model_weights"], epoch + 1,
@@ -851,8 +871,9 @@ class Pipeline:
         names: the activity frequency, the dead channels and each channel's
         ``k`` most and least activating samples, written to
         ``filename_indices/<run_id>_epoch_<epoch>.npz`` under the JAX
-        package's four names, which interp/mis.compute_mis_for_run scores.
-        ``final`` prints the eval figures it does not draw."""
+        package's four names, which interp/mis.compute_mis_for_run scores,
+        and draws the channel-frequency histogram (with ``final`` also the
+        top-k grids and the activation histograms, model key "original")."""
         cfg = self.cfg
         if collect_topk and self.num_units == 0:
             raise ValueError(
@@ -860,9 +881,7 @@ class Pipeline:
                 f"{cfg.sae_layer!r}; available: {self.net.stage_names}).")
         step_fn = make_model_eval_step(self.net, self.criterion,
                                        topk_layer=cfg.sae_layer if collect_topk else None)
-        mts = getattr(self, "mts", None)
-        params, net_state = (self.frozen_params, self.net_state) if mts is None else (
-            mts.params, mts.net_state)
+        params, net_state = self._model_weights()
         ds = self.train_ds if on_train_data else self.val_ds
         sums = freq_sum = dead_acc = None
         if collect_topk:
@@ -886,18 +905,27 @@ class Pipeline:
         means = {n: float(v) / num_batches for n, v in zip(names, totals)}
         self.eval_log.append((epoch, means))
         self.logger.log_eval(epoch, means)
-        if final:
-            _figures_not_drawn()
         if collect_topk:
             freq = freq_sum.cpu().numpy().astype(np.float64) / num_batches
+            dead = dead_acc.cpu().numpy()
+            self._channel_frequency_figure(freq, epoch)
+            if final:
+                self._final_eval_figures(ds, top, small, dead, epoch, model_key="original")
             fn_dir = os.path.join(self.paths["evaluation_results"], "filename_indices")
             os.makedirs(fn_dir, exist_ok=True)
             np.savez(os.path.join(fn_dir, f"{self.run_id}_epoch_{epoch}.npz"),
                      max_filename_indices=top.filename_indices.cpu().numpy(),
                      min_filename_indices=small.filename_indices.cpu().numpy(),
-                     dead_units=dead_acc.cpu().numpy(),
-                     activity_freq=freq.astype(np.float32))
+                     dead_units=dead, activity_freq=freq.astype(np.float32))
         return means
+
+    def _model_weights(self) -> tuple:
+        """(params, net_state) of the original model: the train state's while
+        it trains, else the frozen backbone's."""
+        mts = getattr(self, "mts", None)
+        if mts is None:
+            return self.frozen_params, self.net_state
+        return mts.params, mts.net_state
 
     def _auto_eval_batch_size(self) -> int:
         """sae_batch_size, clamped so the stock eval step's [B*H*W, latents] f32
@@ -910,10 +938,102 @@ class Pipeline:
         max_bs = max(1, (2 << 30) // max(tokens_per_image * self.num_units * 4, 1))
         return int(min(bs, max_bs))
 
+    # ------------------------------------------------------------------
+    # the eval figures (the JAX package's, drawn with PIL: eval_tools/draw.py)
+    # ------------------------------------------------------------------
+    def _channel_frequency_figure(self, freq: np.ndarray, epoch: int) -> None:
+        """Histogram of the per-unit activation frequency, at every eval: the
+        non-zero frequencies in 40 bins over [0, 1], the never-active units as
+        the red bar at 0; ``channel_frequency_histograms/<run_id>_epoch_<e>.png``
+        (8 x 4 in at 120 dpi). A failure prints that it was skipped."""
+        try:
+            from sparse_vision_tpu_torch.eval_tools.draw import Figure
 
-def _figures_not_drawn() -> None:
-    print("[eval] figures not drawn (not ported): the channel-frequency histogram, the "
-          "top-k grids and the activation histograms")
+            zero = int(np.sum(freq == 0))
+            counts, edges = np.histogram(freq[freq != 0], bins=40, range=(0.0, 1.0))
+            fig = Figure((8, 4), dpi=120)
+            ax = fig.grid(1, 1)[0]
+            ax.axes(f"Frequency of how often a channel is active, {self.cfg.sae_layer}, "
+                    f"epoch {epoch}", "Frequency of activation",
+                    "No. of channels", (0.0, 1.0), (0.0, max(int(counts.max()), zero, 1)))
+            ax.bars(edges[:-1], counts, 1.0 / 40, outline="black")
+            ax.bars([0.0], [zero], 0.025, fill="red", outline="black")
+            ax.legend([("Zero Values", "red")])
+            fig.save(os.path.join(self.paths["evaluation_results"],
+                                  "channel_frequency_histograms",
+                                  f"{self.run_id}_epoch_{epoch}.png"))
+        except Exception as e:  # a figure never fails a run
+            print(f"[eval] channel-frequency figure skipped: {e}")
+
+    @staticmethod
+    def _select_figure_units(dead_acc: np.ndarray, n: int = 10) -> np.ndarray:
+        """The first n units that are not dead, padded with dead units when
+        fewer than n are alive."""
+        dead = np.asarray(dead_acc, bool)
+        return np.concatenate([np.flatnonzero(~dead), np.flatnonzero(dead)])[:n].astype(
+            np.int64)
+
+    def _final_eval_figures(self, ds, top, small, dead_acc: np.ndarray, epoch: int,
+                            model_key: str = "sae") -> None:
+        """The last eval's figures over ``_select_figure_units``'s units: the
+        top and small grids of n_show = int(sqrt(k)) images a unit
+        (``top_k_samples/<run_id>_{top,small}_k_samples_epoch_<e>.png``), then
+        one more inference pass over ``ds`` that fills a 100-bin histogram a
+        unit over [small.values[0], top.values[0]]
+        (``activation_histograms/<run_id>_epoch_<e>.png``). ``model_key`` is
+        "sae" (the spliced dictionary's latents) or "original" (the channels of
+        the backbone layer ``sae_layer``). A failure of either part prints
+        that it was skipped."""
+        from sparse_vision_tpu_torch.eval_tools import viz
+        from sparse_vision_tpu_torch.ops import histograms
+
+        cfg = self.cfg
+        units = self._select_figure_units(dead_acc, n=10)
+        k = top.values.shape[0]
+        n_show = max(1, int(np.sqrt(k)))
+        out_dir = self.paths["evaluation_results"]
+        try:
+            for state, tag in ((top, "top"), (small, "small")):
+                images = viz.gather_topk_images(
+                    ds, state.dataset_indices[:n_show].cpu().numpy(), units)
+                values = state.values[:n_show].cpu().numpy()
+                viz.show_top_k_samples(
+                    images, {int(u): values[:, u] for u in units},
+                    os.path.join(out_dir, "top_k_samples",
+                                 f"{self.run_id}_{tag}_k_samples_epoch_{epoch}.png"),
+                    title=f"{tag}-{n_show} activating samples, ({cfg.sae_layer}, "
+                          f"{model_key}), epoch {epoch}")
+        except Exception as e:  # a figure never fails a run
+            print(f"[eval] top-k sample grids skipped: {e}")
+
+        try:
+            unit_idx = torch.as_tensor(units, device=self.device)
+            hstate = histograms.init_histogram(100, small.values[0, unit_idx],
+                                               top.values[0, unit_idx])
+            if model_key == "original":
+                step_fn = make_model_eval_step(self.net, self.criterion,
+                                               topk_layer=cfg.sae_layer)
+                params, net_state = self._model_weights()
+
+                def batch_acts(b):
+                    return step_fn(params, net_state, b.images, b.labels)[1]["topk_acts"]
+            else:
+                step_fn = self._sae_eval_step_fn
+
+                def batch_acts(b):
+                    return step_fn(self.ts.params, self.frozen_params, self.net_state,
+                                   b.images, b.labels)[1]["topk_acts"]
+
+            ebs = cfg.eval_batch_size or self._auto_eval_batch_size()
+            for b in self._batches(ds, ebs, shuffle=False):
+                hstate = histograms.update_histogram(hstate, batch_acts(b)[:, unit_idx])
+            histograms.plot_histograms(
+                hstate, units,
+                os.path.join(out_dir, "activation_histograms", f"{self.run_id}_epoch_{epoch}.png"),
+                title=f"Histograms of neuron activations, ({cfg.sae_layer}, {model_key}), "
+                      f"epoch {epoch}")
+        except Exception as e:  # a figure never fails a run
+            print(f"[eval] activation histograms skipped: {e}")
 
 
 def _to_device(tree, device):

@@ -26,6 +26,7 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from sparse_vision_tpu_torch.models.sae import (
     DEFAULT_MATRYOSHKA_PREFIXES,
@@ -226,28 +227,37 @@ def make_update(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
     training) get a zero gradient. Reproduced quirk: ``perc_dead`` is read
     AFTER the reset/resample branch, so at a measurement boundary it reports
     the freshly reset all-True accumulator (100% dead), exactly as the JAX
-    step does (ROADMAP queue C)."""
+    step does (ROADMAP queue C).
+
+    The step's parts run in profiler ranges (``torch.profiler.record_function``,
+    a no-op without a profiler): "sae_step.loss" (the forward and the loss
+    terms), "sae_step.backward", "sae_step.optimizer" and "sae_step.dead_units"
+    (the accumulator, resample and metrics), which a trace's device time is
+    split by."""
 
     def update(ts: SAETrainState, *acts, resample_draws=None):
         keys = list(ts.params)
         params = {k: v.detach().requires_grad_(True) for k, v in ts.params.items()}
-        out = loss_fn(params, *acts)
-        loss = out["loss"]
-        if aux is not None:
-            if ts.step % dead_neurons_steps >= dead_neurons_steps // 2:
-                out["aux_loss"] = aux(params, acts[0], out, ts.dead_acc)
-                loss = loss + aux_alpha * out["aux_loss"]
-            else:
-                with torch.no_grad():
+        with record_function("sae_step.loss"):
+            out = loss_fn(params, *acts)
+            loss = out["loss"]
+            if aux is not None:
+                if ts.step % dead_neurons_steps >= dead_neurons_steps // 2:
                     out["aux_loss"] = aux(params, acts[0], out, ts.dead_acc)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
-        with torch.no_grad():
+                    loss = loss + aux_alpha * out["aux_loss"]
+                else:
+                    with torch.no_grad():
+                        out["aux_loss"] = aux(params, acts[0], out, ts.dead_acc)
+        with record_function("sae_step.backward"):
+            grads = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
+        with torch.no_grad(), record_function("sae_step.optimizer"):
             grads = {k: torch.zeros_like(params[k]) if g is None else g
                      for k, g in zip(keys, grads)}
             updates, opt_state = tx.update(grads, ts.opt_state, ts.params)
             new_params = optim.apply_updates(ts.params, updates)
             if finish is not None:
                 new_params = finish(ts.params, new_params, out)
+        with torch.no_grad(), record_function("sae_step.dead_units"):
             step = ts.step + 1
             if fused:
                 dead, sparsity = out["dead"], out["sparsity"]

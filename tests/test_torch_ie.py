@@ -311,7 +311,12 @@ def test_cli_runs_a_mode_and_names_its_files(runs, tmp_path, capsys, monkeypatch
     monkeypatch.setattr(pipeline_mod, "load_data",
                         lambda c, class_filter=None: _datasets(t_synth, c.seed))
     out = cli.main(["--run_pipeline", "--config", cfg.to_json(), "--device", "cpu"])
-    assert out == {"compute_ie": "41", "wrote": [os.path.join(folder, "faithfulness.csv")]}
+    assert out == {"compute_ie": "41", "wrote": [os.path.join(folder, f) for f in (
+        "faithfulness.csv", "faithfulness.png")]}
+    from PIL import Image
+
+    with Image.open(out["wrote"][1]) as im:  # the JAX figure's 20 x 5 in at 150 dpi
+        assert im.size == (3000, 750)
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
     rows = _rows(out["wrote"][0])
     assert [float(r["feature_node_threshold"]) for r in rows] == [1e-9, 1e-9]

@@ -57,7 +57,14 @@ def test_the_walk_sees_every_module():
                  "sparse_vision_tpu_torch/interp/mis.py",
                  "sparse_vision_tpu_torch/train/multilayer.py",
                  "sparse_vision_tpu_torch/ops/fast_topk_sae.py",
-                 "sparse_vision_tpu_torch/ops/fast_batch_topk.py"):
+                 "sparse_vision_tpu_torch/ops/fast_batch_topk.py",
+                 "sparse_vision_tpu_torch/ops/histograms.py",
+                 "sparse_vision_tpu_torch/eval_tools/draw.py",
+                 "sparse_vision_tpu_torch/eval_tools/viz.py",
+                 "sparse_vision_tpu_torch/eval_tools/figures.py",
+                 "sparse_vision_tpu_torch/eval_tools/report.py",
+                 "sparse_vision_tpu_torch/utils/profiling.py",
+                 "sparse_vision_tpu_torch/train/e2e_finetune.py"):
         assert must in names
 
 

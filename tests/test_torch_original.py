@@ -462,8 +462,7 @@ def test_trained_run_says_it_is_done(trained, capsys):
 
 def test_standalone_eval_topk_file_matches_jax(trained):
     """A standalone original-model eval (training=False) on the trained model
-    in each package's folder: the means and the four arrays of its top-k file,
-    the figures it does not draw named."""
+    in each package's folder: the means and the four arrays of its top-k file."""
     (jpipe, rec, jmeans), (tpipe, tmeans) = trained["evals"]["j"], trained["evals"]["t"]
     assert jpipe._model_ckpt_epoch == tpipe._model_ckpt_epoch == 2
     for k in ("model_loss", "accuracy"):
@@ -482,10 +481,18 @@ def test_standalone_eval_topk_file_matches_jax(trained):
 
 
 def test_final_eval_names_the_figures_it_does_not_draw(trained, capsys):
+    """The standalone eval draws every figure of a final eval (none is
+    skipped): the channel-frequency histogram, the top and small grids and
+    the activation histograms, under the JAX package's names."""
     tpipe, _ = _port({**trained["cfg"], "training": False}, trained["dirs"]["t2"])
     out = capsys.readouterr().out
-    assert "figures not drawn" in out and "top-k grids" in out
-    assert "channel-frequency histogram" in out and "activation histograms" in out
+    assert "skipped" not in out
+    folder, e = tpipe.paths["evaluation_results"], tpipe.cfg.sae_checkpoint_epoch
+    for rel in (f"channel_frequency_histograms/{tpipe.run_id}_epoch_{e}.png",
+                f"top_k_samples/{tpipe.run_id}_top_k_samples_epoch_{e}.png",
+                f"top_k_samples/{tpipe.run_id}_small_k_samples_epoch_{e}.png",
+                f"activation_histograms/{tpipe.run_id}_epoch_{e}.png"):
+        assert os.path.exists(os.path.join(folder, rel)), rel
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,9 @@ The JAX Pipelines here (and in the test files that import quick_jax_pipeline)
 run faster than as shipped, in what no comparison reads: their GoogLeNet
 weights come from a jitted init_backbone and their shape walk from the
 stages' inits traced, not run (the eager inits compile op by op, ~20 s a
-process on a CPU), and they skip the eval figures, which the port does not
-draw (matplotlib, and an extra inference pass in the last epoch; ~7 s a run).
+process on a CPU), and they skip the eval figures (matplotlib, and an extra
+inference pass in the last epoch; ~7 s a run), which tests/test_torch_figures.py
+holds the port's to.
 The port's runs take the JAX Pipeline's weights, whichever init drew them.
 """
 
@@ -295,8 +296,7 @@ def test_rms_run_final_params_match_jax_within_the_adam_eps_bound(rms_runs):
 
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
-    for field, value in [("mesh_shape", (2,)), ("compute_ie", "5"),
-                         ("sae_e2e_finetune_epochs", 1), ("profile_dir", "/trace")]:
+    for field, value in [("mesh_shape", (2,)), ("compute_ie", "5"), ("wandb_status", True)]:
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
                       datasets=_datasets(t_synth))
