@@ -1,0 +1,125 @@
+"""Checks of chip_smoke.py phase 15's own mesh checks, on one NVIDIA GPU.
+
+    python3 chip_mesh_checks.py
+
+Phase 15 holds each mesh run of phase 6's configs to the one-rank run of the
+same config (chip_smoke._check_mesh_run). This script runs that check on four
+more mesh runs, every world's ranks on the one card over gloo, each against a
+one-rank run made here:
+  grads     sae_mlp at (2,) with the data-parallel step's gradients left
+            unreduced (each replica steps on its own shard's gradient);
+  db_dec    sae_mlp at (2, 2) with the ReLU TP op's (m−1)·direct correction
+            of db_dec left out (db_dec then counts the direct term m times);
+  gated dp  gated_sae at (2,) in bf16, as phase 15 runs it;
+  gated f32 gated_sae at (2, 2) with compute_dtype float32.
+The two faults are planted at run time in the ranks' processes (no file
+changes), and each must fail the check. The two gated runs say where phase 15
+(c)'s wider parameter gap comes from: the summation order of the TP op in
+bf16 (the data-parallel run sums in yet another order) or something the f32
+run shares; both must pass the check. Prints each run's readings, then one
+JSON line of the verdicts; exits non-zero if a planted fault passes the check
+or a clean run fails it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import shutil
+import sys
+import time
+
+import torch
+
+import chip_smoke as cs
+from sparse_vision_tpu_torch.ops import fused_gated_sae, fused_sae, fused_sae_tp
+from sparse_vision_tpu_torch.parallel import sharded_steps
+from sparse_vision_tpu_torch.parallel.distributed import spawn
+
+F32 = {"compute_dtype": "float32"}
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """``fault`` ("grads" or "db_dec", the module docstring) planted in this
+    process for the block."""
+    if fault == "grads":
+        cls, attr = sharded_steps.DataSync, "grads"
+        saved = cls.__dict__[attr]
+        cls.grads = lambda self, grads: grads
+    else:
+        cls, attr = fused_sae_tp.FusedSAETPFunction, "backward"
+        saved = cls.__dict__[attr]
+
+        def backward(ctx, g_rec, g_l1, *rest):
+            x_cent, *_, err_sum = ctx.saved_tensors
+            t_g, _, _, m = ctx.dims
+            out = list(saved.__func__(ctx, g_rec, g_l1, *rest))
+            coeff = fused_sae_tp._zero_if_none(g_rec, x_cent) * 2.0 / (t_g * x_cent.shape[1])
+            # the op's correction undone: db_dec + (m−1)·psum_data(direct)
+            out[4] = out[4] + (m - 1) * ctx.mesh.psum(coeff * err_sum, "data")
+            return tuple(out)
+
+        cls.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        setattr(cls, attr, saved)
+
+
+def _rank(rank: int, mesh, job: str) -> dict:
+    """A rank of the (2,) world ("dp": grads, gated dp) or of the (2, 2) world
+    ("tp": db_dec, gated f32)."""
+    cs.set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True
+    if job == "dp":
+        with _planted("grads"):
+            out = {"grads": cs._mesh_run(mesh, "sae_mlp", fused_sae.KERNELS)}
+        out["gated dp"] = cs._mesh_run(mesh, "gated_sae", fused_gated_sae.KERNELS)
+        return out
+    with _planted("db_dec"):
+        out = {"db_dec": cs._mesh_run(mesh, "sae_mlp", cs.TP_KERNELS)}
+    out["gated f32"] = cs._mesh_run(mesh, "gated_sae", cs.TP_KERNELS, F32)
+    return out
+
+
+def main() -> int:
+    smi = cs.phase_device()
+    t0 = time.perf_counter()
+    shutil.rmtree(cs.MESH_WORK, ignore_errors=True)
+    cs.set_tf32(False)
+    ref = {"sae_mlp": cs._one_rank_run("sae_mlp"), "gated_sae": cs._one_rank_run("gated_sae"),
+           "gated_sae f32": cs._one_rank_run("gated_sae", F32)}
+    worlds = {"dp": spawn(_rank, cs.MESH_DP, "dp", device=cs.DEVICE, backend="gloo",
+                          timeout_s=cs.MESH_TIMEOUT_S),
+              "tp": spawn(_rank, cs.MESH, "tp", device=cs.DEVICE, backend="gloo",
+                          timeout_s=cs.MESH_TIMEOUT_S)}
+    runs = (  # label, world, variant, reference, kernels, planted
+        ("grads", "dp", "sae_mlp", "sae_mlp", fused_sae.KERNELS[:2], True),
+        ("db_dec", "tp", "sae_mlp", "sae_mlp", cs.TP_KERNELS[:2], True),
+        ("gated dp", "dp", "gated_sae", "gated_sae", fused_gated_sae.KERNELS, False),
+        ("gated f32", "tp", "gated_sae", "gated_sae f32", cs.TP_KERNELS[2:], False),
+    )
+    verdicts, ok = {}, True
+    for label, world, name, r, kernels, planted in runs:
+        try:
+            cs._check_mesh_run(label, name, [x[label] for x in worlds[world]], ref[r],
+                               kernels, 12)
+            failure = None
+        except AssertionError as e:
+            failure = str(e)
+        right = (failure is not None) == planted
+        ok &= right
+        verdicts[label] = {"planted": planted, "check_failed": failure is not None,
+                           "as_required": right}
+        cs.log(f"[checks] {label}: " + (f"the check failed: {failure}" if failure else
+                                         "the check passed")
+               + ("" if right else " -- NOT AS REQUIRED"))
+    shutil.rmtree(cs.MESH_WORK, ignore_errors=True)
+    cs.log(f"[checks] {smi}: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"verdicts": verdicts, "ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -233,7 +233,37 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               finetune) at their phase 6 shapes, the crosscoder's decoder-norm
               CSV equal to its finetuned parameters' norms; (f)
               write_feature_report on (a)'s folder, embedding (d)'s PNGs.
-Then one JSON line naming each kernel, the nvidia-smi line, and the last line
+ 15. mesh:    the data- and tensor-parallel trainers (parallel/), every world of
+              ranks on this one card over gloo (torch.distributed's other
+              backend, NCCL, takes one card a rank), spawned with
+              parallel/distributed.spawn: (e) first the four TP rows' wrappers
+              at a (2, 2) rank's shard (T 16,384, C 256, H 8,192) against
+              their plain versions in f32 and bf16, bf16 repeats bitwise,
+              timed beside their bounds and the cuBLAS products; then the
+              one-rank Pipeline.run of phase 6's sae_mlp and gated_sae configs
+              (their caches the mesh runs read); then one (2, 2) world: (a)
+              the ReLU and gated TP ops at T 32,768, C 256, H 16,384 in f32 and
+              bf16 on each rank's shard, loss terms and gathered gradients and
+              statistics held on rank 0 to the single-rank op on the whole
+              batch (MESH_OP_TOL; counts equal); (b) Pipeline.run of sae_mlp at
+              mesh_shape (2, 2) (resets at 4 and 12, the resample at 9) and
+              (c) of gated_sae (restarts at 4, 8, 12), each rank's TP kernels
+              launched 12 times (counts set to 0 just before each run and read
+              just after), held to the one-rank run by _check_mesh_run: the
+              restarts at its steps, each step's loss terms and perc_dead
+              (MESH_STEP_RTOL, MESH_DEAD_ATOL), rank 0's dead accumulator
+              equal, each resample's dead mask (at most MESH_FLIPS_MAX latents
+              apart, each at the margin), the parameters' median and 99th
+              percentile latent gap and b_dec's (MESH_PARAM_LIMITS;
+              chip_mesh_checks.py plants two faults that fail these checks);
+              (e) the host ms of one TP step's collectives at the shard,
+              labelled as gloo across ranks that share one card; then a (2,)
+              world: (d) sae_mlp data
+              parallel the same way through rows 1-2; then (f) a (2, 2) world
+              whose rank 3 raises fails the phase's spawn with that rank's
+              traceback, the waiting ranks killed.
+Then one JSON line naming each kernel (the TP rows' launches summed over the
+ranks of (b) and (c)), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -282,6 +312,7 @@ from sparse_vision_tpu_torch.ops import (
     fused_jumprelu_sae,
     fused_matryoshka_sae,
     fused_sae,
+    fused_sae_tp,
     fused_transcoder,
     native,
     optim,
@@ -333,6 +364,9 @@ SOURCES = {
     "fused_gated_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Gated>
     "fused_transcoder_fwd": CODER, "fused_transcoder_bwd": CODER,
     "fused_crosscoder_fwd": CODER, "fused_crosscoder_bwd": CODER,
+    # the TP sites run the same bodies on a latent shard (ops/fused_sae_tp.py)
+    "fused_sae_tp_fwd": CODER, "fused_sae_tp_bwd": CODER,
+    "fused_gated_sae_tp_fwd": CODER, "fused_gated_sae_tp_bwd": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -349,6 +383,10 @@ REPLACES = {
     "fused_transcoder_bwd": "sparse_vision_tpu/ops/fused_transcoder.py:91",
     "fused_crosscoder_fwd": "sparse_vision_tpu/ops/fused_crosscoder.py:68",
     "fused_crosscoder_bwd": "sparse_vision_tpu/ops/fused_crosscoder.py:109",
+    "fused_sae_tp_fwd": "sparse_vision_tpu/ops/fused_sae_tp.py:65",
+    "fused_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:102",
+    "fused_gated_sae_tp_fwd": "sparse_vision_tpu/ops/fused_sae_tp.py:275",
+    "fused_gated_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:341",
 }
 
 
@@ -4372,6 +4410,520 @@ def phase_finish(smi: str) -> None:
     log(f"[finish] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: mesh (parallel/: data- and tensor-parallel training over ranks
+# that share this one card through gloo)
+# ---------------------------------------------------------------------------
+
+MESH = (2, 2)  # (data, model): 4 ranks
+MESH_DP = (2,)
+SHARD_T, SHARD_H = T // MESH[0], H // MESH[1]  # a TP rank's 16,384 tokens, 8,192 latents
+MESH_WORK = ROOT / "_smoke_mesh"  # listed in .gitignore; removed at the end
+MESH_TIMEOUT_S = 600
+MESH_FAIL_TIMEOUT_S = 120
+SHARING = "gloo, ranks sharing one card"
+TP_KERNELS = (fused_sae_tp.fwd_kernel, fused_sae_tp.bwd_kernel,
+              fused_sae_tp.gated_fwd_kernel, fused_sae_tp.gated_bwd_kernel)
+# the TP op against the single-rank op on the same inputs (a): the pre-activations
+# are the same bits on both (the encode's C-sum does not depend on H), so the
+# counts agree exactly; the partial decodes and latent-local gradients are summed
+# over ranks in another order, and in bf16 a reconstruction that moved by an f32
+# rounding can round its error (and with it drecon, round(db_enc)) to the next
+# bf16 value. The loss terms: relative, f32 1e-5; in bf16 each reconstruction
+# entry sums 16,384 bf16 products in f32 in another grouping, and the MSE of a
+# small error amplifies that (1.2e-5 of the loss on an H100; PERF.md)
+MESH_OP_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 5e-3)}  # rtol, atol·max
+MESH_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+# (b)-(d): the mesh run against the one-rank run, both in bf16. The ranks sum the
+# decode and the gradients in another order, and bf16 rounds b_dec (x_cent = x −
+# round(b_dec)) and the errors, so the runs part at the first update and cannot be
+# held bitwise. Held instead, each limit about 3x the largest reading of two
+# bitwise-equal H100 runs (PERF.md, PR 18):
+# - each step's loss terms, relative to the one-rank run's (MESH_STEP_RTOL) and
+#   perc_dead (MESH_DEAD_ATOL; a latent whose every pre-activation sits at 0 can
+#   be dead in one run's accumulator only);
+# - each resample's dead mask: such latents are resampled in one run only (their
+#   parameters then are a fresh draw in one run and their own in the other), at
+#   most MESH_FLIPS_MAX of them, and each must sit at the margin: its largest
+#   pre-activation over the resample's window (the one-rank run's) within
+#   MESH_MARGIN_ULPS bf16 ulps of 0, the ulp taken at the median latent's
+#   largest pre-activation;
+# - the other latents' parameters: the median and the 99th percentile over the
+#   latents of each latent's largest gap, and b_dec's largest gap
+#   (MESH_PARAM_LIMITS by variant: the gated run parts ~40x further, as far at
+#   (2,) as at (2, 2), and not at all in f32: bf16's rounding, PERF.md).
+# chip_mesh_checks.py shows that two planted faults fail these checks.
+MESH_STEP_RTOL = {"sae_loss": 1.5e-3, "sae_rec_loss": 3e-3, "sae_l1_loss": 2e-4,
+                  "sparsity": 2e-4}
+MESH_DEAD_ATOL = 1.5e-3
+MESH_FLIPS_MAX = 16
+MESH_MARGIN_ULPS = 0.1
+MESH_PARAM_LIMITS = {"sae_mlp": (1e-4, 2.5e-3, 1e-4),  # median, 99th percentile, b_dec
+                     "gated_sae": (4e-3, 3e-2, 2e-3)}
+
+
+def _tp_kernel_rows(cd, tag: str) -> dict:
+    """The four TP rows' wrappers on the card at a (2, 2) rank's shard (T 16,384,
+    C 256, H 8,192) against their plain versions, timed beside their bounds and
+    the stock path's cuBLAS products; bf16 launches repeat bitwise."""
+    t, c, h = SHARD_T, C, SHARD_H
+    label = f"{tag}, shard T={t} H={h}"
+    ops = _relu_exact_operands(cd, t, c, h)
+    x, we, be, wd, bd = ops
+    fwd, bwd = fused_sae_tp.fwd_kernel, fused_sae_tp.bwd_kernel
+    out_k, out_p = fwd(*ops), fused_sae.sae_fwd_plain(*ops)
+    log(f"[mesh] {fwd.name} [{label}] vs plain")
+    if cd == torch.bfloat16:
+        _repeatable(fwd.name, out_k, fwd(*ops))
+    err = _check("recon", out_k[1], out_p[1], 1e-4, 1e-5)
+    _check("act_count", out_k[2].sum(0), out_p[2].sum(0), 0.0, 0.0)
+    _check("row_active", out_k[3], out_p[3], 0.0, 0.0)
+    _check("l1_sum", out_k[4].sum(), out_p[4].sum(), 1e-5, 0.0)
+    xc = x - bd.to(cd)
+    post = torch.relu(xc @ we).to(cd)
+    rows = {fwd.name: _measure(fwd.name, label, cd, lambda: fwd(*ops),
+                               lambda: fused_sae.sae_fwd_plain(*ops),
+                               lambda: (xc @ we, post @ wd), 4.0 * t * c * h,
+                               nbytes(*ops) + nbytes(*out_p[1:4]) + 4, err)}
+    x_cent = out_k[0]
+    res = (out_p[1] - x.float()).to(cd)
+    del out_k, out_p
+    coeffs = torch.tensor([2.0 / (T * c), LAMBDA / (T * H)], device=DEVICE)
+    g_k, g_p = bwd(x_cent, we, be, wd, res, coeffs), fused_sae.sae_bwd_plain(
+        x_cent, we, be, wd, res, coeffs)
+    log(f"[mesh] {bwd.name} [{label}] vs plain")
+    if cd == torch.bfloat16:
+        _repeatable(bwd.name, g_k, bwd(x_cent, we, be, wd, res, coeffs))
+    err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(
+        ("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k[:3] + (g_k[3].sum(0),),
+        g_p[:3] + (g_p[3].sum(0),)))
+    moved = nbytes(x_cent, we, be, wd, res, coeffs) + nbytes(*g_p[:3]) + 4 * c
+    del g_k, g_p
+    dr = (coeffs[0] * res.float()).to(cd)
+    rows[bwd.name] = _measure(
+        bwd.name, label, cd, lambda: bwd(x_cent, we, be, wd, res, coeffs),
+        lambda: fused_sae.sae_bwd_plain(x_cent, we, be, wd, res, coeffs),
+        lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * t * c * h, moved, err)
+    del x_cent, res, dr, post, xc, ops, x, we, be, wd
+
+    gfwd, gbwd = fused_sae_tp.gated_fwd_kernel, fused_sae_tp.gated_bwd_kernel
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_gated_sae(gen, c, h // c)
+    x, wg, bd = _exact_inputs(gen, t, params["W_gate"])
+    gops = (x.to(cd), wg.to(cd), _odd_grid(gen, h, 100), _odd_grid(gen, h, 60),
+            torch.exp(0.1 * torch.randn(h, device=DEVICE, generator=gen)),
+            params["W_dec"].to(cd).contiguous(), bd)
+    out_k, out_p = gfwd(*gops), fused_gated_sae.fused_gated_forward_plain(*gops)
+    log(f"[mesh] {gfwd.name} [{label}] vs plain")
+    if cd == torch.bfloat16:
+        _repeatable(gfwd.name, out_k, gfwd(*gops))
+    err = max(_check(k, a, b, 1e-4, 1e-5) for k, a, b in zip(("recon", "via_gate"), out_k,
+                                                                out_p))
+    _check("act_count", out_k[2], out_p[2], 0.0, 0.0)
+    _check("row_active", out_k[3], out_p[3], 0.0, 0.0)
+    _check("l1_sum", out_k[4], out_p[4], 1e-5, 0.0)
+    rows[gfwd.name] = _measure(gfwd.name, label, cd, lambda: gfwd(*gops),
+                               lambda: fused_gated_sae.fused_gated_forward_plain(*gops),
+                               _act_fwd_library(fused_gated_sae, gops), 6.0 * t * c * h,
+                               nbytes(*gops) + nbytes(*out_p[:4]) + 4, err)
+    del out_k, out_p
+    bops = _gated_bwd_operands(gops, t, c, h)
+    g_k, g_p = gbwd(*bops), fused_gated_sae.backward_plain(*bops)
+    log(f"[mesh] {gbwd.name} [{label}] vs plain")
+    if cd == torch.bfloat16:
+        _repeatable(gbwd.name, g_k, gbwd(*bops))
+    err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(GATED_GRADS, g_k, g_p))
+    moved = nbytes(*bops) + nbytes(*g_p)
+    del g_k, g_p
+    rows[gbwd.name] = _measure(gbwd.name, label, cd, lambda: gbwd(*bops),
+                               lambda: fused_gated_sae.backward_plain(*bops),
+                               _gated_bwd_library(bops), 10.0 * t * c * h, moved, err)
+    return rows
+
+
+def _op_inputs(name: str, cd):
+    """The north-star shape's inputs of the ReLU or gated op (T 32,768, C 256, H
+    16,384), the same on every rank: a seeded generator on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    init = init_sae_mlp if name == "sae_mlp" else init_gated_sae
+    params = init(gen, C, H // C)
+    if name == "gated_sae":
+        params["r_mag"] = 0.1 * torch.randn(H, device=DEVICE, generator=gen)
+    x = torch.relu(torch.randn(T, C, device=DEVICE, generator=gen)) * 0.5
+    return params, x
+
+
+def _mesh_ops(mesh) -> dict:
+    """(a) on a rank: the TP op on this rank's shard and, on rank 0, the
+    single-rank op on the whole batch; the gathered loss terms, gradients and
+    statistics held to it. Returns rank 0's max errors."""
+    from sparse_vision_tpu_torch.parallel.mesh import gather_params, shard_params
+    from sparse_vision_tpu_torch.parallel.sharded_steps import put_tokens_sharded
+
+    out = {}
+    for name, tp_terms, terms in (
+            ("sae_mlp", fused_sae_tp.fused_sae_tp_loss_terms, fused_sae.fused_sae_loss_terms),
+            ("gated_sae", fused_sae_tp.fused_gated_sae_tp_loss_terms,
+             fused_gated_sae.fused_gated_sae_loss_terms)):
+        for cd in (torch.float32, torch.bfloat16):
+            set_tf32(False)
+            params, x = _op_inputs(name, cd)
+            local = {k: v.requires_grad_(True) for k, v in shard_params(params, mesh).items()}
+            got = tp_terms(local, put_tokens_sharded(mesh, x), LAMBDA, H // C, mesh,
+                           compute_dtype=cd)
+            got["loss"].backward()
+            grads = gather_params({k: v.grad for k, v in local.items()}, mesh)
+            dead = mesh.gather(got["dead"], 0)
+            freq = mesh.gather(got["activity_freq"], 0)
+            if mesh.rank != 0:
+                continue
+            full = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            want = terms(full, x, LAMBDA, H // C, compute_dtype=cd)
+            want["loss"].backward()
+            torch.cuda.synchronize()
+            rtol, atol = MESH_OP_TOL[cd]
+            tag = f"{name} {str(cd).removeprefix('torch.')}"
+            errs = {}
+            for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity"):
+                a, b = got[k].item(), want[k].item()
+                errs[k] = abs(a - b)
+                if abs(a - b) > MESH_LOSS_RTOL[cd] * abs(b) + 1e-12:
+                    raise AssertionError(f"[mesh] (a) {tag}: {k} {a} vs single-rank {b}")
+            for k, v in grads.items():
+                e = (v - full[k].grad).abs().max().item()
+                scale = full[k].grad.abs().max().item()
+                errs[f"d{k}"] = e
+                bad = ((v - full[k].grad).abs() > rtol * full[k].grad.abs() + atol * scale)
+                if bool(bad.any()):
+                    raise AssertionError(f"[mesh] (a) {tag}: d{k} off the single-rank op by "
+                                         f"{e:.3e} (max {scale:.3e}) at {int(bad.sum())} entries")
+            if not (torch.equal(dead, want["dead"]) and torch.equal(freq, want["activity_freq"])):
+                raise AssertionError(f"[mesh] (a) {tag}: dead / activity_freq differ")
+            rows = put_tokens_sharded(mesh, want["decoded"])  # rank 0's token rows
+            errs["decoded"] = (got["decoded"] - rows).abs().max().item()
+            if errs["decoded"] > atol * rows.abs().max().item() + 1e-30:
+                raise AssertionError(f"[mesh] (a) {tag}: recon off the single-rank op by "
+                                     f"{errs['decoded']:.3e}")
+            log(f"[mesh] (a) {tag} ({SHARING}): TP op vs single-rank op, max abs err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            out[tag] = errs
+            del want, full
+        del got, grads, local, params, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _time_collectives(mesh, t_l: int, c: int, h_l: int, reps: int = 5) -> float:
+    """Host ms of one TP step's collectives at this shard (the four all_reduces
+    of the op, of their sizes, and perc_dead's), each ending in a synchronize."""
+    bufs = [("model", t_l * c + t_l + 1), ("data", h_l + 4), ("data", 2 * c * h_l + h_l + 2 * c),
+            ("model", c), ("model", 1)]
+    tensors = [(a, torch.zeros(n, device=DEVICE)) for a, n in bufs]
+
+    def one():
+        for axis, buf in tensors:
+            mesh.psum(buf, axis)
+        torch.cuda.synchronize()
+
+    one()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _pre_max(params: dict, x: torch.Tensor, cd) -> torch.Tensor:
+    """Per latent, the largest pre-activation (the gate's for gated_sae) over
+    the tokens of ``x``, from the operands as the kernels read them (x −
+    round(b_dec) and the weights in ``cd``), in f32 products."""
+    enc, bias = ("W_enc", "b_enc") if "W_enc" in params else ("W_gate", "b_gate")
+    w = params[enc].detach().to(cd).float()
+    b_dec = params["b_dec"].detach().to(cd)
+    peak = None
+    for rows in x.split(4096):
+        got = ((rows.to(cd) - b_dec).float() @ w).amax(0)
+        peak = got if peak is None else torch.maximum(peak, got)
+    return peak + params[bias].detach().float()
+
+
+@contextlib.contextmanager
+def _recording(mesh=None, pre_max: bool = False):
+    """What a Pipeline.run in the block did: "dead", the dead masks (whole, on
+    the host) that each resample read, in order (a TP rank gathers its
+    shard's: every rank resamples at the same step); with ``pre_max`` (one
+    rank), "pre_max", each step's _pre_max [steps, H], and "at", the step of
+    each resample."""
+    from sparse_vision_tpu_torch.parallel import tensor_parallel
+
+    seen = {"dead": [], "pre_max": [], "at": []}
+
+    def wrap_resample(fn):
+        def resample(params, opt_state, dead, *args, **kw):
+            full = dead if mesh is None or mesh.size("model") == 1 else mesh.gather(dead, 0)
+            seen["dead"].append(full.cpu())
+            seen["at"].append(len(seen["pre_max"]))
+            return fn(params, opt_state, dead, *args, **kw)
+        return resample
+
+    def wrap_terms(fn):
+        def terms(params, x, *args, **kw):
+            with torch.no_grad():
+                cd = fused_sae.compute_dtype_of(kw.get("compute_dtype", torch.bfloat16))
+                seen["pre_max"].append(_pre_max(params, x, cd).cpu())
+            return fn(params, x, *args, **kw)
+        return terms
+
+    saved = (tsteps.resample_sae, tensor_parallel.resample_sae_tp,
+             fused_sae.fused_sae_loss_terms, fused_gated_sae.fused_gated_sae_loss_terms)
+    tsteps.resample_sae = wrap_resample(saved[0])
+    tensor_parallel.resample_sae_tp = wrap_resample(saved[1])
+    if pre_max:
+        fused_sae.fused_sae_loss_terms = wrap_terms(saved[2])
+        fused_gated_sae.fused_gated_sae_loss_terms = wrap_terms(saved[3])
+    try:
+        yield seen
+    finally:
+        (tsteps.resample_sae, tensor_parallel.resample_sae_tp, fused_sae.fused_sae_loss_terms,
+         fused_gated_sae.fused_gated_sae_loss_terms) = saved
+
+
+def _mesh_run(mesh, name: str, kernels, extra: dict | None = None) -> dict:
+    """(b)-(d) on a rank: Pipeline.run of phase 6's ``name`` config (with the
+    fields ``extra``) on the mesh, every launch count set to 0 just before and
+    read just after. Rank 0 returns the whole final state and the resamples'
+    dead masks too."""
+    cfg, _ = _slice_config(name, dict(mesh_shape=mesh.shape, directory_path=str(MESH_WORK),
+                                      **(extra or {})))
+    pipe = Pipeline(cfg, mesh=mesh)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with _recording(mesh) as rec:
+        pipe.run()
+    wall = time.perf_counter() - t0
+    out = {"launches": {k.name: k.launches for k in kernels}, "wall": wall,
+           "timing": pipe.train_timing[0],
+           "log": [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]}
+    if mesh.rank == 0:
+        out.update(params=pipe.ts.params, dead=pipe.ts.dead_acc, resampled=rec["dead"])
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(rank: int, mesh, job: str) -> dict:
+    """One rank of phase 15's worlds: ``job`` "tp" runs (a), (b), (c) and the
+    collective timing of (e) on (2, 2); "dp" runs (d) on (2,)."""
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
+    if job == "dp":
+        return {"sae_mlp": _mesh_run(mesh, "sae_mlp", KERNELS)}
+    out = {"ops": _mesh_ops(mesh)}
+    out["sae_mlp"] = _mesh_run(mesh, "sae_mlp", TP_KERNELS)
+    out["gated_sae"] = _mesh_run(mesh, "gated_sae", TP_KERNELS)
+    out["collectives_ms"] = _time_collectives(mesh, SHARD_T, C, SHARD_H)
+    return out
+
+
+def _mesh_fail(rank: int, mesh) -> None:
+    """(f): rank 3 raises; the other ranks wait in a collective it never joins."""
+    if rank == 3:
+        raise RuntimeError("rank 3 of the failure check raises on purpose")
+    mesh.barrier()
+
+
+def _one_rank_run(name: str, extra: dict | None = None) -> dict:
+    """The one-rank run of phase 6's ``name`` config (with the fields
+    ``extra``) in MESH_WORK (its cache is the one the mesh runs then read):
+    final state on the host, steps, the resamples' dead masks and steps, and
+    each step's largest pre-activation per latent (_recording)."""
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True
+    cfg, _ = _slice_config(name, dict(directory_path=str(MESH_WORK), **(extra or {})))
+    pipe = Pipeline(cfg)
+    t0 = time.perf_counter()
+    with _recording(pre_max=True) as rec:
+        pipe.run()
+    log(f"[mesh] {name} {cfg.compute_dtype} one rank: Pipeline.run in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"params": {k: v.cpu() for k, v in pipe.ts.params.items()},
+           "dead": pipe.ts.dead_acc.cpu(), "resampled": rec["dead"], "at": rec["at"],
+           "pre_max": torch.stack(rec["pre_max"]),
+           "log": [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]}
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _latent_diff(params: dict, ref: dict) -> torch.Tensor:
+    """Per latent, the largest |difference| over its parameters (encoder
+    columns, decoder rows, per-latent vectors); b_dec is no latent's."""
+    from sparse_vision_tpu_torch.parallel.mesh import param_axes
+
+    worst = None
+    for k, axis in param_axes(ref).items():
+        if axis is None:
+            continue
+        d = (params[k] - ref[k]).abs()
+        d = d.amax(dim=1 - axis) if d.dim() == 2 else d
+        worst = d if worst is None else torch.maximum(worst, d)
+    return worst
+
+
+def _window_peak(ref: dict, i: int) -> torch.Tensor:
+    """Per latent, the one-rank run's largest pre-activation over the steps
+    that fed resample ``i``'s dead mask: those after the last restart of the
+    accumulator (perc_dead 1) up to the resample's own."""
+    at = ref["at"][i]
+    start = max((s for s, m in ref["log"] if s < at and m["perc_dead"] == 1.0), default=0)
+    return ref["pre_max"][start:at].amax(0)
+
+
+def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
+                    want: int) -> None:
+    """A mesh run's ranks against the one-rank run ``ref`` of variant
+    ``name`` (the tolerances' comment): 12 steps, every rank's ``kernels``
+    launched ``want`` times, the restarts at the same steps, each step's loss
+    terms within MESH_STEP_RTOL and perc_dead within MESH_DEAD_ATOL, rank
+    0's final dead accumulator equal, the resamples at the same steps with
+    their dead masks apart at no more than MESH_FLIPS_MAX latents, each at the
+    margin, and the other latents' parameters and b_dec within
+    MESH_PARAM_LIMITS. Logs every reading first, then raises with every
+    check that failed."""
+    bad = []
+    for r, res in enumerate(ranks):
+        launches = res["launches"]
+        # rank 0's loop: the other ranks start theirs while rank 0 still evaluates
+        loop = "" if r else (f"; training loop {res['timing']['tokens'] / res['timing']['seconds']:.0f}"
+                             f" tokens/s ({SHARING})")
+        log(f"[mesh] {label} rank {r}: launches {launches}; Pipeline.run {res['wall']:.1f} s"
+            + loop)
+        bad += [f"rank {r}: {launches[k.name]} launches of {k.name}, expected {want}"
+                for k in kernels if launches[k.name] != want]
+        if len(res["log"]) != 12:
+            bad.append(f"rank {r}: {len(res['log'])} steps, expected 12")
+    worst = dict.fromkeys(MESH_STEP_RTOL, 0.0)
+    dead_gap = 0.0
+    failed = set()  # the loss terms already reported, at their first failing step
+    for (s, m), (s1, m1) in zip(ranks[0]["log"], ref["log"]):
+        log(f"[mesh] {label} step {s}: " + ", ".join(
+            f"{k} {m[k]:.6g} (one rank {m1[k]:.6g})" for k in m1))
+        if (m["perc_dead"] == 1.0) != (m1["perc_dead"] == 1.0):
+            bad.append(f"the dead accumulator restarts at step {s} on one run only")
+        dead_gap = max(dead_gap, abs(m["perc_dead"] - m1["perc_dead"]))
+        for k, rtol in MESH_STEP_RTOL.items():
+            rel = abs(m[k] - m1[k]) / abs(m1[k])
+            worst[k] = max(worst[k], rel)
+            if rel > rtol and k not in failed:
+                failed.add(k)
+                bad.append(f"step {s} {k} {m[k]:.6g}, one rank {m1[k]:.6g} ({rel:.2e} "
+                           f"relative, limit {rtol:g})")
+    log(f"[mesh] {label} steps against the one-rank run: largest relative gap "
+        + ", ".join(f"{k} {v:.3e} (limit {MESH_STEP_RTOL[k]:g})" for k, v in worst.items())
+        + f"; perc_dead {dead_gap:.3e} (limit {MESH_DEAD_ATOL:g})")
+    if dead_gap > MESH_DEAD_ATOL:
+        bad.append(f"perc_dead {dead_gap:.3e} off the one-rank run's")
+    top = ranks[0]
+    if not torch.equal(top["dead"], ref["dead"]):
+        bad.append(f"dead accumulator differs from the one-rank run's "
+                   f"({int((top['dead'] != ref['dead']).sum())} latents)")
+    if len(top["resampled"]) != len(ref["resampled"]):
+        bad.append(f"{len(top['resampled'])} resamples, one rank {len(ref['resampled'])}")
+    flipped = torch.zeros_like(ref["dead"])
+    for i, (a, b) in enumerate(zip(top["resampled"], ref["resampled"])):
+        apart = a != b
+        flipped |= apart
+        peak = _window_peak(ref, i)
+        scale = peak.abs().median().item()
+        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+        margin = peak[apart].abs() / ulp
+        shown = MESH_FLIPS_MAX  # the first ones of a longer list
+        log(f"[mesh] {label} resample {i + 1} (step {ref['at'][i]}): {int(b.sum())} dead "
+            f"latents on one rank, {int(a.sum())} on the mesh, {int(apart.sum())} apart; "
+            f"their largest pre-activations in the window "
+            f"{[round(v, 7) for v in peak[apart][:shown].tolist()]}, "
+            f"{[round(v, 3) for v in margin[:shown].tolist()]} bf16 ulps at the median "
+            f"latent's {scale:.4g} (ulp {ulp:.3g}; largest "
+            f"{margin.max().item() if margin.numel() else 0.0:.3g}, limit {MESH_MARGIN_ULPS:g})")
+        if bool((margin > MESH_MARGIN_ULPS).any()):
+            bad.append(f"resample {i + 1}: a latent resampled in one run only sits "
+                       f"{margin.max().item():.3g} bf16 ulps from 0")
+    if int(flipped.sum()) > MESH_FLIPS_MAX:
+        bad.append(f"the resamples' dead masks differ at {int(flipped.sum())} latents")
+    gap = _latent_diff(top["params"], ref["params"])[~flipped]
+    b_dec = (top["params"]["b_dec"] - ref["params"]["b_dec"]).abs().max().item()
+    got = (gap.median().item(), torch.quantile(gap, 0.99).item(), b_dec)
+    log(f"[mesh] {label} parameters against the one-rank run: per latent max "
+        f"{gap.max().item():.3e}, median {got[0]:.3e}, 99th percentile {got[1]:.3e}, "
+        f"{int((gap > 1e-4).sum())} of {gap.numel()} latents above 1e-4 "
+        f"({int(flipped.sum())} resampled in one run only, not held); b_dec {b_dec:.3e} "
+        f"(limits {MESH_PARAM_LIMITS[name]})")
+    bad += [f"parameters' {what} {v:.3e} off the one-rank run (limit {lim:g})"
+            for what, v, lim in zip(("median latent gap", "99th percentile latent gap",
+                                     "b_dec gap"), got, MESH_PARAM_LIMITS[name]) if v > lim]
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 15 (the module docstring). Returns the TP kernels' rows, their
+    launches summed over the ranks of (b) and (c)."""
+    from sparse_vision_tpu_torch.parallel.distributed import RankError, spawn
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_WORK, ignore_errors=True)
+    set_tf32(False)
+    rows = {}
+    for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        got = _tp_kernel_rows(cd, tag)
+        if cd == torch.bfloat16:
+            rows = got
+    torch.cuda.empty_cache()
+    ref = {name: _one_rank_run(name) for name in ("sae_mlp", "gated_sae")}
+
+    t0 = time.perf_counter()
+    ranks = spawn(_mesh_rank, MESH, "tp", device=DEVICE, backend="gloo",
+                  timeout_s=MESH_TIMEOUT_S)
+    log(f"[mesh] world {MESH} ({SHARING}, {torch.cuda.get_device_name(0)}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    _check_mesh_run("(b) sae_mlp (2, 2)", "sae_mlp", [r["sae_mlp"] for r in ranks],
+                    ref["sae_mlp"], TP_KERNELS[:2], 12)
+    _check_mesh_run("(c) gated_sae (2, 2)", "gated_sae", [r["gated_sae"] for r in ranks],
+                    ref["gated_sae"], TP_KERNELS[2:], 12)
+    for k in TP_KERNELS:
+        rows[k.name]["launches"] = sum(r[n]["launches"][k.name] for r in ranks
+                                       for n in ("sae_mlp", "gated_sae"))
+    coll = [r["collectives_ms"] for r in ranks]
+    log(f"[mesh] (e) one TP step's collectives at the shard (T {SHARD_T}, C {C}, H {SHARD_H}): "
+        + ", ".join(f"rank {r} {ms:.2f} ms" for r, ms in enumerate(coll))
+        + f" ({SHARING}: a number for gloo on one card, not for several cards; {smi})")
+    del ranks
+
+    t0 = time.perf_counter()
+    dp = spawn(_mesh_rank, MESH_DP, "dp", device=DEVICE, backend="gloo",
+               timeout_s=MESH_TIMEOUT_S)
+    log(f"[mesh] world {MESH_DP} ({SHARING}): {time.perf_counter() - t0:.1f} s")
+    _check_mesh_run("(d) sae_mlp (2,)", "sae_mlp", [r["sae_mlp"] for r in dp], ref["sae_mlp"],
+                    (fused_sae.fwd_kernel, fused_sae.bwd_kernel), 12)
+    del dp, ref
+
+    t0 = time.perf_counter()
+    try:
+        spawn(_mesh_fail, MESH, device=DEVICE, backend="gloo", timeout_s=MESH_FAIL_TIMEOUT_S)
+    except RankError as e:
+        if "raises on purpose" not in str(e):
+            raise
+        log(f"[mesh] (f) a rank that raises fails the world in "
+            f"{time.perf_counter() - t0:.1f} s: {str(e).splitlines()[0]} "
+            f"{str(e).strip().splitlines()[-1]}")
+    else:
+        raise AssertionError("[mesh] (f) a world with a failing rank returned")
+    shutil.rmtree(MESH_WORK, ignore_errors=True)
+    log(f"[mesh] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4398,11 +4950,13 @@ def main() -> int:
     phase_backbones(smi)
     phase_original(smi)
     phase_finish(smi)
+    tp_rows = phase_mesh(smi)
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}
         for k in KERNELS
-    ]
+    ] + [{"name": k.name, "route": "cuda", "source": SOURCES[k.name],
+          "replaces": REPLACES[k.name], **tp_rows[k.name]} for k in TP_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,15 @@ consecutive circuit pair, ``transcoders:l1,l2,...`` pairs up that chain. It
 prints one JSON line with each layer's (or pair's, as "in->out") last eval
 means.
 
+``--mesh_shape d[,m]`` trains the config on a mesh of d·m ranks
+(parallel/distributed.spawn: one process a rank; rank r on ``cuda:(r %
+cards)``): ``d`` data parallel, ``d,m`` tensor parallel (sae_mlp and
+gated_sae), every rank with its Pipeline (train/pipeline.py's module
+docstring); rank 0's result prints. ``--dist_backend`` is "nccl" (one card a
+rank) or "gloo" (ranks may share a card, and the only backend on the CPU);
+its default is nccl on CUDA and gloo with ``--device cpu``. Without
+``--device cpu`` the mesh runs on CUDA and fails when no GPU is present.
+
 ``--feature_report OUT.html`` writes the HTML feature report of the config's
 run at its latest evaluated epoch (eval_tools/report.py, with the circuit
 section from its ie_related_quantities folder), after the run when
@@ -40,7 +49,9 @@ section from its ie_related_quantities folder), after the run when
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 
 from sparse_vision_tpu_torch.config import RunConfig
@@ -54,6 +65,11 @@ def main(argv=None) -> dict:
                     help="write the HTML feature report of the config's run at its latest "
                          "evaluated epoch (after the run with --run_pipeline)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--mesh_shape", default=None, metavar="D[,M]",
+                    help="train on a mesh of D (data) x M (model) ranks, one process each")
+    ap.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                    help="torch.distributed backend of --mesh_shape (default: nccl on CUDA, "
+                         "gloo with --device cpu)")
     ap.add_argument("--multilayer", default=None, metavar="LAYERS",
                     help="train the SAEs of 'circuit' or a comma list of layers, or "
                          "'transcoders[:l1,l2,...]', from one backbone pass "
@@ -72,6 +88,17 @@ def main(argv=None) -> dict:
 
     if args.multilayer is not None:
         out = _multilayer(cfg, args.multilayer, args.device)
+        print(json.dumps(out, sort_keys=True))
+        return out
+    if args.mesh_shape is not None:
+        cfg = dataclasses.replace(
+            cfg, mesh_shape=tuple(int(n) for n in args.mesh_shape.split(",") if n))
+    if math.prod(cfg.mesh_shape) > 1:
+        from sparse_vision_tpu_torch.parallel.distributed import spawn
+
+        backend = args.dist_backend or ("gloo" if args.device == "cpu" else "nccl")
+        out = spawn(_mesh_rank, cfg.mesh_shape, cfg.to_json(), args.device,
+                    device=args.device, backend=backend)[0]
         print(json.dumps(out, sort_keys=True))
         return out
     pipe = Pipeline(cfg, device=args.device)
@@ -96,6 +123,14 @@ def main(argv=None) -> dict:
         out = {"run": out, "feature_report": _feature_report(cfg, args.feature_report)}
     print(json.dumps(out, sort_keys=True))
     return out
+
+
+def _mesh_rank(rank: int, mesh, cfg_json: str, device):
+    """One rank of ``--mesh_shape``: this rank's Pipeline on the config, run;
+    rank 0 returns the last eval's means."""
+    from sparse_vision_tpu_torch.train.pipeline import Pipeline
+
+    return Pipeline(RunConfig.from_json(cfg_json), device=device, mesh=mesh).run()
 
 
 def _feature_report(cfg: RunConfig, out_html: str) -> str:

@@ -1,5 +1,5 @@
 """Batch-level TopK: the fast train path and the exact cutoff (port of
-sparse_vision_tpu/ops/fast_batch_topk.py, without the sharded ``axis_name``).
+sparse_vision_tpu/ops/fast_batch_topk.py).
 
 BatchTopK training keeps the n = T·k largest pre-activations of the whole
 [T, H] batch. The JAX package selects them with a cutoff mask, ``pre >=
@@ -22,6 +22,14 @@ ties and ±0 included. Non-negative floats keep their bits, negative floats
 flip every bit but the sign (so -0.0 sorts just below +0.0). These are the JAX
 package's uint32 keys with the sign bit flipped, carried as int32 because most
 uint32 ops are missing on CUDA.
+
+Data parallel (a ``mesh`` whose 'data' axis has more than one rank): each rank
+holds a token shard and the selection is the GLOBAL batch's. The cutoff is
+``kth_largest_sharded``, JAX's radix bisection on the same keys with each of
+its 32 counts psummed over 'data' (32 scalar all_reduces, no candidate
+gathering), and each rank keeps its entries at or above it, as the JAX
+package's sharded step does (ties at the cutoff all kept); the threshold
+observation is the least positive kept value over the ranks (a pmin).
 """
 
 from __future__ import annotations
@@ -50,20 +58,45 @@ def kth_largest(flat: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(key < 0, key ^ _LOW31, key).view(torch.float32)
 
 
+def kth_largest_sharded(flat: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """The exact ``n``-th largest element over every rank's 1-D f32 ``flat``
+    along the mesh's 'data' axis: radix bisection MSB-first on the unsigned
+    order of the int32 keys (u = key + 2^31), bit b kept when at least n
+    entries over the ranks lie at or above the prefix with it; each count is
+    an all_reduce. A 0-d f32 tensor, the same on every rank."""
+    keys = ordered_keys(flat.detach())
+    prefix = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for b in range(31, -1, -1):
+        cand = prefix | (1 << b)
+        count = (keys >= (cand - 2 ** 31).to(torch.int32)).sum()
+        prefix = torch.where(mesh.psum(count, "data") >= n, cand, prefix)
+    key = (prefix - 2 ** 31).to(torch.int32)
+    return torch.where(key < 0, key ^ _LOW31, key).view(torch.float32)
+
+
 def fast_batch_topk_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: float,
-                                   expansion_factor: int, k: int) -> dict:
+                                   expansion_factor: int, k: int, mesh=None) -> dict:
     """sae_inference_and_loss("batch_topk_sae", training=True) on token input
     [T, C], plus the statistics the fused steps read (dead, activity_freq,
     sparsity), all from the T·k selected entries (module docstring). No L1 in
     the loss; ``lambda_sparse`` is unused. Plain torch ops, the same on every
-    device."""
+    device. With a data-parallel ``mesh``, ``x`` is the rank's shard and the
+    selection is the global batch's (module docstring); the loss terms stay
+    the shard's (the step pmeans them)."""
     del lambda_sparse
     t = x.shape[0]
     h = params["b_enc"].shape[0]
     if k > h:
         raise ValueError(f"sae_topk={k} exceeds the latent count {h}")
     pre = (x - params["b_dec"]) @ params["W_enc"] + params["b_enc"]
-    vals, idx = torch.topk(pre.reshape(-1), t * k, sorted=False)
+    sharded = mesh is not None and mesh.size("data") > 1
+    if sharded:
+        flat = pre.reshape(-1)
+        cutoff = kth_largest_sharded(flat, t * mesh.size("data") * k, mesh)
+        idx = torch.nonzero(flat.detach() >= cutoff).squeeze(1)
+        vals = flat[idx]
+    else:
+        vals, idx = torch.topk(pre.reshape(-1), t * k, sorted=False)
     kept = torch.relu(vals)
     post = torch.zeros_like(pre).reshape(-1).scatter(0, idx, kept).reshape(pre.shape)
     recon = post @ params["W_dec"] + params["b_dec"]
@@ -72,7 +105,11 @@ def fast_batch_topk_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse:
     active = kept.detach() > 0
     # one slot past the last latent takes the selected values that are not positive
     act_count = torch.bincount(torch.where(active, idx % h, h), minlength=h + 1)[:h]
-    mp = torch.where(active, kept.detach(), torch.full_like(vals, float("inf"))).min()
+    # +inf where nothing positive is kept (a shard may keep nothing)
+    mp = torch.cat([torch.where(active, kept.detach(), float("inf")),
+                    vals.new_full((1,), float("inf"))]).min()
+    if sharded:
+        mp = mesh.pmin(mp, "data")
     return {
         "loss": rec,
         "rec_loss": rec,

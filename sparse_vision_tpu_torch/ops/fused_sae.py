@@ -427,21 +427,21 @@ def run_on_device(kernel, plain, x, *args):
     raise ValueError(f"fused SAE op: no kernel for device {x.device}")
 
 
-def fused_sae_forward(x, w_enc, b_enc, w_dec, b_dec):
-    """The forward entry point (the kernels on CUDA tensors, sae_fwd_plain on CPU
-    tensors), its partials reduced here: (x_cent, recon, act_count, row_active,
-    l1_sum)."""
+def fused_sae_forward(x, w_enc, b_enc, w_dec, b_dec, kernel=fwd_kernel):
+    """The forward entry point (the kernels on CUDA tensors, through
+    ``kernel``, whose count it adds to; sae_fwd_plain on CPU tensors), its
+    partials reduced here: (x_cent, recon, act_count, row_active, l1_sum)."""
     x_cent, recon, act_part, row_active, zsum_part = run_on_device(
-        fwd_kernel, sae_fwd_plain, x, w_enc, b_enc, w_dec, b_dec)
+        kernel, sae_fwd_plain, x, w_enc, b_enc, w_dec, b_dec)
     return x_cent, recon, act_part.sum(0), row_active, zsum_part.sum()
 
 
-def fused_sae_backward(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+def fused_sae_backward(x_cent, w_enc, b_enc, w_dec, err, coeffs, kernel=bwd_kernel):
     """The backward entry point on the saved x_cent (the kernel on CUDA tensors,
-    sae_bwd_plain on CPU tensors), db_dec's partial rows reduced here: (dW_enc,
-    db_enc, dW_dec, db_dec)."""
+    through ``kernel``; sae_bwd_plain on CPU tensors), db_dec's partial rows
+    reduced here: (dW_enc, db_enc, dW_dec, db_dec)."""
     dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
-        bwd_kernel, sae_bwd_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
+        kernel, sae_bwd_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 

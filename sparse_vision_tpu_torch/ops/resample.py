@@ -1,6 +1,7 @@
-"""Dead-neuron resampling and its schedule (port of the single-device parts of
+"""Dead-neuron resampling and its schedule (port of
 sparse_vision_tpu/ops/resample.py: the sae_mlp surgery, which the transcoder's
-rectangular decoder reuses, and the crosscoder's).
+rectangular decoder reuses, its latent-sharded form for the tensor-parallel
+step, and the crosscoder's).
 
 Reference semantics (sae_mlp.py:79-184 reset_encoder_weights +
 model_pipeline.py:771-794): with n = dead_neurons_steps and i = the 1-based train
@@ -76,6 +77,50 @@ def resample_dead_neurons(params: dict, opt_state: dict, dead_mask: torch.Tensor
     avg_l2_dec = torch.where(any_live, quirk_norms.mean(), one)
     new_dec_t = dec_draw / torch.linalg.vector_norm(dec_draw, dim=1, keepdim=True) * avg_l2_dec
     new_w_dec = torch.where(dead_mask[:, None], new_dec_t.T, w_dec)
+    new_w_dec = new_w_dec / torch.linalg.vector_norm(new_w_dec, dim=1, keepdim=True)
+
+    new_params = dict(params)
+    new_params.update(W_enc=new_w_enc, b_enc=new_b_enc, W_dec=new_w_dec)
+    return new_params, _zero_dead_moments(opt_state, dead_mask)
+
+
+def resample_dead_neurons_tp(params: dict, opt_state: dict, dead_mask: torch.Tensor,
+                             enc_draw: torch.Tensor, dec_draw: torch.Tensor, mesh):
+    """resample_dead_neurons on a latent shard of ``mesh`` (port of the JAX
+    package's resample_dead_neurons_tp): ``params``, ``opt_state`` and
+    ``dead_mask`` [h/m] are the rank's shard, ``enc_draw`` [h, d] and
+    ``dec_draw`` [d_out, h] the FULL global draws, made alike on every rank
+    (kaiming_draws from a generator seeded the same everywhere). The decoder
+    draw's rows are normalized across the whole latent axis, a global
+    operation, so each rank normalizes the full draws and slices its own
+    latents; the live-latent statistics (counts, mean norms, mean |b_enc| and
+    the decoder's per-act-dim quirk norms) are psummed over 'model' in one
+    all_reduce. With the same draws and dead mask this is the single-device
+    surgery on each shard, up to the order of the sums."""
+    w_enc, b_enc, w_dec = params["W_enc"], params["b_enc"], params["W_dec"]
+    h_l = b_enc.shape[0]
+    live = ~dead_mask
+    zero = torch.zeros((), dtype=w_enc.dtype, device=w_enc.device)
+    one = torch.ones((), dtype=w_enc.dtype, device=w_enc.device)
+    dec_live = torch.where(live[:, None], w_dec, zero)  # [h_l, d_out]
+    n_live, sum_enc, sum_b, quirk_sq = mesh.psum_many([
+        live.sum().to(w_enc.dtype),
+        torch.where(live, torch.linalg.vector_norm(w_enc, dim=0), zero).sum(),
+        torch.where(live, b_enc.abs(), zero).sum(),
+        dec_live.square().sum(0)], "model")
+    any_live = n_live > 0
+    n_live = n_live.clamp(min=1)
+    lo = mesh.index("model") * h_l
+
+    avg_l2_enc = torch.where(any_live, sum_enc / n_live, one)
+    new_enc_t = enc_draw / torch.linalg.vector_norm(enc_draw, dim=1, keepdim=True) * avg_l2_enc
+    new_w_enc = torch.where(dead_mask[None, :], new_enc_t[lo:lo + h_l].T, w_enc)
+
+    new_b_enc = torch.where(dead_mask, torch.where(any_live, sum_b / n_live, zero), b_enc)
+
+    avg_l2_dec = torch.where(any_live, quirk_sq.sqrt().mean(), one)
+    new_dec_t = dec_draw / torch.linalg.vector_norm(dec_draw, dim=1, keepdim=True) * avg_l2_dec
+    new_w_dec = torch.where(dead_mask[:, None], new_dec_t[:, lo:lo + h_l].T, w_dec)
     new_w_dec = new_w_dec / torch.linalg.vector_norm(new_w_dec, dim=1, keepdim=True)
 
     new_params = dict(params)

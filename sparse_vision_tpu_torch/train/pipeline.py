@@ -47,12 +47,27 @@ the downstream KL (train/e2e_finetune.py), and ``profile_dir`` traces each
 training epoch's steps with torch.profiler (utils/profiling.py). Datasets come
 from ``data_dir`` (data/datasets.py) or the synthetic stand-in, each
 file-backed read decoded by ``cfg.data_workers`` threads. A config that asks
-for anything outside the port (``mesh_shape``, ``wandb_status``) raises
-NotImplementedError naming the field.
+for anything outside the port (``wandb_status``) raises NotImplementedError
+naming the field.
+
+``mesh_shape`` trains the cached dictionary on a mesh of torch.distributed
+ranks (parallel/, started by parallel/distributed.spawn or the CLI's
+``--mesh_shape``; every rank builds its own Pipeline): ``(d,)`` data parallel
+for every SAE variant (parallel/sharded_steps.py), ``(d, m)`` tensor parallel
+for sae_mlp and gated_sae on the TP ops (parallel/tensor_parallel.py). Rank 0
+alone dumps the cache (the others wait for it), then every rank reads the same
+step blocks and keeps its own token rows. The evals run on rank 0 over the
+gathered parameters while the other ranks go on to the next step's first
+collective, and rank 0 alone writes the checkpoints (of the gathered state),
+the results CSV, the top-k files, the figures, the export and the logs. A
+resume restores the full state on every rank, then shards it. Any other
+mode on more than one rank raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import time
 from typing import Optional
@@ -83,6 +98,20 @@ from sparse_vision_tpu_torch.models.sae import (
 from sparse_vision_tpu_torch.ops import metrics, optim
 from sparse_vision_tpu_torch.ops.losses import get_criterion
 from sparse_vision_tpu_torch.ops.topk import init_topk, update_topk
+from sparse_vision_tpu_torch.parallel.distributed import process_local_batch_slice
+from sparse_vision_tpu_torch.parallel.mesh import make_mesh
+from sparse_vision_tpu_torch.parallel.sharded_steps import (
+    make_sharded_fused_train_step,
+    put_replicated_state,
+    put_tokens_sharded,
+)
+from sparse_vision_tpu_torch.parallel.tensor_parallel import (
+    NOT_PORTED,
+    TP_VARIANTS,
+    gather_tp_state,
+    make_tp_fused_train_step,
+    put_tp_state,
+)
 from sparse_vision_tpu_torch.train import checkpoint as ckpt
 from sparse_vision_tpu_torch.train.steps import (
     ModelTrainState,
@@ -117,7 +146,6 @@ _SLICE = {
     "mis": ("0", "1", "2"),
     # 0: off; 1 averages, 2 node IE, 3 edge IE, 4<i> faithfulness (interp/ie.py)
     "compute_ie": ("0", "1", "2", "3") + tuple(f"4{i}" for i in range(20)),
-    "mesh_shape": ((),),
     "overlap_dump_train": (False, True),
     "sae_input_norm": ("none", "rms"),
     "wandb_status": (False,),
@@ -150,6 +178,45 @@ def validate_slice(cfg: RunConfig) -> None:
         if getattr(cfg, field) and cfg.sae_model_name != model:
             raise NotImplementedError(
                 f"RunConfig.{field}={getattr(cfg, field)!r} needs sae_model_name={model!r}")
+    if len(cfg.mesh_shape) > 2 or any(int(n) < 1 for n in cfg.mesh_shape):
+        raise ValueError(f"RunConfig.mesh_shape must be (), (d,) or (d, m) of positive sizes, "
+                         f"got {cfg.mesh_shape}")
+
+
+# the trainers a mesh of more than one rank does not run yet, and the ROADMAP
+# item of each (tensor_parallel.NOT_PORTED: the TP ops still to port)
+_MESH_NOT_PORTED = {"transcoder": "B1.5", "crosscoder": "B1.6"}
+_GSPMD = ("the JAX package's GSPMD engine, which runs the stock step under a 'model' axis, "
+          "is not ported (ROADMAP A6)")
+
+
+def validate_mesh_mode(cfg: RunConfig) -> None:
+    """Raise NotImplementedError for a config that a mesh of more than one rank
+    does not run: anything but training an SAE variant from its activation
+    cache, or, under a 'model' axis, a variant without a TP op."""
+    name = cfg.sae_model_name
+    if cfg.original_model or not cfg.training or cfg.compute_ie != "0" or cfg.mis != "0":
+        raise NotImplementedError(
+            "on a mesh of more than one rank the port trains dictionaries only (original_model, "
+            "training=False, compute_ie and mis run on one rank; ROADMAP A6)")
+    if name in _MESH_NOT_PORTED:
+        raise NotImplementedError(f"the {name} trainer on a mesh is not ported yet (ROADMAP "
+                                  f"{_MESH_NOT_PORTED[name]}); run it with mesh_shape=()")
+    for field, off in (("use_activation_cache", True), ("overlap_dump_train", False),
+                       ("sae_e2e_finetune_epochs", 0)):
+        if getattr(cfg, field) != off:
+            raise NotImplementedError(f"RunConfig.{field}={getattr(cfg, field)!r} is not "
+                                      f"ported on a mesh of more than one rank (set {off!r}; "
+                                      "ROADMAP A6)")
+    if len(cfg.mesh_shape) == 2 and cfg.mesh_shape[1] > 1:
+        if name in NOT_PORTED:
+            raise NotImplementedError(
+                f"the tensor-parallel {name} op is not ported yet (ROADMAP "
+                f"{NOT_PORTED[name]}), and {_GSPMD}")
+        if name not in TP_VARIANTS or not cfg.use_pallas:
+            raise NotImplementedError(
+                f"a 'model' axis trains sae_mlp and gated_sae on their fused TP ops only "
+                f"(use_pallas=True); {_GSPMD}")
 
 
 class Pipeline:
@@ -158,7 +225,8 @@ class Pipeline:
     CACHE_SCAN_K = 8
 
     def __init__(self, cfg: RunConfig, device=None, datasets=None,
-                 backbone: Optional[tuple] = None, sae_params: Optional[dict] = None):
+                 backbone: Optional[tuple] = None, sae_params: Optional[dict] = None,
+                 mesh=None):
         """``device``: None means CUDA (raises without a GPU); "cpu" runs the plain
         versions of the kernels. ``datasets`` optionally injects
         ``(train_ds, val_ds, category_names, img_size)``; without it load_data
@@ -172,14 +240,22 @@ class Pipeline:
         weights through convert.py): an explicit backbone wins over the
         directory, and an original-model run then trains from epoch 0.
         ``cfg.sae_weights_path`` still imports over the dictionary's, and
-        ``cfg.sae_checkpoint_epoch`` restores the train state."""
+        ``cfg.sae_checkpoint_epoch`` restores the train state.
+
+        ``mesh`` is this rank's (parallel/mesh.py), as parallel/distributed
+        hands it to each rank; without it a ``cfg.mesh_shape`` of more than
+        one rank builds one from the initialized torch.distributed world, and
+        raises without one."""
         self.validate_input_norm(cfg)  # before any dump thread can start
         validate_slice(cfg)
         self.cfg = cfg
+        self.device = resolve_device(device)
+        self.mesh = self._mesh(cfg, mesh)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.paths = folder_paths(cfg)
         self.run_id = run_id(cfg)
-        self.logger = RunLogger(log_every=cfg.log_every)
-        self.device = resolve_device(device)
+        # rank 0 alone logs the training steps
+        self.logger = RunLogger(log_every=cfg.log_every if self.is_main else math.inf)
         self.net = make_backbone(cfg.model_name, cfg.dataset_name)
         if datasets is None:
             datasets = load_data(cfg, class_filter=cfg.imagenet_class_filter or None)
@@ -209,6 +285,18 @@ class Pipeline:
         self.train_timing: list = []
         self.finetune_log: list = []  # (step, metrics) of the e2e finetune
         self.finetune_timing: list = []  # per finetune epoch: steps, images, seconds
+
+    def _mesh(self, cfg: RunConfig, mesh):
+        """This rank's mesh, or None on one rank (module docstring)."""
+        if mesh is None:
+            mesh = make_mesh(cfg.mesh_shape, device=self.device)
+        if cfg.mesh_shape and tuple(cfg.mesh_shape) != mesh.shape:
+            raise ValueError(f"RunConfig.mesh_shape {tuple(cfg.mesh_shape)} differs from the "
+                             f"mesh {mesh.shape}")
+        if mesh.world == 1:
+            return None
+        validate_mesh_mode(dataclasses.replace(cfg, mesh_shape=mesh.shape))
+        return mesh
 
     def _restore_model(self, backbone: tuple) -> tuple:
         """``backbone`` (params, state), or the latest original-model checkpoint
@@ -308,8 +396,8 @@ class Pipeline:
     def _sae_ckpt_dir(self) -> str:
         return os.path.join(self.paths["checkpoints"], sae_run_name(self.cfg))
 
-    def _ckpt_tree(self) -> dict:
-        ts = self.ts
+    def _ckpt_tree(self, ts: Optional[SAETrainState] = None) -> dict:
+        ts = self.ts if ts is None else ts
         return {"params": ts.params, "opt_state": ts.opt_state, "step": ts.step,
                 "dead_acc": ts.dead_acc}
 
@@ -409,18 +497,21 @@ class Pipeline:
 
         return self._epochs(run_epoch)
 
-    def check_fusable(self, can_fuse, c_in: int, c_out: int) -> bool:
+    def check_fusable(self, can_fuse, c_in: int, c_out: int, t: Optional[int] = None,
+                      h: Optional[int] = None) -> bool:
         """Whether the step takes the fused op (``cfg.use_pallas``). On the card a
         shape that the kernels' ``can_fuse(t, h, c_in, c_out, compute_dtype)``
         refuses raises, before any cache is dumped: there is no quiet fallback to
-        the stock step."""
+        the stock step. ``t`` and ``h`` are the kernels' tokens and latents (a
+        rank's shard on a mesh; default: a step's tokens and every latent)."""
         cfg = self.cfg
-        tps = cfg.cache_tokens_per_step
+        t = cfg.cache_tokens_per_step if t is None else t
+        h = self.num_units if h is None else h
         if cfg.use_pallas and self.device.type == "cuda" and not can_fuse(
-                tps, self.num_units, c_in, c_out, cfg.compute_dtype):
+                t, h, c_in, c_out, cfg.compute_dtype):
             raise ValueError(
-                f"the fused {cfg.sae_model_name} kernels do not take T={tps}, "
-                f"H={self.num_units}, C_in={c_in}, C_out={c_out} with compute dtype "
+                f"the fused {cfg.sae_model_name} kernels do not take T={t}, "
+                f"H={h}, C_in={c_in}, C_out={c_out} with compute dtype "
                 f"{cfg.compute_dtype} (their can_fuse); set use_pallas=False for the "
                 "stock step")
         return cfg.use_pallas
@@ -529,9 +620,12 @@ class Pipeline:
         cfg = self.cfg
         start = cfg.sae_checkpoint_epoch
         last_eval = None
-        self.eval_modified(epoch=start, store=False)
+        full = self._full_state()
+        if self.is_main:
+            self.eval_modified(epoch=start, store=False, params=full.params)
         for epoch in range(start, cfg.sae_epochs):
-            with maybe_profile(cfg.profile_dir, self.device, f"{self.run_id}_epoch_{epoch}"):
+            with maybe_profile(cfg.profile_dir if self.is_main else "", self.device,
+                               f"{self.run_id}_epoch_{epoch}"):
                 t0 = time.perf_counter()
                 steps0 = self.ts.step
                 per_step = run_epoch(epoch)
@@ -544,18 +638,32 @@ class Pipeline:
                                           "profiled": bool(cfg.profile_dir)})
             if before_checkpoint is not None:
                 before_checkpoint(epoch)
-            # the host snapshot blocks; the write overlaps the next epoch
-            ckpt.save_checkpoint(self._sae_ckpt_dir(), epoch + 1, self._ckpt_tree(),
-                                 blocking=False)
-            last_eval = self.eval_modified(epoch=epoch + 1,
-                                           final=epoch + 1 == cfg.sae_epochs)
+            full = self._full_state()
+            if self.is_main:
+                # the host snapshot blocks; the write overlaps the next epoch
+                ckpt.save_checkpoint(self._sae_ckpt_dir(), epoch + 1, self._ckpt_tree(full),
+                                     blocking=False)
+                last_eval = self.eval_modified(epoch=epoch + 1, params=full.params,
+                                               final=epoch + 1 == cfg.sae_epochs)
         ckpt.wait_for_saves()
-        self._export_sae_weights()
+        if self.mesh is not None:
+            self.ts = full  # every rank leaves with the whole state
+        if self.is_main:
+            self._export_sae_weights()
+        if self.mesh is not None:
+            self.mesh.barrier()  # the ranks leave once rank 0 has written
         if cfg.sae_e2e_finetune_epochs > 0:
             from sparse_vision_tpu_torch.train.e2e_finetune import e2e_finetune
 
             last_eval = e2e_finetune(self) or last_eval
         return last_eval
+
+    def _full_state(self) -> SAETrainState:
+        """The whole train state: the ranks' latent shards gathered under a
+        'model' axis (a collective), else the state itself."""
+        if self.mesh is None or self.mesh.size("model") == 1:
+            return self.ts
+        return gather_tp_state(self.mesh, self.ts)
 
     def _export_sae_weights(self) -> None:
         """Weight-only export to the run's sae_weights folder: the native .npz
@@ -592,7 +700,9 @@ class Pipeline:
         the device where its shards are aligned to the stacks. The TopK family's
         fast paths take any shape, so only the fused kernels' shapes are
         checked. batch_topk's threshold is calibrated after the last epoch,
-        before its checkpoint and eval (_recalibrate_batch_topk)."""
+        before its checkpoint and eval (_recalibrate_batch_topk). On a mesh
+        (module docstring) the fused shapes are a rank's: T/d tokens, and
+        H/m latents under a 'model' axis."""
         from sparse_vision_tpu_torch.data.activation_cache import (
             ActivationCache,
             dump_activations,
@@ -602,17 +712,27 @@ class Pipeline:
 
         cfg = self.cfg
         prefixes = cfg.matryoshka_prefix_fractions
+        tps = cfg.cache_tokens_per_step
+        mesh = self.mesh
+        n_data, n_model = (1, 1) if mesh is None else (mesh.size("data"), mesh.size("model"))
+        t_local = process_local_batch_slice(tps, n_data)
+        if n_model > 1 and self.num_units % n_model:
+            raise NotImplementedError(
+                f"{self.num_units} latents do not shard over the model axis of {n_model}, and "
+                f"{_GSPMD}")
         if cfg.sae_model_name in TOPK_FAMILY:
             fused = cfg.use_pallas
         else:
             can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
             c = self.sae_input_size
             fused = self.check_fusable(
-                lambda t, h, c_in, _, dtype: can_fuse(t, h, c_in, dtype), c, c)
-        tps, k = cfg.cache_tokens_per_step, self.CACHE_SCAN_K
+                lambda t, h, c_in, _, dtype: can_fuse(t, h, c_in, dtype), c, c,
+                t=t_local, h=self.num_units // n_model)
+        k = self.CACHE_SCAN_K
         cache_dir = self._cache_dir(cfg.sae_layer)
         stream_q = dump_thread = None
-        if not os.path.exists(os.path.join(cache_dir, "meta.json")):
+        # on a mesh rank 0 alone dumps the cache, and the others wait for it
+        if self.is_main and not os.path.exists(os.path.join(cache_dir, "meta.json")):
             if cfg.overlap_dump_train and cfg.sae_epochs > cfg.sae_checkpoint_epoch:
                 print(f"Building activation cache at {cache_dir} (overlapped) ...")
                 qs, dump_thread = overlapped_multi_dump(
@@ -626,14 +746,31 @@ class Pipeline:
                                  cfg.sae_layer, cache_dir, device=self.device,
                                  **self._cache_dump_kwargs())
 
+        if mesh is not None:
+            mesh.barrier()
         fused_opts = {"compute_dtype": cfg.compute_dtype}
         if cfg.sae_model_name == "jumprelu_sae":
             fused_opts["bandwidth"] = cfg.jumprelu_bandwidth
-        step_fn = make_sae_train_step_from_acts(
-            cfg.sae_model_name, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
-            cfg.sae_expansion_factor, fused=fused, fused_opts=fused_opts, topk=cfg.sae_topk,
-            topk_approx=cfg.sae_topk_approx, jumprelu_bandwidth=cfg.jumprelu_bandwidth,
-            matryoshka_prefixes=prefixes, aux_k=cfg.sae_aux_k, aux_alpha=cfg.sae_aux_alpha)
+        if n_model > 1:
+            step_fn = make_tp_fused_train_step(
+                mesh, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
+                cfg.sae_expansion_factor, fused_opts=fused_opts,
+                sae_model_name=cfg.sae_model_name)
+            self.ts = put_tp_state(mesh, self.ts)
+        else:
+            opts = dict(fused=fused, fused_opts=fused_opts, topk=cfg.sae_topk,
+                        topk_approx=cfg.sae_topk_approx,
+                        jumprelu_bandwidth=cfg.jumprelu_bandwidth,
+                        matryoshka_prefixes=prefixes, aux_k=cfg.sae_aux_k,
+                        aux_alpha=cfg.sae_aux_alpha)
+            args = (cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
+                    cfg.sae_expansion_factor)
+            if mesh is None:
+                step_fn = make_sae_train_step_from_acts(cfg.sae_model_name, *args, **opts)
+            else:
+                step_fn = make_sharded_fused_train_step(
+                    mesh, *args, sae_model_name=cfg.sae_model_name, **opts)
+                self.ts = put_replicated_state(mesh, self.ts)
         step_fn = self.normalized_step(step_fn, (cfg.sae_layer,))
         opened: list = []  # the cache, once its dump has finished
 
@@ -652,9 +789,14 @@ class Pipeline:
             cache = open_cache()
             # device dequantization needs stacks within one shard (one scale each)
             aligned = int(cache.meta["shard_tokens"]) % (k * tps) == 0
-            return ((item[:1], item[1]) if isinstance(item, tuple) else ((item,), None)
-                    for item in cache.stacks(tps, k, shuffle=True, seed=cfg.seed + epoch,
-                                             dequantize="device" if aligned else "host"))
+            items = ((item[:1], item[1]) if isinstance(item, tuple) else ((item,), None)
+                     for item in cache.stacks(tps, k, shuffle=True, seed=cfg.seed + epoch,
+                                              dequantize="device" if aligned else "host"))
+            if mesh is None:
+                return items
+            # every rank reads the same block and keeps its data index's rows
+            return (((put_tokens_sharded(mesh, stacks[0], 1),), scale)
+                    for stacks, scale in items)
 
         def before_checkpoint(epoch):
             if cfg.sae_model_name == "batch_topk_sae" and epoch + 1 == cfg.sae_epochs:
@@ -716,7 +858,7 @@ class Pipeline:
         return self._sae_eval_step_cache
 
     def eval_modified(self, epoch: int, store: bool = True, on_train_data: bool = False,
-                      k: int = 25, final: bool = False) -> dict:
+                      k: int = 25, final: bool = False, params: Optional[dict] = None) -> dict:
         """Means over the eval batches (validation, or train with
         ``on_train_data``) of every eval-step metric, plus exact accuracy and
         perc_dead_units (units dead in every batch). Writes
@@ -728,8 +870,10 @@ class Pipeline:
         batches reach the device through data/prefetch.py; the sums and the
         top-k states stay there until one readback after the loop. Draws the
         channel-frequency histogram, and with ``final`` (the run's last eval)
-        the top-k grids and the activation histograms."""
+        the top-k grids and the activation histograms. ``params`` are the
+        dictionary's (default: the train state's)."""
         cfg = self.cfg
+        params = self.ts.params if params is None else params
         step_fn = self._sae_eval_step_fn
         ds = self.train_ds if on_train_data else self.val_ds
         bs = cfg.eval_batch_size or self._auto_eval_batch_size()
@@ -738,7 +882,7 @@ class Pipeline:
         small = init_topk(k, self.num_units, largest=False, device=self.device)
         num_batches = 0
         for b in self._batches(ds, bs, shuffle=False):
-            m, arrays = step_fn(self.ts.params, self.frozen_params, self.net_state,
+            m, arrays = step_fn(params, self.frozen_params, self.net_state,
                                 b.images, b.labels)
             num_batches += 1
             sums = m if sums is None else {key: sums[key] + v for key, v in m.items()}
@@ -765,7 +909,7 @@ class Pipeline:
         freq = host["freq"].astype(np.float64) / num_batches
         self._channel_frequency_figure(freq, epoch)
         if final:
-            self._final_eval_figures(ds, top, small, host["dead"], epoch)
+            self._final_eval_figures(ds, top, small, host["dead"], epoch, params=params)
         fn_dir = os.path.join(self.paths["evaluation_results"], "filename_indices")
         os.makedirs(fn_dir, exist_ok=True)
         np.savez(os.path.join(fn_dir, f"{self.run_id}_epoch_{epoch}.npz"),
@@ -974,7 +1118,7 @@ class Pipeline:
             np.int64)
 
     def _final_eval_figures(self, ds, top, small, dead_acc: np.ndarray, epoch: int,
-                            model_key: str = "sae") -> None:
+                            model_key: str = "sae", params: Optional[dict] = None) -> None:
         """The last eval's figures over ``_select_figure_units``'s units: the
         top and small grids of n_show = int(sqrt(k)) images a unit
         (``top_k_samples/<run_id>_{top,small}_k_samples_epoch_<e>.png``), then
@@ -982,7 +1126,8 @@ class Pipeline:
         unit over [small.values[0], top.values[0]]
         (``activation_histograms/<run_id>_epoch_<e>.png``). ``model_key`` is
         "sae" (the spliced dictionary's latents) or "original" (the channels of
-        the backbone layer ``sae_layer``). A failure of either part prints
+        the backbone layer ``sae_layer``), whose ``params`` (default: the
+        train state's) the sae pass runs. A failure of either part prints
         that it was skipped."""
         from sparse_vision_tpu_torch.eval_tools import viz
         from sparse_vision_tpu_torch.ops import histograms
@@ -1020,8 +1165,10 @@ class Pipeline:
             else:
                 step_fn = self._sae_eval_step_fn
 
+                sae_params = self.ts.params if params is None else params
+
                 def batch_acts(b):
-                    return step_fn(self.ts.params, self.frozen_params, self.net_state,
+                    return step_fn(sae_params, self.frozen_params, self.net_state,
                                    b.images, b.labels)[1]["topk_acts"]
 
             ebs = cfg.eval_batch_size or self._auto_eval_batch_size()

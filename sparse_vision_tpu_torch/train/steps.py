@@ -64,6 +64,28 @@ class ModelTrainState(NamedTuple):
     step: int  # completed train batches
 
 
+class LocalSync:
+    """What a train step reduces across the ranks of a mesh: nothing, on one
+    rank (``mesh`` None). parallel/sharded_steps.DataSync (data parallel) and
+    parallel/tensor_parallel.ModelSync (tensor parallel) reduce over the
+    mesh's axes: the gradients, the batch's dead mask, the step's metrics and
+    the dead fraction."""
+
+    mesh = None
+
+    def grads(self, grads: dict) -> dict:
+        return grads
+
+    def dead(self, dead: torch.Tensor) -> torch.Tensor:
+        return dead
+
+    def metrics(self, m: dict) -> dict:
+        return m
+
+    def dead_fraction(self, dead_acc: torch.Tensor) -> torch.Tensor:
+        return dead_acc.sum() / dead_acc.shape[0]
+
+
 def init_sae_train_state(sae_params: dict, tx: optim.Optimizer, hidden: int,
                          seed: int = 0) -> SAETrainState:
     device = next(iter(sae_params.values())).device
@@ -114,7 +136,7 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                                   topk_approx: bool = False,
                                   jumprelu_bandwidth: float = JUMPRELU_BANDWIDTH,
                                   matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES,
-                                  aux_k: int = 0, aux_alpha: float = 0.03125):
+                                  aux_k: int = 0, aux_alpha: float = 0.03125, sync=None):
     """SAE train step over pre-extracted activations [T, C] (the activation-cache
     training mode) for every token variant (not sae_conv, which reads maps).
 
@@ -135,20 +157,28 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
     (make_train_step) resamples (sae_mlp only) with Kaiming draws from ``ts.rng``
     unless ``resample_draws`` = (enc [h, d], dec [d, h]) is given (tests inject
     the JAX package's draws). The variants that do not resample use the rolling
-    dead window instead. batch_topk's threshold follows its EMA."""
+    dead window instead. batch_topk's threshold follows its EMA.
+
+    ``sync`` (LocalSync by default) is make_update's; the data-parallel step
+    (parallel/sharded_steps.make_sharded_fused_train_step) passes its
+    DataSync: ``act`` is then the rank's token shard, the state is replicated,
+    and batch_topk selects against the global batch's cutoff on every path
+    (``sync.mesh``), as the JAX package's sharded step does."""
     if sae_model_name not in SAE_VARIANTS:
         raise ValueError(f"Unknown SAE model name {sae_model_name}.")
     if sae_model_name == "sae_conv":
         raise ValueError("sae_conv reads feature maps, not cached tokens: train it with "
                          "make_sae_train_step")
+    sync = LocalSync() if sync is None else sync
+    mesh = sync.mesh
     if fused and sae_model_name == "topk_sae":
         def loss_fn(params, act):
             return fast_topk_sae_loss_terms(params, act, lambda_sparse, expansion_factor,
                                             topk, approx=topk_approx)
-    elif fused and sae_model_name == "batch_topk_sae":
+    elif sae_model_name == "batch_topk_sae" and (fused or mesh is not None):
         def loss_fn(params, act):
             return fast_batch_topk_sae_loss_terms(params, act, lambda_sparse,
-                                                  expansion_factor, topk)
+                                                  expansion_factor, topk, mesh=mesh)
     elif fused:
         _, fused_loss_terms = fused_op(sae_model_name, matryoshka_prefixes)
 
@@ -163,6 +193,7 @@ def make_sae_train_step_from_acts(sae_model_name: str, lambda_sparse: float,
                                           matryoshka_prefixes=matryoshka_prefixes)
 
     return make_train_step(loss_fn, tx, dead_neurons_steps, expansion_factor, fused,
+                           sync=sync,
                            **_variant_hooks(sae_model_name, aux_k, aux_alpha, topk_approx))
 
 
@@ -204,7 +235,7 @@ def resample_sae(params: dict, opt_state: dict, dead: torch.Tensor, rng: torch.G
 
 def make_update(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
                 expansion_factor: int, fused: bool, resample=None, aux=None,
-                aux_alpha: float = 0.0, finish=None):
+                aux_alpha: float = 0.0, finish=None, sync=None):
     """The update skeleton shared by the SAE, transcoder and crosscoder steps:
     ``update(ts, *acts, resample_draws=None) -> (ts, metrics, out, loss)``
     takes the gradient of ``loss_fn(params, *acts)["loss"]``, applies the
@@ -233,7 +264,12 @@ def make_update(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
     a no-op without a profiler): "sae_step.loss" (the forward and the loss
     terms), "sae_step.backward", "sae_step.optimizer" and "sae_step.dead_units"
     (the accumulator, resample and metrics), which a trace's device time is
-    split by."""
+    split by.
+
+    ``sync`` (LocalSync by default) reduces across the ranks of a mesh: the
+    gradients before the optimizer, the batch's dead mask before the
+    accumulator, the metrics, and the dead fraction behind ``perc_dead``."""
+    sync = LocalSync() if sync is None else sync
 
     def update(ts: SAETrainState, *acts, resample_draws=None):
         keys = list(ts.params)
@@ -251,8 +287,8 @@ def make_update(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
         with record_function("sae_step.backward"):
             grads = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
         with torch.no_grad(), record_function("sae_step.optimizer"):
-            grads = {k: torch.zeros_like(params[k]) if g is None else g
-                     for k, g in zip(keys, grads)}
+            grads = sync.grads({k: torch.zeros_like(params[k]) if g is None else g
+                                for k, g in zip(keys, grads)})
             updates, opt_state = tx.update(grads, ts.opt_state, ts.params)
             new_params = optim.apply_updates(ts.params, updates)
             if finish is not None:
@@ -264,7 +300,7 @@ def make_update(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
             else:
                 dead, sparsity, _ = metrics.measure_inactive_units(
                     out["encoded"], expansion_factor)
-            dead_acc = ts.dead_acc & dead
+            dead_acc = ts.dead_acc & sync.dead(dead)
             if resample is None:
                 # rolling dead window (the JAX step's non-resampling branch)
                 if step % dead_neurons_steps == 0:
@@ -280,10 +316,10 @@ def make_update(loss_fn, tx: optim.Optimizer, dead_neurons_steps: int,
                 "sae_rec_loss": out["rec_loss"].detach(),
                 "sae_l1_loss": out["l1_loss"].detach(),
                 "sparsity": sparsity,
-                "perc_dead": dead_acc.sum() / dead_acc.shape[0],
             }
             if aux is not None:
                 m["sae_aux_loss"] = out["aux_loss"].detach()
+            m = {**sync.metrics(m), "perc_dead": sync.dead_fraction(dead_acc)}
         return SAETrainState(new_params, opt_state, step, dead_acc, ts.rng), m, out, loss
 
     return update

@@ -439,7 +439,7 @@ def test_check_fusable_refuses_a_bf16_width_before_any_dump(op, monkeypatch, tmp
     cfg = RunConfig(sae_model_name="sae_mlp", use_pallas=True, compute_dtype="bfloat16",
                     cache_tokens_per_step=32768)
     pipe = types.SimpleNamespace(cfg=cfg, device=torch.device("cuda"), num_units=16384,
-                                 sae_input_size=484)
+                                 sae_input_size=484, mesh=None)
     pipe.check_fusable = functools.partial(Pipeline.check_fusable, pipe)
     with pytest.raises(ValueError, match="C_in=484"):
         pipe.check_fusable(can_fuse, 484, 484)

@@ -1,7 +1,8 @@
 """The port stands alone: no file of sparse_vision_tpu_torch/ and not chip_smoke.py
 imports jax, optax, orbax, ml_dtypes or the JAX package (sparse_vision_tpu), nor
 safetensors, matplotlib, pandas or wandb, which the GPU machine does not have.
-Without a GPU, the default entry points raise instead of running on the CPU."""
+Without a GPU, the default entry points raise instead of running on the CPU,
+the mesh's too (parallel/distributed.py, the CLI's --mesh_shape)."""
 
 import ast
 import shutil
@@ -64,7 +65,12 @@ def test_the_walk_sees_every_module():
                  "sparse_vision_tpu_torch/eval_tools/figures.py",
                  "sparse_vision_tpu_torch/eval_tools/report.py",
                  "sparse_vision_tpu_torch/utils/profiling.py",
-                 "sparse_vision_tpu_torch/train/e2e_finetune.py"):
+                 "sparse_vision_tpu_torch/train/e2e_finetune.py",
+                 "sparse_vision_tpu_torch/ops/fused_sae_tp.py",
+                 "sparse_vision_tpu_torch/parallel/distributed.py",
+                 "sparse_vision_tpu_torch/parallel/mesh.py",
+                 "sparse_vision_tpu_torch/parallel/sharded_steps.py",
+                 "sparse_vision_tpu_torch/parallel/tensor_parallel.py"):
         assert must in names
 
 
@@ -127,6 +133,39 @@ def test_uncached_training_defaults_to_cuda(name, monkeypatch):
         cli.main(["--run_pipeline", "--config", cfg.to_json()])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Pipeline(cfg, datasets=((), (), [], (32, 32, 3)))
+
+
+def test_mesh_entry_points_default_to_cuda(monkeypatch):
+    """parallel/distributed.spawn and initialize, and the CLI's --mesh_shape,
+    start their ranks on CUDA unless given device="cpu" (the CLI's --device
+    cpu): without a GPU they raise before any rank starts."""
+    from sparse_vision_tpu_torch import cli
+    from sparse_vision_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed.spawn(print, (2, 2), backend="gloo")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed.initialize((2, 2), 0, "file:///nonexistent/store", backend="gloo")
+    cfg = ('{"model_name": "inceptionv1", "dataset_name": "imagenet", '
+           '"sae_layer": "mixed3a", "use_activation_cache": true}')
+    for backend in ([], ["--dist_backend", "gloo"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["--run_pipeline", "--mesh_shape", "2,2", "--config", cfg, *backend])
+
+
+def test_nccl_with_more_ranks_than_cards_raises_naming_gloo(monkeypatch):
+    """NCCL refuses two ranks on one card: the port raises and names gloo
+    rather than switch the backend."""
+    from sparse_vision_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        distributed.spawn(print, (2, 2), device="cuda", backend="nccl")
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        distributed.initialize((2,), 0, "file:///nonexistent/store", backend="nccl",
+                               device="cuda")
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(monkeypatch, capsys):

@@ -296,10 +296,14 @@ def test_rms_run_final_params_match_jax_within_the_adam_eps_bound(rms_runs):
 
 def test_the_port_refuses_what_the_slice_does_not_hold(tmp_path):
     base = TConfig(**CFG, directory_path=str(tmp_path))
-    for field, value in [("mesh_shape", (2,)), ("compute_ie", "5"), ("wandb_status", True)]:
+    for field, value in [("compute_ie", "5"), ("wandb_status", True)]:
         with pytest.raises(NotImplementedError, match=field):
             TPipeline(dataclasses.replace(base, **{field: value}), device="cpu",
                       datasets=_datasets(t_synth))
+    # a mesh of more than one rank needs its ranks (parallel/distributed.spawn)
+    with pytest.raises(ValueError, match="spawn"):
+        TPipeline(dataclasses.replace(base, mesh_shape=(2,)), device="cpu",
+                  datasets=_datasets(t_synth))
     # circuit discovery runs on frozen SAEs only
     with pytest.raises(ValueError, match="not during training"):
         TPipeline(dataclasses.replace(base, compute_ie="2"), device="cpu",

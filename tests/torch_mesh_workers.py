@@ -1,0 +1,173 @@
+"""Rank workers of the mesh tests (tests/test_torch_mesh.py,
+test_torch_tensor_parallel.py, test_torch_sharded.py).
+
+Each is ``fn(rank, mesh, *args)`` for parallel/distributed.spawn and runs one
+rank of a torch.distributed world (gloo on the CPU). The module imports torch
+and the port only: spawn starts every rank from a fresh interpreter that
+imports the worker's module, so a worker beside the JAX code of the test files
+would import JAX into each rank. Arguments and results are numpy arrays,
+torch CPU tensors and plain Python values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from sparse_vision_tpu_torch.config import RunConfig
+from sparse_vision_tpu_torch.ops import fused_sae_tp, optim
+from sparse_vision_tpu_torch.parallel.mesh import BOTH, gather_params, shard_params
+from sparse_vision_tpu_torch.parallel.sharded_steps import (
+    make_sharded_fused_train_step,
+    put_replicated_state,
+    put_tokens_sharded,
+)
+from sparse_vision_tpu_torch.parallel.tensor_parallel import (
+    gather_tp_state,
+    make_tp_fused_train_step,
+    put_tp_state,
+)
+from sparse_vision_tpu_torch.train import steps as tsteps
+from sparse_vision_tpu_torch.train.pipeline import Pipeline
+
+
+def _t(tree):
+    """numpy leaves as torch tensors."""
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_t(v) for v in tree)
+    return torch.from_numpy(np.array(tree)) if isinstance(tree, np.ndarray) else tree
+
+
+def mesh_worker(rank: int, mesh, params: dict) -> dict:
+    """The mesh's layout and collectives on this rank."""
+    torch.set_num_threads(1)
+    params = _t(params)
+    local = shard_params(params, mesh)
+    x = torch.arange(6, dtype=torch.float32) + 10.0 * rank
+    return {
+        "rank": rank, "coords": mesh.coords,
+        "shards": local, "gathered": gather_params(local, mesh),
+        "psum": {a if isinstance(a, str) else "both": mesh.psum(x, a)
+                 for a in ("data", "model", BOTH)},
+        "pmin": {a if isinstance(a, str) else "both": mesh.pmin(x, a)
+                 for a in ("data", "model", BOTH)},
+        "gather_data": mesh.gather(x[:2], 0, "data"),
+        "dead_gather": mesh.gather(torch.tensor([rank % 2 == 0, True]), 0),
+    }
+
+
+def raise_on_rank_3(rank: int, mesh) -> None:
+    """Rank 3 raises; the others wait in a collective that never completes."""
+    if rank == 3:
+        raise ValueError("rank 3 fails on purpose")
+    mesh.barrier()
+
+
+def sleep_forever(rank: int, mesh) -> None:
+    """Rank 0 never reaches the collective the others wait in."""
+    if rank == 0:
+        time.sleep(3600)
+    mesh.barrier()
+
+
+def _op_results(rank, mesh, name, params, x, lam, expansion, cd):
+    """One TP op's loss terms and gathered gradients on this rank's shard."""
+    local = {k: v.requires_grad_(True) for k, v in shard_params(params, mesh).items()}
+    terms = {"sae_mlp": fused_sae_tp.fused_sae_tp_loss_terms,
+             "gated_sae": fused_sae_tp.fused_gated_sae_tp_loss_terms}[name]
+    out = terms(local, put_tokens_sharded(mesh, x), lam, expansion, mesh, compute_dtype=cd)
+    out["loss"].backward()
+    return {
+        **{k: out[k].detach() for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity")},
+        "grads": gather_params({k: v.grad for k, v in local.items()}, mesh),
+        "dead": mesh.gather(out["dead"], 0),
+        "activity_freq": mesh.gather(out["activity_freq"], 0),
+        "decoded": out["decoded"].detach(),
+    }
+
+
+def _steps(mesh, name, params, batches, lam, window, expansion, draws=None):
+    """A TP trajectory from full ``params``: per step the metrics and the
+    gathered dead accumulator; the final gathered state."""
+    tx = optim.get_optimizer("constrained_adam", 1e-3)
+    h = next(v.shape[0] for k, v in params.items() if k in ("b_enc", "b_gate"))
+    ts = put_tp_state(mesh, tsteps.init_sae_train_state(params, tx, h, seed=0))
+    step = make_tp_fused_train_step(mesh, lam, tx, window, expansion,
+                                    fused_opts={"compute_dtype": "float32"},
+                                    sae_model_name=name)
+    metrics, dead = [], []
+    for i, x in enumerate(batches, start=1):
+        ts, m = step(ts, put_tokens_sharded(mesh, _t(x)),
+                     resample_draws=None if draws is None else _t(draws.get(i)))
+        metrics.append({k: float(v) for k, v in m.items()})
+        dead.append(mesh.gather(ts.dead_acc, 0))
+    full = gather_tp_state(mesh, ts)
+    return {"metrics": metrics, "dead": dead, "params": full.params, "step": full.step,
+            "norms": torch.linalg.vector_norm(full.params["W_dec"], dim=1)}
+
+
+def _pipeline(mesh, cfg: RunConfig, backbone, sae_params, **kw):
+    pipe = Pipeline(dataclasses.replace(cfg, **kw), device="cpu", mesh=mesh,
+                    backbone=backbone, sae_params=sae_params)
+    means = pipe.run()
+    return {"means": means, "params": pipe.ts.params, "dead": pipe.ts.dead_acc,
+            "step": pipe.ts.step, "opt_state": pipe.ts.opt_state}
+
+
+def tp_worker(rank: int, mesh, job: dict) -> dict:
+    """Everything test_torch_tensor_parallel.py holds on one (2, 2) world."""
+    torch.set_num_threads(1)
+    out = {"ops": {}}
+    for (name, cd), (params, x) in job["ops"].items():
+        out["ops"][name, cd] = _op_results(rank, mesh, name, _t(params), _t(x),
+                                           job["lambda"], job["expansion"], cd)
+    out["relu_steps"] = _steps(mesh, "sae_mlp", _t(job["relu_params"]), job["batches"],
+                               job["lambda"], job["window"], job["expansion"],
+                               draws=job["draws"])
+    out["gated_steps"] = _steps(mesh, "gated_sae", _t(job["gated_params"]), job["batches"],
+                                job["lambda"], job["window"], job["expansion"])
+    cfg = RunConfig.from_json(job["cfg"])
+    backbone, sae = _t(job["backbone"]), _t(job["sae"])
+    root = job["root"]
+    out["pipeline"] = _pipeline(mesh, cfg, backbone, sae, directory_path=f"{root}/mesh")
+    resume = dict(dead_neurons_steps=10_000)
+    out["straight"] = _pipeline(mesh, cfg, backbone, sae, directory_path=f"{root}/straight",
+                                **resume)
+    _pipeline(mesh, cfg, backbone, sae, directory_path=f"{root}/resumed", sae_epochs=1,
+              **resume)
+    out["resumed"] = _pipeline(mesh, cfg, backbone, sae, directory_path=f"{root}/resumed",
+                               sae_checkpoint_epoch=1, **resume)
+    return out
+
+
+def dp_worker(rank: int, mesh, job: dict) -> dict:
+    """Every variant's data-parallel trajectory on this rank (test_torch_sharded.py)."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, spec in job["variants"].items():
+        tx = optim.get_optimizer("constrained_adam", 1e-3)
+        params = _t(spec["params"])
+        h = next(v.shape[0] for k, v in params.items() if k in ("b_enc", "b_gate"))
+        step = make_sharded_fused_train_step(
+            mesh, spec["lambda"], tx, job["window"], job["expansion"],
+            fused_opts=spec.get("fused_opts"), sae_model_name=name, topk=job["topk"],
+            matryoshka_prefixes=job["prefixes"], aux_k=spec.get("aux_k", 0))
+        ts = put_replicated_state(mesh, tsteps.init_sae_train_state(params, tx, h, seed=0))
+        metrics, dead = [], []
+        for i, x in enumerate(job["batches"], start=1):
+            draws = spec.get("draws", {}).get(i)
+            ts, m = step(ts, put_tokens_sharded(mesh, _t(x)),
+                         resample_draws=None if draws is None else _t(draws))
+            metrics.append({k: float(v) for k, v in m.items()})
+            dead.append(ts.dead_acc.clone())
+        out[name] = {"metrics": metrics, "dead": dead, "params": ts.params}
+    if "cfg" in job:
+        cfg = RunConfig.from_json(job["cfg"])
+        out["pipeline"] = _pipeline(mesh, cfg, _t(job["backbone"]), _t(job["sae"]),
+                                    directory_path=job["root"])
+    return out
