@@ -236,26 +236,34 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
  15. mesh:    the data- and tensor-parallel trainers (parallel/), every world of
               ranks on this one card over gloo (torch.distributed's other
               backend, NCCL, takes one card a rank), spawned with
-              parallel/distributed.spawn: (e) first the four TP rows' wrappers
-              at a (2, 2) rank's shard (T 16,384, C 256, H 8,192) against
-              their plain versions in f32 and bf16, bf16 repeats bitwise,
-              timed beside their bounds and the cuBLAS products; then the
-              one-rank Pipeline.run of phase 6's sae_mlp and gated_sae configs
-              (their caches the mesh runs read); then one (2, 2) world: (a)
-              the ReLU and gated TP ops at T 32,768, C 256, H 16,384 in f32 and
-              bf16 on each rank's shard, loss terms and gathered gradients and
-              statistics held on rank 0 to the single-rank op on the whole
-              batch (MESH_OP_TOL; counts equal); (b) Pipeline.run of sae_mlp at
-              mesh_shape (2, 2) (resets at 4 and 12, the resample at 9) and
-              (c) of gated_sae (restarts at 4, 8, 12), each rank's TP kernels
-              launched 12 times (counts set to 0 just before each run and read
-              just after), held to the one-rank run by _check_mesh_run: the
+              parallel/distributed.spawn: (e) first the eight TP rows'
+              wrappers (ReLU, gated, JumpReLU, Matryoshka at the snapshot
+              union MESH_UNION) at a (2, 2) rank's shard (T 16,384, C 256, H
+              8,192) against their plain versions in f32 and bf16, bf16
+              repeats bitwise, timed beside their bounds and the cuBLAS
+              products; then the one-rank Pipeline.run of each MESH_RUNS
+              config (their caches the mesh runs read); then one (2, 2)
+              world: (a) the ReLU, gated, JumpReLU (θ in MESH_THETA, ε
+              MESH_BANDWIDTH), Matryoshka (MESH_PREFIXES, which cut rank 1's
+              shard) and TopK (phase 11's k) TP ops at T 32,768, C 256, H
+              16,384 in f32 and bf16 on each rank's shard, loss terms and
+              gathered gradients and statistics held on rank 0 to the
+              single-rank op on the whole batch (MESH_OP_TOL; counts equal;
+              TopK in bf16 against its TP op on a mesh of one rank); (b)
+              Pipeline.run of sae_mlp at mesh_shape (2, 2) (resets at 4 and
+              12, the resample at 9), (c) of gated_sae and (g) of
+              jumprelu_sae, matryoshka_sae (restarts at 4, 8, 12) and
+              topk_sae (phase 11's k, no AuxK, f32: MESH_RUNS), each rank's TP
+              kernels launched 12 times (counts set to 0 just before each run
+              and read just after), held to the one-rank run by
+              _check_mesh_run: the
               restarts at its steps, each step's loss terms and perc_dead
               (MESH_STEP_RTOL, MESH_DEAD_ATOL), rank 0's dead accumulator
               equal, each resample's dead mask (at most MESH_FLIPS_MAX latents
               apart, each at the margin), the parameters' median and 99th
-              percentile latent gap and b_dec's (MESH_PARAM_LIMITS;
-              chip_mesh_checks.py plants two faults that fail these checks);
+              percentile latent gap and b_dec's (MESH_PARAM_LIMITS by
+              variant; chip_mesh_checks.py plants four faults that fail these
+              checks);
               (e) the host ms of one TP step's collectives at the shard,
               labelled as gloo across ranks that share one card; then a (2,)
               world: (d) sae_mlp data
@@ -263,7 +271,7 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               whose rank 3 raises fails the phase's spawn with that rank's
               traceback, the waiting ranks killed.
 Then one JSON line naming each kernel (the TP rows' launches summed over the
-ranks of (b) and (c)), the nvidia-smi line, and the last line
+ranks of (b), (c) and (g)), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -367,6 +375,8 @@ SOURCES = {
     # the TP sites run the same bodies on a latent shard (ops/fused_sae_tp.py)
     "fused_sae_tp_fwd": CODER, "fused_sae_tp_bwd": CODER,
     "fused_gated_sae_tp_fwd": CODER, "fused_gated_sae_tp_bwd": CODER,
+    "fused_jumprelu_sae_tp_fwd": CODER, "fused_jumprelu_sae_tp_bwd": CODER,
+    "fused_matryoshka_sae_tp_fwd": CODER, "fused_matryoshka_sae_tp_bwd": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -387,6 +397,10 @@ REPLACES = {
     "fused_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:102",
     "fused_gated_sae_tp_fwd": "sparse_vision_tpu/ops/fused_sae_tp.py:275",
     "fused_gated_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:341",
+    "fused_jumprelu_sae_tp_fwd": "sparse_vision_tpu/ops/fused_sae_tp.py:463",
+    "fused_jumprelu_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:526",
+    "fused_matryoshka_sae_tp_fwd": "sparse_vision_tpu/ops/fused_sae_tp.py:721",
+    "fused_matryoshka_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:803",
 }
 
 
@@ -572,24 +586,26 @@ def _exact_inputs(gen, n_tokens: int, w: torch.Tensor):
 # kernels phase, one function per fused op; each returns {kernel name: row}
 # ---------------------------------------------------------------------------
 
-def _sae_fwd_check(mod, tag: str, cd, ops, extra=(), exact: bool = False, label: str = ""):
+def _sae_fwd_check(mod, tag: str, cd, ops, extra=(), exact: bool = False, label: str = "",
+                   kernel=None):
     """The SAE op ``mod``'s forward entry point (fused_sae or
-    fused_matryoshka_sae) on the card against its plain reference on the same
-    inputs; bf16 launches repeat bitwise. Returns (x_cent, the plain outputs,
-    max abs err of the reconstruction)."""
+    fused_matryoshka_sae) on the card, through ``kernel`` (default its own
+    wrapper), against its plain reference on the same inputs; bf16 launches
+    repeat bitwise. Returns (x_cent, the plain outputs, max abs err of the
+    reconstruction)."""
     fwd = mod.fused_sae_forward if mod is fused_sae else mod.fused_matryoshka_forward
     plain = (mod.fused_sae_forward_plain if mod is fused_sae
              else mod.fused_matryoshka_forward_plain)
+    kernel = kernel or mod.fwd_kernel
     x, bd = ops[0], ops[4]
-    out_k = fwd(*ops, *extra)
+    out_k = fwd(*ops, *extra, kernel=kernel)
     out_p = plain(*ops, *extra)
     torch.cuda.synchronize()
-    log(f"[kernels] {mod.fwd_kernel.name} [{tag}{label}] vs plain")
+    log(f"[kernels] {kernel.name} [{tag}{label}] vs plain")
     if cd == torch.bfloat16:
-        _repeatable(mod.fwd_kernel.name, mod.fwd_kernel(*ops, *extra),
-                    mod.fwd_kernel(*ops, *extra))
+        _repeatable(kernel.name, kernel(*ops, *extra), kernel(*ops, *extra))
     if not torch.equal(out_k[0], x - bd.to(cd)):
-        raise AssertionError(f"{mod.fwd_kernel.name}: x_cent differs from x - round(b_dec)")
+        raise AssertionError(f"{kernel.name}: x_cent differs from x - round(b_dec)")
     # on _exact_inputs' grid the pre-activations are exact on both sides, so the
     # counts agree exactly; else a pre-activation within rounding of 0 may flip,
     # so counts get a tolerance of a few tokens
@@ -601,21 +617,24 @@ def _sae_fwd_check(mod, tag: str, cd, ops, extra=(), exact: bool = False, label:
     return out_k[0], out_p, err
 
 
-def _sae_bwd_check(mod, tag: str, cd, ops, x_cent, err_in, coeffs, extra=(), label: str = ""):
-    """The SAE op's backward entry point on x_cent against its plain reference on
-    (x, b_dec); bf16 launches repeat bitwise. Returns (plain grads, max abs err)."""
+def _sae_bwd_check(mod, tag: str, cd, ops, x_cent, err_in, coeffs, extra=(), label: str = "",
+                   kernel=None):
+    """The SAE op's backward entry point on x_cent, through ``kernel`` (default
+    its own wrapper), against its plain reference on (x, b_dec); bf16 launches
+    repeat bitwise. Returns (plain grads, max abs err)."""
     if mod is fused_sae:
         bwd, plain = mod.fused_sae_backward, mod.fused_sae_backward_plain
     else:
         bwd, plain = mod.fused_matryoshka_backward, mod.fused_matryoshka_backward_plain
+    kernel = kernel or mod.bwd_kernel
     x, we, be, wd, bd = ops
-    g_k = bwd(x_cent, we, be, wd, err_in, coeffs, *extra)
+    g_k = bwd(x_cent, we, be, wd, err_in, coeffs, *extra, kernel=kernel)
     g_p = plain(*ops, err_in, coeffs, *extra)
     torch.cuda.synchronize()
-    log(f"[kernels] {mod.bwd_kernel.name} [{tag}{label}] vs plain")
+    log(f"[kernels] {kernel.name} [{tag}{label}] vs plain")
     if cd == torch.bfloat16:
-        _repeatable(mod.bwd_kernel.name, mod.bwd_kernel(x_cent, we, be, wd, err_in, coeffs, *extra),
-                    mod.bwd_kernel(x_cent, we, be, wd, err_in, coeffs, *extra))
+        _repeatable(kernel.name, kernel(x_cent, we, be, wd, err_in, coeffs, *extra),
+                    kernel(x_cent, we, be, wd, err_in, coeffs, *extra))
     err = max(_check(n, a, b, 1e-3, 1e-4)
               for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
     return g_p, err
@@ -686,21 +705,23 @@ GATED_GRADS = ("dW_gate", "db_gate", "db_mag", "dr_mag", "dW_dec", "db_dec")
 JUMPRELU_GRADS = ("dW_enc", "db_enc", "dtheta", "dW_dec", "db_dec")
 
 
-def _act_fwd_check(mod, tag: str, cd, ops, repeats: int = 2, label: str = ""):
-    """The forward of the JumpReLU or gated op ``mod`` against its plain version
-    on the same inputs; in bf16 ``repeats`` launches must agree bitwise. The
+def _act_fwd_check(mod, tag: str, cd, ops, repeats: int = 2, label: str = "", kernel=None):
+    """The forward of the JumpReLU or gated op ``mod``, through ``kernel``
+    (default its own wrapper), against its plain version on the same inputs;
+    in bf16 ``repeats`` launches must agree bitwise. The
     inputs lie on _exact_inputs' grid, so the pre-activations, and with them the
     mask or gate, the counts and relu(pi), agree exactly; the decodes (recon,
     and the gated op's via_gate) and the L1 sum add in other orders. Returns
     (plain outputs, max abs err of the decodes)."""
-    name = mod.fwd_kernel.name
-    out_k = mod.fwd_kernel(*ops)
+    kernel = kernel or mod.fwd_kernel
+    name = kernel.name
+    out_k = kernel(*ops)
     out_p = _act_fwd_plain(mod)(*ops)
     torch.cuda.synchronize()
     log(f"[kernels] {name} [{tag}{label}] vs plain")
     if cd == torch.bfloat16:
         for _ in range(repeats - 1):
-            _repeatable(name, out_k, mod.fwd_kernel(*ops))
+            _repeatable(name, out_k, kernel(*ops))
         if repeats > 2:
             log(f"[kernels]   {name}: {repeats} launches bitwise equal")
     n = len(out_p) - 3  # the decodes come first
@@ -729,19 +750,22 @@ def _act_fwd_library(mod, ops):
     return lambda: (xc @ w, post @ wd)
 
 
-def _act_bwd_check(mod, tag: str, cd, bops, names, repeats: int = 2, label: str = ""):
-    """The backward of the JumpReLU or gated op ``mod`` against the plain
-    version of its route (backward_plain: in bf16 centre, pre-pass and the coder
-    body's epilogue); in bf16 ``repeats`` launches must agree bitwise. Returns
-    (plain grads, max abs err)."""
-    name = mod.bwd_kernel.name
-    g_k = mod.bwd_kernel(*bops)
+def _act_bwd_check(mod, tag: str, cd, bops, names, repeats: int = 2, label: str = "",
+                   kernel=None):
+    """The backward of the JumpReLU or gated op ``mod``, through ``kernel``
+    (default its own wrapper), against the plain version of its route
+    (backward_plain: in bf16 centre, pre-pass and the coder body's epilogue);
+    in bf16 ``repeats`` launches must agree bitwise. Returns (plain grads, max
+    abs err)."""
+    kernel = kernel or mod.bwd_kernel
+    name = kernel.name
+    g_k = kernel(*bops)
     g_p = mod.backward_plain(*bops)
     torch.cuda.synchronize()
     log(f"[kernels] {name} [{tag}{label}] vs plain")
     if cd == torch.bfloat16:
         for _ in range(repeats - 1):
-            _repeatable(name, g_k, mod.bwd_kernel(*bops))
+            _repeatable(name, g_k, kernel(*bops))
         if repeats > 2:
             log(f"[kernels]   {name}: {repeats} launches bitwise equal")
     err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(names, g_k, g_p))
@@ -4422,8 +4446,28 @@ MESH_WORK = ROOT / "_smoke_mesh"  # listed in .gitignore; removed at the end
 MESH_TIMEOUT_S = 600
 MESH_FAIL_TIMEOUT_S = 120
 SHARING = "gloo, ranks sharing one card"
-TP_KERNELS = (fused_sae_tp.fwd_kernel, fused_sae_tp.bwd_kernel,
-              fused_sae_tp.gated_fwd_kernel, fused_sae_tp.gated_bwd_kernel)
+TP_KERNELS = fused_sae_tp.KERNELS  # rows 15-22: ReLU, gated, JumpReLU, Matryoshka
+# (a): the JumpReLU op's thresholds and STE window, where the inputs' pre-activations
+# have std ~0.3, so that many fall in the window and dθ is held; the Matryoshka
+# prefixes, which cut rank 1's shard: boundaries (1,024, 12,288, 16,384), union
+# (1,024, 4,096, 8,192), n_contrib (1, 2, 2) (phase 6's 1/16, 1/4, 1 cut only rank
+# 0's); and (e)'s Matryoshka rows run at that union
+MESH_THETA, MESH_BANDWIDTH = (0.05, 0.15), 0.1  # θ uniform in the range; ε
+MESH_PREFIXES = (1 / 16, 3 / 4, 1.0)
+MESH_UNION = fused_sae_tp.tp_snapshot_union(matryoshka_prefix_counts(H, MESH_PREFIXES),
+                                            MESH[1])[0]
+# the mesh runs of (b), (c) and (g), and the fields of each beyond phase 6's. TopK
+# runs phase 11's k without AuxK (the TP op has none) in f32: its one-rank fast
+# path encodes in f32 whatever compute_dtype says, where the TP op rounds the
+# encode's operands to compute_dtype as JAX's does, so in bf16 the two runs would
+# select from different pre-activations
+MESH_RUNS = {"sae_mlp": {}, "gated_sae": {}, "jumprelu_sae": {}, "matryoshka_sae": {},
+             "topk_sae": dict(sae_topk=TK_K, sae_aux_k=0, sae_lambda_sparse=0.0,
+                              compute_dtype="float32")}
+# each run's TP rows (TopK: none, its op is torch ops)
+MESH_RUN_KERNELS = {"sae_mlp": TP_KERNELS[:2], "gated_sae": TP_KERNELS[2:4],
+                    "jumprelu_sae": TP_KERNELS[4:6], "matryoshka_sae": TP_KERNELS[6:8],
+                    "topk_sae": ()}
 # the TP op against the single-rank op on the same inputs (a): the pre-activations
 # are the same bits on both (the encode's C-sum does not depend on H), so the
 # counts agree exactly; the partial decodes and latent-local gradients are summed
@@ -4434,11 +4478,11 @@ TP_KERNELS = (fused_sae_tp.fwd_kernel, fused_sae_tp.bwd_kernel,
 # small error amplifies that (1.2e-5 of the loss on an H100; PERF.md)
 MESH_OP_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 5e-3)}  # rtol, atol·max
 MESH_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
-# (b)-(d): the mesh run against the one-rank run, both in bf16. The ranks sum the
-# decode and the gradients in another order, and bf16 rounds b_dec (x_cent = x −
-# round(b_dec)) and the errors, so the runs part at the first update and cannot be
-# held bitwise. Held instead, each limit about 3x the largest reading of two
-# bitwise-equal H100 runs (PERF.md, PR 18):
+# (b)-(d), (g): the mesh run against the one-rank run, both in bf16 (TopK in f32).
+# The ranks sum the decode and the gradients in another order, and bf16 rounds
+# b_dec (x_cent = x − round(b_dec)) and the errors, so the runs part at the first
+# update and cannot be held bitwise. Held instead, each limit about 3x the largest
+# reading of the H100 runs (PERF.md §6):
 # - each step's loss terms, relative to the one-rank run's (MESH_STEP_RTOL) and
 #   perc_dead (MESH_DEAD_ATOL; a latent whose every pre-activation sits at 0 can
 #   be dead in one run's accumulator only);
@@ -4451,21 +4495,26 @@ MESH_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # - the other latents' parameters: the median and the 99th percentile over the
 #   latents of each latent's largest gap, and b_dec's largest gap
 #   (MESH_PARAM_LIMITS by variant: the gated run parts ~40x further, as far at
-#   (2,) as at (2, 2), and not at all in f32: bf16's rounding, PERF.md).
-# chip_mesh_checks.py shows that two planted faults fail these checks.
+#   (2,) as at (2, 2), and not at all in f32: bf16's rounding, PERF.md; TopK's
+#   f32 runs part only where a selection flips).
+# chip_mesh_checks.py shows that four planted faults fail these checks.
 MESH_STEP_RTOL = {"sae_loss": 1.5e-3, "sae_rec_loss": 3e-3, "sae_l1_loss": 2e-4,
                   "sparsity": 2e-4}
 MESH_DEAD_ATOL = 1.5e-3
 MESH_FLIPS_MAX = 16
 MESH_MARGIN_ULPS = 0.1
 MESH_PARAM_LIMITS = {"sae_mlp": (1e-4, 2.5e-3, 1e-4),  # median, 99th percentile, b_dec
-                     "gated_sae": (4e-3, 3e-2, 2e-3)}
+                     "gated_sae": (4e-3, 3e-2, 2e-3),
+                     "jumprelu_sae": (1e-4, 4e-4, 2e-4),
+                     "matryoshka_sae": (2e-4, 1e-3, 1.5e-4),
+                     "topk_sae": (1e-6, 5e-5, 2e-6)}
 
 
 def _tp_kernel_rows(cd, tag: str) -> dict:
-    """The four TP rows' wrappers on the card at a (2, 2) rank's shard (T 16,384,
-    C 256, H 8,192) against their plain versions, timed beside their bounds and
-    the stock path's cuBLAS products; bf16 launches repeat bitwise."""
+    """The eight TP rows' wrappers on the card at a (2, 2) rank's shard (T
+    16,384, C 256, H 8,192; Matryoshka at MESH_UNION) against their plain
+    versions, timed beside their bounds and the stock path's cuBLAS products;
+    bf16 launches repeat bitwise."""
     t, c, h = SHARD_T, C, SHARD_H
     label = f"{tag}, shard T={t} H={h}"
     ops = _relu_exact_operands(cd, t, c, h)
@@ -4538,53 +4587,156 @@ def _tp_kernel_rows(cd, tag: str) -> dict:
     rows[gbwd.name] = _measure(gbwd.name, label, cd, lambda: gbwd(*bops),
                                lambda: fused_gated_sae.backward_plain(*bops),
                                _gated_bwd_library(bops), 10.0 * t * c * h, moved, err)
+    del bops, gops, x, wg
+    rows.update(_tp_jumprelu_rows(cd, label))
+    rows.update(_tp_matryoshka_rows(cd, label))
+    return rows
+
+
+def _tp_jumprelu_rows(cd, label: str) -> dict:
+    """Rows 19-20: the JumpReLU TP wrappers at the shard, as kernels_jumprelu."""
+    t, c, h = SHARD_T, C, SHARD_H
+    jfwd, jbwd = fused_sae_tp.jumprelu_fwd_kernel, fused_sae_tp.jumprelu_bwd_kernel
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_jumprelu_sae(gen, c, h // c)
+    x, we, bd = _exact_inputs(gen, t, params["W_enc"])
+    thr = 0.5 + torch.rand(h, device=DEVICE, generator=gen)  # pre has std ~2 here
+    ops = (x.to(cd), we.to(cd), _odd_grid(gen, h, 100), thr,
+           params["W_dec"].to(cd).contiguous(), bd)
+    out_p, err = _act_fwd_check(fused_jumprelu_sae, "mesh, " + label, cd, ops, kernel=jfwd)
+    rows = {jfwd.name: _measure(jfwd.name, label, cd, lambda: jfwd(*ops),
+                                lambda: fused_jumprelu_sae.fused_jumprelu_forward_plain(*ops),
+                                _act_fwd_library(fused_jumprelu_sae, ops), 4.0 * t * c * h,
+                                nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
+    del out_p
+    bops = _jumprelu_bwd_operands(ops, t, c)
+    g_p, err = _act_bwd_check(fused_jumprelu_sae, "mesh, " + label, cd, bops, JUMPRELU_GRADS,
+                              kernel=jbwd)
+    moved = nbytes(*bops[:-1]) + nbytes(*g_p)
+    del g_p
+    rows[jbwd.name] = _measure(jbwd.name, label, cd, lambda: jbwd(*bops),
+                               lambda: fused_jumprelu_sae.backward_plain(*bops),
+                               _jumprelu_bwd_library(bops), 8.0 * t * c * h, moved, err)
+    return rows
+
+
+def _tp_matryoshka_rows(cd, label: str) -> dict:
+    """Rows 21-22: the Matryoshka TP wrappers at the shard and MESH_UNION, as
+    kernels_matryoshka."""
+    t, c, h = SHARD_T, C, SHARD_H
+    fm = fused_matryoshka_sae
+    mfwd, mbwd = fused_sae_tp.matryoshka_fwd_kernel, fused_sae_tp.matryoshka_bwd_kernel
+    ops = _relu_exact_operands(cd, t, c, h)
+    x, we, be, wd, bd = ops
+    u = MESH_UNION
+    label = f"{label}, union {u}"
+    x_cent, out_p, err = _sae_fwd_check(fm, "mesh, " + label, cd, ops, (u,), exact=True,
+                                        kernel=mfwd)
+    xc = x - bd.to(cd)
+    post = torch.relu(xc @ we).to(cd)
+    rows = {mfwd.name: _measure(
+        mfwd.name, label, cd, lambda: mfwd(*ops, u), lambda: fm.fused_matryoshka_forward_plain(
+            *ops, u), lambda: (xc @ we, *(post[:, :m] @ wd[:m] for m in u)), 4.0 * t * c * h,
+        nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
+    s = _suffix_error(out_p[0], x, cd)
+    del out_p
+    coeffs = torch.tensor([1.0, LAMBDA / (T * H)], device=DEVICE)
+    g_p, err = _sae_bwd_check(fm, "mesh, " + label, cd, ops, x_cent, s, coeffs, (u,),
+                              kernel=mbwd)
+    moved = nbytes(*ops, s, coeffs) + nbytes(*g_p)
+    del g_p
+    dr = s[0]
+    rows[mbwd.name] = _measure(
+        mbwd.name, label, cd, lambda: mbwd(x_cent, we, be, wd, s, coeffs, u),
+        lambda: fm.fused_matryoshka_backward_plain(*ops, s, coeffs, u),
+        lambda: (xc @ we, dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * t * c * h, moved, err)
     return rows
 
 
 def _op_inputs(name: str, cd):
-    """The north-star shape's inputs of the ReLU or gated op (T 32,768, C 256, H
-    16,384), the same on every rank: a seeded generator on the card."""
+    """The north-star shape's inputs of ``name``'s op (T 32,768, C 256, H
+    16,384), the same on every rank: a seeded generator on the card. The
+    JumpReLU thresholds are uniform in MESH_THETA."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
-    init = init_sae_mlp if name == "sae_mlp" else init_gated_sae
+    init = init_gated_sae if name == "gated_sae" else init_sae_mlp
     params = init(gen, C, H // C)
     if name == "gated_sae":
         params["r_mag"] = 0.1 * torch.randn(H, device=DEVICE, generator=gen)
+    if name == "jumprelu_sae":
+        lo, hi = MESH_THETA
+        params["log_threshold"] = torch.log(lo + (hi - lo) * torch.rand(
+            H, device=DEVICE, generator=gen))
     x = torch.relu(torch.randn(T, C, device=DEVICE, generator=gen)) * 0.5
     return params, x
 
 
+def _mesh_op_pairs(cd):
+    """(name, TP loss terms, single-rank loss terms) of (a), each
+    ``f(params, x, mesh_or_none)``. The TopK op's single-rank counterpart in
+    f32 is the one-rank fast path; in bf16, where that path has no compute
+    dtype, the TP op on a mesh of one rank (no collective)."""
+    from sparse_vision_tpu_torch.ops.fast_topk_sae import fast_topk_sae_tp_loss_terms
+    from sparse_vision_tpu_torch.parallel.mesh import Mesh
+
+    one = Mesh((1, 1), 0, {"data": None, "model": None}, DEVICE)
+    kw = dict(compute_dtype=cd)
+    jr = dict(kw, bandwidth=MESH_BANDWIDTH)
+    mat = dict(kw, prefixes=MESH_PREFIXES)
+    topk_one = ((lambda p, x: fast_topk_sae_loss_terms(p, x, LAMBDA, H // C, TK_K))
+                if cd == torch.float32 else
+                (lambda p, x: fast_topk_sae_tp_loss_terms(p, x, LAMBDA, H // C, one, k=TK_K,
+                                                          compute_dtype=cd)))
+    return (
+        ("sae_mlp", lambda p, x, m: fused_sae_tp.fused_sae_tp_loss_terms(
+            p, x, LAMBDA, H // C, m, **kw),
+         lambda p, x: fused_sae.fused_sae_loss_terms(p, x, LAMBDA, H // C, **kw)),
+        ("gated_sae", lambda p, x, m: fused_sae_tp.fused_gated_sae_tp_loss_terms(
+            p, x, LAMBDA, H // C, m, **kw),
+         lambda p, x: fused_gated_sae.fused_gated_sae_loss_terms(p, x, LAMBDA, H // C, **kw)),
+        ("jumprelu_sae", lambda p, x, m: fused_sae_tp.fused_jumprelu_sae_tp_loss_terms(
+            p, x, LAMBDA_J, H // C, m, **jr),
+         lambda p, x: fused_jumprelu_sae.fused_jumprelu_sae_loss_terms(
+             p, x, LAMBDA_J, H // C, **jr)),
+        ("matryoshka_sae", lambda p, x, m: fused_sae_tp.fused_matryoshka_sae_tp_loss_terms(
+            p, x, LAMBDA, H // C, m, **mat),
+         lambda p, x: fused_matryoshka_sae.fused_matryoshka_sae_loss_terms(
+             p, x, LAMBDA, H // C, **mat)),
+        ("topk_sae", lambda p, x, m: fast_topk_sae_tp_loss_terms(
+            p, x, LAMBDA, H // C, m, k=TK_K, compute_dtype=cd), topk_one),
+    )
+
+
 def _mesh_ops(mesh) -> dict:
-    """(a) on a rank: the TP op on this rank's shard and, on rank 0, the
+    """(a) on a rank: each TP op on this rank's shard and, on rank 0, the
     single-rank op on the whole batch; the gathered loss terms, gradients and
     statistics held to it. Returns rank 0's max errors."""
     from sparse_vision_tpu_torch.parallel.mesh import gather_params, shard_params
     from sparse_vision_tpu_torch.parallel.sharded_steps import put_tokens_sharded
 
     out = {}
-    for name, tp_terms, terms in (
-            ("sae_mlp", fused_sae_tp.fused_sae_tp_loss_terms, fused_sae.fused_sae_loss_terms),
-            ("gated_sae", fused_sae_tp.fused_gated_sae_tp_loss_terms,
-             fused_gated_sae.fused_gated_sae_loss_terms)):
-        for cd in (torch.float32, torch.bfloat16):
+    for cd in (torch.float32, torch.bfloat16):
+        for name, tp_terms, terms in _mesh_op_pairs(cd):
             set_tf32(False)
             params, x = _op_inputs(name, cd)
             local = {k: v.requires_grad_(True) for k, v in shard_params(params, mesh).items()}
-            got = tp_terms(local, put_tokens_sharded(mesh, x), LAMBDA, H // C, mesh,
-                           compute_dtype=cd)
+            got = tp_terms(local, put_tokens_sharded(mesh, x), mesh)
             got["loss"].backward()
             grads = gather_params({k: v.grad for k, v in local.items()}, mesh)
             dead = mesh.gather(got["dead"], 0)
             freq = mesh.gather(got["activity_freq"], 0)
             if mesh.rank != 0:
+                del got, grads, local, params, x
                 continue
             full = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-            want = terms(full, x, LAMBDA, H // C, compute_dtype=cd)
+            want = terms(full, x)
             want["loss"].backward()
             torch.cuda.synchronize()
             rtol, atol = MESH_OP_TOL[cd]
             tag = f"{name} {str(cd).removeprefix('torch.')}"
             errs = {}
-            for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity"):
+            for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity", "l0_loss"):
+                if k not in want:
+                    continue
                 a, b = got[k].item(), want[k].item()
                 errs[k] = abs(a - b)
                 if abs(a - b) > MESH_LOSS_RTOL[cd] * abs(b) + 1e-12:
@@ -4597,7 +4749,8 @@ def _mesh_ops(mesh) -> dict:
                 if bool(bad.any()):
                     raise AssertionError(f"[mesh] (a) {tag}: d{k} off the single-rank op by "
                                          f"{e:.3e} (max {scale:.3e}) at {int(bad.sum())} entries")
-            if not (torch.equal(dead, want["dead"]) and torch.equal(freq, want["activity_freq"])):
+            if not (torch.equal(dead, want["dead"]) and torch.equal(
+                    freq, want["activity_freq"].to(freq.dtype))):
                 raise AssertionError(f"[mesh] (a) {tag}: dead / activity_freq differ")
             rows = put_tokens_sharded(mesh, want["decoded"])  # rank 0's token rows
             errs["decoded"] = (got["decoded"] - rows).abs().max().item()
@@ -4607,9 +4760,8 @@ def _mesh_ops(mesh) -> dict:
             log(f"[mesh] (a) {tag} ({SHARING}): TP op vs single-rank op, max abs err "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
             out[tag] = errs
-            del want, full
-        del got, grads, local, params, x
-        torch.cuda.empty_cache()
+            del want, full, got, grads, local, params, x
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4713,15 +4865,15 @@ def _mesh_run(mesh, name: str, kernels, extra: dict | None = None) -> dict:
 
 
 def _mesh_rank(rank: int, mesh, job: str) -> dict:
-    """One rank of phase 15's worlds: ``job`` "tp" runs (a), (b), (c) and the
-    collective timing of (e) on (2, 2); "dp" runs (d) on (2,)."""
+    """One rank of phase 15's worlds: ``job`` "tp" runs (a), (b), (c), (g) and
+    the collective timing of (e) on (2, 2); "dp" runs (d) on (2,)."""
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
     if job == "dp":
         return {"sae_mlp": _mesh_run(mesh, "sae_mlp", KERNELS)}
     out = {"ops": _mesh_ops(mesh)}
-    out["sae_mlp"] = _mesh_run(mesh, "sae_mlp", TP_KERNELS)
-    out["gated_sae"] = _mesh_run(mesh, "gated_sae", TP_KERNELS)
+    for name, extra in MESH_RUNS.items():
+        out[name] = _mesh_run(mesh, name, TP_KERNELS, extra)
     out["collectives_ms"] = _time_collectives(mesh, SHARD_T, C, SHARD_H)
     return out
 
@@ -4749,7 +4901,8 @@ def _one_rank_run(name: str, extra: dict | None = None) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     out = {"params": {k: v.cpu() for k, v in pipe.ts.params.items()},
            "dead": pipe.ts.dead_acc.cpu(), "resampled": rec["dead"], "at": rec["at"],
-           "pre_max": torch.stack(rec["pre_max"]),
+           # the ReLU and gated runs' (the variants that read it: _window_peak)
+           "pre_max": torch.stack(rec["pre_max"]) if rec["pre_max"] else None,
            "log": [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]}
     del pipe
     torch.cuda.empty_cache()
@@ -4868,7 +5021,7 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
 
 def phase_mesh(smi: str) -> dict:
     """Phase 15 (the module docstring). Returns the TP kernels' rows, their
-    launches summed over the ranks of (b) and (c)."""
+    launches summed over the ranks of (b), (c) and (g)."""
     from sparse_vision_tpu_torch.parallel.distributed import RankError, spawn
 
     t_phase = time.perf_counter()
@@ -4880,20 +5033,19 @@ def phase_mesh(smi: str) -> dict:
         if cd == torch.bfloat16:
             rows = got
     torch.cuda.empty_cache()
-    ref = {name: _one_rank_run(name) for name in ("sae_mlp", "gated_sae")}
+    ref = {name: _one_rank_run(name, extra) for name, extra in MESH_RUNS.items()}
 
     t0 = time.perf_counter()
     ranks = spawn(_mesh_rank, MESH, "tp", device=DEVICE, backend="gloo",
                   timeout_s=MESH_TIMEOUT_S)
     log(f"[mesh] world {MESH} ({SHARING}, {torch.cuda.get_device_name(0)}): "
         f"{time.perf_counter() - t0:.1f} s")
-    _check_mesh_run("(b) sae_mlp (2, 2)", "sae_mlp", [r["sae_mlp"] for r in ranks],
-                    ref["sae_mlp"], TP_KERNELS[:2], 12)
-    _check_mesh_run("(c) gated_sae (2, 2)", "gated_sae", [r["gated_sae"] for r in ranks],
-                    ref["gated_sae"], TP_KERNELS[2:], 12)
+    for name, part in zip(MESH_RUNS, ("(b)", "(c)", "(g)", "(g)", "(g)")):
+        _check_mesh_run(f"{part} {name} (2, 2)", name, [r[name] for r in ranks], ref[name],
+                        MESH_RUN_KERNELS[name], 12)
     for k in TP_KERNELS:
         rows[k.name]["launches"] = sum(r[n]["launches"][k.name] for r in ranks
-                                       for n in ("sae_mlp", "gated_sae"))
+                                       for n in MESH_RUNS)
     coll = [r["collectives_ms"] for r in ranks]
     log(f"[mesh] (e) one TP step's collectives at the shard (T {SHARD_T}, C {C}, H {SHARD_H}): "
         + ", ".join(f"rank {r} {ms:.2f} ms" for r, ms in enumerate(coll))

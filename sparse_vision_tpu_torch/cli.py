@@ -32,12 +32,13 @@ means.
 
 ``--mesh_shape d[,m]`` trains the config on a mesh of d·m ranks
 (parallel/distributed.spawn: one process a rank; rank r on ``cuda:(r %
-cards)``): ``d`` data parallel, ``d,m`` tensor parallel (sae_mlp and
-gated_sae), every rank with its Pipeline (train/pipeline.py's module
-docstring); rank 0's result prints. ``--dist_backend`` is "nccl" (one card a
-rank) or "gloo" (ranks may share a card, and the only backend on the CPU);
-its default is nccl on CUDA and gloo with ``--device cpu``. Without
-``--device cpu`` the mesh runs on CUDA and fails when no GPU is present.
+cards)``): ``d`` data parallel, ``d,m`` tensor parallel (sae_mlp,
+gated_sae, jumprelu_sae, matryoshka_sae, topk_sae), every rank with its
+Pipeline (train/pipeline.py's module docstring); rank 0's result prints.
+``--dist_backend`` is "nccl" (one card a rank) or "gloo" (ranks may share a
+card, and the only backend on the CPU); its default is nccl on CUDA and gloo
+with ``--device cpu``. Without ``--device cpu`` the mesh runs on CUDA and
+fails when no GPU is present.
 
 ``--feature_report OUT.html`` writes the HTML feature report of the config's
 run at its latest evaluated epoch (eval_tools/report.py, with the circuit

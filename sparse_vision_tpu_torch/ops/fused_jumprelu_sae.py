@@ -272,15 +272,17 @@ bwd_kernel = _BackwardKernel()
 KERNELS = (fwd_kernel, bwd_kernel)
 
 
-def fused_jumprelu_forward(*args):
-    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(fwd_kernel, fused_jumprelu_forward_plain, *args)
+def fused_jumprelu_forward(*args, kernel=fwd_kernel):
+    """The forward kernel on CUDA tensors (through ``kernel``, whose count it
+    adds to), its plain version on CPU tensors."""
+    return run_on_device(kernel, fused_jumprelu_forward_plain, *args)
 
 
-def fused_jumprelu_backward(*args):
-    """The backward kernel on CUDA tensors, the plain version of its route for
-    the operands' dtype (backward_plain) on CPU tensors."""
-    return run_on_device(bwd_kernel, backward_plain, *args)
+def fused_jumprelu_backward(*args, kernel=bwd_kernel):
+    """The backward kernel on CUDA tensors (through ``kernel``), the plain
+    version of its route for the operands' dtype (backward_plain) on CPU
+    tensors."""
+    return run_on_device(kernel, backward_plain, *args)
 
 
 class FusedJumpReLUSAEFunction(torch.autograd.Function):

@@ -274,20 +274,22 @@ dx_kernel = _DxKernel()
 KERNELS = (fwd_kernel, bwd_kernel, dx_kernel)
 
 
-def fused_matryoshka_forward(x, w_enc, b_enc, w_dec, b_dec, boundaries):
-    """The forward entry point (the kernels on CUDA tensors, matryoshka_fwd_plain
-    on CPU tensors), its partials reduced here: (x_cent, prefix_recon,
-    act_count, row_active, l1_sum)."""
+def fused_matryoshka_forward(x, w_enc, b_enc, w_dec, b_dec, boundaries, kernel=fwd_kernel):
+    """The forward entry point (the kernels on CUDA tensors, through ``kernel``,
+    whose count it adds to; matryoshka_fwd_plain on CPU tensors), its partials
+    reduced here: (x_cent, prefix_recon, act_count, row_active, l1_sum)."""
     x_cent, prefix_recon, act_part, row_active, zsum_part = run_on_device(
-        fwd_kernel, matryoshka_fwd_plain, x, w_enc, b_enc, w_dec, b_dec, boundaries)
+        kernel, matryoshka_fwd_plain, x, w_enc, b_enc, w_dec, b_dec, boundaries)
     return x_cent, prefix_recon, act_part.sum(0), row_active, zsum_part.sum()
 
 
-def fused_matryoshka_backward(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+def fused_matryoshka_backward(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries,
+                              kernel=bwd_kernel):
     """The backward entry point on the saved x_cent (the kernel on CUDA tensors,
-    matryoshka_bwd_plain on CPU tensors), db_dec's partial rows reduced here."""
+    through ``kernel``; matryoshka_bwd_plain on CPU tensors), db_dec's partial
+    rows reduced here."""
     dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
-        bwd_kernel, matryoshka_bwd_plain, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries)
+        kernel, matryoshka_bwd_plain, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries)
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 

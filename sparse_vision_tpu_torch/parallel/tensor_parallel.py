@@ -2,28 +2,32 @@
 engine of sparse_vision_tpu/parallel/tensor_parallel.py).
 
 The latent axis shards over 'model', the tokens over 'data'. Each rank runs the
-TP op of ops/fused_sae_tp.py on its shard: the single-device fused bodies
-(PERF.md rows 1-2 and 6-7) with partial reconstructions psummed over 'model'
-before the MSE and latent-local gradients psummed over 'data'. The op's
-gradients are global, so the update applies them as they are: Adam's moments
-follow their parameters, and ConstrainedAdam's renormalization is row-local on
-W_dec [H/m, C]. sae_mlp resamples with resample_dead_neurons_tp (every rank
-draws the full global matrices from the replicated generator and keeps its
-latents; the live statistics psum over 'model').
+variant's TP op on its shard: sae_mlp, gated_sae, jumprelu_sae and
+matryoshka_sae on ops/fused_sae_tp.py (the single-device fused bodies, PERF.md
+rows 1-2, 6-7, 4-5 and 8-9, with partial reconstructions psummed over
+'model' before the MSE and latent-local gradients psummed over 'data'), and
+topk_sae on ops/fast_topk_sae.py's two-stage selection (no kernel: JAX's op is
+stock XLA). The op's gradients are global, so the update applies them as they
+are: Adam's moments follow their parameters, and ConstrainedAdam's
+renormalization is row-local on W_dec [H/m, C]. sae_mlp resamples with
+resample_dead_neurons_tp (every rank draws the full global matrices from the
+replicated generator and keeps its latents; the live statistics psum over
+'model').
 
 The dead accumulator follows the SINGLE-DEVICE step (ROADMAP C1): the
-variants that do not resample (gated_sae) restart it every
+variants that do not resample (all but sae_mlp) restart it every
 dead_neurons_steps steps (the rolling window of train/steps.make_update),
 where the JAX package's TP step resets it only when it can resample.
 perc_dead is psum_model(Σ dead_acc) / H.
 
 JAX's second engine, the GSPMD placement of the stock step for any variant,
-has no counterpart here; the JumpReLU, Matryoshka and TopK TP ops are not
-ported yet (ROADMAP B1.3, B1.4 and A6's TopK item), and their names raise.
+has no counterpart here (train/pipeline.validate_mesh_mode refuses what it
+would run).
 
 Layouts (parallel/mesh.param_axes, JAX's sae_param_sharding):
-  W_enc, W_gate [C, H]: axis 1      b_enc, b_gate, b_mag, r_mag [H]: axis 0
-  W_dec [H, C]: axis 0              b_dec [C]: replicated
+  W_enc, W_gate [C, H]: axis 1      b_enc, b_gate, b_mag, r_mag,
+  W_dec [H, C]: axis 0                log_threshold [H]: axis 0
+  b_dec [C]: replicated
   Adam mu / nu follow their params, count is replicated; dead_acc [H]: axis 0;
   step and the generator replicated.
 """
@@ -34,18 +38,19 @@ import functools
 
 import torch
 
+from sparse_vision_tpu_torch.models.sae import DEFAULT_MATRYOSHKA_PREFIXES
+from sparse_vision_tpu_torch.ops.fast_topk_sae import fast_topk_sae_tp_loss_terms
 from sparse_vision_tpu_torch.ops.fused_sae_tp import (
     fused_gated_sae_tp_loss_terms,
+    fused_jumprelu_sae_tp_loss_terms,
+    fused_matryoshka_sae_tp_loss_terms,
     fused_sae_tp_loss_terms,
 )
 from sparse_vision_tpu_torch.ops.resample import kaiming_draws, resample_dead_neurons_tp
 from sparse_vision_tpu_torch.parallel.mesh import gather_params, param_axes, shard_params
 from sparse_vision_tpu_torch.train.steps import LocalSync, SAETrainState, make_train_step
 
-TP_VARIANTS = ("sae_mlp", "gated_sae")
-# the variants whose TP ops are still to port, and the ROADMAP item of each
-NOT_PORTED = {"jumprelu_sae": "B1.3", "matryoshka_sae": "B1.4",
-              "topk_sae": "A6 (the TopK distributed selection)"}
+TP_VARIANTS = ("sae_mlp", "gated_sae", "jumprelu_sae", "matryoshka_sae", "topk_sae")
 
 
 class ModelSync(LocalSync):
@@ -123,23 +128,28 @@ def resample_sae_tp(params: dict, opt_state: dict, dead: torch.Tensor,
 
 def make_tp_fused_train_step(mesh, lambda_sparse: float, tx, dead_neurons_steps: int,
                              expansion_factor: int, fused_opts: dict | None = None,
-                             sae_model_name: str = "sae_mlp"):
+                             sae_model_name: str = "sae_mlp",
+                             matryoshka_prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES,
+                             topk: int = 32, topk_approx: bool = False):
     """The tensor-parallel fused train step ``step(ts, act_local,
     resample_draws=None) -> (ts, metrics)`` (module docstring): ``ts`` the
     rank's shard (put_tp_state), ``act_local`` its [T/d, C] token rows
     (parallel/sharded_steps.put_tokens_sharded). ``fused_opts`` may set
-    ``compute_dtype``. The metrics are global and alike on every rank. JAX's
-    ``ts_placed`` argument, whose
+    ``compute_dtype``, and ``bandwidth`` for jumprelu_sae;
+    ``matryoshka_prefixes`` are matryoshka_sae's GLOBAL dictionary fractions,
+    ``topk`` / ``topk_approx`` topk_sae's k and selection flag. The metrics are
+    global and alike on every rank. JAX's ``ts_placed`` argument, whose
     shardings give its shard_map specs, has no counterpart: the layouts are
     fixed (parallel/mesh.param_axes)."""
-    if sae_model_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"the tensor-parallel {sae_model_name} op is not ported yet (ROADMAP "
-            f"{NOT_PORTED[sae_model_name]})")
     if sae_model_name not in TP_VARIANTS:
         raise ValueError(f"TP fused step supports {TP_VARIANTS}, not {sae_model_name!r}")
     terms = {"sae_mlp": fused_sae_tp_loss_terms,
-             "gated_sae": fused_gated_sae_tp_loss_terms}[sae_model_name]
+             "gated_sae": fused_gated_sae_tp_loss_terms,
+             "jumprelu_sae": fused_jumprelu_sae_tp_loss_terms,
+             "matryoshka_sae": functools.partial(fused_matryoshka_sae_tp_loss_terms,
+                                                 prefixes=tuple(matryoshka_prefixes)),
+             "topk_sae": functools.partial(fast_topk_sae_tp_loss_terms, k=topk,
+                                           approx=topk_approx)}[sae_model_name]
     opts = dict(fused_opts or {})
 
     def loss_fn(params, act):

@@ -54,7 +54,8 @@ naming the field.
 ranks (parallel/, started by parallel/distributed.spawn or the CLI's
 ``--mesh_shape``; every rank builds its own Pipeline): ``(d,)`` data parallel
 for every SAE variant (parallel/sharded_steps.py), ``(d, m)`` tensor parallel
-for sae_mlp and gated_sae on the TP ops (parallel/tensor_parallel.py). Rank 0
+for sae_mlp, gated_sae, jumprelu_sae, matryoshka_sae and topk_sae on the TP
+ops (parallel/tensor_parallel.py; validate_mesh_mode gives the shapes). Rank 0
 alone dumps the cache (the others wait for it), then every rank reads the same
 step blocks and keeps its own token rows. The evals run on rank 0 over the
 gathered parameters while the other ranks go on to the next step's first
@@ -94,8 +95,13 @@ from sparse_vision_tpu_torch.models.sae import (
     calibrate_batch_topk_threshold,
     init_sae,
     init_transcoder,
+    matryoshka_prefix_counts,
 )
 from sparse_vision_tpu_torch.ops import metrics, optim
+from sparse_vision_tpu_torch.ops.fused_sae_tp import (
+    can_fuse_matryoshka_tp,
+    matryoshka_union_tiles,
+)
 from sparse_vision_tpu_torch.ops.losses import get_criterion
 from sparse_vision_tpu_torch.ops.topk import init_topk, update_topk
 from sparse_vision_tpu_torch.parallel.distributed import process_local_batch_slice
@@ -106,7 +112,6 @@ from sparse_vision_tpu_torch.parallel.sharded_steps import (
     put_tokens_sharded,
 )
 from sparse_vision_tpu_torch.parallel.tensor_parallel import (
-    NOT_PORTED,
     TP_VARIANTS,
     gather_tp_state,
     make_tp_fused_train_step,
@@ -184,16 +189,23 @@ def validate_slice(cfg: RunConfig) -> None:
 
 
 # the trainers a mesh of more than one rank does not run yet, and the ROADMAP
-# item of each (tensor_parallel.NOT_PORTED: the TP ops still to port)
+# item of each
 _MESH_NOT_PORTED = {"transcoder": "B1.5", "crosscoder": "B1.6"}
 _GSPMD = ("the JAX package's GSPMD engine, which runs the stock step under a 'model' axis, "
           "is not ported (ROADMAP A6)")
 
 
-def validate_mesh_mode(cfg: RunConfig) -> None:
+def validate_mesh_mode(cfg: RunConfig, num_units: Optional[int] = None) -> None:
     """Raise NotImplementedError for a config that a mesh of more than one rank
     does not run: anything but training an SAE variant from its activation
-    cache, or, under a 'model' axis, a variant without a TP op."""
+    cache, or, under a 'model' axis, what the JAX package's pipeline gives
+    its GSPMD engine rather than its fused TP engine (train/pipeline.py:585-619
+    there): a variant without a TP op, use_pallas=False, TopK with AuxK, and,
+    once ``num_units`` (the dictionary's latents) is known, latents that do not
+    split over the axis, a Matryoshka prefix set whose snapshot union does
+    not tile (ops/fused_sae_tp.matryoshka_union_tiles) and a TopK k above the
+    shard's latents. The kernels' token and width rules at (T/d, H/m) are
+    Pipeline.check_fusable's, on the card."""
     name = cfg.sae_model_name
     if cfg.original_model or not cfg.training or cfg.compute_ie != "0" or cfg.mis != "0":
         raise NotImplementedError(
@@ -208,15 +220,32 @@ def validate_mesh_mode(cfg: RunConfig) -> None:
             raise NotImplementedError(f"RunConfig.{field}={getattr(cfg, field)!r} is not "
                                       f"ported on a mesh of more than one rank (set {off!r}; "
                                       "ROADMAP A6)")
-    if len(cfg.mesh_shape) == 2 and cfg.mesh_shape[1] > 1:
-        if name in NOT_PORTED:
+    if len(cfg.mesh_shape) < 2 or cfg.mesh_shape[1] == 1:
+        return
+    m = int(cfg.mesh_shape[1])
+    if name not in TP_VARIANTS or not cfg.use_pallas:
+        raise NotImplementedError(
+            f"a 'model' axis trains {', '.join(TP_VARIANTS)} on their TP ops only "
+            f"(use_pallas=True); {_GSPMD}")
+    if name == "topk_sae" and cfg.sae_aux_k > 0:
+        raise NotImplementedError(
+            f"topk_sae with sae_aux_k={cfg.sae_aux_k} on a 'model' axis: the TP op has no "
+            f"AuxK term, and {_GSPMD}")
+    if num_units is None:
+        return
+    if num_units % m:
+        raise NotImplementedError(
+            f"{num_units} latents do not shard over the model axis of {m}, and {_GSPMD}")
+    if name == "matryoshka_sae":
+        boundaries = matryoshka_prefix_counts(num_units, cfg.matryoshka_prefix_fractions)
+        if not matryoshka_union_tiles(boundaries, m):
             raise NotImplementedError(
-                f"the tensor-parallel {name} op is not ported yet (ROADMAP "
-                f"{NOT_PORTED[name]}), and {_GSPMD}")
-        if name not in TP_VARIANTS or not cfg.use_pallas:
-            raise NotImplementedError(
-                f"a 'model' axis trains sae_mlp and gated_sae on their fused TP ops only "
-                f"(use_pallas=True); {_GSPMD}")
+                f"the Matryoshka prefix boundaries {boundaries} clip into {m} shards at a "
+                f"snapshot union the TP kernels do not take (multiples of 128), and {_GSPMD}")
+    if name == "topk_sae" and cfg.sae_topk > num_units // m:
+        raise NotImplementedError(
+            f"sae_topk={cfg.sae_topk} exceeds the {num_units // m} latents of a shard, which "
+            f"the two-stage selection needs, and {_GSPMD}")
 
 
 class Pipeline:
@@ -716,14 +745,18 @@ class Pipeline:
         mesh = self.mesh
         n_data, n_model = (1, 1) if mesh is None else (mesh.size("data"), mesh.size("model"))
         t_local = process_local_batch_slice(tps, n_data)
-        if n_model > 1 and self.num_units % n_model:
-            raise NotImplementedError(
-                f"{self.num_units} latents do not shard over the model axis of {n_model}, and "
-                f"{_GSPMD}")
+        if mesh is not None:
+            validate_mesh_mode(dataclasses.replace(cfg, mesh_shape=mesh.shape), self.num_units)
         if cfg.sae_model_name in TOPK_FAMILY:
             fused = cfg.use_pallas
         else:
-            can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
+            if n_model > 1 and cfg.sae_model_name == "matryoshka_sae":
+                boundaries = matryoshka_prefix_counts(self.num_units, prefixes)
+
+                def can_fuse(t, _h, c, dtype):  # the shard's rule at the global boundaries
+                    return can_fuse_matryoshka_tp(t, boundaries, n_model, c, dtype)
+            else:
+                can_fuse, _ = fused_op(cfg.sae_model_name, prefixes)
             c = self.sae_input_size
             fused = self.check_fusable(
                 lambda t, h, c_in, _, dtype: can_fuse(t, h, c_in, dtype), c, c,
@@ -755,7 +788,8 @@ class Pipeline:
             step_fn = make_tp_fused_train_step(
                 mesh, cfg.sae_lambda_sparse, self.tx, cfg.dead_neurons_steps,
                 cfg.sae_expansion_factor, fused_opts=fused_opts,
-                sae_model_name=cfg.sae_model_name)
+                sae_model_name=cfg.sae_model_name, matryoshka_prefixes=prefixes,
+                topk=cfg.sae_topk, topk_approx=cfg.sae_topk_approx)
             self.ts = put_tp_state(mesh, self.ts)
         else:
             opts = dict(fused=fused, fused_opts=fused_opts, topk=cfg.sae_topk,

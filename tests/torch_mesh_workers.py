@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
-from sparse_vision_tpu_torch.ops import fused_sae_tp, optim
+from sparse_vision_tpu_torch.ops import fast_topk_sae, fused_sae_tp, optim
 from sparse_vision_tpu_torch.parallel.mesh import BOTH, gather_params, shard_params
 from sparse_vision_tpu_torch.parallel.sharded_steps import (
     make_sharded_fused_train_step,
@@ -75,15 +75,23 @@ def sleep_forever(rank: int, mesh) -> None:
     mesh.barrier()
 
 
-def _op_results(rank, mesh, name, params, x, lam, expansion, cd):
-    """One TP op's loss terms and gathered gradients on this rank's shard."""
+TP_TERMS = {"sae_mlp": fused_sae_tp.fused_sae_tp_loss_terms,
+            "gated_sae": fused_sae_tp.fused_gated_sae_tp_loss_terms,
+            "jumprelu_sae": fused_sae_tp.fused_jumprelu_sae_tp_loss_terms,
+            "matryoshka_sae": fused_sae_tp.fused_matryoshka_sae_tp_loss_terms,
+            "topk_sae": fast_topk_sae.fast_topk_sae_tp_loss_terms}
+
+
+def _op_results(rank, mesh, name, params, x, lam, expansion, cd, opts):
+    """One TP op's loss terms and gathered gradients on this rank's shard
+    (``opts``: the op's own keyword arguments)."""
     local = {k: v.requires_grad_(True) for k, v in shard_params(params, mesh).items()}
-    terms = {"sae_mlp": fused_sae_tp.fused_sae_tp_loss_terms,
-             "gated_sae": fused_sae_tp.fused_gated_sae_tp_loss_terms}[name]
-    out = terms(local, put_tokens_sharded(mesh, x), lam, expansion, mesh, compute_dtype=cd)
+    out = TP_TERMS[name](local, put_tokens_sharded(mesh, x), lam, expansion, mesh,
+                         compute_dtype=cd, **opts)
     out["loss"].backward()
     return {
-        **{k: out[k].detach() for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity")},
+        **{k: out[k].detach() for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity",
+                                        "l0_loss") if k in out},
         "grads": gather_params({k: v.grad for k, v in local.items()}, mesh),
         "dead": mesh.gather(out["dead"], 0),
         "activity_freq": mesh.gather(out["activity_freq"], 0),
@@ -91,15 +99,18 @@ def _op_results(rank, mesh, name, params, x, lam, expansion, cd):
     }
 
 
-def _steps(mesh, name, params, batches, lam, window, expansion, draws=None):
+def _steps(mesh, name, params, batches, lam, window, expansion, draws=None,
+           fused_opts=None, **kw):
     """A TP trajectory from full ``params``: per step the metrics and the
-    gathered dead accumulator; the final gathered state."""
+    gathered dead accumulator; the final gathered state. ``fused_opts`` is
+    added to f32 compute, ``kw`` goes to make_tp_fused_train_step."""
     tx = optim.get_optimizer("constrained_adam", 1e-3)
     h = next(v.shape[0] for k, v in params.items() if k in ("b_enc", "b_gate"))
     ts = put_tp_state(mesh, tsteps.init_sae_train_state(params, tx, h, seed=0))
     step = make_tp_fused_train_step(mesh, lam, tx, window, expansion,
-                                    fused_opts={"compute_dtype": "float32"},
-                                    sae_model_name=name)
+                                    fused_opts={"compute_dtype": "float32",
+                                                **(fused_opts or {})},
+                                    sae_model_name=name, **kw)
     metrics, dead = [], []
     for i, x in enumerate(batches, start=1):
         ts, m = step(ts, put_tokens_sharded(mesh, _t(x)),
@@ -119,18 +130,49 @@ def _pipeline(mesh, cfg: RunConfig, backbone, sae_params, **kw):
             "step": pipe.ts.step, "opt_state": pipe.ts.opt_state}
 
 
+def _state_round_trip(mesh, params) -> dict:
+    """put_tp_state then gather_tp_state of a train state with distinct Adam
+    moments: the shard widths and whether the round trip gives the state back."""
+    tx = optim.get_optimizer("constrained_adam", 1e-3)
+    ts = tsteps.init_sae_train_state(params, tx, params["b_enc"].shape[0], seed=0)
+    opt = {**ts.opt_state, "mu": {k: v + 1.0 for k, v in params.items()},
+           "nu": {k: v * 2.0 for k, v in params.items()}}
+    ts = ts._replace(opt_state=opt, dead_acc=torch.arange(ts.dead_acc.shape[0]) % 3 == 0)
+    local = put_tp_state(mesh, ts)
+    back = gather_tp_state(mesh, local)
+    same = all(torch.equal(back.params[k], v) for k, v in ts.params.items())
+    same &= all(torch.equal(back.opt_state[m][k], v) for m in ("mu", "nu")
+                for k, v in ts.opt_state[m].items())
+    return {"shapes": {k: tuple(v.shape) for k, v in local.params.items()},
+            "mu_shapes": {k: tuple(v.shape) for k, v in local.opt_state["mu"].items()},
+            "equal": same and torch.equal(back.dead_acc, ts.dead_acc)}
+
+
 def tp_worker(rank: int, mesh, job: dict) -> dict:
     """Everything test_torch_tensor_parallel.py holds on one (2, 2) world."""
     torch.set_num_threads(1)
     out = {"ops": {}}
     for (name, cd), (params, x) in job["ops"].items():
         out["ops"][name, cd] = _op_results(rank, mesh, name, _t(params), _t(x),
-                                           job["lambda"], job["expansion"], cd)
+                                           job["lambda"], job["expansion"][name], cd,
+                                           job["op_opts"].get(name, {}))
+    try:
+        local = shard_params(_t(job["ops"]["topk_sae", torch.float32][0]), mesh)
+        fast_topk_sae.fast_topk_sae_tp_loss_terms(
+            local, torch.zeros(8, local["W_enc"].shape[0]), 0.0, 4, mesh,
+            k=local["b_enc"].shape[0] + 1)
+        out["topk_too_large"] = None
+    except ValueError as e:
+        out["topk_too_large"] = str(e)
+    out["jumprelu_state"] = _state_round_trip(mesh, _t(job["ops"]["jumprelu_sae",
+                                                                 torch.float32][0]))
+    for name, spec in job["variant_steps"].items():
+        out[f"{name}_steps"] = _steps(mesh, name, _t(spec["params"]), job["batches"],
+                                      job["lambda"], job["window"], spec["expansion"],
+                                      **spec["kw"])
     out["relu_steps"] = _steps(mesh, "sae_mlp", _t(job["relu_params"]), job["batches"],
-                               job["lambda"], job["window"], job["expansion"],
+                               job["lambda"], job["window"], job["expansion"]["sae_mlp"],
                                draws=job["draws"])
-    out["gated_steps"] = _steps(mesh, "gated_sae", _t(job["gated_params"]), job["batches"],
-                                job["lambda"], job["window"], job["expansion"])
     cfg = RunConfig.from_json(job["cfg"])
     backbone, sae = _t(job["backbone"]), _t(job["sae"])
     root = job["root"]
@@ -142,6 +184,9 @@ def tp_worker(rank: int, mesh, job: dict) -> dict:
               **resume)
     out["resumed"] = _pipeline(mesh, cfg, backbone, sae, directory_path=f"{root}/resumed",
                                sae_checkpoint_epoch=1, **resume)
+    mat = RunConfig.from_json(job["matryoshka_cfg"])
+    out["matryoshka_pipeline"] = _pipeline(mesh, mat, backbone, None,
+                                           directory_path=f"{root}/matryoshka")
     return out
 
 
