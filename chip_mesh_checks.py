@@ -3,7 +3,7 @@
     python3 chip_mesh_checks.py
 
 Phase 15 holds each mesh run of phase 6's configs to the one-rank run of the
-same config (chip_smoke._check_mesh_run). This script runs that check on six
+same config (chip_smoke._check_mesh_run). This script runs that check on eight
 more mesh runs, every world's ranks on the one card over gloo, each against a
 one-rank run made here:
   grads     sae_mlp at (2,) with the data-parallel step's gradients left
@@ -15,9 +15,15 @@ one-rank run made here:
             dθ of the latent at its place on the other model rank);
   n_contrib matryoshka_sae at (2, 2) with the Matryoshka TP op's
             (n_contrib_p − 1) correction of db_dec left out;
+  tc_db_dec the transcoder at (2, 2) with the transcoder TP op's db_dec
+            psummed over both axes (m times the direct term: every model
+            rank holds the whole Σ_T drecon already);
+  cc_dn     the crosscoder at (2, 2) with the crosscoder TP op's decoder-norm
+            gradient dn left without its 'data' psum (each data rank's own
+            token sum);
   gated dp  gated_sae at (2,) in bf16, as phase 15 runs it;
   gated f32 gated_sae at (2, 2) with compute_dtype float32.
-The four faults are planted at run time in the ranks' processes (no file
+The six faults are planted at run time in the ranks' processes (no file
 changes), and each must fail the check. The two gated runs say where phase 15
 (c)'s wider parameter gap comes from: the summation order of the TP op in
 bf16 (the data-parallel run sums in yet another order) or something the f32
@@ -37,7 +43,13 @@ import time
 import torch
 
 import chip_smoke as cs
-from sparse_vision_tpu_torch.ops import fused_gated_sae, fused_sae, fused_sae_tp
+from sparse_vision_tpu_torch.ops import (
+    fused_crosscoder,
+    fused_gated_sae,
+    fused_sae,
+    fused_sae_tp,
+    fused_transcoder,
+)
 from sparse_vision_tpu_torch.parallel import sharded_steps
 from sparse_vision_tpu_torch.parallel.distributed import spawn
 
@@ -82,10 +94,31 @@ def _matryoshka_n_contrib(saved):
     return backward
 
 
+def _transcoder_db_dec(saved):
+    """The transcoder TP op's backward with db_dec psummed over 'model' too."""
+    def backward(ctx, *cts):
+        out = list(saved.__func__(ctx, *cts))
+        out[4] = ctx.mesh.psum(out[4], "model")
+        return tuple(out)
+    return backward
+
+
+def _crosscoder_dn(saved):
+    """The crosscoder TP op's backward with dn from this rank's own token sum
+    (no 'data' psum)."""
+    def backward(ctx, g_rec, g_l1, *rest):
+        zsum = ctx.saved_tensors[6]
+        t_g, h_g = ctx.dims
+        out = list(saved.__func__(ctx, g_rec, g_l1, *rest))
+        out[6] = fused_sae_tp._zero_if_none(g_l1, zsum) * zsum / (t_g * h_g)
+        return tuple(out)
+    return backward
+
+
 @contextlib.contextmanager
 def _planted(fault: str):
-    """``fault`` ("grads", "db_dec", "dtheta" or "n_contrib", the module
-    docstring) planted in this process for the block."""
+    """``fault`` ("grads", "db_dec", "dtheta", "n_contrib", "tc_db_dec" or
+    "cc_dn", the module docstring) planted in this process for the block."""
     if fault == "grads":
         cls, attr = sharded_steps.DataSync, "grads"
         saved = cls.__dict__[attr]
@@ -94,7 +127,11 @@ def _planted(fault: str):
         cls, make = {"db_dec": (fused_sae_tp.FusedSAETPFunction, _relu_db_dec),
                      "dtheta": (fused_sae_tp.FusedJumpReLUSAETPFunction, _jumprelu_dtheta),
                      "n_contrib": (fused_sae_tp.FusedMatryoshkaSAETPFunction,
-                                   _matryoshka_n_contrib)}[fault]
+                                   _matryoshka_n_contrib),
+                     "tc_db_dec": (fused_transcoder.FusedTranscoderTPFunction,
+                                   _transcoder_db_dec),
+                     "cc_dn": (fused_crosscoder.FusedCrosscoderTPFunction,
+                               _crosscoder_dn)}[fault]
         attr = "backward"
         saved = cls.__dict__[attr]
         cls.backward = staticmethod(make(saved))
@@ -106,7 +143,7 @@ def _planted(fault: str):
 
 def _rank(rank: int, mesh, job: str) -> dict:
     """A rank of the (2,) world ("dp": grads, gated dp) or of the (2, 2) world
-    ("tp": db_dec, dtheta, n_contrib, gated f32)."""
+    ("tp": db_dec, dtheta, n_contrib, tc_db_dec, cc_dn, gated f32)."""
     cs.set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True
     if job == "dp":
@@ -115,10 +152,13 @@ def _rank(rank: int, mesh, job: str) -> dict:
         out["gated dp"] = cs._mesh_run(mesh, "gated_sae", fused_gated_sae.KERNELS)
         return out
     out = {}
-    for fault, name in (("db_dec", "sae_mlp"), ("dtheta", "jumprelu_sae"),
-                        ("n_contrib", "matryoshka_sae")):
+    for fault, name, kernels in (("db_dec", "sae_mlp", cs.TP_KERNELS),
+                                 ("dtheta", "jumprelu_sae", cs.TP_KERNELS),
+                                 ("n_contrib", "matryoshka_sae", cs.TP_KERNELS),
+                                 ("tc_db_dec", "transcoder", fused_transcoder.TP_KERNELS),
+                                 ("cc_dn", "crosscoder", fused_crosscoder.TP_KERNELS)):
         with _planted(fault):
-            out[fault] = cs._mesh_run(mesh, name, cs.TP_KERNELS)
+            out[fault] = cs._mesh_run(mesh, name, kernels)
     out["gated f32"] = cs._mesh_run(mesh, "gated_sae", cs.TP_KERNELS, F32)
     return out
 
@@ -129,7 +169,8 @@ def main() -> int:
     shutil.rmtree(cs.MESH_WORK, ignore_errors=True)
     cs.set_tf32(False)
     ref = {name: cs._one_rank_run(name)
-           for name in ("sae_mlp", "gated_sae", "jumprelu_sae", "matryoshka_sae")}
+           for name in ("sae_mlp", "gated_sae", "jumprelu_sae", "matryoshka_sae", "transcoder",
+                        "crosscoder")}
     ref["gated_sae f32"] = cs._one_rank_run("gated_sae", F32)
     worlds = {"dp": spawn(_rank, cs.MESH_DP, "dp", device=cs.DEVICE, backend="gloo",
                           timeout_s=cs.MESH_TIMEOUT_S),
@@ -140,6 +181,8 @@ def main() -> int:
         ("db_dec", "tp", "sae_mlp", "sae_mlp", cs.TP_KERNELS[:2], True),
         ("dtheta", "tp", "jumprelu_sae", "jumprelu_sae", cs.TP_KERNELS[4:6], True),
         ("n_contrib", "tp", "matryoshka_sae", "matryoshka_sae", cs.TP_KERNELS[6:8], True),
+        ("tc_db_dec", "tp", "transcoder", "transcoder", fused_transcoder.TP_KERNELS, True),
+        ("cc_dn", "tp", "crosscoder", "crosscoder", fused_crosscoder.TP_KERNELS, True),
         ("gated dp", "dp", "gated_sae", "gated_sae", fused_gated_sae.KERNELS, False),
         ("gated f32", "tp", "gated_sae", "gated_sae f32", cs.TP_KERNELS[2:4], False),
     )

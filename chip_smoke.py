@@ -236,42 +236,49 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
  15. mesh:    the data- and tensor-parallel trainers (parallel/), every world of
               ranks on this one card over gloo (torch.distributed's other
               backend, NCCL, takes one card a rank), spawned with
-              parallel/distributed.spawn: (e) first the eight TP rows'
+              parallel/distributed.spawn: (e) first the twelve TP rows'
               wrappers (ReLU, gated, JumpReLU, Matryoshka at the snapshot
-              union MESH_UNION) at a (2, 2) rank's shard (T 16,384, C 256, H
-              8,192) against their plain versions in f32 and bf16, bf16
-              repeats bitwise, timed beside their bounds and the cuBLAS
-              products; then the one-rank Pipeline.run of each MESH_RUNS
-              config (their caches the mesh runs read); then one (2, 2)
-              world: (a) the ReLU, gated, JumpReLU (θ in MESH_THETA, ε
-              MESH_BANDWIDTH), Matryoshka (MESH_PREFIXES, which cut rank 1's
-              shard) and TopK (phase 11's k) TP ops at T 32,768, C 256, H
-              16,384 in f32 and bf16 on each rank's shard, loss terms and
-              gathered gradients and statistics held on rank 0 to the
-              single-rank op on the whole batch (MESH_OP_TOL; counts equal;
-              TopK in bf16 against its TP op on a mesh of one rank); (b)
-              Pipeline.run of sae_mlp at mesh_shape (2, 2) (resets at 4 and
-              12, the resample at 9), (c) of gated_sae and (g) of
-              jumprelu_sae, matryoshka_sae (restarts at 4, 8, 12) and
-              topk_sae (phase 11's k, no AuxK, f32: MESH_RUNS), each rank's TP
-              kernels launched 12 times (counts set to 0 just before each run
-              and read just after), held to the one-rank run by
-              _check_mesh_run: the
+              union MESH_UNION: rows 15-22 at a (2, 2) rank's shard, T
+              16,384, C 256, H 8,192; the transcoder, rows 23-24, at T
+              16,384, 256 -> 480, H 8,192; the crosscoder, rows 25-26, at T
+              8,192, ΣC 2,896, H 4,096) against their plain versions in f32
+              and bf16, bf16 repeats bitwise, timed beside their bounds and
+              the cuBLAS products; then the one-rank Pipeline.run of each
+              MESH_RUNS config and of phase 6's transcoder and crosscoder
+              (their caches the mesh runs read); then one (2, 2) world: (a)
+              the ReLU, gated, JumpReLU (θ in MESH_THETA, ε MESH_BANDWIDTH),
+              Matryoshka (MESH_PREFIXES, which cut rank 1's shard) and TopK
+              (phase 11's k) TP ops at T 32,768, C 256, H 16,384, and the
+              transcoder's and crosscoder's TP ops at phase 6's shapes, in
+              f32 and bf16 on each rank's shard, loss terms (the coders'
+              global rmse and nrmse too) and gathered gradients and
+              statistics held on rank 0 to the single-rank op on the whole
+              batch (MESH_OP_TOL; counts equal; TopK in bf16 against its TP
+              op on a mesh of one rank); (b) Pipeline.run of sae_mlp at
+              mesh_shape (2, 2) (resets at 4 and 12, the resample at 9), (c)
+              of gated_sae, (g) of jumprelu_sae, matryoshka_sae (restarts at
+              4, 8, 12) and topk_sae (phase 11's k, no AuxK, f32: MESH_RUNS)
+              and (h) of phase 6's transcoder and crosscoder (resets at 4 and
+              12, the resample at 9), each rank's TP kernels launched 12
+              times (counts set to 0 just before each run and read just
+              after), held to the one-rank run by _check_mesh_run: the
               restarts at its steps, each step's loss terms and perc_dead
               (MESH_STEP_RTOL, MESH_DEAD_ATOL), rank 0's dead accumulator
               equal, each resample's dead mask (at most MESH_FLIPS_MAX latents
               apart, each at the margin), the parameters' median and 99th
               percentile latent gap and b_dec's (MESH_PARAM_LIMITS by
-              variant; chip_mesh_checks.py plants four faults that fail these
-              checks);
-              (e) the host ms of one TP step's collectives at the shard,
-              labelled as gloo across ranks that share one card; then a (2,)
-              world: (d) sae_mlp data
-              parallel the same way through rows 1-2; then (f) a (2, 2) world
-              whose rank 3 raises fails the phase's spawn with that rank's
+              variant), the replicated parameters' Adam moments
+              (MESH_MOMENT_LIMITS; chip_mesh_checks.py plants six faults that
+              fail these checks); each run prints rank 0's host ms of
+              collectives a step; (e) the host ms of one TP step's
+              collectives at the shard, labelled as gloo across ranks that
+              share one card; then a (2,) world: (d) sae_mlp data parallel
+              the same way through rows 1-2, (i) the transcoder and the
+              crosscoder through rows 11-14; then (f) a (2, 2) world whose
+              rank 3 raises fails the phase's spawn with that rank's
               traceback, the waiting ranks killed.
 Then one JSON line naming each kernel (the TP rows' launches summed over the
-ranks of (b), (c) and (g)), the nvidia-smi line, and the last line
+ranks of (b), (c), (g) and (h)), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -377,6 +384,8 @@ SOURCES = {
     "fused_gated_sae_tp_fwd": CODER, "fused_gated_sae_tp_bwd": CODER,
     "fused_jumprelu_sae_tp_fwd": CODER, "fused_jumprelu_sae_tp_bwd": CODER,
     "fused_matryoshka_sae_tp_fwd": CODER, "fused_matryoshka_sae_tp_bwd": CODER,
+    "fused_transcoder_tp_fwd": CODER, "fused_transcoder_tp_bwd": CODER,
+    "fused_crosscoder_tp_fwd": CODER, "fused_crosscoder_tp_bwd": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -401,6 +410,12 @@ REPLACES = {
     "fused_jumprelu_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:526",
     "fused_matryoshka_sae_tp_fwd": "sparse_vision_tpu/ops/fused_sae_tp.py:721",
     "fused_matryoshka_sae_tp_bwd": "sparse_vision_tpu/ops/fused_sae_tp.py:803",
+    # the coders' TP ops call the single-device pallas_calls (:227 / :264, :238 /
+    # :274) on the shard: their call sites in make_fused_*_tp_op
+    "fused_transcoder_tp_fwd": "sparse_vision_tpu/ops/fused_transcoder.py:318",
+    "fused_transcoder_tp_bwd": "sparse_vision_tpu/ops/fused_transcoder.py:362",
+    "fused_crosscoder_tp_fwd": "sparse_vision_tpu/ops/fused_crosscoder.py:399",
+    "fused_crosscoder_tp_bwd": "sparse_vision_tpu/ops/fused_crosscoder.py:450",
 }
 
 
@@ -1093,11 +1108,13 @@ def _coder_operands(gen, t: int, c_in: int, c_out: int, h: int, cd):
 
 
 def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
-                   bwd_extra, timed: bool = True) -> dict:
-    """The fused transcoder or crosscoder kernel pair (``mod``) against its plain
-    versions at [t, c_in] -> [t, c_out] with h latents. ``bwd_extra(gen)`` gives
-    the backward's coefficient arguments, c_rec first. bf16 kernels launch twice
-    and must agree bitwise. ``timed`` false: checks only, no rows."""
+                   bwd_extra, timed: bool = True, kernels=None) -> dict:
+    """The fused transcoder or crosscoder kernel pair (``mod``; ``kernels`` =
+    (forward, backward) wrappers in place of ``mod``'s, the TP sites') against
+    its plain versions at [t, c_in] -> [t, c_out] with h latents.
+    ``bwd_extra(gen)`` gives the backward's coefficient arguments, c_rec first.
+    bf16 kernels launch twice and must agree bitwise. ``timed`` false: checks
+    only, no rows."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     x, we, be, wd, _ = ops = _coder_operands(gen, t, c_in, c_out, h, cd)
     if mod is fused_transcoder:
@@ -1106,13 +1123,14 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     else:
         plain_fwd, plain_bwd = (mod.fused_crosscoder_forward_plain,
                                 mod.fused_crosscoder_backward_plain)
-    name = mod.fwd_kernel.name
-    out_k = mod.fwd_kernel(*ops)
+    fwd, bwd = kernels or (mod.fwd_kernel, mod.bwd_kernel)
+    name = fwd.name
+    out_k = fwd(*ops)
     out_p = plain_fwd(*ops)
     torch.cuda.synchronize()
     log(f"[kernels] {name} [{tag}] vs plain, T={t} C_in={c_in} C_out={c_out} H={h}")
     if cd == torch.bfloat16:
-        _repeatable(name, out_k, mod.fwd_kernel(*ops))
+        _repeatable(name, out_k, fwd(*ops))
     # pre-activations are exact on both sides, so the counts agree exactly; the
     # decode and the sums of post run in other orders
     err = _check("recon", out_k[0], out_p[0], 1e-4, 1e-5)
@@ -1122,7 +1140,7 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     del out_k
     post = torch.relu(x @ we).to(cd) if timed else None  # a [T, H] operand of the stock path
     rows = {name: _measure(
-        name, tag, cd, lambda: mod.fwd_kernel(*ops), lambda: plain_fwd(*ops),
+        name, tag, cd, lambda: fwd(*ops), lambda: plain_fwd(*ops),
         lambda: (x @ we, post @ wd), 2.0 * t * h * (c_in + c_out),
         nbytes(*ops) + nbytes(*out_p), err)} if timed else {}
 
@@ -1130,13 +1148,13 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     res = (out_p[0] - y).to(cd)  # the residual the backward reads
     del out_p, y
     bops = (x, we, be, wd, res) + bwd_extra(gen)
-    name = mod.bwd_kernel.name
-    g_k = mod.bwd_kernel(*bops)
+    name = bwd.name
+    g_k = bwd(*bops)
     g_p = plain_bwd(*bops)
     torch.cuda.synchronize()
     log(f"[kernels] {name} [{tag}] vs plain")
     if cd == torch.bfloat16:
-        _repeatable(name, g_k, mod.bwd_kernel(*bops))
+        _repeatable(name, g_k, bwd(*bops))
     err = max(_check(n, a, b, 1e-3, 1e-4)
               for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
     moved = nbytes(*bops) + nbytes(*g_p)
@@ -1145,7 +1163,7 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
         return rows
     dr = (bops[5][0] * res.float()).to(cd)
     rows[name] = _measure(
-        name, tag, cd, lambda: mod.bwd_kernel(*bops), lambda: plain_bwd(*bops),
+        name, tag, cd, lambda: bwd(*bops), lambda: plain_bwd(*bops),
         lambda: (dr @ wd.T, x.T @ post, post.T @ dr), 4.0 * t * h * (c_in + c_out), moved, err)
     return rows
 
@@ -1158,11 +1176,14 @@ def _repeatable(name: str, first, second) -> None:
     log(f"[kernels]   {name}: a repeat launch is bitwise equal")
 
 
-def kernels_transcoder(cd, tag: str) -> dict:
+def kernels_transcoder(cd, tag: str, t: int = TC_T, h: int = TC_H, kernels=None) -> dict:
+    """Rows 11-12 at phase 6's shape, or ``kernels`` (the TP sites) at ``t``
+    tokens and ``h`` latents (a rank's shard; the coefficients the mesh's)."""
     def coeffs(gen):
         return (torch.tensor([2.0 / (TC_T * TC_COUT), LAMBDA / (TC_T * TC_H)], device=DEVICE),)
 
-    return _kernels_coder(fused_transcoder, tag, cd, TC_T, TC_CIN, TC_COUT, TC_H, coeffs)
+    return _kernels_coder(fused_transcoder, tag, cd, t, TC_CIN, TC_COUT, h, coeffs,
+                          kernels=kernels)
 
 
 def kernels_coder_ragged(cd, tag: str) -> dict:
@@ -1185,16 +1206,18 @@ def kernels_coder_ragged(cd, tag: str) -> dict:
     return {}
 
 
-def kernels_crosscoder(cd, tag: str) -> dict:
+def kernels_crosscoder(cd, tag: str, t: int = CC_T, h: int = CC_H, kernels=None) -> dict:
+    """Rows 13-14 at phase 6's shape, or ``kernels`` at a shard, as
+    kernels_transcoder."""
     csum = sum(CC_DIMS)
 
     def coeffs(gen):
         # the L1 cotangent n_j·λ/(T·H), with decoder-norm weights n_j around 1
-        n_j = 0.5 + torch.rand(CC_H, device=DEVICE, generator=gen)
+        n_j = 0.5 + torch.rand(h, device=DEVICE, generator=gen)
         return (torch.tensor([2.0 / (CC_T * csum)], device=DEVICE),
                 n_j * (LAMBDA / (CC_T * CC_H)))
 
-    return _kernels_coder(fused_crosscoder, tag, cd, CC_T, csum, csum, CC_H, coeffs)
+    return _kernels_coder(fused_crosscoder, tag, cd, t, csum, csum, h, coeffs, kernels=kernels)
 
 
 def phase_kernels() -> dict:
@@ -4468,6 +4491,15 @@ MESH_RUNS = {"sae_mlp": {}, "gated_sae": {}, "jumprelu_sae": {}, "matryoshka_sae
 MESH_RUN_KERNELS = {"sae_mlp": TP_KERNELS[:2], "gated_sae": TP_KERNELS[2:4],
                     "jumprelu_sae": TP_KERNELS[4:6], "matryoshka_sae": TP_KERNELS[6:8],
                     "topk_sae": ()}
+# rows 23-26: the coders' TP sites; (h) and (i) run phase 6's transcoder and
+# crosscoder configs at (2, 2) through them and at (2,) through rows 11-14. A
+# (2, 2) rank's shard: the transcoder's 16,384 tokens and 8,192 latents, the
+# crosscoder's 8,192 and 4,096
+CODER_TP_KERNELS = fused_transcoder.TP_KERNELS + fused_crosscoder.TP_KERNELS
+MESH_CODERS = {"transcoder": (fused_transcoder.TP_KERNELS, fused_transcoder.KERNELS),
+               "crosscoder": (fused_crosscoder.TP_KERNELS, fused_crosscoder.KERNELS)}
+TC_SHARD_T, TC_SHARD_H = TC_T // MESH[0], TC_H // MESH[1]
+CC_SHARD_T, CC_SHARD_H = CC_T // MESH[0], CC_H // MESH[1]
 # the TP op against the single-rank op on the same inputs (a): the pre-activations
 # are the same bits on both (the encode's C-sum does not depend on H), so the
 # counts agree exactly; the partial decodes and latent-local gradients are summed
@@ -4483,7 +4515,8 @@ MESH_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 # b_dec (x_cent = x − round(b_dec)) and the errors, so the runs part at the first
 # update and cannot be held bitwise. Held instead, each limit about 3x the largest
 # reading of the H100 runs (PERF.md §6):
-# - each step's loss terms, relative to the one-rank run's (MESH_STEP_RTOL) and
+# - each step's loss terms, relative to the one-rank run's (MESH_STEP_RTOL,
+#   the coders' MESH_STEP_RTOL_BY) and
 #   perc_dead (MESH_DEAD_ATOL; a latent whose every pre-activation sits at 0 can
 #   be dead in one run's accumulator only);
 # - each resample's dead mask: such latents are resampled in one run only (their
@@ -4496,10 +4529,17 @@ MESH_LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 #   latents of each latent's largest gap, and b_dec's largest gap
 #   (MESH_PARAM_LIMITS by variant: the gated run parts ~40x further, as far at
 #   (2,) as at (2, 2), and not at all in f32: bf16's rounding, PERF.md; TopK's
-#   f32 runs part only where a selection flips).
-# chip_mesh_checks.py shows that four planted faults fail these checks.
+#   f32 runs part only where a selection flips);
+# - the replicated parameters' Adam moments (MESH_MOMENT_LIMITS below; the
+#   gated run's b_dec mu parts 0.11 of its largest entry, at (2, 2) as at (2,)).
+# chip_mesh_checks.py shows that six planted faults fail these checks.
 MESH_STEP_RTOL = {"sae_loss": 1.5e-3, "sae_rec_loss": 3e-3, "sae_l1_loss": 2e-4,
                   "sparsity": 2e-4}
+# the coders' own, where their readings come nearer MESH_STEP_RTOL's: a few
+# latents at the threshold of the rms-normalized crosscoder switch in one run
+# only (its step-12 sparsity 3.1e-4 apart, PERF.md)
+MESH_STEP_RTOL_BY = {"transcoder": {"sae_l1_loss": 4e-4, "sparsity": 5e-4},
+                     "crosscoder": {"sparsity": 1e-3}}
 MESH_DEAD_ATOL = 1.5e-3
 MESH_FLIPS_MAX = 16
 MESH_MARGIN_ULPS = 0.1
@@ -4507,7 +4547,16 @@ MESH_PARAM_LIMITS = {"sae_mlp": (1e-4, 2.5e-3, 1e-4),  # median, 99th percentile
                      "gated_sae": (4e-3, 3e-2, 2e-3),
                      "jumprelu_sae": (1e-4, 4e-4, 2e-4),
                      "matryoshka_sae": (2e-4, 1e-3, 1.5e-4),
-                     "topk_sae": (1e-6, 5e-5, 2e-6)}
+                     "topk_sae": (1e-6, 5e-5, 2e-6),
+                     "transcoder": (3e-5, 3e-3, 5e-5),
+                     "crosscoder": (2e-4, 5e-3, 2.5e-5)}
+# - the Adam moments of the replicated parameters (b_dec, each b_dec_i), the
+#   largest gap of mu and of nu relative to the one-rank run's largest entry:
+#   a gradient scaled by a constant moves no Adam update, and so no parameter,
+#   but it scales the moments (mu by the factor, nu by its square)
+MESH_MOMENT_LIMITS = {"sae_mlp": 2e-3, "gated_sae": 0.35, "jumprelu_sae": 5e-3,
+                      "matryoshka_sae": 7e-4, "topk_sae": 1e-5, "transcoder": 3e-2,
+                      "crosscoder": 2.5e-3}
 
 
 def _tp_kernel_rows(cd, tag: str) -> dict:
@@ -4653,6 +4702,18 @@ def _tp_matryoshka_rows(cd, label: str) -> dict:
     return rows
 
 
+def _tp_coder_rows(cd, tag: str) -> dict:
+    """Rows 23-26: the coders' TP wrappers on the card at a (2, 2) rank's shard
+    (the transcoder T 16,384, 256 -> 480, H 8,192; the crosscoder T 8,192, ΣC
+    2,896, H 4,096) against their plain versions, timed beside their bounds
+    and the stock path's cuBLAS products; bf16 launches repeat bitwise."""
+    rows = kernels_transcoder(cd, f"{tag}, shard T={TC_SHARD_T} H={TC_SHARD_H}", TC_SHARD_T,
+                              TC_SHARD_H, fused_transcoder.TP_KERNELS)
+    rows.update(kernels_crosscoder(cd, f"{tag}, shard T={CC_SHARD_T} H={CC_SHARD_H}",
+                                   CC_SHARD_T, CC_SHARD_H, fused_crosscoder.TP_KERNELS))
+    return rows
+
+
 def _op_inputs(name: str, cd):
     """The north-star shape's inputs of ``name``'s op (T 32,768, C 256, H
     16,384), the same on every rank: a seeded generator on the card. The
@@ -4706,63 +4767,117 @@ def _mesh_op_pairs(cd):
     )
 
 
+def _coder_op_inputs(name: str):
+    """Phase 6's whole-batch inputs of the coder ``name``'s op (the transcoder T
+    32,768, 256 -> 480, H 16,384 with a target y; the crosscoder T 16,384 over
+    CC_DIMS, H 8,192), the same on every rank, b_enc and b_dec drawn small and
+    non-zero: (params, inputs)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    if name == "transcoder":
+        params = init_transcoder(gen, TC_CIN, TC_H // TC_CIN, TC_COUT)
+        inputs = (torch.relu(torch.randn(TC_T, TC_CIN, device=DEVICE, generator=gen)) * 0.5,
+                  0.5 * torch.randn(TC_T, TC_COUT, device=DEVICE, generator=gen))
+    else:
+        params = init_crosscoder(gen, CC_DIMS, CC_H // CC_DIMS[0])
+        inputs = tuple(torch.relu(torch.randn(CC_T, d, device=DEVICE, generator=gen)) * 0.5
+                       for d in CC_DIMS)
+    for k, v in params.items():
+        if k == "b_enc" or k.startswith("b_dec"):
+            params[k] = 0.02 * torch.randn(v.shape, device=DEVICE, generator=gen)
+    return params, inputs
+
+
+def _coder_op_pairs(cd):
+    """(name, TP loss terms f(params, rows, mesh), single-rank loss terms
+    f(params, inputs)) of the coders in (a)."""
+    kw = dict(compute_dtype=cd)
+    tc_ef, cc_ef = TC_H // TC_CIN, CC_H // CC_DIMS[0]
+    return (
+        ("transcoder", lambda p, r, m: fused_transcoder.fused_transcoder_tp_loss_terms(
+            p, *r, LAMBDA, tc_ef, m, **kw),
+         lambda p, i: fused_transcoder.fused_transcoder_loss_terms(p, *i, LAMBDA, tc_ef, **kw)),
+        ("crosscoder", lambda p, r, m: fused_crosscoder.fused_crosscoder_tp_loss_terms(
+            p, r, LAMBDA, cc_ef, m, **kw),
+         lambda p, i: fused_crosscoder.fused_crosscoder_loss_terms(p, i, LAMBDA, cc_ef, **kw)),
+    )
+
+
 def _mesh_ops(mesh) -> dict:
     """(a) on a rank: each TP op on this rank's shard and, on rank 0, the
     single-rank op on the whole batch; the gathered loss terms, gradients and
-    statistics held to it. Returns rank 0's max errors."""
-    from sparse_vision_tpu_torch.parallel.mesh import gather_params, shard_params
-    from sparse_vision_tpu_torch.parallel.sharded_steps import put_tokens_sharded
-
+    statistics held to it (the coders' global rmse and nrmse too). Returns
+    rank 0's max errors."""
     out = {}
     for cd in (torch.float32, torch.bfloat16):
         for name, tp_terms, terms in _mesh_op_pairs(cd):
-            set_tf32(False)
             params, x = _op_inputs(name, cd)
-            local = {k: v.requires_grad_(True) for k, v in shard_params(params, mesh).items()}
-            got = tp_terms(local, put_tokens_sharded(mesh, x), mesh)
-            got["loss"].backward()
-            grads = gather_params({k: v.grad for k, v in local.items()}, mesh)
-            dead = mesh.gather(got["dead"], 0)
-            freq = mesh.gather(got["activity_freq"], 0)
-            if mesh.rank != 0:
-                del got, grads, local, params, x
-                continue
-            full = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-            want = terms(full, x)
-            want["loss"].backward()
-            torch.cuda.synchronize()
-            rtol, atol = MESH_OP_TOL[cd]
-            tag = f"{name} {str(cd).removeprefix('torch.')}"
-            errs = {}
-            for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity", "l0_loss"):
-                if k not in want:
-                    continue
-                a, b = got[k].item(), want[k].item()
-                errs[k] = abs(a - b)
-                if abs(a - b) > MESH_LOSS_RTOL[cd] * abs(b) + 1e-12:
-                    raise AssertionError(f"[mesh] (a) {tag}: {k} {a} vs single-rank {b}")
-            for k, v in grads.items():
-                e = (v - full[k].grad).abs().max().item()
-                scale = full[k].grad.abs().max().item()
-                errs[f"d{k}"] = e
-                bad = ((v - full[k].grad).abs() > rtol * full[k].grad.abs() + atol * scale)
-                if bool(bad.any()):
-                    raise AssertionError(f"[mesh] (a) {tag}: d{k} off the single-rank op by "
-                                         f"{e:.3e} (max {scale:.3e}) at {int(bad.sum())} entries")
-            if not (torch.equal(dead, want["dead"]) and torch.equal(
-                    freq, want["activity_freq"].to(freq.dtype))):
-                raise AssertionError(f"[mesh] (a) {tag}: dead / activity_freq differ")
-            rows = put_tokens_sharded(mesh, want["decoded"])  # rank 0's token rows
-            errs["decoded"] = (got["decoded"] - rows).abs().max().item()
-            if errs["decoded"] > atol * rows.abs().max().item() + 1e-30:
-                raise AssertionError(f"[mesh] (a) {tag}: recon off the single-rank op by "
-                                     f"{errs['decoded']:.3e}")
-            log(f"[mesh] (a) {tag} ({SHARING}): TP op vs single-rank op, max abs err "
-                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-            out[tag] = errs
-            del want, full, got, grads, local, params, x
-            torch.cuda.empty_cache()
+            _hold_op(mesh, out, name, cd, params, (x,),
+                     lambda p, r, m, f=tp_terms: f(p, r[0], m),
+                     lambda p, i, f=terms: f(p, i[0]), ())
+            del params, x
+        for name, tp_terms, terms in _coder_op_pairs(cd):
+            params, inputs = _coder_op_inputs(name)
+            _hold_op(mesh, out, name, cd, params, inputs, tp_terms, terms,
+                     ("nrmse_loss", "rmse_loss"))
+            del params, inputs
     return out
+
+
+def _hold_op(mesh, out: dict, name: str, cd, params: dict, inputs: tuple, tp_terms, terms,
+             metrics: tuple) -> None:
+    """One case of (a): ``tp_terms(shard, rows, mesh)`` on this rank, and on
+    rank 0 ``terms(params, inputs)``, the loss terms (and the ``metrics``),
+    gradients, counts and reconstruction held to it; rank 0's max errors into
+    ``out``."""
+    from sparse_vision_tpu_torch.parallel.mesh import gather_params, shard_params
+    from sparse_vision_tpu_torch.parallel.sharded_steps import put_tokens_sharded
+
+    set_tf32(False)
+    local = {k: v.requires_grad_(True) for k, v in shard_params(params, mesh).items()}
+    got = tp_terms(local, tuple(put_tokens_sharded(mesh, a) for a in inputs), mesh)
+    got["loss"].backward()
+    grads = gather_params({k: v.grad for k, v in local.items()}, mesh)
+    dead = mesh.gather(got["dead"], 0)
+    freq = mesh.gather(got["activity_freq"], 0)
+    if mesh.rank != 0:
+        del got, grads, local
+        return
+    full = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    want = terms(full, inputs)
+    want["loss"].backward()
+    torch.cuda.synchronize()
+    rtol, atol = MESH_OP_TOL[cd]
+    tag = f"{name} {str(cd).removeprefix('torch.')}"
+    errs = {}
+    for k in ("loss", "rec_loss", "l1_loss", "aux_loss", "sparsity", "l0_loss") + metrics:
+        if k not in want:
+            continue
+        a, b = got[k].item(), want[k].item()
+        errs[k] = abs(a - b)
+        if abs(a - b) > MESH_LOSS_RTOL[cd] * abs(b) + 1e-12:
+            raise AssertionError(f"[mesh] (a) {tag}: {k} {a} vs single-rank {b}")
+    for k, v in grads.items():
+        e = (v - full[k].grad).abs().max().item()
+        scale = full[k].grad.abs().max().item()
+        errs[f"d{k}"] = e
+        bad = ((v - full[k].grad).abs() > rtol * full[k].grad.abs() + atol * scale)
+        if bool(bad.any()):
+            raise AssertionError(f"[mesh] (a) {tag}: d{k} off the single-rank op by "
+                                 f"{e:.3e} (max {scale:.3e}) at {int(bad.sum())} entries")
+    if not (torch.equal(dead, want["dead"]) and torch.equal(
+            freq, want["activity_freq"].to(freq.dtype))):
+        raise AssertionError(f"[mesh] (a) {tag}: dead / activity_freq differ")
+    if "decoded" in want:  # the crosscoder's op hands out no reconstruction
+        rows = put_tokens_sharded(mesh, want["decoded"])  # rank 0's token rows
+        errs["decoded"] = (got["decoded"] - rows).abs().max().item()
+        if errs["decoded"] > atol * rows.abs().max().item() + 1e-30:
+            raise AssertionError(f"[mesh] (a) {tag}: recon off the single-rank op by "
+                                 f"{errs['decoded']:.3e}")
+    log(f"[mesh] (a) {tag} ({SHARING}): TP op vs single-rank op, max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    out[tag] = errs
+    del want, full, got, grads, local
+    torch.cuda.empty_cache()
 
 
 def _time_collectives(mesh, t_l: int, c: int, h_l: int, reps: int = 5) -> float:
@@ -4785,16 +4900,23 @@ def _time_collectives(mesh, t_l: int, c: int, h_l: int, reps: int = 5) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def _pre_max(params: dict, x: torch.Tensor, cd) -> torch.Tensor:
+def _pre_max(params: dict, x, cd, center: bool = True) -> torch.Tensor:
     """Per latent, the largest pre-activation (the gate's for gated_sae) over
     the tokens of ``x``, from the operands as the kernels read them (x −
-    round(b_dec) and the weights in ``cd``), in f32 products."""
+    round(b_dec) with ``center``, and the weights in ``cd``), in f32 products.
+    A tuple ``x`` is the crosscoder's layers, read in the cat space."""
+    if isinstance(x, tuple):  # the crosscoder: no centring
+        n = len(x)
+        x = torch.cat(x, 1)
+        params = {"W_enc": torch.cat([params[f"W_enc_{i}"] for i in range(n)], 0),
+                  "b_enc": params["b_enc"]}
+        center = False
     enc, bias = ("W_enc", "b_enc") if "W_enc" in params else ("W_gate", "b_gate")
     w = params[enc].detach().to(cd).float()
-    b_dec = params["b_dec"].detach().to(cd)
+    shift = params["b_dec"].detach().to(cd) if center else 0.0
     peak = None
     for rows in x.split(4096):
-        got = ((rows.to(cd) - b_dec).float() @ w).amax(0)
+        got = ((rows.to(cd) - shift).float() @ w).amax(0)
         peak = got if peak is None else torch.maximum(peak, got)
     return peak + params[bias].detach().float()
 
@@ -4807,6 +4929,8 @@ def _recording(mesh=None, pre_max: bool = False):
     rank), "pre_max", each step's _pre_max [steps, H], and "at", the step of
     each resample."""
     from sparse_vision_tpu_torch.parallel import tensor_parallel
+    from sparse_vision_tpu_torch.train import crosscoder as tcrosscoder
+    from sparse_vision_tpu_torch.train import transcoder as ttranscoder
 
     seen = {"dead": [], "pre_max": [], "at": []}
 
@@ -4818,47 +4942,104 @@ def _recording(mesh=None, pre_max: bool = False):
             return fn(params, opt_state, dead, *args, **kw)
         return resample
 
-    def wrap_terms(fn):
+    def wrap_terms(fn, center):
         def terms(params, x, *args, **kw):
             with torch.no_grad():
                 cd = fused_sae.compute_dtype_of(kw.get("compute_dtype", torch.bfloat16))
-                seen["pre_max"].append(_pre_max(params, x, cd).cpu())
+                seen["pre_max"].append(_pre_max(params, x, cd, center).cpu())
             return fn(params, x, *args, **kw)
         return terms
 
-    saved = (tsteps.resample_sae, tensor_parallel.resample_sae_tp,
-             fused_sae.fused_sae_loss_terms, fused_gated_sae.fused_gated_sae_loss_terms)
-    tsteps.resample_sae = wrap_resample(saved[0])
-    tensor_parallel.resample_sae_tp = wrap_resample(saved[1])
+    # (module, name, wrapper): every trainer's resample, each one-rank op whose
+    # pre-activations _window_peak reads (the coders' uncentred)
+    patches = [(tsteps, "resample_sae", wrap_resample),
+               (ttranscoder, "resample_sae", wrap_resample),
+               (tcrosscoder, "_resample", wrap_resample),
+               (tensor_parallel, "resample_sae_tp", wrap_resample),
+               (tcrosscoder, "resample_crosscoder_tp", wrap_resample)]
     if pre_max:
-        fused_sae.fused_sae_loss_terms = wrap_terms(saved[2])
-        fused_gated_sae.fused_gated_sae_loss_terms = wrap_terms(saved[3])
+        patches += [(fused_sae, "fused_sae_loss_terms", lambda f: wrap_terms(f, True)),
+                    (fused_gated_sae, "fused_gated_sae_loss_terms",
+                     lambda f: wrap_terms(f, True)),
+                    (fused_transcoder, "fused_transcoder_loss_terms",
+                     lambda f: wrap_terms(f, False)),
+                    (fused_crosscoder, "fused_crosscoder_loss_terms",
+                     lambda f: wrap_terms(f, False))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, wrap in patches:
+        setattr(mod, name, wrap(getattr(mod, name)))
     try:
         yield seen
     finally:
-        (tsteps.resample_sae, tensor_parallel.resample_sae_tp, fused_sae.fused_sae_loss_terms,
-         fused_gated_sae.fused_gated_sae_loss_terms) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def _collective_seconds():
+    """The host seconds that the block's collectives take on this rank (every
+    all_reduce of parallel/mesh.Mesh, each through ``_reduce_``; the time
+    includes waiting for the other ranks), but for those of the Pipeline's
+    gathers of the whole state before and after the epoch: yields a dict
+    whose "s" grows."""
+    from sparse_vision_tpu_torch.parallel.mesh import Mesh
+    from sparse_vision_tpu_torch.train.pipeline import Pipeline as _Pipeline
+
+    spent = {"s": 0.0, "gathering": False}
+    saved_reduce, saved_full = Mesh._reduce_, _Pipeline._full_state
+
+    def timed(self, out, axis, op):
+        t0 = time.perf_counter()
+        try:
+            return saved_reduce(self, out, axis, op)
+        finally:
+            if not spent["gathering"]:
+                spent["s"] += time.perf_counter() - t0
+
+    def full_state(self):
+        spent["gathering"] = True
+        try:
+            return saved_full(self)
+        finally:
+            spent["gathering"] = False
+
+    Mesh._reduce_, _Pipeline._full_state = timed, full_state
+    try:
+        yield spent
+    finally:
+        Mesh._reduce_, _Pipeline._full_state = saved_reduce, saved_full
+
+
+def _replicated_moments(ts) -> dict:
+    """The Adam moments of the replicated parameters (b_dec, each b_dec_i) of
+    a train state, on the host."""
+    from sparse_vision_tpu_torch.parallel.mesh import param_axes
+
+    keys = [k for k, axis in param_axes(ts.params).items() if axis is None]
+    return {f"{part} {k}": ts.opt_state[part][k].cpu() for part in ("mu", "nu") for k in keys}
 
 
 def _mesh_run(mesh, name: str, kernels, extra: dict | None = None) -> dict:
-    """(b)-(d) on a rank: Pipeline.run of phase 6's ``name`` config (with the
-    fields ``extra``) on the mesh, every launch count set to 0 just before and
-    read just after. Rank 0 returns the whole final state and the resamples'
-    dead masks too."""
-    cfg, _ = _slice_config(name, dict(mesh_shape=mesh.shape, directory_path=str(MESH_WORK),
-                                      **(extra or {})))
-    pipe = Pipeline(cfg, mesh=mesh)
+    """(b)-(d), (h), (i) on a rank: Pipeline.run of phase 6's ``name`` config
+    (with the fields ``extra``) on the mesh, every launch count set to 0 just
+    before and read just after, and the host seconds of its collectives. Rank
+    0 returns the whole final state, the replicated parameters' Adam moments
+    and the resamples' dead masks too."""
+    cfg, datasets = _slice_config(name, dict(mesh_shape=mesh.shape,
+                                             directory_path=str(MESH_WORK), **(extra or {})))
+    pipe = Pipeline(cfg, mesh=mesh, datasets=datasets)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    with _recording(mesh) as rec:
+    with _recording(mesh) as rec, _collective_seconds() as coll:
         pipe.run()
     wall = time.perf_counter() - t0
     out = {"launches": {k.name: k.launches for k in kernels}, "wall": wall,
-           "timing": pipe.train_timing[0],
+           "timing": pipe.train_timing[0], "collective_s": coll["s"],
            "log": [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]}
     if mesh.rank == 0:
-        out.update(params=pipe.ts.params, dead=pipe.ts.dead_acc, resampled=rec["dead"])
+        out.update(params=pipe.ts.params, dead=pipe.ts.dead_acc, resampled=rec["dead"],
+                   moments=_replicated_moments(pipe.ts))
     del pipe
     torch.cuda.empty_cache()
     return out
@@ -4870,10 +5051,15 @@ def _mesh_rank(rank: int, mesh, job: str) -> dict:
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
     if job == "dp":
-        return {"sae_mlp": _mesh_run(mesh, "sae_mlp", KERNELS)}
+        out = {"sae_mlp": _mesh_run(mesh, "sae_mlp", KERNELS)}
+        for name, (_, single) in MESH_CODERS.items():
+            out[name] = _mesh_run(mesh, name, single)
+        return out
     out = {"ops": _mesh_ops(mesh)}
     for name, extra in MESH_RUNS.items():
         out[name] = _mesh_run(mesh, name, TP_KERNELS, extra)
+    for name, (tp, _) in MESH_CODERS.items():
+        out[name] = _mesh_run(mesh, name, tp)
     out["collectives_ms"] = _time_collectives(mesh, SHARD_T, C, SHARD_H)
     return out
 
@@ -4892,16 +5078,19 @@ def _one_rank_run(name: str, extra: dict | None = None) -> dict:
     each step's largest pre-activation per latent (_recording)."""
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True
-    cfg, _ = _slice_config(name, dict(directory_path=str(MESH_WORK), **(extra or {})))
-    pipe = Pipeline(cfg)
+    cfg, datasets = _slice_config(name, dict(directory_path=str(MESH_WORK), **(extra or {})))
+    pipe = Pipeline(cfg, datasets=datasets)
     t0 = time.perf_counter()
     with _recording(pre_max=True) as rec:
         pipe.run()
     log(f"[mesh] {name} {cfg.compute_dtype} one rank: Pipeline.run in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; training loop "
+        f"{pipe.train_timing[0]['tokens'] / pipe.train_timing[0]['seconds']:.0f} tokens/s")
     out = {"params": {k: v.cpu() for k, v in pipe.ts.params.items()},
            "dead": pipe.ts.dead_acc.cpu(), "resampled": rec["dead"], "at": rec["at"],
-           # the ReLU and gated runs' (the variants that read it: _window_peak)
+           "moments": _replicated_moments(pipe.ts),
+           # the runs of the ops that record it (the variants that read it:
+           # _window_peak): ReLU, gated, the coders
            "pre_max": torch.stack(rec["pre_max"]) if rec["pre_max"] else None,
            "log": [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]}
     del pipe
@@ -4938,25 +5127,31 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
     """A mesh run's ranks against the one-rank run ``ref`` of variant
     ``name`` (the tolerances' comment): 12 steps, every rank's ``kernels``
     launched ``want`` times, the restarts at the same steps, each step's loss
-    terms within MESH_STEP_RTOL and perc_dead within MESH_DEAD_ATOL, rank
+    terms within MESH_STEP_RTOL (MESH_STEP_RTOL_BY) and perc_dead within
+    MESH_DEAD_ATOL, rank
     0's final dead accumulator equal, the resamples at the same steps with
     their dead masks apart at no more than MESH_FLIPS_MAX latents, each at the
-    margin, and the other latents' parameters and b_dec within
-    MESH_PARAM_LIMITS. Logs every reading first, then raises with every
-    check that failed."""
+    margin, the other latents' parameters and b_dec within
+    MESH_PARAM_LIMITS, and the replicated parameters' Adam moments within
+    MESH_MOMENT_LIMITS. Logs every reading first (with rank 0's host ms of
+    collectives a step), then raises with every check that failed."""
+    from sparse_vision_tpu_torch.parallel.mesh import param_axes
+
     bad = []
     for r, res in enumerate(ranks):
         launches = res["launches"]
         # rank 0's loop: the other ranks start theirs while rank 0 still evaluates
         loop = "" if r else (f"; training loop {res['timing']['tokens'] / res['timing']['seconds']:.0f}"
                              f" tokens/s ({SHARING})")
-        log(f"[mesh] {label} rank {r}: launches {launches}; Pipeline.run {res['wall']:.1f} s"
-            + loop)
+        log(f"[mesh] {label} rank {r}: launches {launches}; Pipeline.run {res['wall']:.1f} s; "
+            f"collectives {res['collective_s'] * 1e3 / max(len(res['log']), 1):.1f} ms a step "
+            f"(host, waits included, the state gathers left out)" + loop)
         bad += [f"rank {r}: {launches[k.name]} launches of {k.name}, expected {want}"
                 for k in kernels if launches[k.name] != want]
         if len(res["log"]) != 12:
             bad.append(f"rank {r}: {len(res['log'])} steps, expected 12")
-    worst = dict.fromkeys(MESH_STEP_RTOL, 0.0)
+    step_rtol = {**MESH_STEP_RTOL, **MESH_STEP_RTOL_BY.get(name, {})}
+    worst = dict.fromkeys(step_rtol, 0.0)
     dead_gap = 0.0
     failed = set()  # the loss terms already reported, at their first failing step
     for (s, m), (s1, m1) in zip(ranks[0]["log"], ref["log"]):
@@ -4965,7 +5160,7 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
         if (m["perc_dead"] == 1.0) != (m1["perc_dead"] == 1.0):
             bad.append(f"the dead accumulator restarts at step {s} on one run only")
         dead_gap = max(dead_gap, abs(m["perc_dead"] - m1["perc_dead"]))
-        for k, rtol in MESH_STEP_RTOL.items():
+        for k, rtol in step_rtol.items():
             rel = abs(m[k] - m1[k]) / abs(m1[k])
             worst[k] = max(worst[k], rel)
             if rel > rtol and k not in failed:
@@ -4973,7 +5168,7 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
                 bad.append(f"step {s} {k} {m[k]:.6g}, one rank {m1[k]:.6g} ({rel:.2e} "
                            f"relative, limit {rtol:g})")
     log(f"[mesh] {label} steps against the one-rank run: largest relative gap "
-        + ", ".join(f"{k} {v:.3e} (limit {MESH_STEP_RTOL[k]:g})" for k, v in worst.items())
+        + ", ".join(f"{k} {v:.3e} (limit {step_rtol[k]:g})" for k, v in worst.items())
         + f"; perc_dead {dead_gap:.3e} (limit {MESH_DEAD_ATOL:g})")
     if dead_gap > MESH_DEAD_ATOL:
         bad.append(f"perc_dead {dead_gap:.3e} off the one-rank run's")
@@ -5005,7 +5200,8 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
     if int(flipped.sum()) > MESH_FLIPS_MAX:
         bad.append(f"the resamples' dead masks differ at {int(flipped.sum())} latents")
     gap = _latent_diff(top["params"], ref["params"])[~flipped]
-    b_dec = (top["params"]["b_dec"] - ref["params"]["b_dec"]).abs().max().item()
+    b_dec = max((top["params"][k] - ref["params"][k]).abs().max().item()  # each b_dec_i
+                for k, axis in param_axes(ref["params"]).items() if axis is None)
     got = (gap.median().item(), torch.quantile(gap, 0.99).item(), b_dec)
     log(f"[mesh] {label} parameters against the one-rank run: per latent max "
         f"{gap.max().item():.3e}, median {got[0]:.3e}, 99th percentile {got[1]:.3e}, "
@@ -5015,13 +5211,23 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
     bad += [f"parameters' {what} {v:.3e} off the one-rank run (limit {lim:g})"
             for what, v, lim in zip(("median latent gap", "99th percentile latent gap",
                                      "b_dec gap"), got, MESH_PARAM_LIMITS[name]) if v > lim]
+    moments = {k: ((top["moments"][k] - v).abs().max()
+                   / v.abs().max().clamp(min=1e-30)).item() for k, v in ref["moments"].items()}
+    worst_m = max(moments.values())
+    log(f"[mesh] {label} Adam moments of the replicated parameters against the one-rank "
+        "run, largest gap relative to the largest entry: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in moments.items())
+        + f" (limit {MESH_MOMENT_LIMITS[name]:g})")
+    if worst_m > MESH_MOMENT_LIMITS[name]:
+        bad.append(f"Adam moments of the replicated parameters {worst_m:.3e} off the one-rank "
+                   f"run (limit {MESH_MOMENT_LIMITS[name]:g})")
     if bad:
         raise AssertionError(f"{label}: " + "; ".join(bad))
 
 
 def phase_mesh(smi: str) -> dict:
     """Phase 15 (the module docstring). Returns the TP kernels' rows, their
-    launches summed over the ranks of (b), (c) and (g)."""
+    launches summed over the ranks of (b), (c), (g) and (h)."""
     from sparse_vision_tpu_torch.parallel.distributed import RankError, spawn
 
     t_phase = time.perf_counter()
@@ -5030,10 +5236,12 @@ def phase_mesh(smi: str) -> dict:
     rows = {}
     for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         got = _tp_kernel_rows(cd, tag)
+        got.update(_tp_coder_rows(cd, tag))
         if cd == torch.bfloat16:
             rows = got
     torch.cuda.empty_cache()
     ref = {name: _one_rank_run(name, extra) for name, extra in MESH_RUNS.items()}
+    ref.update({name: _one_rank_run(name) for name in MESH_CODERS})
 
     t0 = time.perf_counter()
     ranks = spawn(_mesh_rank, MESH, "tp", device=DEVICE, backend="gloo",
@@ -5043,9 +5251,14 @@ def phase_mesh(smi: str) -> dict:
     for name, part in zip(MESH_RUNS, ("(b)", "(c)", "(g)", "(g)", "(g)")):
         _check_mesh_run(f"{part} {name} (2, 2)", name, [r[name] for r in ranks], ref[name],
                         MESH_RUN_KERNELS[name], 12)
+    for name, (tp, _) in MESH_CODERS.items():
+        _check_mesh_run(f"(h) {name} (2, 2)", name, [r[name] for r in ranks], ref[name], tp, 12)
     for k in TP_KERNELS:
         rows[k.name]["launches"] = sum(r[n]["launches"][k.name] for r in ranks
                                        for n in MESH_RUNS)
+    for name, (tp, _) in MESH_CODERS.items():
+        for k in tp:
+            rows[k.name]["launches"] = sum(r[name]["launches"][k.name] for r in ranks)
     coll = [r["collectives_ms"] for r in ranks]
     log(f"[mesh] (e) one TP step's collectives at the shard (T {SHARD_T}, C {C}, H {SHARD_H}): "
         + ", ".join(f"rank {r} {ms:.2f} ms" for r, ms in enumerate(coll))
@@ -5058,6 +5271,8 @@ def phase_mesh(smi: str) -> dict:
     log(f"[mesh] world {MESH_DP} ({SHARING}): {time.perf_counter() - t0:.1f} s")
     _check_mesh_run("(d) sae_mlp (2,)", "sae_mlp", [r["sae_mlp"] for r in dp], ref["sae_mlp"],
                     (fused_sae.fwd_kernel, fused_sae.bwd_kernel), 12)
+    for name, (_, single) in MESH_CODERS.items():
+        _check_mesh_run(f"(i) {name} (2,)", name, [r[name] for r in dp], ref[name], single, 12)
     del dp, ref
 
     t0 = time.perf_counter()
@@ -5108,7 +5323,8 @@ def main() -> int:
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}
         for k in KERNELS
     ] + [{"name": k.name, "route": "cuda", "source": SOURCES[k.name],
-          "replaces": REPLACES[k.name], **tp_rows[k.name]} for k in TP_KERNELS]
+          "replaces": REPLACES[k.name], **tp_rows[k.name]}
+         for k in TP_KERNELS + CODER_TP_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,7 +33,8 @@ means.
 ``--mesh_shape d[,m]`` trains the config on a mesh of d·m ranks
 (parallel/distributed.spawn: one process a rank; rank r on ``cuda:(r %
 cards)``): ``d`` data parallel, ``d,m`` tensor parallel (sae_mlp,
-gated_sae, jumprelu_sae, matryoshka_sae, topk_sae), every rank with its
+gated_sae, jumprelu_sae, matryoshka_sae, topk_sae, the transcoder and the
+crosscoder), every rank with its
 Pipeline (train/pipeline.py's module docstring); rank 0's result prints.
 ``--dist_backend`` is "nccl" (one card a rank) or "gloo" (ranks may share a
 card, and the only backend on the CPU); its default is nccl on CUDA and gloo

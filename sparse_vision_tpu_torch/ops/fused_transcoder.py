@@ -36,6 +36,11 @@ slices act_count and the gradients back; c_l1 and the L1 mean use the true H.
 
 Differentiability contract: gradients flow through ``rec_loss`` and ``l1_loss``
 into the four parameters only; x and y are data (their gradients are None).
+
+Tensor parallel (FusedTranscoderTPFunction, fused_transcoder_tp_loss_terms):
+the same kernels through wrappers of their own (``TP_KERNELS``, counted apart
+from the single-device pair) on a rank's latent shard of a (data, model) mesh,
+the JAX package's make_fused_transcoder_tp_op.
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     padded_operands,
     run_on_device,
 )
+from sparse_vision_tpu_torch.ops.fused_sae_tp import _zero_if_none
+
 
 def can_fuse(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
     """True when the op takes this shape in ``dtype`` on the card: any H > 0,
@@ -187,19 +194,39 @@ class _BackwardKernel(Kernel):
         return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct)
 
 
+class _TPForwardKernel(_ForwardKernel):
+    """The coder forward on a latent shard (the site of the JAX package's
+    fused_transcoder.py:318 in make_fused_transcoder_tp_op :296; pallas_call
+    :227)."""
+
+    name = "fused_transcoder_tp_fwd"
+
+
+class _TPBackwardKernel(_BackwardKernel):
+    """The coder backward on a latent shard (fused_transcoder.py:362; pallas_call
+    :264)."""
+
+    name = "fused_transcoder_tp_bwd"
+
+
 fwd_kernel = _ForwardKernel()
 bwd_kernel = _BackwardKernel()
 KERNELS = (fwd_kernel, bwd_kernel)
+tp_fwd_kernel = _TPForwardKernel()
+tp_bwd_kernel = _TPBackwardKernel()
+TP_KERNELS = (tp_fwd_kernel, tp_bwd_kernel)
 
 
-def fused_transcoder_forward(*args):
-    """The forward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(fwd_kernel, fused_transcoder_forward_plain, *args)
+def fused_transcoder_forward(*args, kernel=fwd_kernel):
+    """The forward kernel on CUDA tensors (through ``kernel``, whose count it
+    adds to), its plain version on CPU tensors."""
+    return run_on_device(kernel, fused_transcoder_forward_plain, *args)
 
 
-def fused_transcoder_backward(*args):
-    """The backward kernel on CUDA tensors, its plain version on CPU tensors."""
-    return run_on_device(bwd_kernel, fused_transcoder_backward_plain, *args)
+def fused_transcoder_backward(*args, kernel=bwd_kernel):
+    """The backward kernel on CUDA tensors (through ``kernel``), its plain
+    version on CPU tensors."""
+    return run_on_device(kernel, fused_transcoder_backward_plain, *args)
 
 
 class FusedTranscoderFunction(torch.autograd.Function):
@@ -262,4 +289,93 @@ def fused_transcoder_loss_terms(params: dict, x: torch.Tensor, y: torch.Tensor,
         "dead": act_count == 0,
         "activity_freq": act_count / t,
         "sparsity": torch.mean(row_active / (h / expansion_factor)),
+    }
+
+
+class FusedTranscoderTPFunction(torch.autograd.Function):
+    """(x [T/d, C_in], W_enc [C_in, H/m], b_enc [H/m], W_dec [H/m, C_out], b_dec
+    [C_out], y [T/d, C_out]) -> (rec_loss, l1_loss, recon, act_count,
+    row_active, mean_row_active) on a rank of ``mesh``: the counterpart of the
+    JAX package's make_fused_transcoder_tp_op (its fused_transcoder.py:296).
+
+    The unchanged forward entry point gives the shard's partial prediction;
+    the full one is ``psum_model(recon_part) − (m−1)·b_dec`` (every rank's
+    kernel added b_dec once), and the MSE against y comes after that psum,
+    pmean'd over 'data'. The activity counts are psummed over 'data',
+    row_active over 'model', the L1 sum over both axes (divided by T_g·H_g).
+    The backward takes the full prediction's error with c_rec = 2·g/(T_g·C_out)
+    and c_l1 = g/(T_g·H_g); dW_enc, db_enc and dW_dec are latent-local, and
+    db_dec = Σ_T drecon is the same on every model rank (the error is), so all
+    four are psummed over 'data' only. A shard whose H/m is no multiple of 128
+    is zero-padded, as FusedTranscoderFunction pads. ``recon`` is the full
+    prediction of the local tokens; the statistics are non-differentiable and
+    x, y are data."""
+
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, y, compute_dtype, mesh):
+        cd = compute_dtype
+        t_l = x.shape[0]
+        h_l = b_enc.shape[0]  # the true shard width; the kernels run at padded_h
+        m, n_data = mesh.size("model"), mesh.size("data")
+        t_g, h_g = t_l * n_data, h_l * m
+        xc = x.to(cd).contiguous()
+        we, be, wd = padded_operands(w_enc, b_enc, w_dec, cd)
+        b_dec = b_dec.contiguous()
+        recon_p, act_count, row_active, l1_sum = fused_transcoder_forward(
+            xc, we, be, wd, b_dec, kernel=tp_fwd_kernel)
+        recon, row_active, l1_sum = mesh.psum_many([recon_p, row_active, l1_sum], "model")
+        recon = recon - (m - 1) * b_dec
+        err = recon - y  # f32: recon is f32, whatever y's dtype
+        act_count, sq, l1_sum, mean_rows = mesh.psum_many(
+            [act_count[:h_l], err.square().mean(), l1_sum, row_active.mean()], "data")
+        ctx.save_for_backward(xc, we, be, wd, err.to(cd))
+        ctx.dims = (t_g, h_g, h_l)
+        ctx.mesh = mesh
+        out = (sq / n_data, l1_sum / (t_g * h_g), recon, act_count, row_active,
+               mean_rows / n_data)
+        ctx.mark_non_differentiable(*out[2:])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_rec, g_l1, *_unused):
+        xc, we, be, wd, err = ctx.saved_tensors
+        t_g, h_g, h_l = ctx.dims
+        coeffs = torch.stack([_zero_if_none(g_rec, xc) * 2.0 / (t_g * wd.shape[1]),
+                              _zero_if_none(g_l1, xc) / (t_g * h_g)])
+        dw_enc, db_enc, dw_dec, db_dec = fused_transcoder_backward(
+            xc, we, be, wd, err, coeffs, kernel=tp_bwd_kernel)
+        if be.shape[0] != h_l:  # the padded latents' gradients are exactly zero
+            dw_enc, db_enc, dw_dec = dw_enc[:, :h_l].contiguous(), db_enc[:h_l], dw_dec[:h_l]
+        # db_dec too: every model rank holds the whole Σ_T drecon already
+        dw_enc, db_enc, dw_dec, db_dec = ctx.mesh.psum_many(
+            [dw_enc, db_enc, dw_dec, db_dec], "data")
+        return None, dw_enc, db_enc, dw_dec, db_dec, None, None, None
+
+
+def fused_transcoder_tp_loss_terms(params: dict, x: torch.Tensor, y: torch.Tensor,
+                                   lambda_sparse: float, expansion_factor: int, mesh, *,
+                                   compute_dtype=_BF16) -> dict:
+    """The TP counterpart of fused_transcoder_loss_terms on the rank's shard
+    (``params`` the latent shard, ``x`` and ``y`` the local token rows):
+    GLOBAL rec_loss, l1_loss (loss = rec + λ·l1), ``sparsity``, and rmse /
+    nrmse over the global batch (losses.rmse_nrmse_global, as the JAX
+    package's twin); ``dead`` and ``activity_freq`` over the local latents and
+    the global batch; ``decoded`` the full prediction of the local tokens."""
+    cd = compute_dtype_of(compute_dtype)
+    rec_loss, l1_loss, recon, act_count, _, mean_rows = FusedTranscoderTPFunction.apply(
+        x, params["W_enc"], params["b_enc"], params["W_dec"], params["b_dec"], y, cd, mesh)
+    t_g = x.shape[0] * mesh.size("data")
+    h_g = params["b_enc"].shape[0] * mesh.size("model")
+    rmse, nrmse = losses.rmse_nrmse_global(recon, y, mesh)
+    return {
+        "loss": rec_loss + lambda_sparse * l1_loss,
+        "rec_loss": rec_loss,
+        "l1_loss": l1_loss,
+        "nrmse_loss": nrmse,
+        "rmse_loss": rmse,
+        "aux_loss": torch.zeros((), dtype=_F32, device=x.device),
+        "decoded": recon,
+        "dead": act_count == 0,
+        "activity_freq": act_count / t_g,
+        "sparsity": mean_rows / (h_g / expansion_factor),
     }

@@ -15,9 +15,24 @@ def rmse_nrmse(decoded: torch.Tensor, targets: torch.Tensor):
     """Per-dimension RMSE over the batch axis, and range-normalized NRMSE.
     Dimensions constant across the batch (range 0) are excluded from the NRMSE
     mean, so the metric stays finite once units die."""
-    sq = torch.square(decoded - targets)
-    sample_mse = sq.mean(0)
     sample_range = targets.amax(0) - targets.amin(0)  # in the targets' dtype
+    return _rmse_nrmse(torch.square(decoded - targets).mean(0), sample_range)
+
+
+def rmse_nrmse_global(decoded: torch.Tensor, targets: torch.Tensor, mesh):
+    """rmse_nrmse over the global batch of ``mesh``'s 'data' axis, each rank
+    holding its token rows (the JAX package's TP twins): the per-dimension MSE
+    pmean'd, the range from the global max and min (the max as −pmin(−max),
+    in one all_reduce). Gradients stopped."""
+    decoded, targets = decoded.detach(), targets.detach()
+    sample_mse = mesh.pmean(torch.square(decoded - targets).mean(0), "data")
+    c = targets.shape[1]
+    lows = mesh.pmin(torch.cat([-targets.amax(0), targets.amin(0)]).float(), "data")
+    # the extremes are values of targets' dtype: the range is taken in it
+    return _rmse_nrmse(sample_mse, (-lows[:c]).to(targets.dtype) - lows[c:].to(targets.dtype))
+
+
+def _rmse_nrmse(sample_mse: torch.Tensor, sample_range: torch.Tensor):
     sample_rmse = torch.sqrt(sample_mse)
     valid = sample_range > 0
     one = torch.ones((), dtype=sample_range.dtype, device=sample_range.device)

@@ -1,7 +1,7 @@
 """Dead-neuron resampling and its schedule (port of
 sparse_vision_tpu/ops/resample.py: the sae_mlp surgery, which the transcoder's
-rectangular decoder reuses, its latent-sharded form for the tensor-parallel
-step, and the crosscoder's).
+rectangular decoder reuses, the crosscoder's, and the latent-sharded form of
+each for the tensor-parallel steps).
 
 Reference semantics (sae_mlp.py:79-184 reset_encoder_weights +
 model_pipeline.py:771-794): with n = dead_neurons_steps and i = the 1-based train
@@ -183,4 +183,50 @@ def resample_dead_neurons_crosscoder(params: dict, opt_state: dict, dead_mask: t
         avg_dec = torch.where(any_live, live_mean(torch.linalg.vector_norm(w_dec, dim=1)), one)
         new_dec_t = dec_draw / torch.linalg.vector_norm(dec_draw, dim=0, keepdim=True) * avg_dec
         new_params[f"W_dec_{i}"] = torch.where(dead_mask[:, None], new_dec_t.T, w_dec)
+    return new_params, _zero_dead_moments(opt_state, dead_mask)
+
+
+def resample_dead_neurons_crosscoder_tp(params: dict, opt_state: dict, dead_mask: torch.Tensor,
+                                        draws: list, mesh):
+    """resample_dead_neurons_crosscoder on a latent shard of ``mesh`` (port of
+    the JAX package's resample_dead_neurons_crosscoder_tp): ``params``,
+    ``opt_state`` and ``dead_mask`` [h/m] are the rank's shard, ``draws`` the
+    FULL global per-layer draws (crosscoder_kaiming_draws at h, alike on every
+    rank). Each rank normalizes the whole draws (their per-latent norms slice
+    cleanly) and keeps its own latents; the live statistics (the count, Σ|b_enc|
+    and each layer's Σ encoder and decoder norms over the live latents) are
+    psummed over 'model' in one all_reduce. No unit renormalization, as the
+    single-device surgery."""
+    b_enc = params["b_enc"]
+    h_l = b_enc.shape[0]
+    live = ~dead_mask
+    zero = torch.zeros((), dtype=b_enc.dtype, device=b_enc.device)
+    one = torch.ones((), dtype=b_enc.dtype, device=b_enc.device)
+
+    def live_sum(v):
+        return torch.where(live, v, zero).sum()
+
+    n_layers = len(draws)
+    sums = [live.sum().to(b_enc.dtype), live_sum(b_enc.abs())]
+    for i in range(n_layers):
+        sums += [live_sum(torch.linalg.vector_norm(params[f"W_enc_{i}"], dim=0)),
+                 live_sum(torch.linalg.vector_norm(params[f"W_dec_{i}"], dim=1))]
+    n_live, sum_b, *layer_sums = mesh.psum_many(sums, "model")
+    any_live = n_live > 0
+    n_live = n_live.clamp(min=1)
+    lo = mesh.index("model") * h_l
+
+    new_params = dict(params)
+    new_params["b_enc"] = torch.where(dead_mask, torch.where(any_live, sum_b / n_live, zero),
+                                      b_enc)
+    for i, (enc_draw, dec_draw) in enumerate(draws):
+        w_enc, w_dec = params[f"W_enc_{i}"], params[f"W_dec_{i}"]
+        avg_enc = torch.where(any_live, layer_sums[2 * i] / n_live, one)
+        new_enc_t = enc_draw / torch.linalg.vector_norm(enc_draw, dim=1, keepdim=True) * avg_enc
+        new_params[f"W_enc_{i}"] = torch.where(dead_mask[None, :], new_enc_t[lo:lo + h_l].T,
+                                               w_enc)
+        avg_dec = torch.where(any_live, layer_sums[2 * i + 1] / n_live, one)
+        new_dec_t = dec_draw / torch.linalg.vector_norm(dec_draw, dim=0, keepdim=True) * avg_dec
+        new_params[f"W_dec_{i}"] = torch.where(dead_mask[:, None], new_dec_t[:, lo:lo + h_l].T,
+                                               w_dec)
     return new_params, _zero_dead_moments(opt_state, dead_mask)

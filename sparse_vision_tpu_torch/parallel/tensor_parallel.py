@@ -20,6 +20,11 @@ dead_neurons_steps steps (the rolling window of train/steps.make_update),
 where the JAX package's TP step resets it only when it can resample.
 perc_dead is psum_model(Σ dead_acc) / H.
 
+The transcoder and the crosscoder build their TP steps in train/transcoder.py
+and train/crosscoder.py from the same parts: ModelSync, put_tp_state /
+gather_tp_state (the crosscoder's W_enc_i / W_dec_i shard like W_enc / W_dec,
+each b_dec_i is replicated) and, for the transcoder, resample_sae_tp.
+
 JAX's second engine, the GSPMD placement of the stock step for any variant,
 has no counterpart here (train/pipeline.validate_mesh_mode refuses what it
 would run).

@@ -11,6 +11,9 @@ writes complete (data/activation_cache.stream_stacks_zip); later epochs read the
 finished caches shuffled. The bytes on disk are the sequential dump's. When only
 some caches are missing, the overlap is skipped (a fresh stream cannot zip
 against an existing cache's shuffled reader) and the missing ones dump first.
+On a mesh of ranks (Pipeline's ``mesh``) rank 0 alone dumps, and the others
+wait for it at a barrier, as Pipeline.train_sae_cached does; the overlap is
+refused there (train/pipeline.validate_mesh_mode).
 """
 
 from __future__ import annotations
@@ -51,6 +54,13 @@ def prepare_caches(pipe, layers: tuple, dirs: dict) -> tuple:
     cfg = pipe.cfg
     missing = [l for l in layers if not os.path.exists(os.path.join(dirs[l], "meta.json"))]
     kwargs = dict(device=pipe.device, **pipe._cache_dump_kwargs())
+    if pipe.mesh is not None:
+        if missing and pipe.is_main:
+            print(f"Building aligned activation caches for {missing} in one pass ...")
+            dump_activations_multi(pipe.net, pipe.frozen_params, pipe.net_state,
+                                   pipe.train_ds, missing, dirs, **kwargs)
+        pipe.mesh.barrier()
+        return None, None, open_validated(dirs, layers)
     if (cfg.overlap_dump_train and cfg.sae_epochs > cfg.sae_checkpoint_epoch
             and len(missing) == len(layers)):
         print(f"Building aligned activation caches for {list(layers)} in one pass "

@@ -53,11 +53,13 @@ naming the field.
 ``mesh_shape`` trains the cached dictionary on a mesh of torch.distributed
 ranks (parallel/, started by parallel/distributed.spawn or the CLI's
 ``--mesh_shape``; every rank builds its own Pipeline): ``(d,)`` data parallel
-for every SAE variant (parallel/sharded_steps.py), ``(d, m)`` tensor parallel
-for sae_mlp, gated_sae, jumprelu_sae, matryoshka_sae and topk_sae on the TP
-ops (parallel/tensor_parallel.py; validate_mesh_mode gives the shapes). Rank 0
-alone dumps the cache (the others wait for it), then every rank reads the same
-step blocks and keeps its own token rows. The evals run on rank 0 over the
+for every SAE variant (parallel/sharded_steps.py), the transcoder and the
+crosscoder, ``(d, m)`` tensor parallel for sae_mlp, gated_sae, jumprelu_sae,
+matryoshka_sae and topk_sae on the TP ops (parallel/tensor_parallel.py) and
+for the transcoder and the crosscoder on theirs (train/transcoder.py,
+train/crosscoder.py); validate_mesh_mode gives the shapes. Rank 0 alone dumps
+the caches (the others wait for it), then every rank reads the same step
+blocks and keeps its own token rows. The evals run on rank 0 over the
 gathered parameters while the other ranks go on to the next step's first
 collective, and rank 0 alone writes the checkpoints (of the gathered state),
 the results CSV, the top-k files, the figures, the export and the logs. A
@@ -188,32 +190,32 @@ def validate_slice(cfg: RunConfig) -> None:
                          f"got {cfg.mesh_shape}")
 
 
-# the trainers a mesh of more than one rank does not run yet, and the ROADMAP
-# item of each
-_MESH_NOT_PORTED = {"transcoder": "B1.5", "crosscoder": "B1.6"}
+# the trainers whose TP op runs under a 'model' axis whatever use_pallas says
+# (the JAX package's train/transcoder.py:345-367 and train/crosscoder.py:383-407)
+_CODERS = ("transcoder", "crosscoder")
 _GSPMD = ("the JAX package's GSPMD engine, which runs the stock step under a 'model' axis, "
           "is not ported (ROADMAP A6)")
 
 
 def validate_mesh_mode(cfg: RunConfig, num_units: Optional[int] = None) -> None:
     """Raise NotImplementedError for a config that a mesh of more than one rank
-    does not run: anything but training an SAE variant from its activation
-    cache, or, under a 'model' axis, what the JAX package's pipeline gives
-    its GSPMD engine rather than its fused TP engine (train/pipeline.py:585-619
-    there): a variant without a TP op, use_pallas=False, TopK with AuxK, and,
-    once ``num_units`` (the dictionary's latents) is known, latents that do not
-    split over the axis, a Matryoshka prefix set whose snapshot union does
-    not tile (ops/fused_sae_tp.matryoshka_union_tiles) and a TopK k above the
-    shard's latents. The kernels' token and width rules at (T/d, H/m) are
+    does not run. The mesh trains every SAE variant (data parallel on
+    ``(d,)``), the transcoder and the crosscoder (data parallel on ``(d,)``,
+    their TP ops on ``(d, m)``) from their activation caches; it refuses any
+    other mode, and, under a 'model' axis, what the JAX package's pipeline
+    gives its GSPMD engine rather than its fused TP engine
+    (train/pipeline.py:585-619 there): an SAE variant without a TP op,
+    use_pallas=False for an SAE, TopK with AuxK, and, once ``num_units`` (the
+    dictionary's latents) is known, latents that do not split over the axis,
+    a Matryoshka prefix set whose snapshot union does not tile
+    (ops/fused_sae_tp.matryoshka_union_tiles) and a TopK k above the shard's
+    latents. The kernels' token and width rules at (T/d, H/m) are
     Pipeline.check_fusable's, on the card."""
     name = cfg.sae_model_name
     if cfg.original_model or not cfg.training or cfg.compute_ie != "0" or cfg.mis != "0":
         raise NotImplementedError(
             "on a mesh of more than one rank the port trains dictionaries only (original_model, "
             "training=False, compute_ie and mis run on one rank; ROADMAP A6)")
-    if name in _MESH_NOT_PORTED:
-        raise NotImplementedError(f"the {name} trainer on a mesh is not ported yet (ROADMAP "
-                                  f"{_MESH_NOT_PORTED[name]}); run it with mesh_shape=()")
     for field, off in (("use_activation_cache", True), ("overlap_dump_train", False),
                        ("sae_e2e_finetune_epochs", 0)):
         if getattr(cfg, field) != off:
@@ -223,10 +225,10 @@ def validate_mesh_mode(cfg: RunConfig, num_units: Optional[int] = None) -> None:
     if len(cfg.mesh_shape) < 2 or cfg.mesh_shape[1] == 1:
         return
     m = int(cfg.mesh_shape[1])
-    if name not in TP_VARIANTS or not cfg.use_pallas:
+    if name not in _CODERS and (name not in TP_VARIANTS or not cfg.use_pallas):
         raise NotImplementedError(
             f"a 'model' axis trains {', '.join(TP_VARIANTS)} on their TP ops only "
-            f"(use_pallas=True); {_GSPMD}")
+            f"(use_pallas=True), and the transcoder and crosscoder; {_GSPMD}")
     if name == "topk_sae" and cfg.sae_aux_k > 0:
         raise NotImplementedError(
             f"topk_sae with sae_aux_k={cfg.sae_aux_k} on a 'model' axis: the TP op has no "
@@ -235,7 +237,8 @@ def validate_mesh_mode(cfg: RunConfig, num_units: Optional[int] = None) -> None:
         return
     if num_units % m:
         raise NotImplementedError(
-            f"{num_units} latents do not shard over the model axis of {m}, and {_GSPMD}")
+            f"{num_units} latents do not shard over the model axis of {m}"
+            + ("" if name in _CODERS else f", and {_GSPMD}"))
     if name == "matryoshka_sae":
         boundaries = matryoshka_prefix_counts(num_units, cfg.matryoshka_prefix_fractions)
         if not matryoshka_union_tiles(boundaries, m):
@@ -527,16 +530,18 @@ class Pipeline:
         return self._epochs(run_epoch)
 
     def check_fusable(self, can_fuse, c_in: int, c_out: int, t: Optional[int] = None,
-                      h: Optional[int] = None) -> bool:
+                      h: Optional[int] = None, always: bool = False) -> bool:
         """Whether the step takes the fused op (``cfg.use_pallas``). On the card a
         shape that the kernels' ``can_fuse(t, h, c_in, c_out, compute_dtype)``
         refuses raises, before any cache is dumped: there is no quiet fallback to
         the stock step. ``t`` and ``h`` are the kernels' tokens and latents (a
-        rank's shard on a mesh; default: a step's tokens and every latent)."""
+        rank's shard on a mesh; default: a step's tokens and every latent).
+        ``always``: the kernels run whatever use_pallas says (the coders' TP
+        ops), so the shape is checked either way."""
         cfg = self.cfg
         t = cfg.cache_tokens_per_step if t is None else t
         h = self.num_units if h is None else h
-        if cfg.use_pallas and self.device.type == "cuda" and not can_fuse(
+        if (cfg.use_pallas or always) and self.device.type == "cuda" and not can_fuse(
                 t, h, c_in, c_out, cfg.compute_dtype):
             raise ValueError(
                 f"the fused {cfg.sae_model_name} kernels do not take T={t}, "

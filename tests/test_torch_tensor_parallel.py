@@ -512,16 +512,27 @@ def test_tp_resume_equals_straight_run(world):
         assert torch.equal(resumed["dead"], straight["dead"])
 
 
+# the fields each coder needs beside its name
+CODER_FIELDS = {"transcoder": {"transcoder_target_layer": "fc2"},
+                "crosscoder": {"crosscoder_layers": "fc2,fc3", "sae_optimizer_name": "adam"}}
+
+
 @pytest.mark.parametrize("name, fields, num_units, item", [
-    ("batch_topk_sae", {}, None, "GSPMD"), ("transcoder", {}, None, "B1.5"),
-    ("crosscoder", {}, None, "B1.6"), ("topk_sae", {"sae_aux_k": 16}, None, "GSPMD"),
+    ("batch_topk_sae", {}, None, "GSPMD"),
+    ("transcoder", {}, 1025, "do not shard over the model axis"),
+    ("crosscoder", {"overlap_dump_train": True}, None, "ROADMAP A6"),
+    ("topk_sae", {"sae_aux_k": 16}, None, "GSPMD"),
     # boundaries (64, 256, 1,024) clip to a union (64, 256, 512): not multiples of 128
     ("matryoshka_sae", {"sae_matryoshka_prefixes": "0.0625,0.25,1.0"}, 1024, "GSPMD"),
     ("topk_sae", {"sae_topk": 513}, 1024, "GSPMD")],
-    ids=["batch_topk_sae-GSPMD", "transcoder-B1.5", "crosscoder-B1.6", "topk_auxk-GSPMD",
-         "matryoshka_union-GSPMD", "topk_k_above_shard-GSPMD"])
+    ids=["batch_topk_sae-GSPMD", "transcoder-latents_split", "crosscoder-overlap_A6",
+         "topk_auxk-GSPMD", "matryoshka_union-GSPMD", "topk_k_above_shard-GSPMD"])
 def test_unported_mesh_variants_raise(name, fields, num_units, item):
-    cfg = TConfig(**{**PIPE, **fields}, sae_model_name=name, mesh_shape=MESH)
+    """What a (2, 2) mesh refuses: JAX's GSPMD engine's variants and options,
+    and of the coders, latents that do not split over the model axis and the
+    overlapped dump (ROADMAP A6)."""
+    cfg = TConfig(**{**PIPE, **CODER_FIELDS.get(name, {}), **fields}, sae_model_name=name,
+                  mesh_shape=MESH)
     with pytest.raises(NotImplementedError, match=item):
         validate_mesh_mode(cfg, num_units)
     if name == "batch_topk_sae":
@@ -529,14 +540,18 @@ def test_unported_mesh_variants_raise(name, fields, num_units, item):
             make_tp_fused_train_step(None, LAMBDA, None, WINDOW, K, sae_model_name=name)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + tuple(CODER_FIELDS))
 def test_tp_variants_take_a_model_axis(name):
-    """Every TP variant passes validate_mesh_mode at 1,024 latents on (2, 2)
-    (the Matryoshka union of MAT_PREFIXES tiles, TopK's k fits a shard)."""
+    """Every TP variant, and each coder (whatever use_pallas says: its TP op
+    always runs), passes validate_mesh_mode at 1,024 latents on (2, 2) (the
+    Matryoshka union of MAT_PREFIXES tiles, TopK's k fits a shard)."""
     fields = {"sae_matryoshka_prefixes": MAT_PIPE["sae_matryoshka_prefixes"]} \
-        if name == "matryoshka_sae" else {}
+        if name == "matryoshka_sae" else CODER_FIELDS.get(name, {})
     validate_mesh_mode(TConfig(**{**PIPE, **fields}, sae_model_name=name, mesh_shape=MESH),
                        1024)
+    if name in CODER_FIELDS:
+        validate_mesh_mode(TConfig(**{**PIPE, **fields}, sae_model_name=name, mesh_shape=MESH,
+                                   use_pallas=False), 1024)
 
 
 def test_other_modes_on_a_mesh_raise():

@@ -1,5 +1,5 @@
 """Rank workers of the mesh tests (tests/test_torch_mesh.py,
-test_torch_tensor_parallel.py, test_torch_sharded.py).
+test_torch_tensor_parallel.py, test_torch_sharded.py, test_torch_coder_tp.py).
 
 Each is ``fn(rank, mesh, *args)`` for parallel/distributed.spawn and runs one
 rank of a torch.distributed world (gloo on the CPU). The module imports torch
@@ -18,7 +18,14 @@ import numpy as np
 import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
-from sparse_vision_tpu_torch.ops import fast_topk_sae, fused_sae_tp, optim
+from sparse_vision_tpu_torch.ops import (
+    fast_topk_sae,
+    fused_crosscoder,
+    fused_sae_tp,
+    fused_transcoder,
+    optim,
+    resample,
+)
 from sparse_vision_tpu_torch.parallel.mesh import BOTH, gather_params, shard_params
 from sparse_vision_tpu_torch.parallel.sharded_steps import (
     make_sharded_fused_train_step,
@@ -31,7 +38,9 @@ from sparse_vision_tpu_torch.parallel.tensor_parallel import (
     put_tp_state,
 )
 from sparse_vision_tpu_torch.train import steps as tsteps
+from sparse_vision_tpu_torch.train.crosscoder import make_tp_crosscoder_train_step
 from sparse_vision_tpu_torch.train.pipeline import Pipeline
+from sparse_vision_tpu_torch.train.transcoder import make_tp_transcoder_train_step
 
 
 def _t(tree):
@@ -127,7 +136,8 @@ def _pipeline(mesh, cfg: RunConfig, backbone, sae_params, **kw):
                     backbone=backbone, sae_params=sae_params)
     means = pipe.run()
     return {"means": means, "params": pipe.ts.params, "dead": pipe.ts.dead_acc,
-            "step": pipe.ts.step, "opt_state": pipe.ts.opt_state}
+            "step": pipe.ts.step, "opt_state": pipe.ts.opt_state,
+            "csv": getattr(pipe, "decoder_norms_path", None)}
 
 
 def _state_round_trip(mesh, params) -> dict:
@@ -215,4 +225,90 @@ def dp_worker(rank: int, mesh, job: dict) -> dict:
         cfg = RunConfig.from_json(job["cfg"])
         out["pipeline"] = _pipeline(mesh, cfg, _t(job["backbone"]), _t(job["sae"]),
                                     directory_path=job["root"])
+    return out
+
+
+def _coder_op(mesh, name, params, inputs, lam, expansion, cd) -> dict:
+    """The transcoder's (``inputs`` = (x, y)) or crosscoder's (``inputs`` = the
+    layers' tokens) TP op on this rank's shard: loss terms, gathered gradients
+    and statistics, the local prediction (the transcoder's)."""
+    local = {k: v.requires_grad_(True) for k, v in shard_params(params, mesh).items()}
+    rows = tuple(put_tokens_sharded(mesh, a) for a in inputs)
+    if name == "transcoder":
+        out = fused_transcoder.fused_transcoder_tp_loss_terms(
+            local, *rows, lam, expansion, mesh, compute_dtype=cd)
+    else:
+        out = fused_crosscoder.fused_crosscoder_tp_loss_terms(
+            local, rows, lam, expansion, mesh, compute_dtype=cd)
+    out["loss"].backward()
+    res = {k: out[k].detach() for k in ("loss", "rec_loss", "l1_loss", "sparsity",
+                                         "nrmse_loss", "rmse_loss")}
+    res.update(grads=gather_params({k: v.grad for k, v in local.items()}, mesh),
+               dead=mesh.gather(out["dead"], 0),
+               activity_freq=mesh.gather(out["activity_freq"], 0))
+    if "decoded" in out:
+        res["decoded"] = out["decoded"].detach()
+    return res
+
+
+def _coder_resample(mesh, name, params, mu, nu, dead, draws) -> dict:
+    """The latent-sharded resample of ``name`` (the transcoder's is sae_mlp's,
+    resample_dead_neurons_tp) with the full ``draws``; the gathered params and
+    Adam moments."""
+    tx = optim.get_optimizer("adam", 1e-3)
+    ts = tsteps.init_sae_train_state(params, tx, dead.shape[0], seed=0)
+    ts = put_tp_state(mesh, ts._replace(opt_state={**ts.opt_state, "mu": mu, "nu": nu},
+                                        dead_acc=dead))
+    if name == "transcoder":
+        p, o = resample.resample_dead_neurons_tp(ts.params, ts.opt_state, ts.dead_acc, *draws,
+                                                 mesh)
+    else:
+        p, o = resample.resample_dead_neurons_crosscoder_tp(ts.params, ts.opt_state,
+                                                            ts.dead_acc, draws, mesh)
+    full = gather_tp_state(mesh, ts._replace(params=p, opt_state=o))
+    return {"params": full.params, "mu": full.opt_state["mu"], "nu": full.opt_state["nu"]}
+
+
+def _coder_steps(mesh, name, params, batches, lam, window, expansion, optimizer, draws):
+    """A TP trajectory of ``name`` from full ``params`` in f32: per step the
+    metrics and the gathered dead accumulator; the final gathered params."""
+    tx = optim.get_optimizer(optimizer, 1e-3)
+    ts = put_tp_state(mesh, tsteps.init_sae_train_state(params, tx, params["b_enc"].shape[0],
+                                                        seed=0))
+    make = make_tp_transcoder_train_step if name == "transcoder" \
+        else make_tp_crosscoder_train_step
+    step = make(mesh, lam, tx, window, expansion, fused_opts={"compute_dtype": "float32"})
+    metrics, dead = [], []
+    for i, inputs in enumerate(batches, start=1):
+        rows = tuple(put_tokens_sharded(mesh, _t(a)) for a in inputs)
+        args = rows if name == "transcoder" else (rows,)
+        ts, m = step(ts, *args, resample_draws=_t(draws.get(i)))
+        metrics.append({k: float(v) for k, v in m.items()})
+        dead.append(mesh.gather(ts.dead_acc, 0))
+    full = gather_tp_state(mesh, ts)
+    return {"metrics": metrics, "dead": dead, "params": full.params, "step": full.step}
+
+
+def coder_tp_worker(rank: int, mesh, job: dict) -> dict:
+    """Everything test_torch_coder_tp.py holds on a rank: on the (2, 2) world
+    the TP ops, resamples and steps of both coders, and on every world the
+    Pipeline runs of ``job["pipelines"]``."""
+    torch.set_num_threads(1)
+    out = {}
+    if mesh.size("model") > 1:
+        for (name, cd), (params, inputs) in job["ops"].items():
+            out["op", name, cd] = _coder_op(mesh, name, _t(params), _t(inputs), job["lambda"],
+                                            job["expansion"], cd)
+        for name, spec in job["resample"].items():
+            out["resample", name] = _coder_resample(mesh, name, *_t(spec))
+        for name, spec in job["steps"].items():
+            out["steps", name] = _coder_steps(mesh, name, _t(spec["params"]), spec["batches"],
+                                              job["lambda"], job["window"], job["expansion"],
+                                              spec["optimizer"], spec["draws"])
+    backbones = _t(job["backbones"])
+    for name, cfg_json in job["pipelines"].items():
+        cfg = RunConfig.from_json(cfg_json)
+        out["pipeline", name] = _pipeline(
+            mesh, cfg, backbones[name], _t(job["sae"][name]),
+            directory_path=f"{job['root']}/{name}_{'x'.join(map(str, mesh.shape))}")
     return out
