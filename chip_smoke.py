@@ -277,9 +277,31 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               crosscoder through rows 11-14; then (f) a (2, 2) world whose
               rank 3 raises fails the phase's spawn with that rank's
               traceback, the waiting ranks killed.
+ 16. sweep:   the vmapped hyperparameter sweep (train/sweep_vmap.py): (a)
+              the eight sweep kernels (the ReLU, gated, JumpReLU and
+              Matryoshka forwards and backwards with the combo on the grid's
+              y dimension) at bench_sweep.py's shape (T 4,096, C 256, H
+              2,048) for N 4, 8 and 16, in f32 and bf16, and at the ragged
+              shape with N 3: every combo of a launch bitwise equal to a
+              one-dictionary launch on its slices, the outputs against the
+              stacked plain versions, 20 bitwise-equal bf16 launches at N 8;
+              the batched launch, the loop of N one-dictionary launches, the
+              plain version and the batched cuBLAS products (torch.bmm)
+              timed, against N times one dictionary's bound; (b)
+              train_sae_sweep_cached of four sae_mlp combos on phase 6's
+              north-star config (12 steps, the resample at 9), exactly 12 +
+              12 launches of the batched pair and none other, combo 0 (phase
+              6's own λ and learning rate) held to phase 6's final
+              parameters (SWEEP_REF_ATOL), and sweep_combo_tokens_per_sec
+              beside one run's tokens/s; (c) the gated, JumpReLU and
+              Matryoshka fused sweep steps (f32, the bench shape, four
+              combos, four steps), each combo against its single-device
+              step; (d) the transcoder and crosscoder sweeps (the stock math
+              under torch.func.vmap, as JAX's) through their trainers at a
+              small depth, no fused launch.
 Then one JSON line naming each kernel (the TP rows' launches summed over the
-ranks of (b), (c), (g) and (h)), the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}.
+ranks of (b), (c), (g) and (h); the sweep rows' from phase 16 (b) and (c)),
+the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -304,7 +326,7 @@ from types import SimpleNamespace
 import torch
 
 from sparse_vision_tpu_torch.config import RunConfig
-from sparse_vision_tpu_torch.data.datasets import ArrayDataset, make_synthetic
+from sparse_vision_tpu_torch.data.datasets import ArrayDataset, load_data, make_synthetic
 from sparse_vision_tpu_torch.models.crosscoder import (
     crosscoder_inference_and_loss,
     init_crosscoder,
@@ -490,7 +512,8 @@ def phase_build() -> None:
 # (kDx) joined the forward bodies, the SIMT bodies' Act::Relu instantiations
 # before the kAct epilogues joined them (the parent's sources built beside).
 # The build phase prints each instantiation here beside its count: neither
-# change moves them.
+# change moved them; the combo axis (PR 21) moved some by -12 to +28 (the SIMT
+# bodies most), with no spill.
 REGISTERS_BEFORE = {
     "coder_fwd_kernel<float, true, false, Act::Relu>": 122,
     "coder_fwd_kernel<float, false, false, Act::Relu>": 181,
@@ -1525,7 +1548,24 @@ def _slice_config(name: str, extra: dict | None = None, datasets=None) -> tuple:
         val = make_synthetic(num_samples=256, seed=cfg.seed + 1, img_size=size,
                              num_classes=1000)
         datasets = (train, val, train.category_names, size)
+    elif datasets is None and not cfg.data_dir:
+        datasets = _standin(cfg)
     return cfg, datasets
+
+
+# load_data's synthetic stand-in by (dataset, seed): drawn once and shared by
+# the runs that would each draw it (~11.5 s a draw at 229 px, most of a
+# slice's set-up)
+_STANDINS: dict = {}
+
+
+def _standin(cfg: RunConfig) -> tuple:
+    """What Pipeline draws for ``cfg`` without datasets or data_dir: load_data's
+    stand-in, which depends on the dataset and the seed only."""
+    key = (cfg.dataset_name, cfg.seed)
+    if key not in _STANDINS:
+        _STANDINS[key] = load_data(cfg)
+    return _STANDINS[key]
 
 
 def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
@@ -5291,6 +5331,484 @@ def phase_mesh(smi: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# sweep phase (16): the vmapped hyperparameter sweep (train/sweep_vmap.py)
+# ---------------------------------------------------------------------------
+
+SW_T, SW_C, SW_H = 4096, 256, 2048  # bench_sweep.py:147-152
+SW_NS = (4, 8, 16)
+SW_ROW_N = 8  # the N of the kernels line's rows 27-34 (and the repeats)
+SW_RAGGED = (3, RAGGED_T, RAGGED_C, RAGGED_H)  # N, T, C, H: every edge partial
+SWEEP_MODULES = {"sae_mlp": fused_sae, "gated_sae": fused_gated_sae,
+                 "jumprelu_sae": fused_jumprelu_sae, "matryoshka_sae": fused_matryoshka_sae}
+SWEEP_KERNELS = tuple(k for m in SWEEP_MODULES.values() for k in m.SWEEP_KERNELS)
+SW_FLOPS = {"sae_mlp": (4, 8), "matryoshka_sae": (4, 8), "jumprelu_sae": (4, 8),
+            "gated_sae": (6, 10)}  # forward, backward: multiples of T·C·H
+SW_PREFIXES = (0.0625, 0.25, 1.0)  # matryoshka: levels at H/16, H/4, H
+for _k in SWEEP_KERNELS:
+    SOURCES[_k.name] = CODER
+REPLACES.update({
+    # the same pallas_calls under jax.vmap: the sweep step's call sites
+    "fused_sae_sweep_fwd": "sparse_vision_tpu/train/sweep_vmap.py:171",
+    "fused_sae_sweep_bwd": "sparse_vision_tpu/train/sweep_vmap.py:190",
+    "fused_gated_sae_sweep_fwd": "sparse_vision_tpu/train/sweep_vmap.py:148",
+    "fused_gated_sae_sweep_bwd": "sparse_vision_tpu/train/sweep_vmap.py:190",
+    "fused_jumprelu_sae_sweep_fwd": "sparse_vision_tpu/train/sweep_vmap.py:156",
+    "fused_jumprelu_sae_sweep_bwd": "sparse_vision_tpu/train/sweep_vmap.py:190",
+    "fused_matryoshka_sae_sweep_fwd": "sparse_vision_tpu/train/sweep_vmap.py:164",
+    "fused_matryoshka_sae_sweep_bwd": "sparse_vision_tpu/train/sweep_vmap.py:190",
+})
+
+
+def _sweep_ops(name: str, cd, n: int, t: int, c: int, h: int) -> tuple:
+    """The forward operands of ``name``'s sweep kernel: x [t, c] shared and n
+    combos' parameters, stacked, each combo its own draw on _exact_inputs' grid
+    (so the kernel and cuBLAS see the same pre-activations, masks and gates);
+    the Matryoshka boundaries come as the last operand."""
+    gen = torch.Generator(device=DEVICE).manual_seed(n * 7919 + c)
+    x, per = None, []
+    for _ in range(n):
+        w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
+        xi, we, bd = _exact_inputs(gen, t, w)
+        x = xi if x is None else x  # the first draw's tokens, shared
+        wd = _dyadic(torch.randn(h, c, device=DEVICE, generator=gen) / h ** 0.5, 2.0 ** -8)
+        be = _odd_grid(gen, h, 100)
+        if name == "gated_sae":
+            er = torch.exp(0.1 * torch.randn(h, device=DEVICE, generator=gen))
+            per.append((we.to(cd), be, _odd_grid(gen, h, 60), er, wd.to(cd), bd))
+        elif name == "jumprelu_sae":
+            thr = 0.5 + torch.rand(h, device=DEVICE, generator=gen)
+            per.append((we.to(cd), be, thr, wd.to(cd), bd))
+        else:
+            per.append((we.to(cd), be, wd.to(cd), bd))
+    ops = (x.to(cd), *(torch.stack(v).contiguous() for v in zip(*per)))
+    if name == "matryoshka_sae":  # the prefixes' counts rounded up to the kernels' 128
+        ops += (tuple(sorted({min(h, -(-b // 128) * 128)
+                              for b in matryoshka_prefix_counts(h, SW_PREFIXES)})),)
+    return ops
+
+
+def _combo(ops: tuple, i: int, shared: int = 1) -> tuple:
+    """Combo i's operands of a sweep call: the first ``shared`` whole (the
+    shared x), each stacked operand's slice i, the trailing non-tensor operands
+    (the prefix boundaries, the STE bandwidth) as they are."""
+    return (*ops[:shared], *(a[i] if torch.is_tensor(a) else a for a in ops[shared:]))
+
+
+def _sweep_parts(name: str, outs: tuple, i: int, backward: bool) -> tuple:
+    """Combo i of a sweep kernel's outputs, reduced as the one-dictionary
+    kernel's wrapper reduces its own (the JumpReLU and gated wrappers sum
+    their partials, the others return them)."""
+    if name in ("sae_mlp", "matryoshka_sae"):
+        return tuple(o[i] for o in outs)
+    if backward:
+        return (*(o[i] for o in outs[:-1]), outs[-1][i].sum(0))
+    *heads, act, row, l1 = outs
+    return (*(o[i] for o in heads), act[i].sum(0), row[i], l1[i].sum())
+
+
+def _sweep_reduce(name: str, outs: tuple, backward: bool) -> tuple:
+    """A sweep kernel's or plain version's outputs with every partial axis
+    summed per combo (the comparable form of the two)."""
+    if backward:
+        return (*outs[:-1], outs[-1].sum(1))
+    if name in ("sae_mlp", "matryoshka_sae"):
+        x_cent, recon, act, row, z = outs
+        return x_cent, recon, act.sum(1), row, z.sum((1, 2))
+    *heads, act, row, l1 = outs
+    return (*heads, act.sum(1), row, l1.sum((1, 2)))
+
+
+# the plain versions (forward, backward) of each sweep op's kernels
+SW_PLAIN = {
+    "sae_mlp": (fused_sae.sae_sweep_fwd_plain, fused_sae.sae_sweep_bwd_plain),
+    "matryoshka_sae": (fused_matryoshka_sae.matryoshka_sweep_fwd_plain,
+                       fused_matryoshka_sae.matryoshka_sweep_bwd_plain),
+    "jumprelu_sae": (fused_jumprelu_sae.jumprelu_sweep_fwd_plain,
+                     fused_jumprelu_sae.jumprelu_sweep_bwd_plain),
+    "gated_sae": (fused_gated_sae.gated_sweep_fwd_plain, fused_gated_sae.gated_sweep_bwd_plain),
+}
+
+
+def _sweep_bwd_ops(name: str, cd, ops: tuple, x_cent, plain_fwd: tuple) -> tuple:
+    """The backward operands after the forward: the errors the ops save
+    (residuals from the plain forward), per-combo coefficients with a λ of
+    each combo's own."""
+    n = ops[1].shape[0]
+    t, c = ops[0].shape
+    h = ops[1].shape[2]
+    lam = LAMBDA * torch.arange(1, n + 1, device=DEVICE, dtype=torch.float32) / n
+    ones = torch.ones(n, device=DEVICE)
+    x = ops[0].float()
+    if name == "sae_mlp":
+        res = (plain_fwd[1] - x).to(cd)
+        coeffs = torch.stack([ones * 2.0 / (t * c), lam / (t * h)], 1)
+        return (x_cent, ops[1], ops[2], ops[3], res, coeffs)
+    if name == "matryoshka_sae":
+        prefix = plain_fwd[1]  # [N, P, T, C]
+        p = prefix.shape[1]
+        s = ((2.0 / (p * t * c)) * (prefix - x)).flip(1).cumsum(1).flip(1).to(cd)
+        coeffs = torch.stack([ones, lam / (t * h)], 1)
+        return (x_cent, ops[1], ops[2], ops[3], s, coeffs, ops[-1])
+    if name == "jumprelu_sae":
+        coeffs = torch.stack([ones * 2.0 / (t * c), LAMBDA_J * ones / t], 1)
+        return ops + (plain_fwd[0] - x, coeffs, BANDWIDTH)
+    coeffs = torch.stack([ones * 2.0 / (t * c), lam / (t * h), ones * 2.0 / (t * c)], 1)
+    return ops + (plain_fwd[0] - x, plain_fwd[1] - x, coeffs)
+
+
+def _sweep_library(name: str, ops: tuple, backward: bool):
+    """The stock sweep path's batched cuBLAS products (torch.bmm) on the same
+    stacked operands, as one call: the forward's encode and decode(s), the
+    backward's dpost product(s) and the two weight gradients."""
+    x, we = ops[0], ops[1]
+    wd, bd = (ops[3], ops[4]) if name == "matryoshka_sae" else (ops[-2], ops[-1])
+    xc = (x[None] - bd.to(x.dtype)[:, None]).contiguous()
+    post = torch.relu(torch.bmm(xc, we)).to(x.dtype)  # an [N, T, H] operand of the stock path
+    decodes = 2 if name == "gated_sae" else 1
+    if not backward:
+        return lambda: (torch.bmm(xc, we), *(torch.bmm(post, wd) for _ in range(decodes)))
+    dr = xc  # any [N, T, C] operand of the compute dtype
+    wdt = wd.transpose(1, 2)
+    return lambda: (*(torch.bmm(dr, wdt) for _ in range(decodes)),
+                    torch.bmm(xc.transpose(1, 2), post), torch.bmm(post.transpose(1, 2), dr))
+
+
+def _sweep_kernel_check(name: str, cd, n: int, t: int, c: int, h: int, timed: bool,
+                        repeats: int = 2) -> dict:
+    """Rows of ``name``'s sweep forward and backward at (n, t, c, h): each combo
+    of one batched launch bitwise equal to a one-dictionary launch on its
+    slices, the batched outputs against the stacked plain version, ``repeats``
+    bitwise-equal bf16 launches; with ``timed`` the batched launch, the loop of
+    n one-dictionary launches, the plain version and the batched cuBLAS
+    products, against n times the one-dictionary bound."""
+    mod = SWEEP_MODULES[name]
+    tag = f"{'bf16' if cd == torch.bfloat16 else 'f32'}, N={n} T={t} C={c} H={h}"
+    rows = {}
+    ops = _sweep_ops(name, cd, n, t, c, h)
+    fwd_names = {"sae_mlp": ("x_cent", "recon", "act_count", "row_active", "l1_sum"),
+                 "matryoshka_sae": ("x_cent", "prefix_recon", "act_count", "row_active",
+                                    "l1_sum"),
+                 "jumprelu_sae": ("recon", "act_count", "row_active", "l1_sum"),
+                 "gated_sae": ("recon", "via_gate", "act_count", "row_active", "l1_sum")}[name]
+    bwd_names = {"gated_sae": GATED_GRADS, "jumprelu_sae": JUMPRELU_GRADS}.get(
+        name, ("dW_enc", "db_enc", "dW_dec", "db_dec"))
+    # the SAE and Matryoshka backwards take each combo's x_cent: no shared operand
+    stacked_bwd = name in ("sae_mlp", "matryoshka_sae")
+    plain_fwd = x_cent = None
+    for backward, kern, single, names in ((False, mod.sweep_fwd_kernel, mod.fwd_kernel,
+                                           fwd_names),
+                                          (True, mod.sweep_bwd_kernel, mod.bwd_kernel,
+                                           bwd_names)):
+        args = _sweep_bwd_ops(name, cd, ops, x_cent, plain_fwd) if backward else ops
+        shared = 0 if backward and stacked_bwd else 1
+        got = kern(*args)
+        torch.cuda.synchronize()
+        log(f"[sweep] {kern.name} [{tag}] vs {n} one-dictionary launches and the plain version")
+        for i in range(n):
+            want = single(*_combo(args, i, shared))
+            if not all(torch.equal(a, b) for a, b in zip(_sweep_parts(name, got, i, backward),
+                                                        want)):
+                raise AssertionError(f"{kern.name}: combo {i} differs from a one-dictionary "
+                                     "launch on its operands")
+        log(f"[sweep]   every combo bitwise equal to its one-dictionary launch")
+        if cd == torch.bfloat16:
+            for _ in range(repeats - 1):
+                if not all(torch.equal(a, b) for a, b in zip(got, kern(*args))):
+                    raise AssertionError(f"{kern.name}: two launches on the same inputs differ")
+            log(f"[sweep]   {repeats} launches bitwise equal")
+        plain = SW_PLAIN[name][backward](*args)
+        a_red, p_red = _sweep_reduce(name, got, backward), _sweep_reduce(name, plain, backward)
+        if backward:
+            err = max(_check(nm, a, b, 1e-3, 1e-4) for nm, a, b in zip(names, a_red, p_red))
+        else:
+            err = 0.0
+            for nm, a, b in zip(names, a_red, p_red):
+                if nm in ("act_count", "row_active"):
+                    _check(nm, a, b, 0.0, 0.0)
+                elif nm == "x_cent":
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{kern.name}: x_cent differs from x - round(b_dec)")
+                else:
+                    e = _check(nm, a, b, 1e-4 if nm != "l1_sum" else 1e-5,
+                               1e-5 if nm != "l1_sum" else 0.0)
+                    if nm != "l1_sum":
+                        err = max(err, e)
+            plain_fwd = _sweep_reduce(name, plain, False) if name in ("jumprelu_sae",
+                                                                      "gated_sae") else plain
+            x_cent = got[0] if name in ("sae_mlp", "matryoshka_sae") else None
+        if timed:
+            f = SW_FLOPS[name][int(backward)] * t * c * h
+            moved = nbytes(*(a for a in args if torch.is_tensor(a))) + nbytes(*plain)
+            one = bound(f, moved // n, cd)[0]
+            ms = time_ms(lambda: kern(*args), REPS)
+            loop_ms = time_ms(lambda: [single(*_combo(args, i, shared)) for i in range(n)], REPS)
+            plain_ms = time_ms(lambda: SW_PLAIN[name][backward](*args), REPS)
+            lib_ms = time_ms(_sweep_library(name, ops, backward), REPS)
+            b_ms, b_by = bound(n * f, moved, cd)
+            log(f"[sweep] {kern.name} [{tag}] ms {ms:.3f} loop_ms {loop_ms:.3f} plain_ms "
+                f"{plain_ms:.3f} library_ms {lib_ms:.3f} bound_ms {b_ms:.4f} ({b_by}; "
+                f"{n} x {one:.4f}) TFLOP/s {n * f / ms / 1e9:.1f}")
+            rows[kern.name] = dict(max_abs_err=err, ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                   tflops=n * f / ms / 1e9, n_combo=n)
+        del got, plain
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_kernels() -> dict:
+    """(a): rows 27-34 at bench_sweep.py's shape for every N of SW_NS in f32 and
+    bf16, and at the ragged shape; returns the bf16 rows at SW_ROW_N."""
+    set_tf32(False)
+    rows = {}
+    with torch.no_grad():
+        for name in SWEEP_MODULES:
+            for cd in (torch.float32, torch.bfloat16):
+                _sweep_kernel_check(name, cd, *SW_RAGGED, timed=False)
+                for n in SW_NS:
+                    bf16 = cd == torch.bfloat16
+                    r = _sweep_kernel_check(
+                        name, cd, n, SW_T, SW_C, SW_H, timed=True,
+                        repeats=REPEATS if bf16 and n == SW_ROW_N else 2)
+                    if bf16 and n == SW_ROW_N:
+                        rows.update(r)
+    return rows
+
+
+# (b): phase 6's north-star sae_mlp config, 4 combos; combo 0 is phase 6's own
+# λ and learning rate, so its final parameters are held to phase 6's run
+SWEEP_COMBOS = ({"sae_lambda_sparse": LAMBDA, "sae_learning_rate": 1e-3},
+                {"sae_lambda_sparse": LAMBDA, "sae_learning_rate": 2e-3},
+                {"sae_lambda_sparse": 2 * LAMBDA, "sae_learning_rate": 5e-4},
+                {"sae_lambda_sparse": LAMBDA / 2, "sae_learning_rate": 1e-3})
+# combo 0 against phase 6's parameters: the kernels give each combo a
+# one-dictionary launch's bits, but the two runs part by rounding outside them
+# (1.311e-6 measured in five runs on the H100, the same each time); the bound
+# is ~8x that and a hundredth of one Adam step (lr 1e-3)
+SWEEP_REF_ATOL = 1e-5
+SWEEP_STEP_N, SWEEP_STEPS = 4, 4  # (c): combos and steps at the bench shape
+# (d): the coders' sweeps at a small depth (train images, latents, tokens a step)
+SWEEP_CODERS = {"transcoder": (96, dict(sae_expansion_factor=16, cache_tokens_per_step=8192,
+                                        sae_batch_size=32)),
+                "crosscoder": (336, dict(sae_expansion_factor=2, sae_batch_size=32))}
+
+
+def _zero_launches() -> None:
+    for k in KERNELS + SWEEP_KERNELS:
+        k.launches = 0
+
+
+def _launches() -> dict:
+    return {k.name: k.launches for k in KERNELS + SWEEP_KERNELS}
+
+
+def _sweep_north_star(smi: str, ref: dict) -> dict:
+    """(b) train_sae_sweep_cached on phase 6's sae_mlp config with the
+    SWEEP_COMBOS; returns its launches."""
+    from sparse_vision_tpu_torch.train.sweep_vmap import train_sae_sweep_cached
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the backbone convs
+    cfg, datasets = _slice_config("sae_mlp")
+    pipes: list = []
+    _zero_launches()
+    t0 = time.perf_counter()
+    last = train_sae_sweep_cached(cfg, SWEEP_COMBOS, datasets=datasets, pipelines=pipes)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    n = len(SWEEP_COMBOS)
+    log(f"[sweep] (b) train_sae_sweep_cached, {n} sae_mlp combos (dump, 12 steps, {2 * n} "
+        f"evals) in {wall:.1f} s; launches {launches}")
+    want = {"fused_sae_sweep_fwd": 12, "fused_sae_sweep_bwd": 12}
+    for k, v in launches.items():
+        if v != want.get(k, 0):
+            raise AssertionError(f"(b): expected {want.get(k, 0)} launches of {k}, got {v}")
+    for i, (p, m) in enumerate(zip(pipes, last)):
+        steps = [(s, {k: float(v) for k, v in ms.items()}) for s, ms in p.train_log]
+        if [s for s, _ in steps] != list(range(1, 13)):
+            raise AssertionError(f"(b) combo {i}: steps {[s for s, _ in steps]}")
+        if not all(math.isfinite(v) for _, ms in steps for v in ms.values()) or not all(
+                math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"(b) combo {i}: a non-finite metric")
+        if ckpt.latest_epoch(p._sae_ckpt_dir()) != 1:
+            raise AssertionError(f"(b) combo {i}: no epoch-1 checkpoint")
+        log(f"[sweep] (b) combo {i} {SWEEP_COMBOS[i]}: step 12 sae_loss "
+            f"{steps[-1][1]['sae_loss']:.6g} rec {steps[-1][1]['sae_rec_loss']:.6g}; last eval "
+            f"rec {m['sae_rec_loss']:.6g} perc_dead_units {m['perc_dead_units']:.6g}")
+    worst, bitwise = 0.0, True
+    for k, v in pipes[0].ts.params.items():
+        r = ref["params"][k].to(v.device)
+        bitwise &= torch.equal(v, r)
+        worst = max(worst, (v - r).abs().max().item())
+    log(f"[sweep] (b) combo 0 against phase 6's sae_mlp run: max abs param difference "
+        f"{worst:.3e}{' (bitwise equal)' if bitwise else ''} (bound {SWEEP_REF_ATOL})")
+    if worst > SWEEP_REF_ATOL:
+        raise AssertionError(f"(b) combo 0 departs from phase 6's run by {worst:.3e}")
+    timing = pipes[0].train_timing[0]
+    rate = n * timing["tokens"] / timing["seconds"]
+    log(f"[sweep] {smi}: (b) sweep_combo_tokens_per_sec {rate:.0f} ({n} combos x "
+        f"{timing['tokens']} tokens in {timing['seconds']:.3f} s, host clock, ends in a "
+        f"synchronize) against {ref['tokens_per_sec']:.0f} tokens/s of one run (phase 6): "
+        f"{rate / ref['tokens_per_sec']:.2f}x N sequential single runs' rate")
+    del pipes
+    torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches
+
+
+def _sweep_steps() -> dict:
+    """(c) The gated, JumpReLU and Matryoshka sweep steps (fused, f32) at the
+    bench shape, SWEEP_STEPS steps of SWEEP_STEP_N combos (the rolling window
+    restarting at 2 and 4), each combo against its single-device step; returns
+    the sweep steps' launches."""
+    from sparse_vision_tpu_torch.train.sweep_vmap import (
+        make_sae_sweep_step,
+        stack_sae_states,
+        unstack_sae_state,
+    )
+
+    set_tf32(False)
+    out = {}
+    kw = {"gated_sae": {}, "jumprelu_sae": {"jumprelu_bandwidth": BANDWIDTH},
+          "matryoshka_sae": {"matryoshka_prefixes": SW_PREFIXES}}
+    lams = [LAMBDA * (i + 1) / SWEEP_STEP_N for i in range(SWEEP_STEP_N)]
+    lrs = [1e-3 * (1 + i % 2) for i in range(SWEEP_STEP_N)]
+    ef = SW_H // SW_C
+    opts = {"compute_dtype": "float32"}
+    for name in kw:
+        if name == "jumprelu_sae":
+            opts_n = {**opts, "bandwidth": BANDWIDTH}
+            lams_n = [LAMBDA_J * (i + 1) for i in range(SWEEP_STEP_N)]
+        else:
+            opts_n, lams_n = opts, lams
+        gen = torch.Generator(device=DEVICE).manual_seed(16)
+        xs = [torch.relu(torch.randn(SW_T, SW_C, device=DEVICE, generator=gen)) * 2.0
+              for _ in range(SWEEP_STEPS)]
+        states = []
+        for i in range(SWEEP_STEP_N):
+            g = torch.Generator(device=DEVICE).manual_seed(100 + i)
+            params = {"gated_sae": init_gated_sae, "jumprelu_sae": lambda g_, d, e:
+                      init_jumprelu_sae(g_, d, e, threshold_init=0.5),
+                      "matryoshka_sae": init_sae_mlp}[name](g, SW_C, ef)
+            states.append(tsteps.init_sae_train_state(
+                params, optim.get_optimizer("adam", lrs[i]), SW_H, seed=i))
+        ss = stack_sae_states([s._replace(params={k: v.clone() for k, v in s.params.items()})
+                               for s in states])
+        step = make_sae_sweep_step(name, lams_n, lrs, "adam", 2, ef, fused=True,
+                                   fused_opts=opts_n, device=DEVICE, **kw[name])
+        _zero_launches()
+        for x in xs:
+            ss, m = step(ss, x)
+        torch.cuda.synchronize()
+        launches = _launches()
+        mod = SWEEP_MODULES[name]
+        for k, v in launches.items():
+            want = SWEEP_STEPS if k in (mod.sweep_fwd_kernel.name, mod.sweep_bwd_kernel.name) else 0
+            if v != want:
+                raise AssertionError(f"(c) {name}: expected {want} launches of {k}, got {v}")
+        out.update({k: v for k, v in launches.items() if v})
+        worst, bitwise = 0.0, True
+        for i, st in enumerate(states):
+            one = tsteps.make_sae_train_step_from_acts(
+                name, lams_n[i], optim.get_optimizer("adam", lrs[i]), 2, ef, fused=True,
+                fused_opts=opts_n, **kw[name])
+            for x in xs:
+                st, _ = one(st, x)
+            si = unstack_sae_state(ss, i)
+            for k, v in st.params.items():
+                bitwise &= torch.equal(si.params[k], v)
+                scale = v.abs().max().item()
+                d = (si.params[k] - v).abs().max().item()
+                worst = max(worst, d / max(scale, 1e-30))
+                if d > 1e-6 * scale + 1e-7:
+                    raise AssertionError(f"(c) {name} combo {i} {k}: {d:.3e} from its "
+                                         "single-device step")
+            if not torch.equal(si.dead_acc, st.dead_acc):
+                raise AssertionError(f"(c) {name} combo {i}: dead accumulators differ")
+        log(f"[sweep] (c) {name}: {SWEEP_STEP_N} combos x {SWEEP_STEPS} fused f32 steps at "
+            f"T={SW_T} C={SW_C} H={SW_H}, {SWEEP_STEPS} launches each of "
+            f"{mod.sweep_fwd_kernel.name} / {mod.sweep_bwd_kernel.name}; every combo against its "
+            f"single-device step: max relative parameter difference {worst:.3e}"
+            f"{' (bitwise equal)' if bitwise else ''}; last sae_loss "
+            f"{[round(float(v), 6) for v in m['sae_loss']]}")
+        del ss, states, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sweep_coders() -> None:
+    """(d) The transcoder and crosscoder sweeps (stock math under
+    torch.func.vmap, as JAX's) through their trainers at a small depth: two
+    combos each, finite losses and evals, each combo's checkpoint (and the
+    crosscoder's decoder-norm CSV), no fused launch."""
+    from sparse_vision_tpu_torch.train.sweep_vmap import train_sae_sweep_cached
+
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True
+    for name, (n_train, extra) in SWEEP_CODERS.items():
+        shutil.rmtree(WORK, ignore_errors=True)
+        size = (229, 229, 3)
+        train = make_synthetic(num_samples=n_train, seed=0, img_size=size, num_classes=1000)
+        val = make_synthetic(num_samples=64, seed=1, img_size=size, num_classes=1000)
+        cfg, datasets = _slice_config(name, extra, (train, val, train.category_names, size))
+        combos = [{"sae_lambda_sparse": cfg.sae_lambda_sparse},
+                  {"sae_lambda_sparse": cfg.sae_lambda_sparse / 2}]
+        pipes: list = []
+        _zero_launches()
+        t0 = time.perf_counter()
+        last = train_sae_sweep_cached(cfg, combos, datasets=datasets, pipelines=pipes)
+        wall = time.perf_counter() - t0
+        if any(_launches().values()):
+            raise AssertionError(f"(d) {name}: a fused launch in the stock sweep: {_launches()}")
+        for i, (p, m) in enumerate(zip(pipes, last)):
+            losses = [float(ms["sae_loss"]) for _, ms in p.train_log]
+            if not losses or not all(math.isfinite(v) for v in losses) or not all(
+                    math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"(d) {name} combo {i}: no or non-finite losses")
+            if ckpt.latest_epoch(p._sae_ckpt_dir()) != 1:
+                raise AssertionError(f"(d) {name} combo {i}: no epoch-1 checkpoint")
+            if name == "crosscoder":
+                with open(p.decoder_norms_path) as f:
+                    if sum(1 for _ in f) - 1 != p.num_units:
+                        raise AssertionError("(d) crosscoder: a decoder-norm CSV without one "
+                                             "row per latent")
+            log(f"[sweep] (d) {name} combo {i} {combos[i]}: {len(losses)} steps, sae_loss "
+                f"{losses[0]:.6g} -> {losses[-1]:.6g}, last eval rec {m['sae_rec_loss']:.6g}")
+        log(f"[sweep] (d) {name}: train_sae_sweep_cached of 2 combos ({pipes[0].num_units} "
+            f"latents) in {wall:.1f} s, no fused launch")
+        del pipes
+        torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+
+
+def sweep_reference(pipe=None) -> dict:
+    """Phase 16 (b)'s reference: the final parameters (on the host) and the
+    loop's tokens/s of phase 6's sae_mlp run, ``pipe`` that run's Pipeline
+    (without it, the run is made here)."""
+    if pipe is None:
+        kept = {}
+        phase_slice("sae_mlp", on_pipeline=lambda p: kept.update(pipe=p))
+        pipe = kept["pipe"]
+    t = pipe.train_timing[0]
+    return {"params": {k: v.detach().cpu() for k, v in pipe.ts.params.items()},
+            "tokens_per_sec": t["tokens"] / t["seconds"]}
+
+
+def phase_sweep(smi: str, ref: dict) -> tuple:
+    """Phase 16: the vmapped sweep. (a) rows 27-34 (sweep_kernels), (b) the
+    north-star sweep, (c) the variants' sweep steps, (d) the coders' sweeps.
+    Returns (the kernels line's rows 27-34, their launches from (b) and (c))."""
+    t0 = time.perf_counter()
+    rows = sweep_kernels()
+    launches = _sweep_north_star(smi, ref)
+    launches.update(_sweep_steps())
+    _sweep_coders()
+    log(f"[sweep] {smi}: phase {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -5298,15 +5816,19 @@ def main() -> int:
                          "not clean)")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
     phase_parity()
     launches = phase_dx()
-    evals = {}
+    evals, kept = {}, {}
     for name in SLICES:
-        got, evals[name], _ = phase_slice(name, args.profile)
+        got, evals[name], _ = phase_slice(
+            name, args.profile,
+            on_pipeline=(lambda p: kept.update(pipe=p)) if name == "sae_mlp" else None)
         launches.update(got)
+    sae_ref = sweep_reference(kept.pop("pipe"))
     phase_cache(evals["sae_mlp"])
     phase_artifacts()
     phase_circuit(smi)
@@ -5318,13 +5840,19 @@ def main() -> int:
     phase_original(smi)
     phase_finish(smi)
     tp_rows = phase_mesh(smi)
+    sweep_rows, sweep_launches = phase_sweep(smi, sae_ref)
+    log(f"[smoke] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}
         for k in KERNELS
     ] + [{"name": k.name, "route": "cuda", "source": SOURCES[k.name],
           "replaces": REPLACES[k.name], **tp_rows[k.name]}
-         for k in TP_KERNELS + CODER_TP_KERNELS]
+         for k in TP_KERNELS + CODER_TP_KERNELS] + [
+        {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
+         "replaces": REPLACES[k.name], "launches": sweep_launches.get(k.name, 0),
+         **sweep_rows[k.name]}
+        for k in SWEEP_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

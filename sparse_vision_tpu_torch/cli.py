@@ -1,6 +1,7 @@
 """Command line of the port.
 
     python -m sparse_vision_tpu_torch.cli --run_pipeline --config '<RunConfig json>' [--device cpu]
+    python -m sparse_vision_tpu_torch.cli --run_pipeline --parameters FILE [--line i] [--vmap_sweep]
     python -m sparse_vision_tpu_torch.cli [--run_pipeline] --feature_report OUT.html --config '<json>'
 
 Without ``--device`` the run goes to CUDA and fails when no GPU is present. The
@@ -41,6 +42,19 @@ card, and the only backend on the CPU); its default is nccl on CUDA and gloo
 with ``--device cpu``. Without ``--device cpu`` the mesh runs on CUDA and
 fails when no GPU is present.
 
+``--parameters FILE`` runs a sweep file in place of ``--config`` (exactly one
+of the two): JSONL of RunConfig objects, or the reference's legacy lines, 24
+fields (parameters.txt) or 17 (parameters_eval.txt), told apart by the first
+line's field count. ``--line i`` runs only its 0-based line i (the reference's
+cluster job arrays). Each entry runs as ``--config`` would run it, one by one;
+with ``--vmap_sweep`` the cached dictionary-training entries that differ only
+in (sae_lambda_sparse, sae_learning_rate, seed) train together, in one step off
+one shared activation cache (train/sweep_vmap.py: train_sae_sweep_cached and
+its transcoder and crosscoder twins; on the card one forward and one backward
+launch of the fused kernels for all combos), and the rest one by one. It
+prints one JSON line: {"parameters": FILE, "results": [...]}, an entry per
+sweep group (its combos and their last evals) and per single run.
+
 ``--feature_report OUT.html`` writes the HTML feature report of the config's
 run at its latest evaluated epoch (eval_tools/report.py, with the circuit
 section from its ie_related_quantities folder), after the run when
@@ -56,13 +70,38 @@ import json
 import math
 import os
 
-from sparse_vision_tpu_torch.config import RunConfig
+from sparse_vision_tpu_torch.config import RunConfig, Sweep, read_jsonl
+
+
+def _load_parameters(path: str) -> list:
+    """A sweep file's configs: JSONL of RunConfig, legacy 24-field
+    parameters.txt lines or legacy 17-field parameters_eval.txt lines (told
+    apart by the first line's field count)."""
+    with open(path) as f:
+        first = f.readline().strip()
+    if first.startswith("{"):
+        return read_jsonl(path)
+    parse = (RunConfig.from_legacy_eval_line if len(first.split(",")) == 17
+             else RunConfig.from_legacy_line)
+    with open(path) as f:
+        return [parse(line) for line in f if line.strip()]
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="sparse_vision_tpu_torch.cli")
-    ap.add_argument("--run_pipeline", action="store_true", help="run one config")
-    ap.add_argument("--config", required=True, help="RunConfig as a JSON object")
+    ap.add_argument("--run_pipeline", action="store_true",
+                    help="run one config, or every entry of --parameters")
+    ap.add_argument("--config", default=None, help="RunConfig as a JSON object")
+    ap.add_argument("--parameters", default=None, metavar="FILE",
+                    help="sweep file: JSONL of RunConfig, or legacy 24-field parameters.txt "
+                         "(17-field parameters_eval.txt) lines")
+    ap.add_argument("--line", type=int, default=None,
+                    help="run only this 0-based line of --parameters")
+    ap.add_argument("--vmap_sweep", action="store_true",
+                    help="with --parameters: train the entries that differ only in "
+                         "(sae_lambda_sparse, sae_learning_rate, seed) together in one step "
+                         "off one shared activation cache (train/sweep_vmap.py); the rest "
+                         "run one by one")
     ap.add_argument("--feature_report", default=None, metavar="OUT",
                     help="write the HTML feature report of the config's run at its latest "
                          "evaluated epoch (after the run with --run_pipeline)")
@@ -79,14 +118,24 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not args.run_pipeline and not args.feature_report:
         ap.error("nothing to do: pass --run_pipeline or --feature_report")
+    if (args.config is None) == (args.parameters is None):
+        ap.error("pass exactly one of --config and --parameters")
+    if args.parameters is None and (args.line is not None or args.vmap_sweep):
+        ap.error("--line and --vmap_sweep go with --parameters")
+    if args.parameters is not None:
+        if (not args.run_pipeline or args.feature_report or args.multilayer is not None
+                or args.mesh_shape is not None):
+            ap.error("--parameters runs with --run_pipeline alone (no --feature_report, "
+                     "--multilayer or --mesh_shape: a line's mesh_shape field sets its mesh)")
+        out = _run_parameters(args)
+        print(json.dumps(out, sort_keys=True))
+        return out
 
     cfg = RunConfig.from_json(args.config)
     if not args.run_pipeline:
         out = {"feature_report": _feature_report(cfg, args.feature_report)}
         print(json.dumps(out, sort_keys=True))
         return out
-
-    from sparse_vision_tpu_torch.train.pipeline import Pipeline
 
     if args.multilayer is not None:
         out = _multilayer(cfg, args.multilayer, args.device)
@@ -95,14 +144,48 @@ def main(argv=None) -> dict:
     if args.mesh_shape is not None:
         cfg = dataclasses.replace(
             cfg, mesh_shape=tuple(int(n) for n in args.mesh_shape.split(",") if n))
+    out = _run_one(cfg, args)
+    if args.feature_report:
+        out = {"run": out, "feature_report": _feature_report(cfg, args.feature_report)}
+    print(json.dumps(out, sort_keys=True))
+    return out
+
+
+def _run_parameters(args) -> dict:
+    """``--parameters``: every entry of the file (or its ``--line``), with
+    ``--vmap_sweep`` the sweepable groups through train_sae_sweep_cached."""
+    from sparse_vision_tpu_torch.train.sweep_vmap import group_sweepable, train_sae_sweep_cached
+
+    cfgs = _load_parameters(args.parameters)
+    if args.line is not None:
+        cfgs = [cfgs[args.line]]
+    results, singles = [], cfgs
+    if args.vmap_sweep:
+        groups, singles = group_sweepable(cfgs)
+        for base, overrides in groups:
+            Sweep.validate(base)
+            print(f"=== vmapped sweep ({len(overrides)} combos): {base.to_json()}")
+            results.append({"config": json.loads(base.to_json()), "vmap_sweep": overrides,
+                            "last_evals": train_sae_sweep_cached(base, overrides,
+                                                                 device=args.device)})
+    for cfg in singles:
+        Sweep.validate(cfg)  # the sweep expansion's guards
+        print(f"=== run: {cfg.to_json()}")
+        results.append({"config": json.loads(cfg.to_json()), "result": _run_one(cfg, args)})
+    return {"parameters": args.parameters, "results": results}
+
+
+def _run_one(cfg: RunConfig, args):
+    """One config through Pipeline.run (on a mesh of its mesh_shape's ranks when
+    that is above one), its output as the JSON line shows it."""
+    from sparse_vision_tpu_torch.train.pipeline import Pipeline
+
     if math.prod(cfg.mesh_shape) > 1:
         from sparse_vision_tpu_torch.parallel.distributed import spawn
 
         backend = args.dist_backend or ("gloo" if args.device == "cpu" else "nccl")
-        out = spawn(_mesh_rank, cfg.mesh_shape, cfg.to_json(), args.device,
-                    device=args.device, backend=backend)[0]
-        print(json.dumps(out, sort_keys=True))
-        return out
+        return spawn(_mesh_rank, cfg.mesh_shape, cfg.to_json(), args.device,
+                     device=args.device, backend=backend)[0]
     pipe = Pipeline(cfg, device=args.device)
     out = pipe.run()
     if cfg.compute_ie != "0":
@@ -121,9 +204,6 @@ def main(argv=None) -> dict:
         out = {"mis": "2", "median_mis": out["median_mis"], "average_mis": out["average_mis"],
                "wrote": [os.path.join(folder, f"{pipe.run_id}_mis_epoch_"
                                               f"{cfg.sae_checkpoint_epoch}.csv")]}
-    if args.feature_report:
-        out = {"run": out, "feature_report": _feature_report(cfg, args.feature_report)}
-    print(json.dumps(out, sort_keys=True))
     return out
 
 

@@ -192,6 +192,26 @@
 // (bad_shape, bad_tc_operands): T a multiple of 128, H a multiple of 128, prefix
 // boundaries multiples of 128; with bf16 operands Cin and Cout multiples of 8
 // and the bf16 operands 16-byte aligned (ops/fused_sae.bodies_take).
+//
+// Combos (the sweep's stacked dictionaries, train/sweep_vmap.py; the Pallas
+// kernels' vmap batching rule, which adds the combo as the outer grid
+// dimension): every body takes N dictionaries of one shape in one launch, on a
+// grid of (one dictionary's blocks, N). Combo n = blockIdx.y reads and writes
+// its own part of each stacked operand, the combo outermost: x [N, T, Cin],
+// W_enc [N, Cin, H], b_enc [N, H], W_dec [N, H, Cout], b_dec [N, Cout], err [N,
+// P*T, Cout] (gated [N, 2*T, Cout]), coeffs [N, 2] (gated [N, 3]), ct and the
+// per-latent operands [N, H]; recon [N, P, T, Cout], act_part and zsum_part
+// [N, T/64, H], row_active [N, T], the gradients [N, ...] and db_dec_part [N,
+// direct rows + H/64, C]. gridDim.x stays one dictionary's grid, so every
+// slice, owner and level the bodies derive from it (the prefix slices, db_dec's
+// step owners) is a one-dictionary launch's. The bf16 bodies' tensor maps are
+// rank 3, {cols, rows, N} with boxes one deep, read at depth blockIdx.y
+// (tma_box): a box past a combo's last row or column fills zeros, as the map
+// of one matrix does, and never reads the next combo's rows. The pointer
+// operands move by blockIdx.y times a combo's elements where they are used
+// (combo_part). A one-dictionary launch is the case N = 1 of the same code, so
+// combo n of a launch runs the instructions of a one-dictionary launch on
+// combo n's operands and gives its bits. The dx route runs one dictionary.
 
 #pragma once
 
@@ -269,6 +289,24 @@ struct TcFwd {
   const void* err;      // kDx
 };
 
+// Combo blockIdx.y's part of a stacked operand of ``stride`` elements a combo
+// (header note, "Combos"); the operand itself in a one-dictionary launch.
+template <typename P>
+__device__ __forceinline__ P combo_part(P p, long stride) {
+  return p + static_cast<long>(blockIdx.y) * stride;
+}
+
+// ActFwd's per-latent operands ([N, H]) and via ([N, T, Cout], ``out`` floats
+// a combo) at combo blockIdx.y; a field the epilogue does not read may be null
+// and is left so.
+__device__ __forceinline__ ActFwd combo_act(ActFwd a, int H, long out) {
+  if (a.theta) a.theta = combo_part(a.theta, H);
+  if (a.b_mag) a.b_mag = combo_part(a.b_mag, H);
+  if (a.er) a.er = combo_part(a.er, H);
+  if (a.via) a.via = combo_part(a.via, out);
+  return a;
+}
+
 // Forward. One block owns kFwdTT tokens and sweeps the latents in groups of
 // kFwdLG. Per group: pre [64, 128] by a K-loop over the input channels (rows
 // ty*4+i, columns tx+16*j), post into shared memory with the group's
@@ -295,7 +333,7 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
                  const float* __restrict__ b_dec, float* __restrict__ recon,
                  float* __restrict__ act_part, float* __restrict__ row_active,
                  float* __restrict__ zsum_part, int Cin, int Cout, int H,
-                 const svt::Levels lv, const DxFwd<kDx> dxf, const ActFwd af) {
+                 const svt::Levels lv, const DxFwd<kDx> dxf, const ActFwd af_in) {
   static_assert(kAct != Act::Gated, "the SIMT gated forward is GatedEnc, then GatedPi");
   static_assert(kAct == Act::Relu || !(kPrefix || kDx), "kAct epilogues: no kPrefix, no kDx");
   constexpr bool kCount = kAct != Act::GatedPi, kSum = kAct != Act::GatedEnc;
@@ -314,7 +352,21 @@ coder_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const long t0 = static_cast<long>(blockIdx.x) * TT;
-  const long slice = static_cast<long>(gridDim.x) * TT * Cout;  // one prefix's recon
+  const long n_tok = static_cast<long>(gridDim.x) * TT;  // one combo's tokens
+  const long slice = n_tok * Cout;                        // one prefix's recon
+  // combo blockIdx.y's operands (header note, "Combos"); kDx runs one combo
+  x = combo_part(x, n_tok * Cin);
+  w_enc = combo_part(w_enc, static_cast<long>(Cin) * H);
+  w_dec = combo_part(w_dec, static_cast<long>(H) * Cout);
+  b_enc = combo_part(b_enc, H);
+  if constexpr (!kDx) {
+    b_dec = combo_part(b_dec, Cout);
+    if constexpr (kCount) act_part = combo_part(act_part, n_tok / TT * H);
+    if constexpr (kCount) row_active = combo_part(row_active, n_tok);
+    if constexpr (kSum) zsum_part = combo_part(zsum_part, n_tok / TT * H);
+  }
+  recon = combo_part(recon, (kPrefix ? lv.n : 1) * slice);
+  const ActFwd af = combo_act(af_in, H, slice);
   float* out = kPrefix ? recon + (lv.n - 1) * slice : recon;
 
   for (int i = tid; i < TT; i += kThreads) rcnt_s[i] = 0;
@@ -566,6 +618,21 @@ struct SaeBwd {
   ActBwd act;          // kAct != Act::Relu only
 };
 
+// SaeBwd's pointers at combo blockIdx.y (header note, "Combos"): db_cent moves
+// by ``part`` floats (a combo's db_dec_part), the per-latent ones by H; w_enc is
+// read through the body's own operand. Null fields stay null.
+__device__ __forceinline__ SaeBwd combo_sae(SaeBwd s, int H, long part) {
+  if (s.db_cent) s.db_cent = combo_part(s.db_cent, part);
+  ActBwd& a = s.act;
+  if (a.theta) a.theta = combo_part(a.theta, H);
+  if (a.dtheta) a.dtheta = combo_part(a.dtheta, H);
+  if (a.b_mag) a.b_mag = combo_part(a.b_mag, H);
+  if (a.er) a.er = combo_part(a.er, H);
+  if (a.db_mag) a.db_mag = combo_part(a.db_mag, H);
+  if (a.dr_mag) a.dr_mag = combo_part(a.dr_mag, H);
+  return s;
+}
+
 // Backward. One block owns kBwdTH latents and sweeps all tokens in steps of
 // kBwdTB. Per step:
 //   A. pre and dpost [128, 64] (rows ty*8+i, columns tx+16*j) by K-loops over
@@ -597,7 +664,7 @@ coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
                  const float* __restrict__ ct, float* __restrict__ dw_enc,
                  float* __restrict__ db_enc, float* __restrict__ dw_dec,
                  float* __restrict__ db_dec_part, int n_tokens, int Cin, int Cout, int H,
-                 const SaeBwd sae) {
+                 const SaeBwd sae_in) {
   static_assert(kAct == Act::Relu || kAct == Act::Jump || kAct == Act::Gated,
                 "an epilogue of the backward");
   static_assert(kAct == Act::Relu || kSae, "the JumpReLU and gated backwards are SAEs'");
@@ -617,6 +684,23 @@ coder_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_enc,
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int h0 = blockIdx.x * TH;
+  // combo blockIdx.y's operands (header note, "Combos"): err holds P levels
+  // (gated: err_rec and err_via), db_dec_part F32_DIRECT_ROWS direct rows, then
+  // (kSae) the H / 64 centring rows that sae.db_cent points into
+  const long n_tok = n_tokens;
+  x = combo_part(x, n_tok * Cin);
+  w_enc = combo_part(w_enc, static_cast<long>(Cin) * H);
+  w_dec = combo_part(w_dec, static_cast<long>(H) * Cout);
+  b_enc = combo_part(b_enc, H);
+  err = combo_part(err, (kAct == Act::Gated ? 2 : kSae ? sae_in.lv.n : 1) * n_tok * Cout);
+  coeffs = combo_part(coeffs, kAct == Act::Gated ? 3 : 2);
+  if constexpr (kAct == Act::Relu) ct = combo_part(ct, H);
+  dw_enc = combo_part(dw_enc, static_cast<long>(Cin) * H);
+  db_enc = combo_part(db_enc, H);
+  dw_dec = combo_part(dw_dec, static_cast<long>(H) * Cout);
+  const long part = 2L * Cout + (kSae ? static_cast<long>(H / TH) * Cin : 0);
+  db_dec_part = combo_part(db_dec_part, part);
+  const SaeBwd sae = combo_sae(sae_in, H, part);
   const float c_rec = coeffs[0];
   if constexpr (kSae) err += static_cast<long>(svt::level_of(sae.lv, h0)) * n_tokens * Cout;
 
@@ -1021,14 +1105,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// TMA: box (col, row) of ``map`` (innermost coordinate first) into shared memory
-// at dst, its bytes counted on ``bar``; out-of-bounds elements arrive as zeros
+// TMA: box (col, row) of combo blockIdx.y's matrix in ``map`` (rank 3: {cols,
+// rows, combos}, innermost coordinate first; header note, "Combos") into shared
+// memory at dst, its bytes counted on ``bar``; out-of-bounds elements arrive as
+// zeros
 __device__ __forceinline__ void tma_box(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
                                         int col, int row) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row),
+      "r"(static_cast<int>(blockIdx.y))
       : "memory");
 }
 
@@ -1430,7 +1517,8 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const int t0 = blockIdx.x * TT;
   const int nkc = (Cin + KT - 1) / KT, ncc = (Cout + SUB - 1) / SUB;
   const long slice = static_cast<long>(gridDim.x) * TT * Cout;  // one prefix's recon
-  float* out = kPrefix ? recon + (lv.n - 1) * slice : recon;
+  // combo blockIdx.y's recon (header note, "Combos"), its last slice with kPrefix
+  float* out = combo_part(recon, (kPrefix ? lv.n : 1) * slice) + (kPrefix ? (lv.n - 1) * slice : 0);
   // Latent groups end at skew + 512k: blocks start a quarter group apart, so
   // their in-place updates of recon do not all fall at the same moment.
   const int skew = static_cast<int>(blockIdx.x % 4) * SUB;
@@ -1561,9 +1649,10 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb) {
         const int lg = s * SUB + nb * 64;  // first latent of the half, within the group
-        post_epilogue<kAct>(acc[nb], b_enc + g0 + lg, post_s + (lg / 64) * kPostBlk, tok0, lane,
-                            rowc, red_z + warp * SUB + nb * 64, red_c + warp * SUB + nb * 64,
-                            af.act, g0 + lg);
+        post_epilogue<kAct>(acc[nb], combo_part(b_enc, H) + g0 + lg,
+                            post_s + (lg / 64) * kPostBlk, tok0, lane, rowc,
+                            red_z + warp * SUB + nb * 64, red_c + warp * SUB + nb * 64, af.act,
+                            static_cast<int>(blockIdx.y) * H + g0 + lg);
       }
       __syncthreads();
       {
@@ -1574,7 +1663,8 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
           z += red_z[(4 * g + w) * SUB + l];
           n += red_c[(4 * g + w) * SUB + l];
         }
-        const long o = (static_cast<long>(blockIdx.x) * 2 + g) * H + g0 + s * SUB + l;
+        const long o =
+            ((static_cast<long>(blockIdx.y) * gridDim.x + blockIdx.x) * 2 + g) * H + g0 + s * SUB + l;
         if constexpr (kCount) act_part[o] = static_cast<float>(n);
         if constexpr (kSum) zsum_part[o] = z;
       }
@@ -1625,8 +1715,8 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
                     static_cast<long>(t0 + tok0 + 8 * h) * Cout + col));
                 return make_float2(-__fmul_rn(c_rec, v.x), -__fmul_rn(c_rec, v.y));
               } else {
-                return col < Cout ? make_float2(b_dec[col], b_dec[col + 1])
-                                  : make_float2(0.f, 0.f);
+                const float* bd = combo_part(b_dec, Cout);
+                return col < Cout ? make_float2(bd[col], bd[col + 1]) : make_float2(0.f, 0.f);
               }
             },
             g0 == 0, snap);
@@ -1634,7 +1724,8 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
     }
   }
   if constexpr (kCount && !kDx)
-    write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
+    write_row_active(rowc, rcnt_s, tok0, lane, tid, TT,
+                     combo_part(row_active, static_cast<long>(gridDim.x) * TT) + t0);
 }
 
 // Forward, bf16, recon held in registers (Cout <= W: the transcoder, the SAEs
@@ -1693,7 +1784,8 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
 
   // the tile stream, issued by thread 0 as coder_fwd_tc's
   const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd;  // param space
-  [[maybe_unused]] const int n_tok = gridDim.x * TT;  // kDx: the rows of one level of err
+  // one combo's tokens (kDx: the rows of one level of err)
+  const int n_tok = gridDim.x * TT;
   Producer<kHSt> prod{ring, kHSlot, full, empty};
   int p_g0 = 0, p_dec = 0, p_k = 0;
   auto issue = [&]() {
@@ -1743,23 +1835,26 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
   int rowc[2] = {0, 0};
   [[maybe_unused]] float c_rec = 0.f, c_l1 = 0.f;  // kDx
   if constexpr (kDx) c_rec = dxf.coeffs[0], c_l1 = dxf.coeffs[1];
-  // rec (kTwo: and vi) + b_dec into ``out`` (af.via) [T, Cout], once every product is done
+  // rec (kTwo: and vi) + b_dec into ``out`` (af.via) [T, Cout], once every product is done;
+  // combo blockIdx.y's b_dec and via (header note, "Combos")
   auto store = [&](float* out) {
     c.drain();
+    const float* bd = combo_part(b_dec, Cout);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = wg * (W / 2) + nb * 64 + j * 8 + 2 * (lane % 4);
         if (col < Cout) {
-          const float2 b = make_float2(b_dec[col], b_dec[col + 1]);
+          const float2 b = make_float2(bd[col], bd[col + 1]);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             *reinterpret_cast<float2*>(out + static_cast<long>(t0 + tok0 + 8 * h) * Cout + col) =
                 make_float2(rec[nb][j][2 * h] + b.x, rec[nb][j][2 * h + 1] + b.y);
             if constexpr (kTwo)
-              *reinterpret_cast<float2*>(af.via + static_cast<long>(t0 + tok0 + 8 * h) * Cout +
-                                         col) =
+              *reinterpret_cast<float2*>(combo_part(af.via, static_cast<long>(gridDim.x) * TT *
+                                                                    Cout) +
+                                         static_cast<long>(t0 + tok0 + 8 * h) * Cout + col) =
                   make_float2(vi[nb][j][2 * h] + b.x, vi[nb][j][2 * h + 1] + b.y);
           }
         }
@@ -1823,9 +1918,9 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
     __syncthreads();
     float* red_z = reinterpret_cast<float*>(scratch);  // [8 warps][64]
     int* red_c = reinterpret_cast<int*>(red_z + kWarps * 64);
-    post_epilogue<kAct>(acc, b_enc + g0 + wg * 64, post_s + wg * kPostBlk, tok0, lane, rowc,
-                        red_z + warp * 64, red_c + warp * 64, af, g0 + wg * 64,
-                        pi_s + wg * kPostBlk);
+    post_epilogue<kAct>(acc, combo_part(b_enc, H) + g0 + wg * 64, post_s + wg * kPostBlk, tok0,
+                        lane, rowc, red_z + warp * 64, red_c + warp * 64, af,
+                        static_cast<int>(blockIdx.y) * H + g0 + wg * 64, pi_s + wg * kPostBlk);
     fence_async_smem();  // post_s (and pi_s) before wgmma reads it
     __syncthreads();
     if (tid < LG) {  // latent tid of the group: warpgroup tid / 64's four warps, in order
@@ -1836,7 +1931,7 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
         z += red_z[(4 * g + w) * 64 + l];
         n += red_c[(4 * g + w) * 64 + l];
       }
-      const long o = static_cast<long>(blockIdx.x) * H + g0 + tid;
+      const long o = (static_cast<long>(blockIdx.y) * gridDim.x + blockIdx.x) * H + g0 + tid;
       if constexpr (kCount) act_part[o] = static_cast<float>(n);
       if constexpr (kSum) zsum_part[o] = z;
     }
@@ -1868,7 +1963,7 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
     }
     if constexpr (kPrefix)
       if (g0 + LG < H && svt::ends_level(lv, g0 + LG))
-        store(recon + svt::level_of(lv, g0) * slice);
+        store(combo_part(recon, lv.n * slice) + svt::level_of(lv, g0) * slice);
   }
   if constexpr (kDx) {  // dx - c_rec * err_0 (f32, not rounded) into recon, the dx output
     c.drain();
@@ -1890,8 +1985,9 @@ coder_fwd_tc_hold(const __grid_constant__ CUtensorMap m_x,
         }
       }
   } else {
-    store(kPrefix ? recon + (lv.n - 1) * slice : recon);
-    if constexpr (kCount) write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, row_active + t0);
+    store(combo_part(recon, (kPrefix ? lv.n : 1) * slice) + (kPrefix ? (lv.n - 1) * slice : 0));
+    if constexpr (kCount)
+      write_row_active(rowc, rcnt_s, tok0, lane, tid, TT, combo_part(row_active, n_tok) + t0);
   }
 }
 
@@ -1986,17 +2082,24 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const int nci = (Cin + CC - 1) / CC, nco = (Cout + CC - 1) / CC;
   const int qrow = kSae ? svt::level_of(sae.lv, h0) * n_tokens : 0;  // this level's err rows
   const int n_own = kSae ? sae.lv.end[0] / TH : 0;  // kSae: the level-0 blocks
+  // combo blockIdx.y's pointer operands, each moved where it is used (header
+  // note, "Combos"): coeffs by kCoef floats, the per-latent ones by H, the
+  // gradients by theirs, db_dec_part (its direct rows, then with kSae the H / 64
+  // centring rows that sae.db_cent points into) by ``part``
+  constexpr int kCoef = kAct == Act::Gated ? 3 : 2;
+  const long part = static_cast<long>((n_tokens + TS - 1) / TS) * Cout +
+                    (kSae ? static_cast<long>(H / TH) * Cin : 0);
   if (tid < TH) {
-    benc_s[tid] = b_enc[h0 + tid];
+    benc_s[tid] = combo_part(b_enc, H)[h0 + tid];
     if constexpr (kAct == Act::Relu) {
-      ct_s[tid] = ct[h0 + tid];
+      ct_s[tid] = combo_part(ct, H)[h0 + tid];
     } else if constexpr (kAct == Act::Jump) {
-      const float th = sae.act.theta[h0 + tid];
+      const float th = combo_part(sae.act.theta, H)[h0 + tid];
       ct_s[tid] = th;
       v2_s[tid] = __fdiv_rn(-th, sae.act.eps);
     } else {
-      ct_s[tid] = sae.act.b_mag[h0 + tid];
-      v2_s[tid] = sae.act.er[h0 + tid];
+      ct_s[tid] = combo_part(sae.act.b_mag, H)[h0 + tid];
+      v2_s[tid] = combo_part(sae.act.er, H)[h0 + tid];
     }
   }
   if (tid == 0) init_ring<kBSt>(full, empty);
@@ -2051,7 +2154,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   for (int i = 0; i < kBSt - 1; ++i) issue();
   const int wg = warp / 4, w4 = warp % 4;  // warpgroup, warp in it
   const int li = lane / 8, lr = lane % 8;  // ldmatrix: which 8x8 matrix, which row of it
-  const float c_rec = coeffs[0];
+  const float c_rec = combo_part(coeffs, kCoef)[0];
   Consumer<kBSt> c{ring, kBSlot, full, empty, lane};
 
   // A fragments of round_bf16(c_rec * err) from a swizzled err tile, 4 k16 steps:
@@ -2101,8 +2204,8 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 #pragma unroll
   for (int q = 0; q < kNS; ++q) vs[q][0] = vs[q][1] = 0.f;
   // Jump: c_l0 * (-1/eps); Gated: c_l1
-  const float c_1 = kAct == Act::Jump ? __fmul_rn(coeffs[1], sae.act.neg_inv_eps)
-                                      : kVar ? coeffs[1] : 0.f;
+  const float c_1 = kAct == Act::Jump ? __fmul_rn(combo_part(coeffs, kCoef)[1], sae.act.neg_inv_eps)
+                                      : kVar ? combo_part(coeffs, kCoef)[1] : 0.f;
 
   for (int t = 0, si = 0; t < n_tokens; t += TS, ++si) {
     const int ntok = min(TS, n_tokens - t);
@@ -2247,8 +2350,9 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
           reinterpret_cast<const float(&)[1][8][4]>(g),
           [&](int, int h, int j) {
             const int ch = ci * CC + wg * 64 + w4 * 16 + lane / 4 + 8 * h;
-            return ch < Cin ? reinterpret_cast<float2*>(dw_enc + static_cast<long>(ch) * H + h0 +
-                                                        j * 8 + 2 * (lane % 4))
+            return ch < Cin ? reinterpret_cast<float2*>(
+                                  combo_part(dw_enc, static_cast<long>(Cin) * H) +
+                                  static_cast<long>(ch) * H + h0 + j * 8 + 2 * (lane % 4))
                             : nullptr;
           },
           [](int, int, int) { return make_float2(0.f, 0.f); }, first);
@@ -2283,6 +2387,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
       // g[j][2h + e]: output column ci*CC + wg*64 + w4*16 + lane/4 + 8h, latent
       // h0 + 8j + 2*(lane%4) + e; every read before the first write
       const int col = ci * CC + wg * 64 + w4 * 16 + lane / 4;
+      float* const dwd = combo_part(dw_dec, static_cast<long>(H) * Cout);
       float prev[8][2][2];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -2291,7 +2396,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const long o = static_cast<long>(h0 + j * 8 + 2 * (lane % 4) + e) * Cout + col + 8 * h;
-            prev[j][h][e] = first || col + 8 * h >= Cout ? 0.f : dw_dec[o];
+            prev[j][h][e] = first || col + 8 * h >= Cout ? 0.f : dwd[o];
           }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -2300,10 +2405,10 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const long o = static_cast<long>(h0 + j * 8 + 2 * (lane % 4) + e) * Cout + col + 8 * h;
-            if (col + 8 * h < Cout) dw_dec[o] = prev[j][h][e] + g[j][2 * h + e];
+            if (col + 8 * h < Cout) dwd[o] = prev[j][h][e] + g[j][2 * h + e];
           }
       if (own_db && tid < CC && ci * CC + tid < Cout)
-        db_dec_part[static_cast<long>(si) * Cout + ci * CC + tid] = dd;
+        combo_part(db_dec_part, part)[static_cast<long>(si) * Cout + ci * CC + tid] = dd;
     }
   }
 
@@ -2328,7 +2433,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
     if (tid < TH) {
       float v = red_s[tid];
       for (int w = 1; w < 8; ++w) v += red_s[w * TH + tid];
-      db_enc[h0 + tid] = v;
+      combo_part(db_enc, H)[h0 + tid] = v;
       if constexpr (kSae) bcd_s[tid] = __bfloat162float(__float2bfloat16(v));
     }
   } else {
@@ -2344,13 +2449,13 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
         s[q] = red_s[q * 8 * TH + tid];
         for (int w = 1; w < 8; ++w) s[q] += red_s[(q * 8 + w) * TH + tid];  // fixed order
       }
-      db_enc[h0 + tid] = s[0];  // Gated: db_gate
+      combo_part(db_enc, H)[h0 + tid] = s[0];  // Gated: db_gate
       if constexpr (kAct == Act::Jump) {
-        sae.act.dtheta[h0 + tid] = s[1];
+        combo_part(sae.act.dtheta, H)[h0 + tid] = s[1];
         bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
       } else {
-        sae.act.db_mag[h0 + tid] = s[1];
-        sae.act.dr_mag[h0 + tid] = __fmul_rn(s[2], v2_s[tid]);
+        combo_part(sae.act.db_mag, H)[h0 + tid] = s[1];
+        combo_part(sae.act.dr_mag, H)[h0 + tid] = __fmul_rn(s[2], v2_s[tid]);
         bcd_s[tid] = __bfloat162float(__float2bfloat16(s[kNS - 1]));
       }
     }
@@ -2359,8 +2464,9 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
     __syncthreads();
     for (int k = tid; k < Cin; k += kThreads) {
       // W_enc[k, h0 : h0 + 64]: 128 bytes, eight 16-byte loads
-      const uint4* row = reinterpret_cast<const uint4*>(static_cast<const bf16*>(sae.w_enc) +
-                                                        static_cast<long>(k) * H + h0);
+      const uint4* row = reinterpret_cast<const uint4*>(
+          combo_part(static_cast<const bf16*>(sae.w_enc), static_cast<long>(Cin) * H) +
+          static_cast<long>(k) * H + h0);
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < TH / 8; ++q) {
@@ -2373,7 +2479,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
           s = fmaf(bcd_s[q * 8 + 2 * i + 1], f.y, s);
         }
       }
-      sae.db_cent[static_cast<long>(blockIdx.x) * Cin + k] = -s;
+      combo_part(sae.db_cent, part)[static_cast<long>(blockIdx.x) * Cin + k] = -s;
     }
   }
 }
@@ -2381,6 +2487,12 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 bool bad_shape(int n_tokens, int c_in, int c_out, int H) {
   return n_tokens <= 0 || c_in <= 0 || c_out <= 0 || H <= 0 || n_tokens % kBwdTB ||
          H % kFwdLG;
+}
+
+// the combo axis (header note, "Combos"): at least one combo, within gridDim.y,
+// and combo-offset latent indices (blockIdx.y * H + latent) within an int
+bool bad_combos(int n_combo, int H) {
+  return n_combo < 1 || n_combo > 65535 || static_cast<long>(n_combo) * H > (1L << 30);
 }
 
 // the bf16 bodies read 16-byte-aligned rows of whole 16-byte chunks (TMA's
@@ -2397,7 +2509,9 @@ bool bad_tc_operands(int c_in, int c_out, const void* x, const void* w_enc, cons
 // ---------------------------------------------------------------------------
 
 // x_cent = round_T(x - round_T(b_dec)) over x [n / C, C]; with bf16 a thread
-// takes 8 elements (16 bytes; C is a multiple of 8), with float one.
+// takes 8 elements (16 bytes; C is a multiple of 8), with float one. Combos:
+// blockIdx.y centres the shared x by its own b_dec [N, C] into its own x_cent
+// [N, n / C, C].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 center_kernel(const T* __restrict__ x, const float* __restrict__ b_dec, T* __restrict__ out,
@@ -2406,6 +2520,8 @@ center_kernel(const T* __restrict__ x, const float* __restrict__ b_dec, T* __res
   struct alignas(sizeof(T) * V) Pack {
     T v[V];
   };
+  b_dec = combo_part(b_dec, C);
+  out = combo_part(out, n);
   const long stride = static_cast<long>(gridDim.x) * kThreads * V;
   for (long i = (static_cast<long>(blockIdx.x) * kThreads + threadIdx.x) * V; i < n; i += stride) {
     const int c = static_cast<int>(i % C);
@@ -2421,16 +2537,19 @@ center_kernel(const T* __restrict__ x, const float* __restrict__ b_dec, T* __res
   }
 }
 
+// x [n_tokens, C] shared by the n_combo combos, b_dec [n_combo, C], x_cent
+// [n_combo, n_tokens, C]
 cudaError_t launch_center(int bf16, const void* x, const float* b_dec, void* x_cent,
-                          int n_tokens, int C, cudaStream_t stream) {
+                          int n_tokens, int C, cudaStream_t stream, int n_combo = 1) {
   const long n = static_cast<long>(n_tokens) * C;
   const int per_block = kThreads * (bf16 ? 8 : 1);
-  const int blocks = static_cast<int>(std::min<long>((n + per_block - 1) / per_block, 132 * 16));
+  const dim3 grid(static_cast<int>(std::min<long>((n + per_block - 1) / per_block, 132 * 16)),
+                  n_combo);
   if (bf16)
-    return svt::launch(center_kernel<__nv_bfloat16>, blocks, 0, stream,
+    return svt::launch(center_kernel<__nv_bfloat16>, grid, 0, stream,
                        static_cast<const __nv_bfloat16*>(x), b_dec,
                        static_cast<__nv_bfloat16*>(x_cent), n, C);
-  return svt::launch(center_kernel<float>, blocks, 0, stream, static_cast<const float*>(x),
+  return svt::launch(center_kernel<float>, grid, 0, stream, static_cast<const float*>(x),
                      b_dec, static_cast<float*>(x_cent), n, C);
 }
 
@@ -2441,15 +2560,21 @@ cudaError_t launch_center(int bf16, const void* x, const float* b_dec, void* x_c
 // over each kTcBwdTS-token step, part [ceil(T / kTcBwdTS), C] in step order:
 // the direct rows of db_dec. A block takes 64 columns of one step; thread (cx,
 // ry) sums rows ry, ry + 4, .., then the four row groups are added in order.
+// Combos: blockIdx.z, err [N, T, C] and a combo's out, part and coef
+// ``out_stride``, ``part_stride`` and ``coef_stride`` elements apart.
 // Bound by bytes: 6 bytes a token and channel (32 MB + 16 MB at T = 32,768, C =
 // 256: ~0.015 ms at 3.35 TB/s).
 __global__ void __launch_bounds__(kThreads)
 scale_err_kernel(const float* __restrict__ err, const float* __restrict__ coef,
-                 bf16* __restrict__ out, float* __restrict__ part, int n_tokens, int C) {
+                 bf16* __restrict__ out, float* __restrict__ part, int n_tokens, int C,
+                 long out_stride, long part_stride, int coef_stride) {
   __shared__ float red[kThreads];
+  const long cz = blockIdx.z;
+  err += cz * n_tokens * C;
+  out += cz * out_stride;
   const int cx = threadIdx.x % 64, ry = threadIdx.x / 64, col = blockIdx.x * 64 + cx;
   const int t1 = min(n_tokens, static_cast<int>(blockIdx.y + 1) * kTcBwdTS);
-  const float c = *coef;
+  const float c = coef[cz * coef_stride];
   float s = 0.f;
   if (col < C) {
 #pragma unroll 4
@@ -2464,15 +2589,17 @@ scale_err_kernel(const float* __restrict__ err, const float* __restrict__ coef,
   red[threadIdx.x] = s;
   __syncthreads();
   if (ry == 0 && col < C)
-    part[static_cast<long>(blockIdx.y) * C + col] =
+    part[cz * part_stride + static_cast<long>(blockIdx.y) * C + col] =
         ((red[cx] + red[64 + cx]) + red[128 + cx]) + red[192 + cx];
 }
 
 cudaError_t launch_scale_err(const float* err, const float* coef, void* out, float* part,
-                             int n_tokens, int C, cudaStream_t stream) {
-  const dim3 grid((C + 63) / 64, (n_tokens + kTcBwdTS - 1) / kTcBwdTS);
+                             int n_tokens, int C, cudaStream_t stream, int n_combo = 1,
+                             long out_stride = 0, long part_stride = 0, int coef_stride = 0) {
+  const dim3 grid((C + 63) / 64, (n_tokens + kTcBwdTS - 1) / kTcBwdTS, n_combo);
   scale_err_kernel<<<grid, kThreads, 0, stream>>>(err, coef, static_cast<bf16*>(out), part,
-                                                  n_tokens, C);
+                                                  n_tokens, C, out_stride, part_stride,
+                                                  coef_stride);
   return cudaGetLastError();
 }
 
@@ -2500,17 +2627,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of the row-major bf16 matrix [rows][cols] at base, read in boxes of
-// [box_rows][64] into the 128-byte-swizzled layout; reads past an edge fill
-// zeros. Built per call: the pointers change.
-cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// Tensor map of ``n`` stacked row-major bf16 matrices [n][rows][cols] at base
+// (rank 3, the combo outermost; header note, "Combos"), read in boxes of
+// [box_rows][64] of one matrix into the 128-byte-swizzled layout; reads past a
+// matrix's edge fill zeros. Built per call: the pointers change.
+cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+                     int n = 1) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(rows) * cols * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -2524,43 +2655,48 @@ cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int
 // route, c_out > 256 only. act_part and zsum_part are [n_tokens / 64, H]
 // (per-64-token partials; GatedEnc writes no zsum_part, GatedPi neither act_part
 // nor row_active), row_active [n_tokens], recon [n_tokens, c_out] f32 (kPrefix:
-// prefix_recon [lv.n, n_tokens, c_out]; Gated: af.via too).
+// prefix_recon [lv.n, n_tokens, c_out]; Gated: af.via too). n_combo stacked
+// dictionaries run in one launch, every operand and output [n_combo, ...]
+// (header note, "Combos").
 template <bool kPrefix, Act kAct>
 cudaError_t fwd_tc(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
                    const float* b_dec, float* recon, float* act_part, float* row_active,
                    float* zsum_part, int n_tokens, int c_in, int c_out, int H,
-                   const svt::Levels& lv, const ActFwd& af, cudaStream_t stream) {
+                   const svt::Levels& lv, const ActFwd& af, cudaStream_t stream,
+                   int n_combo = 1) {
   constexpr bool kSplit = kAct == Act::GatedEnc || kAct == Act::GatedPi;
-  if (bad_shape(n_tokens, c_in, c_out, H) || bad_tc_operands(c_in, c_out, x, w_enc, w_dec, recon))
+  if (bad_shape(n_tokens, c_in, c_out, H) || bad_combos(n_combo, H) ||
+      bad_tc_operands(c_in, c_out, x, w_enc, w_dec, recon))
     return cudaErrorInvalidValue;
   const int hold = c_out <= 256 ? 256 : c_out <= kHoldCout ? kHoldCout : 0;  // held width
   if ((kAct == Act::Gated && hold != 256) || (kSplit && hold == 256)) return cudaErrorInvalidValue;
   CUtensorMap mx, mwe, mwd;
   cudaError_t e;
-  if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
-      (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
-      (e = bf16_map(&mwd, w_dec, H, c_out, hold ? hold_ld(hold) : 64)) != cudaSuccess)
+  if ((e = bf16_map(&mx, x, n_tokens, c_in, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwe, w_enc, c_in, H, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwd, w_dec, H, c_out, hold ? hold_ld(hold) : 64, n_combo)) != cudaSuccess)
     return e;
   if constexpr (kAct == Act::Gated) {
-    return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>, n_tokens / kHoldTT,
+    return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>, dim3(n_tokens / kHoldTT, n_combo),
                        hold_smem_bytes(2), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
                        row_active, zsum_part, c_in, c_out, H, lv, af, DxFwd<false>{});
   } else {
     if constexpr (!kSplit)
       if (hold == 256)
-        return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>, n_tokens / kHoldTT,
-                           hold_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon,
-                           act_part, row_active, zsum_part, c_in, c_out, H, lv, af,
-                           DxFwd<false>{});
+        return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>,
+                           dim3(n_tokens / kHoldTT, n_combo), hold_smem_bytes(), stream, mx, mwe,
+                           mwd, b_enc, b_dec, recon, act_part, row_active, zsum_part, c_in,
+                           c_out, H, lv, af, DxFwd<false>{});
     if (hold)
-      return svt::launch(coder_fwd_tc_hold<kHoldCout, kPrefix, kAct>, n_tokens / kHoldTT,
-                         hold_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
-                         row_active, zsum_part, c_in, c_out, H, lv, af, DxFwd<false>{});
+      return svt::launch(coder_fwd_tc_hold<kHoldCout, kPrefix, kAct>,
+                         dim3(n_tokens / kHoldTT, n_combo), hold_smem_bytes(), stream, mx, mwe,
+                         mwd, b_enc, b_dec, recon, act_part, row_active, zsum_part, c_in, c_out,
+                         H, lv, af, DxFwd<false>{});
     TcFwd t{};
     t.act = af;
-    return svt::launch(coder_fwd_tc<kPrefix, kAct>, n_tokens / kTcFwdTT, fwd_tc_smem_bytes(),
-                       stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part, row_active,
-                       zsum_part, c_in, c_out, H, lv, t);
+    return svt::launch(coder_fwd_tc<kPrefix, kAct>, dim3(n_tokens / kTcFwdTT, n_combo),
+                       fwd_tc_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
+                       row_active, zsum_part, c_in, c_out, H, lv, t);
   }
 }
 
@@ -2571,13 +2707,14 @@ template <bool kPrefix, Act kAct>
 cudaError_t fwd_simt(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
                      const float* b_dec, float* recon, float* act_part, float* row_active,
                      float* zsum_part, int n_tokens, int c_in, int c_out, int H,
-                     const svt::Levels& lv, const ActFwd& af, cudaStream_t stream) {
-  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
-  return svt::launch(coder_fwd_kernel<float, kPrefix, false, kAct>, n_tokens / kFwdTT,
-                     fwd_smem_bytes(), stream, static_cast<const float*>(x),
-                     static_cast<const float*>(w_enc), b_enc, static_cast<const float*>(w_dec),
-                     b_dec, recon, act_part, row_active, zsum_part, c_in, c_out, H, lv,
-                     DxFwd<false>{}, af);
+                     const svt::Levels& lv, const ActFwd& af, cudaStream_t stream,
+                     int n_combo = 1) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || bad_combos(n_combo, H)) return cudaErrorInvalidValue;
+  return svt::launch(coder_fwd_kernel<float, kPrefix, false, kAct>,
+                     dim3(n_tokens / kFwdTT, n_combo), fwd_smem_bytes(), stream,
+                     static_cast<const float*>(x), static_cast<const float*>(w_enc), b_enc,
+                     static_cast<const float*>(w_dec), b_dec, recon, act_part, row_active,
+                     zsum_part, c_in, c_out, H, lv, DxFwd<false>{}, af);
 }
 
 // Launch the forward: bf16 != 0 selects __nv_bfloat16 operands (fwd_tc's
@@ -2586,15 +2723,15 @@ template <bool kPrefix>
 cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const float* b_dec, float* recon, float* act_part,
                       float* row_active, float* zsum_part, int n_tokens, int c_in, int c_out,
-                      int H, const svt::Levels& lv, cudaStream_t stream) {
+                      int H, const svt::Levels& lv, cudaStream_t stream, int n_combo = 1) {
   if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
   if (bf16)
     return fwd_tc<kPrefix, Act::Relu>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
                                       row_active, zsum_part, n_tokens, c_in, c_out, H, lv,
-                                      ActFwd{}, stream);
+                                      ActFwd{}, stream, n_combo);
   return fwd_simt<kPrefix, Act::Relu>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
                                       row_active, zsum_part, n_tokens, c_in, c_out, H, lv,
-                                      ActFwd{}, stream);
+                                      ActFwd{}, stream, n_combo);
 }
 
 // Launch the backward. err is [sae.lv.n * n_tokens, c_out] in the operand type
@@ -2603,7 +2740,8 @@ cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b
 // [c_in, H], db_enc [H], dw_dec [H, c_out], db_dec_part: float operands [2,
 // c_out] (two partial sums over alternate token rows), bf16 [ceil(n_tokens /
 // 512), c_out] (one per 512-token step); db_dec is the sum of its rows (and,
-// with kSae, of sae.db_cent's).
+// with kSae, of sae.db_cent's). n_combo stacked dictionaries in one launch, as
+// the forward's.
 // The bf16 backward body coder_bwd_tc<kSae, kAct> on x [n_tokens, c_in] and
 // err [err_rows, c_out] (bf16 operands).
 template <bool kSae, Act kAct>
@@ -2611,17 +2749,18 @@ cudaError_t bwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
                    const void* err, int err_rows, const float* coeffs, const float* ct,
                    float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
                    int n_tokens, int c_in, int c_out, int H, const SaeBwd& sae,
-                   cudaStream_t stream) {
-  if (bad_shape(n_tokens, c_in, c_out, H) || bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err))
+                   cudaStream_t stream, int n_combo = 1) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || bad_combos(n_combo, H) ||
+      bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err))
     return cudaErrorInvalidValue;
   CUtensorMap mx, mwe, mwd, merr;
   cudaError_t e;
-  if ((e = bf16_map(&mx, x, n_tokens, c_in, 64)) != cudaSuccess ||
-      (e = bf16_map(&mwe, w_enc, c_in, H, 64)) != cudaSuccess ||
-      (e = bf16_map(&mwd, w_dec, H, c_out, 64)) != cudaSuccess ||
-      (e = bf16_map(&merr, err, err_rows, c_out, 64)) != cudaSuccess)
+  if ((e = bf16_map(&mx, x, n_tokens, c_in, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwe, w_enc, c_in, H, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwd, w_dec, H, c_out, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&merr, err, err_rows, c_out, 64, n_combo)) != cudaSuccess)
     return e;
-  return svt::launch(coder_bwd_tc<kSae, kAct>, H / kTcBwdTH,
+  return svt::launch(coder_bwd_tc<kSae, kAct>, dim3(H / kTcBwdTH, n_combo),
                      bwd_tc_smem_bytes(kAct == Act::Relu ? 2 : 3), stream, mx, mwe, mwd, merr,
                      b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in,
                      c_out, H, sae);
@@ -2635,12 +2774,14 @@ template <bool kSae, Act kAct>
 cudaError_t bwd_simt(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
                      const void* err, const float* coeffs, const float* ct, float* dw_enc,
                      float* db_enc, float* dw_dec, float* db_dec_part, int n_tokens, int c_in,
-                     int c_out, int H, const SaeBwd& sae, cudaStream_t stream) {
-  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
-  return svt::launch(coder_bwd_kernel<float, kSae, kAct>, H / kBwdTH, bwd_smem_bytes(), stream,
-                     static_cast<const float*>(x), static_cast<const float*>(w_enc), b_enc,
-                     static_cast<const float*>(w_dec), static_cast<const float*>(err), coeffs,
-                     ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H, sae);
+                     int c_out, int H, const SaeBwd& sae, cudaStream_t stream,
+                     int n_combo = 1) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || bad_combos(n_combo, H)) return cudaErrorInvalidValue;
+  return svt::launch(coder_bwd_kernel<float, kSae, kAct>, dim3(H / kBwdTH, n_combo),
+                     bwd_smem_bytes(), stream, static_cast<const float*>(x),
+                     static_cast<const float*>(w_enc), b_enc, static_cast<const float*>(w_dec),
+                     static_cast<const float*>(err), coeffs, ct, dw_enc, db_enc, dw_dec,
+                     db_dec_part, n_tokens, c_in, c_out, H, sae);
 }
 
 template <bool kSae>
@@ -2648,14 +2789,15 @@ cudaError_t coder_bwd(int bf16, const void* x, const void* w_enc, const float* b
                       const void* w_dec, const void* err, const float* coeffs, const float* ct,
                       float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
                       int n_tokens, int c_in, int c_out, int H, const SaeBwd& sae,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, int n_combo = 1) {
   if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
   if (bf16)
     return bwd_tc<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, sae.lv.n * n_tokens, coeffs, ct,
                                    dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H,
-                                   sae, stream);
+                                   sae, stream, n_combo);
   return bwd_simt<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
-                                   dw_dec, db_dec_part, n_tokens, c_in, c_out, H, sae, stream);
+                                   dw_dec, db_dec_part, n_tokens, c_in, c_out, H, sae, stream,
+                                   n_combo);
 }
 
 }  // namespace

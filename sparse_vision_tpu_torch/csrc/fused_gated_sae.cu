@@ -3,6 +3,11 @@
 // Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_gated_sae.py:
 //   svt_gated_fwd <- _fwd_kernel (:42), launched by pallas_call :234
 //   svt_gated_bwd <- _bwd_kernel (:98), launched by pallas_call :292
+//   svt_gated_sweep_fwd / _bwd <- both under jax.vmap (train/sweep_vmap.py
+//       :144-149, :213-215): n_combo stacked dictionaries on one shared x in
+//       one launch of each body (coder.cuh, "Combos"; the forward above C 256
+//       two, each for all combos); the one-dictionary entry points are their
+//       n_combo = 1 calls
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
 // H = 16,384 latents) the forward is 6*T*C*H = 0.82 TFLOP (one gate product
@@ -67,20 +72,23 @@
 
 #include "coder.cuh"
 
-// er is exp(r_mag) [H] in f32; x_cent is an [n_tokens, C] workspace in the
-// operand type (center_kernel's output); act_part and l1_part (the zsum
-// partials of relu_pi, whose total is the L1 sum) are [n_tokens / 64, H].
-// bf16 != 0: __nv_bfloat16 operands (fwd_tc: one launch to C = 256, two
-// wider), else float (fwd_simt: two launches).
-extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
-                             const float* b_gate, const float* b_mag, const float* er,
-                             const void* w_dec, const float* b_dec, float* recon, float* via,
-                             float* act_part, float* row_active, float* l1_part, void* x_cent,
-                             int n_tokens, int C, int H, cudaStream_t stream) {
-  if (bad_shape(n_tokens, C, C, H) ||
+// x is the [n_tokens, C] input shared by the n_combo combos; every other
+// operand and output has a leading [n_combo] axis: er is exp(r_mag) [n_combo,
+// H] in f32; x_cent an [n_combo, n_tokens, C] workspace in the operand type
+// (center_kernel's output); act_part and l1_part (the zsum partials of
+// relu_pi, whose total is the L1 sum) [n_combo, n_tokens / 64, H]. bf16 != 0:
+// __nv_bfloat16 operands (fwd_tc: one launch to C = 256, two wider), else
+// float (fwd_simt: two launches).
+extern "C" int svt_gated_sweep_fwd(int bf16, const void* x, const void* w_gate,
+                                   const float* b_gate, const float* b_mag, const float* er,
+                                   const void* w_dec, const float* b_dec, float* recon,
+                                   float* via, float* act_part, float* row_active,
+                                   float* l1_part, void* x_cent, int n_tokens, int C, int H,
+                                   int n_combo, cudaStream_t stream) {
+  if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
       (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)))
     return cudaErrorInvalidValue;
-  cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream);
+  cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo);
   if (e != cudaSuccess) return e;
   const svt::Levels lv = svt::one_level(H);
   ActFwd af{};
@@ -89,52 +97,67 @@ extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
   if (bf16 && C <= 256) {  // recon and via held together
     af.via = via;
     return fwd_tc<false, Act::Gated>(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part,
-                                     row_active, l1_part, n_tokens, C, C, H, lv, af, stream);
+                                     row_active, l1_part, n_tokens, C, C, H, lv, af, stream,
+                                     n_combo);
   }
   const auto route = bf16 ? fwd_tc<false, Act::GatedEnc> : fwd_simt<false, Act::GatedEnc>;
   if ((e = route(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part, row_active, nullptr,
-                 n_tokens, C, C, H, lv, af, stream)) != cudaSuccess)
+                 n_tokens, C, C, H, lv, af, stream, n_combo)) != cudaSuccess)
     return e;
   const auto pi = bf16 ? fwd_tc<false, Act::GatedPi> : fwd_simt<false, Act::GatedPi>;
   return pi(x_cent, w_gate, b_gate, w_dec, b_dec, via, nullptr, nullptr, l1_part, n_tokens, C,
-            C, H, lv, af, stream);
+            C, H, lv, af, stream, n_combo);
 }
 
-// err_rec and err_via are the f32 residuals recon - x and via - x [n_tokens, C];
-// coeffs is a 3-float device array (c_rec, c_l1, c_aux). x_cent [n_tokens, C]
-// and err_s [2, n_tokens, C] are workspaces in the operand type, and
-// db_dec_part holds the direct rows of db_dec, then one centring row per 64
-// latents (H / 64 rows). bf16: err_s gets scale_err_kernel's round_bf16(c_rec
-// * err_rec) (with the ceil(n_tokens / 512) direct rows) and round_bf16(c_aux
-// * err_via), then coder_bwd_tc<true, Act::Gated>; float: err_s gets copies of
-// err_rec and err_via, then coder_bwd_kernel<float, true, Act::Gated> (2 direct
-// rows).
-extern "C" int svt_gated_bwd(int bf16, const void* x, const void* w_gate,
+extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
                              const float* b_gate, const float* b_mag, const float* er,
-                             const void* w_dec, const float* b_dec, const float* err_rec,
-                             const float* err_via, const float* coeffs, float* dw_gate,
-                             float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
-                             float* db_dec_part, void* x_cent, void* err_s, int n_tokens, int C,
-                             int H, cudaStream_t stream) {
-  if (bad_shape(n_tokens, C, C, H) ||
+                             const void* w_dec, const float* b_dec, float* recon, float* via,
+                             float* act_part, float* row_active, float* l1_part, void* x_cent,
+                             int n_tokens, int C, int H, cudaStream_t stream) {
+  return svt_gated_sweep_fwd(bf16, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via,
+                             act_part, row_active, l1_part, x_cent, n_tokens, C, H, 1, stream);
+}
+
+// err_rec and err_via are the f32 residuals recon - x and via - x [n_combo,
+// n_tokens, C]; coeffs is an [n_combo, 3] device array (c_rec, c_l1, c_aux).
+// x_cent [n_combo, n_tokens, C] and err_s [n_combo, 2, n_tokens, C] are
+// workspaces in the operand type, and db_dec_part [n_combo, rows, C] holds a
+// combo's direct rows of db_dec, then one centring row per 64 latents (H / 64
+// rows). bf16: err_s gets scale_err_kernel's round_bf16(c_rec * err_rec)
+// (with the ceil(n_tokens / 512) direct rows) and round_bf16(c_aux *
+// err_via), then coder_bwd_tc<true, Act::Gated>; float: err_s gets copies of
+// err_rec and err_via, then coder_bwd_kernel<float, true, Act::Gated> (2
+// direct rows).
+extern "C" int svt_gated_sweep_bwd(int bf16, const void* x, const void* w_gate,
+                                   const float* b_gate, const float* b_mag, const float* er,
+                                   const void* w_dec, const float* b_dec, const float* err_rec,
+                                   const float* err_via, const float* coeffs, float* dw_gate,
+                                   float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
+                                   float* db_dec_part, void* x_cent, void* err_s, int n_tokens,
+                                   int C, int H, int n_combo, cudaStream_t stream) {
+  if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
       (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)))
     return cudaErrorInvalidValue;
   const long n = static_cast<long>(n_tokens) * C;
   const long direct = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
+  const long part = (direct + H / kTcBwdTH) * C;  // a combo's db_dec_part
   cudaError_t e;
-  if ((e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream)) != cudaSuccess) return e;
+  if ((e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo)) != cudaSuccess)
+    return e;
   if (bf16) {
-    if ((e = launch_scale_err(err_rec, coeffs, err_s, db_dec_part, n_tokens, C, stream)) !=
-            cudaSuccess ||
+    if ((e = launch_scale_err(err_rec, coeffs, err_s, db_dec_part, n_tokens, C, stream, n_combo,
+                              2 * n, part, 3)) != cudaSuccess ||
         (e = launch_scale_err(err_via, coeffs + 2, static_cast<__nv_bfloat16*>(err_s) + n,
-                              nullptr, n_tokens, C, stream)) != cudaSuccess)
+                              nullptr, n_tokens, C, stream, n_combo, 2 * n, 0, 3)) !=
+            cudaSuccess)
       return e;
   } else {
     float* es = static_cast<float*>(err_s);
-    if ((e = cudaMemcpyAsync(es, err_rec, n * sizeof(float), cudaMemcpyDeviceToDevice,
-                             stream)) != cudaSuccess ||
-        (e = cudaMemcpyAsync(es + n, err_via, n * sizeof(float), cudaMemcpyDeviceToDevice,
-                             stream)) != cudaSuccess)
+    const size_t row = n * sizeof(float);  // one combo's error, into its half of err_s
+    if ((e = cudaMemcpy2DAsync(es, 2 * row, err_rec, row, row, n_combo,
+                               cudaMemcpyDeviceToDevice, stream)) != cudaSuccess ||
+        (e = cudaMemcpy2DAsync(es + n, 2 * row, err_via, row, row, n_combo,
+                               cudaMemcpyDeviceToDevice, stream)) != cudaSuccess)
       return e;
   }
   SaeBwd sae{svt::one_level(H), w_gate, db_dec_part + direct * C};
@@ -145,8 +168,20 @@ extern "C" int svt_gated_bwd(int bf16, const void* x, const void* w_gate,
   if (bf16)
     return bwd_tc<true, Act::Gated>(x_cent, w_gate, b_gate, w_dec, err_s, 2 * n_tokens, coeffs,
                                     nullptr, dw_gate, db_gate, dw_dec, nullptr, n_tokens, C, C,
-                                    H, sae, stream);
+                                    H, sae, stream, n_combo);
   return bwd_simt<true, Act::Gated>(x_cent, w_gate, b_gate, w_dec, err_s, coeffs, nullptr,
                                     dw_gate, db_gate, dw_dec, db_dec_part, n_tokens, C, C, H, sae,
-                                    stream);
+                                    stream, n_combo);
+}
+
+extern "C" int svt_gated_bwd(int bf16, const void* x, const void* w_gate,
+                             const float* b_gate, const float* b_mag, const float* er,
+                             const void* w_dec, const float* b_dec, const float* err_rec,
+                             const float* err_via, const float* coeffs, float* dw_gate,
+                             float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
+                             float* db_dec_part, void* x_cent, void* err_s, int n_tokens, int C,
+                             int H, cudaStream_t stream) {
+  return svt_gated_sweep_bwd(bf16, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec,
+                             err_via, coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec,
+                             db_dec_part, x_cent, err_s, n_tokens, C, H, 1, stream);
 }

@@ -3,6 +3,10 @@
 // Replaces the Pallas TPU kernels of sparse_vision_tpu/ops/fused_jumprelu_sae.py:
 //   svt_jumprelu_fwd <- _fwd_kernel (:30), launched by pallas_call :192
 //   svt_jumprelu_bwd <- _bwd_kernel (:80), launched by pallas_call :248
+//   svt_jumprelu_sweep_fwd / _bwd <- both under jax.vmap (train/sweep_vmap.py
+//       :150-157, :213-215): n_combo stacked dictionaries on one shared x in
+//       one launch of each body (coder.cuh, "Combos"); the one-dictionary
+//       entry points are their n_combo = 1 calls
 //
 // What bounds them. At the training shape (T = 32,768 tokens, C = 256 channels,
 // H = 16,384 latents) the forward is 4*T*C*H = 0.55 TFLOP and the backward
@@ -51,52 +55,71 @@
 
 #include "coder.cuh"
 
-// thr is exp(log_threshold) [H] in f32; x_cent is an [n_tokens, C] workspace in
-// the operand type (center_kernel's output); act_part and l1_part (the zsum
-// partials of post, whose total is the L1 sum) are [n_tokens / 64, H]. bf16 !=
-// 0: __nv_bfloat16 operands (fwd_tc), else float (fwd_simt).
-extern "C" int svt_jumprelu_fwd(int bf16, const void* x, const void* w_enc,
-                                const float* b_enc, const float* thr, const void* w_dec,
-                                const float* b_dec, float* recon, float* act_part,
-                                float* row_active, float* l1_part, void* x_cent, int n_tokens,
-                                int C, int H, cudaStream_t stream) {
-  if (bad_shape(n_tokens, C, C, H) ||
+// x is the [n_tokens, C] input shared by the n_combo combos; every other
+// operand and output has a leading [n_combo] axis: thr is exp(log_threshold)
+// [n_combo, H] in f32; x_cent an [n_combo, n_tokens, C] workspace in the
+// operand type (center_kernel's output); act_part and l1_part (the zsum
+// partials of post, whose total is the L1 sum) [n_combo, n_tokens / 64, H].
+// bf16 != 0: __nv_bfloat16 operands (fwd_tc), else float (fwd_simt).
+extern "C" int svt_jumprelu_sweep_fwd(int bf16, const void* x, const void* w_enc,
+                                      const float* b_enc, const float* thr, const void* w_dec,
+                                      const float* b_dec, float* recon, float* act_part,
+                                      float* row_active, float* l1_part, void* x_cent,
+                                      int n_tokens, int C, int H, int n_combo,
+                                      cudaStream_t stream) {
+  if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
       (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)))
     return cudaErrorInvalidValue;
-  const cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream);
+  const cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo);
   if (e != cudaSuccess) return e;
   ActFwd af{};
   af.theta = thr;
   const svt::Levels lv = svt::one_level(H);
   if (bf16)
     return fwd_tc<false, Act::Jump>(x_cent, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                                    row_active, l1_part, n_tokens, C, C, H, lv, af, stream);
+                                    row_active, l1_part, n_tokens, C, C, H, lv, af, stream,
+                                    n_combo);
   return fwd_simt<false, Act::Jump>(x_cent, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                                    row_active, l1_part, n_tokens, C, C, H, lv, af, stream);
+                                    row_active, l1_part, n_tokens, C, C, H, lv, af, stream,
+                                    n_combo);
 }
 
-// err is the f32 residual recon - x [n_tokens, C]; coeffs is a 2-float device
-// array (c_rec, c_l0); eps, eps/2 and -1/eps come from the host in f32. x_cent
-// is an [n_tokens, C] workspace in the operand type (center_kernel's output)
-// and db_dec_part holds the direct rows of db_dec, then one centring row per 64
-// latents (H / 64 rows). bf16: err_s is an [n_tokens, C] bf16 workspace
+extern "C" int svt_jumprelu_fwd(int bf16, const void* x, const void* w_enc,
+                                const float* b_enc, const float* thr, const void* w_dec,
+                                const float* b_dec, float* recon, float* act_part,
+                                float* row_active, float* l1_part, void* x_cent, int n_tokens,
+                                int C, int H, cudaStream_t stream) {
+  return svt_jumprelu_sweep_fwd(bf16, x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part,
+                                row_active, l1_part, x_cent, n_tokens, C, H, 1, stream);
+}
+
+// err is the f32 residual recon - x [n_combo, n_tokens, C]; coeffs is an
+// [n_combo, 2] device array (c_rec, c_l0); eps, eps/2 and -1/eps come from the
+// host in f32 (shared). x_cent is an [n_combo, n_tokens, C] workspace in the
+// operand type (center_kernel's output) and db_dec_part [n_combo, rows, C]
+// holds a combo's direct rows of db_dec, then one centring row per 64 latents
+// (H / 64 rows). bf16: err_s is an [n_combo, n_tokens, C] bf16 workspace
 // (scale_err_kernel's round_bf16(c_rec * err), with the ceil(n_tokens / 512)
 // direct rows), then coder_bwd_tc<true, Act::Jump>; float: err_s unused, 2
 // direct rows, coder_bwd_kernel<float, true, Act::Jump> on err.
-extern "C" int svt_jumprelu_bwd(int bf16, const void* x, const void* w_enc,
-                                const float* b_enc, const float* thr, const void* w_dec,
-                                const float* b_dec, const float* err, const float* coeffs,
-                                float eps, float half_eps, float neg_inv_eps,
-                                float* dw_enc, float* db_enc, float* dthr, float* dw_dec,
-                                float* db_dec_part, void* x_cent, void* err_s, int n_tokens,
-                                int C, int H, cudaStream_t stream) {
-  if (bad_shape(n_tokens, C, C, H) ||
+extern "C" int svt_jumprelu_sweep_bwd(int bf16, const void* x, const void* w_enc,
+                                      const float* b_enc, const float* thr, const void* w_dec,
+                                      const float* b_dec, const float* err,
+                                      const float* coeffs, float eps, float half_eps,
+                                      float neg_inv_eps, float* dw_enc, float* db_enc,
+                                      float* dthr, float* dw_dec, float* db_dec_part,
+                                      void* x_cent, void* err_s, int n_tokens, int C, int H,
+                                      int n_combo, cudaStream_t stream) {
+  if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
       (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)))
     return cudaErrorInvalidValue;
   const long direct = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
+  const long part = (direct + H / kTcBwdTH) * C;  // a combo's db_dec_part
   cudaError_t e;
-  if ((e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream)) != cudaSuccess ||
-      (bf16 && (e = launch_scale_err(err, coeffs, err_s, db_dec_part, n_tokens, C, stream)) !=
+  if ((e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo)) !=
+          cudaSuccess ||
+      (bf16 && (e = launch_scale_err(err, coeffs, err_s, db_dec_part, n_tokens, C, stream,
+                                     n_combo, static_cast<long>(n_tokens) * C, part, 2)) !=
                    cudaSuccess))
     return e;
   SaeBwd sae{svt::one_level(H), w_enc, db_dec_part + direct * C};
@@ -108,7 +131,20 @@ extern "C" int svt_jumprelu_bwd(int bf16, const void* x, const void* w_enc,
   if (bf16)
     return bwd_tc<true, Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, n_tokens, coeffs,
                                    nullptr, dw_enc, db_enc, dw_dec, nullptr, n_tokens, C, C, H,
-                                   sae, stream);
+                                   sae, stream, n_combo);
   return bwd_simt<true, Act::Jump>(x_cent, w_enc, b_enc, w_dec, err, coeffs, nullptr, dw_enc,
-                                   db_enc, dw_dec, db_dec_part, n_tokens, C, C, H, sae, stream);
+                                   db_enc, dw_dec, db_dec_part, n_tokens, C, C, H, sae, stream,
+                                   n_combo);
+}
+
+extern "C" int svt_jumprelu_bwd(int bf16, const void* x, const void* w_enc,
+                                const float* b_enc, const float* thr, const void* w_dec,
+                                const float* b_dec, const float* err, const float* coeffs,
+                                float eps, float half_eps, float neg_inv_eps,
+                                float* dw_enc, float* db_enc, float* dthr, float* dw_dec,
+                                float* db_dec_part, void* x_cent, void* err_s, int n_tokens,
+                                int C, int H, cudaStream_t stream) {
+  return svt_jumprelu_sweep_bwd(bf16, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, eps,
+                                half_eps, neg_inv_eps, dw_enc, db_enc, dthr, dw_dec,
+                                db_dec_part, x_cent, err_s, n_tokens, C, H, 1, stream);
 }

@@ -10,6 +10,9 @@
 //   svt_matryoshka_fwd  <- fused_matryoshka_sae.py _fwd_kernel (:99), pallas_call :292
 //   svt_matryoshka_bwd  <- fused_matryoshka_sae.py _bwd_kernel (:155), pallas_call :371
 //   svt_matryoshka_dx   <- fused_matryoshka_sae.py _dx_kernel (:227), pallas_call :404
+//   svt_sae_sweep_fwd / _bwd, svt_matryoshka_sweep_fwd / _bwd <- the forward and
+//       backward kernels above under jax.vmap (train/sweep_vmap.py:138-175,
+//       :213-215), one launch for all combos
 //
 // All six run the coder body family (coder.cuh: wgmma/TMA bodies in bf16, SIMT
 // bodies in f32, any width) with Cin = Cout = C. The SAE is that dictionary on
@@ -53,6 +56,15 @@
 // (activity counts, the L1 sum, both terms of db_dec): no float atomics, so
 // two runs on the same inputs give the same bits.
 //
+// The sweep's entry points (svt_sae_sweep_fwd / _bwd, svt_matryoshka_sweep_fwd /
+// _bwd) run n_combo stacked dictionaries of one shape on one shared x [T, C]
+// in one launch of each body, the combo as the grid's y dimension (coder.cuh,
+// "Combos"; the Pallas kernels under jax.vmap in train/sweep_vmap.py, whose
+// batching rule adds the combo as the outer grid dimension): every operand
+// but x and every output gains a leading [n_combo] axis, center_kernel writes
+// each combo's x_cent [n_combo, T, C] from its own b_dec. The one-dictionary
+// entry points are their n_combo = 1 calls.
+//
 // Entry points use a plain C interface (pointers, sizes, stream) and return the
 // cudaError_t of the launch; the Python wrappers (ops/fused_sae.py,
 // ops/fused_matryoshka_sae.py) raise on a non-zero value. Supported shapes:
@@ -65,29 +77,34 @@
 namespace {
 
 // The forward: center_kernel into x_cent, then the coder forward on x_cent.
+// n_combo dictionaries (stacked operands; x shared) in one launch of each.
 template <bool kPrefix>
 cudaError_t sae_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                     const void* w_dec, const float* b_dec, void* x_cent, float* recon,
                     float* act_part, float* row_active, float* zsum_part, int n_tokens, int C,
-                    int H, const svt::Levels& lv, cudaStream_t stream) {
-  if (bad_shape(n_tokens, C, C, H) || (bf16 && bad_tc_operands(C, C, x, x_cent, x_cent, x_cent)))
+                    int H, const svt::Levels& lv, int n_combo, cudaStream_t stream) {
+  if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
+      (bf16 && bad_tc_operands(C, C, x, x_cent, x_cent, x_cent)))
     return cudaErrorInvalidValue;
-  cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream);
+  cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo);
   if (e != cudaSuccess) return e;
   return coder_fwd<kPrefix>(bf16, x_cent, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                            row_active, zsum_part, n_tokens, C, C, H, lv, stream);
+                            row_active, zsum_part, n_tokens, C, C, H, lv, stream, n_combo);
 }
 
 // The backward on x_cent: db_dec_part holds the direct rows (coder_bwd's) and
 // then H / 64 rows of the centring term.
+// n_combo dictionaries as sae_fwd's: a combo's db_dec_part is [direct rows + H /
+// 64, C], whose centring rows SaeBwd::db_cent points into (combo 0's).
 cudaError_t sae_bwd(int bf16, const void* x_cent, const void* w_enc, const float* b_enc,
                     const void* w_dec, const void* err, const float* coeffs, const float* ct,
                     float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
-                    int n_tokens, int C, int H, const svt::Levels& lv, cudaStream_t stream) {
+                    int n_tokens, int C, int H, const svt::Levels& lv, int n_combo,
+                    cudaStream_t stream) {
   const long direct_rows = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
   return coder_bwd<true>(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
                          dw_dec, db_dec_part, n_tokens, C, C, H,
-                         SaeBwd{lv, w_enc, db_dec_part + direct_rows * C}, stream);
+                         SaeBwd{lv, w_enc, db_dec_part + direct_rows * C}, stream, n_combo);
 }
 
 // The dx route of the forward bodies (kDx, coder.cuh), c_in = c_out = C: dx
@@ -137,31 +154,54 @@ cudaError_t sae_dx(int bf16, const void* x, const void* w_enc, const float* b_en
 // float.
 // ---------------------------------------------------------------------------
 
-// x_cent is [n_tokens, C] in the operand type; recon [n_tokens, C] f32;
-// act_part and zsum_part [n_tokens / 64, H] (per-64-token partials),
-// row_active [n_tokens].
+// x is the [T, C] input shared by the n_combo combos, w_enc [n_combo, C, H],
+// b_enc [n_combo, H], w_dec [n_combo, H, C], b_dec [n_combo, C]; x_cent is
+// [n_combo, T, C] in the operand type; recon [n_combo, T, C] f32; act_part and
+// zsum_part [n_combo, T / 64, H] (per-64-token partials), row_active [n_combo,
+// T].
+extern "C" int svt_sae_sweep_fwd(int bf16, const void* x, const void* w_enc,
+                                 const float* b_enc, const void* w_dec, const float* b_dec,
+                                 void* x_cent, float* recon, float* act_part, float* row_active,
+                                 float* zsum_part, int n_tokens, int C, int H, int n_combo,
+                                 cudaStream_t stream) {
+  return sae_fwd<false>(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, recon, act_part,
+                        row_active, zsum_part, n_tokens, C, H, svt::one_level(H), n_combo,
+                        stream);
+}
+
+// one dictionary: the sweep's entry point at n_combo = 1
 extern "C" int svt_sae_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                            const void* w_dec, const float* b_dec, void* x_cent, float* recon,
                            float* act_part, float* row_active, float* zsum_part, int n_tokens,
                            int C, int H, cudaStream_t stream) {
-  return sae_fwd<false>(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, recon, act_part,
-                        row_active, zsum_part, n_tokens, C, H, svt::one_level(H), stream);
+  return svt_sae_sweep_fwd(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, recon, act_part,
+                           row_active, zsum_part, n_tokens, C, H, 1, stream);
 }
 
-// err is the [T, C] residual recon - x; coeffs is a 2-float device array (c_rec,
-// c_l1), ct the [H] L1 cotangent (c_l1 broadcast); db_dec_part is [direct rows +
-// H / 64, C] (direct rows: ceil(T / 512) in bf16, 2 in f32).
+// err is the [n_combo, T, C] residual recon - x; coeffs is a [n_combo, 2] device
+// array (c_rec, c_l1), ct the [n_combo, H] L1 cotangent (c_l1 broadcast);
+// db_dec_part is [n_combo, direct rows + H / 64, C] (direct rows: ceil(T / 512)
+// in bf16, 2 in f32); x_cent, the weights and the gradients [n_combo, ...].
+extern "C" int svt_sae_sweep_bwd(int bf16, const void* x_cent, const void* w_enc,
+                                 const float* b_enc, const void* w_dec, const void* err,
+                                 const float* coeffs, const float* ct, float* dw_enc,
+                                 float* db_enc, float* dw_dec, float* db_dec_part, int n_tokens,
+                                 int C, int H, int n_combo, cudaStream_t stream) {
+  return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
+                 db_dec_part, n_tokens, C, H, svt::one_level(H), n_combo, stream);
+}
+
 extern "C" int svt_sae_bwd(int bf16, const void* x_cent, const void* w_enc, const float* b_enc,
                            const void* w_dec, const void* err, const float* coeffs,
                            const float* ct, float* dw_enc, float* db_enc, float* dw_dec,
                            float* db_dec_part, int n_tokens, int C, int H,
                            cudaStream_t stream) {
-  return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
-                 db_dec_part, n_tokens, C, H, svt::one_level(H), stream);
+  return svt_sae_sweep_bwd(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
+                           dw_dec, db_dec_part, n_tokens, C, H, 1, stream);
 }
 
 // dx is [T, C] f32; x_cent is the forward's centred input, err the [T, C]
-// residual in the operand type, coeffs = (c_rec, c_l1).
+// residual in the operand type, coeffs = (c_rec, c_l1). One dictionary.
 extern "C" int svt_sae_dx(int bf16, const void* x_cent, const void* w_enc, const float* b_enc,
                           const void* w_dec, const void* err, const float* coeffs, float* out,
                           int n_tokens, int C, int H, cudaStream_t stream) {
@@ -171,37 +211,60 @@ extern "C" int svt_sae_dx(int bf16, const void* x_cent, const void* w_enc, const
 
 // ---------------------------------------------------------------------------
 // Matryoshka SAE (ops/fused_matryoshka_sae.py): ``bounds`` is a host array of
-// the n_levels prefix latent counts. s is the [P, T, C] suffix-weighted error
-// and coeffs = (1, c_l1).
+// the n_levels prefix latent counts, shared by the combos. s is the [n_combo,
+// P, T, C] suffix-weighted error and coeffs [n_combo, 2] = (1, c_l1).
 // ---------------------------------------------------------------------------
 
-// prefix_recon is [P, T, C] f32; x_cent, act_part, zsum_part and row_active as
-// for svt_sae_fwd.
+// prefix_recon is [n_combo, P, T, C] f32; x_cent, act_part, zsum_part and
+// row_active as for svt_sae_sweep_fwd.
+extern "C" int svt_matryoshka_sweep_fwd(int bf16, const void* x, const void* w_enc,
+                                        const float* b_enc, const void* w_dec,
+                                        const float* b_dec, void* x_cent, float* prefix_recon,
+                                        float* act_part, float* row_active, float* zsum_part,
+                                        int n_tokens, int C, int H, const int* bounds,
+                                        int n_levels, int n_combo, cudaStream_t stream) {
+  svt::Levels lv;
+  if (!svt::make_levels(bounds, n_levels, H, kFwdLG, &lv)) return cudaErrorInvalidValue;
+  return sae_fwd<true>(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, prefix_recon, act_part,
+                       row_active, zsum_part, n_tokens, C, H, lv, n_combo, stream);
+}
+
 extern "C" int svt_matryoshka_fwd(int bf16, const void* x, const void* w_enc,
                                   const float* b_enc, const void* w_dec, const float* b_dec,
                                   void* x_cent, float* prefix_recon, float* act_part,
                                   float* row_active, float* zsum_part, int n_tokens, int C,
                                   int H, const int* bounds, int n_levels, cudaStream_t stream) {
-  svt::Levels lv;
-  if (!svt::make_levels(bounds, n_levels, H, kFwdLG, &lv)) return cudaErrorInvalidValue;
-  return sae_fwd<true>(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, prefix_recon, act_part,
-                       row_active, zsum_part, n_tokens, C, H, lv, stream);
+  return svt_matryoshka_sweep_fwd(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, prefix_recon,
+                                  act_part, row_active, zsum_part, n_tokens, C, H, bounds,
+                                  n_levels, 1, stream);
 }
 
-// db_dec_part as for svt_sae_bwd; the direct rows sum S_0.
+// db_dec_part as for svt_sae_sweep_bwd; the direct rows sum S_0.
+extern "C" int svt_matryoshka_sweep_bwd(int bf16, const void* x_cent, const void* w_enc,
+                                        const float* b_enc, const void* w_dec, const void* s,
+                                        const float* coeffs, const float* ct, float* dw_enc,
+                                        float* db_enc, float* dw_dec, float* db_dec_part,
+                                        int n_tokens, int C, int H, const int* bounds,
+                                        int n_levels, int n_combo, cudaStream_t stream) {
+  svt::Levels lv;
+  if (!svt::make_levels(bounds, n_levels, H, kFwdLG, &lv)) return cudaErrorInvalidValue;
+  return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, dw_enc, db_enc, dw_dec,
+                 db_dec_part, n_tokens, C, H, lv, n_combo, stream);
+}
+
 extern "C" int svt_matryoshka_bwd(int bf16, const void* x_cent, const void* w_enc,
                                   const float* b_enc, const void* w_dec, const void* s,
                                   const float* coeffs, const float* ct, float* dw_enc,
                                   float* db_enc, float* dw_dec, float* db_dec_part,
                                   int n_tokens, int C, int H, const int* bounds, int n_levels,
                                   cudaStream_t stream) {
-  svt::Levels lv;
-  if (!svt::make_levels(bounds, n_levels, H, kFwdLG, &lv)) return cudaErrorInvalidValue;
-  return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, dw_enc, db_enc, dw_dec,
-                 db_dec_part, n_tokens, C, H, lv, stream);
+  return svt_matryoshka_sweep_bwd(bf16, x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, dw_enc,
+                                  db_enc, dw_dec, db_dec_part, n_tokens, C, H, bounds, n_levels,
+                                  1, stream);
 }
 
-// dx as for svt_sae_dx, from the suffix-weighted error S [P, T, C].
+// dx as for svt_sae_dx, from the suffix-weighted error S [P, T, C]. One
+// dictionary.
 extern "C" int svt_matryoshka_dx(int bf16, const void* x_cent, const void* w_enc,
                                  const float* b_enc, const void* w_dec, const void* s,
                                  const float* coeffs, float* out, int n_tokens, int C, int H,

@@ -26,15 +26,17 @@ __device__ __forceinline__ float round_cd(float v) {
   }
 }
 
-// Launch ``kernel`` on ``blocks`` x kThreads with ``smem`` bytes of dynamic shared
-// memory; returns the cudaError_t of the attribute call or of the launch.
+// Launch ``kernel`` on ``grid`` blocks of kThreads with ``smem`` bytes of dynamic
+// shared memory; returns the cudaError_t of the attribute call or of the launch.
+// The coder bodies take grid (blocks of one dictionary, combos): the combo axis
+// is blockIdx.y (coder.cuh, "Combos").
 template <typename... KArgs, typename... Args>
-cudaError_t launch(void (*kernel)(KArgs...), int blocks, size_t smem, cudaStream_t stream,
+cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem, cudaStream_t stream,
                    Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

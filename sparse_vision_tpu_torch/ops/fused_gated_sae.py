@@ -49,6 +49,12 @@ whole-batch row sum of ``dg`` to bf16 once, where the TPU kernel rounds each
 1024-token tile's partial sum, so bf16 ``db_dec`` agrees with the JAX op within
 a tolerance and exactly in f32.
 
+The sweep (train/sweep_vmap.py; ops/fused_sae.py's docstring):
+FusedGatedSAEFunction on parameters with a leading combo axis runs N stacked
+dictionaries on one shared batch through svt_gated_sweep_fwd / _bwd, one
+launch of each pass for all combos (the forward above C 256 two,
+Act::GatedEnc and Act::GatedPi, each batched).
+
 Differentiability contract: gradients flow through ``rec_loss``, ``l1_loss`` and
 ``aux_loss`` only. ``recon`` and the statistics are marked non-differentiable,
 and ``x`` is data: its gradient is None.
@@ -69,6 +75,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     BLOCK_H,
     PART_T,
     Kernel,
+    _check_sweep,
     _expect,
     _ptrs,
     _r,
@@ -76,8 +83,11 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     center_plain,
     compute_dtype_of,
     direct_rows,
+    loss_coeffs,
     run_on_device,
     scale_err_plain,
+    stack_plain,
+    sweep_terms,
 )
 
 def fwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
@@ -206,6 +216,10 @@ def _lib() -> ctypes.CDLL:
     lib.svt_gated_fwd.argtypes = [_I] + [_P] * 13 + [_I, _I, _I, _P]
     lib.svt_gated_bwd.restype = _I
     lib.svt_gated_bwd.argtypes = [_I] + [_P] * 18 + [_I, _I, _I, _P]
+    lib.svt_gated_sweep_fwd.restype = _I
+    lib.svt_gated_sweep_fwd.argtypes = [_I] + [_P] * 13 + [_I] * 4 + [_P]
+    lib.svt_gated_sweep_bwd.restype = _I
+    lib.svt_gated_sweep_bwd.argtypes = [_I] + [_P] * 18 + [_I] * 4 + [_P]
     return lib
 
 
@@ -307,7 +321,8 @@ def fused_gated_backward(*args, kernel=bwd_kernel):
 class FusedGatedSAEFunction(torch.autograd.Function):
     """(x, W_gate, b_gate, b_mag, r_mag, W_dec, b_dec) -> (rec_loss, l1_loss,
     aux_loss, recon, act_count, row_active), the counterpart of the JAX op's
-    custom_vjp."""
+    custom_vjp; with a sweep's leading [N] axis on the parameters (x shared)
+    every output gains it, one launch of each sweep entry point."""
 
     @staticmethod
     def forward(ctx, x, w_gate, b_gate, b_mag, r_mag, w_dec, b_dec, compute_dtype):
@@ -315,15 +330,15 @@ class FusedGatedSAEFunction(torch.autograd.Function):
         xc, wg, wd = x.to(cd).contiguous(), w_gate.to(cd).contiguous(), w_dec.to(cd).contiguous()
         b_gate, b_mag, b_dec = b_gate.contiguous(), b_mag.contiguous(), b_dec.contiguous()
         er = torch.exp(r_mag).float().contiguous()
-        recon, via, act_count, row_active, l1_sum = fused_gated_forward(
-            xc, wg, b_gate, b_mag, er, wd, b_dec)
+        forward = fused_gated_sweep_forward if w_gate.ndim == 3 else fused_gated_forward
+        recon, via, act_count, row_active, l1_sum = forward(xc, wg, b_gate, b_mag, er, wd, b_dec)
         t, _ = x.shape
-        h = b_gate.shape[0]
+        h = b_gate.shape[-1]
         err_rec = recon - x  # f32, against x in its own dtype
         err_via = via - x
-        rec_loss = err_rec.square().mean()
+        rec_loss = err_rec.square().mean((-2, -1))
         l1_loss = l1_sum / (t * h)
-        aux_loss = err_via.square().mean()
+        aux_loss = err_via.square().mean((-2, -1))
         ctx.save_for_backward(xc, wg, b_gate, b_mag, er, wd, b_dec, err_rec, err_via)
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return rec_loss, l1_loss, aux_loss, recon, act_count, row_active
@@ -331,15 +346,12 @@ class FusedGatedSAEFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rec, g_l1, g_aux, *_unused):
         xc, wg, b_gate, b_mag, er, wd, b_dec, err_rec, err_via = ctx.saved_tensors
-        t, c = xc.shape
-        h = b_gate.shape[0]
-        zero = torch.zeros((), dtype=_F32, device=xc.device)
-        g_rec = zero if g_rec is None else g_rec.float()
-        g_l1 = zero if g_l1 is None else g_l1.float()
-        g_aux = zero if g_aux is None else g_aux.float()
-        # a device tensor, not host floats: the backward never syncs
-        coeffs = torch.stack([g_rec * 2.0 / (t * c), g_l1 / (t * h), g_aux * 2.0 / (t * c)])
-        dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec = fused_gated_backward(
+        *lead, t, c = err_rec.shape
+        h = b_gate.shape[-1]
+        coeffs = loss_coeffs((g_rec, 2.0, t * c), (g_l1, 1.0, t * h), (g_aux, 2.0, t * c),
+                             lead=tuple(lead), device=xc.device)
+        backward = fused_gated_sweep_backward if lead else fused_gated_backward
+        dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec = backward(
             xc, wg, b_gate, b_mag, er, wd, b_dec, err_rec, err_via, coeffs)
         return None, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec, None
 
@@ -368,3 +380,120 @@ def fused_gated_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: flo
         "activity_freq": act_count / t,
         "sparsity": torch.mean(row_active / (h / expansion_factor)),
     }
+
+
+# ---------------------------------------------------------------------------
+# the sweep: N stacked dictionaries on one shared batch (module docstring)
+# ---------------------------------------------------------------------------
+
+def gated_sweep_fwd_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+    """Plain version of svt_gated_sweep_fwd: fused_gated_forward_plain per combo
+    on the shared x, stacked, the sums as one partial row (recon and via [N, T,
+    C], act_part [N, 1, H], row_active [N, T], l1_part [N, 1, 1]), as the
+    kernel's partials come."""
+    recon, via, act, row_active, l1 = stack_plain(fused_gated_forward_plain, 1, x, w_gate,
+                                                  b_gate, b_mag, er, w_dec, b_dec)
+    return recon, via, act[:, None], row_active, l1[:, None, None]
+
+
+def gated_sweep_bwd_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
+                          coeffs):
+    """Plain version of svt_gated_sweep_bwd's route for x's dtype
+    (backward_plain) per combo on the shared x, stacked, db_dec as one partial
+    row [N, 1, C]; the errors [N, T, C], ``coeffs`` [N, 3]."""
+    *grads, db_dec = stack_plain(backward_plain, 1, x, w_gate, b_gate, b_mag, er, w_dec,
+                                 b_dec, err_rec, err_via, coeffs)
+    return (*grads, db_dec[:, None])
+
+
+def _check_sweep_operands(name, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+    n, t, c, h = _check_sweep(name, x, w_gate, b_gate, w_dec, b_dec)
+    for what, v in (("b_mag", b_mag), ("exp(r_mag)", er)):
+        _expect(what, v, (n, h), _F32, x.device)
+    return n, t, c, h
+
+
+class _SweepForwardKernel(Kernel):
+    """csrc svt_gated_sweep_fwd: center_kernel and the gated coder forward for
+    all N combos (bf16: one launch at C ≤ 256, two wider; f32: two), each
+    launch for every combo. Returns what gated_sweep_fwd_plain returns (one
+    partial row per 64 tokens)."""
+
+    name = "fused_gated_sae_sweep_fwd"
+
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+        n, t, c, h = _check_sweep_operands(self.name, x, w_gate, b_gate, b_mag, er, w_dec,
+                                           b_dec)
+        dev = x.device
+        recon = torch.empty((n, t, c), dtype=_F32, device=dev)
+        via = torch.empty((n, t, c), dtype=_F32, device=dev)
+        act_part = torch.empty((n, t // PART_T, h), dtype=_F32, device=dev)
+        l1_part = torch.empty_like(act_part)
+        row_active = torch.empty((n, t), dtype=_F32, device=dev)
+        x_cent = torch.empty((n, t, c), dtype=x.dtype, device=dev)
+        self._launch(_lib().svt_gated_sweep_fwd, dev,
+                     *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via, act_part,
+                            row_active, l1_part, x_cent), t, c, h, n)
+        return recon, via, act_part, row_active, l1_part
+
+
+class _SweepBackwardKernel(Kernel):
+    """csrc svt_gated_sweep_bwd: _BackwardKernel's route for all N combos, one
+    launch of each pass. Returns what gated_sweep_bwd_plain returns (db_dec's
+    partial rows)."""
+
+    name = "fused_gated_sae_sweep_bwd"
+
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs):
+        n, t, c, h = _check_sweep_operands(self.name, x, w_gate, b_gate, b_mag, er, w_dec,
+                                           b_dec)
+        dev = x.device
+        _expect("err_rec", err_rec, (n, t, c), _F32, dev)
+        _expect("err_via", err_via, (n, t, c), _F32, dev)
+        _expect("coeffs", coeffs, (n, 3), _F32, dev)
+        dw_gate = torch.empty((n, c, h), dtype=_F32, device=dev)
+        db_gate, db_mag, dr_mag = (torch.empty((n, h), dtype=_F32, device=dev) for _ in range(3))
+        dw_dec = torch.empty((n, h, c), dtype=_F32, device=dev)
+        rows = direct_rows(t, x.dtype) + h // BLOCK_H
+        db_dec_part = torch.empty((n, rows, c), dtype=_F32, device=dev)
+        x_cent = torch.empty((n, t, c), dtype=x.dtype, device=dev)
+        err_s = torch.empty((n, 2, t, c), dtype=x.dtype, device=dev)
+        self._launch(_lib().svt_gated_sweep_bwd, dev,
+                     *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
+                            coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part,
+                            x_cent, err_s), t, c, h, n)
+        return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part
+
+
+sweep_fwd_kernel = _SweepForwardKernel()
+sweep_bwd_kernel = _SweepBackwardKernel()
+SWEEP_KERNELS = (sweep_fwd_kernel, sweep_bwd_kernel)
+
+
+def fused_gated_sweep_forward(*args):
+    """The sweep forward kernel on CUDA tensors, its plain version on CPU
+    tensors; the partials reduced per combo: (recon, via [N, T,
+    C], act_count [N, H], row_active [N, T], l1_sum [N])."""
+    recon, via, act_part, row_active, l1_part = run_on_device(
+        sweep_fwd_kernel, gated_sweep_fwd_plain, *args)
+    return recon, via, act_part.sum(1), row_active, l1_part.sum((1, 2))
+
+
+def fused_gated_sweep_backward(*args):
+    """The sweep backward kernel on CUDA tensors, the plain version of its
+    route on CPU tensors; db_dec's rows reduced per combo."""
+    *grads, db_dec_part = run_on_device(sweep_bwd_kernel, gated_sweep_bwd_plain, *args)
+    return (*grads, db_dec_part.sum(1))
+
+
+def fused_gated_sweep_loss_terms(params: dict, x: torch.Tensor, lambdas: torch.Tensor,
+                                 expansion_factor: int, *, compute_dtype=_BF16) -> dict:
+    """fused_gated_sae_loss_terms for N stacked dictionaries on one shared batch
+    (fused_sae.fused_sae_sweep_loss_terms' contract): loss = rec + λ_n·l1 + aux."""
+    cd = compute_dtype_of(compute_dtype)
+    rec_loss, l1_loss, aux_loss, recon, act_count, row_active = FusedGatedSAEFunction.apply(
+        x, params["W_gate"], params["b_gate"], params["b_mag"], params["r_mag"],
+        params["W_dec"], params["b_dec"], cd)
+    return sweep_terms(rec_loss, l1_loss, act_count, row_active, x.shape[0],
+                       params["b_gate"].shape[1], expansion_factor,
+                       rec_loss + lambdas * l1_loss + aux_loss)

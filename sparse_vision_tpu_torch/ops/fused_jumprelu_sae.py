@@ -42,6 +42,12 @@ bf16: the centring term of ``db_dec`` rounds the whole-batch ``db_enc`` to bf16
 once, where the TPU kernel rounds each 2048-token tile's partial sum, so bf16
 ``db_dec`` agrees with the JAX op within a tolerance and exactly in f32.
 
+The sweep (train/sweep_vmap.py; ops/fused_sae.py's docstring):
+FusedJumpReLUSAEFunction on parameters with a leading combo axis runs N
+stacked dictionaries on one shared batch through svt_jumprelu_sweep_fwd /
+_bwd, one launch each (with their center_kernel and scale_err_kernel
+passes, each one launch for all combos).
+
 Differentiability contract: gradients flow through ``rec_loss`` and ``l0_loss``
 only (loss = rec + λ·L0). ``l1_loss``, ``recon`` and the statistics are marked
 non-differentiable, and ``x`` is data: its gradient is None.
@@ -62,6 +68,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     BLOCK_H,
     PART_T,
     Kernel,
+    _check_sweep,
     _expect,
     _ptrs,
     _r,
@@ -70,8 +77,11 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     centring_rows_plain,
     compute_dtype_of,
     direct_rows,
+    loss_coeffs,
     run_on_device,
     scale_err_plain,
+    stack_plain,
+    sweep_terms,
 )
 
 def fwd_takes(t: int, h: int, c: int = 256, dtype=_BF16) -> bool:
@@ -188,6 +198,11 @@ def _lib() -> ctypes.CDLL:
     lib.svt_jumprelu_bwd.restype = _I
     lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 7
                                      + [_I, _I, _I, _P])
+    lib.svt_jumprelu_sweep_fwd.restype = _I
+    lib.svt_jumprelu_sweep_fwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+    lib.svt_jumprelu_sweep_bwd.restype = _I
+    lib.svt_jumprelu_sweep_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 7
+                                           + [_I] * 4 + [_P])
     return lib
 
 
@@ -288,7 +303,8 @@ def fused_jumprelu_backward(*args, kernel=bwd_kernel):
 class FusedJumpReLUSAEFunction(torch.autograd.Function):
     """(x, W_enc, b_enc, log_threshold, W_dec, b_dec) -> (rec_loss, l0_loss,
     l1_loss, recon, act_count, row_active), the counterpart of the JAX op's
-    custom_vjp."""
+    custom_vjp; with a sweep's leading [N] axis on the parameters (x shared)
+    every output gains it, one launch of each sweep entry point."""
 
     @staticmethod
     def forward(ctx, x, w_enc, b_enc, log_threshold, w_dec, b_dec, compute_dtype, bandwidth):
@@ -296,13 +312,13 @@ class FusedJumpReLUSAEFunction(torch.autograd.Function):
         xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
         b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
         thr = torch.exp(log_threshold).float().contiguous()
-        recon, act_count, row_active, l1_sum = fused_jumprelu_forward(
-            xc, we, b_enc, thr, wd, b_dec)
+        forward = fused_jumprelu_sweep_forward if w_enc.ndim == 3 else fused_jumprelu_forward
+        recon, act_count, row_active, l1_sum = forward(xc, we, b_enc, thr, wd, b_dec)
         t, _ = x.shape
-        h = b_enc.shape[0]
+        h = b_enc.shape[-1]
         err = recon - x  # f32, against x in its own dtype
-        rec_loss = err.square().mean()
-        l0_loss = act_count.sum() / t
+        rec_loss = err.square().mean((-2, -1))
+        l0_loss = act_count.sum(-1) / t
         l1_loss = l1_sum / (t * h)
         ctx.save_for_backward(xc, we, b_enc, thr, wd, b_dec, err)
         ctx.bandwidth = bandwidth
@@ -312,13 +328,11 @@ class FusedJumpReLUSAEFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rec, g_l0, *_unused):
         xc, we, b_enc, thr, wd, b_dec, err = ctx.saved_tensors
-        t, c = xc.shape
-        zero = torch.zeros((), dtype=_F32, device=xc.device)
-        g_rec = zero if g_rec is None else g_rec.float()
-        g_l0 = zero if g_l0 is None else g_l0.float()
-        # a device tensor, not host floats: the backward never syncs
-        coeffs = torch.stack([g_rec * 2.0 / (t * c), g_l0 / t])
-        dw_enc, db_enc, dthr, dw_dec, db_dec = fused_jumprelu_backward(
+        *lead, t, c = err.shape
+        coeffs = loss_coeffs((g_rec, 2.0, t * c), (g_l0, 1.0, t), lead=tuple(lead),
+                             device=xc.device)
+        backward = fused_jumprelu_sweep_backward if lead else fused_jumprelu_backward
+        dw_enc, db_enc, dthr, dw_dec, db_dec = backward(
             xc, we, b_enc, thr, wd, b_dec, err, coeffs, ctx.bandwidth)
         # chain rule through θ = exp(log_θ)
         return None, dw_enc, db_enc, dthr * thr, dw_dec, db_dec, None, None
@@ -350,3 +364,117 @@ def fused_jumprelu_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: 
         "activity_freq": act_count / t,
         "sparsity": torch.mean(row_active / (h / expansion_factor)),
     }
+
+
+# ---------------------------------------------------------------------------
+# the sweep: N stacked dictionaries on one shared batch (module docstring)
+# ---------------------------------------------------------------------------
+
+def jumprelu_sweep_fwd_plain(x, w_enc, b_enc, thr, w_dec, b_dec):
+    """Plain version of svt_jumprelu_sweep_fwd: fused_jumprelu_forward_plain per
+    combo on the shared x, stacked, the sums as one partial row (recon [N, T,
+    C], act_part [N, 1, H], row_active [N, T], l1_part [N, 1, 1]), as the
+    kernel's partials come."""
+    recon, act, row_active, l1 = stack_plain(fused_jumprelu_forward_plain, 1,
+                                             x, w_enc, b_enc, thr, w_dec, b_dec)
+    return recon, act[:, None], row_active, l1[:, None, None]
+
+
+def jumprelu_sweep_bwd_plain(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
+    """Plain version of svt_jumprelu_sweep_bwd's route for x's dtype
+    (backward_plain) per combo on the shared x, stacked, db_dec as one partial
+    row [N, 1, C]; ``err`` [N, T, C], ``coeffs`` [N, 2]."""
+    *grads, db_dec = stack_plain(lambda *a: backward_plain(*a, bandwidth), 1,
+                                 x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs)
+    return (*grads, db_dec[:, None])
+
+
+def _check_sweep_operands(name, x, w_enc, b_enc, thr, w_dec, b_dec):
+    n, t, c, h = _check_sweep(name, x, w_enc, b_enc, w_dec, b_dec)
+    _expect("threshold", thr, (n, h), _F32, x.device)
+    return n, t, c, h
+
+
+class _SweepForwardKernel(Kernel):
+    """csrc svt_jumprelu_sweep_fwd: center_kernel and the JumpReLU coder forward
+    for all N combos, one launch each. Returns what jumprelu_sweep_fwd_plain
+    returns (one partial row per 64 tokens)."""
+
+    name = "fused_jumprelu_sae_sweep_fwd"
+
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec):
+        n, t, c, h = _check_sweep_operands(self.name, x, w_enc, b_enc, thr, w_dec, b_dec)
+        dev = x.device
+        recon = torch.empty((n, t, c), dtype=_F32, device=dev)
+        act_part = torch.empty((n, t // PART_T, h), dtype=_F32, device=dev)
+        l1_part = torch.empty_like(act_part)
+        row_active = torch.empty((n, t), dtype=_F32, device=dev)
+        x_cent = torch.empty((n, t, c), dtype=x.dtype, device=dev)
+        self._launch(_lib().svt_jumprelu_sweep_fwd, dev,
+                     *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part, row_active,
+                            l1_part, x_cent), t, c, h, n)
+        return recon, act_part, row_active, l1_part
+
+
+class _SweepBackwardKernel(Kernel):
+    """csrc svt_jumprelu_sweep_bwd: _BackwardKernel's route for all N combos,
+    one launch of each pass. Returns what jumprelu_sweep_bwd_plain returns
+    (db_dec's partial rows)."""
+
+    name = "fused_jumprelu_sae_sweep_bwd"
+
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
+        n, t, c, h = _check_sweep_operands(self.name, x, w_enc, b_enc, thr, w_dec, b_dec)
+        dev = x.device
+        _expect("err", err, (n, t, c), _F32, dev)
+        _expect("coeffs", coeffs, (n, 2), _F32, dev)
+        bf16 = x.dtype == _BF16
+        dw_enc = torch.empty((n, c, h), dtype=_F32, device=dev)
+        db_enc = torch.empty((n, h), dtype=_F32, device=dev)
+        dthr = torch.empty((n, h), dtype=_F32, device=dev)
+        dw_dec = torch.empty((n, h, c), dtype=_F32, device=dev)
+        rows = direct_rows(t, x.dtype) + h // BLOCK_H
+        db_dec_part = torch.empty((n, rows, c), dtype=_F32, device=dev)
+        x_cent = torch.empty((n, t, c), dtype=x.dtype, device=dev)
+        err_s = torch.empty((n, t, c), dtype=_BF16, device=dev) if bf16 else None
+        eps = float(bandwidth)
+        self._launch(_lib().svt_jumprelu_sweep_bwd, dev,
+                     *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
+                     eps, eps / 2, -1.0 / eps,
+                     *(v.data_ptr() for v in (dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent)),
+                     None if err_s is None else err_s.data_ptr(), t, c, h, n)
+        return dw_enc, db_enc, dthr, dw_dec, db_dec_part
+
+
+sweep_fwd_kernel = _SweepForwardKernel()
+sweep_bwd_kernel = _SweepBackwardKernel()
+SWEEP_KERNELS = (sweep_fwd_kernel, sweep_bwd_kernel)
+
+
+def fused_jumprelu_sweep_forward(*args):
+    """The sweep forward kernel on CUDA tensors, its plain version on CPU
+    tensors; the partials reduced per combo: (recon [N, T, C],
+    act_count [N, H], row_active [N, T], l1_sum [N])."""
+    recon, act_part, row_active, l1_part = run_on_device(
+        sweep_fwd_kernel, jumprelu_sweep_fwd_plain, *args)
+    return recon, act_part.sum(1), row_active, l1_part.sum((1, 2))
+
+
+def fused_jumprelu_sweep_backward(*args):
+    """The sweep backward kernel on CUDA tensors, the plain version of its
+    route on CPU tensors; db_dec's rows reduced per combo."""
+    *grads, db_dec_part = run_on_device(sweep_bwd_kernel, jumprelu_sweep_bwd_plain, *args)
+    return (*grads, db_dec_part.sum(1))
+
+
+def fused_jumprelu_sweep_loss_terms(params: dict, x: torch.Tensor, lambdas: torch.Tensor,
+                                    expansion_factor: int, *, compute_dtype=_BF16,
+                                    bandwidth: float = JUMPRELU_BANDWIDTH) -> dict:
+    """fused_jumprelu_sae_loss_terms for N stacked dictionaries on one shared
+    batch (fused_sae.fused_sae_sweep_loss_terms' contract): loss = rec + λ_n·L0."""
+    cd = compute_dtype_of(compute_dtype)
+    rec_loss, l0_loss, l1_loss, recon, act_count, row_active = FusedJumpReLUSAEFunction.apply(
+        x, params["W_enc"], params["b_enc"], params["log_threshold"], params["W_dec"],
+        params["b_dec"], cd, bandwidth)
+    return sweep_terms(rec_loss, l1_loss, act_count, row_active, x.shape[0],
+                       params["b_enc"].shape[1], expansion_factor, rec_loss + lambdas * l0_loss)

@@ -31,6 +31,12 @@ Kernel constraint: every prefix boundary is a multiple of the latent group
 (128, the JAX op's latent quantum), so each prefix ends at a group boundary
 (can_fuse_matryoshka).
 
+The sweep (train/sweep_vmap.py; ops/fused_sae.py's docstring):
+FusedMatryoshkaSAEFunction on parameters with a leading combo axis runs N
+stacked dictionaries on one shared batch through svt_matryoshka_sweep_fwd /
+_bwd, one launch each; the prefix boundaries depend on H only, so the combos
+share them.
+
 Differentiability contract: gradients flow through ``prefix_losses`` and
 ``l1_loss`` only; the other outputs are metrics. ``x`` gets its gradient from
 the dx entry point, dx = Σ_j round(dpre_j)·W_enc_jᵀ − S_0, when
@@ -54,6 +60,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _BF16,
     Kernel,
     _check_operands,
+    _check_sweep,
     _expect,
     _ptrs,
     _r,
@@ -62,7 +69,10 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     coder_backward_plain,
     compute_dtype_of,
     forward_outputs,
+    loss_coeffs,
     run_on_device,
+    stack_plain,
+    sweep_terms,
 )
 
 TILE_H = fused_sae.TILE_H
@@ -197,6 +207,10 @@ def _lib() -> ctypes.CDLL:
     lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P, _I, _P]
     lib.svt_matryoshka_dx.restype = _I
     lib.svt_matryoshka_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P, _I, _P]
+    lib.svt_matryoshka_sweep_fwd.restype = _I
+    lib.svt_matryoshka_sweep_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _I, _P]
+    lib.svt_matryoshka_sweep_bwd.restype = _I
+    lib.svt_matryoshka_sweep_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P, _I, _I, _P]
     return lib
 
 
@@ -302,45 +316,48 @@ def fused_matryoshka_dx(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
 
 class FusedMatryoshkaSAEFunction(torch.autograd.Function):
     """(x, W_enc, b_enc, W_dec, b_dec) -> (prefix_losses [P], l1_loss, recon,
-    act_count, row_active), the counterpart of the JAX op's custom_vjp."""
+    act_count, row_active), the counterpart of the JAX op's custom_vjp; with a
+    sweep's leading [N] axis on the parameters (x shared) every output gains
+    it, one launch of each sweep entry point (no dx: x is data there)."""
 
     @staticmethod
     def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, boundaries, compute_dtype, compute_dx):
         cd = compute_dtype
         xc, we, wd = x.to(cd).contiguous(), w_enc.to(cd).contiguous(), w_dec.to(cd).contiguous()
         b_enc, b_dec = b_enc.contiguous(), b_dec.contiguous()
-        x_cent, prefix_recon, act_count, row_active, l1_sum = fused_matryoshka_forward(
+        forward = fused_matryoshka_sweep_forward if w_enc.ndim == 3 else fused_matryoshka_forward
+        x_cent, prefix_recon, act_count, row_active, l1_sum = forward(
             xc, we, b_enc, wd, b_dec, boundaries)
         t, _ = x.shape
-        h = b_enc.shape[0]
-        # full-precision x here: the kernel saw its compute-dtype cast
-        errs = prefix_recon - x.float()[None]
-        prefix_losses = errs.square().mean((1, 2))
+        h = b_enc.shape[-1]
+        # [(N,) P, T, C]; full-precision x here: the kernel saw its compute-dtype cast
+        errs = prefix_recon - x.float()
+        prefix_losses = errs.square().mean((-2, -1))
         l1_loss = l1_sum / (t * h)
         # the backward and dx run on x_cent
         ctx.save_for_backward(x_cent, we, b_enc, wd, errs)
         ctx.boundaries, ctx.compute_dx = boundaries, compute_dx
-        recon = prefix_recon[-1]
+        recon = prefix_recon[..., -1, :, :]
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return prefix_losses, l1_loss, recon, act_count, row_active
 
     @staticmethod
     def backward(ctx, g_prefix, g_l1, *_unused):
         x_cent, we, b_enc, wd, errs = ctx.saved_tensors
-        t, c = x_cent.shape
-        h = b_enc.shape[0]
+        *lead, t, c = x_cent.shape
+        h = b_enc.shape[-1]
         dev = x_cent.device
-        zero = torch.zeros((), dtype=_F32, device=dev)
-        g_prefix = torch.zeros(errs.shape[0], dtype=_F32, device=dev) \
-            if g_prefix is None else g_prefix.float()
-        g_l1 = zero if g_l1 is None else g_l1.float()
-        weighted = (g_prefix * (2.0 / (t * c)))[:, None, None] * errs
+        if g_prefix is None:
+            g_prefix = torch.zeros(errs.shape[:-2], dtype=_F32, device=dev)
+        weighted = (g_prefix.float() * (2.0 / (t * c)))[..., None, None] * errs
         # S_q = Σ_{p≥q} c_p·err_p: a reverse cumulative sum over the levels
-        s = weighted.flip(0).cumsum(0).flip(0).to(x_cent.dtype)
-        # a device tensor, not host floats: the backward never syncs
-        coeffs = torch.stack([torch.ones((), dtype=_F32, device=dev), g_l1 / (t * h)])
-        dw_enc, db_enc, dw_dec, db_dec = fused_matryoshka_backward(
-            x_cent, we, b_enc, wd, s, coeffs, ctx.boundaries)
+        s = weighted.flip(-3).cumsum(-3).flip(-3).to(x_cent.dtype)
+        lead = tuple(lead)
+        coeffs = loss_coeffs((torch.ones(lead, dtype=_F32, device=dev), 1.0, 1.0),
+                             (g_l1, 1.0, t * h), lead=lead, device=dev)
+        backward = fused_matryoshka_sweep_backward if lead else fused_matryoshka_backward
+        dw_enc, db_enc, dw_dec, db_dec = backward(x_cent, we, b_enc, wd, s, coeffs,
+                                                  ctx.boundaries)
         dx = None
         if ctx.compute_dx and ctx.needs_input_grad[0]:
             dx = fused_matryoshka_dx(x_cent, we, b_enc, wd, s, coeffs, ctx.boundaries)
@@ -392,3 +409,99 @@ def fused_matryoshka_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse
         "activity_freq": out["activity_freq"],
         "sparsity": torch.mean(out["row_active"] / (h / expansion_factor)),
     }
+
+
+# ---------------------------------------------------------------------------
+# the sweep: N stacked dictionaries on one shared batch (module docstring)
+# ---------------------------------------------------------------------------
+
+def matryoshka_sweep_fwd_plain(x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """Plain version of svt_matryoshka_sweep_fwd: matryoshka_fwd_plain per combo
+    on the shared x, stacked (prefix_recon [N, P, T, C])."""
+    return stack_plain(lambda *a: matryoshka_fwd_plain(*a, boundaries), 1,
+                       x, w_enc, b_enc, w_dec, b_dec)
+
+
+def matryoshka_sweep_bwd_plain(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    """Plain version of svt_matryoshka_sweep_bwd: matryoshka_bwd_plain per combo,
+    stacked; ``s`` [N, P, T, C], ``coeffs`` [N, 2]."""
+    return stack_plain(lambda *a: matryoshka_bwd_plain(*a, boundaries), 0,
+                       x_cent, w_enc, b_enc, w_dec, s, coeffs)
+
+
+class _SweepForwardKernel(Kernel):
+    """csrc svt_matryoshka_sweep_fwd: center_kernel, then the coder forward body
+    with the prefix snapshots for all N combos, one launch each. Returns what
+    matryoshka_sweep_fwd_plain returns."""
+
+    name = "fused_matryoshka_sae_sweep_fwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, boundaries):
+        n, t, c, h = _check_sweep(self.name, x, w_enc, b_enc, w_dec, b_dec)
+        bounds = _bounds(h, boundaries, TILE_H)
+        outs = forward_outputs(x, h, (len(boundaries), t, c), n)
+        self._launch(_lib().svt_matryoshka_sweep_fwd, x.device,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, bounds,
+                     len(boundaries), n)
+        return outs
+
+
+class _SweepBackwardKernel(Kernel):
+    """csrc svt_matryoshka_sweep_bwd: the coder backward body on every combo's
+    x_cent, each latent block reading its combo's S[level], one launch. Returns
+    what matryoshka_sweep_bwd_plain returns."""
+
+    name = "fused_matryoshka_sae_sweep_bwd"
+
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+        n, t, c, h = _check_sweep(self.name, x_cent, w_enc, b_enc, w_dec, x_rows=1)
+        bounds = _bounds(h, boundaries, TILE_H)
+        _expect("S", s, (n, len(boundaries), t, c), x_cent.dtype, x_cent.device)
+        _expect("coeffs", coeffs, (n, 2), _F32, x_cent.device)
+        ct = coeffs[:, 1:].expand(n, h).contiguous()
+        outs = backward_outputs(x_cent, h)
+        self._launch(_lib().svt_matryoshka_sweep_bwd, x_cent.device,
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs), t, c, h,
+                     bounds, len(boundaries), n)
+        return outs
+
+
+sweep_fwd_kernel = _SweepForwardKernel()
+sweep_bwd_kernel = _SweepBackwardKernel()
+SWEEP_KERNELS = (sweep_fwd_kernel, sweep_bwd_kernel)
+
+
+def fused_matryoshka_sweep_forward(x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    """The sweep forward entry point (the kernels on CUDA tensors;
+    matryoshka_sweep_fwd_plain on CPU tensors), its partials reduced per combo:
+    (x_cent, prefix_recon [N, P, T, C], act_count [N, H], row_active [N, T],
+    l1_sum [N])."""
+    x_cent, prefix_recon, act_part, row_active, zsum_part = run_on_device(
+        sweep_fwd_kernel, matryoshka_sweep_fwd_plain, x, w_enc, b_enc, w_dec, b_dec, boundaries)
+    return x_cent, prefix_recon, act_part.sum(1), row_active, zsum_part.sum((1, 2))
+
+
+def fused_matryoshka_sweep_backward(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    """The sweep backward entry point on the saved x_cent (the kernel on CUDA
+    tensors; matryoshka_sweep_bwd_plain on CPU tensors), db_dec's partial rows
+    reduced per combo."""
+    dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
+        sweep_bwd_kernel, matryoshka_sweep_bwd_plain, x_cent, w_enc, b_enc, w_dec, s, coeffs,
+        boundaries)
+    return dw_enc, db_enc, dw_dec, db_dec_part.sum(1)
+
+
+def fused_matryoshka_sweep_loss_terms(params: dict, x: torch.Tensor, lambdas: torch.Tensor,
+                                      expansion_factor: int,
+                                      prefixes: tuple = DEFAULT_MATRYOSHKA_PREFIXES, *,
+                                      compute_dtype=_BF16) -> dict:
+    """fused_matryoshka_sae_loss_terms for N stacked dictionaries on one shared
+    batch (fused_sae.fused_sae_sweep_loss_terms' contract): loss = mean_p(prefix
+    MSE) + λ_n·l1, rec_loss the full-dictionary MSE."""
+    h = params["b_enc"].shape[1]
+    cd = compute_dtype_of(compute_dtype)
+    prefix_losses, l1_loss, recon, act_count, row_active = FusedMatryoshkaSAEFunction.apply(
+        x, params["W_enc"], params["b_enc"], params["W_dec"], params["b_dec"],
+        matryoshka_prefix_counts(h, tuple(prefixes)), cd, False)
+    return sweep_terms(prefix_losses[:, -1], l1_loss, act_count, row_active, x.shape[0], h,
+                       expansion_factor, prefix_losses.mean(1) + lambdas * l1_loss)

@@ -40,6 +40,19 @@ the true H. A padded latent's pre-activation is exactly 0, so it never fires
 and every output and gradient it touches is exactly what the unpadded op gives
 up to summation order. Nothing outside the op holds the padded width.
 
+The sweep (train/sweep_vmap.py): N dictionaries of one shape that differ only
+in their hyperparameters train on one shared batch. The JAX op runs under
+jax.vmap there, and pallas_call's batching rule makes each kernel one launch
+for all N combos, the combo as the outer grid dimension.
+FusedSAEFunction given parameters with a leading combo axis is that launch:
+(x [T, C] shared, W_enc [N, C, H], b_enc [N, H], W_dec [N, H, C], b_dec [N,
+C]) -> per-combo losses [N] and statistics [N, ...], through the sweep entry
+points svt_sae_sweep_fwd / _bwd (no dx: the sweep trains x as data), whose
+bodies take the combo as the grid's second dimension (csrc/coder.cuh,
+"Combos"): one forward and one backward launch whatever N is. Their plain
+versions are the per-combo stacks of sae_fwd_plain / sae_bwd_plain, and a
+combo's outputs are those of the one-dictionary op on its slices.
+
 Differentiability contract: gradients flow through ``rec_loss`` and ``l1_loss``
 only (loss = rec + λ·l1). ``recon`` and the statistics are marked
 non-differentiable. ``x`` is data unless ``compute_dx=True``: then its gradient
@@ -110,15 +123,16 @@ def cast_padded(w: torch.Tensor, cd: torch.dtype, shape: tuple) -> torch.Tensor:
 
 def padded_operands(w_enc, b_enc, w_dec, cd):
     """The compute casts of W_enc [C_in, H] and W_dec [H, C_out] and the f32
-    b_enc [H], each zero-padded on the latent axis to padded_h(H). A padded
+    b_enc [H] (each with a sweep's leading [N] axis, or none), zero-padded on
+    the latent axis to padded_h(H). A padded
     latent has a zero W_enc column and b_enc, so its pre-activation is exactly 0
     and it never fires: it adds nothing to recon, Σpost, the activity counts or
     row_active, and its gradients are exactly zero (sliced away by the
     callers)."""
-    h = b_enc.shape[0]
-    hp = padded_h(h)
-    return (cast_padded(w_enc, cd, (w_enc.shape[0], hp)), cast_padded(b_enc, _F32, (hp,)),
-            cast_padded(w_dec, cd, (hp, w_dec.shape[1])))
+    hp = padded_h(b_enc.shape[-1])
+    return (cast_padded(w_enc, cd, (*w_enc.shape[:-1], hp)),
+            cast_padded(b_enc, _F32, (*b_enc.shape[:-1], hp)),
+            cast_padded(w_dec, cd, (*w_dec.shape[:-2], hp, w_dec.shape[-1])))
 
 
 def direct_rows(t: int, dtype) -> int:
@@ -275,6 +289,10 @@ def _lib() -> ctypes.CDLL:
     lib.svt_sae_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P]
     lib.svt_sae_dx.restype = _I
     lib.svt_sae_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P]
+    lib.svt_sae_sweep_fwd.restype = _I
+    lib.svt_sae_sweep_fwd.argtypes = [_I] + [_P] * 10 + [_I] * 4 + [_P]
+    lib.svt_sae_sweep_bwd.restype = _I
+    lib.svt_sae_sweep_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
     return lib
 
 
@@ -339,26 +357,31 @@ def _ptrs(x, *tensors) -> tuple:
     return (int(x.dtype == _BF16), x.data_ptr(), *(t.data_ptr() for t in tensors))
 
 
-def forward_outputs(x, h: int, recon_shape: tuple) -> tuple:
+def forward_outputs(x, h: int, recon_shape: tuple, n: int = 0) -> tuple:
     """Empty outputs of the SAE forward entry points: x_cent, recon (or
-    prefix_recon), act_part, row_active, zsum_part."""
+    prefix_recon), act_part, row_active, zsum_part; each with a leading [n]
+    axis when ``n`` (the sweep's combos, ``recon_shape`` one combo's)."""
     t = x.shape[0]
+    lead = (n,) if n else ()
     dev = x.device
-    return (torch.empty_like(x), torch.empty(recon_shape, dtype=_F32, device=dev),
-            torch.empty((t // PART_T, h), dtype=_F32, device=dev),
-            torch.empty((t,), dtype=_F32, device=dev),
-            torch.empty((t // PART_T, h), dtype=_F32, device=dev))
+    return (torch.empty((*lead, *x.shape), dtype=x.dtype, device=dev),
+            torch.empty((*lead, *recon_shape), dtype=_F32, device=dev),
+            torch.empty((*lead, t // PART_T, h), dtype=_F32, device=dev),
+            torch.empty((*lead, t), dtype=_F32, device=dev),
+            torch.empty((*lead, t // PART_T, h), dtype=_F32, device=dev))
 
 
 def backward_outputs(x_cent, h: int) -> tuple:
     """Empty outputs of the SAE backward entry points: dW_enc, db_enc, dW_dec and
-    db_dec_part (the direct rows, then one centring row per 64 latents)."""
-    t, c = x_cent.shape
+    db_dec_part (the direct rows, then one centring row per 64 latents); each
+    with x_cent's leading [N] axis in the sweep."""
+    *lead, t, c = x_cent.shape
     dev = x_cent.device
     rows = direct_rows(t, x_cent.dtype) + h // BLOCK_H
-    return (torch.empty((c, h), dtype=_F32, device=dev), torch.empty((h,), dtype=_F32, device=dev),
-            torch.empty((h, c), dtype=_F32, device=dev),
-            torch.empty((rows, c), dtype=_F32, device=dev))
+    return (torch.empty((*lead, c, h), dtype=_F32, device=dev),
+            torch.empty((*lead, h), dtype=_F32, device=dev),
+            torch.empty((*lead, h, c), dtype=_F32, device=dev),
+            torch.empty((*lead, rows, c), dtype=_F32, device=dev))
 
 
 class _ForwardKernel(Kernel):
@@ -451,46 +474,59 @@ def fused_sae_dx(x_cent, w_enc, b_enc, w_dec, err, coeffs):
     return run_on_device(dx_kernel, fused_sae_dx_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
 
 
+def loss_coeffs(*terms, lead: tuple, device) -> torch.Tensor:
+    """The backward's coefficients [*lead, len(terms)]: each term (g, num, den)
+    the cotangent g (shape ``lead``: () for one dictionary, (N,) for a sweep;
+    None for zero) times num over den, in one order of operations for both, so
+    a sweep's combo gets its one-dictionary op's coefficients; on the device
+    (never a host sync)."""
+    zero = torch.zeros(lead, dtype=_F32, device=device)
+    return torch.stack([(zero if g is None else g.float()) * num / den
+                        for g, num, den in terms], -1)
+
+
 class FusedSAEFunction(torch.autograd.Function):
     """(x, W_enc, b_enc, W_dec, b_dec) -> (rec_loss, l1_loss, recon, act_count,
-    row_active), the counterpart of the JAX op's custom_vjp."""
+    row_active), the counterpart of the JAX op's custom_vjp; with a sweep's
+    leading [N] axis on the parameters (x shared) every output gains it, and
+    each pass is one launch of its sweep entry point (module docstring)."""
 
     @staticmethod
     def forward(ctx, x, w_enc, b_enc, w_dec, b_dec, compute_dtype, compute_dx):
         cd = compute_dtype
         t, c = x.shape
-        h = b_enc.shape[0]  # the true H; the kernels run at padded_h(H)
+        h = b_enc.shape[-1]  # the true H; the kernels run at padded_h(H)
         xc = x.to(cd).contiguous()
         we, b_enc, wd = padded_operands(w_enc, b_enc, w_dec, cd)
-        x_cent, recon, act_count, row_active, l1_sum = fused_sae_forward(
+        forward = fused_sae_sweep_forward if w_enc.ndim == 3 else fused_sae_forward
+        x_cent, recon, act_count, row_active, l1_sum = forward(
             xc, we, b_enc, wd, b_dec.contiguous())
         err = recon - x  # against x in its own dtype, before the compute cast
-        rec_loss = err.square().mean()
+        rec_loss = err.square().mean((-2, -1))
         l1_loss = l1_sum / (t * h)
         # the backward and dx run on x_cent
         ctx.save_for_backward(x_cent, we, b_enc, wd, err.to(cd))
         ctx.compute_dx = compute_dx
         ctx.h = h
-        act_count = act_count[:h]
+        act_count = act_count[..., :h]
         ctx.mark_non_differentiable(recon, act_count, row_active)
         return rec_loss, l1_loss, recon, act_count, row_active
 
     @staticmethod
     def backward(ctx, g_rec, g_l1, *_unused):
         x_cent, we, b_enc, wd, err = ctx.saved_tensors
-        t, c = x_cent.shape
+        *lead, t, c = x_cent.shape
         h = ctx.h
-        zero = torch.zeros((), dtype=_F32, device=x_cent.device)
-        g_rec = zero if g_rec is None else g_rec.float()
-        g_l1 = zero if g_l1 is None else g_l1.float()
-        # a device tensor, not host floats: the backward never syncs
-        coeffs = torch.stack([g_rec * 2.0 / (t * c), g_l1 / (t * h)])
-        dw_enc, db_enc, dw_dec, db_dec = fused_sae_backward(x_cent, we, b_enc, wd, err, coeffs)
+        coeffs = loss_coeffs((g_rec, 2.0, t * c), (g_l1, 1.0, t * h), lead=tuple(lead),
+                             device=x_cent.device)
+        backward = fused_sae_sweep_backward if lead else fused_sae_backward
+        dw_enc, db_enc, dw_dec, db_dec = backward(x_cent, we, b_enc, wd, err, coeffs)
         dx = None
         if ctx.compute_dx and ctx.needs_input_grad[0]:
             dx = fused_sae_dx(x_cent, we, b_enc, wd, err, coeffs)
-        if b_enc.shape[0] != h:  # the padded latents' gradients are exactly zero
-            dw_enc, db_enc, dw_dec = dw_enc[:, :h].contiguous(), db_enc[:h], dw_dec[:h]
+        if b_enc.shape[-1] != h:  # the padded latents' gradients are exactly zero
+            dw_enc, db_enc, dw_dec = (dw_enc[..., :h].contiguous(), db_enc[..., :h],
+                                      dw_dec[..., :h, :])
         return dx, dw_enc, db_enc, dw_dec, db_dec, None, None
 
 
@@ -521,3 +557,132 @@ def fused_sae_loss_terms(params: dict, x: torch.Tensor, lambda_sparse: float,
         "activity_freq": act_count / t,
         "sparsity": torch.mean(row_active / (h / expansion_factor)),
     }
+
+
+# ---------------------------------------------------------------------------
+# the sweep: N stacked dictionaries on one shared batch (module docstring)
+# ---------------------------------------------------------------------------
+
+def stack_plain(plain, shared: int, *args):
+    """The per-combo stack of ``plain``: combo n gets args[:shared] whole (the
+    shared batch) and args[shared:][j][n] of every stacked argument j; each of
+    plain's outputs comes back stacked [N, ...]."""
+    n = args[shared].shape[0]
+    outs = [plain(*args[:shared], *(a[i] for a in args[shared:])) for i in range(n)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def sae_sweep_fwd_plain(x, w_enc, b_enc, w_dec, b_dec):
+    """Plain version of svt_sae_sweep_fwd: sae_fwd_plain per combo on the shared
+    x, stacked (x_cent [N, T, C], recon [N, T, C], act_part and zsum_part [N, 1,
+    H], row_active [N, T])."""
+    return stack_plain(sae_fwd_plain, 1, x, w_enc, b_enc, w_dec, b_dec)
+
+
+def sae_sweep_bwd_plain(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    """Plain version of svt_sae_sweep_bwd: sae_bwd_plain per combo, stacked;
+    ``coeffs`` [N, 2]."""
+    return stack_plain(sae_bwd_plain, 0, x_cent, w_enc, b_enc, w_dec, err, coeffs)
+
+
+def _check_sweep(name, x, w_enc, b_enc, w_dec, b_dec=None, x_rows: int = 0):
+    """Device, dtype, shape and contiguity of a sweep entry point's operands: x
+    [T, C] shared (``x_rows`` 0) or x_cent [N, T, C] stacked (``x_rows`` 1), the
+    stacked W_enc [N, C, H], b_enc [N, H], W_dec [N, H, C] and b_dec [N, C], and
+    the bodies' width rule; returns (n, t, c, h)."""
+    n, c, h = w_enc.shape
+    t = x.shape[x_rows]
+    if x.dtype not in (_F32, _BF16):
+        raise ValueError(f"{name}: compute dtype {x.dtype} not supported")
+    if not bodies_take(t, h, c, c, x.dtype):
+        raise ValueError(
+            f"{name}: shape T={t}, C={c}, H={h} not supported with {x.dtype} operands (T a "
+            f"multiple of {TILE_T}, H of {TILE_H}; in bf16 C a multiple of {BF16_WIDTH})")
+    dev = x.device
+    _expect("x", x, (n, t, c)[1 - x_rows:], x.dtype, dev)
+    _expect("W_enc", w_enc, (n, c, h), x.dtype, dev)
+    _expect("b_enc", b_enc, (n, h), _F32, dev)
+    _expect("W_dec", w_dec, (n, h, c), x.dtype, dev)
+    if b_dec is not None:
+        _expect("b_dec", b_dec, (n, c), _F32, dev)
+    return n, t, c, h
+
+
+class _SweepForwardKernel(Kernel):
+    """csrc svt_sae_sweep_fwd: center_kernel and the coder forward body for all
+    N combos, one launch each. Returns what sae_sweep_fwd_plain returns (one
+    partial row per 64 tokens)."""
+
+    name = "fused_sae_sweep_fwd"
+
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
+        n, t, c, h = _check_sweep(self.name, x, w_enc, b_enc, w_dec, b_dec)
+        outs = forward_outputs(x, h, (t, c), n)
+        self._launch(_lib().svt_sae_sweep_fwd, x.device,
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, n)
+        return outs
+
+
+class _SweepBackwardKernel(Kernel):
+    """csrc svt_sae_sweep_bwd: the coder backward body on every combo's x_cent,
+    one launch. Returns what sae_sweep_bwd_plain returns (one centring row per
+    64 latents)."""
+
+    name = "fused_sae_sweep_bwd"
+
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs):
+        n, t, c, h = _check_sweep(self.name, x_cent, w_enc, b_enc, w_dec, x_rows=1)
+        _expect("err", err, (n, t, c), x_cent.dtype, x_cent.device)
+        _expect("coeffs", coeffs, (n, 2), _F32, x_cent.device)
+        ct = coeffs[:, 1:].expand(n, h).contiguous()
+        outs = backward_outputs(x_cent, h)
+        self._launch(_lib().svt_sae_sweep_bwd, x_cent.device,
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs), t, c, h, n)
+        return outs
+
+
+sweep_fwd_kernel = _SweepForwardKernel()
+sweep_bwd_kernel = _SweepBackwardKernel()
+SWEEP_KERNELS = (sweep_fwd_kernel, sweep_bwd_kernel)
+
+
+def fused_sae_sweep_forward(x, w_enc, b_enc, w_dec, b_dec):
+    """The sweep forward entry point (the kernels on CUDA tensors;
+    sae_sweep_fwd_plain on CPU tensors), its partials reduced per combo:
+    (x_cent [N, T, C], recon [N, T, C], act_count [N, H], row_active [N, T],
+    l1_sum [N])."""
+    x_cent, recon, act_part, row_active, zsum_part = run_on_device(
+        sweep_fwd_kernel, sae_sweep_fwd_plain, x, w_enc, b_enc, w_dec, b_dec)
+    return x_cent, recon, act_part.sum(1), row_active, zsum_part.sum((1, 2))
+
+
+def fused_sae_sweep_backward(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    """The sweep backward entry point on the saved x_cent (the kernel on CUDA
+    tensors; sae_sweep_bwd_plain on CPU tensors), db_dec's partial rows reduced
+    per combo: (dW_enc, db_enc, dW_dec, db_dec), each [N, ...]."""
+    dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
+        sweep_bwd_kernel, sae_sweep_bwd_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
+    return dw_enc, db_enc, dw_dec, db_dec_part.sum(1)
+
+
+def sweep_terms(rec_loss, l1_loss, act_count, row_active, t: int, h: int,
+                expansion_factor: int, loss) -> dict:
+    """The sweep step's per-combo terms of a fused sweep op ([N] each; dead [N,
+    H]): loss, rec_loss, l1_loss, dead and sparsity, as fused_sae_loss_terms
+    names them."""
+    return {"loss": loss, "rec_loss": rec_loss, "l1_loss": l1_loss, "dead": act_count == 0,
+            "sparsity": torch.mean(row_active / (h / expansion_factor), 1)}
+
+
+def fused_sae_sweep_loss_terms(params: dict, x: torch.Tensor, lambdas: torch.Tensor,
+                               expansion_factor: int, *, compute_dtype=_BF16) -> dict:
+    """fused_sae_loss_terms for N stacked dictionaries (``params`` leaves [N,
+    ...], ``lambdas`` [N]) on one shared batch x [T, C]: per-combo loss terms
+    [N], the dead mask [N, H] and sparsity [N]; one forward and one backward
+    launch for all N (FusedSAEFunction on the stacked parameters)."""
+    cd = compute_dtype_of(compute_dtype)
+    rec_loss, l1_loss, recon, act_count, row_active = FusedSAEFunction.apply(
+        x, params["W_enc"], params["b_enc"], params["W_dec"], params["b_dec"], cd, False)
+    return sweep_terms(rec_loss, l1_loss, act_count, row_active, x.shape[0],
+                       params["b_enc"].shape[1], expansion_factor,
+                       rec_loss + lambdas * l1_loss)

@@ -16,6 +16,11 @@ Parity targets:
   Nesterov, then StepLR: lr * 0.1 ** (epoch // 7), the epoch advanced once per
   train epoch by :func:`advance_epoch`).
 Adam uses eps_root = 0 (torch Adam's denominator) and optax's bias correction.
+
+The SAE optimizers (adam, sgd, constrained_adam) also take a learning rate per
+combo of a sweep (train/sweep_vmap.py): an [N] tensor, each leaf stacked [N,
+...], the rate broadcast over the leaf's other axes (the JAX sweep's traced
+per-combo scale). Adam's ``count`` stays one integer: the combos step together.
 """
 
 from __future__ import annotations
@@ -48,6 +53,14 @@ def project_away_parallel_grad(grad: torch.Tensor, param: torch.Tensor) -> torch
     return grad - (grad * normed).sum(-1, keepdim=True) * normed
 
 
+def _step(learning_rate, d: torch.Tensor) -> torch.Tensor:
+    """-learning_rate · d, the rate a float or a per-combo [N] tensor (module
+    docstring) broadcast over d's axes after the first."""
+    if isinstance(learning_rate, torch.Tensor):
+        learning_rate = learning_rate.to(d.device).reshape(-1, *([1] * (d.ndim - 1)))
+    return -learning_rate * d
+
+
 def _adam_init(params: dict) -> dict:
     return {"mu": tree_map(torch.zeros_like, params),
             "nu": tree_map(torch.zeros_like, params), "count": 0}
@@ -74,7 +87,7 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> Optimizer:
     def update(grads, state, params=None):
         dirs, state = _adam_directions(grads, state, b1, b2, eps)
-        return tree_map(lambda d: -learning_rate * d, dirs), state
+        return tree_map(lambda d: _step(learning_rate, d), dirs), state
 
     return Optimizer(_adam_init, update)
 
@@ -83,7 +96,7 @@ def sgd(learning_rate: float) -> Optimizer:
     """optax.sgd without momentum: the update is -lr * g; the state is empty."""
 
     def update(grads, state, params=None):
-        return tree_map(lambda g: -learning_rate * g, grads), state
+        return tree_map(lambda g: _step(learning_rate, g), grads), state
 
     return Optimizer(lambda params: (), update)
 
@@ -137,7 +150,7 @@ def constrained_adam(learning_rate: float, constrained: Callable = sae_constrain
         dirs, state = _adam_directions(grads, state, b1, b2, eps)
         updates = {}
         for k, d in dirs.items():
-            u = -learning_rate * d
+            u = _step(learning_rate, d)
             if mask[k]:
                 new_p = params[k] + u
                 u = new_p / _row_norms(new_p) - params[k]
