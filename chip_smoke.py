@@ -38,8 +38,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               transcoder/crosscoder pair is also held to
               its plain versions at ragged shapes (T=1152, C_in=264, H=640,
               C_out=136 and 520: a partial token step, latent group and channel
-              chunk at every edge, for both bf16 forward bodies), and its bf16 kernels must give bitwise-equal outputs
-              on a repeat launch.
+              chunk at every edge, for both bf16 forward bodies, the in-place
+              one split in two; and T=2176 at C_out=520, where the bf16
+              backward splits too), and its bf16 kernels must give
+              bitwise-equal outputs on a repeat launch.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too.
@@ -299,9 +301,16 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               step; (d) the transcoder and crosscoder sweeps (the stock math
               under torch.func.vmap, as JAX's) through their trainers at a
               small depth, no fused launch.
-Then one JSON line naming each kernel (the TP rows' launches summed over the
-ranks of (b), (c), (g) and (h); the sweep rows' from phase 16 (b) and (c)),
-the nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+Wherever grid_split (ops/fused_sae.py) cuts a timed bf16 launch into parts
+on the grid's z dimension (csrc/coder.cuh, "Splits": rows 25-26 in phase 15
+(e), phase 12's backwards at 64 and 96 latent blocks, phase 16 (a)'s
+backwards at N 1 and 8), the split launch, the one held to its plain version
+and repeated bitwise above, is timed beside the same launch unsplit
+(n_split=1), in turns, and both are printed ("[split]" lines).
+Then one JSON line of those pairs ({"splits": [...]}), one JSON line naming
+each kernel (the TP rows' launches summed over the ranks of (b), (c), (g) and
+(h); the sweep rows' from phase 16 (b) and (c)), the nvidia-smi line, and the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -595,6 +604,31 @@ def _measure(name: str, tag: str, cd, kernel, plain, library, flops: float, move
                 bound_by=b_by, library_ms=lib_ms, tflops=tflops)
 
 
+SPLITS = []  # the split launches timed beside their unsplit ones: the "splits" line
+SPLIT_REPS = 20  # timed launches a turn: the pairs differ by a few percent at N 8
+
+
+def _split_pair(name: str, tag: str, launch, t: int, h: int, c_out: int,
+                backward: bool) -> None:
+    """Where grid_split cuts this bf16 launch of one dictionary's (t, h, c_out)
+    into parts (csrc/coder.cuh, "Splits"), time ``launch()`` (the rule's split,
+    the launch the checks hold to the plain version) beside
+    ``launch(n_split=1)`` (the same launch unsplit) in turns, split, unsplit,
+    unsplit, split, and record both for the splits line."""
+    s = fused_sae.grid_split(t, h, c_out, backward=backward,
+                             n_sm=fused_sae.sm_count(torch.cuda.current_device()))
+    if s == 1:
+        return
+    first = time_ms(launch, SPLIT_REPS)
+    one = time_ms(lambda: launch(n_split=1), SPLIT_REPS)
+    one += time_ms(lambda: launch(n_split=1), SPLIT_REPS)
+    split_ms = (first + time_ms(launch, SPLIT_REPS)) / 2
+    row = dict(name=name, tag=tag, n_split=s, ms=split_ms, unsplit_ms=one / 2)
+    log(f"[split] {name} [{tag}] n_split {s} ms {split_ms:.3f} unsplit_ms {one / 2:.3f} "
+        f"({one / 2 / split_ms:.2f}x)")
+    SPLITS.append(row)
+
+
 def _dyadic(t: torch.Tensor, step: float) -> torch.Tensor:
     """``t`` rounded to a multiple of the power of two ``step``."""
     return torch.round(t / step) * step
@@ -708,6 +742,12 @@ def kernels_relu(cd, tag: str, t: int = T, c: int = C, h: int = H) -> dict:
         lambda: fused_sae.fused_sae_backward(x_cent, we, be, wd, res, coeffs),
         lambda: fused_sae.fused_sae_backward_plain(*ops, res, coeffs),
         lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * t * c * h, moved, err)
+    if cd == torch.bfloat16:
+        _split_pair("fused_sae_fwd", f"{tag}{label}",
+                    lambda **kw: fused_sae.fwd_kernel(*ops, **kw), t, h, c, False)
+        _split_pair("fused_sae_bwd", f"{tag}{label}",
+                    lambda **kw: fused_sae.bwd_kernel(x_cent, we, be, wd, res, coeffs, **kw),
+                    t, h, c, True)
     return rows
 
 
@@ -1188,6 +1228,9 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     rows[name] = _measure(
         name, tag, cd, lambda: bwd(*bops), lambda: plain_bwd(*bops),
         lambda: (dr @ wd.T, x.T @ post, post.T @ dr), 4.0 * t * h * (c_in + c_out), moved, err)
+    if cd == torch.bfloat16:
+        _split_pair(fwd.name, tag, lambda **kw: fwd(*ops, **kw), t, h, c_out, False)
+        _split_pair(name, tag, lambda **kw: bwd(*bops, **kw), t, h, c_out, True)
     return rows
 
 
@@ -1213,10 +1256,12 @@ def kernels_coder_ragged(cd, tag: str) -> dict:
     """Both coder ops at small shapes with a partial chunk at every edge of the
     kernels' tiling (T = 2*512 + 128 tokens, H = 512 + 128 latents, C_in = 4*64 + 8
     channels; C_out = 128 + 8, where the bf16 forward holds recon in registers,
-    and 4*128 + 8, where it updates recon in place), checked against the plain
-    versions; no rows."""
-    t, c_in, h = 1152, 264, 640
-    for c_out in (136, 520):
+    and 4*128 + 8, where it updates recon in place, split in two there: the
+    second split's latents are the partial group), checked against the plain
+    versions; then at T = 4*512 + 128, C_out 520, where the bf16 backward splits
+    too (the second split's steps end in the partial one); no rows."""
+    c_in, h = 264, 640
+    for t, c_out in ((1152, 136), (1152, 520), (2176, 520)):
         def tc_coeffs(gen):
             return (torch.tensor([2.0 / (t * c_out), LAMBDA / (t * h)], device=DEVICE),)
 
@@ -5552,6 +5597,11 @@ def _sweep_kernel_check(name: str, cd, n: int, t: int, c: int, h: int, timed: bo
             rows[kern.name] = dict(max_abs_err=err, ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                                    tflops=n * f / ms / 1e9, n_combo=n)
+            if cd == torch.bfloat16 and n == SW_ROW_N:
+                _split_pair(kern.name, tag, lambda **kw: kern(*args, **kw), t, h, c, backward)
+                _split_pair(single.name, f"{tag}, combo 0 alone",
+                            lambda **kw: single(*_combo(args, 0, shared), **kw), t, h, c,
+                            backward)
         del got, plain
     torch.cuda.empty_cache()
     return rows
@@ -5842,6 +5892,7 @@ def main() -> int:
     tp_rows = phase_mesh(smi)
     sweep_rows, sweep_launches = phase_sweep(smi, sae_ref)
     log(f"[smoke] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"splits": SPLITS}))
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}

@@ -152,7 +152,7 @@
 //     up to four encode sub-tiles pre [128, 128] fill post_s [128, 512], then
 //     for each 128 output columns acc = post_s @ W_dec is added into recon.
 //     Groups end at skew + 512k, skew = 128 * (block % 4), so that the blocks'
-//     updates do not all fall at once. recon is updated about H/512 times:
+//     updates do not all fall at once (a split: from its first latent on). recon is updated about H/512 times:
 //     ~(2H/512 + 1)*T*Cout*4 bytes, 6.2 GB (1.8 ms at 3.35 TB/s) for the
 //     crosscoder. kDx updates dx [128, C] in place the same way (groups also
 //     end at level boundaries): per 128-latent sub-tile the stream adds err
@@ -212,6 +212,50 @@
 // (combo_part). A one-dictionary launch is the case N = 1 of the same code, so
 // combo n of a launch runs the instructions of a one-dictionary launch on
 // combo n's operands and gives its bits. The dx route runs one dictionary.
+//
+// Splits (the bf16 bodies coder_fwd_tc and coder_bwd_tc; the number s comes
+// from ops/fused_sae.grid_split, which reads one dictionary's shape and the
+// card's SM count, never N): a body pinned at one block an SM whose grid of one
+// dictionary leaves SMs idle (the crosscoder at a (2, 2) rank's shard: 64 of
+// 132) cuts each block's sweep into s parts on the grid's z dimension, grid
+// (one dictionary's blocks, N, s). gridDim.x and gridDim.y stay as they are,
+// so every owner, level and combo slice derived from them is an unsplit
+// launch's, and so is a combo's s whatever N is. Split z writes partials of
+// its own, the split outermost (split_part, split_dw): no float atomics.
+//   coder_bwd_tc: split z sweeps the 512-token steps [z*n/s, (z+1)*n/s) of the
+//     n = ceil(T / 512), its first step writing its partial of dW_enc and
+//     dW_dec, later steps adding: split 0's partial is the output itself,
+//     split z >= 1's lies in the caller's workspace split_ws (split_dw). Its
+//     per-latent sums (db_enc; Jump: dtheta; Gated: db_mag, the sum behind
+//     dr_mag, sum dg) leave as rows of the workspace too, and an integer ticket
+//     a latent block (zeroed by the caller) counts its splits done: the split
+//     that draws the last ticket adds the other splits' dW tiles into the
+//     outputs and the s rows of sums, each in split order, and ends as an
+//     unsplit block ends (last_split, add_split_tiles): the per-latent outputs,
+//     and db_dec's centring row, which needs the whole db_enc before its bf16
+//     rounding. split_ws: dW_enc [s - 1, N, Cin, H], dW_dec [s - 1, N, H,
+//     Cout], the sums [s, N, kSplitSums, H] f32, the tickets [N, H / 64] int.
+//     db_dec_part's rows are per step, so they stay disjoint: step si's owner
+//     is the block of si's own split that si selects. The launch's blocks are
+//     numbered so that a latent block's splits are neighbours (bwd_block).
+//     The split does not change which products a step adds, only where they
+//     are summed: (((p0 + p1) + p2) + p3) of the splits' partials.
+//   coder_fwd_tc: split z sweeps the latents of the 512-latent groups [z*G/s,
+//     (z+1)*G/s) of the G = ceil(H / 512), its groups skewed within that
+//     range, into its own recon [s, N, (P,) T, Cout]: split 0 adds b_dec, the
+//     others start from 0. row_active [s, N, T] counts each split's active
+//     latents (the sum is exact: integers). act_part and zsum_part are
+//     per-latent columns, so the splits write disjoint parts of them. kPrefix:
+//     a split also writes every prefix slice that ends outside its range, 0
+//     below it and its own last slice above it, so each slice's sum over s is
+//     the unsplit one's.
+// The caller sums the forward's [s, ...] partials over s (one .sum(0), the same
+// order for every element and every N); the backward's sums are the last
+// split's, in the kernel, where they overlap the other blocks' products (as a
+// .sum(0) of [s, ...] dW partials the sweep's backward at N 8 ran 11-14% slower
+// split than unsplit, PERF.md). s = 1 is the launch without a split: the same
+// grid, buffers and bits. The register-held forwards, the dx route and the
+// SIMT bodies do not split.
 
 #pragma once
 
@@ -292,8 +336,19 @@ struct TcFwd {
 // Combo blockIdx.y's part of a stacked operand of ``stride`` elements a combo
 // (header note, "Combos"); the operand itself in a one-dictionary launch.
 template <typename P>
+__device__ __forceinline__ P combo_part(P p, long stride, int combo) {
+  return p + static_cast<long>(combo) * stride;
+}
+template <typename P>
 __device__ __forceinline__ P combo_part(P p, long stride) {
-  return p + static_cast<long>(blockIdx.y) * stride;
+  return combo_part(p, stride, static_cast<int>(blockIdx.y));
+}
+
+// Split blockIdx.z's part of combo blockIdx.y's output [s, N, ``stride``
+// elements] (header note, "Splits"); combo_part's in a launch without a split.
+template <typename P>
+__device__ __forceinline__ P split_part(P p, long stride) {
+  return p + (static_cast<long>(blockIdx.z) * gridDim.y + blockIdx.y) * stride;
 }
 
 // ActFwd's per-latent operands ([N, H]) and via ([N, T, Cout], ``out`` floats
@@ -1105,17 +1160,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// TMA: box (col, row) of combo blockIdx.y's matrix in ``map`` (rank 3: {cols,
-// rows, combos}, innermost coordinate first; header note, "Combos") into shared
-// memory at dst, its bytes counted on ``bar``; out-of-bounds elements arrive as
-// zeros
+// TMA: box (col, row) of combo ``combo``'s matrix (blockIdx.y's by default) in
+// ``map`` (rank 3: {cols, rows, combos}, innermost coordinate first; header
+// note, "Combos") into shared memory at dst, its bytes counted on ``bar``;
+// out-of-bounds elements arrive as zeros
 __device__ __forceinline__ void tma_box(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
-                                        int col, int row) {
+                                        int col, int row, int combo = -1) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row),
-      "r"(static_cast<int>(blockIdx.y))
+      "r"(combo < 0 ? static_cast<int>(blockIdx.y) : combo)
       : "memory");
 }
 
@@ -1484,7 +1539,9 @@ __device__ __forceinline__ void scaled_frags(uint32_t (&a)[4][4], const unsigned
 // round_bf16(post) of the group is the decode's A operand: post_s [128][512] as
 // eight K-major [128][64] blocks. kPrefix: groups also end at every prefix
 // boundary, and the decode of a group that ends one copies its updates of
-// recon's last slice into that prefix's slice.
+// recon's last slice into that prefix's slice. Splits (header note): grid z
+// sweeps its share [lo, hi) of the latent groups into its own partial of
+// recon (kPrefix: then fills the slices of the prefixes that end outside it).
 // kDx (recon is dx [T, C], updated in place as recon is; header note): groups
 // end at every level boundary; after each encode sub-tile the stream adds, per
 // 64 channels, err [128][64] (K-major, rows of the group's level) and W_dec
@@ -1517,13 +1574,17 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const int t0 = blockIdx.x * TT;
   const int nkc = (Cin + KT - 1) / KT, ncc = (Cout + SUB - 1) / SUB;
   const long slice = static_cast<long>(gridDim.x) * TT * Cout;  // one prefix's recon
-  // combo blockIdx.y's recon (header note, "Combos"), its last slice with kPrefix
-  float* out = combo_part(recon, (kPrefix ? lv.n : 1) * slice) + (kPrefix ? (lv.n - 1) * slice : 0);
-  // Latent groups end at skew + 512k: blocks start a quarter group apart, so
-  // their in-place updates of recon do not all fall at the same moment.
+  // combo blockIdx.y's recon of split blockIdx.z (header note, "Combos",
+  // "Splits"), its last slice with kPrefix
+  float* out = split_part(recon, (kPrefix ? lv.n : 1) * slice) + (kPrefix ? (lv.n - 1) * slice : 0);
+  // this split's latents [lo, hi): its share of the 512-latent groups
+  const int n_grp = (H + LG - 1) / LG, split = blockIdx.z, n_split = gridDim.z;
+  const int lo = split * n_grp / n_split * LG, hi = min(H, (split + 1) * n_grp / n_split * LG);
+  // Latent groups end at lo + skew + 512k: blocks start a quarter group apart,
+  // so their in-place updates of recon do not all fall at the same moment.
   const int skew = static_cast<int>(blockIdx.x % 4) * SUB;
   auto group_end = [&](int g0) {
-    const int e = min(H, g0 < skew ? skew : g0 + LG);
+    const int e = min(hi, g0 < lo + skew ? lo + skew : g0 + LG);
     return kPrefix || kDx ? min(e, svt::level_end(lv, g0)) : e;
   };
   if (tid < TT) rcnt_s[tid] = 0;
@@ -1536,9 +1597,9 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd;  // param space
   [[maybe_unused]] const int n_tok = gridDim.x * TT;  // kDx: the rows of one level of err
   Producer<kFSt> prod{ring, kFSlot, full, empty};
-  int p_g0 = 0, p_dec = 0, p_a = 0, p_k = 0;  // kDx: p_dec 2 is a sub-tile's dpost
+  int p_g0 = lo, p_dec = 0, p_a = 0, p_k = 0;  // kDx: p_dec 2 is a sub-tile's dpost
   auto issue = [&]() {
-    if (tid != 0 || p_g0 >= H) return;
+    if (tid != 0 || p_g0 >= hi) return;
     const int nsub = (group_end(p_g0) - p_g0) / SUB;
     if constexpr (kDx) {
       if (p_dec == 2) {
@@ -1590,7 +1651,7 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   int rowc[2] = {0, 0};
   [[maybe_unused]] float c_rec = 0.f, c_l1 = 0.f;  // kDx
   if constexpr (kDx) c_rec = af.coeffs[0], c_l1 = af.coeffs[1];
-  for (int g0 = 0; g0 < H; g0 = group_end(g0)) {
+  for (int g0 = lo; g0 < hi; g0 = group_end(g0)) {
     const int nsub = (group_end(g0) - g0) / SUB;
     for (int s = 0; s < nsub; ++s) {
       for (int k = 0; k < nkc; ++k) {
@@ -1714,18 +1775,32 @@ coder_fwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
                     static_cast<const bf16*>(af.err) +
                     static_cast<long>(t0 + tok0 + 8 * h) * Cout + col));
                 return make_float2(-__fmul_rn(c_rec, v.x), -__fmul_rn(c_rec, v.y));
-              } else {
+              } else {  // b_dec once: split 0's
                 const float* bd = combo_part(b_dec, Cout);
-                return col < Cout ? make_float2(bd[col], bd[col + 1]) : make_float2(0.f, 0.f);
+                return col < Cout && split == 0 ? make_float2(bd[col], bd[col + 1])
+                                                : make_float2(0.f, 0.f);
               }
             },
-            g0 == 0, snap);
+            g0 == lo, snap);
+      }
+    }
+  }
+  if constexpr (kPrefix) {
+    if (n_split > 1) {  // the prefix slices that end outside [lo, hi) (header note, "Splits")
+      __syncthreads();  // this block's updates of out are done
+      for (int i = tid; i < TT * Cout; i += kThreads) {
+        const long o = static_cast<long>(t0) * Cout + i;
+        const float v = out[o];
+#pragma unroll
+        for (int p = 0; p < svt::kMaxLevels - 1; ++p)
+          if (p < lv.n - 1 && (lv.end[p] <= lo || lv.end[p] > hi))
+            out[(p - (lv.n - 1)) * slice + o] = lv.end[p] <= lo ? 0.f : v;
       }
     }
   }
   if constexpr (kCount && !kDx)
     write_row_active(rowc, rcnt_s, tok0, lane, tid, TT,
-                     combo_part(row_active, static_cast<long>(gridDim.x) * TT) + t0);
+                     split_part(row_active, static_cast<long>(gridDim.x) * TT) + t0);
 }
 
 // Forward, bf16, recon held in registers (Cout <= W: the transcoder, the SAEs
@@ -2017,6 +2092,103 @@ __device__ __forceinline__ void warp_col_sums(float (&acc)[2], const float (&v)[
     acc[e] += (k1 ? b[1][e] : b[0][e]) + __shfl_xor_sync(0xffffffffu, k1 ? b[0][e] : b[1][e], 4);
 }
 
+constexpr int kSplitSums = 4;  // per-latent sums a backward split leaves (Gated's four)
+
+// A coder_bwd_tc block's latent block, combo and split. The launch grid is (H /
+// 64, N, s), its blocks numbered so that a latent block's s splits are
+// neighbours in launch order: they run together, so the last one's sum reads
+// the others' partials from L2 and the sums spread over the launch (with the
+// splits outermost, all of them fell in its last waves: 8% slower than unsplit
+// at N 8, PERF.md). Without a split, (blockIdx.x, blockIdx.y, 0).
+struct BwdBlock {
+  int x, combo, split;
+};
+__device__ __forceinline__ BwdBlock bwd_block() {
+  const int s = gridDim.z, gx = gridDim.x;
+  const int i = blockIdx.x + gx * (blockIdx.y + gridDim.y * blockIdx.z);
+  return {i / s % gx, i / s / gx, i % s};
+}
+
+// Split b.split's partial of combo b.combo's gradient (``size`` floats a combo;
+// header note, "Splits"): split 0's is the output itself, split z >= 1's lies at
+// ws [s - 1][N][size].
+__device__ __forceinline__ float* split_dw(float* out, float* ws, long size, const BwdBlock& b) {
+  return b.split == 0 ? combo_part(out, size, b.combo)
+                      : ws + (static_cast<long>(b.split - 1) * gridDim.y + b.combo) * size;
+}
+
+// The last split's sum of a latent block's gradient tile: ``rows`` rows of
+// ``cols`` floats (a multiple of 4), ``stride`` floats apart, at ``out`` (split
+// 0's partial, the output) and at part + (z - 1) * part_stride (split z >= 1's),
+// added in split order into out, U float4 of a thread in flight a partial
+// (the splits ran side by side: the partials come from L2, and the pass is
+// bound by the loads in flight).
+__device__ __forceinline__ void add_split_tiles(float* out, const float* part, long part_stride,
+                                                int rows, long stride, int cols) {
+  constexpr int U = 8;
+  const int per_row = cols / 4, n = rows * per_row, n_split = gridDim.z;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * kThreads) {
+    float4 v[U], w[U];
+    long o[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads;
+      o[u] = static_cast<long>(i / per_row) * stride + (i % per_row) * 4;
+      if (i < n) v[u] = __ldcg(reinterpret_cast<const float4*>(out + o[u]));
+    }
+    for (int z = 1; z < n_split; ++z) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * kThreads < n)
+          w[u] = __ldcg(reinterpret_cast<const float4*>(part + (z - 1) * part_stride + o[u]));
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[u].x += w[u].x, v[u].y += w[u].y, v[u].z += w[u].z, v[u].w += w[u].w;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u * kThreads < n) *reinterpret_cast<float4*>(out + o[u]) = v[u];
+  }
+}
+
+// Where coder_bwd_tc's splits meet (header note, "Splits"). Threads tid < 64
+// hold this split's per-latent sums s[0..kN) of latents h0 + tid; they go to
+// this split's rows of ws [s][N][kSplitSums][H] f32, then every thread's
+// writes (the gradient partials' too) are fenced and thread 0 draws a ticket
+// of the latent block (the ints after the rows, [N][H / 64]). The split that
+// draws the last ticket returns true, with s[q] the sums of every split added
+// in split order; the others return false (every thread of a block alike).
+// ``flag`` is an int of shared memory.
+template <int kN>
+__device__ __forceinline__ bool last_split(float (&s)[kN], float* ws, int H, const BwdBlock& b,
+                                           int* flag) {
+  const int tid = threadIdx.x, h0 = b.x * kTcBwdTH;
+  const long n = gridDim.y, rows = static_cast<long>(gridDim.z) * n * kSplitSums * H;
+  auto at = [&](long split, int q) {
+    return ws + ((split * n + b.combo) * kSplitSums + q) * H + h0 + tid;
+  };
+  if (tid < kTcBwdTH)
+#pragma unroll
+    for (int q = 0; q < kN; ++q) *at(b.split, q) = s[q];
+  __threadfence();  // this thread's rows before the ticket
+  __syncthreads();
+  if (tid == 0) {
+    int* ticket = reinterpret_cast<int*>(ws + rows) + b.combo * gridDim.x + b.x;
+    *flag = atomicAdd(ticket, 1) == static_cast<int>(gridDim.z) - 1;
+    __threadfence();  // the ticket before the other splits' rows
+  }
+  __syncthreads();
+  if (!*flag) return false;
+  if (tid < kTcBwdTH)
+#pragma unroll
+    for (int q = 0; q < kN; ++q) {
+      float v = __ldcg(at(0, q));
+      for (int split = 1; split < static_cast<int>(gridDim.z); ++split) v += __ldcg(at(split, q));
+      s[q] = v;
+    }
+  return true;
+}
+
 // Backward, bf16. One block owns kTcBwdTH = 64 latents and sweeps the tokens in
 // steps of kTcBwdTS = 512; its two warpgroups each compute a 64 x 64 piece of
 // every product with wgmma, and thread 0 streams the tiles by TMA (issue()),
@@ -2052,6 +2224,10 @@ __device__ __forceinline__ void warp_col_sums(float (&acc)[2], const float (&v)[
 // Their per-latent sums (db_enc / db_gate, dtheta; db_mag, sum d_premag * g,
 // sum dg) leave each 128-token sub-step's registers at once (warp_col_sums),
 // two floats a thread each, and meet over the warps after the last step.
+// Splits (header note): grid z sweeps its share of the steps into its partials
+// of dW_enc and dW_dec (split_dw); its per-latent sums meet the other splits'
+// in split_ws (last_split), and the last split of a latent block adds the
+// other splits' gradient tiles into the outputs and writes the rest.
 template <bool kSae, Act kAct = Act::Relu>
 __global__ void __launch_bounds__(kThreads, 1)
 coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
@@ -2060,7 +2236,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
              const float* __restrict__ ct, float* __restrict__ dw_enc,
              float* __restrict__ db_enc, float* __restrict__ dw_dec,
              float* __restrict__ db_dec_part, int n_tokens, int Cin, int Cout, int H,
-             const SaeBwd sae) {
+             const SaeBwd sae, float* __restrict__ split_ws) {
   constexpr int TH = kTcBwdTH, TU = kTcBwdTU, TS = kTcBwdTS, CC = kTcBwdCC, KT = 64;
   constexpr bool kVar = kAct != Act::Relu;  // err pre-scaled; per-latent sums per sub-step
   static_assert(kSae || !kVar, "the JumpReLU and gated epilogues are the SAEs'");
@@ -2077,12 +2253,17 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   uint64_t* empty = full + kBSt;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int h0 = blockIdx.x * TH;
+  const BwdBlock blk = bwd_block();  // latent block, combo, split
+  const int h0 = blk.x * TH, cb = blk.combo;
   const int nki = (Cin + KT - 1) / KT, nko = (Cout + KT - 1) / KT;
   const int nci = (Cin + CC - 1) / CC, nco = (Cout + CC - 1) / CC;
   const int qrow = kSae ? svt::level_of(sae.lv, h0) * n_tokens : 0;  // this level's err rows
   const int n_own = kSae ? sae.lv.end[0] / TH : 0;  // kSae: the level-0 blocks
-  // combo blockIdx.y's pointer operands, each moved where it is used (header
+  // this split's tokens [t_lo, t_hi): its share of the steps (header note, "Splits")
+  const int n_steps = (n_tokens + TS - 1) / TS, split = blk.split, n_split = gridDim.z;
+  const int t_lo = split * n_steps / n_split * TS;
+  const int t_hi = min(n_tokens, (split + 1) * n_steps / n_split * TS);
+  // combo cb's pointer operands, each moved where it is used (header
   // note, "Combos"): coeffs by kCoef floats, the per-latent ones by H, the
   // gradients by theirs, db_dec_part (its direct rows, then with kSae the H / 64
   // centring rows that sae.db_cent points into) by ``part``
@@ -2090,16 +2271,16 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   const long part = static_cast<long>((n_tokens + TS - 1) / TS) * Cout +
                     (kSae ? static_cast<long>(H / TH) * Cin : 0);
   if (tid < TH) {
-    benc_s[tid] = combo_part(b_enc, H)[h0 + tid];
+    benc_s[tid] = combo_part(b_enc, H, cb)[h0 + tid];
     if constexpr (kAct == Act::Relu) {
-      ct_s[tid] = combo_part(ct, H)[h0 + tid];
+      ct_s[tid] = combo_part(ct, H, cb)[h0 + tid];
     } else if constexpr (kAct == Act::Jump) {
-      const float th = combo_part(sae.act.theta, H)[h0 + tid];
+      const float th = combo_part(sae.act.theta, H, cb)[h0 + tid];
       ct_s[tid] = th;
       v2_s[tid] = __fdiv_rn(-th, sae.act.eps);
     } else {
-      ct_s[tid] = combo_part(sae.act.b_mag, H)[h0 + tid];
-      v2_s[tid] = combo_part(sae.act.er, H)[h0 + tid];
+      ct_s[tid] = combo_part(sae.act.b_mag, H, cb)[h0 + tid];
+      v2_s[tid] = combo_part(sae.act.er, H, cb)[h0 + tid];
     }
   }
   if (tid == 0) init_ring<kBSt>(full, empty);
@@ -2108,24 +2289,24 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   // the tile stream, issued by thread 0 as coder_fwd_tc's
   const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd, *merr = &m_err;  // param space
   Producer<kBSt> prod{ring, kBSlot, full, empty};
-  int p_t = 0, p_ph = 0, p_a = 0, p_k = 0;
+  int p_t = t_lo, p_ph = 0, p_a = 0, p_k = 0;
   auto issue = [&]() {
-    if (tid != 0 || p_t >= n_tokens) return;
+    if (tid != 0 || p_t >= t_hi) return;
     const int ntok = min(TS, n_tokens - p_t);
     if (p_ph == 0) {  // A
       const int r0 = p_t + p_a * TU;
       unsigned char* d = prod.acquire(3 * kBox);
       if (p_k < nki) {
-        tma_box(d, mx, prod.bar, p_k * KT, r0);
-        tma_box(d + kBox, mx, prod.bar, p_k * KT, r0 + 64);
-        tma_box(d + 2 * kBox, mwe, prod.bar, h0, p_k * KT);
+        tma_box(d, mx, prod.bar, p_k * KT, r0, cb);
+        tma_box(d + kBox, mx, prod.bar, p_k * KT, r0 + 64, cb);
+        tma_box(d + 2 * kBox, mwe, prod.bar, h0, p_k * KT, cb);
       } else {
         int k0 = (p_k - nki) * KT, row = qrow + r0;
         if constexpr (kAct == Act::Gated)
           if (p_k >= nki + nko) k0 -= nko * KT, row += n_tokens;  // the via error's pass
-        tma_box(d, merr, prod.bar, k0, row);
-        tma_box(d + kBox, merr, prod.bar, k0, row + 64);
-        tma_box(d + 2 * kBox, mwd, prod.bar, k0, h0);
+        tma_box(d, merr, prod.bar, k0, row, cb);
+        tma_box(d + kBox, merr, prod.bar, k0, row + 64, cb);
+        tma_box(d + 2 * kBox, mwd, prod.bar, k0, h0, cb);
       }
       if (++p_k == nki + kErrPasses * nko) {
         p_k = 0;
@@ -2136,11 +2317,11 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
       unsigned char* d = prod.acquire(2 * kBox);
       const int r = p_t + p_k * KT;
       if (b) {  // a branch, not a select of the two maps: nvcc 12.8's cicc crashes on that
-        tma_box(d, mx, prod.bar, p_a * CC, r);
-        tma_box(d + kBox, mx, prod.bar, p_a * CC + 64, r);
+        tma_box(d, mx, prod.bar, p_a * CC, r, cb);
+        tma_box(d + kBox, mx, prod.bar, p_a * CC + 64, r, cb);
       } else {
-        tma_box(d, merr, prod.bar, p_a * CC, qrow + r);
-        tma_box(d + kBox, merr, prod.bar, p_a * CC + 64, qrow + r);
+        tma_box(d, merr, prod.bar, p_a * CC, qrow + r, cb);
+        tma_box(d + kBox, merr, prod.bar, p_a * CC + 64, qrow + r, cb);
       }
       if (++p_k == ntok / KT) {
         p_k = 0;
@@ -2154,7 +2335,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   for (int i = 0; i < kBSt - 1; ++i) issue();
   const int wg = warp / 4, w4 = warp % 4;  // warpgroup, warp in it
   const int li = lane / 8, lr = lane % 8;  // ldmatrix: which 8x8 matrix, which row of it
-  const float c_rec = combo_part(coeffs, kCoef)[0];
+  const float c_rec = combo_part(coeffs, kCoef, cb)[0];
   Consumer<kBSt> c{ring, kBSlot, full, empty, lane};
 
   // A fragments of round_bf16(c_rec * err) from a swizzled err tile, 4 k16 steps:
@@ -2204,12 +2385,12 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 #pragma unroll
   for (int q = 0; q < kNS; ++q) vs[q][0] = vs[q][1] = 0.f;
   // Jump: c_l0 * (-1/eps); Gated: c_l1
-  const float c_1 = kAct == Act::Jump ? __fmul_rn(combo_part(coeffs, kCoef)[1], sae.act.neg_inv_eps)
-                                      : kVar ? combo_part(coeffs, kCoef)[1] : 0.f;
+  const float c_1 = kAct == Act::Jump ? __fmul_rn(combo_part(coeffs, kCoef, cb)[1], sae.act.neg_inv_eps)
+                                      : kVar ? combo_part(coeffs, kCoef, cb)[1] : 0.f;
 
-  for (int t = 0, si = 0; t < n_tokens; t += TS, ++si) {
+  for (int t = t_lo, si = t_lo / TS; t < t_hi; t += TS, ++si) {
     const int ntok = min(TS, n_tokens - t);
-    const bool first = t == 0;
+    const bool first = t == t_lo;
 
     // A. pre = x @ W_enc tile + b_enc, dpost = round_bf16(c_rec*err) @ W_dec tile^T
     for (int u = 0; u < ntok / TU; ++u) {
@@ -2351,7 +2532,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
           [&](int, int h, int j) {
             const int ch = ci * CC + wg * 64 + w4 * 16 + lane / 4 + 8 * h;
             return ch < Cin ? reinterpret_cast<float2*>(
-                                  combo_part(dw_enc, static_cast<long>(Cin) * H) +
+                                  split_dw(dw_enc, split_ws, static_cast<long>(Cin) * H, blk) +
                                   static_cast<long>(ch) * H + h0 + j * 8 + 2 * (lane % 4))
                             : nullptr;
           },
@@ -2360,8 +2541,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
 
     // C. dW_dec[tile, chunk] += round_bf16(post)^T @ round_bf16(c_rec*err[:, chunk]),
     // computed transposed: round_bf16(c_rec*err[:, chunk])^T @ round_bf16(post)
-    const bool own_db = !kVar && (kSae ? si % n_own == static_cast<int>(blockIdx.x)
-                                       : si % gridDim.x == blockIdx.x);
+    const bool own_db = !kVar && si % (kSae ? n_own : static_cast<int>(gridDim.x)) == blk.x;
     for (int ci = 0; ci < nco; ++ci) {
       float g[8][4];
       float dd = 0.f;  // own_db: column ci*CC + tid of db_dec over the step (tid < CC)
@@ -2387,7 +2567,9 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
       // g[j][2h + e]: output column ci*CC + wg*64 + w4*16 + lane/4 + 8h, latent
       // h0 + 8j + 2*(lane%4) + e; every read before the first write
       const int col = ci * CC + wg * 64 + w4 * 16 + lane / 4;
-      float* const dwd = combo_part(dw_dec, static_cast<long>(H) * Cout);
+      float* const dwd = split_dw(
+          dw_dec, split_ws + static_cast<long>(n_split - 1) * gridDim.y * Cin * H,
+          static_cast<long>(H) * Cout, blk);
       float prev[8][2][2];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -2408,17 +2590,18 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
             if (col + 8 * h < Cout) dwd[o] = prev[j][h][e] + g[j][2 * h + e];
           }
       if (own_db && tid < CC && ci * CC + tid < Cout)
-        combo_part(db_dec_part, part)[static_cast<long>(si) * Cout + ci * CC + tid] = dd;
+        combo_part(db_dec_part, part, cb)[static_cast<long>(si) * Cout + ci * CC + tid] = dd;
     }
   }
 
-  // db_enc: per-thread column sums, over the lanes of a column, then over the
-  // eight warps' row groups, in a fixed order; the ring is free once every
-  // consumer is past its last tile
+  // db_enc and the other per-latent sums: per-thread column sums, over the
+  // lanes of a column, then over the eight warps' row groups, in a fixed order;
+  // the ring is free once every consumer is past its last tile
   __syncthreads();
-  float* red_s = reinterpret_cast<float*>(ring);  // [8][TH]; kVar: [kNS][8][TH]
+  constexpr int kSums = kVar ? kNS : 1;
+  float* red_s = reinterpret_cast<float*>(ring);  // [kSums][8][TH]
   // kSae: [TH] round_bf16(db_enc); Gated: round_bf16(sum dg)
-  float* bcd_s = red_s + (kVar ? kNS : 1) * 8 * TH;
+  float* bcd_s = red_s + kSums * 8 * TH;
   if constexpr (!kVar) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -2429,35 +2612,42 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
         for (int off = 4; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
         if (lane < 4) red_s[warp * TH + j * 8 + 2 * lane + e] = v;
       }
-    __syncthreads();
-    if (tid < TH) {
-      float v = red_s[tid];
-      for (int w = 1; w < 8; ++w) v += red_s[w * TH + tid];
-      combo_part(db_enc, H)[h0 + tid] = v;
-      if constexpr (kSae) bcd_s[tid] = __bfloat162float(__float2bfloat16(v));
-    }
   } else {
 #pragma unroll
     for (int q = 0; q < kNS; ++q)
 #pragma unroll
       for (int e = 0; e < 2; ++e) red_s[(q * 8 + warp) * TH + 2 * lane + e] = vs[q][e];
-    __syncthreads();
-    if (tid < TH) {
-      float s[kNS];
+  }
+  __syncthreads();
+  float s[kSums];
+  if (tid < TH)
 #pragma unroll
-      for (int q = 0; q < kNS; ++q) {
-        s[q] = red_s[q * 8 * TH + tid];
-        for (int w = 1; w < 8; ++w) s[q] += red_s[(q * 8 + w) * TH + tid];  // fixed order
-      }
-      combo_part(db_enc, H)[h0 + tid] = s[0];  // Gated: db_gate
-      if constexpr (kAct == Act::Jump) {
-        combo_part(sae.act.dtheta, H)[h0 + tid] = s[1];
-        bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
-      } else {
-        combo_part(sae.act.db_mag, H)[h0 + tid] = s[1];
-        combo_part(sae.act.dr_mag, H)[h0 + tid] = __fmul_rn(s[2], v2_s[tid]);
-        bcd_s[tid] = __bfloat162float(__float2bfloat16(s[kNS - 1]));
-      }
+    for (int q = 0; q < kSums; ++q) {
+      s[q] = red_s[q * 8 * TH + tid];
+      for (int w = 1; w < 8; ++w) s[q] += red_s[(q * 8 + w) * TH + tid];  // fixed order
+    }
+  if (n_split > 1) {  // the last split of this latent block goes on (header note, "Splits")
+    const long enc = static_cast<long>(gridDim.y) * Cin * H, dec = static_cast<long>(gridDim.y) * H * Cout;
+    float* const ws_dec = split_ws + (n_split - 1) * enc;
+    if (!last_split(s, ws_dec + (n_split - 1) * dec, H, blk, reinterpret_cast<int*>(bcd_s + TH)))
+      return;
+    add_split_tiles(combo_part(dw_enc, static_cast<long>(Cin) * H, cb) + h0,
+                    split_ws + cb * (enc / gridDim.y) + h0, enc, Cin, H, TH);
+    add_split_tiles(combo_part(dw_dec, static_cast<long>(H) * Cout, cb) + static_cast<long>(h0) * Cout,
+                    ws_dec + cb * (dec / gridDim.y) + static_cast<long>(h0) * Cout, dec, 1, 0,
+                    TH * Cout);
+  }
+  if (tid < TH) {
+    combo_part(db_enc, H, cb)[h0 + tid] = s[0];  // Gated: db_gate
+    if constexpr (kAct == Act::Relu) {
+      if constexpr (kSae) bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
+    } else if constexpr (kAct == Act::Jump) {
+      combo_part(sae.act.dtheta, H, cb)[h0 + tid] = s[1];
+      bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
+    } else {
+      combo_part(sae.act.db_mag, H, cb)[h0 + tid] = s[1];
+      combo_part(sae.act.dr_mag, H, cb)[h0 + tid] = __fmul_rn(s[2], v2_s[tid]);
+      bcd_s[tid] = __bfloat162float(__float2bfloat16(s[kNS - 1]));
     }
   }
   if constexpr (kSae) {  // this block's row of db_dec's centring term
@@ -2465,7 +2655,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
     for (int k = tid; k < Cin; k += kThreads) {
       // W_enc[k, h0 : h0 + 64]: 128 bytes, eight 16-byte loads
       const uint4* row = reinterpret_cast<const uint4*>(
-          combo_part(static_cast<const bf16*>(sae.w_enc), static_cast<long>(Cin) * H) +
+          combo_part(static_cast<const bf16*>(sae.w_enc), static_cast<long>(Cin) * H, cb) +
           static_cast<long>(k) * H + h0);
       float s = 0.f;
 #pragma unroll
@@ -2479,7 +2669,7 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
           s = fmaf(bcd_s[q * 8 + 2 * i + 1], f.y, s);
         }
       }
-      combo_part(sae.db_cent, part)[static_cast<long>(blockIdx.x) * Cin + k] = -s;
+      combo_part(sae.db_cent, part, cb)[static_cast<long>(blk.x) * Cin + k] = -s;
     }
   }
 }
@@ -2657,19 +2847,23 @@ cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int
 // nor row_active), row_active [n_tokens], recon [n_tokens, c_out] f32 (kPrefix:
 // prefix_recon [lv.n, n_tokens, c_out]; Gated: af.via too). n_combo stacked
 // dictionaries run in one launch, every operand and output [n_combo, ...]
-// (header note, "Combos").
+// (header note, "Combos"). n_split > 1 (coder_fwd_tc only, at most one split a
+// 512-latent group; header note, "Splits") makes recon and row_active partials
+// [n_split, n_combo, ...].
 template <bool kPrefix, Act kAct>
 cudaError_t fwd_tc(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
                    const float* b_dec, float* recon, float* act_part, float* row_active,
                    float* zsum_part, int n_tokens, int c_in, int c_out, int H,
                    const svt::Levels& lv, const ActFwd& af, cudaStream_t stream,
-                   int n_combo = 1) {
-  constexpr bool kSplit = kAct == Act::GatedEnc || kAct == Act::GatedPi;
+                   int n_combo = 1, int n_split = 1) {
+  constexpr bool kTwo = kAct == Act::GatedEnc || kAct == Act::GatedPi;  // the two-launch route
   if (bad_shape(n_tokens, c_in, c_out, H) || bad_combos(n_combo, H) ||
       bad_tc_operands(c_in, c_out, x, w_enc, w_dec, recon))
     return cudaErrorInvalidValue;
   const int hold = c_out <= 256 ? 256 : c_out <= kHoldCout ? kHoldCout : 0;  // held width
-  if ((kAct == Act::Gated && hold != 256) || (kSplit && hold == 256)) return cudaErrorInvalidValue;
+  if ((kAct == Act::Gated && hold != 256) || (kTwo && hold == 256) || n_split < 1 ||
+      (n_split > 1 && (hold || n_split > (H + kTcFwdLG - 1) / kTcFwdLG)))
+    return cudaErrorInvalidValue;
   CUtensorMap mx, mwe, mwd;
   cudaError_t e;
   if ((e = bf16_map(&mx, x, n_tokens, c_in, 64, n_combo)) != cudaSuccess ||
@@ -2681,7 +2875,7 @@ cudaError_t fwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
                        hold_smem_bytes(2), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
                        row_active, zsum_part, c_in, c_out, H, lv, af, DxFwd<false>{});
   } else {
-    if constexpr (!kSplit)
+    if constexpr (!kTwo)
       if (hold == 256)
         return svt::launch(coder_fwd_tc_hold<256, kPrefix, kAct>,
                            dim3(n_tokens / kHoldTT, n_combo), hold_smem_bytes(), stream, mx, mwe,
@@ -2694,7 +2888,7 @@ cudaError_t fwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
                          H, lv, af, DxFwd<false>{});
     TcFwd t{};
     t.act = af;
-    return svt::launch(coder_fwd_tc<kPrefix, kAct>, dim3(n_tokens / kTcFwdTT, n_combo),
+    return svt::launch(coder_fwd_tc<kPrefix, kAct>, dim3(n_tokens / kTcFwdTT, n_combo, n_split),
                        fwd_tc_smem_bytes(), stream, mx, mwe, mwd, b_enc, b_dec, recon, act_part,
                        row_active, zsum_part, c_in, c_out, H, lv, t);
   }
@@ -2718,17 +2912,19 @@ cudaError_t fwd_simt(const void* x, const void* w_enc, const float* b_enc, const
 }
 
 // Launch the forward: bf16 != 0 selects __nv_bfloat16 operands (fwd_tc's
-// route), else float (fwd_simt). Outputs as fwd_tc's.
+// route), else float (fwd_simt, never split). Outputs as fwd_tc's.
 template <bool kPrefix>
 cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const float* b_dec, float* recon, float* act_part,
                       float* row_active, float* zsum_part, int n_tokens, int c_in, int c_out,
-                      int H, const svt::Levels& lv, cudaStream_t stream, int n_combo = 1) {
-  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
+                      int H, const svt::Levels& lv, cudaStream_t stream, int n_combo = 1,
+                      int n_split = 1) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || (!bf16 && n_split != 1))
+    return cudaErrorInvalidValue;
   if (bf16)
     return fwd_tc<kPrefix, Act::Relu>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
                                       row_active, zsum_part, n_tokens, c_in, c_out, H, lv,
-                                      ActFwd{}, stream, n_combo);
+                                      ActFwd{}, stream, n_combo, n_split);
   return fwd_simt<kPrefix, Act::Relu>(x, w_enc, b_enc, w_dec, b_dec, recon, act_part,
                                       row_active, zsum_part, n_tokens, c_in, c_out, H, lv,
                                       ActFwd{}, stream, n_combo);
@@ -2743,15 +2939,21 @@ cudaError_t coder_fwd(int bf16, const void* x, const void* w_enc, const float* b
 // with kSae, of sae.db_cent's). n_combo stacked dictionaries in one launch, as
 // the forward's.
 // The bf16 backward body coder_bwd_tc<kSae, kAct> on x [n_tokens, c_in] and
-// err [err_rows, c_out] (bf16 operands).
+// err [err_rows, c_out] (bf16 operands). n_split > 1 (at most one split a
+// 512-token step; header note, "Splits") needs split_ws: dW_enc [n_split - 1,
+// n_combo, c_in, H] and dW_dec [n_split - 1, n_combo, H, c_out] partials and
+// the per-latent sums [n_split, n_combo, kSplitSums, H] f32, then [n_combo, H /
+// 64] int tickets, zeroed; the outputs keep their shapes.
 template <bool kSae, Act kAct>
 cudaError_t bwd_tc(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
                    const void* err, int err_rows, const float* coeffs, const float* ct,
                    float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
                    int n_tokens, int c_in, int c_out, int H, const SaeBwd& sae,
-                   cudaStream_t stream, int n_combo = 1) {
+                   cudaStream_t stream, int n_combo = 1, int n_split = 1,
+                   void* split_ws = nullptr) {
   if (bad_shape(n_tokens, c_in, c_out, H) || bad_combos(n_combo, H) ||
-      bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err))
+      bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err) || n_split < 1 ||
+      n_split > (n_tokens + kTcBwdTS - 1) / kTcBwdTS || (n_split > 1 && split_ws == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap mx, mwe, mwd, merr;
   cudaError_t e;
@@ -2760,10 +2962,10 @@ cudaError_t bwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
       (e = bf16_map(&mwd, w_dec, H, c_out, 64, n_combo)) != cudaSuccess ||
       (e = bf16_map(&merr, err, err_rows, c_out, 64, n_combo)) != cudaSuccess)
     return e;
-  return svt::launch(coder_bwd_tc<kSae, kAct>, dim3(H / kTcBwdTH, n_combo),
+  return svt::launch(coder_bwd_tc<kSae, kAct>, dim3(H / kTcBwdTH, n_combo, n_split),
                      bwd_tc_smem_bytes(kAct == Act::Relu ? 2 : 3), stream, mx, mwe, mwd, merr,
                      b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in,
-                     c_out, H, sae);
+                     c_out, H, sae, static_cast<float*>(split_ws));
 }
 
 // The f32 backward (float operands, any width): the SIMT body
@@ -2784,17 +2986,20 @@ cudaError_t bwd_simt(const void* x, const void* w_enc, const float* b_enc, const
                      db_dec_part, n_tokens, c_in, c_out, H, sae);
 }
 
+// bf16: bwd_tc (n_split, split_ws as its); float: bwd_simt, never split.
 template <bool kSae>
 cudaError_t coder_bwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const void* err, const float* coeffs, const float* ct,
                       float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
                       int n_tokens, int c_in, int c_out, int H, const SaeBwd& sae,
-                      cudaStream_t stream, int n_combo = 1) {
-  if (bad_shape(n_tokens, c_in, c_out, H)) return cudaErrorInvalidValue;
+                      cudaStream_t stream, int n_combo = 1, int n_split = 1,
+                      void* split_ws = nullptr) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || (!bf16 && n_split != 1))
+    return cudaErrorInvalidValue;
   if (bf16)
     return bwd_tc<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, sae.lv.n * n_tokens, coeffs, ct,
                                    dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H,
-                                   sae, stream, n_combo);
+                                   sae, stream, n_combo, n_split, split_ws);
   return bwd_simt<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
                                    dw_dec, db_dec_part, n_tokens, c_in, c_out, H, sae, stream,
                                    n_combo);

@@ -78,15 +78,16 @@
 // (center_kernel's output); act_part and l1_part (the zsum partials of
 // relu_pi, whose total is the L1 sum) [n_combo, n_tokens / 64, H]. bf16 != 0:
 // __nv_bfloat16 operands (fwd_tc: one launch to C = 256, two wider), else
-// float (fwd_simt: two launches).
+// float (fwd_simt: two launches). recon, via and row_active gain a leading
+// [n_split] axis (coder.cuh, "Splits": bf16 above C 512 only, both launches).
 extern "C" int svt_gated_sweep_fwd(int bf16, const void* x, const void* w_gate,
                                    const float* b_gate, const float* b_mag, const float* er,
                                    const void* w_dec, const float* b_dec, float* recon,
                                    float* via, float* act_part, float* row_active,
                                    float* l1_part, void* x_cent, int n_tokens, int C, int H,
-                                   int n_combo, cudaStream_t stream) {
+                                   int n_combo, int n_split, cudaStream_t stream) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
-      (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)))
+      (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)) || (!bf16 && n_split != 1))
     return cudaErrorInvalidValue;
   cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo);
   if (e != cudaSuccess) return e;
@@ -98,24 +99,34 @@ extern "C" int svt_gated_sweep_fwd(int bf16, const void* x, const void* w_gate,
     af.via = via;
     return fwd_tc<false, Act::Gated>(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part,
                                      row_active, l1_part, n_tokens, C, C, H, lv, af, stream,
-                                     n_combo);
+                                     n_combo, n_split);
   }
-  const auto route = bf16 ? fwd_tc<false, Act::GatedEnc> : fwd_simt<false, Act::GatedEnc>;
-  if ((e = route(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part, row_active, nullptr,
-                 n_tokens, C, C, H, lv, af, stream, n_combo)) != cudaSuccess)
+  if (bf16) {
+    if ((e = fwd_tc<false, Act::GatedEnc>(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part,
+                                          row_active, nullptr, n_tokens, C, C, H, lv, af,
+                                          stream, n_combo, n_split)) != cudaSuccess)
+      return e;
+    return fwd_tc<false, Act::GatedPi>(x_cent, w_gate, b_gate, w_dec, b_dec, via, nullptr,
+                                       nullptr, l1_part, n_tokens, C, C, H, lv, af, stream,
+                                       n_combo, n_split);
+  }
+  if ((e = fwd_simt<false, Act::GatedEnc>(x_cent, w_gate, b_gate, w_dec, b_dec, recon, act_part,
+                                          row_active, nullptr, n_tokens, C, C, H, lv, af,
+                                          stream, n_combo)) != cudaSuccess)
     return e;
-  const auto pi = bf16 ? fwd_tc<false, Act::GatedPi> : fwd_simt<false, Act::GatedPi>;
-  return pi(x_cent, w_gate, b_gate, w_dec, b_dec, via, nullptr, nullptr, l1_part, n_tokens, C,
-            C, H, lv, af, stream, n_combo);
+  return fwd_simt<false, Act::GatedPi>(x_cent, w_gate, b_gate, w_dec, b_dec, via, nullptr,
+                                       nullptr, l1_part, n_tokens, C, C, H, lv, af, stream,
+                                       n_combo);
 }
 
 extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
                              const float* b_gate, const float* b_mag, const float* er,
                              const void* w_dec, const float* b_dec, float* recon, float* via,
                              float* act_part, float* row_active, float* l1_part, void* x_cent,
-                             int n_tokens, int C, int H, cudaStream_t stream) {
+                             int n_tokens, int C, int H, int n_split, cudaStream_t stream) {
   return svt_gated_sweep_fwd(bf16, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via,
-                             act_part, row_active, l1_part, x_cent, n_tokens, C, H, 1, stream);
+                             act_part, row_active, l1_part, x_cent, n_tokens, C, H, 1, n_split,
+                             stream);
 }
 
 // err_rec and err_via are the f32 residuals recon - x and via - x [n_combo,
@@ -125,7 +136,8 @@ extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
 // combo's direct rows of db_dec, then one centring row per 64 latents (H / 64
 // rows). bf16: err_s gets scale_err_kernel's round_bf16(c_rec * err_rec)
 // (with the ceil(n_tokens / 512) direct rows) and round_bf16(c_aux *
-// err_via), then coder_bwd_tc<true, Act::Gated>; float: err_s gets copies of
+// err_via), then coder_bwd_tc<true, Act::Gated> (n_split and split_ws:
+// coder.cuh, bwd_tc); float: err_s gets copies of
 // err_rec and err_via, then coder_bwd_kernel<float, true, Act::Gated> (2
 // direct rows).
 extern "C" int svt_gated_sweep_bwd(int bf16, const void* x, const void* w_gate,
@@ -133,10 +145,11 @@ extern "C" int svt_gated_sweep_bwd(int bf16, const void* x, const void* w_gate,
                                    const void* w_dec, const float* b_dec, const float* err_rec,
                                    const float* err_via, const float* coeffs, float* dw_gate,
                                    float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
-                                   float* db_dec_part, void* x_cent, void* err_s, int n_tokens,
-                                   int C, int H, int n_combo, cudaStream_t stream) {
+                                   float* db_dec_part, void* x_cent, void* err_s,
+                                   void* split_ws, int n_tokens, int C, int H, int n_combo,
+                                   int n_split, cudaStream_t stream) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
-      (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)))
+      (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)) || (!bf16 && n_split != 1))
     return cudaErrorInvalidValue;
   const long n = static_cast<long>(n_tokens) * C;
   const long direct = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
@@ -168,7 +181,7 @@ extern "C" int svt_gated_sweep_bwd(int bf16, const void* x, const void* w_gate,
   if (bf16)
     return bwd_tc<true, Act::Gated>(x_cent, w_gate, b_gate, w_dec, err_s, 2 * n_tokens, coeffs,
                                     nullptr, dw_gate, db_gate, dw_dec, nullptr, n_tokens, C, C,
-                                    H, sae, stream, n_combo);
+                                    H, sae, stream, n_combo, n_split, split_ws);
   return bwd_simt<true, Act::Gated>(x_cent, w_gate, b_gate, w_dec, err_s, coeffs, nullptr,
                                     dw_gate, db_gate, dw_dec, db_dec_part, n_tokens, C, C, H, sae,
                                     stream, n_combo);
@@ -179,9 +192,10 @@ extern "C" int svt_gated_bwd(int bf16, const void* x, const void* w_gate,
                              const void* w_dec, const float* b_dec, const float* err_rec,
                              const float* err_via, const float* coeffs, float* dw_gate,
                              float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
-                             float* db_dec_part, void* x_cent, void* err_s, int n_tokens, int C,
-                             int H, cudaStream_t stream) {
+                             float* db_dec_part, void* x_cent, void* err_s, void* split_ws,
+                             int n_tokens, int C, int H, int n_split, cudaStream_t stream) {
   return svt_gated_sweep_bwd(bf16, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec,
                              err_via, coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec,
-                             db_dec_part, x_cent, err_s, n_tokens, C, H, 1, stream);
+                             db_dec_part, x_cent, err_s, split_ws, n_tokens, C, H, 1, n_split,
+                             stream);
 }

@@ -60,15 +60,17 @@
 // [n_combo, H] in f32; x_cent an [n_combo, n_tokens, C] workspace in the
 // operand type (center_kernel's output); act_part and l1_part (the zsum
 // partials of post, whose total is the L1 sum) [n_combo, n_tokens / 64, H].
-// bf16 != 0: __nv_bfloat16 operands (fwd_tc), else float (fwd_simt).
+// bf16 != 0: __nv_bfloat16 operands (fwd_tc), else float (fwd_simt). recon and
+// row_active gain a leading [n_split] axis (coder.cuh, "Splits": bf16 above C
+// 512 only).
 extern "C" int svt_jumprelu_sweep_fwd(int bf16, const void* x, const void* w_enc,
                                       const float* b_enc, const float* thr, const void* w_dec,
                                       const float* b_dec, float* recon, float* act_part,
                                       float* row_active, float* l1_part, void* x_cent,
-                                      int n_tokens, int C, int H, int n_combo,
+                                      int n_tokens, int C, int H, int n_combo, int n_split,
                                       cudaStream_t stream) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
-      (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)))
+      (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)) || (!bf16 && n_split != 1))
     return cudaErrorInvalidValue;
   const cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo);
   if (e != cudaSuccess) return e;
@@ -78,7 +80,7 @@ extern "C" int svt_jumprelu_sweep_fwd(int bf16, const void* x, const void* w_enc
   if (bf16)
     return fwd_tc<false, Act::Jump>(x_cent, w_enc, b_enc, w_dec, b_dec, recon, act_part,
                                     row_active, l1_part, n_tokens, C, C, H, lv, af, stream,
-                                    n_combo);
+                                    n_combo, n_split);
   return fwd_simt<false, Act::Jump>(x_cent, w_enc, b_enc, w_dec, b_dec, recon, act_part,
                                     row_active, l1_part, n_tokens, C, C, H, lv, af, stream,
                                     n_combo);
@@ -88,9 +90,9 @@ extern "C" int svt_jumprelu_fwd(int bf16, const void* x, const void* w_enc,
                                 const float* b_enc, const float* thr, const void* w_dec,
                                 const float* b_dec, float* recon, float* act_part,
                                 float* row_active, float* l1_part, void* x_cent, int n_tokens,
-                                int C, int H, cudaStream_t stream) {
+                                int C, int H, int n_split, cudaStream_t stream) {
   return svt_jumprelu_sweep_fwd(bf16, x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part,
-                                row_active, l1_part, x_cent, n_tokens, C, H, 1, stream);
+                                row_active, l1_part, x_cent, n_tokens, C, H, 1, n_split, stream);
 }
 
 // err is the f32 residual recon - x [n_combo, n_tokens, C]; coeffs is an
@@ -100,18 +102,20 @@ extern "C" int svt_jumprelu_fwd(int bf16, const void* x, const void* w_enc,
 // holds a combo's direct rows of db_dec, then one centring row per 64 latents
 // (H / 64 rows). bf16: err_s is an [n_combo, n_tokens, C] bf16 workspace
 // (scale_err_kernel's round_bf16(c_rec * err), with the ceil(n_tokens / 512)
-// direct rows), then coder_bwd_tc<true, Act::Jump>; float: err_s unused, 2
-// direct rows, coder_bwd_kernel<float, true, Act::Jump> on err.
+// direct rows), then coder_bwd_tc<true, Act::Jump> (n_split and split_ws:
+// coder.cuh, bwd_tc); float: err_s unused, 2 direct rows,
+// coder_bwd_kernel<float, true, Act::Jump> on err.
 extern "C" int svt_jumprelu_sweep_bwd(int bf16, const void* x, const void* w_enc,
                                       const float* b_enc, const float* thr, const void* w_dec,
                                       const float* b_dec, const float* err,
                                       const float* coeffs, float eps, float half_eps,
                                       float neg_inv_eps, float* dw_enc, float* db_enc,
                                       float* dthr, float* dw_dec, float* db_dec_part,
-                                      void* x_cent, void* err_s, int n_tokens, int C, int H,
-                                      int n_combo, cudaStream_t stream) {
+                                      void* x_cent, void* err_s, void* split_ws, int n_tokens,
+                                      int C, int H, int n_combo, int n_split,
+                                      cudaStream_t stream) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
-      (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)))
+      (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)) || (!bf16 && n_split != 1))
     return cudaErrorInvalidValue;
   const long direct = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
   const long part = (direct + H / kTcBwdTH) * C;  // a combo's db_dec_part
@@ -131,7 +135,7 @@ extern "C" int svt_jumprelu_sweep_bwd(int bf16, const void* x, const void* w_enc
   if (bf16)
     return bwd_tc<true, Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, n_tokens, coeffs,
                                    nullptr, dw_enc, db_enc, dw_dec, nullptr, n_tokens, C, C, H,
-                                   sae, stream, n_combo);
+                                   sae, stream, n_combo, n_split, split_ws);
   return bwd_simt<true, Act::Jump>(x_cent, w_enc, b_enc, w_dec, err, coeffs, nullptr, dw_enc,
                                    db_enc, dw_dec, db_dec_part, n_tokens, C, C, H, sae, stream,
                                    n_combo);
@@ -142,9 +146,10 @@ extern "C" int svt_jumprelu_bwd(int bf16, const void* x, const void* w_enc,
                                 const float* b_dec, const float* err, const float* coeffs,
                                 float eps, float half_eps, float neg_inv_eps,
                                 float* dw_enc, float* db_enc, float* dthr, float* dw_dec,
-                                float* db_dec_part, void* x_cent, void* err_s, int n_tokens,
-                                int C, int H, cudaStream_t stream) {
+                                float* db_dec_part, void* x_cent, void* err_s, void* split_ws,
+                                int n_tokens, int C, int H, int n_split, cudaStream_t stream) {
   return svt_jumprelu_sweep_bwd(bf16, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, eps,
                                 half_eps, neg_inv_eps, dw_enc, db_enc, dthr, dw_dec,
-                                db_dec_part, x_cent, err_s, n_tokens, C, H, 1, stream);
+                                db_dec_part, x_cent, err_s, split_ws, n_tokens, C, H, 1,
+                                n_split, stream);
 }

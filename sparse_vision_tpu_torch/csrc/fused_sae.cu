@@ -65,6 +65,14 @@
 // each combo's x_cent [n_combo, T, C] from its own b_dec. The one-dictionary
 // entry points are their n_combo = 1 calls.
 //
+// n_split (every forward and backward entry point; coder.cuh, "Splits") cuts
+// the bf16 in-place forward's latent sweep (C > 512) or the bf16 backward's
+// token sweep into that many parts on the grid's z dimension. The forward's
+// recon (prefix_recon) and row_active gain a leading [n_split] axis of
+// partials that the wrapper sums; the backward takes split_ws, whose partials
+// the last split of each latent block adds into the outputs. n_split = 1 is
+// the launch without a split; the dx entry points do not split.
+//
 // Entry points use a plain C interface (pointers, sizes, stream) and return the
 // cudaError_t of the launch; the Python wrappers (ops/fused_sae.py,
 // ops/fused_matryoshka_sae.py) raise on a non-zero value. Supported shapes:
@@ -77,34 +85,39 @@
 namespace {
 
 // The forward: center_kernel into x_cent, then the coder forward on x_cent.
-// n_combo dictionaries (stacked operands; x shared) in one launch of each.
+// n_combo dictionaries (stacked operands; x shared) in one launch of each;
+// n_split as coder_fwd's (coder.cuh, "Splits").
 template <bool kPrefix>
 cudaError_t sae_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                     const void* w_dec, const float* b_dec, void* x_cent, float* recon,
                     float* act_part, float* row_active, float* zsum_part, int n_tokens, int C,
-                    int H, const svt::Levels& lv, int n_combo, cudaStream_t stream) {
+                    int H, const svt::Levels& lv, int n_combo, int n_split,
+                    cudaStream_t stream) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
       (bf16 && bad_tc_operands(C, C, x, x_cent, x_cent, x_cent)))
     return cudaErrorInvalidValue;
   cudaError_t e = launch_center(bf16, x, b_dec, x_cent, n_tokens, C, stream, n_combo);
   if (e != cudaSuccess) return e;
   return coder_fwd<kPrefix>(bf16, x_cent, w_enc, b_enc, w_dec, b_dec, recon, act_part,
-                            row_active, zsum_part, n_tokens, C, C, H, lv, stream, n_combo);
+                            row_active, zsum_part, n_tokens, C, C, H, lv, stream, n_combo,
+                            n_split);
 }
 
 // The backward on x_cent: db_dec_part holds the direct rows (coder_bwd's) and
 // then H / 64 rows of the centring term.
 // n_combo dictionaries as sae_fwd's: a combo's db_dec_part is [direct rows + H /
-// 64, C], whose centring rows SaeBwd::db_cent points into (combo 0's).
+// 64, C], whose centring rows SaeBwd::db_cent points into (combo 0's); n_split
+// and split_ws as coder_bwd's.
 cudaError_t sae_bwd(int bf16, const void* x_cent, const void* w_enc, const float* b_enc,
                     const void* w_dec, const void* err, const float* coeffs, const float* ct,
                     float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
-                    int n_tokens, int C, int H, const svt::Levels& lv, int n_combo,
-                    cudaStream_t stream) {
+                    void* split_ws, int n_tokens, int C, int H, const svt::Levels& lv,
+                    int n_combo, int n_split, cudaStream_t stream) {
   const long direct_rows = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
   return coder_bwd<true>(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
                          dw_dec, db_dec_part, n_tokens, C, C, H,
-                         SaeBwd{lv, w_enc, db_dec_part + direct_rows * C}, stream, n_combo);
+                         SaeBwd{lv, w_enc, db_dec_part + direct_rows * C}, stream, n_combo,
+                         n_split, split_ws);
 }
 
 // The dx route of the forward bodies (kDx, coder.cuh), c_in = c_out = C: dx
@@ -156,48 +169,52 @@ cudaError_t sae_dx(int bf16, const void* x, const void* w_enc, const float* b_en
 
 // x is the [T, C] input shared by the n_combo combos, w_enc [n_combo, C, H],
 // b_enc [n_combo, H], w_dec [n_combo, H, C], b_dec [n_combo, C]; x_cent is
-// [n_combo, T, C] in the operand type; recon [n_combo, T, C] f32; act_part and
-// zsum_part [n_combo, T / 64, H] (per-64-token partials), row_active [n_combo,
-// T].
+// [n_combo, T, C] in the operand type; recon [n_split, n_combo, T, C] f32;
+// act_part and zsum_part [n_combo, T / 64, H] (per-64-token partials),
+// row_active [n_split, n_combo, T] (n_split: coder.cuh, "Splits"; 1 but in
+// bf16 above C 512).
 extern "C" int svt_sae_sweep_fwd(int bf16, const void* x, const void* w_enc,
                                  const float* b_enc, const void* w_dec, const float* b_dec,
                                  void* x_cent, float* recon, float* act_part, float* row_active,
                                  float* zsum_part, int n_tokens, int C, int H, int n_combo,
-                                 cudaStream_t stream) {
+                                 int n_split, cudaStream_t stream) {
   return sae_fwd<false>(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, recon, act_part,
                         row_active, zsum_part, n_tokens, C, H, svt::one_level(H), n_combo,
-                        stream);
+                        n_split, stream);
 }
 
 // one dictionary: the sweep's entry point at n_combo = 1
 extern "C" int svt_sae_fwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                            const void* w_dec, const float* b_dec, void* x_cent, float* recon,
                            float* act_part, float* row_active, float* zsum_part, int n_tokens,
-                           int C, int H, cudaStream_t stream) {
+                           int C, int H, int n_split, cudaStream_t stream) {
   return svt_sae_sweep_fwd(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, recon, act_part,
-                           row_active, zsum_part, n_tokens, C, H, 1, stream);
+                           row_active, zsum_part, n_tokens, C, H, 1, n_split, stream);
 }
 
 // err is the [n_combo, T, C] residual recon - x; coeffs is a [n_combo, 2] device
 // array (c_rec, c_l1), ct the [n_combo, H] L1 cotangent (c_l1 broadcast);
 // db_dec_part is [n_combo, direct rows + H / 64, C] (direct rows: ceil(T / 512)
-// in bf16, 2 in f32); x_cent, the weights and the gradients [n_combo, ...].
+// in bf16, 2 in f32); x_cent, the weights and the gradients [n_combo, ...],
+// n_split and split_ws as coder.cuh's bwd_tc takes them.
 extern "C" int svt_sae_sweep_bwd(int bf16, const void* x_cent, const void* w_enc,
                                  const float* b_enc, const void* w_dec, const void* err,
                                  const float* coeffs, const float* ct, float* dw_enc,
-                                 float* db_enc, float* dw_dec, float* db_dec_part, int n_tokens,
-                                 int C, int H, int n_combo, cudaStream_t stream) {
+                                 float* db_enc, float* dw_dec, float* db_dec_part,
+                                 void* split_ws, int n_tokens, int C, int H, int n_combo,
+                                 int n_split, cudaStream_t stream) {
   return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
-                 db_dec_part, n_tokens, C, H, svt::one_level(H), n_combo, stream);
+                 db_dec_part, split_ws, n_tokens, C, H, svt::one_level(H), n_combo, n_split,
+                 stream);
 }
 
 extern "C" int svt_sae_bwd(int bf16, const void* x_cent, const void* w_enc, const float* b_enc,
                            const void* w_dec, const void* err, const float* coeffs,
                            const float* ct, float* dw_enc, float* db_enc, float* dw_dec,
-                           float* db_dec_part, int n_tokens, int C, int H,
-                           cudaStream_t stream) {
+                           float* db_dec_part, void* split_ws, int n_tokens, int C, int H,
+                           int n_split, cudaStream_t stream) {
   return svt_sae_sweep_bwd(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
-                           dw_dec, db_dec_part, n_tokens, C, H, 1, stream);
+                           dw_dec, db_dec_part, split_ws, n_tokens, C, H, 1, n_split, stream);
 }
 
 // dx is [T, C] f32; x_cent is the forward's centred input, err the [T, C]
@@ -215,28 +232,30 @@ extern "C" int svt_sae_dx(int bf16, const void* x_cent, const void* w_enc, const
 // P, T, C] suffix-weighted error and coeffs [n_combo, 2] = (1, c_l1).
 // ---------------------------------------------------------------------------
 
-// prefix_recon is [n_combo, P, T, C] f32; x_cent, act_part, zsum_part and
-// row_active as for svt_sae_sweep_fwd.
+// prefix_recon is [n_split, n_combo, P, T, C] f32; x_cent, act_part,
+// zsum_part and row_active as for svt_sae_sweep_fwd.
 extern "C" int svt_matryoshka_sweep_fwd(int bf16, const void* x, const void* w_enc,
                                         const float* b_enc, const void* w_dec,
                                         const float* b_dec, void* x_cent, float* prefix_recon,
                                         float* act_part, float* row_active, float* zsum_part,
                                         int n_tokens, int C, int H, const int* bounds,
-                                        int n_levels, int n_combo, cudaStream_t stream) {
+                                        int n_levels, int n_combo, int n_split,
+                                        cudaStream_t stream) {
   svt::Levels lv;
   if (!svt::make_levels(bounds, n_levels, H, kFwdLG, &lv)) return cudaErrorInvalidValue;
   return sae_fwd<true>(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, prefix_recon, act_part,
-                       row_active, zsum_part, n_tokens, C, H, lv, n_combo, stream);
+                       row_active, zsum_part, n_tokens, C, H, lv, n_combo, n_split, stream);
 }
 
 extern "C" int svt_matryoshka_fwd(int bf16, const void* x, const void* w_enc,
                                   const float* b_enc, const void* w_dec, const float* b_dec,
                                   void* x_cent, float* prefix_recon, float* act_part,
                                   float* row_active, float* zsum_part, int n_tokens, int C,
-                                  int H, const int* bounds, int n_levels, cudaStream_t stream) {
+                                  int H, const int* bounds, int n_levels, int n_split,
+                                  cudaStream_t stream) {
   return svt_matryoshka_sweep_fwd(bf16, x, w_enc, b_enc, w_dec, b_dec, x_cent, prefix_recon,
                                   act_part, row_active, zsum_part, n_tokens, C, H, bounds,
-                                  n_levels, 1, stream);
+                                  n_levels, 1, n_split, stream);
 }
 
 // db_dec_part as for svt_sae_sweep_bwd; the direct rows sum S_0.
@@ -244,23 +263,24 @@ extern "C" int svt_matryoshka_sweep_bwd(int bf16, const void* x_cent, const void
                                         const float* b_enc, const void* w_dec, const void* s,
                                         const float* coeffs, const float* ct, float* dw_enc,
                                         float* db_enc, float* dw_dec, float* db_dec_part,
-                                        int n_tokens, int C, int H, const int* bounds,
-                                        int n_levels, int n_combo, cudaStream_t stream) {
+                                        void* split_ws, int n_tokens, int C, int H,
+                                        const int* bounds, int n_levels, int n_combo,
+                                        int n_split, cudaStream_t stream) {
   svt::Levels lv;
   if (!svt::make_levels(bounds, n_levels, H, kFwdLG, &lv)) return cudaErrorInvalidValue;
   return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, dw_enc, db_enc, dw_dec,
-                 db_dec_part, n_tokens, C, H, lv, n_combo, stream);
+                 db_dec_part, split_ws, n_tokens, C, H, lv, n_combo, n_split, stream);
 }
 
 extern "C" int svt_matryoshka_bwd(int bf16, const void* x_cent, const void* w_enc,
                                   const float* b_enc, const void* w_dec, const void* s,
                                   const float* coeffs, const float* ct, float* dw_enc,
                                   float* db_enc, float* dw_dec, float* db_dec_part,
-                                  int n_tokens, int C, int H, const int* bounds, int n_levels,
-                                  cudaStream_t stream) {
+                                  void* split_ws, int n_tokens, int C, int H, const int* bounds,
+                                  int n_levels, int n_split, cudaStream_t stream) {
   return svt_matryoshka_sweep_bwd(bf16, x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, dw_enc,
-                                  db_enc, dw_dec, db_dec_part, n_tokens, C, H, bounds, n_levels,
-                                  1, stream);
+                                  db_enc, dw_dec, db_dec_part, split_ws, n_tokens, C, H, bounds,
+                                  n_levels, 1, n_split, stream);
 }
 
 // dx as for svt_sae_dx, from the suffix-weighted error S [P, T, C]. One

@@ -87,8 +87,8 @@ class _ForwardKernel(Kernel):
 
     name = "fused_crosscoder_fwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
-        return coder_forward_launch(self, x, w_enc, b_enc, w_dec, b_dec)
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, n_split=None):
+        return coder_forward_launch(self, x, w_enc, b_enc, w_dec, b_dec, n_split)
 
 
 class _BackwardKernel(Kernel):
@@ -97,9 +97,10 @@ class _BackwardKernel(Kernel):
 
     name = "fused_crosscoder_bwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum):
+    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum, n_split=None):
         _expect("coeffs", coeffs, (1,), _F32, x.device)
-        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum)
+        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct_zsum,
+                                     n_split)
 
 
 class _TPForwardKernel(_ForwardKernel):

@@ -83,9 +83,13 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     center_plain,
     compute_dtype_of,
     direct_rows,
+    join_splits,
+    launch_split,
     loss_coeffs,
     run_on_device,
     scale_err_plain,
+    split_empty,
+    split_workspace,
     stack_plain,
     sweep_terms,
 )
@@ -212,14 +216,16 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_gated_sae")
+    # every entry point ends in (..., n_split, stream); the backwards' last
+    # pointer is split_ws (csrc/coder.cuh, "Splits")
     lib.svt_gated_fwd.restype = _I
-    lib.svt_gated_fwd.argtypes = [_I] + [_P] * 13 + [_I, _I, _I, _P]
+    lib.svt_gated_fwd.argtypes = [_I] + [_P] * 13 + [_I] * 4 + [_P]
     lib.svt_gated_bwd.restype = _I
-    lib.svt_gated_bwd.argtypes = [_I] + [_P] * 18 + [_I, _I, _I, _P]
+    lib.svt_gated_bwd.argtypes = [_I] + [_P] * 19 + [_I] * 4 + [_P]
     lib.svt_gated_sweep_fwd.restype = _I
-    lib.svt_gated_sweep_fwd.argtypes = [_I] + [_P] * 13 + [_I] * 4 + [_P]
+    lib.svt_gated_sweep_fwd.argtypes = [_I] + [_P] * 13 + [_I] * 5 + [_P]
     lib.svt_gated_sweep_bwd.restype = _I
-    lib.svt_gated_sweep_bwd.argtypes = [_I] + [_P] * 18 + [_I] * 4 + [_P]
+    lib.svt_gated_sweep_bwd.argtypes = [_I] + [_P] * 19 + [_I] * 5 + [_P]
     return lib
 
 
@@ -251,20 +257,22 @@ class _ForwardKernel(Kernel):
 
     name = "fused_gated_sae_fwd"
 
-    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, n_split=None):
         t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec)
         dev = x.device
-        recon = torch.empty((t, c), dtype=_F32, device=dev)
-        via = torch.empty((t, c), dtype=_F32, device=dev)
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)
+        recon = split_empty(s, (t, c), dev)
+        via = split_empty(s, (t, c), dev)
         # per-64-token partials of the counts and of Σ relu(π_gate) (the L1 sum)
         act_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
         l1_part = torch.empty_like(act_part)
-        row_active = torch.empty((t,), dtype=_F32, device=dev)
+        row_active = split_empty(s, (t,), dev)
         x_cent = torch.empty_like(x)  # center_kernel's output
         self._launch(_lib().svt_gated_fwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via, act_part,
-                            row_active, l1_part, x_cent), t, c, h)
-        return recon, via, act_part.sum(0), row_active, l1_part.sum()
+                            row_active, l1_part, x_cent), t, c, h, s)
+        return (join_splits(recon, s), join_splits(via, s), act_part.sum(0),
+                join_splits(row_active, s), l1_part.sum())
 
 
 class _BackwardKernel(Kernel):
@@ -275,12 +283,14 @@ class _BackwardKernel(Kernel):
 
     name = "fused_gated_sae_bwd"
 
-    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs):
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs,
+                 n_split=None):
         t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward=True)
         dev = x.device
         _expect("err_rec", err_rec, (t, c), _F32, dev)
         _expect("err_via", err_via, (t, c), _F32, dev)
         _expect("coeffs", coeffs, (3,), _F32, dev)
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split)
         dw_gate = torch.empty((c, h), dtype=_F32, device=dev)
         db_gate = torch.empty((h,), dtype=_F32, device=dev)
         db_mag = torch.empty((h,), dtype=_F32, device=dev)
@@ -296,7 +306,7 @@ class _BackwardKernel(Kernel):
         self._launch(_lib().svt_gated_bwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
                             coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part,
-                            x_cent, err_s), t, c, h)
+                            x_cent, err_s, split_workspace(s, 1, h, c, c, dev)), t, c, h, s)
         return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part.sum(0)
 
 
@@ -421,20 +431,22 @@ class _SweepForwardKernel(Kernel):
 
     name = "fused_gated_sae_sweep_fwd"
 
-    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec):
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, n_split=None):
         n, t, c, h = _check_sweep_operands(self.name, x, w_gate, b_gate, b_mag, er, w_dec,
                                            b_dec)
         dev = x.device
-        recon = torch.empty((n, t, c), dtype=_F32, device=dev)
-        via = torch.empty((n, t, c), dtype=_F32, device=dev)
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)  # one combo's
+        recon = split_empty(s, (n, t, c), dev)
+        via = split_empty(s, (n, t, c), dev)
         act_part = torch.empty((n, t // PART_T, h), dtype=_F32, device=dev)
         l1_part = torch.empty_like(act_part)
-        row_active = torch.empty((n, t), dtype=_F32, device=dev)
+        row_active = split_empty(s, (n, t), dev)
         x_cent = torch.empty((n, t, c), dtype=x.dtype, device=dev)
         self._launch(_lib().svt_gated_sweep_fwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, recon, via, act_part,
-                            row_active, l1_part, x_cent), t, c, h, n)
-        return recon, via, act_part, row_active, l1_part
+                            row_active, l1_part, x_cent), t, c, h, n, s)
+        return (join_splits(recon, s), join_splits(via, s), act_part,
+                join_splits(row_active, s), l1_part)
 
 
 class _SweepBackwardKernel(Kernel):
@@ -444,13 +456,15 @@ class _SweepBackwardKernel(Kernel):
 
     name = "fused_gated_sae_sweep_bwd"
 
-    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs):
+    def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs,
+                 n_split=None):
         n, t, c, h = _check_sweep_operands(self.name, x, w_gate, b_gate, b_mag, er, w_dec,
                                            b_dec)
         dev = x.device
         _expect("err_rec", err_rec, (n, t, c), _F32, dev)
         _expect("err_via", err_via, (n, t, c), _F32, dev)
         _expect("coeffs", coeffs, (n, 3), _F32, dev)
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split)  # one combo's
         dw_gate = torch.empty((n, c, h), dtype=_F32, device=dev)
         db_gate, db_mag, dr_mag = (torch.empty((n, h), dtype=_F32, device=dev) for _ in range(3))
         dw_dec = torch.empty((n, h, c), dtype=_F32, device=dev)
@@ -461,7 +475,7 @@ class _SweepBackwardKernel(Kernel):
         self._launch(_lib().svt_gated_sweep_bwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
                             coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part,
-                            x_cent, err_s), t, c, h, n)
+                            x_cent, err_s, split_workspace(s, n, h, c, c, dev)), t, c, h, n, s)
         return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part
 
 

@@ -77,9 +77,13 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     centring_rows_plain,
     compute_dtype_of,
     direct_rows,
+    join_splits,
+    launch_split,
     loss_coeffs,
     run_on_device,
     scale_err_plain,
+    split_empty,
+    split_workspace,
     stack_plain,
     sweep_terms,
 )
@@ -193,16 +197,18 @@ _F = ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_jumprelu_sae")
+    # every entry point ends in (..., n_split, stream); the backwards' last
+    # pointer is split_ws (csrc/coder.cuh, "Splits")
     lib.svt_jumprelu_fwd.restype = _I
-    lib.svt_jumprelu_fwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P]
+    lib.svt_jumprelu_fwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
     lib.svt_jumprelu_bwd.restype = _I
-    lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 7
-                                     + [_I, _I, _I, _P])
+    lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 8
+                                     + [_I] * 4 + [_P])
     lib.svt_jumprelu_sweep_fwd.restype = _I
-    lib.svt_jumprelu_sweep_fwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+    lib.svt_jumprelu_sweep_fwd.argtypes = [_I] + [_P] * 11 + [_I] * 5 + [_P]
     lib.svt_jumprelu_sweep_bwd.restype = _I
-    lib.svt_jumprelu_sweep_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 7
-                                           + [_I] * 4 + [_P])
+    lib.svt_jumprelu_sweep_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 8
+                                           + [_I] * 5 + [_P])
     return lib
 
 
@@ -234,19 +240,21 @@ class _ForwardKernel(Kernel):
 
     name = "fused_jumprelu_sae_fwd"
 
-    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec):
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, n_split=None):
         t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec)
         dev = x.device
-        recon = torch.empty((t, c), dtype=_F32, device=dev)
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)
+        recon = split_empty(s, (t, c), dev)
         # per-64-token partials of the counts and of Σ post (the L1 sum)
         act_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
         l1_part = torch.empty_like(act_part)
-        row_active = torch.empty((t,), dtype=_F32, device=dev)
+        row_active = split_empty(s, (t,), dev)
         x_cent = torch.empty_like(x)  # center_kernel's output
         self._launch(_lib().svt_jumprelu_fwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part, row_active,
-                            l1_part, x_cent), t, c, h)
-        return recon, act_part.sum(0), row_active, l1_part.sum()
+                            l1_part, x_cent), t, c, h, s)
+        return (join_splits(recon, s), act_part.sum(0), join_splits(row_active, s),
+                l1_part.sum())
 
 
 class _BackwardKernel(Kernel):
@@ -257,12 +265,14 @@ class _BackwardKernel(Kernel):
 
     name = "fused_jumprelu_sae_bwd"
 
-    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth,
+                 n_split=None):
         t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward=True)
         dev = x.device
         _expect("err", err, (t, c), _F32, dev)
         _expect("coeffs", coeffs, (2,), _F32, dev)
         bf16 = x.dtype == _BF16
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split)
         dw_enc = torch.empty((c, h), dtype=_F32, device=dev)
         db_enc = torch.empty((h,), dtype=_F32, device=dev)
         dthr = torch.empty((h,), dtype=_F32, device=dev)
@@ -277,8 +287,8 @@ class _BackwardKernel(Kernel):
         self._launch(_lib().svt_jumprelu_bwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
                      eps, eps / 2, -1.0 / eps,
-                     *(v.data_ptr() for v in (dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent)),
-                     None if err_s is None else err_s.data_ptr(), t, c, h)
+                     *_ptrs(x, dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent, err_s,
+                            split_workspace(s, 1, h, c, c, dev))[2:], t, c, h, s)
         return dw_enc, db_enc, dthr, dw_dec, db_dec_part.sum(0)
 
 
@@ -402,18 +412,19 @@ class _SweepForwardKernel(Kernel):
 
     name = "fused_jumprelu_sae_sweep_fwd"
 
-    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec):
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, n_split=None):
         n, t, c, h = _check_sweep_operands(self.name, x, w_enc, b_enc, thr, w_dec, b_dec)
         dev = x.device
-        recon = torch.empty((n, t, c), dtype=_F32, device=dev)
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)  # one combo's
+        recon = split_empty(s, (n, t, c), dev)
         act_part = torch.empty((n, t // PART_T, h), dtype=_F32, device=dev)
         l1_part = torch.empty_like(act_part)
-        row_active = torch.empty((n, t), dtype=_F32, device=dev)
+        row_active = split_empty(s, (n, t), dev)
         x_cent = torch.empty((n, t, c), dtype=x.dtype, device=dev)
         self._launch(_lib().svt_jumprelu_sweep_fwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, recon, act_part, row_active,
-                            l1_part, x_cent), t, c, h, n)
-        return recon, act_part, row_active, l1_part
+                            l1_part, x_cent), t, c, h, n, s)
+        return join_splits(recon, s), act_part, join_splits(row_active, s), l1_part
 
 
 class _SweepBackwardKernel(Kernel):
@@ -423,12 +434,14 @@ class _SweepBackwardKernel(Kernel):
 
     name = "fused_jumprelu_sae_sweep_bwd"
 
-    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth):
+    def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth,
+                 n_split=None):
         n, t, c, h = _check_sweep_operands(self.name, x, w_enc, b_enc, thr, w_dec, b_dec)
         dev = x.device
         _expect("err", err, (n, t, c), _F32, dev)
         _expect("coeffs", coeffs, (n, 2), _F32, dev)
         bf16 = x.dtype == _BF16
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split)  # one combo's
         dw_enc = torch.empty((n, c, h), dtype=_F32, device=dev)
         db_enc = torch.empty((n, h), dtype=_F32, device=dev)
         dthr = torch.empty((n, h), dtype=_F32, device=dev)
@@ -441,8 +454,8 @@ class _SweepBackwardKernel(Kernel):
         self._launch(_lib().svt_jumprelu_sweep_bwd, dev,
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
                      eps, eps / 2, -1.0 / eps,
-                     *(v.data_ptr() for v in (dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent)),
-                     None if err_s is None else err_s.data_ptr(), t, c, h, n)
+                     *_ptrs(x, dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent, err_s,
+                            split_workspace(s, n, h, c, c, dev))[2:], t, c, h, n, s)
         return dw_enc, db_enc, dthr, dw_dec, db_dec_part
 
 

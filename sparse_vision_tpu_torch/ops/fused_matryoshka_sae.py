@@ -69,8 +69,11 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     coder_backward_plain,
     compute_dtype_of,
     forward_outputs,
+    join_forward,
+    launch_split,
     loss_coeffs,
     run_on_device,
+    split_workspace,
     stack_plain,
     sweep_terms,
 )
@@ -201,16 +204,20 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_sae")
+    # the forwards and backwards end in (..., n_split, stream); the backwards'
+    # last pointer is split_ws (csrc/coder.cuh, "Splits")
     lib.svt_matryoshka_fwd.restype = _I
-    lib.svt_matryoshka_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _P]
+    lib.svt_matryoshka_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _I, _P]
     lib.svt_matryoshka_bwd.restype = _I
-    lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P, _I, _P]
+    lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P]
     lib.svt_matryoshka_dx.restype = _I
     lib.svt_matryoshka_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P, _I, _P]
     lib.svt_matryoshka_sweep_fwd.restype = _I
-    lib.svt_matryoshka_sweep_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _I, _P]
+    lib.svt_matryoshka_sweep_fwd.argtypes = ([_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _I, _I]
+                                             + [_P])
     lib.svt_matryoshka_sweep_bwd.restype = _I
-    lib.svt_matryoshka_sweep_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P, _I, _I, _P]
+    lib.svt_matryoshka_sweep_bwd.argtypes = ([_I] + [_P] * 12 + [_I, _I, _I, _P, _I, _I, _I]
+                                             + [_P])
     return lib
 
 
@@ -236,14 +243,15 @@ class _ForwardKernel(Kernel):
 
     name = "fused_matryoshka_sae_fwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, boundaries, n_split=None):
         t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
         bounds = _bounds(h, boundaries, TILE_H)
-        outs = forward_outputs(x, h, (len(boundaries), t, c))
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)
+        outs = forward_outputs(x, h, (len(boundaries), t, c), split=s)
         self._launch(_lib().svt_matryoshka_fwd, x.device,
                      *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, bounds,
-                     len(boundaries))
-        return outs
+                     len(boundaries), s)
+        return join_forward(outs, s)
 
 
 class _BackwardKernel(Kernel):
@@ -252,15 +260,17 @@ class _BackwardKernel(Kernel):
 
     name = "fused_matryoshka_sae_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries, n_split=None):
         t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
         bounds = _bounds(h, boundaries, TILE_H)
         _check_s(x_cent, s, coeffs, len(boundaries))
         ct = coeffs[1:].expand(h).contiguous()
+        sp = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)
         outs = backward_outputs(x_cent, h)
         self._launch(_lib().svt_matryoshka_bwd, x_cent.device,
-                     *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs), t, c, h,
-                     bounds, len(boundaries))
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs,
+                            split_workspace(sp, 1, h, c, c, x_cent.device)), t, c, h,
+                     bounds, len(boundaries), sp)
         return outs
 
 
@@ -436,14 +446,15 @@ class _SweepForwardKernel(Kernel):
 
     name = "fused_matryoshka_sae_sweep_fwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, boundaries):
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, boundaries, n_split=None):
         n, t, c, h = _check_sweep(self.name, x, w_enc, b_enc, w_dec, b_dec)
         bounds = _bounds(h, boundaries, TILE_H)
-        outs = forward_outputs(x, h, (len(boundaries), t, c), n)
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)  # one combo's
+        outs = forward_outputs(x, h, (len(boundaries), t, c), n, s)
         self._launch(_lib().svt_matryoshka_sweep_fwd, x.device,
                      *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, bounds,
-                     len(boundaries), n)
-        return outs
+                     len(boundaries), n, s)
+        return join_forward(outs, s)
 
 
 class _SweepBackwardKernel(Kernel):
@@ -453,16 +464,18 @@ class _SweepBackwardKernel(Kernel):
 
     name = "fused_matryoshka_sae_sweep_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries, n_split=None):
         n, t, c, h = _check_sweep(self.name, x_cent, w_enc, b_enc, w_dec, x_rows=1)
         bounds = _bounds(h, boundaries, TILE_H)
         _expect("S", s, (n, len(boundaries), t, c), x_cent.dtype, x_cent.device)
         _expect("coeffs", coeffs, (n, 2), _F32, x_cent.device)
         ct = coeffs[:, 1:].expand(n, h).contiguous()
+        sp = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)  # one combo's
         outs = backward_outputs(x_cent, h)
         self._launch(_lib().svt_matryoshka_sweep_bwd, x_cent.device,
-                     *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs), t, c, h,
-                     bounds, len(boundaries), n)
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs,
+                            split_workspace(sp, n, h, c, c, x_cent.device)), t, c, h,
+                     bounds, len(boundaries), n, sp)
         return outs
 
 

@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from fractions import Fraction
 
 import torch
 
@@ -86,6 +87,18 @@ BF16_STEP_T = 512
 F32_DIRECT_ROWS = 2
 BLOCK_H = 64
 BF16_WIDTH = 8
+# The split of the bf16 bodies' sweeps (csrc/coder.cuh, "Splits"; grid_split):
+# the in-place forward's tokens per block and latents per group (kTcFwdTT,
+# kTcFwdLG), the widest C_out that the register-held forwards take (kHoldCout;
+# they never split), at most MAX_SPLIT parts, the 512-token steps a backward
+# part keeps at least, and the per-latent sums a backward part leaves in its
+# workspace (kSplitSums).
+FWD_TILE_T = 128
+FWD_GROUP_H = 512
+HOLD_COUT = 512
+MAX_SPLIT = 4
+SPLIT_MIN_STEPS = 2
+SPLIT_SUMS = 4
 
 
 def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
@@ -96,6 +109,83 @@ def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) 
     return (t > 0 and h > 0 and c_in > 0 and c_out > 0 and t % TILE_T == 0
             and h % TILE_H == 0
             and (dt != _BF16 or (c_in % BF16_WIDTH == 0 and c_out % BF16_WIDTH == 0)))
+
+
+def grid_split(t: int, h: int, c_out: int, *, backward: bool, n_sm: int) -> int:
+    """The number s of parts into which a bf16 launch cuts each block's sweep
+    (csrc/coder.cuh, "Splits"), from ONE dictionary's T, H and C_out and the
+    card's SM count only: never a sweep's N, so every combo of a sweep launch
+    runs as a one-dictionary launch does. The bodies are pinned at one block an
+    SM. The backward's grid is b = H/64 latent blocks, each sweeping the
+    512-token steps; the in-place forward's (C_out > 512: the register-held
+    forwards never split) b = T/128 token blocks, each sweeping the 512-latent
+    groups. A grid of at least 10/11 of the SMs (120 of 132) stays whole; a
+    smaller one takes the least s in 1..MAX_SPLIT whose waves s·b/n_sm are at
+    least 90% full, else the fullest (the least s of a tie), where each part
+    keeps at least SPLIT_MIN_STEPS token steps (backward) or one latent group
+    (forward)."""
+    if backward:
+        blocks, most = h // BLOCK_H, -(-t // BF16_STEP_T) // SPLIT_MIN_STEPS
+    elif c_out <= HOLD_COUT:
+        return 1
+    else:
+        blocks, most = t // FWD_TILE_T, -(-h // FWD_GROUP_H)
+    if 11 * blocks >= 10 * n_sm:
+        return 1
+    best, best_fill = 1, Fraction(0)
+    for s in range(1, max(1, min(MAX_SPLIT, most)) + 1):
+        fill = Fraction(s * blocks, n_sm * -(-s * blocks // n_sm))  # of the last wave's SMs
+        if fill >= Fraction(9, 10):
+            return s
+        if fill > best_fill:
+            best, best_fill = s, fill
+    return best
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_split(x: torch.Tensor, t: int, h: int, c_out: int, *, backward: bool,
+                 n_split: int | None = None) -> int:
+    """The split of a launch on CUDA operand ``x`` (one dictionary's T, H,
+    C_out): ``n_split`` where the caller names one (chip_smoke.py times the
+    unsplit launch beside the split one), else grid_split's in bf16; the f32
+    SIMT bodies never split."""
+    if n_split is not None:
+        return n_split
+    if x.dtype != _BF16:
+        return 1
+    return grid_split(t, h, c_out, backward=backward, n_sm=sm_count(x.device.index))
+
+
+def split_empty(s: int, shape: tuple, device) -> torch.Tensor:
+    """An f32 output of ``shape`` with a leading [s] axis of split partials
+    when s > 1, as the bodies write it (the split outermost)."""
+    return torch.empty(((s,) if s > 1 else ()) + tuple(shape), dtype=_F32, device=device)
+
+
+def join_splits(t: torch.Tensor, s: int) -> torch.Tensor:
+    """A split output summed over its s partials (one .sum(0): the same order
+    for every element, whatever the other axes), or ``t`` when s is 1."""
+    return t.sum(0) if s > 1 else t
+
+
+def split_workspace(s: int, n: int, h: int, c_in: int, c_out: int, device):
+    """The backward's split workspace (csrc/coder.cuh, bwd_tc) for n combos of
+    one shape: the partials of splits 1..s-1, dW_enc [s - 1, n, c_in, h] and
+    dW_dec [s - 1, n, h, c_out], the per-latent sums [s, n, SPLIT_SUMS, h] (f32
+    all), then [n, h / 64] int32 tickets, zeroed, in one int32 buffer; None (a
+    null pointer) when s is 1. The last split of each latent block adds the
+    partials into the outputs, which keep their shapes."""
+    if s == 1:
+        return None
+    floats = (s - 1) * n * h * (c_in + c_out) + s * n * SPLIT_SUMS * h
+    ws = torch.empty(floats + n * (h // BLOCK_H), dtype=torch.int32, device=device)
+    ws[floats:].zero_()
+    return ws
 
 
 def padded_h(h: int) -> int:
@@ -283,16 +373,18 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_sae")
+    # the forwards and backwards end in (..., n_split, stream); the backwards'
+    # last pointer is split_ws (csrc/coder.cuh, "Splits")
     lib.svt_sae_fwd.restype = _I
-    lib.svt_sae_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P]
+    lib.svt_sae_fwd.argtypes = [_I] + [_P] * 10 + [_I] * 4 + [_P]
     lib.svt_sae_bwd.restype = _I
-    lib.svt_sae_bwd.argtypes = [_I] + [_P] * 11 + [_I, _I, _I, _P]
+    lib.svt_sae_bwd.argtypes = [_I] + [_P] * 12 + [_I] * 4 + [_P]
     lib.svt_sae_dx.restype = _I
     lib.svt_sae_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P]
     lib.svt_sae_sweep_fwd.restype = _I
-    lib.svt_sae_sweep_fwd.argtypes = [_I] + [_P] * 10 + [_I] * 4 + [_P]
+    lib.svt_sae_sweep_fwd.argtypes = [_I] + [_P] * 10 + [_I] * 5 + [_P]
     lib.svt_sae_sweep_bwd.restype = _I
-    lib.svt_sae_sweep_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+    lib.svt_sae_sweep_bwd.argtypes = [_I] + [_P] * 12 + [_I] * 5 + [_P]
     return lib
 
 
@@ -353,22 +445,33 @@ class Kernel:
 
 
 def _ptrs(x, *tensors) -> tuple:
-    """(bf16 flag, data pointers) of the operands, as the C entry points take them."""
-    return (int(x.dtype == _BF16), x.data_ptr(), *(t.data_ptr() for t in tensors))
+    """(bf16 flag, data pointers) of the operands, as the C entry points take them
+    (None, a null pointer, for an absent one)."""
+    return (int(x.dtype == _BF16), x.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in tensors))
 
 
-def forward_outputs(x, h: int, recon_shape: tuple, n: int = 0) -> tuple:
+def forward_outputs(x, h: int, recon_shape: tuple, n: int = 0, split: int = 1) -> tuple:
     """Empty outputs of the SAE forward entry points: x_cent, recon (or
     prefix_recon), act_part, row_active, zsum_part; each with a leading [n]
-    axis when ``n`` (the sweep's combos, ``recon_shape`` one combo's)."""
+    axis when ``n`` (the sweep's combos, ``recon_shape`` one combo's), recon
+    and row_active with a leading [split] axis of partials before it when
+    ``split`` > 1 (join_forward sums them)."""
     t = x.shape[0]
     lead = (n,) if n else ()
     dev = x.device
     return (torch.empty((*lead, *x.shape), dtype=x.dtype, device=dev),
-            torch.empty((*lead, *recon_shape), dtype=_F32, device=dev),
+            split_empty(split, (*lead, *recon_shape), dev),
             torch.empty((*lead, t // PART_T, h), dtype=_F32, device=dev),
-            torch.empty((*lead, t), dtype=_F32, device=dev),
+            split_empty(split, (*lead, t), dev),
             torch.empty((*lead, t // PART_T, h), dtype=_F32, device=dev))
+
+
+def join_forward(outs: tuple, s: int) -> tuple:
+    """forward_outputs' tuple with recon and row_active summed over their s
+    split partials."""
+    x_cent, recon, act_part, row_active, zsum_part = outs
+    return x_cent, join_splits(recon, s), act_part, join_splits(row_active, s), zsum_part
 
 
 def backward_outputs(x_cent, h: int) -> tuple:
@@ -390,12 +493,13 @@ class _ForwardKernel(Kernel):
 
     name = "fused_sae_fwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, n_split=None):
         t, c, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
-        outs = forward_outputs(x, h, (t, c))
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)
+        outs = forward_outputs(x, h, (t, c), split=s)
         self._launch(_lib().svt_sae_fwd, x.device,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h)
-        return outs
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, s)
+        return join_forward(outs, s)
 
 
 class _BackwardKernel(Kernel):
@@ -405,14 +509,16 @@ class _BackwardKernel(Kernel):
 
     name = "fused_sae_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs, n_split=None):
         t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
         _expect("err", err, (t, c), x_cent.dtype, x_cent.device)
         _expect("coeffs", coeffs, (2,), _F32, x_cent.device)
         ct = coeffs[1:].expand(h).contiguous()
+        s = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)
         outs = backward_outputs(x_cent, h)
         self._launch(_lib().svt_sae_bwd, x_cent.device,
-                     *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs), t, c, h)
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs,
+                            split_workspace(s, 1, h, c, c, x_cent.device)), t, c, h, s)
         return outs
 
 
@@ -615,12 +721,13 @@ class _SweepForwardKernel(Kernel):
 
     name = "fused_sae_sweep_fwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, n_split=None):
         n, t, c, h = _check_sweep(self.name, x, w_enc, b_enc, w_dec, b_dec)
-        outs = forward_outputs(x, h, (t, c), n)
+        s = launch_split(x, t, h, c, backward=False, n_split=n_split)  # one combo's
+        outs = forward_outputs(x, h, (t, c), n, s)
         self._launch(_lib().svt_sae_sweep_fwd, x.device,
-                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, n)
-        return outs
+                     *_ptrs(x, w_enc, b_enc, w_dec, b_dec, *outs), t, c, h, n, s)
+        return join_forward(outs, s)
 
 
 class _SweepBackwardKernel(Kernel):
@@ -630,14 +737,16 @@ class _SweepBackwardKernel(Kernel):
 
     name = "fused_sae_sweep_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs, n_split=None):
         n, t, c, h = _check_sweep(self.name, x_cent, w_enc, b_enc, w_dec, x_rows=1)
         _expect("err", err, (n, t, c), x_cent.dtype, x_cent.device)
         _expect("coeffs", coeffs, (n, 2), _F32, x_cent.device)
         ct = coeffs[:, 1:].expand(n, h).contiguous()
+        s = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)  # one combo's
         outs = backward_outputs(x_cent, h)
         self._launch(_lib().svt_sae_sweep_bwd, x_cent.device,
-                     *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs), t, c, h, n)
+                     *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs,
+                            split_workspace(s, n, h, c, c, x_cent.device)), t, c, h, n, s)
         return outs
 
 

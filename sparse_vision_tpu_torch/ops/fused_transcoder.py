@@ -66,9 +66,13 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     coder_forward_plain,
     compute_dtype_of,
     direct_rows,
+    join_splits,
+    launch_split,
     padded_h,
     padded_operands,
     run_on_device,
+    split_empty,
+    split_workspace,
 )
 from sparse_vision_tpu_torch.ops.fused_sae_tp import _zero_if_none
 
@@ -106,10 +110,12 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_transcoder")
+    # both end in (..., n_split, stream); the backward's last pointer is split_ws
+    # (csrc/coder.cuh, "Splits")
     lib.svt_coder_fwd.restype = _I
-    lib.svt_coder_fwd.argtypes = [_I] + [_P] * 9 + [_I] * 4 + [_P]
+    lib.svt_coder_fwd.argtypes = [_I] + [_P] * 9 + [_I] * 5 + [_P]
     lib.svt_coder_bwd.restype = _I
-    lib.svt_coder_bwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+    lib.svt_coder_bwd.argtypes = [_I] + [_P] * 12 + [_I] * 5 + [_P]
     return lib
 
 
@@ -135,25 +141,28 @@ def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
     return t, c_in, c_out, h
 
 
-def coder_forward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, b_dec):
-    """Launch the coder forward (csrc/coder.cuh), counted on ``kernel``; returns what
-    coder_forward_plain returns, the per-token-tile partials reduced here."""
+def coder_forward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, b_dec, n_split=None):
+    """Launch the coder forward (csrc/coder.cuh), counted on ``kernel``, split as
+    fused_sae.launch_split says (or in ``n_split`` parts); returns what
+    coder_forward_plain returns, the partials reduced here."""
     t, c_in, c_out, h = _check_operands(x, w_enc, b_enc, w_dec, b_dec)
     dev = x.device
-    recon = torch.empty((t, c_out), dtype=_F32, device=dev)
+    s = launch_split(x, t, h, c_out, backward=False, n_split=n_split)
+    recon = split_empty(s, (t, c_out), dev)
     act_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
-    row_active = torch.empty((t,), dtype=_F32, device=dev)
+    row_active = split_empty(s, (t,), dev)
     zsum_part = torch.empty((t // PART_T, h), dtype=_F32, device=dev)
     kernel._launch(_lib().svt_coder_fwd, dev,
                    *_ptrs(x, w_enc, b_enc, w_dec, b_dec, recon, act_part, row_active,
-                          zsum_part), t, c_in, c_out, h)
-    return recon, act_part.sum(0), row_active, zsum_part.sum(0)
+                          zsum_part), t, c_in, c_out, h, s)
+    return join_splits(recon, s), act_part.sum(0), join_splits(row_active, s), zsum_part.sum(0)
 
 
-def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, ct):
-    """Launch the coder backward (csrc/coder.cuh), counted on ``kernel``: ``coeffs[0]`` is c_rec
-    (a device tensor), ``ct`` the [H] L1 cotangent. Returns what
-    coder_backward_plain returns."""
+def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, ct,
+                          n_split=None):
+    """Launch the coder backward (csrc/coder.cuh), counted on ``kernel``, split as
+    coder_forward_launch: ``coeffs[0]`` is c_rec (a device tensor), ``ct`` the
+    [H] L1 cotangent. Returns what coder_backward_plain returns."""
     t, c_in, c_out, h = _check_operands(x, w_enc, b_enc, w_dec)
     dev = x.device
     _expect("err", err, (t, c_out), x.dtype, dev)
@@ -161,13 +170,15 @@ def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, c
     if coeffs.dtype != _F32 or coeffs.device != dev or not coeffs.is_contiguous():
         raise ValueError("fused transcoder kernel: coeffs must be a contiguous f32 tensor "
                          f"on {dev}")
+    s = launch_split(x, t, h, c_out, backward=True, n_split=n_split)
     dw_enc = torch.empty((c_in, h), dtype=_F32, device=dev)
     db_enc = torch.empty((h,), dtype=_F32, device=dev)
     dw_dec = torch.empty((h, c_out), dtype=_F32, device=dev)
     db_dec_part = torch.empty((direct_rows(t, x.dtype), c_out), dtype=_F32, device=dev)
     kernel._launch(_lib().svt_coder_bwd, dev,
                    *_ptrs(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
-                          db_dec_part), t, c_in, c_out, h)
+                          db_dec_part, split_workspace(s, 1, h, c_in, c_out, dev)),
+                   t, c_in, c_out, h, s)
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
@@ -176,9 +187,9 @@ class _ForwardKernel(Kernel):
 
     name = "fused_transcoder_fwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, b_dec):
+    def __call__(self, x, w_enc, b_enc, w_dec, b_dec, n_split=None):
         recon, act_count, row_active, zsum = coder_forward_launch(
-            self, x, w_enc, b_enc, w_dec, b_dec)
+            self, x, w_enc, b_enc, w_dec, b_dec, n_split)
         return recon, act_count, row_active, zsum.sum()
 
 
@@ -188,10 +199,10 @@ class _BackwardKernel(Kernel):
 
     name = "fused_transcoder_bwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs):
+    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs, n_split=None):
         _expect("coeffs", coeffs, (2,), _F32, x.device)
         ct = coeffs[1:].expand(w_dec.shape[0]).contiguous()
-        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct)
+        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct, n_split)
 
 
 class _TPForwardKernel(_ForwardKernel):
