@@ -170,6 +170,19 @@
 //     warpgroup), (round_bf16(c_rec*err)^T @ post_s)^T, added into dW_dec. dW
 //     is updated T/512 times: (2T/512 - 1)*(Cin+Cout)*H*4 bytes = 6.1 GB
 //     (1.8 ms) for the transcoder, 12.0 GB (3.6 ms) for the crosscoder.
+//     From L2 the blocks read ~1.9 MB a step each (phase A 1.15 MB, B 0.25, C
+//     0.5 at 256 -> 480), ~7.8 GB a launch at a (2, 2) rank's transcoder shard
+//     (T 16,384, H 8,192), ~6.2 GB of it x and err tiles that every block
+//     reads alike. Measured there on the H100 (chip_bwd_probe.py's ablated
+//     copies, PERF.md): without the dW updates 0.707 of the time, without the
+//     products (every load kept) 0.602, with every other block loading no x
+//     or err tile 0.976. So the token tiles' L2 traffic does not bound it
+//     (pairs of blocks in a thread block cluster that shared each x and err
+//     box by TMA multicast ran 0.93-0.97x as fast); the updates (27%) and the
+//     loads, epilogues and barriers that no product overlaps do (the products
+//     alone 0.8 ms against a 0.40 ms bound). Overlapping a chunk's update with
+//     the next chunk's products needs a second accumulator set, and the body
+//     spilled at 255 registers.
 // Blocks stream the same tiles in step, so each comes from device memory about
 // once a wave and from L2 after that.
 
