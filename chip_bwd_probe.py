@@ -1,22 +1,24 @@
-"""Where the bf16 backward body's time goes (csrc/coder.cuh coder_bwd_tc), on
-one NVIDIA GPU, in about two minutes with the builds.
+"""Where the bf16 transcoder backward's time goes, on one NVIDIA GPU, in about
+two minutes with the builds: the held route (csrc/coder.cuh coder_bwd_held, two
+launches: pass E holds dW_enc, pass D dW_dec) beside the in-place body
+coder_bwd_tc on the same launch.
 
     python3 chip_bwd_probe.py
 
-Builds the body as it is and three ablated copies of its sources (made by
-text substitution under _smoke_work/bwd_probe/, which .gitignore lists; their
-outputs are wrong by design and are never checked):
-  no_update     phase B and C products kept, the in-place dW updates left out;
-  no_products   every TMA load and barrier kept, no wgmma issued;
-  half_tokens   every other latent block loads no x or err box (its full
-                barriers count only its W tiles), halving the token tiles'
-                traffic from L2 to the SMs.
-Then times each beside the body as it is, in turns (20 launches a turn, two
-turns each), at PERF.md's row 24 (the transcoder's TP backward at a (2, 2)
-rank's shard: T 16,384, 256 -> 480, H 8,192, unsplit), row 12 (T 32,768, H
-16,384) and row 32 (the JumpReLU sweep backward, N 8 of T 4,096, C 256, H
-2,048, split in 4). Prints one JSON line of the times and each one's share of
-the unablated time, then nvidia-smi's name and power limit.
+Builds the sources as they are and ablated copies of coder.cuh (made by text
+substitution under _smoke_work/bwd_probe/, which .gitignore lists; an
+ablation's outputs are wrong by design and are never checked):
+  no_products   the held passes with every TMA load, barrier and epilogue
+                kept and no wgmma issued: what the loads and the chain cost;
+  one_set       one A-fragment set (kHeldSets 1): every register-A product
+                waited on before the next tile's fragments load.
+Then times, in turns (REPS launches a turn, two turns each), at PERF.md's row
+24 (the transcoder's TP backward at a (2, 2) rank's shard: T 16,384, 256 ->
+480, H 8,192) and row 12 (T 32,768, 256 -> 480, H 16,384), each unsplit: the
+held route (both passes), pass E alone and pass D alone, each as built and in
+each ablated copy, and coder_bwd_tc as built. (The sae_mlp rows, C 256, keep
+coder_bwd_tc: fused_sae.bwd_route.) Prints one JSON line of the times (each
+one's share of the held route's), then nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,45 +32,40 @@ from pathlib import Path
 import torch
 
 import chip_smoke as c
-import chip_split_checks as cs
-from sparse_vision_tpu_torch.ops import fused_jumprelu_sae, fused_transcoder, native
+from sparse_vision_tpu_torch.ops import fused_transcoder, native
 
 WORK = Path(__file__).resolve().parent / "_smoke_work" / "bwd_probe"
-SOURCES = ("fused_transcoder", "fused_jumprelu_sae")
+SOURCES = ("fused_transcoder",)
 REPS = 20
+# (old, new, count) substitutions of each ablation: in coder_bwd_held's body,
+# or (with a leading "=") in the constants above it
+VARIANTS = {
+    "no_products": [("wgmma_ss<0, 1>(pre,", "if (false) wgmma_ss<0, 1>(pre,", 1),
+                    ("wgmma_rs<0>(dp, a[kk]", "if (false) wgmma_rs<0>(dp, a[kk]", 1),
+                    ("wgmma_rs<1>(g[p], a[kk]", "if (false) wgmma_rs<1>(g[p], a[kk]", 1),
+                    ("wgmma_ss<1, 1>(g[p],", "if (false) wgmma_ss<1, 1>(g[p],", 1)],
+    "one_set": [("=constexpr int kHeldSets = 2;", "constexpr int kHeldSets = 1;", 1)],
+}
+# the wrappers' route names: both passes, pass E alone, pass D alone
+PASSES = {"held": "held", "E": "held E", "D": "held D"}
 
 
 def _ablate(text: str, name: str) -> str:
-    """coder.cuh with coder_bwd_tc ablated as ``name`` says."""
-    i0 = text.index("coder_bwd_tc(const __grid_constant__")
+    """coder.cuh with the held passes ablated as VARIANTS[name] says."""
+    i0 = text.index("coder_bwd_held(const __grid_constant__")
     i1 = text.index("bool bad_shape(int n_tokens")
-    body = text[i0:i1]
-
-    def sub(old: str, new: str, count: int) -> None:
-        nonlocal body
-        if body.count(old) != count:
-            raise AssertionError(f"{name}: {old!r} found {body.count(old)} times, not {count}")
-        body = body.replace(old, new)
-
-    if name == "no_update":
-        sub("      update_pairs(\n", "      if (false) update_pairs(\n", 1)
-        sub("prev[j][h][e] = first || col + 8 * h >= Cout ? 0.f : dwd[o];",
-            "prev[j][h][e] = 0.f;", 1)
-        sub("if (col + 8 * h < Cout) dwd[o] =", "if (false) dwd[o] =", 1)
-    elif name == "no_products":
-        for call in ("wgmma_ss<0, 1>(pre,", "wgmma_rs<0>(d, af[kk]", "wgmma_ss<1, 1>(g,",
-                     "wgmma_rs<1>(g, af[kk]"):
-            sub(call, "if (false) " + call, 1)
-    elif name == "half_tokens":
-        sub("  auto issue = [&]() {\n", "  const bool skip = blk.x & 1;\n  auto issue = [&]() {\n", 1)
-        for box in ("tma_box(d, mx, prod.bar", "tma_box(d + kBox, mx, prod.bar",
-                    "tma_box(d, merr, prod.bar", "tma_box(d + kBox, merr, prod.bar"):
-            sub(box, "if (!skip) " + box, 2)
-        sub("prod.acquire(3 * kBox)", "prod.acquire(skip ? kBox : 3 * kBox)", 1)
-        sub("prod.acquire(2 * kBox)", "prod.acquire(skip ? 0 : 2 * kBox)", 1)
-    else:
-        raise ValueError(name)
-    return text[:i0] + body + text[i1:]
+    head, body, tail = text[:i0], text[i0:i1], text[i1:]
+    for old, new, count in VARIANTS[name]:
+        in_head = old.startswith("=")
+        old = old.lstrip("=")
+        part = head if in_head else body
+        if part.count(old) != count:
+            raise AssertionError(f"{name}: {old!r} found {part.count(old)} times, not {count}")
+        if in_head:
+            head = head.replace(old, new)
+        else:
+            body = body.replace(old, new)
+    return head + body + tail
 
 
 def build(variants) -> dict:
@@ -90,26 +87,27 @@ def build(variants) -> dict:
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {v}:\n{log}")
+        for kernel, regs, spill in c._ptxas_kernels(log):
+            if "held" in kernel:
+                c.log(f"[probe] {v}: {regs} registers, {spill} spill bytes: {kernel}")
     return libs
+
+
+_own_path = native.library_path
 
 
 def use(libs: dict | None) -> None:
     """Load the ablated libraries (None: the package's own builds)."""
     native.load.cache_clear()
     fused_transcoder._lib.cache_clear()
-    fused_jumprelu_sae._lib.cache_clear()
     native.library_path = (_own_path if libs is None else (lambda name: libs[name]))
-
-
-_own_path = native.library_path
 
 
 def main() -> int:
     t0 = time.perf_counter()
     smi = c.phase_device()
     native.build(list(SOURCES))
-    variants = ("no_update", "no_products", "half_tokens")
-    libs = build(variants)
+    libs = build(VARIANTS)
     c.log(f"[probe] builds in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -124,21 +122,23 @@ def main() -> int:
 
     out = {}
     with torch.no_grad():
-        a24, a12 = ops(16384, 8192), ops(32768, 16384)
-        k32, b32 = cs._sweep_bwd("jumprelu_sae", 8, 4096)
-        rows = {"row 24": lambda: fused_transcoder.tp_bwd_kernel(*a24),
-                "row 12": lambda: fused_transcoder.bwd_kernel(*a12),
-                "row 32": lambda: k32(*b32)}
-        points = [("as is", None)] + [(v, libs[v]) for v in variants]
-        times = {r: {p: [] for p, _ in points} for r in rows}
+        rows = {"row 24": (fused_transcoder.tp_bwd_kernel, ops(16384, 8192)),
+                "row 12": (fused_transcoder.bwd_kernel, ops(32768, 16384))}
+        points = [("as is", None)] + [(v, libs[v]) for v in VARIANTS]
+        times = {r: {} for r in rows}
         for turn in range(2):
             for p, lib in (points if turn == 0 else points[::-1]):
                 use(lib)
-                for r, fn in rows.items():
-                    times[r][p].append(c.time_ms(fn, REPS))
+                for r, (k, a) in rows.items():
+                    routes = {f"{p} {q}": route for q, route in PASSES.items()}
+                    if lib is None:
+                        routes["tc"] = "tc"
+                    for name, route in routes.items():
+                        times[r].setdefault(name, []).append(c.time_ms(
+                            lambda: k(*a, n_split=1, route=route), REPS))
         use(None)
         for r in rows:
-            base = sum(times[r]["as is"]) / 2
+            base = sum(times[r]["as is held"]) / 2
             out[r] = {p: {"ms": sum(v) / 2, "share": sum(v) / 2 / base}
                       for p, v in times[r].items()}
             c.log(f"[probe] {r}: " + ", ".join(f"{p} {v['ms']:.3f} ms ({v['share']:.3f})"

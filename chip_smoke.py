@@ -12,7 +12,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
   2. build:   compile every kernel in sparse_vision_tpu_torch/csrc with nvcc, one
               process per source, all started together; print each
               instantiation's registers (beside REGISTERS_BEFORE's count
-              where it has one) and fail on any spill.
+              where it has one) and fail on any spill, and unless the
+              coders' source builds the held backward's two passes
+              (coder_bwd_held, HELD_SOURCES) and no other source any.
   3. kernels: hold each kernel against its plain PyTorch version on the card at
               the training shape (SAEs: T=32768 tokens, C=256, H=16384 latents,
               the Matryoshka prefixes ending at 1024, 4096 and 16384; the
@@ -41,7 +43,14 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               chunk at every edge, for both bf16 forward bodies, the in-place
               one split in two; and T=2176 at C_out=520, where the bf16
               backward splits too), and its bf16 kernels must give
-              bitwise-equal outputs on a repeat launch.
+              bitwise-equal outputs on a repeat launch. Where bwd_route gives
+              the bf16 transcoder backward the held passes (C_in <= 256 <
+              C_out <= 512: row 12 here, row 24 in phase 15 (e)), pass E's
+              dW_enc, db_enc and pass D's dW_dec, db_dec are held to their
+              plain versions, REPEATS launches must repeat bitwise, and the
+              launch is timed beside the same launch on coder_bwd_tc
+              (route="tc"), in turns ("[route]" lines); at row 12 each pass
+              is also launched alone and timed as a row of the kernels line.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too.
@@ -307,10 +316,12 @@ on the grid's z dimension (csrc/coder.cuh, "Splits": rows 25-26 in phase 15
 backwards at N 1 and 8), the split launch, the one held to its plain version
 and repeated bitwise above, is timed beside the same launch unsplit
 (n_split=1), in turns, and both are printed ("[split]" lines).
-Then one JSON line of those pairs ({"splits": [...]}), one JSON line naming
-each kernel (the TP rows' launches summed over the ranks of (b), (c), (g) and
-(h); the sweep rows' from phase 16 (b) and (c)), the nvidia-smi line, and the
-last line {"ok": true, "device": {...}}.
+Then one JSON line of those pairs ({"splits": [...]}), one of the held
+launches beside coder_bwd_tc ({"routes": [...]}), one JSON line naming each
+kernel (the held passes' launches from phase 6's transcoder slice; the TP
+rows' summed over the ranks of (b), (c), (g) and (h); the sweep rows' from
+phase 16 (b) and (c)), the nvidia-smi line, and the last line {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -417,6 +428,9 @@ SOURCES = {
     "fused_matryoshka_sae_tp_fwd": CODER, "fused_matryoshka_sae_tp_bwd": CODER,
     "fused_transcoder_tp_fwd": CODER, "fused_transcoder_tp_bwd": CODER,
     "fused_crosscoder_tp_fwd": CODER, "fused_crosscoder_tp_bwd": CODER,
+    # the held backward route's two passes (coder_bwd_held), under rows 12 and
+    # 24's wrappers (fused_sae.bwd_route)
+    "coder_bwd_held_enc": CODER, "coder_bwd_held_dec": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -447,7 +461,12 @@ REPLACES = {
     "fused_transcoder_tp_bwd": "sparse_vision_tpu/ops/fused_transcoder.py:362",
     "fused_crosscoder_tp_fwd": "sparse_vision_tpu/ops/fused_crosscoder.py:399",
     "fused_crosscoder_tp_bwd": "sparse_vision_tpu/ops/fused_crosscoder.py:450",
+    # each pass computes part of the transcoder backward kernel's outputs:
+    # dW_enc and db_enc, or dW_dec and db_dec
+    "coder_bwd_held_enc": "sparse_vision_tpu/ops/fused_transcoder.py:91",
+    "coder_bwd_held_dec": "sparse_vision_tpu/ops/fused_transcoder.py:91",
 }
+HELD_KERNELS = fused_transcoder.HELD_PASSES
 
 
 def log(msg: str) -> None:
@@ -513,7 +532,18 @@ def phase_build() -> None:
         spills = [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
         if spills:
             raise AssertionError(f"{name}: ptxas reports register spills: {spills}")
+        held = [k for k in _ptxas_kernels(b["log"]) if "coder_bwd_held" in k[0]]
+        if b["log"] and len(held) != HELD_SOURCES.get(name, 0):
+            raise AssertionError(f"{name}: expected {HELD_SOURCES.get(name, 0)} coder_bwd_held "
+                                 f"instantiations in ptxas's report, found {len(held)}")
+        for kernel, regs, spill in held:
+            log(f"[build]   held route: {regs} registers, {spill} spill bytes: {kernel}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
+
+
+# the held backward route's instantiations a source builds (coder.cuh bwd_held:
+# pass E and pass D, in the coders' source only)
+HELD_SOURCES = {"fused_transcoder": 2}
 
 
 # ptxas registers of the coder family's instantiations (nvcc 12.8, sm_90a; this
@@ -627,6 +657,71 @@ def _split_pair(name: str, tag: str, launch, t: int, h: int, c_out: int,
     log(f"[split] {name} [{tag}] n_split {s} ms {split_ms:.3f} unsplit_ms {one / 2:.3f} "
         f"({one / 2 / split_ms:.2f}x)")
     SPLITS.append(row)
+
+
+ROUTES = []  # held launches timed beside coder_bwd_tc on the same launch: the "routes" line
+HELD_NAMES = {"E": ("dW_enc", "db_enc"), "D": ("dW_dec", "db_dec")}
+
+
+def _held_pair(name: str, tag: str, launch, bops: tuple, ct) -> dict:
+    """Where bwd_route sends this bf16 transcoder backward to the held passes
+    (rows 12 and 24): ``launch()`` (the wrapper's launch, both passes) with each
+    pass's outputs held to its plain version (coder_bwd_enc_plain,
+    coder_bwd_dec_plain on ``bops`` = (x, W_enc, b_enc, W_dec, err, coeffs)
+    and the L1 cotangent ``ct``) at the backward checks' tolerances, REPEATS
+    launches bitwise equal, then timed beside ``launch(route="tc")`` (the same
+    launch on coder_bwd_tc) in turns, held, tc, tc, held, and recorded for the
+    routes line. Returns each pass's max abs error."""
+    x, we, be, wd, res, coeffs = bops[:6]
+    dw_enc, db_enc, dw_dec, db_dec = launch()
+    got = {"E": (dw_enc, db_enc), "D": (dw_dec, db_dec)}
+    want = {"E": fused_sae.coder_bwd_enc_plain(x, we, be, wd, res, coeffs[0], ct),
+            "D": fused_sae.coder_bwd_dec_plain(x, we, be, res, coeffs[0])}
+    torch.cuda.synchronize()
+    log(f"[kernels] {name} [{tag}] held passes vs their plain versions")
+    errs = {p: max(_check(f"pass {p} {n}", a, b, 1e-3, 1e-4)
+                   for n, a, b in zip(HELD_NAMES[p], got[p], want[p])) for p in want}
+    del got, want, dw_enc, db_enc, dw_dec, db_dec
+    first = launch()
+    for _ in range(REPEATS - 1):
+        if not all(torch.equal(a, b) for a, b in zip(first, launch())):
+            raise AssertionError(f"{name}: held launches on the same inputs differ")
+    log(f"[kernels]   {name}: {REPEATS} held launches bitwise equal")
+    del first
+    held = time_ms(launch, SPLIT_REPS)
+    tc = time_ms(lambda: launch(route="tc"), SPLIT_REPS)
+    tc = (tc + time_ms(lambda: launch(route="tc"), SPLIT_REPS)) / 2
+    held = (held + time_ms(launch, SPLIT_REPS)) / 2
+    log(f"[route] {name} [{tag}] held ms {held:.3f} coder_bwd_tc ms {tc:.3f} "
+        f"({tc / held:.2f}x)")
+    ROUTES.append(dict(name=name, tag=tag, route="held", ms=held, tc_ms=tc))
+    return errs
+
+
+def _held_pass_rows(tag: str, bops: tuple, post, errs: dict) -> dict:
+    """The kernels line's rows of the two held passes at the transcoder's
+    training shape (row 12's launch, phase 6's main path), each pass launched
+    alone (the wrapper's routes "held E" / "held D"): ms, its plain version's,
+    its bound (pass E: 2·T·H·(2·C_in + C_out) FLOP, pass D: 2·T·H·(C_in +
+    C_out), which recomputes pre) and the cuBLAS products of the same work."""
+    x, we, be, wd, res, coeffs = bops
+    t, c_in = x.shape
+    h, c_out = wd.shape
+    dr = (coeffs[0] * res.float()).to(x.dtype)
+    k = fused_transcoder.bwd_kernel
+    rows = {}
+    for kern, route, flops, moved, plain, library in (
+            (fused_transcoder.held_enc_kernel, "held E", 2.0 * t * h * (2 * c_in + c_out),
+             nbytes(x, we, be, wd, res, coeffs) + 4 * (c_in * h + h),
+             lambda: fused_sae.coder_bwd_enc_plain(x, we, be, wd, res, coeffs[0], coeffs[1]),
+             lambda: (x @ we, dr @ wd.T, x.T @ post)),
+            (fused_transcoder.held_dec_kernel, "held D", 2.0 * t * h * (c_in + c_out),
+             nbytes(x, we, be, res, coeffs) + 4 * (h * c_out + c_out),
+             lambda: fused_sae.coder_bwd_dec_plain(x, we, be, res, coeffs[0]),
+             lambda: (x @ we, post.T @ dr))):
+        rows[kern.name] = _measure(kern.name, tag, x.dtype, lambda: k(*bops, route=route),
+                                   plain, library, flops, moved, errs[route[-1]])
+    return rows
 
 
 def _dyadic(t: torch.Tensor, step: float) -> torch.Tensor:
@@ -1231,6 +1326,10 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     if cd == torch.bfloat16:
         _split_pair(fwd.name, tag, lambda **kw: fwd(*ops, **kw), t, h, c_out, False)
         _split_pair(name, tag, lambda **kw: bwd(*bops, **kw), t, h, c_out, True)
+        if mod is fused_transcoder and fused_sae.bwd_route(c_in, c_out, dtype=cd) == "held":
+            errs = _held_pair(name, tag, lambda **kw: bwd(*bops, **kw), bops, bops[5][1])
+            if kernels is None and (t, h) == (TC_T, TC_H):  # row 12: phase 6's main path
+                rows.update(_held_pass_rows(tag, bops, post, errs))
     return rows
 
 
@@ -1637,7 +1736,7 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     if on_pipeline is not None:
         on_pipeline(pipe)
     before = {k: v.clone() for k, v in pipe.ts.params.items()}
-    for k in KERNELS:
+    for k in KERNELS + HELD_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     if profile:
@@ -1652,7 +1751,7 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     else:
         pipe.train_sae()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in KERNELS + HELD_KERNELS}
     log(f"[slice {name_log}] train_sae (dump, 12 steps, 2 evals) in {wall:.1f} s; "
         f"launches {launches}")
 
@@ -1687,8 +1786,13 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{name_log}: non-finite eval metric at epoch {epoch}")
     trained = (MODULES[name].fwd_kernel, MODULES[name].bwd_kernel)  # not dx: x is data
-    for k in KERNELS:
-        want = 12 if k in trained else 0
+    # the held passes run under the transcoder's backward where bwd_route gives
+    # its widths the held route (256 -> 480 here; the crosscoder's ΣC never)
+    held = name == "transcoder" and fused_sae.bwd_route(
+        pipe.ts.params["W_enc"].shape[0], pipe.ts.params["W_dec"].shape[-1],
+        dtype=cfg.compute_dtype) == "held"
+    for k in KERNELS + HELD_KERNELS:
+        want = 12 if k in trained or (held and k in HELD_KERNELS) else 0
         if launches[k.name] != want:
             raise AssertionError(f"{name_log}: expected {want} launches of {k.name}, got "
                                  f"{launches[k.name]}")
@@ -5893,10 +5997,11 @@ def main() -> int:
     sweep_rows, sweep_launches = phase_sweep(smi, sae_ref)
     log(f"[smoke] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"splits": SPLITS}))
+    print(json.dumps({"routes": ROUTES}))
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}
-        for k in KERNELS
+        for k in KERNELS + HELD_KERNELS
     ] + [{"name": k.name, "route": "cuda", "source": SOURCES[k.name],
           "replaces": REPLACES[k.name], **tp_rows[k.name]}
          for k in TP_KERNELS + CODER_TP_KERNELS] + [

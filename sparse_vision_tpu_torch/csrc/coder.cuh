@@ -88,8 +88,10 @@
 //   bf16 (the training path): coder_fwd_tc_hold (Cout <= 512; recon or dx held
 //     in registers, 256 or 512 columns by a template width; 148,800 bytes of
 //     shared memory), coder_fwd_tc (wider: the crosscoder, SAEs at C 528-1,024;
-//     230,960 bytes) and coder_bwd_tc, 256 threads = two warpgroups, up to 255
-//     registers a thread and no spills (chip_smoke.py's build phase checks).
+//     230,960 bytes), coder_bwd_tc and, for the transcoder's widths (Cin <= 256
+//     < Cout <= 512; ops/fused_sae.bwd_route), coder_bwd_held's two passes,
+//     256 threads = two warpgroups, up to 255 registers a thread and no spills
+//     (chip_smoke.py's build phase checks).
 //     Every product runs on the tensor cores as
 //     wgmma.mma_async m64n64k16 (bf16 in, f32 accumulators in registers), B
 //     always and A mostly read straight from shared memory through wgmma
@@ -183,6 +185,14 @@
 //     alone 0.8 ms against a 0.40 ms bound). Overlapping a chunk's update with
 //     the next chunk's products needs a second accumulator set, and the body
 //     spilled at 255 registers.
+//   coder_bwd_held (the transcoder: Cin <= 256 < Cout <= 512): the same blocks
+//     in two launches, pass E holding dW_enc [Cin, 64] (64 registers a thread)
+//     and pass D dW_dec [64, Cout] (128) in registers for the whole token sweep,
+//     each written once: no update traffic, at the price of pre recomputed in
+//     pass D (2*T*H*(3*Cin + 2*Cout) FLOP in all). The W tiles stay in shared
+//     memory; the ring streams x and err only (pass E x twice). At a (2, 2)
+//     rank's transcoder shard 1.10x coder_bwd_tc (PERF.md's kernel table); at C 256
+//     (the SAEs) no faster, so those keep coder_bwd_tc.
 // Blocks stream the same tiles in step, so each comes from device memory about
 // once a wave and from L2 after that.
 
@@ -1112,6 +1122,14 @@ constexpr int kTcBwdTU = 128;          // tokens per phase-A sub-step
 constexpr int kTcBwdTS = 512;          // tokens per step (post_s and dpre_s)
 constexpr int kTcBwdCC = 128;          // channels per phase-B / phase-C chunk
 constexpr int kBSlot = 3 * kBox;       // phase A: x or err [128][64] and a W tile [64][64]
+// backward, gradient tiles held in registers (coder_bwd_held; the same ring,
+// steps and sub-steps as coder_bwd_tc)
+constexpr int kHeldCin = 256;          // dW_enc [256][64] f32: 64 registers a thread
+constexpr int kHeldCout = 512;         // dW_dec [64][512] f32: 128 registers a thread
+constexpr int kHeldMinCout = 256;      // at C_out <= 256 coder_bwd_tc is as fast (bwd_route)
+constexpr int kHeldSets = 2;           // A-fragment sets of the register-A products
+constexpr int kHeldSt = 4;             // ring depth
+constexpr int kHeldSlot = 2 * kBox;    // x or err [128][64], or a box pair [64][128]
 
 // the leading 1,024 bytes leave room to align the swizzled tiles; the mbarriers
 // (full and empty, one each per ring slot) come last
@@ -1127,8 +1145,15 @@ constexpr size_t hold_smem_bytes(int posts = 1) {
 constexpr size_t bwd_tc_smem_bytes(int nv = 2) {
   return 1024 + kBSt * kBSlot + 2 * kTcBwdTS * kSwRow + nv * sizeof(float) * kTcBwdTH + 16 * kBSt;
 }
+// the ring, the resident W tiles (W_enc [kHeldCin][64], pass E also W_dec
+// [64][kHeldCout], as [64][64] boxes), one [TS][64] bf16 buffer (round_bf16(dpre)
+// or round_bf16(post)), b_enc, ct and the mbarriers (the ring's and the W tiles')
+constexpr size_t held_smem_bytes(bool dec) {
+  return 1024 + kHeldSt * kHeldSlot + (kHeldCin + (dec ? 0 : kHeldCout)) / 64 * kBox +
+         kTcBwdTS * kSwRow + 2 * sizeof(float) * kTcBwdTH + 16 * kHeldSt + 8;
+}
 static_assert(fwd_tc_smem_bytes() <= 232448 && hold_smem_bytes(2) <= 232448 &&
-                  bwd_tc_smem_bytes(3) <= 232448,
+                  bwd_tc_smem_bytes(3) <= 232448 && held_smem_bytes(false) <= 232448,
               "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1535,6 +1560,21 @@ __device__ __forceinline__ void scaled_frags(uint32_t (&a)[4][4], const unsigned
     // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
     ldsm_x4(a[kk], reinterpret_cast<const bf16*>(
                        tile + sw128(row0 + lr + (li % 2) * 8, kk * 2 + li / 2)));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = scale_pair(a[kk][r], c);
+  }
+}
+
+// The same transposed: A's rows are the tile's columns col0 .. col0 + 15 (a
+// multiple of 8), its k the tile's rows, 16 per k16 step (ldmatrix.trans; the
+// A of coder_bwd_tc's phase C and coder_bwd_held's pass D)
+__device__ __forceinline__ void scaled_frags_t(uint32_t (&a)[4][4], const unsigned char* tile,
+                                               int col0, int lane, float c) {
+  const int li = lane / 8, lr = lane % 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldsm_x4_t(a[kk], reinterpret_cast<const bf16*>(
+                         tile + sw128(kk * 16 + lr + (li / 2) * 8, col0 / 8 + li % 2)));
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = scale_pair(a[kk][r], c);
   }
@@ -2164,6 +2204,21 @@ __device__ __forceinline__ void add_split_tiles(float* out, const float* part, l
   }
 }
 
+// Every thread's writes fenced, thread 0 draws ``ticket`` (an int the caller
+// zeroed, one a latent block); true in the split that draws the last one,
+// false in the others (every thread of a block alike). ``flag`` is an int of
+// shared memory.
+__device__ __forceinline__ bool last_ticket(int* ticket, int* flag) {
+  __threadfence();  // this thread's writes before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(ticket, 1) == static_cast<int>(gridDim.z) - 1;
+    __threadfence();  // the ticket before the other splits' writes are read
+  }
+  __syncthreads();
+  return *flag;
+}
+
 // Where coder_bwd_tc's splits meet (header note, "Splits"). Threads tid < 64
 // hold this split's per-latent sums s[0..kN) of latents h0 + tid; they go to
 // this split's rows of ws [s][N][kSplitSums][H] f32, then every thread's
@@ -2183,15 +2238,8 @@ __device__ __forceinline__ bool last_split(float (&s)[kN], float* ws, int H, con
   if (tid < kTcBwdTH)
 #pragma unroll
     for (int q = 0; q < kN; ++q) *at(b.split, q) = s[q];
-  __threadfence();  // this thread's rows before the ticket
-  __syncthreads();
-  if (tid == 0) {
-    int* ticket = reinterpret_cast<int*>(ws + rows) + b.combo * gridDim.x + b.x;
-    *flag = atomicAdd(ticket, 1) == static_cast<int>(gridDim.z) - 1;
-    __threadfence();  // the ticket before the other splits' rows
-  }
-  __syncthreads();
-  if (!*flag) return false;
+  if (!last_ticket(reinterpret_cast<int*>(ws + rows) + b.combo * gridDim.x + b.x, flag))
+    return false;
   if (tid < kTcBwdTH)
 #pragma unroll
     for (int q = 0; q < kN; ++q) {
@@ -2687,6 +2735,334 @@ coder_bwd_tc(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CU
   }
 }
 
+// Backward, bf16, gradient tiles held in registers: the route of
+// ops/fused_sae.bwd_route for Act::Relu, one level, Cin <= kHeldCin and
+// kHeldMinCout < Cout <= kHeldCout (the transcoder; header note, "Tiling"). Two
+// launches over the same latent blocks, each holding one gradient tile [64
+// latents][W] f32 for its whole token sweep and writing it once: no in-place
+// updates. Blocks, steps, sub-steps, combos and splits are coder_bwd_tc's. The
+// block's W tiles (W_enc [Cin][64]; pass E also W_dec [64][Cout]) are loaded
+// once and stay in shared memory, so the ring (kHeldSt slots of two [64][64]
+// boxes) streams only x and err. Per step of 512 tokens:
+//   pass E (kDec false; W = kHeldCin): A. per 128 tokens, pre = x @ W_enc tile
+//     and dpost = round_bf16(c_rec*err) @ W_dec tile^T (x and err [128][64] per
+//     64 channels, as coder_bwd_tc's phase A), round_bf16(dpre) into buf_s
+//     [512][64] and db_enc's sums; then per 64 tokens, per pair of 64-channel
+//     boxes p, x [64][128]: dW_enc[p] += x[:, p]^T @ round_bf16(dpre) (A
+//     MN-major from shared memory). Holds dW_enc [W][64] (warpgroup g:
+//     channels 128p + 64g .., W/128 m64 accumulators); ends with db_enc as
+//     coder_bwd_tc's blocks do.
+//   pass D (kDec true; W = kHeldCout): A. per 128 tokens, pre only,
+//     round_bf16(post) into buf_s; then per 64 tokens, per pair of 64-column
+//     boxes p, err [64][128]: dW_dec[:, p]^T += round_bf16(c_rec*err[:, p])^T @
+//     round_bf16(post) (A from registers, ldmatrix.trans, scaled and rounded
+//     as phase C's). Holds dW_dec^T [W][64] as pass E holds dW_enc (columns
+//     past Cout arrive as zeros and are not stored), and sums step si's db_dec
+//     row in block si % (H / 64), as phase C does. Pass D recomputes pre:
+//     2*T*H*(3*Cin + 2*Cout) FLOP in all where coder_bwd_tc does
+//     2*T*H*(2*Cin + 2*Cout).
+// The register-A products (pass E's dpost, pass D's held product) alternate
+// kHeldSets fragment sets, so one tile's products stay in flight while the next
+// tile's fragments load. Every product has accumulators of its own.
+// What bounds it (chip_bwd_probe.py on an H100 80GB HBM3 at 700 W; PERF.md,
+// "Findings"): the passes with no wgmma issued take 0.60 of the time, ~0.3 us
+// a 16 KB tile a block, and the products do not overlap them. Not the
+// L2-to-SM bytes: in scratch builds resident W tiles cut them by a quarter and
+// the time by little, and pairs of blocks sharing every x / err box by TMA
+// multicast ran slower; tiles of four boxes sped the loads and slowed the
+// whole. Against coder_bwd_tc (chip_smoke.py's "[route]" lines) the route
+// wins where the in-place updates it drops are large (C_out 480: 1.10-1.11x)
+// and was no faster at C 256 (bwd_route's boundary).
+// Splits: split z writes its held tile once, into its partial (split_dw); the
+// split that draws a latent block's last ticket adds the others in split order
+// (pass E through last_split, with db_enc; pass D's tickets are the second [N][H
+// / 64] ints of split_ws).
+template <bool kDec>
+__global__ void __launch_bounds__(kThreads, 1)
+coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
+               const __grid_constant__ CUtensorMap m_wd,
+               const __grid_constant__ CUtensorMap m_err, const float* __restrict__ b_enc,
+               const float* __restrict__ coeffs, const float* __restrict__ ct,
+               float* __restrict__ dw_enc, float* __restrict__ db_enc,
+               float* __restrict__ dw_dec, float* __restrict__ db_dec_part, int n_tokens,
+               int Cin, int Cout, int H, float* __restrict__ split_ws) {
+  constexpr int TH = kTcBwdTH, TU = kTcBwdTU, TS = kTcBwdTS, KT = 64;
+  constexpr int W = kDec ? kHeldCout : kHeldCin;  // the held tile's rows
+  constexpr int NP = W / 128;  // box pairs per 64 tokens: m64 accumulators a warpgroup
+  constexpr int kSets = kDec ? kHeldSets : 1;  // pass D's held product (pass E's: A in shared memory)
+  static_assert(kSets == 1 || NP % kSets == 0, "a pair's fragment set is p % kSets");
+  constexpr int kEncBoxes = kHeldCin / 64;  // W_enc tile boxes; pass E's W_dec boxes follow
+  extern __shared__ __align__(1024) unsigned char tc_smem_held[];
+  unsigned char* ring = align1024(tc_smem_held);
+  unsigned char* w_s = ring + kHeldSt * kHeldSlot;  // W_enc [Cin][64] (, W_dec [64][Cout]) boxes
+  // [TS][64]: pass E round_bf16(dpre), pass D round_bf16(post)
+  unsigned char* buf_s = w_s + (kEncBoxes + (kDec ? 0 : kHeldCout / 64)) * kBox;
+  float* benc_s = reinterpret_cast<float*>(buf_s + TS * kSwRow);  // [TH] b_enc
+  float* ct_s = benc_s + TH;                                      // [TH] ct (pass E)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ct_s + TH);
+  uint64_t* empty = full + kHeldSt;
+  uint64_t* w_full = empty + kHeldSt;  // the W tiles' one load
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const BwdBlock blk = bwd_block();  // latent block, combo, split
+  const int h0 = blk.x * TH, cb = blk.combo;
+  const int nki = (Cin + KT - 1) / KT, nko = (Cout + KT - 1) / KT;
+  const int n_steps = (n_tokens + TS - 1) / TS, split = blk.split, n_split = gridDim.z;
+  const int t_lo = split * n_steps / n_split * TS;
+  const int t_hi = min(n_tokens, (split + 1) * n_steps / n_split * TS);
+  if (tid < TH) {
+    benc_s[tid] = combo_part(b_enc, H, cb)[h0 + tid];
+    if constexpr (!kDec) ct_s[tid] = combo_part(ct, H, cb)[h0 + tid];
+  }
+  if (tid == 0) {
+    mbar_init(w_full, 1);
+    init_ring<kHeldSt>(full, empty);
+  }
+  __syncthreads();
+
+  // the block's W tiles, loaded once and resident for the whole sweep: W_enc
+  // [Cin][64] as nki boxes [64][64] (MN-major B of pre), pass E also W_dec
+  // [64][Cout] as nko boxes (K-major B of dpost)
+  const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd, *merr = &m_err;  // param space
+  if (tid == 0) {
+    mbar_expect_tx(w_full, (nki + (kDec ? 0 : nko)) * kBox);
+    for (int k = 0; k < nki; ++k) tma_box(w_s + k * kBox, mwe, w_full, h0, k * KT, cb);
+    if constexpr (!kDec)
+      for (int k = 0; k < nko; ++k)
+        tma_box(w_s + (kEncBoxes + k) * kBox, mwd, w_full, k * KT, h0, cb);
+  }
+
+  // the tile stream, issued by thread 0 as coder_bwd_tc's, every tile two
+  // boxes: per step, phase A's x tiles [128][64] (pass E: then its err
+  // tiles), then per 64 tokens the NP box pairs [64][128]
+  Producer<kHeldSt> prod{ring, kHeldSlot, full, empty};
+  int p_t = t_lo, p_ph = 0, p_a = 0, p_k = 0;
+  auto issue = [&]() {
+    if (tid != 0 || p_t >= t_hi) return;
+    const int ntok = min(TS, n_tokens - p_t);
+    unsigned char* d = prod.acquire(2 * kBox);
+    if (p_ph == 0) {
+      const int r0 = p_t + p_a * TU;
+      if (kDec || p_k < nki) {  // a branch, not a select of the two maps (coder_bwd_tc)
+        tma_box(d, mx, prod.bar, p_k * KT, r0, cb);
+        tma_box(d + kBox, mx, prod.bar, p_k * KT, r0 + 64, cb);
+      } else {
+        const int k0 = (p_k - nki) * KT;
+        tma_box(d, merr, prod.bar, k0, r0, cb);
+        tma_box(d + kBox, merr, prod.bar, k0, r0 + 64, cb);
+      }
+      if (++p_k == nki + (kDec ? 0 : nko)) {
+        p_k = 0;
+        if (++p_a == ntok / TU) p_a = 0, p_ph = 1;
+      }
+    } else {
+      const int r = p_t + p_a * KT;
+      const CUtensorMap* m = kDec ? merr : mx;  // a constant: one map a pass
+      tma_box(d, m, prod.bar, p_k * 128, r, cb);
+      tma_box(d + kBox, m, prod.bar, p_k * 128 + 64, r, cb);
+      if (++p_k == NP) {
+        p_k = 0;
+        if (++p_a == ntok / KT) p_a = 0, p_ph = 0, p_t += TS;
+      }
+    }
+  };
+  for (int i = 0; i < kHeldSt - 1; ++i) issue();
+  const int wg = warp / 4, w4 = warp % 4;  // warpgroup, warp in it
+  const float c_rec = combo_part(coeffs, 2, cb)[0];
+  Consumer<kHeldSt> c{ring, kHeldSlot, full, empty, lane};
+  const uint32_t buf_a = smem_u32(buf_s), w_a = smem_u32(w_s);
+  mbar_wait(w_full, 0);
+
+  // the held tile: g[p][j][2h + e] is row 128p + 64wg + 16w4 + lane/4 + 8h (E: a
+  // channel of dW_enc; D: a column of dW_dec), latent h0 + 8j + 2*(lane%4) + e
+  float g[NP][8][4];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) g[p][j][i] = 0.f;
+  float gbe[8][2];  // pass E: db_enc of columns 8j + 2*(lane%4) + e over this thread's rows
+#pragma unroll
+  for (int j = 0; j < 8; ++j) gbe[j][0] = gbe[j][1] = 0.f;
+
+  for (int t = t_lo, si = t_lo / TS; t < t_hi; t += TS, ++si) {
+    const int ntok = min(TS, n_tokens - t);
+
+    // A. pre = x @ W_enc tile (+ b_enc); pass E also dpost = round_bf16(c_rec*err)
+    // @ W_dec tile^T, in accumulators of its own (header note, kDx)
+    for (int u = 0; u < ntok / TU; ++u) {
+      float pre[8][4];
+      for (int k = 0; k < nki; ++k) {
+        const uint32_t s = smem_u32(c.next());
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 1>(pre, sw128_desc(s + wg * kBox + kk * 32),
+                         sw128_desc(w_a + k * kBox + kk * 16 * kSwRow), k + kk > 0);
+        wg_commit();
+        c.issued<true>();
+        issue();
+      }
+      [[maybe_unused]] float dp[8][4];
+      if constexpr (!kDec) {
+        // kHeldSets fragment sets, tile k in set k % kHeldSets (unrolled, so
+        // the set is a constant): with two, one tile's products stay in flight
+        uint32_t ea[kHeldSets][4][4];
+        auto dpost_tile = [&](uint32_t(&a)[4][4], int k) {
+          const unsigned char* slot = c.next();
+          scaled_frags(a, slot, wg * 64 + w4 * 16, lane, c_rec);
+          const uint32_t wd_k = w_a + (kEncBoxes + k) * kBox;  // W_dec tile box k
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<0>(dp, a[kk], sw128_desc(wd_k + kk * 32), k + kk > 0);
+          wg_commit();
+          c.issued<kHeldSets == 2>();  // one set: a is rewritten by the next tile
+          issue();
+        };
+        for (int k = 0; k < nko; k += kHeldSets)
+#pragma unroll
+          for (int q = 0; q < kHeldSets; ++q)
+            if (k + q < nko) dpost_tile(ea[q], k + q);
+      }
+      c.drain();
+      __syncthreads();  // both warpgroups' held products of the last step are done with buf_s
+      const int tok0 = u * TU + wg * 64 + w4 * 16 + lane / 4;  // this thread's first row
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int l = j * 8 + 2 * (lane % 4);
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = pre[j][2 * h + e] + benc_s[l + e];
+            if constexpr (kDec) {
+              v[e] = fmaxf(p, 0.f);
+            } else {
+              v[e] = p > 0.f ? dp[j][2 * h + e] + ct_s[l + e] : 0.f;
+              gbe[j][e] += v[e];
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(buf_s + sw128(tok0 + 8 * h, j) + (lane % 4) * 4) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+    }
+    fence_async_smem();  // buf_s before wgmma reads it
+    __syncthreads();
+
+    // the held product over the step's tokens, 64 at a time, every box pair p
+    const bool own_db = kDec && si % static_cast<int>(gridDim.x) == blk.x;
+    float dd[NP];  // own_db: column 128p + tid of db_dec over the step (tid < 128)
+#pragma unroll
+    for (int p = 0; p < NP; ++p) dd[p] = 0.f;
+    [[maybe_unused]] uint32_t af[kSets][4][4];
+    for (int k = 0; k < ntok / KT; ++k) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const unsigned char* slot = c.next();
+        const uint32_t rows = buf_a + k * KT * kSwRow;  // B: 64 tokens of buf_s
+        if constexpr (kDec) {
+          uint32_t(&a)[4][4] = af[p % kSets];
+          scaled_frags_t(a, slot + wg * kBox, w4 * 16, lane, c_rec);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<1>(g[p], a[kk], sw128_desc(rows + kk * 16 * kSwRow), true);
+          wg_commit();
+          if (own_db && tid < 128) {
+            const unsigned char* col = slot + (tid / 64) * kBox + (tid % 8) * 2;
+            for (int r = 0; r < KT; ++r)
+              dd[p] += c_rec * __bfloat162float(
+                                   *reinterpret_cast<const bf16*>(col + sw128(r, (tid % 64) / 8)));
+          }
+          // with two sets the last pair's fragments are free once one product is in flight
+          c.issued<kSets == 2>();
+        } else {
+          const uint32_t s = smem_u32(slot);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<1, 1>(g[p], sw128_desc(s + wg * kBox + kk * 16 * kSwRow),
+                           sw128_desc(rows + kk * 16 * kSwRow), true);
+          wg_commit();
+          c.issued<true>();
+        }
+        issue();
+      }
+    }
+    if (own_db && tid < 128)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        if (p * 128 + tid < Cout)
+          combo_part(db_dec_part, static_cast<long>(n_steps) * Cout, cb)[
+              static_cast<long>(si) * Cout + p * 128 + tid] = dd[p];
+  }
+  c.drain();
+
+  // the held tile, written once into this split's partial (split 0's is the output)
+  const long enc = static_cast<long>(gridDim.y) * Cin * H, dec = static_cast<long>(gridDim.y) * H * Cout;
+  float* const ws_dec = split_ws + (n_split - 1) * enc;  // dW_dec partials; then the sums
+  float* const out = kDec ? split_dw(dw_dec, ws_dec, static_cast<long>(H) * Cout, blk)
+                          : split_dw(dw_enc, split_ws, static_cast<long>(Cin) * H, blk);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = p * 128 + wg * 64 + w4 * 16 + lane / 4 + 8 * h;
+      if (row < (kDec ? Cout : Cin))
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int l = h0 + j * 8 + 2 * (lane % 4);
+          if constexpr (kDec) {
+            out[static_cast<long>(l) * Cout + row] = g[p][j][2 * h];
+            out[static_cast<long>(l + 1) * Cout + row] = g[p][j][2 * h + 1];
+          } else {
+            *reinterpret_cast<float2*>(out + static_cast<long>(row) * H + l) =
+                make_float2(g[p][j][2 * h], g[p][j][2 * h + 1]);
+          }
+        }
+    }
+  __syncthreads();  // every consumer is past its last tile: the ring is scratch
+  float* red_s = reinterpret_cast<float*>(ring);  // [8][TH]
+  int* flag = reinterpret_cast<int*>(red_s + 8 * TH);
+  if constexpr (kDec) {
+    if (n_split > 1) {  // the last split of this latent block adds the others' partials
+      int* tickets = reinterpret_cast<int*>(ws_dec + (n_split - 1) * dec +
+                                            static_cast<long>(n_split) * gridDim.y * kSplitSums * H);
+      if (!last_ticket(tickets + (gridDim.y + cb) * gridDim.x + blk.x, flag)) return;
+      add_split_tiles(combo_part(dw_dec, static_cast<long>(H) * Cout, cb) + static_cast<long>(h0) * Cout,
+                      ws_dec + cb * (dec / gridDim.y) + static_cast<long>(h0) * Cout, dec, 1, 0,
+                      TH * Cout);
+    }
+  } else {
+    // db_enc: per-thread column sums, over the lanes of a column, then over the
+    // eight warps' row groups, in a fixed order
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = gbe[j][e];
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane < 4) red_s[warp * TH + j * 8 + 2 * lane + e] = v;
+      }
+    __syncthreads();
+    float s[1];
+    if (tid < TH) {
+      s[0] = red_s[tid];
+      for (int w = 1; w < 8; ++w) s[0] += red_s[w * TH + tid];  // fixed order
+    }
+    if (n_split > 1) {  // the last split of this latent block goes on (header note, "Splits")
+      if (!last_split(s, ws_dec + (n_split - 1) * dec, H, blk, flag)) return;
+      add_split_tiles(combo_part(dw_enc, static_cast<long>(Cin) * H, cb) + h0,
+                      split_ws + cb * (enc / gridDim.y) + h0, enc, Cin, H, TH);
+    }
+    if (tid < TH) combo_part(db_enc, H, cb)[h0 + tid] = s[0];
+  }
+}
+
 bool bad_shape(int n_tokens, int c_in, int c_out, int H) {
   return n_tokens <= 0 || c_in <= 0 || c_out <= 0 || H <= 0 || n_tokens % kBwdTB ||
          H % kFwdLG;
@@ -2981,6 +3357,49 @@ cudaError_t bwd_tc(const void* x, const void* w_enc, const float* b_enc, const v
                      c_out, H, sae, static_cast<float*>(split_ws));
 }
 
+// The held route (coder_bwd_held; the coders' entry point, kSae false):
+// ``passes`` bit 0 launches pass E (dW_enc, db_enc), bit 1 then pass D (dW_dec
+// and the direct db_dec rows), on the current stream; 3, both, is the
+// backward, the others time a pass alone. Operands, outputs, n_combo and
+// n_split as bwd_tc's; split_ws as bwd_tc's with two [n_combo, H / 64] ticket
+// arrays, pass E's then pass D's, zeroed. Refuses (cudaErrorInvalidValue) the
+// widths the route does not take (c_in > kHeldCin, c_out outside (kHeldMinCout,
+// kHeldCout]). A template only so that the SAEs' sources, which never launch
+// it, do not build its bodies.
+template <bool kSae>
+cudaError_t bwd_held(int passes, const void* x, const void* w_enc, const float* b_enc,
+                     const void* w_dec, const void* err, const float* coeffs, const float* ct,
+                     float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
+                     int n_tokens, int c_in, int c_out, int H, cudaStream_t stream, int n_combo,
+                     int n_split, void* split_ws) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || bad_combos(n_combo, H) ||
+      bad_tc_operands(c_in, c_out, x, w_enc, w_dec, err) || c_in > kHeldCin ||
+      c_out <= kHeldMinCout || c_out > kHeldCout || passes < 1 || passes > 3 || n_split < 1 ||
+      n_split > (n_tokens + kTcBwdTS - 1) / kTcBwdTS || (n_split > 1 && split_ws == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mwe, mwd, merr;
+  cudaError_t e;
+  static_assert(!kSae, "the held route is the coders'");
+  if ((e = bf16_map(&mx, x, n_tokens, c_in, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwe, w_enc, c_in, H, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwd, w_dec, H, c_out, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&merr, err, n_tokens, c_out, 64, n_combo)) != cudaSuccess)
+    return e;
+  const dim3 grid(H / kTcBwdTH, n_combo, n_split);
+  float* ws = static_cast<float*>(split_ws);
+  if (passes & 1) {
+    e = svt::launch(coder_bwd_held<false>, grid, held_smem_bytes(false), stream, mx, mwe, mwd,
+                    merr, b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in,
+                    c_out, H, ws);
+    if (e != cudaSuccess) return e;
+  }
+  if (passes & 2)
+    return svt::launch(coder_bwd_held<true>, grid, held_smem_bytes(true), stream, mx, mwe, mwd,
+                       merr, b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens,
+                       c_in, c_out, H, ws);
+  return cudaSuccess;
+}
+
 // The f32 backward (float operands, any width): the SIMT body
 // coder_bwd_kernel<float, kSae, kAct> on err as saved (kAct Gated: [2 *
 // n_tokens, c_out], err_rec then err_via). Outputs as coder_bwd's, float
@@ -2999,16 +3418,24 @@ cudaError_t bwd_simt(const void* x, const void* w_enc, const float* b_enc, const
                      db_dec_part, n_tokens, c_in, c_out, H, sae);
 }
 
-// bf16: bwd_tc (n_split, split_ws as its); float: bwd_simt, never split.
+// bf16: bwd_held's passes when ``held`` (non-zero: bwd_held's ``passes``; the
+// caller's route, ops/fused_sae.bwd_route, decides; never kSae), else bwd_tc
+// (n_split, split_ws as theirs); float: bwd_simt, never split or held.
 template <bool kSae>
 cudaError_t coder_bwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                       const void* w_dec, const void* err, const float* coeffs, const float* ct,
                       float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
                       int n_tokens, int c_in, int c_out, int H, const SaeBwd& sae,
                       cudaStream_t stream, int n_combo = 1, int n_split = 1,
-                      void* split_ws = nullptr) {
-  if (bad_shape(n_tokens, c_in, c_out, H) || (!bf16 && n_split != 1))
+                      void* split_ws = nullptr, int held = 0) {
+  if (bad_shape(n_tokens, c_in, c_out, H) || (!bf16 && (n_split != 1 || held)))
     return cudaErrorInvalidValue;
+  if (held) {
+    if constexpr (kSae) return cudaErrorInvalidValue;  // the SAEs' widths never qualify
+    else
+      return bwd_held<kSae>(held, x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
+                      db_dec_part, n_tokens, c_in, c_out, H, stream, n_combo, n_split, split_ws);
+  }
   if (bf16)
     return bwd_tc<kSae, Act::Relu>(x, w_enc, b_enc, w_dec, err, sae.lv.n * n_tokens, coeffs, ct,
                                    dw_enc, db_enc, dw_dec, db_dec_part, n_tokens, c_in, c_out, H,

@@ -24,14 +24,15 @@ extern "C" int svt_coder_fwd(int bf16, const void* x, const void* w_enc, const f
 
 // err is [n_tokens, c_out] in the operand type; coeffs is a 1-float device array
 // (c_rec), ct the [H] per-latent L1 cotangent; outputs as coder_bwd's; n_split
-// and split_ws as bwd_tc's (n_split > 1 in bf16 only).
+// and split_ws as bwd_tc's (n_split > 1 in bf16 only); held != 0 runs the held
+// route's passes (coder.cuh bwd_held; ops/fused_sae.bwd_route decides).
 extern "C" int svt_coder_bwd(int bf16, const void* x, const void* w_enc, const float* b_enc,
                              const void* w_dec, const void* err, const float* coeffs,
                              const float* ct, float* dw_enc, float* db_enc, float* dw_dec,
                              float* db_dec_part, void* split_ws, int n_tokens, int c_in,
-                             int c_out, int H, int n_split, cudaStream_t stream) {
+                             int c_out, int H, int held, int n_split, cudaStream_t stream) {
   return coder_bwd<false>(bf16, x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
                           db_dec_part, n_tokens, c_in, c_out, H,
                           SaeBwd{svt::one_level(H), nullptr, nullptr}, stream, 1, n_split,
-                          split_ws);
+                          split_ws, held);
 }

@@ -99,6 +99,13 @@ HOLD_COUT = 512
 MAX_SPLIT = 4
 SPLIT_MIN_STEPS = 2
 SPLIT_SUMS = 4
+# The held backward route (csrc/coder.cuh coder_bwd_held; bwd_route): the widest
+# C_in and C_out whose gradient tiles it holds in registers (kHeldCin,
+# kHeldCout), and the C_out at and below which coder_bwd_tc is as fast
+# (kHeldMinCout).
+HELD_CIN = 256
+HELD_COUT = 512
+HELD_MIN_COUT = 256
 
 
 def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
@@ -142,6 +149,35 @@ def grid_split(t: int, h: int, c_out: int, *, backward: bool, n_sm: int) -> int:
     return best
 
 
+def bwd_route(c_in: int, c_out: int, levels: int = 1, act: str = "relu", dtype=_BF16) -> str:
+    """The body that runs a backward launch, from its widths, prefix levels,
+    activation ("relu", "jump" or "gated") and operand dtype alone:
+    - "held": csrc/coder.cuh's coder_bwd_held, two launches (pass E holds dW_enc,
+      pass D dW_dec, each in registers for the whole token sweep, written once),
+      for a bf16 ReLU backward of one level with C_in <= 256 and 256 < C_out <=
+      512: the transcoder at its training widths, 256 -> 480, on one card and
+      on a shard (PERF.md rows 12 and 24). On an H100 80GB HBM3 at 700 W
+      (chip_smoke.py's "[route]" lines; PERF.md's kernel table) it ran row 12
+      in 7.255 ms against coder_bwd_tc's 8.064 on the same launch, and row 24
+      in 1.867 against 2.053;
+    - "tc": coder_bwd_tc, dW updated in place once a 512-token step, for every
+      other bf16 backward: the JumpReLU and gated epilogues, the Matryoshka
+      levels, wider dictionaries (the crosscoder's ΣC 2,896; C_in 264 and up,
+      C_out 520 and up), whose gradient tiles do not fit in registers, and
+      C_out <= 256, where the held passes were no faster on the same card
+      (rows 2 and 16 tied, the sweep's row 28 ran slower, in builds of an
+      SAE instantiation not kept: PERF.md, "Findings");
+    - "simt": the f32 check path, coder_bwd_kernel.
+    A launch that this rule sends to "held" runs the held passes or raises: no
+    other body takes its place."""
+    if compute_dtype_of(dtype) != _BF16:
+        return "simt"
+    if (act == "relu" and levels == 1 and c_in <= HELD_CIN
+            and HELD_MIN_COUT < c_out <= HELD_COUT):
+        return "held"
+    return "tc"
+
+
 @functools.cache
 def sm_count(index: int) -> int:
     """The streaming multiprocessors of CUDA device ``index``."""
@@ -173,17 +209,20 @@ def join_splits(t: torch.Tensor, s: int) -> torch.Tensor:
     return t.sum(0) if s > 1 else t
 
 
-def split_workspace(s: int, n: int, h: int, c_in: int, c_out: int, device):
-    """The backward's split workspace (csrc/coder.cuh, bwd_tc) for n combos of
-    one shape: the partials of splits 1..s-1, dW_enc [s - 1, n, c_in, h] and
-    dW_dec [s - 1, n, h, c_out], the per-latent sums [s, n, SPLIT_SUMS, h] (f32
-    all), then [n, h / 64] int32 tickets, zeroed, in one int32 buffer; None (a
-    null pointer) when s is 1. The last split of each latent block adds the
-    partials into the outputs, which keep their shapes."""
+def split_workspace(s: int, n: int, h: int, c_in: int, c_out: int, device,
+                    route: str = "tc"):
+    """The backward's split workspace (csrc/coder.cuh, bwd_tc and bwd_held) for
+    n combos of one shape: the partials of splits 1..s-1, dW_enc [s - 1, n,
+    c_in, h] and dW_dec [s - 1, n, h, c_out], the per-latent sums [s, n,
+    SPLIT_SUMS, h] (f32 all), then [n, h / 64] int32 tickets, zeroed, in one
+    int32 buffer (a held ``route``: two ticket arrays, one a pass); None (a null
+    pointer) when s is 1. The last split of each latent block adds the partials
+    into the outputs, which keep their shapes."""
     if s == 1:
         return None
     floats = (s - 1) * n * h * (c_in + c_out) + s * n * SPLIT_SUMS * h
-    ws = torch.empty(floats + n * (h // BLOCK_H), dtype=torch.int32, device=device)
+    passes = 2 if route.startswith("held") else 1
+    ws = torch.empty(floats + passes * n * (h // BLOCK_H), dtype=torch.int32, device=device)
     ws[floats:].zero_()
     return ws
 
@@ -310,19 +349,36 @@ def coder_forward_plain(x, w_enc, b_enc, w_dec, b_dec):
     return recon, active.sum(0).float(), active.sum(1).float(), post.sum(0)
 
 
-def coder_backward_plain(x, w_enc, b_enc, w_dec, err, c_rec, ct):
-    """Plain version of the coder backward body. ``err`` [T, C_out] is in the
-    compute dtype, ``c_rec`` a scalar, ``ct`` the per-latent L1 cotangent ([H] or
-    a scalar). Returns f32 (dW_enc [C_in, H], db_enc [H], dW_dec [H, C_out],
-    db_dec [C_out])."""
+def coder_bwd_enc_plain(x, w_enc, b_enc, w_dec, err, c_rec, ct):
+    """Plain version of the held route's pass E (csrc coder_bwd_held, kDec
+    false), arguments as coder_backward_plain's: f32 (dW_enc [C_in, H] = xᵀ @
+    round(dpre), db_enc [H] = Σ_T dpre)."""
     cd = x.dtype
     xf = x.float()
     pre = xf @ w_enc.float() + b_enc
-    post = torch.relu(pre)
-    drecon = c_rec * err.float()
-    dpost = _r(drecon, cd) @ w_dec.float().T + ct
+    dpost = _r(c_rec * err.float(), cd) @ w_dec.float().T + ct
     dpre = torch.where(pre > 0, dpost, torch.zeros((), device=pre.device))
-    return xf.T @ _r(dpre, cd), dpre.sum(0), _r(post, cd).T @ _r(drecon, cd), drecon.sum(0)
+    return xf.T @ _r(dpre, cd), dpre.sum(0)
+
+
+def coder_bwd_dec_plain(x, w_enc, b_enc, err, c_rec):
+    """Plain version of the held route's pass D (csrc coder_bwd_held, kDec
+    true), which recomputes pre: f32 (dW_dec [H, C_out] = round(post)ᵀ @
+    round(c_rec·err), db_dec's direct term [C_out] = Σ_T c_rec·err)."""
+    cd = x.dtype
+    post = torch.relu(x.float() @ w_enc.float() + b_enc)
+    drecon = c_rec * err.float()
+    return _r(post, cd).T @ _r(drecon, cd), drecon.sum(0)
+
+
+def coder_backward_plain(x, w_enc, b_enc, w_dec, err, c_rec, ct):
+    """Plain version of the coder backward body (every route: the held route's
+    two passes together give the same function). ``err`` [T, C_out] is in the
+    compute dtype, ``c_rec`` a scalar, ``ct`` the per-latent L1 cotangent ([H] or
+    a scalar). Returns f32 (dW_enc [C_in, H], db_enc [H], dW_dec [H, C_out],
+    db_dec [C_out])."""
+    return (*coder_bwd_enc_plain(x, w_enc, b_enc, w_dec, err, c_rec, ct),
+            *coder_bwd_dec_plain(x, w_enc, b_enc, err, c_rec))
 
 
 def center_plain(x, b_dec):

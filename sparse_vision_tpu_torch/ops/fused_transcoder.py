@@ -22,7 +22,15 @@ rounding.
 
 Dispatch rule (ops/fused_sae.run_on_device): a CPU tensor runs the plain PyTorch
 version of each kernel (the same formulas, the same cast points); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. On the card the backward's body is
+fused_sae.bwd_route's pick from the widths: at the transcoder's (C_in <= 256 <
+C_out <= 512) the held route, csrc/coder.cuh coder_bwd_held, two launches that
+each hold one gradient tile in registers for the whole token sweep (pass E:
+dW_enc, db_enc; pass D: dW_dec, db_dec, with pre recomputed), counted on the
+wrapper once and on HELD_PASSES once each; elsewhere (the crosscoder, wider
+transcoders) coder_bwd_tc. Both compute coder_backward_plain's function, the
+held passes' parts being fused_sae.coder_bwd_enc_plain and
+coder_bwd_dec_plain.
 
 Cast points (the Pallas kernels'): x, W_enc, W_dec and the saved error are cast
 to the compute dtype before the kernels; b_enc and the + b_dec on recon are
@@ -62,6 +70,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _expect,
     _ptrs,
     bodies_take,
+    bwd_route,
     coder_backward_plain,
     coder_forward_plain,
     compute_dtype_of,
@@ -111,11 +120,11 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_transcoder")
     # both end in (..., n_split, stream); the backward's last pointer is split_ws
-    # (csrc/coder.cuh, "Splits")
+    # (csrc/coder.cuh, "Splits"), its ``held`` comes before n_split (bwd_route)
     lib.svt_coder_fwd.restype = _I
     lib.svt_coder_fwd.argtypes = [_I] + [_P] * 9 + [_I] * 5 + [_P]
     lib.svt_coder_bwd.restype = _I
-    lib.svt_coder_bwd.argtypes = [_I] + [_P] * 12 + [_I] * 5 + [_P]
+    lib.svt_coder_bwd.argtypes = [_I] + [_P] * 12 + [_I] * 6 + [_P]
     return lib
 
 
@@ -141,6 +150,25 @@ def _check_operands(x, w_enc, b_enc, w_dec, b_dec=None):
     return t, c_in, c_out, h
 
 
+class HeldPass(Kernel):
+    """One pass of the held backward route (csrc/coder.cuh coder_bwd_held,
+    fused_sae.bwd_route): its count goes up wherever a backward launch runs it
+    (the launching wrapper's own count goes up once for both passes)."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.name = name
+
+
+held_enc_kernel = HeldPass("coder_bwd_held_enc")  # pass E: dW_enc, db_enc
+held_dec_kernel = HeldPass("coder_bwd_held_dec")  # pass D: dW_dec, db_dec's direct rows
+HELD_PASSES = (held_enc_kernel, held_dec_kernel)
+# svt_coder_bwd's ``held`` for each route name a backward wrapper takes
+# (coder.cuh bwd_held's ``passes``: bit 0 pass E, bit 1 pass D): "held" both,
+# "held E" / "held D" one alone (the measurement scripts'); "tc" and "simt" 0
+HELD_FLAGS = {"held": 3, "held E": 1, "held D": 2}
+
+
 def coder_forward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, b_dec, n_split=None):
     """Launch the coder forward (csrc/coder.cuh), counted on ``kernel``, split as
     fused_sae.launch_split says (or in ``n_split`` parts); returns what
@@ -159,10 +187,14 @@ def coder_forward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, b_dec, n_split=
 
 
 def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, ct,
-                          n_split=None):
+                          n_split=None, route=None):
     """Launch the coder backward (csrc/coder.cuh), counted on ``kernel``, split as
-    coder_forward_launch: ``coeffs[0]`` is c_rec (a device tensor), ``ct`` the
-    [H] L1 cotangent. Returns what coder_backward_plain returns."""
+    coder_forward_launch, through the body fused_sae.bwd_route picks from the
+    widths, or the one ``route`` names (HELD_FLAGS; chip_smoke.py and
+    chip_bwd_probe.py time coder_bwd_tc and each held pass on a held launch):
+    ``coeffs[0]`` is c_rec (a device tensor), ``ct`` the [H] L1 cotangent.
+    Returns what coder_backward_plain returns; a held pass launched alone
+    leaves the other pass's outputs unwritten."""
     t, c_in, c_out, h = _check_operands(x, w_enc, b_enc, w_dec)
     dev = x.device
     _expect("err", err, (t, c_out), x.dtype, dev)
@@ -170,15 +202,20 @@ def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, c
     if coeffs.dtype != _F32 or coeffs.device != dev or not coeffs.is_contiguous():
         raise ValueError("fused transcoder kernel: coeffs must be a contiguous f32 tensor "
                          f"on {dev}")
+    route = route or bwd_route(c_in, c_out, dtype=x.dtype)
     s = launch_split(x, t, h, c_out, backward=True, n_split=n_split)
     dw_enc = torch.empty((c_in, h), dtype=_F32, device=dev)
     db_enc = torch.empty((h,), dtype=_F32, device=dev)
     dw_dec = torch.empty((h, c_out), dtype=_F32, device=dev)
     db_dec_part = torch.empty((direct_rows(t, x.dtype), c_out), dtype=_F32, device=dev)
+    held = HELD_FLAGS.get(route, 0)
     kernel._launch(_lib().svt_coder_bwd, dev,
                    *_ptrs(x, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
-                          db_dec_part, split_workspace(s, 1, h, c_in, c_out, dev)),
-                   t, c_in, c_out, h, s)
+                          db_dec_part, split_workspace(s, 1, h, c_in, c_out, dev, route)),
+                   t, c_in, c_out, h, held, s)
+    for bit, p in enumerate(HELD_PASSES):  # each pass the launch ran
+        if held >> bit & 1:
+            p.launches += 1
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
@@ -199,10 +236,11 @@ class _BackwardKernel(Kernel):
 
     name = "fused_transcoder_bwd"
 
-    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs, n_split=None):
+    def __call__(self, x, w_enc, b_enc, w_dec, err, coeffs, n_split=None, route=None):
         _expect("coeffs", coeffs, (2,), _F32, x.device)
         ct = coeffs[1:].expand(w_dec.shape[0]).contiguous()
-        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct, n_split)
+        return coder_backward_launch(self, x, w_enc, b_enc, w_dec, err, coeffs, ct, n_split,
+                                     route)
 
 
 class _TPForwardKernel(_ForwardKernel):

@@ -348,3 +348,72 @@ def test_split_checks_script_stands_alone():
             names.add(node.module.split(".")[0])
     assert names.isdisjoint({"jax", "jaxlib", "sparse_vision_tpu"}), names
     assert "chip_smoke" in names
+
+
+# ---------------------------------------------------------------------------
+# the held backward route (fused_sae.bwd_route) through the transcoder's wrappers
+# ---------------------------------------------------------------------------
+
+HT, HC, HH, HOUT = 2048, 256, 640, 480  # a held shape that splits: 10 latent blocks, 4 steps
+
+
+def _held_launch(kernel=None, dtype=BF16, **kw):
+    """One transcoder backward launch (``kernel``, default the single-device
+    wrapper) at (HT, HC -> HOUT, HH) on zeros."""
+    ops = (_z(HT, HC, dtype=dtype), _z(HC, HH, dtype=dtype), _z(HH),
+           _z(HH, HOUT, dtype=dtype), _z(HT, HOUT, dtype=dtype), _z(2))
+    return (kernel or fused_transcoder.bwd_kernel)(*ops, **kw)
+
+
+@pytest.mark.parametrize("tp", (False, True), ids=("one card", "TP shard"))
+def test_held_route_flag_split_and_counts(libs, monkeypatch, tp):
+    """At a width the rule gives the held route, the transcoder's backward
+    wrappers pass ``held`` 3 (both passes) with the rule's split and a
+    workspace, count one launch of their own and one of each pass; route "tc"
+    passes 0 and counts no pass; "held E" / "held D" pass 1 / 2 and count that
+    pass alone."""
+    for k in fused_transcoder.HELD_PASSES:
+        monkeypatch.setattr(k, "launches", 0)
+    kernel = fused_transcoder.tp_bwd_kernel if tp else fused_transcoder.bwd_kernel
+    monkeypatch.setattr(kernel, "launches", 0)
+    assert fused_sae.bwd_route(HC, HOUT) == "held"
+    names = [p for _, p in DECLS["svt_coder_bwd"]]
+    want_s = grid_split(HT, HH, HOUT, backward=True, n_sm=N_SM)
+    assert want_s == 2
+    for i, (route, flag, counts) in enumerate(((None, 3, (1, 1)), ("tc", 0, (1, 1)),
+                                               ("held E", 1, (2, 1)), ("held D", 2, (2, 2)))):
+        _held_launch(kernel, **({} if route is None else {"route": route}))
+        args = libs[fused_transcoder].svt_coder_bwd.calls[-1]
+        assert args[names.index("held")] == flag, route
+        assert args[names.index("n_split")] == want_s
+        assert args[names.index("split_ws")] is not None
+        assert tuple(k.launches for k in fused_transcoder.HELD_PASSES) == counts, route
+        assert kernel.launches == i + 1
+
+
+def test_held_route_not_taken_in_f32_or_past_its_widths(libs, monkeypatch):
+    """The f32 check path, the crosscoder and a C_out past HELD_COUT pass
+    ``held`` 0."""
+    for k in fused_transcoder.HELD_PASSES:
+        monkeypatch.setattr(k, "launches", 0)
+    names = [p for _, p in DECLS["svt_coder_bwd"]]
+    _held_launch(dtype=torch.float32)
+    assert libs[fused_transcoder].svt_coder_bwd.calls[-1][names.index("held")] == 0
+    for name in ("transcoder", "crosscoder"):  # C_in 264 -> C_out 520: coder_bwd_tc
+        _launch(name, True, 0)
+        assert libs[fused_transcoder].svt_coder_bwd.calls[-1][names.index("held")] == 0
+    assert all(k.launches == 0 for k in fused_transcoder.HELD_PASSES)
+
+
+@pytest.mark.parametrize("n", (1, 3))
+def test_held_workspace_holds_a_ticket_array_a_pass(n):
+    """The held route's split workspace is coder_bwd_tc's with a second [N, H /
+    64] array of int32 tickets (pass D's), zeroed like the first."""
+    s, h = 2, 640
+    tc = fused_sae.split_workspace(s, n, h, HC, HOUT, "cpu")
+    for route in ("held", "held D"):
+        held = fused_sae.split_workspace(s, n, h, HC, HOUT, "cpu", route)
+        extra = n * (h // fused_sae.BLOCK_H)
+        assert held.numel() == tc.numel() + extra
+        assert not held[-2 * extra:].any()
+    assert fused_sae.split_workspace(1, n, h, HC, HOUT, "cpu", "held") is None
