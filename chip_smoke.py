@@ -51,6 +51,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               launch is timed beside the same launch on coder_bwd_tc
               (route="tc"), in turns ("[route]" lines); at row 12 each pass
               is also launched alone and timed as a row of the kernels line.
+              The held passes are also held pass by pass where they end in
+              a partial step or split (C_in 136 -> C_out 264 at T 1152 and
+              2176, H 640; phase 10's mixed3a -> mixed3b launch, T 3072, H
+              2048, split in 3): the split launch and the same launch
+              unsplit, REPEATS bitwise-equal launches each.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too.
@@ -663,15 +668,16 @@ ROUTES = []  # held launches timed beside coder_bwd_tc on the same launch: the "
 HELD_NAMES = {"E": ("dW_enc", "db_enc"), "D": ("dW_dec", "db_dec")}
 
 
-def _held_pair(name: str, tag: str, launch, bops: tuple, ct) -> dict:
+def _held_pair(name: str, tag: str, launch, bops: tuple, ct, timed: bool = True) -> dict:
     """Where bwd_route sends this bf16 transcoder backward to the held passes
-    (rows 12 and 24): ``launch()`` (the wrapper's launch, both passes) with each
-    pass's outputs held to its plain version (coder_bwd_enc_plain,
-    coder_bwd_dec_plain on ``bops`` = (x, W_enc, b_enc, W_dec, err, coeffs)
-    and the L1 cotangent ``ct``) at the backward checks' tolerances, REPEATS
-    launches bitwise equal, then timed beside ``launch(route="tc")`` (the same
-    launch on coder_bwd_tc) in turns, held, tc, tc, held, and recorded for the
-    routes line. Returns each pass's max abs error."""
+    (rows 12 and 24; kernels_coder_ragged's partial-step and split launches): ``launch()`` (the
+    wrapper's launch, both passes) with each pass's outputs held to its plain
+    version (coder_bwd_enc_plain, coder_bwd_dec_plain on ``bops`` = (x, W_enc,
+    b_enc, W_dec, err, coeffs) and the L1 cotangent ``ct``) at the backward
+    checks' tolerances, REPEATS launches bitwise equal; with ``timed`` then
+    timed beside ``launch(route="tc")`` (the same launch on coder_bwd_tc) in
+    turns, held, tc, tc, held, and recorded for the routes line. Returns each
+    pass's max abs error."""
     x, we, be, wd, res, coeffs = bops[:6]
     dw_enc, db_enc, dw_dec, db_dec = launch()
     got = {"E": (dw_enc, db_enc), "D": (dw_dec, db_dec)}
@@ -688,6 +694,8 @@ def _held_pair(name: str, tag: str, launch, bops: tuple, ct) -> dict:
             raise AssertionError(f"{name}: held launches on the same inputs differ")
     log(f"[kernels]   {name}: {REPEATS} held launches bitwise equal")
     del first
+    if not timed:
+        return errs
     held = time_ms(launch, SPLIT_REPS)
     tc = time_ms(lambda: launch(route="tc"), SPLIT_REPS)
     tc = (tc + time_ms(lambda: launch(route="tc"), SPLIT_REPS)) / 2
@@ -1317,7 +1325,16 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
               for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
     moved = nbytes(*bops) + nbytes(*g_p)
     del g_k, g_p
+    held = (cd == torch.bfloat16 and mod is fused_transcoder
+            and fused_sae.bwd_route(c_in, c_out, dtype=cd) == "held")
     if not timed:
+        if held:  # the rule's split launch, pass by pass, and the same launch unsplit
+            s = fused_sae.grid_split(t, h, c_out, backward=True,
+                                     n_sm=fused_sae.sm_count(torch.cuda.current_device()))
+            for n_split in sorted({s, 1}, reverse=True):
+                _held_pair(name, f"{tag}, T={t} C_in={c_in} C_out={c_out} H={h}, n_split "
+                           f"{n_split}", lambda n=n_split, **kw: bwd(*bops, n_split=n, **kw),
+                           bops, bops[5][1], timed=False)
         return rows
     dr = (bops[5][0] * res.float()).to(cd)
     rows[name] = _measure(
@@ -1326,7 +1343,7 @@ def _kernels_coder(mod, tag: str, cd, t: int, c_in: int, c_out: int, h: int,
     if cd == torch.bfloat16:
         _split_pair(fwd.name, tag, lambda **kw: fwd(*ops, **kw), t, h, c_out, False)
         _split_pair(name, tag, lambda **kw: bwd(*bops, **kw), t, h, c_out, True)
-        if mod is fused_transcoder and fused_sae.bwd_route(c_in, c_out, dtype=cd) == "held":
+        if held:
             errs = _held_pair(name, tag, lambda **kw: bwd(*bops, **kw), bops, bops[5][1])
             if kernels is None and (t, h) == (TC_T, TC_H):  # row 12: phase 6's main path
                 rows.update(_held_pass_rows(tag, bops, post, errs))
@@ -1358,7 +1375,12 @@ def kernels_coder_ragged(cd, tag: str) -> dict:
     and 4*128 + 8, where it updates recon in place, split in two there: the
     second split's latents are the partial group), checked against the plain
     versions; then at T = 4*512 + 128, C_out 520, where the bf16 backward splits
-    too (the second split's steps end in the partial one); no rows."""
+    too (the second split's steps end in the partial one). Then the transcoder
+    where bwd_route gives it the held passes: C_in 136 -> C_out
+    264 at T 1,152 (a partial step, unsplit) and 2,176 (split in 2), and phase
+    10's mixed3a -> mixed3b launch (T ML_T = 3,072, 256 -> 480, H 2,048: split
+    in 3), the bf16 split launch and the same launch unsplit each held pass by
+    pass to the plain versions and repeated bitwise (_held_pair); no rows."""
     c_in, h = 264, 640
     for t, c_out in ((1152, 136), (1152, 520), (2176, 520)):
         def tc_coeffs(gen):
@@ -1370,6 +1392,12 @@ def kernels_coder_ragged(cd, tag: str) -> dict:
 
         _kernels_coder(fused_transcoder, tag, cd, t, c_in, c_out, h, tc_coeffs, timed=False)
         _kernels_coder(fused_crosscoder, tag, cd, t, c_in, c_out, h, cc_coeffs, timed=False)
+    for t, c_in, c_out, h in ((1152, 136, 264, 640), (2176, 136, 264, 640),
+                              (ML_T, TC_CIN, TC_COUT, 2048)):
+        def tc_coeffs(gen):
+            return (torch.tensor([2.0 / (t * c_out), LAMBDA / (t * h)], device=DEVICE),)
+
+        _kernels_coder(fused_transcoder, tag, cd, t, c_in, c_out, h, tc_coeffs, timed=False)
     return {}
 
 

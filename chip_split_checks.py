@@ -8,7 +8,10 @@ to a split body, before the whole of chip_smoke.py.
 It builds every kernel (chip_smoke.phase_build: ptxas's registers, a spill
 fails), then holds the launches that split against their plain versions, each
 bf16 launch repeated bitwise (chip_smoke's own checks): both coders at ragged
-shapes (the forward split at C_out 520, the backward at T 2,176), the ReLU,
+shapes (the forward split at C_out 520, the backward at T 2,176; the
+transcoder's held passes at C_in 136 -> C_out 264, T 1,152 and 2,176, and at
+phase 10's mixed3a -> mixed3b launch, T 3,072, split in 3, each split launch
+and the same launch unsplit held pass by pass), the ReLU,
 Matryoshka, JumpReLU and gated ops at C 480 and 832 with T 8,192 and H 4,096
 (the backward split in two at every width, the in-place forward at 832),
 PERF.md rows 23-26 at a (2, 2) rank's shard, and the four sweep kernels at

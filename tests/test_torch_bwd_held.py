@@ -45,8 +45,8 @@ F32 = torch.float32
 # (label, C_in, C_out, prefix levels, activation, dtype) -> the body; the
 # shapes of PERF.md section 4 (the training widths, on a rank's shard and in the
 # sweep alike: the rule reads no T or H). At C 256 the held passes were no
-# faster than coder_bwd_tc on the card (PERF.md, "Findings"), so rows 2, 16 and 28
-# keep it.
+# faster than coder_bwd_tc on the card, nor was a coder_bwd_tc that held both
+# tiles in registers (PERF.md, "Findings"), so rows 2, 16 and 28 keep it.
 ROUTES = {
     "row 2 sae_mlp backward (C 256)": (256, 256, 1, "relu", BF16, "tc"),
     "row 12 transcoder backward (256 -> 480)": (256, 480, 1, "relu", BF16, "held"),
@@ -62,6 +62,7 @@ ROUTES = {
     "phase 12 transcoder 768 -> 768": (768, 768, 1, "relu", BF16, "tc"),
     "phase 10 transcoder 528 -> 832": (528, 832, 1, "relu", BF16, "tc"),
     "ragged coder pair, C_in 264 -> 136": (264, 136, 1, "relu", BF16, "tc"),
+    "C8's ragged held transcoder, 136 -> 264": (136, 264, 1, "relu", BF16, "held"),
     "C_out 520 (past the held 512)": (256, 520, 1, "relu", BF16, "tc"),
     "row 2 in f32 (the check path)": (256, 256, 1, "relu", F32, "simt"),
     "row 12 in f32": (256, 480, 1, "relu", F32, "simt"),

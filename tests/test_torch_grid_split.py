@@ -73,6 +73,12 @@ TABLE = {
     "phase 12 transcoder 768 -> 768 / H 6,144 backward": (32768, 6144, 768, True, 4),
     "the crosscoder's (2,) shard forward (T 8,192, H 8,192)": (8192, 8192, 2896, False, 2),
     "the crosscoder's (2,) shard backward": (8192, 8192, 2896, True, 1),
+    # chip_smoke.kernels_coder_ragged's held transcoder launches (ROADMAP C8):
+    # C_in 136 -> C_out 264 at H 640 whole and split, phase 10's mixed3a ->
+    # mixed3b (H 2,048) split in 3
+    "C8 held backward 136 -> 264, T 1,152 (a partial step)": (1152, 640, 264, True, 1),
+    "C8 held backward 136 -> 264, T 2,176": (2176, 640, 264, True, 2),
+    "C8 phase 10 mixed3a -> mixed3b backward (T 3,072, H 2,048)": (3072, 2048, 480, True, 3),
 }
 
 
@@ -348,6 +354,23 @@ def test_split_checks_script_stands_alone():
             names.add(node.module.split(".")[0])
     assert names.isdisjoint({"jax", "jaxlib", "sparse_vision_tpu"}), names
     assert "chip_smoke" in names
+
+
+@pytest.mark.parametrize("variant", ("no_products", "one_set", "tc_no_products",
+                                     "tc_no_updates"))
+def test_bwd_probe_ablations_match_the_bodies(variant):
+    """chip_bwd_probe.py's ablations are text substitutions of csrc/coder.cuh:
+    each still finds every text it replaces in its body (or the constants
+    above it) exactly as often as it says, and changes that body only."""
+    import chip_bwd_probe
+
+    text = (CSRC / "coder.cuh").read_text()
+    out = chip_bwd_probe._ablate(text, variant)
+    assert out != text
+    start, end, source = chip_bwd_probe.BODIES[chip_bwd_probe.VARIANTS[variant][0]]
+    i0, i1 = text.index(start), text.index(end, text.index(start))
+    assert out.endswith(text[i1:])  # nothing after the body changes
+    assert (source + ".cu") in {p.name for p in CSRC.glob("*.cu")}
 
 
 # ---------------------------------------------------------------------------
