@@ -1,8 +1,9 @@
 """Where the bf16 backwards' time goes, on one NVIDIA GPU, in about three minutes
 with the builds: the transcoder's held route (csrc/coder.cuh coder_bwd_held, two
 launches: pass E holds dW_enc, pass D dW_dec) beside the in-place body
-coder_bwd_tc on the same launch, and coder_bwd_tc itself at the ReLU SAE's
-C 256.
+coder_bwd_tc on the same launch, coder_bwd_tc itself at the ReLU SAE's C 256,
+and the JumpReLU backward's cluster pair (coder_bwd_pair: two CTAs a latent
+block, E holding dW_enc, D dW_dec) beside coder_bwd_tc on the same launch.
 
     python3 chip_bwd_probe.py
 
@@ -18,7 +19,13 @@ ablation's outputs are wrong by design and are never checked):
                    apart from the products;
   tc_no_updates    coder_bwd_tc with every product and drain kept and no dW
                    tile read back or written (update_pairs and phase C's
-                   read-modify-write skipped): the in-place updates' share.
+                   read-modify-write skipped): the in-place updates' share;
+  pair_no_products coder_bwd_pair with every load, exchange, barrier and
+                   epilogue kept and no wgmma issued: whether the exchange
+                   chain or the products set the pair's pace;
+  pair_release_cluster  coder_bwd_pair with its remote arrivals on the
+                   peer's empty barriers at release.cluster semantics in
+                   place of the default: what a cluster-scope release costs.
 Then times, in turns (REPS launches a turn, two turns each), each unsplit: at
 PERF.md's row 24 (the transcoder's TP backward at a (2, 2) rank's shard: T
 16,384, 256 -> 480, H 8,192) and row 12 (T 32,768, 256 -> 480, H 16,384) the
@@ -26,9 +33,22 @@ held route (both passes), pass E alone and pass D alone, as built and in each
 held ablation, and coder_bwd_tc as built; at row 16 (sae_mlp's TP backward at
 the shard: T 16,384, C 256, H 8,192) and row 2 (T 32,768, C 256, H 16,384)
 coder_bwd_tc (fused_sae.bwd_route's body there) as built and in each tc
-ablation. Prints one JSON line of the times (each one's share of its row's
-base: the held route, or coder_bwd_tc at the SAE rows), then nvidia-smi's
-name and power limit.
+ablation; at row 20 (the JumpReLU TP backward at the shard: T 16,384, C 256,
+H 8,192) and row 5 (T 32,768, H 16,384) the cluster pair as built and in its
+ablation, and coder_bwd_tc as built on the same launch. Then the JumpReLU backward's
+route and split over widths and shapes (pair_grid: fused_sae.bwd_route gives
+the pair every bf16 one-level JumpReLU backward at C <= 256, and grid_split
+splits its launches by one dictionary's CTAs): at C 8, 64, 128, 192 and 256,
+T 4,096 and 32,768 and H at expansions 2, 16 and 64, the wrapper's launch on
+the pair at the rule's split, the pair unsplit and coder_bwd_tc at its own
+rule's split (CUDA events, in turns), and each route's body alone on the
+device (torch.profiler: where a launch is this short, the wrapper's host
+work, not the card, sets the wall time); and at T 4,096 and 16,384, H 512 and
+2,048, C 64 and 256, one dictionary and a sweep of 8, the pair body's own
+device time (torch.profiler) at the rule's split and unsplit. Prints one JSON
+line of the times (each one's share of its row's base: the held route, the
+pair, or coder_bwd_tc at the ReLU SAE rows; the grids' milliseconds), then
+nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
@@ -42,16 +62,24 @@ from pathlib import Path
 import torch
 
 import chip_smoke as c
-from sparse_vision_tpu_torch.ops import fused_sae, fused_sae_tp, fused_transcoder, native
+from sparse_vision_tpu_torch.ops import (
+    fused_jumprelu_sae,
+    fused_sae,
+    fused_sae_tp,
+    fused_transcoder,
+    native,
+)
 
 WORK = Path(__file__).resolve().parent / "_smoke_work" / "bwd_probe"
 REPS = 20
 # each body an ablation edits: where its text starts and ends in coder.cuh, and
 # the source whose library the probe builds and times for it
-BODIES = {"held": ("coder_bwd_held(const __grid_constant__", "bool bad_shape(int n_tokens",
+BODIES = {"held": ("coder_bwd_held(const __grid_constant__", "// Backward, bf16, cluster pair",
                    "fused_transcoder"),
           "tc": ("coder_bwd_tc(const __grid_constant__",
-                 "// Backward, bf16, gradient tiles held in registers", "fused_sae")}
+                 "// Backward, bf16, gradient tiles held in registers", "fused_sae"),
+          "pair": ("coder_bwd_pair(const __grid_constant__", "bool bad_shape(int n_tokens",
+                   "fused_jumprelu_sae")}
 # (body, [(old, new, count)]) of each ablation: substitutions in the body's
 # text or (with a leading "=") in the constants above it
 VARIANTS = {
@@ -72,6 +100,13 @@ VARIANTS = {
          "prev[j][h][e] = 0.f;", 1),
         ("if (col + 8 * h < Cout) dwd[o] = prev[j][h][e] + g[j][2 * h + e];",
          "if (false) dwd[o] = prev[j][h][e] + g[j][2 * h + e];", 1)]),
+    "pair_no_products": ("pair", [
+        ("wgmma_ss<1, 0>(acc,", "if (false) wgmma_ss<1, 0>(acc,", 1),
+        ("wgmma_ss<0, 0>(acc,", "if (false) wgmma_ss<0, 0>(acc,", 1),
+        ("wgmma_ss<1, 0>(g[q],", "if (false) wgmma_ss<1, 0>(g[q],", 1)]),
+    "pair_release_cluster": ("pair", [
+        ("=mbarrier.arrive.shared::cluster.b64 _, [%0];",
+         "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];", 1)]),
 }
 # the transcoder wrappers' route names: both passes, pass E alone, pass D alone
 PASSES = {"held": "held", "E": "held E", "D": "held D"}
@@ -118,7 +153,8 @@ def build(variants) -> dict:
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {v}:\n{log}")
         for kernel, regs, spill in c._ptxas_kernels(log):
-            if "coder_bwd_held" in kernel or "coder_bwd_tc<true, Act::Relu" in kernel:
+            if ("coder_bwd_held" in kernel or "coder_bwd_tc<true, Act::Relu" in kernel
+                    or "coder_bwd_pair" in kernel):
                 c.log(f"[probe] {v}: {regs} registers, {spill} spill bytes: {kernel}")
     return libs
 
@@ -131,8 +167,80 @@ def use(libs: dict | None) -> None:
     native.load.cache_clear()
     fused_transcoder._lib.cache_clear()
     fused_sae._lib.cache_clear()
+    fused_jumprelu_sae._lib.cache_clear()
     native.library_path = (_own_path if libs is None
                            else (lambda name: libs.get(name) or _own_path(name)))
+
+
+# pair_grid's shapes: widths, expansions (H = C times it, at least 128, in
+# multiples of 128) and token counts of the route grid; (T, H, C) of the split
+# grid, each at one dictionary and at a sweep of SPLIT_N
+GRID_C = (8, 64, 128, 192, 256)
+GRID_EXP = (2, 16, 64)
+GRID_T = (4096, 32768)
+SPLIT_SHAPES = [(t, h, c_) for t in (4096, 16384) for h in (512, 2048) for c_ in (64, 256)]
+SPLIT_N = 8
+
+
+def _jump_ops(t: int, c_: int, h: int, n: int = 0) -> tuple:
+    """A bf16 JumpReLU backward's operands on chip_smoke.py's dyadic grid: one
+    dictionary (n 0) or a sweep of n combos."""
+    if n:
+        ops = c._sweep_ops("jumprelu_sae", torch.bfloat16, n, t, c_, h)
+        return c._sweep_bwd_ops("jumprelu_sae", torch.bfloat16, ops, None,
+                                fused_jumprelu_sae.jumprelu_sweep_fwd_plain(*ops))
+    gen = torch.Generator(device=c.DEVICE).manual_seed(c_ + h)
+    return c._pair_ops(gen, t, c_, h, torch.bfloat16)
+
+
+def pair_grid() -> tuple:
+    """The route grid (the wrapper's ms on the pair at the rule's split, the
+    pair unsplit where the rule splits, coder_bwd_tc at its rule's split; two
+    turns, the second in reverse order; and the two bodies' own device ms at
+    the rule's splits) and the split grid (the pair body's
+    device ms at the rule's split and unsplit, one dictionary and SPLIT_N)."""
+    n_sm = fused_sae.sm_count(torch.cuda.current_device())
+    k = fused_jumprelu_sae.bwd_kernel
+    grid, split = [], []
+    shapes = sorted({(t, c_, max(128, -(-c_ * e // 128) * 128))
+                     for c_ in GRID_C for e in GRID_EXP for t in GRID_T},
+                    key=lambda s: (s[1], s[2], s[0]))
+    with torch.no_grad():
+        for t, c_, h in shapes:
+            assert fused_sae.bwd_route(c_, c_, act="jump") == "pair"
+            a = _jump_ops(t, c_, h)
+            sp = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm, pair=True)
+            st = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm)
+            fns = {"pair": lambda: k(*a), "tc": lambda: k(*a, route="tc")}
+            if sp > 1:
+                fns["pair unsplit"] = lambda: k(*a, n_split=1)
+            ms = dict.fromkeys(fns, 0.0)
+            for order in (list(fns), list(fns)[::-1]):
+                for name in order:
+                    ms[name] += c.time_ms(fns[name], REPS) / 2
+            body = {name: c._body_ms(fns[name], f"coder_bwd_{name}<", REPS)
+                    for name in ("pair", "tc")}
+            row = dict(t=t, c=c_, h=h, pair_split=sp, tc_split=st, **ms,
+                       **{f"{k} body": v for k, v in body.items()})
+            c.log(f"[grid] T={t} C={c_} H={h}: pair (split {sp}) {ms['pair']:.4f} ms, "
+                  + (f"unsplit {ms['pair unsplit']:.4f}, " if sp > 1 else "")
+                  + f"coder_bwd_tc (split {st}) {ms['tc']:.4f} ({ms['tc'] / ms['pair']:.2f}x); "
+                  f"bodies on the device {body['pair']:.4f} / {body['tc']:.4f} "
+                  f"({body['tc'] / body['pair']:.2f}x)")
+            grid.append(row)
+            del a
+            torch.cuda.empty_cache()
+        for t, h, c_ in SPLIT_SHAPES:
+            sp = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm, pair=True)
+            for n, kern in ((0, k), (SPLIT_N, fused_jumprelu_sae.sweep_bwd_kernel)):
+                a = _jump_ops(t, c_, h, n)
+                ms = {s: c._body_ms(lambda s=s: kern(*a, n_split=s), "coder_bwd_pair<", REPS)
+                      for s in sorted({1, sp})}
+                split.append(dict(t=t, c=c_, h=h, n=max(n, 1), split=sp, body_ms=ms))
+                c.log(f"[grid] split N={max(n, 1)} T={t} C={c_} H={h}: coder_bwd_pair "
+                      + ", ".join(f"split {s} {v:.4f} ms" for s, v in ms.items()))
+                del a
+    return grid, split
 
 
 def main() -> int:
@@ -152,13 +260,25 @@ def main() -> int:
         err = torch.randn(t, c_out, device="cuda", generator=gen).to(bf)
         return x, we, be, wd, err, torch.tensor([1e-3, 1e-4], device="cuda")
 
+    def jops(t, h):
+        """The JumpReLU backward's operands at C 256: pre of std ~1, thresholds
+        around 1, an f32 error, (c_rec, c_l0) and the bandwidth."""
+        x, we, be, wd, _, _ = ops(t, h, 256)
+        thr = 0.5 + torch.rand(h, device="cuda", generator=gen)
+        bd = 0.1 * torch.randn(256, device="cuda", generator=gen)
+        err = torch.randn(t, 256, device="cuda", generator=gen)
+        return (x, 4 * we, be, thr, wd, bd, err, torch.tensor([1e-3, 1e-4], device="cuda"),
+                1.0)
+
     out = {}
     with torch.no_grad():
         # row: (body, wrapper, operands); the held rows' wrappers take a route
         rows = {"row 24": ("held", fused_transcoder.tp_bwd_kernel, ops(16384, 8192, 480)),
                 "row 12": ("held", fused_transcoder.bwd_kernel, ops(32768, 16384, 480)),
                 "row 16": ("tc", fused_sae_tp.bwd_kernel, ops(16384, 8192, 256)),
-                "row 2": ("tc", fused_sae.bwd_kernel, ops(32768, 16384, 256))}
+                "row 2": ("tc", fused_sae.bwd_kernel, ops(32768, 16384, 256)),
+                "row 20": ("pair", fused_sae_tp.jumprelu_bwd_kernel, jops(16384, 8192)),
+                "row 5": ("pair", fused_jumprelu_sae.bwd_kernel, jops(32768, 16384))}
         points = [("as is", None)] + [(v, libs[v]) for v in VARIANTS]
         times = {r: {} for r in rows}
         for turn in range(2):
@@ -171,6 +291,10 @@ def main() -> int:
                         routes = {f"{p} {q}": route for q, route in PASSES.items()}
                         if lib is None:
                             routes["tc"] = "tc"
+                    elif body == "pair":  # the wrapper's own route, the pair
+                        routes = {f"{p} pair": None}
+                        if lib is None:
+                            routes["tc"] = "tc"
                     else:
                         routes = {f"{p} tc": None}
                     for name, route in routes.items():
@@ -179,12 +303,13 @@ def main() -> int:
                             lambda: k(*a, n_split=1, **kw), REPS))
         use(None)
         for r, (body, _, _) in rows.items():
-            base = sum(times[r]["as is held" if body == "held" else "as is tc"]) / 2
+            base = sum(times[r][f"as is {'tc' if body == 'tc' else body}"]) / 2
             out[r] = {p: {"ms": sum(v) / 2, "share": sum(v) / 2 / base}
                       for p, v in times[r].items()}
             c.log(f"[probe] {r}: " + ", ".join(f"{p} {v['ms']:.3f} ms ({v['share']:.3f})"
                                               for p, v in out[r].items()))
-    print(json.dumps({"bwd_probe": out}))
+    grid, split = pair_grid()
+    print(json.dumps({"bwd_probe": out, "pair_grid": grid, "pair_split": split}))
     print(smi)
     return 0
 

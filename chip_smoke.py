@@ -14,7 +14,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               instantiation's registers (beside REGISTERS_BEFORE's count
               where it has one) and fail on any spill, and unless the
               coders' source builds the held backward's two passes
-              (coder_bwd_held, HELD_SOURCES) and no other source any.
+              (coder_bwd_held, HELD_SOURCES) and no other source any, and
+              the JumpReLU source the cluster-pair backward (coder_bwd_pair,
+              PAIR_SOURCES) and no other source it; print the pair's
+              registers, spill bytes and the clusters of it the card holds
+              (cudaOccupancyMaxActiveClusters).
   3. kernels: hold each kernel against its plain PyTorch version on the card at
               the training shape (SAEs: T=32768 tokens, C=256, H=16384 latents,
               the Matryoshka prefixes ending at 1024, 4096 and 16384; the
@@ -55,7 +59,24 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               a partial step or split (C_in 136 -> C_out 264 at T 1152 and
               2176, H 640; phase 10's mixed3a -> mixed3b launch, T 3072, H
               2048, split in 3): the split launch and the same launch
-              unsplit, REPEATS bitwise-equal launches each.
+              unsplit, REPEATS bitwise-equal launches each. Where bwd_route
+              gives the bf16 JumpReLU backward the cluster pair (C <= 256:
+              row 5 here, row 20 in phase 15 (e), row 32 in phase 16 (a)),
+              its launch is held to its plain version with REPEATS launches
+              bitwise equal and timed beside the same launch on
+              coder_bwd_tc (route="tc"), in turns ("[route]" lines); so is
+              the pair at the ragged shape (T 1152, H 640, C 136) and at T
+              2176 split in 2 and unsplit (kernels_pair_shapes), which also
+              holds it at the narrower widths the backbones give it
+              (PAIR_WIDTHS: C 64 and 192 at T 32768, expansion 64, and C 64
+              at expansion 16, where it splits in 4), each timed beside
+              coder_bwd_tc ("[route]") and beside the same launch at the
+              other side of the split rule ("[split]"), and launches a
+              sweep of 8 at H 512 PAIR_STRESS_REPEATS times bitwise equal
+              (a slot overwritten before it was read would differ). Row 5's
+              coder_bwd_pair row of the kernels line is the body's own
+              device time (torch.profiler, in a process of its own after
+              phase 16: --pair-body), apart from its pre-passes.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too.
@@ -321,9 +342,10 @@ on the grid's z dimension (csrc/coder.cuh, "Splits": rows 25-26 in phase 15
 backwards at N 1 and 8), the split launch, the one held to its plain version
 and repeated bitwise above, is timed beside the same launch unsplit
 (n_split=1), in turns, and both are printed ("[split]" lines).
-Then one JSON line of those pairs ({"splits": [...]}), one of the held
-launches beside coder_bwd_tc ({"routes": [...]}), one JSON line naming each
-kernel (the held passes' launches from phase 6's transcoder slice; the TP
+Then one JSON line of those pairs ({"splits": [...]}), one of the held and
+cluster-pair launches beside coder_bwd_tc ({"routes": [...]}), one JSON line
+naming each kernel (the held passes' launches from phase 6's transcoder
+slice, the cluster pair's from its jumprelu_sae slice; the TP
 rows' summed over the ranks of (b), (c), (g) and (h); the sweep rows' from
 phase 16 (b) and (c)), the nvidia-smi line, and the last line {"ok": true,
 "device": {...}}.
@@ -421,7 +443,7 @@ SOURCES = {
     "fused_matryoshka_sae_fwd": CODER, "fused_matryoshka_sae_bwd": CODER,
     "fused_matryoshka_sae_dx": CODER,
     "fused_jumprelu_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Jump>
-    "fused_jumprelu_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Jump>
+    "fused_jumprelu_sae_bwd": CODER,  # bf16: coder_bwd_pair<Act::Jump> (C <= 256)
     "fused_gated_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Gated>
     "fused_gated_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Gated>
     "fused_transcoder_fwd": CODER, "fused_transcoder_bwd": CODER,
@@ -436,6 +458,9 @@ SOURCES = {
     # the held backward route's two passes (coder_bwd_held), under rows 12 and
     # 24's wrappers (fused_sae.bwd_route)
     "coder_bwd_held_enc": CODER, "coder_bwd_held_dec": CODER,
+    # the cluster-pair backward (coder_bwd_pair), under rows 5, 20 and 32's
+    # wrappers (fused_sae.bwd_route)
+    "coder_bwd_pair": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -470,8 +495,12 @@ REPLACES = {
     # dW_enc and db_enc, or dW_dec and db_dec
     "coder_bwd_held_enc": "sparse_vision_tpu/ops/fused_transcoder.py:91",
     "coder_bwd_held_dec": "sparse_vision_tpu/ops/fused_transcoder.py:91",
+    # the JumpReLU backward kernel's whole function, in two CTAs a latent block
+    "coder_bwd_pair": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:80",
 }
 HELD_KERNELS = fused_transcoder.HELD_PASSES
+PAIR_KERNELS = (fused_jumprelu_sae.pair_kernel,)
+BODY_KERNELS = HELD_KERNELS + PAIR_KERNELS  # counted beside their launching wrappers
 
 
 def log(msg: str) -> None:
@@ -537,18 +566,24 @@ def phase_build() -> None:
         spills = [ln for ln in ptxas if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
         if spills:
             raise AssertionError(f"{name}: ptxas reports register spills: {spills}")
-        held = [k for k in _ptxas_kernels(b["log"]) if "coder_bwd_held" in k[0]]
-        if b["log"] and len(held) != HELD_SOURCES.get(name, 0):
-            raise AssertionError(f"{name}: expected {HELD_SOURCES.get(name, 0)} coder_bwd_held "
-                                 f"instantiations in ptxas's report, found {len(held)}")
-        for kernel, regs, spill in held:
-            log(f"[build]   held route: {regs} registers, {spill} spill bytes: {kernel}")
+        for body, route, counts in (("coder_bwd_held", "held", HELD_SOURCES),
+                                    ("coder_bwd_pair", "pair", PAIR_SOURCES)):
+            found = [k for k in _ptxas_kernels(b["log"]) if body in k[0]]
+            if b["log"] and len(found) != counts.get(name, 0):
+                raise AssertionError(f"{name}: expected {counts.get(name, 0)} {body} "
+                                     f"instantiations in ptxas's report, found {len(found)}")
+            for kernel, regs, spill in found:
+                log(f"[build]   {route} route: {regs} registers, {spill} spill bytes: {kernel}")
+    log(f"[build] pair route: {fused_jumprelu_sae.pair_clusters()} clusters of two CTAs "
+        "resident at once (cudaOccupancyMaxActiveClusters)")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
 
 
 # the held backward route's instantiations a source builds (coder.cuh bwd_held:
 # pass E and pass D, in the coders' source only)
 HELD_SOURCES = {"fused_transcoder": 2}
+# the cluster-pair route's (coder.cuh bwd_pair: Act::Jump, in the JumpReLU source only)
+PAIR_SOURCES = {"fused_jumprelu_sae": 1}
 
 
 # ptxas registers of the coder family's instantiations (nvcc 12.8, sm_90a; this
@@ -644,27 +679,38 @@ SPLIT_REPS = 20  # timed launches a turn: the pairs differ by a few percent at N
 
 
 def _split_pair(name: str, tag: str, launch, t: int, h: int, c_out: int,
-                backward: bool) -> None:
-    """Where grid_split cuts this bf16 launch of one dictionary's (t, h, c_out)
-    into parts (csrc/coder.cuh, "Splits"), time ``launch()`` (the rule's split,
+                backward: bool, pair: bool = False, whole: bool = False) -> None:
+    """Where grid_split cuts this bf16 launch of one dictionary's (t, h, c_out;
+    ``pair``: the cluster-pair backward's grid) into parts (csrc/coder.cuh,
+    "Splits"), time ``launch()`` (the rule's split,
     the launch the checks hold to the plain version) beside
     ``launch(n_split=1)`` (the same launch unsplit) in turns, split, unsplit,
-    unsplit, split, and record both for the splits line."""
+    unsplit, split, and record both for the splits line. Where the rule leaves
+    the launch whole and ``whole`` is set, time it beside ``launch(n_split=2)``
+    the same way (the other side of the rule's boundary)."""
     s = fused_sae.grid_split(t, h, c_out, backward=backward,
-                             n_sm=fused_sae.sm_count(torch.cuda.current_device()))
-    if s == 1:
+                             n_sm=fused_sae.sm_count(torch.cuda.current_device()), pair=pair)
+    if s == 1 and not whole:
         return
+    other = 1 if s > 1 else 2
     first = time_ms(launch, SPLIT_REPS)
-    one = time_ms(lambda: launch(n_split=1), SPLIT_REPS)
-    one += time_ms(lambda: launch(n_split=1), SPLIT_REPS)
-    split_ms = (first + time_ms(launch, SPLIT_REPS)) / 2
-    row = dict(name=name, tag=tag, n_split=s, ms=split_ms, unsplit_ms=one / 2)
-    log(f"[split] {name} [{tag}] n_split {s} ms {split_ms:.3f} unsplit_ms {one / 2:.3f} "
-        f"({one / 2 / split_ms:.2f}x)")
+    alt = time_ms(lambda: launch(n_split=other), SPLIT_REPS)
+    alt += time_ms(lambda: launch(n_split=other), SPLIT_REPS)
+    rule_ms = (first + time_ms(launch, SPLIT_REPS)) / 2
+    if s > 1:
+        row = dict(name=name, tag=tag, n_split=s, ms=rule_ms, unsplit_ms=alt / 2)
+        log(f"[split] {name} [{tag}] n_split {s} ms {rule_ms:.3f} unsplit_ms {alt / 2:.3f} "
+            f"({alt / 2 / rule_ms:.2f}x)")
+    else:
+        row = dict(name=name, tag=tag, n_split=1, ms=rule_ms, unsplit_ms=rule_ms,
+                   split_2_ms=alt / 2)
+        log(f"[split] {name} [{tag}] whole (n_split 1) ms {rule_ms:.3f} n_split 2 ms "
+            f"{alt / 2:.3f} ({alt / 2 / rule_ms:.2f}x)")
     SPLITS.append(row)
 
 
-ROUTES = []  # held launches timed beside coder_bwd_tc on the same launch: the "routes" line
+# held and pair launches timed beside coder_bwd_tc on the same launch: the "routes" line
+ROUTES = []
 HELD_NAMES = {"E": ("dW_enc", "db_enc"), "D": ("dW_dec", "db_dec")}
 
 
@@ -694,16 +740,28 @@ def _held_pair(name: str, tag: str, launch, bops: tuple, ct, timed: bool = True)
             raise AssertionError(f"{name}: held launches on the same inputs differ")
     log(f"[kernels]   {name}: {REPEATS} held launches bitwise equal")
     del first
-    if not timed:
-        return errs
-    held = time_ms(launch, SPLIT_REPS)
+    if timed:
+        _route_timing(name, tag, "held", launch)
+    return errs
+
+
+def _route_timing(name: str, tag: str, route: str, launch) -> None:
+    """``launch()`` (the wrapper's launch, on the body bwd_route gives it:
+    "held" or "pair") timed beside ``launch(route="tc")`` (the same launch on
+    coder_bwd_tc) in turns, route, tc, tc, route, and recorded for the routes
+    line."""
+    ms = time_ms(launch, SPLIT_REPS)
     tc = time_ms(lambda: launch(route="tc"), SPLIT_REPS)
     tc = (tc + time_ms(lambda: launch(route="tc"), SPLIT_REPS)) / 2
-    held = (held + time_ms(launch, SPLIT_REPS)) / 2
-    log(f"[route] {name} [{tag}] held ms {held:.3f} coder_bwd_tc ms {tc:.3f} "
-        f"({tc / held:.2f}x)")
-    ROUTES.append(dict(name=name, tag=tag, route="held", ms=held, tc_ms=tc))
-    return errs
+    ms = (ms + time_ms(launch, SPLIT_REPS)) / 2
+    log(f"[route] {name} [{tag}] {route} ms {ms:.3f} coder_bwd_tc ms {tc:.3f} "
+        f"({tc / ms:.2f}x)")
+    ROUTES.append(dict(name=name, tag=tag, route=route, ms=ms, tc_ms=tc))
+
+
+def _jump_route(cd, c: int) -> str:
+    """The body bwd_route gives a JumpReLU backward of width c in dtype cd."""
+    return fused_sae.bwd_route(c, c, act="jump", dtype=cd)
 
 
 def _held_pass_rows(tag: str, bops: tuple, post, errs: dict) -> dict:
@@ -988,14 +1046,19 @@ def _jumprelu_bwd_library(bops):
     return lambda: (dr @ wd.T, xc.T @ post, post.T @ dr)
 
 
-def kernels_jumprelu(cd, tag: str) -> dict:
+def _jumprelu_ops(cd) -> tuple:
+    """Rows 4 and 5's forward operands at the training shape (seed 0)."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = init_jumprelu_sae(gen, C, H // C)
     x, we, bd = _exact_inputs(gen, T, params["W_enc"])
     x, we, wd = x.to(cd), we.to(cd), params["W_dec"].to(cd).contiguous()
     be = _odd_grid(gen, H, 100)
     thr = 0.5 + torch.rand(H, device=DEVICE, generator=gen)  # pre has std ~2 here
-    ops = (x, we, be, thr, wd, bd)
+    return x, we, be, thr, wd, bd
+
+
+def kernels_jumprelu(cd, tag: str) -> dict:
+    ops = _jumprelu_ops(cd)
     out_p, err = _act_fwd_check(fused_jumprelu_sae, tag, cd, ops)
     rows = {"fused_jumprelu_sae_fwd": _measure(
         "fused_jumprelu_sae_fwd", tag, cd, lambda: fused_jumprelu_sae.fwd_kernel(*ops),
@@ -1005,14 +1068,81 @@ def kernels_jumprelu(cd, tag: str) -> dict:
 
     del out_p
     bops = _jumprelu_bwd_operands(ops, T, C)
-    g_p, err = _act_bwd_check(fused_jumprelu_sae, tag, cd, bops, JUMPRELU_GRADS)
+    pair = _jump_route(cd, C) == "pair"
+    g_p, err = _act_bwd_check(fused_jumprelu_sae, tag, cd, bops, JUMPRELU_GRADS,
+                              REPEATS if pair else 2)
     moved = nbytes(*bops[:-1]) + nbytes(*g_p)
     del g_p
+    bwd = fused_jumprelu_sae.bwd_kernel
     rows["fused_jumprelu_sae_bwd"] = _measure(
-        "fused_jumprelu_sae_bwd", tag, cd, lambda: fused_jumprelu_sae.bwd_kernel(*bops),
+        "fused_jumprelu_sae_bwd", tag, cd, lambda: bwd(*bops),
         lambda: fused_jumprelu_sae.backward_plain(*bops), _jumprelu_bwd_library(bops),
         8.0 * T * C * H, moved, err)
+    if pair:  # row 5's launch runs coder_bwd_pair: its row comes last (pair_body_row)
+        _route_timing(bwd.name, tag, "pair", lambda **kw: bwd(*bops, **kw))
     return rows
+
+
+def _body_ms(launch, body: str, reps: int) -> float:
+    """Mean device time a call of the kernel whose name holds ``body``, over
+    ``reps`` calls of ``launch()`` (which launches it once beside other
+    kernels: the pre-passes) under torch.profiler: the body's own time. The
+    profiler can drop an event (its time and its count go together, so the
+    mean holds), but not half of them."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    launch()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and body in e.key]
+    n = sum(e.count for e in hits)
+    if not reps / 2 <= n <= reps:
+        raise AssertionError(f"{body}: {n} launches traced in {reps} calls")
+    return sum(e.self_device_time_total for e in hits) / n / 1e3
+
+
+def _pair_body_ms_here() -> float:
+    """coder_bwd_pair's own device time at row 5's launch, by this process's
+    first torch.profiler session."""
+    bops = _jumprelu_bwd_operands(_jumprelu_ops(torch.bfloat16), T, C)
+    with torch.no_grad():
+        return _body_ms(lambda: fused_jumprelu_sae.bwd_kernel(*bops), "coder_bwd_pair<", REPS)
+
+
+def pair_body_row(rows: dict) -> None:
+    """The kernels line's row of coder_bwd_pair at row 5's launch, where
+    bwd_route gives row 5 the pair, into ``rows``: its own device time
+    (torch.profiler, apart from center_kernel and scale_err_kernel, which the
+    wrapper's row includes), its bound (8·T·C·H FLOP; x_cent and the scaled
+    err read once, both W tiles, b_enc and θ, the gradients and db_dec's
+    centring rows written once), and the plain version's and the library's
+    times from the wrapper's row, which computes the same function. The time
+    comes from a process of its own (this script with --pair-body): in one
+    process a second profiler session lost events on the card, before phase
+    14's traced epoch (which counts its launches exactly) and after it."""
+    if _jump_route(torch.bfloat16, C) != "pair":
+        return
+    wrapper = rows["fused_jumprelu_sae_bwd"]
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--pair-body"],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"--pair-body failed ({out.returncode}):\n{out.stdout[-2000:]}"
+                             f"{out.stderr[-4000:]}")
+    ms = json.loads(out.stdout.strip().splitlines()[-1])["pair_body_ms"]
+    # bf16 x_cent, err, W_enc and W_dec; f32 b_enc, θ, the gradients, db_enc,
+    # dθ and the centring rows
+    moved = 2 * (2 * T * C + 2 * C * H) + 4 * (2 * H + 2 * C * H + 2 * H + H // 64 * C)
+    b_ms, b_by = bound(8.0 * T * C * H, moved, torch.bfloat16)
+    log(f"[kernels] coder_bwd_pair [bf16] ms {ms:.3f} (torch.profiler; the wrapper "
+        f"{wrapper['ms']:.3f}) bound_ms {b_ms:.4f} ({b_by})")
+    rows["coder_bwd_pair"] = dict(wrapper, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                  tflops=8.0 * T * C * H / ms / 1e9)
 
 
 def _jumprelu_bwd_operands(ops, t: int, c: int):
@@ -1234,7 +1364,9 @@ def kernels_act_widths(cd, tag: str) -> dict:
         jf = (x, we, _odd_grid(gen, h, 100), thr, wd, bd)
         jp, _ = _act_fwd_check(fused_jumprelu_sae, tag, cd, jf, repeats, label)
         jops = _jumprelu_bwd_operands(jf, t, c)
-        _act_bwd_check(fused_jumprelu_sae, tag, cd, jops, JUMPRELU_GRADS, repeats, label)
+        # the cluster pair (C <= 256 in bf16: the ragged shape) repeats REPEATS times
+        _act_bwd_check(fused_jumprelu_sae, tag, cd, jops, JUMPRELU_GRADS,
+                       REPEATS if _jump_route(cd, c) == "pair" else repeats, label)
         er = torch.exp(0.1 * torch.randn(h, device=DEVICE, generator=gen))
         gf = (x, we, _odd_grid(gen, h, 100), _odd_grid(gen, h, 60), er, wd, bd)
         gp, _ = _act_fwd_check(fused_gated_sae, tag, cd, gf, repeats, label)
@@ -1256,6 +1388,86 @@ def kernels_act_widths(cd, tag: str) -> dict:
                          flops, 0, 0.0)
         del jp, gp, jops, gops
         torch.cuda.empty_cache()
+    return {}
+
+
+PAIR_SPLIT_T = 2176  # the cluster pair's split check: 5 token steps, split in 2 at H 640
+# the pair's route at the widths below 256 that the repo's backbones give it, at
+# phase 3's T and expansion 64: GoogLeNet's conv2d0 (C 64) and conv2d2 (C 192,
+# vit_tiny's width too); and C 64 at expansion 16, where its grid of 32 CTAs
+# splits in 4: (T, C, H)
+PAIR_WIDTHS = ((T, 64, 4096), (T, 192, 12288), (T, 64, 1024))
+# a sweep of short sweeps (N 8 at T 4,096, H 512: 16 CTAs a combo, split in 4
+# by the rule, eight 64-token sub-steps a warpgroup), where the exchange
+# slots turn over most often for the work done: a slot that a sender
+# overwrote before its receiver had read it (coder.cuh, mbar_arrive_peer's
+# CTA-scope release) would show as launches that differ; launched this many
+# times bitwise equal
+PAIR_STRESS = (8, 4096, 256, 512)  # N, T, C, H
+PAIR_STRESS_REPEATS = 100
+
+
+class _Split:
+    """A backward wrapper launched at a fixed ``n_split``, under its own name."""
+
+    def __init__(self, kernel, n_split: int):
+        self.kernel, self.n_split, self.name = kernel, n_split, kernel.name
+
+    def __call__(self, *args, **kw):
+        return self.kernel(*args, n_split=self.n_split, **kw)
+
+
+def _pair_ops(gen, t: int, c: int, h: int, cd) -> tuple:
+    """JumpReLU backward operands at (t, c, h) on _exact_inputs' grid."""
+    w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
+    x, we, bd = _exact_inputs(gen, t, w)
+    wd = (torch.randn(h, c, device=DEVICE, generator=gen) / h ** 0.5).to(cd)
+    thr = 0.5 + torch.rand(h, device=DEVICE, generator=gen)  # pre has std ~2 here
+    return _jumprelu_bwd_operands((x.to(cd), we.to(cd), _odd_grid(gen, h, 100), thr, wd, bd),
+                                  t, c)
+
+
+def kernels_pair_shapes(cd, tag: str) -> dict:
+    """The JumpReLU backward where bwd_route gives it the cluster pair (bf16, C
+    <= 256), each launch held to the plain version; no rows:
+    - T 2,176 (five 512-token steps, the last a partial one), C 136, H 640
+      (RAGGED_C, RAGGED_H): the rule's split launch (in 2: the second split's
+      steps end in the partial one) and the same launch unsplit, REPEATS
+      launches bitwise equal each;
+    - PAIR_WIDTHS: two bitwise-equal launches, timed beside coder_bwd_tc on
+      the same launch ("[route]") and beside the same launch at another split
+      ("[split]": unsplit where the rule splits, split in 2 where it does not);
+    - PAIR_STRESS: the sweep launch PAIR_STRESS_REPEATS times bitwise equal,
+      each combo bitwise its one-dictionary launch, against the plain version."""
+    t, h, c = PAIR_SPLIT_T, RAGGED_H, RAGGED_C
+    if _jump_route(cd, c) != "pair":
+        return {}
+    gen = torch.Generator(device=DEVICE).manual_seed(c + 1)
+    jops = _pair_ops(gen, t, c, h, cd)
+    n_sm = fused_sae.sm_count(torch.cuda.current_device())
+    s = fused_sae.grid_split(t, h, c, backward=True, pair=True, n_sm=n_sm)
+    if s == 1:
+        raise AssertionError(f"the pair's split check does not split at T={t} H={h}")
+    for n_split in (s, 1):
+        _act_bwd_check(fused_jumprelu_sae, tag, cd, jops, JUMPRELU_GRADS, REPEATS,
+                       f", C={c} T={t} H={h}, n_split {n_split}",
+                       kernel=_Split(fused_jumprelu_sae.bwd_kernel, n_split))
+    del jops
+    bwd = fused_jumprelu_sae.bwd_kernel
+    for t, c, h in PAIR_WIDTHS:
+        if _jump_route(cd, c) != "pair":
+            raise AssertionError(f"bwd_route does not give C {c} the pair")
+        jops = _pair_ops(gen, t, c, h, cd)
+        label = f"C={c} T={t} H={h}"
+        _act_bwd_check(fused_jumprelu_sae, tag, cd, jops, JUMPRELU_GRADS, 2, ", " + label)
+        launch = lambda **kw: bwd(*jops, **kw)  # noqa: E731
+        _route_timing(bwd.name, f"{tag}, {label}", "pair", launch)
+        _split_pair(bwd.name, f"{tag}, {label}", launch, t, h, c, True, pair=True, whole=True)
+        del jops
+        torch.cuda.empty_cache()
+    n, t, c, h = PAIR_STRESS
+    _sweep_kernel_check("jumprelu_sae", cd, n, t, c, h, timed=False,
+                        repeats=PAIR_STRESS_REPEATS)
     return {}
 
 
@@ -1423,7 +1635,8 @@ def phase_kernels() -> dict:
     for cd, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for fn in (kernels_relu, kernels_relu_dx, kernels_gated, kernels_jumprelu,
                    kernels_matryoshka, kernels_sae_widths, kernels_act_widths,
-                   kernels_coder_ragged, kernels_transcoder, kernels_crosscoder):
+                   kernels_pair_shapes, kernels_coder_ragged, kernels_transcoder,
+                   kernels_crosscoder):
             with torch.no_grad():
                 r = fn(cd, tag)
             torch.cuda.empty_cache()  # the plain versions' [T, H] temporaries
@@ -1764,7 +1977,7 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     if on_pipeline is not None:
         on_pipeline(pipe)
     before = {k: v.clone() for k, v in pipe.ts.params.items()}
-    for k in KERNELS + HELD_KERNELS:
+    for k in KERNELS + BODY_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     if profile:
@@ -1779,7 +1992,7 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     else:
         pipe.train_sae()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in KERNELS + HELD_KERNELS}
+    launches = {k.name: k.launches for k in KERNELS + BODY_KERNELS}
     log(f"[slice {name_log}] train_sae (dump, 12 steps, 2 evals) in {wall:.1f} s; "
         f"launches {launches}")
 
@@ -1819,8 +2032,14 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     held = name == "transcoder" and fused_sae.bwd_route(
         pipe.ts.params["W_enc"].shape[0], pipe.ts.params["W_dec"].shape[-1],
         dtype=cfg.compute_dtype) == "held"
-    for k in KERNELS + HELD_KERNELS:
-        want = 12 if k in trained or (held and k in HELD_KERNELS) else 0
+    # and the cluster pair under the JumpReLU backward where it gives its width the pair
+    pair = False
+    if name == "jumprelu_sae":
+        c = pipe.ts.params["W_enc"].shape[0]
+        pair = fused_sae.bwd_route(c, c, act="jump", dtype=cfg.compute_dtype) == "pair"
+    for k in KERNELS + BODY_KERNELS:
+        want = 12 if (k in trained or (held and k in HELD_KERNELS)
+                      or (pair and k in PAIR_KERNELS)) else 0
         if launches[k.name] != want:
             raise AssertionError(f"{name_log}: expected {want} launches of {k.name}, got "
                                  f"{launches[k.name]}")
@@ -4876,13 +5095,16 @@ def _tp_jumprelu_rows(cd, label: str) -> dict:
                                 nbytes(*ops) + nbytes(*out_p[:3]) + 4, err)}
     del out_p
     bops = _jumprelu_bwd_operands(ops, t, c)
+    pair = _jump_route(cd, c) == "pair"
     g_p, err = _act_bwd_check(fused_jumprelu_sae, "mesh, " + label, cd, bops, JUMPRELU_GRADS,
-                              kernel=jbwd)
+                              REPEATS if pair else 2, kernel=jbwd)
     moved = nbytes(*bops[:-1]) + nbytes(*g_p)
     del g_p
     rows[jbwd.name] = _measure(jbwd.name, label, cd, lambda: jbwd(*bops),
                                lambda: fused_jumprelu_sae.backward_plain(*bops),
                                _jumprelu_bwd_library(bops), 8.0 * t * c * h, moved, err)
+    if pair:
+        _route_timing(jbwd.name, label, "pair", lambda **kw: jbwd(*bops, **kw))
     return rows
 
 
@@ -5730,10 +5952,14 @@ def _sweep_kernel_check(name: str, cd, n: int, t: int, c: int, h: int, timed: bo
                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                                    tflops=n * f / ms / 1e9, n_combo=n)
             if cd == torch.bfloat16 and n == SW_ROW_N:
-                _split_pair(kern.name, tag, lambda **kw: kern(*args, **kw), t, h, c, backward)
+                pair = backward and name == "jumprelu_sae" and _jump_route(cd, c) == "pair"
+                _split_pair(kern.name, tag, lambda **kw: kern(*args, **kw), t, h, c, backward,
+                            pair)
                 _split_pair(single.name, f"{tag}, combo 0 alone",
                             lambda **kw: single(*_combo(args, 0, shared), **kw), t, h, c,
-                            backward)
+                            backward, pair)
+                if pair:  # row 32: the cluster pair beside coder_bwd_tc
+                    _route_timing(kern.name, tag, "pair", lambda **kw: kern(*args, **kw))
         del got, plain
     torch.cuda.empty_cache()
     return rows
@@ -5996,7 +6222,13 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the slices with torch.profiler (slows them; times are then "
                          "not clean)")
+    ap.add_argument("--pair-body", action="store_true",
+                    help="print coder_bwd_pair's own device time at row 5's launch as one "
+                         "JSON line and exit (the kernels line's row, from a fresh process)")
     args = ap.parse_args()
+    if args.pair_body:
+        print(json.dumps({"pair_body_ms": _pair_body_ms_here()}))
+        return 0
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -6023,13 +6255,14 @@ def main() -> int:
     phase_finish(smi)
     tp_rows = phase_mesh(smi)
     sweep_rows, sweep_launches = phase_sweep(smi, sae_ref)
+    pair_body_row(rows)
     log(f"[smoke] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"splits": SPLITS}))
     print(json.dumps({"routes": ROUTES}))
     kernels = [
         {"name": k.name, "route": "cuda", "source": SOURCES[k.name],
          "replaces": REPLACES[k.name], "launches": launches.get(k.name, 0), **rows[k.name]}
-        for k in KERNELS + HELD_KERNELS
+        for k in KERNELS + BODY_KERNELS
     ] + [{"name": k.name, "route": "cuda", "source": SOURCES[k.name],
           "replaces": REPLACES[k.name], **tp_rows[k.name]}
          for k in TP_KERNELS + CODER_TP_KERNELS] + [

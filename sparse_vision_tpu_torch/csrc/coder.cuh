@@ -90,8 +90,10 @@
 //     shared memory), coder_fwd_tc (wider: the crosscoder, SAEs at C 528-1,024;
 //     230,960 bytes), coder_bwd_tc and, for the transcoder's widths (Cin <= 256
 //     < Cout <= 512; ops/fused_sae.bwd_route), coder_bwd_held's two passes,
-//     256 threads = two warpgroups, up to 255 registers a thread and no spills
-//     (chip_smoke.py's build phase checks).
+//     and for the JumpReLU SAE's at C <= 256 coder_bwd_pair (two CTAs of a
+//     thread block cluster a latent block), 256 threads = two warpgroups, up to
+//     255 registers a thread and no spills (chip_smoke.py's build phase
+//     checks).
 //     Every product runs on the tensor cores as
 //     wgmma.mma_async m64n64k16 (bf16 in, f32 accumulators in registers), B
 //     always and A mostly read straight from shared memory through wgmma
@@ -193,6 +195,15 @@
 //     memory; the ring streams x and err only (pass E x twice). At a (2, 2)
 //     rank's transcoder shard 1.10x coder_bwd_tc (PERF.md's kernel table); at C 256
 //     (the SAEs) no faster, so those keep coder_bwd_tc.
+//   coder_bwd_pair (the JumpReLU SAE at C <= 256): a latent block is a cluster
+//     of two CTAs, E holding dW_enc [C, 64] and D dW_dec^T [C, 64], each
+//     warpgroup its own tile of every other 64-token sub-step (128 registers a
+//     thread); E sends round_bf16(post) and the mask and window bits, D sends
+//     round_bf16(dpre) back, by bulk copies into the peer's shared memory.
+//     Each tile is written once and each rank reads its token tiles once (E
+//     x, D err), its W tile resident: ~T*C*2 bytes a rank from L2 where
+//     coder_bwd_tc reads ~5*T*C*2. 1.4-1.7x coder_bwd_tc at rows 5, 20 and 32
+//     (PERF.md's kernel table).
 // Blocks stream the same tiles in step, so each comes from device memory about
 // once a wave and from L2 after that.
 
@@ -1130,6 +1141,20 @@ constexpr int kHeldMinCout = 256;      // at C_out <= 256 coder_bwd_tc is as fas
 constexpr int kHeldSets = 2;           // A-fragment sets of the register-A products
 constexpr int kHeldSt = 4;             // ring depth
 constexpr int kHeldSlot = 2 * kBox;    // x or err [128][64], or a box pair [64][128]
+// backward, cluster pair (coder_bwd_pair): two CTAs share a latent block, E
+// holding dW_enc and D dW_dec; each warpgroup runs every other sub-step of
+// kPairTU tokens on its own ring, messages and barriers, trading post^T and the
+// JumpReLU bits (E -> D) and dpre^T (D -> E) with the peer's warpgroup of the
+// same parity, each a message of [64 latents][64 tokens] bf16 (a [64][64] box),
+// E's with two words of bits a thread after it
+constexpr int kPairCmax = 256;         // widest C: dW tile [256][64] f32, 128 registers a thread
+constexpr int kPairTU = 64;            // tokens per sub-step
+constexpr int kPairSt = 2;             // ring depth a warpgroup: token tiles [64][C]
+constexpr int kPairLag = 1;            // sub-steps (a warpgroup's) E's encode runs ahead of dW_enc
+constexpr int kPairRecv = 2;           // receive slots a warpgroup and direction
+constexpr int kPairSlot = kPairCmax / 64 * kBox;      // a token tile: up to four [64][64] boxes
+constexpr int kPairMsg = kBox + 8 * kThreads / 2;     // post^T and the bits: 9,216 bytes
+constexpr int kPairBars = 2 * kPairSt + 2 * kPairRecv + 2;  // mbarriers a warpgroup
 
 // the leading 1,024 bytes leave room to align the swizzled tiles; the mbarriers
 // (full and empty, one each per ring slot) come last
@@ -1152,8 +1177,17 @@ constexpr size_t held_smem_bytes(bool dec) {
   return 1024 + kHeldSt * kHeldSlot + (kHeldCin + (dec ? 0 : kHeldCout)) / 64 * kBox +
          kTcBwdTS * kSwRow + 2 * sizeof(float) * kTcBwdTH + 16 * kHeldSt + 8;
 }
+// per warpgroup its ring, receive slots and staging buffer; the resident W tile
+// (E: W_enc [C][64], D: W_dec [64][C], as [64][64] boxes); b_enc, theta and
+// -theta/eps; the mbarriers (per warpgroup the ring's, a receive slot's full
+// and the peer slot's empty, staged and stage_free; the W tile's)
+constexpr size_t pair_smem_bytes() {
+  return 1024 + 2 * (kPairSt * kPairSlot + (kPairRecv + 1) * kPairMsg) + kPairCmax / 64 * kBox +
+         3 * sizeof(float) * kTcBwdTH + 8 * (2 * kPairBars + 1);
+}
 static_assert(fwd_tc_smem_bytes() <= 232448 && hold_smem_bytes(2) <= 232448 &&
-                  bwd_tc_smem_bytes(3) <= 232448 && held_smem_bytes(false) <= 232448,
+                  bwd_tc_smem_bytes(3) <= 232448 && held_smem_bytes(false) <= 232448 &&
+                  pair_smem_bytes() <= 232448,
               "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1196,6 +1230,44 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (first) start = now;
     else if (now - start > 10000000000ull) __trap();
   }
+}
+
+// Thread block clusters (coder_bwd_pair): this CTA's rank, the shared::cluster
+// address of ``p``'s place in CTA ``rank``'s shared memory, a barrier of every
+// thread of the cluster, an arrival on a barrier of the peer. The arrival has
+// the default semantics (release at CTA scope), as CUTLASS's consumers release a
+// peer's slot: at release.cluster the pair runs slower (chip_bwd_probe.py's
+// pair_release_cluster; PERF.md).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// ``bytes`` of this CTA's shared memory at src into the peer's at dst (both
+// 16-byte aligned), counted on the peer's barrier bar (complete_tx)
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\ncp.async.bulk.commit_group;\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// wait until every bulk copy this thread issued has read its source
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // TMA: box (col, row) of combo ``combo``'s matrix (blockIdx.y's by default) in
@@ -2226,10 +2298,11 @@ __device__ __forceinline__ bool last_ticket(int* ticket, int* flag) {
 // of the latent block (the ints after the rows, [N][H / 64]). The split that
 // draws the last ticket returns true, with s[q] the sums of every split added
 // in split order; the others return false (every thread of a block alike).
-// ``flag`` is an int of shared memory.
+// ``flag`` is an int of shared memory; ``gx`` the latent blocks of one
+// dictionary where the grid's x is not (coder_bwd_pair: two CTAs a block).
 template <int kN>
 __device__ __forceinline__ bool last_split(float (&s)[kN], float* ws, int H, const BwdBlock& b,
-                                           int* flag) {
+                                           int* flag, int gx = 0) {
   const int tid = threadIdx.x, h0 = b.x * kTcBwdTH;
   const long n = gridDim.y, rows = static_cast<long>(gridDim.z) * n * kSplitSums * H;
   auto at = [&](long split, int q) {
@@ -2238,7 +2311,8 @@ __device__ __forceinline__ bool last_split(float (&s)[kN], float* ws, int H, con
   if (tid < kTcBwdTH)
 #pragma unroll
     for (int q = 0; q < kN; ++q) *at(b.split, q) = s[q];
-  if (!last_ticket(reinterpret_cast<int*>(ws + rows) + b.combo * gridDim.x + b.x, flag))
+  if (!last_ticket(reinterpret_cast<int*>(ws + rows) + b.combo * (gx ? gx : gridDim.x) + b.x,
+                   flag))
     return false;
   if (tid < kTcBwdTH)
 #pragma unroll
@@ -3063,6 +3137,419 @@ coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   }
 }
 
+// Backward, bf16, cluster pair: the route of ops/fused_sae.bwd_route for a
+// one-level JumpReLU backward with C <= kPairCmax (rows 5, 20 and 32). Two CTAs
+// of a thread block cluster own one 64-latent block, so the block has two SMs'
+// registers: rank 0, "E", holds dW_enc [C][64] and rank 1, "D", dW_dec^T
+// [C][64] for the whole token sweep and writes it once. Each rank keeps its W
+// tile resident (E: W_enc [C][64], D: W_dec [64][C]) and streams its token
+// tiles once (E: x_cent, D: round_bf16(c_rec * err) from scale_err_kernel),
+// [64 tokens][C] a sub-step. Warpgroup w of each rank takes the sub-steps u = w
+// (mod 2) on a ring, messages and mbarriers of its own and holds its own
+// gradient tile (four m64 accumulators, 128 f32 registers a thread): the two
+// warpgroups run out of step, so one's products overlap the other's epilogue
+// and exchange. Per sub-step u of warpgroup w (every product m64n64, 64 deep):
+//   E: pre^T = W_enc tile^T @ x_u^T + b_enc [64 latents][64 tokens] (f32), the
+//      JumpReLU tests on that f32 pre (mask pre > theta, window |pre - theta|
+//      <= eps/2, two words of bits a thread) and round_bf16(post^T), staged and
+//      sent to D's warpgroup w by one bulk copy (cp.async.bulk shared::cta ->
+//      shared::cluster, complete_tx on D's barrier); then, kPairLag of its
+//      sub-steps behind, dW_enc += x_u^T @ round_bf16(dpre_u) once D's dpre^T
+//      has arrived.
+//   D: dpost^T = W_dec tile @ err_u^T (f32), then on E's message dpre = mask ?
+//      dpost : 0 (no L1 cotangent), the per-latent sums of dpre (db_enc) and of
+//      win * (dpost * (-theta/eps) + c_l0 * (-1/eps)) (dtheta), round_bf16(
+//      dpre^T) sent back to E's warpgroup w; then dW_dec^T += err_u^T @
+//      round_bf16(post_u).
+// The mask and window come from E's f32 pre: D never re-derives them. Each
+// receive slot has a full barrier in the receiver (armed by its warpgroup's
+// first thread for the message's bytes) and an empty barrier in the sender
+// (the receiving warpgroup's four warps arrive remotely once done with the
+// slot); the staging buffer is refilled only after its copy has read it
+// (stage_free). No __syncthreads in the sweep: the rings', slots' and staging
+// buffers' mbarriers order everything. 8*T*C*H FLOP, nothing recomputed.
+// Sub-steps of 64 tokens: E holds a token tile from its encode to its dW_enc
+// product, a sub-step of its warpgroup later, and a tile of 128 tokens is 64 KB
+// at C 256: two warpgroups' rings of two would not fit beside the W tile.
+// Combos and splits are coder_bwd_tc's (pair_block; grid (2 * H / 64, N, s)):
+// E's split partials and tickets (the second [N][H / 64] array of split_ws) for
+// dW_enc, D's for dW_dec with the per-latent sums (last_split), and the last
+// split of each adds the others' tiles in split order. D writes db_enc, dtheta
+// and db_dec's centring row (W_enc from device memory, as coder_bwd_tc). Both
+// ranks meet at a cluster barrier after the sweep, before which every remote
+// access is done. Sums in a fixed order: each warpgroup's tile sums its
+// sub-steps in f32, then warpgroup 0's tile plus warpgroup 1's; the per-latent
+// sums add a thread's tokens of each sub-step, then the sweep, then the four
+// lanes and two warpgroups of a latent. Repeat launches give the same bits,
+// though not coder_bwd_tc's (which adds dW per 512-token step).
+__device__ __forceinline__ BwdBlock pair_block() {
+  const int s = gridDim.z, gx = gridDim.x / 2;
+  const int i = blockIdx.x / 2 + gx * (blockIdx.y + gridDim.y * blockIdx.z);
+  return {i / s % gx, i / s / gx, i % s};
+}
+
+template <Act kAct>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
+               const __grid_constant__ CUtensorMap m_wd,
+               const __grid_constant__ CUtensorMap m_err, const float* __restrict__ b_enc,
+               const float* __restrict__ coeffs, float* __restrict__ dw_enc,
+               float* __restrict__ db_enc, float* __restrict__ dw_dec, int n_tokens, int C,
+               int H, const SaeBwd sae, float* __restrict__ split_ws) {
+  static_assert(kAct == Act::Jump, "the pair's epilogue is the JumpReLU SAE's");
+  constexpr int TH = kTcBwdTH, TU = kPairTU, TS = kTcBwdTS, St = kPairSt, L = kPairLag;
+  constexpr int R = kPairRecv, NQ = kPairCmax / 64;  // NQ: held m64 tiles, a channel box each
+  extern __shared__ __align__(1024) unsigned char tc_smem_pair[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wg = warp / 4, w4 = warp % 4, wtid = tid % 128;  // warpgroup, warp and thread in it
+  const bool first = wtid == 0;  // the warpgroup's producer and sender
+  // this warpgroup's ring [St] and messages (receive slots [R], then the staging
+  // buffer), then the W tile, the per-latent vectors, the mbarriers
+  unsigned char* base = align1024(tc_smem_pair);
+  constexpr int kPart = St * kPairSlot + (R + 1) * kPairMsg;  // a warpgroup's buffers
+  unsigned char* ring = base + wg * kPart;
+  unsigned char* recv_s = ring + St * kPairSlot;
+  unsigned char* stage_s = recv_s + R * kPairMsg;
+  unsigned char* w_s = base + 2 * kPart;
+  float* benc_s = reinterpret_cast<float*>(w_s + NQ * kBox);  // [TH] b_enc
+  float* th_s = benc_s + TH;                                    // [TH] theta
+  float* v2_s = th_s + TH;                                      // [TH] -theta/eps
+  uint64_t* bars0 = reinterpret_cast<uint64_t*>(v2_s + TH);     // [2][kPairBars], then w_full
+  uint64_t* full = bars0 + wg * kPairBars;
+  uint64_t* empty = full + St;
+  uint64_t* recv_full = empty + St;      // [R] a receive slot's message has arrived
+  uint64_t* send_empty = recv_full + R;  // [R] the peer's warpgroup is done with its slot
+  uint64_t* staged = send_empty + R;     // the warpgroup has written the message out
+  uint64_t* stage_free = staged + 1;     // its copy has read the staging buffer
+  uint64_t* w_full = bars0 + 2 * kPairBars;
+
+  const uint32_t rank = cluster_rank();
+  const bool enc = rank == 0;
+  const BwdBlock blk = pair_block();  // latent block, combo, split
+  const int h0 = blk.x * TH, cb = blk.combo, gx = gridDim.x / 2;
+  const int nk = (C + 63) / 64;
+  const int n_steps = (n_tokens + TS - 1) / TS, n_split = gridDim.z;
+  const int t_lo = blk.split * n_steps / n_split * TS;
+  const int t_hi = min(n_tokens, (blk.split + 1) * n_steps / n_split * TS);
+  const int n_sub = (t_hi - t_lo) / TU;       // at least 2: T is a multiple of 128
+  const int n_mine = (n_sub - wg + 1) / 2;    // this warpgroup's: u = wg + 2j
+  const uint32_t in_bytes = enc ? kBox : kPairMsg, out_bytes = enc ? kPairMsg : kBox;
+  if (tid < TH) {
+    benc_s[tid] = combo_part(b_enc, H, cb)[h0 + tid];
+    const float th = combo_part(sae.act.theta, H, cb)[h0 + tid];
+    th_s[tid] = th;
+    v2_s[tid] = __fdiv_rn(-th, sae.act.eps);
+  }
+  if (first) {
+    for (int k = 0; k < R; ++k) {
+      mbar_init(&recv_full[k], 1);
+      mbar_init(&send_empty[k], 4);
+    }
+    mbar_init(staged, 128);
+    mbar_init(stage_free, 1);
+    for (int s = 0; s < St; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    if (wg == 0) mbar_init(w_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < min(R, n_mine); ++k) mbar_expect_tx(&recv_full[k], in_bytes);
+  }
+  cluster_sync();  // both CTAs' barriers are initialised before any remote arrive or copy
+
+  // the W tile, loaded once, and this warpgroup's token tiles (its first
+  // thread): its tile j (sub-step wg + 2j, x or err, one [64][64] box a 64
+  // channels) into its slot j % St once its warps have released the tile before
+  const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd, *merr = &m_err;  // param space
+  if (tid == 0) {
+    mbar_expect_tx(w_full, nk * kBox);
+    for (int q = 0; q < nk; ++q) {
+      if (enc) tma_box(w_s + q * kBox, mwe, w_full, h0, q * 64, cb);  // W_enc [64 ch][64 lat]
+      else tma_box(w_s + q * kBox, mwd, w_full, q * 64, h0, cb);      // W_dec [64 lat][64 ch]
+    }
+  }
+  auto issue = [&](int j) {
+    if (!first || j >= n_mine) return;
+    const int s = j % St;
+    mbar_wait(&empty[s], ((j / St) & 1) ^ 1);  // the first round passes
+    mbar_expect_tx(&full[s], nk * kBox);
+    unsigned char* d = ring + s * kPairSlot;
+    const int row = t_lo + (wg + 2 * j) * TU;
+    for (int q = 0; q < nk; ++q) {  // a branch, not a select of the two maps (coder_bwd_tc)
+      if (enc) tma_box(d + q * kBox, mx, &full[s], q * 64, row, cb);
+      else tma_box(d + q * kBox, merr, &full[s], q * 64, row, cb);
+    }
+  };
+  for (int j = 0; j < St; ++j) issue(j);
+  // the peer's receive slots and full barriers of this warpgroup's messages out,
+  // and the peer's empty barriers of the slots this warpgroup receives into
+  const uint32_t peer_recv = cluster_addr(recv_s, rank ^ 1);
+  const uint32_t peer_full = cluster_addr(recv_full, rank ^ 1);
+  const uint32_t peer_empty = cluster_addr(send_empty, rank ^ 1);
+  const uint32_t w_a = smem_u32(w_s);
+  mbar_wait(w_full, 0);
+
+  // pre^T (E) or dpost^T (D) of tile j: acc[j][2h + e] is latent 16*w4 +
+  // lane/4 + 8h, token 8j + 2*(lane%4) + e of the sub-step
+  auto transposed = [&](float (&acc)[8][4], int j) {
+    mbar_wait(&full[j % St], (j / St) & 1);
+    const uint32_t t = smem_u32(ring + (j % St) * kPairSlot);
+    wg_fence();
+    for (int q = 0; q < nk; ++q)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // B: the tile's box q [64 tokens (N)][64 channels (K)], K-major
+        const uint64_t b = sw128_desc(t + q * kBox + kk * 32);
+        if (enc)  // A: W_enc box q [64 ch (K)][64 lat (M)], MN-major
+          wgmma_ss<1, 0>(acc, sw128_desc(w_a + q * kBox + kk * 16 * kSwRow), b, q + kk > 0);
+        else  // A: W_dec box q [64 lat (M)][64 ch (K)], K-major
+          wgmma_ss<0, 0>(acc, sw128_desc(w_a + q * kBox + kk * 32), b, q + kk > 0);
+      }
+    wg_commit();
+    wg_wait<0>();
+  };
+  // the held tile: g[q][j][2h + e] is channel 64*q + 16*w4 + lane/4 + 8h (E: a
+  // row of dW_enc; D: a column of dW_dec), latent h0 + 8j + 2*(lane%4) + e;
+  // g[q] += (tile j's box q)^T @ msg^T, msg the received [64 latents][64
+  // tokens] (K-major B)
+  float g[NQ][8][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) g[q][j][i] = 0.f;
+  auto held = [&](int j, const unsigned char* msg) {
+    const uint32_t t = smem_u32(ring + (j % St) * kPairSlot), m = smem_u32(msg);
+    wg_fence();
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      if (q < nk)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, 0>(g[q], sw128_desc(t + q * kBox + kk * 16 * kSwRow),
+                         sw128_desc(m + kk * 32), true);
+    wg_commit();
+    wg_wait<0>();
+  };
+  // the message of this warpgroup's sub-step j out: before its threads write
+  // the staging buffer, the copy of sub-step j - 1 has read it; after, the
+  // first thread sends it into the peer's slot j % R once the peer is done
+  // with that slot
+  auto stage_begin = [&](int j) {
+    if (j == 0) return;
+    if (first) {
+      bulk_wait_read();
+      mbar_arrive(stage_free);
+    }
+    mbar_wait(stage_free, (j - 1) & 1);
+  };
+  auto stage_end = [&](int j) {
+    fence_async_smem();  // this thread's writes before the copy's (async proxy) reads
+    mbar_arrive(staged);
+    if (first) {
+      mbar_wait(staged, j & 1);
+      mbar_wait(&send_empty[j % R], ((j / R) & 1) ^ 1);  // the first round passes
+      bulk_to_peer(peer_recv + (j % R) * kPairMsg, stage_s, out_bytes, peer_full + (j % R) * 8);
+    }
+  };
+  // a received message's slot, once this warpgroup's warps are done with it:
+  // the peer's next message there may come; and tile j's ring slot, refilled
+  auto release = [&](int j) {
+    if (!enc) fence_async_smem();  // D's generic reads of the slot (the bits) before the next copy
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive_peer(peer_empty + (j % R) * 8);
+      mbar_arrive(&empty[j % St]);
+    }
+    issue(j + St);
+  };
+  const int lat = 16 * w4 + lane / 4;  // this thread's latents lat, lat + 8 in the block
+  const uint32_t out_o = (lane % 4) * 4;  // its bf16 pairs' bytes in a 16-byte chunk
+  // D: the per-latent sums of latents lat + 8h over this thread's tokens
+  float sb[2] = {0.f, 0.f}, st[2] = {0.f, 0.f};
+
+  if (enc) {
+    for (int i = 0; i < n_mine + L; ++i) {
+      if (i < n_mine) {
+        float acc[8][4];
+        transposed(acc, i);
+        stage_begin(i);
+        uint32_t on = 0, win = 0;  // bit 4j + 2h + e: pre > theta; in the window
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int l = lat + 8 * h;
+            float p[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = acc[j][2 * h + e] + benc_s[l], th = th_s[l];
+              on |= static_cast<uint32_t>(v > th) << (4 * j + 2 * h + e);
+              win |= static_cast<uint32_t>(fabsf(v - th) <= sae.act.half_eps)
+                     << (4 * j + 2 * h + e);
+              p[e] = v > th ? v : 0.f;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(l, j) + out_o) =
+                __floats2bfloat162_rn(p[0], p[1]);
+          }
+        reinterpret_cast<uint2*>(stage_s + kBox)[wtid] = make_uint2(on, win);
+        stage_end(i);
+      }
+      if (i >= L) {  // dW_enc += x^T @ round_bf16(dpre) of its sub-step k
+        const int k = i - L;
+        mbar_wait(&recv_full[k % R], (k / R) & 1);
+        if (first && k + R < n_mine) mbar_expect_tx(&recv_full[k % R], in_bytes);
+        held(k, recv_s + (k % R) * kPairMsg);
+        release(k);
+      }
+    }
+  } else {
+    const float c_1 = __fmul_rn(combo_part(coeffs, 2, cb)[1], sae.act.neg_inv_eps);
+    for (int i = 0; i < n_mine; ++i) {
+      float acc[8][4];
+      transposed(acc, i);
+      const unsigned char* msg = recv_s + (i % R) * kPairMsg;
+      mbar_wait(&recv_full[i % R], (i / R) & 1);
+      if (first && i + R < n_mine) mbar_expect_tx(&recv_full[i % R], in_bytes);
+      const uint2 bits = reinterpret_cast<const uint2*>(msg + kBox)[wtid];
+      stage_begin(i);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int l = lat + 8 * h;
+        float sd = 0.f, sw = 0.f;  // this sub-step's, in a fixed order
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int b = 4 * j + 2 * h + e;
+            const float dpost = acc[j][2 * h + e];
+            d[e] = (bits.x >> b) & 1u ? dpost : 0.f;
+            sd += d[e];
+            if ((bits.y >> b) & 1u) sw += __fadd_rn(__fmul_rn(dpost, v2_s[l]), c_1);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(l, j) + out_o) =
+              __floats2bfloat162_rn(d[0], d[1]);
+        }
+        sb[h] += sd;
+        st[h] += sw;
+      }
+      stage_end(i);
+      held(i, msg);  // dW_dec^T += err^T @ round_bf16(post)
+      release(i);
+    }
+  }
+  if (first) bulk_wait_read();
+  cluster_sync();  // every remote arrive and copy of both ranks is done
+
+  // the two warpgroups' tiles added (warpgroup 0's first) through shared memory
+  // (the rings are free: every tile was consumed), then written once into this
+  // split's partial (split 0's is the output)
+  float* tile_s = reinterpret_cast<float*>(base);  // [C][64] f32: warpgroup 1's tile
+  if (wg == 1)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(tile_s + (q * 64 + lat + 8 * h) * TH + j * 8 +
+                                     2 * (lane % 4)) = make_float2(g[q][j][2 * h], g[q][j][2 * h + 1]);
+  __syncthreads();
+  const long enc_sz = static_cast<long>(gridDim.y) * C * H, dec_sz = enc_sz;
+  float* const ws_dec = split_ws + (n_split - 1) * enc_sz;  // dW_dec partials; then the sums
+  float* const out = enc ? split_dw(dw_enc, split_ws, static_cast<long>(C) * H, blk)
+                         : split_dw(dw_dec, ws_dec, static_cast<long>(H) * C, blk);
+  if (wg == 0)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q * 64 + lat + 8 * h;
+        if (row < C)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 o = *reinterpret_cast<const float2*>(tile_s + row * TH + j * 8 +
+                                                              2 * (lane % 4));
+            const float a = g[q][j][2 * h] + o.x, b = g[q][j][2 * h + 1] + o.y;
+            const int l = h0 + j * 8 + 2 * (lane % 4);
+            if (enc) {
+              *reinterpret_cast<float2*>(out + static_cast<long>(row) * H + l) = make_float2(a, b);
+            } else {
+              out[static_cast<long>(l) * C + row] = a;
+              out[static_cast<long>(l + 1) * C + row] = b;
+            }
+          }
+      }
+  __syncthreads();  // the tile is read: the scratch below reuses it
+  float* red_s = reinterpret_cast<float*>(base);  // [2 sums][2 warpgroups][TH]
+  float* bcd_s = red_s + 4 * TH;                  // [TH] round_bf16(db_enc)
+  int* flag = reinterpret_cast<int*>(bcd_s + TH);
+  if (enc) {
+    if (n_split > 1) {  // the last split of this latent block adds the others' partials
+      int* tickets = reinterpret_cast<int*>(ws_dec + (n_split - 1) * dec_sz +
+                                            static_cast<long>(n_split) * gridDim.y * kSplitSums * H);
+      if (!last_ticket(tickets + (gridDim.y + cb) * gx + blk.x, flag)) return;
+      add_split_tiles(combo_part(dw_enc, static_cast<long>(C) * H, cb) + h0,
+                      split_ws + cb * (enc_sz / gridDim.y) + h0, enc_sz, C, H, TH);
+    }
+    return;
+  }
+  // D: the sums over the four lanes of a latent, then the two warpgroups
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      sb[h] += __shfl_xor_sync(0xffffffffu, sb[h], off);
+      st[h] += __shfl_xor_sync(0xffffffffu, st[h], off);
+    }
+  if (lane % 4 == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      red_s[wg * TH + lat + 8 * h] = sb[h];
+      red_s[(2 + wg) * TH + lat + 8 * h] = st[h];
+    }
+  __syncthreads();
+  float s[2] = {0.f, 0.f};
+  if (tid < TH) {
+    s[0] = red_s[tid] + red_s[TH + tid];
+    s[1] = red_s[2 * TH + tid] + red_s[3 * TH + tid];
+  }
+  if (n_split > 1) {  // the last split of this latent block goes on (header note, "Splits")
+    if (!last_split(s, ws_dec + (n_split - 1) * dec_sz, H, blk, flag, gx)) return;
+    add_split_tiles(combo_part(dw_dec, static_cast<long>(H) * C, cb) + static_cast<long>(h0) * C,
+                    ws_dec + cb * (dec_sz / gridDim.y) + static_cast<long>(h0) * C, dec_sz, 1, 0,
+                    TH * C);
+  }
+  if (tid < TH) {
+    combo_part(db_enc, H, cb)[h0 + tid] = s[0];
+    combo_part(sae.act.dtheta, H, cb)[h0 + tid] = s[1];
+    bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
+  }
+  __syncthreads();
+  // this block's row of db_dec's centring term, -round_bf16(db_enc) @ W_enc tile^T
+  const long part = static_cast<long>(n_steps) * C + static_cast<long>(H / TH) * C;
+  for (int k = tid; k < C; k += kThreads) {
+    const uint4* row = reinterpret_cast<const uint4*>(
+        combo_part(static_cast<const bf16*>(sae.w_enc), static_cast<long>(C) * H, cb) +
+        static_cast<long>(k) * H + h0);
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < TH / 8; ++q) {
+      const uint4 w = row[q];
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(e[i]);
+        v = fmaf(bcd_s[q * 8 + 2 * i], f.x, v);
+        v = fmaf(bcd_s[q * 8 + 2 * i + 1], f.y, v);
+      }
+    }
+    combo_part(sae.db_cent, part, cb)[static_cast<long>(blk.x) * C + k] = -v;
+  }
+}
+
 bool bad_shape(int n_tokens, int c_in, int c_out, int H) {
   return n_tokens <= 0 || c_in <= 0 || c_out <= 0 || H <= 0 || n_tokens % kBwdTB ||
          H % kFwdLG;
@@ -3398,6 +3885,49 @@ cudaError_t bwd_held(int passes, const void* x, const void* w_enc, const float* 
                        merr, b_enc, coeffs, ct, dw_enc, db_enc, dw_dec, db_dec_part, n_tokens,
                        c_in, c_out, H, ws);
   return cudaSuccess;
+}
+
+// The cluster-pair route (coder_bwd_pair<kAct>; the SAEs' entry points, one
+// level, C_in = C_out = C <= kPairCmax): x [n_tokens, C] (x_cent), err
+// [n_tokens, C] already scaled and rounded (scale_err_kernel), outputs and
+// n_combo as bwd_tc's with Cin = Cout = C; no direct db_dec rows (the pre-pass
+// writes them) and no ct (Act::Jump has no L1 cotangent). n_split as bwd_tc's,
+// split_ws as bwd_tc's with a second [n_combo, H / 64] ticket array (E's after
+// D's), zeroed. Grid (2 * H / 64, n_combo, n_split) in clusters of two.
+template <Act kAct>
+cudaError_t bwd_pair(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
+                     const void* err, const float* coeffs, float* dw_enc, float* db_enc,
+                     float* dw_dec, int n_tokens, int C, int H, const SaeBwd& sae,
+                     cudaStream_t stream, int n_combo, int n_split, void* split_ws) {
+  if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
+      bad_tc_operands(C, C, x, w_enc, w_dec, err) || C > kPairCmax || n_split < 1 ||
+      n_split > (n_tokens + kTcBwdTS - 1) / kTcBwdTS || (n_split > 1 && split_ws == nullptr))
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mwe, mwd, merr;
+  cudaError_t e;
+  if ((e = bf16_map(&mx, x, n_tokens, C, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwe, w_enc, C, H, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&mwd, w_dec, H, C, 64, n_combo)) != cudaSuccess ||
+      (e = bf16_map(&merr, err, n_tokens, C, 64, n_combo)) != cudaSuccess)
+    return e;
+  return svt::launch(coder_bwd_pair<kAct>, dim3(2 * H / kTcBwdTH, n_combo, n_split),
+                     pair_smem_bytes(), stream, mx, mwe, mwd, merr, b_enc, coeffs, dw_enc,
+                     db_enc, dw_dec, n_tokens, C, H, sae, static_cast<float*>(split_ws));
+}
+
+// The clusters of coder_bwd_pair<kAct> the card can hold at once
+// (cudaOccupancyMaxActiveClusters at its shared memory), or -1 on an error
+template <Act kAct>
+int pair_clusters() {
+  if (cudaFuncSetAttribute(coder_bwd_pair<kAct>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(pair_smem_bytes())) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * 1024, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = pair_smem_bytes();
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, coder_bwd_pair<kAct>, &cfg) == cudaSuccess ? n : -1;
 }
 
 // The f32 backward (float operands, any width): the SIMT body

@@ -26,7 +26,12 @@
 //   backward: coder_bwd_tc<true, Act::Jump> after scale_err_kernel
 //             (round_bf16(c_rec * err) from the saved f32 err, the Pallas cast
 //             point, and the direct db_dec rows): the strict mask, no L1
-//             cotangent, and the STE window's dtheta.
+//             cotangent, and the STE window's dtheta; or, where
+//             ops/fused_sae.bwd_route says "pair" (C <= 256), coder_bwd_pair<
+//             Act::Jump> after the same pre-passes: two CTAs of a cluster a
+//             latent block, one holding dW_enc and one dW_dec in registers
+//             for the whole sweep, trading post and dpre through distributed
+//             shared memory (coder.cuh).
 //
 // In f32 (the check path: TF32 would miss its tolerances) both run the coder
 // family's SIMT bodies with the same epilogues (coder_fwd_kernel<float, false,
@@ -102,9 +107,11 @@ extern "C" int svt_jumprelu_fwd(int bf16, const void* x, const void* w_enc,
 // holds a combo's direct rows of db_dec, then one centring row per 64 latents
 // (H / 64 rows). bf16: err_s is an [n_combo, n_tokens, C] bf16 workspace
 // (scale_err_kernel's round_bf16(c_rec * err), with the ceil(n_tokens / 512)
-// direct rows), then coder_bwd_tc<true, Act::Jump> (n_split and split_ws:
-// coder.cuh, bwd_tc); float: err_s unused, 2 direct rows,
-// coder_bwd_kernel<float, true, Act::Jump> on err.
+// direct rows), then coder_bwd_tc<true, Act::Jump>, or coder_bwd_pair<Act::Jump>
+// where ``pair`` is non-zero (the caller's route, ops/fused_sae.bwd_route, decides;
+// C <= 256, else cudaErrorInvalidValue) (n_split and split_ws: coder.cuh, bwd_tc
+// and bwd_pair); float: err_s unused, 2 direct rows, coder_bwd_kernel<float,
+// true, Act::Jump> on err, never split or paired.
 extern "C" int svt_jumprelu_sweep_bwd(int bf16, const void* x, const void* w_enc,
                                       const float* b_enc, const float* thr, const void* w_dec,
                                       const float* b_dec, const float* err,
@@ -112,10 +119,11 @@ extern "C" int svt_jumprelu_sweep_bwd(int bf16, const void* x, const void* w_enc
                                       float neg_inv_eps, float* dw_enc, float* db_enc,
                                       float* dthr, float* dw_dec, float* db_dec_part,
                                       void* x_cent, void* err_s, void* split_ws, int n_tokens,
-                                      int C, int H, int n_combo, int n_split,
+                                      int C, int H, int n_combo, int pair, int n_split,
                                       cudaStream_t stream) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
-      (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)) || (!bf16 && n_split != 1))
+      (bf16 && bad_tc_operands(C, C, x, x_cent, w_enc, w_dec)) ||
+      (!bf16 && (n_split != 1 || pair)) || (pair && C > kPairCmax))
     return cudaErrorInvalidValue;
   const long direct = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
   const long part = (direct + H / kTcBwdTH) * C;  // a combo's db_dec_part
@@ -132,6 +140,9 @@ extern "C" int svt_jumprelu_sweep_bwd(int bf16, const void* x, const void* w_enc
   sae.act.eps = eps;
   sae.act.half_eps = half_eps;
   sae.act.neg_inv_eps = neg_inv_eps;
+  if (pair)
+    return bwd_pair<Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, coeffs, dw_enc, db_enc,
+                               dw_dec, n_tokens, C, H, sae, stream, n_combo, n_split, split_ws);
   if (bf16)
     return bwd_tc<true, Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, n_tokens, coeffs,
                                    nullptr, dw_enc, db_enc, dw_dec, nullptr, n_tokens, C, C, H,
@@ -147,9 +158,17 @@ extern "C" int svt_jumprelu_bwd(int bf16, const void* x, const void* w_enc,
                                 float eps, float half_eps, float neg_inv_eps,
                                 float* dw_enc, float* db_enc, float* dthr, float* dw_dec,
                                 float* db_dec_part, void* x_cent, void* err_s, void* split_ws,
-                                int n_tokens, int C, int H, int n_split, cudaStream_t stream) {
+                                int n_tokens, int C, int H, int pair, int n_split,
+                                cudaStream_t stream) {
   return svt_jumprelu_sweep_bwd(bf16, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, eps,
                                 half_eps, neg_inv_eps, dw_enc, db_enc, dthr, dw_dec,
-                                db_dec_part, x_cent, err_s, split_ws, n_tokens, C, H, 1,
+                                db_dec_part, x_cent, err_s, split_ws, n_tokens, C, H, 1, pair,
                                 n_split, stream);
+}
+
+// The clusters of two coder_bwd_pair<Act::Jump> CTAs that the card holds at
+// once, into *out (-1 where the query fails): a query, no launch.
+extern "C" int svt_jumprelu_pair_clusters(int* out) {
+  *out = pair_clusters<Act::Jump>();
+  return *out < 0 ? cudaErrorInvalidValue : cudaSuccess;
 }

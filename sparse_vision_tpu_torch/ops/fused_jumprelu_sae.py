@@ -23,7 +23,11 @@ recomputes it from the saved x). The forward is the ReLU forward's width route
 (register-held recon to C = 512, updated in place above) with the strict
 threshold; it leaves per-64-token partials of the activity counts and of Σ post,
 whose total is the L1 sum. The backward first runs scale_err_kernel
-(round(c_rec·err) from the saved f32 error, and the direct rows of db_dec). In
+(round(c_rec·err) from the saved f32 error, and the direct rows of db_dec),
+then the body fused_sae.bwd_route names: at C <= 256 "pair", coder_bwd_pair
+(two CTAs of a thread block cluster a latent block, one holding dW_enc and
+one dW_dec in registers for the whole sweep; counted on ``pair_kernel`` as
+well as on the launching wrapper), wider "tc", coder_bwd_tc. In
 f32 (the check path) both run the coder family's SIMT bodies with the same
 epilogues, at any width (T and H multiples of 128), after center_kernel; the
 backward reads the saved f32 error itself. can_fuse asks the coder bodies'
@@ -73,6 +77,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _ptrs,
     _r,
     bodies_take,
+    bwd_route,
     center_plain,
     centring_rows_plain,
     compute_dtype_of,
@@ -177,12 +182,19 @@ def jumprelu_bwd_tc_plain(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandw
             _r(torch.where(mask, pre, zero), cd).T @ dr, db_dec)
 
 
-def backward_plain(x, *args):
-    """The plain version of the route the card's backward takes for ``x``'s
-    dtype: jumprelu_bwd_tc_plain in bf16, fused_jumprelu_backward_plain (the
-    SIMT body's route) in f32."""
-    plain = jumprelu_bwd_tc_plain if x.dtype == _BF16 else fused_jumprelu_backward_plain
-    return plain(x, *args)
+# the plain version of each backward route (fused_sae.bwd_route): the pair
+# computes coder_bwd_tc's function, at its own summation order
+ROUTE_PLAIN = {"pair": jumprelu_bwd_tc_plain, "tc": jumprelu_bwd_tc_plain,
+               "simt": fused_jumprelu_backward_plain}
+
+
+def backward_plain(x, *args, route=None):
+    """The plain version of the route the card's backward takes for ``x``
+    (``route``, or fused_sae.bwd_route's for its width and dtype):
+    jumprelu_bwd_tc_plain for "pair" and "tc" (bf16), fused_jumprelu_backward_plain
+    for "simt" (f32)."""
+    c = x.shape[-1]
+    return ROUTE_PLAIN[route or bwd_route(c, c, act="jump", dtype=x.dtype)](x, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -197,19 +209,33 @@ _F = ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_jumprelu_sae")
-    # every entry point ends in (..., n_split, stream); the backwards' last
-    # pointer is split_ws (csrc/coder.cuh, "Splits")
+    # every launching entry point ends in (..., n_split, stream); the backwards'
+    # last pointer is split_ws (csrc/coder.cuh, "Splits"), their ``pair``
+    # comes before n_split (bwd_route)
     lib.svt_jumprelu_fwd.restype = _I
     lib.svt_jumprelu_fwd.argtypes = [_I] + [_P] * 11 + [_I] * 4 + [_P]
     lib.svt_jumprelu_bwd.restype = _I
     lib.svt_jumprelu_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 8
-                                     + [_I] * 4 + [_P])
+                                     + [_I] * 5 + [_P])
     lib.svt_jumprelu_sweep_fwd.restype = _I
     lib.svt_jumprelu_sweep_fwd.argtypes = [_I] + [_P] * 11 + [_I] * 5 + [_P]
     lib.svt_jumprelu_sweep_bwd.restype = _I
     lib.svt_jumprelu_sweep_bwd.argtypes = ([_I] + [_P] * 8 + [_F, _F, _F] + [_P] * 8
-                                           + [_I] * 5 + [_P])
+                                           + [_I] * 6 + [_P])
+    lib.svt_jumprelu_pair_clusters.restype = _I
+    lib.svt_jumprelu_pair_clusters.argtypes = [_P]
     return lib
+
+
+def pair_clusters() -> int:
+    """The clusters of coder_bwd_pair (two CTAs each) that the current card
+    holds at once (cudaOccupancyMaxActiveClusters); raises where the query
+    fails."""
+    out = (ctypes.c_int * 1)()
+    rc = _lib().svt_jumprelu_pair_clusters(out)
+    if rc != 0:
+        raise RuntimeError(f"svt_jumprelu_pair_clusters failed: cudaError_t {rc}")
+    return out[0]
 
 
 def _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward: bool = False):
@@ -257,22 +283,43 @@ class _ForwardKernel(Kernel):
                 l1_part.sum())
 
 
+class _PairBody(Kernel):
+    """The cluster-pair backward body (csrc/coder.cuh coder_bwd_pair,
+    fused_sae.bwd_route's "pair"): its count goes up wherever a JumpReLU
+    backward launch runs it (the launching wrapper's own count goes up too)."""
+
+    name = "coder_bwd_pair"
+
+
+pair_kernel = _PairBody()
+
+
+def _route(x, c: int, route) -> tuple:
+    """(route, its ``pair`` flag for the backward entry points): ``route`` where
+    the caller names one (chip_smoke.py times "tc" on a pair launch), else
+    fused_sae.bwd_route's for a JumpReLU backward of width c in x's dtype."""
+    route = route or bwd_route(c, c, act="jump", dtype=x.dtype)
+    return route, int(route == "pair")
+
+
 class _BackwardKernel(Kernel):
-    """csrc svt_jumprelu_bwd: in bf16 center_kernel, scale_err_kernel and
-    coder_bwd_tc<true, Act::Jump> (jumprelu_bwd_tc_plain), in f32
+    """csrc svt_jumprelu_bwd: in bf16 center_kernel, scale_err_kernel and the
+    body bwd_route names, coder_bwd_pair<Act::Jump> at C <= 256, else
+    coder_bwd_tc<true, Act::Jump> (both jumprelu_bwd_tc_plain), in f32
     center_kernel and coder_bwd_kernel<float, true, Act::Jump>
     (fused_jumprelu_backward_plain). db_dec's partial rows are reduced here."""
 
     name = "fused_jumprelu_sae_bwd"
 
     def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth,
-                 n_split=None):
+                 n_split=None, route=None):
         t, c, h = _check_operands(x, w_enc, b_enc, thr, w_dec, b_dec, backward=True)
         dev = x.device
         _expect("err", err, (t, c), _F32, dev)
         _expect("coeffs", coeffs, (2,), _F32, dev)
         bf16 = x.dtype == _BF16
-        s = launch_split(x, t, h, c, backward=True, n_split=n_split)
+        route, pair = _route(x, c, route)
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split, pair=bool(pair))
         dw_enc = torch.empty((c, h), dtype=_F32, device=dev)
         db_enc = torch.empty((h,), dtype=_F32, device=dev)
         dthr = torch.empty((h,), dtype=_F32, device=dev)
@@ -288,7 +335,8 @@ class _BackwardKernel(Kernel):
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
                      eps, eps / 2, -1.0 / eps,
                      *_ptrs(x, dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent, err_s,
-                            split_workspace(s, 1, h, c, c, dev))[2:], t, c, h, s)
+                            split_workspace(s, 1, h, c, c, dev, route))[2:], t, c, h, pair, s)
+        pair_kernel.launches += pair
         return dw_enc, db_enc, dthr, dw_dec, db_dec_part.sum(0)
 
 
@@ -428,20 +476,22 @@ class _SweepForwardKernel(Kernel):
 
 
 class _SweepBackwardKernel(Kernel):
-    """csrc svt_jumprelu_sweep_bwd: _BackwardKernel's route for all N combos,
-    one launch of each pass. Returns what jumprelu_sweep_bwd_plain returns
-    (db_dec's partial rows)."""
+    """csrc svt_jumprelu_sweep_bwd: _BackwardKernel's route for all N combos
+    (bwd_route's from one dictionary's width), one launch of each pass. Returns
+    what jumprelu_sweep_bwd_plain returns (db_dec's partial rows)."""
 
     name = "fused_jumprelu_sae_sweep_bwd"
 
     def __call__(self, x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs, bandwidth,
-                 n_split=None):
+                 n_split=None, route=None):
         n, t, c, h = _check_sweep_operands(self.name, x, w_enc, b_enc, thr, w_dec, b_dec)
         dev = x.device
         _expect("err", err, (n, t, c), _F32, dev)
         _expect("coeffs", coeffs, (n, 2), _F32, dev)
         bf16 = x.dtype == _BF16
-        s = launch_split(x, t, h, c, backward=True, n_split=n_split)  # one combo's
+        route, pair = _route(x, c, route)
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split,
+                         pair=bool(pair))  # one combo's
         dw_enc = torch.empty((n, c, h), dtype=_F32, device=dev)
         db_enc = torch.empty((n, h), dtype=_F32, device=dev)
         dthr = torch.empty((n, h), dtype=_F32, device=dev)
@@ -455,7 +505,9 @@ class _SweepBackwardKernel(Kernel):
                      *_ptrs(x, w_enc, b_enc, thr, w_dec, b_dec, err, coeffs),
                      eps, eps / 2, -1.0 / eps,
                      *_ptrs(x, dw_enc, db_enc, dthr, dw_dec, db_dec_part, x_cent, err_s,
-                            split_workspace(s, n, h, c, c, dev))[2:], t, c, h, n, s)
+                            split_workspace(s, n, h, c, c, dev, route))[2:], t, c, h, n, pair,
+                     s)
+        pair_kernel.launches += pair
         return dw_enc, db_enc, dthr, dw_dec, db_dec_part
 
 

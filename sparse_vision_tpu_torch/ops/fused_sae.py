@@ -106,6 +106,11 @@ SPLIT_SUMS = 4
 HELD_CIN = 256
 HELD_COUT = 512
 HELD_MIN_COUT = 256
+# The cluster-pair backward route (csrc/coder.cuh coder_bwd_pair; bwd_route):
+# the widest C whose gradient tiles a pair holds in registers (kPairCmax), and
+# its CTAs a latent block (two: a thread block cluster).
+PAIR_C = 256
+PAIR_CTAS = 2
 
 
 def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
@@ -118,21 +123,26 @@ def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) 
             and (dt != _BF16 or (c_in % BF16_WIDTH == 0 and c_out % BF16_WIDTH == 0)))
 
 
-def grid_split(t: int, h: int, c_out: int, *, backward: bool, n_sm: int) -> int:
+def grid_split(t: int, h: int, c_out: int, *, backward: bool, n_sm: int,
+               pair: bool = False) -> int:
     """The number s of parts into which a bf16 launch cuts each block's sweep
     (csrc/coder.cuh, "Splits"), from ONE dictionary's T, H and C_out and the
     card's SM count only: never a sweep's N, so every combo of a sweep launch
     runs as a one-dictionary launch does. The bodies are pinned at one block an
-    SM. The backward's grid is b = H/64 latent blocks, each sweeping the
+    SM. The backward's grid is b = H/64 latent blocks (``pair``, the cluster-pair
+    route: b = 2·H/64 CTAs, two a latent block), each sweeping the
     512-token steps; the in-place forward's (C_out > 512: the register-held
     forwards never split) b = T/128 token blocks, each sweeping the 512-latent
     groups. A grid of at least 10/11 of the SMs (120 of 132) stays whole; a
     smaller one takes the least s in 1..MAX_SPLIT whose waves s·b/n_sm are at
     least 90% full, else the fullest (the least s of a tie), where each part
     keeps at least SPLIT_MIN_STEPS token steps (backward) or one latent group
-    (forward)."""
+    (forward). The pair's split cut its body's device time for one dictionary
+    wherever it split in chip_bwd_probe.py's split grid; a sweep of 8, whose
+    grid the combos already fill, runs split slower (PERF.md, "Findings")."""
     if backward:
-        blocks, most = h // BLOCK_H, -(-t // BF16_STEP_T) // SPLIT_MIN_STEPS
+        blocks = (PAIR_CTAS if pair else 1) * (h // BLOCK_H)
+        most = -(-t // BF16_STEP_T) // SPLIT_MIN_STEPS
     elif c_out <= HOLD_COUT:
         return 1
     else:
@@ -160,21 +170,35 @@ def bwd_route(c_in: int, c_out: int, levels: int = 1, act: str = "relu", dtype=_
       (chip_smoke.py's "[route]" lines; PERF.md's kernel table) it ran row 12
       in 7.255 ms against coder_bwd_tc's 8.064 on the same launch, and row 24
       in 1.867 against 2.053;
+    - "pair": coder_bwd_pair, one launch in which two CTAs of a thread block
+      cluster share a latent block (E holds dW_enc, D dW_dec, each in
+      registers for the whole sweep; they trade post and dpre through
+      distributed shared memory), for a bf16 JumpReLU backward of one level
+      with C_in = C_out <= PAIR_C (256, the widest tile a CTA holds), at any
+      T and H. On an H100 80GB HBM3 at 700 W, each body at grid_split's
+      split of its own grid, the pair's body ran faster on the device than
+      coder_bwd_tc's at every width (8, 64, 128, 192, 256) and shape of
+      chip_bwd_probe.py's route grid (T 4,096 and 32,768, expansions 2 to
+      64), and the launch faster wherever the device, not the wrapper's host
+      work, set its time: rows 5, 20 and 32 and C 64 and 192 in
+      chip_smoke.py's "[route]" lines (PERF.md, "Findings");
     - "tc": coder_bwd_tc, dW updated in place once a 512-token step, for every
-      other bf16 backward: the JumpReLU and gated epilogues, the Matryoshka
-      levels, wider dictionaries (the crosscoder's ΣC 2,896; C_in 264 and up,
+      other bf16 backward: the JumpReLU epilogue above C 256, the gated one,
+      the Matryoshka levels, wider dictionaries (the crosscoder's ΣC 2,896; C_in 264 and up,
       C_out 520 and up), whose gradient tiles do not fit in registers, and
       C_out <= 256, where the held passes were no faster on the same card
       (rows 2 and 16 tied, the sweep's row 28 ran slower, in builds of an
       SAE instantiation not kept: PERF.md, "Findings");
     - "simt": the f32 check path, coder_bwd_kernel.
-    A launch that this rule sends to "held" runs the held passes or raises: no
-    other body takes its place."""
+    A launch that this rule sends to "held" or "pair" runs that body or raises:
+    no other body takes its place."""
     if compute_dtype_of(dtype) != _BF16:
         return "simt"
     if (act == "relu" and levels == 1 and c_in <= HELD_CIN
             and HELD_MIN_COUT < c_out <= HELD_COUT):
         return "held"
+    if act == "jump" and levels == 1 and c_in == c_out <= PAIR_C:
+        return "pair"
     return "tc"
 
 
@@ -185,16 +209,17 @@ def sm_count(index: int) -> int:
 
 
 def launch_split(x: torch.Tensor, t: int, h: int, c_out: int, *, backward: bool,
-                 n_split: int | None = None) -> int:
+                 n_split: int | None = None, pair: bool = False) -> int:
     """The split of a launch on CUDA operand ``x`` (one dictionary's T, H,
-    C_out): ``n_split`` where the caller names one (chip_smoke.py times the
-    unsplit launch beside the split one), else grid_split's in bf16; the f32
-    SIMT bodies never split."""
+    C_out; ``pair``: the cluster-pair backward's grid): ``n_split`` where the
+    caller names one (chip_smoke.py times the unsplit launch beside the split
+    one), else grid_split's in bf16; the f32 SIMT bodies never split."""
     if n_split is not None:
         return n_split
     if x.dtype != _BF16:
         return 1
-    return grid_split(t, h, c_out, backward=backward, n_sm=sm_count(x.device.index))
+    return grid_split(t, h, c_out, backward=backward, n_sm=sm_count(x.device.index),
+                      pair=pair)
 
 
 def split_empty(s: int, shape: tuple, device) -> torch.Tensor:
@@ -211,17 +236,18 @@ def join_splits(t: torch.Tensor, s: int) -> torch.Tensor:
 
 def split_workspace(s: int, n: int, h: int, c_in: int, c_out: int, device,
                     route: str = "tc"):
-    """The backward's split workspace (csrc/coder.cuh, bwd_tc and bwd_held) for
-    n combos of one shape: the partials of splits 1..s-1, dW_enc [s - 1, n,
-    c_in, h] and dW_dec [s - 1, n, h, c_out], the per-latent sums [s, n,
-    SPLIT_SUMS, h] (f32 all), then [n, h / 64] int32 tickets, zeroed, in one
-    int32 buffer (a held ``route``: two ticket arrays, one a pass); None (a null
-    pointer) when s is 1. The last split of each latent block adds the partials
-    into the outputs, which keep their shapes."""
+    """The backward's split workspace (csrc/coder.cuh, bwd_tc, bwd_held and
+    bwd_pair) for n combos of one shape: the partials of splits 1..s-1, dW_enc
+    [s - 1, n, c_in, h] and dW_dec [s - 1, n, h, c_out], the per-latent sums
+    [s, n, SPLIT_SUMS, h] (f32 all), then [n, h / 64] int32 tickets, zeroed, in
+    one int32 buffer (a held ``route``: two ticket arrays, one a pass; "pair":
+    two, D's then E's); None (a null pointer) when s is 1. The last split of
+    each latent block adds the partials into the outputs, which keep their
+    shapes."""
     if s == 1:
         return None
     floats = (s - 1) * n * h * (c_in + c_out) + s * n * SPLIT_SUMS * h
-    passes = 2 if route.startswith("held") else 1
+    passes = 2 if route.startswith("held") or route == "pair" else 1
     ws = torch.empty(floats + passes * n * (h // BLOCK_H), dtype=torch.int32, device=device)
     ws[floats:].zero_()
     return ws

@@ -227,6 +227,9 @@ def test_argtypes_match_entry_points(libs, entry):
     if entry.endswith("_dx"):  # the dx route does not split
         assert "n_split" not in names
         return
+    if entry.endswith("_clusters"):  # an occupancy query: no launch, no stream
+        assert names == ["out"]
+        return
     assert names[-2:] == ["n_split", "stream"] and params[-2][0] == "int", entry
     assert ("split_ws" in names) == entry.endswith("_bwd"), entry
 
@@ -357,7 +360,8 @@ def test_split_checks_script_stands_alone():
 
 
 @pytest.mark.parametrize("variant", ("no_products", "one_set", "tc_no_products",
-                                     "tc_no_updates"))
+                                     "tc_no_updates", "pair_no_products",
+                                     "pair_release_cluster"))
 def test_bwd_probe_ablations_match_the_bodies(variant):
     """chip_bwd_probe.py's ablations are text substitutions of csrc/coder.cuh:
     each still finds every text it replaces in its body (or the constants
