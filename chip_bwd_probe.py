@@ -25,30 +25,35 @@ ablation's outputs are wrong by design and are never checked):
                    chain or the products set the pair's pace;
   pair_release_cluster  coder_bwd_pair with its remote arrivals on the
                    peer's empty barriers at release.cluster semantics in
-                   place of the default: what a cluster-scope release costs.
+                   place of the default: what a cluster-scope release costs;
+  pair_relu_no_products  pair_no_products in the SAEs' source, whose
+                   coder_bwd_pair<Act::Relu> the ReLU SAE's rows run.
 Then times, in turns (REPS launches a turn, two turns each), each unsplit: at
 PERF.md's row 24 (the transcoder's TP backward at a (2, 2) rank's shard: T
 16,384, 256 -> 480, H 8,192) and row 12 (T 32,768, 256 -> 480, H 16,384) the
 held route (both passes), pass E alone and pass D alone, as built and in each
 held ablation, and coder_bwd_tc as built; at row 16 (sae_mlp's TP backward at
 the shard: T 16,384, C 256, H 8,192) and row 2 (T 32,768, C 256, H 16,384)
-coder_bwd_tc (fused_sae.bwd_route's body there) as built and in each tc
-ablation; at row 20 (the JumpReLU TP backward at the shard: T 16,384, C 256,
+coder_bwd_tc (route="tc") as built and in each tc ablation, and at row 16
+the cluster pair (fused_sae.bwd_route's body there) as built and in
+pair_relu_no_products; at row 20 (the JumpReLU TP backward at the shard: T 16,384, C 256,
 H 8,192) and row 5 (T 32,768, H 16,384) the cluster pair as built and in its
-ablation, and coder_bwd_tc as built on the same launch. Then the JumpReLU backward's
-route and split over widths and shapes (pair_grid: fused_sae.bwd_route gives
-the pair every bf16 one-level JumpReLU backward at C <= 256, and grid_split
-splits its launches by one dictionary's CTAs): at C 8, 64, 128, 192 and 256,
-T 4,096 and 32,768 and H at expansions 2, 16 and 64, the wrapper's launch on
-the pair at the rule's split, the pair unsplit and coder_bwd_tc at its own
-rule's split (CUDA events, in turns), and each route's body alone on the
-device (torch.profiler: where a launch is this short, the wrapper's host
-work, not the card, sets the wall time); and at T 4,096 and 16,384, H 512 and
-2,048, C 64 and 256, one dictionary and a sweep of 8, the pair body's own
-device time (torch.profiler) at the rule's split and unsplit. Prints one JSON
-line of the times (each one's share of its row's base: the held route, the
-pair, or coder_bwd_tc at the ReLU SAE rows; the grids' milliseconds), then
-nvidia-smi's name and power limit.
+ablation, and coder_bwd_tc as built on the same launch. Then the route and
+split over widths and shapes (pair_grid: fused_sae.bwd_route gives the pair
+every bf16 one-level JumpReLU backward and every ReLU or Matryoshka SAE
+backward at C <= 256, and grid_split splits its launches by one dictionary's
+CTAs): for the JumpReLU backward and then the ReLU SAE's, at C 8, 64, 128,
+192 and 256, T 4,096 and 32,768 and H at expansions 2, 16 and 64 (the ReLU
+SAE's also with three prefix levels at C 256: the Matryoshka SAE's), the
+wrapper's launch on the pair at the rule's split, the pair unsplit and
+coder_bwd_tc at its own rule's split (CUDA events, in turns), and each
+route's body alone on the device (torch.profiler: where a launch is this
+short, the wrapper's host work, not the card, sets the wall time); and at T
+4,096 and 16,384, H 512 and 2,048, C 64 and 256, one dictionary and a sweep of
+8, the JumpReLU pair body's own device time (torch.profiler) at the rule's
+split and unsplit. Prints one JSON line of the times (each one's share of its
+row's base: the held route, the pair, or coder_bwd_tc at the ReLU SAE's tc
+rows; the grids' milliseconds), then nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import torch
 import chip_smoke as c
 from sparse_vision_tpu_torch.ops import (
     fused_jumprelu_sae,
+    fused_matryoshka_sae,
     fused_sae,
     fused_sae_tp,
     fused_transcoder,
@@ -79,7 +85,10 @@ BODIES = {"held": ("coder_bwd_held(const __grid_constant__", "// Backward, bf16,
           "tc": ("coder_bwd_tc(const __grid_constant__",
                  "// Backward, bf16, gradient tiles held in registers", "fused_sae"),
           "pair": ("coder_bwd_pair(const __grid_constant__", "bool bad_shape(int n_tokens",
-                   "fused_jumprelu_sae")}
+                   "fused_jumprelu_sae"),
+          # the same body's Act::Relu instantiation, in the SAEs' source
+          "pair_relu": ("coder_bwd_pair(const __grid_constant__", "bool bad_shape(int n_tokens",
+                        "fused_sae")}
 # (body, [(old, new, count)]) of each ablation: substitutions in the body's
 # text or (with a leading "=") in the constants above it
 VARIANTS = {
@@ -107,6 +116,10 @@ VARIANTS = {
     "pair_release_cluster": ("pair", [
         ("=mbarrier.arrive.shared::cluster.b64 _, [%0];",
          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];", 1)]),
+    "pair_relu_no_products": ("pair_relu", [
+        ("wgmma_ss<1, 0>(acc,", "if (false) wgmma_ss<1, 0>(acc,", 1),
+        ("wgmma_ss<0, 0>(acc,", "if (false) wgmma_ss<0, 0>(acc,", 1),
+        ("wgmma_ss<1, 0>(g[q],", "if (false) wgmma_ss<1, 0>(g[q],", 1)]),
 }
 # the transcoder wrappers' route names: both passes, pass E alone, pass D alone
 PASSES = {"held": "held", "E": "held E", "D": "held D"}
@@ -193,22 +206,61 @@ def _jump_ops(t: int, c_: int, h: int, n: int = 0) -> tuple:
     return c._pair_ops(gen, t, c_, h, torch.bfloat16)
 
 
-def pair_grid() -> tuple:
-    """The route grid (the wrapper's ms on the pair at the rule's split, the
-    pair unsplit where the rule splits, coder_bwd_tc at its rule's split; two
-    turns, the second in reverse order; and the two bodies' own device ms at
-    the rule's splits) and the split grid (the pair body's
-    device ms at the rule's split and unsplit, one dictionary and SPLIT_N)."""
+def levels_of(h: int) -> tuple:
+    """Three prefix levels of H latents in multiples of 128, near the default
+    prefixes' 1/16 and 1/4 (the Matryoshka SAE's shape in the SAE grid)."""
+    q1 = max(128, -(-h // 16 // 128) * 128)
+    q2 = max(q1 + 128, -(-h // 4 // 128) * 128)
+    return q1, q2, h
+
+
+def _sae_ops(t: int, c_: int, h: int, levels: tuple | None = None) -> tuple:
+    """A bf16 ReLU SAE backward's operands on chip_smoke.py's dyadic grid
+    (x_cent, W_enc, b_enc, W_dec, the rounded error, coeffs), or the
+    Matryoshka SAE's at ``levels`` (its suffix-weighted S, coeffs (1, c_l1),
+    the levels)."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device=c.DEVICE).manual_seed(c_ + h + 1)
+    x, we, be, wd, bd = c._sae_ops(gen, t, c_, h, bf)
+    x_cent = x - bd.to(bf)
+    lam = c.LAMBDA / (t * h)
+    if levels is None:
+        res = (fused_sae.fused_sae_forward_plain(x, we, be, wd, bd)[0] - x.float()).to(bf)
+        return (x_cent, we, be, wd, res, torch.tensor([2.0 / (t * c_), lam], device=c.DEVICE))
+    prefix = fused_matryoshka_sae.fused_matryoshka_forward_plain(x, we, be, wd, bd, levels)[0]
+    return (x_cent, we, be, wd, c._suffix_error(prefix, x, bf),
+            torch.tensor([1.0, lam], device=c.DEVICE), levels)
+
+
+# pair_grid's epilogues: the JumpReLU backward's and the ReLU SAE's (the
+# Matryoshka SAE's where the shape has levels), each with its wrapper
+GRID_ACTS = ("jump", "sae")
+
+
+def pair_grid(act: str) -> tuple:
+    """The route grid of ``act`` (the wrapper's ms on the pair at the rule's
+    split, the pair unsplit where the rule splits, coder_bwd_tc at its rule's
+    split; two turns, the second in reverse order; and the two bodies' own
+    device ms at the rule's splits) and, for the JumpReLU backward, the split
+    grid (the pair body's device ms at the rule's split and unsplit, one
+    dictionary and SPLIT_N)."""
     n_sm = fused_sae.sm_count(torch.cuda.current_device())
-    k = fused_jumprelu_sae.bwd_kernel
     grid, split = [], []
-    shapes = sorted({(t, c_, max(128, -(-c_ * e // 128) * 128))
+    shapes = sorted({(t, c_, max(128, -(-c_ * e // 128) * 128), None)
                      for c_ in GRID_C for e in GRID_EXP for t in GRID_T},
                     key=lambda s: (s[1], s[2], s[0]))
+    if act == "sae":  # the Matryoshka SAE's levels at the widest pair
+        shapes += [(t, 256, h, levels_of(h)) for t in GRID_T
+                   for h in sorted({256 * e for e in GRID_EXP})]
     with torch.no_grad():
-        for t, c_, h in shapes:
-            assert fused_sae.bwd_route(c_, c_, act="jump") == "pair"
-            a = _jump_ops(t, c_, h)
+        for t, c_, h, lv in shapes:
+            if act == "jump":
+                assert fused_sae.bwd_route(c_, c_, act="jump") == "pair"
+                k, a = fused_jumprelu_sae.bwd_kernel, _jump_ops(t, c_, h)
+            else:
+                assert fused_sae.bwd_route(c_, c_, len(lv or (h,)), act="sae") == "pair"
+                k = fused_sae.bwd_kernel if lv is None else fused_matryoshka_sae.bwd_kernel
+                a = _sae_ops(t, c_, h, lv)
             sp = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm, pair=True)
             st = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm)
             fns = {"pair": lambda: k(*a), "tc": lambda: k(*a, route="tc")}
@@ -220,9 +272,10 @@ def pair_grid() -> tuple:
                     ms[name] += c.time_ms(fns[name], REPS) / 2
             body = {name: c._body_ms(fns[name], f"coder_bwd_{name}<", REPS)
                     for name in ("pair", "tc")}
-            row = dict(t=t, c=c_, h=h, pair_split=sp, tc_split=st, **ms,
+            row = dict(act=act, t=t, c=c_, h=h, levels=lv, pair_split=sp, tc_split=st, **ms,
                        **{f"{k} body": v for k, v in body.items()})
-            c.log(f"[grid] T={t} C={c_} H={h}: pair (split {sp}) {ms['pair']:.4f} ms, "
+            c.log(f"[grid {act}] T={t} C={c_} H={h}" + (f" levels {lv}" if lv else "")
+                  + f": pair (split {sp}) {ms['pair']:.4f} ms, "
                   + (f"unsplit {ms['pair unsplit']:.4f}, " if sp > 1 else "")
                   + f"coder_bwd_tc (split {st}) {ms['tc']:.4f} ({ms['tc'] / ms['pair']:.2f}x); "
                   f"bodies on the device {body['pair']:.4f} / {body['tc']:.4f} "
@@ -230,7 +283,8 @@ def pair_grid() -> tuple:
             grid.append(row)
             del a
             torch.cuda.empty_cache()
-        for t, h, c_ in SPLIT_SHAPES:
+        k = fused_jumprelu_sae.bwd_kernel
+        for t, h, c_ in SPLIT_SHAPES if act == "jump" else ():
             sp = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm, pair=True)
             for n, kern in ((0, k), (SPLIT_N, fused_jumprelu_sae.sweep_bwd_kernel)):
                 a = _jump_ops(t, c_, h, n)
@@ -277,6 +331,7 @@ def main() -> int:
                 "row 12": ("held", fused_transcoder.bwd_kernel, ops(32768, 16384, 480)),
                 "row 16": ("tc", fused_sae_tp.bwd_kernel, ops(16384, 8192, 256)),
                 "row 2": ("tc", fused_sae.bwd_kernel, ops(32768, 16384, 256)),
+                "row 16 pair": ("pair_relu", fused_sae_tp.bwd_kernel, ops(16384, 8192, 256)),
                 "row 20": ("pair", fused_sae_tp.jumprelu_bwd_kernel, jops(16384, 8192)),
                 "row 5": ("pair", fused_jumprelu_sae.bwd_kernel, jops(32768, 16384))}
         points = [("as is", None)] + [(v, libs[v]) for v in VARIANTS]
@@ -291,24 +346,28 @@ def main() -> int:
                         routes = {f"{p} {q}": route for q, route in PASSES.items()}
                         if lib is None:
                             routes["tc"] = "tc"
-                    elif body == "pair":  # the wrapper's own route, the pair
+                    elif body in ("pair", "pair_relu"):  # the wrapper's own route, the pair
                         routes = {f"{p} pair": None}
                         if lib is None:
                             routes["tc"] = "tc"
                     else:
-                        routes = {f"{p} tc": None}
+                        routes = {f"{p} tc": "tc"}
                     for name, route in routes.items():
                         kw = {} if route is None else {"route": route}
                         times[r].setdefault(name, []).append(c.time_ms(
                             lambda: k(*a, n_split=1, **kw), REPS))
         use(None)
         for r, (body, _, _) in rows.items():
-            base = sum(times[r][f"as is {'tc' if body == 'tc' else body}"]) / 2
+            base = sum(times[r][f"as is {'pair' if body.startswith('pair') else body}"]) / 2
             out[r] = {p: {"ms": sum(v) / 2, "share": sum(v) / 2 / base}
                       for p, v in times[r].items()}
             c.log(f"[probe] {r}: " + ", ".join(f"{p} {v['ms']:.3f} ms ({v['share']:.3f})"
                                               for p, v in out[r].items()))
-    grid, split = pair_grid()
+    grid, split = [], []
+    for act in GRID_ACTS:
+        g, sp = pair_grid(act)
+        grid += g
+        split += sp
     print(json.dumps({"bwd_probe": out, "pair_grid": grid, "pair_split": split}))
     print(smi)
     return 0

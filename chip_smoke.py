@@ -15,10 +15,11 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               where it has one) and fail on any spill, and unless the
               coders' source builds the held backward's two passes
               (coder_bwd_held, HELD_SOURCES) and no other source any, and
-              the JumpReLU source the cluster-pair backward (coder_bwd_pair,
-              PAIR_SOURCES) and no other source it; print the pair's
-              registers, spill bytes and the clusters of it the card holds
-              (cudaOccupancyMaxActiveClusters).
+              the JumpReLU source the cluster-pair backward's Act::Jump
+              instantiation and the SAEs' source its Act::Relu one
+              (coder_bwd_pair, PAIR_SOURCES) and no other source any; print
+              each pair's registers, spill bytes and the clusters of it the
+              card holds (cudaOccupancyMaxActiveClusters).
   3. kernels: hold each kernel against its plain PyTorch version on the card at
               the training shape (SAEs: T=32768 tokens, C=256, H=16384 latents,
               the Matryoshka prefixes ending at 1024, 4096 and 16384; the
@@ -73,10 +74,19 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               coder_bwd_tc ("[route]") and beside the same launch at the
               other side of the split rule ("[split]"), and launches a
               sweep of 8 at H 512 PAIR_STRESS_REPEATS times bitwise equal
-              (a slot overwritten before it was read would differ). Row 5's
-              coder_bwd_pair row of the kernels line is the body's own
-              device time (torch.profiler, in a process of its own after
-              phase 16: --pair-body), apart from its pre-passes.
+              (a slot overwritten before it was read would differ). Where
+              bwd_route gives the bf16 ReLU and Matryoshka SAE backwards the
+              cluster pair (C <= 256, any levels: rows 2 and 9 here, 16 and
+              22 in phase 15 (e), 28 and 34 in phase 16 (a)), each launch is
+              held to the plain version of its route with REPEATS launches
+              bitwise equal and timed beside coder_bwd_tc ("[route]"); so is
+              the ReLU SAE at T 2176, C 136, H 640 split in 2 and unsplit,
+              a Matryoshka launch there whose levels' errors differ, and
+              PAIR_STRESS's sweep of the ReLU SAE. The kernels line's
+              coder_bwd_pair (row 5's launch) and coder_bwd_pair_relu (row
+              2's) rows are each body's own device time (torch.profiler, in
+              a process of its own after phase 16: --pair-body jump|relu),
+              apart from its pre-passes, whose time is printed beside it.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too.
@@ -92,7 +102,8 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               and the crosscoder mixed4a..mixed4e (8,192 latents, 12 steps of
               16,384 tokens; sae_input_norm="rms" at λ 5), both resampling
               like sae_mlp; every kernel launch count is reset just before each
-              run and read after it.
+              run and read after it (the jumprelu_sae, sae_mlp and
+              matryoshka_sae runs also 12 of their cluster pair's body).
   7. cache:   the host side of the cached path at the sae_mlp slice's shape:
               an overlap_dump_train run (12 + 12 launches) whose shards are
               byte-equal to a sequential dump's; every stack that prefetch
@@ -345,7 +356,8 @@ and repeated bitwise above, is timed beside the same launch unsplit
 Then one JSON line of those pairs ({"splits": [...]}), one of the held and
 cluster-pair launches beside coder_bwd_tc ({"routes": [...]}), one JSON line
 naming each kernel (the held passes' launches from phase 6's transcoder
-slice, the cluster pair's from its jumprelu_sae slice; the TP
+slice, the cluster pair's from its jumprelu_sae slice (Act::Jump) and its
+matryoshka_sae slice (Act::Relu: the sae_mlp slice's 12 too); the TP
 rows' summed over the ranks of (b), (c), (g) and (h); the sweep rows' from
 phase 16 (b) and (c)), the nvidia-smi line, and the last line {"ok": true,
 "device": {...}}.
@@ -444,6 +456,7 @@ SOURCES = {
     "fused_matryoshka_sae_dx": CODER,
     "fused_jumprelu_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Jump>
     "fused_jumprelu_sae_bwd": CODER,  # bf16: coder_bwd_pair<Act::Jump> (C <= 256)
+    # bf16 at C <= 256 (fused_sae.bwd_route): coder_bwd_pair<Act::Relu>
     "fused_gated_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Gated>
     "fused_gated_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Gated>
     "fused_transcoder_fwd": CODER, "fused_transcoder_bwd": CODER,
@@ -459,8 +472,9 @@ SOURCES = {
     # 24's wrappers (fused_sae.bwd_route)
     "coder_bwd_held_enc": CODER, "coder_bwd_held_dec": CODER,
     # the cluster-pair backward (coder_bwd_pair), under rows 5, 20 and 32's
-    # wrappers (fused_sae.bwd_route)
-    "coder_bwd_pair": CODER,
+    # wrappers (Act::Jump) and rows 2, 9, 16, 22, 28 and 34's (Act::Relu;
+    # fused_sae.bwd_route)
+    "coder_bwd_pair": CODER, "coder_bwd_pair_relu": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -497,9 +511,13 @@ REPLACES = {
     "coder_bwd_held_dec": "sparse_vision_tpu/ops/fused_transcoder.py:91",
     # the JumpReLU backward kernel's whole function, in two CTAs a latent block
     "coder_bwd_pair": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:80",
+    # the ReLU SAE backward kernel's (and, level by level, the Matryoshka one's)
+    "coder_bwd_pair_relu": "sparse_vision_tpu/ops/fused_sae.py:96",
 }
 HELD_KERNELS = fused_transcoder.HELD_PASSES
-PAIR_KERNELS = (fused_jumprelu_sae.pair_kernel,)
+# the cluster pair's body counters: the JumpReLU SAE's (Act::Jump) and the
+# ReLU and Matryoshka SAEs' (Act::Relu)
+PAIR_KERNELS = (fused_jumprelu_sae.pair_kernel, fused_sae.pair_kernel)
 BODY_KERNELS = HELD_KERNELS + PAIR_KERNELS  # counted beside their launching wrappers
 
 
@@ -574,16 +592,18 @@ def phase_build() -> None:
                                      f"instantiations in ptxas's report, found {len(found)}")
             for kernel, regs, spill in found:
                 log(f"[build]   {route} route: {regs} registers, {spill} spill bytes: {kernel}")
-    log(f"[build] pair route: {fused_jumprelu_sae.pair_clusters()} clusters of two CTAs "
-        "resident at once (cudaOccupancyMaxActiveClusters)")
+    for act, mod in (("Act::Jump", fused_jumprelu_sae), ("Act::Relu", fused_sae)):
+        log(f"[build] pair route, coder_bwd_pair<{act}>: {mod.pair_clusters()} clusters of "
+            "two CTAs resident at once (cudaOccupancyMaxActiveClusters)")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
 
 
 # the held backward route's instantiations a source builds (coder.cuh bwd_held:
 # pass E and pass D, in the coders' source only)
 HELD_SOURCES = {"fused_transcoder": 2}
-# the cluster-pair route's (coder.cuh bwd_pair: Act::Jump, in the JumpReLU source only)
-PAIR_SOURCES = {"fused_jumprelu_sae": 1}
+# the cluster-pair route's (coder.cuh bwd_pair: Act::Jump in the JumpReLU source,
+# Act::Relu in the ReLU and Matryoshka SAEs' source, and no other source any)
+PAIR_SOURCES = {"fused_jumprelu_sae": 1, "fused_sae": 1}
 
 
 # ptxas registers of the coder family's instantiations (nvcc 12.8, sm_90a; this
@@ -764,6 +784,12 @@ def _jump_route(cd, c: int) -> str:
     return fused_sae.bwd_route(c, c, act="jump", dtype=cd)
 
 
+def _sae_route(cd, c: int, levels: int = 1) -> str:
+    """The body bwd_route gives a ReLU (one level) or Matryoshka SAE backward
+    of width c in dtype cd."""
+    return fused_sae.bwd_route(c, c, levels, act="sae", dtype=cd)
+
+
 def _held_pass_rows(tag: str, bops: tuple, post, errs: dict) -> dict:
     """The kernels line's rows of the two held passes at the transcoder's
     training shape (row 12's launch, phase 6's main path), each pass launched
@@ -851,23 +877,30 @@ def _sae_fwd_check(mod, tag: str, cd, ops, extra=(), exact: bool = False, label:
 
 
 def _sae_bwd_check(mod, tag: str, cd, ops, x_cent, err_in, coeffs, extra=(), label: str = "",
-                   kernel=None):
+                   kernel=None) -> tuple:
     """The SAE op's backward entry point on x_cent, through ``kernel`` (default
-    its own wrapper), against its plain reference on (x, b_dec); bf16 launches
-    repeat bitwise. Returns (plain grads, max abs err)."""
-    if mod is fused_sae:
-        bwd, plain = mod.fused_sae_backward, mod.fused_sae_backward_plain
-    else:
-        bwd, plain = mod.fused_matryoshka_backward, mod.fused_matryoshka_backward_plain
+    its own wrapper), against the plain version of its route (backward_plain:
+    in bf16 at C <= 256 the cluster pair's pre-pass and body) on x_cent, which
+    the forward check held to x - round(b_dec); bf16 launches repeat bitwise,
+    REPEATS of them where bwd_route gives the launch the cluster pair. Returns
+    (plain grads, max abs err)."""
+    bwd = mod.fused_sae_backward if mod is fused_sae else mod.fused_matryoshka_backward
     kernel = kernel or mod.bwd_kernel
-    x, we, be, wd, bd = ops
-    g_k = bwd(x_cent, we, be, wd, err_in, coeffs, *extra, kernel=kernel)
-    g_p = plain(*ops, err_in, coeffs, *extra)
+    _, we, be, wd, _ = ops
+    bops = (x_cent, we, be, wd, err_in, coeffs, *extra)
+    g_k = bwd(*bops, kernel=kernel)
+    *g_p, db_dec_part = mod.backward_plain(*bops)
+    g_p = (*g_p, db_dec_part.sum(0))
     torch.cuda.synchronize()
     log(f"[kernels] {kernel.name} [{tag}{label}] vs plain")
     if cd == torch.bfloat16:
-        _repeatable(kernel.name, kernel(x_cent, we, be, wd, err_in, coeffs, *extra),
-                    kernel(x_cent, we, be, wd, err_in, coeffs, *extra))
+        pair = _sae_route(cd, x_cent.shape[-1], len(extra[0]) if extra else 1) == "pair"
+        first = kernel(*bops)
+        for _ in range(REPEATS - 1 if pair else 1):
+            _repeatable(kernel.name, first, kernel(*bops))
+        if pair:
+            log(f"[kernels]   {kernel.name}: {REPEATS} launches on the cluster pair bitwise equal")
+        del first
     err = max(_check(n, a, b, 1e-3, 1e-4)
               for n, a, b in zip(("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k, g_p))
     return g_p, err
@@ -904,11 +937,13 @@ def kernels_relu(cd, tag: str, t: int = T, c: int = C, h: int = H) -> dict:
         lambda: fused_sae.fused_sae_backward_plain(*ops, res, coeffs),
         lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * t * c * h, moved, err)
     if cd == torch.bfloat16:
+        pair = _sae_route(cd, c) == "pair"
+        bwd = lambda **kw: fused_sae.bwd_kernel(x_cent, we, be, wd, res, coeffs, **kw)  # noqa: E731
         _split_pair("fused_sae_fwd", f"{tag}{label}",
                     lambda **kw: fused_sae.fwd_kernel(*ops, **kw), t, h, c, False)
-        _split_pair("fused_sae_bwd", f"{tag}{label}",
-                    lambda **kw: fused_sae.bwd_kernel(x_cent, we, be, wd, res, coeffs, **kw),
-                    t, h, c, True)
+        _split_pair("fused_sae_bwd", f"{tag}{label}", bwd, t, h, c, True, pair=pair)
+        if pair:  # rows 2's launch runs coder_bwd_pair<Act::Relu>: its row comes last
+            _route_timing("fused_sae_bwd", f"{tag}{label}", "pair", bwd)
     return rows
 
 
@@ -1083,10 +1118,10 @@ def kernels_jumprelu(cd, tag: str) -> dict:
     return rows
 
 
-def _body_ms(launch, body: str, reps: int) -> float:
-    """Mean device time a call of the kernel whose name holds ``body``, over
-    ``reps`` calls of ``launch()`` (which launches it once beside other
-    kernels: the pre-passes) under torch.profiler: the body's own time. The
+def _bodies_ms(launch, bodies: tuple, reps: int) -> dict:
+    """{body: mean device time a call of the kernel whose name holds it}, over
+    ``reps`` calls of ``launch()`` (which launches each once: a body and its
+    pre-passes) under one torch.profiler session: each kernel's own time. The
     profiler can drop an event (its time and its count go together, so the
     mean holds), but not half of them."""
     from torch.profiler import ProfilerActivity
@@ -1098,51 +1133,85 @@ def _body_ms(launch, body: str, reps: int) -> float:
         for _ in range(reps):
             launch()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and body in e.key]
-    n = sum(e.count for e in hits)
-    if not reps / 2 <= n <= reps:
-        raise AssertionError(f"{body}: {n} launches traced in {reps} calls")
-    return sum(e.self_device_time_total for e in hits) / n / 1e3
+    out = {}
+    for body in bodies:
+        hits = [e for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and body in e.key]
+        n = sum(e.count for e in hits)
+        if not reps / 2 <= n <= reps:
+            raise AssertionError(f"{body}: {n} launches traced in {reps} calls")
+        out[body] = sum(e.self_device_time_total for e in hits) / n / 1e3
+    return out
 
 
-def _pair_body_ms_here() -> float:
-    """coder_bwd_pair's own device time at row 5's launch, by this process's
-    first torch.profiler session."""
-    bops = _jumprelu_bwd_operands(_jumprelu_ops(torch.bfloat16), T, C)
+def _body_ms(launch, body: str, reps: int) -> float:
+    """_bodies_ms of one body."""
+    return _bodies_ms(launch, (body,), reps)[body]
+
+
+def _pair_body_ms_here(act: str) -> dict:
+    """coder_bwd_pair's own device time and its pre-pass's at row 5's launch
+    (``act`` "jump") or row 2's ("relu"), by this process's first
+    torch.profiler session."""
+    if act == "jump":
+        bops = _jumprelu_bwd_operands(_jumprelu_ops(torch.bfloat16), T, C)
+        launch = lambda: fused_jumprelu_sae.bwd_kernel(*bops)  # noqa: E731
+    else:
+        ops = _relu_exact_operands(torch.bfloat16)
+        x, we, be, wd, bd = ops
+        res = (fused_sae.fused_sae_forward_plain(*ops)[0] - x.float()).to(torch.bfloat16)
+        coeffs = torch.tensor([2.0 / (T * C), LAMBDA / (T * H)], device=DEVICE)
+        bops = (x - bd.to(torch.bfloat16), we, be, wd, res, coeffs)
+        launch = lambda: fused_sae.bwd_kernel(*bops)  # noqa: E731
     with torch.no_grad():
-        return _body_ms(lambda: fused_jumprelu_sae.bwd_kernel(*bops), "coder_bwd_pair<", REPS)
+        got = _bodies_ms(launch, ("coder_bwd_pair<", "scale_err_kernel"), REPS)
+    return {"pair_body_ms": got["coder_bwd_pair<"], "pre_pass_ms": got["scale_err_kernel"]}
+
+
+# the kernels line's rows of the cluster pair's bodies: (act, the row's name,
+# the launching wrapper's row, its per-latent f32 inputs and outputs: b_enc
+# and θ in, db_enc and dθ out for Act::Jump; b_enc and ct in, db_enc out for
+# Act::Relu)
+PAIR_BODY_ROWS = (("jump", "coder_bwd_pair", "fused_jumprelu_sae_bwd", 2, 2),
+                  ("relu", "coder_bwd_pair_relu", "fused_sae_bwd", 2, 1))
 
 
 def pair_body_row(rows: dict) -> None:
-    """The kernels line's row of coder_bwd_pair at row 5's launch, where
-    bwd_route gives row 5 the pair, into ``rows``: its own device time
-    (torch.profiler, apart from center_kernel and scale_err_kernel, which the
-    wrapper's row includes), its bound (8·T·C·H FLOP; x_cent and the scaled
-    err read once, both W tiles, b_enc and θ, the gradients and db_dec's
-    centring rows written once), and the plain version's and the library's
-    times from the wrapper's row, which computes the same function. The time
-    comes from a process of its own (this script with --pair-body): in one
-    process a second profiler session lost events on the card, before phase
-    14's traced epoch (which counts its launches exactly) and after it."""
-    if _jump_route(torch.bfloat16, C) != "pair":
-        return
-    wrapper = rows["fused_jumprelu_sae_bwd"]
-    torch.cuda.empty_cache()
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--pair-body"],
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode:
-        raise AssertionError(f"--pair-body failed ({out.returncode}):\n{out.stdout[-2000:]}"
-                             f"{out.stderr[-4000:]}")
-    ms = json.loads(out.stdout.strip().splitlines()[-1])["pair_body_ms"]
-    # bf16 x_cent, err, W_enc and W_dec; f32 b_enc, θ, the gradients, db_enc,
-    # dθ and the centring rows
-    moved = 2 * (2 * T * C + 2 * C * H) + 4 * (2 * H + 2 * C * H + 2 * H + H // 64 * C)
-    b_ms, b_by = bound(8.0 * T * C * H, moved, torch.bfloat16)
-    log(f"[kernels] coder_bwd_pair [bf16] ms {ms:.3f} (torch.profiler; the wrapper "
-        f"{wrapper['ms']:.3f}) bound_ms {b_ms:.4f} ({b_by})")
-    rows["coder_bwd_pair"] = dict(wrapper, ms=ms, bound_ms=b_ms, bound_by=b_by,
-                                  tflops=8.0 * T * C * H / ms / 1e9)
+    """The kernels line's rows of coder_bwd_pair<Act::Jump> at row 5's launch
+    and coder_bwd_pair<Act::Relu> at row 2's, where bwd_route gives those rows
+    the pair, into ``rows``: each body's own device time (torch.profiler,
+    apart from center_kernel and scale_err_kernel, which the wrapper's row
+    includes; the pre-pass's time is printed beside it), its bound (8·T·C·H
+    FLOP; x_cent and the scaled err read once, both W tiles, b_enc and θ or
+    ct, the gradients and db_dec's centring rows written once), and the plain
+    version's and the library's times from the wrapper's row, which computes
+    the same function. The times come from processes of their own (this script
+    with --pair-body ACT): in one process a second profiler session lost
+    events on the card, before phase 14's traced epoch (which counts its
+    launches exactly) and after it."""
+    routes = {"jump": _jump_route(torch.bfloat16, C), "relu": _sae_route(torch.bfloat16, C)}
+    for act, name, wrapper_name, n_in, n_out in PAIR_BODY_ROWS:
+        if routes[act] != "pair":
+            continue
+        wrapper = rows[wrapper_name]
+        torch.cuda.empty_cache()
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--pair-body", act],
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            raise AssertionError(f"--pair-body {act} failed ({out.returncode}):\n"
+                                 f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        ms = got["pair_body_ms"]
+        # bf16 x_cent, err, W_enc and W_dec; f32 the per-latent inputs, the
+        # gradients, the per-latent outputs and the centring rows
+        moved = 2 * (2 * T * C + 2 * C * H) + 4 * (
+            n_in * H + 2 * C * H + n_out * H + H // 64 * C)
+        b_ms, b_by = bound(8.0 * T * C * H, moved, torch.bfloat16)
+        log(f"[kernels] {name} [bf16] ms {ms:.3f} (torch.profiler; the wrapper "
+            f"{wrapper['ms']:.3f}, its scale_err_kernel pre-pass {got['pre_pass_ms']:.4f}) "
+            f"bound_ms {b_ms:.4f} ({b_by})")
+        rows[name] = dict(wrapper, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                          tflops=8.0 * T * C * H / ms / 1e9, pre_pass_ms=got["pre_pass_ms"])
 
 
 def _jumprelu_bwd_operands(ops, t: int, c: int):
@@ -1240,6 +1309,9 @@ def kernels_matryoshka(cd, tag: str) -> dict:
         lambda: fm.fused_matryoshka_backward(x_cent, we, *ops[2:4], s, coeffs, bounds),
         lambda: fm.fused_matryoshka_backward_plain(*ops, s, coeffs, bounds),
         lambda: (xc @ we, dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * T * C * H, moved, err)
+    if cd == torch.bfloat16 and _sae_route(cd, C, len(bounds)) == "pair":  # row 9
+        _route_timing("fused_matryoshka_sae_bwd", tag, "pair",
+                      lambda **kw: fm.bwd_kernel(x_cent, we, *ops[2:4], s, coeffs, bounds, **kw))
 
     bops = (x_cent, we, ops[2], wd, s, coeffs, bounds)
     dx_p, err = _dx_check(fm, tag, cd, bops)
@@ -1271,10 +1343,7 @@ def kernels_sae_widths(cd, tag: str) -> dict:
     fm = fused_matryoshka_sae
     for c in W_WIDTHS:
         gen = torch.Generator(device=DEVICE).manual_seed(c)
-        w = torch.randn(c, W_H, device=DEVICE, generator=gen) / c ** 0.5
-        x, we, bd = _exact_inputs(gen, W_T, w)
-        wd = _dyadic(torch.randn(W_H, c, device=DEVICE, generator=gen) / W_H ** 0.5, 2.0 ** -8)
-        ops = (x.to(cd), we.to(cd), _odd_grid(gen, W_H, 100), wd.to(cd), bd)
+        ops = _sae_ops(gen, W_T, c, W_H, cd)
         label = f", C={c} T={W_T} H={W_H}"
         x_cent, out_p, _ = _sae_fwd_check(fused_sae, tag, cd, ops, exact=True, label=label)
         res = (out_p[0] - ops[0].float()).to(cd)
@@ -1427,6 +1496,54 @@ def _pair_ops(gen, t: int, c: int, h: int, cd) -> tuple:
                                   t, c)
 
 
+def _sae_ops(gen, t: int, c: int, h: int, cd) -> tuple:
+    """ReLU SAE forward operands (x, W_enc, b_enc, W_dec, b_dec) at any (t, c,
+    h) on _exact_inputs' grid, W_dec on the 1/256 grid as well."""
+    w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
+    x, we, bd = _exact_inputs(gen, t, w)
+    wd = _dyadic(torch.randn(h, c, device=DEVICE, generator=gen) / h ** 0.5, 2.0 ** -8)
+    return x.to(cd), we.to(cd), _odd_grid(gen, h, 100), wd.to(cd), bd
+
+
+def _sae_pair_shapes(cd, tag: str) -> None:
+    """The ReLU and Matryoshka SAEs' backward where bwd_route gives it the
+    cluster pair, each launch held to the plain version of its route: the ReLU
+    SAE at T 2,176, C 136, H 640 split in 2 and unsplit, and a Matryoshka
+    launch there whose levels' errors differ by orders of magnitude (levels
+    128 / 384 / 640, S and W_dec on dyadic grids, so that dpost is exact on
+    both sides), REPEATS launches bitwise equal each; then PAIR_STRESS's sweep
+    of the ReLU SAE, PAIR_STRESS_REPEATS launches bitwise equal, each combo
+    bitwise its one-dictionary launch."""
+    t, h, c = PAIR_SPLIT_T, RAGGED_H, RAGGED_C
+    lv = (128, 384, h)
+    if _sae_route(cd, c) != "pair" or _sae_route(cd, c, len(lv)) != "pair":
+        return
+    gen = torch.Generator(device=DEVICE).manual_seed(c + 2)
+    ops = _sae_ops(gen, t, c, h, cd)
+    x, we, be, wd, bd = ops
+    x_cent = x - bd.to(cd)
+    res = (fused_sae.fused_sae_forward_plain(*ops)[0] - x.float()).to(cd)
+    coeffs = torch.tensor([2.0 / (t * c), LAMBDA / (t * h)], device=DEVICE)
+    s = fused_sae.grid_split(t, h, c, backward=True, pair=True,
+                             n_sm=fused_sae.sm_count(torch.cuda.current_device()))
+    if s == 1:
+        raise AssertionError(f"the pair's split check does not split at T={t} H={h}")
+    label = f", C={c} T={t} H={h}"
+    for n_split in (s, 1):
+        _sae_bwd_check(fused_sae, tag, cd, ops, x_cent, res, coeffs,
+                       label=f"{label}, n_split {n_split}",
+                       kernel=_Split(fused_sae.bwd_kernel, n_split))
+    s_diff = torch.stack([
+        _dyadic(torch.randn(t, c, device=DEVICE, generator=gen) * 2.0 ** e, 2.0 ** (e - 4))
+        for e in (-13, -17, -20)]).to(cd)
+    m_coeffs = torch.tensor([1.0, LAMBDA / (t * h)], device=DEVICE)
+    _sae_bwd_check(fused_matryoshka_sae, tag, cd, ops, x_cent, s_diff, m_coeffs, (lv,),
+                   label=f"{label}, levels {lv} with differing errors")
+    del ops, x_cent, res, s_diff
+    n, t, c, h = PAIR_STRESS
+    _sweep_kernel_check("sae_mlp", cd, n, t, c, h, timed=False, repeats=PAIR_STRESS_REPEATS)
+
+
 def kernels_pair_shapes(cd, tag: str) -> dict:
     """The JumpReLU backward where bwd_route gives it the cluster pair (bf16, C
     <= 256), each launch held to the plain version; no rows:
@@ -1438,7 +1555,9 @@ def kernels_pair_shapes(cd, tag: str) -> dict:
       the same launch ("[route]") and beside the same launch at another split
       ("[split]": unsplit where the rule splits, split in 2 where it does not);
     - PAIR_STRESS: the sweep launch PAIR_STRESS_REPEATS times bitwise equal,
-      each combo bitwise its one-dictionary launch, against the plain version."""
+      each combo bitwise its one-dictionary launch, against the plain version.
+    First the ReLU and Matryoshka SAEs' pair launches (_sae_pair_shapes)."""
+    _sae_pair_shapes(cd, tag)
     t, h, c = PAIR_SPLIT_T, RAGGED_H, RAGGED_C
     if _jump_route(cd, c) != "pair":
         return {}
@@ -2032,14 +2151,20 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     held = name == "transcoder" and fused_sae.bwd_route(
         pipe.ts.params["W_enc"].shape[0], pipe.ts.params["W_dec"].shape[-1],
         dtype=cfg.compute_dtype) == "held"
-    # and the cluster pair under the JumpReLU backward where it gives its width the pair
-    pair = False
+    # and the cluster pair under the JumpReLU, ReLU and Matryoshka backwards
+    # where it gives their width the pair (Act::Jump, Act::Relu)
+    pair_body = None
     if name == "jumprelu_sae":
         c = pipe.ts.params["W_enc"].shape[0]
-        pair = fused_sae.bwd_route(c, c, act="jump", dtype=cfg.compute_dtype) == "pair"
+        if _jump_route(cfg.compute_dtype, c) == "pair":
+            pair_body = fused_jumprelu_sae.pair_kernel
+    if name in ("sae_mlp", "matryoshka_sae"):
+        c = pipe.ts.params["W_enc"].shape[0]
+        levels = len(cfg.matryoshka_prefix_fractions) if name == "matryoshka_sae" else 1
+        if _sae_route(cfg.compute_dtype, c, levels) == "pair":
+            pair_body = fused_sae.pair_kernel
     for k in KERNELS + BODY_KERNELS:
-        want = 12 if (k in trained or (held and k in HELD_KERNELS)
-                      or (pair and k in PAIR_KERNELS)) else 0
+        want = 12 if (k in trained or (held and k in HELD_KERNELS) or k is pair_body) else 0
         if launches[k.name] != want:
             raise AssertionError(f"{name_log}: expected {want} launches of {k.name}, got "
                                  f"{launches[k.name]}")
@@ -5023,11 +5148,13 @@ def _tp_kernel_rows(cd, tag: str) -> dict:
     res = (out_p[1] - x.float()).to(cd)
     del out_k, out_p
     coeffs = torch.tensor([2.0 / (T * c), LAMBDA / (T * H)], device=DEVICE)
-    g_k, g_p = bwd(x_cent, we, be, wd, res, coeffs), fused_sae.sae_bwd_plain(
+    g_k, g_p = bwd(x_cent, we, be, wd, res, coeffs), fused_sae.backward_plain(
         x_cent, we, be, wd, res, coeffs)
     log(f"[mesh] {bwd.name} [{label}] vs plain")
+    pair = _sae_route(cd, c) == "pair"
     if cd == torch.bfloat16:
-        _repeatable(bwd.name, g_k, bwd(x_cent, we, be, wd, res, coeffs))
+        for _ in range(REPEATS - 1 if pair else 1):
+            _repeatable(bwd.name, g_k, bwd(x_cent, we, be, wd, res, coeffs))
     err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(
         ("dW_enc", "db_enc", "dW_dec", "db_dec"), g_k[:3] + (g_k[3].sum(0),),
         g_p[:3] + (g_p[3].sum(0),)))
@@ -5036,8 +5163,11 @@ def _tp_kernel_rows(cd, tag: str) -> dict:
     dr = (coeffs[0] * res.float()).to(cd)
     rows[bwd.name] = _measure(
         bwd.name, label, cd, lambda: bwd(x_cent, we, be, wd, res, coeffs),
-        lambda: fused_sae.sae_bwd_plain(x_cent, we, be, wd, res, coeffs),
+        lambda: fused_sae.backward_plain(x_cent, we, be, wd, res, coeffs),
         lambda: (dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * t * c * h, moved, err)
+    if cd == torch.bfloat16 and pair:  # row 16 beside coder_bwd_tc
+        _route_timing(bwd.name, label, "pair",
+                      lambda **kw: bwd(x_cent, we, be, wd, res, coeffs, **kw))
     del x_cent, res, dr, post, xc, ops, x, we, be, wd
 
     gfwd, gbwd = fused_sae_tp.gated_fwd_kernel, fused_sae_tp.gated_bwd_kernel
@@ -5138,6 +5268,9 @@ def _tp_matryoshka_rows(cd, label: str) -> dict:
         mbwd.name, label, cd, lambda: mbwd(x_cent, we, be, wd, s, coeffs, u),
         lambda: fm.fused_matryoshka_backward_plain(*ops, s, coeffs, u),
         lambda: (xc @ we, dr @ wd.T, xc.T @ post, post.T @ dr), 8.0 * t * c * h, moved, err)
+    if cd == torch.bfloat16 and _sae_route(cd, c, len(u)) == "pair":  # row 22
+        _route_timing(mbwd.name, label, "pair",
+                      lambda **kw: mbwd(x_cent, we, be, wd, s, coeffs, u, **kw))
     return rows
 
 
@@ -5873,6 +6006,16 @@ def _sweep_library(name: str, ops: tuple, backward: bool):
                     torch.bmm(xc.transpose(1, 2), post), torch.bmm(post.transpose(1, 2), dr))
 
 
+def _sweep_route(name: str, cd, c: int, ops: tuple) -> str:
+    """The body bwd_route gives ``name``'s sweep backward (one dictionary's
+    width; the Matryoshka levels are ops' last operand)."""
+    if name == "jumprelu_sae":
+        return _jump_route(cd, c)
+    if name in ("sae_mlp", "matryoshka_sae"):
+        return _sae_route(cd, c, len(ops[-1]) if name == "matryoshka_sae" else 1)
+    return fused_sae.bwd_route(c, c, act="gated", dtype=cd)
+
+
 def _sweep_kernel_check(name: str, cd, n: int, t: int, c: int, h: int, timed: bool,
                         repeats: int = 2) -> dict:
     """Rows of ``name``'s sweep forward and backward at (n, t, c, h): each combo
@@ -5952,13 +6095,13 @@ def _sweep_kernel_check(name: str, cd, n: int, t: int, c: int, h: int, timed: bo
                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                                    tflops=n * f / ms / 1e9, n_combo=n)
             if cd == torch.bfloat16 and n == SW_ROW_N:
-                pair = backward and name == "jumprelu_sae" and _jump_route(cd, c) == "pair"
+                pair = backward and _sweep_route(name, cd, c, ops) == "pair"
                 _split_pair(kern.name, tag, lambda **kw: kern(*args, **kw), t, h, c, backward,
                             pair)
                 _split_pair(single.name, f"{tag}, combo 0 alone",
                             lambda **kw: single(*_combo(args, 0, shared), **kw), t, h, c,
                             backward, pair)
-                if pair:  # row 32: the cluster pair beside coder_bwd_tc
+                if pair:  # rows 28, 32 and 34: the cluster pair beside coder_bwd_tc
                     _route_timing(kern.name, tag, "pair", lambda **kw: kern(*args, **kw))
         del got, plain
     torch.cuda.empty_cache()
@@ -6222,12 +6365,13 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the slices with torch.profiler (slows them; times are then "
                          "not clean)")
-    ap.add_argument("--pair-body", action="store_true",
-                    help="print coder_bwd_pair's own device time at row 5's launch as one "
-                         "JSON line and exit (the kernels line's row, from a fresh process)")
+    ap.add_argument("--pair-body", choices=("jump", "relu"),
+                    help="print coder_bwd_pair's own device time (and its pre-pass's) at "
+                         "row 5's launch (jump) or row 2's (relu) as one JSON line and exit "
+                         "(the kernels line's row, from a fresh process)")
     args = ap.parse_args()
     if args.pair_body:
-        print(json.dumps({"pair_body_ms": _pair_body_ms_here()}))
+        print(json.dumps(_pair_body_ms_here(args.pair_body)))
         return 0
 
     t_start = time.perf_counter()

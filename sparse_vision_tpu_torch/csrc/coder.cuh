@@ -90,8 +90,9 @@
 //     shared memory), coder_fwd_tc (wider: the crosscoder, SAEs at C 528-1,024;
 //     230,960 bytes), coder_bwd_tc and, for the transcoder's widths (Cin <= 256
 //     < Cout <= 512; ops/fused_sae.bwd_route), coder_bwd_held's two passes,
-//     and for the JumpReLU SAE's at C <= 256 coder_bwd_pair (two CTAs of a
-//     thread block cluster a latent block), 256 threads = two warpgroups, up to
+//     and for the JumpReLU, ReLU and Matryoshka SAEs' at C <= 256
+//     coder_bwd_pair (two CTAs of a thread block cluster a latent block;
+//     Act::Jump, Act::Relu), 256 threads = two warpgroups, up to
 //     255 registers a thread and no spills (chip_smoke.py's build phase
 //     checks).
 //     Every product runs on the tensor cores as
@@ -195,15 +196,16 @@
 //     memory; the ring streams x and err only (pass E x twice). At a (2, 2)
 //     rank's transcoder shard 1.10x coder_bwd_tc (PERF.md's kernel table); at C 256
 //     (the SAEs) no faster, so those keep coder_bwd_tc.
-//   coder_bwd_pair (the JumpReLU SAE at C <= 256): a latent block is a cluster
-//     of two CTAs, E holding dW_enc [C, 64] and D dW_dec^T [C, 64], each
-//     warpgroup its own tile of every other 64-token sub-step (128 registers a
-//     thread); E sends round_bf16(post) and the mask and window bits, D sends
-//     round_bf16(dpre) back, by bulk copies into the peer's shared memory.
-//     Each tile is written once and each rank reads its token tiles once (E
-//     x, D err), its W tile resident: ~T*C*2 bytes a rank from L2 where
-//     coder_bwd_tc reads ~5*T*C*2. 1.4-1.7x coder_bwd_tc at rows 5, 20 and 32
-//     (PERF.md's kernel table).
+//   coder_bwd_pair (the JumpReLU, ReLU and Matryoshka SAEs at C <= 256): a
+//     latent block is a cluster of two CTAs, E holding dW_enc [C, 64] and D
+//     dW_dec^T [C, 64], each warpgroup its own tile of every other 64-token
+//     sub-step (128 registers a thread); E sends round_bf16(post) and the mask
+//     (and JumpReLU window) bits, D sends round_bf16(dpre) back, by bulk
+//     copies into the peer's shared memory. Each tile is written once and each
+//     rank reads its token tiles once (E x, D err), its W tile resident: ~T*C*2
+//     bytes a rank from L2 where coder_bwd_tc reads ~5*T*C*2. 1.4-1.85x
+//     coder_bwd_tc at rows 2, 5, 9, 16, 20, 22, 28, 32 and 34 (PERF.md's
+//     kernel table).
 // Blocks stream the same tiles in step, so each comes from device memory about
 // once a wave and from L2 after that.
 
@@ -3138,13 +3140,15 @@ coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
 }
 
 // Backward, bf16, cluster pair: the route of ops/fused_sae.bwd_route for a
-// one-level JumpReLU backward with C <= kPairCmax (rows 5, 20 and 32). Two CTAs
+// one-level JumpReLU backward (Act::Jump: rows 5, 20 and 32) and a ReLU or
+// Matryoshka SAE backward (Act::Relu, any prefix levels: rows 2, 9, 16, 22,
+// 28 and 34), each with C <= kPairCmax. Two CTAs
 // of a thread block cluster own one 64-latent block, so the block has two SMs'
 // registers: rank 0, "E", holds dW_enc [C][64] and rank 1, "D", dW_dec^T
 // [C][64] for the whole token sweep and writes it once. Each rank keeps its W
 // tile resident (E: W_enc [C][64], D: W_dec [64][C]) and streams its token
-// tiles once (E: x_cent, D: round_bf16(c_rec * err) from scale_err_kernel),
-// [64 tokens][C] a sub-step. Warpgroup w of each rank takes the sub-steps u = w
+// tiles once (E: x_cent, D: round_bf16(c_rec * err) from scale_err_kernel, or
+// the Matryoshka SAE's S as it is, c_rec being 1), [64 tokens][C] a sub-step. Warpgroup w of each rank takes the sub-steps u = w
 // (mod 2) on a ring, messages and mbarriers of its own and holds its own
 // gradient tile (four m64 accumulators, 128 f32 registers a thread): the two
 // warpgroups run out of step, so one's products overlap the other's epilogue
@@ -3161,6 +3165,12 @@ coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
 //      win * (dpost * (-theta/eps) + c_l0 * (-1/eps)) (dtheta), round_bf16(
 //      dpre^T) sent back to E's warpgroup w; then dW_dec^T += err_u^T @
 //      round_bf16(post_u).
+// Act::Relu is the same exchange with coder_bwd_tc's ReLU epilogue: E sends
+// round_bf16(max(pre, 0)^T) and one mask word, pre > 0 (the window word is 0:
+// the message keeps its layout), and D's dpre = mask ? dpost + ct : 0, ct the
+// per-latent L1 cotangent in theta's place in shared memory; no dtheta. D's
+// err rows are its block's prefix level's (q*T on, as coder_bwd_tc's qrow;
+// level boundaries are multiples of 128, so a block never straddles two).
 // The mask and window come from E's f32 pre: D never re-derives them. Each
 // receive slot has a full barrier in the receiver (armed by its warpgroup's
 // first thread for the message's bytes) and an empty barrier in the sender
@@ -3175,7 +3185,7 @@ coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
 // E's split partials and tickets (the second [N][H / 64] array of split_ws) for
 // dW_enc, D's for dW_dec with the per-latent sums (last_split), and the last
 // split of each adds the others' tiles in split order. D writes db_enc, dtheta
-// and db_dec's centring row (W_enc from device memory, as coder_bwd_tc). Both
+// (Jump) and db_dec's centring row (W_enc from device memory, as coder_bwd_tc). Both
 // ranks meet at a cluster barrier after the sweep, before which every remote
 // access is done. Sums in a fixed order: each warpgroup's tile sums its
 // sub-steps in f32, then warpgroup 0's tile plus warpgroup 1's; the per-latent
@@ -3193,10 +3203,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_we,
                const __grid_constant__ CUtensorMap m_wd,
                const __grid_constant__ CUtensorMap m_err, const float* __restrict__ b_enc,
-               const float* __restrict__ coeffs, float* __restrict__ dw_enc,
-               float* __restrict__ db_enc, float* __restrict__ dw_dec, int n_tokens, int C,
-               int H, const SaeBwd sae, float* __restrict__ split_ws) {
-  static_assert(kAct == Act::Jump, "the pair's epilogue is the JumpReLU SAE's");
+               const float* __restrict__ coeffs, const float* __restrict__ ct,
+               float* __restrict__ dw_enc, float* __restrict__ db_enc,
+               float* __restrict__ dw_dec, int n_tokens, int C, int H, const SaeBwd sae,
+               float* __restrict__ split_ws) {
+  static_assert(kAct == Act::Jump || kAct == Act::Relu,
+                "the pair's epilogues are the JumpReLU SAE's and the ReLU SAE's");
+  constexpr bool kJump = kAct == Act::Jump;
   constexpr int TH = kTcBwdTH, TU = kPairTU, TS = kTcBwdTS, St = kPairSt, L = kPairLag;
   constexpr int R = kPairRecv, NQ = kPairCmax / 64;  // NQ: held m64 tiles, a channel box each
   extern __shared__ __align__(1024) unsigned char tc_smem_pair[];
@@ -3212,8 +3225,8 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   unsigned char* stage_s = recv_s + R * kPairMsg;
   unsigned char* w_s = base + 2 * kPart;
   float* benc_s = reinterpret_cast<float*>(w_s + NQ * kBox);  // [TH] b_enc
-  float* th_s = benc_s + TH;                                    // [TH] theta
-  float* v2_s = th_s + TH;                                      // [TH] -theta/eps
+  float* th_s = benc_s + TH;                                    // [TH] theta; Relu: ct
+  float* v2_s = th_s + TH;                                      // [TH] Jump: -theta/eps
   uint64_t* bars0 = reinterpret_cast<uint64_t*>(v2_s + TH);     // [2][kPairBars], then w_full
   uint64_t* full = bars0 + wg * kPairBars;
   uint64_t* empty = full + St;
@@ -3234,11 +3247,18 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   const int n_sub = (t_hi - t_lo) / TU;       // at least 2: T is a multiple of 128
   const int n_mine = (n_sub - wg + 1) / 2;    // this warpgroup's: u = wg + 2j
   const uint32_t in_bytes = enc ? kBox : kPairMsg, out_bytes = enc ? kPairMsg : kBox;
+  // Relu: D's err rows of the block's prefix level (sae.lv; one level but for
+  // the Matryoshka SAE), as coder_bwd_tc's qrow; E does not see levels
+  const int qrow = kJump || enc ? 0 : svt::level_of(sae.lv, h0) * n_tokens;
   if (tid < TH) {
     benc_s[tid] = combo_part(b_enc, H, cb)[h0 + tid];
-    const float th = combo_part(sae.act.theta, H, cb)[h0 + tid];
-    th_s[tid] = th;
-    v2_s[tid] = __fdiv_rn(-th, sae.act.eps);
+    if constexpr (kJump) {
+      const float th = combo_part(sae.act.theta, H, cb)[h0 + tid];
+      th_s[tid] = th;
+      v2_s[tid] = __fdiv_rn(-th, sae.act.eps);
+    } else {
+      th_s[tid] = combo_part(ct, H, cb)[h0 + tid];
+    }
   }
   if (first) {
     for (int k = 0; k < R; ++k) {
@@ -3277,7 +3297,7 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
     const int row = t_lo + (wg + 2 * j) * TU;
     for (int q = 0; q < nk; ++q) {  // a branch, not a select of the two maps (coder_bwd_tc)
       if (enc) tma_box(d + q * kBox, mx, &full[s], q * 64, row, cb);
-      else tma_box(d + q * kBox, merr, &full[s], q * 64, row, cb);
+      else tma_box(d + q * kBox, merr, &full[s], q * 64, qrow + row, cb);
     }
   };
   for (int j = 0; j < St; ++j) issue(j);
@@ -3375,7 +3395,8 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
         float acc[8][4];
         transposed(acc, i);
         stage_begin(i);
-        uint32_t on = 0, win = 0;  // bit 4j + 2h + e: pre > theta; in the window
+        // bit 4j + 2h + e: pre > theta (Relu: pre > 0); Jump: in the window
+        uint32_t on = 0, win = 0;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -3384,11 +3405,17 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
             float p[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const float v = acc[j][2 * h + e] + benc_s[l], th = th_s[l];
-              on |= static_cast<uint32_t>(v > th) << (4 * j + 2 * h + e);
-              win |= static_cast<uint32_t>(fabsf(v - th) <= sae.act.half_eps)
-                     << (4 * j + 2 * h + e);
-              p[e] = v > th ? v : 0.f;
+              const float v = acc[j][2 * h + e] + benc_s[l];
+              if constexpr (kJump) {
+                const float th = th_s[l];
+                on |= static_cast<uint32_t>(v > th) << (4 * j + 2 * h + e);
+                win |= static_cast<uint32_t>(fabsf(v - th) <= sae.act.half_eps)
+                       << (4 * j + 2 * h + e);
+                p[e] = v > th ? v : 0.f;
+              } else {
+                on |= static_cast<uint32_t>(v > 0.f) << (4 * j + 2 * h + e);
+                p[e] = fmaxf(v, 0.f);
+              }
             }
             *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(l, j) + out_o) =
                 __floats2bfloat162_rn(p[0], p[1]);
@@ -3405,7 +3432,7 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
       }
     }
   } else {
-    const float c_1 = __fmul_rn(combo_part(coeffs, 2, cb)[1], sae.act.neg_inv_eps);
+    const float c_1 = kJump ? __fmul_rn(combo_part(coeffs, 2, cb)[1], sae.act.neg_inv_eps) : 0.f;
     for (int i = 0; i < n_mine; ++i) {
       float acc[8][4];
       transposed(acc, i);
@@ -3417,6 +3444,7 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int l = lat + 8 * h;
+        const float ctl = kJump ? 0.f : th_s[l];  // Relu: the L1 cotangent
         float sd = 0.f, sw = 0.f;  // this sub-step's, in a fixed order
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -3425,9 +3453,13 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
           for (int e = 0; e < 2; ++e) {
             const int b = 4 * j + 2 * h + e;
             const float dpost = acc[j][2 * h + e];
-            d[e] = (bits.x >> b) & 1u ? dpost : 0.f;
+            if constexpr (kJump) {
+              d[e] = (bits.x >> b) & 1u ? dpost : 0.f;
+              if ((bits.y >> b) & 1u) sw += __fadd_rn(__fmul_rn(dpost, v2_s[l]), c_1);
+            } else {
+              d[e] = (bits.x >> b) & 1u ? dpost + ctl : 0.f;
+            }
             sd += d[e];
-            if ((bits.y >> b) & 1u) sw += __fadd_rn(__fmul_rn(dpost, v2_s[l]), c_1);
           }
           *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(l, j) + out_o) =
               __floats2bfloat162_rn(d[0], d[1]);
@@ -3524,7 +3556,7 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   }
   if (tid < TH) {
     combo_part(db_enc, H, cb)[h0 + tid] = s[0];
-    combo_part(sae.act.dtheta, H, cb)[h0 + tid] = s[1];
+    if constexpr (kJump) combo_part(sae.act.dtheta, H, cb)[h0 + tid] = s[1];
     bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
   }
   __syncthreads();
@@ -3624,20 +3656,25 @@ cudaError_t launch_center(int bf16, const void* x, const float* b_dec, void* x_c
 // writes drecon = round_bf16(c * err) [T, C] (c the device coefficient *coef)
 // and, where part is not null, the f32 column sums of the unrounded c * err
 // over each kTcBwdTS-token step, part [ceil(T / kTcBwdTS), C] in step order:
-// the direct rows of db_dec. A block takes 64 columns of one step; thread (cx,
-// ry) sums rows ry, ry + 4, .., then the four row groups are added in order.
-// Combos: blockIdx.z, err [N, T, C] and a combo's out, part and coef
-// ``out_stride``, ``part_stride`` and ``coef_stride`` elements apart.
-// Bound by bytes: 6 bytes a token and channel (32 MB + 16 MB at T = 32,768, C =
-// 256: ~0.015 ms at 3.35 TB/s).
+// the direct rows of db_dec. The ReLU and Matryoshka SAEs' cluster-pair route
+// runs it on their bf16 errors (In = bf16; the ReLU SAE's err, whose rounding
+// of c_rec * err is coder_bwd_tc's scale_pair bit for bit), and where out is
+// null (the Matryoshka SAE's S_0, c_rec 1: no copy) it writes part only. A
+// block takes 64 columns of one step; thread (cx, ry) sums rows ry, ry + 4, ..,
+// then the four row groups are added in order. Combos: blockIdx.z, a combo's
+// err, out, part and coef ``in_stride``, ``out_stride``, ``part_stride`` and
+// ``coef_stride`` elements apart. Bound by bytes: 6 bytes a token and channel
+// from f32 (32 MB + 16 MB at T = 32,768, C = 256: ~0.015 ms at 3.35 TB/s), 4
+// from bf16, 2 without out.
+template <typename In>
 __global__ void __launch_bounds__(kThreads)
-scale_err_kernel(const float* __restrict__ err, const float* __restrict__ coef,
+scale_err_kernel(const In* __restrict__ err, const float* __restrict__ coef,
                  bf16* __restrict__ out, float* __restrict__ part, int n_tokens, int C,
-                 long out_stride, long part_stride, int coef_stride) {
+                 long in_stride, long out_stride, long part_stride, int coef_stride) {
   __shared__ float red[kThreads];
   const long cz = blockIdx.z;
-  err += cz * n_tokens * C;
-  out += cz * out_stride;
+  err += cz * in_stride;
+  if (out) out += cz * out_stride;
   const int cx = threadIdx.x % 64, ry = threadIdx.x / 64, col = blockIdx.x * 64 + cx;
   const int t1 = min(n_tokens, static_cast<int>(blockIdx.y + 1) * kTcBwdTS);
   const float c = coef[cz * coef_stride];
@@ -3646,8 +3683,8 @@ scale_err_kernel(const float* __restrict__ err, const float* __restrict__ coef,
 #pragma unroll 4
     for (int t = blockIdx.y * kTcBwdTS + ry; t < t1; t += 4) {
       const long o = static_cast<long>(t) * C + col;
-      const float d = __fmul_rn(c, err[o]);
-      out[o] = __float2bfloat16(d);
+      const float d = __fmul_rn(c, to_f(err[o]));
+      if (out) out[o] = __float2bfloat16(d);
       s += d;
     }
   }
@@ -3659,13 +3696,17 @@ scale_err_kernel(const float* __restrict__ err, const float* __restrict__ coef,
         ((red[cx] + red[64 + cx]) + red[128 + cx]) + red[192 + cx];
 }
 
-cudaError_t launch_scale_err(const float* err, const float* coef, void* out, float* part,
+// in_stride 0: a combo's err is [n_tokens, C]
+template <typename In>
+cudaError_t launch_scale_err(const In* err, const float* coef, void* out, float* part,
                              int n_tokens, int C, cudaStream_t stream, int n_combo = 1,
-                             long out_stride = 0, long part_stride = 0, int coef_stride = 0) {
+                             long out_stride = 0, long part_stride = 0, int coef_stride = 0,
+                             long in_stride = 0) {
   const dim3 grid((C + 63) / 64, (n_tokens + kTcBwdTS - 1) / kTcBwdTS, n_combo);
-  scale_err_kernel<<<grid, kThreads, 0, stream>>>(err, coef, static_cast<bf16*>(out), part,
-                                                  n_tokens, C, out_stride, part_stride,
-                                                  coef_stride);
+  scale_err_kernel<In><<<grid, kThreads, 0, stream>>>(
+      err, coef, static_cast<bf16*>(out), part, n_tokens, C,
+      in_stride ? in_stride : static_cast<long>(n_tokens) * C, out_stride, part_stride,
+      coef_stride);
   return cudaGetLastError();
 }
 
@@ -3887,31 +3928,35 @@ cudaError_t bwd_held(int passes, const void* x, const void* w_enc, const float* 
   return cudaSuccess;
 }
 
-// The cluster-pair route (coder_bwd_pair<kAct>; the SAEs' entry points, one
-// level, C_in = C_out = C <= kPairCmax): x [n_tokens, C] (x_cent), err
-// [n_tokens, C] already scaled and rounded (scale_err_kernel), outputs and
-// n_combo as bwd_tc's with Cin = Cout = C; no direct db_dec rows (the pre-pass
-// writes them) and no ct (Act::Jump has no L1 cotangent). n_split as bwd_tc's,
-// split_ws as bwd_tc's with a second [n_combo, H / 64] ticket array (E's after
-// D's), zeroed. Grid (2 * H / 64, n_combo, n_split) in clusters of two.
+// The cluster-pair route (coder_bwd_pair<kAct>; the SAEs' entry points,
+// C_in = C_out = C <= kPairCmax): x [n_tokens, C] (x_cent), err [err_rows, C]
+// already scaled and rounded (scale_err_kernel; the Matryoshka SAE's S [P *
+// n_tokens, C] as it is, sae.lv its levels), outputs and n_combo as bwd_tc's
+// with Cin = Cout = C; no direct db_dec rows (the pre-pass writes them); ct the
+// per-latent L1 cotangent [n_combo, H] of Act::Relu (null for Act::Jump, which
+// has none). n_split as bwd_tc's, split_ws as bwd_tc's with a second [n_combo,
+// H / 64] ticket array (E's after D's), zeroed. Grid (2 * H / 64, n_combo,
+// n_split) in clusters of two.
 template <Act kAct>
 cudaError_t bwd_pair(const void* x, const void* w_enc, const float* b_enc, const void* w_dec,
-                     const void* err, const float* coeffs, float* dw_enc, float* db_enc,
-                     float* dw_dec, int n_tokens, int C, int H, const SaeBwd& sae,
-                     cudaStream_t stream, int n_combo, int n_split, void* split_ws) {
+                     const void* err, int err_rows, const float* coeffs, const float* ct,
+                     float* dw_enc, float* db_enc, float* dw_dec, int n_tokens, int C, int H,
+                     const SaeBwd& sae, cudaStream_t stream, int n_combo, int n_split,
+                     void* split_ws) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
       bad_tc_operands(C, C, x, w_enc, w_dec, err) || C > kPairCmax || n_split < 1 ||
-      n_split > (n_tokens + kTcBwdTS - 1) / kTcBwdTS || (n_split > 1 && split_ws == nullptr))
+      n_split > (n_tokens + kTcBwdTS - 1) / kTcBwdTS || (n_split > 1 && split_ws == nullptr) ||
+      err_rows < sae.lv.n * n_tokens)
     return cudaErrorInvalidValue;
   CUtensorMap mx, mwe, mwd, merr;
   cudaError_t e;
   if ((e = bf16_map(&mx, x, n_tokens, C, 64, n_combo)) != cudaSuccess ||
       (e = bf16_map(&mwe, w_enc, C, H, 64, n_combo)) != cudaSuccess ||
       (e = bf16_map(&mwd, w_dec, H, C, 64, n_combo)) != cudaSuccess ||
-      (e = bf16_map(&merr, err, n_tokens, C, 64, n_combo)) != cudaSuccess)
+      (e = bf16_map(&merr, err, err_rows, C, 64, n_combo)) != cudaSuccess)
     return e;
   return svt::launch(coder_bwd_pair<kAct>, dim3(2 * H / kTcBwdTH, n_combo, n_split),
-                     pair_smem_bytes(), stream, mx, mwe, mwd, merr, b_enc, coeffs, dw_enc,
+                     pair_smem_bytes(), stream, mx, mwe, mwd, merr, b_enc, coeffs, ct, dw_enc,
                      db_enc, dw_dec, n_tokens, C, H, sae, static_cast<float*>(split_ws));
 }
 

@@ -141,8 +141,9 @@ extern "C" int svt_jumprelu_sweep_bwd(int bf16, const void* x, const void* w_enc
   sae.act.half_eps = half_eps;
   sae.act.neg_inv_eps = neg_inv_eps;
   if (pair)
-    return bwd_pair<Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, coeffs, dw_enc, db_enc,
-                               dw_dec, n_tokens, C, H, sae, stream, n_combo, n_split, split_ws);
+    return bwd_pair<Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, n_tokens, coeffs, nullptr,
+                               dw_enc, db_enc, dw_dec, n_tokens, C, H, sae, stream, n_combo,
+                               n_split, split_ws);
   if (bf16)
     return bwd_tc<true, Act::Jump>(x_cent, w_enc, b_enc, w_dec, err_s, n_tokens, coeffs,
                                    nullptr, dw_enc, db_enc, dw_dec, nullptr, n_tokens, C, C, H,

@@ -15,7 +15,9 @@
 //       :213-215), one launch for all combos
 //
 // All six run the coder body family (coder.cuh: wgmma/TMA bodies in bf16, SIMT
-// bodies in f32, any width) with Cin = Cout = C. The SAE is that dictionary on
+// bodies in f32, any width) with Cin = Cout = C; the bf16 backwards at C <= 256
+// the cluster pair, coder_bwd_pair<Act::Relu>, where ops/fused_sae.bwd_route
+// says "pair" (their ``pair`` argument; sae_bwd). The SAE is that dictionary on
 // the centred input: the forward entry points first launch center_kernel
 // (coder.cuh), x_cent = round_T(x - round_T(b_dec)), which the autograd
 // function saves for the backward and dx, so those entry points take x_cent and
@@ -107,17 +109,37 @@ cudaError_t sae_fwd(int bf16, const void* x, const void* w_enc, const float* b_e
 // then H / 64 rows of the centring term.
 // n_combo dictionaries as sae_fwd's: a combo's db_dec_part is [direct rows + H /
 // 64, C], whose centring rows SaeBwd::db_cent points into (combo 0's); n_split
-// and split_ws as coder_bwd's.
+// and split_ws as coder_bwd's. ``pair`` non-zero (the caller's route,
+// ops/fused_sae.bwd_route, decides; bf16 and C <= kPairCmax, else
+// cudaErrorInvalidValue) runs the cluster pair instead, coder_bwd_pair<Act::
+// Relu>, after scale_err_kernel on the bf16 err: with err_s (an [n_combo,
+// n_tokens, C] bf16 workspace; one level, the ReLU SAE) round_bf16(c_rec *
+// err) into it and the direct rows, which the pair then reads; without it
+// (the Matryoshka SAE, c_rec 1) the direct rows of S_0 only, the pair reading
+// S [P * n_tokens, C] as it is. split_ws as bwd_pair's.
 cudaError_t sae_bwd(int bf16, const void* x_cent, const void* w_enc, const float* b_enc,
                     const void* w_dec, const void* err, const float* coeffs, const float* ct,
                     float* dw_enc, float* db_enc, float* dw_dec, float* db_dec_part,
-                    void* split_ws, int n_tokens, int C, int H, const svt::Levels& lv,
-                    int n_combo, int n_split, cudaStream_t stream) {
+                    void* split_ws, void* err_s, int n_tokens, int C, int H,
+                    const svt::Levels& lv, int n_combo, int pair, int n_split,
+                    cudaStream_t stream) {
   const long direct_rows = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
-  return coder_bwd<true>(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
-                         dw_dec, db_dec_part, n_tokens, C, C, H,
-                         SaeBwd{lv, w_enc, db_dec_part + direct_rows * C}, stream, n_combo,
-                         n_split, split_ws);
+  const SaeBwd sae{lv, w_enc, db_dec_part + direct_rows * C};
+  if (!pair)
+    return coder_bwd<true>(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
+                           dw_dec, db_dec_part, n_tokens, C, C, H, sae, stream, n_combo,
+                           n_split, split_ws);
+  if (!bf16 || bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) || C > kPairCmax ||
+      (err_s != nullptr && lv.n != 1))
+    return cudaErrorInvalidValue;
+  const long n = static_cast<long>(n_tokens) * C;
+  const cudaError_t e = launch_scale_err(static_cast<const __nv_bfloat16*>(err), coeffs, err_s,
+                                         db_dec_part, n_tokens, C, stream, n_combo, n,
+                                         (direct_rows + H / kTcBwdTH) * C, 2, lv.n * n);
+  if (e != cudaSuccess) return e;
+  return bwd_pair<Act::Relu>(x_cent, w_enc, b_enc, w_dec, err_s ? err_s : err,
+                             err_s ? n_tokens : lv.n * n_tokens, coeffs, ct, dw_enc, db_enc,
+                             dw_dec, n_tokens, C, H, sae, stream, n_combo, n_split, split_ws);
 }
 
 // The dx route of the forward bodies (kDx, coder.cuh), c_in = c_out = C: dx
@@ -196,25 +218,35 @@ extern "C" int svt_sae_fwd(int bf16, const void* x, const void* w_enc, const flo
 // array (c_rec, c_l1), ct the [n_combo, H] L1 cotangent (c_l1 broadcast);
 // db_dec_part is [n_combo, direct rows + H / 64, C] (direct rows: ceil(T / 512)
 // in bf16, 2 in f32); x_cent, the weights and the gradients [n_combo, ...],
-// n_split and split_ws as coder.cuh's bwd_tc takes them.
+// n_split and split_ws as coder.cuh's bwd_tc takes them (bwd_pair's where
+// ``pair`` is non-zero: the cluster pair, sae_bwd, with err_s its [n_combo, T,
+// C] bf16 workspace; null otherwise).
 extern "C" int svt_sae_sweep_bwd(int bf16, const void* x_cent, const void* w_enc,
                                  const float* b_enc, const void* w_dec, const void* err,
                                  const float* coeffs, const float* ct, float* dw_enc,
                                  float* db_enc, float* dw_dec, float* db_dec_part,
-                                 void* split_ws, int n_tokens, int C, int H, int n_combo,
-                                 int n_split, cudaStream_t stream) {
+                                 void* split_ws, void* err_s, int n_tokens, int C, int H,
+                                 int n_combo, int pair, int n_split, cudaStream_t stream) {
   return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc, dw_dec,
-                 db_dec_part, split_ws, n_tokens, C, H, svt::one_level(H), n_combo, n_split,
-                 stream);
+                 db_dec_part, split_ws, pair ? err_s : nullptr, n_tokens, C, H,
+                 svt::one_level(H), n_combo, pair, n_split, stream);
 }
 
 extern "C" int svt_sae_bwd(int bf16, const void* x_cent, const void* w_enc, const float* b_enc,
                            const void* w_dec, const void* err, const float* coeffs,
                            const float* ct, float* dw_enc, float* db_enc, float* dw_dec,
-                           float* db_dec_part, void* split_ws, int n_tokens, int C, int H,
-                           int n_split, cudaStream_t stream) {
+                           float* db_dec_part, void* split_ws, void* err_s, int n_tokens,
+                           int C, int H, int pair, int n_split, cudaStream_t stream) {
   return svt_sae_sweep_bwd(bf16, x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, dw_enc, db_enc,
-                           dw_dec, db_dec_part, split_ws, n_tokens, C, H, 1, n_split, stream);
+                           dw_dec, db_dec_part, split_ws, err_s, n_tokens, C, H, 1, pair,
+                           n_split, stream);
+}
+
+// The clusters of two coder_bwd_pair<Act::Relu> CTAs that the card holds at
+// once, into *out (-1 where the query fails): a query, no launch.
+extern "C" int svt_sae_pair_clusters(int* out) {
+  *out = pair_clusters<Act::Relu>();
+  return *out < 0 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 // dx is [T, C] f32; x_cent is the forward's centred input, err the [T, C]
@@ -258,18 +290,20 @@ extern "C" int svt_matryoshka_fwd(int bf16, const void* x, const void* w_enc,
                                   n_levels, 1, n_split, stream);
 }
 
-// db_dec_part as for svt_sae_sweep_bwd; the direct rows sum S_0.
+// db_dec_part as for svt_sae_sweep_bwd; the direct rows sum S_0. ``pair``
+// non-zero runs the cluster pair on S as it is (sae_bwd, no err_s).
 extern "C" int svt_matryoshka_sweep_bwd(int bf16, const void* x_cent, const void* w_enc,
                                         const float* b_enc, const void* w_dec, const void* s,
                                         const float* coeffs, const float* ct, float* dw_enc,
                                         float* db_enc, float* dw_dec, float* db_dec_part,
                                         void* split_ws, int n_tokens, int C, int H,
-                                        const int* bounds, int n_levels, int n_combo,
+                                        const int* bounds, int n_levels, int n_combo, int pair,
                                         int n_split, cudaStream_t stream) {
   svt::Levels lv;
   if (!svt::make_levels(bounds, n_levels, H, kFwdLG, &lv)) return cudaErrorInvalidValue;
   return sae_bwd(bf16, x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, dw_enc, db_enc, dw_dec,
-                 db_dec_part, split_ws, n_tokens, C, H, lv, n_combo, n_split, stream);
+                 db_dec_part, split_ws, nullptr, n_tokens, C, H, lv, n_combo, pair, n_split,
+                 stream);
 }
 
 extern "C" int svt_matryoshka_bwd(int bf16, const void* x_cent, const void* w_enc,
@@ -277,10 +311,10 @@ extern "C" int svt_matryoshka_bwd(int bf16, const void* x_cent, const void* w_en
                                   const float* coeffs, const float* ct, float* dw_enc,
                                   float* db_enc, float* dw_dec, float* db_dec_part,
                                   void* split_ws, int n_tokens, int C, int H, const int* bounds,
-                                  int n_levels, int n_split, cudaStream_t stream) {
+                                  int n_levels, int pair, int n_split, cudaStream_t stream) {
   return svt_matryoshka_sweep_bwd(bf16, x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, dw_enc,
                                   db_enc, dw_dec, db_dec_part, split_ws, n_tokens, C, H, bounds,
-                                  n_levels, 1, n_split, stream);
+                                  n_levels, 1, pair, n_split, stream);
 }
 
 // dx as for svt_sae_dx, from the suffix-weighted error S [P, T, C]. One

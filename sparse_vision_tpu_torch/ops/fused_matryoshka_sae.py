@@ -18,7 +18,10 @@ materializations. Fused, it costs almost nothing over the ReLU op:
     backward body and the dx route read S[level(j)] with c_rec = 1 where they
     read c_rec·err (so the kernel's rounding of 1·S is exact and the cast
     points are the Pallas body's). The direct b_dec term is Σ_t S_0, summed by
-    the blocks of level 0.
+    the blocks of level 0. In bf16 at C <= 256 the body is the cluster pair
+    (fused_sae.bwd_route, act "sae": coder_bwd_pair<Act::Relu>, whose D CTA
+    reads its block's level of S as it is), after scale_err_kernel's direct
+    rows of S_0 (no copy of S); wider, coder_bwd_tc.
 As for the ReLU op (ops/fused_sae.py), the forward entry point centres x first
 and the backward and dx run on the saved x_cent; the glue around each entry point
 (partial reductions, the centring rows of db_dec) is shared by the CPU path,
@@ -193,6 +196,32 @@ def matryoshka_bwd_plain(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
             torch.cat([parts[0][3][None], centring_rows_plain(db_enc, w_enc)]))
 
 
+def matryoshka_bwd_pair_plain(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
+    """Plain version of svt_matryoshka_bwd's cluster-pair route:
+    scale_err_kernel's direct rows of db_dec from S_0 (c_rec·S_0 summed per
+    512-token step; no copy of S), then coder_bwd_pair<Act::Relu>, each block
+    reading its level of S as it is: matryoshka_bwd_plain at a unit scale (c_rec
+    is 1 on the op's path), its own direct row left to the pre-pass's."""
+    _, direct = fused_sae.scale_err_plain(s[0], coeffs[0], x_cent.dtype)
+    dw_enc, db_enc, dw_dec, rows = matryoshka_bwd_plain(x_cent, w_enc, b_enc, w_dec, s,
+                                                        fused_sae.unit_scale(coeffs), boundaries)
+    return dw_enc, db_enc, dw_dec, torch.cat([direct, rows[1:]])
+
+
+# the plain version of each backward route (fused_sae.bwd_route, act "sae")
+ROUTE_PLAIN = {"pair": matryoshka_bwd_pair_plain, "tc": matryoshka_bwd_plain,
+               "simt": matryoshka_bwd_plain}
+
+
+def backward_plain(x_cent, *args, route=None):
+    """The plain version of the route the card's backward takes for ``x_cent``
+    (``route``, or fused_sae.bwd_route's for an SAE of its width, levels and
+    dtype); ``args`` end in the prefix boundaries."""
+    c = x_cent.shape[-1]
+    route = route or fused_sae.bwd_route(c, c, len(args[-1]), act="sae", dtype=x_cent.dtype)
+    return ROUTE_PLAIN[route](x_cent, *args)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (entry points of csrc/fused_sae.cu)
 # ---------------------------------------------------------------------------
@@ -209,15 +238,15 @@ def _lib() -> ctypes.CDLL:
     lib.svt_matryoshka_fwd.restype = _I
     lib.svt_matryoshka_fwd.argtypes = [_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _I, _P]
     lib.svt_matryoshka_bwd.restype = _I
-    lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 12 + [_I, _I, _I, _P, _I, _I, _P]
+    lib.svt_matryoshka_bwd.argtypes = [_I] + [_P] * 12 + [_I, _I, _I, _P, _I, _I, _I, _P]
     lib.svt_matryoshka_dx.restype = _I
     lib.svt_matryoshka_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P, _I, _P]
     lib.svt_matryoshka_sweep_fwd.restype = _I
     lib.svt_matryoshka_sweep_fwd.argtypes = ([_I] + [_P] * 10 + [_I, _I, _I, _P, _I, _I, _I]
                                              + [_P])
     lib.svt_matryoshka_sweep_bwd.restype = _I
-    lib.svt_matryoshka_sweep_bwd.argtypes = ([_I] + [_P] * 12 + [_I, _I, _I, _P, _I, _I, _I]
-                                             + [_P])
+    lib.svt_matryoshka_sweep_bwd.argtypes = ([_I] + [_P] * 12
+                                             + [_I, _I, _I, _P, _I, _I, _I, _I] + [_P])
     return lib
 
 
@@ -255,22 +284,29 @@ class _ForwardKernel(Kernel):
 
 
 class _BackwardKernel(Kernel):
-    """csrc svt_matryoshka_bwd: the coder backward body on x_cent, each latent
-    block reading S[level]. Returns what matryoshka_bwd_plain returns."""
+    """csrc svt_matryoshka_bwd: the body fused_sae.bwd_route names on x_cent,
+    each latent block reading S[level]: in bf16 at C <= 256 the cluster pair
+    (scale_err_kernel's direct rows of S_0, then coder_bwd_pair<Act::Relu>;
+    counted on fused_sae.pair_kernel too), else coder_bwd_tc; in f32 the SIMT
+    body. ``route="tc"`` runs coder_bwd_tc on a pair launch. Returns what the
+    route's plain version returns (backward_plain)."""
 
     name = "fused_matryoshka_sae_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries, n_split=None):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries, n_split=None,
+                 route=None):
         t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
         bounds = _bounds(h, boundaries, TILE_H)
         _check_s(x_cent, s, coeffs, len(boundaries))
         ct = coeffs[1:].expand(h).contiguous()
-        sp = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)
+        route, pair = fused_sae.sae_route(x_cent, c, len(boundaries), route)
+        sp = launch_split(x_cent, t, h, c, backward=True, n_split=n_split, pair=bool(pair))
         outs = backward_outputs(x_cent, h)
         self._launch(_lib().svt_matryoshka_bwd, x_cent.device,
                      *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs,
-                            split_workspace(sp, 1, h, c, c, x_cent.device)), t, c, h,
-                     bounds, len(boundaries), sp)
+                            split_workspace(sp, 1, h, c, c, x_cent.device, route)), t, c, h,
+                     bounds, len(boundaries), pair, sp)
+        fused_sae.pair_kernel.launches += pair
         return outs
 
 
@@ -310,10 +346,10 @@ def fused_matryoshka_forward(x, w_enc, b_enc, w_dec, b_dec, boundaries, kernel=f
 def fused_matryoshka_backward(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries,
                               kernel=bwd_kernel):
     """The backward entry point on the saved x_cent (the kernel on CUDA tensors,
-    through ``kernel``; matryoshka_bwd_plain on CPU tensors), db_dec's partial
-    rows reduced here."""
+    through ``kernel``; the plain version of its route, backward_plain, on CPU
+    tensors), db_dec's partial rows reduced here."""
     dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
-        kernel, matryoshka_bwd_plain, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries)
+        kernel, backward_plain, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries)
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
@@ -433,9 +469,9 @@ def matryoshka_sweep_fwd_plain(x, w_enc, b_enc, w_dec, b_dec, boundaries):
 
 
 def matryoshka_sweep_bwd_plain(x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries):
-    """Plain version of svt_matryoshka_sweep_bwd: matryoshka_bwd_plain per combo,
-    stacked; ``s`` [N, P, T, C], ``coeffs`` [N, 2]."""
-    return stack_plain(lambda *a: matryoshka_bwd_plain(*a, boundaries), 0,
+    """Plain version of svt_matryoshka_sweep_bwd's route (backward_plain) per
+    combo, stacked; ``s`` [N, P, T, C], ``coeffs`` [N, 2]."""
+    return stack_plain(lambda *a: backward_plain(*a, boundaries), 0,
                        x_cent, w_enc, b_enc, w_dec, s, coeffs)
 
 
@@ -458,24 +494,29 @@ class _SweepForwardKernel(Kernel):
 
 
 class _SweepBackwardKernel(Kernel):
-    """csrc svt_matryoshka_sweep_bwd: the coder backward body on every combo's
-    x_cent, each latent block reading its combo's S[level], one launch. Returns
-    what matryoshka_sweep_bwd_plain returns."""
+    """csrc svt_matryoshka_sweep_bwd: _BackwardKernel's route (bwd_route's from
+    one dictionary's width and levels) on every combo's x_cent, each latent
+    block reading its combo's S[level], one launch of each pass. Returns what
+    matryoshka_sweep_bwd_plain returns."""
 
     name = "fused_matryoshka_sae_sweep_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries, n_split=None):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, s, coeffs, boundaries, n_split=None,
+                 route=None):
         n, t, c, h = _check_sweep(self.name, x_cent, w_enc, b_enc, w_dec, x_rows=1)
         bounds = _bounds(h, boundaries, TILE_H)
         _expect("S", s, (n, len(boundaries), t, c), x_cent.dtype, x_cent.device)
         _expect("coeffs", coeffs, (n, 2), _F32, x_cent.device)
         ct = coeffs[:, 1:].expand(n, h).contiguous()
-        sp = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)  # one combo's
+        route, pair = fused_sae.sae_route(x_cent, c, len(boundaries), route)
+        sp = launch_split(x_cent, t, h, c, backward=True, n_split=n_split,
+                          pair=bool(pair))  # one combo's
         outs = backward_outputs(x_cent, h)
         self._launch(_lib().svt_matryoshka_sweep_bwd, x_cent.device,
                      *_ptrs(x_cent, w_enc, b_enc, w_dec, s, coeffs, ct, *outs,
-                            split_workspace(sp, n, h, c, c, x_cent.device)), t, c, h,
-                     bounds, len(boundaries), n, sp)
+                            split_workspace(sp, n, h, c, c, x_cent.device, route)), t, c, h,
+                     bounds, len(boundaries), n, pair, sp)
+        fused_sae.pair_kernel.launches += pair
         return outs
 
 

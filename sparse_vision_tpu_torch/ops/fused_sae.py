@@ -15,13 +15,19 @@ with the transcoder and crosscoder ops; wgmma/TMA bodies in bf16, SIMT in f32,
 any width that bodies_take allows) through the entry points of
 csrc/fused_sae.cu: the forward's first centres x (x_cent = x − round(b_dec),
 saved for the backward and dx), the backward adds db_dec's centring term as one
-partial row per 64 latents, and dx is the forward bodies' dx route (kDx). The
+partial row per 64 latents, and dx is the forward bodies' dx route (kDx). In
+bf16 at C <= 256 the backward's body is the cluster pair, coder_bwd_pair<Act::
+Relu> (bwd_route, act "sae": two CTAs a latent block, one holding dW_enc and one
+dW_dec in registers for the whole sweep; counted on ``pair_kernel`` too), after
+scale_err_kernel, which rounds c_rec·err from the saved bf16 error as
+coder_bwd_tc does and writes db_dec's direct rows; wider, coder_bwd_tc. The
 glue around each entry point (the partial reductions, c_l1 broadcast to every
 latent) is the same on both devices; only the entry points differ.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each entry point
-(the same formulas, the same cast points); a CUDA tensor launches the kernel or
-raises. There is no fallback from one to the other.
+(the same formulas, the same cast points; the backward's of its route,
+backward_plain); a CUDA tensor launches the kernel or raises. There is no
+fallback from one to the other.
 
 Cast points (identical to the Pallas kernels): x, W_enc, W_dec and the saved
 error are cast to the compute dtype before the kernels; ``x - b_dec`` is a
@@ -161,34 +167,50 @@ def grid_split(t: int, h: int, c_out: int, *, backward: bool, n_sm: int,
 
 def bwd_route(c_in: int, c_out: int, levels: int = 1, act: str = "relu", dtype=_BF16) -> str:
     """The body that runs a backward launch, from its widths, prefix levels,
-    activation ("relu", "jump" or "gated") and operand dtype alone:
+    epilogue and operand dtype alone. ``act`` names the epilogue and so the
+    caller's entry point: "relu" the coders' (svt_coder_bwd: the transcoder
+    and the crosscoder, no centred input, no centring row), "sae" the ReLU and
+    Matryoshka SAEs' (the same ReLU on x_cent with db_dec's centring row:
+    svt_sae_bwd, svt_matryoshka_bwd and their sweeps), "jump" the JumpReLU
+    SAE's, "gated" the gated SAE's.
     - "held": csrc/coder.cuh's coder_bwd_held, two launches (pass E holds dW_enc,
       pass D dW_dec, each in registers for the whole token sweep, written once),
-      for a bf16 ReLU backward of one level with C_in <= 256 and 256 < C_out <=
-      512: the transcoder at its training widths, 256 -> 480, on one card and
-      on a shard (PERF.md rows 12 and 24). On an H100 80GB HBM3 at 700 W
-      (chip_smoke.py's "[route]" lines; PERF.md's kernel table) it ran row 12
-      in 7.255 ms against coder_bwd_tc's 8.064 on the same launch, and row 24
-      in 1.867 against 2.053;
+      for a bf16 coder ("relu") backward of one level with C_in <= 256 and 256
+      < C_out <= 512: the transcoder at its training widths, 256 -> 480, on one
+      card and on a shard (PERF.md rows 12 and 24). On an H100 80GB HBM3 at
+      700 W (chip_smoke.py's "[route]" lines; PERF.md's kernel table) it ran
+      row 12 in 7.255 ms against coder_bwd_tc's 8.064 on the same launch, and
+      row 24 in 1.867 against 2.053;
     - "pair": coder_bwd_pair, one launch in which two CTAs of a thread block
       cluster share a latent block (E holds dW_enc, D dW_dec, each in
       registers for the whole sweep; they trade post and dpre through
-      distributed shared memory), for a bf16 JumpReLU backward of one level
-      with C_in = C_out <= PAIR_C (256, the widest tile a CTA holds), at any
-      T and H. On an H100 80GB HBM3 at 700 W, each body at grid_split's
-      split of its own grid, the pair's body ran faster on the device than
-      coder_bwd_tc's at every width (8, 64, 128, 192, 256) and shape of
-      chip_bwd_probe.py's route grid (T 4,096 and 32,768, expansions 2 to
-      64), and the launch faster wherever the device, not the wrapper's host
-      work, set its time: rows 5, 20 and 32 and C 64 and 192 in
-      chip_smoke.py's "[route]" lines (PERF.md, "Findings");
+      distributed shared memory), with C_in = C_out <= PAIR_C (256, the widest
+      tile a CTA holds), at any T and H:
+      * a bf16 JumpReLU backward of one level (coder_bwd_pair<Act::Jump>). On
+        an H100 80GB HBM3 at 700 W, each body at grid_split's split of its own
+        grid, the pair's body ran faster on the device than coder_bwd_tc's at
+        every width (8, 64, 128, 192, 256) and shape of chip_bwd_probe.py's
+        route grid (T 4,096 and 32,768, expansions 2 to 64), and the launch
+        faster wherever the device, not the wrapper's host work, set its time:
+        rows 5, 20 and 32 and C 64 and 192 in chip_smoke.py's "[route]" lines
+        (PERF.md, "Findings");
+      * a bf16 "sae" backward, one level or any prefix levels
+        (coder_bwd_pair<Act::Relu> after the scale_err_kernel pre-pass, its
+        D CTA reading its block's level of S). On the same card, each body at
+        grid_split's split of its own grid, the pair's body ran faster on the
+        device than coder_bwd_tc's at all 36 shapes of chip_bwd_probe.py's
+        route grid for the SAEs (C 8, 64, 128, 192, 256; T 4,096 and 32,768;
+        expansions 2, 16, 64; three prefix levels at C 256), 1.27-3.56x, and
+        the launch 1.30-2.99x faster at T 32,768; at T 4,096 and H to 3,072,
+        where the bodies take 0.02-0.09 ms, the wrapper's host work sets the
+        launch's time (PERF.md, "Findings");
     - "tc": coder_bwd_tc, dW updated in place once a 512-token step, for every
-      other bf16 backward: the JumpReLU epilogue above C 256, the gated one,
-      the Matryoshka levels, wider dictionaries (the crosscoder's ΣC 2,896; C_in 264 and up,
-      C_out 520 and up), whose gradient tiles do not fit in registers, and
-      C_out <= 256, where the held passes were no faster on the same card
-      (rows 2 and 16 tied, the sweep's row 28 ran slower, in builds of an
-      SAE instantiation not kept: PERF.md, "Findings");
+      other bf16 backward: the coders' at C_out <= 256 (their entry point has
+      no pair route, and there the held passes were no faster on the same
+      card: PERF.md, "Findings"), the gated epilogue, the JumpReLU one with
+      levels, and every dictionary wider than the pair's and held passes'
+      registers (the crosscoder's ΣC 2,896; C_in 264 and up, C_out 520 and
+      up);
     - "simt": the f32 check path, coder_bwd_kernel.
     A launch that this rule sends to "held" or "pair" runs that body or raises:
     no other body takes its place."""
@@ -197,7 +219,7 @@ def bwd_route(c_in: int, c_out: int, levels: int = 1, act: str = "relu", dtype=_
     if (act == "relu" and levels == 1 and c_in <= HELD_CIN
             and HELD_MIN_COUT < c_out <= HELD_COUT):
         return "held"
-    if act == "jump" and levels == 1 and c_in == c_out <= PAIR_C:
+    if c_in == c_out <= PAIR_C and (act == "sae" or (act == "jump" and levels == 1)):
         return "pair"
     return "tc"
 
@@ -413,10 +435,12 @@ def center_plain(x, b_dec):
 
 
 def scale_err_plain(err, c, cd):
-    """Plain version of csrc scale_err_kernel, the JumpReLU and gated backwards'
-    pre-pass: (round(c·err) [T, C] in ``cd``, the f32 column sums of the
-    unrounded c·err over each BF16_STEP_T-token step [ceil(T / 512), C])."""
-    d = c * err
+    """Plain version of csrc scale_err_kernel, the bf16 pre-pass of the JumpReLU
+    and gated backwards (f32 err) and of the ReLU and Matryoshka SAEs' cluster
+    pair (bf16 err): (round(c·err) [T, C] in ``cd``, the f32 column sums of
+    the unrounded c·err over each BF16_STEP_T-token step [ceil(T / 512), C]),
+    c·err in f32 whatever err's dtype."""
+    d = c * err.float()
     return d.to(cd), torch.stack([s.sum(0) for s in d.split(BF16_STEP_T)])
 
 
@@ -444,6 +468,37 @@ def sae_bwd_plain(x_cent, w_enc, b_enc, w_dec, err, coeffs):
     return dw_enc, db_enc, dw_dec, torch.cat([direct[None], centring_rows_plain(db_enc, w_enc)])
 
 
+def unit_scale(coeffs):
+    """(1, c_l1) of (c_rec, c_l1): the coefficients of a body that reads its
+    error already scaled."""
+    return torch.stack([torch.ones_like(coeffs[0]), coeffs[1]])
+
+
+def sae_bwd_pair_plain(x_cent, w_enc, b_enc, w_dec, err, coeffs):
+    """Plain version of svt_sae_bwd's cluster-pair route: scale_err_kernel on
+    the bf16 error (scale_err_plain: round(c_rec·err) and its per-step direct
+    rows of db_dec), then coder_bwd_pair<Act::Relu>, sae_bwd_plain's function
+    on the rounded error at a unit scale, its own direct row left to the
+    pre-pass's. Returns (dW_enc, db_enc, dW_dec, db_dec_part): the direct rows,
+    then the centring row."""
+    scaled, direct = scale_err_plain(err, coeffs[0], x_cent.dtype)
+    dw_enc, db_enc, dw_dec, rows = sae_bwd_plain(x_cent, w_enc, b_enc, w_dec, scaled,
+                                                 unit_scale(coeffs))
+    return dw_enc, db_enc, dw_dec, torch.cat([direct, rows[1:]])
+
+
+# the plain version of each backward route of the SAE entry points (bwd_route,
+# act "sae"): the pair computes coder_bwd_tc's function after its pre-pass
+ROUTE_PLAIN = {"pair": sae_bwd_pair_plain, "tc": sae_bwd_plain, "simt": sae_bwd_plain}
+
+
+def backward_plain(x_cent, *args, route=None):
+    """The plain version of the route the card's backward takes for ``x_cent``
+    (``route``, or bwd_route's for an SAE of its width and dtype)."""
+    c = x_cent.shape[-1]
+    return ROUTE_PLAIN[route or bwd_route(c, c, act="sae", dtype=x_cent.dtype)](x_cent, *args)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -460,14 +515,27 @@ def _lib() -> ctypes.CDLL:
     lib.svt_sae_fwd.restype = _I
     lib.svt_sae_fwd.argtypes = [_I] + [_P] * 10 + [_I] * 4 + [_P]
     lib.svt_sae_bwd.restype = _I
-    lib.svt_sae_bwd.argtypes = [_I] + [_P] * 12 + [_I] * 4 + [_P]
+    lib.svt_sae_bwd.argtypes = [_I] + [_P] * 13 + [_I] * 5 + [_P]
     lib.svt_sae_dx.restype = _I
     lib.svt_sae_dx.argtypes = [_I] + [_P] * 7 + [_I, _I, _I, _P]
     lib.svt_sae_sweep_fwd.restype = _I
     lib.svt_sae_sweep_fwd.argtypes = [_I] + [_P] * 10 + [_I] * 5 + [_P]
     lib.svt_sae_sweep_bwd.restype = _I
-    lib.svt_sae_sweep_bwd.argtypes = [_I] + [_P] * 12 + [_I] * 5 + [_P]
+    lib.svt_sae_sweep_bwd.argtypes = [_I] + [_P] * 13 + [_I] * 6 + [_P]
+    lib.svt_sae_pair_clusters.restype = _I
+    lib.svt_sae_pair_clusters.argtypes = [_P]
     return lib
+
+
+def pair_clusters() -> int:
+    """The clusters of coder_bwd_pair<Act::Relu> (two CTAs each) that the
+    current card holds at once (cudaOccupancyMaxActiveClusters); raises where
+    the query fails."""
+    out = (ctypes.c_int * 1)()
+    rc = _lib().svt_sae_pair_clusters(out)
+    if rc != 0:
+        raise RuntimeError(f"svt_sae_pair_clusters failed: cudaError_t {rc}")
+    return out[0]
 
 
 def _expect(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
@@ -584,23 +652,55 @@ class _ForwardKernel(Kernel):
         return join_forward(outs, s)
 
 
+class _PairBody(Kernel):
+    """The cluster-pair backward body of the ReLU and Matryoshka SAEs (csrc/
+    coder.cuh coder_bwd_pair<Act::Relu>, bwd_route's "pair" for act "sae"):
+    its count goes up wherever one of their backward launches runs it (the
+    launching wrapper's own count goes up too)."""
+
+    name = "coder_bwd_pair_relu"
+
+
+pair_kernel = _PairBody()
+
+
+def sae_route(x_cent, c: int, levels: int, route) -> tuple:
+    """(route, its ``pair`` flag for the SAE backward entry points): ``route``
+    where the caller names one (chip_smoke.py times "tc" on a pair launch),
+    else bwd_route's for an SAE backward of width c and ``levels`` prefix
+    levels in x_cent's dtype."""
+    route = route or bwd_route(c, c, levels, act="sae", dtype=x_cent.dtype)
+    if route not in ROUTE_PLAIN:
+        raise ValueError(f"fused SAE backward: no {route!r} route (its routes: "
+                         f"{', '.join(ROUTE_PLAIN)})")
+    return route, int(route == "pair")
+
+
 class _BackwardKernel(Kernel):
-    """csrc svt_sae_bwd: the coder backward body on x_cent, c_l1 broadcast to
-    every latent. Returns what sae_bwd_plain returns (one centring row per 64
-    latents)."""
+    """csrc svt_sae_bwd: the body bwd_route names on x_cent, c_l1 broadcast to
+    every latent: in bf16 at C <= 256 the cluster pair (scale_err_kernel, then
+    coder_bwd_pair<Act::Relu>; counted on ``pair_kernel`` too), else
+    coder_bwd_tc; in f32 the SIMT body. ``route="tc"`` runs coder_bwd_tc on a
+    pair launch. Returns what the route's plain version returns
+    (backward_plain; one centring row per 64 latents)."""
 
     name = "fused_sae_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs, n_split=None):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs, n_split=None, route=None):
         t, c, h = _check_operands(x_cent, w_enc, b_enc, w_dec)
-        _expect("err", err, (t, c), x_cent.dtype, x_cent.device)
-        _expect("coeffs", coeffs, (2,), _F32, x_cent.device)
+        dev = x_cent.device
+        _expect("err", err, (t, c), x_cent.dtype, dev)
+        _expect("coeffs", coeffs, (2,), _F32, dev)
         ct = coeffs[1:].expand(h).contiguous()
-        s = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)
+        route, pair = sae_route(x_cent, c, 1, route)
+        s = launch_split(x_cent, t, h, c, backward=True, n_split=n_split, pair=bool(pair))
         outs = backward_outputs(x_cent, h)
-        self._launch(_lib().svt_sae_bwd, x_cent.device,
+        err_s = torch.empty_like(err) if pair else None  # round(c_rec·err), the pre-pass's
+        self._launch(_lib().svt_sae_bwd, dev,
                      *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs,
-                            split_workspace(s, 1, h, c, c, x_cent.device)), t, c, h, s)
+                            split_workspace(s, 1, h, c, c, dev, route), err_s), t, c, h,
+                     pair, s)
+        pair_kernel.launches += pair
         return outs
 
 
@@ -649,10 +749,11 @@ def fused_sae_forward(x, w_enc, b_enc, w_dec, b_dec, kernel=fwd_kernel):
 
 def fused_sae_backward(x_cent, w_enc, b_enc, w_dec, err, coeffs, kernel=bwd_kernel):
     """The backward entry point on the saved x_cent (the kernel on CUDA tensors,
-    through ``kernel``; sae_bwd_plain on CPU tensors), db_dec's partial rows
-    reduced here: (dW_enc, db_enc, dW_dec, db_dec)."""
+    through ``kernel``; the plain version of its route, backward_plain, on CPU
+    tensors), db_dec's partial rows reduced here: (dW_enc, db_enc, dW_dec,
+    db_dec)."""
     dw_enc, db_enc, dw_dec, db_dec_part = run_on_device(
-        kernel, sae_bwd_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
+        kernel, backward_plain, x_cent, w_enc, b_enc, w_dec, err, coeffs)
     return dw_enc, db_enc, dw_dec, db_dec_part.sum(0)
 
 
@@ -768,9 +869,9 @@ def sae_sweep_fwd_plain(x, w_enc, b_enc, w_dec, b_dec):
 
 
 def sae_sweep_bwd_plain(x_cent, w_enc, b_enc, w_dec, err, coeffs):
-    """Plain version of svt_sae_sweep_bwd: sae_bwd_plain per combo, stacked;
-    ``coeffs`` [N, 2]."""
-    return stack_plain(sae_bwd_plain, 0, x_cent, w_enc, b_enc, w_dec, err, coeffs)
+    """Plain version of svt_sae_sweep_bwd's route for x_cent's width and dtype
+    (backward_plain) per combo, stacked; ``coeffs`` [N, 2]."""
+    return stack_plain(backward_plain, 0, x_cent, w_enc, b_enc, w_dec, err, coeffs)
 
 
 def _check_sweep(name, x, w_enc, b_enc, w_dec, b_dec=None, x_rows: int = 0):
@@ -813,22 +914,29 @@ class _SweepForwardKernel(Kernel):
 
 
 class _SweepBackwardKernel(Kernel):
-    """csrc svt_sae_sweep_bwd: the coder backward body on every combo's x_cent,
-    one launch. Returns what sae_sweep_bwd_plain returns (one centring row per
-    64 latents)."""
+    """csrc svt_sae_sweep_bwd: _BackwardKernel's route (bwd_route's from one
+    dictionary's width) on every combo's x_cent, one launch of each pass.
+    Returns what sae_sweep_bwd_plain returns (one centring row per 64
+    latents)."""
 
     name = "fused_sae_sweep_bwd"
 
-    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs, n_split=None):
+    def __call__(self, x_cent, w_enc, b_enc, w_dec, err, coeffs, n_split=None, route=None):
         n, t, c, h = _check_sweep(self.name, x_cent, w_enc, b_enc, w_dec, x_rows=1)
-        _expect("err", err, (n, t, c), x_cent.dtype, x_cent.device)
-        _expect("coeffs", coeffs, (n, 2), _F32, x_cent.device)
+        dev = x_cent.device
+        _expect("err", err, (n, t, c), x_cent.dtype, dev)
+        _expect("coeffs", coeffs, (n, 2), _F32, dev)
         ct = coeffs[:, 1:].expand(n, h).contiguous()
-        s = launch_split(x_cent, t, h, c, backward=True, n_split=n_split)  # one combo's
+        route, pair = sae_route(x_cent, c, 1, route)
+        s = launch_split(x_cent, t, h, c, backward=True, n_split=n_split,
+                         pair=bool(pair))  # one combo's
         outs = backward_outputs(x_cent, h)
-        self._launch(_lib().svt_sae_sweep_bwd, x_cent.device,
+        err_s = torch.empty_like(err) if pair else None
+        self._launch(_lib().svt_sae_sweep_bwd, dev,
                      *_ptrs(x_cent, w_enc, b_enc, w_dec, err, coeffs, ct, *outs,
-                            split_workspace(s, n, h, c, c, x_cent.device)), t, c, h, n, s)
+                            split_workspace(s, n, h, c, c, dev, route), err_s), t, c, h, n,
+                     pair, s)
+        pair_kernel.launches += pair
         return outs
 
 

@@ -203,6 +203,8 @@ def coder_backward_launch(kernel: Kernel, x, w_enc, b_enc, w_dec, err, coeffs, c
         raise ValueError("fused transcoder kernel: coeffs must be a contiguous f32 tensor "
                          f"on {dev}")
     route = route or bwd_route(c_in, c_out, dtype=x.dtype)
+    if route not in ("tc", "simt", *HELD_FLAGS):  # svt_coder_bwd has no cluster pair
+        raise ValueError(f"fused coder backward: no {route!r} route")
     s = launch_split(x, t, h, c_out, backward=True, n_split=n_split)
     dw_enc = torch.empty((c_in, h), dtype=_F32, device=dev)
     db_enc = torch.empty((h,), dtype=_F32, device=dev)

@@ -42,29 +42,31 @@ torch.set_num_threads(1)
 BF16 = torch.bfloat16
 F32 = torch.float32
 
-# (label, C_in, C_out, prefix levels, activation, dtype) -> the body; the
+# (label, C_in, C_out, prefix levels, epilogue, dtype) -> the body; the
 # shapes of PERF.md section 4 (the training widths, on a rank's shard and in the
 # sweep alike: the rule reads no T or H). At C 256 the held passes were no
 # faster than coder_bwd_tc on the card, nor was a coder_bwd_tc that held both
-# tiles in registers (PERF.md, "Findings"), so rows 2, 16 and 28 keep it.
+# tiles in registers (PERF.md, "Findings"); the cluster pair was, so the SAEs'
+# rows 2, 16 and 28 (epilogue "sae") take it, and the coders ("relu", whose
+# entry point has no pair) keep coder_bwd_tc at C_out 256
 ROUTES = {
-    "row 2 sae_mlp backward (C 256)": (256, 256, 1, "relu", BF16, "tc"),
+    "row 2 sae_mlp backward (C 256)": (256, 256, 1, "sae", BF16, "pair"),
     "row 12 transcoder backward (256 -> 480)": (256, 480, 1, "relu", BF16, "held"),
-    "row 16 sae_mlp TP backward (shard, C 256)": (256, 256, 1, "relu", BF16, "tc"),
+    "row 16 sae_mlp TP backward (shard, C 256)": (256, 256, 1, "sae", BF16, "pair"),
     "row 24 transcoder TP backward (shard, 256 -> 480)": (256, 480, 1, "relu", BF16, "held"),
-    "row 28 sae_mlp sweep backward (C 256)": (256, 256, 1, "relu", BF16, "tc"),
+    "row 28 sae_mlp sweep backward (C 256)": (256, 256, 1, "sae", BF16, "pair"),
     "rows 14, 26 crosscoder backward (ΣC 2,896)": (2896, 2896, 1, "relu", BF16, "tc"),
     "rows 5, 20, 32 JumpReLU backward": (256, 256, 1, "jump", BF16, "pair"),
     "rows 7, 18, 30 gated backward": (256, 256, 1, "gated", BF16, "tc"),
-    "rows 9, 22, 34 Matryoshka backward (3 levels)": (256, 256, 3, "relu", BF16, "tc"),
-    "phase 12 SAE C 512": (512, 512, 1, "relu", BF16, "tc"),
-    "phase 12 SAE C 768": (768, 768, 1, "relu", BF16, "tc"),
+    "rows 9, 22, 34 Matryoshka backward (3 levels)": (256, 256, 3, "sae", BF16, "pair"),
+    "phase 12 SAE C 512": (512, 512, 1, "sae", BF16, "tc"),
+    "phase 12 SAE C 768": (768, 768, 1, "sae", BF16, "tc"),
     "phase 12 transcoder 768 -> 768": (768, 768, 1, "relu", BF16, "tc"),
     "phase 10 transcoder 528 -> 832": (528, 832, 1, "relu", BF16, "tc"),
     "ragged coder pair, C_in 264 -> 136": (264, 136, 1, "relu", BF16, "tc"),
     "C8's ragged held transcoder, 136 -> 264": (136, 264, 1, "relu", BF16, "held"),
     "C_out 520 (past the held 512)": (256, 520, 1, "relu", BF16, "tc"),
-    "row 2 in f32 (the check path)": (256, 256, 1, "relu", F32, "simt"),
+    "row 2 in f32 (the check path)": (256, 256, 1, "sae", F32, "simt"),
     "row 12 in f32": (256, 480, 1, "relu", F32, "simt"),
     "crosscoder in f32": (2896, 2896, 1, "relu", F32, "simt"),
 }
@@ -86,10 +88,14 @@ def test_route_boundary(c_in, c_out):
     and at which it beat coder_bwd_tc: C_in <= 256 < C_out <= 512."""
     held = c_in <= fused_sae.HELD_CIN and fused_sae.HELD_MIN_COUT < c_out <= fused_sae.HELD_COUT
     assert (bwd_route(c_in, c_out) == "held") == held
-    # the JumpReLU epilogue takes the cluster pair at one width up to 256
-    # (tests/test_torch_bwd_pair.py), the gated one never leaves coder_bwd_tc
+    # the JumpReLU epilogue takes the cluster pair at one width up to 256, and
+    # so do the ReLU and Matryoshka SAEs' at any levels
+    # (tests/test_torch_bwd_pair.py); the gated one never leaves coder_bwd_tc,
+    # nor do the coders' levels
     pair = c_in == c_out <= fused_sae.PAIR_C
     assert bwd_route(c_in, c_out, act="jump") == ("pair" if pair else "tc")
+    assert bwd_route(c_in, c_out, act="sae") == ("pair" if pair else "tc")
+    assert bwd_route(c_in, c_out, levels=2, act="sae") == ("pair" if pair else "tc")
     assert bwd_route(c_in, c_out, act="gated") == "tc"
     assert bwd_route(c_in, c_out, levels=2) == "tc"
 

@@ -1,8 +1,9 @@
 """The cluster-pair backward route (sparse_vision_tpu_torch/csrc/coder.cuh
 coder_bwd_pair): the rule that picks it (ops/fused_sae.bwd_route), the grid
-split of its launches (ops/fused_sae.grid_split), the JumpReLU wrappers that
-pass both to the C entry points, and its plain version against the JAX
-package's JumpReLU backward kernel.
+split of its launches (ops/fused_sae.grid_split), the JumpReLU, ReLU and
+Matryoshka SAE wrappers that pass both to the C entry points, and its plain
+versions against the JAX package's JumpReLU, ReLU and Matryoshka backward
+kernels.
 
 On the card the route is one launch in which two CTAs of a thread block
 cluster share a 64-latent block: E holds dW_enc, D holds dW_dec in registers
@@ -28,8 +29,19 @@ import numpy as np
 import pytest
 import torch
 
+from sparse_vision_tpu.models.sae import init_sae_mlp
 from sparse_vision_tpu.ops.fused_jumprelu_sae import fused_jumprelu_sae_loss_terms as jax_fused
-from sparse_vision_tpu_torch.ops import fused_jumprelu_sae, fused_sae, fused_sae_tp
+from sparse_vision_tpu.ops.fused_matryoshka_sae import make_fused_matryoshka_sae_op
+from sparse_vision_tpu.ops.fused_sae import fused_sae_loss_terms as jax_relu
+from sparse_vision_tpu_torch import convert
+from sparse_vision_tpu_torch.ops import (
+    fused_crosscoder,
+    fused_jumprelu_sae,
+    fused_matryoshka_sae,
+    fused_sae,
+    fused_sae_tp,
+    fused_transcoder,
+)
 from sparse_vision_tpu_torch.ops.fused_sae import bwd_route, grid_split
 from test_torch_bwd_held import _t
 from test_torch_grid_split import DECLS, N_SM, _z, libs  # noqa: F401 (libs: a fixture)
@@ -39,11 +51,14 @@ torch.set_num_threads(1)
 BF16 = torch.bfloat16
 F32 = torch.float32
 
-# (label, C_in, C_out, prefix levels, activation, dtype) -> the body, at the
+# (label, C_in, C_out, prefix levels, epilogue, dtype) -> the body, at the
 # shapes of PERF.md's kernel table and the rule's boundaries. It reads no T or
 # H: on the card, each at its own split, the pair's body beat coder_bwd_tc's
 # at every width from 8 to 256 and every T and H of chip_bwd_probe.py's route
-# grid; past C 256 its gradient tile does not fit in a CTA's registers
+# grid, with the JumpReLU epilogue and with the ReLU SAE's ("sae", also at
+# three prefix levels); past C 256 its gradient tile does not fit in a CTA's
+# registers. The coders ("relu": the transcoder and the crosscoder, whose entry
+# point has no pair) keep their routes at equal widths
 ROUTES = {
     "row 5 JumpReLU backward (C 256)": (256, 256, 1, "jump", BF16, "pair"),
     "row 20 JumpReLU TP backward (shard, C 256)": (256, 256, 1, "jump", BF16, "pair"),
@@ -58,12 +73,20 @@ ROUTES = {
     "JumpReLU with 3 levels (no such op: the levels are the ReLU SAE's)": (
         256, 256, 3, "jump", BF16, "tc"),
     "unequal widths": (256, 136, 1, "jump", BF16, "tc"),
-    "rows 2, 16, 28 ReLU backward (C 256)": (256, 256, 1, "relu", BF16, "tc"),
+    "rows 2, 16, 28 ReLU backward (C 256)": (256, 256, 1, "sae", BF16, "pair"),
     "rows 7, 18, 30 gated backward (C 256)": (256, 256, 1, "gated", BF16, "tc"),
-    "rows 9, 22, 34 Matryoshka backward (3 levels)": (256, 256, 3, "relu", BF16, "tc"),
+    "rows 9, 22, 34 Matryoshka backward (3 levels)": (256, 256, 3, "sae", BF16, "pair"),
+    "the ReLU SAE's ragged shape, C 136": (136, 136, 1, "sae", BF16, "pair"),
+    "the ReLU SAE at C 8": (8, 8, 1, "sae", BF16, "pair"),
+    "the ReLU SAE past the pair's registers, C 264": (264, 264, 1, "sae", BF16, "tc"),
+    "the ReLU SAE at C 480 (kernels_sae_widths)": (480, 480, 1, "sae", BF16, "tc"),
+    "the Matryoshka SAE at C 832 (kernels_sae_widths)": (832, 832, 3, "sae", BF16, "tc"),
+    "a transcoder at 256 -> 256 keeps coder_bwd_tc": (256, 256, 1, "relu", BF16, "tc"),
+    "a transcoder at 136 -> 136 keeps coder_bwd_tc": (136, 136, 1, "relu", BF16, "tc"),
     "row 12 transcoder backward (256 -> 480)": (256, 480, 1, "relu", BF16, "held"),
     "row 5 in f32 (the check path)": (256, 256, 1, "jump", F32, "simt"),
     "C 136 in f32": (136, 136, 1, "jump", F32, "simt"),
+    "row 2 in f32": (256, 256, 1, "sae", F32, "simt"),
 }
 
 
@@ -76,12 +99,13 @@ def test_route_at_table_shapes(label):
 
 
 @pytest.mark.parametrize("c", (8, 64, 136, 248, 256, 264, 512))
-@pytest.mark.parametrize("act", ("jump", "relu", "gated"))
+@pytest.mark.parametrize("act", ("jump", "relu", "gated", "sae"))
 @pytest.mark.parametrize("levels", (1, 3))
 def test_route_boundary(c, act, levels):
-    """The pair takes exactly a bf16 JumpReLU backward of one level whose
-    width its registers hold (C <= PAIR_C); f32 is SIMT's."""
-    pair = act == "jump" and levels == 1 and c <= fused_sae.PAIR_C
+    """The pair takes exactly a bf16 JumpReLU backward of one level and a ReLU
+    or Matryoshka SAE backward of any levels whose width its registers hold
+    (C <= PAIR_C), never the coders'; f32 is SIMT's."""
+    pair = (act == "sae" or (act == "jump" and levels == 1)) and c <= fused_sae.PAIR_C
     assert (bwd_route(c, c, levels, act) == "pair") == pair
     assert bwd_route(c, c, levels, act, F32) == "simt"
 
@@ -245,12 +269,134 @@ def test_pair_route_not_taken_in_f32_or_past_its_width(libs, monkeypatch):
     assert fused_jumprelu_sae.pair_kernel.launches == 0
 
 
-def test_pair_clusters_query_is_bound(libs):
-    """svt_jumprelu_pair_clusters (the build phase's cluster occupancy) is
-    bound with its one pointer argument."""
-    lib = libs[fused_jumprelu_sae]
-    assert lib.svt_jumprelu_pair_clusters.argtypes == [fused_jumprelu_sae._P]
-    assert fused_jumprelu_sae.pair_clusters() == 0  # the stand-in writes nothing
+@pytest.mark.parametrize("mod", (fused_jumprelu_sae, fused_sae), ids=("jump", "relu"))
+def test_pair_clusters_query_is_bound(libs, mod):
+    """svt_jumprelu_pair_clusters and svt_sae_pair_clusters (the build phase's
+    cluster occupancy of each instantiation) are bound with their one pointer
+    argument."""
+    entry = "svt_jumprelu_pair_clusters" if mod is fused_jumprelu_sae else "svt_sae_pair_clusters"
+    assert getattr(libs[mod], entry).argtypes == [mod._P]
+    assert mod.pair_clusters() == 0  # the stand-in writes nothing
+
+
+# ---------------------------------------------------------------------------
+# the ReLU and Matryoshka SAEs' wrappers on the pair (the stand-in library)
+# ---------------------------------------------------------------------------
+
+SAE_LEVELS = (128, 1024, PH)  # Matryoshka prefixes at (PT, PC, PH)
+
+# the six SAE backward wrappers: (kernel, sweep N or 0, prefix levels or None)
+SAE_WRAPPERS = {"sae_mlp one card": (fused_sae.bwd_kernel, 0, None),
+                "sae_mlp TP shard": (fused_sae_tp.bwd_kernel, 0, None),
+                "sae_mlp sweep of 3": (fused_sae.sweep_bwd_kernel, 3, None),
+                "matryoshka one card": (fused_matryoshka_sae.bwd_kernel, 0, SAE_LEVELS),
+                "matryoshka TP shard": (fused_sae_tp.matryoshka_bwd_kernel, 0, SAE_LEVELS),
+                "matryoshka sweep of 3": (fused_matryoshka_sae.sweep_bwd_kernel, 3, SAE_LEVELS)}
+
+
+def _sae_launch(kernel, n: int, levels, dtype=BF16, **kw):
+    """One SAE backward launch through ``kernel`` at (PT, PC, PH) on zeros: the
+    ReLU SAE's (levels None) or the Matryoshka SAE's S at ``levels``; one
+    dictionary (n 0) or a sweep of n combos."""
+    lead = (n,) if n else ()
+    p = (len(levels),) if levels else ()
+    ops = (_z(*lead, PT, PC, dtype=dtype), _z(*lead, PC, PH, dtype=dtype), _z(*lead, PH),
+           _z(*lead, PH, PC, dtype=dtype), _z(*lead, *p, PT, PC, dtype=dtype), _z(*lead, 2))
+    return kernel(*ops, *((levels,) if levels else ()), **kw)
+
+
+def _sae_entry(n: int, levels) -> str:
+    return f"svt_{'matryoshka' if levels else 'sae'}_{'sweep_' if n else ''}bwd"
+
+
+@pytest.mark.parametrize("which", list(SAE_WRAPPERS))
+def test_sae_pair_route_flag_split_and_counts(libs, monkeypatch, which):
+    """Where the rule gives the SAEs' backward the pair (C <= 256, any levels),
+    each of the six wrappers passes ``pair`` 1 with the pair's split and a
+    workspace of two ticket arrays (the ReLU SAE's also its err_s workspace,
+    the Matryoshka SAE none: its pair reads S as it is), and counts one launch
+    of its own and one of coder_bwd_pair<Act::Relu> (fused_sae.pair_kernel);
+    route "tc" passes 0 with coder_bwd_tc's split, no err_s and no pair
+    launch; the unsplit launch passes no workspace."""
+    kernel, n, levels = SAE_WRAPPERS[which]
+    monkeypatch.setattr(fused_sae.pair_kernel, "launches", 0)
+    monkeypatch.setattr(kernel, "launches", 0)
+    assert bwd_route(PC, PC, len(levels or (1,)), act="sae") == "pair"
+    entry = _sae_entry(n, levels)
+    names = [p for _, p in DECLS[entry]]
+    pair_s = grid_split(PT, PH, PC, backward=True, n_sm=N_SM, pair=True)
+    tc_s = grid_split(PT, PH, PC, backward=True, n_sm=N_SM)
+    assert (pair_s, tc_s) == (2, 4)
+    mod = fused_matryoshka_sae if levels else fused_sae
+    ws = fused_sae.split_workspace  # the workspaces the wrapper allocates, by route
+    sizes = []
+    monkeypatch.setattr(mod, "split_workspace",
+                        lambda *a, **k: sizes.append((a, k)) or ws(*a, **k))
+    for i, (kw, flag, s, pairs) in enumerate((({}, 1, pair_s, 1), ({"route": "tc"}, 0, tc_s, 1),
+                                              ({"n_split": 1}, 1, 1, 2))):
+        outs = _sae_launch(kernel, n, levels, **kw)
+        args = getattr(libs[mod], entry).calls[-1]
+        assert args[names.index("pair")] == flag, kw
+        assert args[names.index("n_split")] == s, kw
+        assert (args[names.index("split_ws")] is None) == (s == 1), kw
+        if not levels:
+            assert (args[names.index("err_s")] is None) == (flag == 0), kw
+        assert sizes[-1][0][0] == s and sizes[-1][0][1] == max(n, 1)
+        assert sizes[-1][0][-1] == ("pair" if flag else "tc")
+        assert kernel.launches == i + 1
+        assert fused_sae.pair_kernel.launches == pairs, kw
+        lead = (n,) if n else ()
+        assert outs[0].shape == (*lead, PC, PH) and outs[2].shape == (*lead, PH, PC)
+
+
+@pytest.mark.parametrize("which", list(SAE_WRAPPERS))
+def test_sae_pair_route_not_taken_in_f32(libs, monkeypatch, which):
+    """The f32 check path passes ``pair`` 0, no err_s, and counts no pair
+    launch; a route the SAEs' entry points do not have raises before any
+    launch."""
+    kernel, n, levels = SAE_WRAPPERS[which]
+    monkeypatch.setattr(fused_sae.pair_kernel, "launches", 0)
+    monkeypatch.setattr(kernel, "launches", kernel.launches)
+    entry = _sae_entry(n, levels)
+    names = [p for _, p in DECLS[entry]]
+    mod = fused_matryoshka_sae if levels else fused_sae
+    _sae_launch(kernel, n, levels, dtype=F32)
+    args = getattr(libs[mod], entry).calls[-1]
+    assert args[names.index("pair")] == 0 and args[names.index("n_split")] == 1
+    if not levels:
+        assert args[names.index("err_s")] is None
+    assert fused_sae.pair_kernel.launches == 0
+    calls = len(getattr(libs[mod], entry).calls)
+    with pytest.raises(ValueError, match="held"):
+        _sae_launch(kernel, n, levels, route="held")
+    assert len(getattr(libs[mod], entry).calls) == calls
+
+
+@pytest.mark.parametrize("c", (256, 136))
+@pytest.mark.parametrize("name", ("transcoder", "crosscoder"))
+def test_coders_keep_their_route_at_equal_widths(libs, monkeypatch, name, c):
+    """A transcoder (or crosscoder) backward at C_in = C_out <= 256 runs
+    coder_bwd_tc: svt_coder_bwd gets ``held`` 0, no pair counter moves, and
+    the cluster pair, which its entry point does not have, raises."""
+    monkeypatch.setattr(fused_sae.pair_kernel, "launches", 0)
+    monkeypatch.setattr(fused_jumprelu_sae.pair_kernel, "launches", 0)
+    for k in fused_transcoder.HELD_PASSES:
+        monkeypatch.setattr(k, "launches", 0)
+    assert bwd_route(c, c) == "tc"
+    mod = fused_transcoder if name == "transcoder" else fused_crosscoder
+    ops = (_z(PT, c, dtype=BF16), _z(c, PH, dtype=BF16), _z(PH), _z(PH, c, dtype=BF16),
+           _z(PT, c, dtype=BF16))
+    coeffs = (_z(2),) if name == "transcoder" else (_z(1), _z(PH))
+    mod.bwd_kernel(*ops, *coeffs)
+    names = [p for _, p in DECLS["svt_coder_bwd"]]
+    args = libs[fused_transcoder].svt_coder_bwd.calls[-1]
+    assert args[names.index("held")] == 0
+    assert args[names.index("n_split")] == grid_split(PT, PH, c, backward=True, n_sm=N_SM)
+    assert fused_sae.pair_kernel.launches == fused_jumprelu_sae.pair_kernel.launches == 0
+    assert all(k.launches == 0 for k in fused_transcoder.HELD_PASSES)
+    with pytest.raises(ValueError, match="pair"):  # both coders launch through this
+        fused_transcoder.coder_backward_launch(mod.bwd_kernel, *ops, _z(2), _z(PH),
+                                               route="pair")
 
 
 # ---------------------------------------------------------------------------
@@ -349,3 +495,145 @@ def test_route_plain_names_the_route(cd):
     tc = fused_jumprelu_sae.backward_plain(*args, route="tc")
     pair = fused_jumprelu_sae.backward_plain(*args, route="pair")
     assert all(torch.equal(a, b) for a, b in zip(tc, pair))
+
+
+# ---------------------------------------------------------------------------
+# the ReLU and Matryoshka SAEs' pair route: its plain version against JAX
+# ---------------------------------------------------------------------------
+
+# T 1,152 (two 512-token steps and a partial one: three direct rows of db_dec
+# from the pre-pass), C 16; H 256 for the ReLU SAE, 384 for three Matryoshka
+# levels (the JAX kernel's latent quantum is 128)
+ST_, SC_ = 1152, 16
+SAE_CASES = {"one level (the ReLU SAE)": (256, None),
+             "three levels (the Matryoshka SAE)": (384, (128, 256, 384))}
+LAMBDA_R = 0.7
+
+
+def _jax_sae_grads(params, x, h: int, levels, cd):
+    """The JAX op's parameter gradients of rec + λ·l1 (the ReLU SAE) or
+    mean(prefix MSE) + λ·l1 (the Matryoshka SAE), its kernels in interpret
+    mode as the JAX package's tests run them."""
+    jx = jnp.asarray(x)
+    if levels is None:
+        def loss(p):
+            return jax_relu(p, jx, LAMBDA_R, h // SC_, compute_dtype=JDT[cd], tile_t=64,
+                            tile_h=128, interpret=True)["loss"]
+    else:
+        op = make_fused_matryoshka_sae_op(levels, 64, 128, JDT[cd], True, False)
+
+        def loss(p):
+            out = op(p, jx)
+            return out["prefix_losses"].mean() + LAMBDA_R * out["l1_loss"]
+    return jax.device_get(jax.grad(loss)(params))
+
+
+@pytest.mark.parametrize("case", list(SAE_CASES))
+def test_sae_pair_plain_matches_jax(monkeypatch, case):
+    """The port's bf16 op on the CPU, whose backward takes the pair route's
+    plain version (backward_plain: scale_err_plain's pre-pass on the bf16
+    error, round(c_rec·err) and its per-step direct rows of db_dec, or the
+    direct rows of S_0 alone, then the body's function on the rounded error at
+    a unit scale), against the JAX op's gradients (its backward kernel in
+    interpret mode, through its custom VJP), at tests/test_torch_fused_sae.py's
+    bf16 tolerances: dW_enc to 2^-8 of its largest entry, db_dec to 1e-2, the
+    rest rtol 1e-4, atol 1e-6."""
+    h, levels = SAE_CASES[case]
+    mod = fused_matryoshka_sae if levels else fused_sae
+    assert bwd_route(SC_, SC_, len(levels or (h,)), act="sae", dtype=BF16) == "pair"
+    ran = []
+    pair_plain = mod.ROUTE_PLAIN["pair"]
+    monkeypatch.setitem(mod.ROUTE_PLAIN, "pair",
+                        lambda *a: ran.append(a[4].dtype) or pair_plain(*a))
+    params = init_sae_mlp(jax.random.key(1), SC_, h // SC_)
+    b_enc = (params["b_enc"] - 0.1).at[:16].add(-100.0)  # 16 latents never fire
+    params = jax.device_get({**params, "b_enc": b_enc, "b_dec": params["b_dec"] + 0.05})
+    x = np.random.default_rng(2).normal(size=(ST_, SC_)).astype(np.float32)
+    jgrad = _jax_sae_grads(params, x, h, levels, "bfloat16")
+    tp = {k: v.requires_grad_(True) for k, v in convert.sae_params_from_jax(params).items()}
+    tx = torch.from_numpy(x)
+    if levels is None:
+        loss = fused_sae.fused_sae_loss_terms(tp, tx, LAMBDA_R, h // SC_,
+                                              compute_dtype=BF16)["loss"]
+    else:
+        out = fused_matryoshka_sae.fused_matryoshka_sae(tp, tx, levels, compute_dtype=BF16)
+        loss = out["prefix_losses"].mean() + LAMBDA_R * out["l1_loss"]
+    got = dict(zip(tp, torch.autograd.grad(loss, list(tp.values()))))
+    assert ran == [BF16]  # one backward, on the pair route's plain version, bf16 error
+    for k in ("W_enc", "b_enc", "W_dec", "b_dec"):
+        ref = np.asarray(jgrad[k])
+        rtol, atol = {"W_enc": (0, 2.0 ** -8 * np.abs(ref).max()),
+                      "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(got[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+        assert np.abs(ref).max() > 0, k
+    assert 0 < int((got["b_enc"] != 0).sum()) < h
+
+
+@pytest.mark.parametrize("levels", (None, (128, 256, 384)), ids=("one level", "three levels"))
+def test_sae_pair_plain_is_the_tc_function(levels):
+    """The pair route's plain version computes the tc route's function: the
+    gradients bit for bit (the pre-pass rounds c_rec·err as the tc body does),
+    db_dec's direct term per 512-token step, whose sum is the tc route's one
+    row to f32 summation order."""
+    g = torch.Generator().manual_seed(0)
+    t, c, h = ST_, 24, 384
+    x = torch.randn(t, c, generator=g).to(BF16)
+    we = (torch.randn(c, h, generator=g) / 5).to(BF16)
+    be = 0.1 * torch.randn(h, generator=g)
+    wd = (torch.randn(h, c, generator=g) / 9).to(BF16)
+    if levels is None:
+        mod, extra = fused_sae, ()
+        err, coeffs = torch.randn(t, c, generator=g).to(BF16), torch.tensor([3e-3, 1e-4])
+    else:
+        mod, extra = fused_matryoshka_sae, (levels,)
+        err = (1e-3 * torch.randn(len(levels), t, c, generator=g)).to(BF16)
+        coeffs = torch.tensor([1.0, 1e-4])
+    pair = mod.backward_plain(x, we, be, wd, err, coeffs, *extra, route="pair")
+    tc = mod.backward_plain(x, we, be, wd, err, coeffs, *extra, route="tc")
+    assert all(torch.equal(a, b) for a, b in zip(pair[:3], tc[:3]))
+    steps = -(-t // fused_sae.BF16_STEP_T)
+    assert pair[3].shape == (steps + 1, c) and tc[3].shape == (2, c)
+    torch.testing.assert_close(pair[3][steps:], tc[3][1:], rtol=0, atol=0)  # centring rows
+    torch.testing.assert_close(pair[3][:steps].sum(0), tc[3][0], rtol=1e-5, atol=1e-6)
+    # the route bwd_route names for the operands, by default
+    default = mod.backward_plain(x, we, be, wd, err, coeffs, *extra)
+    assert all(torch.equal(a, b) for a, b in zip(default, pair))
+
+
+def test_probe_sae_grid_times_pair_launches():
+    """chip_bwd_probe.py's route grid for the ReLU SAE (the evidence for the
+    rule's "sae" widths) times only launches that the rule gives the pair at
+    shapes the bodies take, C 8 to PAIR_C, one level, and three prefix levels
+    in multiples of 128 at C 256."""
+    import chip_bwd_probe as probe
+
+    assert "sae" in probe.GRID_ACTS
+    for c in probe.GRID_C:
+        assert bwd_route(c, c, act="sae") == "pair"
+    for e in probe.GRID_EXP:
+        h = 256 * e
+        lv = probe.levels_of(h)
+        assert fused_matryoshka_sae.can_fuse_matryoshka(4096, h, lv, 256)
+        assert len(lv) == 3 and bwd_route(256, 256, 3, act="sae") == "pair"
+
+
+def test_route_slices_script_stands_alone():
+    """chip_route_slices.py runs on the card beside chip_smoke.py: it imports
+    neither JAX nor the JAX package, and runs each route twice in turns that
+    mirror (pair, tc, tc, pair), so that neither route always runs first."""
+    import ast
+    from pathlib import Path
+
+    import chip_route_slices
+
+    path = Path(chip_route_slices.__file__)
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert names.isdisjoint({"jax", "jaxlib", "sparse_vision_tpu"}), names
+    assert "chip_smoke" in names
+    order = chip_route_slices.ORDER
+    assert sorted(order) == ["pair", "pair", "tc", "tc"] and order == order[::-1]
