@@ -2,10 +2,12 @@
 with the builds: the transcoder's held route (csrc/coder.cuh coder_bwd_held, two
 launches: pass E holds dW_enc, pass D dW_dec) beside the in-place body
 coder_bwd_tc on the same launch, coder_bwd_tc itself at the ReLU SAE's C 256,
-and the JumpReLU backward's cluster pair (coder_bwd_pair: two CTAs a latent
-block, E holding dW_enc, D dW_dec) beside coder_bwd_tc on the same launch.
+and the JumpReLU, ReLU and gated backwards' cluster pair (coder_bwd_pair: two
+CTAs a latent block, E holding dW_enc, D dW_dec) beside coder_bwd_tc on the
+same launch.
 
-    python3 chip_bwd_probe.py
+    python3 chip_bwd_probe.py [--rows 'row 18,row 7'] [--variants pair_gated_no_products]
+                              [--acts gated]
 
 Builds the sources as they are and ablated copies of coder.cuh (made by text
 substitution under _smoke_work/bwd_probe/, which .gitignore lists; an
@@ -27,7 +29,11 @@ ablation's outputs are wrong by design and are never checked):
                    peer's empty barriers at release.cluster semantics in
                    place of the default: what a cluster-scope release costs;
   pair_relu_no_products  pair_no_products in the SAEs' source, whose
-                   coder_bwd_pair<Act::Relu> the ReLU SAE's rows run.
+                   coder_bwd_pair<Act::Relu> the ReLU SAE's rows run;
+  pair_gated_no_products  pair_no_products in the gated SAE's source
+                   (coder_bwd_pair<Act::Gated>: E's one product, D's three):
+                   whether the exchange chain or D's products set the gated
+                   pair's pace.
 Then times, in turns (REPS launches a turn, two turns each), each unsplit: at
 PERF.md's row 24 (the transcoder's TP backward at a (2, 2) rank's shard: T
 16,384, 256 -> 480, H 8,192) and row 12 (T 32,768, 256 -> 480, H 16,384) the
@@ -38,11 +44,16 @@ coder_bwd_tc (route="tc") as built and in each tc ablation, and at row 16
 the cluster pair (fused_sae.bwd_route's body there) as built and in
 pair_relu_no_products; at row 20 (the JumpReLU TP backward at the shard: T 16,384, C 256,
 H 8,192) and row 5 (T 32,768, H 16,384) the cluster pair as built and in its
-ablation, and coder_bwd_tc as built on the same launch. Then the route and
+ablation, and coder_bwd_tc as built on the same launch; at row 18 (the gated
+TP backward at the shard: T 16,384, C 256, H 8,192) and row 7 (T 32,768, H
+16,384) the gated pair as built and in pair_gated_no_products, and
+coder_bwd_tc as built on the same launch. Then the route and
 split over widths and shapes (pair_grid: fused_sae.bwd_route gives the pair
-every bf16 one-level JumpReLU backward and every ReLU or Matryoshka SAE
-backward at C <= 256, and grid_split splits its launches by one dictionary's
-CTAs): for the JumpReLU backward and then the ReLU SAE's, at C 8, 64, 128,
+every bf16 one-level JumpReLU backward, every ReLU or Matryoshka SAE backward
+at C <= 256 and every one-level gated backward at 128 < C <= 256, and
+grid_split splits its launches by one dictionary's CTAs): for the JumpReLU
+backward, the ReLU SAE's and the gated SAE's (the pair at every width), at C
+8, 64, 128,
 192 and 256, T 4,096 and 32,768 and H at expansions 2, 16 and 64 (the ReLU
 SAE's also with three prefix levels at C 256: the Matryoshka SAE's), the
 wrapper's launch on the pair at the rule's split, the pair unsplit and
@@ -58,6 +69,7 @@ rows; the grids' milliseconds), then nvidia-smi's name and power limit.
 
 from __future__ import annotations
 
+import argparse
 import json
 import shutil
 import subprocess
@@ -68,6 +80,7 @@ import torch
 
 import chip_smoke as c
 from sparse_vision_tpu_torch.ops import (
+    fused_gated_sae,
     fused_jumprelu_sae,
     fused_matryoshka_sae,
     fused_sae,
@@ -88,7 +101,10 @@ BODIES = {"held": ("coder_bwd_held(const __grid_constant__", "// Backward, bf16,
                    "fused_jumprelu_sae"),
           # the same body's Act::Relu instantiation, in the SAEs' source
           "pair_relu": ("coder_bwd_pair(const __grid_constant__", "bool bad_shape(int n_tokens",
-                        "fused_sae")}
+                        "fused_sae"),
+          # and its Act::Gated one, in the gated SAE's
+          "pair_gated": ("coder_bwd_pair(const __grid_constant__", "bool bad_shape(int n_tokens",
+                         "fused_gated_sae")}
 # (body, [(old, new, count)]) of each ablation: substitutions in the body's
 # text or (with a leading "=") in the constants above it
 VARIANTS = {
@@ -117,6 +133,10 @@ VARIANTS = {
         ("=mbarrier.arrive.shared::cluster.b64 _, [%0];",
          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];", 1)]),
     "pair_relu_no_products": ("pair_relu", [
+        ("wgmma_ss<1, 0>(acc,", "if (false) wgmma_ss<1, 0>(acc,", 1),
+        ("wgmma_ss<0, 0>(acc,", "if (false) wgmma_ss<0, 0>(acc,", 1),
+        ("wgmma_ss<1, 0>(g[q],", "if (false) wgmma_ss<1, 0>(g[q],", 1)]),
+    "pair_gated_no_products": ("pair_gated", [
         ("wgmma_ss<1, 0>(acc,", "if (false) wgmma_ss<1, 0>(acc,", 1),
         ("wgmma_ss<0, 0>(acc,", "if (false) wgmma_ss<0, 0>(acc,", 1),
         ("wgmma_ss<1, 0>(g[q],", "if (false) wgmma_ss<1, 0>(g[q],", 1)]),
@@ -181,6 +201,7 @@ def use(libs: dict | None) -> None:
     fused_transcoder._lib.cache_clear()
     fused_sae._lib.cache_clear()
     fused_jumprelu_sae._lib.cache_clear()
+    fused_gated_sae._lib.cache_clear()
     native.library_path = (_own_path if libs is None
                            else (lambda name: libs.get(name) or _own_path(name)))
 
@@ -232,9 +253,18 @@ def _sae_ops(t: int, c_: int, h: int, levels: tuple | None = None) -> tuple:
             torch.tensor([1.0, lam], device=c.DEVICE), levels)
 
 
-# pair_grid's epilogues: the JumpReLU backward's and the ReLU SAE's (the
-# Matryoshka SAE's where the shape has levels), each with its wrapper
-GRID_ACTS = ("jump", "sae")
+def _gated_ops(t: int, c_: int, h: int) -> tuple:
+    """A bf16 gated backward's operands on chip_smoke.py's dyadic grid (its
+    forward's plain version gives the errors)."""
+    gen = torch.Generator(device=c.DEVICE).manual_seed(c_ + h + 2)
+    ops = c._gated_pair_ops(gen, t, c_, h, torch.bfloat16, 0)
+    return c._gated_bwd_operands(ops, t, c_, h)
+
+
+# pair_grid's epilogues: the JumpReLU backward's, the ReLU SAE's (the
+# Matryoshka SAE's where the shape has levels) and the gated SAE's, each with
+# its wrapper
+GRID_ACTS = ("jump", "sae", "gated")
 
 
 def pair_grid(act: str) -> tuple:
@@ -257,15 +287,17 @@ def pair_grid(act: str) -> tuple:
             if act == "jump":
                 assert fused_sae.bwd_route(c_, c_, act="jump") == "pair"
                 k, a = fused_jumprelu_sae.bwd_kernel, _jump_ops(t, c_, h)
+            elif act == "gated":  # the pair at every width: the rule keeps tc at C <= 128
+                k, a = fused_gated_sae.bwd_kernel, _gated_ops(t, c_, h)
             else:
                 assert fused_sae.bwd_route(c_, c_, len(lv or (h,)), act="sae") == "pair"
                 k = fused_sae.bwd_kernel if lv is None else fused_matryoshka_sae.bwd_kernel
                 a = _sae_ops(t, c_, h, lv)
             sp = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm, pair=True)
             st = fused_sae.grid_split(t, h, c_, backward=True, n_sm=n_sm)
-            fns = {"pair": lambda: k(*a), "tc": lambda: k(*a, route="tc")}
+            fns = {"pair": lambda: k(*a, route="pair"), "tc": lambda: k(*a, route="tc")}
             if sp > 1:
-                fns["pair unsplit"] = lambda: k(*a, n_split=1)
+                fns["pair unsplit"] = lambda: k(*a, n_split=1, route="pair")
             ms = dict.fromkeys(fns, 0.0)
             for order in (list(fns), list(fns)[::-1]):
                 for name in order:
@@ -298,10 +330,18 @@ def pair_grid(act: str) -> tuple:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", help="comma-separated rows to time (default: all), e.g. "
+                                   "'row 18,row 7'")
+    ap.add_argument("--variants", help="comma-separated ablations to build (default: all)")
+    ap.add_argument("--acts", help="comma-separated pair_grid epilogues (default: GRID_ACTS)")
+    args = ap.parse_args()
+    variants = args.variants.split(",") if args.variants else list(VARIANTS)
+    acts = args.acts.split(",") if args.acts else list(GRID_ACTS)
     t0 = time.perf_counter()
     smi = c.phase_device()
     native.build(sorted({b[2] for b in BODIES.values()}))
-    libs = build(VARIANTS)
+    libs = build(variants)
     c.log(f"[probe] builds in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -333,8 +373,14 @@ def main() -> int:
                 "row 2": ("tc", fused_sae.bwd_kernel, ops(32768, 16384, 256)),
                 "row 16 pair": ("pair_relu", fused_sae_tp.bwd_kernel, ops(16384, 8192, 256)),
                 "row 20": ("pair", fused_sae_tp.jumprelu_bwd_kernel, jops(16384, 8192)),
-                "row 5": ("pair", fused_jumprelu_sae.bwd_kernel, jops(32768, 16384))}
-        points = [("as is", None)] + [(v, libs[v]) for v in VARIANTS]
+                "row 5": ("pair", fused_jumprelu_sae.bwd_kernel, jops(32768, 16384)),
+                "row 18": ("pair_gated", fused_sae_tp.gated_bwd_kernel,
+                           _gated_ops(16384, 256, 8192)),
+                "row 7": ("pair_gated", fused_gated_sae.bwd_kernel,
+                          _gated_ops(32768, 256, 16384))}
+        if args.rows:
+            rows = {r: rows[r] for r in args.rows.split(",")}
+        points = [("as is", None)] + [(v, libs[v]) for v in variants]
         times = {r: {} for r in rows}
         for turn in range(2):
             for p, lib in (points if turn == 0 else points[::-1]):
@@ -346,7 +392,7 @@ def main() -> int:
                         routes = {f"{p} {q}": route for q, route in PASSES.items()}
                         if lib is None:
                             routes["tc"] = "tc"
-                    elif body in ("pair", "pair_relu"):  # the wrapper's own route, the pair
+                    elif body.startswith("pair"):  # the wrapper's own route, the pair
                         routes = {f"{p} pair": None}
                         if lib is None:
                             routes["tc"] = "tc"
@@ -364,7 +410,7 @@ def main() -> int:
             c.log(f"[probe] {r}: " + ", ".join(f"{p} {v['ms']:.3f} ms ({v['share']:.3f})"
                                               for p, v in out[r].items()))
     grid, split = [], []
-    for act in GRID_ACTS:
+    for act in acts:
         g, sp = pair_grid(act)
         grid += g
         split += sp

@@ -16,8 +16,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               coders' source builds the held backward's two passes
               (coder_bwd_held, HELD_SOURCES) and no other source any, and
               the JumpReLU source the cluster-pair backward's Act::Jump
-              instantiation and the SAEs' source its Act::Relu one
-              (coder_bwd_pair, PAIR_SOURCES) and no other source any; print
+              instantiation, the SAEs' source its Act::Relu one and the gated
+              SAE's source its Act::Gated one (coder_bwd_pair, PAIR_SOURCES)
+              and no other source any; print
               each pair's registers, spill bytes and the clusters of it the
               card holds (cudaOccupancyMaxActiveClusters).
   3. kernels: hold each kernel against its plain PyTorch version on the card at
@@ -82,11 +83,19 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               bitwise equal and timed beside coder_bwd_tc ("[route]"); so is
               the ReLU SAE at T 2176, C 136, H 640 split in 2 and unsplit,
               a Matryoshka launch there whose levels' errors differ, and
-              PAIR_STRESS's sweep of the ReLU SAE. The kernels line's
-              coder_bwd_pair (row 5's launch) and coder_bwd_pair_relu (row
-              2's) rows are each body's own device time (torch.profiler, in
-              a process of its own after phase 16: --pair-body jump|relu),
-              apart from its pre-passes, whose time is printed beside it.
+              PAIR_STRESS's sweep of the ReLU SAE. Where bwd_route gives the
+              bf16 gated SAE backward the cluster pair (C <= 256, one level:
+              row 7 here, 18 in phase 15 (e), 30 in phase 16 (a)), each
+              launch is held to the plain version of its route with REPEATS
+              launches bitwise equal and timed beside coder_bwd_tc
+              ("[route]"); so are the gated SAE at T 2176, C 136, H 640 with
+              planted pre_gate == 0 ties (the gate's 0.5), split in 2 and
+              unsplit, and PAIR_STRESS's sweep of the gated SAE. The kernels
+              line's coder_bwd_pair (row 5's launch), coder_bwd_pair_relu
+              (row 2's) and coder_bwd_pair_gated (row 7's) rows are each
+              body's own device time (torch.profiler, in a process of its
+              own after phase 16: --pair-body jump|relu|gated), apart from
+              its pre-passes, whose time is printed beside it.
   4. parity:  each fused op's loss and gradients against the stock autograd path
               on the card at a small shape, in f32; with compute_dx=True, the
               sae_mlp and Matryoshka ops' input gradients too.
@@ -102,8 +111,9 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               and the crosscoder mixed4a..mixed4e (8,192 latents, 12 steps of
               16,384 tokens; sae_input_norm="rms" at λ 5), both resampling
               like sae_mlp; every kernel launch count is reset just before each
-              run and read after it (the jumprelu_sae, sae_mlp and
-              matryoshka_sae runs also 12 of their cluster pair's body).
+              run and read after it (the jumprelu_sae, sae_mlp,
+              matryoshka_sae and gated_sae runs also 12 of their cluster
+              pair's body).
   7. cache:   the host side of the cached path at the sae_mlp slice's shape:
               an overlap_dump_train run (12 + 12 launches) whose shards are
               byte-equal to a sequential dump's; every stack that prefetch
@@ -308,7 +318,10 @@ Phases, in order; a phase that fails raises and the script exits non-zero:
               4, 8, 12) and topk_sae (phase 11's k, no AuxK, f32: MESH_RUNS)
               and (h) of phase 6's transcoder and crosscoder (resets at 4 and
               12, the resample at 9), each rank's TP kernels launched 12
-              times (counts set to 0 just before each run and read just
+              times, and the cluster pair's body under its backward (the
+              ReLU, gated, JumpReLU and Matryoshka runs, where bwd_route
+              gives the shard the pair) 12 times and the other pair bodies
+              never (counts set to 0 just before each run and read just
               after), held to the one-rank run by _check_mesh_run: the
               restarts at its steps, each step's loss terms and perc_dead
               (MESH_STEP_RTOL, MESH_DEAD_ATOL), rank 0's dead accumulator
@@ -458,7 +471,7 @@ SOURCES = {
     "fused_jumprelu_sae_bwd": CODER,  # bf16: coder_bwd_pair<Act::Jump> (C <= 256)
     # bf16 at C <= 256 (fused_sae.bwd_route): coder_bwd_pair<Act::Relu>
     "fused_gated_sae_fwd": CODER,  # bf16: coder_fwd_tc_hold<256, false, Act::Gated>
-    "fused_gated_sae_bwd": CODER,  # bf16: coder_bwd_tc<true, Act::Gated>
+    "fused_gated_sae_bwd": CODER,  # bf16: coder_bwd_pair<Act::Gated> (C <= 256)
     "fused_transcoder_fwd": CODER, "fused_transcoder_bwd": CODER,
     "fused_crosscoder_fwd": CODER, "fused_crosscoder_bwd": CODER,
     # the TP sites run the same bodies on a latent shard (ops/fused_sae_tp.py)
@@ -474,7 +487,7 @@ SOURCES = {
     # the cluster-pair backward (coder_bwd_pair), under rows 5, 20 and 32's
     # wrappers (Act::Jump) and rows 2, 9, 16, 22, 28 and 34's (Act::Relu;
     # fused_sae.bwd_route)
-    "coder_bwd_pair": CODER, "coder_bwd_pair_relu": CODER,
+    "coder_bwd_pair": CODER, "coder_bwd_pair_relu": CODER, "coder_bwd_pair_gated": CODER,
 }
 REPLACES = {
     "fused_sae_fwd": "sparse_vision_tpu/ops/fused_sae.py:43",
@@ -513,11 +526,14 @@ REPLACES = {
     "coder_bwd_pair": "sparse_vision_tpu/ops/fused_jumprelu_sae.py:80",
     # the ReLU SAE backward kernel's (and, level by level, the Matryoshka one's)
     "coder_bwd_pair_relu": "sparse_vision_tpu/ops/fused_sae.py:96",
+    # the gated SAE backward kernel's
+    "coder_bwd_pair_gated": "sparse_vision_tpu/ops/fused_gated_sae.py:98",
 }
 HELD_KERNELS = fused_transcoder.HELD_PASSES
-# the cluster pair's body counters: the JumpReLU SAE's (Act::Jump) and the
-# ReLU and Matryoshka SAEs' (Act::Relu)
-PAIR_KERNELS = (fused_jumprelu_sae.pair_kernel, fused_sae.pair_kernel)
+# the cluster pair's body counters: the JumpReLU SAE's (Act::Jump), the ReLU
+# and Matryoshka SAEs' (Act::Relu) and the gated SAE's (Act::Gated)
+PAIR_KERNELS = (fused_jumprelu_sae.pair_kernel, fused_sae.pair_kernel,
+                fused_gated_sae.pair_kernel)
 BODY_KERNELS = HELD_KERNELS + PAIR_KERNELS  # counted beside their launching wrappers
 
 
@@ -592,7 +608,8 @@ def phase_build() -> None:
                                      f"instantiations in ptxas's report, found {len(found)}")
             for kernel, regs, spill in found:
                 log(f"[build]   {route} route: {regs} registers, {spill} spill bytes: {kernel}")
-    for act, mod in (("Act::Jump", fused_jumprelu_sae), ("Act::Relu", fused_sae)):
+    for act, mod in (("Act::Jump", fused_jumprelu_sae), ("Act::Relu", fused_sae),
+                     ("Act::Gated", fused_gated_sae)):
         log(f"[build] pair route, coder_bwd_pair<{act}>: {mod.pair_clusters()} clusters of "
             "two CTAs resident at once (cudaOccupancyMaxActiveClusters)")
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
@@ -602,8 +619,9 @@ def phase_build() -> None:
 # pass E and pass D, in the coders' source only)
 HELD_SOURCES = {"fused_transcoder": 2}
 # the cluster-pair route's (coder.cuh bwd_pair: Act::Jump in the JumpReLU source,
-# Act::Relu in the ReLU and Matryoshka SAEs' source, and no other source any)
-PAIR_SOURCES = {"fused_jumprelu_sae": 1, "fused_sae": 1}
+# Act::Relu in the ReLU and Matryoshka SAEs' source, Act::Gated in the gated
+# SAE's, and no other source any)
+PAIR_SOURCES = {"fused_jumprelu_sae": 1, "fused_sae": 1, "fused_gated_sae": 1}
 
 
 # ptxas registers of the coder family's instantiations (nvcc 12.8, sm_90a; this
@@ -790,6 +808,11 @@ def _sae_route(cd, c: int, levels: int = 1) -> str:
     return fused_sae.bwd_route(c, c, levels, act="sae", dtype=cd)
 
 
+def _gated_route(cd, c: int) -> str:
+    """The body bwd_route gives a gated backward of width c in dtype cd."""
+    return fused_sae.bwd_route(c, c, act="gated", dtype=cd)
+
+
 def _held_pass_rows(tag: str, bops: tuple, post, errs: dict) -> dict:
     """The kernels line's rows of the two held passes at the transcoder's
     training shape (row 12's launch, phase 6's main path), each pass launched
@@ -947,7 +970,8 @@ def kernels_relu(cd, tag: str, t: int = T, c: int = C, h: int = H) -> dict:
     return rows
 
 
-def kernels_gated(cd, tag: str) -> dict:
+def _gated_ops(cd) -> tuple:
+    """Rows 6 and 7's forward operands at the training shape (seed 0)."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = init_gated_sae(gen, C, H // C)
     x, wg, bd = _exact_inputs(gen, T, params["W_gate"])
@@ -955,7 +979,11 @@ def kernels_gated(cd, tag: str) -> dict:
     bg = _odd_grid(gen, H, 100)  # about ±0.05
     bm = _odd_grid(gen, H, 60)
     er = torch.exp(0.1 * torch.randn(H, device=DEVICE, generator=gen))
-    ops = (x, wg, bg, bm, er, wd, bd)
+    return x, wg, bg, bm, er, wd, bd
+
+
+def kernels_gated(cd, tag: str) -> dict:
+    ops = _gated_ops(cd)
     out_p, err = _act_fwd_check(fused_gated_sae, tag, cd, ops)
     rows = {"fused_gated_sae_fwd": _measure(
         "fused_gated_sae_fwd", tag, cd, lambda: fused_gated_sae.fwd_kernel(*ops),
@@ -965,13 +993,18 @@ def kernels_gated(cd, tag: str) -> dict:
 
     del out_p
     bops = _gated_bwd_operands(ops, T, C, H)
-    g_p, err = _act_bwd_check(fused_gated_sae, tag, cd, bops, GATED_GRADS)
+    pair = _gated_route(cd, C) == "pair"
+    g_p, err = _act_bwd_check(fused_gated_sae, tag, cd, bops, GATED_GRADS,
+                              REPEATS if pair else 2)
     moved = nbytes(*bops) + nbytes(*g_p)
     del g_p
+    bwd = fused_gated_sae.bwd_kernel
     rows["fused_gated_sae_bwd"] = _measure(
-        "fused_gated_sae_bwd", tag, cd, lambda: fused_gated_sae.bwd_kernel(*bops),
+        "fused_gated_sae_bwd", tag, cd, lambda: bwd(*bops),
         lambda: fused_gated_sae.backward_plain(*bops), _gated_bwd_library(bops),
         10.0 * T * C * H, moved, err)
+    if pair:  # row 7's launch runs coder_bwd_pair<Act::Gated>: its row comes last
+        _route_timing(bwd.name, tag, "pair", lambda **kw: bwd(*bops, **kw))
     return rows
 
 
@@ -1118,9 +1151,10 @@ def kernels_jumprelu(cd, tag: str) -> dict:
     return rows
 
 
-def _bodies_ms(launch, bodies: tuple, reps: int) -> dict:
+def _bodies_ms(launch, bodies: tuple, reps: int, per_call: dict | None = None) -> dict:
     """{body: mean device time a call of the kernel whose name holds it}, over
-    ``reps`` calls of ``launch()`` (which launches each once: a body and its
+    ``reps`` calls of ``launch()`` (which launches each once, or per_call[body]
+    times, its time then the sum of a call's launches: a body and its
     pre-passes) under one torch.profiler session: each kernel's own time. The
     profiler can drop an event (its time and its count go together, so the
     mean holds), but not half of them."""
@@ -1137,10 +1171,11 @@ def _bodies_ms(launch, bodies: tuple, reps: int) -> dict:
     for body in bodies:
         hits = [e for e in prof.key_averages()
                 if e.device_type.name == "CUDA" and body in e.key]
+        per = (per_call or {}).get(body, 1)
         n = sum(e.count for e in hits)
-        if not reps / 2 <= n <= reps:
-            raise AssertionError(f"{body}: {n} launches traced in {reps} calls")
-        out[body] = sum(e.self_device_time_total for e in hits) / n / 1e3
+        if not reps / 2 <= n / per <= reps:
+            raise AssertionError(f"{body}: {n} launches traced in {reps} calls of {per}")
+        out[body] = sum(e.self_device_time_total for e in hits) / (n / per) / 1e3
     return out
 
 
@@ -1149,13 +1184,37 @@ def _body_ms(launch, body: str, reps: int) -> float:
     return _bodies_ms(launch, (body,), reps)[body]
 
 
+def _slice_pair_body(name: str, cfg, params: dict):
+    """The cluster pair's body counter that the backward of slice ``name``
+    (its config and parameters) launches where bwd_route gives its width the
+    pair (Act::Jump, Act::Relu with the Matryoshka levels, Act::Gated), else
+    None."""
+    if name == "jumprelu_sae":
+        c = params["W_enc"].shape[0]
+        return fused_jumprelu_sae.pair_kernel if _jump_route(cfg.compute_dtype, c) == "pair" else None
+    if name in ("sae_mlp", "matryoshka_sae"):
+        c = params["W_enc"].shape[0]
+        levels = len(cfg.matryoshka_prefix_fractions) if name == "matryoshka_sae" else 1
+        return fused_sae.pair_kernel if _sae_route(cfg.compute_dtype, c, levels) == "pair" else None
+    if name == "gated_sae":
+        c = params["W_gate"].shape[0]
+        return fused_gated_sae.pair_kernel if _gated_route(cfg.compute_dtype, c) == "pair" else None
+    return None
+
+
 def _pair_body_ms_here(act: str) -> dict:
     """coder_bwd_pair's own device time and its pre-pass's at row 5's launch
-    (``act`` "jump") or row 2's ("relu"), by this process's first
-    torch.profiler session."""
+    (``act`` "jump"), row 2's ("relu") or row 7's ("gated": two pre-pass
+    launches a call, their sum), by this process's first torch.profiler
+    session."""
+    per_call = None
     if act == "jump":
         bops = _jumprelu_bwd_operands(_jumprelu_ops(torch.bfloat16), T, C)
         launch = lambda: fused_jumprelu_sae.bwd_kernel(*bops)  # noqa: E731
+    elif act == "gated":
+        bops = _gated_bwd_operands(_gated_ops(torch.bfloat16), T, C, H)
+        launch = lambda: fused_gated_sae.bwd_kernel(*bops)  # noqa: E731
+        per_call = {"scale_err_kernel": 2}
     else:
         ops = _relu_exact_operands(torch.bfloat16)
         x, we, be, wd, bd = ops
@@ -1164,33 +1223,39 @@ def _pair_body_ms_here(act: str) -> dict:
         bops = (x - bd.to(torch.bfloat16), we, be, wd, res, coeffs)
         launch = lambda: fused_sae.bwd_kernel(*bops)  # noqa: E731
     with torch.no_grad():
-        got = _bodies_ms(launch, ("coder_bwd_pair<", "scale_err_kernel"), REPS)
+        got = _bodies_ms(launch, ("coder_bwd_pair<", "scale_err_kernel"), REPS, per_call)
     return {"pair_body_ms": got["coder_bwd_pair<"], "pre_pass_ms": got["scale_err_kernel"]}
 
 
 # the kernels line's rows of the cluster pair's bodies: (act, the row's name,
-# the launching wrapper's row, its per-latent f32 inputs and outputs: b_enc
-# and θ in, db_enc and dθ out for Act::Jump; b_enc and ct in, db_enc out for
-# Act::Relu)
-PAIR_BODY_ROWS = (("jump", "coder_bwd_pair", "fused_jumprelu_sae_bwd", 2, 2),
-                  ("relu", "coder_bwd_pair_relu", "fused_sae_bwd", 2, 1))
+# the launching wrapper's row, its [T, C] bf16 token operands, its per-latent
+# f32 inputs and outputs, its FLOP over T·C·H: x_cent and err, b_enc and θ in,
+# db_enc and dθ out, 8 for Act::Jump; b_enc and ct in, db_enc out for
+# Act::Relu; x_cent, err_rec and err_via, b_gate, b_mag and exp(r_mag) in,
+# db_gate, db_mag and dr_mag out, 10 for Act::Gated)
+PAIR_BODY_ROWS = (("jump", "coder_bwd_pair", "fused_jumprelu_sae_bwd", 2, 2, 2, 8.0),
+                  ("relu", "coder_bwd_pair_relu", "fused_sae_bwd", 2, 2, 1, 8.0),
+                  ("gated", "coder_bwd_pair_gated", "fused_gated_sae_bwd", 3, 3, 3, 10.0))
 
 
 def pair_body_row(rows: dict) -> None:
-    """The kernels line's rows of coder_bwd_pair<Act::Jump> at row 5's launch
-    and coder_bwd_pair<Act::Relu> at row 2's, where bwd_route gives those rows
-    the pair, into ``rows``: each body's own device time (torch.profiler,
-    apart from center_kernel and scale_err_kernel, which the wrapper's row
-    includes; the pre-pass's time is printed beside it), its bound (8·T·C·H
-    FLOP; x_cent and the scaled err read once, both W tiles, b_enc and θ or
-    ct, the gradients and db_dec's centring rows written once), and the plain
+    """The kernels line's rows of coder_bwd_pair<Act::Jump> at row 5's launch,
+    coder_bwd_pair<Act::Relu> at row 2's and coder_bwd_pair<Act::Gated> at
+    row 7's, where bwd_route gives those rows the pair, into ``rows``: each
+    body's own device time (torch.profiler, apart from center_kernel and
+    scale_err_kernel, which the wrapper's row includes; the pre-pass's time is
+    printed beside it), its bound (PAIR_BODY_ROWS' FLOP; x_cent and the
+    scaled errors read once, both W tiles, the per-latent inputs, the
+    gradients, the per-latent outputs and db_dec's centring rows written
+    once), and the plain
     version's and the library's times from the wrapper's row, which computes
     the same function. The times come from processes of their own (this script
     with --pair-body ACT): in one process a second profiler session lost
     events on the card, before phase 14's traced epoch (which counts its
     launches exactly) and after it."""
-    routes = {"jump": _jump_route(torch.bfloat16, C), "relu": _sae_route(torch.bfloat16, C)}
-    for act, name, wrapper_name, n_in, n_out in PAIR_BODY_ROWS:
+    routes = {"jump": _jump_route(torch.bfloat16, C), "relu": _sae_route(torch.bfloat16, C),
+              "gated": _gated_route(torch.bfloat16, C)}
+    for act, name, wrapper_name, n_tok, n_in, n_out, f in PAIR_BODY_ROWS:
         if routes[act] != "pair":
             continue
         wrapper = rows[wrapper_name]
@@ -1202,16 +1267,16 @@ def pair_body_row(rows: dict) -> None:
                                  f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
         got = json.loads(out.stdout.strip().splitlines()[-1])
         ms = got["pair_body_ms"]
-        # bf16 x_cent, err, W_enc and W_dec; f32 the per-latent inputs, the
-        # gradients, the per-latent outputs and the centring rows
-        moved = 2 * (2 * T * C + 2 * C * H) + 4 * (
+        # bf16 the token operands, W_enc and W_dec; f32 the per-latent inputs,
+        # the gradients, the per-latent outputs and the centring rows
+        moved = 2 * (n_tok * T * C + 2 * C * H) + 4 * (
             n_in * H + 2 * C * H + n_out * H + H // 64 * C)
-        b_ms, b_by = bound(8.0 * T * C * H, moved, torch.bfloat16)
+        b_ms, b_by = bound(f * T * C * H, moved, torch.bfloat16)
         log(f"[kernels] {name} [bf16] ms {ms:.3f} (torch.profiler; the wrapper "
             f"{wrapper['ms']:.3f}, its scale_err_kernel pre-pass {got['pre_pass_ms']:.4f}) "
             f"bound_ms {b_ms:.4f} ({b_by})")
         rows[name] = dict(wrapper, ms=ms, bound_ms=b_ms, bound_by=b_by,
-                          tflops=8.0 * T * C * H / ms / 1e9, pre_pass_ms=got["pre_pass_ms"])
+                          tflops=f * T * C * H / ms / 1e9, pre_pass_ms=got["pre_pass_ms"])
 
 
 def _jumprelu_bwd_operands(ops, t: int, c: int):
@@ -1440,7 +1505,8 @@ def kernels_act_widths(cd, tag: str) -> dict:
         gf = (x, we, _odd_grid(gen, h, 100), _odd_grid(gen, h, 60), er, wd, bd)
         gp, _ = _act_fwd_check(fused_gated_sae, tag, cd, gf, repeats, label)
         gops = _gated_bwd_operands(gf, t, c, h)
-        _act_bwd_check(fused_gated_sae, tag, cd, gops, GATED_GRADS, repeats, label)
+        _act_bwd_check(fused_gated_sae, tag, cd, gops, GATED_GRADS,
+                       REPEATS if _gated_route(cd, c) == "pair" else repeats, label)
         if t == W_T:
             fl = 2.0 * t * c * h
             for mod, fops, out_p, flops in ((fused_jumprelu_sae, jf, jp, 2 * fl),
@@ -1474,6 +1540,9 @@ PAIR_WIDTHS = ((T, 64, 4096), (T, 192, 12288), (T, 64, 1024))
 # times bitwise equal
 PAIR_STRESS = (8, 4096, 256, 512)  # N, T, C, H
 PAIR_STRESS_REPEATS = 100
+# the sweeps PAIR_STRESS launches: one a cluster pair's epilogue (Act::Jump,
+# Act::Relu, Act::Gated)
+PAIR_STRESS_NAMES = ("jumprelu_sae", "sae_mlp", "gated_sae")
 
 
 class _Split:
@@ -1544,6 +1613,53 @@ def _sae_pair_shapes(cd, tag: str) -> None:
     _sweep_kernel_check("sae_mlp", cd, n, t, c, h, timed=False, repeats=PAIR_STRESS_REPEATS)
 
 
+def _gated_pair_ops(gen, t: int, c: int, h: int, cd, ties: int) -> tuple:
+    """Gated forward operands at (t, c, h) on _exact_inputs' grid with ``ties``
+    (or no) planted latents whose W_gate column and b_gate are 0 (pre_gate exactly 0
+    at every token: the gate's 0.5) and b_mag > 0 (pre_mag > 0, so that
+    d_premag = denc * 0.5 reaches dW_dec, db_mag and dr_mag)."""
+    w = torch.randn(c, h, device=DEVICE, generator=gen) / c ** 0.5
+    x, wg, bd = _exact_inputs(gen, t, w)
+    wd = (torch.randn(h, c, device=DEVICE, generator=gen) / h ** 0.5).to(cd)
+    bg, bm = _odd_grid(gen, h, 100), _odd_grid(gen, h, 60)
+    er = torch.exp(0.1 * torch.randn(h, device=DEVICE, generator=gen))
+    if ties:
+        idx = torch.arange(3, h, h // ties, device=DEVICE)[:ties]
+        wg[:, idx] = 0.0
+        bg[idx] = 0.0
+        bm[idx] = bm[idx].abs() + 2.0 ** -6
+    return x.to(cd), wg.to(cd), bg, bm, er, wd, bd
+
+
+def _gated_pair_shapes(cd, tag: str) -> None:
+    """The gated backward where bwd_route gives it the cluster pair, each
+    launch held to the plain version of its route: T 2,176, C 136, H 640 with
+    16 planted pre_gate == 0 ties, split in 2 and unsplit, REPEATS launches
+    bitwise equal each and timed beside coder_bwd_tc ("[route]"); then
+    PAIR_STRESS's sweep of the gated SAE, PAIR_STRESS_REPEATS launches bitwise
+    equal, each combo bitwise its one-dictionary launch."""
+    t, h, c = PAIR_SPLIT_T, RAGGED_H, RAGGED_C
+    if _gated_route(cd, c) != "pair":
+        return
+    gen = torch.Generator(device=DEVICE).manual_seed(c + 3)
+    gops = _gated_bwd_operands(_gated_pair_ops(gen, t, c, h, cd, 16), t, c, h)
+    s = fused_sae.grid_split(t, h, c, backward=True, pair=True,
+                             n_sm=fused_sae.sm_count(torch.cuda.current_device()))
+    if s == 1:
+        raise AssertionError(f"the pair's split check does not split at T={t} H={h}")
+    bwd = fused_gated_sae.bwd_kernel
+    label = f"C={c} T={t} H={h}, 16 pre_gate == 0 ties"
+    for n_split in (s, 1):
+        g_p, _ = _act_bwd_check(fused_gated_sae, tag, cd, gops, GATED_GRADS, REPEATS,
+                                f", {label}, n_split {n_split}", kernel=_Split(bwd, n_split))
+    if not (g_p[2] != 0).any() or int((g_p[1] != 0).sum()) == h:
+        raise AssertionError("the gated pair check's d_premag or ties are missing")
+    _route_timing(bwd.name, f"{tag}, {label}", "pair", lambda **kw: bwd(*gops, **kw))
+    del gops, g_p
+    n, t, c, h = PAIR_STRESS
+    _sweep_kernel_check("gated_sae", cd, n, t, c, h, timed=False, repeats=PAIR_STRESS_REPEATS)
+
+
 def kernels_pair_shapes(cd, tag: str) -> dict:
     """The JumpReLU backward where bwd_route gives it the cluster pair (bf16, C
     <= 256), each launch held to the plain version; no rows:
@@ -1556,8 +1672,10 @@ def kernels_pair_shapes(cd, tag: str) -> dict:
       ("[split]": unsplit where the rule splits, split in 2 where it does not);
     - PAIR_STRESS: the sweep launch PAIR_STRESS_REPEATS times bitwise equal,
       each combo bitwise its one-dictionary launch, against the plain version.
-    First the ReLU and Matryoshka SAEs' pair launches (_sae_pair_shapes)."""
+    First the ReLU and Matryoshka SAEs' pair launches (_sae_pair_shapes) and
+    the gated SAE's (_gated_pair_shapes)."""
     _sae_pair_shapes(cd, tag)
+    _gated_pair_shapes(cd, tag)
     t, h, c = PAIR_SPLIT_T, RAGGED_H, RAGGED_C
     if _jump_route(cd, c) != "pair":
         return {}
@@ -2151,18 +2269,9 @@ def phase_slice(name: str, profile: bool = False, extra: dict | None = None,
     held = name == "transcoder" and fused_sae.bwd_route(
         pipe.ts.params["W_enc"].shape[0], pipe.ts.params["W_dec"].shape[-1],
         dtype=cfg.compute_dtype) == "held"
-    # and the cluster pair under the JumpReLU, ReLU and Matryoshka backwards
-    # where it gives their width the pair (Act::Jump, Act::Relu)
-    pair_body = None
-    if name == "jumprelu_sae":
-        c = pipe.ts.params["W_enc"].shape[0]
-        if _jump_route(cfg.compute_dtype, c) == "pair":
-            pair_body = fused_jumprelu_sae.pair_kernel
-    if name in ("sae_mlp", "matryoshka_sae"):
-        c = pipe.ts.params["W_enc"].shape[0]
-        levels = len(cfg.matryoshka_prefix_fractions) if name == "matryoshka_sae" else 1
-        if _sae_route(cfg.compute_dtype, c, levels) == "pair":
-            pair_body = fused_sae.pair_kernel
+    # and the cluster pair under the JumpReLU, ReLU, Matryoshka and gated
+    # backwards where it gives their width the pair
+    pair_body = _slice_pair_body(name, cfg, pipe.ts.params)
     for k in KERNELS + BODY_KERNELS:
         want = 12 if (k in trained or (held and k in HELD_KERNELS) or k is pair_body) else 0
         if launches[k.name] != want:
@@ -5194,14 +5303,20 @@ def _tp_kernel_rows(cd, tag: str) -> dict:
     bops = _gated_bwd_operands(gops, t, c, h)
     g_k, g_p = gbwd(*bops), fused_gated_sae.backward_plain(*bops)
     log(f"[mesh] {gbwd.name} [{label}] vs plain")
+    gpair = _gated_route(cd, c) == "pair"
     if cd == torch.bfloat16:
-        _repeatable(gbwd.name, g_k, gbwd(*bops))
+        for _ in range(REPEATS - 1 if gpair else 1):
+            _repeatable(gbwd.name, g_k, gbwd(*bops))
+        if gpair:
+            log(f"[mesh]   {gbwd.name}: {REPEATS} launches on the cluster pair bitwise equal")
     err = max(_check(n, a, b, 1e-3, 1e-4) for n, a, b in zip(GATED_GRADS, g_k, g_p))
     moved = nbytes(*bops) + nbytes(*g_p)
     del g_k, g_p
     rows[gbwd.name] = _measure(gbwd.name, label, cd, lambda: gbwd(*bops),
                                lambda: fused_gated_sae.backward_plain(*bops),
                                _gated_bwd_library(bops), 10.0 * t * c * h, moved, err)
+    if cd == torch.bfloat16 and gpair:  # row 18 beside coder_bwd_tc
+        _route_timing(gbwd.name, label, "pair", lambda **kw: gbwd(*bops, **kw))
     del bops, gops, x, wg
     rows.update(_tp_jumprelu_rows(cd, label))
     rows.update(_tp_matryoshka_rows(cd, label))
@@ -5593,20 +5708,24 @@ def _replicated_moments(ts) -> dict:
 
 def _mesh_run(mesh, name: str, kernels, extra: dict | None = None) -> dict:
     """(b)-(d), (h), (i) on a rank: Pipeline.run of phase 6's ``name`` config
-    (with the fields ``extra``) on the mesh, every launch count set to 0 just
-    before and read just after, and the host seconds of its collectives. Rank
+    (with the fields ``extra``) on the mesh, every launch count (``kernels``'
+    and the cluster pair's bodies') set to 0 just before and read just after,
+    the pair body its backward runs, and the host seconds of its collectives. Rank
     0 returns the whole final state, the replicated parameters' Adam moments
     and the resamples' dead masks too."""
     cfg, datasets = _slice_config(name, dict(mesh_shape=mesh.shape,
                                              directory_path=str(MESH_WORK), **(extra or {})))
     pipe = Pipeline(cfg, mesh=mesh, datasets=datasets)
+    kernels = tuple(kernels) + PAIR_KERNELS  # the pair's body under the SAEs' backwards too
     for k in kernels:
         k.launches = 0
+    pair_body = _slice_pair_body(name, cfg, pipe.ts.params)
     t0 = time.perf_counter()
     with _recording(mesh) as rec, _collective_seconds() as coll:
         pipe.run()
     wall = time.perf_counter() - t0
     out = {"launches": {k.name: k.launches for k in kernels}, "wall": wall,
+           "pair_body": pair_body.name if pair_body else None,
            "timing": pipe.train_timing[0], "collective_s": coll["s"],
            "log": [(s, {k: float(v) for k, v in m.items()}) for s, m in pipe.train_log]}
     if mesh.rank == 0:
@@ -5698,7 +5817,9 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
                     want: int) -> None:
     """A mesh run's ranks against the one-rank run ``ref`` of variant
     ``name`` (the tolerances' comment): 12 steps, every rank's ``kernels``
-    launched ``want`` times, the restarts at the same steps, each step's loss
+    launched ``want`` times and of the cluster pair's bodies its run's own
+    (_slice_pair_body) ``want`` times and the others never, the restarts at
+    the same steps, each step's loss
     terms within MESH_STEP_RTOL (MESH_STEP_RTOL_BY) and perc_dead within
     MESH_DEAD_ATOL, rank
     0's final dead accumulator equal, the resamples at the same steps with
@@ -5720,6 +5841,12 @@ def _check_mesh_run(label: str, name: str, ranks: list, ref: dict, kernels,
             f"(host, waits included, the state gathers left out)" + loop)
         bad += [f"rank {r}: {launches[k.name]} launches of {k.name}, expected {want}"
                 for k in kernels if launches[k.name] != want]
+        # the cluster pair's body counters: the run's own (where bwd_route gives
+        # its shard the pair) launched ``want`` times, the others never
+        bad += [f"rank {r}: {launches[k.name]} launches of {k.name}, expected "
+                f"{want if k.name == res['pair_body'] else 0}"
+                for k in PAIR_KERNELS if launches[k.name] != (
+                    want if k.name == res["pair_body"] else 0)]
         if len(res["log"]) != 12:
             bad.append(f"rank {r}: {len(res['log'])} steps, expected 12")
     step_rtol = {**MESH_STEP_RTOL, **MESH_STEP_RTOL_BY.get(name, {})}
@@ -6365,9 +6492,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the slices with torch.profiler (slows them; times are then "
                          "not clean)")
-    ap.add_argument("--pair-body", choices=("jump", "relu"),
+    ap.add_argument("--pair-body", choices=("jump", "relu", "gated"),
                     help="print coder_bwd_pair's own device time (and its pre-pass's) at "
-                         "row 5's launch (jump) or row 2's (relu) as one JSON line and exit "
+                         "row 5's launch (jump), row 2's (relu) or row 7's (gated) as one JSON "
+                         "line and exit "
                          "(the kernels line's row, from a fresh process)")
     args = ap.parse_args()
     if args.pair_body:

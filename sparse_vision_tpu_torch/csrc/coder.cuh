@@ -196,16 +196,17 @@
 //     memory; the ring streams x and err only (pass E x twice). At a (2, 2)
 //     rank's transcoder shard 1.10x coder_bwd_tc (PERF.md's kernel table); at C 256
 //     (the SAEs) no faster, so those keep coder_bwd_tc.
-//   coder_bwd_pair (the JumpReLU, ReLU and Matryoshka SAEs at C <= 256): a
+//   coder_bwd_pair (the JumpReLU, ReLU, Matryoshka and gated SAEs at C <= 256): a
 //     latent block is a cluster of two CTAs, E holding dW_enc [C, 64] and D
 //     dW_dec^T [C, 64], each warpgroup its own tile of every other 64-token
 //     sub-step (128 registers a thread); E sends round_bf16(post) and the mask
 //     (and JumpReLU window) bits, D sends round_bf16(dpre) back, by bulk
-//     copies into the peer's shared memory. Each tile is written once and each
-//     rank reads its token tiles once (E x, D err), its W tile resident: ~T*C*2
-//     bytes a rank from L2 where coder_bwd_tc reads ~5*T*C*2. 1.4-1.85x
-//     coder_bwd_tc at rows 2, 5, 9, 16, 20, 22, 28, 32 and 34 (PERF.md's
-//     kernel table).
+//     copies into the peer's shared memory (the gated SAE: E sends g in f32,
+//     D runs the epilogue and three products and sends round_bf16(dg)). Each
+//     tile is written once and each rank reads its token tiles once (E x, D
+//     err), its W tile resident: ~T*C*2 bytes a rank from L2 where
+//     coder_bwd_tc reads ~5*T*C*2. 1.2-1.85x coder_bwd_tc at rows 2, 5, 7, 9,
+//     16, 18, 20, 22, 28, 30, 32 and 34 (PERF.md's kernel table).
 // Blocks stream the same tiles in step, so each comes from device memory about
 // once a wave and from L2 after that.
 
@@ -1156,7 +1157,16 @@ constexpr int kPairLag = 1;            // sub-steps (a warpgroup's) E's encode r
 constexpr int kPairRecv = 2;           // receive slots a warpgroup and direction
 constexpr int kPairSlot = kPairCmax / 64 * kBox;      // a token tile: up to four [64][64] boxes
 constexpr int kPairMsg = kBox + 8 * kThreads / 2;     // post^T and the bits: 9,216 bytes
+// Act::Gated trades g^T in f32 (E -> D: a thread's 32 accumulators, one slot
+// in D) and round_bf16(dg^T) (D -> E: a box, kPairRecv slots in E)
+constexpr int kPairGMsg = 4 * 32 * kThreads / 2;     // g^T: 16,384 bytes
 constexpr int kPairBars = 2 * kPairSt + 2 * kPairRecv + 2;  // mbarriers a warpgroup
+// a warpgroup's buffers: its ring, then its receive slots and staging buffer
+// (Act::Gated: 16 KB of receive slots, E's two dg^T boxes or D's one g^T, then
+// 16 KB of E's g^T staging or D's dg^T staging and its round_bf16(enc^T) box)
+__host__ __device__ constexpr int pair_part(Act a) {
+  return kPairSt * kPairSlot + (a == Act::Gated ? 2 * kPairGMsg : (kPairRecv + 1) * kPairMsg);
+}
 
 // the leading 1,024 bytes leave room to align the swizzled tiles; the mbarriers
 // (full and empty, one each per ring slot) come last
@@ -1179,17 +1189,19 @@ constexpr size_t held_smem_bytes(bool dec) {
   return 1024 + kHeldSt * kHeldSlot + (kHeldCin + (dec ? 0 : kHeldCout)) / 64 * kBox +
          kTcBwdTS * kSwRow + 2 * sizeof(float) * kTcBwdTH + 16 * kHeldSt + 8;
 }
-// per warpgroup its ring, receive slots and staging buffer; the resident W tile
-// (E: W_enc [C][64], D: W_dec [64][C], as [64][64] boxes); b_enc, theta and
-// -theta/eps; the mbarriers (per warpgroup the ring's, a receive slot's full
-// and the peer slot's empty, staged and stage_free; the W tile's)
-constexpr size_t pair_smem_bytes() {
-  return 1024 + 2 * (kPairSt * kPairSlot + (kPairRecv + 1) * kPairMsg) + kPairCmax / 64 * kBox +
-         3 * sizeof(float) * kTcBwdTH + 8 * (2 * kPairBars + 1);
+// per warpgroup its buffers (pair_part); the resident W tile (E: W_enc
+// [C][64], D: W_dec [64][C], as [64][64] boxes); b_enc, theta and -theta/eps
+// (Gated: b_gate, b_mag and exp(r_mag)); the mbarriers (per warpgroup the
+// ring's, a receive slot's full and the peer slot's empty, staged and
+// stage_free; the W tile's)
+constexpr size_t pair_smem_bytes(Act a) {
+  return 1024 + 2 * pair_part(a) + kPairCmax / 64 * kBox + 3 * sizeof(float) * kTcBwdTH +
+         8 * (2 * kPairBars + 1);
 }
 static_assert(fwd_tc_smem_bytes() <= 232448 && hold_smem_bytes(2) <= 232448 &&
                   bwd_tc_smem_bytes(3) <= 232448 && held_smem_bytes(false) <= 232448 &&
-                  pair_smem_bytes() <= 232448,
+                  pair_smem_bytes(Act::Jump) <= 232448 && pair_smem_bytes(Act::Relu) <= 232448 &&
+                  pair_smem_bytes(Act::Gated) <= 232448,
               "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -3140,9 +3152,10 @@ coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
 }
 
 // Backward, bf16, cluster pair: the route of ops/fused_sae.bwd_route for a
-// one-level JumpReLU backward (Act::Jump: rows 5, 20 and 32) and a ReLU or
+// one-level JumpReLU backward (Act::Jump: rows 5, 20 and 32), a ReLU or
 // Matryoshka SAE backward (Act::Relu, any prefix levels: rows 2, 9, 16, 22,
-// 28 and 34), each with C <= kPairCmax. Two CTAs
+// 28 and 34) and a gated SAE backward (Act::Gated: rows 7, 18 and 30), each
+// with C <= kPairCmax. Two CTAs
 // of a thread block cluster own one 64-latent block, so the block has two SMs'
 // registers: rank 0, "E", holds dW_enc [C][64] and rank 1, "D", dW_dec^T
 // [C][64] for the whole token sweep and writes it once. Each rank keeps its W
@@ -3171,6 +3184,27 @@ coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
 // per-latent L1 cotangent in theta's place in shared memory; no dtheta. D's
 // err rows are its block's prefix level's (q*T on, as coder_bwd_tc's qrow;
 // level boundaries are multiples of 128, so a block never straddles two).
+// Act::Gated (10*T*C*H FLOP; m_we maps W_gate, b_enc is b_gate, D's err map
+// covers [2 * n_tokens] rows a combo, err_via from row n_tokens on) moves the
+// epilogue to D. E runs g^T = W_gate tile^T @ x_u^T and sends it as it is, f32
+// (a thread's 32 accumulators, its 16-byte chunk j at chunk j * 128 + thread:
+// kPairGMsg bytes into D's one g^T slot), then holds dW_gate += x_u^T @
+// round_bf16(dg_u). D streams two token tiles a sub-step (round_bf16(c_rec *
+// err_rec) and round_bf16(c_aux * err_via), its ring's two slots) and runs
+// three products against its W_dec tile: denc^T;
+// on E's g, coder_bwd_tc's gated epilogue with its f32 operations (pre_gate =
+// g + b_gate, pre_mag = g*er + b_mag, the gate 1 / 0.5 / 0, d_premag = pre_mag
+// > 0 ? denc*gate : 0), round_bf16(enc^T) into a box of its own and d_premag*er
+// over g in the slot (one accumulator set a thread); then d_relu_pi^T from
+// err_via, d_pregate = pre_gate > 0 ? d_relu_pi + c_l1 : 0, dg = d_premag*er +
+// d_pregate, round_bf16(dg^T) sent to E; then dW_dec^T += err_rec_u^T @
+// round_bf16(enc_u). Its sums are Sigma d_pregate (db_gate), Sigma d_premag
+// (db_mag), Sigma d_premag*g (times er: dr_mag) and Sigma dg (the centring
+// row, against W_gate). A named barrier of the warpgroup orders the enc box's
+// writes and the dW_dec product's reads. At 255 registers the order is the
+// budget's: the dW_dec product first or the two error products' accumulators
+// held together spilled, and so did E sending round_bf16(enc^T) with g
+// (PERF.md, the gated pair's findings).
 // The mask and window come from E's f32 pre: D never re-derives them. Each
 // receive slot has a full barrier in the receiver (armed by its warpgroup's
 // first thread for the message's bytes) and an empty barrier in the sender
@@ -3185,7 +3219,8 @@ coder_bwd_held(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
 // E's split partials and tickets (the second [N][H / 64] array of split_ws) for
 // dW_enc, D's for dW_dec with the per-latent sums (last_split), and the last
 // split of each adds the others' tiles in split order. D writes db_enc, dtheta
-// (Jump) and db_dec's centring row (W_enc from device memory, as coder_bwd_tc). Both
+// (Jump), db_mag and dr_mag (Gated) and db_dec's centring row (W_enc from
+// device memory, as coder_bwd_tc). Both
 // ranks meet at a cluster barrier after the sweep, before which every remote
 // access is done. Sums in a fixed order: each warpgroup's tile sums its
 // sub-steps in f32, then warpgroup 0's tile plus warpgroup 1's; the per-latent
@@ -3207,26 +3242,29 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
                float* __restrict__ dw_enc, float* __restrict__ db_enc,
                float* __restrict__ dw_dec, int n_tokens, int C, int H, const SaeBwd sae,
                float* __restrict__ split_ws) {
-  static_assert(kAct == Act::Jump || kAct == Act::Relu,
-                "the pair's epilogues are the JumpReLU SAE's and the ReLU SAE's");
-  constexpr bool kJump = kAct == Act::Jump;
+  static_assert(kAct == Act::Jump || kAct == Act::Relu || kAct == Act::Gated,
+                "the pair's epilogues are the JumpReLU, ReLU and gated SAEs'");
+  constexpr bool kJump = kAct == Act::Jump, kGated = kAct == Act::Gated;
   constexpr int TH = kTcBwdTH, TU = kPairTU, TS = kTcBwdTS, St = kPairSt, L = kPairLag;
   constexpr int R = kPairRecv, NQ = kPairCmax / 64;  // NQ: held m64 tiles, a channel box each
+  constexpr int kNS = kGated ? 4 : 2;                 // D's per-latent sums
+  static_assert(R == 2 && St == 2, "Gated: E's two dg^T slots, D's ring of err_rec and err_via");
   extern __shared__ __align__(1024) unsigned char tc_smem_pair[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wg = warp / 4, w4 = warp % 4, wtid = tid % 128;  // warpgroup, warp and thread in it
   const bool first = wtid == 0;  // the warpgroup's producer and sender
-  // this warpgroup's ring [St] and messages (receive slots [R], then the staging
-  // buffer), then the W tile, the per-latent vectors, the mbarriers
+  // this warpgroup's ring [St] and messages (receive slots, then the staging
+  // buffer; pair_part), then the W tile, the per-latent vectors, the mbarriers
   unsigned char* base = align1024(tc_smem_pair);
-  constexpr int kPart = St * kPairSlot + (R + 1) * kPairMsg;  // a warpgroup's buffers
+  constexpr int kPart = pair_part(kAct);  // a warpgroup's buffers
   unsigned char* ring = base + wg * kPart;
   unsigned char* recv_s = ring + St * kPairSlot;
-  unsigned char* stage_s = recv_s + R * kPairMsg;
+  unsigned char* stage_s = recv_s + (kGated ? kPairGMsg : R * kPairMsg);
+  unsigned char* enc_s = stage_s + kBox;  // Gated D: round_bf16(enc^T) [64 latents][64 tokens]
   unsigned char* w_s = base + 2 * kPart;
-  float* benc_s = reinterpret_cast<float*>(w_s + NQ * kBox);  // [TH] b_enc
-  float* th_s = benc_s + TH;                                    // [TH] theta; Relu: ct
-  float* v2_s = th_s + TH;                                      // [TH] Jump: -theta/eps
+  float* benc_s = reinterpret_cast<float*>(w_s + NQ * kBox);  // [TH] b_enc; Gated: b_gate
+  float* th_s = benc_s + TH;        // [TH] theta; Relu: ct; Gated: b_mag
+  float* v2_s = th_s + TH;          // [TH] Jump: -theta/eps; Gated: exp(r_mag)
   uint64_t* bars0 = reinterpret_cast<uint64_t*>(v2_s + TH);     // [2][kPairBars], then w_full
   uint64_t* full = bars0 + wg * kPairBars;
   uint64_t* empty = full + St;
@@ -3246,16 +3284,28 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   const int t_hi = min(n_tokens, (blk.split + 1) * n_steps / n_split * TS);
   const int n_sub = (t_hi - t_lo) / TU;       // at least 2: T is a multiple of 128
   const int n_mine = (n_sub - wg + 1) / 2;    // this warpgroup's: u = wg + 2j
-  const uint32_t in_bytes = enc ? kBox : kPairMsg, out_bytes = enc ? kPairMsg : kBox;
+  // token tiles a sub-step (Gated D: err_rec, then err_via from row T on)
+  const int per_sub = kGated && !enc ? 2 : 1;
+  // the receive slots of this rank's messages in and of the peer's (the slots'
+  // strides and the bytes each message carries): JumpReLU and ReLU both ways R
+  // slots of kPairMsg; Gated E -> D one g^T slot, D -> E R dg^T boxes
+  const int r_in = kGated && !enc ? 1 : R, r_out = kGated && enc ? 1 : R;
+  const int m_in = kGated ? (enc ? kBox : kPairGMsg) : kPairMsg;
+  const int m_out = kGated ? (enc ? kPairGMsg : kBox) : kPairMsg;
+  const uint32_t in_bytes = kGated ? m_in : enc ? kBox : kPairMsg;
+  const uint32_t out_bytes = kGated ? m_out : enc ? kPairMsg : kBox;
   // Relu: D's err rows of the block's prefix level (sae.lv; one level but for
   // the Matryoshka SAE), as coder_bwd_tc's qrow; E does not see levels
-  const int qrow = kJump || enc ? 0 : svt::level_of(sae.lv, h0) * n_tokens;
+  const int qrow = kAct == Act::Relu && !enc ? svt::level_of(sae.lv, h0) * n_tokens : 0;
   if (tid < TH) {
     benc_s[tid] = combo_part(b_enc, H, cb)[h0 + tid];
     if constexpr (kJump) {
       const float th = combo_part(sae.act.theta, H, cb)[h0 + tid];
       th_s[tid] = th;
       v2_s[tid] = __fdiv_rn(-th, sae.act.eps);
+    } else if constexpr (kGated) {
+      th_s[tid] = combo_part(sae.act.b_mag, H, cb)[h0 + tid];
+      v2_s[tid] = combo_part(sae.act.er, H, cb)[h0 + tid];
     } else {
       th_s[tid] = combo_part(ct, H, cb)[h0 + tid];
     }
@@ -3273,13 +3323,14 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
     }
     if (wg == 0) mbar_init(w_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int k = 0; k < min(R, n_mine); ++k) mbar_expect_tx(&recv_full[k], in_bytes);
+    for (int k = 0; k < min(r_in, n_mine); ++k) mbar_expect_tx(&recv_full[k], in_bytes);
   }
   cluster_sync();  // both CTAs' barriers are initialised before any remote arrive or copy
 
   // the W tile, loaded once, and this warpgroup's token tiles (its first
-  // thread): its tile j (sub-step wg + 2j, x or err, one [64][64] box a 64
-  // channels) into its slot j % St once its warps have released the tile before
+  // thread): its tile j (of sub-step wg + 2 * (j / per_sub), x or err, one
+  // [64][64] box a 64 channels) into its slot j % St once its warps have
+  // released the tile before
   const CUtensorMap *mx = &m_x, *mwe = &m_we, *mwd = &m_wd, *merr = &m_err;  // param space
   if (tid == 0) {
     mbar_expect_tx(w_full, nk * kBox);
@@ -3289,12 +3340,12 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
     }
   }
   auto issue = [&](int j) {
-    if (!first || j >= n_mine) return;
+    if (!first || j >= per_sub * n_mine) return;
     const int s = j % St;
     mbar_wait(&empty[s], ((j / St) & 1) ^ 1);  // the first round passes
     mbar_expect_tx(&full[s], nk * kBox);
     unsigned char* d = ring + s * kPairSlot;
-    const int row = t_lo + (wg + 2 * j) * TU;
+    const int row = t_lo + (wg + 2 * (j / per_sub)) * TU + (j % per_sub) * n_tokens;
     for (int q = 0; q < nk; ++q) {  // a branch, not a select of the two maps (coder_bwd_tc)
       if (enc) tma_box(d + q * kBox, mx, &full[s], q * 64, row, cb);
       else tma_box(d + q * kBox, merr, &full[s], q * 64, qrow + row, cb);
@@ -3309,8 +3360,9 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   const uint32_t w_a = smem_u32(w_s);
   mbar_wait(w_full, 0);
 
-  // pre^T (E) or dpost^T (D) of tile j: acc[j][2h + e] is latent 16*w4 +
-  // lane/4 + 8h, token 8j + 2*(lane%4) + e of the sub-step
+  // pre^T (E; Gated g^T) or dpost^T (D; Gated denc^T, then d_relu_pi^T less
+  // c_l1) of tile j: acc[j][2h + e] is latent 16*w4 + lane/4 + 8h, token 8j +
+  // 2*(lane%4) + e of the sub-step
   auto transposed = [&](float (&acc)[8][4], int j) {
     mbar_wait(&full[j % St], (j / St) & 1);
     const uint32_t t = smem_u32(ring + (j % St) * kPairSlot);
@@ -3330,8 +3382,8 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   };
   // the held tile: g[q][j][2h + e] is channel 64*q + 16*w4 + lane/4 + 8h (E: a
   // row of dW_enc; D: a column of dW_dec), latent h0 + 8j + 2*(lane%4) + e;
-  // g[q] += (tile j's box q)^T @ msg^T, msg the received [64 latents][64
-  // tokens] (K-major B)
+  // g[q] += (tile j's box q)^T @ msg^T, msg a [64 latents][64 tokens] box
+  // (K-major B): the received one, or Gated D's own round_bf16(enc^T)
   float g[NQ][8][4];
 #pragma unroll
   for (int q = 0; q < NQ; ++q)
@@ -3354,7 +3406,7 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   };
   // the message of this warpgroup's sub-step j out: before its threads write
   // the staging buffer, the copy of sub-step j - 1 has read it; after, the
-  // first thread sends it into the peer's slot j % R once the peer is done
+  // first thread sends it into the peer's slot j % r_out once the peer is done
   // with that slot
   auto stage_begin = [&](int j) {
     if (j == 0) return;
@@ -3369,25 +3421,31 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
     mbar_arrive(staged);
     if (first) {
       mbar_wait(staged, j & 1);
-      mbar_wait(&send_empty[j % R], ((j / R) & 1) ^ 1);  // the first round passes
-      bulk_to_peer(peer_recv + (j % R) * kPairMsg, stage_s, out_bytes, peer_full + (j % R) * 8);
+      mbar_wait(&send_empty[j % r_out], ((j / r_out) & 1) ^ 1);  // the first round passes
+      bulk_to_peer(peer_recv + (j % r_out) * m_out, stage_s, out_bytes,
+                   peer_full + (j % r_out) * 8);
     }
   };
   // a received message's slot, once this warpgroup's warps are done with it:
-  // the peer's next message there may come; and tile j's ring slot, refilled
-  auto release = [&](int j) {
-    if (!enc) fence_async_smem();  // D's generic reads of the slot (the bits) before the next copy
+  // the peer's next message there may come
+  auto release_msg = [&](int j) {
+    if (!enc) fence_async_smem();  // D's generic accesses of the slot before the next copy
     __syncwarp();
-    if (lane == 0) {
-      mbar_arrive_peer(peer_empty + (j % R) * 8);
-      mbar_arrive(&empty[j % St]);
-    }
+    if (lane == 0) mbar_arrive_peer(peer_empty + (j % r_in) * 8);
+  };
+  // token tile j's ring slot, refilled
+  auto release_tile = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % St]);
     issue(j + St);
   };
   const int lat = 16 * w4 + lane / 4;  // this thread's latents lat, lat + 8 in the block
   const uint32_t out_o = (lane % 4) * 4;  // its bf16 pairs' bytes in a 16-byte chunk
-  // D: the per-latent sums of latents lat + 8h over this thread's tokens
-  float sb[2] = {0.f, 0.f}, st[2] = {0.f, 0.f};
+  // D: the per-latent sums of latents lat + 8h over this thread's tokens (Jump:
+  // dpre, dtheta terms; Relu: dpre; Gated: d_pregate, d_premag, d_premag * g, dg)
+  float sv[kNS][2];
+#pragma unroll
+  for (int q = 0; q < kNS; ++q) sv[q][0] = sv[q][1] = 0.f;
 
   if (enc) {
     for (int i = 0; i < n_mine + L; ++i) {
@@ -3395,41 +3453,125 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
         float acc[8][4];
         transposed(acc, i);
         stage_begin(i);
-        // bit 4j + 2h + e: pre > theta (Relu: pre > 0); Jump: in the window
-        uint32_t on = 0, win = 0;
+        if constexpr (kGated) {
+          // g^T as it is, f32: this thread's 32 floats, its 16-byte chunk j at
+          // chunk j * 128 + wtid (a warp's stores contiguous), where D's thread
+          // wtid, which holds the same latents and tokens, reads it
+          float4* out = reinterpret_cast<float4*>(stage_s) + wtid;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < 8; ++j)
+            out[j * 128] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        } else {
+          // bit 4j + 2h + e: pre > theta (Relu: pre > 0); Jump: in the window
+          uint32_t on = 0, win = 0;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int l = lat + 8 * h;
-            float p[2];
+          for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float v = acc[j][2 * h + e] + benc_s[l];
-              if constexpr (kJump) {
-                const float th = th_s[l];
-                on |= static_cast<uint32_t>(v > th) << (4 * j + 2 * h + e);
-                win |= static_cast<uint32_t>(fabsf(v - th) <= sae.act.half_eps)
-                       << (4 * j + 2 * h + e);
-                p[e] = v > th ? v : 0.f;
-              } else {
-                on |= static_cast<uint32_t>(v > 0.f) << (4 * j + 2 * h + e);
-                p[e] = fmaxf(v, 0.f);
+            for (int h = 0; h < 2; ++h) {
+              const int l = lat + 8 * h;
+              float p[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float v = acc[j][2 * h + e] + benc_s[l];
+                if constexpr (kJump) {
+                  const float th = th_s[l];
+                  on |= static_cast<uint32_t>(v > th) << (4 * j + 2 * h + e);
+                  win |= static_cast<uint32_t>(fabsf(v - th) <= sae.act.half_eps)
+                         << (4 * j + 2 * h + e);
+                  p[e] = v > th ? v : 0.f;
+                } else {
+                  on |= static_cast<uint32_t>(v > 0.f) << (4 * j + 2 * h + e);
+                  p[e] = fmaxf(v, 0.f);
+                }
               }
+              *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(l, j) + out_o) =
+                  __floats2bfloat162_rn(p[0], p[1]);
             }
-            *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(l, j) + out_o) =
-                __floats2bfloat162_rn(p[0], p[1]);
-          }
-        reinterpret_cast<uint2*>(stage_s + kBox)[wtid] = make_uint2(on, win);
+          reinterpret_cast<uint2*>(stage_s + kBox)[wtid] = make_uint2(on, win);
+        }
         stage_end(i);
       }
-      if (i >= L) {  // dW_enc += x^T @ round_bf16(dpre) of its sub-step k
+      if (i >= L) {  // dW_enc += x^T @ round_bf16(dpre) (Gated: dg) of its sub-step k
         const int k = i - L;
-        mbar_wait(&recv_full[k % R], (k / R) & 1);
-        if (first && k + R < n_mine) mbar_expect_tx(&recv_full[k % R], in_bytes);
-        held(k, recv_s + (k % R) * kPairMsg);
-        release(k);
+        mbar_wait(&recv_full[k % r_in], (k / r_in) & 1);
+        if (first && k + r_in < n_mine) mbar_expect_tx(&recv_full[k % r_in], in_bytes);
+        held(k, recv_s + (k % r_in) * m_in);
+        release_msg(k);
+        release_tile(k);
       }
+    }
+  } else if constexpr (kGated) {
+    const float c_l1 = combo_part(coeffs, 3, cb)[1];
+    const int bar_id = 1 + wg;  // the warpgroup's named barrier (0 is __syncthreads')
+    float4* msg = reinterpret_cast<float4*>(recv_s) + wtid;  // its g^T: chunk j at j * 128
+    for (int i = 0; i < n_mine; ++i) {
+      float acc[8][4];
+      transposed(acc, 2 * i);  // denc^T = W_dec tile @ round_bf16(c_rec * err_rec)^T
+      mbar_wait(&recv_full[0], i & 1);
+      if (first && i + 1 < n_mine) mbar_expect_tx(&recv_full[0], in_bytes);
+      // every warp of the warpgroup is past its last dW_dec product: enc_s is free
+      asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+      // coder_bwd_tc's gated epilogue on E's f32 g: round_bf16(enc^T) into
+      // enc_s, the sums of d_premag and d_premag * g, d_premag * er (dg's
+      // first term) over g in the slot; bit 4j + 2h + e: pre_gate > 0
+      uint32_t pos = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 gv = msg[j * 128];
+        const float gs[4] = {gv.x, gv.y, gv.z, gv.w};
+        float dme[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int l = lat + 8 * h;
+          float en[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i4 = 2 * h + e;
+            const float gg = gs[i4], er = v2_s[l];
+            const float pg = gg + benc_s[l];
+            const float pm = __fadd_rn(__fmul_rn(gg, er), th_s[l]);  // as the plain version
+            const float gate = pg > 0.f ? 1.f : (pg == 0.f ? 0.5f : 0.f);
+            const float dm = pm > 0.f ? __fmul_rn(acc[j][i4], gate) : 0.f;
+            en[e] = gate * fmaxf(pm, 0.f);
+            sv[1][h] += dm;
+            sv[2][h] += __fmul_rn(dm, gg);
+            dme[i4] = __fmul_rn(dm, er);
+            pos |= static_cast<uint32_t>(pg > 0.f) << (4 * j + i4);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(enc_s + sw128(l, j) + out_o) =
+              __floats2bfloat162_rn(en[0], en[1]);
+        }
+        msg[j * 128] = make_float4(dme[0], dme[1], dme[2], dme[3]);
+      }
+      transposed(acc, 2 * i + 1);  // round_bf16(c_aux * err_via) @ W_dec tile^T, transposed
+      release_tile(2 * i + 1);
+      // d_pregate = pre_gate > 0 ? d_relu_pi : 0 with d_relu_pi = that + c_l1,
+      // dg = d_premag * er + d_pregate; round_bf16(dg^T) to E
+      stage_begin(i);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 dv = msg[j * 128];
+        const float dme[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i4 = 2 * h + e;
+            const float dpg = (pos >> (4 * j + i4)) & 1u ? acc[j][i4] + c_l1 : 0.f;
+            d[e] = __fadd_rn(dme[i4], dpg);
+            sv[0][h] += dpg;
+            sv[3][h] += d[e];
+          }
+          *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(lat + 8 * h, j) + out_o) =
+              __floats2bfloat162_rn(d[0], d[1]);
+        }
+      }
+      stage_end(i);  // its fence also orders this thread's enc_s writes before the product's reads
+      release_msg(i);
+      asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");  // enc_s is whole
+      held(2 * i, enc_s);  // dW_dec^T += err_rec^T @ round_bf16(enc)
+      release_tile(2 * i);
     }
   } else {
     const float c_1 = kJump ? __fmul_rn(combo_part(coeffs, 2, cb)[1], sae.act.neg_inv_eps) : 0.f;
@@ -3464,12 +3606,13 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
           *reinterpret_cast<__nv_bfloat162*>(stage_s + sw128(l, j) + out_o) =
               __floats2bfloat162_rn(d[0], d[1]);
         }
-        sb[h] += sd;
-        st[h] += sw;
+        sv[0][h] += sd;
+        sv[1][h] += sw;
       }
       stage_end(i);
       held(i, msg);  // dW_dec^T += err^T @ round_bf16(post)
-      release(i);
+      release_msg(i);
+      release_tile(i);
     }
   }
   if (first) bulk_wait_read();
@@ -3515,8 +3658,8 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
           }
       }
   __syncthreads();  // the tile is read: the scratch below reuses it
-  float* red_s = reinterpret_cast<float*>(base);  // [2 sums][2 warpgroups][TH]
-  float* bcd_s = red_s + 4 * TH;                  // [TH] round_bf16(db_enc)
+  float* red_s = reinterpret_cast<float*>(base);  // [kNS sums][2 warpgroups][TH]
+  float* bcd_s = red_s + 2 * kNS * TH;            // [TH] round_bf16(db_enc); Gated: of sum dg
   int* flag = reinterpret_cast<int*>(bcd_s + TH);
   if (enc) {
     if (n_split > 1) {  // the last split of this latent block adds the others' partials
@@ -3530,24 +3673,21 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
   }
   // D: the sums over the four lanes of a latent, then the two warpgroups
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int q = 0; q < kNS; ++q)
 #pragma unroll
-    for (int off = 1; off < 4; off *= 2) {
-      sb[h] += __shfl_xor_sync(0xffffffffu, sb[h], off);
-      st[h] += __shfl_xor_sync(0xffffffffu, st[h], off);
-    }
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) sv[q][h] += __shfl_xor_sync(0xffffffffu, sv[q][h], off);
   if (lane % 4 == 0)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      red_s[wg * TH + lat + 8 * h] = sb[h];
-      red_s[(2 + wg) * TH + lat + 8 * h] = st[h];
-    }
+    for (int q = 0; q < kNS; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) red_s[(2 * q + wg) * TH + lat + 8 * h] = sv[q][h];
   __syncthreads();
-  float s[2] = {0.f, 0.f};
-  if (tid < TH) {
-    s[0] = red_s[tid] + red_s[TH + tid];
-    s[1] = red_s[2 * TH + tid] + red_s[3 * TH + tid];
-  }
+  float s[kNS];
+#pragma unroll
+  for (int q = 0; q < kNS; ++q)
+    s[q] = tid < TH ? red_s[2 * q * TH + tid] + red_s[(2 * q + 1) * TH + tid] : 0.f;
   if (n_split > 1) {  // the last split of this latent block goes on (header note, "Splits")
     if (!last_split(s, ws_dec + (n_split - 1) * dec_sz, H, blk, flag, gx)) return;
     add_split_tiles(combo_part(dw_dec, static_cast<long>(H) * C, cb) + static_cast<long>(h0) * C,
@@ -3555,12 +3695,17 @@ coder_bwd_pair(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ 
                     TH * C);
   }
   if (tid < TH) {
-    combo_part(db_enc, H, cb)[h0 + tid] = s[0];
+    combo_part(db_enc, H, cb)[h0 + tid] = s[0];  // Gated: db_gate
     if constexpr (kJump) combo_part(sae.act.dtheta, H, cb)[h0 + tid] = s[1];
-    bcd_s[tid] = __bfloat162float(__float2bfloat16(s[0]));
+    if constexpr (kGated) {
+      combo_part(sae.act.db_mag, H, cb)[h0 + tid] = s[1];
+      combo_part(sae.act.dr_mag, H, cb)[h0 + tid] = __fmul_rn(s[2], v2_s[tid]);
+    }
+    bcd_s[tid] = __bfloat162float(__float2bfloat16(s[kGated ? 3 : 0]));
   }
   __syncthreads();
   // this block's row of db_dec's centring term, -round_bf16(db_enc) @ W_enc tile^T
+  // (Gated: -round_bf16(sum dg) @ W_gate tile^T)
   const long part = static_cast<long>(n_steps) * C + static_cast<long>(H / TH) * C;
   for (int k = tid; k < C; k += kThreads) {
     const uint4* row = reinterpret_cast<const uint4*>(
@@ -3956,7 +4101,7 @@ cudaError_t bwd_pair(const void* x, const void* w_enc, const float* b_enc, const
       (e = bf16_map(&merr, err, err_rows, C, 64, n_combo)) != cudaSuccess)
     return e;
   return svt::launch(coder_bwd_pair<kAct>, dim3(2 * H / kTcBwdTH, n_combo, n_split),
-                     pair_smem_bytes(), stream, mx, mwe, mwd, merr, b_enc, coeffs, ct, dw_enc,
+                     pair_smem_bytes(kAct), stream, mx, mwe, mwd, merr, b_enc, coeffs, ct, dw_enc,
                      db_enc, dw_dec, n_tokens, C, H, sae, static_cast<float*>(split_ws));
 }
 
@@ -3965,12 +4110,12 @@ cudaError_t bwd_pair(const void* x, const void* w_enc, const float* b_enc, const
 template <Act kAct>
 int pair_clusters() {
   if (cudaFuncSetAttribute(coder_bwd_pair<kAct>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(pair_smem_bytes())) != cudaSuccess)
+                           static_cast<int>(pair_smem_bytes(kAct))) != cudaSuccess)
     return -1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(2 * 1024, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = pair_smem_bytes();
+  cfg.dynamicSmemBytes = pair_smem_bytes(kAct);
   int n = 0;
   return cudaOccupancyMaxActiveClusters(&n, coder_bwd_pair<kAct>, &cfg) == cudaSuccess ? n : -1;
 }

@@ -30,11 +30,14 @@
 //     so the route is two launches of the ReLU forward's width route
 //     (fwd_tc): Act::GatedEnc writes recon and the counts, Act::GatedPi via
 //     and the zsum partials. The gate product runs twice (8*T*C*H);
-//   backward: coder_bwd_tc<true, Act::Gated> after scale_err_kernel twice
-//     (round_bf16(c_rec * err_rec) with the direct db_dec rows, and
-//     round_bf16(c_aux * err_via), which gives b_dec no gradient), into one
-//     [2, T, C] workspace whose second half the body's third phase-A product
-//     reads.
+//   backward: scale_err_kernel twice (round_bf16(c_rec * err_rec) with the
+//     direct db_dec rows, and round_bf16(c_aux * err_via), which gives b_dec
+//     no gradient) into one [2, T, C] workspace, then at C <= 256 where the
+//     caller's route (ops/fused_sae.bwd_route) says "pair" the cluster pair
+//     coder_bwd_pair<Act::Gated> (E holds dW_gate and sends g in f32, D runs
+//     the gated epilogue and its three products, holds dW_dec and sends
+//     round_bf16(dg) back), else coder_bwd_tc<true, Act::Gated>, whose third
+//     phase-A product reads the workspace's second half.
 //
 // In f32 (the check path) both run the coder family's SIMT bodies with the
 // same epilogues (any width, T and H multiples of 128) after center_kernel:
@@ -136,10 +139,12 @@ extern "C" int svt_gated_fwd(int bf16, const void* x, const void* w_gate,
 // combo's direct rows of db_dec, then one centring row per 64 latents (H / 64
 // rows). bf16: err_s gets scale_err_kernel's round_bf16(c_rec * err_rec)
 // (with the ceil(n_tokens / 512) direct rows) and round_bf16(c_aux *
-// err_via), then coder_bwd_tc<true, Act::Gated> (n_split and split_ws:
-// coder.cuh, bwd_tc); float: err_s gets copies of
-// err_rec and err_via, then coder_bwd_kernel<float, true, Act::Gated> (2
-// direct rows).
+// err_via), then coder_bwd_tc<true, Act::Gated>, or coder_bwd_pair<Act::Gated>
+// where ``pair`` is non-zero (the caller's route, ops/fused_sae.bwd_route,
+// decides; C <= 256, else cudaErrorInvalidValue) (n_split and split_ws:
+// coder.cuh, bwd_tc and bwd_pair); float: err_s gets copies of err_rec and
+// err_via, then coder_bwd_kernel<float, true, Act::Gated> (2 direct rows),
+// never split or paired.
 extern "C" int svt_gated_sweep_bwd(int bf16, const void* x, const void* w_gate,
                                    const float* b_gate, const float* b_mag, const float* er,
                                    const void* w_dec, const float* b_dec, const float* err_rec,
@@ -147,9 +152,10 @@ extern "C" int svt_gated_sweep_bwd(int bf16, const void* x, const void* w_gate,
                                    float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
                                    float* db_dec_part, void* x_cent, void* err_s,
                                    void* split_ws, int n_tokens, int C, int H, int n_combo,
-                                   int n_split, cudaStream_t stream) {
+                                   int pair, int n_split, cudaStream_t stream) {
   if (bad_shape(n_tokens, C, C, H) || bad_combos(n_combo, H) ||
-      (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)) || (!bf16 && n_split != 1))
+      (bf16 && bad_tc_operands(C, C, x, x_cent, w_gate, w_dec)) ||
+      (!bf16 && (n_split != 1 || pair)) || (pair && C > kPairCmax))
     return cudaErrorInvalidValue;
   const long n = static_cast<long>(n_tokens) * C;
   const long direct = bf16 ? (n_tokens + kTcBwdTS - 1) / kTcBwdTS : 2;
@@ -178,6 +184,10 @@ extern "C" int svt_gated_sweep_bwd(int bf16, const void* x, const void* w_gate,
   sae.act.er = er;
   sae.act.db_mag = db_mag;
   sae.act.dr_mag = dr_mag;
+  if (pair)
+    return bwd_pair<Act::Gated>(x_cent, w_gate, b_gate, w_dec, err_s, 2 * n_tokens, coeffs,
+                                nullptr, dw_gate, db_gate, dw_dec, n_tokens, C, H, sae, stream,
+                                n_combo, n_split, split_ws);
   if (bf16)
     return bwd_tc<true, Act::Gated>(x_cent, w_gate, b_gate, w_dec, err_s, 2 * n_tokens, coeffs,
                                     nullptr, dw_gate, db_gate, dw_dec, nullptr, n_tokens, C, C,
@@ -193,9 +203,17 @@ extern "C" int svt_gated_bwd(int bf16, const void* x, const void* w_gate,
                              const float* err_via, const float* coeffs, float* dw_gate,
                              float* db_gate, float* db_mag, float* dr_mag, float* dw_dec,
                              float* db_dec_part, void* x_cent, void* err_s, void* split_ws,
-                             int n_tokens, int C, int H, int n_split, cudaStream_t stream) {
+                             int n_tokens, int C, int H, int pair, int n_split,
+                             cudaStream_t stream) {
   return svt_gated_sweep_bwd(bf16, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec,
                              err_via, coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec,
-                             db_dec_part, x_cent, err_s, split_ws, n_tokens, C, H, 1, n_split,
-                             stream);
+                             db_dec_part, x_cent, err_s, split_ws, n_tokens, C, H, 1, pair,
+                             n_split, stream);
+}
+
+// The clusters of two coder_bwd_pair<Act::Gated> CTAs that the card holds at
+// once, into *out (-1 where the query fails): a query, no launch.
+extern "C" int svt_gated_pair_clusters(int* out) {
+  *out = pair_clusters<Act::Gated>();
+  return *out < 0 ? cudaErrorInvalidValue : cudaSuccess;
 }

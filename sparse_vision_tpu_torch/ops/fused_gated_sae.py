@@ -25,14 +25,19 @@ gate product and one W_dec stream feeding both decodes (Act::Gated); wider, it
 is two launches of the ReLU forward's width route, recon with the counts
 (Act::GatedEnc), then via_gate with the sums of relu(π_gate) (Act::GatedPi).
 It leaves per-64-token partials of the counts and of Σ relu(π_gate), whose
-total is the L1 sum. The backward (coder_bwd_tc's gated epilogue: three
-products per token tile, the second error's W_dec tiles streamed again) first
-runs scale_err_kernel on both errors. In f32 (the check path) both run the
-coder family's SIMT bodies with the same epilogues, at any width (T and H
-multiples of 128), after center_kernel: the forward as two launches at every
-width (GatedEnc, GatedPi), the backward on copies of both saved f32 errors in
-one [2, T, C] workspace. can_fuse asks the coder bodies' rule
-(fused_sae.bodies_take) with the dtype.
+total is the L1 sum. The backward first runs scale_err_kernel on both
+errors, then the body fused_sae.bwd_route names: at 128 < C ≤ 256 "pair",
+coder_bwd_pair<Act::Gated> (one launch in clusters of two CTAs a latent
+block: E holds dW_gate and sends g in f32, D runs the gated epilogue and its
+three products, holds dW_dec and sends round(dg) back; counted on
+``pair_kernel`` as well), else "tc", coder_bwd_tc's gated epilogue (three
+products per token tile, the second error's W_dec tiles streamed again). Both
+compute one function, so their plain version is one (ROUTE_PLAIN). In f32
+(the check path) both run the coder family's SIMT bodies with the same
+epilogues, at any width (T and H multiples of 128), after center_kernel: the
+forward as two launches at every width (GatedEnc, GatedPi), the backward on
+copies of both saved f32 errors in one [2, T, C] workspace. can_fuse asks
+the coder bodies' rule (fused_sae.bodies_take) with the dtype.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version of each kernel (the
 same formulas, the same cast points); a CUDA tensor launches the kernel or
@@ -80,6 +85,7 @@ from sparse_vision_tpu_torch.ops.fused_sae import (
     _ptrs,
     _r,
     bodies_take,
+    bwd_route,
     center_plain,
     compute_dtype_of,
     direct_rows,
@@ -197,12 +203,19 @@ def gated_bwd_tc_plain(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_
             torch.cat([direct, cent[None]]).sum(0))
 
 
-def backward_plain(x, *args):
-    """The plain version of the route the card's backward takes for ``x``'s
-    dtype: gated_bwd_tc_plain in bf16, fused_gated_backward_plain (the SIMT
-    body's route) in f32."""
-    plain = gated_bwd_tc_plain if x.dtype == _BF16 else fused_gated_backward_plain
-    return plain(x, *args)
+# the plain version of each backward route (fused_sae.bwd_route): the pair
+# computes coder_bwd_tc's function, at its own summation order
+ROUTE_PLAIN = {"pair": gated_bwd_tc_plain, "tc": gated_bwd_tc_plain,
+               "simt": fused_gated_backward_plain}
+
+
+def backward_plain(x, *args, route=None):
+    """The plain version of the route the card's backward takes for ``x``
+    (``route``, or fused_sae.bwd_route's for its width and dtype):
+    gated_bwd_tc_plain for "pair" and "tc" (bf16), fused_gated_backward_plain
+    for "simt" (f32)."""
+    c = x.shape[-1]
+    return ROUTE_PLAIN[route or bwd_route(c, c, act="gated", dtype=x.dtype)](x, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -216,17 +229,31 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = native.load("fused_gated_sae")
-    # every entry point ends in (..., n_split, stream); the backwards' last
-    # pointer is split_ws (csrc/coder.cuh, "Splits")
+    # every launching entry point ends in (..., n_split, stream); the
+    # backwards' last pointer is split_ws (csrc/coder.cuh, "Splits"), their
+    # ``pair`` comes before n_split (bwd_route)
     lib.svt_gated_fwd.restype = _I
     lib.svt_gated_fwd.argtypes = [_I] + [_P] * 13 + [_I] * 4 + [_P]
     lib.svt_gated_bwd.restype = _I
-    lib.svt_gated_bwd.argtypes = [_I] + [_P] * 19 + [_I] * 4 + [_P]
+    lib.svt_gated_bwd.argtypes = [_I] + [_P] * 19 + [_I] * 5 + [_P]
     lib.svt_gated_sweep_fwd.restype = _I
     lib.svt_gated_sweep_fwd.argtypes = [_I] + [_P] * 13 + [_I] * 5 + [_P]
     lib.svt_gated_sweep_bwd.restype = _I
-    lib.svt_gated_sweep_bwd.argtypes = [_I] + [_P] * 19 + [_I] * 5 + [_P]
+    lib.svt_gated_sweep_bwd.argtypes = [_I] + [_P] * 19 + [_I] * 6 + [_P]
+    lib.svt_gated_pair_clusters.restype = _I
+    lib.svt_gated_pair_clusters.argtypes = [_P]
     return lib
+
+
+def pair_clusters() -> int:
+    """The clusters of coder_bwd_pair<Act::Gated> (two CTAs each) that the
+    current card holds at once (cudaOccupancyMaxActiveClusters); raises where
+    the query fails."""
+    out = (ctypes.c_int * 1)()
+    rc = _lib().svt_gated_pair_clusters(out)
+    if rc != 0:
+        raise RuntimeError(f"svt_gated_pair_clusters failed: cudaError_t {rc}")
+    return out[0]
 
 
 def _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward: bool = False):
@@ -275,22 +302,49 @@ class _ForwardKernel(Kernel):
                 join_splits(row_active, s), l1_part.sum())
 
 
+class _PairBody(Kernel):
+    """The cluster-pair backward body's gated instantiation (csrc/coder.cuh
+    coder_bwd_pair<Act::Gated>, fused_sae.bwd_route's "pair"): its count goes
+    up wherever a gated backward launch runs it (the launching wrapper's own
+    count goes up too)."""
+
+    name = "coder_bwd_pair_gated"
+
+
+pair_kernel = _PairBody()
+
+
+def _route(x, c: int, route) -> tuple:
+    """(route, its ``pair`` flag for the backward entry points): ``route`` where
+    the caller names one (chip_smoke.py times "tc" on a pair launch), else
+    fused_sae.bwd_route's for a gated backward of width c in x's dtype."""
+    route = route or bwd_route(c, c, act="gated", dtype=x.dtype)
+    if route not in ROUTE_PLAIN:
+        raise ValueError(f"fused gated backward: no {route!r} route (its routes: "
+                         f"{', '.join(ROUTE_PLAIN)})")
+    return route, int(route == "pair")
+
+
 class _BackwardKernel(Kernel):
     """csrc svt_gated_bwd: in bf16 center_kernel, scale_err_kernel (twice) and
-    coder_bwd_tc<true, Act::Gated> (gated_bwd_tc_plain), in f32 center_kernel,
-    copies of both errors and coder_bwd_kernel<float, true, Act::Gated>
-    (fused_gated_backward_plain). db_dec's partial rows are reduced here."""
+    the body bwd_route names, coder_bwd_pair<Act::Gated> at 128 < C ≤ 256
+    (counted on ``pair_kernel`` too), else coder_bwd_tc<true, Act::Gated> (both
+    gated_bwd_tc_plain), in f32 center_kernel, copies of both errors and
+    coder_bwd_kernel<float, true, Act::Gated> (fused_gated_backward_plain).
+    ``route="tc"`` runs coder_bwd_tc on a pair launch. db_dec's partial rows
+    are reduced here."""
 
     name = "fused_gated_sae_bwd"
 
     def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs,
-                 n_split=None):
+                 n_split=None, route=None):
         t, c, h = _check_operands(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, backward=True)
         dev = x.device
         _expect("err_rec", err_rec, (t, c), _F32, dev)
         _expect("err_via", err_via, (t, c), _F32, dev)
         _expect("coeffs", coeffs, (3,), _F32, dev)
-        s = launch_split(x, t, h, c, backward=True, n_split=n_split)
+        route, pair = _route(x, c, route)
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split, pair=bool(pair))
         dw_gate = torch.empty((c, h), dtype=_F32, device=dev)
         db_gate = torch.empty((h,), dtype=_F32, device=dev)
         db_mag = torch.empty((h,), dtype=_F32, device=dev)
@@ -306,7 +360,9 @@ class _BackwardKernel(Kernel):
         self._launch(_lib().svt_gated_bwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
                             coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part,
-                            x_cent, err_s, split_workspace(s, 1, h, c, c, dev)), t, c, h, s)
+                            x_cent, err_s, split_workspace(s, 1, h, c, c, dev, route)),
+                     t, c, h, pair, s)
+        pair_kernel.launches += pair
         return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part.sum(0)
 
 
@@ -450,21 +506,23 @@ class _SweepForwardKernel(Kernel):
 
 
 class _SweepBackwardKernel(Kernel):
-    """csrc svt_gated_sweep_bwd: _BackwardKernel's route for all N combos, one
-    launch of each pass. Returns what gated_sweep_bwd_plain returns (db_dec's
-    partial rows)."""
+    """csrc svt_gated_sweep_bwd: _BackwardKernel's route for all N combos
+    (bwd_route's from one dictionary's width), one launch of each pass.
+    Returns what gated_sweep_bwd_plain returns (db_dec's partial rows)."""
 
     name = "fused_gated_sae_sweep_bwd"
 
     def __call__(self, x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via, coeffs,
-                 n_split=None):
+                 n_split=None, route=None):
         n, t, c, h = _check_sweep_operands(self.name, x, w_gate, b_gate, b_mag, er, w_dec,
                                            b_dec)
         dev = x.device
         _expect("err_rec", err_rec, (n, t, c), _F32, dev)
         _expect("err_via", err_via, (n, t, c), _F32, dev)
         _expect("coeffs", coeffs, (n, 3), _F32, dev)
-        s = launch_split(x, t, h, c, backward=True, n_split=n_split)  # one combo's
+        route, pair = _route(x, c, route)
+        s = launch_split(x, t, h, c, backward=True, n_split=n_split,
+                         pair=bool(pair))  # one combo's
         dw_gate = torch.empty((n, c, h), dtype=_F32, device=dev)
         db_gate, db_mag, dr_mag = (torch.empty((n, h), dtype=_F32, device=dev) for _ in range(3))
         dw_dec = torch.empty((n, h, c), dtype=_F32, device=dev)
@@ -475,7 +533,9 @@ class _SweepBackwardKernel(Kernel):
         self._launch(_lib().svt_gated_sweep_bwd, dev,
                      *_ptrs(x, w_gate, b_gate, b_mag, er, w_dec, b_dec, err_rec, err_via,
                             coeffs, dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part,
-                            x_cent, err_s, split_workspace(s, n, h, c, c, dev)), t, c, h, n, s)
+                            x_cent, err_s, split_workspace(s, n, h, c, c, dev, route)),
+                     t, c, h, n, pair, s)
+        pair_kernel.launches += pair
         return dw_gate, db_gate, db_mag, dr_mag, dw_dec, db_dec_part
 
 

@@ -117,6 +117,9 @@ HELD_MIN_COUT = 256
 # its CTAs a latent block (two: a thread block cluster).
 PAIR_C = 256
 PAIR_CTAS = 2
+# the widest C at which the gated epilogue keeps coder_bwd_tc: its pair lost or
+# tied at C 64 and 128 at large H (bwd_route's docstring)
+GATED_PAIR_MIN_C = 128
 
 
 def bodies_take(t: int, h: int, c_in: int = 256, c_out: int = 256, dtype=_BF16) -> bool:
@@ -204,13 +207,24 @@ def bwd_route(c_in: int, c_out: int, levels: int = 1, act: str = "relu", dtype=_
         the launch 1.30-2.99x faster at T 32,768; at T 4,096 and H to 3,072,
         where the bodies take 0.02-0.09 ms, the wrapper's host work sets the
         launch's time (PERF.md, "Findings");
+      * a bf16 gated backward of one level with GATED_PAIR_MIN_C < C
+        (coder_bwd_pair<Act::Gated>, after the two scale_err_kernel
+        pre-passes). On the same card, each body at its own rule's split, the
+        pair's body ran 1.28-2.51x faster than coder_bwd_tc's at every shape
+        of chip_bwd_probe.py's route grid at C 192 and 256 (T 4,096 and
+        32,768; expansions 2, 16, 64); at C 8, 64 and 128 it ran 1.41-1.86x
+        faster at expansion 2 (and at C 8 and 64 at 16), but 0.91-1.00x at C
+        64, expansion 64 and at C 128, expansions 16 and 64, and the rule
+        reads no H. Rows 7, 18 and 30 on the pair: 1.35x, 1.33x and 1.22x
+        coder_bwd_tc on the same launch (chip_smoke.py's "[route]" lines;
+        PERF.md, "Findings");
     - "tc": coder_bwd_tc, dW updated in place once a 512-token step, for every
       other bf16 backward: the coders' at C_out <= 256 (their entry point has
       no pair route, and there the held passes were no faster on the same
-      card: PERF.md, "Findings"), the gated epilogue, the JumpReLU one with
-      levels, and every dictionary wider than the pair's and held passes'
-      registers (the crosscoder's ΣC 2,896; C_in 264 and up, C_out 520 and
-      up);
+      card: PERF.md, "Findings"), the gated epilogue to GATED_PAIR_MIN_C, the
+      JumpReLU and gated ones with levels, and every dictionary wider than
+      the pair's and held passes' registers (the crosscoder's ΣC 2,896; C_in
+      264 and up, C_out 520 and up);
     - "simt": the f32 check path, coder_bwd_kernel.
     A launch that this rule sends to "held" or "pair" runs that body or raises:
     no other body takes its place."""
@@ -219,7 +233,9 @@ def bwd_route(c_in: int, c_out: int, levels: int = 1, act: str = "relu", dtype=_
     if (act == "relu" and levels == 1 and c_in <= HELD_CIN
             and HELD_MIN_COUT < c_out <= HELD_COUT):
         return "held"
-    if c_in == c_out <= PAIR_C and (act == "sae" or (act == "jump" and levels == 1)):
+    if c_in == c_out <= PAIR_C and (
+            act == "sae" or (act == "jump" and levels == 1)
+            or (act == "gated" and levels == 1 and c_in > GATED_PAIR_MIN_C)):
         return "pair"
     return "tc"
 

@@ -57,7 +57,7 @@ ROUTES = {
     "row 28 sae_mlp sweep backward (C 256)": (256, 256, 1, "sae", BF16, "pair"),
     "rows 14, 26 crosscoder backward (ΣC 2,896)": (2896, 2896, 1, "relu", BF16, "tc"),
     "rows 5, 20, 32 JumpReLU backward": (256, 256, 1, "jump", BF16, "pair"),
-    "rows 7, 18, 30 gated backward": (256, 256, 1, "gated", BF16, "tc"),
+    "rows 7, 18, 30 gated backward": (256, 256, 1, "gated", BF16, "pair"),
     "rows 9, 22, 34 Matryoshka backward (3 levels)": (256, 256, 3, "sae", BF16, "pair"),
     "phase 12 SAE C 512": (512, 512, 1, "sae", BF16, "tc"),
     "phase 12 SAE C 768": (768, 768, 1, "sae", BF16, "tc"),
@@ -88,15 +88,17 @@ def test_route_boundary(c_in, c_out):
     and at which it beat coder_bwd_tc: C_in <= 256 < C_out <= 512."""
     held = c_in <= fused_sae.HELD_CIN and fused_sae.HELD_MIN_COUT < c_out <= fused_sae.HELD_COUT
     assert (bwd_route(c_in, c_out) == "held") == held
-    # the JumpReLU epilogue takes the cluster pair at one width up to 256, and
-    # so do the ReLU and Matryoshka SAEs' at any levels
-    # (tests/test_torch_bwd_pair.py); the gated one never leaves coder_bwd_tc,
-    # nor do the coders' levels
+    # the JumpReLU epilogue takes the cluster pair at one width up to 256 (one
+    # level), the gated one from 136 to 256 (one level), and the ReLU and
+    # Matryoshka SAEs' at any levels (tests/test_torch_bwd_pair.py); the
+    # coders' levels never leave coder_bwd_tc
     pair = c_in == c_out <= fused_sae.PAIR_C
     assert bwd_route(c_in, c_out, act="jump") == ("pair" if pair else "tc")
     assert bwd_route(c_in, c_out, act="sae") == ("pair" if pair else "tc")
     assert bwd_route(c_in, c_out, levels=2, act="sae") == ("pair" if pair else "tc")
-    assert bwd_route(c_in, c_out, act="gated") == "tc"
+    gated = pair and c_in > fused_sae.GATED_PAIR_MIN_C
+    assert bwd_route(c_in, c_out, act="gated") == ("pair" if gated else "tc")
+    assert bwd_route(c_in, c_out, levels=2, act="gated") == "tc"
     assert bwd_route(c_in, c_out, levels=2) == "tc"
 
 

@@ -1,9 +1,9 @@
 """The cluster-pair backward route (sparse_vision_tpu_torch/csrc/coder.cuh
 coder_bwd_pair): the rule that picks it (ops/fused_sae.bwd_route), the grid
-split of its launches (ops/fused_sae.grid_split), the JumpReLU, ReLU and
-Matryoshka SAE wrappers that pass both to the C entry points, and its plain
-versions against the JAX package's JumpReLU, ReLU and Matryoshka backward
-kernels.
+split of its launches (ops/fused_sae.grid_split), the JumpReLU, ReLU,
+Matryoshka and gated SAE wrappers that pass both to the C entry points, and
+its plain versions against the JAX package's JumpReLU, ReLU, Matryoshka and
+gated backward kernels.
 
 On the card the route is one launch in which two CTAs of a thread block
 cluster share a 64-latent block: E holds dW_enc, D holds dW_dec in registers
@@ -29,13 +29,15 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_vision_tpu.models.sae import init_sae_mlp
+from sparse_vision_tpu.models.sae import init_gated_sae, init_sae_mlp
+from sparse_vision_tpu.ops.fused_gated_sae import fused_gated_sae_loss_terms as jax_gated
 from sparse_vision_tpu.ops.fused_jumprelu_sae import fused_jumprelu_sae_loss_terms as jax_fused
 from sparse_vision_tpu.ops.fused_matryoshka_sae import make_fused_matryoshka_sae_op
 from sparse_vision_tpu.ops.fused_sae import fused_sae_loss_terms as jax_relu
 from sparse_vision_tpu_torch import convert
 from sparse_vision_tpu_torch.ops import (
     fused_crosscoder,
+    fused_gated_sae,
     fused_jumprelu_sae,
     fused_matryoshka_sae,
     fused_sae,
@@ -56,9 +58,11 @@ F32 = torch.float32
 # H: on the card, each at its own split, the pair's body beat coder_bwd_tc's
 # at every width from 8 to 256 and every T and H of chip_bwd_probe.py's route
 # grid, with the JumpReLU epilogue and with the ReLU SAE's ("sae", also at
-# three prefix levels); past C 256 its gradient tile does not fit in a CTA's
-# registers. The coders ("relu": the transcoder and the crosscoder, whose entry
-# point has no pair) keep their routes at equal widths
+# three prefix levels), and with the gated SAE's at C 192 and 256 (at C 64
+# and 128 it lost or tied at large H, so the gated rule starts past 128);
+# past C 256 its gradient tile does not fit in a CTA's registers. The coders
+# ("relu": the transcoder and the crosscoder, whose entry point has no pair)
+# keep their routes at equal widths
 ROUTES = {
     "row 5 JumpReLU backward (C 256)": (256, 256, 1, "jump", BF16, "pair"),
     "row 20 JumpReLU TP backward (shard, C 256)": (256, 256, 1, "jump", BF16, "pair"),
@@ -74,7 +78,15 @@ ROUTES = {
         256, 256, 3, "jump", BF16, "tc"),
     "unequal widths": (256, 136, 1, "jump", BF16, "tc"),
     "rows 2, 16, 28 ReLU backward (C 256)": (256, 256, 1, "sae", BF16, "pair"),
-    "rows 7, 18, 30 gated backward (C 256)": (256, 256, 1, "gated", BF16, "tc"),
+    "rows 7, 18, 30 gated backward (C 256)": (256, 256, 1, "gated", BF16, "pair"),
+    "the gated SAE's ragged shape, C 136": (136, 136, 1, "gated", BF16, "pair"),
+    "the gated SAE at C 192": (192, 192, 1, "gated", BF16, "pair"),
+    "the gated SAE at C 128 (lost or tied at large H)": (128, 128, 1, "gated", BF16, "tc"),
+    "the gated SAE at C 64 (lost at expansion 64)": (64, 64, 1, "gated", BF16, "tc"),
+    "the gated SAE past the pair's registers, C 264": (264, 264, 1, "gated", BF16, "tc"),
+    "the gated SAE at C 480 (kernels_act_widths)": (480, 480, 1, "gated", BF16, "tc"),
+    "gated with 3 levels (no such op: the levels are the Matryoshka SAE's)": (
+        256, 256, 3, "gated", BF16, "tc"),
     "rows 9, 22, 34 Matryoshka backward (3 levels)": (256, 256, 3, "sae", BF16, "pair"),
     "the ReLU SAE's ragged shape, C 136": (136, 136, 1, "sae", BF16, "pair"),
     "the ReLU SAE at C 8": (8, 8, 1, "sae", BF16, "pair"),
@@ -87,6 +99,7 @@ ROUTES = {
     "row 5 in f32 (the check path)": (256, 256, 1, "jump", F32, "simt"),
     "C 136 in f32": (136, 136, 1, "jump", F32, "simt"),
     "row 2 in f32": (256, 256, 1, "sae", F32, "simt"),
+    "row 7 in f32": (256, 256, 1, "gated", F32, "simt"),
 }
 
 
@@ -98,14 +111,17 @@ def test_route_at_table_shapes(label):
     assert bwd_route(c_in, c_out, levels, act, name) == want
 
 
-@pytest.mark.parametrize("c", (8, 64, 136, 248, 256, 264, 512))
+@pytest.mark.parametrize("c", (8, 64, 128, 136, 248, 256, 264, 512))
 @pytest.mark.parametrize("act", ("jump", "relu", "gated", "sae"))
 @pytest.mark.parametrize("levels", (1, 3))
 def test_route_boundary(c, act, levels):
-    """The pair takes exactly a bf16 JumpReLU backward of one level and a ReLU
-    or Matryoshka SAE backward of any levels whose width its registers hold
-    (C <= PAIR_C), never the coders'; f32 is SIMT's."""
-    pair = (act == "sae" or (act == "jump" and levels == 1)) and c <= fused_sae.PAIR_C
+    """The pair takes exactly a bf16 JumpReLU backward of one level, a gated
+    one of one level past GATED_PAIR_MIN_C and a ReLU or Matryoshka SAE
+    backward of any levels whose width its registers hold (C <= PAIR_C),
+    never the coders'; f32 is SIMT's."""
+    pair = ((act == "sae" or (act == "jump" and levels == 1)
+             or (act == "gated" and levels == 1 and c > fused_sae.GATED_PAIR_MIN_C))
+            and c <= fused_sae.PAIR_C)
     assert (bwd_route(c, c, levels, act) == "pair") == pair
     assert bwd_route(c, c, levels, act, F32) == "simt"
 
@@ -148,21 +164,27 @@ def test_pair_split_invariants(t, h):
 
 
 def test_probe_grids_time_pair_launches():
-    """chip_bwd_probe.py's route grid (the evidence for the rule's widths)
-    times only launches that the rule gives the pair at shapes the bodies
-    take, from C 8 to PAIR_C, at T 4,096 and 32,768; its split grid has
+    """chip_bwd_probe.py's route grids (the evidence for the rule's widths)
+    time launches at shapes the bodies take, from C 8 to PAIR_C, at T 4,096
+    and 32,768, for the JumpReLU backward, which the rule gives the pair at
+    every width, and the gated one, whose pair the grid times at every width
+    and the rule takes on both sides of GATED_PAIR_MIN_C; its split grid has
     launches the rule splits in 2 and in 4, each at one dictionary and a
     sweep."""
     import chip_bwd_probe as probe
 
+    assert {"jump", "gated"} <= set(probe.GRID_ACTS)
     widths = set()
     for c in probe.GRID_C:
         for e in probe.GRID_EXP:
             h = max(128, -(-c * e // 128) * 128)
             for t in probe.GRID_T:
                 assert fused_sae.bodies_take(t, h, c, c)
+                assert fused_gated_sae.bwd_takes(t, h, c)
                 assert bwd_route(c, c, act="jump") == "pair"
                 widths.add(c)
+    gated = {bwd_route(c, c, act="gated") for c in probe.GRID_C}
+    assert gated == {"pair", "tc"}
     assert min(widths) == fused_sae.BF16_WIDTH and max(widths) == fused_sae.PAIR_C
     assert set(probe.GRID_T) == {4096, 32768}
     splits = {grid_split(t, h, c, backward=True, n_sm=N_SM, pair=True)
@@ -172,16 +194,35 @@ def test_probe_grids_time_pair_launches():
 
 @pytest.mark.parametrize("i", range(3))
 def test_smoke_pair_widths_take_the_pair(i):
-    """chip_smoke.py's PAIR_WIDTHS are launches the rule gives the pair (C 64
-    and 192, the backbones' narrower widths), on both sides of the split
-    rule's boundary: whole at expansion 64, split in 4 at C 64, H 1,024."""
+    """chip_smoke.py's PAIR_WIDTHS are launches the rule gives the JumpReLU
+    pair (C 64 and 192, the backbones' narrower widths), on both sides of the
+    split rule's boundary: whole at expansion 64, split in 4 at C 64, H
+    1,024; the rule gives the gated backward the pair at 192, not at 64."""
     import chip_smoke
 
     t, c, h = chip_smoke.PAIR_WIDTHS[i]
     assert bwd_route(c, c, act="jump") == "pair" and fused_sae.bodies_take(t, h, c, c)
+    assert bwd_route(c, c, act="gated") == ("pair" if c == 192 else "tc")
     want = 4 if h == 1024 else 1
     assert grid_split(t, h, c, backward=True, n_sm=N_SM, pair=True) == want
     assert len(chip_smoke.PAIR_WIDTHS) == 3
+
+
+@pytest.mark.parametrize("name", ("jumprelu_sae", "sae_mlp", "gated_sae"))
+def test_smoke_pair_split_shape_and_stress_take_the_pair(name):
+    """chip_smoke.py's ragged split check (T 2,176, C 136, H 640) and its
+    PAIR_STRESS sweep are launches the rule gives each SAE's pair, the first
+    split in 2 by the pair's rule, the second in 4, one dictionary's CTAs."""
+    import chip_smoke
+
+    act = {"jumprelu_sae": "jump", "sae_mlp": "sae", "gated_sae": "gated"}[name]
+    t, c, h = chip_smoke.PAIR_SPLIT_T, chip_smoke.RAGGED_C, chip_smoke.RAGGED_H
+    assert bwd_route(c, c, act=act) == "pair" and fused_sae.bodies_take(t, h, c, c)
+    assert grid_split(t, h, c, backward=True, n_sm=N_SM, pair=True) == 2
+    n, t, c, h = chip_smoke.PAIR_STRESS
+    assert n > 1 and bwd_route(c, c, act=act) == "pair"
+    assert grid_split(t, h, c, backward=True, n_sm=N_SM, pair=True) == 4
+    assert name in chip_smoke.PAIR_STRESS_NAMES
 
 
 @pytest.mark.parametrize("n", (1, 3))
@@ -269,12 +310,14 @@ def test_pair_route_not_taken_in_f32_or_past_its_width(libs, monkeypatch):
     assert fused_jumprelu_sae.pair_kernel.launches == 0
 
 
-@pytest.mark.parametrize("mod", (fused_jumprelu_sae, fused_sae), ids=("jump", "relu"))
+@pytest.mark.parametrize("mod", (fused_jumprelu_sae, fused_sae, fused_gated_sae),
+                         ids=("jump", "relu", "gated"))
 def test_pair_clusters_query_is_bound(libs, mod):
-    """svt_jumprelu_pair_clusters and svt_sae_pair_clusters (the build phase's
-    cluster occupancy of each instantiation) are bound with their one pointer
-    argument."""
-    entry = "svt_jumprelu_pair_clusters" if mod is fused_jumprelu_sae else "svt_sae_pair_clusters"
+    """svt_jumprelu_pair_clusters, svt_sae_pair_clusters and
+    svt_gated_pair_clusters (the build phase's cluster occupancy of each
+    instantiation) are bound with their one pointer argument."""
+    entry = {fused_jumprelu_sae: "svt_jumprelu_pair_clusters", fused_sae: "svt_sae_pair_clusters",
+             fused_gated_sae: "svt_gated_pair_clusters"}[mod]
     assert getattr(libs[mod], entry).argtypes == [mod._P]
     assert mod.pair_clusters() == 0  # the stand-in writes nothing
 
@@ -637,3 +680,187 @@ def test_route_slices_script_stands_alone():
     assert "chip_smoke" in names
     order = chip_route_slices.ORDER
     assert sorted(order) == ["pair", "pair", "tc", "tc"] and order == order[::-1]
+
+
+# ---------------------------------------------------------------------------
+# the gated SAE's pair route: its wrappers (the stand-in library) and its plain
+# version against JAX
+# ---------------------------------------------------------------------------
+
+def _gated_launch(kernel, n: int = 0, dtype=BF16, c: int = PC, **kw):
+    """One gated backward launch through ``kernel`` at (PT, c, PH) on zeros:
+    one dictionary (n 0) or a sweep of n combos."""
+    lead = (n,) if n else ()
+    ops = (_z(PT, c, dtype=dtype), _z(*lead, c, PH, dtype=dtype), _z(*lead, PH), _z(*lead, PH),
+           _z(*lead, PH) + 1.0, _z(*lead, PH, c, dtype=dtype), _z(*lead, c))
+    return kernel(*ops, _z(*lead, PT, c), _z(*lead, PT, c), _z(*lead, 3), **kw)
+
+
+GATED_WRAPPERS = {"one card": (fused_gated_sae.bwd_kernel, 0),
+                  "TP shard": (fused_sae_tp.gated_bwd_kernel, 0),
+                  "sweep of 3": (fused_gated_sae.sweep_bwd_kernel, 3)}
+
+
+@pytest.mark.parametrize("which", list(GATED_WRAPPERS))
+def test_gated_pair_route_flag_split_and_counts(libs, monkeypatch, which):
+    """Where the rule gives the gated backward the pair (bf16, C <= 256, one
+    level), its three wrappers pass ``pair`` 1 with the pair's split and a
+    workspace of two ticket arrays, and count one launch of their own and one
+    of coder_bwd_pair<Act::Gated> (fused_gated_sae.pair_kernel); route "tc"
+    passes 0 with coder_bwd_tc's split and counts no pair launch; the unsplit
+    launch passes no workspace."""
+    kernel, n = GATED_WRAPPERS[which]
+    monkeypatch.setattr(fused_gated_sae.pair_kernel, "launches", 0)
+    monkeypatch.setattr(kernel, "launches", 0)
+    assert bwd_route(PC, PC, act="gated") == "pair"
+    entry = "svt_gated_sweep_bwd" if n else "svt_gated_bwd"
+    names = [p for _, p in DECLS[entry]]
+    pair_s = grid_split(PT, PH, PC, backward=True, n_sm=N_SM, pair=True)
+    tc_s = grid_split(PT, PH, PC, backward=True, n_sm=N_SM)
+    assert (pair_s, tc_s) == (2, 4)
+    ws = fused_sae.split_workspace  # the workspaces the wrapper allocates, by route
+    sizes = []
+    monkeypatch.setattr(fused_gated_sae, "split_workspace",
+                        lambda *a, **k: sizes.append((a, k)) or ws(*a, **k))
+    for i, (kw, flag, s, pairs) in enumerate((({}, 1, pair_s, 1), ({"route": "tc"}, 0, tc_s, 1),
+                                              ({"n_split": 1}, 1, 1, 2))):
+        outs = _gated_launch(kernel, n, **kw)
+        args = getattr(libs[fused_gated_sae], entry).calls[-1]
+        assert args[names.index("pair")] == flag, kw
+        assert args[names.index("n_split")] == s, kw
+        assert (args[names.index("split_ws")] is None) == (s == 1), kw
+        assert sizes[-1][0][0] == s and sizes[-1][0][1] == max(n, 1)
+        assert sizes[-1][0][-1] == ("pair" if flag else "tc")
+        assert kernel.launches == i + 1
+        assert fused_gated_sae.pair_kernel.launches == pairs, kw
+        lead = (n,) if n else ()
+        assert outs[0].shape == (*lead, PC, PH) and outs[4].shape == (*lead, PH, PC)
+
+
+@pytest.mark.parametrize("which", list(GATED_WRAPPERS))
+def test_gated_pair_route_not_taken_in_f32_or_past_its_width(libs, monkeypatch, which):
+    """The f32 check path and a width past PAIR_C (C 264) pass ``pair`` 0 and
+    count no pair launch; a route the gated entry points do not have raises
+    before any launch."""
+    kernel, n = GATED_WRAPPERS[which]
+    monkeypatch.setattr(fused_gated_sae.pair_kernel, "launches", 0)
+    monkeypatch.setattr(kernel, "launches", kernel.launches)
+    entry = "svt_gated_sweep_bwd" if n else "svt_gated_bwd"
+    names = [p for _, p in DECLS[entry]]
+    lib = libs[fused_gated_sae]
+    _gated_launch(kernel, n, dtype=F32)
+    args = getattr(lib, entry).calls[-1]
+    assert args[names.index("pair")] == 0 and args[names.index("n_split")] == 1
+    assert bwd_route(264, 264, act="gated") == "tc"
+    _gated_launch(kernel, n, c=264)
+    args = getattr(lib, entry).calls[-1]
+    assert args[names.index("pair")] == 0
+    assert args[names.index("n_split")] == grid_split(PT, PH, 264, backward=True, n_sm=N_SM)
+    assert fused_gated_sae.pair_kernel.launches == 0
+    calls = len(getattr(lib, entry).calls)
+    with pytest.raises(ValueError, match="held"):
+        _gated_launch(kernel, n, route="held")
+    assert len(getattr(lib, entry).calls) == calls
+
+
+# T 1,152 (two 512-token steps and a partial one), C 16, H 256
+GT, GC, GH = 1152, 16, 256
+LAMBDA_G = 0.7
+GKEYS = ("W_gate", "b_gate", "b_mag", "r_mag", "W_dec", "b_dec")
+
+
+@pytest.fixture(scope="module")
+def gated_ties():
+    """Gated parameters and tokens on a dyadic grid (x and b_dec in quarters,
+    W_gate and W_dec in 1/256ths, b_gate and b_mag odd multiples of 2^-11,
+    exp(r_mag) 1, 2 or 1/2, as tests/test_torch_fused_gated_sae.py's ``wide``
+    fixture): the gate product, both decodes and so the residuals are exact in
+    f32 in both packages, so a bf16 rounding of c·err, which 1,152 tokens'
+    summation orders could otherwise flip, rounds the same value. Planted
+    ties: 8 latents whose W_gate column and b_gate are 0, so that pre_gate is
+    exactly 0 at every token (the gate's 0.5) while b_mag > 0 keeps pre_mag >
+    0 (d_premag = denc·0.5 flows into dW_dec, b_mag and r_mag); 16 gates that
+    never open."""
+    params = jax.device_get(init_gated_sae(jax.random.key(3), GC, GH // GC))
+    rng = np.random.default_rng(7)
+
+    def odd(n):
+        return ((2 * rng.integers(-40, 40, size=n) + 1) * 2.0 ** -11).astype(np.float32)
+
+    ties = np.arange(20, 28)
+    w_gate = _grid(params["W_gate"], 2.0 ** -8)
+    w_gate[:, ties] = 0.0
+    b_gate, b_mag = odd(GH), odd(GH)
+    b_gate[ties] = 0.0
+    b_mag[ties] = 0.25
+    b_gate[:16] = -50.0 - 2.0 ** -11
+    r_mag = (np.log(2.0) * rng.integers(-1, 2, size=GH)).astype(np.float32)
+    params = {**params, "W_gate": w_gate, "W_dec": _grid(params["W_dec"], 2.0 ** -8),
+              "b_gate": b_gate, "b_mag": b_mag, "r_mag": r_mag,
+              "b_dec": _grid(0.2 * rng.normal(size=GC), 0.25)}
+    x = _grid(np.random.default_rng(4).normal(size=(GT, GC)), 0.25)
+    return params, x, ties
+
+
+def test_gated_pair_plain_matches_jax(monkeypatch, gated_ties):
+    """The port's bf16 gated op on the CPU, whose backward takes the pair
+    route's plain version (ROUTE_PLAIN["pair"]: the pre-pass on both errors,
+    round(c_rec·err_rec) with its per-step direct rows of db_dec and
+    round(c_aux·err_via), then the gated epilogue), against the JAX op's
+    gradients (its _bwd_kernel in interpret mode, through the op's custom
+    VJP), at tests/test_torch_fused_gated_sae.py's bf16 tolerances: dW_gate to
+    2^-8 of its largest entry, db_dec to 1e-2, the rest rtol 1e-4, atol 1e-6.
+    The planted ties (pre_gate == 0) get the 0.5 gate on both sides: their
+    b_mag gradient is half the full gate's and their db_gate is 0. C 16 is
+    below GATED_PAIR_MIN_C, so the rule is made to name the pair here, as it
+    does from C 136."""
+    params, x, ties = gated_ties
+    assert bwd_route(GC, GC, act="gated", dtype=BF16) == "tc"
+    assert bwd_route(136, 136, act="gated", dtype=BF16) == "pair"
+    monkeypatch.setattr(fused_gated_sae, "bwd_route", lambda *a, **k: "pair")
+    ran = []
+    pair_plain = fused_gated_sae.ROUTE_PLAIN["pair"]
+    monkeypatch.setitem(fused_gated_sae.ROUTE_PLAIN, "pair",
+                        lambda *a: ran.append(a[0].dtype) or pair_plain(*a))
+    jx = jnp.asarray(x)
+    jgrad = jax.device_get(jax.grad(lambda p: jax_gated(
+        p, jx, LAMBDA_G, GH // GC, compute_dtype=jnp.bfloat16, tile_t=64, tile_h=128,
+        interpret=True)["loss"])({k: jnp.asarray(v) for k, v in params.items()}))
+    tp = {k: v.requires_grad_(True) for k, v in convert.sae_params_from_jax(params).items()}
+    loss = fused_gated_sae.fused_gated_sae_loss_terms(tp, torch.from_numpy(x), LAMBDA_G,
+                                                      GH // GC, compute_dtype=BF16)["loss"]
+    got = dict(zip(tp, torch.autograd.grad(loss, list(tp.values()))))
+    assert ran == [BF16]  # one backward, on the pair route's plain version
+    for k in GKEYS:
+        ref = np.asarray(jgrad[k])
+        rtol, atol = {"W_gate": (0, 2.0 ** -8 * np.abs(ref).max()),
+                      "b_dec": (0, 1e-2 * np.abs(ref).max())}.get(k, (1e-4, 1e-6))
+        np.testing.assert_allclose(got[k].numpy(), ref, rtol=rtol, atol=atol, err_msg=k)
+        assert np.abs(ref).max() > 0, k
+    # the ties: pre_gate exactly 0, so d_pregate is 0 and the 0.5 gate scales d_premag
+    assert not got["b_gate"][ties].any() and got["b_mag"][ties].abs().min() > 0
+    assert 0 < int((got["b_gate"] != 0).sum()) < GH
+
+
+def test_gated_route_plain_names_the_route():
+    """The gated backward_plain takes the route's plain version: bwd_route's
+    for the operands (pair in bf16 at C <= 256, simt in f32) or the one named;
+    "pair" and "tc" are the same function, bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    t, c, h = 256, 40, 128
+    for cd in (F32, BF16):
+        x = torch.randn(t, c, generator=g).to(cd)
+        wg = (torch.randn(c, h, generator=g) / 7).to(cd)
+        wd = (torch.randn(h, c, generator=g) / 11).to(cd)
+        ops = (x, wg, 0.1 * torch.randn(h, generator=g), 0.1 * torch.randn(h, generator=g),
+               torch.exp(0.1 * torch.randn(h, generator=g)), wd, 0.1 * torch.randn(c, generator=g))
+        args = (*ops, torch.randn(t, c, generator=g), torch.randn(t, c, generator=g),
+                torch.tensor([1e-3, 1e-2, 2e-3]))
+        want = (fused_gated_sae.gated_bwd_tc_plain if cd == BF16
+                else fused_gated_sae.fused_gated_backward_plain)(*args)
+        for route in (None, "pair" if cd == BF16 else "simt"):
+            got = fused_gated_sae.backward_plain(*args, route=route)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (cd, route)
+        if cd == BF16:
+            tc = fused_gated_sae.backward_plain(*args, route="tc")
+            assert all(torch.equal(a, b) for a, b in zip(tc, want))

@@ -361,7 +361,8 @@ def test_split_checks_script_stands_alone():
 
 @pytest.mark.parametrize("variant", ("no_products", "one_set", "tc_no_products",
                                      "tc_no_updates", "pair_no_products",
-                                     "pair_release_cluster", "pair_relu_no_products"))
+                                     "pair_release_cluster", "pair_relu_no_products",
+                                     "pair_gated_no_products"))
 def test_bwd_probe_ablations_match_the_bodies(variant):
     """chip_bwd_probe.py's ablations are text substitutions of csrc/coder.cuh:
     each still finds every text it replaces in its body (or the constants
